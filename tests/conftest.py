@@ -41,6 +41,9 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (with its reason) "
+                   "where there is none")
     # hypothesis example counts follow the same --fast gate (loaded before
     # collection, so @settings decorators inherit the profile's
     # max_examples); tests that pin max_examples explicitly are unaffected
