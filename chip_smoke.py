@@ -6,24 +6,40 @@
 Phases, one line each (a failed check raises and the run exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) -- exits 2 without CUDA;
-2. the build of the hand-written kernels (``nvcc`` time, ptxas summary);
+2. the build of the hand-written kernels (one ``nvcc`` per source, in
+   parallel; ptxas summary);
 3. each kernel against its plain PyTorch version on the card over a sweep
-   (add/max/min, weights with (x)=mul/add, bf16, empty segments, seg_base,
-   block_rows=4, E=5/96/128/2048, tables not 16-byte aligned), and a small
-   mixed program through the executor against the repo's numpy oracle
-   (``program_reference``);
+   (SLS: add/max/min, weights with (x)=mul/add, bf16, empty segments,
+   seg_base; gather: block_rows=4, E=5/96/2048; FusedMM: identity/relu,
+   f32/bf16, E=5/8/64/100/128/520, empty and zero segments; flash attention:
+   causal or not, GQA groups 1/4/16, D=64/128, S=256, a ragged 200 and 200
+   queries over 328 keys, f32/bf16; tables not 16-byte aligned; bf16 held
+   by ``kernels.agreement.check_bf16``), and a small mixed program through
+   the executor against the repo's numpy oracle (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
    rows capped at 10M per table, uniform ids) through
    ``executor_for(...).step`` for ``--steps`` steps, every op held against
-   its plain per-op version, then
-   the fused SLS unit's kernel against its plain version at that shape, and
-   the times of the kernel, the plain version and ``F.embedding_bag``;
+   its plain per-op version, then the fused SLS unit's kernel against its
+   plain version at that shape, and the times of the kernel, the plain
+   version and ``F.embedding_bag``;
 5. the same for DeepSeek-V2-Lite's step lookups (8 x 2048 tokens: token
    embedding, label gather, MoE dispatch, fused into one gather unit), with
    ``torch.index_select`` as the library call;
-6. one JSON line listing both kernels with their main-path launches, error,
-   times and bounds;
-7. ``{"ok": true, "device": {...}}`` as the last line.
+6. GNN message passing at ogbn-products sizes (2,449,029 nodes, 123,718,280
+   CSR entries, 100 fp32 features; a synthetic graph) as one ``fusedmm``
+   program through ``executor_for(...).step``, fresh features each step,
+   every output held against the plain version in chunks of segments, and
+   the FusedMM kernel's time against its bound;
+7. chatglm3-6b (28 layers, full width, bf16, random weights) through
+   ``LM.prefill`` over 4 x 4096 tokens: flash attention in every layer; in
+   one more prefill every layer's kernel output is held against the plain
+   version on that layer's own q, k, v (``check_bf16``), and the last
+   hidden state against a prefill with plain attention; the kernel's time
+   beside ``scaled_dot_product_attention``, also at one prefill_32k
+   sequence;
+8. one JSON line listing the four kernels with their main-path launches,
+   error, times and bounds;
+9. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -56,12 +72,49 @@ DLRM_DIM = 128
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+# ogbn-products (OGB, Hu et al. 2020): nodes, directed CSR entries (61,859,140
+# undirected edges, both directions), node feature width.  The graph here is
+# synthetic: Poisson degrees of the same mean, uniform neighbours.
+OGBN_NODES = 2_449_029
+OGBN_DIRECTED_EDGES = 123_718_280
+OGBN_FEATURES = 100
+GNN_CHECK_SEGMENTS = 100_000   # plain-version check in chunks of segments
+
+# chatglm3-6b prefill: 4 prompts x 4096 tokens (cut from launch/steps.py's
+# prefill_32k, 32 x 32768), and one prefill_32k sequence for the kernel alone
+PREFILL_BATCH, PREFILL_SEQ = 4, 4096
+PREFILLS = 3                   # timed prefills
+LONG_SEQ = 32768
+
+# H100 SXM (NVIDIA data sheet, dense, 700 W): HBM3 rate and peak rates
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12           # outside the tensor cores
+BF16_TC_FLOPS = 989e12
 
 # tolerances of kernel vs plain version (the same fp32 arithmetic in
 # another order: up to ~130 standard-normal terms per sum)
 TOL_SUM_F32 = dict(rtol=1e-5, atol=2e-4)
-TOL_BF16 = dict(rtol=5e-2, atol=5e-2)
+# fusedmm: fp32 dots of up to 520 terms feed each scale, then sums of ~10
+# scaled rows, each in another order than the plain version's
+TOL_FMM_F32 = dict(rtol=1e-4, atol=1e-3)
+# attention: the same recurrence over the same 64-key tiles, fp32 sums in
+# another order; outputs are convex combinations of unit-normal values
+TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
+# bf16 kernel outputs vs plain: kernels.agreement.check_bf16 (one bf16 step
+# per element, <= 1 % of elements differing, relative L2 <= 2^-9).
+# scaled_dot_product_attention rounds p against the running max of its own
+# tiles, so it may differ from the kernel by a bf16 step in many elements:
+# held to a relative L2 below one bf16 step
+LIBRARY_REL_L2_BF16 = 2 ** -7
+# ogbn-products message passing: each output sums ~50 terms s * x[j] with
+# s ~ N(0, 100), so outputs are ~70 in size; 1e-2 is 1.4e-4 of that scale
+TOL_GNN = dict(rtol=1e-4, atol=1e-2)
+# last hidden state of the chatglm3 prefill, kernel vs plain attention:
+# single bf16 steps in a few attention outputs are amplified by the bf16
+# GEMMs and norms of 28 layers, so this end-to-end bound catches only a
+# gross fault; the per-layer check_bf16 of every attention output is the
+# precise one
+PREFILL_REL_L2 = 5e-2
 
 
 class CheckFailed(RuntimeError):
@@ -95,6 +148,20 @@ def check_close(got, want, what: str, rtol: float = 0.0,
             f"{what}: {int(bad.sum())} elements off, max abs err {err:.3g} "
             f"(rtol={rtol}, atol={atol})")
     return err
+
+
+def _worst(acc: dict, a: dict) -> None:
+    """Fold one check_bf16 result into the running worst of a sweep."""
+    for key, val in a.items():
+        acc[key] = max(acc.get(key, 0.0), val)
+
+
+def _bf16_summary(a: dict) -> str:
+    if not a:
+        return "no cases"
+    return (f"max abs {a['max_abs']:.3g} ({a['worst']:.3g} x its one-step "
+            f"tol), <= {100 * a['share_differing']:.3g}% of elements "
+            f"differing, relative L2 <= {a['rel_l2']:.3g}")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -176,10 +243,11 @@ def _csr(rng, segs: int, rows: int, avg: float, pad: int = 0):
 def phase_sweep(seed: int) -> dict:
     import torch
     from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    errs = {"sls_sum_f32": 0.0, "sls_maxmin": 0.0, "sls_bf16": 0.0,
-            "gather": 0.0}
+    errs = {"sls_sum_f32": 0.0, "sls_maxmin": 0.0, "gather": 0.0}
+    bf16 = {}
     n_sls = n_gather = 0
     for dtype in (torch.float32, torch.bfloat16):
         for emb in (5, 96, 128):
@@ -208,8 +276,10 @@ def phase_sweep(seed: int) -> dict:
                         what = (f"sls {dtype} E={emb} {add}/{weighting} "
                                 f"seg_base={based}")
                         if dtype == torch.bfloat16:
-                            key, tol = "sls_bf16", TOL_BF16
-                        elif add == "add":
+                            _worst(bf16, check_bf16(got, want, what))
+                            n_sls += 1
+                            continue
+                        if add == "add":
                             key, tol = "sls_sum_f32", TOL_SUM_F32
                         else:
                             key, tol = "sls_maxmin", {}
@@ -265,10 +335,101 @@ def phase_sweep(seed: int) -> dict:
     torch.cuda.synchronize()
     print(f"[3 sweep] sls {n_sls} cases: max abs err sum/f32 "
           f"{errs['sls_sum_f32']:.3g} (tol rtol=1e-5 atol=2e-4), max/min "
-          f"{errs['sls_maxmin']:.3g} (exact), bf16 {errs['sls_bf16']:.3g} "
-          f"(tol 5e-2); gather {n_gather} cases bit-exact; {n_unaligned} "
-          f"unaligned tables (sls + gather) ok; empty launches ok")
+          f"{errs['sls_maxmin']:.3g} (exact), bf16 {_bf16_summary(bf16)}; "
+          f"gather {n_gather} cases bit-exact; {n_unaligned} unaligned "
+          f"tables (sls + gather) ok; empty launches ok")
     return errs
+
+
+def phase_sweep_fusedmm(seed: int) -> None:
+    """FusedMM against its plain version: identity/relu, f32/bf16, E = 8,
+    64, 100, 128 (and 5 and 520: the scalar path and several vectors per
+    thread), empty segments, an unaligned table, zero segments."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 1)
+    err_f32, bf16 = 0.0, {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for emb in (5, 8, 64, 100, 128, 520):
+            rows = 400
+            x = torch.from_numpy(rng.standard_normal((rows, emb)).astype(
+                np.float32)).to(dev, dtype)
+            for fn in ("identity", "relu"):
+                ptrs, idxs = _csr(rng, rows, rows, 7, pad=5)
+                args = (x, torch.from_numpy(ptrs).to(dev),
+                        torch.from_numpy(idxs).to(dev))
+                got = kops.fusedmm(*args, num_segments=rows, fn=fn)
+                want = ref.fusedmm(*args, num_segments=rows, fn=fn)
+                what = f"fusedmm {dtype} E={emb} {fn}"
+                if dtype == torch.float32:
+                    err_f32 = max(err_f32, check_close(got, want, what,
+                                                       **TOL_FMM_F32))
+                else:
+                    _worst(bf16, check_bf16(got, want, what))
+                empty = torch.from_numpy(np.diff(ptrs) == 0).to(dev)
+                require(bool((got[empty] == 0).all()),
+                        "fusedmm empty segments must be 0")
+                n += 1
+    flat = torch.from_numpy(rng.standard_normal(300 * 64 + 1).astype(
+        np.float32)).to(dev)
+    x = flat[1:].view(300, 64)
+    require(x.data_ptr() % 16 != 0, "unaligned view is aligned")
+    ptrs, idxs = _csr(rng, 300, 300, 7)
+    args = (x, torch.from_numpy(ptrs).to(dev), torch.from_numpy(idxs).to(dev))
+    err_f32 = max(err_f32, check_close(
+        kops.fusedmm(*args, num_segments=300),
+        ref.fusedmm(*args, num_segments=300), "fusedmm unaligned",
+        **TOL_FMM_F32))
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    require(kops.fusedmm(x, torch.zeros(1, dtype=torch.int32, device=dev), z,
+                         num_segments=0).shape == (0, 64),
+            "fusedmm with 0 segments")
+    torch.cuda.synchronize()
+    print(f"[3 sweep fusedmm] {n} cases + 1 unaligned table: max abs err "
+          f"f32 {err_f32:.3g} (tol rtol=1e-4 atol=1e-3), bf16 "
+          f"{_bf16_summary(bf16)}; zero segments ok")
+
+
+def phase_sweep_flash(seed: int) -> None:
+    """Flash attention against its plain version over the kernel's own KV
+    tiles: causal or not, GQA groups 1, 4, 16, D 64 and 128, S 256, a
+    ragged 200 and 200 queries over 328 keys, f32 and bf16."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.kernels.flash_attention import KV_TILE
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    err_f32, bf16 = 0.0, {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for h, hkv in ((4, 4), (8, 2), (16, 1)):
+                for sq, sk in ((256, 256), (200, 200), (200, 328)):
+                    q = torch.randn((2, sq, h, d), generator=g,
+                                    device=dev).to(dtype)
+                    k = torch.randn((2, sk, hkv, d), generator=g,
+                                    device=dev).to(dtype)
+                    v = torch.randn((2, sk, hkv, d), generator=g,
+                                    device=dev).to(dtype)
+                    for causal in (True, False):
+                        got = kops.attention(q, k, v, causal=causal)
+                        want = ref.attention(q, k, v, causal=causal,
+                                             chunk=KV_TILE)
+                        what = (f"flash {dtype} D={d} H={h}/{hkv} "
+                                f"Sq={sq} Sk={sk} causal={causal}")
+                        if dtype == torch.float32:
+                            err_f32 = max(err_f32, check_close(
+                                got, want, what, **TOL_ATTN_F32))
+                        else:
+                            _worst(bf16, check_bf16(got, want, what))
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"[3 sweep flash] {n} cases: max abs err f32 {err_f32:.3g} "
+          f"(tol rtol=1e-5 atol=1e-5), bf16 {_bf16_summary(bf16)}")
 
 
 def phase_small_program(seed: int) -> None:
@@ -338,39 +499,46 @@ def _time_steps(ex, steps):
     return outs, times, submit, kops.launch_counts()
 
 
+def _device_time(fn) -> list:
+    """Device time by kernel and copy of one call of ``fn`` under
+    torch.profiler: [(name, microseconds)], largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.key, e.self_device_time_total)
+                   for e in tp.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+
+
+def _busy(dev: list, wall_ms: float, top: int = 5) -> str:
+    if not dev:
+        return "device time not measured (the profiler saw no CUDA events)"
+    busy_ms = sum(us for _, us in dev) / 1e3
+    return (f"device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.1f}% "
+            f"of the {wall_ms:.3f} ms step (idle "
+            f"{100 - 100 * busy_ms / wall_ms:.1f}%): " +
+            ", ".join(f"{k[:40]} {us / 1e3:.4f} ms" for k, us in dev[:top]))
+
+
 def _where_the_time_goes(ex, ins, step_ms: float, top: int = 5) -> str:
     """Two more steps, one under cProfile (the host functions with the most
     own time) and one under torch.profiler (device time by kernel and copy,
     and its share of the unprofiled ``step_ms``)."""
     import cProfile
     import pstats
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     prof = cProfile.Profile()
     prof.runcall(ex.step, ins)
     rows = sorted(pstats.Stats(prof).stats.items(),
                   key=lambda kv: -kv[1][2])[:top]
     host = ", ".join(f"{fn[2]} {tt * 1e3:.2f} ms"
                      for fn, (_, _, tt, _, _) in rows)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as tp:
-        ex.step(ins)
-        torch.cuda.synchronize()
-    dev = sorted(((e.key, e.self_device_time_total)
-                  for e in tp.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    busy_ms = sum(us for _, us in dev) / 1e3
-    if not dev:
-        device = "device time not measured (the profiler saw no CUDA events)"
-    else:
-        device = (f"device busy {busy_ms:.4f} ms = "
-                  f"{100 * busy_ms / step_ms:.1f}% of the {step_ms:.3f} ms "
-                  f"step (idle {100 - 100 * busy_ms / step_ms:.1f}%): " +
-                  ", ".join(f"{k[:40]} {us / 1e3:.4f} ms"
-                            for k, us in dev[:top]))
+    device = _busy(_device_time(lambda: ex.step(ins)), step_ms, top)
     return f"host (cProfile, own time): {host}; {device}"
 
 
@@ -583,6 +751,290 @@ def phase_deepseek(seed: int, n_steps: int) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: GNN message passing (FusedMM) at ogbn-products scale
+# ---------------------------------------------------------------------------
+
+def _fusedmm_plain_in_chunks(x, ptrs, idxs, out=None, what: str = ""):
+    """The plain version over every segment, CHUNK segments at a time (at
+    full size its gathered neighbour rows alone would be 49.5 GB).  Holds
+    ``out`` against it when given; returns the max abs error."""
+    from repro_torch.kernels import ref
+    n = ptrs.numel() - 1
+    err = 0.0
+    for lo in range(0, n, GNN_CHECK_SEGMENTS):
+        hi = min(lo + GNN_CHECK_SEGMENTS, n)
+        want = ref.fusedmm(x, ptrs[lo:hi + 1], idxs, num_segments=hi - lo,
+                           first_segment=lo)
+        if out is not None:
+            err = max(err, check_close(out[lo:hi], want,
+                                       f"{what} segments {lo}:{hi}",
+                                       **TOL_GNN))
+    return err
+
+
+def phase_gnn(seed: int, n_steps: int) -> dict:
+    import torch
+    from repro_torch.core.executor import executor_for
+    from repro_torch.core.ops import EmbeddingOp, EmbeddingProgram
+    from repro_torch.kernels import ops as kops
+    torch.cuda.reset_peak_memory_stats()
+    n, e = OGBN_NODES, OGBN_FEATURES
+    prog = EmbeddingProgram("ogbn-products-mp", (
+        ("mp", EmbeddingOp("fusedmm", n, n, e,
+                           avg_lookups=round(OGBN_DIRECTED_EDGES / n))),))
+    t0 = time.perf_counter()
+    ex = executor_for(prog, "O3")
+    compile_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    ptrs = np.zeros(n + 1, np.int32)
+    np.cumsum(rng.poisson(OGBN_DIRECTED_EDGES / n, n), out=ptrs[1:])
+    nnz = int(ptrs[-1])
+    idxs = rng.integers(0, n, nnz, dtype=np.int32)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn((n, e), generator=g, device="cuda")
+          for _ in range(n_steps)]          # fresh features every step
+    steps = [{"mp": {"x": x, "ptrs": ptrs, "idxs": idxs}} for x in xs]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    outs, times, submit, counts = _time_steps(ex, steps)
+    require(counts["fusedmm"] == n_steps,
+            f"GNN main path launched fusedmm {counts['fusedmm']} times, "
+            f"expected {n_steps}")
+    require(ex.stats["table_rebinds"] == n_steps - 1,
+            "fresh x every step must rebind the dense operand")
+    dptrs = torch.from_numpy(ptrs).cuda()
+    didxs = torch.from_numpy(idxs).cuda()
+    err = 0.0
+    for i, (x, out) in enumerate(zip(xs, outs)):
+        err = max(err, _fusedmm_plain_in_chunks(x, dptrs, didxs, out["mp"],
+                                                f"GNN step {i}"))
+    step_ms = np.mean(times[1:]) * 1e3
+    print(f"[6 gnn] ogbn-products sizes, synthetic graph (Poisson degrees, "
+          f"mean {OGBN_DIRECTED_EDGES / n:.2f}, uniform neighbours): {n} "
+          f"nodes, {nnz} CSR entries, {e} fp32 features; {n_steps} steps of "
+          f"1 fusedmm unit, fresh x each step; fusedmm launches "
+          f"{counts['fusedmm']}; compile {compile_s:.2f} s, data {data_s:.2f} "
+          f"s; step 1 {times[0] * 1e3:.2f} ms, steps 2-{n_steps} mean "
+          f"{step_ms:.3f} ms (submit alone {np.mean(submit[1:]) * 1e3:.3f} "
+          f"ms; pinned staging {ex.pool.stats['bytes'] / 1e9:.2f} GB); every "
+          f"step == plain version in chunks of {GNN_CHECK_SEGMENTS} segments "
+          f"(max abs err {err:.3g}, tol rtol=1e-4 atol=1e-2)")
+    print(f"[6 gnn where] {_where_the_time_goes(ex, steps[-1], step_ms)}")
+    x = xs[-1]
+
+    def kernel():
+        return kops.fusedmm(x, dptrs, didxs, num_segments=n)
+    ms = time_ms(kernel, 10)
+    t0 = time.perf_counter()
+    _fusedmm_plain_in_chunks(x, dptrs, didxs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = n * e * 4 + nnz * 4 + (n + 1) * 4 + n * e * 4
+    flops = 4 * e * nnz          # dot + axpy per neighbour row
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    no_l2_ms = nnz * e * 4 / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[6 gnn kernel] fusedmm {n} segments, {nnz} lookups of {e * 4} B "
+          f"rows: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (in chunks, "
+          f"host clock), library none (no single PyTorch call computes "
+          f"FusedMM); bound {bound_ms:.4f} ms = max(bytes once "
+          f"{nbytes / 1e9:.3f} GB / 3.35 TB/s = {bytes_ms:.4f} ms, "
+          f"{flops / 1e9:.2f} GFLOP / 67 TFLOP/s fp32 = {flops_ms:.4f} ms); "
+          f"every neighbour row from HBM ({nnz * e * 4 / 1e9:.1f} GB) would "
+          f"take {no_l2_ms:.2f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    result = {"name": "fusedmm", "route": "cuda",
+              "source": "src/repro_torch/csrc/ember_fusedmm.cu",
+              "replaces": "src/repro/kernels/fusedmm.py:41",
+              "launches": counts["fusedmm"], "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+              "library_ms": None, "held_against_plain": True}
+    del ex, xs, steps, outs, x, dptrs, didxs
+    free_cuda()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: chatglm3-6b prefill (flash attention in every layer)
+# ---------------------------------------------------------------------------
+
+class _AttentionSwap:
+    """Route the model's attention (``kernels.ops.attention``, which
+    ``models.attention`` looks up at each call) through ``fn`` while
+    active: the plain version for the whole-prefill comparison, or a
+    recorder of a layer's q, k, v."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+        self.saved = kops.attention
+        kops.attention = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops as kops
+        kops.attention = self.saved
+        return False
+
+
+def phase_chatglm3(seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+    from repro_torch.kernels.flash_attention import KV_TILE
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("chatglm3-6b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+
+    model.prefill(tokens)          # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    times, last = [], None
+    for _ in range(PREFILLS):
+        t0 = time.perf_counter()
+        last = model.prefill(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = kops.launch_counts()
+    require(counts["flash_attention"] == PREFILLS * cfg.num_layers,
+            f"chatglm3 prefill launched flash_attention "
+            f"{counts['flash_attention']} times, expected "
+            f"{PREFILLS * cfg.num_layers}")
+    require(last.shape == (PREFILL_BATCH, 1, cfg.d_model) and
+            bool(torch.isfinite(last).all()), "prefill output")
+    prefill_ms = float(np.mean(times)) * 1e3
+    dev = _device_time(lambda: model.prefill(tokens))
+    attn_us = sum(us for k, us in dev if "flash" in k)
+
+    def plain(q, k, v, **kw):
+        """The plain version over the kernel's KV tiles."""
+        return ref.attention(q, k, v, **{**kw, "chunk": KV_TILE})
+
+    # one more prefill through the kernel, every layer's attention output
+    # held against the plain version on that layer's own q, k, v
+    per_layer, first = [], []
+
+    def held(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        per_layer.append(check_bf16(
+            out, plain(q, k, v, **kw),
+            f"flash kernel on layer {len(per_layer)}'s q, k, v"))
+        if not first:
+            first.append((q, k, v, kw))
+        return out
+    with _AttentionSwap(held):
+        model.prefill(tokens)
+    require(len(per_layer) == cfg.num_layers, "one attention call per layer")
+    layers = {}
+    for a in per_layer:
+        _worst(layers, a)
+    err = layers["max_abs"]
+
+    with _AttentionSwap(plain):
+        plain_last = model.prefill(tokens)
+    diff = (last.float() - plain_last.float())
+    rel_l2 = float(diff.norm() / plain_last.float().norm())
+    require(rel_l2 <= PREFILL_REL_L2 and bool(torch.isfinite(diff).all()),
+            f"prefill with the kernel vs plain attention: relative L2 "
+            f"{rel_l2:.3g} > {PREFILL_REL_L2}")
+
+    q, k, v, kw = first.pop()
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+
+    def kernel():
+        return kops.attention(q, k, v, causal=True)
+    ms = time_ms(kernel, 10)
+    plain_ms = time_ms(lambda: ref.attention(q, k, v, **kw), 2, warmup=1)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = bf16_agreement(library().transpose(1, 2), kernel())
+    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
+            f"scaled_dot_product_attention vs kernel: relative L2 "
+            f"{lib['rel_l2']:.3g} > 2^-7")
+    library_ms = time_ms(library, 10)
+    flops = 2 * b * h * s * s * d        # causal QK^T and PV
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = ("operations" if flops / BF16_TC_FLOPS >=
+                nbytes / HBM_BYTES_PER_S else "bytes")
+    del q, k, v, qt, kt, vt
+
+    # one sequence of prefill_32k, the kernel alone
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ql = torch.randn((1, LONG_SEQ, h, d), generator=g,
+                     device="cuda").bfloat16()
+    kl = torch.randn((1, LONG_SEQ, hkv, d), generator=g,
+                     device="cuda").bfloat16()
+    vl = torch.randn((1, LONG_SEQ, hkv, d), generator=g,
+                     device="cuda").bfloat16()
+    long_ms = time_ms(lambda: kops.attention(ql, kl, vl, causal=True), 3,
+                      warmup=1)
+    qlt = ql.transpose(1, 2)
+    klt = kl.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    vlt = vl.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    long_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qlt, klt, vlt, is_causal=True), 3, warmup=1)
+    long_bound_ms = 2 * h * LONG_SEQ ** 2 * d / BF16_TC_FLOPS * 1e3
+    del ql, kl, vl, qlt, klt, vlt
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[7 chatglm3 prefill] {cfg.name} {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} "
+          f"KV, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, {n_params} "
+          f"params (random, seed {seed}; init {init_s:.2f} s); "
+          f"{PREFILL_BATCH} x {PREFILL_SEQ} uniform token ids: prefill mean "
+          f"{prefill_ms:.2f} ms over {PREFILLS} (host clock + synchronize); "
+          f"flash_attention launches {counts['flash_attention']}; "
+          f"{_busy(dev, prefill_ms)}; attention kernels "
+          f"{attn_us / 1e3:.2f} ms of it; every layer's kernel output == "
+          f"plain on its own q, k, v ({cfg.num_layers} layers: "
+          f"{_bf16_summary(layers)}); last hidden state == prefill with "
+          f"plain attention (relative L2 {rel_l2:.3g}, max abs "
+          f"{float(diff.abs().max()):.3g}, tol relative L2 "
+          f"{PREFILL_REL_L2}); peak device memory {peak / 2**30:.2f} GiB")
+    print(f"[7 chatglm3 kernel] flash attention per layer (B={b}, S={s}, "
+          f"H={h}, Hkv={hkv}, D={d}, causal, bf16): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention (KV heads "
+          f"expanded beforehand) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s; kernel at "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; vs the library: "
+          f"{_bf16_summary(lib)}); prefill_32k sequence (B=1, "
+          f"S={LONG_SEQ}): kernel {long_ms:.3f} ms, "
+          f"scaled_dot_product_attention {long_lib_ms:.3f} ms, bound "
+          f"{long_bound_ms:.3f} ms")
+    result = {"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/csrc/ember_flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:65",
+              "launches": counts["flash_attention"], "max_abs_err": err,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms,
+              "held_against_plain": True}
+    del model, tokens, last, plain_last, diff, per_layer
+    free_cuda()
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -599,14 +1051,26 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails here outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     name = phase_device()
     phase_build()
     phase_sweep(args.seed)
+    phase_sweep_fusedmm(args.seed)
+    phase_sweep_flash(args.seed)
     phase_small_program(args.seed)
+    seconds = {"1-3": time.perf_counter() - t0}
     if args.sweep_only:
         return 0
-    kernels = [phase_dlrm(args.seed, args.steps),
-               phase_deepseek(args.seed, args.steps)]
+    kernels = []
+    for phase, run in (("4", lambda: phase_dlrm(args.seed, args.steps)),
+                       ("5", lambda: phase_deepseek(args.seed, args.steps)),
+                       ("6", lambda: phase_gnn(args.seed, args.steps)),
+                       ("7", lambda: phase_chatglm3(args.seed))):
+        t0 = time.perf_counter()
+        kernels.append(run())
+        seconds[phase] = time.perf_counter() - t0
+    print("[time] wall seconds by phase: " +
+          ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}))

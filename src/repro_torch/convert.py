@@ -4,6 +4,11 @@ The reference hands program inputs around as ``{op name: {stream: array}}``
 dicts whose tables are numpy (or JAX) arrays.  The port's input contract is
 the same dict with tables as tensors on the executor's device and the
 per-step index streams left as numpy arrays.
+
+An LM's parameters are a pytree in the reference (per-layer leaves stacked
+over the scanned super-blocks under ``scan``, the remainder layers under
+``rest``) and a flat ``state_dict`` of :class:`repro_torch.models.lm.LM`
+here: :func:`lm_params_from_reference` maps one onto the other.
 """
 from __future__ import annotations
 
@@ -43,7 +48,49 @@ def program_inputs_to_torch(inputs: dict, device=None) -> dict:
 def _to_tensor(table, dev: torch.device) -> torch.Tensor:
     if isinstance(table, torch.Tensor):
         return table.to(dev).contiguous()
-    return torch.tensor(np.ascontiguousarray(np.asarray(table)), device=dev)
+    arr = np.ascontiguousarray(np.asarray(table))
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.tensor(arr, device=dev)
+
+
+def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
+    """The reference's LM parameter pytree (numpy arrays, or anything
+    ``np.asarray`` takes) as a ``state_dict`` for
+    :class:`repro_torch.models.lm.LM` on ``device`` (the CUDA card unless
+    ``device="cpu"``), in the reference's dtype.
+
+    Layer ``n * len(pattern) + i`` is slot ``i`` of super-block ``n`` in
+    ``params["scan"]`` (leaves stacked over ``cfg.n_super``); the
+    remainder layers follow from ``params["rest"]``."""
+    dev = resolve_device(device)
+    state = {"embed": _to_tensor(params["embed"], dev),
+             "final_norm": _to_tensor(params["final_norm"], dev)}
+    layers = []
+    pattern = tuple(cfg.block_pattern)
+    for n in range(cfg.n_super):
+        for i in range(len(pattern)):
+            layers.append(_tree_index(params["scan"][i], n))
+    layers.extend(params.get("rest", ()))
+    for li, layer in enumerate(layers):
+        for key, val in _flatten(layer):
+            state[f"blocks.{li}.{key}"] = _to_tensor(val, dev)
+    return state
+
+
+def _tree_index(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, n) for k, v in tree.items()}
+    return np.asarray(tree)[n]
+
+
+def _flatten(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def embed_tables_from_params(params: dict) -> dict:

@@ -12,13 +12,15 @@ row width + dtype       the row tile (``kernels.sls.row_tile``): 16-byte
                         accesses (at most a warp); rows per block fill a
                         256-thread block
 store_streams           pure-copy kernel (block gather)
+kind == fusedmm         the FusedMM kernel: one thread group per output row
+                        holds x[i] and makes one pass over each neighbour
+                        row (dot, f, axpy)
 =====================  =====================================================
 
 The reference floors the column tile at the TPU's 128 lanes and walks
 column tiles without bufferization; on Hopper every lookup reads whole rows
 with no lane floor, so every opt level (O0 included) launches the same
-kernels.
-``fusedmm`` has no Hopper kernel yet and raises.
+kernels.  Every kind of the executor has a kernel.
 """
 from __future__ import annotations
 
@@ -78,15 +80,19 @@ def _dev(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def execute(res: CompileResult, inputs: dict) -> torch.Tensor:
     """Run the compiled op through the Hopper kernels.
 
-    ``inputs["table"]`` is a tensor whose device picks the path (CUDA: the
-    kernels; CPU: their plain versions); index streams may be tensors on
-    that device or host arrays."""
+    ``inputs["table"]`` (``inputs["x"]`` for fusedmm) is a tensor whose
+    device picks the path (CUDA: the kernels; CPU: their plain versions);
+    index streams may be tensors on that device or host arrays."""
     op = res.op
     plan = make_plan(res)
     if op.kind == "fusedmm":
-        raise NotImplementedError(
-            "fusedmm has no Hopper kernel yet (ROADMAP.md, Queue 2 item 1: "
-            "kernels/fusedmm.py fusedmm_pallas)")
+        # the dense operand x is both the table and the per-row input; f
+        # stays identity, as on the reference's path
+        x = inputs["x"]
+        return kops.fusedmm(x, _dev(_ptrs_of(op, inputs), x.device,
+                                    torch.int32),
+                            _dev(inputs["idxs"], x.device, torch.int32),
+                            num_segments=op.num_segments)
     table = inputs["table"]
     dev = table.device
     i32 = torch.int32

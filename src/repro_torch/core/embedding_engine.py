@@ -1,9 +1,23 @@
-"""The model-facing embedding program (counterpart of
-``repro/core/embedding_engine.py``; only :func:`model_embedding_program` is
-ported so far -- the JAX lookup strategies stay in ROADMAP.md)."""
+"""The model-facing embedding lookup and program (counterpart of
+``repro/core/embedding_engine.py``; ported so far: :func:`lookup` with the
+``take`` strategy and :func:`model_embedding_program` -- the sharded lookup
+strategies wait for the sharding item in ROADMAP.md, Queue 1 item 4)."""
 from __future__ import annotations
 
+import torch
+
 from .ops import EmbeddingOp, EmbeddingProgram
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, *,
+           strategy: str = "take") -> torch.Tensor:
+    """Embed ``ids (..., S)`` from ``table (V, D)`` -> ``(..., S, D)``."""
+    if strategy != "take":
+        raise NotImplementedError(
+            f"lookup strategy {strategy!r} is sharded and not ported yet "
+            "(ROADMAP.md, Queue 1 item 4)")
+    return table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[1])
 
 
 def model_embedding_program(*, vocab_size: int, d_model: int, tokens: int,

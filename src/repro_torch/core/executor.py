@@ -388,7 +388,8 @@ class ProgramExecutor:
             buf["vals"][:nnz] = ins["vals"]
             buf["vals"][nnz:cap] = 0
         dev = {k: self._put(t) for k, t in slot.items()}
-        dev["table"] = u.table
+        # fusedmm's dense operand x: per-step data, bound by identity
+        dev["x" if op.kind == "fusedmm" else "table"] = u.table
         return dev
 
     # ------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface, so they are compiled by ``nvcc`` alone
-into one shared library and loaded with :mod:`ctypes` -- no PyTorch headers,
-which keeps the build to seconds.  The library is built at first use (never
+-- one ``nvcc`` per source, all started together, then one link -- into one
+shared library loaded with :mod:`ctypes`.  No PyTorch headers, which keeps
+the build to seconds.  The library is built at first use (never
 at import) into ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags: a changed source builds anew, an unchanged one
 loads the earlier build.  Each build is written under a temporary name and
@@ -23,11 +24,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "ember_kernels.cu",)
+SOURCES = (CSRC / "ember_kernels.cu", CSRC / "ember_fusedmm.cu",
+           CSRC / "ember_flash_attention.cu")
+HEADERS = (CSRC / "ember_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -41,6 +43,14 @@ _SIGNATURES = {
     # unit_bytes, threads_per_row, rows_per_block, stream
     "ember_block_gather": (_P, _P, _P, _P, _I64, _I64, _I64,
                            _I32, _I32, _I32, _P),
+    # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, vec,
+    # threads_per_row, rows_per_block, stream
+    "ember_fusedmm": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                      _I32, _I32, _P),
+    # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, dtype,
+    # causal, scale, stream
+    "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                              _I32, _I32, _I32, ctypes.c_double, _P),
 }
 
 
@@ -69,34 +79,43 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def build() -> BuildRecord:
-    """Compile the sources unless a build of these exact sources exists."""
+    """Compile the sources unless a build of these exact sources exists:
+    one ``nvcc -c`` per source, run in parallel, then one link."""
     out = BUILD_DIR / f"ember_kernels-{_digest()}.so"
     if out.exists():
         return BuildRecord(out, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".tmp",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
     t0 = time.perf_counter()
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / (src.stem + ".o") for src in SOURCES]
+        procs = [(src, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        for src, proc in procs:
+            text = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc exited {proc.returncode} on {src.name}:"
+                              f"\n{text[-8000:]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = Path(tmpdir) / out.name
+        r = subprocess.run([nvcc(), "-shared", "-o", str(lib),
+                            *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc exited {r.returncode}:\n"
-                               f"{' '.join(cmd)}\n{r.stderr[-8000:]}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildRecord(out, True, time.perf_counter() - t0,
-                       r.stdout + r.stderr)
+            raise RuntimeError(f"nvcc link exited {r.returncode}:\n"
+                               f"{r.stderr[-8000:]}")
+        os.replace(lib, out)
+    return BuildRecord(out, True, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,79 @@
+"""Flash attention on Hopper: the wrapper of ``ember_flash_attention``
+(``csrc/ember_flash_attention.cu``), which replaces the TPU kernel
+``flash_attention`` / ``_flash_kernel`` of
+``src/repro/kernels/flash_attention.py`` and computes the reference's
+``blockwise_attention`` (``src/repro/models/attention.py``).
+
+Layout as in the JAX package: q (B,Sq,H,D), k and v (B,Sk,Hkv,D), GQA by
+head groups.  A call whose tensors lie on the CPU runs the plain version
+(:func:`repro_torch.kernels.ref.attention`); a CUDA call launches the kernel
+or raises -- nothing falls back.  ``flash_attention_cuda.launches`` counts
+the kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+from .sls import DTYPES, one_device
+
+HEAD_DIMS = (64, 128)
+#: the kernel's KV tile (kBK in csrc/ember_flash_attention.cu): the plain
+#: version with ``chunk=KV_TILE`` rounds p against the same running max
+KV_TILE = 64
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """softmax(q k^T * D^-1/2, causal) v per head, KV head ``h // (H/Hkv)``
+    for query head h -> (B,Sq,H,Dv) in q's dtype.
+
+    ``chunk`` is the KV chunk of the plain version's recurrence (it decides
+    only the fp32 summation order); the kernel streams its own 64-row
+    tiles.  On the card, a sliding ``window`` and a value width other than
+    D have no kernel yet (ROADMAP.md, Queue 1 item 5) and raise."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 4-D float32 or "
+                             f"bfloat16 tensor, got {t.dtype} of shape "
+                             f"{tuple(t.shape)}")
+    b, sq, h, d = q.shape
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d or \
+            k.shape[2] == 0 or h % k.shape[2] or \
+            not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} ({q.dtype}, {k.dtype}, "
+                         f"{v.dtype}) are not one GQA attention")
+    dev = one_device(q, k, v)
+    if dev.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             chunk=chunk)
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window attention has no Hopper kernel yet (ROADMAP.md, "
+            "Queue 1 item 5: the dense_local block kind)")
+    if v.shape[3] != d:
+        raise NotImplementedError(
+            f"attention with value width {v.shape[3]} != {d} has no Hopper "
+            "kernel yet (ROADMAP.md, Queue 1 item 5: the mla block kind)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    sk, hkv = k.shape[1], k.shape[2]
+    with torch.cuda.device(dev):
+        err = _build.library().ember_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, hkv, d, DTYPES[q.dtype], int(causal), d ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ember_flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -7,25 +7,30 @@ here the tensors' device decides: CPU tensors run the plain versions
 from __future__ import annotations
 
 from . import ref
+from .flash_attention import flash_attention_cuda
+from .fusedmm import fusedmm_cuda
 from .gather import block_gather_cuda
 from .sls import sls_cuda
-
 
 #: the wrappers dispatch on the tensors' device themselves
 sls = sls_cuda
 block_gather = block_gather_cuda
+fusedmm = fusedmm_cuda
+attention = flash_attention_cuda
+
+_WRAPPERS = {"sls": sls_cuda, "block_gather": block_gather_cuda,
+             "fusedmm": fusedmm_cuda, "flash_attention": flash_attention_cuda}
 
 
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
-    return {"sls": sls_cuda.launches,
-            "block_gather": block_gather_cuda.launches}
+    return {name: w.launches for name, w in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    sls_cuda.launches = 0
-    block_gather_cuda.launches = 0
+    for w in _WRAPPERS.values():
+        w.launches = 0
 
 
-__all__ = ["sls", "block_gather", "ref", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["sls", "block_gather", "fusedmm", "attention", "ref",
+           "launch_counts", "reset_launch_counts"]

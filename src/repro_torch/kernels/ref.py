@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the Hopper kernels.
 
-The kernel wrappers (:mod:`.sls`, :mod:`.gather`) run these for tensors on
-the CPU; the tests hold them against the JAX package, and ``chip_smoke.py``
-holds each kernel against them on the card.  They repeat the kernels'
-arithmetic (fp32 accumulation, one cast to the table's dtype at the end) and
-are no yardstick of speed.
+The kernel wrappers (:mod:`.sls`, :mod:`.gather`, :mod:`.fusedmm`,
+:mod:`.flash_attention`) run these for tensors on the CPU; the tests hold
+them against the JAX package, and ``chip_smoke.py`` holds each kernel against
+them on the card.  They repeat the kernels' arithmetic (fp32 accumulation,
+one cast to the input's dtype at the end) and are no yardstick of speed.
 
 Unlike the reference's oracles, CSR input is taken as ``ptrs`` directly (no
 segment-id form): ``idxs`` may be longer than ``ptrs[-1]`` (the executor's
@@ -61,3 +61,80 @@ def block_gather(table: torch.Tensor, idxs: torch.Tensor, *,
             torch.arange(block_rows, device=table.device)[None, :])
     return table.index_select(0, rows.reshape(-1)).reshape(
         idxs.shape[0], block_rows, table.shape[1])
+
+
+def fusedmm(x: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor, *,
+            num_segments: int, fn: str = "identity",
+            first_segment: int = 0) -> torch.Tensor:
+    """FusedMM (message passing), SDDMM + SpMM in one pass:
+    ``out[i] = sum_{p in [ptrs[i], ptrs[i+1])} f(<x[i], x[idxs[p]]>) *
+    x[idxs[p]]`` with f in {identity, relu}; an empty segment is 0.
+
+    ``first_segment`` computes the rows ``first_segment + i`` of a slice of
+    the segments (``ptrs`` is then that slice of the offsets, whose first
+    entry need not be 0), so a caller can check a large graph in chunks.
+    Reads ``ptrs[0]`` and ``ptrs[-1]`` on the host."""
+    p64 = ptrs.to(torch.int64)
+    lo, hi = int(p64[0]), int(p64[-1])
+    seg = torch.repeat_interleave(
+        torch.arange(num_segments, device=x.device), p64[1:] - p64[:-1],
+        output_size=hi - lo)
+    xj = x.index_select(0, idxs[lo:hi].to(torch.int64)).float()
+    xi = x[first_segment:first_segment + num_segments].float()
+    s = (xi.index_select(0, seg) * xj).sum(-1)
+    if fn == "relu":
+        s = s.clamp_min(0.0)
+    out = torch.zeros((num_segments, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    out.index_add_(0, seg, s[:, None] * xj)
+    return out.to(x.dtype)
+
+
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              chunk: int = 512) -> torch.Tensor:
+    """Blockwise (flash) attention in the JAX package's layout: q (B,Sq,H,D),
+    k (B,Sk,Hkv,D), v (B,Sk,Hkv,Dv), GQA by head groups -> (B,Sq,H,Dv).
+
+    The online-softmax recurrence of the reference's ``blockwise_attention``
+    over KV chunks of ``chunk`` rows (the last may be short): scores, m, l
+    and the accumulator in fp32, masked scores at -1e30 (causal: key
+    position <= query position; ``window``: query - key < window), p cast to
+    v's dtype before the PV product, the denominator clamped at 1e-30."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = d ** -0.5
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, sk, chunk):
+        kblk = k[:, k0:k0 + chunk].float()
+        vblk = v[:, k0:k0 + chunk]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk) * scale
+        k_pos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None]
+        mask = torch.ones((sq, kblk.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window is not None:
+            mask &= q_pos - k_pos < window
+        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    # (b, hkv, g, sq, dv) -> (b, sq, h, dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)

@@ -5,11 +5,16 @@ is no CUDA device.  Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 (This file imports no JAX, so it runs where only PyTorch is installed.)"""
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops as kops, ref
+from repro_torch.kernels.agreement import check_bf16
+from repro_torch.kernels.flash_attention import KV_TILE
 
 pytestmark = pytest.mark.cuda
 
@@ -58,12 +63,11 @@ def test_sls_kernel_matches_plain(cuda, dtype, emb, add_op, mul_op):
     assert kops.launch_counts()["sls"] == before + 1
     want = ref.sls(*args, **kw)
     if dtype == torch.bfloat16:
-        tol = dict(rtol=5e-2, atol=5e-2)
+        check_bf16(got, want, "sls")
     elif add_op == "add":       # fp32 sums in another order
-        tol = dict(rtol=1e-5, atol=2e-4)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
     else:                       # max/min select: exact
-        tol = dict(rtol=0, atol=0)
-    torch.testing.assert_close(got, want, **tol)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (got[torch.from_numpy(np.diff(ptrs) == 0).to(cuda)] == 0).all()
 
 
@@ -101,7 +105,8 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
     host = make_program_inputs(prog, seed=4)
     kops.reset_launch_counts()
     got = executor_for(prog, "O3").step(program_inputs_to_torch(host))
-    assert kops.launch_counts() == {"sls": 1, "block_gather": 1}
+    assert kops.launch_counts() == {"sls": 1, "block_gather": 1,
+                                   "fusedmm": 0, "flash_attention": 0}
     want = executor_for(prog, "O3", device="cpu").step(
         program_inputs_to_torch(host, "cpu"))
     for name in want:
@@ -140,7 +145,8 @@ def test_executor_on_an_unaligned_table(cuda, emb):
     ex = executor_for(prog, "O3")
     kops.reset_launch_counts()
     got = ex.step(ins)
-    assert kops.launch_counts() == {"sls": 1, "block_gather": 1}
+    assert kops.launch_counts() == {"sls": 1, "block_gather": 1,
+                                   "fusedmm": 0, "flash_attention": 0}
     assert all(u.table.data_ptr() % 16 for u in ex._units)
     want_s = ref.sls(ins["s"]["table"], torch.from_numpy(ptrs).to(cuda),
                      torch.from_numpy(idxs).to(cuda), num_segments=segs)
@@ -162,3 +168,170 @@ def test_launch_errors_raise(cuda):
     assert err != 0
     with pytest.raises(RuntimeError, match="failed to launch"):
         _build.check(err, "ember_block_gather")
+
+
+def test_fusedmm_and_flash_launch_errors_raise(cuda):
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.randn(10, 8, device=cuda)
+    ptrs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out = torch.empty(3, 8, device=cuda)
+    # 32 threads per row x 1024 rows per block: more than a block may hold
+    err = lib.ember_fusedmm(x.data_ptr(), ptrs.data_ptr(), ptrs.data_ptr(),
+                            out.data_ptr(), 3, 8, 0, 0, 1, 32, 1024, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.check(err, "ember_fusedmm")
+    q = torch.randn(1, 8, 2, 96, device=cuda)
+    err = lib.ember_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                    q.data_ptr(), 1, 8, 8, 2, 2, 96, 0, 1,
+                                    96 ** -0.5, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.check(err, "ember_flash_attention")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("emb", [5, 8, 64, 100, 128, 520])
+@pytest.mark.parametrize("fn", ["identity", "relu"])
+def test_fusedmm_kernel_matches_plain(cuda, dtype, emb, fn):
+    rng = np.random.default_rng(emb)
+    rows = 150
+    ptrs, idxs = _csr(rng, rows, rows, 6)
+    x = torch.from_numpy(rng.standard_normal((rows, emb))
+                         .astype(np.float32)).to(cuda, dtype)
+    args = (x, torch.from_numpy(ptrs).to(cuda),
+            torch.from_numpy(idxs).to(cuda))
+    before = kops.launch_counts()["fusedmm"]
+    got = kops.fusedmm(*args, num_segments=rows, fn=fn)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["fusedmm"] == before + 1
+    want = ref.fusedmm(*args, num_segments=rows, fn=fn)
+    # fp32 dots of up to 520 terms and sums of ~10 scaled rows in another
+    # order; bf16 rounds the output once
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    else:
+        check_bf16(got, want, "fusedmm")
+    assert (got[torch.from_numpy(np.diff(ptrs) == 0).to(cuda)] == 0).all()
+
+
+def test_fusedmm_kernel_on_an_unaligned_table(cuda):
+    rng = np.random.default_rng(1)
+    x = _unaligned(rng, 90, 64, cuda)
+    ptrs, idxs = _csr(rng, 90, 90, 5)
+    args = (x, torch.from_numpy(ptrs).to(cuda),
+            torch.from_numpy(idxs).to(cuda))
+    torch.testing.assert_close(kops.fusedmm(*args, num_segments=90),
+                               ref.fusedmm(*args, num_segments=90),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_fusedmm_program_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.convert import program_inputs_to_torch
+    from repro_torch.core.executor import executor_for
+    from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
+                                      make_program_inputs)
+    prog = EmbeddingProgram("gnn", (
+        ("mp", EmbeddingOp("fusedmm", 300, 300, 100, avg_lookups=7)),))
+    ex = executor_for(prog, "O3")
+    kops.reset_launch_counts()
+    for seed in (0, 1):          # fresh x every step
+        host = make_program_inputs(prog, seed=seed)
+        got = ex.step(program_inputs_to_torch(host))["mp"]
+        want = executor_for(prog, "O3", device="cpu").step(
+            program_inputs_to_torch(host, "cpu"))["mp"]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+    assert kops.launch_counts()["fusedmm"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (16, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(128, 128), (200, 200), (200, 328)])
+def test_flash_kernel_matches_plain(cuda, dtype, d, h, hkv, causal, s, sk):
+    g = torch.Generator(device=cuda).manual_seed(s + sk + d)
+    q = torch.randn((2, s, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, sk, hkv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, sk, hkv, d), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    want = ref.attention(q, k, v, causal=causal, chunk=KV_TILE)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, "flash attention")
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    k = torch.randn((1, 16, 2, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        kops.attention(q, k, k, window=4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        kops.attention(q, k, torch.randn((1, 16, 2, 32), device=cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        kops.attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                       k[..., :32].contiguous())
+
+
+def test_cross_attention_raises_on_the_card(cuda):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.attention import attn_forward, init_attn
+    cfg = get_reduced("chatglm3-6b")
+    p = init_attn(torch.Generator(device=cuda).manual_seed(0), cfg,
+                  torch.float32, cuda)
+    x = torch.randn((1, 8, cfg.d_model), device=cuda)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        attn_forward(p, x, cfg, positions=torch.arange(8, device=cuda),
+                     kv=torch.randn((1, 12, cfg.d_model), device=cuda))
+
+
+@contextlib.contextmanager
+def _attention_through(fn):
+    """The model's attention (``kernels.ops.attention``) through ``fn``;
+    restored on exit."""
+    from repro_torch.kernels import ops as ops_mod
+    saved = ops_mod.attention
+    ops_mod.attention = fn
+    try:
+        yield
+    finally:
+        ops_mod.attention = saved
+
+
+def _plain_over_kernel_tiles(q, k, v, **kw):
+    return ref.attention(q, k, v, **{**kw, "chunk": KV_TILE})
+
+
+def test_small_lm_prefill_with_the_kernel_matches_plain(cuda):
+    """Every layer's kernel output agrees with the plain version on that
+    layer's own q, k, v; the last hidden state with a prefill through plain
+    attention (bf16 steps amplified by two layers' GEMMs: 5e-2)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_reduced("chatglm3-6b"), d_model=512,
+                              d_ff=1024, attn_chunk=64, dtype="bfloat16")
+    model = LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 192), device=cuda)
+    kops.reset_launch_counts()
+    got = model.prefill(tokens)
+    assert kops.launch_counts()["flash_attention"] == cfg.num_layers
+    held = []
+
+    def checked(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        held.append(check_bf16(out, _plain_over_kernel_tiles(q, k, v, **kw),
+                               f"layer {len(held)}"))
+        return out
+    with _attention_through(checked):
+        assert torch.equal(model.prefill(tokens), got)
+    assert len(held) == cfg.num_layers
+    with _attention_through(_plain_over_kernel_tiles):
+        want = model.prefill(tokens)
+    assert kops.launch_counts()["flash_attention"] == 2 * cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)

@@ -25,7 +25,7 @@ DLRM_HOT = (3, 100, 27, 10)      # four DLRM-DCNv2 features' multi-hot sizes
 
 
 def _mixed(m):
-    """Every kind but fusedmm: a fused CSR group (weighted + unweighted + kg
+    """Every fusable kind: a fused CSR group (weighted + unweighted + kg
     upcast), a fused gather over a shared table, an spmm singleton and a
     max-semiring singleton with E=5, built from either package's ops."""
     op = m.EmbeddingOp
@@ -95,7 +95,8 @@ def test_executor_matches_reference_executor_all_levels(lvl):
         got = tex.step(t)
         _assert_outputs(got, jops.program_reference(jprog, h))
         _assert_outputs(got, jex.step(h))
-    assert kops.launch_counts() == {"sls": 0, "block_gather": 0}
+    assert kops.launch_counts() == {"sls": 0, "block_gather": 0,
+                                    "fusedmm": 0, "flash_attention": 0}
 
 
 def test_reduced_dlrm_bank_matches_reference():
@@ -245,15 +246,20 @@ def test_index_policies_match_the_reference(policy):
 
 
 def test_executor_for_memoizes_and_fusedmm_raises():
+    """Memoised per signature; the fusedmm unit (which raised before it had
+    a kernel) now runs and equals the numpy oracle."""
     clear_executor_cache()
     prog = _mixed(tops)
     assert executor_for(prog, "O3", device="cpu") is \
         executor_for(prog, "O3", device="cpu")
     fprog = tops.EmbeddingProgram("f", (
         ("m", tops.EmbeddingOp("fusedmm", 4, 4, 8, avg_lookups=2)),))
-    ins = program_inputs_to_torch(tops.make_program_inputs(fprog), "cpu")
-    with pytest.raises(NotImplementedError, match="fusedmm"):
-        executor_for(fprog, "O3", device="cpu").step(ins)
+    host = tops.make_program_inputs(fprog)
+    got = executor_for(fprog, "O3", device="cpu").step(
+        program_inputs_to_torch(host, "cpu"))
+    np.testing.assert_allclose(got["m"].numpy(),
+                               tops.program_reference(fprog, host)["m"],
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_tables_must_be_tensors_on_the_executor_device():

@@ -37,6 +37,21 @@ def test_port_runs_with_jax_and_repro_unimportable():
         for n, want in program_reference(prog, host).items():
             np.testing.assert_allclose(got[n].numpy(), want, rtol=1e-5,
                                        atol=1e-5)
+        import torch
+        from repro_torch.configs import get_reduced
+        from repro_torch.models.lm import LM
+        from repro_torch.core.ops import make_program_inputs as mk
+        lm = LM(get_reduced("chatglm3-6b"), device="cpu", seed=3)
+        last = lm.prefill(torch.randint(0, 256, (2, 12)))
+        assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
+        mp = EmbeddingProgram("mp", (("m", EmbeddingOp("fusedmm", 6, 6, 8,
+                                                       avg_lookups=2)),))
+        host = mk(mp, seed=2)
+        got = executor_for(mp, "O3", device="cpu").step(
+            program_inputs_to_torch(host, "cpu"))
+        np.testing.assert_allclose(got["m"].numpy(),
+                                   program_reference(mp, host)["m"],
+                                   rtol=1e-4, atol=1e-4)
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")

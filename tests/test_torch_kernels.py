@@ -140,7 +140,11 @@ def test_cpu_tensors_never_launch_kernels():
     table = _t(RNG.standard_normal((10, 8)).astype(np.float32))
     tops.sls(table, _t(ptrs), _t(idxs), num_segments=4)
     tops.block_gather(table, _t(idxs))
-    assert tops.launch_counts() == {"sls": 0, "block_gather": 0}
+    tops.fusedmm(table, _t(ptrs), _t(idxs), num_segments=4)
+    q = table.reshape(1, 10, 2, 4)
+    tops.attention(q, q, q)
+    assert tops.launch_counts() == {"sls": 0, "block_gather": 0,
+                                    "fusedmm": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("bad", ["int64_idxs", "f64_table", "short_ptrs",

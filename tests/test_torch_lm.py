@@ -1,0 +1,315 @@
+"""Attention and the dense LM in the port against the JAX package on the
+CPU.  The same numpy inputs go through both: the port's plain attention
+(what the flash kernel's wrapper runs for CPU tensors) against the
+reference's ``blockwise_attention``, its Pallas flash kernel in interpret
+mode and its O(S^2) oracle; the model primitives; and the reduced
+chatglm3 config from the reference's own weights, carried across with
+``repro_torch.convert.lm_params_from_reference``.
+
+Tolerances: f32 2e-5 and bf16 5e-2, the reference's own for flash attention
+(tests/test_kernels.py)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import chatglm3_6b as jcfgs
+from repro.kernels import ops as jkops, ref as jref
+from repro.models import attention as jattn, common as jcommon
+from repro.models.lm import LM as JLM
+from repro_torch.configs import get_config, get_reduced, list_archs
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.core.embedding_engine import lookup
+from repro_torch.kernels import ops as kops, ref as tref
+from repro_torch.kernels.agreement import (BF16_MAX_SHARE_DIFFERING,
+                                         bf16_agreement, check_bf16)
+from repro_torch.kernels.flash_attention import KV_TILE
+from repro_torch.models import attention as tattn, common as tcommon
+from repro_torch.models.lm import LM
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=5e-2, atol=5e-2)
+
+
+def _qkv(seed, b, s, h, hkv, d, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (16, 1)])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+def test_plain_attention_matches_blockwise_attention(causal, h, hkv, chunk):
+    q, k, v = _qkv(h * chunk, 2, 32, h, hkv, 16)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=chunk)
+    want = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    oracle = jref.attention_reference(jnp.asarray(q),
+                                      jnp.asarray(np.repeat(k, h // hkv, 2)),
+                                      jnp.asarray(np.repeat(v, h // hkv, 2)),
+                                      causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
+
+
+def test_plain_attention_bf16_matches_blockwise_attention():
+    q, k, v = _qkv(7, 2, 64, 8, 2, 32)
+    bf = [_t(a).bfloat16() for a in (q, k, v)]
+    got = kops.attention(*bf, causal=True, chunk=16)
+    assert got.dtype == torch.bfloat16
+    want = jattn.blockwise_attention(
+        *[jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in bf],
+        causal=True, chunk=16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("bh,s,d,causal", [(2, 256, 64, True),
+                                           (3, 128, 128, False)])
+def test_plain_attention_matches_the_pallas_flash_kernel(bh, s, d, causal):
+    """The reference kernel's (BH, S, D) layout is one head per batch row:
+    (BH, S, 1, D) in the port's layout."""
+    rng = np.random.default_rng(bh * s)
+    q, k, v = [rng.standard_normal((bh, s, d)).astype(np.float32)
+               for _ in range(3)]
+    got = kops.attention(*[_t(a)[:, :, None, :] for a in (q, k, v)],
+                         causal=causal, chunk=64)[:, :, 0, :]
+    want = jkops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, block_q=64, block_k=64,
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 16), (50, 64), (1, 8)])
+def test_plain_attention_masks_a_ragged_last_chunk(s, chunk):
+    q, k, v = _qkv(s, 1, s, 4, 2, 16)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=True, chunk=chunk)
+    want = jref.attention_reference(jnp.asarray(q),
+                                    jnp.asarray(np.repeat(k, 2, 2)),
+                                    jnp.asarray(np.repeat(v, 2, 2)),
+                                    causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_plain_attention_window_and_cross_lengths():
+    q, k, v = _qkv(11, 2, 32, 4, 2, 16)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=True, window=8,
+                         chunk=8)
+    want = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True, window=8,
+                                     chunk=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    q, k, v = _qkv(12, 2, 16, 4, 2, 16, sk=48)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=False, chunk=16)
+    want = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=False, chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_attention_wrapper_checks_its_arguments():
+    q, k, v = (_t(a) for a in _qkv(1, 1, 8, 6, 4, 16))
+    with pytest.raises(ValueError, match="GQA"):
+        kops.attention(q, k, v)
+    q, k, v = (_t(a) for a in _qkv(1, 1, 8, 4, 2, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.attention(q.transpose(1, 2), k, v)
+    kops.reset_launch_counts()
+    kops.attention(q, k, v)
+    assert kops.launch_counts()["flash_attention"] == 0   # CPU: plain
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_primitives_match_the_reference(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 6, 4, 16)).astype(np.float32)
+    gamma = rng.standard_normal(16).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = _t(x).to(getattr(torch, dtype))
+    tol = F32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(
+        tcommon.rms_norm(tx, _t(gamma).to(tx.dtype)).float().numpy(),
+        np.asarray(jcommon.rms_norm(jx, jnp.asarray(gamma).astype(dtype)),
+                   np.float32), **tol)
+    pos = np.broadcast_to(np.arange(6, dtype=np.float32), (2, 6))
+    for pct in (1.0, 0.5):
+        tc, ts = tcommon.rope_freqs(_t(pos), 16, 10000.0, pct)
+        jc, js = jcommon.rope_freqs(jnp.asarray(pos), 16, 10000.0, pct)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **F32)
+        got = tcommon.apply_rope(tx, tc, ts, pct)
+        assert got.dtype == tx.dtype
+        np.testing.assert_allclose(
+            got.float().numpy(),
+            np.asarray(jcommon.apply_rope(jx, jc, js, pct), np.float32),
+            **tol)
+    assert tcommon.pick_chunk(96, 64) == jcommon.pick_chunk(96, 64) == 32
+    ids = rng.integers(0, 10, (3, 5))
+    table = rng.standard_normal((10, 4)).astype(np.float32)
+    assert torch.equal(lookup(_t(table), _t(ids)), _t(table[ids]))
+
+
+def test_gated_mlp_and_attn_forward_match_the_reference():
+    cfg = jcfgs.reduced()
+    tcfg = get_reduced("chatglm3-6b")
+    key = jax.random.PRNGKey(3)
+    p_attn = jattn.init_attn(key, cfg, jnp.float32)
+    p_mlp = jcommon.init_mlp(key, cfg.d_model, cfg.d_ff, jnp.float32)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(16, dtype=jnp.float32)[None], (2, 16))
+    want = jattn.attn_forward(p_attn, jnp.asarray(x), cfg, positions=pos)
+    got = tattn.attn_forward({k: _t(np.asarray(v)) for k, v in p_attn.items()},
+                             _t(x), tcfg, positions=_t(np.asarray(pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    want = jcommon.gated_mlp(jnp.asarray(x), p_mlp)
+    got = tcommon.gated_mlp(_t(x), {k: _t(np.asarray(v))
+                                    for k, v in p_mlp.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_cross_attention_on_the_cpu_matches_the_reference():
+    """attn_forward(kv=...) runs the plain version on CPU tensors (on the
+    card it raises; tests/test_torch_cuda.py)."""
+    cfg = jcfgs.reduced()
+    p_attn = jattn.init_attn(jax.random.PRNGKey(5), cfg, jnp.float32)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    kv = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(16, dtype=jnp.float32)[None], (2, 16))
+    want = jattn.attn_forward(p_attn, jnp.asarray(x), cfg, positions=pos,
+                              kv=jnp.asarray(kv))
+    got = tattn.attn_forward({k: _t(np.asarray(v)) for k, v in p_attn.items()},
+                             _t(x), get_reduced("chatglm3-6b"),
+                             positions=_t(np.asarray(pos)), kv=_t(kv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_configs_equal_the_reference():
+    assert set(list_archs()) >= {"chatglm3-6b", "deepseek-v2-lite-16b"}
+    for name in list_archs():
+        from repro.configs import get_config as jget, get_reduced as jred
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jget(name))
+        assert dataclasses.asdict(get_reduced(name)) == \
+            dataclasses.asdict(jred(name))
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("zamba2-7b")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduced_chatglm3_matches_the_reference(seed):
+    """Two layers, d 64, 8 heads over 2 KV heads, fp32, from the reference's
+    own weights.  Tolerance 1e-4: fp32 through two layers of matmuls, norms
+    and attention whose sums run in another order (observed ~1e-6)."""
+    cfg = jcfgs.reduced()
+    jlm = JLM(cfg)
+    params = jlm.init(jax.random.PRNGKey(seed))
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = jlm.forward(params, {"tokens": jnp.asarray(tokens)})
+    want_last = jlm.prefill(params, {"tokens": jnp.asarray(tokens)}, None)
+
+    model = LM(get_reduced("chatglm3-6b"), device="cpu")
+    state = lm_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, "cpu")
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state)
+    got = model(_t(tokens).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    last = model.prefill(_t(tokens).long())
+    assert last.shape == (2, 1, cfg.d_model)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want_last),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_convert_keeps_the_reference_dtype():
+    cfg = dataclasses.replace(jcfgs.reduced(), dtype="bfloat16",
+                              num_layers=3)
+    params = jax.tree.map(np.asarray, JLM(cfg).init(jax.random.PRNGKey(0)))
+    state = lm_params_from_reference(params, cfg, "cpu")
+    assert all(t.dtype == torch.bfloat16 for t in state.values())
+    assert len({k.split(".")[1] for k in state if k.startswith("blocks")}) \
+        == 3
+    np.testing.assert_array_equal(
+        state["blocks.2.attn.wq"].float().numpy(),
+        np.asarray(params["scan"][0]["attn"]["wq"][2], np.float32))
+
+
+def test_full_chatglm3_builds_on_meta_with_the_reference_count():
+    cfg = jcfgs.config()
+    shapes = jax.eval_shape(JLM(cfg).init, jax.random.PRNGKey(0))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    model = LM(get_config("chatglm3-6b"), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert len(model.blocks) == 28
+    assert model.blocks[0].attn["wk"].shape == (4096, 2 * 128)
+    assert all(not p.requires_grad for p in model.parameters())
+
+
+def test_lm_rejects_block_kinds_not_ported():
+    with pytest.raises(NotImplementedError, match="mla"):
+        LM(get_reduced("deepseek-v2-lite-16b"), device="meta")
+
+
+def test_bf16_agreement_holds_for_the_pallas_flash_kernel():
+    """The check a bf16 kernel is held to on the card
+    (``kernels.agreement.check_bf16``) passes the reference's own Pallas
+    kernel (interpret mode, 64-key blocks) against the plain version over
+    64-key chunks: the same recurrence, another order of fp32 sums."""
+    rng = np.random.default_rng(5)
+    q, k, v = [jnp.asarray(rng.standard_normal((4, 256, 64)),
+                           jnp.bfloat16) for _ in range(3)]
+    want = jkops.attention(q, k, v, causal=True, block_q=64, block_k=64,
+                           interpret=True)
+    got = kops.attention(*[_t(a.astype(jnp.float32)).bfloat16()[:, :, None]
+                           for a in (q, k, v)], causal=True,
+                         chunk=KV_TILE)[:, :, 0]
+    a = check_bf16(got, _t(want.astype(jnp.float32)).bfloat16(), "pallas")
+    assert a["share_differing"] < BF16_MAX_SHARE_DIFFERING
+
+
+def _long_bf16_qkv():
+    """One causal head group at chatglm3's prefill length, in bf16."""
+    return [_t(a).bfloat16() for a in _qkv(9, 1, 4096, 2, 1, 64)]
+
+
+def test_bf16_agreement_rejects_p_left_unrounded():
+    """A kernel that skips rounding p to bf16 before PV (made here with v
+    kept in fp32) moves every element by less than one bf16 step, so an
+    elementwise tolerance passes it; it changes a large share of them, and
+    check_bf16 rejects it."""
+    q, k, v = _long_bf16_qkv()
+    want = tref.attention(q, k, v, causal=True, chunk=KV_TILE)
+    bad = tref.attention(q, k, v.float(), causal=True, chunk=KV_TILE)
+    assert bad.dtype == torch.bfloat16
+    a = bf16_agreement(bad, want)
+    assert a["worst"] <= 1 and a["share_differing"] > 0.1
+    with pytest.raises(AssertionError, match="differ"):
+        check_bf16(bad, want, "p not rounded")
+
+
+def test_bf16_agreement_rejects_a_dropped_key_tile():
+    """A kernel that skips the first 64-key tile for the rows past the
+    middle of a 4096-token prefill fails check_bf16."""
+    q, k, v = _long_bf16_qkv()
+    want = tref.attention(q, k, v, causal=True, chunk=KV_TILE)
+    bad, t, cut = want.clone(), KV_TILE, 2048
+    # rows i >= cut attend to keys t..i only
+    bad[:, cut:] = tref.attention(q[:, t:], k[:, t:], v[:, t:], causal=True,
+                                  chunk=KV_TILE)[:, cut - t:]
+    with pytest.raises(AssertionError, match="differ"):
+        check_bf16(bad, want, "key tile dropped")
