@@ -7,15 +7,19 @@ Phases, one line each (a failed check raises and the run exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) -- exits 2 without CUDA;
 2. the build of the hand-written kernels (one ``nvcc`` per source, in
-   parallel; ptxas summary);
+   parallel; ptxas summary, and the bf16 flash kernels' registers and
+   spills), then ``cuobjdump -sass`` of the library: the bf16 flash kernel
+   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, and
+   each flash kernel's KV tile must be ``kv_tile``'s;
 3. each kernel against its plain PyTorch version on the card over a sweep
    (SLS: add/max/min, weights with (x)=mul/add, bf16, empty segments,
    seg_base; gather: block_rows=4, E=5/96/2048; FusedMM: identity/relu,
    f32/bf16, E=5/8/64/100/128/520, empty and zero segments; flash attention:
    causal or not, GQA groups 1/4/16, D=64/128, S=256, a ragged 200 and 200
    queries over 328 keys, f32/bf16; tables not 16-byte aligned; bf16 held
-   by ``kernels.agreement.check_bf16``), and a small mixed program through
-   the executor against the repo's numpy oracle (``program_reference``);
+   by ``kernels.agreement.check_bf16``), the bf16 flash kernel over 200
+   causal cases of few-key rows, and a small mixed program through the
+   executor against the repo's numpy oracle (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
    rows capped at 10M per table, uniform ids) through
    ``executor_for(...).step`` for ``--steps`` steps, every op held against
@@ -100,6 +104,11 @@ TOL_FMM_F32 = dict(rtol=1e-4, atol=1e-3)
 # attention: the same recurrence over the same 64-key tiles, fp32 sums in
 # another order; outputs are convex combinations of unit-normal values
 TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
+# few-key causal rows of bf16 flash attention: cases of q (2, 200, 16, D)
+# over k, v (2, 200, 1, D), D alternating 128 and 64.  A row near the start
+# attends to a few keys, where a p rounded to the other side of a bf16 step
+# (scores summed in another order) moves the output the most
+FLASH_STRESS_CASES = 200
 # bf16 kernel outputs vs plain: kernels.agreement.check_bf16 (one bf16 step
 # per element, <= 1 % of elements differing, relative L2 <= 2^-9).
 # scaled_dot_product_attention rounds p against the running max of its own
@@ -205,8 +214,41 @@ def phase_device():
     return name
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's report, by mangled kernel name: (registers, spill-store
+    bytes)."""
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out[name] = (int(regs.group(1)) if regs else 0,
+                     int(spill.group(1)) if spill else 0)
+    return out
+
+
+def _sass_counts(lib: Path, kernel: str, ops: tuple) -> tuple:
+    """``cuobjdump -sass`` of the library: the number of functions whose
+    name holds ``kernel``, and of their instructions starting with each of
+    ``ops``."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run([_build.cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    n_fn, counts = 0, dict.fromkeys(ops, 0)
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.split("\n", 1)[0]:
+            continue
+        n_fn += 1
+        for op in ops:
+            counts[op] += len(re.findall(rf"\b{op}\b", part))
+    return n_fn, counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kv_tile
+    from repro_torch.kernels.sls import DTYPES
     t0 = time.perf_counter()
     _build.library()
     rec = _build.build_record()
@@ -214,15 +256,42 @@ def phase_build():
     if not rec.built:
         print(f"[2 build] loaded an earlier build (no nvcc run) in "
               f"{time.perf_counter() - t0:.2f} s; {where}")
-        return
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", rec.log)]
-    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
-                                         rec.log)]
-    (rec.path.parent / "ptxas.log").write_text(rec.log)
-    print(f"[2 build] nvcc {rec.seconds:.2f} s (load "
-          f"{time.perf_counter() - t0:.2f} s): {len(regs)} kernels, max "
-          f"{max(regs, default=0)} registers, {max(spills, default=0)} "
-          f"bytes spill stores; {where}")
+    else:
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", rec.log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                             rec.log)]
+        (rec.path.parent / "ptxas.log").write_text(rec.log)
+        print(f"[2 build] nvcc {rec.seconds:.2f} s (load "
+              f"{time.perf_counter() - t0:.2f} s): {len(regs)} kernels, max "
+              f"{max(regs, default=0)} registers, {max(spills, default=0)} "
+              f"bytes spill stores; {where}")
+        wgmma = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
+                 if "flash_wgmma_kernel" in k}
+        flash_log = rec.log.split("== ember_flash_attention.cu\n")[-1]
+        warnings = sorted({ln.strip() for ln in flash_log.split("\n== ")[0]
+                           .splitlines() if "warning" in ln.lower()})
+        print(f"[2 build flash] bf16 wgmma kernels (registers, spill-store "
+              f"bytes): {sorted(wgmma.values())}; ptxas warnings on the "
+              f"flash source: {warnings or 'none'}")
+        require(len(wgmma) == 4 and all(s == 0 for _, s in wgmma.values()),
+                "the bf16 flash kernels must build without spills")
+    # proof that the bf16 flash kernel runs on the tensor cores and TMA
+    n_fn, ops = _sass_counts(rec.path, "flash_wgmma_kernel",
+                             ("HGMMA", "UTMALDG", "UTMASTG"))
+    print(f"[2 sass] bf16 flash kernels ({n_fn} instantiations, cuobjdump "
+          f"-sass): {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG (TMA "
+          f"loads), {ops['UTMASTG']} UTMASTG (TMA stores)")
+    require(n_fn == 4 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+            "the bf16 flash kernel must hold wgmma (HGMMA) and TMA loads "
+            "(UTMALDG)")
+    # every flash check holds the kernel to the plain version over kv_tile
+    # keys: the library's own tiles must be those
+    tiles = {dt: _build.library().ember_flash_kv_tile(code)
+             for dt, code in DTYPES.items()}
+    print("[2 kv tile] flash KV tiles of the library: " + ", ".join(
+        f"{dt} {t} (kv_tile {kv_tile(dt)})" for dt, t in tiles.items()))
+    require(all(t == kv_tile(dt) for dt, t in tiles.items()),
+            "kv_tile must be the flash kernels' own KV tiles")
 
 
 # ---------------------------------------------------------------------------
@@ -395,12 +464,13 @@ def phase_sweep_fusedmm(seed: int) -> None:
 
 def phase_sweep_flash(seed: int) -> None:
     """Flash attention against its plain version over the kernel's own KV
-    tiles: causal or not, GQA groups 1, 4, 16, D 64 and 128, S 256, a
-    ragged 200 and 200 queries over 328 keys, f32 and bf16."""
+    tiles (``kv_tile``: 128 keys in bf16, 64 in f32): causal or not, GQA
+    groups 1, 4, 16, D 64 and 128, S 256, a ragged 200 and 200 queries over
+    328 keys, f32 and bf16."""
     import torch
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import check_bf16
-    from repro_torch.kernels.flash_attention import KV_TILE
+    from repro_torch.kernels.flash_attention import kv_tile
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     err_f32, bf16 = 0.0, {}
@@ -418,7 +488,7 @@ def phase_sweep_flash(seed: int) -> None:
                     for causal in (True, False):
                         got = kops.attention(q, k, v, causal=causal)
                         want = ref.attention(q, k, v, causal=causal,
-                                             chunk=KV_TILE)
+                                             chunk=kv_tile(dtype))
                         what = (f"flash {dtype} D={d} H={h}/{hkv} "
                                 f"Sq={sq} Sk={sk} causal={causal}")
                         if dtype == torch.float32:
@@ -430,6 +500,45 @@ def phase_sweep_flash(seed: int) -> None:
     torch.cuda.synchronize()
     print(f"[3 sweep flash] {n} cases: max abs err f32 {err_f32:.3g} "
           f"(tol rtol=1e-5 atol=1e-5), bf16 {_bf16_summary(bf16)}")
+
+
+def phase_stress_flash(seed: int) -> None:
+    """The bf16 flash kernel against its plain version (over ``kv_tile``
+    keys) in ``FLASH_STRESS_CASES`` causal cases of few-key rows: every case
+    must pass ``check_bf16``.  Prints the worst readings over all cases and
+    the elements off by more than 1.5 bf16 steps of their own size (a p
+    rounded across a step)."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import (BF16_ATOL, BF16_RTOL,
+                                               bf16_agreement, check_bf16)
+    from repro_torch.kernels.flash_attention import kv_tile
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    worst, fails, off = {}, [], 0
+    for i in range(FLASH_STRESS_CASES):
+        d = 128 if i % 2 == 0 else 64
+        q, k, v = (torch.randn((2, 200, h, d), generator=g,
+                               device=dev).bfloat16() for h in (16, 1, 1))
+        got = kops.attention(q, k, v, causal=True)
+        want = ref.attention(q, k, v, causal=True,
+                             chunk=kv_tile(torch.bfloat16))
+        _worst(worst, bf16_agreement(got, want))
+        w = want.float().abs().clamp_min(1e-30)
+        step = torch.exp2(torch.floor(torch.log2(w))) * 2 ** -7
+        off += int(((got.float() - want.float()).abs() > 1.5 * step).sum())
+        try:
+            check_bf16(got, want, f"flash stress case {i} (D={d})")
+        except AssertionError as e:
+            ratio = (got.float() - want.float()).abs() / (
+                BF16_ATOL + BF16_RTOL * want.float().abs())
+            row = int(ratio.amax(dim=(0, 2, 3)).argmax())
+            fails.append(f"{e}; worst element in query row {row} "
+                         f"({row + 1} keys)")
+    print(f"[3 stress flash] {FLASH_STRESS_CASES} causal bf16 cases (2 x 200 "
+          f"x 16/1 heads, D 128/64): {len(fails)} fail check_bf16; "
+          f"{_bf16_summary(worst)}; {off} elements off by > 1.5 bf16 steps")
+    require(not fails, "; ".join(fails[:3]))
 
 
 def phase_small_program(seed: int) -> None:
@@ -890,7 +999,7 @@ def phase_chatglm3(seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import bf16_agreement, check_bf16
-    from repro_torch.kernels.flash_attention import KV_TILE
+    from repro_torch.kernels.flash_attention import kv_tile
     from repro_torch.models.lm import LM
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("chatglm3-6b")
@@ -925,7 +1034,7 @@ def phase_chatglm3(seed: int) -> dict:
 
     def plain(q, k, v, **kw):
         """The plain version over the kernel's KV tiles."""
-        return ref.attention(q, k, v, **{**kw, "chunk": KV_TILE})
+        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
 
     # one more prefill through the kernel, every layer's attention output
     # held against the plain version on that layer's own q, k, v
@@ -1057,6 +1166,7 @@ def main(argv=None) -> int:
     phase_sweep(args.seed)
     phase_sweep_fusedmm(args.seed)
     phase_sweep_flash(args.seed)
+    phase_stress_flash(args.seed)
     phase_small_program(args.seed)
     seconds = {"1-3": time.perf_counter() - t0}
     if args.sweep_only:

@@ -13,61 +13,89 @@
 // contiguous, f32 or bf16, D in {64, 128}.  The running max m, the
 // denominator l and the accumulator are fp32; masked scores are -1e30; the
 // probabilities are rounded to the input dtype before the PV product (as
-// the reference's p.astype(v.dtype)); the denominator is clamped at 1e-30.
+// the reference's p.astype(v.dtype)) while l sums them unrounded; the
+// denominator is clamped at 1e-30.
 //
 // What bounds it: operations.  Causal attention over S tokens does
 // 2 * S^2 * D multiply-adds per head against 4 * S * D elements moved, far
 // above the card's balance at these lengths.
 //
-// What the design does about it (a first, simple kernel: scalar fp32 FMAs
-// from shared memory; wgmma and TMA are later work):
-//   * One block of 256 threads per (q tile of kBQ rows, head, batch).  It
-//     streams kBK-row K/V tiles through shared memory (held as fp32) and
-//     keeps m, l and a (kBQ, D) accumulator in registers: thread (ty, tx)
-//     owns rows ty + 16 i and, of the scores, columns tx + 16 j; of the
-//     accumulator, columns 64 g + 4 tx + e.  Both products read 16-byte
-//     vectors from shared memory, which is padded so the K reads are free of
-//     bank conflicts.
-//   * The row max and row sum of a score tile are reduced across the 16
-//     threads of a row with shuffles.
-//   * Causal: the KV tiles wholly above the diagonal are skipped (the TPU
+// Two kernels, picked by dtype:
+//
+// bf16 -- flash_wgmma_kernel, on the tensor cores:
+//   * One block of 3 warpgroups per (q tile of kBQ = 128 rows, head, batch).
+//     Warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
+//     one thread issues TMA loads -- Q once, then K and V tiles of kBK = 128
+//     keys into a ring of kStages stages, each with a full barrier for K,
+//     one for V and an empty barrier (mbarrier).  Warpgroups 1 and 2 are the
+//     consumers, 64 q rows each.
+//   * Tensor maps are 4-D over (B, S, heads, D) -- dims (D, heads, S, B),
+//     boxes of 64 columns (128 bytes) with the 128-byte swizzle -- so a tile
+//     never crosses into the next batch, and TMA's zero fill stands in for
+//     masking a ragged last tile on load.  They are encoded per call on the
+//     host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no
+//     -lcuda) and passed as __grid_constant__ parameters.
+//   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     memory.  O += P V is wgmma with A = P from registers: the fp32 score
+//     fragment is rounded to bf16 pairs in place (the reference's
+//     p.astype(v.dtype)), which is already the A-fragment layout; B = V is
+//     read MN-major through the transpose bit.
+//   * The online softmax runs on the accumulator fragment in registers with
+//     the reference's own fp32 steps (s * scale, expf), so p is the plain
+//     version's to the bit wherever the scores agree; a row's max and sum
+//     are reduced over the 4 threads of a quad with shuffles; only tiles
+//     that cross the diagonal or the end of the keys are masked.
+//   * Epilogue: O / max(l, 1e-30) in bf16 is staged in the consumer's own Q
+//     rows (free by then) and written by TMA stores, which leave rows past
+//     seq_q unwritten.
+//   * Causal: KV tiles wholly above the diagonal are skipped (the TPU
 //     kernel's `needed`), and the q tiles with the most KV tiles are
-//     scheduled first.
+//     scheduled first (the q tile is the slowest grid dimension).
 //   * GQA: head h reads KV head h / G directly; no repeated copy of K, V.
-//   * A ragged last q or KV tile is masked in the kernel (the TPU kernel
-//     asserts S % block == 0).
+//   The plain version matches it tile for tile with chunk = kBK
+//   (kernels/flash_attention.py kv_tile, held equal to ember_flash_kv_tile).
+//
+// f32 -- flash_f32_kernel, scalar fp32 FMAs from shared memory: the only
+//   f32 tensor-core route is TF32, which keeps ~3 decimal digits and cannot
+//   meet the f32 agreement of 1e-5.  One block of 256 threads per (64-row q
+//   tile, head, batch) streams 64-key K/V tiles through shared memory held
+//   as fp32; f32 is not on the main path.
+//
+// A bf16 call launches the wgmma kernel or returns its error: nothing falls
+// back to the f32 kernel.
 //
 // Plain C interface (loaded with ctypes): launches on the stream it is
 // given, allocates nothing, returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 
+#include <cuda.h>
+
 #include "ember_common.cuh"
 
 namespace {
 
-using ember::from_float;
-using ember::to_float;
-
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-// Shared-memory layout in floats: Q (kBQ, D), K (kBK, D + 4), V (kBK, D),
-// P (kBQ, kBK).  D = 128 takes 115,712 bytes, so two blocks fit one SM.
-template <int D> struct FlashSmem {
+// ---------------------------------------------------------------------------
+// f32: scalar kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kF32BQ = 64;
+constexpr int kF32BK = 64;
+constexpr int kF32Threads = 256;
+
+// Shared-memory layout in floats: Q (kF32BQ, D), K (kF32BK, D + 4),
+// V (kF32BK, D), P (kF32BQ, kF32BK).  D = 128 takes 115,712 bytes, so two
+// blocks fit one SM.
+template <int D> struct F32Smem {
   static constexpr int kQStride = D;
   static constexpr int kKStride = D + 4;
   static constexpr int kVStride = D;
-  static constexpr int kPStride = kBK;
-  static constexpr int kFloats = kBQ * kQStride + kBK * kKStride +
-                                 kBK * kVStride + kBQ * kPStride;
+  static constexpr int kPStride = kF32BK;
+  static constexpr int kFloats = kF32BQ * kQStride + kF32BK * kKStride +
+                                 kF32BK * kVStride + kF32BQ * kPStride;
   static constexpr int kBytes = kFloats * (int)sizeof(float);
 };
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 __device__ __forceinline__ float row_max16(float v) {
 #pragma unroll
@@ -87,21 +115,26 @@ __device__ __forceinline__ const float4& f4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int seq_q,
-             int seq_k, int heads, int kv_heads, float scale) {
-  using S = FlashSmem<D>;
+// Thread (ty, tx) owns rows ty + 16 i and, of the scores, columns
+// tx + 16 j; of the accumulator, columns 64 g + 4 tx + e.  Both products
+// read 16-byte vectors from shared memory, padded so the K reads are free
+// of bank conflicts; row max and sum are reduced over the 16 threads of a
+// row with shuffles.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 int seq_q, int seq_k, int heads, int kv_heads, float scale) {
+  using S = F32Smem<D>;
   constexpr int kG = D / 64;            // 64-column groups of the output
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* ks = qs + kBQ * S::kQStride;
-  float* vs = ks + kBK * S::kKStride;
-  float* ps = vs + kBK * S::kVStride;
+  float* ks = qs + kF32BQ * S::kQStride;
+  float* vs = ks + kF32BK * S::kKStride;
+  float* ps = vs + kF32BK * S::kVStride;
 
-  const int n_qt = (seq_q + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;  // longest rows first
+  const int n_qt = (seq_q + kF32BQ - 1) / kF32BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kF32BQ;  // longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (heads / kv_heads);
@@ -111,16 +144,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_stride = (long long)heads * D;     // one token of q / o
   const long long kv_stride = (long long)kv_heads * D;
-  const T* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * D;
-  const T* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * D;
-  const T* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * D;
+  const float* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * D;
+  const float* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * D;
+  const float* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * D;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
+  for (int e = tid; e < kF32BQ * D; e += kF32Threads) {
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
-    qs[r * S::kQStride + c] = s < seq_q ? to_float(qb[s * q_stride + c])
-                                        : 0.0f;
+    qs[r * S::kQStride + c] = s < seq_q ? qb[s * q_stride + c] : 0.0f;
   }
 
   float m[4], l[4], acc[4][4 * kG];
@@ -132,26 +164,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4 * kG; ++c) acc[i][c] = 0.0f;
   }
 
-  int n_kt = (seq_k + kBK - 1) / kBK;
+  int n_kt = (seq_k + kF32BK - 1) / kF32BK;
   if (CAUSAL) {   // skip the KV tiles wholly above the diagonal
-    const int last_q = min(q0 + kBQ, seq_q) - 1;
-    n_kt = min(n_kt, last_q / kBK + 1);
+    const int last_q = min(q0 + kF32BQ, seq_q) - 1;
+    n_kt = min(n_kt, last_q / kF32BK + 1);
   }
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * kF32BK;
     __syncthreads();   // the previous tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
+    for (int e = tid; e < kF32BK * D; e += kF32Threads) {
       const int r = e / D;
       const int c = e % D;
       const int s = k0 + r;
-      float kv_k = 0.0f;
-      float kv_v = 0.0f;
-      if (s < seq_k) {
-        kv_k = to_float(kb[s * kv_stride + c]);
-        kv_v = to_float(vb[s * kv_stride + c]);
-      }
-      ks[r * S::kKStride + c] = kv_k;
-      vs[r * S::kVStride + c] = kv_v;
+      const bool in = s < seq_k;
+      ks[r * S::kKStride + c] = in ? kb[s * kv_stride + c] : 0.0f;
+      vs[r * S::kVStride + c] = in ? vb[s * kv_stride + c] : 0.0f;
     }
     __syncthreads();
 
@@ -183,7 +210,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // online softmax over this tile
+    // online softmax over this tile (p in fp32: rounding to f32 is exact)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int q_pos = q0 + ty + 16 * i;
@@ -202,7 +229,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(sc[i][j] - m_new);
         rs += p;
-        ps[(ty + 16 * i) * S::kPStride + tx + 16 * j] = round_to<T>(p);
+        ps[(ty + 16 * i) * S::kPStride + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum16(rs);
       m[i] = m_new;
@@ -213,7 +240,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // acc += P V: rows ty + 16 i, columns 64 g + 4 tx + e
 #pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
+    for (int kk = 0; kk < kF32BK; kk += 4) {
       float4 pr[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = f4(ps + (ty + 16 * i) * S::kPStride + kk);
@@ -245,17 +272,448 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= seq_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * q_stride +
-                           (long long)h * D;
+    float* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * q_stride +
+                               (long long)h * D;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[64 * g + 4 * tx + e] = from_float<T>(acc[i][4 * g + e] / denom);
+        orow[64 * g + 4 * tx + e] = acc[i][4 * g + e] / denom;
       }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Hopper primitives (PTX): mbarrier, TMA, wgmma, register reallocation
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+               "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads of wgmma-written registers above the
+// wait, or writes below the issue.
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B).  K-major: rows of 128 bytes, 8-row groups 1024 bytes
+// apart (stride); the leading offset is unused.  MN-major (V): 8 rows of
+// the reduction dimension per 1024 bytes (stride), and `lead` bytes between
+// 64-column blocks of the output dimension.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lead >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)(1024u >> 4) << 32) | (1ull << 62);
+}
+
+#define EMBER_F8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64] (+)= A B: m64n128k16, A and B K-major in shared memory.
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : EMBER_F8(d, 0), EMBER_F8(d, 8), EMBER_F8(d, 16), EMBER_F8(d, 24),
+        EMBER_F8(d, 32), EMBER_F8(d, 40), EMBER_F8(d, 48), EMBER_F8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64] += A B: m64n128k16, A (4 registers of bf16 pairs) from registers, B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : EMBER_F8(d, 0), EMBER_F8(d, 8), EMBER_F8(d, 16), EMBER_F8(d, 24),
+        EMBER_F8(d, 32), EMBER_F8(d, 40), EMBER_F8(d, 48), EMBER_F8(d, 56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d[32] += A B: m64n64k16, as above (D = 64).
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : EMBER_F8(d, 0), EMBER_F8(d, 8), EMBER_F8(d, 16), EMBER_F8(d, 24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+#undef EMBER_F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: warp-specialised wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 128;              // q rows per block: 64 per consumer
+constexpr int kBK = 128;              // keys per K/V tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kWgThreads = 384;       // producer + 2 consumer warpgroups
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Shared memory in bytes, from a 1024-byte-aligned base.  Every operand is
+// a stack of 64-column blocks, each `rows` x 128 bytes, 128-byte swizzled:
+//   Q: [consumer][column block][64 rows]; K, V: [stage][column block][kBK].
+template <int D> struct WgSmem {
+  static constexpr int kCB = D / 64;          // 64-column blocks of a row
+  static constexpr int kQCB = 64 * 128;       // one block of a consumer's Q
+  static constexpr int kQWg = kCB * kQCB;     // one consumer's 64 Q rows
+  static constexpr int kKVCB = kBK * 128;     // one block of a K or V tile
+  static constexpr int kKV = kCB * kKVCB;     // one K or V tile
+  static constexpr int kK = 2 * kQWg;
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kBar = kV + kStages * kKV;
+  // barriers: Q, then full K, full V and empty for each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap, int seq_q,
+                   int seq_k, int heads, int kv_heads, float scale) {
+  using L = WgSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle's alignment
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full_k = bar_q + 8;             // + 8 * stage
+  const uint32_t bar_full_v = bar_full_k + 8 * kStages;
+  const uint32_t bar_empty = bar_full_v + 8 * kStages;
+
+  const int n_qt = (seq_q + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * kBQ;  // longest rows first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (heads / kv_heads);
+  int n_kt = (seq_k + kBK - 1) / kBK;
+  if (CAUSAL) {   // skip the KV tiles wholly above the diagonal
+    n_kt = min(n_kt, (min(q0 + kBQ, seq_q) - 1) / kBK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full_k + 8 * s, 1);
+      mbar_init(bar_full_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kBQ * D * 2);
+      for (int i = 0; i < 2; ++i) {
+        for (int cb = 0; cb < L::kCB; ++cb) {
+          tma_load_4d(base + i * L::kQWg + cb * L::kQCB, &qmap, bar_q,
+                      64 * cb, h, q0 + 64 * i, b);
+        }
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) {   // the stage's previous tile is released
+          mbar_wait(bar_empty + 8 * st, ((kt / kStages) & 1) ^ 1);
+        }
+        const uint32_t k_s = base + L::kK + st * L::kKV;
+        const uint32_t v_s = base + L::kV + st * L::kKV;
+        // the full box is counted, zero fill past seq_k included
+        mbar_expect_tx(bar_full_k + 8 * st, kBK * D * 2);
+        for (int cb = 0; cb < L::kCB; ++cb) {
+          tma_load_4d(k_s + cb * L::kKVCB, &kmap, bar_full_k + 8 * st,
+                      64 * cb, hk, kt * kBK, b);
+        }
+        mbar_expect_tx(bar_full_v + 8 * st, kBK * D * 2);
+        for (int cb = 0; cb < L::kCB; ++cb) {
+          tma_load_4d(v_s + cb * L::kKVCB, &vmap, bar_full_v + 8 * st,
+                      64 * cb, hk, kt * kBK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    // accumulator fragment: this thread's rows r0 and r0 + 8 of the 64, and
+    // in every 8-column chunk j the columns 8 j + c0 and 8 j + c0 + 1;
+    // element 4 j + 2 half + e is (r0 + 8 half, 8 j + c0 + e)
+    const int r0 = 16 * (tid / 32) + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int q_lo = q0 + 64 * c;
+    const uint32_t q_s = base + c * L::kQWg;
+
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+
+    mbar_wait(bar_q, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t parity = (kt / kStages) & 1;
+      const int k0 = kt * kBK;
+
+      // S = Q K^T over D / 16 steps of 16 columns (32 bytes)
+      float s[kBK / 2];
+      mbar_wait(bar_full_k + 8 * st, parity);
+      const uint32_t k_s = base + L::kK + st * L::kKV;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // within the 128-byte row
+        wgmma_m64n128_ss(s, sw128_desc(q_s + (kk / 4) * L::kQCB + off, 16),
+                         sw128_desc(k_s + (kk / 4) * L::kKVCB + off, 16),
+                         kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // online softmax: the reference's fp32 arithmetic, step for step
+      // (s * scale, expf), so p rounds to bf16 as the plain version's does
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) s[e] *= scale;
+      const bool edge = k0 + kBK > seq_k || (CAUSAL && k0 + kBK - 1 > q_lo);
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) {
+          const int k_pos = k0 + 8 * (e / 4) + c0 + (e % 2);
+          const int q_pos = q_lo + r0 + 8 * ((e / 2) % 2);
+          if (k_pos >= seq_k || (CAUSAL && k_pos > q_pos)) s[e] = kNegInf;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[e]);
+      }
+      float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      // p: fp32 into l, rounded to bf16 pairs for PV; pair t of the score
+      // fragment is register t of P, and registers 4 kk .. 4 kk + 3 are the
+      // A fragment of keys 16 kk .. 16 kk + 15
+      uint32_t p[kBK / 4];
+#pragma unroll
+      for (int t = 0; t < kBK / 4; ++t) {
+        const int r = t % 2;
+        const float p0 = expf(s[2 * t] - m[r]);
+        const float p1 = expf(s[2 * t + 1] - m[r]);
+        rs[r] += p0 + p1;
+        p[t] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+      fence_regs(o);   // written before the fence that orders them for wgmma
+      fence_regs(p);
+
+      // O += P V over kBK / 16 steps of 16 keys (2048 bytes of V)
+      mbar_wait(bar_full_v + 8 * st, parity);
+      const uint32_t v_s = base + L::kV + st * L::kKV;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t vd = sw128_desc(v_s + kk * 16 * 128, L::kKVCB);
+        if constexpr (D == 128) {
+          wgmma_m64n128_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3], vd);
+        } else {
+          wgmma_m64n64_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                          p[4 * kk + 3], vd);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // epilogue: O / max(l, 1e-30) in bf16 into this consumer's Q rows
+    // (swizzled as the O map expects), then TMA stores of whole boxes
+    const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+    uint8_t* const q_gen = smem + c * L::kQWg;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        const int off = (j / 8) * L::kQCB + row * 128 +
+                        (((j % 8) ^ (row % 8)) * 16) + c0 * 2;
+        *reinterpret_cast<uint32_t*>(q_gen + off) =
+            pack_bf16(o[4 * j + 2 * r] / den[r], o[4 * j + 2 * r + 1] / den[r]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_barrier(1 + c, 128);
+    if (tid == 0 && q_lo < seq_q) {
+      for (int cb = 0; cb < L::kCB; ++cb) {
+        tma_store_4d(&omap, q_s + cb * L::kQCB, 64 * cb, h, q_lo, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
 struct FlashArgs {
   const void* q;
@@ -270,46 +728,116 @@ struct FlashArgs {
   float scale;
 };
 
-template <typename T, int D, bool CAUSAL>
-int launch_flash(const FlashArgs& a, cudaStream_t s) {
-  constexpr int kBytes = FlashSmem<D>::kBytes;
-  auto kernel = flash_kernel<T, D, CAUSAL>;
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
   // above 48 KB of shared memory only as dynamic shared memory, after this
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D, bool CAUSAL>
+int launch_f32(const FlashArgs& a, cudaStream_t s) {
+  constexpr int kBytes = F32Smem<D>::kBytes;
+  auto kernel = flash_f32_kernel<D, CAUSAL>;
+  const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned int)((a.seq_q + kBQ - 1) / kBQ),
+  const dim3 grid((unsigned int)((a.seq_q + kF32BQ - 1) / kF32BQ),
                   (unsigned int)a.heads, (unsigned int)a.batch);
-  kernel<<<grid, kThreads, kBytes, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.seq_q, a.seq_k,
-      a.heads, a.kv_heads, a.scale);
+  kernel<<<grid, kF32Threads, kBytes, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.seq_q,
+      a.seq_k, a.heads, a.kv_heads, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int flash_by_causal(bool causal, const FlashArgs& a, cudaStream_t s) {
-  return causal ? launch_flash<T, D, true>(a, s)
-                : launch_flash<T, D, false>(a, s);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link
+// against libcuda); null where the driver lacks it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
-template <typename T>
-int flash_by_dim(int head_dim, bool causal, const FlashArgs& a,
-                 cudaStream_t s) {
-  return head_dim == 64 ? flash_by_causal<T, 64>(causal, a, s)
-                        : flash_by_causal<T, 128>(causal, a, s);
+// A bf16 (batch, seq, heads, d) tensor as a 4-D map (d, heads, seq, batch)
+// read in boxes of 64 columns x `rows` tokens of one head, 128-byte swizzled;
+// out-of-bounds rows read as 0 and are never written.
+bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
+                 int heads, int d, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAUSAL>
+int launch_bf16(const FlashArgs& a, cudaStream_t s) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qm, km, vm, om;
+  if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, D, 64) ||
+      !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, D, kBK) ||
+      !encode_bshd(&vm, a.v, a.batch, a.seq_k, a.kv_heads, D, kBK) ||
+      !encode_bshd(&om, a.o, a.batch, a.seq_q, a.heads, D, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int kBytes = WgSmem<D>::kBytes;
+  auto kernel = flash_wgmma_kernel<D, CAUSAL>;
+  const cudaError_t err = set_smem(kernel, kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)a.heads, (unsigned int)a.batch,
+                  (unsigned int)((a.seq_q + kBQ - 1) / kBQ));
+  kernel<<<grid, kWgThreads, kBytes, s>>>(qm, km, vm, om, a.seq_q, a.seq_k,
+                                          a.heads, a.kv_heads, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
+                    cudaStream_t s) {
+  if (dtype == 0) {
+    return causal ? launch_f32<D, true>(a, s) : launch_f32<D, false>(a, s);
+  }
+  return causal ? launch_bf16<D, true>(a, s) : launch_bf16<D, false>(a, s);
 }
 
 }  // namespace
 
 // q, o: (batch, seq_q, heads, head_dim); k, v: (batch, seq_k, kv_heads,
-// head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16).
-// head_dim 64 or 128; heads a multiple of kv_heads.  scale multiplies the
-// fp32 scores (the reference's head_dim ** -0.5).
+// head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16; bf16
+// pointers 16-byte aligned, as TMA needs).  head_dim 64 or 128; heads a
+// multiple of kv_heads.  scale multiplies the fp32 scores (the reference's
+// head_dim ** -0.5).
 extern "C" int ember_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int batch,
                                      int seq_q, int seq_k, int heads,
@@ -321,11 +849,23 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 1 &&
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0 ||
+       (seq_q + kBQ - 1) / kBQ > 65535)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const FlashArgs a{q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
                     (float)scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return flash_by_dim<float>(head_dim, causal != 0, a, s);
-  }
-  return flash_by_dim<__nv_bfloat16>(head_dim, causal != 0, a, s);
+  return head_dim == 64 ? launch_by_dtype<64>(dtype, causal != 0, a, s)
+                        : launch_by_dtype<128>(dtype, causal != 0, a, s);
+}
+
+// The KV tile of the kernel that runs `dtype` (0 = float32, 1 = bfloat16),
+// or 0 for another dtype.  The plain version must sum over chunks of this
+// many keys to round p against the same running max, so the checks read
+// their chunk from kernels/flash_attention.py kv_tile, which must equal
+// this (chip_smoke.py phase 2 and tests/test_torch_cuda.py hold them equal).
+extern "C" int ember_flash_kv_tile(int dtype) {
+  return dtype == 0 ? kF32BK : dtype == 1 ? kBK : 0;
 }

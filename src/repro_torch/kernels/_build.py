@@ -51,6 +51,8 @@ _SIGNATURES = {
     # causal, scale, stream
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I32, ctypes.c_double, _P),
+    # dtype -> the flash kernel's KV tile
+    "ember_flash_kv_tile": (_I32,),
 }
 
 
@@ -75,6 +77,21 @@ def nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels build only where "
                            "the CUDA toolkit is installed")
     return found
+
+
+def cuobjdump() -> str:
+    """``cuobjdump`` (for ``-sass``): beside :func:`nvcc`, or the copy that
+    Triton's package carries."""
+    cand = Path(nvcc()).parent / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    import importlib.util
+    spec = importlib.util.find_spec("triton")
+    for loc in (spec.submodule_search_locations or []) if spec else []:
+        cand = Path(loc) / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("cuobjdump not found beside nvcc or in triton")
 
 
 def _digest() -> str:

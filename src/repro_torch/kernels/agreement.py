@@ -3,8 +3,12 @@
 A hand-written kernel and its plain version (:mod:`.ref`) do the same fp32
 arithmetic and differ only in the order of their fp32 sums.  (For attention
 that holds when the plain version's KV chunk is the kernel's tile,
-:data:`.flash_attention.KV_TILE`: both then round p to bf16 against the same
-running max.)  Each rounds its fp32 result to bf16 once.  So:
+:func:`.flash_attention.kv_tile`, so both round p to bf16 against the same
+running max, and when both sum the bf16 products of the scores on the
+tensor cores, as the plain version does on the card, so both round the
+same p: a score summed in another order can round a p across a bf16 step,
+which moves a few-key row's output by several steps.)  Each rounds its
+fp32 result to bf16 once.  So:
 
 * an element may differ by one bf16 step, 2^-7 of its size; ``atol`` covers
   results that cancel to near 0;

@@ -7,8 +7,10 @@
 Layout as in the JAX package: q (B,Sq,H,D), k and v (B,Sk,Hkv,D), GQA by
 head groups.  A call whose tensors lie on the CPU runs the plain version
 (:func:`repro_torch.kernels.ref.attention`); a CUDA call launches the kernel
-or raises -- nothing falls back.  ``flash_attention_cuda.launches`` counts
-the kernel launches.
+or raises -- nothing falls back.  The dtype picks the kernel: bf16 runs the
+tensor-core kernel (wgmma fed by TMA, 128-key tiles), f32 the scalar fp32
+kernel (64-key tiles).  ``flash_attention_cuda.launches`` counts the kernel
+launches.
 """
 from __future__ import annotations
 
@@ -20,9 +22,18 @@ from . import _build, ref
 from .sls import DTYPES, one_device
 
 HEAD_DIMS = (64, 128)
-#: the kernel's KV tile (kBK in csrc/ember_flash_attention.cu): the plain
-#: version with ``chunk=KV_TILE`` rounds p against the same running max
-KV_TILE = 64
+#: each kernel's KV tile: kBK and kF32BK in csrc/ember_flash_attention.cu,
+#: which the built library reports (``ember_flash_kv_tile``); the checks on
+#: the card hold the two equal (chip_smoke.py phase 2, test_torch_cuda.py)
+_KV_TILES = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def kv_tile(dtype: torch.dtype) -> int:
+    """The KV tile of the kernel that runs ``dtype``: the plain version with
+    ``chunk=kv_tile(dtype)`` rounds p against the same running max."""
+    if dtype not in _KV_TILES:
+        raise ValueError(f"no flash kernel for {dtype}")
+    return _KV_TILES[dtype]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -33,9 +44,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for query head h -> (B,Sq,H,Dv) in q's dtype.
 
     ``chunk`` is the KV chunk of the plain version's recurrence (it decides
-    only the fp32 summation order); the kernel streams its own 64-row
-    tiles.  On the card, a sliding ``window`` and a value width other than
-    D have no kernel yet (ROADMAP.md, Queue 1 item 5) and raise."""
+    only the fp32 summation order); the kernel streams its own
+    :func:`kv_tile` rows.  On the card, a sliding ``window`` and a value
+    width other than D have no kernel yet (ROADMAP.md, Queue 1 item 5) and
+    raise; bf16 tensors must be 16-byte aligned (TMA reads them)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D float32 or "
@@ -63,6 +75,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, out)):
+        raise ValueError("bf16 flash attention reads q, k and v by TMA: "
+                         "their data must be 16-byte aligned")
     if out.numel() == 0:
         return out
     sk, hkv = k.shape[1], k.shape[2]

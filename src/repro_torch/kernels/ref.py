@@ -103,13 +103,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     over KV chunks of ``chunk`` rows (the last may be short): scores, m, l
     and the accumulator in fp32, masked scores at -1e30 (causal: key
     position <= query position; ``window``: query - key < window), p cast to
-    v's dtype before the PV product, the denominator clamped at 1e-30."""
+    v's dtype before the PV product, the denominator clamped at 1e-30.
+
+    Both products are the reference's ``preferred_element_type=float32``
+    dots: exact products summed in fp32.  bf16 operands on the card go
+    through cuBLAS's bf16 x bf16 -> fp32 GEMM (batched over batch and KV
+    head, the group's query rows stacked), whose tensor cores sum the
+    products as the kernel's wgmma does, so a score near a bf16 rounding
+    boundary of p lands on the kernel's side of it; elsewhere the operands
+    are cast to fp32."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = h // hkv
     scale = d ** -0.5
-    qg = q.reshape(b, sq, hkv, g, d).float()
+    tensor_cores = q.is_cuda and q.dtype == k.dtype == v.dtype == \
+        torch.bfloat16
+    qg = q.reshape(b, sq, hkv, g, d)
+    if tensor_cores:
+        # (b, sq, hkv, g, d) -> (b * hkv, g * sq, d)
+        q3 = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, g * sq, d)
+    else:
+        qg = qg.float()
     q_pos = torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -117,12 +132,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
                       device=q.device)
     for k0 in range(0, sk, chunk):
-        kblk = k[:, k0:k0 + chunk].float()
+        kblk = k[:, k0:k0 + chunk]
         vblk = v[:, k0:k0 + chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk) * scale
-        k_pos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None]
-        mask = torch.ones((sq, kblk.shape[1]), dtype=torch.bool,
-                          device=q.device)
+        kc = kblk.shape[1]
+        if tensor_cores:
+            s = torch.bmm(q3, kblk.permute(0, 2, 3, 1).reshape(b * hkv, d, kc),
+                          out_dtype=torch.float32).view(b, hkv, g, sq, kc)
+        else:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk.float())
+        s = s * scale
+        k_pos = torch.arange(k0, k0 + kc, device=q.device)[None]
+        mask = torch.ones((sq, kc), dtype=torch.bool, device=q.device)
         if causal:
             mask &= q_pos >= k_pos
         if window is not None:
@@ -132,8 +152,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vblk.float())
+        if tensor_cores:
+            pv = torch.bmm(
+                p.to(v.dtype).reshape(b * hkv, g * sq, kc),
+                vblk.permute(0, 2, 1, 3).reshape(b * hkv, kc, dv),
+                out_dtype=torch.float32).view(b, hkv, g, sq, dv)
+        else:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
+                              vblk.float())
+        acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     # (b, hkv, g, sq, dv) -> (b, sq, h, dv)

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import ops as kops, ref
 from repro_torch.kernels.agreement import check_bf16
-from repro_torch.kernels.flash_attention import KV_TILE
+from repro_torch.kernels.flash_attention import kv_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -260,11 +260,79 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, h, hkv, causal, s, sk):
     got = kops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert kops.launch_counts()["flash_attention"] == before + 1
-    want = ref.attention(q, k, v, causal=causal, chunk=KV_TILE)
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         check_bf16(got, want, "flash attention")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_attention_on_the_card_matches_the_cpu(cuda, d, causal):
+    """On the card the plain version sums bf16 products on the tensor cores
+    (cuBLAS bf16 -> fp32), on the CPU in fp32 after a cast: the same
+    function, the sums in another order.  A score summed otherwise may
+    round a p to the other side of a bf16 step, so a few elements of a
+    few-key row may move by more than one step; the share of elements
+    differing and the relative L2 hold to check_bf16's bounds."""
+    from repro_torch.kernels.agreement import (
+        BF16_MAX_REL_L2, BF16_MAX_SHARE_DIFFERING, bf16_agreement)
+    g = torch.Generator(device=cuda).manual_seed(d + causal)
+    q = torch.randn((2, 200, 16, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 328, 1, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 328, 1, d), generator=g, device=cuda).bfloat16()
+    chunk = kv_tile(torch.bfloat16)
+    got = ref.attention(q, k, v, causal=causal, chunk=chunk)
+    want = ref.attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                         chunk=chunk)
+    a = bf16_agreement(got.cpu(), want)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert a["share_differing"] <= BF16_MAX_SHARE_DIFFERING, a
+    assert a["rel_l2"] <= BF16_MAX_REL_L2, a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_tile_is_the_kernels_own(cuda, dtype):
+    """The checks sum the plain version over kv_tile(dtype) keys: that must
+    be the KV tile the built kernel streams."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sls import DTYPES
+    assert _build.library().ember_flash_kv_tile(DTYPES[dtype]) == \
+        kv_tile(dtype)
+
+
+@pytest.mark.parametrize("sq,sk", [(4096, 4096), (4000, 4096), (4000, 4000)])
+def test_bf16_flash_kernel_at_prefill_length(cuda, sq, sk):
+    """chatglm3's prefill length, with a ragged last q tile (4000 = 31 x
+    128 + 32) and a ragged last KV tile: many ring wrap-arounds of the
+    K/V stages, and TMA's zero fill past the end of q and k."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((1, sq, 16, 128), generator=g, device=cuda).bfloat16()
+    k = torch.randn((1, sk, 1, 128), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, sk, 1, 128), generator=g, device=cuda).bfloat16()
+    got = kops.attention(q, k, v, causal=True)
+    want = ref.attention(q, k, v, causal=True,
+                         chunk=kv_tile(torch.bfloat16))
+    check_bf16(got, want, f"flash Sq={sq} Sk={sk}")
+
+
+def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
+    """TMA needs 16-byte aligned tensors: a bf16 view one element into
+    a buffer is refused by the wrapper, and by the C entry point."""
+    from repro_torch.kernels import _build
+    flat = torch.randn(1 * 64 * 2 * 64 + 1, device=cuda).bfloat16()
+    q = flat[1:].view(1, 64, 2, 64)
+    k = torch.randn((1, 64, 2, 64), device=cuda).bfloat16()
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = kops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kops.attention(q, k, k)
+    assert kops.launch_counts()["flash_attention"] == before
+    err = _build.library().ember_flash_attention(
+        q.data_ptr(), k.data_ptr(), k.data_ptr(), k.data_ptr(), 1, 64, 64,
+        2, 2, 64, 1, 1, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
@@ -305,7 +373,7 @@ def _attention_through(fn):
 
 
 def _plain_over_kernel_tiles(q, k, v, **kw):
-    return ref.attention(q, k, v, **{**kw, "chunk": KV_TILE})
+    return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
 
 
 def test_small_lm_prefill_with_the_kernel_matches_plain(cuda):

@@ -26,7 +26,7 @@ from repro_torch.core.embedding_engine import lookup
 from repro_torch.kernels import ops as kops, ref as tref
 from repro_torch.kernels.agreement import (BF16_MAX_SHARE_DIFFERING,
                                          bf16_agreement, check_bf16)
-from repro_torch.kernels.flash_attention import KV_TILE
+from repro_torch.kernels.flash_attention import kv_tile
 from repro_torch.models import attention as tattn, common as tcommon
 from repro_torch.models.lm import LM
 
@@ -265,19 +265,47 @@ def test_lm_rejects_block_kinds_not_ported():
         LM(get_reduced("deepseek-v2-lite-16b"), device="meta")
 
 
+def test_kv_tile_is_each_kernels_tile():
+    """bf16 runs the wgmma kernel (kBK = 128 keys), f32 the scalar kernel
+    (kF32BK = 64); no other dtype has a flash kernel."""
+    assert kv_tile(torch.bfloat16) == 128
+    assert kv_tile(torch.float32) == 64
+    with pytest.raises(ValueError, match="no flash kernel"):
+        kv_tile(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384)])
+def test_plain_attention_at_the_kernel_tile_matches_blockwise_attention(
+        dtype, causal, sq, sk):
+    """The plain version at the chunk the card's checks give it (the
+    kernel's own KV tile) is the reference's blockwise_attention at that
+    chunk (which takes whole chunks only): f32, 2e-5."""
+    tile = kv_tile(dtype)
+    q, k, v = _qkv(tile + sq, 2, sq, 8, 2, 32, sk=sk)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=tile)
+    want = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     chunk=tile)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
 def test_bf16_agreement_holds_for_the_pallas_flash_kernel():
     """The check a bf16 kernel is held to on the card
     (``kernels.agreement.check_bf16``) passes the reference's own Pallas
-    kernel (interpret mode, 64-key blocks) against the plain version over
-    64-key chunks: the same recurrence, another order of fp32 sums."""
+    kernel (interpret mode, KV blocks of the bf16 kernel's tile) against the
+    plain version over chunks of that tile: the same recurrence, another
+    order of fp32 sums."""
     rng = np.random.default_rng(5)
+    tile = kv_tile(torch.bfloat16)
     q, k, v = [jnp.asarray(rng.standard_normal((4, 256, 64)),
                            jnp.bfloat16) for _ in range(3)]
-    want = jkops.attention(q, k, v, causal=True, block_q=64, block_k=64,
+    want = jkops.attention(q, k, v, causal=True, block_q=64, block_k=tile,
                            interpret=True)
     got = kops.attention(*[_t(a.astype(jnp.float32)).bfloat16()[:, :, None]
                            for a in (q, k, v)], causal=True,
-                         chunk=KV_TILE)[:, :, 0]
+                         chunk=tile)[:, :, 0]
     a = check_bf16(got, _t(want.astype(jnp.float32)).bfloat16(), "pallas")
     assert a["share_differing"] < BF16_MAX_SHARE_DIFFERING
 
@@ -293,8 +321,9 @@ def test_bf16_agreement_rejects_p_left_unrounded():
     elementwise tolerance passes it; it changes a large share of them, and
     check_bf16 rejects it."""
     q, k, v = _long_bf16_qkv()
-    want = tref.attention(q, k, v, causal=True, chunk=KV_TILE)
-    bad = tref.attention(q, k, v.float(), causal=True, chunk=KV_TILE)
+    tile = kv_tile(torch.bfloat16)
+    want = tref.attention(q, k, v, causal=True, chunk=tile)
+    bad = tref.attention(q, k, v.float(), causal=True, chunk=tile)
     assert bad.dtype == torch.bfloat16
     a = bf16_agreement(bad, want)
     assert a["worst"] <= 1 and a["share_differing"] > 0.1
@@ -303,13 +332,15 @@ def test_bf16_agreement_rejects_p_left_unrounded():
 
 
 def test_bf16_agreement_rejects_a_dropped_key_tile():
-    """A kernel that skips the first 64-key tile for the rows past the
-    middle of a 4096-token prefill fails check_bf16."""
+    """A kernel that skips the first key tile (the bf16 kernel's 128 keys)
+    for the rows past the middle of a 4096-token prefill fails
+    check_bf16."""
     q, k, v = _long_bf16_qkv()
-    want = tref.attention(q, k, v, causal=True, chunk=KV_TILE)
-    bad, t, cut = want.clone(), KV_TILE, 2048
+    t, cut = kv_tile(torch.bfloat16), 2048
+    want = tref.attention(q, k, v, causal=True, chunk=t)
+    bad = want.clone()
     # rows i >= cut attend to keys t..i only
     bad[:, cut:] = tref.attention(q[:, t:], k[:, t:], v[:, t:], causal=True,
-                                  chunk=KV_TILE)[:, cut - t:]
+                                  chunk=t)[:, cut - t:]
     with pytest.raises(AssertionError, match="differ"):
         check_bf16(bad, want, "key tile dropped")
