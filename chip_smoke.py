@@ -7,17 +7,21 @@ Phases, one line each (a failed check raises and the run exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) -- exits 2 without CUDA;
 2. the build of the hand-written kernels (one ``nvcc`` per source, in
-   parallel; ptxas summary, and the bf16 flash kernels' registers and
-   spills), then ``cuobjdump -sass`` of the library: the bf16 flash kernel
-   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, and
+   parallel; ptxas summary, and the registers and spills of the bf16 flash
+   kernels, the bulk gather and the FusedMM ring, none of which may
+   spill), then ``cuobjdump -sass`` of the library: the bf16 flash kernel
+   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, the
+   bulk gather and every FusedMM ring kernel bulk copies (``UBLKCP``), and
    each flash kernel's KV tile must be ``kv_tile``'s;
 3. each kernel against its plain PyTorch version on the card over a sweep
    (SLS: add/max/min, weights with (x)=mul/add, bf16, empty segments,
-   seg_base; gather: block_rows=4, E=5/96/2048; FusedMM: identity/relu,
-   f32/bf16, E=5/8/64/100/128/520, empty and zero segments; flash attention:
-   causal or not, GQA groups 1/4/16, D=64/128, S=256, a ragged 200 and 200
-   queries over 328 keys, f32/bf16; tables not 16-byte aligned; bf16 held
-   by ``kernels.agreement.check_bf16``), the bf16 flash kernel over 200
+   seg_base; gather: block_rows=4, E=5/96/2048, uniform, all-equal and
+   Zipf ids, both variants; FusedMM: identity/relu, f32/bf16,
+   E=5/8/64/100/128/520/1024, empty segments and segments longer than the
+   ring, zero segments, both variants; flash attention: causal or not, GQA
+   groups 1/4/16, D=64/128, S=256, a ragged 200 and 200 queries over 328
+   keys, f32/bf16; tables not 16-byte aligned; bf16 held by
+   ``kernels.agreement.check_bf16``), the bf16 flash kernel over 200
    causal cases of few-key rows, and a small mixed program through the
    executor against the repo's numpy oracle (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
@@ -27,13 +31,22 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    plain version at that shape, and the times of the kernel, the plain
    version and ``F.embedding_bag``;
 5. the same for DeepSeek-V2-Lite's step lookups (8 x 2048 tokens: token
-   embedding, label gather, MoE dispatch, fused into one gather unit), with
-   ``torch.index_select`` as the library call;
+   embedding, label gather, MoE dispatch, fused into one gather unit; the
+   steps must run the bulk variant and its grouping pass once each a
+   step), with ``torch.index_select`` as the library call, a contiguous
+   ``copy_`` of the output's bytes as the rate the card streams, and the
+   fused unit again on a realistic stream (Zipf(1.05) token ids, labels
+   shifted by one, MoE dispatch a permutation of the capacity slots); the
+   rows variant timed beside the bulk one on both streams;
 6. GNN message passing at ogbn-products sizes (2,449,029 nodes, 123,718,280
    CSR entries, 100 fp32 features; a synthetic graph) as one ``fusedmm``
-   program through ``executor_for(...).step``, fresh features each step,
-   every output held against the plain version in chunks of segments, and
-   the FusedMM kernel's time against its bound;
+   program through ``executor_for(...).step``, fresh features each step
+   (the steps must run the rows variant once each: at 400-byte rows it is
+   faster than the ring), every output held against the plain version in
+   chunks of segments, and the FusedMM kernel's time against its bound,
+   against every neighbour row read from HBM, against ``F.embedding_bag``
+   over the same reads and against a contiguous copy; both variants timed
+   at that width and at other widths of the same graph;
 7. chatglm3-6b (28 layers, full width, bf16, random weights) through
    ``LM.prefill`` over 4 x 4096 tokens: flash attention in every layer; in
    one more prefill every layer's kernel output is held against the plain
@@ -41,8 +54,8 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    hidden state against a prefill with plain attention; the kernel's time
    beside ``scaled_dot_product_attention``, also at one prefill_32k
    sequence;
-8. one JSON line listing the four kernels with their main-path launches,
-   error, times and bounds;
+8. one JSON line listing the four kernels with the kernel (variant) that
+   ran on the main path, its launches there, error, times and bounds;
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -83,12 +96,23 @@ OGBN_NODES = 2_449_029
 OGBN_DIRECTED_EDGES = 123_718_280
 OGBN_FEATURES = 100
 GNN_CHECK_SEGMENTS = 100_000   # plain-version check in chunks of segments
+# ring vs rows variant on the same graph at other fp32 widths: where the
+# ring overtakes (kernels.sls.FUSEDMM_RING_MIN_ROW_BYTES)
+GNN_SWEEP_WIDTHS = ((32, 64, 128, 160, 192, 240, 256, 272, 320, 384, 448,
+                     512, 520, 768, 1024),        # fp32
+                    (256, 512, 640, 1040))        # bf16
 
 # chatglm3-6b prefill: 4 prompts x 4096 tokens (cut from launch/steps.py's
 # prefill_32k, 32 x 32768), and one prefill_32k sequence for the kernel alone
 PREFILL_BATCH, PREFILL_SEQ = 4, 4096
 PREFILLS = 3                   # timed prefills
 LONG_SEQ = 32768
+
+# the kernels that move rows by cp.async.bulk, with their instantiations
+# (gather: one; FusedMM ring: 2 dtypes x 2 f x 6 words per lane), and the
+# SASS of a bulk copy
+BULK_KERNELS = {"gather_bulk_kernel": 1, "fusedmm_ring_kernel": 24}
+BULK_COPY_SASS = "UBLKCP"
 
 # H100 SXM (NVIDIA data sheet, dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
@@ -207,11 +231,12 @@ def phase_device():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     name = torch.cuda.get_device_name(0)
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}: "
           f"{name}, {torch.cuda.device_count()} device(s)")
-    return name
+    return name, card
 
 
 def _ptxas_by_kernel(log: str) -> dict:
@@ -275,6 +300,15 @@ def phase_build():
               f"flash source: {warnings or 'none'}")
         require(len(wgmma) == 4 and all(s == 0 for _, s in wgmma.values()),
                 "the bf16 flash kernels must build without spills")
+        for kernel, n_want in BULK_KERNELS.items():
+            got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
+                   if kernel in k}
+            print(f"[2 build {kernel}] (registers, spill-store bytes): "
+                  f"{sorted(set(got.values()))}")
+            spilled = sorted(k for k, (_, s) in got.items() if s)
+            require(len(got) == n_want and not spilled,
+                    f"the {kernel} instantiations must build without spills "
+                    f"({len(got)} built; spilling: {spilled})")
     # proof that the bf16 flash kernel runs on the tensor cores and TMA
     n_fn, ops = _sass_counts(rec.path, "flash_wgmma_kernel",
                              ("HGMMA", "UTMALDG", "UTMASTG"))
@@ -284,6 +318,13 @@ def phase_build():
     require(n_fn == 4 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
             "the bf16 flash kernel must hold wgmma (HGMMA) and TMA loads "
             "(UTMALDG)")
+    # proof that the row-streaming kernels move rows by bulk copies
+    for kernel, n_want in BULK_KERNELS.items():
+        n_fn, ops = _sass_counts(rec.path, kernel, (BULK_COPY_SASS,))
+        print(f"[2 sass] {kernel} ({n_fn} instantiations): "
+              f"{ops[BULK_COPY_SASS]} {BULK_COPY_SASS} (cp.async.bulk)")
+        require(n_fn == n_want and ops[BULK_COPY_SASS] >= n_fn,
+                f"every {kernel} must hold bulk copies ({BULK_COPY_SASS})")
     # every flash check holds the kernel to the plain version over kv_tile
     # keys: the library's own tiles must be those
     tiles = {dt: _build.library().ember_flash_kv_tile(code)
@@ -309,12 +350,28 @@ def _csr(rng, segs: int, rows: int, avg: float, pad: int = 0):
     return ptrs, idxs
 
 
+def _ids(rng, kind: str, n: int, g: int) -> np.ndarray:
+    """g lookup ids below n: uniform, all one block, or a Zipf(1.05) head."""
+    if kind == "equal":
+        return np.full(g, n // 2, np.int32)
+    if kind == "zipf":
+        return (np.minimum(rng.zipf(1.05, g), n) - 1).astype(np.int32)
+    return rng.integers(0, n, g).astype(np.int32)
+
+
+def _variant_delta(kernel: str, before: dict) -> dict:
+    from repro_torch.kernels import ops as kops
+    after = kops.variant_launch_counts()[kernel]
+    return {k: after[k] - before[k] for k in after}
+
+
 def phase_sweep(seed: int) -> dict:
     import torch
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import check_bf16
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
+    gather_before = kops.variant_launch_counts()["block_gather"]
     errs = {"sls_sum_f32": 0.0, "sls_maxmin": 0.0, "gather": 0.0}
     bf16 = {}
     n_sls = n_gather = 0
@@ -361,17 +418,21 @@ def phase_sweep(seed: int) -> dict:
                 table = torch.from_numpy(rng.standard_normal(
                     (n_blk * block_rows, emb)).astype(np.float32)).to(dev,
                                                                      dtype)
-                idxs = torch.from_numpy(rng.integers(
-                    0, n_blk // 2, g).astype(np.int32)).to(dev)
-                for roff in (None, torch.from_numpy(rng.integers(
-                        0, n_blk // 2, g).astype(np.int32)).to(dev)):
-                    got = kops.block_gather(table, idxs, block_rows=block_rows,
-                                            roff=roff)
-                    want = ref.block_gather(table, idxs,
-                                            block_rows=block_rows, roff=roff)
-                    check_close(got, want, f"gather {dtype} E={emb} "
-                                f"R={block_rows} roff={roff is not None}")
-                    n_gather += 1
+                for ids in ("uniform", "equal", "zipf"):
+                    idxs = torch.from_numpy(_ids(rng, ids, n_blk // 2, g)
+                                            ).to(dev)
+                    for roff in (None, torch.from_numpy(rng.integers(
+                            0, n_blk // 2, g).astype(np.int32)).to(dev)):
+                        got = kops.block_gather(table, idxs,
+                                                block_rows=block_rows,
+                                                roff=roff)
+                        want = ref.block_gather(table, idxs,
+                                                block_rows=block_rows,
+                                                roff=roff)
+                        check_close(got, want, f"gather {dtype} E={emb} "
+                                    f"R={block_rows} {ids} ids "
+                                    f"roff={roff is not None}")
+                        n_gather += 1
     # tables one element into a flat buffer (not 16-byte aligned): the
     # kernels take one element per access
     n_unaligned = 0
@@ -402,46 +463,66 @@ def phase_sweep(seed: int) -> dict:
     require(bool((empty == 0).all()), "all-empty max segments must be 0")
     require(kops.block_gather(t, z).shape == (0, 1, 8), "empty gather")
     torch.cuda.synchronize()
+    variants = _variant_delta("block_gather", gather_before)
+    require(variants["bulk"] > 0 and variants["rows"] > 0 and
+            variants["group"] == variants["bulk"],
+            f"the gather sweep must run both variants: {variants}")
     print(f"[3 sweep] sls {n_sls} cases: max abs err sum/f32 "
           f"{errs['sls_sum_f32']:.3g} (tol rtol=1e-5 atol=2e-4), max/min "
           f"{errs['sls_maxmin']:.3g} (exact), bf16 {_bf16_summary(bf16)}; "
-          f"gather {n_gather} cases bit-exact; {n_unaligned} unaligned "
+          f"gather {n_gather} cases bit-exact (uniform, all-equal and Zipf "
+          f"ids; variant launches {variants}); {n_unaligned} unaligned "
           f"tables (sls + gather) ok; empty launches ok")
     return errs
 
 
 def phase_sweep_fusedmm(seed: int) -> None:
-    """FusedMM against its plain version: identity/relu, f32/bf16, E = 8,
-    64, 100, 128 (and 5 and 520: the scalar path and several vectors per
-    thread), empty segments, an unaligned table, zero segments."""
+    """FusedMM against its plain version: identity/relu, f32/bf16, E = 5,
+    8, 64, 100, 128, 520, 1024, through the wrapper and through each
+    variant that takes the shape (the ring: whole 16-byte units up to 4 KB;
+    the rows variant: every width here), empty segments, segments longer
+    than the ring, an unaligned table, zero segments."""
     import torch
-    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels import fusedmm as kfusedmm, ops as kops, ref
     from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.kernels.sls import FUSEDMM_RING_MAX_ROW_BYTES
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
     err_f32, bf16 = 0.0, {}
     n = 0
+    before = kops.variant_launch_counts()["fusedmm"]
     for dtype in (torch.float32, torch.bfloat16):
-        for emb in (5, 8, 64, 100, 128, 520):
+        for emb in (5, 8, 64, 100, 128, 520, 1024):
             rows = 400
             x = torch.from_numpy(rng.standard_normal((rows, emb)).astype(
                 np.float32)).to(dev, dtype)
+            row_bytes = emb * x.element_size()
+            variants = ["wrapper", "rows"]
+            if row_bytes % 16 == 0 and row_bytes <= FUSEDMM_RING_MAX_ROW_BYTES:
+                variants.append("ring")
             for fn in ("identity", "relu"):
-                ptrs, idxs = _csr(rng, rows, rows, 7, pad=5)
+                # mean degree 7, or 40: more rows than the ring's stages
+                ptrs, idxs = _csr(rng, rows, rows, 7 if fn == "identity"
+                                  else 40, pad=5)
                 args = (x, torch.from_numpy(ptrs).to(dev),
                         torch.from_numpy(idxs).to(dev))
-                got = kops.fusedmm(*args, num_segments=rows, fn=fn)
                 want = ref.fusedmm(*args, num_segments=rows, fn=fn)
-                what = f"fusedmm {dtype} E={emb} {fn}"
-                if dtype == torch.float32:
-                    err_f32 = max(err_f32, check_close(got, want, what,
-                                                       **TOL_FMM_F32))
-                else:
-                    _worst(bf16, check_bf16(got, want, what))
                 empty = torch.from_numpy(np.diff(ptrs) == 0).to(dev)
-                require(bool((got[empty] == 0).all()),
-                        "fusedmm empty segments must be 0")
-                n += 1
+                for variant in variants:
+                    if variant == "wrapper":
+                        got = kops.fusedmm(*args, num_segments=rows, fn=fn)
+                    else:
+                        got = torch.empty_like(want)
+                        kfusedmm.launch_variant(variant, *args, got, fn=fn)
+                    what = f"fusedmm {dtype} E={emb} {fn} ({variant})"
+                    if dtype == torch.float32:
+                        err_f32 = max(err_f32, check_close(got, want, what,
+                                                           **TOL_FMM_F32))
+                    else:
+                        _worst(bf16, check_bf16(got, want, what))
+                    require(bool((got[empty] == 0).all()),
+                            "fusedmm empty segments must be 0")
+                    n += 1
     flat = torch.from_numpy(rng.standard_normal(300 * 64 + 1).astype(
         np.float32)).to(dev)
     x = flat[1:].view(300, 64)
@@ -457,9 +538,14 @@ def phase_sweep_fusedmm(seed: int) -> None:
                          num_segments=0).shape == (0, 64),
             "fusedmm with 0 segments")
     torch.cuda.synchronize()
-    print(f"[3 sweep fusedmm] {n} cases + 1 unaligned table: max abs err "
+    variants = _variant_delta("fusedmm", before)
+    require(variants["ring"] > 0 and variants["rows"] > 0,
+            f"the fusedmm sweep must run both variants: {variants}")
+    print(f"[3 sweep fusedmm] {n} cases (wrapper, rows and ring) + 1 "
+          f"unaligned table: max abs err "
           f"f32 {err_f32:.3g} (tol rtol=1e-4 atol=1e-3), bf16 "
-          f"{_bf16_summary(bf16)}; zero segments ok")
+          f"{_bf16_summary(bf16)}; variant launches {variants}; zero "
+          f"segments ok")
 
 
 def phase_sweep_flash(seed: int) -> None:
@@ -754,6 +840,7 @@ def phase_dlrm(seed: int, n_steps: int) -> dict:
     result = {"name": "sls", "route": "cuda",
               "source": "src/repro_torch/csrc/ember_kernels.cu",
               "replaces": "src/repro/kernels/sls.py:67",
+              "variant": "sls_kernel",
               "launches": counts["sls"], "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
               "library_ms": library_ms, "held_against_plain": True}
@@ -766,11 +853,11 @@ def phase_dlrm(seed: int, n_steps: int) -> dict:
 # Phase 5: DeepSeek-V2-Lite LM step lookups
 # ---------------------------------------------------------------------------
 
-def phase_deepseek(seed: int, n_steps: int) -> dict:
+def phase_deepseek(seed: int, n_steps: int, card: str) -> dict:
     import torch
     from repro_torch.configs.deepseek_v2_lite_16b import config
     from repro_torch.core.executor import executor_for
-    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels import _build, gather as kgather, ops as kops, ref
     from repro_torch.models.lm import embedding_program
     torch.cuda.reset_peak_memory_stats()
     cfg = config()
@@ -801,9 +888,12 @@ def phase_deepseek(seed: int, n_steps: int) -> dict:
                                  op.num_segments).astype(np.int32)}
                       for name, op in prog.ops})
     outs, times, submit, counts = _time_steps(ex, steps)
-    require(counts["block_gather"] == n_steps,
+    variants = kops.variant_launch_counts()["block_gather"]
+    require(counts["block_gather"] == n_steps and
+            variants == {"bulk": n_steps, "group": n_steps, "rows": 0},
             f"DeepSeek main path launched block_gather "
-            f"{counts['block_gather']} times, expected {n_steps}")
+            f"{counts['block_gather']} times ({variants}), expected the bulk "
+            f"variant and its grouping pass {n_steps} times each")
     for ins, out in zip(steps, outs):
         for name, _ in prog.ops:
             s = ins[name]
@@ -817,45 +907,109 @@ def phase_deepseek(seed: int, n_steps: int) -> dict:
           f"{len(prog.ops)} gathers -> 1 fused gather unit, {segs} rows out "
           f"of a {u.table.shape[0]}-row stacked table x {cfg.d_model} fp32 "
           f"({u.table.numel() * 4 / 1e9:.2f} GB); block_gather launches "
-          f"{counts['block_gather']}; compile {compile_s:.2f} s; step 1 "
+          f"{counts['block_gather']} (bulk {variants['bulk']}, grouping "
+          f"pass {variants['group']}); compile {compile_s:.2f} s; step 1 "
           f"{times[0] * 1e3:.2f} ms, steps 2-{n_steps} mean "
           f"{np.mean(times[1:]) * 1e3:.3f} ms (submit alone "
           f"{np.mean(submit[1:]) * 1e3:.3f} ms); every op == plain per-op "
           f"gather (bit-exact)")
     print(f"[5 deepseek where] "
           f"{_where_the_time_goes(ex, steps[-1], np.mean(times[1:]) * 1e3)}")
-    fused = u.plan.fused_index_inputs(steps[-1])
-    idxs = torch.from_numpy(np.ascontiguousarray(fused["idxs"])).cuda()
-    roff = torch.from_numpy(np.ascontiguousarray(fused["roff"])).cuda()
-    got = kops.block_gather(u.table, idxs, roff=roff)
-    err = check_close(got, ref.block_gather(u.table, idxs, roff=roff),
-                      "fused DeepSeek gather unit")
-    rows = idxs.long() + roff.long()
-
-    def library():
-        return torch.index_select(u.table, 0, rows)
-    check_close(library(), got[:, 0], "torch.index_select vs kernel")
-    ms = time_ms(lambda: kops.block_gather(u.table, idxs, roff=roff), 50)
-    plain_ms = time_ms(lambda: ref.block_gather(u.table, idxs, roff=roff), 20)
-    library_ms = time_ms(library, 50)
-    uniq = _unique_rows(fused["idxs"], fused["roff"])
     row_bytes = cfg.d_model * 4
-    nbytes = uniq * row_bytes + segs * 8 + segs * row_bytes
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lib = _build.library()
+
+    def fused_gather(step):
+        """The fused unit's kernel at one step's ids, held bit-exact to the
+        plain version, index_select and the rows variant: (idxs, roff, max
+        abs error, the kernel's ms, index_select's ms, the rows variant's
+        ms, distinct rows, the bytes that must move, the bound in ms)."""
+        fused = u.plan.fused_index_inputs(step)
+        idxs = torch.from_numpy(np.ascontiguousarray(fused["idxs"])).cuda()
+        roff = torch.from_numpy(np.ascontiguousarray(fused["roff"])).cuda()
+        got = kops.block_gather(u.table, idxs, roff=roff)
+        err = check_close(got, ref.block_gather(u.table, idxs, roff=roff),
+                          "fused DeepSeek gather unit")
+        rows = idxs.long() + roff.long()
+        check_close(torch.index_select(u.table, 0, rows), got[:, 0],
+                    "torch.index_select vs kernel")
+        # the rows variant (the kernel before the bulk one), launched as the
+        # wrapper launches it, on the same inputs
+        rows_out = torch.empty_like(got)
+
+        def rows_variant():
+            kgather.launch_variant("rows", u.table, idxs, rows_out, roff=roff)
+        rows_variant()
+        check_close(rows_out, got, "gather rows variant vs bulk")
+        ms = time_ms(lambda: kops.block_gather(u.table, idxs, roff=roff), 50)
+        library_ms = time_ms(lambda: torch.index_select(u.table, 0, rows), 50)
+        rows_ms = time_ms(rows_variant, 50)
+        uniq = _unique_rows(fused["idxs"], fused["roff"])
+        nbytes = uniq * row_bytes + segs * 8 + segs * row_bytes
+        return (idxs, roff, err, ms, library_ms, rows_ms, uniq, nbytes,
+                nbytes / HBM_BYTES_PER_S * 1e3)
+
+    idxs, roff, err, ms, library_ms, rows_ms, uniq, nbytes, bound_ms = \
+        fused_gather(steps[-1])
+    plain_ms = time_ms(lambda: ref.block_gather(u.table, idxs, roff=roff), 20)
+    scratch = torch.empty(lib.ember_gather_scratch_bytes(segs),
+                          dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    group_ms = time_ms(lambda: lib.ember_gather_group(
+        idxs.data_ptr(), roff.data_ptr(), scratch.data_ptr(), segs, stream),
+        50)
+    src = torch.empty((segs, cfg.d_model), device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), 50)
+    copy_bytes = 2 * src.numel() * 4
+    del scratch, src, dst
     peak = torch.cuda.max_memory_allocated()
     print(f"[5 deepseek kernel] fused gather {segs} rows ({uniq} distinct): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.index_select "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} "
-          f"MB at 3.35 TB/s; kernel at {nbytes / ms / 1e6:.0f} GB/s); "
-          f"bit-exact vs plain; peak device memory {peak / 2**30:.2f} GiB")
+          f"kernel {ms:.4f} ms (bulk variant; its grouping pass alone "
+          f"{group_ms:.4f} ms; the rows variant {rows_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, torch.index_select {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s; "
+          f"kernel at {nbytes / ms / 1e6:.0f} GB/s); bit-exact vs plain; "
+          f"dst.copy_(src) of the output's {copy_bytes / 2e9:.3f} GB "
+          f"{copy_ms:.4f} ms ({copy_bytes / copy_ms / 1e9:.3f} TB/s read + "
+          f"written); peak device memory {peak / 2**30:.2f} GiB; {card}")
+    # a realistic id stream: Zipf(1.05) token ids over the vocabulary, the
+    # labels the same tokens shifted by one, the MoE dispatch a random
+    # permutation of the capacity slots, each filled once
+    zipf = np.arange(1, cfg.vocab_size + 1, dtype=np.float64) ** -1.05
+    token_of_rank = rng.permutation(cfg.vocab_size)
+    stream_ids = token_of_rank[rng.choice(cfg.vocab_size, batch * seq + 1,
+                                          p=zipf / zipf.sum())]
+    real = {"tok_embed": stream_ids[:-1],
+            "label_gather": stream_ids[1:],
+            "moe_dispatch": rng.permutation(
+                ops["moe_dispatch"].num_embeddings)[
+                    :ops["moe_dispatch"].num_segments]}
+    real_step = {name: {"table": tables[name],
+                        "idxs": real[name].astype(np.int32)}
+                 for name, _ in prog.ops}
+    _, _, _, z_ms, z_library_ms, z_rows_ms, z_uniq, z_bytes, z_bound_ms = \
+        fused_gather(real_step)
+    print(f"[5 deepseek zipf] the same unit on a realistic stream (Zipf(1.05) "
+          f"token ids, labels shifted by one, MoE dispatch a permutation of "
+          f"the capacity slots): {segs} rows ({z_uniq} distinct): kernel "
+          f"{z_ms:.4f} ms (bulk variant; the rows variant {z_rows_ms:.4f} "
+          f"ms), torch.index_select {z_library_ms:.4f} ms, bound "
+          f"{z_bound_ms:.4f} ms ({z_bytes / 1e6:.1f} MB); bit-exact vs plain; "
+          f"{card}")
     result = {"name": "block_gather", "route": "cuda",
               "source": "src/repro_torch/csrc/ember_kernels.cu",
               "replaces": "src/repro/kernels/gather.py:32",
-              "launches": counts["block_gather"], "max_abs_err": err,
+              "variant": "gather_bulk_kernel",
+              "launches": variants["bulk"],
+              "group_launches": variants["group"], "max_abs_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": "bytes", "library_ms": library_ms,
-              "held_against_plain": True}
-    del ex, u, tables, embed, capacity, steps, outs, got, idxs, roff, rows
+              "group_ms": group_ms, "rows_variant_ms": rows_ms,
+              "copy_ms": copy_ms,
+              "zipf_ms": z_ms, "zipf_library_ms": z_library_ms,
+              "zipf_rows_variant_ms": z_rows_ms,
+              "zipf_bound_ms": z_bound_ms, "held_against_plain": True}
+    del ex, u, tables, embed, capacity, steps, outs, idxs, roff, real_step
     free_cuda()
     return result
 
@@ -882,11 +1036,38 @@ def _fusedmm_plain_in_chunks(x, ptrs, idxs, out=None, what: str = ""):
     return err
 
 
-def phase_gnn(seed: int, n_steps: int) -> dict:
+def _fusedmm_variants_ms(x, ptrs, idxs, iters: int) -> dict:
+    """Both FusedMM variants on x, each launched as the wrapper launches it:
+    the rows variant held to the ring (TOL_GNN, or check_bf16) in chunks of
+    segments, then each timed (ms)."""
     import torch
+    from repro_torch.kernels import fusedmm as kfusedmm
+    from repro_torch.kernels.agreement import check_bf16
+    n = ptrs.numel() - 1
+    outs = {v: torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
+            for v in ("ring", "rows")}
+    for v, out in outs.items():
+        kfusedmm.launch_variant(v, x, ptrs, idxs, out)
+    for lo in range(0, n, GNN_CHECK_SEGMENTS):
+        got = outs["rows"][lo:lo + GNN_CHECK_SEGMENTS]
+        want = outs["ring"][lo:lo + GNN_CHECK_SEGMENTS]
+        what = (f"fusedmm rows variant vs ring ({x.dtype}, E={x.shape[1]}, "
+                f"segments from {lo})")
+        if x.dtype == torch.bfloat16:
+            check_bf16(got, want, what)
+        else:
+            check_close(got, want, what, **TOL_GNN)
+    return {v: time_ms(lambda v=v, out=out: kfusedmm.launch_variant(
+        v, x, ptrs, idxs, out), iters) for v, out in outs.items()}
+
+
+def phase_gnn(seed: int, n_steps: int, card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
     from repro_torch.core.executor import executor_for
     from repro_torch.core.ops import EmbeddingOp, EmbeddingProgram
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.sls import kernel_variant
     torch.cuda.reset_peak_memory_stats()
     n, e = OGBN_NODES, OGBN_FEATURES
     prog = EmbeddingProgram("ogbn-products-mp", (
@@ -908,9 +1089,14 @@ def phase_gnn(seed: int, n_steps: int) -> dict:
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     outs, times, submit, counts = _time_steps(ex, steps)
-    require(counts["fusedmm"] == n_steps,
-            f"GNN main path launched fusedmm {counts['fusedmm']} times, "
-            f"expected {n_steps}")
+    variants = kops.variant_launch_counts()["fusedmm"]
+    # at 400-byte rows the rows variant is the faster (the ring takes rows
+    # from kernels.sls.FUSEDMM_RING_MIN_ROW_BYTES on; [6 gnn widths] below)
+    variant = kernel_variant("fusedmm", e, 4, True)
+    require(counts["fusedmm"] == n_steps and variant == "rows" and
+            variants == {"ring": 0, "rows": n_steps},
+            f"GNN main path launched fusedmm {counts['fusedmm']} times "
+            f"({variants}), expected the rows variant {n_steps} times")
     require(ex.stats["table_rebinds"] == n_steps - 1,
             "fresh x every step must rebind the dense operand")
     dptrs = torch.from_numpy(ptrs).cuda()
@@ -924,7 +1110,8 @@ def phase_gnn(seed: int, n_steps: int) -> dict:
           f"mean {OGBN_DIRECTED_EDGES / n:.2f}, uniform neighbours): {n} "
           f"nodes, {nnz} CSR entries, {e} fp32 features; {n_steps} steps of "
           f"1 fusedmm unit, fresh x each step; fusedmm launches "
-          f"{counts['fusedmm']}; compile {compile_s:.2f} s, data {data_s:.2f} "
+          f"{counts['fusedmm']} ({variant} variant {variants[variant]}); "
+          f"compile {compile_s:.2f} s, data {data_s:.2f} "
           f"s; step 1 {times[0] * 1e3:.2f} ms, steps 2-{n_steps} mean "
           f"{step_ms:.3f} ms (submit alone {np.mean(submit[1:]) * 1e3:.3f} "
           f"ms; pinned staging {ex.pool.stats['bytes'] / 1e9:.2f} GB); every "
@@ -936,6 +1123,16 @@ def phase_gnn(seed: int, n_steps: int) -> dict:
     def kernel():
         return kops.fusedmm(x, dptrs, didxs, num_segments=n)
     ms = time_ms(kernel, 10)
+    # both variants on the same inputs, and at other row widths of the same
+    # graph: where the ring overtakes the rows variant
+    both = _fusedmm_variants_ms(x, dptrs, didxs, 10)
+    widths = {}
+    for dtype, sweep in zip((torch.float32, torch.bfloat16),
+                            GNN_SWEEP_WIDTHS):
+        for width in sweep:
+            xw = torch.randn((n, width), generator=g, device="cuda").to(dtype)
+            widths[dtype, width] = _fusedmm_variants_ms(xw, dptrs, didxs, 5)
+            del xw
     t0 = time.perf_counter()
     _fusedmm_plain_in_chunks(x, dptrs, didxs)
     torch.cuda.synchronize()
@@ -945,24 +1142,64 @@ def phase_gnn(seed: int, n_steps: int) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, flops_ms)
-    no_l2_ms = nnz * e * 4 / HBM_BYTES_PER_S * 1e3
+    # on this graph (uniform neighbours, L2 holds ~5 % of x) nearly every
+    # neighbour row comes from HBM: its bytes, and the 32-byte sectors a row
+    # at its alignment in x touches
+    row = e * 4
+    no_l2_ms = nnz * row / HBM_BYTES_PER_S * 1e3
+    sectors = np.mean([(j * row % 32 + row + 31) // 32 for j in range(32)])
+    sectors_ms = nnz * sectors * 32 / HBM_BYTES_PER_S * 1e3
+    # yardsticks: the same scattered reads without the dot (not the same
+    # function), and the rate a contiguous copy streams on this card
+    lidx = didxs.long()
+    offsets = dptrs[:-1].long()
+
+    def same_reads():
+        return F.embedding_bag(lidx, x, offsets, mode="sum")
+    bag_ms = time_ms(same_reads, 5)
+    del lidx, offsets
+    dst = torch.empty_like(x)
+    copy_ms = time_ms(lambda: dst.copy_(x), 20)
+    copy_tbs = 2 * x.numel() * 4 / copy_ms / 1e9
+    del dst
     peak = torch.cuda.max_memory_allocated()
-    print(f"[6 gnn kernel] fusedmm {n} segments, {nnz} lookups of {e * 4} B "
-          f"rows: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (in chunks, "
+    print(f"[6 gnn kernel] fusedmm {n} segments, {nnz} lookups of {row} B "
+          f"rows: kernel {ms:.4f} ms ({variant} variant; rows "
+          f"{both['rows']:.4f} ms, ring {both['ring']:.4f} ms), plain "
+          f"{plain_ms:.1f} ms (in chunks, "
           f"host clock), library none (no single PyTorch call computes "
           f"FusedMM); bound {bound_ms:.4f} ms = max(bytes once "
           f"{nbytes / 1e9:.3f} GB / 3.35 TB/s = {bytes_ms:.4f} ms, "
           f"{flops / 1e9:.2f} GFLOP / 67 TFLOP/s fp32 = {flops_ms:.4f} ms); "
-          f"every neighbour row from HBM ({nnz * e * 4 / 1e9:.1f} GB) would "
-          f"take {no_l2_ms:.2f} ms; peak device memory "
-          f"{peak / 2**30:.2f} GiB")
+          f"on this graph every neighbour row from HBM "
+          f"({nnz * row / 1e9:.1f} GB) would take {no_l2_ms:.2f} ms, "
+          f"{sectors_ms:.2f} ms in the {sectors:.2f} 32-byte sectors a row "
+          f"touches (kernel at {nnz * row / ms / 1e9:.3f} TB/s of row "
+          f"bytes); F.embedding_bag(mode='sum') over the same ptrs/idxs and "
+          f"x (the same scattered reads without the dot, not the same "
+          f"function) {bag_ms:.4f} ms; dst.copy_(x) of {x.numel() * 4 / 1e9:.3f}"
+          f" GB {copy_ms:.4f} ms ({copy_tbs:.3f} TB/s read + written); peak "
+          f"device memory {peak / 2**30:.2f} GiB; {card}")
+    print("[6 gnn widths] the same graph at other widths, ring vs rows "
+          "variant (ms): " + ", ".join(
+              f"{str(dt)[6:]} E={w} ({w * dt.itemsize} B) {t['ring']:.4f} vs "
+              f"{t['rows']:.4f}" for (dt, w), t in widths.items()) +
+          f"; {card}")
     result = {"name": "fusedmm", "route": "cuda",
               "source": "src/repro_torch/csrc/ember_fusedmm.cu",
               "replaces": "src/repro/kernels/fusedmm.py:41",
-              "launches": counts["fusedmm"], "max_abs_err": err, "ms": ms,
+              "variant": "fusedmm_kernel",
+              "launches": variants[variant], "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-              "library_ms": None, "held_against_plain": True}
+              "library_ms": None, "rows_variant_ms": both["rows"],
+              "ring_variant_ms": both["ring"],
+              "ring_vs_rows_ms_by_width": {
+                  f"{str(dt)[6:]} E={w}": [t["ring"], t["rows"]]
+                  for (dt, w), t in widths.items()},
+              "hbm_rows_ms": no_l2_ms,
+              "hbm_sectors_ms": sectors_ms, "same_reads_bag_ms": bag_ms,
+              "copy_tb_per_s": copy_tbs, "held_against_plain": True}
     del ex, xs, steps, outs, x, dptrs, didxs
     free_cuda()
     return result
@@ -1135,6 +1372,7 @@ def phase_chatglm3(seed: int) -> dict:
     result = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/csrc/ember_flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:65",
+              "variant": "flash_wgmma_kernel",
               "launches": counts["flash_attention"], "max_abs_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms,
@@ -1161,7 +1399,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    name = phase_device()
+    name, card = phase_device()
     phase_build()
     phase_sweep(args.seed)
     phase_sweep_fusedmm(args.seed)
@@ -1173,8 +1411,9 @@ def main(argv=None) -> int:
         return 0
     kernels = []
     for phase, run in (("4", lambda: phase_dlrm(args.seed, args.steps)),
-                       ("5", lambda: phase_deepseek(args.seed, args.steps)),
-                       ("6", lambda: phase_gnn(args.seed, args.steps)),
+                       ("5", lambda: phase_deepseek(args.seed, args.steps,
+                                                    card)),
+                       ("6", lambda: phase_gnn(args.seed, args.steps, card)),
                        ("7", lambda: phase_chatglm3(args.seed))):
         t0 = time.perf_counter()
         kernels.append(run())

@@ -11,10 +11,14 @@ row width + dtype       the row tile (``kernels.sls.row_tile``): 16-byte
                         per row = the power of two covering the row's
                         accesses (at most a warp); rows per block fill a
                         256-thread block
-store_streams           pure-copy kernel (block gather)
-kind == fusedmm         the FusedMM kernel: one thread group per output row
-                        holds x[i] and makes one pass over each neighbour
-                        row (dot, f, axpy)
+store_streams           pure-copy kernel (block gather: each distinct
+                        block read once by bulk copies, or the per-row
+                        copy; ``kernels.sls.kernel_variant`` picks)
+kind == fusedmm         the FusedMM kernel: a warp (or smaller group) per
+                        output row holds x[i] and makes one pass over each
+                        neighbour row (dot, f, axpy); rows wider than
+                        1 KB take the ring variant, which streams them
+                        through shared memory by bulk copies
 =====================  =====================================================
 
 The reference floors the column tile at the TPU's 128 lanes and walks

@@ -71,8 +71,19 @@
 #include <cuda.h>
 
 #include "ember_common.cuh"
+#include "ember_hopper.cuh"
 
 namespace {
+
+using ember::bulk_commit;
+using ember::bulk_wait_read;
+using ember::mbar_arrive;
+using ember::mbar_expect_tx;
+using ember::mbar_init;
+using ember::mbar_init_fence;
+using ember::mbar_wait;
+using ember::set_smem;
+using ember::smem_u32;
 
 constexpr float kNegInf = -1e30f;
 
@@ -285,44 +296,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives (PTX): mbarrier, TMA, wgmma, register reallocation
+// Hopper primitives (PTX): tensor-map TMA, wgmma, register reallocation
+// (mbarriers and bulk-group completion: ember_hopper.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-               "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // one box of a 4-D tensor map into shared memory; completes on `bar`
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -535,7 +511,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(bar_full_v + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, 8);     // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -705,8 +681,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int cb = 0; cb < L::kCB; ++cb) {
         tma_store_4d(&omap, q_s + cb * L::kQCB, 64 * cb, h, q_lo, b);
       }
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      bulk_commit();
+      bulk_wait_read<0>();
     }
   }
 }
@@ -727,17 +703,6 @@ struct FlashArgs {
   int kv_heads;
   float scale;
 };
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  // above 48 KB of shared memory only as dynamic shared memory, after this
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
 
 template <int D, bool CAUSAL>
 int launch_f32(const FlashArgs& a, cudaStream_t s) {

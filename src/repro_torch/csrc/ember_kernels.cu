@@ -8,7 +8,7 @@
 //   out[b, :] = (+)_{p in [ptrs[b], ptrs[b+1])} w_p (x) T[idxs[p] + seg_base[b], :]
 //   (+) in {add, max, min}, (x) in {mul, add}; an empty segment gives 0.
 //
-// ember_block_gather replaces block_gather_pallas / _gather_kernel
+// The block gather replaces block_gather_pallas / _gather_kernel
 // (src/repro/kernels/gather.py): every gather unit (token embedding, label
 // gather, MoE dispatch, fused gathers rebased by roff).
 //
@@ -33,21 +33,63 @@
 //     several scattered reads in flight per thread (the access stream running
 //     ahead of execute, the DAE queue).  The accumulator is fp32 in registers
 //     and is stored once, in the table's dtype.
-//   * Gather: a grid-stride copy of whole rows with no compute; four
-//     independent 16-byte loads are issued before their stores.
+//   * Gather, bulk variant (blocks of whole 16-byte units, 16-byte aligned
+//     table and out): each DISTINCT block is read once -- the paper's
+//     filtering of revisited blocks (gather.py's "revisit" note, Fig. 18).
+//     A uniform id stream repeats a block ~27 % of the time and a skewed one
+//     far more, and a repeat lands too far away to hit the 50 MB L2.
+//     - Grouping pre-pass (ember_gather_group: one memset, three small
+//       kernels, no host work): an open-addressed hash table of >= 2 G
+//       slots keyed by the 64-bit block idxs[g] + roff[g] (atomicCAS),
+//       a warp-aggregated count and rank per slot (__match_any_sync), then
+//       a warp-scanned range per distinct block, and every g scattered to
+//       its block's range -- a counting sort, so a block's outputs are an
+//       array, not a chain one thread walks.  A block's range is cut into
+//       work items of at most kGatherPerItem outputs (one store per lane):
+//       a hot block of a skewed stream (thousands of outputs) spreads over
+//       many warps instead of queueing on one SM, and its repeated loads
+//       are served by L2.  The order of ranks and ranges depends on
+//       atomics, which is harmless: every output is an exact copy of its
+//       block.
+//     - Copy (gather_bulk_kernel): persistent one-warp blocks, each with a
+//       ring of kGatherStages shared-memory stages.  One lane issues
+//       cp.async.bulk loads of an item's block (in chunks of at most
+//       kGatherMaxChunk bytes) kGatherAhead items ahead, completing on the
+//       stage's mbarrier; once it lands, the lanes issue one
+//       cp.async.bulk store of it per output position of the item.  A stage is loaded
+//       again only after cp.async.bulk.wait_group.read says the stores
+//       issued from it have read it.  No thread copies a byte itself.
+//   * Gather, rows variant (other widths, unaligned tables): a grid-stride
+//     copy of whole rows with no compute; four independent 16-byte loads
+//     are issued before their stores; a repeated block is read again.
 //   * Row offsets are computed in 64 bits: a stacked table can hold more than
 //     2^31 elements.
 //
-// Plain C interface (loaded with ctypes).  Both entry points launch on the
-// stream they are given, allocate nothing, and return the cudaError_t of the
-// launch (cudaErrorInvalidValue for arguments the kernels do not take).
+// Plain C interface (loaded with ctypes).  Every entry point launches on the
+// stream it is given, allocates nothing (the gather's grouping scratch is
+// the caller's), and returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments the kernels do not take).
+
+#include <algorithm>
 
 #include "ember_common.cuh"
+#include "ember_hopper.cuh"
 
 namespace {
 
+using ember::bulk_commit;
+using ember::bulk_load;
+using ember::bulk_store;
+using ember::bulk_wait;
+using ember::bulk_wait_read;
 using ember::kMaxBlockThreads;
+using ember::mbar_expect_tx;
+using ember::mbar_init;
+using ember::mbar_init_fence;
+using ember::mbar_wait;
 using ember::RowAccess;
+using ember::set_smem;
+using ember::smem_u32;
 using ember::to_float;
 using ember::valid_block;
 
@@ -246,6 +288,277 @@ void sls_by_add(int add, bool weighted, int mul, bool vec, const SlsArgs& a,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Block gather, bulk variant: grouping pre-pass, then the bulk copy
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupThreads = 256;
+constexpr long long kGatherMaxBlocks = 1LL << 30;  // 2 G slots fit 32 bits
+constexpr int kGatherStages = 8;       // the ring of one warp
+constexpr int kGatherAhead = 4;        // loads issued ahead of the stores
+constexpr int kGatherMaxChunk = 8192;  // bytes of one stage
+constexpr int kGatherBarBytes = 128;   // the ring's mbarriers, then stages
+constexpr int kGatherPerItem = 32;     // output positions of one work item
+constexpr unsigned int kFull = 0xffffffffu;
+
+// One work item of the copy: a distinct block, by its index in the table,
+// and a range of at most kGatherPerItem of its output positions in `order`.
+struct __align__(16) GatherGroup {
+  long long block;
+  int start;
+  int count;
+};
+
+// The grouping scratch, carved from one caller buffer of `bytes` bytes; the
+// first `zero_bytes` (counter, keys, counts) are cleared before each pass.
+struct GatherScratch {
+  unsigned long long* counter;  // work items << 32 | positions ranged
+  unsigned long long* keys;     // per slot: block + 1, 0 when empty
+  int* cnt;                     // per slot: the block's output positions
+  int* start;                   // per slot: the first of its range
+  int* slot_of;                 // per g: its slot
+  int* rank;                    // per g: its place in the block's range
+  int* order;                   // the g's, grouped by block
+  GatherGroup* groups;          // the work items (at most one per g)
+  long long zero_bytes;
+  long long bytes;
+  int slot_bits;                // 2^slot_bits >= 2 G slots
+};
+
+inline GatherScratch gather_scratch(void* base, long long g) {
+  GatherScratch sc;
+  sc.slot_bits = 5;
+  while ((1LL << sc.slot_bits) < 2 * g) ++sc.slot_bits;
+  const long long slots = 1LL << sc.slot_bits;
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  long long off = 0;
+  auto take = [&](long long bytes) {
+    const uintptr_t at = p + (uintptr_t)off;
+    off += (bytes + 15) & ~15LL;
+    return at;
+  };
+  sc.counter = reinterpret_cast<unsigned long long*>(take(8));
+  sc.keys = reinterpret_cast<unsigned long long*>(take(8 * slots));
+  sc.cnt = reinterpret_cast<int*>(take(4 * slots));
+  sc.zero_bytes = off;
+  sc.start = reinterpret_cast<int*>(take(4 * slots));
+  sc.slot_of = reinterpret_cast<int*>(take(4 * g));
+  sc.rank = reinterpret_cast<int*>(take(4 * g));
+  sc.order = reinterpret_cast<int*>(take(4 * g));
+  sc.groups = reinterpret_cast<GatherGroup*>(take(16 * g));
+  sc.bytes = off;
+  return sc;
+}
+
+__device__ __forceinline__ uint32_t slot_hash(unsigned long long key,
+                                              int bits) {
+  return (uint32_t)((key * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+// Pass 1, per g: find or claim the slot of block idxs[g] + roff[g] (linear
+// probing), then take a rank among the g's of that block.
+__global__ void __launch_bounds__(kGroupThreads)
+group_insert_kernel(const int* __restrict__ idxs, const int* __restrict__ roff,
+                    long long num_blocks, unsigned long long* keys, int* cnt,
+                    int* __restrict__ slot_of, int* __restrict__ rank,
+                    int slot_bits) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = g < num_blocks;
+  const uint32_t mask = (1u << slot_bits) - 1u;
+  uint32_t slot = kFull;  // never a slot: lanes past the end group apart
+  if (valid) {
+    const long long block =
+        (long long)idxs[g] + (roff != nullptr ? (long long)roff[g] : 0LL);
+    const unsigned long long want = (unsigned long long)block + 1ull;
+    uint32_t s = slot_hash((unsigned long long)block, slot_bits);
+    for (;;) {
+      unsigned long long cur =
+          *reinterpret_cast<volatile unsigned long long*>(keys + s);
+      if (cur == 0ull) cur = atomicCAS(keys + s, 0ull, want);
+      if (cur == 0ull || cur == want) break;  // claimed, or found
+      s = (s + 1u) & mask;
+    }
+    slot = s;
+  }
+  // the warp's g's of one block take their ranks with one atomic
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t peers = __match_any_sync(kFull, slot);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (valid && (int)lane == leader) base = atomicAdd(cnt + slot, __popc(peers));
+  base = __shfl_sync(kFull, base, leader);
+  if (valid) {
+    slot_of[g] = (int)slot;
+    rank[g] = base + __popc(peers & ((1u << lane) - 1u));
+  }
+}
+
+// Pass 2, per slot: give each distinct block a range of output positions
+// and its work items, one per kGatherPerItem positions (one atomic per warp
+// on the packed counter).
+__global__ void __launch_bounds__(kGroupThreads)
+group_range_kernel(const unsigned long long* __restrict__ keys,
+                   const int* __restrict__ cnt, int* __restrict__ start,
+                   GatherGroup* __restrict__ groups,
+                   unsigned long long* counter, long long slots) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int c = s < slots ? cnt[s] : 0;
+  const int n = (c + kGatherPerItem - 1) / kGatherPerItem;
+  int incl_n = n;
+  int incl_c = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int tn = __shfl_up_sync(kFull, incl_n, o);
+    const int tc = __shfl_up_sync(kFull, incl_c, o);
+    if (lane >= o) {
+      incl_n += tn;
+      incl_c += tc;
+    }
+  }
+  unsigned long long base = 0ull;
+  if (lane == 31 && incl_n > 0) {
+    base = atomicAdd(counter, ((unsigned long long)incl_n << 32) |
+                                  (unsigned long long)(unsigned int)incl_c);
+  }
+  base = __shfl_sync(kFull, base, 31);
+  if (c > 0) {
+    const int first = (int)(base & 0xffffffffull) + incl_c - c;
+    const long long item = (long long)(base >> 32) + incl_n - n;
+    const long long block = (long long)(keys[s] - 1ull);
+    start[s] = first;
+    for (int k = 0; k < n; ++k) {
+      groups[item + k] =
+          GatherGroup{block, first + k * kGatherPerItem,
+                      min(kGatherPerItem, c - k * kGatherPerItem)};
+    }
+  }
+}
+
+// Pass 3, per g: its place in its block's range.
+__global__ void __launch_bounds__(kGroupThreads)
+group_scatter_kernel(const int* __restrict__ start,
+                     const int* __restrict__ slot_of,
+                     const int* __restrict__ rank, int* __restrict__ order,
+                     long long num_blocks) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < num_blocks) order[start[slot_of[g]] + rank[g]] = (int)g;
+}
+
+// One work item of the copy in one chunk of its block, as one lane holds
+// it; lanes past the block's items hold count 0.
+struct GatherItem {
+  long long src;  // byte offset of the chunk in the table
+  long long off;  // byte offset of the chunk in its block
+  int bytes;
+  int start;
+  int count;
+  int first;      // order[start], loaded with the item
+};
+
+__device__ __forceinline__ GatherItem gather_item(
+    const GatherGroup* __restrict__ groups, const int* __restrict__ order,
+    long long w, long long block_bytes, int chunk, int n_chunks) {
+  const long long u = w / n_chunks;
+  const int4 v = __ldg(reinterpret_cast<const int4*>(groups) + u);
+  const long long block =
+      (long long)(((unsigned long long)(unsigned int)v.y << 32) |
+                  (unsigned long long)(unsigned int)v.x);
+  GatherItem it;
+  it.off = (w - u * n_chunks) * chunk;
+  it.src = block * block_bytes + it.off;
+  it.bytes = (int)min((long long)chunk, block_bytes - it.off);
+  it.start = v.z;
+  it.count = v.w;
+  it.first = __ldg(order + v.z);
+  return it;
+}
+
+// Persistent one-warp blocks over the work items w = blockIdx.x + k *
+// gridDim.x.  Item k uses stage k % S: lane 0 loads it L items ahead; all
+// lanes store it to its output positions.  Before stage (k + L) % S is
+// loaded again, every lane waits until at most S - L - 1 of its store
+// groups (one per item, committed even when empty) still read shared
+// memory, so the stores of item k + L - S have read the stage.  Loads and
+// stores are both async-proxy operations, ordered by that wait and the
+// warp barrier; no thread reads or writes a stage itself.
+template <int S, int L>
+__global__ void __launch_bounds__(32)
+gather_bulk_kernel(const uint8_t* __restrict__ table,
+                   uint8_t* __restrict__ out,
+                   const GatherGroup* __restrict__ groups,
+                   const int* __restrict__ order,
+                   const unsigned long long* __restrict__ counter,
+                   long long block_bytes, int chunk, int n_chunks) {
+  static_assert(L >= 1 && L < S && L < 32, "loads ahead: within the ring");
+  extern __shared__ __align__(128) uint8_t gather_smem[];
+  const uint32_t bars = smem_u32(gather_smem);
+  const uint32_t ring = bars + kGatherBarBytes;
+  const int lane = threadIdx.x;
+  const long long items = (long long)(counter[0] >> 32) * n_chunks;
+  if ((long long)blockIdx.x >= items) return;
+  const long long mine = (items - 1 - blockIdx.x) / gridDim.x + 1;
+  if (lane == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncwarp();
+
+  // lane j holds item batch + j of `cur` and batch + 32 + j of `nxt`
+  auto item_at = [&](long long k) {
+    GatherItem it{0, 0, 0, 0, 0, 0};
+    if (k < mine) {
+      it = gather_item(groups, order, blockIdx.x + k * gridDim.x,
+                       block_bytes, chunk, n_chunks);
+    }
+    return it;
+  };
+  long long batch = 0;
+  GatherItem cur = item_at(lane);
+  GatherItem nxt = item_at(32 + lane);
+  auto issue = [&](long long k) {
+    const bool later = k >= batch + 32;
+    const int j = (int)(k & 31);
+    const long long src = __shfl_sync(kFull, later ? nxt.src : cur.src, j);
+    const int bytes = __shfl_sync(kFull, later ? nxt.bytes : cur.bytes, j);
+    if (lane == 0) {
+      const uint32_t st = (uint32_t)(k % S);
+      mbar_expect_tx(bars + 8 * st, (uint32_t)bytes);
+      bulk_load(ring + st * (uint32_t)chunk, table + src, (uint32_t)bytes,
+                bars + 8 * st);
+    }
+  };
+  for (long long k = 0; k < mine && k < L; ++k) issue(k);
+  for (long long k = 0; k < mine; ++k) {
+    if (k == batch + 32) {
+      batch = k;
+      cur = nxt;
+      nxt = item_at(k + 32 + lane);
+    }
+    if (k + L < mine) {
+      bulk_wait_read<S - L - 1>();
+      __syncwarp();
+      issue(k + L);
+    }
+    const uint32_t st = (uint32_t)(k % S);
+    mbar_wait(bars + 8 * st, (uint32_t)((k / S) & 1));
+    const int j = (int)(k & 31);
+    const long long off = __shfl_sync(kFull, cur.off, j);
+    const int bytes = __shfl_sync(kFull, cur.bytes, j);
+    const int start = __shfl_sync(kFull, cur.start, j);
+    const int count = __shfl_sync(kFull, cur.count, j);
+    const int first = __shfl_sync(kFull, cur.first, j);
+    const uint32_t src = ring + st * (uint32_t)chunk;
+    for (int i = lane; i < count; i += 32) {
+      const int g = i == 0 ? first : __ldg(order + start + i);
+      bulk_store(out + (long long)g * block_bytes + off, src,
+                 (uint32_t)bytes);
+    }
+    bulk_commit();
+  }
+  bulk_wait<0>();
+}
+
 }  // namespace
 
 extern "C" const char* ember_error_string(int err) {
@@ -296,8 +609,9 @@ extern "C" int ember_sls(const void* table, const void* ptrs,
   return (int)cudaGetLastError();
 }
 
-// unit_bytes: 16 (uint4 vectors), 4 or 2 (one element); row_bytes must be a
-// multiple of it, and table / out aligned to it.
+// The block gather, rows variant.  unit_bytes: 16 (uint4 vectors), 4 or 2
+// (one element); row_bytes must be a multiple of it, and table / out aligned
+// to it.
 extern "C" int ember_block_gather(const void* table, const void* idxs,
                                   const void* roff, void* out,
                                   long long num_blocks, long long block_rows,
@@ -344,5 +658,87 @@ extern "C" int ember_block_gather(const void* table, const void* idxs,
         static_cast<unsigned short*>(out), out_rows, row_vecs, block_rows,
         threads_per_row);
   }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the grouping scratch for num_blocks lookups (0 when there are
+// more than the kernels take).
+extern "C" long long ember_gather_scratch_bytes(long long num_blocks) {
+  if (num_blocks <= 0 || num_blocks > kGatherMaxBlocks) return 0;
+  return gather_scratch(nullptr, num_blocks).bytes;
+}
+
+// The bulk gather's grouping pre-pass: groups the lookups idxs[g] + roff[g]
+// (roff may be null) by block into `scratch` (ember_gather_scratch_bytes
+// bytes, 16-byte aligned), for ember_block_gather_bulk.
+extern "C" int ember_gather_group(const void* idxs, const void* roff,
+                                  void* scratch, long long num_blocks,
+                                  void* stream) {
+  if (num_blocks <= 0 || num_blocks > kGatherMaxBlocks || idxs == nullptr ||
+      scratch == nullptr || (uintptr_t)scratch % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const GatherScratch sc = gather_scratch(scratch, num_blocks);
+  const long long slots = 1LL << sc.slot_bits;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)sc.zero_bytes, s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int per_g =
+      (unsigned int)((num_blocks + kGroupThreads - 1) / kGroupThreads);
+  const unsigned int per_slot =
+      (unsigned int)((slots + kGroupThreads - 1) / kGroupThreads);
+  const int* ids = static_cast<const int*>(idxs);
+  group_insert_kernel<<<per_g, kGroupThreads, 0, s>>>(
+      ids, static_cast<const int*>(roff), num_blocks, sc.keys, sc.cnt,
+      sc.slot_of, sc.rank, sc.slot_bits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  group_range_kernel<<<per_slot, kGroupThreads, 0, s>>>(
+      sc.keys, sc.cnt, sc.start, sc.groups, sc.counter, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  group_scatter_kernel<<<per_g, kGroupThreads, 0, s>>>(
+      sc.start, sc.slot_of, sc.rank, sc.order, num_blocks);
+  return (int)cudaGetLastError();
+}
+
+// The bulk gather: out[g] = table block idxs[g] + roff[g], each block of
+// block_bytes bytes (a multiple of 16; table and out 16-byte aligned), over
+// the groups ember_gather_group left in `scratch`.
+extern "C" int ember_block_gather_bulk(const void* table, void* out,
+                                       const void* scratch,
+                                       long long num_blocks,
+                                       long long block_bytes, void* stream) {
+  if (num_blocks <= 0 || num_blocks > kGatherMaxBlocks || block_bytes <= 0 ||
+      block_bytes % 16 != 0 || table == nullptr || out == nullptr ||
+      scratch == nullptr ||
+      ((uintptr_t)table | (uintptr_t)out | (uintptr_t)scratch) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const GatherScratch sc =
+      gather_scratch(const_cast<void*>(scratch), num_blocks);
+  const int chunk = (int)std::min(block_bytes, (long long)kGatherMaxChunk);
+  const long long n_chunks = (block_bytes + chunk - 1) / chunk;
+  if (n_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = kGatherBarBytes + kGatherStages * chunk;
+  auto kernel = gather_bulk_kernel<kGatherStages, kGatherAhead>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  // as many resident one-warp blocks as fit, no more than there are items
+  long long blocks = (long long)sms * std::max(per_sm, 1);
+  blocks = std::min(blocks, num_blocks * n_chunks);
+  kernel<<<(unsigned int)blocks, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(table), static_cast<uint8_t*>(out),
+      sc.groups, sc.order, sc.counter, block_bytes, chunk, (int)n_chunks);
   return (int)cudaGetLastError();
 }

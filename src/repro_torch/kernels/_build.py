@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "ember_kernels.cu", CSRC / "ember_fusedmm.cu",
            CSRC / "ember_flash_attention.cu")
-HEADERS = (CSRC / "ember_common.cuh",)
+HEADERS = (CSRC / "ember_common.cuh", CSRC / "ember_hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,10 +43,18 @@ _SIGNATURES = {
     # unit_bytes, threads_per_row, rows_per_block, stream
     "ember_block_gather": (_P, _P, _P, _P, _I64, _I64, _I64,
                            _I32, _I32, _I32, _P),
+    # num_blocks -> bytes of the bulk gather's grouping scratch
+    "ember_gather_scratch_bytes": (_I64,),
+    # idxs, roff, scratch, num_blocks, stream
+    "ember_gather_group": (_P, _P, _P, _I64, _P),
+    # table, out, scratch, num_blocks, block_bytes, stream
+    "ember_block_gather_bulk": (_P, _P, _P, _I64, _I64, _P),
     # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, vec,
     # threads_per_row, rows_per_block, stream
     "ember_fusedmm": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                       _I32, _I32, _P),
+    # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, stream
+    "ember_fusedmm_ring": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, dtype,
     # causal, scale, stream
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
@@ -54,6 +62,9 @@ _SIGNATURES = {
     # dtype -> the flash kernel's KV tile
     "ember_flash_kv_tile": (_I32,),
 }
+
+#: entry points that return something other than a cudaError_t
+_RESTYPES = {"ember_gather_scratch_bytes": _I64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +153,7 @@ def _load() -> tuple:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.ember_error_string.argtypes = (ctypes.c_int,)
     lib.ember_error_string.restype = ctypes.c_char_p
     return lib, rec

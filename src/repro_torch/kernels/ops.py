@@ -27,10 +27,20 @@ def launch_counts() -> dict:
     return {name: w.launches for name, w in _WRAPPERS.items()}
 
 
+def variant_launch_counts() -> dict:
+    """Launches so far of each variant of the kernels that have variants
+    (``block_gather``: bulk, its grouping pass, rows; ``fusedmm``: ring,
+    rows)."""
+    return {name: dict(w.variants) for name, w in _WRAPPERS.items()
+            if hasattr(w, "variants")}
+
+
 def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
+        for v in getattr(w, "variants", {}):
+            w.variants[v] = 0
 
 
 __all__ = ["sls", "block_gather", "fusedmm", "attention", "ref",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "variant_launch_counts", "reset_launch_counts"]

@@ -45,6 +45,37 @@ def row_tile(emb_len: int, itemsize: int, vec: bool = True) -> RowTile:
     return RowTile(elems, tpr, max(1, BLOCK_THREADS // tpr))
 
 
+#: the widest row the FusedMM ring variant holds: 32 lanes x 32 words
+FUSEDMM_RING_MAX_ROW_BYTES = 4096
+#: the narrowest row the FusedMM ring variant takes, the first width of
+#: whole 16-byte units past 1 KB.  On an H100 (``chip_smoke.py``'s ``[6 gnn
+#: widths]``; PERF.md) the rows variant was faster at every fp32 width up
+#: to 512 B (a bulk copy costs the SM a fixed time however small) and at
+#: 960 and 1024 B; from 1088 B to 4 KB the ring led or tied at every width.
+FUSEDMM_RING_MIN_ROW_BYTES = 1040
+
+
+def kernel_variant(kind: str, emb_len: int, itemsize: int,
+                   aligned: bool) -> str:
+    """Which kernel of a row-streaming ``kind`` runs rows of ``emb_len``
+    elements of ``itemsize`` bytes: the bulk-copy variant when a row is
+    whole 16-byte units and the operands are 16-byte aligned, as
+    ``cp.async.bulk`` needs (``block_gather``: "bulk"; ``fusedmm``: "ring",
+    for rows of :data:`FUSEDMM_RING_MIN_ROW_BYTES` to
+    :data:`FUSEDMM_RING_MAX_ROW_BYTES`); else "rows", the per-thread row
+    kernels that :func:`row_tile` shapes.  The one place the variant is
+    decided, from the shapes, before the launch: a wrapper never switches
+    variant after a build or launch error."""
+    row_bytes = emb_len * itemsize
+    bulk = aligned and row_bytes % 16 == 0
+    if kind == "block_gather":
+        return "bulk" if bulk else "rows"
+    if kind == "fusedmm":
+        return ("ring" if bulk and FUSEDMM_RING_MIN_ROW_BYTES <= row_bytes
+                <= FUSEDMM_RING_MAX_ROW_BYTES else "rows")
+    raise ValueError(f"no kernel variants for {kind!r}")
+
+
 def aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 

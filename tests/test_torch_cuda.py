@@ -91,6 +91,104 @@ def test_gather_kernel_is_bit_exact(cuda, dtype, emb, block_rows, with_roff):
     assert torch.equal(got, want)
 
 
+def _variant_delta(kernel, before):
+    after = kops.variant_launch_counts()[kernel]
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+# id streams and shapes for the bulk gather: (blocks in the table, lookups,
+# E, block_rows, dtype, ids, roff); "rows" marks the old variant's cases
+_GATHER_CASES = {
+    "all_equal": (50, 300, 64, 1, torch.float32, "equal", False),
+    "all_distinct": (500, 300, 64, 1, torch.float32, "distinct", False),
+    "zipf": (1000, 3000, 128, 1, torch.float32, "zipf", False),
+    # 3 blocks for 4000 lookups: each block's chain of outputs far
+    # outnumbers the ring's 8 stages and a work item's 32 outputs
+    "chain_longer_than_the_ring": (30, 4000, 96, 1, torch.float32, "three",
+                                   False),
+    "block_rows_4": (40, 57, 96, 4, torch.float32, "uniform", False),
+    "roff": (40, 57, 96, 1, torch.float32, "uniform", True),
+    "bf16": (40, 57, 96, 1, torch.bfloat16, "uniform", True),
+    # blocks of 16 KiB and 32 KiB: two and four 8 KiB stages
+    "rows_larger_than_a_stage": (40, 57, 4096, 1, torch.float32, "uniform",
+                                 False),
+    "blocks_larger_than_a_stage": (40, 57, 2048, 4, torch.float32, "zipf",
+                                   True),
+    "many_lookups": (20000, 131072, 256, 1, torch.float32, "uniform", True),
+    "e5_rows": (40, 57, 5, 1, torch.float32, "uniform", True),
+    "unaligned_rows": (40, 57, 64, 1, torch.float32, "uniform", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GATHER_CASES))
+def test_gather_variants_are_bit_exact(cuda, case):
+    """Each case goes through the variant kernel_variant picks (bulk:
+    grouping pass + bulk copy; rows: the row kernel) and must equal the
+    plain version bit for bit."""
+    from repro_torch.kernels.sls import kernel_variant
+    n, g, emb, block_rows, dtype, ids, with_roff = _GATHER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if case == "unaligned_rows":
+        table = _unaligned(rng, n * block_rows, emb, cuda)
+    else:
+        table = torch.from_numpy(rng.standard_normal(
+            (n * block_rows, emb)).astype(np.float32)).to(cuda, dtype)
+    half = n // 2 if with_roff else n
+    stream = {"equal": lambda: np.full(g, half // 3),
+              "distinct": lambda: rng.permutation(half)[:g],
+              "zipf": lambda: np.minimum(rng.zipf(1.05, g), half) - 1,
+              "three": lambda: rng.integers(0, 3, g),
+              "uniform": lambda: rng.integers(0, half, g)}[ids]()
+    idxs = torch.from_numpy(stream.astype(np.int32)).to(cuda)
+    roff = None
+    if with_roff:
+        roff = torch.from_numpy(rng.integers(0, n - half + 1, g)
+                                .astype(np.int32)).to(cuda)
+    before = kops.variant_launch_counts()["block_gather"]
+    got = kops.block_gather(table, idxs, block_rows=block_rows, roff=roff)
+    torch.cuda.synchronize()
+    variant = kernel_variant("block_gather", emb, table.element_size(),
+                             table.data_ptr() % 16 == 0)
+    assert variant == ("rows" if case.endswith("_rows") else "bulk")
+    want_delta = ({"bulk": 1, "group": 1} if variant == "bulk"
+                  else {"rows": 1})
+    assert _variant_delta("block_gather", before) == want_delta
+    assert torch.equal(got, ref.block_gather(table, idxs,
+                                             block_rows=block_rows,
+                                             roff=roff))
+    if variant == "bulk":
+        # the rows variant takes every shape: launched as the wrapper
+        # launches it, it must give the same bits
+        from repro_torch.kernels.gather import launch_variant
+        rows_out = torch.empty_like(got)
+        launch_variant("rows", table, idxs, rows_out, block_rows=block_rows,
+                       roff=roff)
+        assert torch.equal(rows_out, got)
+
+
+def test_bulk_gather_refuses_what_it_does_not_take(cuda):
+    """The C entry points of the bulk variant refuse rows that are not
+    16-byte units and unaligned tables (the wrapper never sends them)."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    table = torch.randn(10, 8, device=cuda)
+    idxs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    out = torch.empty(3, 1, 8, device=cuda)
+    scratch = torch.empty(lib.ember_gather_scratch_bytes(3),
+                          dtype=torch.uint8, device=cuda)
+    assert lib.ember_gather_group(idxs.data_ptr(), None, scratch.data_ptr(),
+                                  3, stream) == 0
+    assert lib.ember_block_gather_bulk(
+        table.data_ptr(), out.data_ptr(), scratch.data_ptr(), 3, 24,
+        stream) != 0
+    assert lib.ember_block_gather_bulk(
+        table.data_ptr() + 4, out.data_ptr(), scratch.data_ptr(), 3, 32,
+        stream) != 0
+    assert lib.ember_gather_scratch_bytes(0) == 0
+    torch.cuda.synchronize()
+
+
 def test_executor_on_the_card_matches_the_cpu(cuda):
     from repro_torch.convert import program_inputs_to_torch
     from repro_torch.core.executor import executor_for
@@ -107,6 +205,8 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
     got = executor_for(prog, "O3").step(program_inputs_to_torch(host))
     assert kops.launch_counts() == {"sls": 1, "block_gather": 1,
                                    "fusedmm": 0, "flash_attention": 0}
+    assert kops.variant_launch_counts()["block_gather"] == {
+        "bulk": 1, "group": 1, "rows": 0}
     want = executor_for(prog, "O3", device="cpu").step(
         program_inputs_to_torch(host, "cpu"))
     for name in want:
@@ -147,6 +247,8 @@ def test_executor_on_an_unaligned_table(cuda, emb):
     got = ex.step(ins)
     assert kops.launch_counts() == {"sls": 1, "block_gather": 1,
                                    "fusedmm": 0, "flash_attention": 0}
+    assert kops.variant_launch_counts()["block_gather"] == {
+        "bulk": 0, "group": 0, "rows": 1}
     assert all(u.table.data_ptr() % 16 for u in ex._units)
     want_s = ref.sls(ins["s"]["table"], torch.from_numpy(ptrs).to(cuda),
                      torch.from_numpy(idxs).to(cuda), num_segments=segs)
@@ -193,7 +295,7 @@ def test_fusedmm_and_flash_launch_errors_raise(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("emb", [5, 8, 64, 100, 128, 520])
+@pytest.mark.parametrize("emb", [5, 8, 64, 100, 128, 520, 1024])
 @pytest.mark.parametrize("fn", ["identity", "relu"])
 def test_fusedmm_kernel_matches_plain(cuda, dtype, emb, fn):
     rng = np.random.default_rng(emb)
@@ -204,9 +306,16 @@ def test_fusedmm_kernel_matches_plain(cuda, dtype, emb, fn):
     args = (x, torch.from_numpy(ptrs).to(cuda),
             torch.from_numpy(idxs).to(cuda))
     before = kops.launch_counts()["fusedmm"]
+    variants = kops.variant_launch_counts()["fusedmm"]
     got = kops.fusedmm(*args, num_segments=rows, fn=fn)
     torch.cuda.synchronize()
     assert kops.launch_counts()["fusedmm"] == before + 1
+    # the ring takes rows of whole 16-byte units wider than 1 KB (f32 E =
+    # 520 and 1024, bf16 E = 1024); narrower rows, E = 5 and bf16 E = 100
+    # (200 B) keep the row kernel
+    from repro_torch.kernels.sls import kernel_variant
+    assert _variant_delta("fusedmm", variants) == {
+        kernel_variant("fusedmm", emb, x.element_size(), True): 1}
     want = ref.fusedmm(*args, num_segments=rows, fn=fn)
     # fp32 dots of up to 520 terms and sums of ~10 scaled rows in another
     # order; bf16 rounds the output once
@@ -223,9 +332,65 @@ def test_fusedmm_kernel_on_an_unaligned_table(cuda):
     ptrs, idxs = _csr(rng, 90, 90, 5)
     args = (x, torch.from_numpy(ptrs).to(cuda),
             torch.from_numpy(idxs).to(cuda))
+    variants = kops.variant_launch_counts()["fusedmm"]
     torch.testing.assert_close(kops.fusedmm(*args, num_segments=90),
                                ref.fusedmm(*args, num_segments=90),
                                rtol=1e-4, atol=1e-3)
+    assert _variant_delta("fusedmm", variants) == {"rows": 1}
+
+
+@pytest.mark.parametrize("degrees", [(0, 1, 40), (1,), (40, 0), (0,),
+                                     (200, 3, 0, 0, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fusedmm_ring_over_segment_degrees(cuda, degrees, dtype):
+    """Degrees 0, 1 and more than the ring's stages (16 at E = 64) in runs
+    of segments, so a warp's ring runs on across segment boundaries; more
+    segments than the grid has warps, and fewer.  The ring is launched as
+    the wrapper launches it, at a width the wrapper gives the rows
+    variant: its deepest ring."""
+    from repro_torch.kernels.fusedmm import launch_variant
+    rng = np.random.default_rng(len(degrees))
+    for segs in (37, 9000):
+        lens = np.resize(np.asarray(degrees), segs)
+        ptrs = np.zeros(segs + 1, np.int32)
+        np.cumsum(lens, out=ptrs[1:])
+        idxs = rng.integers(0, segs, int(ptrs[-1]) + 3).astype(np.int32)
+        x = torch.from_numpy(rng.standard_normal((segs, 64)).astype(
+            np.float32)).to(cuda, dtype)
+        args = (x, torch.from_numpy(ptrs).to(cuda),
+                torch.from_numpy(idxs).to(cuda))
+        variants = kops.variant_launch_counts()["fusedmm"]
+        got = torch.empty_like(x)
+        launch_variant("ring", *args, got, fn="relu")
+        torch.cuda.synchronize()
+        assert _variant_delta("fusedmm", variants) == {"ring": 1}
+        want = ref.fusedmm(*args, num_segments=segs, fn="relu")
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        else:
+            check_bf16(got, want, f"fusedmm ring degrees {degrees}")
+        assert (got[torch.from_numpy(lens == 0).to(cuda)] == 0).all()
+
+
+def test_fusedmm_ring_refuses_what_it_does_not_take(cuda):
+    """The ring's C entry point refuses rows that are not 16-byte units,
+    rows over 4 KB and unaligned x (the wrapper never sends them)."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.randn(10, 2048, device=cuda)
+    ptrs = torch.zeros(11, dtype=torch.int32, device=cuda)
+    out = torch.empty(10, 2048, device=cuda)
+    p = (ptrs.data_ptr(), ptrs.data_ptr())
+    assert lib.ember_fusedmm_ring(x.data_ptr(), *p, out.data_ptr(), 10, 5, 0,
+                                  0, stream) != 0
+    assert lib.ember_fusedmm_ring(x.data_ptr(), *p, out.data_ptr(), 10, 2048,
+                                  0, 0, stream) != 0
+    assert lib.ember_fusedmm_ring(x.data_ptr() + 4, *p, out.data_ptr(), 10,
+                                  64, 0, 0, stream) != 0
+    assert lib.ember_fusedmm_ring(x.data_ptr(), *p, out.data_ptr(), 10, 64,
+                                  0, 0, stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_fusedmm_program_on_the_card_matches_the_cpu(cuda):

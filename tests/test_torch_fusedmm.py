@@ -58,6 +58,25 @@ def test_plain_fusedmm_matches_the_reference(fn, segs, rows, avg, e):
     assert (got[_t(np.diff(ptrs) == 0)] == 0).all()
 
 
+@pytest.mark.parametrize("degrees", [(0, 1, 40), (1,), (40, 0), (0,)])
+def test_plain_fusedmm_over_segment_degrees(degrees):
+    """Degrees 0, 1 and more than the card's ring holds (16 rows), in runs
+    of segments: the plain version against the reference's oracle."""
+    rng = np.random.default_rng(len(degrees))
+    segs, e = 12, 24
+    lens = np.resize(np.asarray(degrees), segs)
+    ptrs = np.zeros(segs + 1, np.int32)
+    np.cumsum(lens, out=ptrs[1:])
+    idxs = rng.integers(0, segs, int(ptrs[-1])).astype(np.int32)
+    x = rng.standard_normal((segs, e)).astype(np.float32)
+    got = kops.fusedmm(_t(x), _t(ptrs), _t(idxs), num_segments=segs)
+    want = jref.fusedmm(jnp.asarray(x), jnp.asarray(idxs),
+                        jnp.asarray(jref.csr_to_lookups(ptrs)),
+                        num_segments=segs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert (got[_t(lens == 0)] == 0).all()
+
+
 def test_plain_fusedmm_never_reads_the_padded_tail():
     rng = np.random.default_rng(3)
     ptrs, idxs = _csr(rng, 9, 9, 3, pad=5)

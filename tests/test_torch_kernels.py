@@ -121,6 +121,32 @@ def test_block_gather(g, n, r, e):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _id_stream(kind, n, g):
+    """Lookup ids of the shapes the bulk gather groups differently: one
+    block for all, every block once, a Zipf head, three long chains."""
+    if kind == "all_equal":
+        return np.full(g, n // 2, np.int32)
+    if kind == "all_distinct":
+        return RNG.permutation(n)[:g].astype(np.int32)
+    if kind == "zipf":
+        return (np.minimum(RNG.zipf(1.05, g), n) - 1).astype(np.int32)
+    return RNG.integers(0, 3, g).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "all_distinct", "zipf",
+                                  "three_chains"])
+def test_block_gather_on_id_streams(kind):
+    """The plain version against the reference on the id streams the card
+    tests give the bulk variant (repeats are exact copies)."""
+    n, r, e, g = 40, 2, 12, 37
+    table = RNG.standard_normal((n * r, e)).astype(np.float32)
+    idxs = _id_stream(kind, n, g)
+    got = tops.block_gather(_t(table), _t(idxs), block_rows=r)
+    want = jops.block_gather(jnp.asarray(table), jnp.asarray(idxs),
+                             block_rows=r, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_block_gather_roff_is_rebased_idxs():
     """The fused gather passes roff to the kernel; the reference adds it to
     the indices first (backend_pallas)."""
@@ -145,6 +171,9 @@ def test_cpu_tensors_never_launch_kernels():
     tops.attention(q, q, q)
     assert tops.launch_counts() == {"sls": 0, "block_gather": 0,
                                     "fusedmm": 0, "flash_attention": 0}
+    assert tops.variant_launch_counts() == {
+        "block_gather": {"bulk": 0, "group": 0, "rows": 0},
+        "fusedmm": {"ring": 0, "rows": 0}}
 
 
 @pytest.mark.parametrize("bad", ["int64_idxs", "f64_table", "short_ptrs",
@@ -194,3 +223,53 @@ def test_one_launch_shape_for_plan_and_wrappers(emb, dtype, aligned, want):
     op = EmbeddingOp("sls", 4, 10, emb, avg_lookups=2, dtype=dtype)
     plan = make_plan(compile_op(op, "O3"))
     assert plan.tile == row_tile(emb, 2 if dtype == "bfloat16" else 4)
+
+
+@pytest.mark.parametrize("kind,emb,itemsize,aligned,want", [
+    ("block_gather", 2048, 4, True, "bulk"),      # DeepSeek rows, 8 KiB
+    ("block_gather", 96, 2, True, "bulk"),        # 192 B bf16
+    ("block_gather", 4, 4, True, "bulk"),         # one 16-byte unit
+    ("block_gather", 5, 4, True, "rows"),         # 20 B: not 16-byte units
+    ("block_gather", 6, 2, True, "rows"),
+    ("block_gather", 2048, 4, False, "rows"),     # unaligned table
+    ("fusedmm", 100, 4, True, "rows"),            # ogbn-products, 400 B
+    ("fusedmm", 128, 4, True, "rows"),            # 512 B: under the crossover
+    ("fusedmm", 256, 4, True, "rows"),            # 1 KB
+    ("fusedmm", 272, 4, True, "ring"),            # 1088 B
+    ("fusedmm", 520, 4, True, "ring"),            # 2080 B
+    ("fusedmm", 1024, 4, True, "ring"),           # 4 KB: the widest ring
+    ("fusedmm", 2048, 2, True, "ring"),
+    ("fusedmm", 2048, 4, True, "rows"),           # 8 KB: wider than the ring
+    ("fusedmm", 100, 2, True, "rows"),            # 200 B
+    ("fusedmm", 5, 4, True, "rows"),
+    ("fusedmm", 64, 4, False, "rows"),
+])
+def test_kernel_variant_is_chosen_from_the_shapes(kind, emb, itemsize,
+                                                  aligned, want):
+    """The bulk-copy variants take rows of whole 16-byte units on 16-byte
+    aligned operands (what cp.async.bulk needs), FusedMM's ring rows from
+    its measured crossover up to 4 KB; everything else keeps the row
+    kernels, whose tile row_tile decides."""
+    from repro_torch.kernels.sls import kernel_variant
+    assert kernel_variant(kind, emb, itemsize, aligned) == want
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("units_past", [-1, 0, 1])
+def test_fusedmm_ring_starts_at_its_crossover(itemsize, units_past):
+    """The ring takes aligned rows from FUSEDMM_RING_MIN_ROW_BYTES on, in
+    either dtype; a row one 16-byte unit narrower keeps the rows variant."""
+    from repro_torch.kernels.sls import (FUSEDMM_RING_MIN_ROW_BYTES,
+                                         kernel_variant)
+    row_bytes = FUSEDMM_RING_MIN_ROW_BYTES + 16 * units_past
+    want = "ring" if units_past >= 0 else "rows"
+    assert kernel_variant("fusedmm", row_bytes // itemsize, itemsize,
+                          True) == want
+    assert kernel_variant("fusedmm", row_bytes // itemsize, itemsize,
+                          False) == "rows"
+
+
+def test_kernel_variant_of_a_kernel_without_variants_raises():
+    from repro_torch.kernels.sls import kernel_variant
+    with pytest.raises(ValueError, match="variants"):
+        kernel_variant("sls", 128, 4, True)
