@@ -54,9 +54,26 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    hidden state against a prefill with plain attention; the kernel's time
    beside ``scaled_dot_product_attention``, also at one prefill_32k
    sequence;
-8. one JSON line listing the four kernels with the kernel (variant) that
-   ran on the main path, its launches there, error, times and bounds;
-9. ``{"ok": true, "device": {...}}`` as the last line.
+8. chatglm3-6b served (full width and depth, bf16, random weights):
+   ``DecodeServer(batch_slots=8, max_len=512, prefill_chunk=16,
+   pipeline=True)`` answers 16 requests (prompts of 32-128 uniform ids, 32
+   new tokens each), every decode-embed wave through the block gather
+   (bulk variant and its grouping pass once a wave).  Checked: every
+   request ends ok with 32 tokens; a drive at ``prefill_chunk=1`` emits the
+   same tokens with bit-identical final logits; the latest-admitted
+   request served alone emits the same tokens; one request's
+   teacher-forced decode logits agree with ``LM.forward`` (the flash
+   prefill path) within phase 7's relative-L2 bound, with the same argmax
+   wherever the top-2 margin exceeds that bound times the row's RMS; the
+   group's outputs with ``backend="cuda"`` equal ``backend="torch"`` and
+   ``embed[tokens]`` bit for bit.  Printed:
+   tokens/s, TTFT and per-token p50/p99, waves, host ms per wave and per
+   decode micro-step, the device busy share and top device operations
+   (torch.profiler), peak device memory;
+9. one JSON line listing the four kernels with the kernel (variant) that
+   ran on the main path, its launches there (the gather's include the
+   served waves), error, times and bounds;
+10. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -113,6 +130,13 @@ LONG_SEQ = 32768
 # SASS of a bulk copy
 BULK_KERNELS = {"gather_bulk_kernel": 1, "fusedmm_ring_kernel": 24}
 BULK_COPY_SASS = "UBLKCP"
+
+# chatglm3-6b served: DecodeServer(batch_slots=8, max_len=512,
+# prefill_chunk=16, pipeline=True), 16 requests of uniform 32-128 prompt
+# tokens and uniform ids, 32 new tokens each, no EOS
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = 8, 512, 16
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 32
+SERVE_PROMPT_LEN = (32, 128)
 
 # H100 SXM (NVIDIA data sheet, dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
@@ -1382,6 +1406,253 @@ def phase_chatglm3(seed: int) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: chatglm3-6b served through DecodeServer
+# ---------------------------------------------------------------------------
+
+def _percentiles(xs) -> str:
+    a = np.asarray(xs, np.float64) * 1e3
+    return (f"p50 {np.percentile(a, 50):.2f} ms, p99 "
+            f"{np.percentile(a, 99):.2f} ms")
+
+
+def _serve_drive(model, prompts, chunk: int) -> dict:
+    """Serve ``prompts`` (32 new tokens each, no EOS) through a fresh
+    DecodeServer on the card, one serving iteration at a time.  Returns
+    the server, the requests, the wall seconds, each request's logits row
+    of its last wave (``final``), and per iteration its wave kind,
+    micro-steps and host seconds (the whole iteration: the wave, the
+    pipeline feed and the argmax read back; and ``wave_step`` alone,
+    issuing the wave's work)."""
+    import torch
+    from repro_torch.runtime.server import DecodeServer, Request
+    srv = DecodeServer(model, batch_slots=SERVE_SLOTS,
+                       max_len=SERVE_MAX_LEN, prefill_chunk=chunk,
+                       pipeline=True)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=SERVE_NEW_TOKENS)
+            for p in prompts]
+    index = {id(r): i for i, r in enumerate(reqs)}
+    out = {"srv": srv, "reqs": reqs, "final": {}, "iters": []}
+    wave_step = model.wave_step
+    issued = []
+
+    def spy(tokens, lens, caches):
+        t0 = time.perf_counter()
+        logits, caches = wave_step(tokens, lens, caches)
+        issued.append((int(lens.max()), time.perf_counter() - t0))
+        for i, req in enumerate(srv.active):
+            if req is not None and lens[i] > 0:
+                out["final"][index[id(req)]] = logits[i]
+        return logits, caches
+    model.wave_step = spy
+    try:
+        t0 = time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        while srv.queue or any(r is not None for r in srv.active):
+            pre = srv.serve_stats["prefill_waves"]
+            t1 = time.perf_counter()
+            srv.step()
+            kind = ("prefill" if srv.serve_stats["prefill_waves"] > pre
+                    else "decode")
+            micro, issue_s = issued[-1]
+            out["iters"].append((kind, micro, time.perf_counter() - t1,
+                                 issue_s))
+        srv.run_until_drained()          # drains the group, final stats
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+    finally:
+        del model.wave_step
+    return out
+
+
+def phase_serving(seed: int, card: str) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import embedding_engine as ee
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("chatglm3-6b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, SERVE_REQUESTS)]
+    # warm-up: cuBLAS handles, the allocator, the gather library
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK)
+
+    # the main path: the served drive, launches counted from 0
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK)
+    counts = kops.launch_counts()
+    srv, reqs, wall, final = (main["srv"], main["reqs"], main["wall"],
+                              main["final"])
+    variants = kops.variant_launch_counts()["block_gather"]
+    st = srv.serve_stats
+    waves = st["waves"]
+    # (a) every request ok with its 32 tokens
+    require(all(r.status == "ok" and len(r.out) == SERVE_NEW_TOKENS
+                for r in reqs),
+            "served: not every request ended ok with "
+            f"{SERVE_NEW_TOKENS} tokens: "
+            f"{[(r.status, len(r.out)) for r in reqs]}")
+    # (f) the decode-embed gather once a wave: bulk variant + grouping pass
+    require(variants == {"bulk": waves, "group": waves, "rows": 0} and
+            counts["block_gather"] == waves,
+            f"served {waves} waves but block_gather launched "
+            f"{counts['block_gather']} times ({variants})")
+    gs = srv.compile_stats["pipeline_group"]
+    require(gs["waves"] == waves, f"pipeline group saw {gs['waves']} waves "
+            f"of {waves}")
+    tokens_out = SERVE_REQUESTS * SERVE_NEW_TOKENS
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    per_token = [b - a for r in reqs
+                 for a, b in zip(r.token_times, r.token_times[1:])]
+    iters = main["iters"]
+    decode_ms = [dt * 1e3 for kind, _, dt, _ in iters if kind == "decode"]
+    prefill_ms = [dt * 1e3 for kind, _, dt, _ in iters if kind == "prefill"]
+    micro_steps = sum(m for _, m, _, _ in iters)
+    issue_ms = sum(i for _, _, _, i in iters) * 1e3
+
+    # (b) chunked prefill == whole prompt: a drive at prefill_chunk=1
+    chunk1 = _serve_drive(model, prompts, 1)
+    reqs1, final1 = chunk1["reqs"], chunk1["final"]
+    for i, (r, r1) in enumerate(zip(reqs, reqs1)):
+        require(r.out == r1.out, f"request {i}: prefill_chunk=1 emitted "
+                f"{r1.out[:6]}... vs {r.out[:6]}...")
+        require(torch.equal(final[i], final1[i]),
+                f"request {i}: last-wave logits differ between "
+                f"prefill_chunk={SERVE_CHUNK} and 1")
+
+    # (c) staggered admission == solo decode: the latest-admitted request
+    late = max(range(SERVE_REQUESTS), key=lambda i: reqs[i].admitted_wave)
+    solo = _serve_drive(model, [prompts[late]], SERVE_CHUNK)["reqs"]
+    require(solo[0].out == reqs[late].out,
+            f"request {late} (admitted at wave "
+            f"{reqs[late].admitted_wave}) alone emitted {solo[0].out[:6]}... "
+            f"vs {reqs[late].out[:6]}...")
+
+    # (d) decode agrees with prefill: request 0 teacher-forced through the
+    # decode path, position by position, against LM.forward (flash)
+    seq = np.concatenate([prompts[0], np.asarray(reqs[0].out, np.int32)])
+    n_prompt = len(prompts[0])
+    caches = model.init_caches(1, SERVE_MAX_LEN)
+    dec = []
+    with torch.inference_mode():
+        for t in range(len(seq)):
+            lg, caches = model.decode_step(
+                torch.tensor([[int(seq[t])]], device=model.device), caches)
+            if t >= n_prompt - 1:
+                dec.append(lg[0, 0])
+        dec = torch.stack(dec)
+        hidden = model(torch.from_numpy(seq[None]).long().to(model.device))
+        fwd = ee.logits(hidden, model.embed)[0, n_prompt - 1:,
+                                             :cfg.vocab_size]
+    rel_l2 = float((dec - fwd).norm() / fwd.norm())
+    require(rel_l2 <= PREFILL_REL_L2 and bool(torch.isfinite(dec).all()),
+            f"decode vs prefill logits: relative L2 {rel_l2:.3g} > "
+            f"{PREFILL_REL_L2}")
+    top2 = fwd.topk(2, dim=-1).values
+    rms = fwd.square().mean(-1).sqrt()
+    clear = (top2[:, 0] - top2[:, 1]) > PREFILL_REL_L2 * rms
+    same = dec.argmax(-1) == fwd.argmax(-1)
+    require(bool(same[clear].all()),
+            f"decode vs prefill: argmax differs at positions "
+            f"{torch.nonzero(clear & ~same).flatten().tolist()} whose top-2 "
+            f"margin exceeds {PREFILL_REL_L2} x the row's RMS")
+
+    # (e) the group's outputs, kernel vs stock op vs embed[tokens]
+    toks = np.asarray([r.out[-1] for r in reqs[:SERVE_SLOTS]], np.int32)
+    name = srv.pipeline_group.names[0]
+    wave = {name: {"tok_embed": {"table": model.embed, "idxs": toks},
+                   "label_gather": {"table": model.embed, "idxs": toks}}}
+    got = srv.pipeline_group.submit_wave(wave)[name].result()
+    stock = model.embedding_pipeline(SERVE_SLOTS, 1, backend="torch")
+    other = stock.submit_wave(wave)[name].result()
+    want = model.embed[torch.from_numpy(toks).long().to(model.device)]
+    for n in got:
+        require(torch.equal(got[n], other[n]) and
+                torch.equal(got[n][:, 0], want),
+                f"decode-embed {n}: backend cuda vs torch vs embed[tokens]")
+
+    # device busy share over the drive: the same drive again (the same
+    # waves: with no deadline the schedule does not depend on time) under
+    # torch.profiler, device events only, summed from the raw events (the
+    # profiler's key_averages() takes minutes over ~10^6 events); the
+    # share is of the unprofiled main drive's wall
+    tp = profile(activities=[ProfilerActivity.CUDA])
+    tp.start()
+    prof_wall = _serve_drive(model, prompts, SERVE_CHUNK)["wall"]
+    tp.stop()
+    by_name: dict = {}
+    launches = 0
+    for e in tp.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            launches += 1
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    dev = sorted(by_name.items(), key=lambda kv: -kv[1])
+    busy_ms = sum(by_name.values()) / 1e6
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    step_bytes = n_params * 2          # every bf16 weight once a micro-step
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[8 chatglm3 serving] {cfg.name} {cfg.num_layers} layers, "
+          f"{n_params} params, bf16 (random, seed {seed}; init "
+          f"{init_s:.2f} s); DecodeServer(batch_slots={SERVE_SLOTS}, "
+          f"max_len={SERVE_MAX_LEN}, prefill_chunk={SERVE_CHUNK}, "
+          f"pipeline=True): {SERVE_REQUESTS} requests (prompts "
+          f"{lo}-{hi} tokens, {sum(len(p) for p in prompts)} in all), "
+          f"{SERVE_NEW_TOKENS} new tokens each, all ok; {waves} waves "
+          f"({st['prefill_waves']} prefill, {st['decode_waves']} decode) in "
+          f"{wall:.2f} s: {tokens_out / wall:.1f} generated tokens/s; TTFT "
+          f"{_percentiles(ttft)}; per token {_percentiles(per_token)}; "
+          f"block_gather launches {counts['block_gather']} (bulk "
+          f"{variants['bulk']}, grouping pass {variants['group']}) = one "
+          f"a wave; peak device memory {peak / 2**30:.2f} GiB; {card}")
+    print(f"[8 serving where] {micro_steps} micro-steps in {len(iters)} "
+          f"waves; host ms issuing them (wave_step) {issue_ms:.1f} of the "
+          f"{wall * 1e3:.1f} ms drive = {issue_ms / len(iters):.2f} ms a "
+          f"wave, {issue_ms / micro_steps:.2f} ms a micro-step; a prefill "
+          f"wave's whole iteration "
+          f"{np.mean(prefill_ms):.2f} ms ({len(prefill_ms)} waves); ms per "
+          f"decode micro-step (a decode wave's whole iteration: wave, "
+          f"pipeline feed, argmax read back) mean {np.mean(decode_ms):.2f}, "
+          f"p50 {np.percentile(decode_ms, 50):.2f}, against {bound_ms:.2f} "
+          f"ms to read every weight once at 3.35 TB/s; the drive under "
+          f"torch.profiler: " + ("device time not measured (the profiler "
+          "saw no CUDA events)" if not dev else
+          f"{launches} device operations = {launches / micro_steps:.0f} a "
+          f"micro-step, device busy {busy_ms:.1f} ms = "
+          f"{busy_ms / micro_steps:.2f} ms a micro-step = "
+          f"{100 * busy_ms / (wall * 1e3):.1f}% of the unprofiled drive's "
+          f"{wall * 1e3:.1f} ms (idle {100 - 100 * busy_ms / (wall * 1e3):.1f}"
+          f"%; {100 * busy_ms / (prof_wall * 1e3):.1f}% of the "
+          f"{prof_wall * 1e3:.1f} ms it took under the profiler); top: " +
+          ", ".join(f"{k[:40]} {ns / 1e6:.2f} ms" for k, ns in dev[:6])))
+    print(f"[8 serving checks] prefill_chunk=1 drive: the same tokens, "
+          f"bit-identical last-wave logits ({SERVE_REQUESTS} requests); "
+          f"request {late} (admitted at wave {reqs[late].admitted_wave}) "
+          f"served alone: the same {SERVE_NEW_TOKENS} tokens; request 0 "
+          f"teacher-forced ({len(seq)} tokens): decode vs LM.forward logits "
+          f"relative L2 {rel_l2:.3g} (tol {PREFILL_REL_L2}), argmax equal "
+          f"at {int(same.sum())}/{len(same)} positions ({int(clear.sum())} "
+          f"with a clear top-2 margin, all equal); decode-embed group "
+          f"backend cuda == torch == embed[tokens] bit for bit")
+    result = {"launches": variants["bulk"],
+              "group_launches": variants["group"], "waves": waves,
+              "tokens_per_s": tokens_out / wall}
+    del model, main, srv, reqs, chunk1, reqs1, final, final1, solo, caches
+    del dec, fwd, hidden, stock, got, other, want, tp
+    free_cuda()
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1418,6 +1689,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels.append(run())
         seconds[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = phase_serving(args.seed, card)
+    seconds["8"] = time.perf_counter() - t0
+    gather = next(k for k in kernels if k["name"] == "block_gather")
+    gather["deepseek_launches"] = gather["launches"]
+    gather["serving_launches"] = served["launches"]
+    gather["serving_group_launches"] = served["group_launches"]
+    gather["launches"] += served["launches"]
     print("[time] wall seconds by phase: " +
           ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for k in kernels:

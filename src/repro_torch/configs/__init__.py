@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b"]
+ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b", "stablelm-3b"]
 
 
 def _mod(name: str):

@@ -8,7 +8,9 @@ per-step index streams left as numpy arrays.
 An LM's parameters are a pytree in the reference (per-layer leaves stacked
 over the scanned super-blocks under ``scan``, the remainder layers under
 ``rest``) and a flat ``state_dict`` of :class:`repro_torch.models.lm.LM`
-here: :func:`lm_params_from_reference` maps one onto the other.
+here: :func:`lm_params_from_reference` maps one onto the other.  Its decode
+caches are the same kind of tree there and a list of per-layer dicts here:
+:func:`caches_from_reference` and :func:`caches_to_reference` map both ways.
 """
 from __future__ import annotations
 
@@ -67,13 +69,7 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
     dev = resolve_device(device)
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
-    layers = []
-    pattern = tuple(cfg.block_pattern)
-    for n in range(cfg.n_super):
-        for i in range(len(pattern)):
-            layers.append(_tree_index(params["scan"][i], n))
-    layers.extend(params.get("rest", ()))
-    for li, layer in enumerate(layers):
+    for li, layer in enumerate(_layers_of(params, cfg)):
         for key, val in _flatten(layer):
             state[f"blocks.{li}.{key}"] = _to_tensor(val, dev)
     return state
@@ -100,3 +96,64 @@ def embed_tables_from_params(params: dict) -> dict:
     them.  Deliberately partial: the MoE capacity buffer is step data."""
     return {"tok_embed": {"table": params["embed"]},
             "label_gather": {"table": params["embed"]}}
+
+
+#: cache leaves stored head-major here, (B, Smax, Hkv, ...) in the reference
+_SEQ_MAJOR_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def _layers_of(tree: dict, cfg) -> list:
+    """The reference's ``{"scan": stacked over n_super, "rest": (...)}``
+    tree as one entry per layer, in layer order."""
+    layers = []
+    pattern = tuple(cfg.block_pattern)
+    for n in range(cfg.n_super):
+        for i in range(len(pattern)):
+            layers.append(_tree_index(tree["scan"][i], n))
+    layers.extend(tree.get("rest", ()))
+    return layers
+
+
+def caches_from_reference(tree: dict, cfg, device=None) -> list:
+    """The reference's decode caches (``LM.init_caches`` /
+    ``decode_step`` output, leaves as numpy arrays or anything
+    ``np.asarray`` takes) as the port's list of per-layer cache dicts on
+    ``device``: ``k``/``v`` (B, Smax, Hkv, hd) -> (B, Hkv, Smax, hd),
+    ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax), ``len`` as
+    is."""
+    dev = resolve_device(device)
+    out = []
+    for layer in _layers_of(tree, cfg):
+        cache = {}
+        for key, val in layer.items():
+            t = _to_tensor(np.asarray(val), dev)
+            if key in _SEQ_MAJOR_LEAVES:
+                t = t.transpose(1, 2).contiguous()
+            cache[key] = t
+        out.append(cache)
+    return out
+
+
+def caches_to_reference(caches: list, cfg) -> dict:
+    """The port's per-layer caches as the reference's tree of numpy arrays
+    (``{"scan": tuple over the pattern of dicts stacked over n_super,
+    "rest": tuple}``), to compare leaf by leaf."""
+    def host(key, t):
+        if key in _SEQ_MAJOR_LEAVES:
+            t = t.transpose(1, 2)
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy()
+        return t.numpy()
+
+    layers = [{k: host(k, t) for k, t in c.items()} for c in caches]
+    pattern = tuple(cfg.block_pattern)
+    n_scan = cfg.n_super * len(pattern)
+    scan = ()
+    if cfg.n_super:
+        scan = tuple(
+            {k: np.stack([layers[n * len(pattern) + i][k]
+                          for n in range(cfg.n_super)])
+             for k in layers[i]}
+            for i in range(len(pattern)))
+    return {"scan": scan, "rest": tuple(layers[n_scan:])}

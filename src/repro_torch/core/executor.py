@@ -26,10 +26,29 @@ arrays.  The executor runs on the CUDA device unless built with
 ``device="cpu"``, where the kernels' plain versions run instead; without a
 card, asking for the default device raises.
 
+``backend`` selects the execute unit: ``"cuda"`` (the hand-written Hopper
+kernels, the reference's ``"pallas"``) or ``"torch"`` (stock PyTorch ops,
+:mod:`.backend_torch`, the reference's ``"jax"``).  The marshaling and
+overlap are the same for both.
+
+**Pipeline groups** (:func:`pipeline_group`) join executors over one shared
+staging pool (entries keyed by the buffer spec, so same-shaped staging of
+different programs is one ring) with per-program in-flight accounting.
+:meth:`PipelineGroup.submit_wave` submits one serving wave across its
+members: ``torch``-backend gather units stage their index streams on one
+:class:`TransferBatch` and defer their launch; the group's flush packs every
+staged array into one pinned buffer from the shared pool, issues one
+``non_blocking`` copy, launches the deferred runs in order on the current
+stream and records ONE CUDA event after the last of them.  That event is
+the event of every handle with deferred outputs, and only then do their
+staging slots become reusable.  ``cuda``-backend units launch inside
+``submit``, as ``pallas`` units do in the reference.  (The reference traces
+the deferred runs into one jitted wave executable; a CUDA graph of the wave
+is an open decision, ROADMAP.md Queue 1 item 3.)
+
 Not ported yet (ROADMAP.md): meshes and vocab sharding, the hot slab and its
-adaptive swaps, the disaggregated service, fault injection, serving
-artifacts, ``PipelineGroup`` / ``TransferBatch``, and the stock-op
-``backend="jax"`` counterpart.
+adaptive swaps, the disaggregated service and its degrade policy, and
+serving artifacts.
 """
 from __future__ import annotations
 
@@ -43,10 +62,14 @@ import torch
 
 from . import access_plan as ap
 from . import backend_cuda as bc
+from . import backend_torch as bt
 from .cost_model import FusionBudget
 from .ops import EmbeddingProgram
 from .passes.fuse import FusedGroup
-from .pipeline import BoundedLru, ProgramCompileResult, compile_program
+from .pipeline import (BoundedLru, ProgramCompileResult, compile_program,
+                       entries_by_shards)
+
+BACKENDS = ("cuda", "torch")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,23 +91,125 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(eq=False)  # identity semantics: outputs hold tensors
 class StepHandle:
     """One in-flight program step.  ``outputs`` are tensors whose kernels
-    may still run; :meth:`result` is the consume point."""
+    may still run; :meth:`result` is the consume point.
+
+    A step submitted into a :class:`TransferBatch` whose units deferred
+    their launch is ``deferred`` until the batch's flush: it has neither
+    outputs nor an event before then, and is never ready."""
 
     outputs: dict                 # op name -> tensor
     index: int                    # step number within the executor
     event: Optional[torch.cuda.Event] = None   # recorded after the launches
     done: bool = False
+    faults: object = None         # chaos injector (site "result"), if any
+    deferred: bool = False        # outputs wait for a TransferBatch flush
 
     def ready(self) -> bool:
         """True once the step's copies and kernels have finished (never
         blocks)."""
-        return self.done or self.event is None or self.event.query()
+        if self.done:
+            return True
+        if self.deferred:
+            return False
+        return self.event is None or self.event.query()
 
     def result(self) -> dict:
+        if self.faults is not None:
+            self.faults.fire("result", step=self.index)
+        if self.deferred:
+            raise RuntimeError(f"step {self.index}: result() before its "
+                               "wave's TransferBatch was flushed")
         if self.event is not None:
             self.event.synchronize()
         self.done = True
         return self.outputs
+
+
+class _TxnRef:
+    """Placeholder for one host tensor riding a :class:`TransferBatch`."""
+    __slots__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = i
+
+
+#: byte alignment of each array inside a wave's packed staging buffer (so
+#: every device view may be reinterpreted as its own dtype)
+_PACK_ALIGN = 16
+
+
+class TransferBatch:
+    """One serving wave's coalesced host -> device transfer.
+
+    :meth:`PipelineGroup.submit_wave` hands every member executor the same
+    batch: ``torch``-backend gather units stage their per-step host streams
+    on it instead of copying each, and defer their launch as a pure
+    ``run(dev_inputs) -> {op name: output}`` function.  :meth:`flush` packs
+    every staged array into ONE pinned buffer (from ``pool``, keyed by its
+    size bucket), issues ONE ``non_blocking`` copy, launches the deferred
+    runs in order on the current stream, and records one CUDA event after
+    the last launch: the event of every step handle registered on the batch,
+    which only then stops being ``deferred``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._host: list = []     # staged host tensors
+        # (handle outputs dict, run fn, staged inputs with _TxnRefs)
+        self.fills: list = []
+        self.handles: list = []   # steps whose outputs come from the flush
+        self.n_arrays = 0
+
+    def put(self, t: torch.Tensor) -> _TxnRef:
+        self._host.append(t)
+        self.n_arrays += 1
+        return _TxnRef(len(self._host) - 1)
+
+    def defer(self, outs: dict, run, staged: dict) -> None:
+        self.fills.append((outs, run, staged))
+
+    def flush(self, pool: Optional["BufferPool"] = None
+              ) -> Optional[torch.cuda.Event]:
+        """Pack, copy once, launch the deferred runs; returns the wave's
+        event (None on the CPU, where the runs are synchronous)."""
+        host, self._host = self._host, []
+        fills, self.fills = self.fills, []
+        handles, self.handles = self.handles, []
+        if not fills:
+            return None
+        cuda = self.device.type == "cuda"
+        offs, n = [], 0
+        for t in host:
+            offs.append(n)
+            n += -(-t.numel() * t.element_size() // _PACK_ALIGN) * _PACK_ALIGN
+        cap = max(4096, 1 << max(0, n - 1).bit_length())   # size bucket
+        spec = {"wave": ((cap,), np.uint8)}
+        if pool is not None:
+            entry, turn, _ = pool.acquire(pool.key_for("wave", (cap,), spec),
+                                          spec)
+            buf = entry["slots"][turn]["wave"]
+        else:
+            entry = None
+            buf = torch.empty(cap, dtype=torch.uint8, pin_memory=cuda)
+        for t, o in zip(host, offs):
+            nb = t.numel() * t.element_size()
+            buf[o:o + nb].view(t.dtype).copy_(t.reshape(-1))
+        dev = (buf[:n].to(self.device, non_blocking=True) if cuda
+               else buf[:n].clone())
+        devs = [dev[o:o + t.numel() * t.element_size()].view(t.dtype)
+                .view(t.shape) for t, o in zip(host, offs)]
+        for outs, run, staged in fills:
+            outs.update(run({k: devs[v.i] if isinstance(v, _TxnRef) else v
+                             for k, v in staged.items()}))
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        for h in handles:
+            h.event = event
+            h.deferred = False
+        if entry is not None:   # the packed buffer is busy until the event
+            entry["owners"][turn] = StepHandle({}, -1, event=event)
+        return event
 
 
 class BufferPool:
@@ -94,17 +219,36 @@ class BufferPool:
     host tensors when the executor runs on the card, so the copies are
     asynchronous); every slot remembers the :class:`StepHandle` that last
     packed it.  A slot is free once that step's event has completed.  When
-    every slot is busy the ring grows (up to ``max_slots``); a full ring
-    waits for the oldest owner's event (``forced_drains``)."""
+    every slot is busy the ring grows (up to ``max_slots``) instead of
+    stalling -- with a shared pool a forced drain would block one program's
+    marshal on another's execute; only a full ring waits for the oldest
+    owner's event (``forced_drains``).
+
+    ``shared=False`` (each executor's private default) keys entries by
+    ``(executor, unit, capacity bucket)``; ``shared=True``
+    (:func:`pipeline_group`) keys by the buffer spec alone, so same-shaped
+    staging of different programs draws from one ring.  Sharing is safe
+    because every marshal path overwrites what its kernel reads."""
 
     def __init__(self, n_slots: int = 2, max_slots: Optional[int] = None,
-                 pin: bool = False):
+                 pin: bool = False, shared: bool = False):
         self.n_slots = max(2, n_slots)
         self.max_slots = max(self.n_slots, max_slots or self.n_slots * 4)
         self.pin = pin
+        self.shared = shared
         self._entries: dict = {}
         self.stats = {"entries": 0, "hits": 0, "misses": 0, "grown": 0,
                       "forced_drains": 0, "bytes": 0}
+
+    @staticmethod
+    def spec_sig(spec: dict) -> tuple:
+        return tuple(sorted((k, tuple(shape), np.dtype(dt).str)
+                            for k, (shape, dt) in spec.items()))
+
+    def key_for(self, owner_tag, bucket, spec: dict):
+        if self.shared:
+            return self.spec_sig(spec)
+        return (owner_tag, bucket)
 
     def _alloc(self, spec: dict) -> dict:
         return {k: torch.zeros(shape, dtype=_torch_dtype(dt),
@@ -201,34 +345,54 @@ class ProgramExecutor:
     ``idxs``, ``vals``) as host arrays.  Tables bind on the first step and
     are reused while the caller passes the *same tensor objects*; other
     objects are detected by identity and rebound.  :meth:`update_tables`
-    refreshes in place when the same objects changed."""
+    refreshes in place when the same objects changed.
+
+    ``backend`` is ``"cuda"`` (the hand-written kernels; their plain
+    versions on a CPU executor) or ``"torch"`` (stock PyTorch ops,
+    :mod:`.backend_torch`).  ``pool`` is a staging pool to draw from instead
+    of a private one (:func:`pipeline_group` hands its shared pool in);
+    ``faults`` is a chaos injector (sites ``dispatch``, ``marshal``,
+    ``transfer`` and ``result``; None in production)."""
 
     def __init__(self, compiled: ProgramCompileResult, device=None,
-                 depth: int = 2, index_policy: str = "strict"):
+                 depth: int = 2, index_policy: str = "strict",
+                 backend: str = "cuda", pool: Optional[BufferPool] = None,
+                 faults=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if index_policy not in ap.INDEX_POLICIES:
             raise ValueError(f"index_policy {index_policy!r} not in "
                              f"{ap.INDEX_POLICIES}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.compiled = compiled
         self.device = resolve_device(device)
         self.depth = depth
+        self.backend = backend
         self._units = [_UnitState(u) for u in compiled.units]
         for u in self._units:
             u.plan = u.res.access_plan or ap.build_plan(u.res.op, u.group)
-        self.pool = BufferPool(n_slots=max(2, depth + 1),
-                               pin=self.device.type == "cuda")
+        self.pool = pool or BufferPool(n_slots=max(2, depth + 1),
+                                       pin=self.device.type == "cuda")
+        self._pool_tag = object()         # private-pool key namespace
         self._slots_packed: list = []     # slots the current dispatch used
+        self._txn: Optional[TransferBatch] = None   # the wave being staged
+        self._deferred = False            # this dispatch deferred a unit
         self._inflight: deque = deque()
         self._steps = 0
         # "strict" raises a typed MalformedAccessError on a bad stream;
         # "clamp"/"drop" repair per lookup and count
         self.index_policy = index_policy
+        self.faults = faults
         self.stats = {"steps": 0, "table_stacks": 0, "table_restacks": 0,
                       "table_rebinds": 0, "marshal_hits": 0,
                       "marshal_misses": 0, "max_inflight": 0,
                       "host_syncs": 0, "oob_lookups": 0,
                       "dropped_lookups": 0, "resets": 0}
+
+    def _fire(self, site: str) -> None:
+        if self.faults is not None:
+            self.faults.fire(site, program=self.compiled.program.name)
 
     # ------------------------------------------------------------------
     # Marshaling cache: device-resident tables + roff
@@ -305,9 +469,11 @@ class ProgramExecutor:
     # ------------------------------------------------------------------
 
     def _scratch_for(self, unit_idx: int, bucket: tuple, spec: dict):
-        """Rotating host scratch per (unit, capacity bucket): the slot's
-        tensors and their numpy views (for packing)."""
-        key = (unit_idx, bucket)
+        """Rotating host scratch per (unit, capacity bucket), or per buffer
+        spec in a shared pool: the slot's tensors and their numpy views
+        (for packing)."""
+        self._fire("marshal")
+        key = self.pool.key_for((self._pool_tag, unit_idx), bucket, spec)
         entry, turn, created = self.pool.acquire(key, spec)
         self.stats["marshal_misses" if created else "marshal_hits"] += 1
         self._slots_packed.append((entry, turn))
@@ -318,19 +484,30 @@ class ProgramExecutor:
         """Host -> device copy of one per-step operand (counted in
         ``host_syncs``).  Asynchronous from pinned staging on the card; a
         copy on the CPU, so a reused staging slot never aliases an output."""
+        self._fire("transfer")
         self.stats["host_syncs"] += 1
         if self.device.type == "cpu":
             return t.clone()
         return t.to(self.device, non_blocking=True)
 
-    def _put_host(self, arr, dtype) -> torch.Tensor:
-        """A caller-owned host array straight to the device (no staging)."""
-        return self._put(torch.from_numpy(np.ascontiguousarray(arr, dtype)))
+    @staticmethod
+    def _host(arr, dtype) -> torch.Tensor:
+        """A caller-owned host array as a tensor (no staging)."""
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype))
 
-    def _marshal_csr(self, idx: int, u: _UnitState, inputs: dict) -> dict:
+    def _trim(self, host: dict, nnz: int) -> dict:
+        """The stock-op backend reads exactly ``nnz`` lookups: drop the
+        capacity padding on the host, so it is never copied either."""
+        if self.backend == "torch":
+            for k in ("idxs", "vals"):
+                if k in host:
+                    host[k] = host[k][:nnz]
+        return host
+
+    def _marshal_csr(self, idx: int, u: _UnitState, inputs: dict):
         """Fused CSR unit: the AccessPlan gives the per-member CSR shapes,
         the capacity bucket and the offset-merged pack; this method manages
-        the rotating scratch and the copy."""
+        the rotating scratch.  Returns (device constants, host operands)."""
         plan = u.plan
         op = plan.op
         parts, nnz, _ = plan.csr_parts(inputs)
@@ -344,30 +521,28 @@ class ProgramExecutor:
         buf["idxs"][nnz:cap] = 0          # pad rows stay in bounds
         if plan.need_vals:
             buf["vals"][nnz:cap] = 0
-        dev = {k: self._put(t) for k, t in slot.items()}
-        dev["table"], dev["roff"] = u.table, u.roff
-        return dev
+        return ({"table": u.table, "roff": u.roff},
+                self._trim(dict(slot), nnz))
 
-    def _marshal_gather(self, idx: int, u: _UnitState, inputs: dict) -> dict:
+    def _marshal_gather(self, idx: int, u: _UnitState, inputs: dict):
         plan = u.plan
         slot, buf = self._scratch_for(
             idx, (), {"idxs": ((plan.num_segments,), np.int32)})
         plan.pack_gather(buf, inputs)
-        return {"table": u.table, "roff": u.roff,
-                "idxs": self._put(slot["idxs"])}
+        return {"table": u.table, "roff": u.roff}, {"idxs": slot["idxs"]}
 
-    def _marshal_single(self, idx: int, u: _UnitState, inputs: dict) -> dict:
-        """Singleton unit: copy the per-step operands to the device,
-        bucketing the ragged CSR streams to the plan's capacity lattice."""
+    def _marshal_single(self, idx: int, u: _UnitState, inputs: dict):
+        """Singleton unit: the per-step operands, bucketing the ragged CSR
+        streams to the plan's capacity lattice."""
         op = u.res.op
         ins = inputs[u.unit.names[0]]
         if op.kind == "gather":
-            return {"table": u.table,
-                    "idxs": self._put_host(ins["idxs"], np.int32)}
+            return ({"table": u.table},
+                    {"idxs": self._host(ins["idxs"], np.int32)})
         if op.kind == "kg":
-            return {"table": u.table,
-                    "idxs": self._put_host(ins["idxs"], np.int32),
-                    "vals": self._put_host(ins["vals"], np.dtype(op.dtype))}
+            return ({"table": u.table},
+                    {"idxs": self._host(ins["idxs"], np.int32),
+                     "vals": self._host(ins["vals"], np.dtype(op.dtype))})
         if op.index_format == "lengths" and "ptrs" not in ins:
             ptrs = np.zeros(op.num_segments + 1, np.int64)
             np.cumsum(ins["lens"], out=ptrs[1:])
@@ -387,10 +562,9 @@ class ProgramExecutor:
         if need_vals:
             buf["vals"][:nnz] = ins["vals"]
             buf["vals"][nnz:cap] = 0
-        dev = {k: self._put(t) for k, t in slot.items()}
         # fusedmm's dense operand x: per-step data, bound by identity
-        dev["x" if op.kind == "fusedmm" else "table"] = u.table
-        return dev
+        return ({"x" if op.kind == "fusedmm" else "table": u.table},
+                self._trim(dict(slot), nnz))
 
     # ------------------------------------------------------------------
     # Step loop
@@ -408,6 +582,40 @@ class ProgramExecutor:
         self.stats["dropped_lookups"] += dropped
         return hardened
 
+    def _execute(self, u: _UnitState, dev: dict) -> torch.Tensor:
+        if self.backend == "torch":
+            return bt.execute(u.res.op, dev)
+        return bc.execute(u.res, dev)
+
+    def _unit_run(self, u: _UnitState):
+        """The unit's deferred launch, ``run(dev_inputs) -> {op name:
+        output}`` (memoized on the unit)."""
+        run = getattr(u, "txn_run", None)
+        if run is not None:
+            return run
+        if u.group is None:
+            name = u.unit.names[0]
+
+            def run(d, u=u, name=name):
+                return {name: self._execute(u, d)}
+        else:
+            members = tuple(zip(u.group.members, u.group.member_ops,
+                                u.group.seg_offsets))
+
+            def run(d, u=u, members=members):
+                fused = self._execute(u, d)
+                return {name: fused[off:off + mop.num_segments]
+                        for name, mop, off in members}
+        u.txn_run = run
+        return run
+
+    def _defers(self, u: _UnitState) -> bool:
+        """As in the reference, only stock-op gather units ride a wave's
+        TransferBatch; kernel units launch inside ``submit``."""
+        kind = u.res.op.kind
+        return (self._txn is not None and self.backend == "torch" and
+                (kind == "gather" or (u.group is None and kind == "kg")))
+
     def _dispatch(self, inputs: dict) -> dict:
         outs: dict = {}
         for idx, u in enumerate(self._units):
@@ -421,33 +629,52 @@ class ProgramExecutor:
                 self._bind_unit(u, uin)
                 self.stats["table_rebinds"] += 1
             if u.group is None:
-                dev = self._marshal_single(idx, u, uin)
-                outs[u.unit.names[0]] = bc.execute(u.res, dev)
-                continue
-            if u.group.op.kind == "gather":
-                dev = self._marshal_gather(idx, u, uin)
+                consts, host = self._marshal_single(idx, u, uin)
+            elif u.group.op.kind == "gather":
+                consts, host = self._marshal_gather(idx, u, uin)
             else:
-                dev = self._marshal_csr(idx, u, uin)
-            fused = bc.execute(u.res, dev)
-            for name, mop, off in zip(u.group.members, u.group.member_ops,
-                                      u.group.seg_offsets):
-                outs[name] = fused[off:off + mop.num_segments]
+                consts, host = self._marshal_csr(idx, u, uin)
+            if self._defers(u):
+                # stage the host streams on the wave's batch; the launch
+                # runs at its flush
+                staged = {**consts,
+                          **{k: self._txn.put(t) for k, t in host.items()}}
+                self._txn.defer(outs, self._unit_run(u), staged)
+                self._deferred = True
+                continue
+            dev = {**consts, **{k: self._put(t) for k, t in host.items()}}
+            outs.update(self._unit_run(u)(dev))
         return outs
 
-    def submit(self, inputs: dict) -> StepHandle:
+    def submit(self, inputs: dict, txn: Optional[TransferBatch] = None
+               ) -> StepHandle:
         """Dispatch one step asynchronously: marshal + copy + launch now,
         block never.  At ``depth`` steps in flight the oldest is drained
         first (backpressure), so step N+1's host packing overlaps step N's
-        kernels."""
+        kernels.
+
+        With ``txn`` (:meth:`PipelineGroup.submit_wave`), stock-op gather
+        units stage their streams on the shared :class:`TransferBatch` and
+        their launch is deferred to its flush: the handle is ``deferred``
+        until then, and its event is the one the flush records after the
+        wave's last launch.  Otherwise the event is recorded here, after
+        this step's launches."""
+        self._fire("dispatch")
         while len(self._inflight) >= self.depth:
             self._inflight.popleft().result()
         self._slots_packed = []
-        outs = self._dispatch(inputs)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        h = StepHandle(outs, self._steps, event=event)
+        self._txn, self._deferred = txn, False
+        try:
+            outs = self._dispatch(inputs)
+        finally:
+            self._txn = None
+        h = StepHandle(outs, self._steps, faults=self.faults)
+        if self._deferred:
+            h.deferred = True
+            txn.handles.append(h)
+        elif self.device.type == "cuda":
+            h.event = torch.cuda.Event()
+            h.event.record(torch.cuda.current_stream(self.device))
         for entry, turn in self._slots_packed:
             entry["owners"][turn] = h     # slot busy until h's event
         self._steps += 1
@@ -460,7 +687,8 @@ class ProgramExecutor:
     def step(self, inputs: dict) -> dict:
         """Synchronous convenience: submit + wait for this step's result."""
         h = self.submit(inputs)
-        self._inflight.remove(h)
+        if h in self._inflight:
+            self._inflight.remove(h)
         return h.result()
 
     def run_steps(self, steps) -> list:
@@ -481,8 +709,197 @@ class ProgramExecutor:
             h.done = True
         self._inflight.clear()
         self._slots_packed = []
+        self._txn = None
         self.pool.release_all()
         self.stats["resets"] += 1
+
+    def use_pool(self, pool: BufferPool) -> None:
+        """Re-home host staging onto ``pool`` (the pipeline-group join).
+        Slots of the old pool still owned by in-flight handles stay alive
+        through those handles; new marshals draw from the shared rings."""
+        self.pool = pool
+
+
+# ---------------------------------------------------------------------------
+# Pipeline group: compiled programs overlapped through one shared staging
+# pool -- cross-program access/execute overlap
+# ---------------------------------------------------------------------------
+
+class PipelineGroup:
+    """Cross-program pipelining over a shared :class:`BufferPool`.
+
+    A serving wave is programs back to back (the decode embed of wave W+1,
+    the MoE un-dispatch of wave W); run through separate executors they
+    serialize at each program's own backpressure.  The group re-homes every
+    member onto one shared pool (entries keyed by buffer spec, so
+    same-shaped staging is one ring) and accounts in-flight steps per
+    program, so one program's marshal proceeds while another executes.
+
+    ``depth`` is the group-level backpressure bound (default: the sum of
+    the members' depths)."""
+
+    def __init__(self, executors, names=None, depth: Optional[int] = None,
+                 n_slots: Optional[int] = None,
+                 max_slots: Optional[int] = None):
+        if not executors:
+            raise ValueError("pipeline_group needs at least one executor")
+        self.executors = list(executors)
+        self.names = list(names) if names is not None else [
+            ex.compiled.program.name for ex in self.executors]
+        if len(set(self.names)) != len(self.names):
+            raise ValueError(f"ambiguous program names: {self.names}")
+        devices = {ex.device for ex in self.executors}
+        if len(devices) != 1:
+            raise ValueError(f"members run on different devices: {devices}")
+        self.device = devices.pop()
+        self._by_name = dict(zip(self.names, self.executors))
+        slots = n_slots or max(max(2, ex.depth + 1)
+                               for ex in self.executors)
+        self.pool = BufferPool(n_slots=slots, max_slots=max_slots,
+                               pin=self.device.type == "cuda", shared=True)
+        for ex in self.executors:
+            ex.drain()                  # old-pool slots settle before rehome
+            ex.use_pool(self.pool)
+        self.depth = depth or sum(ex.depth for ex in self.executors)
+        self._inflight: deque = deque()   # (name, StepHandle)
+        # group-level chaos injector (sites: dispatch at submit_wave,
+        # transfer at the wave flush, result on the wave's handles); set by
+        # the server so cached member executors stay untouched
+        self.faults = None
+        self.stats = {
+            "submitted": {n: 0 for n in self.names},
+            "in_flight": {n: 0 for n in self.names},
+            "max_in_flight": {n: 0 for n in self.names},
+            "group_drains": 0,
+            "waves": 0,
+            "batched_arrays": 0,
+            "batched_copies": 0,
+            "resets": 0,
+        }
+
+    def _fire(self, site: str) -> None:
+        if self.faults is not None:
+            self.faults.fire(site, group=tuple(self.names))
+
+    def executor(self, name: str) -> ProgramExecutor:
+        return self._by_name[name]
+
+    def _gc(self) -> None:
+        """Drop handles resolved elsewhere (member backpressure, caller
+        ``result()``) from the group ledger."""
+        live: deque = deque()
+        for n, h in self._inflight:
+            if h.done:
+                self.stats["in_flight"][n] -= 1
+            else:
+                live.append((n, h))
+        self._inflight = live
+
+    def _account(self, name: str, h: StepHandle) -> None:
+        self._inflight.append((name, h))
+        st = self.stats
+        st["submitted"][name] += 1
+        st["in_flight"][name] += 1
+        st["max_in_flight"][name] = max(st["max_in_flight"][name],
+                                        st["in_flight"][name])
+
+    def _drain_to(self, bound: int) -> None:
+        while len(self._inflight) > bound:
+            n0, h0 = self._inflight.popleft()
+            h0.result()
+            self.stats["in_flight"][n0] -= 1
+            self.stats["group_drains"] += 1
+
+    def submit(self, name: str, inputs: dict) -> StepHandle:
+        """Dispatch one step of member ``name`` asynchronously, under both
+        the member's own depth bound and the group bound."""
+        self._gc()
+        self._drain_to(self.depth - 1)
+        h = self._by_name[name].submit(inputs)
+        self._account(name, h)
+        return h
+
+    def step(self, name: str, inputs: dict) -> dict:
+        """Synchronous convenience: group submit + wait for the result."""
+        return self.submit(name, inputs).result()
+
+    def submit_wave(self, wave: dict) -> dict:
+        """Submit one serving wave -- ``{program name: inputs}`` -- across
+        members as one co-scheduled dispatch: every member marshals onto a
+        shared :class:`TransferBatch`, and the flush ships the staged
+        streams in one copy and launches the deferred runs.  Returns
+        ``{name: StepHandle}``."""
+        self._fire("dispatch")
+        self._gc()
+        self._drain_to(max(0, self.depth - len(wave)))
+        txn = TransferBatch(self.device)
+        handles = {name: self._by_name[name].submit(inputs, txn=txn)
+                   for name, inputs in wave.items()}
+        self._flush_wave(txn)
+        if self.faults is not None:
+            for h in handles.values():
+                h.faults = self.faults
+        self.stats["waves"] += 1
+        self.stats["batched_arrays"] += txn.n_arrays
+        for name, h in handles.items():
+            self._account(name, h)
+        return handles
+
+    def _flush_wave(self, txn: TransferBatch) -> None:
+        """Flush the wave's deferred launches: one packed pinned buffer from
+        the shared pool, one copy, the runs in order, one event after the
+        last of them (every deferred handle's event)."""
+        self._fire("transfer")
+        if txn.fills:
+            self.stats["batched_copies"] += 1
+        txn.flush(self.pool)
+
+    def drain(self) -> None:
+        for ex in self.executors:
+            ex.drain()
+        for _, h in self._inflight:
+            h.result()
+        self._gc()
+
+    def reset(self) -> None:
+        """Fault recovery across the whole group: abandon every member's
+        in-flight steps (a faulted wave may have left staged transfers),
+        clear the group ledger and release the shared pool's slot owners.
+        The next :meth:`submit_wave` starts clean; bound tables survive."""
+        for _, h in self._inflight:
+            h.done = True
+        self._inflight.clear()
+        for n in self.names:
+            self.stats["in_flight"][n] = 0
+        for ex in self.executors:
+            ex.reset()
+        self.stats["resets"] += 1
+
+    def group_stats(self) -> dict:
+        """Per-program in-flight accounting + the shared pool's counters."""
+        self._gc()
+        return {
+            "programs": list(self.names),
+            "depth": self.depth,
+            "submitted": dict(self.stats["submitted"]),
+            "in_flight": dict(self.stats["in_flight"]),
+            "max_in_flight": dict(self.stats["max_in_flight"]),
+            "group_drains": self.stats["group_drains"],
+            "waves": self.stats["waves"],
+            "batched_arrays": self.stats["batched_arrays"],
+            "batched_copies": self.stats["batched_copies"],
+            "resets": self.stats["resets"],
+            "pool": dict(self.pool.stats),
+        }
+
+
+def pipeline_group(executors, names=None, depth: Optional[int] = None,
+                   n_slots: Optional[int] = None,
+                   max_slots: Optional[int] = None) -> PipelineGroup:
+    """Join ``executors`` into a :class:`PipelineGroup` sharing one staging
+    pool.  ``names`` defaults to each executor's program name."""
+    return PipelineGroup(executors, names=names, depth=depth,
+                         n_slots=n_slots, max_slots=max_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -495,26 +912,40 @@ _EXECUTOR_CACHE = BoundedLru(16)
 def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
                  vlen: int = 128, budget: Optional[FusionBudget] = None,
                  depth: int = 2, device=None,
-                 index_policy: str = "strict") -> ProgramExecutor:
+                 index_policy: str = "strict",
+                 backend: str = "cuda") -> ProgramExecutor:
     """The steady-state entry point: compile (compile-cache backed) and
     return the memoized executor for this signature on ``device`` (the CUDA
-    card unless ``device="cpu"``; raises without a card).
+    card unless ``device="cpu"``; raises without a card) with ``backend``
+    (``"cuda"``: the kernels, ``"torch"``: stock ops).
 
     The key is the program's structural signature: a hit can hand back an
     executor whose tables another caller bound, which the per-step identity
     check resolves (same tensors: warm fast path; other tensors: rebind)."""
     dev = resolve_device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     budget = budget or FusionBudget()
     key = (program.signature(), opt_level, vlen, budget, depth, str(dev),
-           index_policy)
+           index_policy, backend)
     ex = _EXECUTOR_CACHE.get(key)
     if ex is not None:
         return ex
     compiled = compile_program(program, opt_level, vlen=vlen, budget=budget)
     ex = ProgramExecutor(compiled, device=dev, depth=depth,
-                         index_policy=index_policy)
+                         index_policy=index_policy, backend=backend)
     _EXECUTOR_CACHE.put(key, ex)
     return ex
+
+
+def executor_cache_stats() -> dict:
+    s = _EXECUTOR_CACHE.stats()
+    s["entries_by_shards"] = entries_by_shards(_EXECUTOR_CACHE)
+    return s
+
+
+def set_executor_cache_limit(limit: int) -> int:
+    return _EXECUTOR_CACHE.set_limit(limit)
 
 
 def clear_executor_cache() -> None:

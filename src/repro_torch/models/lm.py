@@ -1,23 +1,33 @@
 """LM assembly (counterpart of ``repro/models/lm.py``).
 
 Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
-gated MLP), :meth:`LM.forward` and :meth:`LM.prefill`, and the LM's
-embedding program (:func:`embedding_program`).  The reference folds depth
+gated MLP), :meth:`LM.forward` and :meth:`LM.prefill`, the serving methods
+(:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask,
+:meth:`LM.wave_step`, :meth:`LM.reset_slots`), and the LM's embedding
+programs and executors (:func:`embedding_program`,
+:meth:`LM.decode_embed_program`, :meth:`LM.embedding_pipeline`,
+:meth:`LM.embedding_executor` without a mesh).  The reference folds depth
 into a ``jax.lax.scan`` over super-blocks; here the layers are an
 ``nn.ModuleList`` run in order (scan super-blocks first, then the
-remainder, as the reference does).  Decode with caches, the other block
-kinds, the loss and training are still to port (ROADMAP.md, Queue 1).
+remainder, as the reference does), and a wave is a Python loop of masked
+micro-steps.  Still to port (ROADMAP.md, Queue 1): the other block kinds,
+the loss and training, and the sharded embedding executor.
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
 ``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``)
 and layout, so :func:`repro_torch.convert.lm_params_from_reference` can load
 the reference's weights.  They do not require gradients: the attention
-kernel has no backward yet.
+kernel has no backward yet.  The weights stay inside the module, so the
+serving methods take no ``params`` argument; caches are a list with one
+dict per layer, in layer order (:mod:`.attention` gives the layout;
+``repro_torch.convert.caches_to_reference`` maps them to the reference's
+tree).
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,7 +35,7 @@ from ..core import embedding_engine as ee
 from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
 from . import moe as moe_mod
-from .attention import attn_forward, init_attn
+from .attention import attn_decode, attn_forward, init_attn, init_kv_cache
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
 PORTED_KINDS = ("dense",)
@@ -57,6 +67,16 @@ class DenseBlock(nn.Module):
         h = rms_norm(x, self.norm1, eps)
         x = x + attn_forward(self.attn, h, self.cfg, positions=positions,
                              causal=True)
+        h = rms_norm(x, self.norm2, eps)
+        return x + gated_mlp(h, self.mlp, self.cfg.act)
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode micro-step (the reference's ``block_decode`` of the
+        dense kind): x (B,1,D), ``cache`` updated in place."""
+        eps = self.cfg.norm_eps
+        h = rms_norm(x, self.norm1, eps)
+        x = x + attn_decode(self.attn, h, self.cfg, cache, active=active)
         h = rms_norm(x, self.norm2, eps)
         return x + gated_mlp(h, self.mlp, self.cfg.act)
 
@@ -112,6 +132,158 @@ class LM(nn.Module):
         """The serving prefill step: the full-sequence forward, returning
         the last position's hidden state (B,1,D)."""
         return self.forward(tokens)[:, -1:]
+
+    # ---- serving ----
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.inference_mode()
+    def init_caches(self, batch: int, max_len: int,
+                    dtype: Optional[torch.dtype] = None) -> list:
+        """Empty KV caches for ``batch`` slots of ``max_len`` positions: one
+        dict per layer, in layer order (:func:`.attention.init_kv_cache`)."""
+        dtype = dtype or self.cfg.torch_dtype
+        return [init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
+                for _ in self.blocks]
+
+    @torch.inference_mode()
+    def decode_step(self, tokens_new: torch.Tensor, caches: list,
+                    active: Optional[torch.Tensor] = None):
+        """tokens_new (B,1) -> (logits (B,1,vocab) fp32, caches), the caches
+        updated in place.
+
+        ``active`` (B,) bool masks the continuous-batching batch: inactive
+        slots feed token 0 and keep their caches (``len`` included)
+        unchanged -- what makes prompt-chunked prefill equal whole-prompt
+        prefill however a wave's slots are staggered."""
+        if active is not None:
+            tokens_new = torch.where(active[:, None], tokens_new, 0)
+        x = ee.lookup(self.embed, tokens_new, strategy="take")
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.decode(x, cache, active)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return ee.logits(x, self.embed)[..., :self.cfg.vocab_size], caches
+
+    @torch.inference_mode()
+    def wave_step(self, tokens, lens, caches: list):
+        """One serving wave: ``tokens.shape[1]`` masked decode micro-steps.
+        ``tokens`` (B,C) ragged-right with per-slot valid counts ``lens``
+        (B,) (host arrays or tensors); slot b consumes ``tokens[b, :lens[b]]``
+        and idles (caches untouched) afterwards.
+
+        Because each micro-step is :meth:`decode_step` with the
+        ``active = t < lens`` mask, splitting a prompt across waves of any
+        chunk size replays the same micro-step sequence as one big wave.
+        Tokens and lens reach the card in one copy; micro-steps where no
+        slot is active change nothing and are skipped, and one where every
+        slot is active runs unmasked (the same function).
+
+        Returns ``(logits (B,1,vocab) fp32 at each slot's last valid token,
+        caches)`` -- zeros for a slot with ``lens == 0``."""
+        tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
+                            else tokens)
+        lens_h = np.asarray(lens.cpu() if isinstance(lens, torch.Tensor)
+                            else lens).astype(np.int64)
+        b, c = tokens.shape
+        packed = np.empty((b, c + 1), np.int64)
+        packed[:, :c] = tokens
+        packed[:, c] = lens_h
+        dev = torch.from_numpy(packed).to(self.device, non_blocking=True)
+        tok, lens_d = dev[:, :c], dev[:, c]
+        logits_last = torch.zeros((b, 1, self.cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        for t in range(int(lens_h.max(initial=0))):
+            if (lens_h > t).all():
+                logits_last, caches = self.decode_step(tok[:, t:t + 1],
+                                                       caches)
+                continue
+            active = lens_d > t
+            logits, caches = self.decode_step(tok[:, t:t + 1], caches,
+                                              active=active)
+            logits_last = torch.where(active[:, None, None], logits,
+                                      logits_last)
+        return logits_last, caches
+
+    @torch.inference_mode()
+    def reset_slots(self, caches: list, keep) -> list:
+        """Zero the cache state of retired slots (``keep`` (B,) bool False),
+        in place, so a recycled slot starts from position 0 with no stale
+        K/V.  Returns ``caches``."""
+        keep = torch.as_tensor(np.asarray(keep.cpu() if isinstance(
+            keep, torch.Tensor) else keep, bool)).to(self.device)
+        for cache in caches:
+            for leaf in cache.values():
+                leaf.masked_fill_(
+                    ~keep.view((-1,) + (1,) * (leaf.dim() - 1)), 0)
+        return caches
+
+    # ---- Ember program compilation ----
+    def embedding_program(self, batch: int, seq: int) -> EmbeddingProgram:
+        """All irregular lookups of one (batch, seq) step
+        (:func:`embedding_program`)."""
+        return embedding_program(self.cfg, batch, seq)
+
+    def decode_embed_program(self, batch: int,
+                             seq: int = 1) -> EmbeddingProgram:
+        """The embed side of one decode wave as its own program (token
+        embed + label gather over the shared table, no MoE op): the first
+        member of the serving pipeline group."""
+        cfg = self.cfg
+        return ee.model_embedding_program(
+            vocab_size=cfg.padded_vocab, d_model=cfg.d_model,
+            tokens=batch * seq, name=f"{cfg.name}-decode-embed")
+
+    def embedding_pipeline(self, batch: int, seq: int = 1,
+                           opt_level: str = "O3", depth: int = 2, **kw):
+        """The serving :class:`~repro_torch.core.executor.PipelineGroup`:
+        the decode-embed program on the model's device.  (The reference
+        adds the MoE un-dispatch program for MoE models; the port has no
+        MoE block yet.)
+
+        Defaults to ``backend="cuda"``, the hand-written block gather.  This
+        differs from the reference on purpose: the reference defaults to
+        ``"jax"`` because only that path rides its jitted wave executable,
+        which has no counterpart here; ``"cuda"`` keeps the hand-written
+        kernel on the served path.  ``backend="torch"`` (stock
+        ``index_select``, one packed copy per wave) stays selectable and
+        gives the same bits: a gather is a copy."""
+        from ..core.executor import executor_for, pipeline_group
+        kw.setdefault("backend", "cuda")
+        kw.setdefault("device", self.device)
+        prog = self.decode_embed_program(batch, seq)
+        # named after this program: the memoized executor may be shared
+        # with a structurally equal program of another name
+        return pipeline_group([executor_for(prog, opt_level, depth=depth,
+                                            **kw)], names=[prog.name])
+
+    def compile_embeddings(self, batch: int, seq: int,
+                           opt_level: str = "O3"):
+        """Compile this model's embedding program (compile-cache backed)."""
+        from ..core.pipeline import compile_program
+        return compile_program(self.embedding_program(batch, seq), opt_level)
+
+    def embedding_executor(self, batch: int, seq: int,
+                           opt_level: str = "O3", mesh=None,
+                           hot_rows=None, **kw):
+        """The steady-state executor of this model's embedding program on
+        the model's device, memoized per signature.  Only ``mesh=None``
+        (one device) is ported: the vocab-sharded executor and its hot rows
+        wait for ROADMAP.md Queue 1 item 4."""
+        from ..core.executor import executor_for
+        if mesh is not None or hot_rows is not None:
+            raise NotImplementedError(
+                "the sharded embedding executor (mesh=, hot_rows=) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 4)")
+        kw.setdefault("device", self.device)
+        return executor_for(self.embedding_program(batch, seq), opt_level,
+                            **kw)
+
+    def embedding_table_inputs(self) -> dict:
+        """The param-backed tables of :meth:`embedding_program`, keyed the
+        way :meth:`ProgramExecutor.update_tables` wants them."""
+        return {"tok_embed": {"table": self.embed},
+                "label_gather": {"table": self.embed}}
 
 
 def embedding_program(cfg: ModelConfig, batch: int,

@@ -1,0 +1,195 @@
+"""Shared fault vocabulary + seeded, site-addressable chaos injection.
+
+A production embedding tier fails *per request*, never per process: the
+trainer already had typed failures (``InjectedFailure`` killing the loop at
+scheduled steps, ``StragglerTimeout`` from the step watchdog) and PR 7 gives
+the serving path the same discipline.  This module is the single home of
+that vocabulary — trainer and server raise, catch and classify the SAME
+typed errors — plus the :class:`FaultInjector` the chaos tests drive both
+runtimes with.
+
+Error taxonomy (all subclass :class:`EmberFault`):
+
+* :class:`MalformedAccessError` — an offset stream failed validation
+  against the compiled :class:`~repro.core.access_plan.AccessPlan` (vocab
+  bounds, CSR structure, capacity limits).  Defined in
+  :mod:`repro.core.access_plan` (the validation site) and re-exported here.
+* :class:`InjectedFailure` — a chaos-injected fault (previously defined in
+  :mod:`repro.runtime.trainer`; re-exported there for compatibility).
+* :class:`StragglerTimeout` — the trainer's per-step watchdog deadline
+  (hung collectives on a multi-host mesh).
+* :class:`WaveTimeout` — the serving-side analogue: a wave exceeding the
+  server's ``wave_deadline_s`` around ``submit_wave``/``StepHandle.result``.
+* :class:`RequestError` — a per-request serving failure carrying the
+  request's terminal status; never escapes :meth:`DecodeServer.step`.
+* :class:`RpcError` — the disaggregated embedding tier's transport fault
+  root (framing violations, closed connections); defined in
+  :mod:`repro.core.access_plan` (the executor's disagg path classifies
+  it) and re-exported here; subclasses
+  :class:`RpcTimeout` (a per-call deadline lapsed) and
+  :class:`ServiceUnavailable` (every replica dark after bounded retry —
+  what the executor's ``degrade_policy`` resolves per step).
+
+Injection sites mirror the executor's DAE phases (and the runtimes above
+them)::
+
+    marshal        host index packing (ProgramExecutor._marshal_*/route_*)
+    transfer       host->device operand placement (ProgramExecutor._put*)
+    dispatch       step/wave launch (ProgramExecutor.submit)
+    result         the consume point (StepHandle.result)
+    wave           the serving wave body (DecodeServer.step)
+    step           the training step (Trainer.run)
+    rpc_send       a step/bind request leaving the service client
+    rpc_recv       a reply arriving at the service client
+    heartbeat      one liveness probe of one replica (ServicePool)
+    service_crash  the service process's step loop (the replica self-kills
+                   abruptly — the ``kill -9`` shape, os._exit)
+
+The injector is *seeded* (probabilistic specs draw from one
+``np.random.default_rng``) and *site-addressable* (each
+:class:`FaultSpec` names its site and fires either on exact call ordinals
+or with probability ``p``), so a chaos schedule replays bit-identically —
+the property the recovery tests assert on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+
+# the access-validation and RPC-transport errors are raised (and, for the
+# transport family, classified by the executor's disaggregated submit
+# path) in core; re-exported here so runtimes/tests import one fault module
+from ..core.access_plan import (EmberFault, MalformedAccessError, RpcError,
+                                RpcTimeout, ServiceUnavailable)
+
+__all__ = [
+    "EmberFault", "MalformedAccessError", "InjectedFailure",
+    "StragglerTimeout", "WaveTimeout", "RequestError", "RpcError",
+    "RpcTimeout", "ServiceUnavailable", "FaultSpec", "FaultInjector",
+    "SITES", "FAULT_TYPES",
+]
+
+
+class InjectedFailure(EmberFault):
+    """A chaos-injected fault (the supervisor treats it like a crash)."""
+
+
+class StragglerTimeout(EmberFault):
+    """A training step exceeded its watchdog deadline."""
+
+
+class WaveTimeout(EmberFault):
+    """A serving wave exceeded ``wave_deadline_s`` (hung wave)."""
+
+
+class RequestError(EmberFault):
+    """Per-request serving failure; carries the terminal status the server
+    stamps on the request (``shed`` / ``expired`` / ``failed``)."""
+
+    def __init__(self, status: str, msg: str = ""):
+        super().__init__(msg or status)
+        self.status = status
+
+
+#: typed-error wire vocabulary: the service replies ``err`` frames naming
+#: one of these classes and the client re-raises the SAME type, so a
+#: service-side MalformedAccessError stays a MalformedAccessError at the
+#: caller (never a generic transport failure that would trigger failover)
+FAULT_TYPES = {
+    "EmberFault": EmberFault,
+    "MalformedAccessError": MalformedAccessError,
+    "InjectedFailure": InjectedFailure,
+    "StragglerTimeout": StragglerTimeout,
+    "WaveTimeout": WaveTimeout,
+    "RpcError": RpcError,
+    "RpcTimeout": RpcTimeout,
+    "ServiceUnavailable": ServiceUnavailable,
+}
+
+
+SITES: Tuple[str, ...] = ("marshal", "transfer", "dispatch", "result",
+                          "wave", "step", "rpc_send", "rpc_recv",
+                          "heartbeat", "service_crash")
+
+
+@dataclasses.dataclass
+class FaultSpec:
+    """One addressable fault: fire at ``site`` either on exact call
+    ordinals (``at`` — 1-based call numbers of that site) or with
+    per-call probability ``p``; raise ``error`` (after an optional
+    ``delay_s`` sleep that simulates a hung phase) up to ``times`` times.
+    ``delay_only=True`` sleeps without raising — the hung-wave shape the
+    watchdog must catch."""
+
+    site: str
+    at: Tuple[int, ...] = ()          # 1-based call ordinals of the site
+    p: float = 0.0                    # used when ``at`` is empty
+    error: type = InjectedFailure
+    times: int = 1
+    delay_s: float = 0.0
+    delay_only: bool = False
+    fired: int = 0                    # mutable: how often this spec fired
+
+    def __post_init__(self):
+        assert self.site in SITES, (self.site, SITES)
+        self.at = tuple(int(a) for a in self.at)
+
+
+class FaultInjector:
+    """Seeded, site-addressable chaos injector shared by trainer, executor
+    and server.  Runtimes call :meth:`fire` at each instrumented site; the
+    injector decides (deterministically per seed) whether that call
+    sleeps, raises, or passes through.  ``counts``/``log`` make the
+    schedule observable so recovery tests can assert exactly which faults
+    fired."""
+
+    def __init__(self, specs=(), seed: int = 0):
+        self.specs = [s if isinstance(s, FaultSpec) else FaultSpec(**s)
+                      for s in specs]
+        self.seed = int(seed)
+        self.rng = np.random.default_rng(self.seed)
+        self.counts = {s: 0 for s in SITES}
+        self.log: list = []           # (site, call ordinal, error name)
+
+    def fire(self, site: str, **ctx) -> None:
+        """Invoke the site: count the call, then let each matching spec
+        sleep and/or raise.  Unknown context kwargs ride into the raised
+        error's message (the typed status the server records)."""
+        self.counts[site] += 1
+        n = self.counts[site]
+        for spec in self.specs:
+            if spec.site != site or spec.fired >= spec.times:
+                continue
+            hit = (n in spec.at) if spec.at else (
+                spec.p > 0 and bool(self.rng.random() < spec.p))
+            if not hit:
+                continue
+            spec.fired += 1
+            if spec.delay_s > 0:
+                time.sleep(spec.delay_s)
+            if spec.delay_only:
+                self.log.append((site, n, "delay"))
+                continue
+            self.log.append((site, n, spec.error.__name__))
+            detail = " ".join(f"{k}={v}" for k, v in sorted(ctx.items()))
+            raise spec.error(
+                f"injected {spec.error.__name__} at site={site} call={n}"
+                + (f" [{detail}]" if detail else ""))
+
+    def total_fired(self) -> int:
+        return sum(s.fired for s in self.specs)
+
+    def stats(self) -> dict:
+        return {"seed": self.seed,
+                "calls": dict(self.counts),
+                "fired": self.total_fired(),
+                "log": list(self.log)}
+
+
+def injector_for_env(env_value: Optional[str], specs=()) -> FaultInjector:
+    """Build an injector whose seed comes from an environment string (the
+    CI chaos leg pins ``CHAOS_SEED``); ``None``/empty means seed 0."""
+    return FaultInjector(specs, seed=int(env_value) if env_value else 0)

@@ -568,3 +568,118 @@ def test_small_lm_prefill_with_the_kernel_matches_plain(cuda):
         want = model.prefill(tokens)
     assert kops.launch_counts()["flash_attention"] == 2 * cfg.num_layers
     torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The serving path: pipeline waves, backends, the reduced LM served
+# ---------------------------------------------------------------------------
+
+def _two_table_gather(e):
+    from repro_torch.core.ops import EmbeddingOp, EmbeddingProgram
+    return EmbeddingProgram(f"wave-{e}", (
+        ("g1", EmbeddingOp("gather", 256, 4096, e)),
+        ("g2", EmbeddingOp("gather", 256, 4096, e))))
+
+
+def test_submit_wave_result_waits_for_the_deferred_copy_and_launch(cuda):
+    """A torch-backend wave stages its streams and launches at the group's
+    flush.  Its handles share ONE event, recorded after the last deferred
+    launch: with a long kernel queued first, the handle is not ready after
+    submit_wave, result() waits for the copy and the gather, and repacking
+    the staging right after result() (more waves through the same pool)
+    leaves the step's outputs as they were."""
+    from repro_torch.core.executor import ProgramExecutor, pipeline_group
+    from repro_torch.core.pipeline import compile_program
+    prog = _two_table_gather(1024)
+    grp = pipeline_group([ProgramExecutor(
+        compile_program(prog, "O3", use_cache=False), backend="torch")],
+        n_slots=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t1 = torch.randn(4096, 1024, generator=g, device=cuda)
+    t2 = torch.randn(4096, 1024, generator=g, device=cuda)
+    rng = np.random.default_rng(0)
+
+    def wave():
+        return {"wave-1024": {n: {"table": t, "idxs": rng.integers(
+            0, 4096, 256).astype(np.int32)} for n, t in (("g1", t1),
+                                                         ("g2", t2))}}
+    grp.submit_wave(wave())["wave-1024"].result()   # pinned buffers made
+    w0 = wave()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of a busy stream
+    h = grp.submit_wave(w0)["wave-1024"]
+    assert not h.deferred and h.event is not None and not h.ready()
+    out = h.result()
+    snap = {n: t.clone() for n, t in out.items()}
+    for _ in range(4):                      # repack every staging slot
+        torch.cuda._sleep(50_000_000)
+        grp.submit_wave(wave())
+    grp.drain()
+    for n, t in (("g1", t1), ("g2", t2)):
+        idx = torch.from_numpy(w0["wave-1024"][n]["idxs"]).long().to(cuda)
+        assert torch.equal(out[n][:, 0], t[idx])
+        assert torch.equal(out[n], snap[n])
+    assert grp.group_stats()["batched_copies"] == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [5, 4096])
+def test_cuda_and_torch_backends_are_bit_equal_on_a_gather_program(
+        cuda, dtype, e):
+    """A gather is a copy: the hand-written kernel (bulk or rows variant)
+    and index_select give the same bits, through step and submit_wave."""
+    from repro_torch.core.executor import executor_for, pipeline_group
+    prog = _two_table_gather(e)
+    g = torch.Generator(device=cuda).manual_seed(e)
+    tables = {n: torch.randn(4096, e, generator=g, device=cuda).to(dtype)
+              for n in ("g1", "g2")}
+    rng = np.random.default_rng(e)
+    ins = {n: {"table": t, "idxs": rng.integers(0, 4096, 256).astype(
+        np.int32)} for n, t in tables.items()}
+    kops.reset_launch_counts()
+    got = executor_for(prog, "O3").step(ins)
+    assert kops.launch_counts()["block_gather"] == 1
+    want = executor_for(prog, "O3", backend="torch").step(ins)
+    assert kops.launch_counts()["block_gather"] == 1
+    for n in ins:
+        assert torch.equal(got[n], want[n]), n
+    waves = [pipeline_group([executor_for(prog, "O3", depth=3,
+                                          backend=b)]).submit_wave(
+        {prog.name: ins})[prog.name].result() for b in ("cuda", "torch")]
+    for n in ins:
+        assert torch.equal(waves[0][n], waves[1][n]) and \
+            torch.equal(waves[0][n], got[n]), n
+
+
+def test_reduced_lm_served_on_the_card_matches_the_cpu(cuda):
+    """The reduced chatglm3 (fp32) served on the card with the decode-embed
+    pipeline: every emitted token is the CPU model's argmax on the same
+    teacher-forced sequence, or within 1e-4 of its largest logit (an
+    argmax tie); the gather ran once a wave."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = get_reduced("chatglm3-6b")
+    host = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, seed=0)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (9, 4, 13, 6, 2)]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
+    srv = DecodeServer(card, batch_slots=2, max_len=64, prefill_chunk=4,
+                       pipeline=True)
+    kops.reset_launch_counts()
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    variants = kops.variant_launch_counts()["block_gather"]
+    assert variants["bulk"] == variants["group"] == srv.serve_stats["waves"]
+    for p, r in zip(prompts, reqs):
+        assert r.status == "ok" and len(r.out) == 8
+        caches = host.init_caches(1, 64)
+        logits, caches = host.wave_step(p[None], np.array([len(p)]), caches)
+        for j, tok in enumerate(r.out):
+            lg = logits[0, 0]
+            assert float(lg[tok]) >= float(lg.max()) - 1e-4, (j, tok)
+            logits, caches = host.wave_step(np.array([[tok]]),
+                                            np.array([1]), caches)

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX package,
-and its entry points do not fall back to the CPU when no card is there."""
+"""The port stands alone: it imports no JAX and nothing of the JAX package
+(the compiler, the executor, the LM and one served request run with both
+unimportable), and its entry points do not fall back to the CPU when no
+card is there."""
 import re
 import subprocess
 import sys
@@ -52,6 +54,16 @@ def test_port_runs_with_jax_and_repro_unimportable():
         np.testing.assert_allclose(got["m"].numpy(),
                                    program_reference(mp, host)["m"],
                                    rtol=1e-4, atol=1e-4)
+        from repro_torch.launch import serve  # noqa: F401
+        from repro_torch.runtime.server import DecodeServer, Request
+        srv = DecodeServer(lm, batch_slots=2, max_len=32, prefill_chunk=4,
+                           pipeline=True)
+        req = Request(prompt=np.arange(5, dtype=np.int32), max_new_tokens=3)
+        srv.submit(req)
+        srv.run_until_drained()
+        assert req.status == "ok" and len(req.out) == 3
+        waves = srv.compile_stats["pipeline_group"]["waves"]
+        assert waves == srv.serve_stats["waves"] == 4
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -83,3 +95,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         program_inputs_to_torch(make_program_inputs(prog))
     assert executor_for(prog, device="cpu").device == torch.device("cpu")
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(get_reduced("chatglm3-6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "chatglm3-6b", "--reduced"])
