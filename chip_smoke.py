@@ -19,11 +19,12 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    Zipf ids, both variants; FusedMM: identity/relu, f32/bf16,
    E=5/8/64/100/128/520/1024, empty segments and segments longer than the
    ring, zero segments, both variants; flash attention: causal or not, GQA
-   groups 1/4/16, D=64/128, S=256, a ragged 200 and 200 queries over 328
+   groups 1/4/16, D=64/80/128, S=256, a ragged 200 and 200 queries over 328
    keys, f32/bf16; tables not 16-byte aligned; bf16 held by
-   ``kernels.agreement.check_bf16``), the bf16 flash kernel over 200
-   causal cases of few-key rows, and a small mixed program through the
-   executor against the repo's numpy oracle (``program_reference``);
+   ``kernels.agreement.check_bf16``), the bf16 flash kernel over 300
+   causal cases of few-key rows (D = 128, 64 and 80), and a small mixed
+   program through the executor against the repo's numpy oracle
+   (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
    rows capped at 10M per table, uniform ids) through
    ``executor_for(...).step`` for ``--steps`` steps, every op held against
@@ -53,26 +54,38 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    version on that layer's own q, k, v (``check_bf16``), and the last
    hidden state against a prefill with plain attention; the kernel's time
    beside ``scaled_dot_product_attention``, also at one prefill_32k
-   sequence;
+   sequence; then stablelm-3b (32 layers, head dim 80, full width, bf16,
+   random weights; chatglm3-6b freed first) over the same 4 x 4096
+   tokens: flash at D = 80 in every layer, layer 0's kernel output held
+   against the plain version, the kernel's time beside its bound and
+   ``scaled_dot_product_attention``;
 8. chatglm3-6b served (full width and depth, bf16, random weights):
    ``DecodeServer(batch_slots=8, max_len=512, prefill_chunk=16,
    pipeline=True)`` answers 16 requests (prompts of 32-128 uniform ids, 32
-   new tokens each), every decode-embed wave through the block gather
-   (bulk variant and its grouping pass once a wave).  Checked: every
-   request ends ok with 32 tokens; a drive at ``prefill_chunk=1`` emits the
-   same tokens with bit-identical final logits; the latest-admitted
-   request served alone emits the same tokens; one request's
-   teacher-forced decode logits agree with ``LM.forward`` (the flash
-   prefill path) within phase 7's relative-L2 bound, with the same argmax
-   wherever the top-2 margin exceeds that bound times the row's RMS; the
-   group's outputs with ``backend="cuda"`` equal ``backend="torch"`` and
-   ``embed[tokens]`` bit for bit.  Printed:
-   tokens/s, TTFT and per-token p50/p99, waves, host ms per wave and per
-   decode micro-step, the device busy share and top device operations
-   (torch.profiler), peak device memory;
+   new tokens each) through the server's CUDA graphs of the decode
+   micro-step and the slot reset (``runtime.server.WaveGraph``), every
+   decode-embed wave through the block gather (bulk variant and its
+   grouping pass once a wave).  Checked: every request ends ok with 32
+   tokens; a drive at ``prefill_chunk=1`` emits the same tokens with
+   bit-identical final logits; the latest-admitted request served alone
+   emits the same tokens; one request's teacher-forced decode logits agree
+   with ``LM.forward`` (the flash prefill path) within phase 7's
+   relative-L2 bound, with the same argmax wherever the top-2 margin
+   exceeds that bound times the row's RMS; the group's outputs with
+   ``backend="cuda"`` equal ``backend="torch"`` and ``embed[tokens]`` bit
+   for bit; and the same 16 requests through a graph server and an eager
+   server (``LM.wave_step`` / ``LM.reset_slots``) stepped in turn: every
+   wave's logits, every cache leaf after every iteration and every token
+   the same bits.  Printed: tokens/s, TTFT and per-token p50/p99, waves,
+   host ms per wave and per micro-step (graph and eager, and the eager
+   baseline beside them), device ms of one captured micro-step (CUDA
+   events), the device busy share and top device operations
+   (torch.profiler), peak device memory.  Then stablelm-3b served the same way (8 requests, 16
+   new tokens each), held to the eager wave the same way;
 9. one JSON line listing the four kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
-   served waves), error, times and bounds;
+   served waves of both models, flash's the stablelm-3b prefill), error,
+   times and bounds;
 10. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -137,6 +150,16 @@ BULK_COPY_SASS = "UBLKCP"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = 8, 512, 16
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 32
 SERVE_PROMPT_LEN = (32, 128)
+# stablelm-3b served the same way, a shorter drive: one generation of 8
+# slots, 16 new tokens each
+STABLELM_REQUESTS, STABLELM_NEW_TOKENS = 8, 16
+# the eager served path the captured wave is compared with: the same
+# chatglm3-6b drive served eagerly (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+EAGER_BASELINE = {"host_ms_micro_step": 42.84, "device_ms_micro_step": 9.15,
+              "busy_pct": 21.2, "ms_decode_wave": 38.79,
+              "tokens_per_s": 33.7, "ttft_p50_s": 7.33, "ttft_p99_s": 14.01,
+              "per_token_p50_ms": 43.37, "per_token_p99_ms": 933.36}
 
 # H100 SXM (NVIDIA data sheet, dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
@@ -153,10 +176,11 @@ TOL_FMM_F32 = dict(rtol=1e-4, atol=1e-3)
 # another order; outputs are convex combinations of unit-normal values
 TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
 # few-key causal rows of bf16 flash attention: cases of q (2, 200, 16, D)
-# over k, v (2, 200, 1, D), D alternating 128 and 64.  A row near the start
-# attends to a few keys, where a p rounded to the other side of a bf16 step
-# (scores summed in another order) moves the output the most
-FLASH_STRESS_CASES = 200
+# over k, v (2, 200, 1, D), D cycling over 128, 64 and 80.  A row near the
+# start attends to a few keys, where a p rounded to the other side of a
+# bf16 step (scores summed in another order) moves the output the most
+FLASH_STRESS_CASES = 300
+FLASH_STRESS_DIMS = (128, 64, 80)
 # bf16 kernel outputs vs plain: kernels.agreement.check_bf16 (one bf16 step
 # per element, <= 1 % of elements differing, relative L2 <= 2^-9).
 # scaled_dot_product_attention rounds p against the running max of its own
@@ -575,8 +599,8 @@ def phase_sweep_fusedmm(seed: int) -> None:
 def phase_sweep_flash(seed: int) -> None:
     """Flash attention against its plain version over the kernel's own KV
     tiles (``kv_tile``: 128 keys in bf16, 64 in f32): causal or not, GQA
-    groups 1, 4, 16, D 64 and 128, S 256, a ragged 200 and 200 queries over
-    328 keys, f32 and bf16."""
+    groups 1, 4, 16, D 64, 80 (the 128 kernel, padded) and 128, S 256, a
+    ragged 200 and 200 queries over 328 keys, f32 and bf16."""
     import torch
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import check_bf16
@@ -586,7 +610,7 @@ def phase_sweep_flash(seed: int) -> None:
     err_f32, bf16 = 0.0, {}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in (64, 80, 128):
             for h, hkv in ((4, 4), (8, 2), (16, 1)):
                 for sq, sk in ((256, 256), (200, 200), (200, 328)):
                     q = torch.randn((2, sq, h, d), generator=g,
@@ -627,7 +651,7 @@ def phase_stress_flash(seed: int) -> None:
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     worst, fails, off = {}, [], 0
     for i in range(FLASH_STRESS_CASES):
-        d = 128 if i % 2 == 0 else 64
+        d = FLASH_STRESS_DIMS[i % len(FLASH_STRESS_DIMS)]
         q, k, v = (torch.randn((2, 200, h, d), generator=g,
                                device=dev).bfloat16() for h in (16, 1, 1))
         got = kops.attention(q, k, v, causal=True)
@@ -646,7 +670,8 @@ def phase_stress_flash(seed: int) -> None:
             fails.append(f"{e}; worst element in query row {row} "
                          f"({row + 1} keys)")
     print(f"[3 stress flash] {FLASH_STRESS_CASES} causal bf16 cases (2 x 200 "
-          f"x 16/1 heads, D 128/64): {len(fails)} fail check_bf16; "
+          f"x 16/1 heads, D {'/'.join(map(str, FLASH_STRESS_DIMS))}): "
+          f"{len(fails)} fail check_bf16; "
           f"{_bf16_summary(worst)}; {off} elements off by > 1.5 bf16 steps")
     require(not fails, "; ".join(fails[:3]))
 
@@ -1406,8 +1431,122 @@ def phase_chatglm3(seed: int) -> dict:
     return result
 
 
+def phase_stablelm_prefill(seed: int) -> dict:
+    """stablelm-3b (head dim 80: the flash kernels' 128-wide instantiation
+    on zero-padded columns) through ``LM.prefill`` over the chatglm3
+    prefill's 4 x 4096 tokens: one prefill on the main path (a flash
+    launch in every layer), more timed; layer 0's kernel output held
+    against the plain version on its own q, k, v; the kernel's time at
+    that layer's shapes beside its bound at the true width, the plain
+    version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+    from repro_torch.kernels.flash_attention import kv_tile
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("stablelm-3b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    model.prefill(tokens)          # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+
+    # the main path: one prefill, launches counted from 0
+    kops.reset_launch_counts()
+    times = []
+    t0 = time.perf_counter()
+    last = model.prefill(tokens)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    launches = kops.launch_counts()["flash_attention"]
+    require(launches == cfg.num_layers,
+            f"stablelm-3b prefill launched flash_attention {launches} times, "
+            f"expected {cfg.num_layers}")
+    require(last.shape == (PREFILL_BATCH, 1, cfg.d_model) and
+            bool(torch.isfinite(last).all()), "stablelm-3b prefill output")
+    for _ in range(PREFILLS - 1):
+        t0 = time.perf_counter()
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prefill_ms = float(np.mean(times)) * 1e3
+    dev = _device_time(lambda: model.prefill(tokens))
+    attn_us = sum(us for k, us in dev if "flash" in k)
+
+    # layer 0's q, k, v from one more prefill through the kernel
+    first = []
+
+    def record(q, k, v, **kw):
+        if not first:
+            first.append((q, k, v, kw))
+        return kops.flash_attention_cuda(q, k, v, **kw)
+    with _AttentionSwap(record):
+        again = model.prefill(tokens)
+    require(torch.equal(again, last), "stablelm-3b prefill is not repeatable")
+    q, k, v, kw = first.pop()
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    require(d == 80, f"stablelm-3b head dim {d}, expected 80")
+
+    def kernel():
+        return kops.attention(q, k, v, causal=True)
+
+    def plain():
+        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
+    layer0 = check_bf16(kernel(), plain(),
+                        "flash kernel on stablelm-3b layer 0's q, k, v")
+    ms = time_ms(kernel, 10)
+    plain_ms = time_ms(plain, 2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # MHA: no expand
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = bf16_agreement(library().transpose(1, 2), kernel())
+    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
+            f"scaled_dot_product_attention vs kernel at D = 80: relative L2 "
+            f"{lib['rel_l2']:.3g} > 2^-7")
+    library_ms = time_ms(library, 10)
+    flops = 2 * b * h * s * s * d        # causal QK^T and PV, true width
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[7 stablelm-3b prefill] {cfg.name} {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} KV, head dim {d}, rotary {cfg.rotary_pct}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, {n_params} params "
+          f"(random, seed {seed}; init {init_s:.2f} s); {PREFILL_BATCH} x "
+          f"{PREFILL_SEQ} uniform token ids: prefill mean {prefill_ms:.2f} ms "
+          f"over {PREFILLS} (host clock + synchronize); flash_attention "
+          f"launches {launches} in the first; {_busy(dev, prefill_ms)}; "
+          f"attention kernels {attn_us / 1e3:.2f} ms of it; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"[7 stablelm-3b kernel] flash attention per layer (B={b}, S={s}, "
+          f"H={h}, Hkv={hkv}, D={d} on the 128-wide kernel, causal, bf16): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP at the true width at "
+          f"989 TFLOP/s; kernel at {flops / ms / 1e9:.1f} TFLOP/s of true-"
+          f"width work); layer 0 kernel == plain ({_bf16_summary(layer0)}); "
+          f"vs the library: {_bf16_summary(lib)}")
+    result = {"launches": launches, "d80_ms": ms, "d80_plain_ms": plain_ms,
+              "d80_bound_ms": bound_ms, "d80_library_ms": library_ms,
+              "d80_max_abs_err": layer0["max_abs"],
+              "stablelm_prefill_ms": prefill_ms}
+    del model, tokens, last, again, q, k, v, qt, kt, vt
+    free_cuda()
+    return result
+
+
 # ---------------------------------------------------------------------------
-# Phase 8: chatglm3-6b served through DecodeServer
+# Phase 8: chatglm3-6b and stablelm-3b served through DecodeServer
 # ---------------------------------------------------------------------------
 
 def _percentiles(xs) -> str:
@@ -1416,54 +1555,160 @@ def _percentiles(xs) -> str:
             f"{np.percentile(a, 99):.2f} ms")
 
 
-def _serve_drive(model, prompts, chunk: int) -> dict:
-    """Serve ``prompts`` (32 new tokens each, no EOS) through a fresh
-    DecodeServer on the card, one serving iteration at a time.  Returns
-    the server, the requests, the wall seconds, each request's logits row
-    of its last wave (``final``), and per iteration its wave kind,
-    micro-steps and host seconds (the whole iteration: the wave, the
-    pipeline feed and the argmax read back; and ``wave_step`` alone,
-    issuing the wave's work)."""
+def _serve_drive(model, prompts, chunk: int,
+                 new_tokens: int = SERVE_NEW_TOKENS) -> dict:
+    """Serve ``prompts`` (``new_tokens`` each, no EOS) through a fresh
+    DecodeServer on the card (its captured wave), one serving iteration at
+    a time.  Returns the server, the requests, the wall seconds, each
+    request's logits row of its last wave (``final``), and per iteration
+    its wave kind, micro-steps and host seconds (the whole iteration: the
+    wave, the pipeline feed and the argmax read back; and the server's
+    wave alone, issuing the wave's work)."""
     import torch
-    from repro_torch.runtime.server import DecodeServer, Request
+    from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
     srv = DecodeServer(model, batch_slots=SERVE_SLOTS,
                        max_len=SERVE_MAX_LEN, prefill_chunk=chunk,
                        pipeline=True)
-    reqs = [Request(prompt=p.copy(), max_new_tokens=SERVE_NEW_TOKENS)
+    require(isinstance(srv._wave, WaveGraph),
+            "a server on the card must run its captured wave")
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
             for p in prompts]
     index = {id(r): i for i, r in enumerate(reqs)}
     out = {"srv": srv, "reqs": reqs, "final": {}, "iters": []}
-    wave_step = model.wave_step
+    wave = srv._wave
     issued = []
 
     def spy(tokens, lens, caches):
         t0 = time.perf_counter()
-        logits, caches = wave_step(tokens, lens, caches)
+        logits, caches = wave(tokens, lens, caches)
         issued.append((int(lens.max()), time.perf_counter() - t0))
         for i, req in enumerate(srv.active):
             if req is not None and lens[i] > 0:
                 out["final"][index[id(req)]] = logits[i]
         return logits, caches
-    model.wave_step = spy
-    try:
-        t0 = time.perf_counter()
-        for r in reqs:
-            srv.submit(r)
-        while srv.queue or any(r is not None for r in srv.active):
-            pre = srv.serve_stats["prefill_waves"]
-            t1 = time.perf_counter()
-            srv.step()
-            kind = ("prefill" if srv.serve_stats["prefill_waves"] > pre
-                    else "decode")
-            micro, issue_s = issued[-1]
-            out["iters"].append((kind, micro, time.perf_counter() - t1,
-                                 issue_s))
-        srv.run_until_drained()          # drains the group, final stats
-        torch.cuda.synchronize()
-        out["wall"] = time.perf_counter() - t0
-    finally:
-        del model.wave_step
+    srv._wave = spy
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    while srv.queue or any(r is not None for r in srv.active):
+        pre = srv.serve_stats["prefill_waves"]
+        t1 = time.perf_counter()
+        srv.step()
+        kind = ("prefill" if srv.serve_stats["prefill_waves"] > pre
+                else "decode")
+        micro, issue_s = issued[-1]
+        out["iters"].append((kind, micro, time.perf_counter() - t1,
+                             issue_s))
+    srv.run_until_drained()          # drains the group, final stats
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    srv._wave = wave
     return out
+
+
+def _lockstep_drive(model, prompts, new_tokens: int) -> dict:
+    """Serve ``prompts`` through two servers stepped in turn: one replays
+    its captured graphs, the other runs ``LM.wave_step`` and
+    ``LM.reset_slots`` eagerly on its own caches.  After every serving
+    iteration the two waves' logits and every cache leaf must be the same
+    bits, and at the end every request's tokens.  Returns the waves, the
+    micro-steps, the leaves compared and each server's host seconds inside
+    its waves."""
+    import torch
+    from repro_torch.runtime.server import DecodeServer, Request
+    servers = {n: DecodeServer(model, batch_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN,
+                               prefill_chunk=SERVE_CHUNK, pipeline=True)
+               for n in ("graph", "eager")}
+    servers["eager"]._wave = model.wave_step
+    servers["eager"]._reset = model.reset_slots
+    last, host, micro = {}, {"graph": 0.0, "eager": 0.0}, []
+    for name, srv in servers.items():
+        def spy(tokens, lens, caches, wave=srv._wave, name=name):
+            t0 = time.perf_counter()
+            logits, caches = wave(tokens, lens, caches)
+            host[name] += time.perf_counter() - t0
+            last[name] = logits
+            if name == "graph":
+                micro.append(int(lens.max()))
+            return logits, caches
+        srv._wave = spy
+    reqs = {n: [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+                for p in prompts] for n in servers}
+    for n, srv in servers.items():
+        for r in reqs[n]:
+            srv.submit(r)
+    graph, eager = servers["graph"], servers["eager"]
+    waves = leaves = 0
+    while graph.queue or any(r is not None for r in graph.active):
+        graph.step()
+        eager.step()
+        waves += 1
+        require(torch.equal(last["graph"], last["eager"]),
+                f"wave {waves}: the graph's logits differ from the eager "
+                f"wave's")
+        for layer, (cg, ce) in enumerate(zip(graph.caches, eager.caches)):
+            for k in cg:
+                require(torch.equal(cg[k], ce[k]),
+                        f"after wave {waves}: cache leaf {k} of layer "
+                        f"{layer} differs between graph and eager")
+                leaves += 1
+    require(not eager.queue and all(r is None for r in eager.active) and
+            eager.serve_stats["waves"] == waves,
+            "the eager server's schedule differs from the graph server's")
+    for i, (g, e) in enumerate(zip(reqs["graph"], reqs["eager"])):
+        require(g.status == e.status == "ok" and g.out == e.out and
+                len(g.out) == new_tokens,
+                f"request {i}: graph drive emitted {g.out[:6]}... "
+                f"({g.status}), eager {e.out[:6]}... ({e.status})")
+    return {"waves": waves, "micro_steps": sum(micro), "leaves": leaves,
+            "host_s": host, "reqs": reqs["graph"]}
+
+
+def _graph_device_ms(srv, iters: int = 20) -> dict:
+    """Device ms of one replay of each captured micro-step (CUDA events;
+    the masked form with every slot active), on a drained server's caches,
+    which the replays overwrite."""
+    import torch
+    wave = srv._wave
+    with torch.inference_mode():         # the buffers are inference tensors
+        wave.active.fill_(True)
+    return {"unmasked": time_ms(wave.graphs["micro-step"].replay, iters),
+            "masked": time_ms(wave.graphs["masked micro-step"].replay,
+                              iters)}
+
+
+def _drive_metrics(main: dict, new_tokens: int) -> dict:
+    reqs, wall, iters = main["reqs"], main["wall"], main["iters"]
+    micro_steps = sum(m for _, m, _, _ in iters)
+    return {
+        "tokens_per_s": len(reqs) * new_tokens / wall,
+        "ttft": [r.t_first - r.t_submit for r in reqs],
+        "per_token": [b - a for r in reqs
+                      for a, b in zip(r.token_times, r.token_times[1:])],
+        "decode_ms": [dt * 1e3 for k, _, dt, _ in iters if k == "decode"],
+        "prefill_ms": [dt * 1e3 for k, _, dt, _ in iters if k == "prefill"],
+        "micro_steps": micro_steps,
+        "issue_ms": sum(i for _, _, _, i in iters) * 1e3}
+
+
+def _require_served(main: dict, new_tokens: int, counts: dict,
+                    variants: dict) -> None:
+    """(a) every request ok with its tokens; (f) the decode-embed gather
+    once a wave: bulk variant + grouping pass."""
+    srv, reqs = main["srv"], main["reqs"]
+    waves = srv.serve_stats["waves"]
+    require(all(r.status == "ok" and len(r.out) == new_tokens
+                for r in reqs),
+            f"served: not every request ended ok with {new_tokens} tokens: "
+            f"{[(r.status, len(r.out)) for r in reqs]}")
+    require(variants == {"bulk": waves, "group": waves, "rows": 0} and
+            counts["block_gather"] == waves,
+            f"served {waves} waves but block_gather launched "
+            f"{counts['block_gather']} times ({variants})")
+    gs = srv.compile_stats["pipeline_group"]
+    require(gs["waves"] == waves, f"pipeline group saw {gs['waves']} waves "
+            f"of {waves}")
 
 
 def phase_serving(seed: int, card: str) -> dict:
@@ -1491,34 +1736,15 @@ def phase_serving(seed: int, card: str) -> dict:
     kops.reset_launch_counts()
     main = _serve_drive(model, prompts, SERVE_CHUNK)
     counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
     srv, reqs, wall, final = (main["srv"], main["reqs"], main["wall"],
                               main["final"])
-    variants = kops.variant_launch_counts()["block_gather"]
     st = srv.serve_stats
     waves = st["waves"]
-    # (a) every request ok with its 32 tokens
-    require(all(r.status == "ok" and len(r.out) == SERVE_NEW_TOKENS
-                for r in reqs),
-            "served: not every request ended ok with "
-            f"{SERVE_NEW_TOKENS} tokens: "
-            f"{[(r.status, len(r.out)) for r in reqs]}")
-    # (f) the decode-embed gather once a wave: bulk variant + grouping pass
-    require(variants == {"bulk": waves, "group": waves, "rows": 0} and
-            counts["block_gather"] == waves,
-            f"served {waves} waves but block_gather launched "
-            f"{counts['block_gather']} times ({variants})")
-    gs = srv.compile_stats["pipeline_group"]
-    require(gs["waves"] == waves, f"pipeline group saw {gs['waves']} waves "
-            f"of {waves}")
-    tokens_out = SERVE_REQUESTS * SERVE_NEW_TOKENS
-    ttft = [r.t_first - r.t_submit for r in reqs]
-    per_token = [b - a for r in reqs
-                 for a, b in zip(r.token_times, r.token_times[1:])]
-    iters = main["iters"]
-    decode_ms = [dt * 1e3 for kind, _, dt, _ in iters if kind == "decode"]
-    prefill_ms = [dt * 1e3 for kind, _, dt, _ in iters if kind == "prefill"]
-    micro_steps = sum(m for _, m, _, _ in iters)
-    issue_ms = sum(i for _, _, _, i in iters) * 1e3
+    _require_served(main, SERVE_NEW_TOKENS, counts, variants)   # (a), (f)
+    m = _drive_metrics(main, SERVE_NEW_TOKENS)
+    micro_steps = m["micro_steps"]
+    capture_s = _capture_seconds(model)
 
     # (b) chunked prefill == whole prompt: a drive at prefill_chunk=1
     chunk1 = _serve_drive(model, prompts, 1)
@@ -1581,10 +1807,16 @@ def phase_serving(seed: int, card: str) -> dict:
                 torch.equal(got[n][:, 0], want),
                 f"decode-embed {n}: backend cuda vs torch vs embed[tokens]")
 
+    # (g) the captured wave == the eager wave, bit for bit, wave by wave
+    lock = _lockstep_drive(model, prompts, SERVE_NEW_TOKENS)
+    for i, (r, r2) in enumerate(zip(reqs, lock["reqs"])):
+        require(r.out == r2.out, f"request {i}: the lockstep drive emitted "
+                f"{r2.out[:6]}... vs the main drive's {r.out[:6]}...")
+    graph_dev = _graph_device_ms(srv)
+
     # device busy share over the drive: the same drive again (the same
     # waves: with no deadline the schedule does not depend on time) under
-    # torch.profiler, device events only, summed from the raw events (the
-    # profiler's key_averages() takes minutes over ~10^6 events); the
+    # torch.profiler, device events only, summed from the raw events; the
     # share is of the unprofiled main drive's wall
     tp = profile(activities=[ProfilerActivity.CUDA])
     tp.start()
@@ -1602,39 +1834,59 @@ def phase_serving(seed: int, card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     step_bytes = n_params * 2          # every bf16 weight once a micro-step
     bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    c = EAGER_BASELINE
+    ttft, per_token = m["ttft"], m["per_token"]
+    lock_ms = {n: t * 1e3 / lock["micro_steps"]
+               for n, t in lock["host_s"].items()}
     print(f"[8 chatglm3 serving] {cfg.name} {cfg.num_layers} layers, "
           f"{n_params} params, bf16 (random, seed {seed}; init "
           f"{init_s:.2f} s); DecodeServer(batch_slots={SERVE_SLOTS}, "
           f"max_len={SERVE_MAX_LEN}, prefill_chunk={SERVE_CHUNK}, "
-          f"pipeline=True): {SERVE_REQUESTS} requests (prompts "
-          f"{lo}-{hi} tokens, {sum(len(p) for p in prompts)} in all), "
-          f"{SERVE_NEW_TOKENS} new tokens each, all ok; {waves} waves "
+          f"pipeline=True), captured wave (3 CUDA graphs built in "
+          f"{capture_s:.2f} s with the server): {SERVE_REQUESTS} requests "
+          f"(prompts {lo}-{hi} tokens, {sum(len(p) for p in prompts)} in "
+          f"all), {SERVE_NEW_TOKENS} new tokens each, all ok; {waves} waves "
           f"({st['prefill_waves']} prefill, {st['decode_waves']} decode) in "
-          f"{wall:.2f} s: {tokens_out / wall:.1f} generated tokens/s; TTFT "
-          f"{_percentiles(ttft)}; per token {_percentiles(per_token)}; "
+          f"{wall:.2f} s: {m['tokens_per_s']:.1f} generated tokens/s "
+          f"(eager baseline {c['tokens_per_s']}); TTFT "
+          f"{_percentiles(ttft)} (eager baseline p50 "
+          f"{c['ttft_p50_s'] * 1e3:.0f} ms, p99 {c['ttft_p99_s'] * 1e3:.0f} "
+          f"ms); per token {_percentiles(per_token)} (eager baseline p50 "
+          f"{c['per_token_p50_ms']}, p99 {c['per_token_p99_ms']} ms); "
           f"block_gather launches {counts['block_gather']} (bulk "
           f"{variants['bulk']}, grouping pass {variants['group']}) = one "
           f"a wave; peak device memory {peak / 2**30:.2f} GiB; {card}")
-    print(f"[8 serving where] {micro_steps} micro-steps in {len(iters)} "
-          f"waves; host ms issuing them (wave_step) {issue_ms:.1f} of the "
-          f"{wall * 1e3:.1f} ms drive = {issue_ms / len(iters):.2f} ms a "
-          f"wave, {issue_ms / micro_steps:.2f} ms a micro-step; a prefill "
-          f"wave's whole iteration "
-          f"{np.mean(prefill_ms):.2f} ms ({len(prefill_ms)} waves); ms per "
-          f"decode micro-step (a decode wave's whole iteration: wave, "
-          f"pipeline feed, argmax read back) mean {np.mean(decode_ms):.2f}, "
-          f"p50 {np.percentile(decode_ms, 50):.2f}, against {bound_ms:.2f} "
-          f"ms to read every weight once at 3.35 TB/s; the drive under "
-          f"torch.profiler: " + ("device time not measured (the profiler "
-          "saw no CUDA events)" if not dev else
-          f"{launches} device operations = {launches / micro_steps:.0f} a "
-          f"micro-step, device busy {busy_ms:.1f} ms = "
-          f"{busy_ms / micro_steps:.2f} ms a micro-step = "
-          f"{100 * busy_ms / (wall * 1e3):.1f}% of the unprofiled drive's "
-          f"{wall * 1e3:.1f} ms (idle {100 - 100 * busy_ms / (wall * 1e3):.1f}"
-          f"%; {100 * busy_ms / (prof_wall * 1e3):.1f}% of the "
-          f"{prof_wall * 1e3:.1f} ms it took under the profiler); top: " +
-          ", ".join(f"{k[:40]} {ns / 1e6:.2f} ms" for k, ns in dev[:6])))
+    print(f"[8 serving where] {micro_steps} micro-steps in {waves} waves; "
+          f"host ms issuing them (the captured wave: a copy, a mask and a "
+          f"replay a micro-step) {m['issue_ms']:.1f} of the "
+          f"{wall * 1e3:.1f} ms drive = {m['issue_ms'] / waves:.2f} ms a "
+          f"wave, {m['issue_ms'] / micro_steps:.3f} ms a micro-step (eager "
+          f"baseline {c['host_ms_micro_step']}); in the lockstep drive (same "
+          f"call) graph {lock_ms['graph']:.3f} vs eager "
+          f"{lock_ms['eager']:.2f} host ms a micro-step; device ms of one "
+          f"captured micro-step "
+          f"(CUDA events, 20 replays) unmasked "
+          f"{graph_dev['unmasked']:.3f}, masked {graph_dev['masked']:.3f} "
+          f"(eager baseline: {c['device_ms_micro_step']} ms of kernels); a "
+          f"prefill wave's whole iteration {np.mean(m['prefill_ms']):.2f} "
+          f"ms ({len(m['prefill_ms'])} waves); ms per decode wave (wave, "
+          f"pipeline feed, argmax read back) mean "
+          f"{np.mean(m['decode_ms']):.2f}, p50 "
+          f"{np.percentile(m['decode_ms'], 50):.2f} (eager baseline "
+          f"{c['ms_decode_wave']}), against {bound_ms:.2f} ms to read every "
+          f"weight once at 3.35 TB/s; the drive under torch.profiler: " +
+          ("device time not measured (the profiler saw no CUDA events)"
+           if not dev else
+           f"{launches} device operations = {launches / micro_steps:.0f} a "
+           f"micro-step, device busy {busy_ms:.1f} ms = "
+           f"{busy_ms / micro_steps:.2f} ms a micro-step = "
+           f"{100 * busy_ms / (wall * 1e3):.1f}% of the unprofiled drive's "
+           f"{wall * 1e3:.1f} ms (idle "
+           f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%; eager baseline "
+           f"{c['busy_pct']}% busy; "
+           f"{100 * busy_ms / (prof_wall * 1e3):.1f}% of the "
+           f"{prof_wall * 1e3:.1f} ms it took under the profiler); top: " +
+           ", ".join(f"{k[:40]} {ns / 1e6:.2f} ms" for k, ns in dev[:6])))
     print(f"[8 serving checks] prefill_chunk=1 drive: the same tokens, "
           f"bit-identical last-wave logits ({SERVE_REQUESTS} requests); "
           f"request {late} (admitted at wave {reqs[late].admitted_wave}) "
@@ -1643,12 +1895,91 @@ def phase_serving(seed: int, card: str) -> dict:
           f"relative L2 {rel_l2:.3g} (tol {PREFILL_REL_L2}), argmax equal "
           f"at {int(same.sum())}/{len(same)} positions ({int(clear.sum())} "
           f"with a clear top-2 margin, all equal); decode-embed group "
-          f"backend cuda == torch == embed[tokens] bit for bit")
+          f"backend cuda == torch == embed[tokens] bit for bit; graph vs "
+          f"eager wave in lockstep: {lock['waves']} waves, "
+          f"{lock['micro_steps']} micro-steps, every wave's logits and "
+          f"every cache leaf after every iteration ({lock['leaves']} "
+          f"comparisons) the same bits, the same tokens as the main drive")
     result = {"launches": variants["bulk"],
               "group_launches": variants["group"], "waves": waves,
-              "tokens_per_s": tokens_out / wall}
+              "tokens_per_s": m["tokens_per_s"]}
     del model, main, srv, reqs, chunk1, reqs1, final, final1, solo, caches
-    del dec, fwd, hidden, stock, got, other, want, tp
+    del dec, fwd, hidden, stock, got, other, want, tp, lock
+    free_cuda()
+    return result
+
+
+def _capture_seconds(model) -> float:
+    """Host seconds to build a server on the card: its caches and the
+    capture of its three graphs (warm-up and the zeroing reset included)."""
+    import torch
+    from repro_torch.runtime.server import WaveGraph
+    caches = model.init_caches(SERVE_SLOTS, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    WaveGraph(model, caches)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_serving_stablelm(seed: int, card: str) -> dict:
+    """stablelm-3b (head dim 80, MHA, partial rotary) served through the
+    captured wave: a shorter drive (one generation of 8 slots, 16 new
+    tokens each), every request ok, the gather once a wave, and the drive
+    in lockstep with the eager wave, bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("stablelm-3b")
+    model = LM(cfg, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = SERVE_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, STABLELM_REQUESTS)]
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK,
+                 STABLELM_NEW_TOKENS)              # warm-up
+
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK, STABLELM_NEW_TOKENS)
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    _require_served(main, STABLELM_NEW_TOKENS, counts, variants)
+    m = _drive_metrics(main, STABLELM_NEW_TOKENS)
+    lock = _lockstep_drive(model, prompts, STABLELM_NEW_TOKENS)
+    for i, (r, r2) in enumerate(zip(main["reqs"], lock["reqs"])):
+        require(r.out == r2.out, f"stablelm-3b request {i}: the lockstep "
+                f"drive emitted {r2.out[:6]}... vs {r.out[:6]}...")
+    graph_dev = _graph_device_ms(main["srv"])
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    bound_ms = n_params * 2 / HBM_BYTES_PER_S * 1e3
+    waves = main["srv"].serve_stats["waves"]
+    print(f"[8 stablelm-3b serving] {cfg.name} {cfg.num_layers} layers, head "
+          f"dim {cfg.hd}, {n_params} params, bf16 (random, seed {seed}); the "
+          f"same server settings, captured wave: {STABLELM_REQUESTS} requests "
+          f"(prompts {lo}-{hi} tokens), {STABLELM_NEW_TOKENS} new tokens "
+          f"each, all ok; {waves} waves, {m['micro_steps']} micro-steps in "
+          f"{main['wall']:.2f} s: {m['tokens_per_s']:.1f} generated "
+          f"tokens/s; TTFT {_percentiles(m['ttft'])}; per token "
+          f"{_percentiles(m['per_token'])}; host ms a micro-step "
+          f"{m['issue_ms'] / m['micro_steps']:.3f} (lockstep: graph "
+          f"{lock['host_s']['graph'] * 1e3 / lock['micro_steps']:.3f} vs "
+          f"eager {lock['host_s']['eager'] * 1e3 / lock['micro_steps']:.2f}"
+          f"); device ms of one captured micro-step unmasked "
+          f"{graph_dev['unmasked']:.3f}, masked {graph_dev['masked']:.3f} "
+          f"against {bound_ms:.2f} ms to read every weight once; ms per "
+          f"decode wave mean {np.mean(m['decode_ms']):.2f}; block_gather "
+          f"launches {counts['block_gather']} = one a wave; graph vs eager "
+          f"in lockstep: {lock['waves']} waves, every wave's logits and "
+          f"every cache leaf after every iteration ({lock['leaves']} "
+          f"comparisons) the same bits, the same tokens; "
+          f"peak device memory {peak / 2**30:.2f} GiB; {card}")
+    result = {"launches": variants["bulk"],
+              "group_launches": variants["group"], "waves": waves,
+              "tokens_per_s": m["tokens_per_s"]}
+    del model, main, lock
     free_cuda()
     return result
 
@@ -1666,7 +1997,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import repro_torch  # noqa: F401  (fails here outside a checkout)
+    if not (REPO / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}: "
+              "run it from a checkout of the repo", file=sys.stderr)
+        return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1689,14 +2023,27 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels.append(run())
         seconds[phase] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    served = phase_serving(args.seed, card)
-    seconds["8"] = time.perf_counter() - t0
+    later = {}
+    for phase, run in (("7 stablelm", lambda: phase_stablelm_prefill(
+                            args.seed)),
+                       ("8", lambda: phase_serving(args.seed, card)),
+                       ("8 stablelm", lambda: phase_serving_stablelm(
+                           args.seed, card))):
+        t0 = time.perf_counter()
+        later[phase] = run()
+        seconds[phase] = time.perf_counter() - t0
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    prefill = later.pop("7 stablelm")
+    flash["chatglm3_launches"] = flash["launches"]
+    flash["stablelm_launches"] = prefill.pop("launches")
+    flash["launches"] += flash["stablelm_launches"]
+    flash.update(prefill)
     gather = next(k for k in kernels if k["name"] == "block_gather")
     gather["deepseek_launches"] = gather["launches"]
-    gather["serving_launches"] = served["launches"]
-    gather["serving_group_launches"] = served["group_launches"]
-    gather["launches"] += served["launches"]
+    for phase, key in (("8", "serving"), ("8 stablelm", "serving_stablelm")):
+        gather[f"{key}_launches"] = later[phase]["launches"]
+        gather[f"{key}_group_launches"] = later[phase]["group_launches"]
+        gather["launches"] += later[phase]["launches"]
     print("[time] wall seconds by phase: " +
           ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for k in kernels:

@@ -43,8 +43,8 @@ stream and records ONE CUDA event after the last of them.  That event is
 the event of every handle with deferred outputs, and only then do their
 staging slots become reusable.  ``cuda``-backend units launch inside
 ``submit``, as ``pallas`` units do in the reference.  (The reference traces
-the deferred runs into one jitted wave executable; a CUDA graph of the wave
-is an open decision, ROADMAP.md Queue 1 item 3.)
+the deferred runs into one jitted wave executable; a CUDA graph of the
+pipeline wave is an open decision, ROADMAP.md follow-up F2.)
 
 Not ported yet (ROADMAP.md): meshes and vocab sharding, the hot slab and its
 adaptive swaps, the disaggregated service and its degrade policy, and

@@ -10,7 +10,7 @@
 //   (t <= s when causal; G = H / Hkv heads share one KV head; scale = D^-1/2)
 //
 // in the JAX package's layout: q, o (B, Sq, H, D) and k, v (B, Sk, Hkv, D),
-// contiguous, f32 or bf16, D in {64, 128}.  The running max m, the
+// contiguous, f32 or bf16, D in {64, 80, 128}.  The running max m, the
 // denominator l and the accumulator are fp32; masked scores are -1e30; the
 // probabilities are rounded to the input dtype before the PV product (as
 // the reference's p.astype(v.dtype)) while l sums them unrounded; the
@@ -60,6 +60,15 @@
 //   meet the f32 agreement of 1e-5.  One block of 256 threads per (64-row q
 //   tile, head, batch) streams 64-key K/V tiles through shared memory held
 //   as fp32; f32 is not on the main path.
+//
+// Head dim 80 runs the D = 128 instantiation of either kernel, padded: the
+// bf16 kernel's tensor maps are 80 columns wide, so TMA fills columns 80-127
+// of every Q, K and V box with zeros (Q K^T is exact, O's padded columns come
+// out zero) and the O map stores only the 80 real ones; the f32 kernel loads
+// columns below d into its padded shared-memory rows and stores only those.
+// The cost is 128 / 80 = 1.6x the MMA work of the true width; the scale is
+// the caller's (80^-1/2).  Rows of 80 bf16 are 160 bytes, a multiple of 16
+// as TMA's strides must be.
 //
 // A bf16 call launches the wgmma kernel or returns its error: nothing falls
 // back to the f32 kernel.
@@ -130,12 +139,14 @@ __device__ __forceinline__ const float4& f4(const float* p) {
 // tx + 16 j; of the accumulator, columns 64 g + 4 tx + e.  Both products
 // read 16-byte vectors from shared memory, padded so the K reads are free
 // of bank conflicts; row max and sum are reduced over the 16 threads of a
-// row with shuffles.
+// row with shuffles.  The tensors' rows are d <= D wide: columns d .. D - 1
+// are zero in shared memory and never stored.
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kF32Threads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int seq_q, int seq_k, int heads, int kv_heads, float scale) {
+                 int seq_q, int seq_k, int heads, int kv_heads, int d,
+                 float scale) {
   using S = F32Smem<D>;
   constexpr int kG = D / 64;            // 64-column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -153,17 +164,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % 16;
   const int ty = tid / 16;
 
-  const long long q_stride = (long long)heads * D;     // one token of q / o
-  const long long kv_stride = (long long)kv_heads * D;
-  const float* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * D;
-  const float* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * D;
-  const float* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * D;
+  const long long q_stride = (long long)heads * d;     // one token of q / o
+  const long long kv_stride = (long long)kv_heads * d;
+  const float* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * d;
+  const float* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * d;
+  const float* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * d;
 
   for (int e = tid; e < kF32BQ * D; e += kF32Threads) {
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
-    qs[r * S::kQStride + c] = s < seq_q ? qb[s * q_stride + c] : 0.0f;
+    qs[r * S::kQStride + c] = s < seq_q && c < d ? qb[s * q_stride + c] : 0.0f;
   }
 
   float m[4], l[4], acc[4][4 * kG];
@@ -187,7 +198,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = e / D;
       const int c = e % D;
       const int s = k0 + r;
-      const bool in = s < seq_k;
+      const bool in = s < seq_k && c < d;
       ks[r * S::kKStride + c] = in ? kb[s * kv_stride + c] : 0.0f;
       vs[r * S::kVStride + c] = in ? vb[s * kv_stride + c] : 0.0f;
     }
@@ -284,12 +295,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (q_pos >= seq_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     float* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * q_stride +
-                               (long long)h * D;
+                               (long long)h * d;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[64 * g + 4 * tx + e] = acc[i][4 * g + e] / denom;
+        const int col = 64 * g + 4 * tx + e;
+        if (col < d) orow[col] = acc[i][4 * g + e] / denom;
       }
     }
   }
@@ -701,6 +713,7 @@ struct FlashArgs {
   int seq_k;
   int heads;
   int kv_heads;
+  int d;          // the tensors' head dim: the instantiation's D, or less
   float scale;
 };
 
@@ -715,7 +728,7 @@ int launch_f32(const FlashArgs& a, cudaStream_t s) {
   kernel<<<grid, kF32Threads, kBytes, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.seq_q,
-      a.seq_k, a.heads, a.kv_heads, a.scale);
+      a.seq_k, a.heads, a.kv_heads, a.d, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -749,7 +762,8 @@ EncodeTiled encode_tiled() {
 
 // A bf16 (batch, seq, heads, d) tensor as a 4-D map (d, heads, seq, batch)
 // read in boxes of 64 columns x `rows` tokens of one head, 128-byte swizzled;
-// out-of-bounds rows read as 0 and are never written.
+// out-of-bounds rows and columns (past d, when d is not a multiple of 64)
+// read as 0 and are never written.
 bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
                  int heads, int d, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
@@ -770,10 +784,10 @@ template <int D, bool CAUSAL>
 int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
-  if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, D, 64) ||
-      !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, D, kBK) ||
-      !encode_bshd(&vm, a.v, a.batch, a.seq_k, a.kv_heads, D, kBK) ||
-      !encode_bshd(&om, a.o, a.batch, a.seq_q, a.heads, D, 64)) {
+  if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, a.d, 64) ||
+      !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, a.d, kBK) ||
+      !encode_bshd(&vm, a.v, a.batch, a.seq_k, a.kv_heads, a.d, kBK) ||
+      !encode_bshd(&om, a.o, a.batch, a.seq_q, a.heads, a.d, 64)) {
     return (int)cudaErrorInvalidValue;
   }
   constexpr int kBytes = WgSmem<D>::kBytes;
@@ -800,9 +814,9 @@ int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
 
 // q, o: (batch, seq_q, heads, head_dim); k, v: (batch, seq_k, kv_heads,
 // head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16; bf16
-// pointers 16-byte aligned, as TMA needs).  head_dim 64 or 128; heads a
-// multiple of kv_heads.  scale multiplies the fp32 scores (the reference's
-// head_dim ** -0.5).
+// pointers 16-byte aligned, as TMA needs).  head_dim 64, 80 (padded to 128)
+// or 128; heads a multiple of kv_heads.  scale multiplies the fp32 scores
+// (the reference's head_dim ** -0.5).
 extern "C" int ember_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int batch,
                                      int seq_q, int seq_k, int heads,
@@ -810,7 +824,8 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
                                      int causal, double scale, void* stream) {
   if (batch <= 0 || batch > 65535 || seq_q <= 0 || seq_k <= 0 ||
       heads <= 0 || heads > 65535 || kv_heads <= 0 ||
-      heads % kv_heads != 0 || (head_dim != 64 && head_dim != 128) ||
+      heads % kv_heads != 0 ||
+      (head_dim != 64 && head_dim != 80 && head_dim != 128) ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -820,8 +835,9 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   const FlashArgs a{q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
-                    (float)scale};
+                    head_dim, (float)scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // head dim 80 runs the D = 128 instantiation, padded (see the top)
   return head_dim == 64 ? launch_by_dtype<64>(dtype, causal != 0, a, s)
                         : launch_by_dtype<128>(dtype, causal != 0, a, s);
 }

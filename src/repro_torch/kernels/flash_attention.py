@@ -21,7 +21,9 @@ import torch
 from . import _build, ref
 from .sls import DTYPES, one_device
 
-HEAD_DIMS = (64, 128)
+#: head dims with a kernel; 80 runs the 128-wide kernel on zero-padded
+#: columns (csrc/ember_flash_attention.cu)
+HEAD_DIMS = (64, 80, 128)
 #: each kernel's KV tile: kBK and kF32BK in csrc/ember_flash_attention.cu,
 #: which the built library reports (``ember_flash_kv_tile``); the checks on
 #: the card hold the two equal (chip_smoke.py phase 2, test_torch_cuda.py)
@@ -46,8 +48,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunk`` is the KV chunk of the plain version's recurrence (it decides
     only the fp32 summation order); the kernel streams its own
     :func:`kv_tile` rows.  On the card, a sliding ``window`` and a value
-    width other than D have no kernel yet (ROADMAP.md, Queue 1 item 5) and
-    raise; bf16 tensors must be 16-byte aligned (TMA reads them)."""
+    width other than D have no kernel yet (ROADMAP.md, Queue 1 items 3 and
+    2) and raise, as does a head dim outside :data:`HEAD_DIMS`; bf16
+    tensors must be 16-byte aligned (TMA reads them)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D float32 or "
@@ -67,11 +70,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention has no Hopper kernel yet (ROADMAP.md, "
-            "Queue 1 item 5: the dense_local block kind)")
+            "Queue 1 item 3: the dense_local block kind)")
     if v.shape[3] != d:
         raise NotImplementedError(
             f"attention with value width {v.shape[3]} != {d} has no Hopper "
-            "kernel yet (ROADMAP.md, Queue 1 item 5: the mla block kind)")
+            "kernel yet (ROADMAP.md, Queue 1 item 2: the mla block kind)")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)

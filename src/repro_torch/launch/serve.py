@@ -15,7 +15,7 @@ fault schedule (:mod:`repro_torch.runtime.faults`).
 
 ``--disagg`` (with ``--replicas``, ``--rpc-timeout-s``,
 ``--degrade-policy``) and ``--artifact-dir`` are not ported yet
-(ROADMAP.md, Queue 1 item 7) and raise.
+(ROADMAP.md, Queue 1 item 8) and raise.
 """
 from __future__ import annotations
 

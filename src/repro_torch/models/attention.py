@@ -23,7 +23,11 @@ the batched products -- and ``len`` (B,) int32; the int8 cache adds
 in place (:func:`slot_update`) instead of rebuilding it.
 
 MLA and the sliding-window band are still to port (ROADMAP.md, Queue 1
-item 5).
+items 2 and 3).
+
+Decode issues no host read, builds no tensor from host data and allocates
+nothing whose size depends on values, so a served micro-step can be
+captured in a CUDA graph (``runtime.server.WaveGraph``).
 """
 from __future__ import annotations
 
@@ -125,8 +129,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask = pos[None, :] < cl[:, None]
     if window is not None:
         mask &= pos[None, :] >= cl[:, None] - window
-    s = torch.where(mask[:, None, None, :], s,
-                    torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = _bmm_f32(p.to(v_cache.dtype).view(b * hkv, g, smax),
                    v_cache.reshape(b * hkv, smax, d))

@@ -10,8 +10,10 @@ programs and executors (:func:`embedding_program`,
 into a ``jax.lax.scan`` over super-blocks; here the layers are an
 ``nn.ModuleList`` run in order (scan super-blocks first, then the
 remainder, as the reference does), and a wave is a Python loop of masked
-micro-steps.  Still to port (ROADMAP.md, Queue 1): the other block kinds,
-the loss and training, and the sharded embedding executor.
+micro-steps (which the server replays as CUDA graphs on the card:
+:class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
+Queue 1): the other block kinds, the loss and training, and the sharded
+embedding executor.
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
 ``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``)
@@ -39,6 +41,10 @@ from .attention import attn_decode, attn_forward, init_attn, init_kv_cache
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
 PORTED_KINDS = ("dense",)
+#: the ROADMAP.md Queue 1 item that ports each other block kind
+KIND_ITEMS = {"moe": 2, "mla": 2, "dense_local": 3, "xdec": 5,
+              "enc_dense": 5, "mamba": 5, "shared_attn": 5, "mlstm": 5,
+              "slstm": 5}
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -94,10 +100,11 @@ class LM(nn.Module):
         kinds = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
         missing = sorted(set(kinds) - set(PORTED_KINDS))
         if missing:
+            items = sorted({KIND_ITEMS[k] for k in missing})
             raise NotImplementedError(
                 f"block kinds {missing} of {cfg.name} are not ported yet "
-                "(ROADMAP.md, Queue 1 item 5); ported: "
-                f"{list(PORTED_KINDS)}")
+                f"(ROADMAP.md, Queue 1 item {' and '.join(map(str, items))})"
+                f"; ported: {list(PORTED_KINDS)}")
         self.cfg = cfg
         meta = device is not None and torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
@@ -180,30 +187,9 @@ class LM(nn.Module):
         slot is active runs unmasked (the same function).
 
         Returns ``(logits (B,1,vocab) fp32 at each slot's last valid token,
-        caches)`` -- zeros for a slot with ``lens == 0``."""
-        tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
-                            else tokens)
-        lens_h = np.asarray(lens.cpu() if isinstance(lens, torch.Tensor)
-                            else lens).astype(np.int64)
-        b, c = tokens.shape
-        packed = np.empty((b, c + 1), np.int64)
-        packed[:, :c] = tokens
-        packed[:, c] = lens_h
-        dev = torch.from_numpy(packed).to(self.device, non_blocking=True)
-        tok, lens_d = dev[:, :c], dev[:, c]
-        logits_last = torch.zeros((b, 1, self.cfg.vocab_size),
-                                  dtype=torch.float32, device=self.device)
-        for t in range(int(lens_h.max(initial=0))):
-            if (lens_h > t).all():
-                logits_last, caches = self.decode_step(tok[:, t:t + 1],
-                                                       caches)
-                continue
-            active = lens_d > t
-            logits, caches = self.decode_step(tok[:, t:t + 1], caches,
-                                              active=active)
-            logits_last = torch.where(active[:, None, None], logits,
-                                      logits_last)
-        return logits_last, caches
+        caches)`` -- zeros for a slot with ``lens == 0``.  The loop is
+        :class:`StaticWave`'s, the one the server's CUDA graphs replay."""
+        return StaticWave(self, caches)(tokens, lens, caches)
 
     @torch.inference_mode()
     def reset_slots(self, caches: list, keep) -> list:
@@ -212,10 +198,7 @@ class LM(nn.Module):
         K/V.  Returns ``caches``."""
         keep = torch.as_tensor(np.asarray(keep.cpu() if isinstance(
             keep, torch.Tensor) else keep, bool)).to(self.device)
-        for cache in caches:
-            for leaf in cache.values():
-                leaf.masked_fill_(
-                    ~keep.view((-1,) + (1,) * (leaf.dim() - 1)), 0)
+        zero_slots(caches, keep)
         return caches
 
     # ---- Ember program compilation ----
@@ -269,12 +252,12 @@ class LM(nn.Module):
         """The steady-state executor of this model's embedding program on
         the model's device, memoized per signature.  Only ``mesh=None``
         (one device) is ported: the vocab-sharded executor and its hot rows
-        wait for ROADMAP.md Queue 1 item 4."""
+        wait for ROADMAP.md Queue 1 item 6."""
         from ..core.executor import executor_for
         if mesh is not None or hot_rows is not None:
             raise NotImplementedError(
                 "the sharded embedding executor (mesh=, hot_rows=) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 4)")
+                "ported yet (ROADMAP.md, Queue 1 item 6)")
         kw.setdefault("device", self.device)
         return executor_for(self.embedding_program(batch, seq), opt_level,
                             **kw)
@@ -284,6 +267,103 @@ class LM(nn.Module):
         way :meth:`ProgramExecutor.update_tables` wants them."""
         return {"tok_embed": {"table": self.embed},
                 "label_gather": {"table": self.embed}}
+
+
+class StaticWave:
+    """A serving wave over static buffers, bound to one set of ``caches``:
+    :meth:`LM.wave_step` runs it eagerly, and the server's
+    :class:`~repro_torch.runtime.server.WaveGraph` captures its micro-step
+    and slot-reset bodies in CUDA graphs and replays them.
+
+    Buffers, on the model's device: the token column ``tok`` (B,1) int64,
+    the mask ``active`` (B,) bool, the slot-keep mask ``keep`` (B,) bool
+    and ``logits_last`` (B,1,vocab) fp32.  A wave copies ``tokens`` and
+    ``lens`` to the card in one packed copy, then per micro-step copies in
+    ``tok[:, t]`` and runs :meth:`micro_step` when every slot is active,
+    else sets ``active = lens > t`` and runs :meth:`masked_micro_step`;
+    micro-steps where no slot is active are skipped."""
+
+    def __init__(self, lm, caches: list):
+        b = caches[0]["len"].shape[0]
+        dev = lm.device
+        with torch.inference_mode():     # the caches are inference tensors
+            self.tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+            self.active = torch.zeros(b, dtype=torch.bool, device=dev)
+            self.keep = torch.ones(b, dtype=torch.bool, device=dev)
+            self.logits_last = torch.zeros((b, 1, lm.cfg.vocab_size),
+                                           dtype=torch.float32, device=dev)
+        self.lm = lm
+        self.caches = caches
+        # what a wave runs: these bodies here, their graphs in WaveGraph
+        self._full = self.micro_step
+        self._masked = self.masked_micro_step
+        self._zero = self.zero_slots
+
+    def micro_step(self) -> None:
+        """``lm.decode_step`` of ``tok`` with every slot active; its logits
+        into ``logits_last``."""
+        logits, _ = self.lm.decode_step(self.tok, self.caches)
+        self.logits_last.copy_(logits)
+
+    def masked_micro_step(self) -> None:
+        """``lm.decode_step`` of ``tok`` under the ``active`` mask; the
+        active slots' logits into ``logits_last``."""
+        logits, _ = self.lm.decode_step(self.tok, self.caches,
+                                        active=self.active)
+        self.logits_last.copy_(torch.where(self.active[:, None, None],
+                                           logits, self.logits_last))
+
+    def zero_slots(self) -> None:
+        """Zero the cache state of the slots where ``keep`` is False."""
+        zero_slots(self.caches, self.keep)
+
+    def _bound(self, caches: list) -> None:
+        if caches is not self.caches:
+            raise ValueError("the wave runs on the caches it was built on")
+
+    @torch.inference_mode()
+    def __call__(self, tokens, lens, caches: list):
+        """One serving wave (``lm.wave_step``'s contract).  Returns a fresh
+        tensor of logits: ``logits_last`` is overwritten by the next
+        wave."""
+        self._bound(caches)
+        tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
+                            else tokens)
+        lens_h = np.asarray(lens.cpu() if isinstance(lens, torch.Tensor)
+                            else lens).astype(np.int64)
+        b, c = tokens.shape
+        packed = np.empty((b, c + 1), np.int64)     # one copy to the card
+        packed[:, :c] = tokens
+        packed[:, c] = lens_h
+        dev = torch.from_numpy(packed).to(self.lm.device, non_blocking=True)
+        tok, lens_d = dev[:, :c], dev[:, c]
+        self.logits_last.zero_()
+        for t in range(int(lens_h.max(initial=0))):
+            self.tok.copy_(tok[:, t:t + 1])
+            if (lens_h > t).all():
+                self._full()
+            else:
+                torch.gt(lens_d, t, out=self.active)
+                self._masked()
+        return self.logits_last.clone(), caches
+
+    @torch.inference_mode()
+    def reset_slots(self, caches: list, keep) -> list:
+        """``lm.reset_slots``: zero the slots whose ``keep`` (a host (B,)
+        bool array) is False."""
+        self._bound(caches)
+        self.keep.copy_(torch.as_tensor(np.asarray(keep, bool)))
+        self._zero()
+        return caches
+
+
+def zero_slots(caches: list, keep: torch.Tensor) -> None:
+    """Zero every cache leaf of the slots where ``keep`` (B,) bool, on the
+    caches' device, is False, in place (the body of
+    :meth:`LM.reset_slots`)."""
+    for cache in caches:
+        for leaf in cache.values():
+            leaf.masked_fill_(~keep.view((-1,) + (1,) * (leaf.dim() - 1)), 0)
 
 
 def embedding_program(cfg: ModelConfig, batch: int,

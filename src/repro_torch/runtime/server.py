@@ -36,15 +36,26 @@ that resets the pipeline group and fails only the implicated requests.
 Each request ends in exactly one terminal ``status``: ``ok`` | ``shed`` |
 ``expired`` | ``failed``.
 
+**The compiled wave.**  The reference compiles the wave and the slot
+reset once, in ``__init__`` (``jax.jit(lm.wave_step)``,
+``jax.jit(lm.reset_slots)``).  Here, for a model on a CUDA device, the
+server captures CUDA graphs of the decode micro-step (one per mask form)
+and of the slot reset once, on its own caches (:class:`WaveGraph`), and a
+wave replays them: the host issues a copy, a mask and one graph launch a
+micro-step instead of every operation of the model.  A capture that fails
+raises; nothing falls back to the eager wave.  A model whose ``device``
+is not a CUDA device (the CPU, or a stub with no ``device``) runs
+``lm.wave_step`` / ``lm.reset_slots`` eagerly.
+
 **Data flow.**  Host bookkeeping is numpy, as in the reference.  A wave
-hands its ``tokens`` and ``lens`` to ``lm.wave_step`` as host arrays (the
-LM copies them to the card once); the argmax of the wave's logits comes
-back once per wave, the loop's one synchronisation.
+hands its ``tokens`` and ``lens`` to the wave (``self._wave``) as host
+arrays, which reach the card in one copy; the argmax of the wave's logits
+comes back once per wave, the loop's one synchronisation.
 
 Not ported yet: the disaggregated embedding tier (``service="disagg"``,
 ``service_pool``, ``degrade_policy``) and serving artifacts
-(``artifact_dir``) -- ROADMAP.md Queue 1 item 7 -- and a sharded model
-(``mesh``) -- Queue 1 item 4.  Each raises ``NotImplementedError``.
+(``artifact_dir``) -- ROADMAP.md Queue 1 item 8 -- and a sharded model
+(``mesh``) -- Queue 1 item 6.  Each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,8 +66,10 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..core.access_plan import INDEX_POLICIES
+from ..models.lm import StaticWave
 from .faults import EmberFault, WaveTimeout
 
 #: terminal request statuses (Request.status ends as exactly one of these)
@@ -91,6 +104,63 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
                                f"Queue 1 item {item})")
 
 
+class WaveGraph(StaticWave):
+    """CUDA graphs of the serving wave: the counterpart of the reference's
+    ``jax.jit(lm.wave_step, donate_argnums=(3,))`` and
+    ``jax.jit(lm.reset_slots, donate_argnums=(0,))``
+    (``repro/runtime/server.py``).
+
+    Three graphs share one memory pool: the micro-step with every slot
+    active, the micro-step under the ``active`` mask, and the slot reset,
+    all captured once, under ``torch.inference_mode()``, on the caches
+    given here.  A graph binds the addresses of those caches and of the
+    static buffers, so **the caches must live as long as the graph, and
+    ``lm.init_caches`` must not replace them**: a wave refuses other
+    caches.  Per micro-step the host issues one device copy of the token
+    column, in the masked form one ``torch.gt`` into the mask, and one
+    replay.
+
+    Capture needs a warm-up on a side stream, which runs each body once on
+    the caches: the unmasked micro-step writes row 0 of every slot; the
+    masked one under an all-False mask and the reset with every slot kept
+    change nothing.  So after capture one reset with no slot kept zeroes
+    every leaf.  A capture that fails raises with its cause; there is no
+    eager fallback."""
+
+    def __init__(self, lm, caches: list):
+        super().__init__(lm, caches)
+        dev = lm.device
+        bodies = {"micro-step": self.micro_step,
+                  "masked micro-step": self.masked_micro_step,
+                  "slot reset": self.zero_slots}
+        with torch.inference_mode(), torch.cuda.device(dev):
+            self.active.fill_(False)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for body in bodies.values():
+                    body()
+            torch.cuda.current_stream().wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = {}
+            for name, body in bodies.items():
+                g = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(g, pool=pool):
+                        body()
+                except RuntimeError as e:
+                    raise RuntimeError(f"capturing the {name} of "
+                                       f"{lm.cfg.name} in a CUDA graph "
+                                       f"failed: {e}") from e
+                graphs[name] = g
+            self.graphs = graphs
+            self._full = graphs["micro-step"].replay
+            self._masked = graphs["masked micro-step"].replay
+            self._zero = graphs["slot reset"].replay
+            self.keep.fill_(False)
+            self._zero()               # undo the warm-up's writes
+
+
 class DecodeServer:
     """The serving loop over ``lm`` (a :class:`~repro_torch.models.lm.LM`,
     or any object with ``init_caches`` / ``wave_step`` / ``reset_slots``;
@@ -116,11 +186,11 @@ class DecodeServer:
         if service != "inproc" or service_pool is not None or \
                 degrade_policy != "fail":
             raise _not_ported("the disaggregated embedding tier (service=, "
-                              "service_pool=, degrade_policy=)", 7)
+                              "service_pool=, degrade_policy=)", 8)
         if artifact_dir is not None:
-            raise _not_ported("the serving artifact (artifact_dir=)", 7)
+            raise _not_ported("the serving artifact (artifact_dir=)", 8)
         if mesh is not None:
-            raise _not_ported("a sharded model (mesh=)", 4)
+            raise _not_ported("a sharded model (mesh=)", 6)
         self.lm = lm
         self.slots = batch_slots
         self.max_len = max_len
@@ -154,6 +224,13 @@ class DecodeServer:
         self._next_token = np.zeros(batch_slots, np.int32)
         self._pos = np.zeros(batch_slots, np.int64)   # host position mirror
         self.caches = lm.init_caches(batch_slots, max_len)
+        # the compiled wave and slot reset (the reference's two jax.jit):
+        # CUDA graphs bound to these caches on the card, else the LM's own
+        if torch.device(getattr(lm, "device", "cpu")).type == "cuda":
+            graph = WaveGraph(lm, self.caches)
+            self._wave, self._reset = graph, graph.reset_slots
+        else:
+            self._wave, self._reset = lm.wave_step, lm.reset_slots
         self.waves = 0
         self.serve_stats = {"waves": 0, "prefill_waves": 0,
                             "decode_waves": 0, "admitted": 0, "finished": 0,
@@ -336,7 +413,7 @@ class DecodeServer:
         admit from the queue into them immediately."""
         if not retired.any():
             return
-        self.caches = self.lm.reset_slots(self.caches, ~retired)
+        self.caches = self._reset(self.caches, ~retired)
         self.serve_stats["slot_resets"] += int(retired.sum())
         for i in np.where(retired)[0]:
             self.active[i] = None
@@ -411,8 +488,8 @@ class DecodeServer:
                 if self.faults is not None:
                     self.faults.fire("wave", wave=self.waves)
                 if not lm_done:
-                    logits, self.caches = self.lm.wave_step(
-                        tokens, lens, self.caches)
+                    logits, self.caches = self._wave(tokens, lens,
+                                                     self.caches)
                     lm_done = True
                 if self.pipeline_group is not None:
                     self._feed_pipeline(tokens)

@@ -458,6 +458,53 @@ def test_plain_bf16_attention_on_the_card_matches_the_cpu(cuda, d, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (32, 32), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(128, 128), (200, 200), (200, 328)])
+def test_flash_kernel_at_head_dim_80_matches_plain(cuda, dtype, h, hkv,
+                                                   causal, s, sk):
+    """stablelm-3b's head dim: the D = 128 kernels on zero-padded columns
+    (80-wide tensor maps in bf16, guarded loads in f32), against the plain
+    version at the real width."""
+    g = torch.Generator(device=cuda).manual_seed(s + sk + h)
+    q = torch.randn((2, s, h, 80), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, sk, hkv, 80), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, sk, hkv, 80), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, "flash attention at D = 80")
+
+
+def test_flash_kernel_at_head_dim_80_leaves_its_neighbours_alone(cuda):
+    """The 80-wide output map stores only the 80 real columns: a view of
+    q, k, v and o inside larger buffers keeps the bytes past each tensor."""
+    g = torch.Generator(device=cuda).manual_seed(80)
+    q, k, v = (torch.randn((1, 256, 4, 80), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    out = kops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check_bf16(out, ref.attention(q, k, v, causal=True,
+                                  chunk=kv_tile(torch.bfloat16)), "D = 80")
+    from repro_torch.kernels import _build
+    buf = torch.full((2 * out.numel(),), 7.0, device=cuda).bfloat16()
+    o = buf[:out.numel()].view_as(out)
+    err = _build.library().ember_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
+        4, 4, 80, 1, 1, 80 ** -0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(o, out)
+    assert bool((buf[out.numel():] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kv_tile_is_the_kernels_own(cuda, dtype):
     """The checks sum the plain version over kv_tile(dtype) keys: that must
     be the KV tile the built kernel streams."""
@@ -503,9 +550,9 @@ def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
 def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.randn((1, 16, 4, 64), device=cuda)
     k = torch.randn((1, 16, 2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         kops.attention(q, k, k, window=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         kops.attention(q, k, torch.randn((1, 16, 2, 32), device=cuda))
     with pytest.raises(ValueError, match="head dim"):
         kops.attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
@@ -567,6 +614,40 @@ def test_small_lm_prefill_with_the_kernel_matches_plain(cuda):
     with _attention_through(_plain_over_kernel_tiles):
         want = model.prefill(tokens)
     assert kops.launch_counts()["flash_attention"] == 2 * cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+def test_head_dim_80_lm_forward_on_the_card_matches_plain(cuda):
+    """LM.forward on a head-dim-80 config (stablelm-3b's partial rotary, 8
+    heads of 80, bf16) on the card: every layer's kernel output against the
+    plain version on that layer's own q, k, v, and the hidden states
+    against a forward through plain attention (5e-2, as above)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_reduced("stablelm-3b"), d_model=640,
+                              num_heads=8, num_kv_heads=8, d_ff=1024,
+                              dtype="bfloat16")
+    assert cfg.hd == 80
+    model = LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda)
+    kops.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(tokens)
+    assert kops.launch_counts()["flash_attention"] == cfg.num_layers
+    held = []
+
+    def checked(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        held.append(check_bf16(out, _plain_over_kernel_tiles(q, k, v, **kw),
+                               f"layer {len(held)}"))
+        return out
+    with _attention_through(checked), torch.inference_mode():
+        assert torch.equal(model(tokens), got)
+    assert len(held) == cfg.num_layers
+    with _attention_through(_plain_over_kernel_tiles), \
+            torch.inference_mode():
+        want = model(tokens)
+    assert got.shape == (2, 200, cfg.d_model)
     torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
 
 
@@ -683,3 +764,79 @@ def test_reduced_lm_served_on_the_card_matches_the_cpu(cuda):
             assert float(lg[tok]) >= float(lg.max()) - 1e-4, (j, tok)
             logits, caches = host.wave_step(np.array([[tok]]),
                                             np.array([1]), caches)
+
+
+def _lockstep(model, prompts, new_tokens, **kw):
+    """Serve ``prompts`` through two servers stepped in turn: one replays
+    its captured graphs, the other runs the LM's eager wave on its own
+    caches.  After every serving iteration the two waves' logits and every
+    cache leaf must be the same bits; returns both servers' requests."""
+    from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
+    graph = DecodeServer(model, **kw)
+    eager = DecodeServer(model, **kw)
+    assert isinstance(graph._wave, WaveGraph)
+    eager._wave, eager._reset = model.wave_step, model.reset_slots
+    last = {}
+    for name, srv in (("graph", graph), ("eager", eager)):
+        wave = srv._wave
+
+        def spy(tokens, lens, caches, wave=wave, name=name):
+            logits, caches = wave(tokens, lens, caches)
+            last[name] = logits
+            return logits, caches
+        srv._wave = spy
+    reqs = {n: [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+                for p in prompts] for n in ("graph", "eager")}
+    for n, srv in (("graph", graph), ("eager", eager)):
+        for r in reqs[n]:
+            srv.submit(r)
+    waves = 0
+    while graph.queue or any(r is not None for r in graph.active):
+        graph.step()
+        eager.step()
+        waves += 1
+        assert torch.equal(last["graph"], last["eager"]), waves
+        for cg, ce in zip(graph.caches, eager.caches):
+            for k in cg:
+                assert torch.equal(cg[k], ce[k]), (waves, k)
+    assert not eager.queue and all(r is None for r in eager.active)
+    assert graph.serve_stats["waves"] == eager.serve_stats["waves"] == waves
+    return reqs["graph"], reqs["eager"]
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("chatglm3-6b", {}), ("chatglm3-6b", {"kv_cache_dtype": "int8"}),
+    ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"})])
+def test_graph_served_drive_equals_the_eager_drive_bit_for_bit(cuda, arch,
+                                                               over):
+    """The captured wave (two mask forms) and slot reset against the eager
+    wave on a reduced model: every wave's logits, every cache leaf after
+    every serving iteration (resets included), and every emitted token."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    model = LM(dataclasses.replace(get_reduced(arch), **over), seed=0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (9, 4, 13, 6, 2)]
+    got, want = _lockstep(model, prompts, 6, batch_slots=2, max_len=48,
+                          prefill_chunk=4, pipeline=True)
+    for g, w in zip(got, want):
+        assert g.status == w.status == "ok" and g.out == w.out
+
+
+def test_wave_graph_is_built_once_on_the_servers_caches(cuda):
+    """The server captures its three graphs at construction on its own
+    caches, zeroed after the warm-up, and a wave refuses other caches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer
+    model = LM(get_reduced("chatglm3-6b"), seed=0)
+    srv = DecodeServer(model, batch_slots=2, max_len=16)
+    assert set(srv._wave.graphs) == {"micro-step", "masked micro-step",
+                                     "slot reset"}
+    assert srv._wave.caches is srv.caches
+    assert all(int(t.count_nonzero()) == 0 for c in srv.caches
+               for t in c.values())
+    with pytest.raises(ValueError, match="caches it was built on"):
+        srv._wave(np.array([[1], [2]]), np.array([1, 1]),
+                  model.init_caches(2, 16))

@@ -273,3 +273,29 @@ def test_kernel_variant_of_a_kernel_without_variants_raises():
     from repro_torch.kernels.sls import kernel_variant
     with pytest.raises(ValueError, match="variants"):
         kernel_variant("sls", 128, 4, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
+def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
+    """stablelm-3b's head dim, which the card's kernel takes padded to 128
+    (``HEAD_DIMS``): on CPU tensors the wrapper's plain version against the
+    reference's Pallas flash kernel in interpret mode (one head per batch
+    row there, KV heads repeated), f32, 2e-5."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert HEAD_DIMS == (64, 80, 128)
+    rng = np.random.default_rng(h + causal)
+    b, s, d = 2, 128, 80
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    tops.reset_launch_counts()
+    got = tops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=64)
+    assert tops.launch_counts()["flash_attention"] == 0
+    flat = [np.ascontiguousarray(np.repeat(a, h // a.shape[2], 2)
+                                 .transpose(0, 2, 1, 3)).reshape(b * h, s, d)
+            for a in (q, k, v)]
+    want = jops.attention(*map(jnp.asarray, flat), causal=causal,
+                          block_q=64, block_k=64, interpret=True)
+    want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL_F32)

@@ -236,6 +236,62 @@ def test_reduced_chatglm3_matches_the_reference(seed):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch,heads,kv_heads", [("stablelm-3b", 2, 2),
+                                                 ("chatglm3-6b", 4, 2)])
+def test_head_dim_80_lm_matches_the_reference(arch, heads, kv_heads):
+    """stablelm-3b's head dim (80) on a reduced config: d_model 80 x heads,
+    partial rotary (stablelm) or GQA (chatglm3), fp32, from the reference's
+    own weights; LM.forward runs the flash wrapper's plain version.
+    Tolerance 1e-4 as for the reduced chatglm3."""
+    from repro.configs import get_reduced as jget_reduced
+    over = dict(d_model=80 * heads, num_heads=heads, num_kv_heads=kv_heads,
+                d_ff=192)
+    cfg = dataclasses.replace(jget_reduced(arch), **over)
+    jlm = JLM(cfg)
+    params = jlm.init(jax.random.PRNGKey(3))
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _ = jlm.forward(params, {"tokens": jnp.asarray(tokens)})
+    model = LM(dataclasses.replace(get_reduced(arch), **over), device="cpu")
+    assert model.cfg.hd == 80
+    model.load_state_dict(lm_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, "cpu"))
+    got = model(_t(tokens).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strategy", ["take", "one_hot", "pallas"])
+def test_lookup_strategies_match_jnp_take(strategy, dtype):
+    """Every single-device strategy is the reference's jnp.take (a one-hot
+    product has one nonzero term per output, so it is exact too); the
+    reference's own strategy agrees as well."""
+    from repro.core import embedding_engine as jee
+    rng = np.random.default_rng(9)
+    table = rng.standard_normal((300, 96)).astype(np.float32)
+    ids = rng.integers(0, 300, (3, 7)).astype(np.int32)
+    tt = _t(table).to(dtype)
+    jt = jnp.asarray(tt.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    got = lookup(tt, _t(ids).long(), strategy=strategy)
+    assert got.shape == (3, 7, 96) and got.dtype == dtype
+    want = np.asarray(jnp.take(jt, jnp.asarray(ids), axis=0), np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    ref_own = np.asarray(jee.lookup(jt, jnp.asarray(ids), strategy=strategy),
+                         np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), ref_own)
+
+
+def test_lookup_refuses_the_sharded_strategies():
+    table, ids = torch.zeros((8, 4)), torch.zeros((2,), dtype=torch.int64)
+    for strategy in ("masked_psum", "masked_psum_scatter"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            lookup(table, ids, strategy=strategy)
+    with pytest.raises(ValueError, match="nope"):
+        lookup(table, ids, strategy="nope")
+
+
 def test_convert_keeps_the_reference_dtype():
     cfg = dataclasses.replace(jcfgs.reduced(), dtype="bfloat16",
                               num_layers=3)

@@ -29,7 +29,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import (caches_from_reference, caches_to_reference,
                                  lm_params_from_reference)
 from repro_torch.models import attention as tattn
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, StaticWave
 from repro_torch.runtime import faults as tfaults
 from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.server import DecodeServer, Request
@@ -236,6 +236,112 @@ def test_wave_step_and_reset_slots_match_the_reference(arch, kv_dtype):
         jc = reset(jc, jnp.asarray(keep))
         tc = lm.reset_slots(tc, keep)
         _assert_caches(tc, jc, lm.cfg)
+
+
+@pytest.mark.parametrize("arch,kv_dtype", [("chatglm3-6b", "model"),
+                                           ("chatglm3-6b", "int8"),
+                                           ("stablelm-3b", "model"),
+                                           ("stablelm-3b", "int8")])
+def test_static_wave_matches_the_reference(arch, kv_dtype):
+    """The body the server captures in CUDA graphs (``StaticWave``: the
+    micro-step over static token / mask / logits buffers, and the slot
+    reset over a static keep mask), run eagerly on the CPU over a prefill
+    wave (ragged, one slot idle) and a decode wave, with a slot reset after
+    each: logits and every cache leaf against the reference's wave_step and
+    reset_slots."""
+    jlm, params, lm = _pair(arch, kv_cache_dtype=kv_dtype)
+    rng = np.random.default_rng(4)
+    b = 4
+    jc = jlm.init_caches(b, 16)
+    tc = lm.init_caches(b, 16)
+    wave = jax.jit(jlm.wave_step)
+    reset = jax.jit(jlm.reset_slots)
+    static = StaticWave(lm, tc)
+    for lens, keep in (([5, 2, 0, 3], [True, True, True, False]),
+                       ([1, 1, 1, 1], [False, True, True, True])):
+        lens = np.array(lens, np.int32)
+        toks = rng.integers(0, lm.cfg.vocab_size,
+                            (b, lens.max())).astype(np.int32)
+        wl, jc = wave(params, jnp.asarray(toks), jnp.asarray(lens), jc)
+        gl, tc = static(toks, lens, tc)
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **TOL)
+        _assert_caches(tc, jc, lm.cfg)
+        jc = reset(jc, jnp.asarray(keep))
+        tc = static.reset_slots(tc, np.array(keep))
+        _assert_caches(tc, jc, lm.cfg)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b"])
+def test_static_wave_equals_the_eager_wave_bit_for_bit(arch):
+    """Port against port: one StaticWave whose buffers live across waves
+    (as the server's graphs do) against ``LM.wave_step``, which builds
+    fresh ones each wave: logits (a fresh tensor each wave) and every cache
+    leaf are the same bits, waves and resets interleaved -- no wave leaks
+    state into the next through the buffers."""
+    lm = LM(get_reduced(arch), device="cpu", seed=0)
+    rng = np.random.default_rng(5)
+    eager = lm.init_caches(3, 12)
+    static = StaticWave(lm, lm.init_caches(3, 12))
+    kept = []
+    for lens in ([4, 0, 2], [1, 1, 1], [0, 1, 1], [3, 3, 1]):
+        lens = np.array(lens, np.int32)
+        toks = rng.integers(0, lm.cfg.vocab_size, (3, 4)).astype(np.int32)
+        want, eager = lm.wave_step(toks, lens, eager)
+        got, _ = static(toks, lens, static.caches)
+        assert torch.equal(got, want)
+        kept.append(got)
+        keep = rng.random(3) < 0.7
+        lm.reset_slots(eager, keep)
+        static.reset_slots(static.caches, keep)
+        for ce, cs in zip(eager, static.caches):
+            for k in ce:
+                assert torch.equal(ce[k], cs[k]), k
+    assert all(a.data_ptr() != static.logits_last.data_ptr() for a in kept)
+
+
+def test_graph_warm_up_leaves_the_caches_as_they_were():
+    """What the capture's warm-up relies on: the masked micro-step under an
+    all-False mask and the reset with every slot kept change no cache leaf,
+    and a reset with no slot kept zeroes every leaf."""
+    lm = LM(get_reduced("chatglm3-6b"), device="cpu", seed=0)
+    static = StaticWave(lm, lm.init_caches(2, 8))
+    static(np.array([[3, 4, 5], [6, 7, 0]]), np.array([3, 2]),
+           static.caches)
+    before = [{k: t.clone() for k, t in c.items()} for c in static.caches]
+    with torch.inference_mode():         # as the capture runs them
+        static.active.fill_(False)
+        static.masked_micro_step()
+        static.zero_slots()              # keep is all True
+    for cb, c in zip(before, static.caches):
+        for k in c:
+            assert torch.equal(cb[k], c[k]), k
+    with torch.inference_mode():
+        static.keep.fill_(False)
+        static.zero_slots()
+    assert all(int(t.count_nonzero()) == 0 for c in static.caches
+               for t in c.values())
+
+
+def test_static_wave_runs_on_the_caches_it_was_built_on():
+    lm = LM(get_reduced("chatglm3-6b"), device="cpu", seed=0)
+    static = StaticWave(lm, lm.init_caches(2, 8))
+    other = lm.init_caches(2, 8)
+    with pytest.raises(ValueError, match="caches it was built on"):
+        static(np.array([[1], [2]]), np.array([1, 1]), other)
+    with pytest.raises(ValueError, match="caches it was built on"):
+        static.reset_slots(other, np.array([True, False]))
+
+
+def test_server_off_the_card_runs_the_lm_wave_eagerly():
+    """Only a model on a CUDA device gets the captured wave: a CPU model,
+    and a stub without decode_step, run their own wave_step and
+    reset_slots."""
+    lm = LM(get_reduced("stablelm-3b"), device="cpu", seed=0)
+    srv = DecodeServer(lm, batch_slots=2, max_len=16)
+    assert srv._wave == lm.wave_step and srv._reset == lm.reset_slots
+    echo = EchoLM()
+    srv = DecodeServer(echo, batch_slots=2)
+    assert srv._wave == echo.wave_step and srv._reset == echo.reset_slots
 
 
 def test_caches_round_trip_through_the_reference_layout():
@@ -731,9 +837,9 @@ def test_server_feeds_the_decode_embed_pipeline():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"service": "disagg"}, 7), ({"service_pool": object()}, 7),
-    ({"degrade_policy": "stale"}, 7), ({"artifact_dir": "x"}, 7),
-    ({"mesh": object()}, 4)])
+    ({"service": "disagg"}, 8), ({"service_pool": object()}, 8),
+    ({"degrade_policy": "stale"}, 8), ({"artifact_dir": "x"}, 8),
+    ({"mesh": object()}, 6)])
 def test_knobs_not_ported_raise_with_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         DecodeServer(EchoLM(), batch_slots=1, **kw)
@@ -746,7 +852,7 @@ def test_embedding_executor_is_single_device_only():
     assert lm.compile_embeddings(4, 1).program.signature() == \
         lm.embedding_program(4, 1).signature()
     assert set(lm.embedding_table_inputs()) == {"tok_embed", "label_gather"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         lm.embedding_executor(4, 1, mesh=object())
 
 
@@ -771,7 +877,7 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert all(r.status == "ok" and len(r.out) == 16 for r in reqs)
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "pipeline_group:" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         serve.main(["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
                     "--artifact-dir", "x"])
     assert "argv" in inspect.signature(serve.main).parameters
