@@ -9,8 +9,10 @@ Phases, one line each (a failed check raises and the run exits non-zero):
 2. the build of the hand-written kernels (one ``nvcc`` per source, in
    parallel; ptxas summary, and the registers and spills of the bf16 flash
    kernels, the bulk gather and the FusedMM ring, none of which may
-   spill), then ``cuobjdump -sass`` of the library: the bf16 flash kernel
-   must hold wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, the
+   spill, nor may the four (q/k 192, v 128) flash instantiations), then
+   ``cuobjdump -sass`` of the library: the bf16 flash kernels, the
+   (192, 128) ones among them, must hold wgmma (``HGMMA``) and TMA load
+   (``UTMALDG``) instructions, the
    bulk gather and every FusedMM ring kernel bulk copies (``UBLKCP``), and
    each flash kernel's KV tile must be ``kv_tile``'s;
 3. each kernel against its plain PyTorch version on the card over a sweep
@@ -19,10 +21,11 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    Zipf ids, both variants; FusedMM: identity/relu, f32/bf16,
    E=5/8/64/100/128/520/1024, empty segments and segments longer than the
    ring, zero segments, both variants; flash attention: causal or not, GQA
-   groups 1/4/16, D=64/80/128, S=256, a ragged 200 and 200 queries over 328
-   keys, f32/bf16; tables not 16-byte aligned; bf16 held by
+   groups 1/4/16, (q/k, v) widths (64, 64), (80, 80), (128, 128) and
+   (192, 128), S=256, a ragged 200 and 200 queries over 328 keys,
+   f32/bf16; tables not 16-byte aligned; bf16 held by
    ``kernels.agreement.check_bf16``), the bf16 flash kernel over 300
-   causal cases of few-key rows (D = 128, 64 and 80), and a small mixed
+   causal cases of few-key rows (the four width pairs), and a small mixed
    program through the executor against the repo's numpy oracle
    (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
@@ -80,19 +83,44 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    host ms per wave and per micro-step (graph and eager, and the eager
    baseline beside them), device ms of one captured micro-step (CUDA
    events), the device busy share and top device operations
-   (torch.profiler), peak device memory.  Then stablelm-3b served the same way (8 requests, 16
-   new tokens each), held to the eager wave the same way;
-9. one JSON line listing the four kernels with the kernel (variant) that
+   (torch.profiler), peak device memory.  Then stablelm-3b served the
+   same way (8 requests, 16 new tokens each), held to the eager wave the
+   same way;
+9. DeepSeek-V2-Lite (27 layers of MLA + MoE, full width, bf16, random
+   weights; built once, stablelm-3b freed first): ``LM.prefill`` over the
+   same 4 x 4096 tokens, a flash launch at (q/k 192, v 128) and an MoE
+   un-dispatch gather in every layer, every layer's flash output held
+   against the plain version on its own q, k, v (``check_bf16``) and its
+   gather against the plain gather bit for bit, the last hidden state
+   against a prefill with plain attention and the routing pinned to the
+   kernel prefill's within a fixed bound that two planted faults (one
+   layer's attention at the wrong scale, one KV tile's values lost) must
+   exceed (and the routing decisions plain attention takes differently on
+   its own), the flash kernel's time beside its bound, the plain version
+   and ``scaled_dot_product_attention`` (each backend timed, or its
+   refusal printed), the un-dispatch gather's (both variants) beside
+   ``index_select`` and its bytes bound; then the model served as
+   stablelm-3b is (8 requests, 16 new tokens), both pipeline members
+   (decode-embed and MoE un-dispatch) fed every wave, the un-dispatch
+   member held against the stock-op backend, the drive in lockstep with
+   the eager wave, bit for bit, every gather launched eagerly there held
+   against the plain gather bit for bit, and the gathers of every
+   replayed micro-step counted in the device trace (the
+   ``prefill_chunk=1`` check of phase 8 does not hold for an MoE model,
+   in the reference either);
+10. one JSON line listing the four kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
-   served waves of both models, flash's the stablelm-3b prefill), error,
-   times and bounds;
-10. ``{"ok": true, "device": {...}}`` as the last line.
+   served waves of every model and DeepSeek's un-dispatch gathers,
+   flash's the stablelm-3b and DeepSeek prefills), error, times and
+   bounds;
+11. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -176,11 +204,18 @@ TOL_FMM_F32 = dict(rtol=1e-4, atol=1e-3)
 # another order; outputs are convex combinations of unit-normal values
 TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
 # few-key causal rows of bf16 flash attention: cases of q (2, 200, 16, D)
-# over k, v (2, 200, 1, D), D cycling over 128, 64 and 80.  A row near the
+# over k (2, 200, 1, D) and v (2, 200, 1, Dv), (D, Dv) cycling over
+# FLASH_STRESS_DIMS.  A row near the
 # start attends to a few keys, where a p rounded to the other side of a
 # bf16 step (scores summed in another order) moves the output the most
 FLASH_STRESS_CASES = 300
-FLASH_STRESS_DIMS = (128, 64, 80)
+FLASH_STRESS_DIMS = ((128, 128), (64, 64), (80, 80), (192, 128))
+# the flash kernel's (q/k width, v width) pairs, and its bf16 wgmma
+# instantiations: 3 pairs ((80, 80) runs (128, 128)) x causal or not; the
+# (192, 128) ones by their mangled template arguments
+FLASH_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
+FLASH_WGMMA_KERNELS = 6
+MLA_INSTANCE = "ILi192ELi128E"
 # bf16 kernel outputs vs plain: kernels.agreement.check_bf16 (one bf16 step
 # per element, <= 1 % of elements differing, relative L2 <= 2^-9).
 # scaled_dot_product_attention rounds p against the running max of its own
@@ -196,6 +231,20 @@ TOL_GNN = dict(rtol=1e-4, atol=1e-2)
 # gross fault; the per-layer check_bf16 of every attention output is the
 # precise one
 PREFILL_REL_L2 = 5e-2
+# DeepSeek-V2-Lite's random weights follow the reference's init, whose
+# experts' fan-in scale is E^-1/2 (the leading dim of (E, D, F)): an expert
+# output is ~90x its input's RMS, so the residual stream is the MoE
+# layers' outputs and a rounding step of attention grows through the 27
+# gated (quadratic) products.  Its end-to-end bound (last hidden state,
+# kernel vs plain attention, routing pinned) is fixed between the sound
+# readings on the H100 (the kernel 0.0647; two plain versions that differ
+# only in their KV chunk 0.0777) and a planted fault (layer 0's attention
+# at the v width's scale: 0.993), which the phase runs and requires above
+# it.  A lost KV tile in a middle layer reads 0.0647 there too: only the
+# per-layer check_bf16, the precise check, sees it
+DEEPSEEK_PREFILL_REL_L2 = 0.15
+# the keys whose values one planted fault loses: the second 128-key tile
+FAULT_KEYS = (128, 256)
 
 
 class CheckFailed(RuntimeError):
@@ -346,8 +395,16 @@ def phase_build():
         print(f"[2 build flash] bf16 wgmma kernels (registers, spill-store "
               f"bytes): {sorted(wgmma.values())}; ptxas warnings on the "
               f"flash source: {warnings or 'none'}")
-        require(len(wgmma) == 4 and all(s == 0 for _, s in wgmma.values()),
+        require(len(wgmma) == FLASH_WGMMA_KERNELS and
+                all(s == 0 for _, s in wgmma.values()),
                 "the bf16 flash kernels must build without spills")
+        mla = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
+               if MLA_INSTANCE in k}
+        print(f"[2 build flash mla] the (192, 128) instantiations (bf16 "
+              f"wgmma and f32 scalar, causal or not; registers, spill-store "
+              f"bytes): {sorted(mla.values())}")
+        require(len(mla) == 4 and all(s == 0 for _, s in mla.values()),
+                "the (192, 128) flash kernels must build without spills")
         for kernel, n_want in BULK_KERNELS.items():
             got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
                    if kernel in k}
@@ -363,9 +420,18 @@ def phase_build():
     print(f"[2 sass] bf16 flash kernels ({n_fn} instantiations, cuobjdump "
           f"-sass): {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG (TMA "
           f"loads), {ops['UTMASTG']} UTMASTG (TMA stores)")
-    require(n_fn == 4 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+    require(n_fn == FLASH_WGMMA_KERNELS and ops["HGMMA"] > 0 and
+            ops["UTMALDG"] > 0,
             "the bf16 flash kernel must hold wgmma (HGMMA) and TMA loads "
             "(UTMALDG)")
+    n_fn, ops = _sass_counts(rec.path, "flash_wgmma_kernel" + MLA_INSTANCE,
+                             ("HGMMA", "UTMALDG", "UTMASTG"))
+    print(f"[2 sass] bf16 flash kernels at (192, 128) ({n_fn} "
+          f"instantiations): {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG, "
+          f"{ops['UTMASTG']} UTMASTG")
+    require(n_fn == 2 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+            "the (192, 128) bf16 flash kernel must hold wgmma (HGMMA) and "
+            "TMA loads (UTMALDG)")
     # proof that the row-streaming kernels move rows by bulk copies
     for kernel, n_want in BULK_KERNELS.items():
         n_fn, ops = _sass_counts(rec.path, kernel, (BULK_COPY_SASS,))
@@ -599,8 +665,9 @@ def phase_sweep_fusedmm(seed: int) -> None:
 def phase_sweep_flash(seed: int) -> None:
     """Flash attention against its plain version over the kernel's own KV
     tiles (``kv_tile``: 128 keys in bf16, 64 in f32): causal or not, GQA
-    groups 1, 4, 16, D 64, 80 (the 128 kernel, padded) and 128, S 256, a
-    ragged 200 and 200 queries over 328 keys, f32 and bf16."""
+    groups 1, 4, 16, (q/k, v) widths (64, 64), (80, 80) (the 128 kernel,
+    padded), (128, 128) and (192, 128) (MLA), S 256, a ragged 200 and 200
+    queries over 328 keys, f32 and bf16."""
     import torch
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import check_bf16
@@ -610,20 +677,20 @@ def phase_sweep_flash(seed: int) -> None:
     err_f32, bf16 = 0.0, {}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 80, 128):
+        for d, dv in FLASH_DIMS:
             for h, hkv in ((4, 4), (8, 2), (16, 1)):
                 for sq, sk in ((256, 256), (200, 200), (200, 328)):
                     q = torch.randn((2, sq, h, d), generator=g,
                                     device=dev).to(dtype)
                     k = torch.randn((2, sk, hkv, d), generator=g,
                                     device=dev).to(dtype)
-                    v = torch.randn((2, sk, hkv, d), generator=g,
+                    v = torch.randn((2, sk, hkv, dv), generator=g,
                                     device=dev).to(dtype)
                     for causal in (True, False):
                         got = kops.attention(q, k, v, causal=causal)
                         want = ref.attention(q, k, v, causal=causal,
                                              chunk=kv_tile(dtype))
-                        what = (f"flash {dtype} D={d} H={h}/{hkv} "
+                        what = (f"flash {dtype} D={d}/{dv} H={h}/{hkv} "
                                 f"Sq={sq} Sk={sk} causal={causal}")
                         if dtype == torch.float32:
                             err_f32 = max(err_f32, check_close(
@@ -651,9 +718,10 @@ def phase_stress_flash(seed: int) -> None:
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     worst, fails, off = {}, [], 0
     for i in range(FLASH_STRESS_CASES):
-        d = FLASH_STRESS_DIMS[i % len(FLASH_STRESS_DIMS)]
-        q, k, v = (torch.randn((2, 200, h, d), generator=g,
-                               device=dev).bfloat16() for h in (16, 1, 1))
+        d, dv = FLASH_STRESS_DIMS[i % len(FLASH_STRESS_DIMS)]
+        q, k, v = (torch.randn((2, 200, h, w), generator=g,
+                               device=dev).bfloat16()
+                   for h, w in ((16, d), (1, d), (1, dv)))
         got = kops.attention(q, k, v, causal=True)
         want = ref.attention(q, k, v, causal=True,
                              chunk=kv_tile(torch.bfloat16))
@@ -662,7 +730,7 @@ def phase_stress_flash(seed: int) -> None:
         step = torch.exp2(torch.floor(torch.log2(w))) * 2 ** -7
         off += int(((got.float() - want.float()).abs() > 1.5 * step).sum())
         try:
-            check_bf16(got, want, f"flash stress case {i} (D={d})")
+            check_bf16(got, want, f"flash stress case {i} (D={d}/{dv})")
         except AssertionError as e:
             ratio = (got.float() - want.float()).abs() / (
                 BF16_ATOL + BF16_RTOL * want.float().abs())
@@ -670,7 +738,8 @@ def phase_stress_flash(seed: int) -> None:
             fails.append(f"{e}; worst element in query row {row} "
                          f"({row + 1} keys)")
     print(f"[3 stress flash] {FLASH_STRESS_CASES} causal bf16 cases (2 x 200 "
-          f"x 16/1 heads, D {'/'.join(map(str, FLASH_STRESS_DIMS))}): "
+          f"x 16/1 heads, (D, Dv) "
+          f"{', '.join(map(str, FLASH_STRESS_DIMS))}): "
           f"{len(fails)} fail check_bf16; "
           f"{_bf16_summary(worst)}; {off} elements off by > 1.5 bf16 steps")
     require(not fails, "; ".join(fails[:3]))
@@ -1258,24 +1327,26 @@ def phase_gnn(seed: int, n_steps: int, card: str) -> dict:
 # Phase 7: chatglm3-6b prefill (flash attention in every layer)
 # ---------------------------------------------------------------------------
 
-class _AttentionSwap:
-    """Route the model's attention (``kernels.ops.attention``, which
-    ``models.attention`` looks up at each call) through ``fn`` while
-    active: the plain version for the whole-prefill comparison, or a
-    recorder of a layer's q, k, v."""
+class _OpSwap:
+    """Route one of the model's entry points through ``fn`` while active:
+    ``kernels.ops.<name>`` by default (which the model modules look up at
+    each call: ``attention``, ``block_gather``), or ``<module>.<name>``
+    (``models.moe.route``): a plain version for a whole-prefill comparison,
+    a recorder of a layer's inputs, or a replay of recorded decisions."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, name: str, fn, module=None):
+        self.name, self.fn, self.module = name, fn, module
 
     def __enter__(self):
-        from repro_torch.kernels import ops as kops
-        self.saved = kops.attention
-        kops.attention = self.fn
+        if self.module is None:
+            from repro_torch.kernels import ops as kops
+            self.module = kops
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops as kops
-        kops.attention = self.saved
+        setattr(self.module, self.name, self.saved)
         return False
 
 
@@ -1334,7 +1405,7 @@ def phase_chatglm3(seed: int) -> dict:
         if not first:
             first.append((q, k, v, kw))
         return out
-    with _AttentionSwap(held):
+    with _OpSwap("attention", held):
         model.prefill(tokens)
     require(len(per_layer) == cfg.num_layers, "one attention call per layer")
     layers = {}
@@ -1342,7 +1413,7 @@ def phase_chatglm3(seed: int) -> dict:
         _worst(layers, a)
     err = layers["max_abs"]
 
-    with _AttentionSwap(plain):
+    with _OpSwap("attention", plain):
         plain_last = model.prefill(tokens)
     diff = (last.float() - plain_last.float())
     rel_l2 = float(diff.norm() / plain_last.float().norm())
@@ -1488,7 +1559,7 @@ def phase_stablelm_prefill(seed: int) -> dict:
         if not first:
             first.append((q, k, v, kw))
         return kops.flash_attention_cuda(q, k, v, **kw)
-    with _AttentionSwap(record):
+    with _OpSwap("attention", record):
         again = model.prefill(tokens)
     require(torch.equal(again, last), "stablelm-3b prefill is not repeatable")
     q, k, v, kw = first.pop()
@@ -1606,14 +1677,17 @@ def _serve_drive(model, prompts, chunk: int,
     return out
 
 
-def _lockstep_drive(model, prompts, new_tokens: int) -> dict:
+def _lockstep_drive(model, prompts, new_tokens: int, gather=None) -> dict:
     """Serve ``prompts`` through two servers stepped in turn: one replays
     its captured graphs, the other runs ``LM.wave_step`` and
     ``LM.reset_slots`` eagerly on its own caches.  After every serving
     iteration the two waves' logits and every cache leaf must be the same
-    bits, and at the end every request's tokens.  Returns the waves, the
-    micro-steps, the leaves compared and each server's host seconds inside
-    its waves."""
+    bits, and at the end every request's tokens.  ``gather``, if given,
+    stands in for ``kernels.ops.block_gather`` once both servers are built
+    (their graphs hold the kernel as served): every gather launched
+    eagerly, in the eager wave and in both servers' pipeline members, runs
+    through it.  Returns the servers, the waves, the micro-steps, the
+    leaves compared and each server's host seconds inside its waves."""
     import torch
     from repro_torch.runtime.server import DecodeServer, Request
     servers = {n: DecodeServer(model, batch_slots=SERVE_SLOTS,
@@ -1640,19 +1714,22 @@ def _lockstep_drive(model, prompts, new_tokens: int) -> dict:
             srv.submit(r)
     graph, eager = servers["graph"], servers["eager"]
     waves = leaves = 0
-    while graph.queue or any(r is not None for r in graph.active):
-        graph.step()
-        eager.step()
-        waves += 1
-        require(torch.equal(last["graph"], last["eager"]),
-                f"wave {waves}: the graph's logits differ from the eager "
-                f"wave's")
-        for layer, (cg, ce) in enumerate(zip(graph.caches, eager.caches)):
-            for k in cg:
-                require(torch.equal(cg[k], ce[k]),
-                        f"after wave {waves}: cache leaf {k} of layer "
-                        f"{layer} differs between graph and eager")
-                leaves += 1
+    with (_OpSwap("block_gather", gather) if gather is not None
+          else contextlib.nullcontext()):
+        while graph.queue or any(r is not None for r in graph.active):
+            graph.step()
+            eager.step()
+            waves += 1
+            require(torch.equal(last["graph"], last["eager"]),
+                    f"wave {waves}: the graph's logits differ from the "
+                    f"eager wave's")
+            for layer, (cg, ce) in enumerate(zip(graph.caches,
+                                                 eager.caches)):
+                for k in cg:
+                    require(torch.equal(cg[k], ce[k]),
+                            f"after wave {waves}: cache leaf {k} of layer "
+                            f"{layer} differs between graph and eager")
+                    leaves += 1
     require(not eager.queue and all(r is None for r in eager.active) and
             eager.serve_stats["waves"] == waves,
             "the eager server's schedule differs from the graph server's")
@@ -1661,8 +1738,8 @@ def _lockstep_drive(model, prompts, new_tokens: int) -> dict:
                 len(g.out) == new_tokens,
                 f"request {i}: graph drive emitted {g.out[:6]}... "
                 f"({g.status}), eager {e.out[:6]}... ({e.status})")
-    return {"waves": waves, "micro_steps": sum(micro), "leaves": leaves,
-            "host_s": host, "reqs": reqs["graph"]}
+    return {"servers": servers, "waves": waves, "micro_steps": sum(micro),
+            "leaves": leaves, "host_s": host, "reqs": reqs["graph"]}
 
 
 def _graph_device_ms(srv, iters: int = 20) -> dict:
@@ -1676,6 +1753,23 @@ def _graph_device_ms(srv, iters: int = 20) -> dict:
     return {"unmasked": time_ms(wave.graphs["micro-step"].replay, iters),
             "masked": time_ms(wave.graphs["masked micro-step"].replay,
                               iters)}
+
+
+def _graph_issue_ms(srv, iters: int = 20) -> float:
+    """Host ms to issue one replay of the captured micro-step onto an idle
+    device (synchronised before each): the launch alone, without waiting
+    for room in the device's queue, which a running drive's issue time
+    includes."""
+    import torch
+    replay = srv._wave.graphs["micro-step"].replay
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / iters
 
 
 def _drive_metrics(main: dict, new_tokens: int) -> dict:
@@ -1711,10 +1805,32 @@ def _require_served(main: dict, new_tokens: int, counts: dict,
             f"of {waves}")
 
 
-def phase_serving(seed: int, card: str) -> dict:
-    import torch
+def _profiled_drive(model, prompts, new_tokens: int) -> dict:
+    """Device busy share over a drive: the same drive again (the same
+    waves: with no deadline the schedule does not depend on time) under
+    torch.profiler, device events only, summed from the raw events.
+    Returns the device time by name (ns, largest first), the number of
+    device operations and of each by name (replays of a captured graph
+    included), the busy ms and the profiled drive's wall s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    tp = profile(activities=[ProfilerActivity.CUDA])
+    tp.start()
+    wall = _serve_drive(model, prompts, SERVE_CHUNK, new_tokens)["wall"]
+    tp.stop()
+    by_name: dict = {}
+    count: dict = {}
+    for e in tp.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+            count[e.name()] = count.get(e.name(), 0) + 1
+    return {"dev": sorted(by_name.items(), key=lambda kv: -kv[1]),
+            "launches": sum(count.values()), "count": count,
+            "busy_ms": sum(by_name.values()) / 1e6, "wall": wall}
+
+
+def phase_serving(seed: int, card: str) -> dict:
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.core import embedding_engine as ee
     from repro_torch.kernels import ops as kops
@@ -1814,22 +1930,9 @@ def phase_serving(seed: int, card: str) -> dict:
                 f"{r2.out[:6]}... vs the main drive's {r.out[:6]}...")
     graph_dev = _graph_device_ms(srv)
 
-    # device busy share over the drive: the same drive again (the same
-    # waves: with no deadline the schedule does not depend on time) under
-    # torch.profiler, device events only, summed from the raw events; the
-    # share is of the unprofiled main drive's wall
-    tp = profile(activities=[ProfilerActivity.CUDA])
-    tp.start()
-    prof_wall = _serve_drive(model, prompts, SERVE_CHUNK)["wall"]
-    tp.stop()
-    by_name: dict = {}
-    launches = 0
-    for e in tp.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            launches += 1
-            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
-    dev = sorted(by_name.items(), key=lambda kv: -kv[1])
-    busy_ms = sum(by_name.values()) / 1e6
+    prof = _profiled_drive(model, prompts, SERVE_NEW_TOKENS)
+    dev, launches, busy_ms, prof_wall = (prof["dev"], prof["launches"],
+                                         prof["busy_ms"], prof["wall"])
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     step_bytes = n_params * 2          # every bf16 weight once a micro-step
@@ -1904,7 +2007,7 @@ def phase_serving(seed: int, card: str) -> dict:
               "group_launches": variants["group"], "waves": waves,
               "tokens_per_s": m["tokens_per_s"]}
     del model, main, srv, reqs, chunk1, reqs1, final, final1, solo, caches
-    del dec, fwd, hidden, stock, got, other, want, tp, lock
+    del dec, fwd, hidden, stock, got, other, want, prof, lock
     free_cuda()
     return result
 
@@ -1984,6 +2087,572 @@ def phase_serving_stablelm(seed: int, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: DeepSeek-V2-Lite (MLA + MoE) prefilled and served
+# ---------------------------------------------------------------------------
+
+def _sdpa_backends(library) -> dict:
+    """Each scaled_dot_product_attention backend that takes the call, timed
+    alone (ms), or why it refuses it (a backend may refuse a value width
+    other than the q/k width)."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([be]):
+                warnings.simplefilter("ignore")
+                library()
+                torch.cuda.synchronize()
+                out[be.name] = time_ms(library, 10)
+        except RuntimeError as e:
+            out[be.name] = "refused: " + (str(e).strip().splitlines()
+                                          or ["(no message)"])[0][:90]
+    return out
+
+
+def _deepseek_prefill(model, seed: int, card: str) -> dict:
+    """``LM.prefill`` of DeepSeek-V2-Lite over 4 x 4096 tokens: one prefill
+    on the main path (a flash launch at (192, 128) and an un-dispatch
+    gather in every layer), more timed; the flash output held against the
+    plain version on its own q, k, v and the un-dispatch
+    gather against ``ref.block_gather`` bit for bit, in every layer; the
+    last hidden state against a prefill with plain attention and the
+    routing pinned to the kernel prefill's, within a fixed bound that a
+    planted fault must exceed, and, with its own routing, how many routing
+    decisions it takes differently; the flash kernel's time a layer beside
+    its bound, the plain version and ``scaled_dot_product_attention``; the
+    un-dispatch gather's (both variants) beside ``index_select`` and its
+    bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+    from repro_torch.kernels.flash_attention import kv_tile
+    from repro_torch.kernels.gather import launch_variant
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe import capacity_of, route
+    cfg = model.cfg
+    n_layers = cfg.num_layers
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    cap = capacity_of(cfg, PREFILL_BATCH * PREFILL_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    model.prefill(tokens)          # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+
+    # the main path: one prefill, launches counted from 0
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = model.prefill(tokens)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    require(counts["flash_attention"] == n_layers and
+            counts["block_gather"] == n_layers and
+            variants == {"bulk": n_layers, "group": n_layers, "rows": 0},
+            f"DeepSeek-V2-Lite prefill launched flash_attention "
+            f"{counts['flash_attention']} and block_gather "
+            f"{counts['block_gather']} times ({variants}), expected "
+            f"{n_layers} each (bulk variant)")
+    require(last.shape == (PREFILL_BATCH, 1, cfg.d_model) and
+            bool(torch.isfinite(last).all()), "DeepSeek prefill output")
+    for _ in range(PREFILLS - 1):
+        t0 = time.perf_counter()
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prefill_ms = float(np.mean(times)) * 1e3
+    dev = _device_time(lambda: model.prefill(tokens))
+    attn_us = sum(us for k, us in dev if "flash" in k)
+    gather_us = sum(us for k, us in dev if "gather_bulk" in k or
+                    "group_" in k)
+
+    # one more prefill through the kernels: every layer's flash output held
+    # against the plain version on that layer's own q, k, v, every layer's
+    # un-dispatch gather against the plain gather bit for bit, and every
+    # layer's routing (top-k expert ids) recorded
+    per_layer, first, gathers = [], {}, []
+    routing = {"kernel": [], "plain": []}
+
+    def plain(q, k, v, **kw):
+        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
+
+    def held(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        per_layer.append(check_bf16(
+            out, plain(q, k, v, **kw),
+            f"flash kernel on DeepSeek layer {len(per_layer)}'s q, k, v"))
+        first.setdefault("attention", (q, k, v, kw))
+        return out
+
+    def held_gather(table, idxs, **kw):
+        out = kops.block_gather_cuda(table, idxs, **kw)
+        gathers.append(check_close(
+            out, ref.block_gather(table, idxs),
+            f"un-dispatch gather on DeepSeek layer {len(gathers)}"))
+        first.setdefault("gather", (table, idxs))
+        return out
+
+    def recorder(run):
+        def record_route(x2d, router, k):
+            probs, topw, tope = route(x2d, router, k)
+            routing[run].append(tope)
+            return probs, topw, tope
+        return record_route
+
+    def pinned_route(x2d, router, k):
+        """The kernel prefill's top-k experts of this layer, weighted by
+        this prefill's own probabilities (renormalised as ``route`` does)."""
+        probs, _, _ = route(x2d, router, k)
+        tope = routing["kernel"][pinned_route.layer]
+        pinned_route.layer += 1
+        topw = probs.gather(-1, tope)
+        return probs, topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), tope
+    pinned_route.layer = 0
+
+    with _OpSwap("attention", held), _OpSwap("block_gather", held_gather), \
+            _OpSwap("route", recorder("kernel"), moe_mod):
+        again = model.prefill(tokens)
+    require(torch.equal(again, last), "DeepSeek prefill is not repeatable")
+    require(len(per_layer) == len(gathers) == n_layers,
+            "one flash and one un-dispatch gather a layer")
+    layers = {}
+    for a in per_layer:
+        _worst(layers, a)
+    # the last hidden state against a prefill with plain attention and the
+    # routing pinned to the kernel prefill's (the held comparison); the
+    # same against plain attention over half its KV chunk (a summation
+    # order the kernel does not use: this model's own amplification of a
+    # rounding step of attention); the kernel prefill with one layer's
+    # attention faulted (what the bound must catch); and with plain
+    # attention and its own routing (how far such a step moves the routing)
+    def plain_half(q, k, v, **kw):
+        return ref.attention(q, k, v,
+                             **{**kw, "chunk": kv_tile(q.dtype) // 2})
+
+    caught = {}
+
+    def faulted(layer, fault, name):
+        """The kernel in every layer; in ``layer`` on faulted inputs, its
+        output then held as the per-layer check holds it (against the plain
+        version on the true q, k, v), which must reject it."""
+        def attn(q, k, v, **kw):
+            attn.calls += 1
+            if attn.calls - 1 != layer:
+                return kops.flash_attention_cuda(q, k, v, **kw)
+            out = kops.flash_attention_cuda(*fault(q, k, v), **kw)
+            want = plain(q, k, v, **kw)
+            try:
+                check_bf16(out, want, name)
+            except AssertionError:
+                caught[name] = bf16_agreement(out, want)
+            return out
+        attn.calls = 0
+        return attn
+
+    def lost_values(q, k, v):
+        v = v.clone()
+        v[:, FAULT_KEYS[0]:FAULT_KEYS[1]] = 0
+        return q, k, v
+    mid = n_layers // 2
+    # the end-to-end check must catch the first fault; the second it cannot
+    # see (PERF.md), and only the per-layer check catches it
+    faults = {"layer 0 at scale 128^-1/2 (the v width's, not the q/k "
+              "width's)": (0, lambda q, k, v: (
+                  q * (q.shape[-1] / v.shape[-1]) ** 0.5, k, v)),
+              f"layer {mid} with the values of keys {FAULT_KEYS[0]}-"
+              f"{FAULT_KEYS[1] - 1} lost (one KV tile's V load dropped)":
+              (mid, lost_values)}
+    runs = {"plain": plain, "plain_half": plain_half,
+            **{name: faulted(layer, fault, name)
+               for name, (layer, fault) in faults.items()}}
+    pinned = {}
+    for name, fn in runs.items():
+        pinned_route.layer = 0
+        with _OpSwap("attention", fn), \
+                _OpSwap("route", pinned_route, moe_mod):
+            pinned[name] = model.prefill(tokens)
+        require(pinned_route.layer == n_layers,
+                "routing pinned in every layer")
+    with _OpSwap("attention", plain), \
+            _OpSwap("route", recorder("plain"), moe_mod):
+        free_last = model.prefill(tokens)
+
+    def rel(x, y):
+        return float((x.float() - y.float()).norm() / y.float().norm())
+    plain_last = pinned.pop("plain")
+    diff = last.float() - plain_last.float()
+    rel_l2 = rel(last, plain_last)
+    floor = rel(pinned.pop("plain_half"), plain_last)
+    fault_rel = {name: rel(x, plain_last) for name, x in pinned.items()}
+    free_rel_l2 = rel(last, free_last)
+    bound = DEEPSEEK_PREFILL_REL_L2
+    flips = [int((a != b).sum()) for a, b in zip(routing["kernel"],
+                                                 routing["plain"])]
+    last_rows = torch.arange(PREFILL_BATCH, device=last.device) * \
+        PREFILL_SEQ + PREFILL_SEQ - 1
+    last_flips = sum(int((a[last_rows] != b[last_rows]).sum())
+                     for a, b in zip(routing["kernel"], routing["plain"]))
+    expert_rms = float(first["gather"][0].float().square().mean().sqrt())
+    print(f"[9 deepseek checks] every layer's flash output == plain on its "
+          f"own q, k, v ({n_layers} layers: {_bf16_summary(layers)}); every "
+          f"layer's un-dispatch gather == plain bit for bit; last hidden "
+          f"state vs a prefill with plain attention and the routing pinned "
+          f"to the kernel prefill's: relative L2 {rel_l2:.4g} (max abs "
+          f"{float(diff.abs().max()):.3g}), against a tol of {bound}; the "
+          f"same between plain attention over {kv_tile(torch.bfloat16)}- "
+          f"and {kv_tile(torch.bfloat16) // 2}-key chunks: {floor:.4g}; "
+          f"planted faults, routing pinned (the first required above the "
+          f"tol; each required to fail its layer's check_bf16): " +
+          "; ".join(f"{k}: {v:.4g} (that layer's output relative L2 "
+                    f"{caught[k]['rel_l2']:.3g} from plain)"
+                    if caught.get(k) else f"{k}: {v:.4g} (passed check_bf16)"
+                    for k, v in fault_rel.items()) +
+          f"; with plain attention and its own "
+          f"routing: relative L2 {free_rel_l2:.3g}, {sum(flips)} of "
+          f"{n_layers * routing['kernel'][0].numel()} routing decisions "
+          f"differ ({last_flips} at the last positions; by layer {flips}); "
+          f"layer 0's expert outputs (its un-dispatch table) have RMS "
+          f"{expert_rms:.4g} for inputs of RMS 1")
+    require(rel_l2 <= bound and bool(torch.isfinite(diff).all()),
+            f"DeepSeek prefill with the kernel vs plain attention (routing "
+            f"pinned): relative L2 {rel_l2:.4g} > {bound}")
+    gross = next(iter(fault_rel))
+    require(fault_rel[gross] > bound, f"DeepSeek prefill with {gross}: "
+            f"relative L2 {fault_rel[gross]:.4g} <= {bound}, the end-to-end "
+            f"check misses it")
+    for name in fault_rel:
+        require(caught.get(name) is not None, f"DeepSeek prefill with "
+                f"{name}: that layer's output passed check_bf16")
+
+    # layer 0: flash at (192, 128)
+    q, k, v, kw = first.pop("attention")
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    require((d, dv) == (cfg.hd + cfg.rope_head_dim, cfg.hd) == (192, 128),
+            f"DeepSeek MLA widths (q/k {d}, v {dv}), expected (192, 128)")
+
+    def kernel():
+        return kops.attention(q, k, v, causal=True)
+    ms = time_ms(kernel, 10)
+    plain_ms = time_ms(lambda: plain(q, k, v, **kw), 2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # MHA: no expand
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = bf16_agreement(library().transpose(1, 2), kernel())
+    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
+            f"scaled_dot_product_attention vs kernel at (192, 128): relative "
+            f"L2 {lib['rel_l2']:.3g} > 2^-7")
+    library_ms = time_ms(library, 10)
+    backends = _sdpa_backends(library)
+    flops = b * h * s * s * (d + dv)     # causal QK^T and PV
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * \
+        q.element_size()
+    bound_ms = max(flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = ("operations" if flops / BF16_TC_FLOPS >=
+                nbytes / HBM_BYTES_PER_S else "bytes")
+    del q, k, v, qt, kt, vt
+
+    # layer 0: the MoE un-dispatch gather
+    table, idxs = first.pop("gather")
+    got = kops.block_gather(table, idxs)
+    g_err = max(gathers)
+    check_close(got[:, 0], table.index_select(0, idxs.long()),
+                "un-dispatch gather vs index_select")
+    g_ms = time_ms(lambda: kops.block_gather(table, idxs), 50)
+    # the variant kernel_variant does not pick here, on the same stream
+    by_rows = torch.empty_like(got)
+    launch_variant("rows", table, idxs, by_rows)
+    check_close(by_rows, got, "un-dispatch gather, rows vs bulk variant")
+    g_rows_ms = time_ms(lambda: launch_variant("rows", table, idxs, by_rows),
+                        50)
+    g_plain_ms = time_ms(lambda: ref.block_gather(table, idxs), 20)
+    rows = idxs.long()
+    g_library_ms = time_ms(lambda: table.index_select(0, rows), 50)
+    row_bytes = table.shape[1] * table.element_size()
+    uniq = int(torch.unique(rows).numel())
+    g_bytes = uniq * row_bytes + idxs.numel() * 4 + idxs.numel() * row_bytes
+    g_bound_ms = g_bytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[9 deepseek prefill] {cfg.name} {n_layers} layers (mla + MoE: "
+          f"{cfg.num_experts} routed experts top-{cfg.experts_per_tok} + "
+          f"{cfg.num_shared_experts} shared), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, q/k {d} v {dv}, latent {cfg.kv_lora_rank}"
+          f", bf16 (random, seed {seed}); {PREFILL_BATCH} x {PREFILL_SEQ} "
+          f"uniform token ids, capacity {cap} per expert: prefill mean "
+          f"{prefill_ms:.2f} ms over {PREFILLS} (host clock + synchronize); "
+          f"flash_attention launches {counts['flash_attention']} and "
+          f"un-dispatch block_gather launches {counts['block_gather']} "
+          f"(bulk {variants['bulk']}, grouping pass {variants['group']}) in "
+          f"the first; {_busy(dev, prefill_ms)}; flash kernels "
+          f"{attn_us / 1e3:.2f} ms and un-dispatch gathers "
+          f"{gather_us / 1e3:.2f} ms of it; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    print(f"[9 deepseek kernel] flash attention per layer (B={b}, S={s}, "
+          f"H={h}, MHA, q/k {d}, v {dv}, causal, bf16): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms (by backend: " +
+          ", ".join(f"{k} {v:.4f} ms" if isinstance(v, float) else
+                    f"{k} {v}" for k, v in backends.items()) +
+          f"), bound {bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s; kernel at {flops / ms / 1e9:.1f} TFLOP/s); vs the "
+          f"library: {_bf16_summary(lib)}; {card}")
+    print(f"[9 deepseek undispatch] layer 0's MoE un-dispatch out_buf[slot] "
+          f"({idxs.numel()} rows of {row_bytes} B from a "
+          f"{table.shape[0]}-row capacity buffer, {uniq} distinct): kernel "
+          f"{g_ms:.4f} ms (bulk variant with its grouping pass; the rows "
+          f"variant on the same stream {g_rows_ms:.4f} ms), plain "
+          f"{g_plain_ms:.4f} ms, index_select {g_library_ms:.4f} ms, bound "
+          f"{g_bound_ms:.4f} ms ({g_bytes / 1e6:.1f} MB at 3.35 TB/s); "
+          f"bit-exact vs plain and index_select; {card}")
+    result = {"flash_launches": counts["flash_attention"],
+              "gather_launches": variants["bulk"],
+              "gather_group_launches": variants["group"],
+              "mla_ms": ms, "mla_plain_ms": plain_ms,
+              "mla_bound_ms": bound_ms, "mla_bound_by": bound_by,
+              "mla_library_ms": library_ms,
+              "mla_library_backends": backends,
+              "mla_max_abs_err": layers["max_abs"],
+              "deepseek_prefill_ms": prefill_ms,
+              "undispatch_ms": g_ms, "undispatch_rows_ms": g_rows_ms,
+              "undispatch_plain_ms": g_plain_ms,
+              "undispatch_library_ms": g_library_ms,
+              "undispatch_bound_ms": g_bound_ms,
+              "undispatch_max_abs_err": g_err}
+    del tokens, last, again, pinned, plain_last, free_last, diff, routing
+    del table
+    del idxs, got, rows, by_rows
+    free_cuda()
+    return result
+
+
+def _deepseek_serving(model, seed: int, card: str) -> dict:
+    """DeepSeek-V2-Lite served through the captured wave with the stablelm-3b
+    settings (8 requests, 16 new tokens): every request ok; every wave
+    feeds both pipeline members (decode-embed and MoE un-dispatch) once;
+    the un-dispatch member's output held against the stock-op backend and
+    indexing; the drive in lockstep with the eager wave, bit for bit, with
+    every gather launched eagerly there (one a layer in every eager
+    micro-step, both members every wave) held against the plain gather bit
+    for bit; the gathers the replayed micro-steps launch (one a layer)
+    counted in the device trace.  The prefill_chunk=1 drive of phase 8 is
+    not carried over: in an MoE model the tokens depend on the chunking, in
+    the reference too (ROADMAP.md, reference caveat (c))."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    cfg = model.cfg
+    n_layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 3)
+    lo, hi = SERVE_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, STABLELM_REQUESTS)]
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK,
+                 STABLELM_NEW_TOKENS)              # warm-up
+
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK, STABLELM_NEW_TOKENS)
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    srv, reqs = main["srv"], main["reqs"]
+    waves = srv.serve_stats["waves"]
+    m = _drive_metrics(main, STABLELM_NEW_TOKENS)
+    require(all(r.status == "ok" and len(r.out) == STABLELM_NEW_TOKENS
+                for r in reqs),
+            f"DeepSeek served: not every request ended ok: "
+            f"{[(r.status, len(r.out)) for r in reqs]}")
+    names = srv.pipeline_group.names
+    gs = srv.compile_stats["pipeline_group"]
+    require(len(names) == 2 and
+            gs["submitted"] == {n: waves for n in names},
+            f"DeepSeek pipeline group {names} fed {gs['submitted']} in "
+            f"{waves} waves, expected both members once a wave")
+    # the wrapper counts what its Python launches: one gather a wave for
+    # each member, and one a layer in each of the two micro-step bodies,
+    # run eagerly by the capture's warm-up and recorded by the capture
+    want = 2 * waves + 4 * n_layers
+    require(counts["block_gather"] == want and
+            variants == {"bulk": want, "group": want, "rows": 0},
+            f"DeepSeek served {waves} waves: block_gather counted "
+            f"{counts['block_gather']} launches ({variants}), expected "
+            f"{want}")
+
+    # (e) the un-dispatch member's output, kernel vs stock op vs indexing,
+    # on a random table of the capacity buffer's shape and the server's
+    # stream for the last token
+    undisp = names[1]
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    table = torch.randn(tuple(srv._cap_buf.shape), generator=gen,
+                        device=model.device).to(srv._cap_buf.dtype)
+    tok0 = int(reqs[0].out[-1])
+    idxs = ((np.arange(srv._undisp_segments, dtype=np.int64) * (tok0 + 1))
+            % srv._undisp_rows).astype(np.int32)
+    wave = {undisp: {"moe_undispatch": {"table": table, "idxs": idxs}}}
+    got = srv.pipeline_group.submit_wave(wave)[undisp].result()
+    stock = model.embedding_pipeline(SERVE_SLOTS, 1, backend="torch")
+    other = stock.submit_wave(wave)[undisp].result()
+    indexed = table[torch.from_numpy(idxs).long().to(model.device)]
+    require(torch.equal(got["moe_undispatch"], other["moe_undispatch"]) and
+            torch.equal(got["moe_undispatch"][:, 0], indexed),
+            "MoE un-dispatch member: backend cuda vs torch vs "
+            "table[idxs]")
+
+    # (g) graph == eager in lockstep, every eagerly launched gather held
+    held = []
+
+    def held_gather(table, idxs, **kw):
+        out = kops.block_gather_cuda(table, idxs, **kw)
+        plain = ref.block_gather(table, idxs, **kw)
+        bits = {2: torch.int16, 4: torch.int32}[out.element_size()]
+        held.append((table.data_ptr(), int(table.shape[0]), idxs,
+                     (out.view(bits) != plain.view(bits)).sum()))
+        return out
+    lock = _lockstep_drive(model, prompts, STABLELM_NEW_TOKENS,
+                           gather=held_gather)
+    for i, (r, r2) in enumerate(zip(reqs, lock["reqs"])):
+        require(r.out == r2.out, f"DeepSeek request {i}: the lockstep drive "
+                f"emitted {r2.out[:6]}... vs {r.out[:6]}...")
+    torch.cuda.synchronize()
+    members = {model.embed.data_ptr(): "decode-embed"}
+    for s_ in lock["servers"].values():
+        members[s_._cap_buf.data_ptr()] = "un-dispatch member"
+    n_held, n_diff, in_model = {}, {}, []
+    for ptr, rows, idxs_, ndiff in held:
+        kind = members.get(ptr, "in-model un-dispatch")
+        n_held[kind] = n_held.get(kind, 0) + 1
+        n_diff[kind] = n_diff.get(kind, 0) + int(ndiff)
+        if kind == "in-model un-dispatch":
+            in_model.append((idxs_.numel(), rows,
+                             int(torch.unique(idxs_).numel())))
+    want_held = {"decode-embed": 2 * lock["waves"],
+                 "un-dispatch member": 2 * lock["waves"],
+                 "in-model un-dispatch": n_layers * lock["micro_steps"]}
+    require(n_held == want_held and not any(n_diff.values()),
+            f"DeepSeek lockstep drive: gathers held against the plain "
+            f"gather {n_held}, elements differing {n_diff}; expected "
+            f"{want_held} and none differing")
+    slots = {(g, r) for g, r, _ in in_model}
+    distinct = [u for _, _, u in in_model]
+    del held, table, got, other, indexed, stock
+    graph_dev = _graph_device_ms(srv)
+    issue_ms = _graph_issue_ms(srv)
+    prof = _profiled_drive(model, prompts, STABLELM_NEW_TOKENS)
+    # the same drive again under the profiler: every gather that ran on the
+    # device, the replayed micro-steps' one a layer included, and the
+    # warm-up's (the capture launches nothing)
+    in_graph = n_layers * m["micro_steps"]
+    want_traced = 2 * waves + in_graph + 2 * n_layers
+    traced = {k: sum(n for name, n in prof["count"].items() if k in name)
+              for k in ("gather_bulk_kernel", "group_insert_kernel",
+                        "gather_kernel")}
+    require(traced == {"gather_bulk_kernel": want_traced,
+                       "group_insert_kernel": want_traced,
+                       "gather_kernel": 0},
+            f"DeepSeek served {waves} waves, {m['micro_steps']} micro-steps: "
+            f"the device trace holds {traced} gathers, expected "
+            f"{want_traced} bulk gathers, each with its grouping pass")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    wall = main["wall"]
+    busy_ms = prof["busy_ms"]
+    print(f"[9 deepseek serving] {cfg.name} {n_layers} layers, {n_params} "
+          f"params ({w_bytes / 1e9:.2f} GB), bf16 (random, seed {seed}); "
+          f"DecodeServer(batch_slots={SERVE_SLOTS}, max_len={SERVE_MAX_LEN}, "
+          f"prefill_chunk={SERVE_CHUNK}, pipeline=True), captured wave: "
+          f"{STABLELM_REQUESTS} requests (prompts {lo}-{hi} tokens, "
+          f"{sum(len(p) for p in prompts)} in all), {STABLELM_NEW_TOKENS} new "
+          f"tokens each, all ok; {waves} waves "
+          f"({srv.serve_stats['prefill_waves']} prefill), "
+          f"{m['micro_steps']} micro-steps in {wall:.2f} s: "
+          f"{m['tokens_per_s']:.1f} generated tokens/s; TTFT "
+          f"{_percentiles(m['ttft'])}; per token "
+          f"{_percentiles(m['per_token'])}; pipeline members {names} fed "
+          f"{gs['submitted']}; block_gather launches counted by the "
+          f"wrapper {counts['block_gather']} = {waves} decode-embed + "
+          f"{waves} un-dispatch member + {2 * n_layers} in the capture's "
+          f"warm-up + {2 * n_layers} recorded by the two micro-step "
+          f"captures; in the device trace of the same drive "
+          f"{traced['gather_bulk_kernel']} bulk gathers (grouping passes "
+          f"{traced['group_insert_kernel']}) = {2 * waves} for the members "
+          f"+ {in_graph} in the replayed micro-steps ({n_layers} a "
+          f"micro-step) + {2 * n_layers} in the warm-up; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    print(f"[9 deepseek serving checks] un-dispatch member: backend cuda == "
+          f"torch == table[idxs] bit for bit ({srv._undisp_segments} rows "
+          f"of a random ({srv._undisp_rows}, {cfg.d_model}) table); in the "
+          f"lockstep drive every gather launched eagerly == the plain gather "
+          f"bit for bit: {n_held} (count by kind), the in-model "
+          f"un-dispatch at (slots, capacity rows) {sorted(slots)} with "
+          f"{min(distinct)}-{max(distinct)} distinct slots (mean "
+          f"{np.mean(distinct):.1f}); graph vs eager in lockstep: "
+          f"{lock['waves']} waves, {lock['micro_steps']} micro-steps, every "
+          f"wave's logits and every cache leaf after every iteration "
+          f"({lock['leaves']} comparisons) the same bits, the same tokens")
+    print(f"[9 deepseek serving where] host ms a micro-step "
+          f"{m['issue_ms'] / m['micro_steps']:.3f} in the drive (lockstep: "
+          f"graph {lock['host_s']['graph'] * 1e3 / lock['micro_steps']:.3f}"
+          f" vs eager "
+          f"{lock['host_s']['eager'] * 1e3 / lock['micro_steps']:.2f}), "
+          f"{issue_ms:.3f} to issue one replay onto an idle device; device ms of one captured micro-step (CUDA events, 20 "
+          f"replays) unmasked {graph_dev['unmasked']:.3f}, masked "
+          f"{graph_dev['masked']:.3f}, against {bound_ms:.2f} ms to read "
+          f"every weight once at 3.35 TB/s (every expert of every layer: the "
+          f"reference's all-expert products); ms per decode wave mean "
+          f"{np.mean(m['decode_ms']):.2f}; the drive under torch.profiler: " +
+          ("device time not measured (the profiler saw no CUDA events)"
+           if not prof["dev"] else
+           f"{prof['launches']} device operations = "
+           f"{prof['launches'] / m['micro_steps']:.0f} a micro-step, device "
+           f"busy {busy_ms:.1f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of "
+           f"the unprofiled drive's {wall * 1e3:.1f} ms (idle "
+           f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%) and "
+           f"{100 * busy_ms / (prof['wall'] * 1e3):.1f}% of the "
+           f"{prof['wall'] * 1e3:.1f} ms it took under the profiler; top: " +
+           ", ".join(f"{k[:40]} {ns / 1e6:.2f} ms"
+                     for k, ns in prof["dev"][:6])))
+    result = {"gather_launches": variants["bulk"],
+              "gather_group_launches": variants["group"],
+              "traced_launches": traced["gather_bulk_kernel"],
+              "traced_group_launches": traced["group_insert_kernel"],
+              "waves": waves,
+              "tokens_per_s": m["tokens_per_s"],
+              "device_ms_micro_step": graph_dev["unmasked"],
+              "issue_ms_micro_step": issue_ms,
+              "bound_ms_micro_step": bound_ms}
+    del main, srv, reqs, lock, prof
+    free_cuda()
+    return result
+
+
+def phase_deepseek_lm(seed: int, card: str) -> dict:
+    """DeepSeek-V2-Lite (27 layers, full width, bf16, random weights) built
+    once on the card, prefilled (``_deepseek_prefill``) and served
+    (``_deepseek_serving``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    print(f"[9 deepseek build] {cfg.name}: "
+          f"{sum(p.numel() for p in model.parameters())} params built on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    prefill = _deepseek_prefill(model, seed, card)
+    serving = _deepseek_serving(model, seed, card)
+    del model
+    free_cuda()
+    return {"prefill": prefill, "serving": serving}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2028,7 +2697,8 @@ def main(argv=None) -> int:
                             args.seed)),
                        ("8", lambda: phase_serving(args.seed, card)),
                        ("8 stablelm", lambda: phase_serving_stablelm(
-                           args.seed, card))):
+                           args.seed, card)),
+                       ("9", lambda: phase_deepseek_lm(args.seed, card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
@@ -2044,6 +2714,19 @@ def main(argv=None) -> int:
         gather[f"{key}_launches"] = later[phase]["launches"]
         gather[f"{key}_group_launches"] = later[phase]["group_launches"]
         gather["launches"] += later[phase]["launches"]
+    ds_prefill = later["9"]["prefill"]
+    ds_serving = later["9"]["serving"]
+    flash["deepseek_launches"] = ds_prefill.pop("flash_launches")
+    flash["launches"] += flash["deepseek_launches"]
+    for key in [k for k in ds_prefill if k.startswith(("mla_", "deepseek_"))]:
+        flash[key] = ds_prefill.pop(key)
+    for key, run in (("deepseek_prefill", ds_prefill),
+                     ("deepseek_serving", ds_serving)):
+        gather[f"{key}_launches"] = run.pop("gather_launches")
+        gather[f"{key}_group_launches"] = run.pop("gather_group_launches")
+        gather["launches"] += gather[f"{key}_launches"]
+    gather.update(ds_prefill)
+    gather.update({f"deepseek_serving_{k}": v for k, v in ds_serving.items()})
     print("[time] wall seconds by phase: " +
           ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for k in kernels:

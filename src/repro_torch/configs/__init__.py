@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b", "stablelm-3b"]
+ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b",
+         "stablelm-3b"]
 
 
 def _mod(name: str):

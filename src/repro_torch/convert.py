@@ -8,9 +8,13 @@ per-step index streams left as numpy arrays.
 An LM's parameters are a pytree in the reference (per-layer leaves stacked
 over the scanned super-blocks under ``scan``, the remainder layers under
 ``rest``) and a flat ``state_dict`` of :class:`repro_torch.models.lm.LM`
-here: :func:`lm_params_from_reference` maps one onto the other.  Its decode
-caches are the same kind of tree there and a list of per-layer dicts here:
-:func:`caches_from_reference` and :func:`caches_to_reference` map both ways.
+here: :func:`lm_params_from_reference` maps one onto the other, nested
+names included (MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``, the MoE
+layers' ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``, each
+leaf in its own dtype: the router stays fp32).  Its decode caches are the
+same kind of tree there and a list of per-layer dicts here:
+:func:`caches_from_reference` and :func:`caches_to_reference` map both ways
+(MLA's latent ``{c, kr, len}`` keep the reference's layout).
 """
 from __future__ import annotations
 
@@ -119,8 +123,9 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
     ``decode_step`` output, leaves as numpy arrays or anything
     ``np.asarray`` takes) as the port's list of per-layer cache dicts on
     ``device``: ``k``/``v`` (B, Smax, Hkv, hd) -> (B, Hkv, Smax, hd),
-    ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax), ``len`` as
-    is."""
+    ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax); ``len`` and
+    an MLA layer's ``c`` (B, Smax, r) and ``kr`` (B, Smax, rd) as they
+    are."""
     dev = resolve_device(device)
     out = []
     for layer in _layers_of(tree, cfg):

@@ -7,18 +7,21 @@
 // layer of a prefill:
 //
 //   o[b, s, h, :] = softmax_t(scale * <q[b, s, h], k[b, t, h / G]>) v[b, t, h / G]
-//   (t <= s when causal; G = H / Hkv heads share one KV head; scale = D^-1/2)
+//   (t <= s when causal; G = H / Hkv heads share one KV head; scale = Dqk^-1/2)
 //
-// in the JAX package's layout: q, o (B, Sq, H, D) and k, v (B, Sk, Hkv, D),
-// contiguous, f32 or bf16, D in {64, 80, 128}.  The running max m, the
+// in the JAX package's layout: q (B, Sq, H, Dqk), k (B, Sk, Hkv, Dqk),
+// v (B, Sk, Hkv, Dv) and o (B, Sq, H, Dv), contiguous, f32 or bf16, with
+// (Dqk, Dv) one of (64, 64), (80, 80), (128, 128) and (192, 128) -- the last
+// DeepSeek's MLA prefill: 128 no-rotary columns and 64 rotary ones for q and
+// k, 128 for v.  The running max m, the
 // denominator l and the accumulator are fp32; masked scores are -1e30; the
 // probabilities are rounded to the input dtype before the PV product (as
 // the reference's p.astype(v.dtype)) while l sums them unrounded; the
 // denominator is clamped at 1e-30.
 //
 // What bounds it: operations.  Causal attention over S tokens does
-// 2 * S^2 * D multiply-adds per head against 4 * S * D elements moved, far
-// above the card's balance at these lengths.
+// S^2 * (Dqk + Dv) multiply-adds per head against S * (2 Dqk + 2 Dv)
+// elements moved, far above the card's balance at these lengths.
 //
 // Two kernels, picked by dtype:
 //
@@ -61,7 +64,17 @@
 //   tile, head, batch) streams 64-key K/V tiles through shared memory held
 //   as fp32; f32 is not on the main path.
 //
-// Head dim 80 runs the D = 128 instantiation of either kernel, padded: the
+// Each kernel is templated on <DQK, DV>: Q and K tiles are DQK / 64 boxes
+// wide and Q K^T takes DQK / 16 wgmma k-steps (12 at DQK = 192); V and the O
+// accumulator are DV wide, so at (192, 128) a consumer's registers are those
+// of (128, 128).  Shared memory at (192, 128), bf16: Q 48 KiB, two stages of
+// K 96 KiB and of V 64 KiB, 208 KiB in all plus the barriers and the 1 KiB
+// alignment, inside the 227 KiB a block may take; O is staged in the
+// consumer's Q rows, which are at least as wide.  The f32 kernel at (192, 128)
+// takes 148,480 bytes of shared memory: one block per SM (two at D = 128),
+// so it is built for one (F32Smem::kMinBlocks) and keeps its registers.
+//
+// Head dim 80 runs the (128, 128) instantiation of either kernel, padded: the
 // bf16 kernel's tensor maps are 80 columns wide, so TMA fills columns 80-127
 // of every Q, K and V box with zeros (Q K^T is exact, O's padded columns come
 // out zero) and the O map stores only the 80 real ones; the f32 kernel loads
@@ -104,17 +117,23 @@ constexpr int kF32BQ = 64;
 constexpr int kF32BK = 64;
 constexpr int kF32Threads = 256;
 
-// Shared-memory layout in floats: Q (kF32BQ, D), K (kF32BK, D + 4),
-// V (kF32BK, D), P (kF32BQ, kF32BK).  D = 128 takes 115,712 bytes, so two
-// blocks fit one SM.
-template <int D> struct F32Smem {
-  static constexpr int kQStride = D;
-  static constexpr int kKStride = D + 4;
-  static constexpr int kVStride = D;
+// Shared-memory layout in floats: Q (kF32BQ, DQK), K (kF32BK, DQK + 4),
+// V (kF32BK, DV), P (kF32BQ, kF32BK).  (128, 128) takes 115,712 bytes, so
+// two blocks fit one SM; (192, 128) takes 148,480, so one does.
+template <int DQK, int DV> struct F32Smem {
+  static constexpr int kQStride = DQK;
+  static constexpr int kKStride = DQK + 4;
+  static constexpr int kVStride = DV;
   static constexpr int kPStride = kF32BK;
   static constexpr int kFloats = kF32BQ * kQStride + kF32BK * kKStride +
                                  kF32BK * kVStride + kF32BQ * kPStride;
   static constexpr int kBytes = kFloats * (int)sizeof(float);
+  static_assert(kBytes <= 232448, "f32 flash tiles exceed shared memory");
+  // blocks that fit one SM's 228 KiB (1 KiB of it reserved per block): two
+  // up to (128, 128), one at (192, 128), which may then take every register
+  // a thread can have (two blocks of 256 threads cap it at 128, and
+  // (192, 128) would spill there)
+  static constexpr int kMinBlocks = 233472 / (kBytes + 1024) >= 2 ? 2 : 1;
 };
 
 __device__ __forceinline__ float row_max16(float v) {
@@ -139,16 +158,17 @@ __device__ __forceinline__ const float4& f4(const float* p) {
 // tx + 16 j; of the accumulator, columns 64 g + 4 tx + e.  Both products
 // read 16-byte vectors from shared memory, padded so the K reads are free
 // of bank conflicts; row max and sum are reduced over the 16 threads of a
-// row with shuffles.  The tensors' rows are d <= D wide: columns d .. D - 1
-// are zero in shared memory and never stored.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kF32Threads, 2)
+// row with shuffles.  The tensors' q / k rows are dq <= DQK wide and their
+// v / o rows dv <= DV: the columns past them are zero in shared memory and
+// never stored.
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(kF32Threads, F32Smem<DQK, DV>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int seq_q, int seq_k, int heads, int kv_heads, int d,
-                 float scale) {
-  using S = F32Smem<D>;
-  constexpr int kG = D / 64;            // 64-column groups of the output
+                 int seq_q, int seq_k, int heads, int kv_heads, int dq,
+                 int dv, float scale) {
+  using S = F32Smem<DQK, DV>;
+  constexpr int kG = DV / 64;           // 64-column groups of the output
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* ks = qs + kF32BQ * S::kQStride;
@@ -164,17 +184,20 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % 16;
   const int ty = tid / 16;
 
-  const long long q_stride = (long long)heads * d;     // one token of q / o
-  const long long kv_stride = (long long)kv_heads * d;
-  const float* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * d;
-  const float* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * d;
-  const float* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * d;
+  // one token of q, of k, of v and of o
+  const long long q_stride = (long long)heads * dq;
+  const long long k_stride = (long long)kv_heads * dq;
+  const long long v_stride = (long long)kv_heads * dv;
+  const long long o_stride = (long long)heads * dv;
+  const float* __restrict__ qb = q + ((long long)b * seq_q * heads + h) * dq;
+  const float* __restrict__ kb = k + ((long long)b * seq_k * kv_heads + hk) * dq;
+  const float* __restrict__ vb = v + ((long long)b * seq_k * kv_heads + hk) * dv;
 
-  for (int e = tid; e < kF32BQ * D; e += kF32Threads) {
-    const int r = e / D;
-    const int c = e % D;
+  for (int e = tid; e < kF32BQ * DQK; e += kF32Threads) {
+    const int r = e / DQK;
+    const int c = e % DQK;
     const int s = q0 + r;
-    qs[r * S::kQStride + c] = s < seq_q && c < d ? qb[s * q_stride + c] : 0.0f;
+    qs[r * S::kQStride + c] = s < seq_q && c < dq ? qb[s * q_stride + c] : 0.0f;
   }
 
   float m[4], l[4], acc[4][4 * kG];
@@ -194,13 +217,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kF32BK;
     __syncthreads();   // the previous tile's readers are done
-    for (int e = tid; e < kF32BK * D; e += kF32Threads) {
-      const int r = e / D;
-      const int c = e % D;
+    for (int e = tid; e < kF32BK * DQK; e += kF32Threads) {
+      const int r = e / DQK;
+      const int c = e % DQK;
       const int s = k0 + r;
-      const bool in = s < seq_k && c < d;
-      ks[r * S::kKStride + c] = in ? kb[s * kv_stride + c] : 0.0f;
-      vs[r * S::kVStride + c] = in ? vb[s * kv_stride + c] : 0.0f;
+      ks[r * S::kKStride + c] = s < seq_k && c < dq ? kb[s * k_stride + c] : 0.0f;
+    }
+    for (int e = tid; e < kF32BK * DV; e += kF32Threads) {
+      const int r = e / DV;
+      const int c = e % DV;
+      const int s = k0 + r;
+      vs[r * S::kVStride + c] = s < seq_k && c < dv ? vb[s * v_stride + c] : 0.0f;
     }
     __syncthreads();
 
@@ -212,12 +239,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
     }
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int col = 0; col < DQK; col += 4) {
       float4 a[4], c[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = f4(qs + (ty + 16 * i) * S::kQStride + d);
+      for (int i = 0; i < 4; ++i) a[i] = f4(qs + (ty + 16 * i) * S::kQStride + col);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = f4(ks + (tx + 16 * j) * S::kKStride + d);
+      for (int j = 0; j < 4; ++j) c[j] = f4(ks + (tx + 16 * j) * S::kKStride + col);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -294,14 +321,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= seq_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * q_stride +
-                               (long long)h * d;
+    float* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * o_stride +
+                               (long long)h * dv;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 64 * g + 4 * tx + e;
-        if (col < d) orow[col] = acc[i][4 * g + e] / denom;
+        if (col < dv) orow[col] = acc[i][4 * g + e] / denom;
       }
     }
   }
@@ -476,27 +503,35 @@ constexpr int kConsumerRegs = 232;
 // Shared memory in bytes, from a 1024-byte-aligned base.  Every operand is
 // a stack of 64-column blocks, each `rows` x 128 bytes, 128-byte swizzled:
 //   Q: [consumer][column block][64 rows]; K, V: [stage][column block][kBK].
-template <int D> struct WgSmem {
-  static constexpr int kCB = D / 64;          // 64-column blocks of a row
+// Q and K are DQK / 64 blocks wide, V is DV / 64.
+template <int DQK, int DV> struct WgSmem {
+  static constexpr int kCBQ = DQK / 64;       // 64-column blocks of a q/k row
+  static constexpr int kCBV = DV / 64;        // of a v / o row
   static constexpr int kQCB = 64 * 128;       // one block of a consumer's Q
-  static constexpr int kQWg = kCB * kQCB;     // one consumer's 64 Q rows
+  static constexpr int kQWg = kCBQ * kQCB;    // one consumer's 64 Q rows
   static constexpr int kKVCB = kBK * 128;     // one block of a K or V tile
-  static constexpr int kKV = kCB * kKVCB;     // one K or V tile
+  static constexpr int kKT = kCBQ * kKVCB;    // one K tile
+  static constexpr int kVT = kCBV * kKVCB;    // one V tile
   static constexpr int kK = 2 * kQWg;
-  static constexpr int kV = kK + kStages * kKV;
-  static constexpr int kBar = kV + kStages * kKV;
+  static constexpr int kV = kK + kStages * kKT;
+  static constexpr int kBar = kV + kStages * kVT;
   // barriers: Q, then full K, full V and empty for each stage
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(DQK % 64 == 0 && (DV == 64 || DV == 128),
+                "q/k width a multiple of 64, v width 64 or 128");
+  // the epilogue stages O (DV wide) in the consumer's own Q rows
+  static_assert(DV <= DQK, "O must fit the consumer's Q rows");
+  static_assert(kBytes <= 232448, "flash tiles exceed shared memory");
 };
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const __grid_constant__ CUtensorMap omap, int seq_q,
                    int seq_k, int heads, int kv_heads, float scale) {
-  using L = WgSmem<D>;
+  using L = WgSmem<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle's alignment
@@ -532,9 +567,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: one thread keeps the TMA loads in flight
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, kBQ * D * 2);
+      mbar_expect_tx(bar_q, kBQ * DQK * 2);
       for (int i = 0; i < 2; ++i) {
-        for (int cb = 0; cb < L::kCB; ++cb) {
+        for (int cb = 0; cb < L::kCBQ; ++cb) {
           tma_load_4d(base + i * L::kQWg + cb * L::kQCB, &qmap, bar_q,
                       64 * cb, h, q0 + 64 * i, b);
         }
@@ -544,16 +579,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (kt >= kStages) {   // the stage's previous tile is released
           mbar_wait(bar_empty + 8 * st, ((kt / kStages) & 1) ^ 1);
         }
-        const uint32_t k_s = base + L::kK + st * L::kKV;
-        const uint32_t v_s = base + L::kV + st * L::kKV;
+        const uint32_t k_s = base + L::kK + st * L::kKT;
+        const uint32_t v_s = base + L::kV + st * L::kVT;
         // the full box is counted, zero fill past seq_k included
-        mbar_expect_tx(bar_full_k + 8 * st, kBK * D * 2);
-        for (int cb = 0; cb < L::kCB; ++cb) {
+        mbar_expect_tx(bar_full_k + 8 * st, kBK * DQK * 2);
+        for (int cb = 0; cb < L::kCBQ; ++cb) {
           tma_load_4d(k_s + cb * L::kKVCB, &kmap, bar_full_k + 8 * st,
                       64 * cb, hk, kt * kBK, b);
         }
-        mbar_expect_tx(bar_full_v + 8 * st, kBK * D * 2);
-        for (int cb = 0; cb < L::kCB; ++cb) {
+        mbar_expect_tx(bar_full_v + 8 * st, kBK * DV * 2);
+        for (int cb = 0; cb < L::kCBV; ++cb) {
           tma_load_4d(v_s + cb * L::kKVCB, &vmap, bar_full_v + 8 * st,
                       64 * cb, hk, kt * kBK, b);
         }
@@ -573,9 +608,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int q_lo = q0 + 64 * c;
     const uint32_t q_s = base + c * L::kQWg;
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.0f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.0f, 0.0f};
 
@@ -585,13 +620,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t parity = (kt / kStages) & 1;
       const int k0 = kt * kBK;
 
-      // S = Q K^T over D / 16 steps of 16 columns (32 bytes)
+      // S = Q K^T over DQK / 16 steps of 16 columns (32 bytes)
       float s[kBK / 2];
       mbar_wait(bar_full_k + 8 * st, parity);
-      const uint32_t k_s = base + L::kK + st * L::kKV;
+      const uint32_t k_s = base + L::kK + st * L::kKT;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;   // within the 128-byte row
         wgmma_m64n128_ss(s, sw128_desc(q_s + (kk / 4) * L::kQCB + off, 16),
                          sw128_desc(k_s + (kk / 4) * L::kKVCB + off, 16),
@@ -646,18 +681,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         l[r] = l[r] * alpha[r] + rs[r];
       }
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+      for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e / 2) % 2];
       fence_regs(o);   // written before the fence that orders them for wgmma
       fence_regs(p);
 
       // O += P V over kBK / 16 steps of 16 keys (2048 bytes of V)
       mbar_wait(bar_full_v + 8 * st, parity);
-      const uint32_t v_s = base + L::kV + st * L::kKV;
+      const uint32_t v_s = base + L::kV + st * L::kVT;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t vd = sw128_desc(v_s + kk * 16 * 128, L::kKVCB);
-        if constexpr (D == 128) {
+        if constexpr (DV == 128) {
           wgmma_m64n128_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3], vd);
         } else {
@@ -677,7 +712,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
     uint8_t* const q_gen = smem + c * L::kQWg;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -690,7 +725,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     named_barrier(1 + c, 128);
     if (tid == 0 && q_lo < seq_q) {
-      for (int cb = 0; cb < L::kCB; ++cb) {
+      for (int cb = 0; cb < L::kCBV; ++cb) {
         tma_store_4d(&omap, q_s + cb * L::kQCB, 64 * cb, h, q_lo, b);
       }
       bulk_commit();
@@ -713,14 +748,15 @@ struct FlashArgs {
   int seq_k;
   int heads;
   int kv_heads;
-  int d;          // the tensors' head dim: the instantiation's D, or less
+  int dq;         // the tensors' q / k width: the instantiation's DQK, or less
+  int dv;         // their v / o width: DV, or less
   float scale;
 };
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 int launch_f32(const FlashArgs& a, cudaStream_t s) {
-  constexpr int kBytes = F32Smem<D>::kBytes;
-  auto kernel = flash_f32_kernel<D, CAUSAL>;
+  constexpr int kBytes = F32Smem<DQK, DV>::kBytes;
+  auto kernel = flash_f32_kernel<DQK, DV, CAUSAL>;
   const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned int)((a.seq_q + kF32BQ - 1) / kF32BQ),
@@ -728,7 +764,7 @@ int launch_f32(const FlashArgs& a, cudaStream_t s) {
   kernel<<<grid, kF32Threads, kBytes, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.seq_q,
-      a.seq_k, a.heads, a.kv_heads, a.d, a.scale);
+      a.seq_k, a.heads, a.kv_heads, a.dq, a.dv, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -780,18 +816,18 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
-  if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, a.d, 64) ||
-      !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, a.d, kBK) ||
-      !encode_bshd(&vm, a.v, a.batch, a.seq_k, a.kv_heads, a.d, kBK) ||
-      !encode_bshd(&om, a.o, a.batch, a.seq_q, a.heads, a.d, 64)) {
+  if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, a.dq, 64) ||
+      !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, a.dq, kBK) ||
+      !encode_bshd(&vm, a.v, a.batch, a.seq_k, a.kv_heads, a.dv, kBK) ||
+      !encode_bshd(&om, a.o, a.batch, a.seq_q, a.heads, a.dv, 64)) {
     return (int)cudaErrorInvalidValue;
   }
-  constexpr int kBytes = WgSmem<D>::kBytes;
-  auto kernel = flash_wgmma_kernel<D, CAUSAL>;
+  constexpr int kBytes = WgSmem<DQK, DV>::kBytes;
+  auto kernel = flash_wgmma_kernel<DQK, DV, CAUSAL>;
   const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned int)a.heads, (unsigned int)a.batch,
@@ -801,32 +837,39 @@ int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
                     cudaStream_t s) {
   if (dtype == 0) {
-    return causal ? launch_f32<D, true>(a, s) : launch_f32<D, false>(a, s);
+    return causal ? launch_f32<DQK, DV, true>(a, s)
+                  : launch_f32<DQK, DV, false>(a, s);
   }
-  return causal ? launch_bf16<D, true>(a, s) : launch_bf16<D, false>(a, s);
+  return causal ? launch_bf16<DQK, DV, true>(a, s)
+                : launch_bf16<DQK, DV, false>(a, s);
 }
 
 }  // namespace
 
-// q, o: (batch, seq_q, heads, head_dim); k, v: (batch, seq_k, kv_heads,
-// head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16; bf16
-// pointers 16-byte aligned, as TMA needs).  head_dim 64, 80 (padded to 128)
-// or 128; heads a multiple of kv_heads.  scale multiplies the fp32 scores
-// (the reference's head_dim ** -0.5).
+// q: (batch, seq_q, heads, head_dim); k: (batch, seq_k, kv_heads,
+// head_dim); v: (batch, seq_k, kv_heads, v_head_dim); o: (batch, seq_q,
+// heads, v_head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16;
+// bf16 pointers 16-byte aligned, as TMA needs).  (head_dim, v_head_dim) one
+// of (64, 64), (80, 80) (padded to 128), (128, 128) and (192, 128); heads a
+// multiple of kv_heads.  scale multiplies the fp32 scores (the reference's
+// head_dim ** -0.5).
 extern "C" int ember_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int batch,
                                      int seq_q, int seq_k, int heads,
-                                     int kv_heads, int head_dim, int dtype,
-                                     int causal, double scale, void* stream) {
+                                     int kv_heads, int head_dim,
+                                     int v_head_dim, int dtype, int causal,
+                                     double scale, void* stream) {
+  const bool dims_ok = (head_dim == v_head_dim &&
+                        (head_dim == 64 || head_dim == 80 ||
+                         head_dim == 128)) ||
+                       (head_dim == 192 && v_head_dim == 128);
   if (batch <= 0 || batch > 65535 || seq_q <= 0 || seq_k <= 0 ||
       heads <= 0 || heads > 65535 || kv_heads <= 0 ||
-      heads % kv_heads != 0 ||
-      (head_dim != 64 && head_dim != 80 && head_dim != 128) ||
-      (dtype != 0 && dtype != 1)) {
+      heads % kv_heads != 0 || !dims_ok || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1 &&
@@ -835,11 +878,13 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   const FlashArgs a{q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
-                    head_dim, (float)scale};
+                    head_dim, v_head_dim, (float)scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // head dim 80 runs the D = 128 instantiation, padded (see the top)
-  return head_dim == 64 ? launch_by_dtype<64>(dtype, causal != 0, a, s)
-                        : launch_by_dtype<128>(dtype, causal != 0, a, s);
+  const bool c = causal != 0;
+  if (head_dim == 64) return launch_by_dtype<64, 64>(dtype, c, a, s);
+  if (head_dim == 192) return launch_by_dtype<192, 128>(dtype, c, a, s);
+  // head dim 80 runs the (128, 128) instantiation, padded (see the top)
+  return launch_by_dtype<128, 128>(dtype, c, a, s);
 }
 
 // The KV tile of the kernel that runs `dtype` (0 = float32, 1 = bfloat16),

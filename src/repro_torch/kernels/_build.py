@@ -55,10 +55,10 @@ _SIGNATURES = {
                       _I32, _I32, _P),
     # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, stream
     "ember_fusedmm_ring": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
-    # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, dtype,
-    # causal, scale, stream
+    # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim,
+    # v_head_dim, dtype, causal, scale, stream
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                              _I32, _I32, _I32, ctypes.c_double, _P),
+                              _I32, _I32, _I32, _I32, ctypes.c_double, _P),
     # dtype -> the flash kernel's KV tile
     "ember_flash_kv_tile": (_I32,),
 }

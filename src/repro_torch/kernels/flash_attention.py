@@ -4,8 +4,10 @@
 ``src/repro/kernels/flash_attention.py`` and computes the reference's
 ``blockwise_attention`` (``src/repro/models/attention.py``).
 
-Layout as in the JAX package: q (B,Sq,H,D), k and v (B,Sk,Hkv,D), GQA by
-head groups.  A call whose tensors lie on the CPU runs the plain version
+Layout as in the JAX package: q (B,Sq,H,D), k (B,Sk,Hkv,D) and v
+(B,Sk,Hkv,Dv), GQA by head groups; Dv = D except in DeepSeek's MLA prefill
+(D = 192: 128 no-rotary and 64 rotary columns; Dv = 128).  A call whose
+tensors lie on the CPU runs the plain version
 (:func:`repro_torch.kernels.ref.attention`); a CUDA call launches the kernel
 or raises -- nothing falls back.  The dtype picks the kernel: bf16 runs the
 tensor-core kernel (wgmma fed by TMA, 128-key tiles), f32 the scalar fp32
@@ -21,9 +23,9 @@ import torch
 from . import _build, ref
 from .sls import DTYPES, one_device
 
-#: head dims with a kernel; 80 runs the 128-wide kernel on zero-padded
-#: columns (csrc/ember_flash_attention.cu)
-HEAD_DIMS = (64, 80, 128)
+#: the (q/k width, v width) pairs with a kernel; (80, 80) runs the (128, 128)
+#: kernel on zero-padded columns (csrc/ember_flash_attention.cu)
+HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 #: each kernel's KV tile: kBK and kF32BK in csrc/ember_flash_attention.cu,
 #: which the built library reports (``ember_flash_kv_tile``); the checks on
 #: the card hold the two equal (chip_smoke.py phase 2, test_torch_cuda.py)
@@ -47,10 +49,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``chunk`` is the KV chunk of the plain version's recurrence (it decides
     only the fp32 summation order); the kernel streams its own
-    :func:`kv_tile` rows.  On the card, a sliding ``window`` and a value
-    width other than D have no kernel yet (ROADMAP.md, Queue 1 items 3 and
-    2) and raise, as does a head dim outside :data:`HEAD_DIMS`; bf16
-    tensors must be 16-byte aligned (TMA reads them)."""
+    :func:`kv_tile` rows.  On the card, a sliding ``window`` has no kernel
+    yet (ROADMAP.md, Queue 1 item 3) and raises, as does a (D, Dv) pair
+    outside :data:`HEAD_DIMS`; bf16 tensors must be 16-byte aligned (TMA
+    reads them)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D float32 or "
@@ -71,13 +73,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "sliding-window attention has no Hopper kernel yet (ROADMAP.md, "
             "Queue 1 item 3: the dense_local block kind)")
-    if v.shape[3] != d:
-        raise NotImplementedError(
-            f"attention with value width {v.shape[3]} != {d} has no Hopper "
-            "kernel yet (ROADMAP.md, Queue 1 item 2: the mla block kind)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    out = torch.empty_like(q)
+    dv = v.shape[3]
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) not among the "
+                         f"kernel's {HEAD_DIMS}")
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v, out)):
         raise ValueError("bf16 flash attention reads q, k and v by TMA: "
@@ -88,7 +88,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         err = _build.library().ember_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, h, hkv, d, DTYPES[q.dtype], int(causal), d ** -0.5,
+            sk, h, hkv, d, dv, DTYPES[q.dtype], int(causal), d ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ember_flash_attention")
     flash_attention_cuda.launches += 1

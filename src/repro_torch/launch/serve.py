@@ -2,11 +2,16 @@
 decode through :class:`~repro_torch.runtime.server.DecodeServer`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
-        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --pipeline
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-235b-a22b --reduced --device cpu
 
 The model is built on the CUDA card, with random weights from ``--seed``,
 unless ``--device cpu`` is given; without a card the default raises.
+``--reduced`` takes the architecture's small config (the only one of
+qwen3-moe-235b-a22b that fits one card); an MoE model's pipeline feeds its
+un-dispatch member too.
 Fault-tolerance knobs as in the reference: ``--index-policy`` hardens the
 prompts and the mirrored offset streams, ``--ttft-slo`` /
 ``--capacity-rps`` turn on SLO-aware shedding, ``--wave-deadline`` arms

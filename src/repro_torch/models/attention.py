@@ -1,8 +1,10 @@
-"""GQA attention layer (counterpart of ``repro/models/attention.py``;
-ported so far: :func:`blockwise_attention`, :func:`init_attn`,
-:func:`attn_forward`, and decode with a KV cache -- :func:`decode_attention`,
-:func:`slot_update`, :func:`attn_decode`, :func:`init_kv_cache` and the int8
-cache's :func:`_quant_kv` / :func:`_dequant_kv`).
+"""Attention layers (counterpart of ``repro/models/attention.py``; ported
+so far: :func:`blockwise_attention`, :func:`init_attn`, :func:`attn_forward`,
+decode with a KV cache -- :func:`decode_attention`, :func:`slot_update`,
+:func:`attn_decode`, :func:`init_kv_cache` and the int8 cache's
+:func:`_quant_kv` / :func:`_dequant_kv` -- and DeepSeek's multi-head latent
+attention: :func:`init_mla`, :func:`mla_forward`, :func:`mla_decode` and
+:func:`init_mla_cache`).
 
 :func:`blockwise_attention` is the reference's online-softmax attention over
 KV chunks.  Here it is one call to ``kernels.ops.attention``: the
@@ -22,8 +24,13 @@ the batched products -- and ``len`` (B,) int32; the int8 cache adds
 ``caches_from_reference`` map one onto the other.  Decode writes the cache
 in place (:func:`slot_update`) instead of rebuilding it.
 
-MLA and the sliding-window band are still to port (ROADMAP.md, Queue 1
-items 2 and 3).
+An MLA layer's cache is the latent ``c`` (B, Smax, r) and the shared rotary
+key ``kr`` (B, Smax, rd), in the reference's own layout, and ``len`` (B,);
+:func:`mla_decode` writes it in place too (:func:`_seq_rows`).  MLA's
+prefill runs the flash kernel with q/k width ``hd + rd`` (192 in
+DeepSeek-V2-Lite) and v width ``hd`` (128).
+
+The sliding-window band is still to port (ROADMAP.md, Queue 1 item 3).
 
 Decode issues no host read, builds no tensor from host data and allocates
 nothing whose size depends on values, so a served micro-step can be
@@ -238,3 +245,115 @@ def _quant_kv(x: torch.Tensor):
 def _dequant_kv(q: torch.Tensor, scale: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: Optional[torch.Generator], cfg: ModelConfig,
+             dtype: torch.dtype, device=None) -> dict:
+    d, h, hd, r = cfg.d_model, cfg.num_heads, cfg.hd, cfg.kv_lora_rank
+    rd = cfg.rope_head_dim
+    return {
+        "wq": dense_init(gen, (d, h * (hd + rd)), dtype, device),
+        "w_dkv": dense_init(gen, (d, r), dtype, device),
+        "w_uk": dense_init(gen, (r, h * hd), dtype, device),
+        "w_uv": dense_init(gen, (r, h * hd), dtype, device),
+        "w_kr": dense_init(gen, (d, rd), dtype, device),
+        "wo": dense_init(gen, (h * hd, d), dtype, device),
+    }
+
+
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D): queries of ``hd`` no-rotary and ``rd`` rotary
+    columns per head; keys and values expanded from the latent ``c = x
+    W_dkv``, the rotary key ``kr`` shared by every head; causal attention
+    with q/k width ``hd + rd``, v width ``hd`` and scale (hd + rd)^-1/2."""
+    b, s, _ = x.shape
+    h, hd, rd = cfg.num_heads, cfg.hd, cfg.rope_head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd + rd)
+    qn, qr = q[..., :hd], q[..., hd:]
+    c = x @ p["w_dkv"]                                 # (b,s,r) latent KV
+    kn = (c @ p["w_uk"]).reshape(b, s, h, hd)
+    v = (c @ p["w_uv"]).reshape(b, s, h, hd)
+    kr = (x @ p["w_kr"]).reshape(b, s, 1, rd)
+    cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+    kr = apply_rope(kr, cos, sin)
+    qf = torch.cat([qn, qr], dim=-1)
+    kf = torch.cat([kn, kr.expand(b, s, h, rd)], dim=-1)
+    chunk = pick_chunk(s, min(cfg.attn_chunk, s))
+    o = blockwise_attention(qf, kf, v.contiguous(), causal=True, chunk=chunk)
+    return o.reshape(b, s, h * hd) @ p["wo"]
+
+
+def _seq_rows(cache: torch.Tensor, pos: torch.Tensor) -> tuple:
+    """Index pair addressing row ``pos[b]`` of slot b in a (B, Smax, ...)
+    cache (the reference's layout, which MLA's latent cache keeps); a
+    position past the end addresses the last row, as the reference's
+    ``dynamic_update_slice`` clamps its start."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    return rows, pos.to(torch.int64).clamp(max=cache.shape[1] - 1)
+
+
+def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B,1,D) -> (B,1,D), updating the latent cache in place: row
+    ``len[b]`` of slot b gets the new ``c`` and ``kr``, and ``len`` grows by
+    one (only for the active slots under an ``active`` mask, whose inactive
+    rows are put back after the attention has read them, as
+    :func:`attn_decode` does).
+
+    The reference's order of products: ``kn = c W_uk`` and ``v = c W_uv``
+    over the whole cache, scores ``(qn·kn + qr·kr)·(hd + rd)^-1/2`` in x's
+    dtype, masked at -1e30 past each slot's length, softmax in fp32, the
+    probabilities cast to v's dtype for the PV product."""
+    b = x.shape[0]
+    h, hd, rd, r = cfg.num_heads, cfg.hd, cfg.rope_head_dim, \
+        cfg.kv_lora_rank
+    pos = cache["len"].expand(b)
+    q = (x @ p["wq"]).reshape(b, 1, h, hd + rd)
+    qn, qr = q[..., :hd], q[..., hd:]
+    c = x @ p["w_dkv"]
+    kr = (x @ p["w_kr"]).reshape(b, 1, 1, rd)
+    cos, sin = rope_freqs(pos[:, None].float(), rd, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+    kr = apply_rope(kr, cos, sin)
+    new = {"c": c.reshape(b, r), "kr": kr.reshape(b, rd)}
+    rows, at = _seq_rows(cache["c"], pos)
+    old = ({n: cache[n][rows, at] for n in new}
+           if active is not None else None)
+    for n, t in new.items():
+        cache[n][rows, at] = t.to(cache[n].dtype)
+    c_cache, kr_cache = cache["c"], cache["kr"]
+    smax = c_cache.shape[1]
+    kn = torch.einsum("bsr,rhd->bshd", c_cache, p["w_uk"].reshape(r, h, hd))
+    sc = (torch.einsum("bqhd,bshd->bhqs", qn, kn) +
+          torch.einsum("bqhd,bsd->bhqs", qr, kr_cache)) * (hd + rd) ** -0.5
+    mask = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
+    sc = torch.where(mask[:, None, None, :], sc, NEG_INF)
+    pr = torch.softmax(sc.float(), dim=-1)
+    v = torch.einsum("bsr,rhd->bshd", c_cache, p["w_uv"].reshape(r, h, hd))
+    o = torch.einsum("bhqs,bshd->bqhd", pr.to(v.dtype), v)
+    if active is None:
+        cache["len"] += 1
+    else:
+        for n, t in new.items():
+            keep = active.view((b,) + (1,) * (t.dim() - 1))
+            cache[n][rows, at] = torch.where(keep, t.to(cache[n].dtype),
+                                             old[n])
+        cache["len"] += active.to(cache["len"].dtype)
+    return o.reshape(b, 1, h * hd) @ p["wo"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device=None) -> dict:
+    """One MLA layer's empty latent cache: ``c`` (B, Smax, r), ``kr`` (B,
+    Smax, rd) and the per-slot ``len``."""
+    return {"c": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                             dtype=dtype, device=device),
+            "kr": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                              dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}

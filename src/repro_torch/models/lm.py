@@ -1,7 +1,10 @@
 """LM assembly (counterpart of ``repro/models/lm.py``).
 
 Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
-gated MLP), :meth:`LM.forward` and :meth:`LM.prefill`, the serving methods
+gated MLP), the ``moe`` kind (GQA attention + the MoE FFN) and the ``mla``
+kind (DeepSeek's latent attention + the MoE FFN), :meth:`LM.forward` (the
+MoE layers' auxiliary loss summed beside it) and :meth:`LM.prefill`, the
+serving methods
 (:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask,
 :meth:`LM.wave_step`, :meth:`LM.reset_slots`), and the LM's embedding
 programs and executors (:func:`embedding_program`,
@@ -16,9 +19,11 @@ Queue 1): the other block kinds, the loss and training, and the sharded
 embedding executor.
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
-``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``)
-and layout, so :func:`repro_torch.convert.lm_params_from_reference` can load
-the reference's weights.  They do not require gradients: the attention
+``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``;
+MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``; the MoE kinds'
+``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``) and layout, so
+:func:`repro_torch.convert.lm_params_from_reference` can load the
+reference's weights.  They do not require gradients: the attention
 kernel has no backward yet.  The weights stay inside the module, so the
 serving methods take no ``params`` argument; caches are a list with one
 dict per layer, in layer order (:mod:`.attention` gives the layout;
@@ -37,23 +42,49 @@ from ..core import embedding_engine as ee
 from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
 from . import moe as moe_mod
-from .attention import attn_decode, attn_forward, init_attn, init_kv_cache
+from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
+                        init_mla, init_mla_cache, mla_decode, mla_forward)
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "moe", "mla")
 #: the ROADMAP.md Queue 1 item that ports each other block kind
-KIND_ITEMS = {"moe": 2, "mla": 2, "dense_local": 3, "xdec": 5,
-              "enc_dense": 5, "mamba": 5, "shared_attn": 5, "mlstm": 5,
-              "slstm": 5}
+KIND_ITEMS = {"dense_local": 3, "xdec": 5, "enc_dense": 5, "mamba": 5,
+              "shared_attn": 5, "mlstm": 5, "slstm": 5}
+#: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
+MOE_KINDS = ("moe", "mla")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class ParamTree(nn.Module):
+    """Frozen parameters under the reference's nested names
+    (``moe.router``, ``moe.shared.wi_gate``), read as a mapping:
+    ``p["router"]``, ``"shared" in p``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, _frozen(v))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
 class DenseBlock(nn.Module):
     """``dense``: causal GQA attention (+RoPE/partial RoPE) + gated MLP,
-    pre-norm residual."""
+    pre-norm residual.  The MoE kinds below change the attention or the
+    FFN; ``forward`` returns ``(x, aux)``, aux None where the FFN has no
+    auxiliary loss."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -61,34 +92,83 @@ class DenseBlock(nn.Module):
         self.cfg = cfg
         self.norm1 = _frozen(init_rms(cfg.d_model, dtype, device))
         self.attn = nn.ParameterDict({
-            k: _frozen(v) for k, v in init_attn(gen, cfg, dtype,
-                                                device).items()})
+            k: _frozen(v) for k, v in self._init_attn(gen, cfg, dtype,
+                                                      device).items()})
         self.norm2 = _frozen(init_rms(cfg.d_model, dtype, device))
+        self._init_ffn(gen, cfg, dtype, device)
+
+    _init_attn = staticmethod(init_attn)
+
+    def _init_ffn(self, gen, cfg, dtype, device) -> None:
         self.mlp = nn.ParameterDict({
             k: _frozen(v) for k, v in init_mlp(gen, cfg.d_model, cfg.d_ff,
                                                dtype, device).items()})
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def _attend(self, h: torch.Tensor, positions: torch.Tensor):
+        return attn_forward(self.attn, h, self.cfg, positions=positions,
+                            causal=True)
+
+    def _attend_decode(self, h: torch.Tensor, cache: dict, active):
+        return attn_decode(self.attn, h, self.cfg, cache, active=active)
+
+    def _ffn(self, h: torch.Tensor) -> tuple:
+        return gated_mlp(h, self.mlp, self.cfg.act), None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> tuple:
         eps = self.cfg.norm_eps
-        h = rms_norm(x, self.norm1, eps)
-        x = x + attn_forward(self.attn, h, self.cfg, positions=positions,
-                             causal=True)
-        h = rms_norm(x, self.norm2, eps)
-        return x + gated_mlp(h, self.mlp, self.cfg.act)
+        x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
+        h, aux = self._ffn(rms_norm(x, self.norm2, eps))
+        return x + h, aux
 
     def decode(self, x: torch.Tensor, cache: dict,
                active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One decode micro-step (the reference's ``block_decode`` of the
-        dense kind): x (B,1,D), ``cache`` updated in place."""
+        """One decode micro-step (the reference's ``block_decode``): x
+        (B,1,D), ``cache`` updated in place."""
         eps = self.cfg.norm_eps
-        h = rms_norm(x, self.norm1, eps)
-        x = x + attn_decode(self.attn, h, self.cfg, cache, active=active)
-        h = rms_norm(x, self.norm2, eps)
-        return x + gated_mlp(h, self.mlp, self.cfg.act)
+        x = x + self._attend_decode(rms_norm(x, self.norm1, eps), cache,
+                                    active)
+        h, _ = self._ffn(rms_norm(x, self.norm2, eps))
+        return x + h
+
+
+class MoeBlock(DenseBlock):
+    """``moe``: causal GQA attention + the MoE FFN (routed experts, and the
+    shared ones where the config has them), pre-norm residual."""
+
+    def _init_ffn(self, gen, cfg, dtype, device) -> None:
+        self.moe = ParamTree(moe_mod.init_moe(gen, cfg, dtype, device))
+
+    def _ffn(self, h: torch.Tensor) -> tuple:
+        return moe_mod.moe_ffn(self.moe, h, self.cfg)
+
+
+class MlaBlock(MoeBlock):
+    """``mla``: DeepSeek's multi-head latent attention + the MoE FFN,
+    pre-norm residual; its cache is the latent one
+    (:func:`.attention.init_mla_cache`)."""
+
+    _init_attn = staticmethod(init_mla)
+
+    def _attend(self, h: torch.Tensor, positions: torch.Tensor):
+        return mla_forward(self.attn, h, self.cfg, positions=positions)
+
+    def _attend_decode(self, h: torch.Tensor, cache: dict, active):
+        return mla_decode(self.attn, h, self.cfg, cache, active=active)
+
+
+BLOCKS = {"dense": DenseBlock, "moe": MoeBlock, "mla": MlaBlock}
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple:
+    """Each layer's block kind, in layer order: the pattern once per
+    super-block, then the remainder (the reference's scan order)."""
+    return tuple(cfg.block_pattern) * cfg.n_super + \
+        tuple(cfg.remainder_pattern)
 
 
 class LM(nn.Module):
-    """The decoder stack of a config whose blocks are all ``dense``.
+    """The decoder stack of a config whose blocks are ``dense``, ``moe`` or
+    ``mla``.
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; ``"meta"``
     builds the module tree without memory) and initialised there from
@@ -119,20 +199,27 @@ class LM(nn.Module):
                                  device=dev) * 0.02).to(dtype)
         self.embed = _frozen(embed)
         self.final_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
-        self.blocks = nn.ModuleList(DenseBlock(cfg, gen, dtype, dev)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(BLOCKS[kind](cfg, gen, dtype, dev)
+                                    for kind in layer_kinds(cfg))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, *, with_aux: bool = False):
         """tokens (B,S) int -> hidden states (B,S,D) after the final norm
-        (the reference's ``forward(params, {"tokens": ...})[0]``; the
-        auxiliary loss of a dense stack is 0)."""
+        (the reference's ``forward(params, {"tokens": ...})[0]``).  With
+        ``with_aux``, ``(hidden, aux)``: the sum of the MoE layers'
+        load-balance losses, fp32 (0 for a dense stack), which the
+        reference's ``forward`` returns beside the hidden states for its
+        loss."""
         b, s = tokens.shape
         x = ee.lookup(self.embed, tokens, strategy="take")
         positions = torch.arange(s, dtype=torch.float32,
                                  device=tokens.device)[None].expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x = blk(x, positions)
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+            x, a = blk(x, positions)
+            if a is not None:
+                aux = aux + a
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return (x, aux) if with_aux else x
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -148,11 +235,13 @@ class LM(nn.Module):
     @torch.inference_mode()
     def init_caches(self, batch: int, max_len: int,
                     dtype: Optional[torch.dtype] = None) -> list:
-        """Empty KV caches for ``batch`` slots of ``max_len`` positions: one
-        dict per layer, in layer order (:func:`.attention.init_kv_cache`)."""
+        """Empty caches for ``batch`` slots of ``max_len`` positions: one
+        dict per layer, in layer order (:func:`.attention.init_kv_cache`;
+        :func:`.attention.init_mla_cache` for ``mla`` layers)."""
         dtype = dtype or self.cfg.torch_dtype
-        return [init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
-                for _ in self.blocks]
+        return [(init_mla_cache if kind == "mla" else init_kv_cache)(
+                    self.cfg, batch, max_len, dtype, self.device)
+                for kind in layer_kinds(self.cfg)]
 
     @torch.inference_mode()
     def decode_step(self, tokens_new: torch.Tensor, caches: list,
@@ -163,7 +252,10 @@ class LM(nn.Module):
         ``active`` (B,) bool masks the continuous-batching batch: inactive
         slots feed token 0 and keep their caches (``len`` included)
         unchanged -- what makes prompt-chunked prefill equal whole-prompt
-        prefill however a wave's slots are staggered."""
+        prefill however a wave's slots are staggered.  In an MoE layer the
+        inactive slots' token-0 rows still take expert capacity, as in the
+        reference, so there the tokens depend on how prompts are chunked
+        (ROADMAP.md, reference caveat (c))."""
         if active is not None:
             tokens_new = torch.where(active[:, None], tokens_new, 0)
         x = ee.lookup(self.embed, tokens_new, strategy="take")
@@ -220,9 +312,9 @@ class LM(nn.Module):
     def embedding_pipeline(self, batch: int, seq: int = 1,
                            opt_level: str = "O3", depth: int = 2, **kw):
         """The serving :class:`~repro_torch.core.executor.PipelineGroup`:
-        the decode-embed program on the model's device.  (The reference
-        adds the MoE un-dispatch program for MoE models; the port has no
-        MoE block yet.)
+        the decode-embed program on the model's device and, for MoE models,
+        the un-dispatch program (:func:`.moe.undispatch_program` of the
+        wave's ``batch * seq`` tokens), as in the reference.
 
         Defaults to ``backend="cuda"``, the hand-written block gather.  This
         differs from the reference on purpose: the reference defaults to
@@ -234,11 +326,14 @@ class LM(nn.Module):
         from ..core.executor import executor_for, pipeline_group
         kw.setdefault("backend", "cuda")
         kw.setdefault("device", self.device)
-        prog = self.decode_embed_program(batch, seq)
-        # named after this program: the memoized executor may be shared
+        progs = [self.decode_embed_program(batch, seq)]
+        if has_moe(self.cfg):
+            progs.append(moe_mod.undispatch_program(self.cfg, batch * seq))
+        # named after these programs: a memoized executor may be shared
         # with a structurally equal program of another name
-        return pipeline_group([executor_for(prog, opt_level, depth=depth,
-                                            **kw)], names=[prog.name])
+        return pipeline_group([executor_for(p, opt_level, depth=depth, **kw)
+                               for p in progs],
+                              names=[p.name for p in progs])
 
     def compile_embeddings(self, batch: int, seq: int,
                            opt_level: str = "O3"):
@@ -366,6 +461,13 @@ def zero_slots(caches: list, keep: torch.Tensor) -> None:
             leaf.masked_fill_(~keep.view((-1,) + (1,) * (leaf.dim() - 1)), 0)
 
 
+def has_moe(cfg: ModelConfig) -> bool:
+    """Whether the model has MoE layers (and so an MoE dispatch op and an
+    un-dispatch pipeline member)."""
+    pattern = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
+    return bool(cfg.num_experts) and any(k in MOE_KINDS for k in pattern)
+
+
 def embedding_program(cfg: ModelConfig, batch: int,
                       seq: int) -> EmbeddingProgram:
     """All irregular lookups of one (batch, seq) step as one
@@ -374,8 +476,7 @@ def embedding_program(cfg: ModelConfig, batch: int,
     models with MoE blocks."""
     tokens = batch * seq
     extra = []
-    pattern = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
-    if cfg.num_experts and any(k in ("moe", "mla") for k in pattern):
+    if has_moe(cfg):
         extra.append(("moe_dispatch", moe_mod.dispatch_op(cfg, tokens)))
     return ee.model_embedding_program(
         vocab_size=cfg.padded_vocab, d_model=cfg.d_model, tokens=tokens,

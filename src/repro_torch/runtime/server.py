@@ -22,7 +22,9 @@ The serving loop, as in the reference:
   :meth:`~repro_torch.models.lm.LM.embedding_pipeline` through
   :meth:`~repro_torch.core.executor.PipelineGroup.submit_wave`: the
   decode-embed program (token embed + label gather over the shared embed
-  table) runs through the hand-written block gather by default;
+  table) and, for an MoE model, the un-dispatch program (a gather over an
+  (E·C, D) capacity buffer, fed as the reference feeds it) run through the
+  hand-written block gather by default, both in one ``submit_wave``;
   ``compile_stats["pipeline_group"]`` holds the group's accounting.
 
 Per-request service metrics (submit/admit/first-token/done stamps and
@@ -125,7 +127,12 @@ class WaveGraph(StaticWave):
     masked one under an all-False mask and the reset with every slot kept
     change nothing.  So after capture one reset with no slot kept zeroes
     every leaf.  A capture that fails raises with its cause; there is no
-    eager fallback."""
+    eager fallback.
+
+    Kernel launch counts (``kernels.ops.launch_counts``) are kept by the
+    wrappers' Python: a capture counts the launches it records into a
+    graph and a replay counts nothing, so the launches that replays make
+    (an MoE model's un-dispatch gathers) show only in a device trace."""
 
     def __init__(self, lm, caches: list):
         super().__init__(lm, caches)
@@ -262,7 +269,20 @@ class DecodeServer:
             if faults is not None:
                 # group-level attach: cached member executors stay clean
                 self.pipeline_group.faults = faults
-            self._embed_name = self.pipeline_group.names[0]
+            names = self.pipeline_group.names
+            self._embed_name = names[0]
+            self._undispatch_name = None
+            if len(names) > 1:
+                # the MoE un-dispatch member: a zero (E·C, D) capacity
+                # buffer, as in the reference
+                self._undispatch_name = names[1]
+                op = self.pipeline_group.executor(names[1]) \
+                    .compiled.program.op("moe_undispatch")
+                self._cap_buf = torch.zeros(
+                    (op.num_embeddings, op.emb_len),
+                    dtype=lm.cfg.torch_dtype, device=lm.device)
+                self._undisp_segments = op.num_segments
+                self._undisp_rows = op.num_embeddings
         if self.emb_executor is not None:
             self.compile_stats = self._gather_compile_stats()
 
@@ -426,15 +446,23 @@ class DecodeServer:
     # ------------------------------------------------------------------
 
     def _feed_pipeline(self, tokens: np.ndarray):
-        """Mirror this wave's access streams into the pipeline group: the
-        decode-embed lookups of this wave (token embed and label gather
-        over ``lm.embed``) through ``submit_wave``."""
+        """Mirror this wave's access streams into the pipeline group in one
+        ``submit_wave``: the decode-embed lookups of this wave (token embed
+        and label gather over ``lm.embed``) and, for an MoE model, the
+        un-dispatch gather over the capacity buffer with the reference's
+        stream ``arange(segments) · (tok[0] + 1) mod rows``."""
         toks = np.ascontiguousarray(tokens[:, 0], np.int32)
         emb = self.lm.embed
-        handles = self.pipeline_group.submit_wave(
-            {self._embed_name: {"tok_embed": {"table": emb, "idxs": toks},
-                                "label_gather": {"table": emb,
-                                                 "idxs": toks}}})
+        wave = {self._embed_name: {"tok_embed": {"table": emb, "idxs": toks},
+                                   "label_gather": {"table": emb,
+                                                    "idxs": toks}}}
+        if self._undispatch_name is not None:
+            idxs = (np.arange(self._undisp_segments, dtype=np.int64) *
+                    (int(toks[0]) + 1)) % self._undisp_rows
+            wave[self._undispatch_name] = {
+                "moe_undispatch": {"table": self._cap_buf,
+                                   "idxs": idxs.astype(np.int32)}}
+        handles = self.pipeline_group.submit_wave(wave)
         if self.wave_deadline_s is not None:
             # the watchdog needs a bounded observation point: consume this
             # wave's handles now (only paid when a deadline is set)

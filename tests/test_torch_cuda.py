@@ -287,8 +287,8 @@ def test_fusedmm_and_flash_launch_errors_raise(cuda):
         _build.check(err, "ember_fusedmm")
     q = torch.randn(1, 8, 2, 96, device=cuda)
     err = lib.ember_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                                    q.data_ptr(), 1, 8, 8, 2, 2, 96, 0, 1,
-                                    96 ** -0.5, stream)
+                                    q.data_ptr(), 1, 8, 8, 2, 2, 96, 96, 0,
+                                    1, 96 ** -0.5, stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="failed to launch"):
         _build.check(err, "ember_flash_attention")
@@ -497,11 +497,78 @@ def test_flash_kernel_at_head_dim_80_leaves_its_neighbours_alone(cuda):
     o = buf[:out.numel()].view_as(out)
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
-        4, 4, 80, 1, 1, 80 ** -0.5, torch.cuda.current_stream().cuda_stream)
+        4, 4, 80, 80, 1, 1, 80 ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(o, out)
     assert bool((buf[out.numel():] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (16, 16), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(128, 128), (256, 256), (200, 200),
+                                  (200, 328)])
+def test_flash_kernel_at_mla_widths_matches_plain(cuda, dtype, h, hkv,
+                                                  causal, s, sk):
+    """DeepSeek's MLA prefill: q/k width 192 (128 no-rotary + 64 rotary
+    columns) over v width 128, scale 192^-1/2, against the plain version:
+    bf16 by check_bf16, f32 at 1e-5 (the same recurrence over the same
+    64-key tiles, sums in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(s + sk + h + 192)
+    q = torch.randn((2, s, h, 192), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, sk, hkv, 192), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, sk, hkv, 128), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (2, s, h, 128) and got.dtype == dtype
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, "flash attention at (192, 128)")
+
+
+def test_flash_kernel_at_mla_widths_leaves_its_neighbours_alone(cuda):
+    """The (192, 128) output is 128 wide: an output inside a larger buffer
+    keeps the bytes past it (the O map stores v's width, not q's)."""
+    g = torch.Generator(device=cuda).manual_seed(192)
+    q, k = (torch.randn((1, 256, 4, 192), generator=g,
+                        device=cuda).bfloat16() for _ in range(2))
+    v = torch.randn((1, 256, 4, 128), generator=g, device=cuda).bfloat16()
+    out = kops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 256, 4, 128)
+    check_bf16(out, ref.attention(q, k, v, causal=True,
+                                  chunk=kv_tile(torch.bfloat16)),
+               "(192, 128)")
+    from repro_torch.kernels import _build
+    buf = torch.full((2 * q.numel(),), 7.0, device=cuda).bfloat16()
+    o = buf[:out.numel()].view_as(out)
+    err = _build.library().ember_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
+        4, 4, 192, 128, 1, 1, 192 ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(o, out)
+    assert bool((buf[out.numel():] == 7.0).all())
+
+
+def test_bf16_flash_kernel_at_mla_widths_at_prefill_length(cuda):
+    """A DeepSeek-V2-Lite layer's shape cut to one sequence of 4096 tokens
+    and 4 heads: many ring wrap-arounds of the three-box K stages."""
+    g = torch.Generator(device=cuda).manual_seed(4096)
+    q, k = (torch.randn((1, 4096, 4, 192), generator=g,
+                        device=cuda).bfloat16() for _ in range(2))
+    v = torch.randn((1, 4096, 4, 128), generator=g, device=cuda).bfloat16()
+    got = kops.attention(q, k, v, causal=True)
+    check_bf16(got, ref.attention(q, k, v, causal=True,
+                                  chunk=kv_tile(torch.bfloat16)),
+               "flash (192, 128) S=4096")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -543,7 +610,8 @@ def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
     assert kops.launch_counts()["flash_attention"] == before
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), k.data_ptr(), k.data_ptr(), 1, 64, 64,
-        2, 2, 64, 1, 1, 64 ** -0.5, torch.cuda.current_stream().cuda_stream)
+        2, 2, 64, 64, 1, 1, 64 ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
     assert err != 0
 
 
@@ -552,9 +620,10 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     k = torch.randn((1, 16, 2, 64), device=cuda)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         kops.attention(q, k, k, window=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    # (64, 32): a value width with no kernel at that q/k width
+    with pytest.raises(ValueError, match="q/k 64, v 32"):
         kops.attention(q, k, torch.randn((1, 16, 2, 32), device=cuda))
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dims"):
         kops.attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                        k[..., :32].contiguous())
 
@@ -806,7 +875,10 @@ def _lockstep(model, prompts, new_tokens, **kw):
 
 @pytest.mark.parametrize("arch,over", [
     ("chatglm3-6b", {}), ("chatglm3-6b", {"kv_cache_dtype": "int8"}),
-    ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"})])
+    ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"}),
+    ("deepseek-v2-lite-16b", {}),
+    ("deepseek-v2-lite-16b", {"dtype": "bfloat16"}),
+    ("qwen3-moe-235b-a22b", {})])
 def test_graph_served_drive_equals_the_eager_drive_bit_for_bit(cuda, arch,
                                                                over):
     """The captured wave (two mask forms) and slot reset against the eager
@@ -840,3 +912,155 @@ def test_wave_graph_is_built_once_on_the_servers_caches(cuda):
     with pytest.raises(ValueError, match="caches it was built on"):
         srv._wave(np.array([[1], [2]]), np.array([1, 1]),
                   model.init_caches(2, 16))
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA on the card
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(arch="deepseek-v2-lite-16b", **over):
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced(arch), **over)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("t", [8, 40])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch, t):
+    """fp32 (TF32 off): the same routing (top-k ids, slots) on both
+    devices, out and aux at 1e-4 (cuBLAS and the CPU sum the expert
+    products in another order); the un-dispatch ran through the block
+    gather kernel once."""
+    from repro_torch.models import moe as tmoe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(arch)
+    p = tmoe.init_moe(torch.Generator().manual_seed(t), cfg, torch.float32)
+    x = torch.randn((t, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(t + 1))
+    want, waux = tmoe.moe_ffn_local(p, x, cfg)
+    before = kops.launch_counts()["block_gather"]
+    got, aux = tmoe.moe_ffn_local(_to(p, cuda), x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["block_gather"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_undispatch_gather_equals_indexing(cuda, dtype):
+    """The MoE un-dispatch ``out_buf[slot]`` through the block gather kernel
+    at DeepSeek-V2-Lite's width (2048) is ``out_buf[slot]`` bit for bit,
+    slots repeating (clamped dropped assignments) included."""
+    from repro_torch.models import moe as tmoe
+    g = torch.Generator(device=cuda).manual_seed(6)
+    out_buf = torch.randn((64 * 5, 2048), generator=g, device=cuda).to(dtype)
+    ids = torch.randint(0, 64, (96,), generator=g, device=cuda)
+    ids[:30] = 7                                   # expert 7 overflows
+    slot, keep = tmoe._slot_assignments(ids, 64, 5)
+    assert not bool(keep.all())
+    got = kops.block_gather(out_buf, slot.to(torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], out_buf[slot])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_mla_block_on_the_card_matches_the_cpu(cuda, masked):
+    """An MlaBlock (MLA + MoE FFN, fp32) on the card against the same
+    block on the CPU: a forward over 12 tokens (the reduced widths, q/k 24
+    and v 16, have no flash kernel, so the card runs the plain attention
+    too) and three decode steps; outputs and the latent cache at 1e-4
+    (fp32 GEMMs summed in another order), ``len`` exactly."""
+    from repro_torch.models.attention import init_mla_cache
+    from repro_torch.models.lm import MlaBlock
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg()
+    host = MlaBlock(cfg, torch.Generator().manual_seed(1), torch.float32,
+                    torch.device("cpu"))
+    card = MlaBlock(cfg, None, torch.float32, cuda)
+    card.load_state_dict(host.state_dict())
+    x = torch.randn((2, 12, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    pos = torch.arange(12, dtype=torch.float32)[None].expand(2, 12)
+    want, waux = host(x, pos)
+    with _attention_through(_plain_over_kernel_tiles):
+        got, aux = card(x.to(cuda), pos.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=1e-6)
+    hc = init_mla_cache(cfg, 3, 8, torch.float32)
+    cc = init_mla_cache(cfg, 3, 8, torch.float32, cuda)
+    for t in range(3):
+        xt = torch.randn((3, 1, cfg.d_model), generator=torch.Generator()
+                         .manual_seed(10 + t))
+        act = torch.tensor([True, t != 1, t == 0]) if masked else None
+        want = host.decode(xt, hc, act)
+        got = card.decode(xt.to(cuda), cc,
+                          None if act is None else act.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for key in ("c", "kr"):
+            torch.testing.assert_close(cc[key].cpu(), hc[key], rtol=1e-4,
+                                       atol=1e-4)
+        assert torch.equal(cc["len"].cpu(), hc["len"])
+
+
+def test_mla_lm_prefill_with_the_kernel_matches_plain(cuda):
+    """A two-layer bf16 MLA model at DeepSeek-V2-Lite's head widths (4
+    heads of q/k 192, v 128; d_model 512, 8 experts): every layer's flash
+    output agrees with the plain version on that layer's own q, k, v
+    (check_bf16), and the last hidden state with a prefill through plain
+    attention (5e-2 relative L2: bf16 steps amplified by two layers)."""
+    from repro_torch.models.lm import LM
+    cfg = _moe_cfg(d_model=512, num_heads=4, num_kv_heads=4, head_dim=128,
+                   rope_head_dim=64, kv_lora_rank=64, moe_d_ff=256,
+                   attn_chunk=128, dtype="bfloat16")
+    model = LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda)
+    checked = []
+
+    def held(q, k, v, **kw):
+        assert q.shape[-1] == 192 and v.shape[-1] == 128
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        checked.append(check_bf16(out, _plain_over_kernel_tiles(q, k, v,
+                                                                 **kw),
+                                  f"layer {len(checked)}"))
+        return out
+    kops.reset_launch_counts()
+    with _attention_through(held):
+        last = model.prefill(tokens)
+    assert len(checked) == 2 and kops.launch_counts()["flash_attention"] == 2
+    assert kops.launch_counts()["block_gather"] == 2
+    with _attention_through(_plain_over_kernel_tiles):
+        plain = model.prefill(tokens)
+    rel = float((last.float() - plain.float()).norm() / plain.float().norm())
+    assert rel <= 5e-2, rel
+
+
+def test_moe_wave_graph_replays_one_undispatch_gather_a_layer(cuda):
+    """A captured MoE micro-step holds one un-dispatch gather a layer.  The
+    wrapper counts the warm-up's eager launches and the launches the two
+    micro-step captures record; a replay counts nothing, and the device
+    trace of a wave shows one bulk gather (and one grouping pass) a layer
+    in every replayed micro-step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer
+    model = LM(_moe_cfg(), seed=0)
+    n = model.cfg.num_layers
+    kops.reset_launch_counts()
+    srv = DecodeServer(model, batch_slots=2, max_len=16)
+    assert kops.launch_counts()["block_gather"] == 4 * n
+    kops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        srv._wave(np.array([[1, 2], [3, 0]]), np.array([2, 1]), srv.caches)
+        torch.cuda.synchronize()
+    assert kops.launch_counts()["block_gather"] == 0
+    names = [e.name() for e in tp.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("gather_bulk_kernel" in k for k in names) == 2 * n
+    assert sum("group_insert_kernel" in k for k in names) == 2 * n

@@ -64,6 +64,16 @@ def test_port_runs_with_jax_and_repro_unimportable():
         assert req.status == "ok" and len(req.out) == 3
         waves = srv.compile_stats["pipeline_group"]["waves"]
         assert waves == srv.serve_stats["waves"] == 4
+        moe = LM(get_reduced("deepseek-v2-lite-16b"), device="cpu", seed=3)
+        hidden, aux = moe(torch.randint(0, 256, (2, 12)), with_aux=True)
+        assert hidden.shape == (2, 12, 64) and float(aux) > 0
+        srv = DecodeServer(moe, batch_slots=2, max_len=32, prefill_chunk=4,
+                           pipeline=True)
+        req = Request(prompt=np.arange(5, dtype=np.int32), max_new_tokens=3)
+        srv.submit(req)
+        srv.run_until_drained()
+        assert req.status == "ok" and len(req.out) == 3
+        assert len(srv.pipeline_group.names) == 2
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")

@@ -279,11 +279,11 @@ def test_kernel_variant_of_a_kernel_without_variants_raises():
 @pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
 def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
     """stablelm-3b's head dim, which the card's kernel takes padded to 128
-    (``HEAD_DIMS``): on CPU tensors the wrapper's plain version against the
-    reference's Pallas flash kernel in interpret mode (one head per batch
-    row there, KV heads repeated), f32, 2e-5."""
+    (``HEAD_DIMS`` holds (80, 80)): on CPU tensors the wrapper's plain
+    version against the reference's Pallas flash kernel in interpret mode
+    (one head per batch row there, KV heads repeated), f32, 2e-5."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    assert HEAD_DIMS == (64, 80, 128)
+    assert HEAD_DIMS == ((64, 64), (80, 80), (128, 128), (192, 128))
     rng = np.random.default_rng(h + causal)
     b, s, d = 2, 128, 80
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)

@@ -317,8 +317,10 @@ def test_full_chatglm3_builds_on_meta_with_the_reference_count():
 
 
 def test_lm_rejects_block_kinds_not_ported():
-    with pytest.raises(NotImplementedError, match="mla"):
-        LM(get_reduced("deepseek-v2-lite-16b"), device="meta")
+    cfg = dataclasses.replace(get_reduced("stablelm-3b"),
+                              block_pattern=("dense_local",))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        LM(cfg, device="meta")
 
 
 def test_kv_tile_is_each_kernels_tile():
@@ -400,3 +402,118 @@ def test_bf16_agreement_rejects_a_dropped_key_tile():
                                   chunk=t)[:, cut - t:]
     with pytest.raises(AssertionError, match="differ"):
         check_bf16(bad, want, "key tile dropped")
+
+
+# ---------------------------------------------------------------------------
+# The MoE kinds: deepseek-v2-lite-16b (mla) and qwen3-moe-235b-a22b (moe)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+
+
+def _moe_lm_pair(arch, seed):
+    from repro.configs import get_reduced as jget_reduced
+    jcfg = jget_reduced(arch)
+    jlm = JLM(jcfg)
+    params = jlm.init(jax.random.PRNGKey(seed))
+    model = LM(get_reduced(arch), device="cpu")
+    state = lm_params_from_reference(jax.tree.map(np.asarray, params), jcfg,
+                                     "cpu")
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state)
+    return jlm, params, model
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduced_moe_lm_matches_the_reference(arch, seed):
+    """Two MoE layers (MLA + shared experts, or GQA + routed experts), fp32,
+    from the reference's own weights: hidden states, the last position
+    (prefill) and the summed aux loss at 2e-5 (fp32 sums in another order;
+    observed ~1e-5 on the hidden states)."""
+    jlm, params, model = _moe_lm_pair(arch, seed)
+    tokens = np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, waux = jlm.forward(params, {"tokens": jnp.asarray(tokens)})
+    got, aux = model(_t(tokens).long(), with_aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(float(aux), float(waux), **F32)
+    assert torch.equal(model(_t(tokens).long()), got)
+    last = model.prefill(_t(tokens).long())
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1:], **F32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_step_with_active_mask_matches_the_reference(arch):
+    """Masked decode micro-steps (inactive slots feed token 0, which still
+    takes expert capacity): logits and every cache leaf (MLA's latent
+    ``c`` / ``kr``, or GQA's K/V, through ``caches_to_reference``) at
+    2e-5, ``len`` exactly."""
+    from repro_torch.convert import caches_to_reference
+    jlm, params, model = _moe_lm_pair(arch, 2)
+    rng = np.random.default_rng(2)
+    b = 3
+    jc, tc = jlm.init_caches(b, 12), model.init_caches(b, 12)
+    step = jax.jit(jlm.decode_step)
+    for t in range(5):
+        toks = rng.integers(0, model.cfg.vocab_size, (b, 1)).astype(np.int32)
+        active = np.array([True, t % 2 == 0, t < 3])
+        wl, jc = step(params, jnp.asarray(toks), jc, None,
+                      jnp.asarray(active))
+        gl, tc = model.decode_step(_t(toks).long(), tc,
+                                   active=torch.from_numpy(active))
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **F32)
+        ref = caches_to_reference(tc, model.cfg)
+        for w, g in zip(jax.tree.leaves(jc), jax.tree.leaves(ref)):
+            if np.asarray(w).dtype.kind in "iu":
+                np.testing.assert_array_equal(g, np.asarray(w))
+            else:
+                np.testing.assert_allclose(g, np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_wave_step_of_a_ragged_batch_matches_the_reference(arch):
+    """Ragged prefill and decode waves (a slot idle, slots of different
+    lengths), each followed by a slot reset: logits and every cache leaf
+    at 2e-5."""
+    from repro_torch.convert import caches_to_reference
+    jlm, params, model = _moe_lm_pair(arch, 3)
+    rng = np.random.default_rng(3)
+    b = 4
+    jc, tc = jlm.init_caches(b, 16), model.init_caches(b, 16)
+    wave, reset = jax.jit(jlm.wave_step), jax.jit(jlm.reset_slots)
+    for lens, keep in (([5, 2, 0, 3], [True, True, True, False]),
+                       ([1, 1, 1, 1], [False, True, True, True]),
+                       ([3, 0, 1, 2], [True, True, True, True])):
+        lens = np.array(lens, np.int32)
+        toks = rng.integers(0, model.cfg.vocab_size,
+                            (b, lens.max())).astype(np.int32)
+        wl, jc = wave(params, jnp.asarray(toks), jnp.asarray(lens), jc)
+        gl, tc = model.wave_step(toks, lens, tc)
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **F32)
+        jc = reset(jc, jnp.asarray(keep))
+        tc = model.reset_slots(tc, np.array(keep))
+        ref = caches_to_reference(tc, model.cfg)
+        for w, g in zip(jax.tree.leaves(jc), jax.tree.leaves(ref)):
+            np.testing.assert_allclose(g, np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_full_moe_model_builds_on_meta_with_the_reference_count(arch):
+    """The full config's parameter count equals the reference's (16B for
+    DeepSeek-V2-Lite, 235B for qwen3-moe), built without memory."""
+    from repro.configs import get_config as jget_config
+    shapes = jax.eval_shape(JLM(jget_config(arch)).init,
+                            jax.random.PRNGKey(0))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    model = LM(get_config(arch), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == want
+    cfg = model.cfg
+    moe = model.blocks[0].moe
+    assert moe["router"].dtype == torch.float32
+    assert moe["wi_gate"].shape == (cfg.num_experts, cfg.d_model,
+                                    cfg.moe_d_ff)
+    assert ("shared" in moe) == bool(cfg.num_shared_experts)
+    if arch == "deepseek-v2-lite-16b":
+        assert 15.5e9 < want < 16.5e9
+        assert model.blocks[0].attn["wq"].shape == (2048, 16 * 192)

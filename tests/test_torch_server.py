@@ -238,10 +238,10 @@ def test_wave_step_and_reset_slots_match_the_reference(arch, kv_dtype):
         _assert_caches(tc, jc, lm.cfg)
 
 
-@pytest.mark.parametrize("arch,kv_dtype", [("chatglm3-6b", "model"),
-                                           ("chatglm3-6b", "int8"),
-                                           ("stablelm-3b", "model"),
-                                           ("stablelm-3b", "int8")])
+@pytest.mark.parametrize("arch,kv_dtype", [
+    ("chatglm3-6b", "model"), ("chatglm3-6b", "int8"),
+    ("stablelm-3b", "model"), ("stablelm-3b", "int8"),
+    ("deepseek-v2-lite-16b", "model"), ("qwen3-moe-235b-a22b", "model")])
 def test_static_wave_matches_the_reference(arch, kv_dtype):
     """The body the server captures in CUDA graphs (``StaticWave``: the
     micro-step over static token / mask / logits buffers, and the slot
@@ -271,7 +271,9 @@ def test_static_wave_matches_the_reference(arch, kv_dtype):
         _assert_caches(tc, jc, lm.cfg)
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b",
+                                  "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
 def test_static_wave_equals_the_eager_wave_bit_for_bit(arch):
     """Port against port: one StaticWave whose buffers live across waves
     (as the server's graphs do) against ``LM.wave_step``, which builds
@@ -344,8 +346,9 @@ def test_server_off_the_card_runs_the_lm_wave_eagerly():
     assert srv._wave == echo.wave_step and srv._reset == echo.reset_slots
 
 
-def test_caches_round_trip_through_the_reference_layout():
-    jlm, params, lm = _pair("chatglm3-6b")
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-v2-lite-16b"])
+def test_caches_round_trip_through_the_reference_layout(arch):
+    jlm, params, lm = _pair(arch)
     tc = lm.init_caches(2, 6)
     lm.wave_step(np.array([[5, 6, 7], [8, 9, 0]]), np.array([3, 2]), tc)
     tree = caches_to_reference(tc, lm.cfg)
@@ -362,11 +365,16 @@ def test_caches_round_trip_through_the_reference_layout():
 # Bit-identity claims, port against port
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "chatglm3-6b",
+                                  "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
 def test_chunked_prefill_bit_identical(arch):
     """Splitting a ragged prompt batch into waves of any chunk size replays
     the same masked micro-step sequence: logits at each slot's last prompt
-    token and every cache leaf equal the whole-prompt wave's bit for bit."""
+    token and every cache leaf equal the whole-prompt wave's bit for bit.
+    Every slot shares one chunk grid, as in the reference's own test, so
+    the MoE archs' capacity contention (inactive slots' token-0 rows take
+    capacity) is the same in every split."""
     lm = LM(get_reduced(arch), device="cpu", seed=0)
     b, length = 2, 9
     toks = np.random.default_rng(1).integers(
@@ -869,6 +877,116 @@ def test_faults_module_is_the_references_copy():
     assert issubclass(tfaults.WaveTimeout, tfaults.EmberFault)
 
 
+MOE_ARCHS = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("chunk", [4, 1])
+def test_moe_server_tokens_equal_the_references(arch, chunk):
+    """A reduced MoE model served on the CPU (4 slots, 6 requests recycled
+    through them, the same prefill chunk) emits exactly the JAX package's
+    DecodeServer tokens for the same requests and weights.  The comparison
+    is at equal chunking: in an MoE model the tokens depend on it, in the
+    reference too (ROADMAP.md, reference caveat (c))."""
+    from repro.runtime.server import DecodeServer as JDecodeServer, \
+        Request as JRequest
+    jlm, params, lm = _pair(arch, seed=4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, lm.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (7, 3, 5, 9, 2, 6)]
+    kw = dict(batch_slots=4, max_len=32, prefill_chunk=chunk)
+    jsrv = JDecodeServer(jlm, params, **kw)
+    jreqs = [JRequest(prompt=p.copy(), max_new_tokens=5) for p in prompts]
+    srv = DecodeServer(lm, pipeline=True, **kw)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=5) for p in prompts]
+    for s_, rs in ((jsrv, jreqs), (srv, reqs)):
+        for r in rs:
+            s_.submit(r)
+        s_.run_until_drained()
+    assert all(r.status == "ok" and len(r.out) == 5 for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert srv.serve_stats["waves"] == jsrv.serve_stats["waves"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_server_tokens_depend_on_the_chunking_as_the_references(arch):
+    """Reference caveat (c): in an MoE model the inactive slots' token-0
+    rows take expert capacity, so the served tokens depend on the prefill
+    chunk -- in the JAX package's server too.  At chunk 1 and at chunk 8
+    (4 slots, 6 requests of 4-19 tokens, 8 new tokens) the port emits the
+    reference's tokens, and the requests whose tokens agree across the two
+    chunkings are the same ones (2 of 6 with these seeds)."""
+    from repro.runtime.server import DecodeServer as JDecodeServer, \
+        Request as JRequest
+    jlm, params, lm = _pair(arch, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, lm.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(4, 20, 6)]
+    outs = {}
+    for chunk in (1, 8):
+        kw = dict(batch_slots=4, max_len=64, prefill_chunk=chunk)
+        jsrv, srv = JDecodeServer(jlm, params, **kw), DecodeServer(lm, **kw)
+        for name, s_, make in (("ref", jsrv, JRequest), ("port", srv,
+                                                         Request)):
+            reqs = [make(prompt=p.copy(), max_new_tokens=8)
+                    for p in prompts]
+            for r in reqs:
+                s_.submit(r)
+            s_.run_until_drained()
+            outs[name, chunk] = [r.out for r in reqs]
+        assert outs["port", chunk] == outs["ref", chunk], chunk
+    agree = [a == b for a, b in zip(outs["ref", 1], outs["ref", 8])]
+    assert agree == [a == b for a, b in zip(outs["port", 1],
+                                            outs["port", 8])]
+    assert sum(agree) == 2
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_server_feeds_both_pipeline_members(arch):
+    """An MoE model's pipeline group has two members, the decode-embed and
+    the MoE un-dispatch program, and every wave feeds both in one
+    ``submit_wave``: the un-dispatch member gathers the zero capacity
+    buffer at the reference's stream ``arange(segments) · (tok[0] + 1) mod
+    rows``."""
+    from repro_torch.models import moe as tmoe
+    lm = LM(get_reduced(arch), device="cpu", seed=2)
+    srv = DecodeServer(lm, batch_slots=2, max_len=32, prefill_chunk=4,
+                       pipeline=True)
+    grp = srv.pipeline_group
+    cfg = lm.cfg
+    assert grp.names == [f"{cfg.name}-decode-embed",
+                         f"{cfg.name}-moe-undispatch"]
+    assert all(ex.backend == "cuda" for ex in grp.executors)
+    op = grp.executor(grp.names[1]).compiled.program.op("moe_undispatch")
+    assert op.num_segments == 2 * cfg.experts_per_tok
+    assert op.num_embeddings == cfg.num_experts * tmoe.capacity_of(cfg, 2)
+    seen = []
+    submit_wave = grp.submit_wave
+
+    def spy(wave):
+        hs = submit_wave(wave)
+        seen.append((wave, hs))
+        return hs
+    grp.submit_wave = spy
+    for n in (3, 5):
+        srv.submit(_req(np.arange(n) + 7, max_new_tokens=2))
+    srv.run_until_drained()
+    waves = srv.serve_stats["waves"]
+    assert len(seen) == waves
+    stats = srv.compile_stats["pipeline_group"]
+    assert stats["submitted"] == {n: waves for n in grp.names}
+    for wave, hs in seen:
+        assert set(wave) == set(grp.names)
+        ins = wave[grp.names[1]]["moe_undispatch"]
+        tok0 = int(wave[grp.names[0]]["tok_embed"]["idxs"][0])
+        want = (np.arange(op.num_segments) * (tok0 + 1)) % op.num_embeddings
+        np.testing.assert_array_equal(ins["idxs"], want)
+        assert ins["table"] is srv._cap_buf
+        got = hs[grp.names[1]].result()["moe_undispatch"]
+        assert got.shape == (op.num_segments, 1, cfg.d_model)
+        assert not bool(got.any())
+
+
 def test_launcher_serves_on_the_cpu(capsys):
     from repro_torch.launch import serve
     reqs = serve.main(["--arch", "stablelm-3b", "--reduced", "--device",
@@ -881,3 +999,14 @@ def test_launcher_serves_on_the_cpu(capsys):
         serve.main(["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
                     "--artifact-dir", "x"])
     assert "argv" in inspect.signature(serve.main).parameters
+
+
+def test_launcher_serves_a_moe_model_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    reqs = serve.main(["--arch", "deepseek-v2-lite-16b", "--reduced",
+                       "--device", "cpu", "--requests", "3", "--max-len",
+                       "32", "--pipeline"])
+    assert all(r.status == "ok" and len(r.out) == 16 for r in reqs)
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out
+    assert "deepseek-reduced-moe-undispatch" in out
