@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed N] [--steps N] [--sweep-only]
+    python3 chip_smoke.py --llava-only [--seed N]   # phase 12 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -9,25 +10,29 @@ Phases, one line each (a failed check raises and the run exits non-zero):
 2. the build of the hand-written kernels (one ``nvcc`` per source, in
    parallel; ptxas summary, and the registers and spills of the bf16 flash
    kernels, the bulk gather and the FusedMM ring, none of which may
-   spill, nor may the four (q/k 192, v 128) flash instantiations), then
-   ``cuobjdump -sass`` of the library: the bf16 flash kernels, the
-   (192, 128) ones among them, must hold wgmma (``HGMMA``) and TMA load
-   (``UTMALDG``) instructions, the
+   spill, nor may the four (q/k 192, v 128) and the four (256, 256) flash
+   instantiations), then ``cuobjdump -sass`` of the library: the 8 bf16
+   flash kernels, the (192, 128) and (256, 256) ones among them, must hold
+   wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, the
    bulk gather and every FusedMM ring kernel bulk copies (``UBLKCP``), and
-   each flash kernel's KV tile must be ``kv_tile``'s;
+   each flash kernel's KV tile, by dtype and q/k width, must be
+   ``kv_tile``'s;
 3. each kernel against its plain PyTorch version on the card over a sweep
    (SLS: add/max/min, weights with (x)=mul/add, bf16, empty segments,
    seg_base; gather: block_rows=4, E=5/96/2048, uniform, all-equal and
    Zipf ids, both variants; FusedMM: identity/relu, f32/bf16,
    E=5/8/64/100/128/520/1024, empty segments and segments longer than the
    ring, zero segments, both variants; flash attention: causal or not, GQA
-   groups 1/4/16, (q/k, v) widths (64, 64), (80, 80), (128, 128) and
-   (192, 128), S=256, a ragged 200 and 200 queries over 328 keys,
-   f32/bf16; tables not 16-byte aligned; bf16 held by
+   groups 1/4/16, (q/k, v) widths (64, 64), (80, 80), (128, 128),
+   (192, 128) and (256, 256), S=256, a ragged 200 and 200 queries over 328
+   keys, f32/bf16, then sliding windows of 1, 100, 128, 129, 1024 and
+   Sq - 1 keys at widths 80, 128 and 256 over 1300 keys and 200 queries
+   over 328, where a window of Sk or more must give the bits of none;
+   tables not 16-byte aligned; bf16 held by
    ``kernels.agreement.check_bf16``), the bf16 flash kernel over 300
-   causal cases of few-key rows (the four width pairs), and a small mixed
-   program through the executor against the repo's numpy oracle
-   (``program_reference``);
+   causal cases of few-key rows (the five width pairs, with no window and
+   windows of 1, 100, 128 and 129), and a small mixed program through the
+   executor against the repo's numpy oracle (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
    rows capped at 10M per table, uniform ids) through
    ``executor_for(...).step`` for ``--steps`` steps, every op held against
@@ -108,18 +113,44 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    replayed micro-step counted in the device trace (the
    ``prefill_chunk=1`` check of phase 8 does not hold for an MoE model,
    in the reference either);
-10. one JSON line listing the four kernels with the kernel (variant) that
+10. gemma3-4b (34 layers: 29 ``dense_local`` with a 1024-token window and
+   5 ``dense``, head dim 256, vocab 262,144; full width, bf16, random
+   weights): ``LM.prefill`` over 4 x 4096 tokens, 29 windowed and 5 causal
+   (256, 256) flash launches, every layer's flash output held against the
+   plain version on its own q, k, v, the last hidden state against plain
+   attention (``PREFILL_REL_L2``); a planted fault (the local layer's
+   kernel run with no window) must fail that layer's check, and a window
+   off by one is read; the local and the global layer's flash time beside
+   its bound, the plain version and ``scaled_dot_product_attention`` (the
+   local one with an explicit band mask: the default backend and each
+   that takes it); then served: ``DecodeServer(batch_slots=8,
+   max_len=1536, prefill_chunk=16, pipeline=True)``, 8 requests of
+   1024-1280 prompt tokens and 16 new tokens in a closed batch, through
+   the captured wave, the decode-embed gather once a wave, and graph ==
+   eager bit for bit (logits and every cache leaf) on the waves where the
+   slots' caches pass the window and the first wave that decodes past it;
+11. h2o-danube-1.8b (24 ``dense_local`` layers, window 4096, head dim 80;
+   full width, bf16): ``LM.prefill`` over one 16384-token sequence,
+   checked as phase 10's, and a layer's flash time at the true width;
+12. llava-next-34b (60 layers, d_model 7168, 33.98 B parameters, 63.3 GiB
+   in bf16) in a fresh process of this script with the card freed:
+   ``LM.prefill`` over one 4096-token sequence with 576
+   ``frontend_embeds`` rows spliced in, checked as phase 10's, the splice
+   required to move the last hidden state, peak memory;
+13. one JSON line listing the four kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
-   flash's the stablelm-3b and DeepSeek prefills), error, times and
-   bounds;
-11. ``{"ok": true, "device": {...}}`` as the last line.
+   flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
+   llava-next-34b prefills, with flash's ``instances``: the launches by
+   dtype, widths, causal and window), error, times and bounds;
+14. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import json
@@ -181,6 +212,18 @@ SERVE_PROMPT_LEN = (32, 128)
 # stablelm-3b served the same way, a shorter drive: one generation of 8
 # slots, 16 new tokens each
 STABLELM_REQUESTS, STABLELM_NEW_TOKENS = 8, 16
+# gemma3-4b served across its 1024-token window: long-prompt chat at small
+# batch (a system prompt plus history past the window), 8 requests of
+# uniform 1024-1280 prompt tokens, 16 new tokens each, in a closed batch
+GEMMA_MAX_LEN = 1536
+GEMMA_PROMPT_LEN = (1024, 1280)
+GEMMA_REQUESTS, GEMMA_NEW_TOKENS = 8, 16
+# h2o-danube-1.8b prefilled over one sequence of 16384 tokens: four of its
+# 4096-token windows, where the band keeps a quarter of a late row's keys
+DANUBE_SEQ = 16384
+# llava-next-34b: one 4096-token prefill, the first 576 positions its
+# frontend_embeds (configs/llava_next_34b.py VISION_TOKENS)
+LLAVA_SEQ = 4096
 # the eager served path the captured wave is compared with: the same
 # chatglm3-6b drive served eagerly (PERF.md §6; NVIDIA H100 80GB HBM3,
 # 700.00 W)
@@ -209,13 +252,22 @@ TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
 # start attends to a few keys, where a p rounded to the other side of a
 # bf16 step (scores summed in another order) moves the output the most
 FLASH_STRESS_CASES = 300
-FLASH_STRESS_DIMS = ((128, 128), (64, 64), (80, 80), (192, 128))
+FLASH_STRESS_DIMS = ((128, 128), (64, 64), (80, 80), (192, 128), (256, 256))
+# the windows the stress cases cycle through (None: causal only); at 200
+# keys a window of 1024 masks nothing, so the sweep takes 1024 at 1300
+FLASH_STRESS_WINDOWS = (None, 1, 100, 128, 129)
 # the flash kernel's (q/k width, v width) pairs, and its bf16 wgmma
-# instantiations: 3 pairs ((80, 80) runs (128, 128)) x causal or not; the
-# (192, 128) ones by their mangled template arguments
-FLASH_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
-FLASH_WGMMA_KERNELS = 6
-MLA_INSTANCE = "ILi192ELi128E"
+# instantiations: 4 pairs ((80, 80) runs (128, 128)) x causal or not; the
+# (192, 128) and (256, 256) ones by their mangled template arguments
+FLASH_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
+FLASH_WGMMA_KERNELS = 8
+FLASH_WIDE_INSTANCES = {"(192, 128)": "ILi192ELi128E",
+                        "(256, 256)": "ILi256ELi256E"}
+# the sliding-window sweep: windows that are and are not a multiple of
+# either KV tile (64, 128), gemma3-4b's 1024, and one short of Sq (the band
+# cuts one key of the last row); at q/k widths 80, 128 and 256
+FLASH_WINDOWS = (1, 100, 128, 129, 1024)
+FLASH_WINDOW_DIMS = ((80, 80), (128, 128), (256, 256))
 # bf16 kernel outputs vs plain: kernels.agreement.check_bf16 (one bf16 step
 # per element, <= 1 % of elements differing, relative L2 <= 2^-9).
 # scaled_dot_product_attention rounds p against the running max of its own
@@ -310,6 +362,16 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def plain_attention(q, k, v, **kw):
+    """The flash kernel's plain version over the kernel's own KV tiles
+    (``kv_tile`` of its dtype and q/k width), so p rounds against the same
+    running max."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import kv_tile
+    return ref.attention(q, k, v,
+                         **{**kw, "chunk": kv_tile(q.dtype, q.shape[3])})
+
+
 def free_cuda() -> None:
     import torch
     from repro_torch.core.executor import clear_executor_cache
@@ -398,13 +460,14 @@ def phase_build():
         require(len(wgmma) == FLASH_WGMMA_KERNELS and
                 all(s == 0 for _, s in wgmma.values()),
                 "the bf16 flash kernels must build without spills")
-        mla = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
-               if MLA_INSTANCE in k}
-        print(f"[2 build flash mla] the (192, 128) instantiations (bf16 "
-              f"wgmma and f32 scalar, causal or not; registers, spill-store "
-              f"bytes): {sorted(mla.values())}")
-        require(len(mla) == 4 and all(s == 0 for _, s in mla.values()),
-                "the (192, 128) flash kernels must build without spills")
+        for dims, inst in FLASH_WIDE_INSTANCES.items():
+            got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
+                   if inst in k}
+            print(f"[2 build flash {dims}] the {dims} instantiations (bf16 "
+                  f"wgmma and f32 scalar, causal or not; registers, "
+                  f"spill-store bytes): {sorted(got.values())}")
+            require(len(got) == 4 and all(s == 0 for _, s in got.values()),
+                    f"the {dims} flash kernels must build without spills")
         for kernel, n_want in BULK_KERNELS.items():
             got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
                    if kernel in k}
@@ -424,14 +487,15 @@ def phase_build():
             ops["UTMALDG"] > 0,
             "the bf16 flash kernel must hold wgmma (HGMMA) and TMA loads "
             "(UTMALDG)")
-    n_fn, ops = _sass_counts(rec.path, "flash_wgmma_kernel" + MLA_INSTANCE,
-                             ("HGMMA", "UTMALDG", "UTMASTG"))
-    print(f"[2 sass] bf16 flash kernels at (192, 128) ({n_fn} "
-          f"instantiations): {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG, "
-          f"{ops['UTMASTG']} UTMASTG")
-    require(n_fn == 2 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-            "the (192, 128) bf16 flash kernel must hold wgmma (HGMMA) and "
-            "TMA loads (UTMALDG)")
+    for dims, inst in FLASH_WIDE_INSTANCES.items():
+        n_fn, ops = _sass_counts(rec.path, "flash_wgmma_kernel" + inst,
+                                 ("HGMMA", "UTMALDG", "UTMASTG"))
+        print(f"[2 sass] bf16 flash kernels at {dims} ({n_fn} "
+              f"instantiations): {ops['HGMMA']} HGMMA, {ops['UTMALDG']} "
+              f"UTMALDG, {ops['UTMASTG']} UTMASTG")
+        require(n_fn == 2 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+                f"the {dims} bf16 flash kernel must hold wgmma (HGMMA) and "
+                f"TMA loads (UTMALDG)")
     # proof that the row-streaming kernels move rows by bulk copies
     for kernel, n_want in BULK_KERNELS.items():
         n_fn, ops = _sass_counts(rec.path, kernel, (BULK_COPY_SASS,))
@@ -441,11 +505,12 @@ def phase_build():
                 f"every {kernel} must hold bulk copies ({BULK_COPY_SASS})")
     # every flash check holds the kernel to the plain version over kv_tile
     # keys: the library's own tiles must be those
-    tiles = {dt: _build.library().ember_flash_kv_tile(code)
-             for dt, code in DTYPES.items()}
-    print("[2 kv tile] flash KV tiles of the library: " + ", ".join(
-        f"{dt} {t} (kv_tile {kv_tile(dt)})" for dt, t in tiles.items()))
-    require(all(t == kv_tile(dt) for dt, t in tiles.items()),
+    tiles = {(dt, d): _build.library().ember_flash_kv_tile(code, d)
+             for dt, code in DTYPES.items() for d, _ in FLASH_DIMS}
+    print("[2 kv tile] flash KV tiles of the library (dtype, q/k width): " +
+          ", ".join(f"{str(dt)[6:]} {d}: {t} (kv_tile {kv_tile(dt, d)})"
+                    for (dt, d), t in tiles.items()))
+    require(all(t == kv_tile(dt, d) for (dt, d), t in tiles.items()),
             "kv_tile must be the flash kernels' own KV tiles")
 
 
@@ -664,82 +729,108 @@ def phase_sweep_fusedmm(seed: int) -> None:
 
 def phase_sweep_flash(seed: int) -> None:
     """Flash attention against its plain version over the kernel's own KV
-    tiles (``kv_tile``: 128 keys in bf16, 64 in f32): causal or not, GQA
-    groups 1, 4, 16, (q/k, v) widths (64, 64), (80, 80) (the 128 kernel,
-    padded), (128, 128) and (192, 128) (MLA), S 256, a ragged 200 and 200
-    queries over 328 keys, f32 and bf16."""
+    tiles (``kv_tile``: 128 keys in bf16, 64 at q/k width 256, 64 in f32):
+    causal or not, GQA groups 1, 4, 16, (q/k, v) widths (64, 64), (80, 80)
+    (the 128 kernel, padded), (128, 128), (192, 128) (MLA) and (256, 256),
+    S 256, a ragged 200 and 200 queries over 328 keys, f32 and bf16; then
+    the sliding window (``FLASH_WINDOWS`` and Sq - 1) at widths 80, 128
+    and 256, causal or not, over a ragged 1300 keys and 200 queries over
+    328 keys, where a window of Sk or more must give the bits of none."""
     import torch
-    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.agreement import check_bf16
-    from repro_torch.kernels.flash_attention import kv_tile
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     err_f32, bf16 = 0.0, {}
-    n = 0
+    n = n_win = 0
+
+    def held(q, k, v, what, **kw):
+        got = kops.attention(q, k, v, **kw)
+        want = plain_attention(q, k, v, **kw)
+        if q.dtype == torch.float32:
+            return max(err_f32, check_close(got, want, what, **TOL_ATTN_F32))
+        _worst(bf16, check_bf16(got, want, what))
+        return err_f32
+
+    def qkv(b, sq, sk, h, hkv, d, dv, dtype):
+        return (torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, sq, h, d), (b, sk, hkv, d),
+                              (b, sk, hkv, dv)))
     for dtype in (torch.float32, torch.bfloat16):
         for d, dv in FLASH_DIMS:
             for h, hkv in ((4, 4), (8, 2), (16, 1)):
                 for sq, sk in ((256, 256), (200, 200), (200, 328)):
-                    q = torch.randn((2, sq, h, d), generator=g,
-                                    device=dev).to(dtype)
-                    k = torch.randn((2, sk, hkv, d), generator=g,
-                                    device=dev).to(dtype)
-                    v = torch.randn((2, sk, hkv, dv), generator=g,
-                                    device=dev).to(dtype)
+                    q, k, v = qkv(2, sq, sk, h, hkv, d, dv, dtype)
                     for causal in (True, False):
-                        got = kops.attention(q, k, v, causal=causal)
-                        want = ref.attention(q, k, v, causal=causal,
-                                             chunk=kv_tile(dtype))
-                        what = (f"flash {dtype} D={d}/{dv} H={h}/{hkv} "
-                                f"Sq={sq} Sk={sk} causal={causal}")
-                        if dtype == torch.float32:
-                            err_f32 = max(err_f32, check_close(
-                                got, want, what, **TOL_ATTN_F32))
-                        else:
-                            _worst(bf16, check_bf16(got, want, what))
+                        err_f32 = held(q, k, v, f"flash {dtype} D={d}/{dv} "
+                                       f"H={h}/{hkv} Sq={sq} Sk={sk} "
+                                       f"causal={causal}", causal=causal)
                         n += 1
+        for d, dv in FLASH_WINDOW_DIMS:
+            for sq, sk in ((1300, 1300), (200, 328)):
+                q, k, v = qkv(1, sq, sk, 8, 2, d, dv, dtype)
+                for causal in (True, False):
+                    for w in FLASH_WINDOWS + (sq - 1,):
+                        err_f32 = held(q, k, v, f"flash {dtype} D={d}/{dv} "
+                                       f"Sq={sq} Sk={sk} causal={causal} "
+                                       f"window={w}", causal=causal,
+                                       window=w)
+                        n_win += 1
+                    none = kops.attention(q, k, v, causal=causal)
+                    for w in (sk, 10 ** 6):
+                        require(torch.equal(kops.attention(
+                            q, k, v, causal=causal, window=w), none),
+                            f"flash {dtype} D={d}/{dv} Sq={sq} Sk={sk}: "
+                            f"window {w} >= Sk differs from no window")
     torch.cuda.synchronize()
-    print(f"[3 sweep flash] {n} cases: max abs err f32 {err_f32:.3g} "
-          f"(tol rtol=1e-5 atol=1e-5), bf16 {_bf16_summary(bf16)}")
+    print(f"[3 sweep flash] {n} cases, and {n_win} with a window "
+          f"({', '.join(map(str, FLASH_WINDOWS))}, Sq - 1) at widths "
+          f"{', '.join(str(d) for d, _ in FLASH_WINDOW_DIMS)}: max abs err "
+          f"f32 {err_f32:.3g} (tol rtol=1e-5 atol=1e-5), bf16 "
+          f"{_bf16_summary(bf16)}; a window of Sk or more gives the bits of "
+          f"none")
 
 
 def phase_stress_flash(seed: int) -> None:
     """The bf16 flash kernel against its plain version (over ``kv_tile``
-    keys) in ``FLASH_STRESS_CASES`` causal cases of few-key rows: every case
-    must pass ``check_bf16``.  Prints the worst readings over all cases and
-    the elements off by more than 1.5 bf16 steps of their own size (a p
-    rounded across a step)."""
+    keys) in ``FLASH_STRESS_CASES`` causal cases of few-key rows, the
+    (q/k, v) widths ``FLASH_STRESS_DIMS`` crossed with the windows
+    ``FLASH_STRESS_WINDOWS``: every case must pass ``check_bf16``.  Prints
+    the worst readings over all cases and the elements off by more than 1.5
+    bf16 steps of their own size (a p rounded across a step)."""
     import torch
-    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.agreement import (BF16_ATOL, BF16_RTOL,
                                                bf16_agreement, check_bf16)
-    from repro_torch.kernels.flash_attention import kv_tile
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     worst, fails, off = {}, [], 0
+    n_dims = len(FLASH_STRESS_DIMS)
     for i in range(FLASH_STRESS_CASES):
-        d, dv = FLASH_STRESS_DIMS[i % len(FLASH_STRESS_DIMS)]
+        d, dv = FLASH_STRESS_DIMS[i % n_dims]
+        window = FLASH_STRESS_WINDOWS[(i // n_dims) %
+                                      len(FLASH_STRESS_WINDOWS)]
         q, k, v = (torch.randn((2, 200, h, w), generator=g,
                                device=dev).bfloat16()
                    for h, w in ((16, d), (1, d), (1, dv)))
-        got = kops.attention(q, k, v, causal=True)
-        want = ref.attention(q, k, v, causal=True,
-                             chunk=kv_tile(torch.bfloat16))
+        got = kops.attention(q, k, v, causal=True, window=window)
+        want = plain_attention(q, k, v, causal=True, window=window)
         _worst(worst, bf16_agreement(got, want))
         w = want.float().abs().clamp_min(1e-30)
         step = torch.exp2(torch.floor(torch.log2(w))) * 2 ** -7
         off += int(((got.float() - want.float()).abs() > 1.5 * step).sum())
         try:
-            check_bf16(got, want, f"flash stress case {i} (D={d}/{dv})")
+            check_bf16(got, want, f"flash stress case {i} (D={d}/{dv}, "
+                       f"window {window})")
         except AssertionError as e:
             ratio = (got.float() - want.float()).abs() / (
                 BF16_ATOL + BF16_RTOL * want.float().abs())
             row = int(ratio.amax(dim=(0, 2, 3)).argmax())
-            fails.append(f"{e}; worst element in query row {row} "
-                         f"({row + 1} keys)")
+            fails.append(f"{e}; worst element in query row {row}")
     print(f"[3 stress flash] {FLASH_STRESS_CASES} causal bf16 cases (2 x 200 "
           f"x 16/1 heads, (D, Dv) "
-          f"{', '.join(map(str, FLASH_STRESS_DIMS))}): "
+          f"{', '.join(map(str, FLASH_STRESS_DIMS))} x windows "
+          f"{', '.join(map(str, FLASH_STRESS_WINDOWS))}): "
           f"{len(fails)} fail check_bf16; "
           f"{_bf16_summary(worst)}; {off} elements off by > 1.5 bf16 steps")
     require(not fails, "; ".join(fails[:3]))
@@ -812,17 +903,22 @@ def _time_steps(ex, steps):
     return outs, times, submit, kops.launch_counts()
 
 
-def _device_time(fn) -> list:
+def _device_time(fn, wall: list = None) -> list:
     """Device time by kernel and copy of one call of ``fn`` under
-    torch.profiler: [(name, microseconds)], largest first."""
+    torch.profiler: [(name, microseconds)], largest first.  ``wall``, if
+    given, gets the host ms of that call (synchronised), the profiler's
+    own processing after it left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        if wall is not None:
+            wall.append((time.perf_counter() - t0) * 1e3)
     return sorted(((e.key, e.self_device_time_total)
                    for e in tp.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -1356,7 +1452,6 @@ def phase_chatglm3(seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import bf16_agreement, check_bf16
-    from repro_torch.kernels.flash_attention import kv_tile
     from repro_torch.models.lm import LM
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("chatglm3-6b")
@@ -1379,6 +1474,7 @@ def phase_chatglm3(seed: int) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = kops.launch_counts()
+    instances = dict(kops.flash_attention_cuda.instances)
     require(counts["flash_attention"] == PREFILLS * cfg.num_layers,
             f"chatglm3 prefill launched flash_attention "
             f"{counts['flash_attention']} times, expected "
@@ -1389,9 +1485,7 @@ def phase_chatglm3(seed: int) -> dict:
     dev = _device_time(lambda: model.prefill(tokens))
     attn_us = sum(us for k, us in dev if "flash" in k)
 
-    def plain(q, k, v, **kw):
-        """The plain version over the kernel's KV tiles."""
-        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
+    plain = plain_attention
 
     # one more prefill through the kernel, every layer's attention output
     # held against the plain version on that layer's own q, k, v
@@ -1496,7 +1590,7 @@ def phase_chatglm3(seed: int) -> dict:
               "launches": counts["flash_attention"], "max_abs_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms,
-              "held_against_plain": True}
+              "held_against_plain": True, "instances": instances}
     del model, tokens, last, plain_last, diff, per_layer
     free_cuda()
     return result
@@ -1511,11 +1605,9 @@ def phase_stablelm_prefill(seed: int) -> dict:
     that layer's shapes beside its bound at the true width, the plain
     version and ``scaled_dot_product_attention``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops as kops, ref
-    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
-    from repro_torch.kernels.flash_attention import kv_tile
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
     from repro_torch.models.lm import LM
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("stablelm-3b")
@@ -1538,6 +1630,7 @@ def phase_stablelm_prefill(seed: int) -> dict:
     torch.cuda.synchronize()
     times.append(time.perf_counter() - t0)
     launches = kops.launch_counts()["flash_attention"]
+    instances = dict(kops.flash_attention_cuda.instances)
     require(launches == cfg.num_layers,
             f"stablelm-3b prefill launched flash_attention {launches} times, "
             f"expected {cfg.num_layers}")
@@ -1567,27 +1660,12 @@ def phase_stablelm_prefill(seed: int) -> dict:
     hkv = k.shape[2]
     require(d == 80, f"stablelm-3b head dim {d}, expected 80")
 
-    def kernel():
-        return kops.attention(q, k, v, causal=True)
-
-    def plain():
-        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
-    layer0 = check_bf16(kernel(), plain(),
+    layer0 = check_bf16(kops.attention(q, k, v, causal=True),
+                        plain_attention(q, k, v, **kw),
                         "flash kernel on stablelm-3b layer 0's q, k, v")
-    ms = time_ms(kernel, 10)
-    plain_ms = time_ms(plain, 2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # MHA: no expand
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib = bf16_agreement(library().transpose(1, 2), kernel())
-    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
-            f"scaled_dot_product_attention vs kernel at D = 80: relative L2 "
-            f"{lib['rel_l2']:.3g} > 2^-7")
-    library_ms = time_ms(library, 10)
-    flops = 2 * b * h * s * s * d        # causal QK^T and PV, true width
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms = max(flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    t = _flash_layer(q, k, v, kw, "stablelm-3b layer at D = 80")
+    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
+    flops, lib, bound_ms = t["flops"], t["library"], t["bound_ms"]
     peak = torch.cuda.max_memory_allocated()
     print(f"[7 stablelm-3b prefill] {cfg.name} {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
@@ -1607,11 +1685,12 @@ def phase_stablelm_prefill(seed: int) -> dict:
           f"989 TFLOP/s; kernel at {flops / ms / 1e9:.1f} TFLOP/s of true-"
           f"width work); layer 0 kernel == plain ({_bf16_summary(layer0)}); "
           f"vs the library: {_bf16_summary(lib)}")
-    result = {"launches": launches, "d80_ms": ms, "d80_plain_ms": plain_ms,
+    result = {"launches": launches, "instances": instances,
+              "d80_ms": ms, "d80_plain_ms": plain_ms,
               "d80_bound_ms": bound_ms, "d80_library_ms": library_ms,
               "d80_max_abs_err": layer0["max_abs"],
               "stablelm_prefill_ms": prefill_ms}
-    del model, tokens, last, again, q, k, v, qt, kt, vt
+    del model, tokens, last, again, q, k, v
     free_cuda()
     return result
 
@@ -1627,19 +1706,20 @@ def _percentiles(xs) -> str:
 
 
 def _serve_drive(model, prompts, chunk: int,
-                 new_tokens: int = SERVE_NEW_TOKENS) -> dict:
+                 new_tokens: int = SERVE_NEW_TOKENS,
+                 max_len: int = SERVE_MAX_LEN) -> dict:
     """Serve ``prompts`` (``new_tokens`` each, no EOS) through a fresh
-    DecodeServer on the card (its captured wave), one serving iteration at
-    a time.  Returns the server, the requests, the wall seconds, each
-    request's logits row of its last wave (``final``), and per iteration
+    DecodeServer on the card (its captured wave) of ``max_len`` positions,
+    one serving iteration at a time.  Returns the server, the requests,
+    the wall seconds, each request's logits row of its last wave
+    (``final``), and per iteration
     its wave kind, micro-steps and host seconds (the whole iteration: the
     wave, the pipeline feed and the argmax read back; and the server's
     wave alone, issuing the wave's work)."""
     import torch
     from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
-    srv = DecodeServer(model, batch_slots=SERVE_SLOTS,
-                       max_len=SERVE_MAX_LEN, prefill_chunk=chunk,
-                       pipeline=True)
+    srv = DecodeServer(model, batch_slots=SERVE_SLOTS, max_len=max_len,
+                       prefill_chunk=chunk, pipeline=True)
     require(isinstance(srv._wave, WaveGraph),
             "a server on the card must run its captured wave")
     reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
@@ -2127,7 +2207,6 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
     un-dispatch gather's (both variants) beside ``index_select`` and its
     bytes bound."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import bf16_agreement, check_bf16
     from repro_torch.kernels.flash_attention import kv_tile
@@ -2151,6 +2230,7 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     counts = kops.launch_counts()
+    instances = dict(kops.flash_attention_cuda.instances)
     variants = kops.variant_launch_counts()["block_gather"]
     require(counts["flash_attention"] == n_layers and
             counts["block_gather"] == n_layers and
@@ -2179,8 +2259,7 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
     per_layer, first, gathers = [], {}, []
     routing = {"kernel": [], "plain": []}
 
-    def plain(q, k, v, **kw):
-        return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
+    plain = plain_attention
 
     def held(q, k, v, **kw):
         out = kops.flash_attention_cuda(q, k, v, **kw)
@@ -2232,8 +2311,8 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
     # attention faulted (what the bound must catch); and with plain
     # attention and its own routing (how far such a step moves the routing)
     def plain_half(q, k, v, **kw):
-        return ref.attention(q, k, v,
-                             **{**kw, "chunk": kv_tile(q.dtype) // 2})
+        half = kv_tile(q.dtype, q.shape[3]) // 2
+        return ref.attention(q, k, v, **{**kw, "chunk": half})
 
     caught = {}
 
@@ -2305,8 +2384,9 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
           f"state vs a prefill with plain attention and the routing pinned "
           f"to the kernel prefill's: relative L2 {rel_l2:.4g} (max abs "
           f"{float(diff.abs().max()):.3g}), against a tol of {bound}; the "
-          f"same between plain attention over {kv_tile(torch.bfloat16)}- "
-          f"and {kv_tile(torch.bfloat16) // 2}-key chunks: {floor:.4g}; "
+          f"same between plain attention over "
+          f"{kv_tile(torch.bfloat16, 192)}- and "
+          f"{kv_tile(torch.bfloat16, 192) // 2}-key chunks: {floor:.4g}; "
           f"planted faults, routing pinned (the first required above the "
           f"tol; each required to fail its layer's check_bf16): " +
           "; ".join(f"{k}: {v:.4g} (that layer's output relative L2 "
@@ -2337,27 +2417,11 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
     require((d, dv) == (cfg.hd + cfg.rope_head_dim, cfg.hd) == (192, 128),
             f"DeepSeek MLA widths (q/k {d}, v {dv}), expected (192, 128)")
 
-    def kernel():
-        return kops.attention(q, k, v, causal=True)
-    ms = time_ms(kernel, 10)
-    plain_ms = time_ms(lambda: plain(q, k, v, **kw), 2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # MHA: no expand
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib = bf16_agreement(library().transpose(1, 2), kernel())
-    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
-            f"scaled_dot_product_attention vs kernel at (192, 128): relative "
-            f"L2 {lib['rel_l2']:.3g} > 2^-7")
-    library_ms = time_ms(library, 10)
-    backends = _sdpa_backends(library)
-    flops = b * h * s * s * (d + dv)     # causal QK^T and PV
-    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * \
-        q.element_size()
-    bound_ms = max(flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = ("operations" if flops / BF16_TC_FLOPS >=
-                nbytes / HBM_BYTES_PER_S else "bytes")
-    del q, k, v, qt, kt, vt
+    t = _flash_layer(q, k, v, kw, "DeepSeek MLA layer at (192, 128)")
+    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
+    backends, flops, lib = t["backends"], t["flops"], t["library"]
+    bound_ms, bound_by = t["bound_ms"], t["bound_by"]
+    del q, k, v
 
     # layer 0: the MoE un-dispatch gather
     table, idxs = first.pop("gather")
@@ -2412,6 +2476,7 @@ def _deepseek_prefill(model, seed: int, card: str) -> dict:
           f"{g_bound_ms:.4f} ms ({g_bytes / 1e6:.1f} MB at 3.35 TB/s); "
           f"bit-exact vs plain and index_select; {card}")
     result = {"flash_launches": counts["flash_attention"],
+              "flash_instances": instances,
               "gather_launches": variants["bulk"],
               "gather_group_launches": variants["group"],
               "mla_ms": ms, "mla_plain_ms": plain_ms,
@@ -2653,12 +2718,486 @@ def phase_deepseek_lm(seed: int, card: str) -> dict:
     return {"prefill": prefill, "serving": serving}
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the rest of the dense family -- gemma3-4b, h2o-danube-1.8b
+# (the sliding window) and llava-next-34b (the vision-stub front end)
+# ---------------------------------------------------------------------------
+
+def _flash_bound(q, k, v, window) -> tuple:
+    """The least time of one causal flash call on these tensors: the
+    (query, key) pairs its band keeps (key <= query, query - key < window),
+    2 (D + Dv) FLOP each, at the bf16 tensor-core peak, against q, k and v
+    read and o written once at the HBM rate.  Returns (ms, "operations" or
+    "bytes", FLOP)."""
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    keep = np.arange(1, s + 1, dtype=np.int64)
+    if window is not None:
+        keep = np.minimum(keep, window)
+    flops = 2 * b * h * int(keep.sum()) * (d + dv)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * \
+        q.element_size()
+    t_ops, t_bytes = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def _flash_layer(q, k, v, kw: dict, what: str) -> dict:
+    """One layer's flash call timed at its own shapes: the kernel, the plain
+    version, and ``scaled_dot_product_attention`` on the same tensors (KV
+    heads expanded beforehand) with ``is_causal`` or, for a window, an
+    explicit band mask -- the default backend and each backend that takes
+    the call; the library held to the kernel below one bf16 step (relative
+    L2), and the bound of ``_flash_bound``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import bf16_agreement
+    window = kw.get("window")
+    s, g = q.shape[1], q.shape[2] // k.shape[2]
+
+    def kernel():
+        return kops.attention(q, k, v, causal=True, window=window)
+    ms = time_ms(kernel, 10)
+    plain_ms = time_ms(lambda: plain_attention(q, k, v, **kw), 2, warmup=1)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        pos = torch.arange(s, device=q.device)
+        band = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=band)
+    lib = bf16_agreement(library().transpose(1, 2), kernel())
+    require(lib["rel_l2"] <= LIBRARY_REL_L2_BF16,
+            f"{what}: scaled_dot_product_attention vs kernel: relative L2 "
+            f"{lib['rel_l2']:.3g} > 2^-7")
+    library_ms = time_ms(library, 10)
+    backends = _sdpa_backends(library)
+    bound_ms, bound_by, flops = _flash_bound(q, k, v, window)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "backends": backends, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "library": lib}
+
+
+def _flash_layer_line(tag: str, what: str, q, k, t: dict, card: str) -> str:
+    b, s, h, d = q.shape
+    backends = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
+                         else f"{n} {v}" for n, v in t["backends"].items())
+    return (f"[{tag}] {what} (B={b}, S={s}, H={h}, Hkv={k.shape[2]}, "
+            f"D={d}, bf16): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (default "
+            f"backend) {t['library_ms']:.4f} ms (by backend: {backends}), "
+            f"bound {t['bound_ms']:.4f} ms ({t['flops'] / 1e9:.1f} GFLOP at "
+            f"989 TFLOP/s, by {t['bound_by']}; kernel at "
+            f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound); library vs "
+            f"kernel: {_bf16_summary(t['library'])}; {card}")
+
+
+def _checked_prefill(model, tokens, what: str, fe=None) -> dict:
+    """``LM.prefill`` on the card, as every prefill phase checks it: a
+    warm-up, then the main path (launches and flash instances counted from
+    0), more timed prefills and one under torch.profiler; one more through
+    the kernel with every layer's flash output held against the plain
+    version on that layer's own q, k, v (``check_bf16``), recording the
+    first layer without a window and the first with one; and the last
+    hidden state against a prefill with plain attention within
+    ``PREFILL_REL_L2``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
+    cfg = model.cfg
+    model.prefill(tokens, fe)          # warm-up (cuBLAS, the allocator)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = model.prefill(tokens, fe)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = kops.launch_counts()["flash_attention"]
+    instances = dict(kops.flash_attention_cuda.instances)
+    require(launches == cfg.num_layers,
+            f"{what} prefill launched flash_attention {launches} times, "
+            f"expected {cfg.num_layers}")
+    require(last.shape == (tokens.shape[0], 1, cfg.d_model) and
+            bool(torch.isfinite(last).all()), f"{what} prefill output")
+    for _ in range(PREFILLS - 1):
+        t0 = time.perf_counter()
+        model.prefill(tokens, fe)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prefill_ms = float(np.mean(times)) * 1e3
+    profiled = []
+    dev = _device_time(lambda: model.prefill(tokens, fe), profiled)
+    per_layer, layers = [], {}
+
+    def held(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        per_layer.append(check_bf16(
+            out, plain_attention(q, k, v, **kw),
+            f"flash kernel on {what} layer {len(per_layer)}'s q, k, v"))
+        layers.setdefault("global" if kw.get("window") is None else "local",
+                          (q, k, v, kw))
+        return out
+    with _OpSwap("attention", held):
+        again = model.prefill(tokens, fe)
+    require(torch.equal(again, last), f"{what} prefill is not repeatable")
+    require(len(per_layer) == cfg.num_layers, "one attention call a layer")
+    worst = {}
+    for a in per_layer:
+        _worst(worst, a)
+    with _OpSwap("attention", plain_attention):
+        plain_last = model.prefill(tokens, fe)
+    diff = last.float() - plain_last.float()
+    rel_l2 = float(diff.norm() / plain_last.float().norm())
+    require(rel_l2 <= PREFILL_REL_L2 and bool(torch.isfinite(diff).all()),
+            f"{what} prefill with the kernel vs plain attention: relative "
+            f"L2 {rel_l2:.3g} > {PREFILL_REL_L2}")
+    return {"last": last, "launches": launches, "instances": instances,
+            "prefill_ms": prefill_ms, "dev": dev, "layers": layers,
+            "profiled_ms": profiled[0],
+            "per_layer": worst, "rel_l2": rel_l2,
+            "attn_ms": sum(us for n, us in dev if "flash" in n) / 1e3}
+
+
+def _prefill_line(tag: str, model, tokens, run: dict, extra: str,
+                  init_s: float) -> str:
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    return (f"[{tag}] {cfg.name} {cfg.num_layers} layers "
+            f"({extra}), d_model {cfg.d_model}, {cfg.num_heads} heads / "
+            f"{cfg.num_kv_heads} KV, head dim {cfg.hd}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, bf16, {n_params} params (random; init "
+            f"{init_s:.2f} s); {tokens.shape[0]} x {tokens.shape[1]} uniform "
+            f"token ids: prefill mean {run['prefill_ms']:.2f} ms over "
+            f"{PREFILLS} (host clock + synchronize); flash launches "
+            f"{run['launches']} in the first ({run['instances']}); "
+            f"{_busy(run['dev'], run['prefill_ms'])}; busy "
+            f"{sum(us for _, us in run['dev']) / 10 / run['profiled_ms']:.1f}"
+            f"% of the {run['profiled_ms']:.2f} ms the profiled prefill "
+            f"took; attention kernels "
+            f"{run['attn_ms']:.2f} ms of it; every layer's kernel output == "
+            f"plain on its own q, k, v ({_bf16_summary(run['per_layer'])}); "
+            f"last hidden state == prefill with plain attention (relative L2 "
+            f"{run['rel_l2']:.3g}, tol {PREFILL_REL_L2})")
+
+
+def _window_crossing_drive(model, prompts, new_tokens: int,
+                           max_len: int) -> dict:
+    """Serve ``prompts`` through a graph server whose waves are checked
+    against the eager wave where the window bites: before each wave in
+    which some slot's cache passes position ``cfg.sliding_window`` and
+    before the first wave in which every active slot decodes past it,
+    every cache leaf is cloned, and after the graph's wave ``LM.wave_step``
+    runs the same tokens on the clones: its logits and every leaf must be
+    the same bits.  Returns the requests and the checked waves."""
+    import torch
+    from repro_torch.runtime.server import DecodeServer, Request
+    window = model.cfg.sliding_window
+    srv = DecodeServer(model, batch_slots=SERVE_SLOTS, max_len=max_len,
+                       prefill_chunk=SERVE_CHUNK, pipeline=True)
+    wave = srv._wave
+    checked = {"crossing": [], "decode": []}
+    n = {"wave": 0, "leaves": 0}
+
+    def compare(tokens, lens, caches, logits, clones, kind):
+        want, _ = model.wave_step(tokens, lens, clones)
+        require(torch.equal(logits, want),
+                f"wave {n['wave']} ({kind}): the graph's logits differ from "
+                f"the eager wave's")
+        for layer, (cg, ce) in enumerate(zip(caches, clones)):
+            for key in cg:
+                require(torch.equal(cg[key], ce[key]),
+                        f"wave {n['wave']} ({kind}): cache leaf {key} of "
+                        f"layer {layer} differs between graph and eager")
+                n["leaves"] += 1
+        checked[kind].append(n["wave"])
+
+    def spy(tokens, lens, caches):
+        n["wave"] += 1
+        lens_h = np.asarray(lens)
+        before = caches[0]["len"].cpu().numpy()
+        kind = None
+        if ((before <= window) & (before + lens_h > window)).any():
+            kind = "crossing"
+        elif not checked["decode"] and lens_h.max() == 1 and \
+                (before[lens_h > 0] > window).all():
+            kind = "decode"
+        clones = None if kind is None else \
+            [{k: t.clone() for k, t in c.items()} for c in caches]
+        logits, caches = wave(tokens, lens, caches)
+        if kind is not None:
+            compare(tokens, lens, caches, logits, clones, kind)
+        return logits, caches
+    srv._wave = spy
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+            for p in prompts]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    require(checked["crossing"] and checked["decode"],
+            f"the drive never crossed the window of {window} ({checked})")
+    return {"reqs": reqs, "checked": checked, "leaves": n["leaves"]}
+
+
+def phase_gemma3(seed: int, card: str) -> dict:
+    """gemma3-4b (34 layers: 29 dense_local with a 1024-token window and 5
+    dense, head dim 256, full width, bf16, random weights) through
+    ``LM.prefill`` over 4 x 4096 tokens (``_checked_prefill``), the planted
+    no-window fault, and the local and global layers' flash times; then
+    served: 8 requests of 1024-1280 prompt tokens, 16 new tokens each, in a
+    closed batch, through the captured wave, with graph == eager bit for
+    bit on the waves where the window bites (``_window_crossing_drive``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma3-4b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed + 10)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    run = _checked_prefill(model, tokens, cfg.name)
+    want = {f"bfloat16 256/256 causal window {cfg.sliding_window}": 29,
+            "bfloat16 256/256 causal": 5}
+    require(run["instances"] == want,
+            f"gemma3-4b prefill flash instances {run['instances']}, "
+            f"expected {want}")
+    print(_prefill_line("10 gemma3 prefill", model, tokens, run,
+                        f"29 dense_local, window {cfg.sliding_window}, and "
+                        f"5 dense", init_s))
+
+    # the planted fault: the local layer's kernel with no window against
+    # the windowed plain version; and a window off by one, read only
+    q, k, v, kw = run["layers"]["local"]
+    want_local = plain_attention(q, k, v, **kw)
+    try:
+        check_bf16(kops.attention(q, k, v, causal=True), want_local,
+                   "no window")
+        caught = False
+    except AssertionError:
+        caught = True
+    nowin = bf16_agreement(kops.attention(q, k, v, causal=True), want_local)
+    require(caught, f"the kernel with no window passed the local layer's "
+            f"check ({_bf16_summary(nowin)})")
+    off = {w: bf16_agreement(kops.attention(q, k, v, causal=True, window=w),
+                             want_local)
+           for w in (cfg.sliding_window - 1, cfg.sliding_window + 1)}
+    print(f"[10 gemma3 fault] the local layer's kernel with no window vs the "
+          f"windowed plain version fails check_bf16 as it must "
+          f"({_bf16_summary(nowin)}); a window off by one reads " +
+          "; ".join(f"{w}: {_bf16_summary(a)}" for w, a in off.items()))
+    times = {}
+    for kind in ("local", "global"):
+        q, k, v, kw = run["layers"][kind]
+        times[kind] = _flash_layer(q, k, v, kw, f"gemma3-4b {kind} layer")
+        print(_flash_layer_line(
+            f"10 gemma3 {kind} kernel",
+            f"flash attention a {kind} layer" +
+            (f" (window {kw['window']})" if kind == "local" else
+             " (causal)"), q, k, times[kind], card))
+    del q, k, v, want_local
+    run["layers"].clear()
+    prefill_ms, launches = run["prefill_ms"], run["launches"]
+    instances = run["instances"]
+    del run
+
+    # served across the window
+    lo, hi = GEMMA_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, GEMMA_REQUESTS)]
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK,
+                 GEMMA_NEW_TOKENS, max_len=GEMMA_MAX_LEN)     # warm-up
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK, GEMMA_NEW_TOKENS,
+                        max_len=GEMMA_MAX_LEN)
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    _require_served(main, GEMMA_NEW_TOKENS, counts, variants)
+    m = _drive_metrics(main, GEMMA_NEW_TOKENS)
+    graph_dev = _graph_device_ms(main["srv"])
+    waves = main["srv"].serve_stats["waves"]
+    del main["srv"]
+    cross = _window_crossing_drive(model, prompts, GEMMA_NEW_TOKENS,
+                                   GEMMA_MAX_LEN)
+    for i, (r, r2) in enumerate(zip(main["reqs"], cross["reqs"])):
+        require(r.out == r2.out, f"gemma3-4b request {i}: the checked drive "
+                f"emitted {r2.out[:6]}... vs {r.out[:6]}...")
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = n_params * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"[10 gemma3 serving] DecodeServer(batch_slots={SERVE_SLOTS}, "
+          f"max_len={GEMMA_MAX_LEN}, prefill_chunk={SERVE_CHUNK}, "
+          f"pipeline=True), captured wave: {GEMMA_REQUESTS} requests "
+          f"(prompts {lo}-{hi} tokens, "
+          f"{sum(len(p) for p in prompts)} in all; closed batch), "
+          f"{GEMMA_NEW_TOKENS} new tokens each, all ok; {waves} waves, "
+          f"{m['micro_steps']} micro-steps in {main['wall']:.2f} s: "
+          f"{m['tokens_per_s']:.1f} generated tokens/s; TTFT "
+          f"{_percentiles(m['ttft'])}; per token "
+          f"{_percentiles(m['per_token'])}; host ms a micro-step "
+          f"{m['issue_ms'] / m['micro_steps']:.3f}; device ms of one "
+          f"captured micro-step unmasked {graph_dev['unmasked']:.3f}, "
+          f"masked {graph_dev['masked']:.3f} against {bound_ms:.2f} ms to "
+          f"read every weight once ({n_params * 2 / 1e9:.2f} GB at 3.35 "
+          f"TB/s); ms per decode wave mean {np.mean(m['decode_ms']):.2f}; "
+          f"block_gather launches {counts['block_gather']} = one a wave "
+          f"(rows of {cfg.d_model * 2} B from {cfg.padded_vocab}); graph vs "
+          f"eager where the window bites: waves {cross['checked']}, logits "
+          f"and every cache leaf ({cross['leaves']} comparisons) the same "
+          f"bits, the same tokens as the main drive; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    result = {"flash_launches": launches, "flash_instances": instances,
+              "gather_launches": variants["bulk"],
+              "gather_group_launches": variants["group"],
+              "gemma3_prefill_ms": prefill_ms,
+              "gemma3_tokens_per_s": m["tokens_per_s"]}
+    for kind, t in times.items():
+        result.update({f"gemma3_{kind}_{key}": t[key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms")})
+    del model, main, cross, tokens
+    free_cuda()
+    return result
+
+
+def phase_danube(seed: int, card: str) -> dict:
+    """h2o-danube-1.8b (24 dense_local layers, window 4096, head dim 80 on
+    the padded kernel, full width, bf16, random weights) through
+    ``LM.prefill`` over one sequence of 16384 tokens, where the window
+    keeps a quarter of the causal pairs of the last rows
+    (``_checked_prefill``), and a layer's flash time at its true width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 11)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, DANUBE_SEQ))).cuda()
+    run = _checked_prefill(model, tokens, cfg.name)
+    want = {f"bfloat16 80/80 causal window {cfg.sliding_window}":
+            cfg.num_layers}
+    require(run["instances"] == want,
+            f"h2o-danube-1.8b prefill flash instances {run['instances']}, "
+            f"expected {want}")
+    print(_prefill_line("11 danube prefill", model, tokens, run,
+                        f"dense_local, window {cfg.sliding_window}", init_s))
+    q, k, v, kw = run["layers"]["local"]
+    t = _flash_layer(q, k, v, kw, "h2o-danube-1.8b layer")
+    print(_flash_layer_line(
+        "11 danube kernel", f"flash attention a layer (window "
+        f"{kw['window']}; D=80 on the 128-wide kernel, bound at the true "
+        f"width)", q, k, t, card) +
+        f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    result = {"flash_launches": run["launches"],
+              "flash_instances": run["instances"],
+              "danube_prefill_ms": run["prefill_ms"]}
+    result.update({f"danube_{key}": t[key] for key in
+                   ("ms", "plain_ms", "library_ms", "bound_ms")})
+    del model, run, q, k, v, tokens
+    free_cuda()
+    return result
+
+
+def phase_llava(seed: int, card: str) -> dict:
+    """llava-next-34b (60 dense layers, d_model 7168, 56 heads over 8 KV
+    heads, full width, bf16, random weights: 63.3 GiB) through
+    ``LM.prefill`` over one 4096-token sequence with 576 frontend_embeds
+    rows spliced over its first positions, as ``launch/steps.py`` shapes
+    them (``_checked_prefill``); the splice must move the last hidden
+    state; a layer's flash time.  Run alone in a fresh process
+    (``--llava-only``), after every earlier phase has freed the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llava_next_34b import VISION_TOKENS
+    from repro_torch.models.lm import LM
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llava-next-34b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 12)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, LLAVA_SEQ))).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    fe = torch.randn((1, VISION_TOKENS, cfg.d_model), generator=g,
+                     device="cuda").to(cfg.torch_dtype)
+    run = _checked_prefill(model, tokens, cfg.name, fe)
+    text_only = model.prefill(tokens)
+    moved = float((run["last"].float() - text_only.float()).norm() /
+                  text_only.float().norm())
+    require(moved > PREFILL_REL_L2, f"the {VISION_TOKENS} spliced rows moved "
+            f"the last hidden state by only {moved:.3g} (relative L2)")
+    print(_prefill_line("12 llava prefill", model, tokens, run,
+                        f"dense, {VISION_TOKENS} frontend_embeds rows "
+                        f"spliced through frontend_proj", init_s) +
+          f"; the splice moves the last hidden state by {moved:.3g} "
+          f"(relative L2 against text only); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    q, k, v, kw = run["layers"]["global"]
+    t = _flash_layer(q, k, v, kw, "llava-next-34b layer")
+    print(_flash_layer_line("12 llava kernel", "flash attention a layer "
+                            "(causal)", q, k, t, card))
+    result = {"flash_launches": run["launches"],
+              "flash_instances": run["instances"],
+              "llava_prefill_ms": run["prefill_ms"],
+              "llava_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    result.update({f"llava_{key}": t[key] for key in
+                   ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return result
+
+
+def phase_llava_subprocess(seed: int, card: str) -> dict:
+    """Phase 12 in a fresh process of this script (``--llava-only``), with
+    this one's tensors freed first: the 63.3 GiB model needs the card to
+    itself.  Its lines are printed here; its result comes back on a line
+    ``LLAVA {json}``."""
+    import torch
+    free_cuda()
+    torch.cuda.synchronize()
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--llava-only", "--seed", str(seed)],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=str(REPO))
+    result = None
+    for line in r.stdout.splitlines():
+        if line.startswith("LLAVA "):
+            result = json.loads(line[len("LLAVA "):])
+        else:
+            print(line)
+    require(r.returncode == 0 and result is not None,
+            f"phase 12 (llava-next-34b) exited {r.returncode}: "
+            f"{r.stderr[-3000:]}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--sweep-only", action="store_true",
                     help="stop after phase 3 (a quick kernel check)")
+    ap.add_argument("--llava-only", action="store_true",
+                    help="run phase 12 alone (the main run starts it in a "
+                         "process of its own) and print its result as "
+                         "'LLAVA {json}'")
     args = ap.parse_args(argv)
     if args.steps < 2:
         ap.error("--steps must be >= 2")
@@ -2672,6 +3211,15 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.llava_only:
+        from repro_torch.kernels import _build
+        _build.library()
+        card = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print("LLAVA " + json.dumps(phase_llava(args.seed, card)))
+        return 0
     t0 = time.perf_counter()
     name, card = phase_device()
     phase_build()
@@ -2698,15 +3246,21 @@ def main(argv=None) -> int:
                        ("8", lambda: phase_serving(args.seed, card)),
                        ("8 stablelm", lambda: phase_serving_stablelm(
                            args.seed, card)),
-                       ("9", lambda: phase_deepseek_lm(args.seed, card))):
+                       ("9", lambda: phase_deepseek_lm(args.seed, card)),
+                       ("10", lambda: phase_gemma3(args.seed, card)),
+                       ("11", lambda: phase_danube(args.seed, card)),
+                       ("12", lambda: phase_llava_subprocess(args.seed,
+                                                             card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
     flash = next(k for k in kernels if k["name"] == "flash_attention")
+    instances = collections.Counter(flash.pop("instances"))
     prefill = later.pop("7 stablelm")
     flash["chatglm3_launches"] = flash["launches"]
     flash["stablelm_launches"] = prefill.pop("launches")
     flash["launches"] += flash["stablelm_launches"]
+    instances.update(prefill.pop("instances"))
     flash.update(prefill)
     gather = next(k for k in kernels if k["name"] == "block_gather")
     gather["deepseek_launches"] = gather["launches"]
@@ -2718,6 +3272,7 @@ def main(argv=None) -> int:
     ds_serving = later["9"]["serving"]
     flash["deepseek_launches"] = ds_prefill.pop("flash_launches")
     flash["launches"] += flash["deepseek_launches"]
+    instances.update(ds_prefill.pop("flash_instances"))
     for key in [k for k in ds_prefill if k.startswith(("mla_", "deepseek_"))]:
         flash[key] = ds_prefill.pop(key)
     for key, run in (("deepseek_prefill", ds_prefill),
@@ -2727,6 +3282,21 @@ def main(argv=None) -> int:
         gather["launches"] += gather[f"{key}_launches"]
     gather.update(ds_prefill)
     gather.update({f"deepseek_serving_{k}": v for k, v in ds_serving.items()})
+    for phase, key in (("10", "gemma3"), ("11", "danube"), ("12", "llava")):
+        run = later[phase]
+        flash[f"{key}_launches"] = run.pop("flash_launches")
+        flash["launches"] += flash[f"{key}_launches"]
+        instances.update(run.pop("flash_instances"))
+        if "gather_launches" in run:
+            gather[f"{key}_serving_launches"] = run.pop("gather_launches")
+            gather[f"{key}_serving_group_launches"] = run.pop(
+                "gather_group_launches")
+            gather["launches"] += gather[f"{key}_serving_launches"]
+        flash.update(run)
+    require(sum(instances.values()) == flash["launches"],
+            f"flash launches by instance {dict(instances)} do not add up to "
+            f"{flash['launches']}")
+    flash["instances"] = dict(instances)
     print("[time] wall seconds by phase: " +
           ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for k in kernels:

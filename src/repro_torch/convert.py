@@ -69,10 +69,15 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
 
     Layer ``n * len(pattern) + i`` is slot ``i`` of super-block ``n`` in
     ``params["scan"]`` (leaves stacked over ``cfg.n_super``); the
-    remainder layers follow from ``params["rest"]``."""
+    remainder layers follow from ``params["rest"]`` (gemma3-4b: five
+    super-blocks of five ``dense_local`` layers and a ``dense`` one, then
+    four ``dense_local``); a front end's ``frontend_proj`` is carried as
+    it is."""
     dev = resolve_device(device)
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
+    if "frontend_proj" in params:      # a front end (cfg.modality != "text")
+        state["frontend_proj"] = _to_tensor(params["frontend_proj"], dev)
     for li, layer in enumerate(_layers_of(params, cfg)):
         for key, val in _flatten(layer):
             state[f"blocks.{li}.{key}"] = _to_tensor(val, dev)

@@ -7,13 +7,16 @@
 // layer of a prefill:
 //
 //   o[b, s, h, :] = softmax_t(scale * <q[b, s, h], k[b, t, h / G]>) v[b, t, h / G]
-//   (t <= s when causal; G = H / Hkv heads share one KV head; scale = Dqk^-1/2)
+//   (t <= s when causal; s - t < window with a sliding window, the band of
+//   the reference's dense_local layers; G = H / Hkv heads share one KV
+//   head; scale = Dqk^-1/2)
 //
 // in the JAX package's layout: q (B, Sq, H, Dqk), k (B, Sk, Hkv, Dqk),
 // v (B, Sk, Hkv, Dv) and o (B, Sq, H, Dv), contiguous, f32 or bf16, with
-// (Dqk, Dv) one of (64, 64), (80, 80), (128, 128) and (192, 128) -- the last
-// DeepSeek's MLA prefill: 128 no-rotary columns and 64 rotary ones for q and
-// k, 128 for v.  The running max m, the
+// (Dqk, Dv) one of (64, 64), (80, 80), (128, 128), (192, 128) and
+// (256, 256) -- (192, 128) is DeepSeek's MLA prefill (128 no-rotary columns
+// and 64 rotary ones for q and k, 128 for v), (256, 256) gemma3-4b's heads.
+// The running max m, the
 // denominator l and the accumulator are fp32; masked scores are -1e30; the
 // probabilities are rounded to the input dtype before the PV product (as
 // the reference's p.astype(v.dtype)) while l sums them unrounded; the
@@ -28,8 +31,9 @@
 // bf16 -- flash_wgmma_kernel, on the tensor cores:
 //   * One block of 3 warpgroups per (q tile of kBQ = 128 rows, head, batch).
 //     Warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
-//     one thread issues TMA loads -- Q once, then K and V tiles of kBK = 128
-//     keys into a ring of kStages stages, each with a full barrier for K,
+//     one thread issues TMA loads -- Q once, then K and V tiles of kBK keys
+//     (128; 64 at Dqk = 256) into a ring of kStages stages, each with a full
+//     barrier for K,
 //     one for V and an empty barrier (mbarrier).  Warpgroups 1 and 2 are the
 //     consumers, 64 q rows each.
 //   * Tensor maps are 4-D over (B, S, heads, D) -- dims (D, heads, S, B),
@@ -38,7 +42,7 @@
 //     masking a ragged last tile on load.  They are encoded per call on the
 //     host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no
 //     -lcuda) and passed as __grid_constant__ parameters.
-//   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//   * S = Q K^T is wgmma m64n<kBK>k16 with both operands K-major in shared
 //     memory.  O += P V is wgmma with A = P from registers: the fp32 score
 //     fragment is rounded to bf16 pairs in place (the reference's
 //     p.astype(v.dtype)), which is already the A-fragment layout; B = V is
@@ -47,13 +51,23 @@
 //     the reference's own fp32 steps (s * scale, expf), so p is the plain
 //     version's to the bit wherever the scores agree; a row's max and sum
 //     are reduced over the 4 threads of a quad with shuffles; only tiles
-//     that cross the diagonal or the end of the keys are masked.
+//     that cross the diagonal, the end of the keys or the lower edge of a
+//     row's window band are masked.
 //   * Epilogue: O / max(l, 1e-30) in bf16 is staged in the consumer's own Q
 //     rows (free by then) and written by TMA stores, which leave rows past
 //     seq_q unwritten.
 //   * Causal: KV tiles wholly above the diagonal are skipped (the TPU
 //     kernel's `needed`), and the q tiles with the most KV tiles are
 //     scheduled first (the q tile is the slowest grid dimension).
+//   * Window: a block of q rows [q0, q0 + kBQ) starts at the KV tile that
+//     holds key q0 - window + 1, so a layer's work is O(S * window), not
+//     O(S^2).  Producer and consumers count the visited tiles from 0, so
+//     the ring's stages and barrier parities run as without a window.  A
+//     high row of the block may see only masked keys in that first tile: it
+//     takes p = exp(0) = 1 against m = -1e30, and the first tile with a key
+//     in its band wipes that with alpha = exp(-1e30 - m) = 0 -- what the
+//     reference's band and the plain version, which visit those tiles too,
+//     do, so the bits are the plain version's.
 //   * GQA: head h reads KV head h / G directly; no repeated copy of K, V.
 //   The plain version matches it tile for tile with chunk = kBK
 //   (kernels/flash_attention.py kv_tile, held equal to ember_flash_kv_tile).
@@ -62,7 +76,8 @@
 //   f32 tensor-core route is TF32, which keeps ~3 decimal digits and cannot
 //   meet the f32 agreement of 1e-5.  One block of 256 threads per (64-row q
 //   tile, head, batch) streams 64-key K/V tiles through shared memory held
-//   as fp32; f32 is not on the main path.
+//   as fp32, from the first tile of the window band like the bf16 kernel;
+//   f32 is not on the main path.
 //
 // Each kernel is templated on <DQK, DV>: Q and K tiles are DQK / 64 boxes
 // wide and Q K^T takes DQK / 16 wgmma k-steps (12 at DQK = 192); V and the O
@@ -73,6 +88,14 @@
 // consumer's Q rows, which are at least as wide.  The f32 kernel at (192, 128)
 // takes 148,480 bytes of shared memory: one block per SM (two at D = 128),
 // so it is built for one (F32Smem::kMinBlocks) and keeps its registers.
+//
+// (256, 256), bf16, would take Q 64 KiB plus two stages of 128-key K and V
+// tiles, 128 KiB each: more than a block may have.  So its K/V tile is 64
+// keys (FA3's choice at this width): Q 64 KiB, K 2 x 32 KiB, V 2 x 32 KiB,
+// 192 KiB in all.  The scores are m64n64k16 over 16 k-steps and PV is
+// m64n256k16; the O accumulator is 128 fp32 registers of a consumer
+// thread (kConsumerRegs = 232).  The f32 kernel at (256, 256) takes
+// 214,016 bytes: one block per SM, like (192, 128).
 //
 // Head dim 80 runs the (128, 128) instantiation of either kernel, padded: the
 // bf16 kernel's tensor maps are 80 columns wide, so TMA fills columns 80-127
@@ -166,7 +189,7 @@ __global__ void __launch_bounds__(kF32Threads, F32Smem<DQK, DV>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int seq_q, int seq_k, int heads, int kv_heads, int dq,
-                 int dv, float scale) {
+                 int dv, int window, float scale) {
   using S = F32Smem<DQK, DV>;
   constexpr int kG = DV / 64;           // 64-column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -214,7 +237,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int last_q = min(q0 + kF32BQ, seq_q) - 1;
     n_kt = min(n_kt, last_q / kF32BK + 1);
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // and, with a window, those wholly below the band of the tile's first row
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kF32BK : 0;
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kF32BK;
     __syncthreads();   // the previous tile's readers are done
     for (int e = tid; e < kF32BK * DQK; e += kF32Threads) {
@@ -267,7 +292,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
-        const bool keep = k_pos < seq_k && (!CAUSAL || k_pos <= q_pos);
+        const bool keep = k_pos < seq_k && (!CAUSAL || k_pos <= q_pos) &&
+                          (window <= 0 || q_pos - k_pos < window);
         sc[i][j] = keep ? sc[i][j] * scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -482,6 +508,61 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// d[32] (+)= A B: m64n64k16, A and B K-major in shared memory (the scores
+// of a 64-key tile, DQK = 256).  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : EMBER_F8(d, 0), EMBER_F8(d, 8), EMBER_F8(d, 16), EMBER_F8(d, 24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[128] += A B: m64n256k16, A from registers, B MN-major in shared memory
+// (DV = 256).
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : EMBER_F8(d, 0), EMBER_F8(d, 8), EMBER_F8(d, 16), EMBER_F8(d, 24),
+        EMBER_F8(d, 32), EMBER_F8(d, 40), EMBER_F8(d, 48), EMBER_F8(d, 56),
+        EMBER_F8(d, 64), EMBER_F8(d, 72), EMBER_F8(d, 80), EMBER_F8(d, 88),
+        EMBER_F8(d, 96), EMBER_F8(d, 104), EMBER_F8(d, 112),
+        EMBER_F8(d, 120)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 #undef EMBER_F8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -494,17 +575,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 128;              // q rows per block: 64 per consumer
-constexpr int kBK = 128;              // keys per K/V tile
 constexpr int kStages = 2;            // K/V ring depth
 constexpr int kWgThreads = 384;       // producer + 2 consumer warpgroups
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+
+// Keys per K/V tile: 128, or 64 at q/k width 256, where two stages of
+// 128-key K and V tiles (256 KiB with Q) would not fit shared memory.
+constexpr int wg_kv_tile(int dqk) { return dqk == 256 ? 64 : 128; }
 
 // Shared memory in bytes, from a 1024-byte-aligned base.  Every operand is
 // a stack of 64-column blocks, each `rows` x 128 bytes, 128-byte swizzled:
 //   Q: [consumer][column block][64 rows]; K, V: [stage][column block][kBK].
 // Q and K are DQK / 64 blocks wide, V is DV / 64.
 template <int DQK, int DV> struct WgSmem {
+  static constexpr int kBK = wg_kv_tile(DQK);  // keys per K/V tile
   static constexpr int kCBQ = DQK / 64;       // 64-column blocks of a q/k row
   static constexpr int kCBV = DV / 64;        // of a v / o row
   static constexpr int kQCB = 64 * 128;       // one block of a consumer's Q
@@ -517,8 +602,8 @@ template <int DQK, int DV> struct WgSmem {
   static constexpr int kBar = kV + kStages * kVT;
   // barriers: Q, then full K, full V and empty for each stage
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
-  static_assert(DQK % 64 == 0 && (DV == 64 || DV == 128),
-                "q/k width a multiple of 64, v width 64 or 128");
+  static_assert(DQK % 64 == 0 && (DV == 64 || DV == 128 || DV == 256),
+                "q/k width a multiple of 64, v width 64, 128 or 256");
   // the epilogue stages O (DV wide) in the consumer's own Q rows
   static_assert(DV <= DQK, "O must fit the consumer's Q rows");
   static_assert(kBytes <= 232448, "flash tiles exceed shared memory");
@@ -530,8 +615,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const __grid_constant__ CUtensorMap omap, int seq_q,
-                   int seq_k, int heads, int kv_heads, float scale) {
+                   int seq_k, int heads, int kv_heads, int window,
+                   float scale) {
   using L = WgSmem<DQK, DV>;
+  constexpr int kBK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle's alignment
@@ -550,6 +637,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (CAUSAL) {   // skip the KV tiles wholly above the diagonal
     n_kt = min(n_kt, (min(q0 + kBQ, seq_q) - 1) / kBK + 1);
   }
+  // and, with a window, those wholly below the band of the block's first
+  // row; producer and consumers count tiles i = kt - kt_lo from 0, so the
+  // ring's stage and parity start where they do without a window
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int n_visit = n_kt - kt_lo;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -574,10 +666,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       64 * cb, h, q0 + 64 * i, b);
         }
       }
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % kStages;
-        if (kt >= kStages) {   // the stage's previous tile is released
-          mbar_wait(bar_empty + 8 * st, ((kt / kStages) & 1) ^ 1);
+      for (int i = 0; i < n_visit; ++i) {
+        const int kt = kt_lo + i;
+        const int st = i % kStages;
+        if (i >= kStages) {   // the stage's previous tile is released
+          mbar_wait(bar_empty + 8 * st, ((i / kStages) & 1) ^ 1);
         }
         const uint32_t k_s = base + L::kK + st * L::kKT;
         const uint32_t v_s = base + L::kV + st * L::kVT;
@@ -615,10 +708,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     float l[2] = {0.0f, 0.0f};
 
     mbar_wait(bar_q, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int st = kt % kStages;
-      const uint32_t parity = (kt / kStages) & 1;
-      const int k0 = kt * kBK;
+    for (int i = 0; i < n_visit; ++i) {
+      const int st = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = (kt_lo + i) * kBK;
 
       // S = Q K^T over DQK / 16 steps of 16 columns (32 bytes)
       float s[kBK / 2];
@@ -628,9 +721,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;   // within the 128-byte row
-        wgmma_m64n128_ss(s, sw128_desc(q_s + (kk / 4) * L::kQCB + off, 16),
-                         sw128_desc(k_s + (kk / 4) * L::kKVCB + off, 16),
-                         kk > 0);
+        const uint64_t qd = sw128_desc(q_s + (kk / 4) * L::kQCB + off, 16);
+        const uint64_t kd = sw128_desc(k_s + (kk / 4) * L::kKVCB + off, 16);
+        if constexpr (kBK == 128) {
+          wgmma_m64n128_ss(s, qd, kd, kk > 0);
+        } else {
+          wgmma_m64n64_ss(s, qd, kd, kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -640,13 +737,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       // (s * scale, expf), so p rounds to bf16 as the plain version's does
 #pragma unroll
       for (int e = 0; e < kBK / 2; ++e) s[e] *= scale;
-      const bool edge = k0 + kBK > seq_k || (CAUSAL && k0 + kBK - 1 > q_lo);
+      // a tile is masked per element where it crosses the end of the keys,
+      // the diagonal, or the lower edge of some row's band (q - k < window)
+      const bool edge = k0 + kBK > seq_k || (CAUSAL && k0 + kBK - 1 > q_lo) ||
+                        (window > 0 && k0 + window <= q_lo + 63);
       if (edge) {
 #pragma unroll
         for (int e = 0; e < kBK / 2; ++e) {
           const int k_pos = k0 + 8 * (e / 4) + c0 + (e % 2);
           const int q_pos = q_lo + r0 + 8 * ((e / 2) % 2);
-          if (k_pos >= seq_k || (CAUSAL && k_pos > q_pos)) s[e] = kNegInf;
+          if (k_pos >= seq_k || (CAUSAL && k_pos > q_pos) ||
+              (window > 0 && q_pos - k_pos >= window)) {
+            s[e] = kNegInf;
+          }
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -692,7 +795,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t vd = sw128_desc(v_s + kk * 16 * 128, L::kKVCB);
-        if constexpr (DV == 128) {
+        if constexpr (DV == 256) {
+          wgmma_m64n256_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3], vd);
+        } else if constexpr (DV == 128) {
           wgmma_m64n128_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3], vd);
         } else {
@@ -750,6 +856,7 @@ struct FlashArgs {
   int kv_heads;
   int dq;         // the tensors' q / k width: the instantiation's DQK, or less
   int dv;         // their v / o width: DV, or less
+  int window;     // q - k < window, or 0 for none
   float scale;
 };
 
@@ -764,7 +871,7 @@ int launch_f32(const FlashArgs& a, cudaStream_t s) {
   kernel<<<grid, kF32Threads, kBytes, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.seq_q,
-      a.seq_k, a.heads, a.kv_heads, a.dq, a.dv, a.scale);
+      a.seq_k, a.heads, a.kv_heads, a.dq, a.dv, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -819,6 +926,7 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq,
 template <int DQK, int DV, bool CAUSAL>
 int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  constexpr int kBK = WgSmem<DQK, DV>::kBK;
   CUtensorMap qm, km, vm, om;
   if (!encode_bshd(&qm, a.q, a.batch, a.seq_q, a.heads, a.dq, 64) ||
       !encode_bshd(&km, a.k, a.batch, a.seq_k, a.kv_heads, a.dq, kBK) ||
@@ -833,7 +941,8 @@ int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   const dim3 grid((unsigned int)a.heads, (unsigned int)a.batch,
                   (unsigned int)((a.seq_q + kBQ - 1) / kBQ));
   kernel<<<grid, kWgThreads, kBytes, s>>>(qm, km, vm, om, a.seq_q, a.seq_k,
-                                          a.heads, a.kv_heads, a.scale);
+                                          a.heads, a.kv_heads, a.window,
+                                          a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -854,22 +963,26 @@ int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
 // head_dim); v: (batch, seq_k, kv_heads, v_head_dim); o: (batch, seq_q,
 // heads, v_head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16;
 // bf16 pointers 16-byte aligned, as TMA needs).  (head_dim, v_head_dim) one
-// of (64, 64), (80, 80) (padded to 128), (128, 128) and (192, 128); heads a
-// multiple of kv_heads.  scale multiplies the fp32 scores (the reference's
-// head_dim ** -0.5).
+// of (64, 64), (80, 80) (padded to 128), (128, 128), (192, 128) and
+// (256, 256); heads a multiple of kv_heads.  window > 0 keeps the keys with
+// q - k < window (0: no window); every query row must keep one key
+// (seq_q - window < seq_k).  scale multiplies the fp32 scores (the
+// reference's head_dim ** -0.5).
 extern "C" int ember_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int batch,
                                      int seq_q, int seq_k, int heads,
                                      int kv_heads, int head_dim,
                                      int v_head_dim, int dtype, int causal,
-                                     double scale, void* stream) {
+                                     int window, double scale,
+                                     void* stream) {
   const bool dims_ok = (head_dim == v_head_dim &&
                         (head_dim == 64 || head_dim == 80 ||
-                         head_dim == 128)) ||
+                         head_dim == 128 || head_dim == 256)) ||
                        (head_dim == 192 && v_head_dim == 128);
   if (batch <= 0 || batch > 65535 || seq_q <= 0 || seq_k <= 0 ||
       heads <= 0 || heads > 65535 || kv_heads <= 0 ||
-      heads % kv_heads != 0 || !dims_ok || (dtype != 0 && dtype != 1)) {
+      heads % kv_heads != 0 || !dims_ok || (dtype != 0 && dtype != 1) ||
+      window < 0 || (window > 0 && seq_q - window >= seq_k)) {
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1 &&
@@ -878,20 +991,26 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   const FlashArgs a{q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
-                    head_dim, v_head_dim, (float)scale};
+                    head_dim, v_head_dim, window, (float)scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
   if (head_dim == 64) return launch_by_dtype<64, 64>(dtype, c, a, s);
   if (head_dim == 192) return launch_by_dtype<192, 128>(dtype, c, a, s);
+  if (head_dim == 256) return launch_by_dtype<256, 256>(dtype, c, a, s);
   // head dim 80 runs the (128, 128) instantiation, padded (see the top)
   return launch_by_dtype<128, 128>(dtype, c, a, s);
 }
 
-// The KV tile of the kernel that runs `dtype` (0 = float32, 1 = bfloat16),
-// or 0 for another dtype.  The plain version must sum over chunks of this
-// many keys to round p against the same running max, so the checks read
-// their chunk from kernels/flash_attention.py kv_tile, which must equal
-// this (chip_smoke.py phase 2 and tests/test_torch_cuda.py hold them equal).
-extern "C" int ember_flash_kv_tile(int dtype) {
-  return dtype == 0 ? kF32BK : dtype == 1 ? kBK : 0;
+// The KV tile of the kernel that runs `dtype` (0 = float32, 1 = bfloat16)
+// at q/k width `head_dim`, or 0 where there is none.  The plain version
+// must sum over chunks of this many keys to round p against the same
+// running max, so the checks read their chunk from
+// kernels/flash_attention.py kv_tile, which must equal this (chip_smoke.py
+// phase 2 and tests/test_torch_cuda.py hold them equal).
+extern "C" int ember_flash_kv_tile(int dtype, int head_dim) {
+  if (head_dim != 64 && head_dim != 80 && head_dim != 128 &&
+      head_dim != 192 && head_dim != 256) {
+    return 0;
+  }
+  return dtype == 0 ? kF32BK : dtype == 1 ? wg_kv_tile(head_dim) : 0;
 }

@@ -56,11 +56,12 @@ _SIGNATURES = {
     # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, stream
     "ember_fusedmm_ring": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim,
-    # v_head_dim, dtype, causal, scale, stream
+    # v_head_dim, dtype, causal, window, scale, stream
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                              _I32, _I32, _I32, _I32, ctypes.c_double, _P),
-    # dtype -> the flash kernel's KV tile
-    "ember_flash_kv_tile": (_I32,),
+                              _I32, _I32, _I32, _I32, _I32, ctypes.c_double,
+                              _P),
+    # dtype, head_dim -> the flash kernel's KV tile
+    "ember_flash_kv_tile": (_I32, _I32),
 }
 
 #: entry points that return something other than a cudaError_t

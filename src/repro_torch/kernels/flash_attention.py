@@ -2,7 +2,8 @@
 (``csrc/ember_flash_attention.cu``), which replaces the TPU kernel
 ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` and computes the reference's
-``blockwise_attention`` (``src/repro/models/attention.py``).
+``blockwise_attention`` (``src/repro/models/attention.py``), its sliding
+window band included.
 
 Layout as in the JAX package: q (B,Sq,H,D), k (B,Sk,Hkv,D) and v
 (B,Sk,Hkv,Dv), GQA by head groups; Dv = D except in DeepSeek's MLA prefill
@@ -10,12 +11,14 @@ Layout as in the JAX package: q (B,Sq,H,D), k (B,Sk,Hkv,D) and v
 tensors lie on the CPU runs the plain version
 (:func:`repro_torch.kernels.ref.attention`); a CUDA call launches the kernel
 or raises -- nothing falls back.  The dtype picks the kernel: bf16 runs the
-tensor-core kernel (wgmma fed by TMA, 128-key tiles), f32 the scalar fp32
-kernel (64-key tiles).  ``flash_attention_cuda.launches`` counts the kernel
-launches.
+tensor-core kernel (wgmma fed by TMA; 128-key tiles, 64 at D = 256), f32
+the scalar fp32 kernel (64-key tiles).  ``flash_attention_cuda.launches``
+counts the kernel launches and ``flash_attention_cuda.instances`` the same
+launches by dtype, widths, causal and window (:func:`instance`).
 """
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -25,19 +28,38 @@ from .sls import DTYPES, one_device
 
 #: the (q/k width, v width) pairs with a kernel; (80, 80) runs the (128, 128)
 #: kernel on zero-padded columns (csrc/ember_flash_attention.cu)
-HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
-#: each kernel's KV tile: kBK and kF32BK in csrc/ember_flash_attention.cu,
-#: which the built library reports (``ember_flash_kv_tile``); the checks on
-#: the card hold the two equal (chip_smoke.py phase 2, test_torch_cuda.py)
-_KV_TILES = {torch.bfloat16: 128, torch.float32: 64}
+HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
+#: the f32 kernel's KV tile (kF32BK), and the bf16 kernel's (wg_kv_tile):
+#: 128 keys, 64 at q/k width 256; the built library reports them
+#: (``ember_flash_kv_tile``), and the checks on the card hold the two equal
+#: (chip_smoke.py phase 2, test_torch_cuda.py)
+_F32_KV_TILE = 64
 
 
-def kv_tile(dtype: torch.dtype) -> int:
-    """The KV tile of the kernel that runs ``dtype``: the plain version with
-    ``chunk=kv_tile(dtype)`` rounds p against the same running max."""
-    if dtype not in _KV_TILES:
+def kv_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """The KV tile of the kernel that runs ``dtype`` at q/k width
+    ``head_dim``: the plain version with ``chunk=kv_tile(dtype, head_dim)``
+    rounds p against the same running max."""
+    if dtype not in DTYPES:
         raise ValueError(f"no flash kernel for {dtype}")
-    return _KV_TILES[dtype]
+    if head_dim not in {d for d, _ in HEAD_DIMS}:
+        raise ValueError(f"no flash kernel at q/k width {head_dim}")
+    if dtype == torch.float32:
+        return _F32_KV_TILE
+    return 64 if head_dim == 256 else 128
+
+
+def instance(q: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: Optional[int]) -> str:
+    """The key of a launch in ``flash_attention_cuda.instances``: dtype,
+    (q/k, v) widths, causal or not, and the window if the kernel masks
+    one, e.g. ``"bfloat16 256/256 causal window 1024"``."""
+    key = f"{str(q.dtype).split('.')[-1]} {q.shape[3]}/{v.shape[3]}"
+    if causal:
+        key += " causal"
+    if window:
+        key += f" window {window}"
+    return key
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,12 +69,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * D^-1/2, causal) v per head, KV head ``h // (H/Hkv)``
     for query head h -> (B,Sq,H,Dv) in q's dtype.
 
-    ``chunk`` is the KV chunk of the plain version's recurrence (it decides
-    only the fp32 summation order); the kernel streams its own
-    :func:`kv_tile` rows.  On the card, a sliding ``window`` has no kernel
-    yet (ROADMAP.md, Queue 1 item 3) and raises, as does a (D, Dv) pair
-    outside :data:`HEAD_DIMS`; bf16 tensors must be 16-byte aligned (TMA
-    reads them)."""
+    A ``window`` keeps the keys with ``q - k < window`` (the reference's
+    band); it must be positive, and on the card every query row must keep a
+    key (``Sq - window < Sk``); a window of Sq or more masks nothing and
+    runs as none.  ``chunk`` is the KV chunk of the plain version's
+    recurrence (it decides only the fp32 summation order); the kernel
+    streams its own :func:`kv_tile` rows.  On the card a (D, Dv) pair
+    outside :data:`HEAD_DIMS` raises; bf16 tensors must be 16-byte aligned
+    (TMA reads them)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D float32 or "
@@ -65,14 +89,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} ({q.dtype}, {k.dtype}, "
                          f"{v.dtype}) are not one GQA attention")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
     dev = one_device(q, k, v)
     if dev.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
                              chunk=chunk)
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention has no Hopper kernel yet (ROADMAP.md, "
-            "Queue 1 item 3: the dense_local block kind)")
+    sk = k.shape[1]
+    # a window of sq or more masks nothing (q - k <= sq - 1)
+    win = window if window is not None and window < sq else 0
+    if win and sq - win >= sk:
+        raise ValueError(f"window {win}: query rows past {sk + win - 1} "
+                         f"keep no key of {sk}")
     dv = v.shape[3]
     if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"head dims (q/k {d}, v {dv}) not among the "
@@ -84,15 +112,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "their data must be 16-byte aligned")
     if out.numel() == 0:
         return out
-    sk, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     with torch.cuda.device(dev):
         err = _build.library().ember_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, h, hkv, d, dv, DTYPES[q.dtype], int(causal), d ** -0.5,
+            sk, h, hkv, d, dv, DTYPES[q.dtype], int(causal), win, d ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ember_flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.instances[instance(q, v, causal, win)] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.instances = collections.Counter()

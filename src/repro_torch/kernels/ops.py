@@ -40,6 +40,7 @@ def reset_launch_counts() -> None:
         w.launches = 0
         for v in getattr(w, "variants", {}):
             w.variants[v] = 0
+    flash_attention_cuda.instances.clear()
 
 
 __all__ = ["sls", "block_gather", "fusedmm", "attention", "ref",

@@ -6,12 +6,17 @@ decode through :class:`~repro_torch.runtime.server.DecodeServer`.
         --arch deepseek-v2-lite-16b --pipeline
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-235b-a22b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --pipeline --max-len 1536
 
 The model is built on the CUDA card, with random weights from ``--seed``,
 unless ``--device cpu`` is given; without a card the default raises.
-``--reduced`` takes the architecture's small config (the only one of
-qwen3-moe-235b-a22b that fits one card); an MoE model's pipeline feeds its
-un-dispatch member too.
+``--arch`` takes every config of ``repro_torch.configs``: the
+``dense_local`` models (gemma3-4b, h2o-danube-1.8b) decode over their
+sliding window, and llava-next-34b serves text only, as the reference's
+server does.  ``--reduced`` takes the architecture's small config (the
+only one of qwen3-moe-235b-a22b that fits one card); an MoE model's
+pipeline feeds its un-dispatch member too.
 Fault-tolerance knobs as in the reference: ``--index-policy`` hardens the
 prompts and the mirrored offset streams, ``--ttft-slo`` /
 ``--capacity-rps`` turn on SLO-aware shedding, ``--wave-deadline`` arms

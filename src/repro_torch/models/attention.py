@@ -7,9 +7,10 @@ attention: :func:`init_mla`, :func:`mla_forward`, :func:`mla_decode` and
 :func:`init_mla_cache`).
 
 :func:`blockwise_attention` is the reference's online-softmax attention over
-KV chunks.  Here it is one call to ``kernels.ops.attention``: the
-hand-written flash kernel on CUDA tensors, its plain version (the same
-recurrence, chunk by chunk) on CPU tensors.
+KV chunks, with the sliding-window band of the ``dense_local`` layers.
+Here it is one call to ``kernels.ops.attention``: the hand-written flash
+kernel on CUDA tensors (which visits only the KV tiles of the band), its
+plain version (the same recurrence, chunk by chunk) on CPU tensors.
 
 Decode attention is a stock-op product in the reference too (an einsum, no
 Pallas kernel); here it is two batched products whose bf16 operands are
@@ -30,7 +31,9 @@ key ``kr`` (B, Smax, rd), in the reference's own layout, and ``len`` (B,);
 prefill runs the flash kernel with q/k width ``hd + rd`` (192 in
 DeepSeek-V2-Lite) and v width ``hd`` (128).
 
-The sliding-window band is still to port (ROADMAP.md, Queue 1 item 3).
+A ``dense_local`` layer's decode masks the positions below ``len - window``
+(:func:`decode_attention`); its cache is ``max_len`` long, as the
+reference allocates it.
 
 Decode issues no host read, builds no tensor from host data and allocates
 nothing whose size depends on values, so a served micro-step can be
@@ -56,9 +59,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         chunk: int = 512) -> torch.Tensor:
     """q (B,Sq,H,D); k,v (B,Sk,Hkv,D); GQA via head grouping -> (B,Sq,H,D).
 
-    ``chunk`` sets the plain version's KV chunk (its fp32 summation order);
-    the kernel tiles by itself.  On CUDA a ``window`` raises
-    ``NotImplementedError`` (no kernel for the band yet)."""
+    ``window`` keeps the keys with ``q - k < window`` (the reference's
+    band).  ``chunk`` sets the plain version's KV chunk (its fp32 summation
+    order); the kernel tiles by itself."""
     return kops.attention(q, k, v, causal=causal, window=window, chunk=chunk)
 
 

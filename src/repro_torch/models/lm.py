@@ -1,10 +1,12 @@
 """LM assembly (counterpart of ``repro/models/lm.py``).
 
 Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
-gated MLP), the ``moe`` kind (GQA attention + the MoE FFN) and the ``mla``
-kind (DeepSeek's latent attention + the MoE FFN), :meth:`LM.forward` (the
-MoE layers' auxiliary loss summed beside it) and :meth:`LM.prefill`, the
-serving methods
+gated MLP), ``dense_local`` (the same with the sliding-window band of
+``cfg.sliding_window``), the ``moe`` kind (GQA attention + the MoE FFN) and
+the ``mla`` kind (DeepSeek's latent attention + the MoE FFN),
+:meth:`LM.forward` (the MoE layers' auxiliary loss summed beside it; the
+``vision-stub`` front end's ``frontend_embeds`` spliced over the first
+positions) and :meth:`LM.prefill`, the serving methods
 (:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask,
 :meth:`LM.wave_step`, :meth:`LM.reset_slots`), and the LM's embedding
 programs and executors (:func:`embedding_program`,
@@ -15,10 +17,11 @@ into a ``jax.lax.scan`` over super-blocks; here the layers are an
 remainder, as the reference does), and a wave is a Python loop of masked
 micro-steps (which the server replays as CUDA graphs on the card:
 :class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
-Queue 1): the other block kinds, the loss and training, and the sharded
-embedding executor.
+Queue 1): the loss (item 4), the other block kinds (item 5), the sharded
+embedding executor (item 6) and training (item 7).
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
+``frontend_proj`` where ``cfg.modality`` is not ``"text"``,
 ``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``;
 MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``; the MoE kinds'
 ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``) and layout, so
@@ -46,10 +49,10 @@ from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
                         init_mla, init_mla_cache, mla_decode, mla_forward)
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
-PORTED_KINDS = ("dense", "moe", "mla")
+PORTED_KINDS = ("dense", "dense_local", "moe", "mla")
 #: the ROADMAP.md Queue 1 item that ports each other block kind
-KIND_ITEMS = {"dense_local": 3, "xdec": 5, "enc_dense": 5, "mamba": 5,
-              "shared_attn": 5, "mlstm": 5, "slstm": 5}
+KIND_ITEMS = {"xdec": 5, "enc_dense": 5, "mamba": 5, "shared_attn": 5,
+              "mlstm": 5, "slstm": 5}
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 
@@ -131,6 +134,23 @@ class DenseBlock(nn.Module):
         return x + h
 
 
+class LocalBlock(DenseBlock):
+    """``dense_local``: :class:`DenseBlock` with the sliding-window band --
+    a query at position q attends to the keys with ``q - k <
+    cfg.sliding_window`` in the prefill, and a decode step to the last
+    ``sliding_window`` positions of its cache (the reference's
+    ``block_apply`` / ``block_decode``).  Its cache is ``max_len`` long,
+    as the reference allocates it."""
+
+    def _attend(self, h: torch.Tensor, positions: torch.Tensor):
+        return attn_forward(self.attn, h, self.cfg, positions=positions,
+                            causal=True, window=self.cfg.sliding_window)
+
+    def _attend_decode(self, h: torch.Tensor, cache: dict, active):
+        return attn_decode(self.attn, h, self.cfg, cache,
+                           window=self.cfg.sliding_window, active=active)
+
+
 class MoeBlock(DenseBlock):
     """``moe``: causal GQA attention + the MoE FFN (routed experts, and the
     shared ones where the config has them), pre-norm residual."""
@@ -156,7 +176,8 @@ class MlaBlock(MoeBlock):
         return mla_decode(self.attn, h, self.cfg, cache, active=active)
 
 
-BLOCKS = {"dense": DenseBlock, "moe": MoeBlock, "mla": MlaBlock}
+BLOCKS = {"dense": DenseBlock, "dense_local": LocalBlock, "moe": MoeBlock,
+          "mla": MlaBlock}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple:
@@ -167,13 +188,14 @@ def layer_kinds(cfg: ModelConfig) -> tuple:
 
 
 class LM(nn.Module):
-    """The decoder stack of a config whose blocks are ``dense``, ``moe`` or
-    ``mla``.
+    """The decoder stack of a config whose blocks are ``dense``,
+    ``dense_local``, ``moe`` or ``mla``.
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; ``"meta"``
     builds the module tree without memory) and initialised there from
     ``seed`` with an explicit :class:`torch.Generator`: embed N(0, 0.02),
-    norms 1, weights N(0, fan_in^-1/2), in ``cfg.dtype``."""
+    norms 1, weights N(0, fan_in^-1/2), in ``cfg.dtype``; a front end's
+    ``frontend_proj`` is the identity, as the reference's."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
@@ -199,18 +221,37 @@ class LM(nn.Module):
                                  device=dev) * 0.02).to(dtype)
         self.embed = _frozen(embed)
         self.final_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
+        if cfg.modality != "text":
+            self.frontend_proj = _frozen(torch.eye(cfg.d_model, dtype=dtype,
+                                                   device=dev))
         self.blocks = nn.ModuleList(BLOCKS[kind](cfg, gen, dtype, dev)
                                     for kind in layer_kinds(cfg))
 
-    def forward(self, tokens: torch.Tensor, *, with_aux: bool = False):
+    def forward(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None, *,
+                with_aux: bool = False):
         """tokens (B,S) int -> hidden states (B,S,D) after the final norm
-        (the reference's ``forward(params, {"tokens": ...})[0]``).  With
-        ``with_aux``, ``(hidden, aux)``: the sum of the MoE layers'
-        load-balance losses, fp32 (0 for a dense stack), which the
-        reference's ``forward`` returns beside the hidden states for its
-        loss."""
+        (the reference's ``forward(params, {"tokens": ...})[0]``).
+
+        ``frontend_embeds`` (B,Sf,D), in the model's dtype, are a
+        ``vision-stub`` model's patch embeddings: projected by
+        ``frontend_proj``, they replace the token embeddings of the first
+        Sf positions (the reference's splice; a text model ignores them, as
+        the reference does).  With ``with_aux``, ``(hidden, aux)``: the sum
+        of the MoE layers' load-balance losses, fp32 (0 for a dense stack),
+        which the reference's ``forward`` returns beside the hidden states
+        for its loss."""
         b, s = tokens.shape
         x = ee.lookup(self.embed, tokens, strategy="take")
+        if self.cfg.modality == "vision-stub" and frontend_embeds is not None:
+            if frontend_embeds.dtype != x.dtype or \
+                    frontend_embeds.shape[1] > s:
+                raise ValueError(
+                    f"frontend_embeds {frontend_embeds.dtype}"
+                    f"{tuple(frontend_embeds.shape)} do not splice into "
+                    f"{s} positions of {x.dtype}")
+            fe = frontend_embeds @ self.frontend_proj
+            x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
         positions = torch.arange(s, dtype=torch.float32,
                                  device=tokens.device)[None].expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -222,10 +263,13 @@ class LM(nn.Module):
         return (x, aux) if with_aux else x
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The serving prefill step: the full-sequence forward, returning
-        the last position's hidden state (B,1,D)."""
-        return self.forward(tokens)[:, -1:]
+    def prefill(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """The serving prefill step: the full-sequence forward (with the
+        front end's embeddings, if given), returning the last position's
+        hidden state (B,1,D)."""
+        return self.forward(tokens, frontend_embeds)[:, -1:]
 
     # ---- serving ----
     @property

@@ -44,8 +44,10 @@ reset once, in ``__init__`` (``jax.jit(lm.wave_step)``,
 server captures CUDA graphs of the decode micro-step (one per mask form)
 and of the slot reset once, on its own caches (:class:`WaveGraph`), and a
 wave replays them: the host issues a copy, a mask and one graph launch a
-micro-step instead of every operation of the model.  A capture that fails
-raises; nothing falls back to the eager wave.  A model whose ``device``
+micro-step instead of every operation of the model.  A ``dense_local``
+layer's decode builds its window mask on the device from the caches'
+``len``, so its micro-step is captured like any other.  A capture that
+fails raises; nothing falls back to the eager wave.  A model whose ``device``
 is not a CUDA device (the CPU, or a stub with no ``device``) runs
 ``lm.wave_step`` / ``lm.reset_slots`` eagerly.
 

@@ -288,7 +288,7 @@ def test_fusedmm_and_flash_launch_errors_raise(cuda):
     q = torch.randn(1, 8, 2, 96, device=cuda)
     err = lib.ember_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(),
                                     q.data_ptr(), 1, 8, 8, 2, 2, 96, 96, 0,
-                                    1, 96 ** -0.5, stream)
+                                    1, 0, 96 ** -0.5, stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="failed to launch"):
         _build.check(err, "ember_flash_attention")
@@ -425,7 +425,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, h, hkv, causal, s, sk):
     got = kops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert kops.launch_counts()["flash_attention"] == before + 1
-    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype, d))
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
@@ -447,7 +447,7 @@ def test_plain_bf16_attention_on_the_card_matches_the_cpu(cuda, d, causal):
     q = torch.randn((2, 200, 16, d), generator=g, device=cuda).bfloat16()
     k = torch.randn((2, 328, 1, d), generator=g, device=cuda).bfloat16()
     v = torch.randn((2, 328, 1, d), generator=g, device=cuda).bfloat16()
-    chunk = kv_tile(torch.bfloat16)
+    chunk = kv_tile(torch.bfloat16, d)
     got = ref.attention(q, k, v, causal=causal, chunk=chunk)
     want = ref.attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
                          chunk=chunk)
@@ -475,7 +475,7 @@ def test_flash_kernel_at_head_dim_80_matches_plain(cuda, dtype, h, hkv,
     torch.cuda.synchronize()
     assert kops.launch_counts()["flash_attention"] == before + 1
     assert got.shape == q.shape
-    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype, 80))
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
@@ -491,13 +491,14 @@ def test_flash_kernel_at_head_dim_80_leaves_its_neighbours_alone(cuda):
     out = kops.attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     check_bf16(out, ref.attention(q, k, v, causal=True,
-                                  chunk=kv_tile(torch.bfloat16)), "D = 80")
+                                  chunk=kv_tile(torch.bfloat16, 80)),
+               "D = 80")
     from repro_torch.kernels import _build
     buf = torch.full((2 * out.numel(),), 7.0, device=cuda).bfloat16()
     o = buf[:out.numel()].view_as(out)
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
-        4, 4, 80, 80, 1, 1, 80 ** -0.5,
+        4, 4, 80, 80, 1, 1, 0, 80 ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -525,7 +526,7 @@ def test_flash_kernel_at_mla_widths_matches_plain(cuda, dtype, h, hkv,
     torch.cuda.synchronize()
     assert kops.launch_counts()["flash_attention"] == before + 1
     assert got.shape == (2, s, h, 128) and got.dtype == dtype
-    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype))
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype, 192))
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
@@ -543,14 +544,14 @@ def test_flash_kernel_at_mla_widths_leaves_its_neighbours_alone(cuda):
     torch.cuda.synchronize()
     assert out.shape == (1, 256, 4, 128)
     check_bf16(out, ref.attention(q, k, v, causal=True,
-                                  chunk=kv_tile(torch.bfloat16)),
+                                  chunk=kv_tile(torch.bfloat16, 192)),
                "(192, 128)")
     from repro_torch.kernels import _build
     buf = torch.full((2 * q.numel(),), 7.0, device=cuda).bfloat16()
     o = buf[:out.numel()].view_as(out)
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
-        4, 4, 192, 128, 1, 1, 192 ** -0.5,
+        4, 4, 192, 128, 1, 1, 0, 192 ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -567,18 +568,116 @@ def test_bf16_flash_kernel_at_mla_widths_at_prefill_length(cuda):
     v = torch.randn((1, 4096, 4, 128), generator=g, device=cuda).bfloat16()
     got = kops.attention(q, k, v, causal=True)
     check_bf16(got, ref.attention(q, k, v, causal=True,
-                                  chunk=kv_tile(torch.bfloat16)),
+                                  chunk=kv_tile(torch.bfloat16, 192)),
                "flash (192, 128) S=4096")
 
 
+def _held(got, q, k, v, what, **kw):
+    """The kernel's output against the plain version over its own tiles:
+    f32 at 1e-5 (the same recurrence, sums in another order), bf16 by
+    check_bf16."""
+    want = _plain_over_kernel_tiles(q, k, v, **kw)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, what)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kv_tile_is_the_kernels_own(cuda, dtype):
-    """The checks sum the plain version over kv_tile(dtype) keys: that must
-    be the KV tile the built kernel streams."""
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 4), (8, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(64, 64), (128, 128), (200, 200),
+                                  (200, 328)])
+def test_flash_kernel_at_head_dim_256_matches_plain(cuda, dtype, h, hkv,
+                                                    causal, s, sk):
+    """gemma3-4b's heads: q/k and v width 256, on 64-key K/V tiles in bf16
+    (two stages of 128-key tiles would not fit shared memory)."""
+    g = torch.Generator(device=cuda).manual_seed(s + sk + h + 256)
+    q = torch.randn((2, s, h, 256), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, sk, hkv, 256), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, sk, hkv, 256), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    _held(got, q, k, v, "flash attention at (256, 256)", causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 100, 128, 129, 299])
+def test_flash_kernel_with_a_window_matches_plain(cuda, dtype, d, causal,
+                                                  window):
+    """The sliding-window band (q - k < window): windows that are and are
+    not a multiple of either KV tile, over a ragged 300 keys (q tiles whose
+    first visited KV tile holds rows with no key in their band), and 200
+    queries over 328 keys."""
+    g = torch.Generator(device=cuda).manual_seed(d + window + causal)
+    for s, sk in ((300, 300), (200, 328)):
+        q = torch.randn((2, s, 8, d), generator=g, device=cuda).to(dtype)
+        k = torch.randn((2, sk, 2, d), generator=g, device=cuda).to(dtype)
+        v = torch.randn((2, sk, 2, d), generator=g, device=cuda).to(dtype)
+        before = dict(kops.flash_attention_cuda.instances)
+        got = kops.attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        key = f"{str(dtype)[6:]} {d}/{d}{' causal' if causal else ''}"
+        if window < s:        # a window of Sq or more runs as none
+            key += f" window {window}"
+        assert kops.flash_attention_cuda.instances[key] == \
+            before.get(key, 0) + 1
+        _held(got, q, k, v, f"window {window} Sq={s} Sk={sk}",
+              causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_kernel_window_of_sk_or_more_is_no_window(cuda, dtype, d):
+    """A window of Sk or more masks nothing: the bits of no window."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((1, 200, 4, d), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    for causal in (True, False):
+        none = kops.attention(q, k, v, causal=causal)
+        for window in (200, 201, 10 ** 6):
+            assert torch.equal(kops.attention(q, k, v, causal=causal,
+                                              window=window), none)
+
+
+def test_flash_kernel_with_a_window_of_one_returns_v(cuda):
+    """A window of 1 keeps only the diagonal: p = 1, so each output row is
+    its own value row, to the bit."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 300, 4, 256), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    assert torch.equal(kops.attention(q, k, v, causal=True, window=1), v)
+
+
+@pytest.mark.parametrize("d,window", [(256, 1024), (80, 4096)])
+def test_bf16_flash_kernel_with_a_window_at_prefill_length(cuda, d, window):
+    """gemma3-4b's local layer (head dim 256, window 1024) and
+    h2o-danube-1.8b's (head dim 80, window 4096) cut to a few heads, at a
+    length where the band skips most KV tiles."""
+    g = torch.Generator(device=cuda).manual_seed(window)
+    s = 2 * window + 300
+    q = torch.randn((1, s, 4, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((1, s, 2, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    got = kops.attention(q, k, v, causal=True, window=window)
+    _held(got, q, k, v, f"flash D={d} window {window} S={s}", causal=True,
+          window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128, 192, 256])
+def test_kv_tile_is_the_kernels_own(cuda, dtype, d):
+    """The checks sum the plain version over kv_tile(dtype, d) keys: that
+    must be the KV tile the built kernel streams at that q/k width."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.sls import DTYPES
-    assert _build.library().ember_flash_kv_tile(DTYPES[dtype]) == \
-        kv_tile(dtype)
+    assert _build.library().ember_flash_kv_tile(DTYPES[dtype], d) == \
+        kv_tile(dtype, d)
 
 
 @pytest.mark.parametrize("sq,sk", [(4096, 4096), (4000, 4096), (4000, 4000)])
@@ -592,7 +691,7 @@ def test_bf16_flash_kernel_at_prefill_length(cuda, sq, sk):
     v = torch.randn((1, sk, 1, 128), generator=g, device=cuda).bfloat16()
     got = kops.attention(q, k, v, causal=True)
     want = ref.attention(q, k, v, causal=True,
-                         chunk=kv_tile(torch.bfloat16))
+                         chunk=kv_tile(torch.bfloat16, 128))
     check_bf16(got, want, f"flash Sq={sq} Sk={sk}")
 
 
@@ -610,7 +709,7 @@ def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
     assert kops.launch_counts()["flash_attention"] == before
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), k.data_ptr(), k.data_ptr(), 1, 64, 64,
-        2, 2, 64, 64, 1, 1, 64 ** -0.5,
+        2, 2, 64, 64, 1, 1, 0, 64 ** -0.5,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
 
@@ -618,8 +717,15 @@ def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
 def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.randn((1, 16, 4, 64), device=cuda)
     k = torch.randn((1, 16, 2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        kops.attention(q, k, k, window=4)
+    before = kops.launch_counts()["flash_attention"]
+    for window in (0, -3):
+        with pytest.raises(ValueError, match="window must be positive"):
+            kops.attention(q, k, k, window=window)
+    # rows 8.. of 16 queries over 4 keys keep no key of a window of 5
+    with pytest.raises(ValueError, match="keep no key"):
+        kops.attention(q, k[:, :4].contiguous(), k[:, :4].contiguous(),
+                       window=5)
+    assert kops.launch_counts()["flash_attention"] == before
     # (64, 32): a value width with no kernel at that q/k width
     with pytest.raises(ValueError, match="q/k 64, v 32"):
         kops.attention(q, k, torch.randn((1, 16, 2, 32), device=cuda))
@@ -654,7 +760,8 @@ def _attention_through(fn):
 
 
 def _plain_over_kernel_tiles(q, k, v, **kw):
-    return ref.attention(q, k, v, **{**kw, "chunk": kv_tile(q.dtype)})
+    return ref.attention(q, k, v,
+                         **{**kw, "chunk": kv_tile(q.dtype, q.shape[3])})
 
 
 def test_small_lm_prefill_with_the_kernel_matches_plain(cuda):
@@ -717,6 +824,43 @@ def test_head_dim_80_lm_forward_on_the_card_matches_plain(cuda):
             torch.inference_mode():
         want = model(tokens)
     assert got.shape == (2, 200, cfg.d_model)
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+def test_gemma3_like_lm_forward_on_the_card_matches_plain(cuda):
+    """LM.forward on a gemma3-like config (five dense_local layers with a
+    100-token window and a dense one, 2 heads of 256 over 1 KV head, bf16)
+    on the card: the local layers launch the windowed (256, 256) kernel,
+    the global one the causal one; every layer's kernel output against the
+    plain version on its own q, k, v, and the hidden states against a
+    forward through plain attention (5e-2, as above)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_reduced("gemma3-4b"), num_layers=6,
+                              d_model=512, num_heads=2, num_kv_heads=1,
+                              head_dim=256, d_ff=1024, sliding_window=100,
+                              dtype="bfloat16")
+    model = LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda)
+    kops.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(tokens)
+    assert dict(kops.flash_attention_cuda.instances) == {
+        "bfloat16 256/256 causal window 100": 5,
+        "bfloat16 256/256 causal": 1}
+    held = []
+
+    def checked(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        held.append(kw.get("window"))
+        _held(out, q, k, v, f"layer {len(held)}", **kw)
+        return out
+    with _attention_through(checked), torch.inference_mode():
+        assert torch.equal(model(tokens), got)
+    assert held == [100] * 5 + [None]
+    with _attention_through(_plain_over_kernel_tiles), \
+            torch.inference_mode():
+        want = model(tokens)
     torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
 
 
@@ -878,12 +1022,17 @@ def _lockstep(model, prompts, new_tokens, **kw):
     ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"}),
     ("deepseek-v2-lite-16b", {}),
     ("deepseek-v2-lite-16b", {"dtype": "bfloat16"}),
-    ("qwen3-moe-235b-a22b", {})])
+    ("qwen3-moe-235b-a22b", {}),
+    ("gemma3-4b", {}), ("gemma3-4b", {"dtype": "bfloat16"}),
+    ("h2o-danube-1.8b", {}), ("llava-next-34b", {})])
 def test_graph_served_drive_equals_the_eager_drive_bit_for_bit(cuda, arch,
                                                                over):
     """The captured wave (two mask forms) and slot reset against the eager
     wave on a reduced model: every wave's logits, every cache leaf after
-    every serving iteration (resets included), and every emitted token."""
+    every serving iteration (resets included), and every emitted token.
+    The dense_local models' window of 8 is passed by the 9- and 13-token
+    prompts and by every request's decode: their windowed micro-steps are
+    captured too."""
     from repro_torch.configs import get_reduced
     from repro_torch.models.lm import LM
     model = LM(dataclasses.replace(get_reduced(arch), **over), seed=0)
@@ -988,7 +1137,7 @@ def test_mla_block_on_the_card_matches_the_cpu(cuda, masked):
                     .manual_seed(2))
     pos = torch.arange(12, dtype=torch.float32)[None].expand(2, 12)
     want, waux = host(x, pos)
-    with _attention_through(_plain_over_kernel_tiles):
+    with _attention_through(ref.attention):
         got, aux = card(x.to(cuda), pos.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=1e-6)

@@ -74,6 +74,24 @@ def test_port_runs_with_jax_and_repro_unimportable():
         srv.run_until_drained()
         assert req.status == "ok" and len(req.out) == 3
         assert len(srv.pipeline_group.names) == 2
+        # the dense_local kind and the vision-stub front end
+        from repro_torch.configs import gemma3_4b, h2o_danube_1_8b, \
+            llava_next_34b
+        assert llava_next_34b.VISION_TOKENS == 576
+        for arch in ("gemma3-4b", "h2o-danube-1.8b"):
+            local = LM(get_reduced(arch), device="cpu", seed=3)
+            assert type(local.blocks[0]).__name__ == "LocalBlock"
+            srv = DecodeServer(local, batch_slots=2, max_len=32,
+                               prefill_chunk=4, pipeline=True)
+            req = Request(prompt=np.arange(11, dtype=np.int32),
+                          max_new_tokens=3)
+            srv.submit(req)
+            srv.run_until_drained()
+            assert req.status == "ok" and len(req.out) == 3
+        vlm = LM(get_reduced("llava-next-34b"), device="cpu", seed=3)
+        last = vlm.prefill(torch.randint(0, 256, (2, 12)),
+                           torch.randn(2, 4, 64))
+        assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -88,6 +106,8 @@ def test_port_runs_with_jax_and_repro_unimportable():
 def test_no_port_source_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    assert {f"{n}.py" for n in ("gemma3_4b", "h2o_danube_1_8b",
+                                 "llava_next_34b")} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

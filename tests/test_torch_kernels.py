@@ -283,7 +283,8 @@ def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
     version against the reference's Pallas flash kernel in interpret mode
     (one head per batch row there, KV heads repeated), f32, 2e-5."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    assert HEAD_DIMS == ((64, 64), (80, 80), (128, 128), (192, 128))
+    assert HEAD_DIMS == ((64, 64), (80, 80), (128, 128), (192, 128),
+                         (256, 256))
     rng = np.random.default_rng(h + causal)
     b, s, d = 2, 128, 80
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)
@@ -299,3 +300,47 @@ def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
                           block_q=64, block_k=64, interpret=True)
     want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(got.numpy(), want, **TOL_F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 1)])
+def test_flash_wrapper_at_head_dim_256_matches_the_reference(causal, h,
+                                                            hkv):
+    """gemma3-4b's head dim, whose bf16 kernel streams 64-key tiles: on CPU
+    tensors the wrapper's plain version at that tile against the
+    reference's Pallas flash kernel in interpret mode at the same KV block,
+    f32, 2e-5."""
+    from repro_torch.kernels.flash_attention import kv_tile
+    tile = kv_tile(torch.bfloat16, 256)
+    assert tile == 64
+    rng = np.random.default_rng(h + hkv + causal)
+    b, s, d = 1, 128, 256
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    got = tops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=tile)
+    flat = [np.ascontiguousarray(np.repeat(a, h // a.shape[2], 2)
+                                 .transpose(0, 2, 1, 3)).reshape(b * h, s, d)
+            for a in (q, k, v)]
+    want = jops.attention(*map(jnp.asarray, flat), causal=causal,
+                          block_q=64, block_k=tile, interpret=True)
+    want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL_F32)
+
+
+def test_flash_wrapper_window_checks_and_instance_keys():
+    """A window must be positive (on the CPU too); the launch counts by
+    instance name dtype, widths, causal and the window the kernel masks."""
+    from repro_torch.kernels.flash_attention import instance
+    q = _t(RNG.standard_normal((1, 8, 4, 64)).astype(np.float32))
+    k = _t(RNG.standard_normal((1, 8, 2, 64)).astype(np.float32))
+    for window in (0, -1):
+        with pytest.raises(ValueError, match="window must be positive"):
+            tops.attention(q, k, k, window=window)
+    tops.reset_launch_counts()
+    tops.attention(q, k, k, window=3)
+    assert tops.launch_counts()["flash_attention"] == 0
+    assert not tops.flash_attention_cuda.instances
+    assert instance(q.bfloat16(), k, True, 1024) == \
+        "bfloat16 64/64 causal window 1024"
+    assert instance(q, k[..., :32], False, 0) == "float32 64/32"

@@ -318,18 +318,23 @@ def test_full_chatglm3_builds_on_meta_with_the_reference_count():
 
 def test_lm_rejects_block_kinds_not_ported():
     cfg = dataclasses.replace(get_reduced("stablelm-3b"),
-                              block_pattern=("dense_local",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+                              block_pattern=("dense_local", "mamba"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         LM(cfg, device="meta")
 
 
 def test_kv_tile_is_each_kernels_tile():
-    """bf16 runs the wgmma kernel (kBK = 128 keys), f32 the scalar kernel
-    (kF32BK = 64); no other dtype has a flash kernel."""
-    assert kv_tile(torch.bfloat16) == 128
-    assert kv_tile(torch.float32) == 64
+    """bf16 runs the wgmma kernel (kBK = 128 keys, 64 at q/k width 256),
+    f32 the scalar kernel (kF32BK = 64); no other dtype or width has a
+    flash kernel."""
+    for d in (64, 80, 128, 192):
+        assert kv_tile(torch.bfloat16, d) == 128
+        assert kv_tile(torch.float32, d) == 64
+    assert kv_tile(torch.bfloat16, 256) == kv_tile(torch.float32, 256) == 64
     with pytest.raises(ValueError, match="no flash kernel"):
-        kv_tile(torch.float16)
+        kv_tile(torch.float16, 128)
+    with pytest.raises(ValueError, match="no flash kernel at q/k width"):
+        kv_tile(torch.bfloat16, 112)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -340,8 +345,8 @@ def test_plain_attention_at_the_kernel_tile_matches_blockwise_attention(
     """The plain version at the chunk the card's checks give it (the
     kernel's own KV tile) is the reference's blockwise_attention at that
     chunk (which takes whole chunks only): f32, 2e-5."""
-    tile = kv_tile(dtype)
-    q, k, v = _qkv(tile + sq, 2, sq, 8, 2, 32, sk=sk)
+    tile = kv_tile(dtype, 64)
+    q, k, v = _qkv(tile + sq, 2, sq, 8, 2, 64, sk=sk)
     got = kops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=tile)
     want = jattn.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), causal=causal,
@@ -356,7 +361,7 @@ def test_bf16_agreement_holds_for_the_pallas_flash_kernel():
     plain version over chunks of that tile: the same recurrence, another
     order of fp32 sums."""
     rng = np.random.default_rng(5)
-    tile = kv_tile(torch.bfloat16)
+    tile = kv_tile(torch.bfloat16, 64)
     q, k, v = [jnp.asarray(rng.standard_normal((4, 256, 64)),
                            jnp.bfloat16) for _ in range(3)]
     want = jkops.attention(q, k, v, causal=True, block_q=64, block_k=tile,
@@ -379,7 +384,7 @@ def test_bf16_agreement_rejects_p_left_unrounded():
     elementwise tolerance passes it; it changes a large share of them, and
     check_bf16 rejects it."""
     q, k, v = _long_bf16_qkv()
-    tile = kv_tile(torch.bfloat16)
+    tile = kv_tile(torch.bfloat16, 64)
     want = tref.attention(q, k, v, causal=True, chunk=tile)
     bad = tref.attention(q, k, v.float(), causal=True, chunk=tile)
     assert bad.dtype == torch.bfloat16
@@ -394,7 +399,7 @@ def test_bf16_agreement_rejects_a_dropped_key_tile():
     for the rows past the middle of a 4096-token prefill fails
     check_bf16."""
     q, k, v = _long_bf16_qkv()
-    t, cut = kv_tile(torch.bfloat16), 2048
+    t, cut = kv_tile(torch.bfloat16, 64), 2048
     want = tref.attention(q, k, v, causal=True, chunk=t)
     bad = want.clone()
     # rows i >= cut attend to keys t..i only
@@ -517,3 +522,117 @@ def test_full_moe_model_builds_on_meta_with_the_reference_count(arch):
     if arch == "deepseek-v2-lite-16b":
         assert 15.5e9 < want < 16.5e9
         assert model.blocks[0].attn["wq"].shape == (2048, 16 * 192)
+
+
+# ---------------------------------------------------------------------------
+# The sliding window (dense_local) and the vision-stub front end:
+# gemma3-4b, h2o-danube-1.8b, llava-next-34b
+# ---------------------------------------------------------------------------
+
+WINDOW_ARCHS = ["gemma3-4b", "h2o-danube-1.8b", "llava-next-34b"]
+
+
+@pytest.mark.parametrize("d", [16, 64, 256])
+@pytest.mark.parametrize("window", [1, 3, 8, 40])
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_plain_windowed_attention_matches_the_banded_reference(d, window,
+                                                               chunk):
+    """The plain version with a window (what the wrapper runs on the CPU)
+    against the reference's banded blockwise_attention, which visits only
+    the KV chunks of the band, and its O(S^2) dense_attention, causal, at
+    head dims 16, 64 and 256 and windows of 1, 3, 8 and more than S:
+    f32, 2e-5."""
+    q, k, v = _qkv(d + window + chunk, 2, 32, 4, 2, d)
+    got = kops.attention(_t(q), _t(k), _t(v), causal=True, window=window,
+                         chunk=chunk)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    banded = jattn.blockwise_attention(jq, jk, jv, causal=True,
+                                       window=window, chunk=chunk,
+                                       banded=True)
+    dense = jattn.dense_attention(jq, jk, jv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(banded), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(dense), **F32)
+    if window >= 32:
+        np.testing.assert_array_equal(
+            got.numpy(), kops.attention(_t(q), _t(k), _t(v), causal=True,
+                                        chunk=chunk).numpy())
+
+
+def _window_pair(arch, seed):
+    from repro.configs import get_reduced as jget_reduced
+    jcfg = jget_reduced(arch)
+    jlm = JLM(jcfg)
+    params = jlm.init(jax.random.PRNGKey(seed))
+    model = LM(get_reduced(arch), device="cpu")
+    state = lm_params_from_reference(jax.tree.map(np.asarray, params), jcfg,
+                                     "cpu")
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state)
+    return jlm, params, model
+
+
+@pytest.mark.parametrize("arch", WINDOW_ARCHS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduced_window_and_vision_lms_match_the_reference(arch, seed):
+    """The reduced gemma3 (super-blocks of five dense_local layers and a
+    dense one, then two dense_local, window 8), danube (two dense_local)
+    and llava (two dense layers, with 5 frontend_embeds rows spliced over
+    the first positions) from the reference's own weights, over 24 tokens:
+    hidden states and the prefill's last position at 1e-4, as the reduced
+    chatglm3."""
+    jlm, params, model = _window_pair(arch, seed)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, model.cfg.vocab_size, (2, 24)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(tokens)}
+    fe = None
+    if model.cfg.modality == "vision-stub":
+        fe = rng.standard_normal((2, 5, model.cfg.d_model)).astype(
+            np.float32)
+        batch["frontend_embeds"] = jnp.asarray(fe)
+        fe = _t(fe)
+        assert torch.equal(model.frontend_proj, torch.eye(model.cfg.d_model))
+    want, _ = jlm.forward(params, batch)
+    got = model(_t(tokens).long(), fe)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    last = model.prefill(_t(tokens).long(), fe)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1:],
+                               rtol=1e-4, atol=1e-4)
+    if fe is not None:       # the splice changed the output
+        assert not np.allclose(model(_t(tokens).long()).numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_frontend_embeds_splice_checks_its_input():
+    model = LM(get_reduced("llava-next-34b"), device="cpu", seed=0)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="do not splice"):
+        model(tokens, torch.zeros((1, 5, model.cfg.d_model)))
+    with pytest.raises(ValueError, match="do not splice"):
+        model(tokens, torch.zeros((1, 2, model.cfg.d_model),
+                                  dtype=torch.float64))
+    text = LM(get_reduced("gemma3-4b"), device="cpu", seed=0)
+    assert not hasattr(text, "frontend_proj")
+    assert torch.equal(text(tokens, torch.ones((1, 2, text.cfg.d_model))),
+                       text(tokens))
+
+
+@pytest.mark.parametrize("arch", WINDOW_ARCHS)
+def test_full_window_and_vision_models_build_on_meta_with_the_reference_count(
+        arch):
+    """gemma3-4b (3.88B: 29 dense_local and 5 dense layers of head dim
+    256), h2o-danube-1.8b (1.75B) and llava-next-34b (33.98B, with its
+    frontend_proj) hold the reference's parameter count, built without
+    memory."""
+    from repro.configs import get_config as jget_config
+    shapes = jax.eval_shape(JLM(jget_config(arch)).init,
+                            jax.random.PRNGKey(0))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    model = LM(get_config(arch), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == want
+    kinds = [type(b).__name__ for b in model.blocks]
+    if arch == "gemma3-4b":
+        assert kinds.count("LocalBlock") == 29 and \
+            kinds.count("DenseBlock") == 5
+        assert model.blocks[0].attn["wq"].shape == (2560, 8 * 256)
+    assert hasattr(model, "frontend_proj") == (arch == "llava-next-34b")

@@ -99,7 +99,8 @@ def _head_major(a):
 
 
 @pytest.mark.parametrize("h,hkv,window", [(8, 2, None), (4, 4, 3),
-                                          (16, 1, None)])
+                                          (16, 1, None), (8, 2, 1),
+                                          (8, 2, 8), (4, 2, 100)])
 def test_decode_attention_matches_the_reference(h, hkv, window):
     rng = np.random.default_rng(h + hkv)
     b, smax, d = 3, 12, 16
@@ -273,7 +274,8 @@ def test_static_wave_matches_the_reference(arch, kv_dtype):
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b",
                                   "deepseek-v2-lite-16b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "gemma3-4b",
+                                  "h2o-danube-1.8b"])
 def test_static_wave_equals_the_eager_wave_bit_for_bit(arch):
     """Port against port: one StaticWave whose buffers live across waves
     (as the server's graphs do) against ``LM.wave_step``, which builds
@@ -346,7 +348,8 @@ def test_server_off_the_card_runs_the_lm_wave_eagerly():
     assert srv._wave == echo.wave_step and srv._reset == echo.reset_slots
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-v2-lite-16b",
+                                  "gemma3-4b"])
 def test_caches_round_trip_through_the_reference_layout(arch):
     jlm, params, lm = _pair(arch)
     tc = lm.init_caches(2, 6)
@@ -361,13 +364,89 @@ def test_caches_round_trip_through_the_reference_layout(arch):
             assert torch.equal(a[k], b[k]), k
 
 
+@pytest.mark.parametrize("arch", ["gemma3-4b", "h2o-danube-1.8b"])
+def test_windowed_waves_match_the_reference_across_the_window(arch):
+    """dense_local layers (window 8) through ragged waves that take slots
+    past the window -- a 7-token prefill wave, then 6-token waves -- and
+    decode waves, with a slot reset between: logits and every cache leaf
+    against the reference's wave_step and reset_slots, through StaticWave
+    (the captured body) and LM.wave_step alike."""
+    jlm, params, lm = _pair(arch, seed=2)
+    rng = np.random.default_rng(6)
+    b = 4
+    jc = jlm.init_caches(b, 32)
+    tc = lm.init_caches(b, 32)
+    ec = lm.init_caches(b, 32)
+    static = StaticWave(lm, tc)
+    wave = jax.jit(jlm.wave_step)
+    reset = jax.jit(jlm.reset_slots)
+    for lens, keep in (([7, 5, 0, 3], [True] * 4),
+                       ([6, 6, 6, 6], [True] * 4),
+                       ([1, 1, 1, 1], [True, False, True, True]),
+                       ([6, 2, 1, 1], [True] * 4),
+                       ([1, 1, 1, 1], [True] * 4)):
+        lens = np.array(lens, np.int32)
+        toks = rng.integers(0, lm.cfg.vocab_size,
+                            (b, lens.max())).astype(np.int32)
+        wl, jc = wave(params, jnp.asarray(toks), jnp.asarray(lens), jc)
+        gl, tc = static(toks, lens, tc)
+        el, ec = lm.wave_step(toks, lens, ec)
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **TOL)
+        assert torch.equal(gl, el)
+        _assert_caches(tc, jc, lm.cfg)
+        jc = reset(jc, jnp.asarray(keep))
+        tc = static.reset_slots(tc, np.array(keep))
+        ec = lm.reset_slots(ec, np.array(keep))
+        _assert_caches(tc, jc, lm.cfg)
+    assert int(tc[0]["len"].max()) > lm.cfg.sliding_window
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "h2o-danube-1.8b",
+                                  "llava-next-34b"])
+@pytest.mark.parametrize("chunk", [4, 1])
+def test_server_tokens_and_caches_equal_the_references_across_the_window(
+        arch, chunk):
+    """The reduced gemma3 (window 8), danube (window 8) and llava (text
+    only, as the reference's server serves it) on the CPU: 5 requests of
+    3-14 prompt tokens and 6 new tokens recycled through 2 slots, served by
+    the port's DecodeServer and the JAX package's at the same chunking,
+    stepped in turn.  After every serving iteration every cache leaf agrees
+    (through caches_to_reference) at 1e-4, the positions exactly; the
+    emitted tokens are the same."""
+    from repro.runtime.server import DecodeServer as JDecodeServer, \
+        Request as JRequest
+    jlm, params, lm = _pair(arch, seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, lm.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (11, 3, 14, 9, 5)]
+    kw = dict(batch_slots=2, max_len=32, prefill_chunk=chunk)
+    jsrv = JDecodeServer(jlm, params, **kw)
+    srv = DecodeServer(lm, pipeline=True, **kw)
+    jreqs = [JRequest(prompt=p.copy(), max_new_tokens=6) for p in prompts]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=6) for p in prompts]
+    for s_, rs in ((jsrv, jreqs), (srv, reqs)):
+        for r in rs:
+            s_.submit(r)
+    steps = 0
+    while srv.queue or any(r is not None for r in srv.active):
+        srv.step()
+        jsrv.step()
+        steps += 1
+        _assert_caches(srv.caches, jsrv.caches, lm.cfg)
+    assert not jsrv.queue and all(r is None for r in jsrv.active)
+    assert all(r.status == "ok" and len(r.out) == 6 for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert srv.serve_stats["waves"] == jsrv.serve_stats["waves"] == steps
+
+
 # ---------------------------------------------------------------------------
 # Bit-identity claims, port against port
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["stablelm-3b", "chatglm3-6b",
                                   "deepseek-v2-lite-16b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "gemma3-4b",
+                                  "h2o-danube-1.8b"])
 def test_chunked_prefill_bit_identical(arch):
     """Splitting a ragged prompt batch into waves of any chunk size replays
     the same masked micro-step sequence: logits at each slot's last prompt
