@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--steps N] [--sweep-only]
     python3 chip_smoke.py --llava-only [--seed N]   # phase 12 alone
+    python3 chip_smoke.py --training-only [--seed N]   # phase 13 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -137,13 +138,33 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``LM.prefill`` over one 4096-token sequence with 576
    ``frontend_embeds`` rows spliced in, checked as phase 10's, the splice
    required to move the last hidden state, peak memory;
-13. one JSON line listing the four kernels with the kernel (variant) that
+13. training (``phase_training``; ``--training-only`` runs it alone after
+   the build): h2o-danube-1.8b at full width, one 8192-token sequence a
+   step, lr 3e-4, 6 steps under ``run_supervised`` with a checkpoint every
+   3 steps and a failure injected at step 4.  Checked: every loss finite,
+   the restart's step-3 loss bit-equal to the first attempt's, the state
+   restored from step 2's checkpoint equal leaf for leaf to the saved
+   one, the flash
+   backward launched in every layer of every step and, on layer 0's
+   captured q, k, v and dO, held against ``ref.attention_backward``
+   (``check_bf16``) and bit-equal to itself, a nonzero gradient for every
+   parameter.  Printed: step ms and tokens/s, the device busy share of a
+   profiled step, peak memory, checkpoint bytes and save / restore
+   seconds, the backward's time beside its bound, the plain version and
+   ``scaled_dot_product_attention``'s backward (``is_causal`` and a band
+   mask).  Then a reduced MoE model trained 3 steps on the card: the
+   un-dispatch gather's backward on ``ember_sls``, held against
+   ``index_add_``;
+14. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
-   llava-next-34b prefills, with flash's ``instances``: the launches by
-   dtype, widths, causal and window), error, times and bounds;
-14. ``{"ok": true, "device": {...}}`` as the last line.
+   llava-next-34b prefills and the training steps, with flash's
+   ``instances``: the launches by dtype, widths, causal and window; sls's
+   the gather backward's in the MoE training), and the flash backward
+   (``flash_attention_bwd``, its launches by instance), error, times and
+   bounds;
+15. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -155,6 +176,7 @@ import contextlib
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -224,6 +246,13 @@ DANUBE_SEQ = 16384
 # llava-next-34b: one 4096-token prefill, the first 576 positions its
 # frontend_embeds (configs/llava_next_34b.py VISION_TOKENS)
 LLAVA_SEQ = 4096
+# training: h2o-danube-1.8b at full width on one 8192-token sequence a step
+# (the band of its 4096-token window cuts keys in the backward too), 6
+# steps, a checkpoint every 3 (after step 2 and step 5), a failure injected
+# before step 4: the restart resumes from step 2 and reruns step 3
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8192, 6, 3, 4
+TRAIN_CKPT_STEP = TRAIN_CKPT_EVERY - 1
+TRAIN_LR = 3e-4
 # the eager served path the captured wave is compared with: the same
 # chatglm3-6b drive served eagerly (PERF.md §6; NVIDIA H100 80GB HBM3,
 # 700.00 W)
@@ -246,6 +275,14 @@ TOL_FMM_F32 = dict(rtol=1e-4, atol=1e-3)
 # attention: the same recurrence over the same 64-key tiles, fp32 sums in
 # another order; outputs are convex combinations of unit-normal values
 TOL_ATTN_F32 = dict(rtol=1e-5, atol=1e-5)
+# the fp32 log-sum-exp the forward saves for the backward, vs the plain
+# version's over the same KV tiles (as the card tests hold it)
+TOL_LSE_F32 = dict(rtol=1e-5, atol=1e-5)
+# the gradient of every parameter of a full-width training step through
+# the kernels vs through the plain attention backward and logits product:
+# the issue's bf16 tolerance, as relative L2 per leaf (both paths round the
+# same bf16 backward; a wrong formula moves a leaf by O(1))
+TRAIN_GRAD_REL_L2 = 5e-2
 # few-key causal rows of bf16 flash attention: cases of q (2, 200, 16, D)
 # over k (2, 200, 1, D) and v (2, 200, 1, Dv), (D, Dv) cycling over
 # FLASH_STRESS_DIMS.  A row near the
@@ -3188,12 +3225,566 @@ def phase_llava_subprocess(seed: int, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_bound(q, v, window) -> tuple:
+    """The least time of one flash backward on these tensors: the five
+    products of each kept (query, key) pair -- S, dK, dQ at the q/k width,
+    dP, dV at the v width: 2 (3 D + 2 Dv) FLOP, 10 D at equal widths --
+    at the bf16 tensor-core peak, against q, k, v, o, dO and lse read and
+    dq, dk, dv written once at the HBM rate.  Returns (ms, "operations" or
+    "bytes", FLOP)."""
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    hkv = v.shape[2]
+    keep = np.arange(1, s + 1, dtype=np.int64)
+    if window is not None:
+        keep = np.minimum(keep, window)
+    flops = 2 * b * h * int(keep.sum()) * (3 * d + 2 * dv)
+    nbytes = (2 * (b * s * h * d + b * s * hkv * (d + dv)) +   # q,k,v; dq,dk,dv
+              2 * b * s * h * dv) * q.element_size() + b * h * s * 4
+    t_ops, t_bytes = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def _sdpa_backward_ms(q, k, v, do, window) -> dict:
+    """scaled_dot_product_attention's backward on the same tensors (KV
+    heads expanded beforehand): forward + ``torch.autograd.grad`` timed,
+    the forward alone timed, the difference; with ``is_causal`` (the whole
+    causal triangle) and with an explicit band mask (the same function as
+    the kernel's)."""
+    import torch
+    import torch.nn.functional as F
+    s, g = q.shape[1], q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for t in (k, v))
+    dot = do.transpose(1, 2)
+    pos = torch.arange(s, device=q.device)
+    band = (pos[:, None] >= pos[None, :]) & \
+        (pos[:, None] - pos[None, :] < window)
+    out = {}
+    for name, kw in (("is_causal", {"is_causal": True}),
+                     ("band_mask", {"attn_mask": band})):
+        def fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+        def both():
+            return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+        try:
+            total = time_ms(both, 5, warmup=2)
+            with torch.no_grad():
+                forward = time_ms(fwd, 5, warmup=2)
+            out[name] = total - forward
+        except RuntimeError as e:     # a backend may refuse; printed
+            out[name] = "refused: " + str(e).strip().splitlines()[0][:90]
+    return out
+
+
+def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
+    """The forward with its lse and the backward kernel on one layer's q,
+    k, v and dO (captured in a training step).  The forward's o against the
+    plain version's (check_bf16) and its lse (fp32, TOL_LSE_F32); the
+    backward against ref.attention_backward on the same o and lse
+    (check_bf16 per gradient), and bit-equal twice; the chain -- kernel
+    forward then kernel backward -- against ref.attention_backward from the
+    plain forward's own o and lse, held to check_bf16's relative-L2 and
+    elementwise bounds (not its share of differing elements: o and o_plain
+    differ by a bf16 step in up to 1 % of elements, and delta = rowsum(dO o)
+    carries that into every dq and dk of the row)."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import (BF16_MAX_REL_L2,
+                                               bf16_agreement, check_bf16)
+    from repro_torch.kernels.flash_attention import kv_tile
+    o, lse = kops.flash_attention_cuda(q, k, v, window=window,
+                                       return_lse=True)
+    o_plain, lse_plain = ref.attention(q, k, v, window=window,
+                                       chunk=kv_tile(q.dtype, q.shape[3]),
+                                       return_lse=True)
+    fwd = check_bf16(o, o_plain, f"{what}: the forward's o")
+    lse_err = check_close(lse, lse_plain, f"{what}: the forward's lse",
+                          **TOL_LSE_F32)
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
+    again = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
+    require(all(bool((a == b).all()) for a, b in zip(got, again)),
+            f"{what}: two backward calls differ")
+    want = ref.attention_backward(q, k, v, o, do, lse, window=window)
+    worst: dict = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _worst(worst, check_bf16(a, w, f"{what} {name}"))
+    del want
+    chain: dict = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, ref.attention_backward(
+            q, k, v, o_plain, do, lse_plain, window=window)):
+        agree = bf16_agreement(a, w)
+        require(bool(torch.isfinite(a).all()) and agree["worst"] <= 1 and
+                agree["rel_l2"] <= BF16_MAX_REL_L2,
+                f"{what} {name} from the kernel forward vs the plain "
+                f"forward's o and lse: {_bf16_summary(agree)}")
+        _worst(chain, agree)
+    return {"agreement": worst, "forward": fwd, "lse_max_abs_err": lse_err,
+            "chain": chain, "o": o, "lse": lse,
+            "max_abs_err": max(worst["max_abs"], fwd["max_abs"], lse_err)}
+
+
+class _PlainBackward:
+    """The training step's attention with the kernel forward (saving its
+    lse) and ``ref.attention_backward`` as its backward, for
+    :func:`_gradient_witness`."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.kernels import ops as kops, ref
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, window):
+                o, lse = kops.flash_attention_cuda(q, k, v, causal=causal,
+                                                   window=window,
+                                                   return_lse=True)
+                ctx.save_for_backward(q, k, v, o, lse)
+                ctx.causal, ctx.window = causal, window
+                return o
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, o, lse = ctx.saved_tensors
+                return (*ref.attention_backward(
+                    q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
+                    window=ctx.window), None, None)
+        self.fn = Fn
+
+    def __call__(self, q, k, v, *, causal=True, window=None, chunk=512):
+        return self.fn.apply(q, k, v, causal, window)
+
+
+def _plain_logits(x, table):
+    """The logits product in fp32 through autograd (TF32 off): the plain
+    version of ``Bf16Logits`` -- bf16 products are exact in fp32, and the
+    casts' backward rounds each fp32 gradient to its operand's dtype once,
+    as ``Bf16Logits.backward`` does."""
+    import torch
+    x2 = x.reshape(1, -1, x.shape[-1])
+    return torch.bmm(x2.float(), table.t()[None].float()).view(
+        *x.shape[:-1], table.shape[0])
+
+
+def _gradient_witness(lm, batch, grads: dict) -> dict:
+    """The gradient of every parameter at full width, the kernel path's
+    (``grads``, from the step just run through FlashAttention and
+    Bf16Logits) against one step through the plain attention backward
+    (``ref.attention_backward``) and the plain logits product: relative L2
+    per leaf, each held to TRAIN_GRAD_REL_L2.  Returns the worst leaf, the
+    median and both losses."""
+    from repro_torch.core import embedding_engine as ee
+    for p in lm.parameters():
+        p.grad = None
+    with _OpSwap("attention", _PlainBackward()), \
+            _OpSwap("logits", _plain_logits, ee):
+        loss = lm.loss(batch["tokens"], batch["labels"])
+        loss.backward()
+    rel = {}
+    for name, p in lm.named_parameters():
+        want = p.grad.float()
+        rel[name] = float((grads[name].float() - want).norm() /
+                          want.norm().clamp_min(1e-30))
+    for p in lm.parameters():
+        p.grad = None
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= TRAIN_GRAD_REL_L2,
+            f"training: the gradient of {worst} through the kernels is "
+            f"{rel[worst]:.3g} (relative L2) from the plain attention "
+            f"backward's and logits product's (limit {TRAIN_GRAD_REL_L2})")
+    return {"worst_leaf": worst, "worst_rel_l2": rel[worst],
+            "median_rel_l2": float(np.median(list(rel.values()))),
+            "leaves": len(rel), "plain_loss": loss.item()}
+
+
+class _Capture:
+    """Route layer 0's attention through the autograd Function while
+    keeping its q, k, v and, once the backward reaches it, its dO."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __call__(self, q, k, v, **kw):
+        from repro_torch.kernels.flash_attention import flash_attention
+        out = flash_attention(q, k, v, **kw)
+        if not self.seen:
+            self.seen.update(q=q.detach(), k=k.detach(), v=v.detach(),
+                             window=kw.get("window"))
+            out.register_hook(lambda g: self.seen.setdefault(
+                "do", g.detach().contiguous()))
+        return out
+
+
+def phase_training(seed: int, card: str) -> dict:
+    """h2o-danube-1.8b trained at full width (24 dense_local layers, d_model
+    2560, 32 heads over 8 KV heads, head dim 80, window 4096, bf16;
+    1,749,281,280 parameters, random from ``seed``) on one 8192-token
+    sequence a step (SyntheticTokens), lr 3e-4, for 6 steps under
+    ``run_supervised``: a checkpoint every 3 steps, a failure injected at
+    step 4, the restart from step 2's checkpoint.  Checked: every loss
+    finite; the restart's step-3 loss bit-equal to the first attempt's;
+    the state the restart restored from step 2's checkpoint equal leaf for
+    leaf to the host copy that save wrote; the flash backward launched in every layer of every
+    step (the main path's count) and, on layer 0's captured q, k, v and dO,
+    held against ref.attention_backward (check_bf16), bit-equal twice; the
+    loss's gradient reaching every parameter (none None, none all zero).
+    Then a reduced MoE model trained on the card (the un-dispatch gather's
+    backward on ember_sls), its gather backward held against index_add_."""
+    import torch
+    from repro_torch.checkpoint.ckpt import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             run_supervised)
+    cfg = get_config("h2o-danube-1.8b")
+    ckpt_dir = REPO / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    n_params = sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    state_bytes = n_params * (2 + 4 + 4)         # bf16 params, fp32 mu, nu
+    free = shutil.disk_usage(ckpt_dir).free
+    require(free > 2.2 * state_bytes,
+            f"training phase: {free / 1e9:.1f} GB free under {ckpt_dir}, "
+            f"two checkpoints of {state_bytes / 1e9:.1f} GB need more")
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ, global_batch=1))
+    attempts, step_ms, kept, trainers = [], [], {}, []
+    io = {"snapshot": {}, "stack": [], "written": []}
+
+    class Recorded(Trainer):
+        """The trainer, timing each step (host clock, synchronised) and
+        its restore, keeping the host copy that step 2's save wrote."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            save = self.ckpt.save
+            gc_ = self.ckpt._gc
+
+            def keep_and_save(step, tree, transform=None):
+                t0 = time.perf_counter()
+
+                def tf(host):
+                    io["stack"].append(time.perf_counter())
+                    if step == TRAIN_CKPT_STEP and "host" not in kept:
+                        kept["host"] = host
+                    return transform(host)
+                save(step, tree, tf)
+                io["snapshot"][step] = time.perf_counter() - t0
+
+            def timed_gc():            # runs right after the write
+                io["written"].append(time.perf_counter())
+                gc_()
+            self.ckpt.save, self.ckpt._gc = keep_and_save, timed_gc
+
+        def _restore(self, state):
+            t0 = time.perf_counter()
+            step = super()._restore(state)
+            torch.cuda.synchronize()
+            io["restore"] = time.perf_counter() - t0
+            # what the restart restored, leaf for leaf, against the host
+            # copy that step 2's save wrote
+            saved = tree_flatten_with_path(kept["host"])
+            live = dict(tree_flatten_with_path(state))
+            io["equal"] = step == TRAIN_CKPT_STEP and \
+                len(saved) == len(live) and all(
+                    torch.equal(live[p].cpu(), t) for p, t in saved)
+            return step
+
+        def _train_step(self, state, batch):
+            t0 = time.perf_counter()
+            loss = super()._train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((len(attempts) - 1, (time.perf_counter() - t0) *
+                            1e3))
+            return loss
+
+        def run(self, **kw):
+            attempt = []
+            attempts.append(attempt)
+            return super().run(on_step=lambda s, l: attempt.append((s, l)),
+                               **kw)
+
+    def make():
+        trainers.clear()
+        trainers.append(Recorded(LM(cfg, seed=seed), data, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+            ckpt_dir=str(ckpt_dir), lr=TRAIN_LR)))
+        return trainers[0]
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_supervised(make, failure_schedule={TRAIN_FAIL_AT})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kops.backward_launch_counts()
+    fwd_counts = kops.launch_counts()
+    instances = dict(kops.flash_attention_bwd_cuda.instances)
+    fwd_instances = dict(kops.flash_attention_cuda.instances)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps_run = sum(len(a) for a in attempts)
+    require(out["restarts"] == 1 and out["final_step"] == TRAIN_STEPS - 1 and
+            [s for s, _ in attempts[0]] == list(range(TRAIN_FAIL_AT)) and
+            [s for s, _ in attempts[1]] ==
+            list(range(TRAIN_CKPT_STEP + 1, TRAIN_STEPS)),
+            f"training: attempts ran steps "
+            f"{[[s for s, _ in a] for a in attempts]}, restarts "
+            f"{out['restarts']}")
+    losses = [l for a in attempts for _, l in a]
+    require(all(np.isfinite(losses)), f"training losses {losses}")
+    first3 = dict(attempts[0])[TRAIN_CKPT_STEP + 1]
+    again3 = dict(attempts[1])[TRAIN_CKPT_STEP + 1]
+    require(first3 == again3, f"training: step {TRAIN_CKPT_STEP + 1} after "
+            f"the restart gave loss {again3!r}, the first attempt {first3!r}")
+    want = {f"bfloat16 80/80 causal window {cfg.sliding_window}":
+            steps_run * cfg.num_layers}
+    require(counts["flash_attention_bwd"] == steps_run * cfg.num_layers and
+            instances == want and
+            fwd_counts["flash_attention"] == steps_run * cfg.num_layers,
+            f"training launched the flash backward {instances} and the "
+            f"forward {fwd_counts['flash_attention']} times in {steps_run} "
+            f"steps, expected {want}")
+    require(io.get("equal") is True, "training: the state the restart "
+            f"restored from step {TRAIN_CKPT_STEP}'s checkpoint differs from "
+            "the saved one")
+    trainer = trainers[0]
+    step_dir = ckpt_dir / f"step_{TRAIN_CKPT_STEP:09d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    kept.clear()
+    save_s = [w - s for s, w in zip(io["stack"], io["written"])]
+    first_ms = [ms for a, ms in step_ms if a == 0]
+    mean_ms = float(np.mean(first_ms[1:TRAIN_CKPT_STEP + 2]))
+
+    # one more forward/backward: every parameter reached; layer 0's q, k,
+    # v and dO captured for the kernel check and timing
+    lm = trainer.lm
+    batch = trainer._batch(0)
+    cap = _Capture()
+    with _OpSwap("attention", cap):
+        for p in lm.parameters():
+            p.grad = None
+        kernel_loss = lm.loss(batch["tokens"], batch["labels"])
+        kernel_loss.backward()
+    missing = [k for k, p in lm.named_parameters() if p.grad is None]
+    zero = [k for k, p in lm.named_parameters()
+            if p.grad is not None and not bool(p.grad.any())]
+    require(not missing and not zero, f"training: no gradient for {missing}, "
+            f"an all-zero one for {zero}")
+    # the same step's gradients through the plain attention backward and
+    # logits product: every leaf within TRAIN_GRAD_REL_L2
+    grads = {k: p.grad for k, p in lm.named_parameters()}
+    witness = _gradient_witness(lm, batch, grads)
+    witness["kernel_loss"] = kernel_loss.item()
+    del grads, kernel_loss
+    q, k, v, do, window = (cap.seen[n] for n in ("q", "k", "v", "do",
+                                                 "window"))
+    chk = _check_flash_backward(q, k, v, do, window, "danube layer 0 "
+                                "flash backward")
+    o, lse = chk["o"], chk["lse"]
+
+    # device busy share over one profiled step (it updates the weights)
+    state = {"params": dict(lm.named_parameters()),
+             "opt": out["state"]["opt"], "ef": None}
+    prof_wall = []
+    dev = _device_time(lambda: trainer._train_step(state, batch), prof_wall)
+    busy = _busy(dev, prof_wall[0])
+    out = state = None
+
+    # the backward kernel's time beside its bound, the plain version and
+    # SDPA's backward
+    ms = time_ms(lambda: kops.flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, window=window), 5, warmup=1)
+    from repro_torch.kernels import ref
+    plain_ms = time_ms(lambda: ref.attention_backward(
+        q, k, v, o, do, lse, window=window), 1, warmup=1)
+    sdpa = _sdpa_backward_ms(q, k, v, do, window)
+    bound_ms, bound_by, flops = _flash_bwd_bound(q, v, window)
+    fwd_bound_ms = _flash_bound(q, k, v, window)[0]
+    print(f"[13 training] h2o-danube-1.8b trained at full width ({n_params:,}"
+          f" parameters, bf16; 1 x {TRAIN_SEQ} tokens a step, lr {TRAIN_LR},"
+          f" run_supervised with a checkpoint every {TRAIN_CKPT_EVERY} steps "
+          f"and a failure at step {TRAIN_FAIL_AT}): losses by attempt "
+          f"{[[round(l, 4) for _, l in a] for a in attempts]}; the restart's "
+          f"step-{TRAIN_CKPT_STEP + 1} loss {again3!r} == the first "
+          f"attempt's, bit for bit; step ms (host clock, synchronised) over "
+          f"steps 1-{TRAIN_CKPT_STEP + 1}: {mean_ms:.1f} "
+          f"({', '.join(f'{m:.1f}' for m in first_ms)} for steps "
+          f"0-{len(first_ms) - 1}), {TRAIN_SEQ / mean_ms * 1e3:.0f} tokens/s;"
+          f" {wall_s:.1f} s for the whole supervised run; peak device memory "
+          f"{peak_gib:.2f} GiB; {card}")
+    print(f"[13 checkpoint] step {TRAIN_CKPT_STEP}: {ckpt_bytes:,} bytes; "
+          f"host snapshot at the save {io['snapshot'][TRAIN_CKPT_STEP]:.2f}"
+          f" s, background stack + write "
+          f"{', '.join(f'{x:.1f}' for x in save_s)} s (steps "
+          f"{TRAIN_CKPT_STEP}, {TRAIN_STEPS - 1}); restore into the restarted "
+          f"trainer {io['restore']:.1f} s, equal leaf for leaf to the state "
+          f"the save copied")
+    print(f"[13 gradients] every one of {len(dict(lm.named_parameters()))} "
+          f"parameters got a nonzero gradient; flash backward launches on "
+          f"the path {counts['flash_attention_bwd']} ({instances}); layer "
+          f"0's backward vs ref.attention_backward: "
+          f"{_bf16_summary(chk['agreement'])}; two calls bit-equal; its "
+          f"forward's o vs the plain version's {_bf16_summary(chk['forward'])}"
+          f", lse max abs err {chk['lse_max_abs_err']:.3g} (rtol "
+          f"{TOL_LSE_F32['rtol']}, atol {TOL_LSE_F32['atol']}); forward then "
+          f"backward vs the plain forward's o and lse then "
+          f"ref.attention_backward: {_bf16_summary(chk['chain'])}")
+    print(f"[13 gradient witness] the same step through the plain attention "
+          f"backward (ref.attention_backward in all {cfg.num_layers} layers) "
+          f"and the plain fp32 logits product: loss {witness['plain_loss']!r}"
+          f" vs the kernels' {witness['kernel_loss']!r}; relative L2 of the "
+          f"kernel path's gradient per leaf, worst {witness['worst_rel_l2']:.3g}"
+          f" ({witness['worst_leaf']}), median "
+          f"{witness['median_rel_l2']:.3g} over {witness['leaves']} leaves "
+          f"(limit {TRAIN_GRAD_REL_L2}); {card}")
+    print(f"[13 step profile] {busy}")
+    sdpa_txt = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
+                         else f"{n} {v}" for n, v in sdpa.items())
+    b_, s_, h_, d_ = q.shape
+    print(f"[13 flash backward] a danube layer (B={b_}, S={s_}, H={h_}, "
+          f"Hkv={k.shape[2]}, D={d_}, window {window}, {q.dtype}): kernel "
+          f"{ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention's backward "
+          f"(forward subtracted) {sdpa_txt}; bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, by {bound_by}; kernel at "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f}% of its "
+          f"bound); the forward's bound {fwd_bound_ms:.4f} ms; {card}")
+    library_ms = sdpa["band_mask"] if isinstance(sdpa["band_mask"], float) \
+        else None
+    result = {"name": "flash_attention_bwd", "route": "cuda",
+              "source": "src/repro_torch/csrc/ember_flash_backward.cu",
+              "replaces": "src/repro/models/attention.py:52 (jax.grad of "
+                          "blockwise_attention, the function the forward "
+                          "kernel src/repro/kernels/flash_attention.py:65 "
+                          "replaces)",
+              "variant": "flash_bwd_dkdv_kernel + flash_bwd_dq_kernel",
+              "launches": counts["flash_attention_bwd"],
+              "max_abs_err": chk["max_abs_err"], "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms,
+              "library": "scaled_dot_product_attention backward, band mask",
+              "sdpa_is_causal_ms": sdpa["is_causal"],
+              "held_against_plain": True, "instances": instances,
+              "forward_lse_max_abs_err": chk["lse_max_abs_err"],
+              "chain_rel_l2": chk["chain"]["rel_l2"],
+              "training_grad_worst_rel_l2": witness["worst_rel_l2"],
+              "training_grad_worst_leaf": witness["worst_leaf"],
+              "training_step_ms": mean_ms,
+              "training_tokens_per_s": TRAIN_SEQ / mean_ms * 1e3,
+              "training_peak_gib": peak_gib,
+              "training_forward_launches": fwd_counts["flash_attention"],
+              "training_forward_instances": fwd_instances,
+              "checkpoint_bytes": ckpt_bytes, "restore_s": io["restore"],
+              "save_s": save_s}
+    del lm, trainer, q, k, v, do, o, lse, chk, cap, batch
+    trainers.clear()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_cuda()
+    result["gather"] = _moe_training(seed, card)
+    return result
+
+
+def _moe_training(seed: int, card: str) -> dict:
+    """A reduced MoE model (DeepSeek-V2-Lite's kinds at d_model 256, heads
+    of q/k 192 and v 128, 8 experts; f32) trained for 3 steps on the card
+    through the Trainer: the MoE un-dispatch gather's backward
+    (``block_gather_backward`` on ember_sls) in every layer of every step;
+    one layer's gather backward held against index_add_ and timed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(
+        get_reduced("deepseek-v2-lite-16b"), d_model=256, num_heads=2,
+        num_kv_heads=2, head_dim=128, rope_head_dim=64, kv_lora_rank=64,
+        d_ff=256)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      global_batch=4))
+    ckpt_dir = REPO / "build" / "moe_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    trainer = Trainer(LM(cfg, seed=seed), data, TrainerConfig(
+        total_steps=3, ckpt_every=100, ckpt_dir=str(ckpt_dir)))
+    kops.reset_launch_counts()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    counts = kops.backward_launch_counts()
+    sls_launches = kops.launch_counts()["sls"]
+    require(counts["block_gather_bwd"] == 3 * cfg.num_layers and
+            sls_launches == counts["block_gather_bwd"] and
+            all(np.isfinite(out["losses"])),
+            f"MoE training: gather backward {counts['block_gather_bwd']}, "
+            f"ember_sls {sls_launches} launches, losses {out['losses']}")
+    seen = {}
+
+    def capture(table, idxs, **kw):
+        from repro_torch.kernels.gather import block_gather
+        got = block_gather(table, idxs, **kw)
+        if not seen:
+            seen.update(n=table.shape[0], idxs=idxs)
+            got.register_hook(lambda g: seen.setdefault(
+                "dout", g.detach().contiguous()))
+        return got
+    batch = trainer._batch(0)
+    with _OpSwap("block_gather", capture):
+        trainer.lm.loss(batch["tokens"], batch["labels"]).backward()
+    dout, idxs, n = seen["dout"], seen["idxs"], seen["n"]
+    got = kops.block_gather_backward(dout, idxs, n)
+    want = ref.block_gather_backward(dout, idxs, n)
+    err = check_close(got, want, "MoE un-dispatch gather backward vs "
+                      "index_add_", **TOL_SUM_F32)
+    ms = time_ms(lambda: kops.block_gather_backward(dout, idxs, n), 20)
+    plain_ms = time_ms(lambda: ref.block_gather_backward(dout, idxs, n), 20)
+
+    def library():
+        return torch.zeros((n, dout.shape[2]), dtype=dout.dtype,
+                           device=dout.device).index_add_(
+            0, idxs.long(), dout.view(-1, dout.shape[2]))
+    library_ms = time_ms(library, 20)
+    nbytes = (dout.numel() + n * dout.shape[2]) * dout.element_size() + \
+        idxs.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[13 moe training] a reduced MoE model ({cfg.num_layers} mla "
+          f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts, f32; "
+          f"4 x 256 tokens) trained 3 steps on the card: losses "
+          f"{[round(x, 4) for x in out['losses']]}; the un-dispatch gather's "
+          f"backward launched ember_sls {counts['block_gather_bwd']} times; "
+          f"one layer's ({tuple(dout.shape)} into {n} rows) vs index_add_ max "
+          f"abs err {err:.3g}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes); "
+          f"{card}")
+    result = {"gather_backward_launches": counts["block_gather_bwd"],
+              "gather_backward_ms": ms, "gather_backward_plain_ms": plain_ms,
+              "gather_backward_library_ms": library_ms,
+              "gather_backward_bound_ms": bound_ms,
+              "gather_backward_max_abs_err": err}
+    del trainer, out, dout, idxs, got, want, batch
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_cuda()
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--sweep-only", action="store_true",
                     help="stop after phase 3 (a quick kernel check)")
+    ap.add_argument("--training-only", action="store_true",
+                    help="run phases 1, 2 and 13 alone (the training "
+                         "phase's lines, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -3223,6 +3814,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     phase_build()
+    if args.training_only:
+        phase_training(args.seed, card)
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
     phase_sweep(args.seed)
     phase_sweep_fusedmm(args.seed)
     phase_sweep_flash(args.seed)
@@ -3250,7 +3845,8 @@ def main(argv=None) -> int:
                        ("10", lambda: phase_gemma3(args.seed, card)),
                        ("11", lambda: phase_danube(args.seed, card)),
                        ("12", lambda: phase_llava_subprocess(args.seed,
-                                                             card))):
+                                                             card)),
+                       ("13", lambda: phase_training(args.seed, card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
@@ -3293,6 +3889,16 @@ def main(argv=None) -> int:
                 "gather_group_launches")
             gather["launches"] += gather[f"{key}_serving_launches"]
         flash.update(run)
+    training = later["13"]
+    moe = training.pop("gather")
+    sls = next(k for k in kernels if k["name"] == "sls")
+    sls["gather_backward_launches"] = moe.pop("gather_backward_launches")
+    sls["launches"] += sls["gather_backward_launches"]
+    sls.update(moe)
+    flash["training_launches"] = training.pop("training_forward_launches")
+    flash["launches"] += flash["training_launches"]
+    instances.update(training.pop("training_forward_instances"))
+    kernels.append(training)
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

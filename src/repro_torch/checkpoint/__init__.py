@@ -1,0 +1,7 @@
+"""Checkpoints of the port (counterpart of ``repro/checkpoint``), in the
+reference's on-disk format."""
+from .ckpt import (CheckpointManager, committed_steps, latest_step,
+                   publish_dir, restore_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "latest_step", "committed_steps", "publish_dir"]

@@ -15,6 +15,12 @@ leaf in its own dtype: the router stays fp32).  Its decode caches are the
 same kind of tree there and a list of per-layer dicts here:
 :func:`caches_from_reference` and :func:`caches_to_reference` map both ways
 (MLA's latent ``{c, kr, len}`` keep the reference's layout).
+
+Back the other way, :func:`lm_params_to_reference` stacks the layers into
+``scan`` / ``rest`` again, and :func:`train_state_to_reference` /
+:func:`train_state_from_reference` carry the trainer's whole state
+(parameters, AdamW's step and moments, the error-feedback residuals) both
+ways, so a checkpoint of either package restores in the other.
 """
 from __future__ import annotations
 
@@ -87,6 +93,8 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
 def _tree_index(tree, n: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, n) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[n]
     return np.asarray(tree)[n]
 
 
@@ -96,6 +104,82 @@ def _flatten(tree, prefix: str = ""):
             yield from _flatten(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
+
+
+def lm_params_to_reference(state, cfg) -> dict:
+    """The inverse of :func:`lm_params_from_reference`: a ``state_dict``
+    (or any name -> tensor mapping with its keys, such as AdamW's moments)
+    as the reference's parameter tree -- ``embed``, ``final_norm``,
+    ``frontend_proj`` where present, ``scan`` (a tuple over the block
+    pattern of layer dicts stacked over ``cfg.n_super`` with
+    ``torch.stack``) and ``rest`` (the remainder layers) -- its leaves
+    tensors where the state's lie."""
+    layers: list = [{} for _ in range(cfg.num_layers)]
+    tree = {}
+    for name, t in state.items():
+        if not name.startswith("blocks."):
+            tree[name] = t
+            continue
+        _, li, rest = name.split(".", 2)
+        node = layers[int(li)]
+        *parents, leaf = rest.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    pattern = len(cfg.block_pattern)
+    n_scan = cfg.n_super * pattern
+    tree["scan"] = tuple(
+        _stack([layers[n * pattern + i] for n in range(cfg.n_super)])
+        for i in range(pattern)) if cfg.n_super else ()
+    tree["rest"] = tuple(layers[n_scan:])
+    return tree
+
+
+def _stack(layers: list):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def train_state_to_reference(state: dict, cfg) -> dict:
+    """The trainer's state -- ``{"params": name -> tensor, "opt":
+    AdamWState(step, mu, nu) with name -> tensor moments, "ef": name ->
+    tensor residuals, or None without gradient compression}`` -- as the
+    reference's ``{"params", "opt", "ef"}`` tree.  Without compression the
+    reference keeps a () fp32 zero in place of every parameter leaf, and so
+    does this."""
+    from .optim.adamw import AdamWState
+    params = lm_params_to_reference(state["params"], cfg)
+    opt = state["opt"]
+    if state["ef"] is None:
+        from .checkpoint.ckpt import tree_map
+        ef = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                            device=p.device), params)
+    else:
+        ef = lm_params_to_reference(state["ef"], cfg)
+    return {"params": params,
+            "opt": AdamWState(opt.step, lm_params_to_reference(opt.mu, cfg),
+                              lm_params_to_reference(opt.nu, cfg)),
+            "ef": ef}
+
+
+def train_state_from_reference(tree: dict, cfg, device=None) -> dict:
+    """The inverse of :func:`train_state_to_reference`, on ``device`` (the
+    CUDA card unless ``device="cpu"``): ``ef`` is None where the reference
+    keeps () zeros (no compression)."""
+    from .checkpoint.ckpt import tree_flatten_with_path
+    from .optim.adamw import AdamWState
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    ef_leaves = [x for _, x in tree_flatten_with_path(tree["ef"])]
+    compressed = any(len(x.shape) for x in ef_leaves)
+    return {"params": lm_params_from_reference(tree["params"], cfg, dev),
+            "opt": AdamWState(
+                _to_tensor(opt.step, dev).to(torch.int32).reshape(()),
+                lm_params_from_reference(opt.mu, cfg, dev),
+                lm_params_from_reference(opt.nu, cfg, dev)),
+            "ef": (lm_params_from_reference(tree["ef"], cfg, dev)
+                   if compressed else None)}
 
 
 def embed_tables_from_params(params: dict) -> dict:

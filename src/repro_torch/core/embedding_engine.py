@@ -1,10 +1,14 @@
 """The model-facing embedding lookup and program (counterpart of
 ``repro/core/embedding_engine.py``; ported so far: :func:`lookup` with the
 single-device strategies ``take``, ``one_hot`` and ``pallas``, :func:`logits`
-and :func:`model_embedding_program` -- the sharded strategies
+(differentiable), :func:`model_embedding_program` and the single-device
+path of :func:`xent_vocab_parallel` -- the sharded strategies
 (``masked_psum``, ``masked_psum_scatter``) and the vocab-parallel cross
-entropy wait for the sharding item, ROADMAP.md Queue 1 item 6)."""
+entropy over a mesh wait for the sharding item, ROADMAP.md Queue 1 item
+6)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -75,11 +79,64 @@ def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ table.T (D, V) -> (..., V) in fp32: exact products of
     the operands summed in fp32 (the reference's ``dot_general`` with
     ``preferred_element_type=float32``); bf16 on the card through cuBLAS's
-    bf16 x bf16 -> fp32 GEMM."""
+    bf16 x bf16 -> fp32 GEMM, differentiable through :class:`Bf16Logits`."""
     x2 = x.reshape(1, -1, x.shape[-1])
-    w = table.t()[None]
     if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
-        out = torch.bmm(x2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x.requires_grad or
+                                        table.requires_grad):
+            out = Bf16Logits.apply(x2, table)
+        else:
+            out = torch.bmm(x2, table.t()[None], out_dtype=torch.float32)
     else:
-        out = torch.bmm(x2.float(), w.float())
+        out = torch.bmm(x2.float(), table.t()[None].float())
     return out.view(*x.shape[:-1], table.shape[0])
+
+
+class Bf16Logits(torch.autograd.Function):
+    """The bf16 x bf16 -> fp32 logits product with its transpose written
+    out, as JAX transposes a ``dot_general`` with
+    ``preferred_element_type=float32``: the fp32 cotangent against the other
+    operand in fp32, the result cast to the operand's dtype --
+    ``dx = (dl @ table).to(bf16)``, ``dtable = (dl^T @ x).to(bf16)``.
+    (Autograd's own formula for ``bmm(..., out_dtype=)`` is not relied on.)
+    x2 (1, N, D), table (V, D) -> (1, N, V) fp32."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.bmm(x2, table.t()[None], out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dl):
+        x2, table = ctx.saved_tensors
+        dl = dl[0].float()                                   # (N, V)
+        dx = dtable = None
+        if ctx.needs_input_grad[0]:
+            dx = (dl @ table.float()).to(x2.dtype)[None]
+        if ctx.needs_input_grad[1]:
+            dtable = (dl.t() @ x2[0].float()).to(table.dtype)
+        return dx, dtable
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over tokens of ``logsumexp(lg) - lg[label]``, fp32 logits
+    (..., V) over the whole (padded) vocab, as the reference's single-device
+    loss computes it."""
+    picked = torch.gather(lg, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(torch.logsumexp(lg, -1) - picked)
+
+
+def xent_vocab_parallel(x: torch.Tensor, table: torch.Tensor,
+                        labels: torch.Tensor, *, mesh=None,
+                        vocab_axis: Optional[str] = None,
+                        data_axes: tuple = ()) -> torch.Tensor:
+    """Unembed + softmax cross entropy: the mean loss.  Only the
+    single-device path is ported (``mesh=None``): the fp32 logits of
+    :func:`logits` and :func:`cross_entropy`, what the reference's
+    ``shard_map`` body computes on one shard.  A mesh raises (ROADMAP.md,
+    Queue 1 item 6)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the vocab-parallel cross entropy over a mesh is not ported yet "
+            "(ROADMAP.md, Queue 1 item 6)")
+    return cross_entropy(logits(x, table), labels)

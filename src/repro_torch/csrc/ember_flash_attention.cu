@@ -55,7 +55,9 @@
 //     row's window band are masked.
 //   * Epilogue: O / max(l, 1e-30) in bf16 is staged in the consumer's own Q
 //     rows (free by then) and written by TMA stores, which leave rows past
-//     seq_q unwritten.
+//     seq_q unwritten.  Where the caller asks for it (training), each row's
+//     log-sum-exp m + log(max(l, 1e-30)) goes to an fp32 (B, H, Sq) array
+//     for the backward (ember_flash_backward.cu); serving passes null.
 //   * Causal: KV tiles wholly above the diagonal are skipped (the TPU
 //     kernel's `needed`), and the q tiles with the most KV tiles are
 //     scheduled first (the q tile is the slowest grid dimension).
@@ -188,7 +190,7 @@ template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kF32Threads, F32Smem<DQK, DV>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int seq_q, int seq_k, int heads, int kv_heads, int dq,
+                 float* __restrict__ lse, int seq_q, int seq_k, int heads, int kv_heads, int dq,
                  int dv, int window, float scale) {
   using S = F32Smem<DQK, DV>;
   constexpr int kG = DV / 64;           // 64-column groups of the output
@@ -347,6 +349,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= seq_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) {
+      lse[((long long)b * heads + h) * seq_q + q_pos] = m[i] + logf(denom);
+    }
     float* __restrict__ orow = o + ((long long)b * seq_q + q_pos) * o_stride +
                                (long long)h * dv;
 #pragma unroll
@@ -614,7 +619,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   const __grid_constant__ CUtensorMap omap, int seq_q,
+                   const __grid_constant__ CUtensorMap omap,
+                   float* __restrict__ lse, int seq_q,
                    int seq_k, int heads, int kv_heads, int window,
                    float scale) {
   using L = WgSmem<DQK, DV>;
@@ -816,6 +822,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // epilogue: O / max(l, 1e-30) in bf16 into this consumer's Q rows
     // (swizzled as the O map expects), then TMA stores of whole boxes
     const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q_pos = q_lo + r0 + 8 * r;
+        if (q_pos < seq_q) {
+          lse[((long long)b * heads + h) * seq_q + q_pos] = m[r] + logf(den[r]);
+        }
+      }
+    }
     uint8_t* const q_gen = smem + c * L::kQWg;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
@@ -858,6 +873,7 @@ struct FlashArgs {
   int dv;         // their v / o width: DV, or less
   int window;     // q - k < window, or 0 for none
   float scale;
+  float* lse;     // (batch, heads, seq_q) fp32 log-sum-exp, or null
 };
 
 template <int DQK, int DV, bool CAUSAL>
@@ -870,7 +886,7 @@ int launch_f32(const FlashArgs& a, cudaStream_t s) {
                   (unsigned int)a.heads, (unsigned int)a.batch);
   kernel<<<grid, kF32Threads, kBytes, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.seq_q,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.seq_q,
       a.seq_k, a.heads, a.kv_heads, a.dq, a.dv, a.window, a.scale);
   return (int)cudaGetLastError();
 }
@@ -940,9 +956,9 @@ int launch_bf16(const FlashArgs& a, cudaStream_t s) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned int)a.heads, (unsigned int)a.batch,
                   (unsigned int)((a.seq_q + kBQ - 1) / kBQ));
-  kernel<<<grid, kWgThreads, kBytes, s>>>(qm, km, vm, om, a.seq_q, a.seq_k,
-                                          a.heads, a.kv_heads, a.window,
-                                          a.scale);
+  kernel<<<grid, kWgThreads, kBytes, s>>>(qm, km, vm, om, a.lse, a.seq_q,
+                                          a.seq_k, a.heads, a.kv_heads,
+                                          a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -967,13 +983,16 @@ int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
 // (256, 256); heads a multiple of kv_heads.  window > 0 keeps the keys with
 // q - k < window (0: no window); every query row must keep one key
 // (seq_q - window < seq_k).  scale multiplies the fp32 scores (the
-// reference's head_dim ** -0.5).
+// reference's head_dim ** -0.5).  A non-null lse receives each row's fp32
+// log-sum-exp m + log(max(l, 1e-30)), (batch, heads, seq_q), for the
+// backward (ember_flash_attention_bwd); inference passes null and the
+// kernels write o alone.
 extern "C" int ember_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int batch,
                                      int seq_q, int seq_k, int heads,
                                      int kv_heads, int head_dim,
                                      int v_head_dim, int dtype, int causal,
-                                     int window, double scale,
+                                     int window, double scale, void* lse,
                                      void* stream) {
   const bool dims_ok = (head_dim == v_head_dim &&
                         (head_dim == 64 || head_dim == 80 ||
@@ -991,7 +1010,8 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   const FlashArgs a{q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
-                    head_dim, v_head_dim, window, (float)scale};
+                    head_dim, v_head_dim, window, (float)scale,
+                    static_cast<float*>(lse)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
   if (head_dim == 64) return launch_by_dtype<64, 64>(dtype, c, a, s);

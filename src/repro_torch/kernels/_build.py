@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "ember_kernels.cu", CSRC / "ember_fusedmm.cu",
-           CSRC / "ember_flash_attention.cu")
+           CSRC / "ember_flash_attention.cu",
+           CSRC / "ember_flash_backward.cu")
 HEADERS = (CSRC / "ember_common.cuh", CSRC / "ember_hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -56,10 +57,15 @@ _SIGNATURES = {
     # x, ptrs, idxs, out, num_segments, emb_len, dtype, fn, stream
     "ember_fusedmm_ring": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim,
-    # v_head_dim, dtype, causal, window, scale, stream
+    # v_head_dim, dtype, causal, window, scale, lse (fp32, or null), stream
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I32, _I32, _I32, ctypes.c_double,
-                              _P),
+                              _P, _P),
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq_q, seq_k, heads,
+    # kv_heads, head_dim, v_head_dim, dtype, causal, window, scale, stream
+    "ember_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                                  _I32, _I32, _I32, ctypes.c_double, _P),
     # dtype, head_dim -> the flash kernel's KV tile
     "ember_flash_kv_tile": (_I32, _I32),
 }

@@ -15,6 +15,14 @@ tensor-core kernel (wgmma fed by TMA; 128-key tiles, 64 at D = 256), f32
 the scalar fp32 kernel (64-key tiles).  ``flash_attention_cuda.launches``
 counts the kernel launches and ``flash_attention_cuda.instances`` the same
 launches by dtype, widths, causal and window (:func:`instance`).
+
+The backward (``ember_flash_attention_bwd``, ``csrc/ember_flash_backward.cu``)
+has no TPU counterpart: the reference differentiates ``blockwise_attention``
+with ``jax.grad``.  :class:`FlashAttention` pairs the forward, which then
+also saves each row's log-sum-exp, with :func:`flash_attention_bwd_cuda`;
+:func:`flash_attention` (``kernels.ops.attention``) goes through it whenever
+q, k or v need a gradient.  Called directly under autograd, the kernel
+wrappers raise: their outputs carry no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .sls import DTYPES, one_device
+from .sls import DTYPES, one_device, refuse_autograd
 
 #: the (q/k width, v width) pairs with a kernel; (80, 80) runs the (128, 128)
 #: kernel on zero-padded columns (csrc/ember_flash_attention.cu)
@@ -62,21 +70,8 @@ def instance(q: torch.Tensor, v: torch.Tensor, causal: bool,
     return key
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None,
-                         chunk: int = 512) -> torch.Tensor:
-    """softmax(q k^T * D^-1/2, causal) v per head, KV head ``h // (H/Hkv)``
-    for query head h -> (B,Sq,H,Dv) in q's dtype.
-
-    A ``window`` keeps the keys with ``q - k < window`` (the reference's
-    band); it must be positive, and on the card every query row must keep a
-    key (``Sq - window < Sk``); a window of Sq or more masks nothing and
-    runs as none.  ``chunk`` is the KV chunk of the plain version's
-    recurrence (it decides only the fp32 summation order); the kernel
-    streams its own :func:`kv_tile` rows.  On the card a (D, Dv) pair
-    outside :data:`HEAD_DIMS` raises; bf16 tensors must be 16-byte aligned
-    (TMA reads them)."""
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: Optional[int]) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype not in DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D float32 or "
@@ -91,38 +86,168 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}) are not one GQA attention")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    dev = one_device(q, k, v)
-    if dev.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             chunk=chunk)
-    sk = k.shape[1]
-    # a window of sq or more masks nothing (q - k <= sq - 1)
+
+
+def _kernel_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int]) -> int:
+    """The window the kernels take (0: none; a window of Sq or more masks
+    nothing, q - k <= Sq - 1), after the checks only the kernels need:
+    every query row keeps a key, and (D, Dv) is one of :data:`HEAD_DIMS`."""
+    sq, sk = q.shape[1], k.shape[1]
     win = window if window is not None and window < sq else 0
     if win and sq - win >= sk:
         raise ValueError(f"window {win}: query rows past {sk + win - 1} "
                          f"keep no key of {sk}")
+    if (q.shape[3], v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {q.shape[3]}, v {v.shape[3]}) not "
+                         f"among the kernel's {HEAD_DIMS}")
+    return win
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         chunk: int = 512, return_lse: bool = False):
+    """softmax(q k^T * D^-1/2, causal) v per head, KV head ``h // (H/Hkv)``
+    for query head h -> (B,Sq,H,Dv) in q's dtype.
+
+    A ``window`` keeps the keys with ``q - k < window`` (the reference's
+    band); it must be positive, and on the card every query row must keep a
+    key (``Sq - window < Sk``); a window of Sq or more masks nothing and
+    runs as none.  ``chunk`` is the KV chunk of the plain version's
+    recurrence (it decides only the fp32 summation order); the kernel
+    streams its own :func:`kv_tile` rows.  On the card a (D, Dv) pair
+    outside :data:`HEAD_DIMS` raises; bf16 tensors must be 16-byte aligned
+    (TMA reads them).
+
+    With ``return_lse``, ``(out, lse)``: lse (B,H,Sq) fp32, each row's
+    log-sum-exp, for :func:`flash_attention_bwd_cuda`; without it the
+    kernel writes no lse (the serving path).  On the card it raises under
+    autograd where q, k or v need a gradient (:func:`flash_attention`
+    takes that path)."""
+    _check_qkv(q, k, v, window)
+    b, sq, h, d = q.shape
+    dev = one_device(q, k, v)
+    if dev.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             chunk=chunk, return_lse=return_lse)
+    refuse_autograd("ember_flash_attention", q, k, v)
+    sk = k.shape[1]
+    win = _kernel_window(q, k, v, window)
     dv = v.shape[3]
-    if (d, dv) not in HEAD_DIMS:
-        raise ValueError(f"head dims (q/k {d}, v {dv}) not among the "
-                         f"kernel's {HEAD_DIMS}")
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v, out)):
         raise ValueError("bf16 flash attention reads q, k and v by TMA: "
                          "their data must be 16-byte aligned")
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     hkv = k.shape[2]
     with torch.cuda.device(dev):
         err = _build.library().ember_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, h, hkv, d, dv, DTYPES[q.dtype], int(causal), win, d ** -0.5,
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ember_flash_attention")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.instances[instance(q, v, causal, win)] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.instances = collections.Counter()
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None) -> tuple:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_cuda` at
+    q, k, v, from its output ``o``, the cotangent ``dout`` (both
+    (B,Sq,H,Dv), in q's dtype) and the ``lse`` it saved (B,H,Sq) fp32.
+
+    CPU tensors run the plain version
+    (:func:`repro_torch.kernels.ref.attention_backward`); CUDA tensors
+    launch ``ember_flash_attention_bwd`` (three kernels: delta, dK/dV, dQ;
+    SIMT fp32, deterministic) or raise.  ``flash_attention_bwd_cuda
+    .launches`` counts the calls that launched, ``.instances`` the same by
+    :func:`instance`."""
+    _check_qkv(q, k, v, window)
+    b, sq, h, d = q.shape
+    dv = v.shape[3]
+    for name, t, shape, dtype in (("o", o, (b, sq, h, dv), q.dtype),
+                                  ("dout", dout, (b, sq, h, dv), q.dtype),
+                                  ("lse", lse, (b, h, sq), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                             f"shape {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    dev = one_device(q, k, v, o, dout, lse)
+    if dev.type == "cpu":
+        return ref.attention_backward(q, k, v, o, dout, lse, causal=causal,
+                                      window=window)
+    refuse_autograd("ember_flash_attention_bwd", q, k, v, o, dout)
+    sk, hkv = k.shape[1], k.shape[2]
+    win = _kernel_window(q, k, v, window)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq, dk.zero_(), dvv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().ember_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, hkv, d, dv,
+            DTYPES[q.dtype], int(causal), win, d ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ember_flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.instances[instance(q, v, causal, win)] += 1
+    return dq, dk, dvv
+
+
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.instances = collections.Counter()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel saving each
+    row's log-sum-exp, :func:`flash_attention_bwd_cuda` for the gradients
+    of q, k and v (the plain versions of both on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                chunk: int):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, chunk=chunk,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """:func:`flash_attention_cuda`'s function, differentiable: through
+    :class:`FlashAttention` where grad mode is on and q, k or v need a
+    gradient, else the forward alone (no lse; the serving path, whose bits
+    this leaves as they were)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, chunk)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                chunk=chunk)

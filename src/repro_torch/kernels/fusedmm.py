@@ -23,7 +23,7 @@ import torch
 
 from . import _build, ref
 from .sls import (DTYPES, aligned16, check_index, check_table,
-                  kernel_variant, one_device, row_tile)
+                  kernel_variant, one_device, refuse_autograd, row_tile)
 
 FNS = {"identity": 0, "relu": 1}
 #: 16-byte (or one-element) accesses one thread may hold of a row: the
@@ -52,6 +52,7 @@ def fusedmm_cuda(x: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor, *,
     dev = one_device(x, ptrs, idxs)
     if dev.type == "cpu":
         return ref.fusedmm(x, ptrs, idxs, num_segments=num_segments, fn=fn)
+    refuse_autograd("ember_fusedmm", x)
     emb_len = x.shape[1]
     out = torch.empty((num_segments, emb_len), dtype=x.dtype, device=dev)
     if num_segments == 0 or emb_len == 0:

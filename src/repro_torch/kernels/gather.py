@@ -18,6 +18,14 @@ a CUDA call launches the chosen variant or raises.
 ``block_gather_cuda.launches`` counts the copy kernel's launches,
 ``block_gather_cuda.variants`` those of each variant and of the grouping
 pass ("group").
+
+The gradient (the reference takes it with ``jax.grad`` of ``jnp.take``) is
+a scatter-add, ``dtable[r] = sum over g with idxs[g] = r of dout[g]``: a
+segmented sum over the transposed lookups -- a stable sort of the block
+ids, segment offsets from a bincount over the table's blocks -- which the
+existing ``ember_sls`` kernel runs (:func:`block_gather_backward`).
+:class:`BlockGather` pairs the two; :func:`block_gather`
+(``kernels.ops.block_gather``) takes it where the table needs a gradient.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import torch
 
 from . import _build, ref
 from .sls import (aligned16, check_index, check_table, kernel_variant,
-                  one_device, row_tile)
+                  one_device, refuse_autograd, row_tile, sls_cuda)
 
 
 def block_gather_cuda(table: torch.Tensor, idxs: torch.Tensor, *,
@@ -48,6 +56,7 @@ def block_gather_cuda(table: torch.Tensor, idxs: torch.Tensor, *,
     dev = one_device(table, idxs, roff)
     if dev.type == "cpu":
         return ref.block_gather(table, idxs, block_rows=block_rows, roff=roff)
+    refuse_autograd("ember_block_gather", table)
     num_blocks, emb_len = idxs.numel(), table.shape[1]
     out = torch.empty((num_blocks, block_rows, emb_len), dtype=table.dtype,
                       device=dev)
@@ -100,3 +109,81 @@ def launch_variant(variant: str, table: torch.Tensor, idxs: torch.Tensor,
 
 block_gather_cuda.launches = 0
 block_gather_cuda.variants = {"bulk": 0, "group": 0, "rows": 0}
+
+
+def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
+                          num_rows: int, *, block_rows: int = 1,
+                          roff: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The gradient of :func:`block_gather_cuda` for its table of
+    ``num_rows`` rows: dout (G, block_rows, E) -> (num_rows, E) in dout's
+    dtype, each table row the fp32 sum of the dout blocks that read it
+    (0 where none does).
+
+    CPU tensors run the plain ``index_add_``
+    (:func:`repro_torch.kernels.ref.block_gather_backward`).  On the card
+    the lookups are transposed into CSR -- g sorted stably by block id
+    ``idxs[g] + roff[g]``, offsets from a bincount over the table's
+    ``num_rows / block_rows`` blocks -- and ``ember_sls`` sums each block's
+    segment of dout rows (``block_rows * E`` wide), in the sorted order:
+    deterministic.  ``block_gather_backward.launches`` counts the
+    ``ember_sls`` launches it made (none where there is nothing to sum)."""
+    check_index("idxs", idxs)
+    if roff is not None:
+        check_index("roff", roff, idxs.numel())
+    num_blocks = idxs.numel()
+    if dout.dim() != 3 or dout.shape[:2] != (num_blocks, block_rows) or \
+            num_rows % block_rows:
+        raise ValueError(f"dout {tuple(dout.shape)} is not the gather of "
+                         f"{num_blocks} blocks of {block_rows} rows of a "
+                         f"{num_rows}-row table")
+    dev = one_device(dout, idxs, roff)
+    if dev.type == "cpu":
+        return ref.block_gather_backward(dout, idxs, num_rows,
+                                         block_rows=block_rows, roff=roff)
+    emb_len = dout.shape[2]
+    blk = idxs.to(torch.int64)
+    if roff is not None:
+        blk = blk + roff.to(torch.int64)
+    n_tbl = num_rows // block_rows
+    order = torch.argsort(blk, stable=True).to(torch.int32)
+    ptrs = torch.zeros(n_tbl + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(torch.bincount(blk, minlength=n_tbl), 0, out=ptrs[1:])
+    rows = dout.reshape(num_blocks, block_rows * emb_len).contiguous()
+    before = sls_cuda.launches
+    out = sls_cuda(rows, ptrs, order, num_segments=n_tbl)
+    block_gather_backward.launches += sls_cuda.launches - before
+    return out.view(num_rows, emb_len)
+
+
+block_gather_backward.launches = 0
+
+
+class BlockGather(torch.autograd.Function):
+    """The block gather with its gradient for the table
+    (:func:`block_gather_backward`); the indices take none."""
+
+    @staticmethod
+    def forward(ctx, table, idxs, block_rows: int, roff):
+        ctx.save_for_backward(idxs, roff)
+        ctx.num_rows, ctx.block_rows = table.shape[0], block_rows
+        return block_gather_cuda(table, idxs, block_rows=block_rows,
+                                 roff=roff)
+
+    @staticmethod
+    def backward(ctx, dout):
+        idxs, roff = ctx.saved_tensors
+        return (block_gather_backward(dout.contiguous(), idxs, ctx.num_rows,
+                                      block_rows=ctx.block_rows, roff=roff),
+                None, None, None)
+
+
+def block_gather(table: torch.Tensor, idxs: torch.Tensor, *,
+                 block_rows: int = 1,
+                 roff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`block_gather_cuda`'s function, differentiable in the table:
+    through :class:`BlockGather` where grad mode is on and the table needs
+    a gradient, else the forward alone."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return BlockGather.apply(table, idxs, block_rows, roff)
+    return block_gather_cuda(table, idxs, block_rows=block_rows, roff=roff)

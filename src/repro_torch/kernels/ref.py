@@ -63,6 +63,25 @@ def block_gather(table: torch.Tensor, idxs: torch.Tensor, *,
         idxs.shape[0], block_rows, table.shape[1])
 
 
+def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
+                          num_rows: int, *, block_rows: int = 1,
+                          roff: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The block gather's gradient: ``dtable[r] = sum over the lookups g
+    that read row r of dout[g]``, an ``index_add_`` into ``num_rows`` fp32
+    rows, cast to dout's dtype once.  dout (G, block_rows, E)."""
+    blk = idxs.to(torch.int64)
+    if roff is not None:
+        blk = blk + roff.to(torch.int64)
+    rows = (blk[:, None] * block_rows +
+            torch.arange(block_rows, device=dout.device)[None, :])
+    emb_len = dout.shape[-1]
+    out = torch.zeros((num_rows, emb_len), dtype=torch.float32,
+                      device=dout.device)
+    out.index_add_(0, rows.reshape(-1), dout.reshape(-1, emb_len).float())
+    return out.to(dout.dtype)
+
+
 def fusedmm(x: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor, *,
             num_segments: int, fn: str = "identity",
             first_segment: int = 0) -> torch.Tensor:
@@ -95,7 +114,7 @@ NEG_INF = -1e30
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              chunk: int = 512) -> torch.Tensor:
+              chunk: int = 512, return_lse: bool = False):
     """Blockwise (flash) attention in the JAX package's layout: q (B,Sq,H,D),
     k (B,Sk,Hkv,D), v (B,Sk,Hkv,Dv), GQA by head groups -> (B,Sq,H,Dv).
 
@@ -111,7 +130,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head, the group's query rows stacked), whose tensor cores sum the
     products as the kernel's wgmma does, so a score near a bf16 rounding
     boundary of p lands on the kernel's side of it; elsewhere the operands
-    are cast to fp32."""
+    are cast to fp32.
+
+    With ``return_lse``, ``(out, lse)``: lse (B,H,Sq) fp32 is each row's
+    log-sum-exp ``m + log(max(l, 1e-30))``, what the kernel saves for the
+    backward (:func:`attention_backward`)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -162,6 +185,67 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               vblk.float())
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    denom = torch.clamp(l, min=1e-30)
+    out = acc / denom[..., None]
     # (b, hkv, g, sq, dv) -> (b, sq, h, dv)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(
+        q.dtype).contiguous()
+    if return_lse:
+        return out, (m + torch.log(denom)).reshape(b, h, sq)
+    return out
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                       *, causal: bool = True, window: Optional[int] = None,
+                       chunk: int = 1024) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`attention` from its output ``o``,
+    the cotangent ``dout`` (both (B,Sq,H,Dv)) and the saved ``lse``
+    (B,H,Sq): the FlashAttention-2 recurrence the backward kernel computes,
+    written out (not autograd through :func:`attention`) --
+    ``P = exp(scale * q k^T - lse)`` under the masks, ``delta =
+    rowsum(dout * o)``, ``dS = P (dout v^T - delta)``, ``dq = scale dS k``,
+    ``dk = scale dS^T q`` and ``dv = P^T dout``, the GQA group's query heads
+    summed into their KV head.  Every product and sum in fp32 (on the card
+    too: ``torch.backends.cuda.matmul.allow_tf32`` must be off), over query
+    chunks of ``chunk`` rows so a long sequence never holds a whole (Sq, Sk)
+    score matrix; each gradient cast to its input's dtype once."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = d ** -0.5
+
+    def heads_first(t, width):    # (b, s, h, e) -> (b, hkv, g, s, e)
+        return t.float().reshape(b, t.shape[1], hkv, g, width).permute(
+            0, 2, 3, 1, 4)
+    qf, of, dof = heads_first(q, d), heads_first(o, dv), heads_first(dout, dv)
+    kf = k.float().permute(0, 2, 1, 3)         # (b, hkv, sk, d)
+    vf = v.float().permute(0, 2, 1, 3)
+    lse_g = lse.float().reshape(b, hkv, g, sq)
+    delta = (dof * of).sum(-1)                  # (b, hkv, g, sq)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dvv = torch.zeros_like(vf)
+    k_pos = torch.arange(sk, device=q.device)[None]
+    for q0 in range(0, sq, chunk):
+        qc, doc = qf[:, :, :, q0:q0 + chunk], dof[:, :, :, q0:q0 + chunk]
+        q_pos = torch.arange(q0, q0 + qc.shape[3], device=q.device)[:, None]
+        mask = torch.ones((qc.shape[3], sk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window is not None:
+            mask &= q_pos - k_pos < window
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
+        p = torch.where(mask, torch.exp(s - lse_g[..., q0:q0 + chunk, None]),
+                        0.0)
+        dp = torch.einsum("bhgqe,bhke->bhgqk", doc, vf)
+        ds = p * (dp - delta[..., q0:q0 + chunk, None])
+        dq[:, :, :, q0:q0 + chunk] = torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                                  kf) * scale
+        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+        dvv += torch.einsum("bhgqk,bhgqe->bhke", p, doc)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    dk = (dk * scale).permute(0, 2, 1, 3).to(k.dtype)
+    return dq, dk, dvv.permute(0, 2, 1, 3).to(v.dtype)

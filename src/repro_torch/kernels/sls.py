@@ -96,6 +96,21 @@ def check_table(table: torch.Tensor) -> None:
                          f"{tuple(table.shape)}")
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise where a kernel would run under autograd on tensors that need a
+    gradient: its output, written through a raw pointer, has no
+    ``grad_fn``, so the gradient would be dropped without a word.  The
+    kernels on the training path are called through their
+    ``torch.autograd.Function`` (``flash_attention.FlashAttention``,
+    ``gather.BlockGather``), whose forward runs with grad mode off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} was called under autograd on tensors that require a "
+            "gradient; its output would carry none: call it through "
+            "repro_torch.kernels.ops (its torch.autograd.Function)")
+
+
 def one_device(*tensors) -> torch.device:
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
@@ -136,6 +151,7 @@ def sls_cuda(table: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor,
     if dev.type == "cpu":
         return ref.sls(table, ptrs, idxs, weights, num_segments=num_segments,
                        add_op=add_op, mul_op=mul_op, seg_base=seg_base)
+    refuse_autograd("ember_sls", table, weights)
     emb_len = table.shape[1]
     out = torch.empty((num_segments, emb_len), dtype=table.dtype, device=dev)
     if num_segments == 0 or emb_len == 0:

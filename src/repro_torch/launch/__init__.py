@@ -1,2 +1,3 @@
 """Launchers of the port (counterpart of ``repro/launch``): ported so far,
-the serving launcher :mod:`.serve`."""
+the serving launcher :mod:`.serve` and the training launcher
+:mod:`.train`."""

@@ -6,7 +6,8 @@ gated MLP), ``dense_local`` (the same with the sliding-window band of
 the ``mla`` kind (DeepSeek's latent attention + the MoE FFN),
 :meth:`LM.forward` (the MoE layers' auxiliary loss summed beside it; the
 ``vision-stub`` front end's ``frontend_embeds`` spliced over the first
-positions) and :meth:`LM.prefill`, the serving methods
+positions), :meth:`LM.loss` (the training objective) and
+:meth:`LM.prefill`, the serving methods
 (:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask,
 :meth:`LM.wave_step`, :meth:`LM.reset_slots`), and the LM's embedding
 programs and executors (:func:`embedding_program`,
@@ -17,8 +18,8 @@ into a ``jax.lax.scan`` over super-blocks; here the layers are an
 remainder, as the reference does), and a wave is a Python loop of masked
 micro-steps (which the server replays as CUDA graphs on the card:
 :class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
-Queue 1): the loss (item 4), the other block kinds (item 5), the sharded
-embedding executor (item 6) and training (item 7).
+Queue 1): the other block kinds (item 5) and the sharded embedding
+executor and loss (item 6).
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
 ``frontend_proj`` where ``cfg.modality`` is not ``"text"``,
@@ -26,9 +27,12 @@ Parameters carry the reference's names (``embed``, ``final_norm``,
 MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``; the MoE kinds'
 ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``) and layout, so
 :func:`repro_torch.convert.lm_params_from_reference` can load the
-reference's weights.  They do not require gradients: the attention
-kernel has no backward yet.  The weights stay inside the module, so the
-serving methods take no ``params`` argument; caches are a list with one
+reference's weights.  They are built frozen; ``lm.requires_grad_(True)``
+makes them trainable (the trainer does so), and then the kernels on the
+way -- flash attention, the MoE un-dispatch gather -- run through their
+autograd Functions, whose backward is a kernel too.  Serving runs under
+``torch.inference_mode`` either way.  The weights stay inside the module,
+so the serving and loss methods take no ``params`` argument; caches are a list with one
 dict per layer, in layer order (:mod:`.attention` gives the layout;
 ``repro_torch.convert.caches_to_reference`` maps them to the reference's
 tree).
@@ -261,6 +265,17 @@ class LM(nn.Module):
                 aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (x, aux) if with_aux else x
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training objective, the reference's single-device
+        ``LM.loss``: the mean over tokens of ``logsumexp(logits) -
+        logits[label]``, the fp32 logits over the padded vocab (pad rows
+        included, as the reference computes them), plus ``0.01 * aux``, the
+        MoE load-balance loss.  tokens, labels (B,S) int; a () fp32
+        tensor."""
+        x, aux = self.forward(tokens, frontend_embeds, with_aux=True)
+        return ee.xent_vocab_parallel(x, self.embed, labels) + 0.01 * aux
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,

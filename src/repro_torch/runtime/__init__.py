@@ -1,3 +1,3 @@
 """Runtimes of the port (counterpart of ``repro/runtime``): the fault
-vocabulary (:mod:`.faults`, a copy) and the continuous-batching decode
-server (:mod:`.server`)."""
+vocabulary (:mod:`.faults`, a copy), the continuous-batching decode
+server (:mod:`.server`) and the fault-tolerant trainer (:mod:`.trainer`)."""

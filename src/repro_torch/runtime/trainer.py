@@ -1,0 +1,224 @@
+"""Fault-tolerant training runtime (counterpart of
+``repro/runtime/trainer.py``).
+
+The loop of the reference, eager: each step runs :meth:`LM.loss`, its
+``backward`` (the flash attention and MoE un-dispatch kernels through their
+autograd Functions, whose backward is a kernel too), optional int8 gradient
+compression with error feedback, and :class:`~repro_torch.optim.AdamW`
+applied in place.  Kept from the reference:
+
+* **checkpoint/restart** -- resume from the latest committed checkpoint,
+  written in the reference's format and tree (``convert
+  .train_state_to_reference``), so either package restores the other's;
+* **watchdog** -- a step over ``step_deadline_s`` on the host clock (which
+  waits for the step's work on the card) raises ``StragglerTimeout``;
+* **failure injection** -- ``failure_schedule`` and the ``faults``
+  injector's ``"step"`` site kill the loop at chosen steps;
+* **async checkpointing** -- the leaves are copied to host memory at the
+  save, and written (stacked into the reference's tree first) in the
+  background while the next steps run;
+* **the train-serve handoff** -- every step's embedding table is handed to
+  the model's embedding executor (``update_tables``); it is updated in
+  place, so the executor rebinds nothing and restacks nothing
+  (``table_restacks`` stays 0).
+
+Deliberate differences: the initial state is the module's own weights (the
+port's ``LM`` holds its parameters, as ``DecodeServer`` takes none), so
+``run`` takes no PRNG key; a restart that finds a checkpoint overwrites
+them from it.  ``TrainerConfig.ckpt_dir`` has no default (the
+reference's is ``/tmp/repro_ckpt``): a trainer resumes from whatever it
+finds there, so two runs must not share one by accident.
+``in_shardings`` (GSPMD) waits for the sharding item
+(ROADMAP.md, Queue 1 item 6).
+
+The supervisor (:func:`run_supervised`) is the single-process stand-in for
+the cluster controller: it builds a fresh trainer and restarts the loop
+after injected failures until the target step is reached.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Callable, Optional
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..checkpoint.ckpt import tree_map
+from ..convert import train_state_from_reference, train_state_to_reference
+from ..data.pipeline import SyntheticTokens
+from ..optim import adamw
+from ..optim.compress import compress_gradients, error_feedback_init
+from .faults import InjectedFailure, StragglerTimeout  # noqa: F401
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: Optional[str] = None    # required: the trainer resumes from it
+    keep: int = 3
+    step_deadline_s: Optional[float] = None     # watchdog
+    grad_compression: bool = False
+    lr: float = 3e-4
+
+
+class Trainer:
+    def __init__(self, lm, data: SyntheticTokens, tcfg: TrainerConfig,
+                 in_shardings=None, faults=None):
+        if in_shardings is not None:
+            raise NotImplementedError(
+                "in_shardings (a sharded train step) is not ported yet "
+                "(ROADMAP.md, Queue 1 item 6)")
+        if tcfg.ckpt_dir is None:
+            raise ValueError(
+                "TrainerConfig.ckpt_dir is required: the trainer resumes "
+                "from any checkpoint it finds there, so it takes no shared "
+                "default")
+        self.lm = lm.requires_grad_(True)
+        self.data = data
+        self.tcfg = tcfg
+        # optional shared chaos injector (runtime.faults.FaultInjector):
+        # fires the "step" site each iteration
+        self.faults = faults
+        self.opt = adamw(lr=tcfg.lr)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.emb_executor = None
+
+    def init_state(self) -> dict:
+        """``{"params", "opt", "ef"}``: the module's parameters (the live
+        tensors, updated in place), AdamW's zero state, and the
+        error-feedback residuals (None without compression)."""
+        params = dict(self.lm.named_parameters())
+        return {"params": params, "opt": self.opt.init(params),
+                "ef": (error_feedback_init(params)
+                       if self.tcfg.grad_compression else None)}
+
+    def _restore(self, state: dict) -> int:
+        """Overwrite ``state`` in place from the latest checkpoint; returns
+        its step."""
+        cfg = self.lm.cfg
+        like = train_state_to_reference(tree_map(
+            lambda t: torch.empty_like(t, device="meta"), state), cfg)
+        tree, step = self.ckpt.restore(like)
+        loaded = train_state_from_reference(tree, cfg, device="cpu")
+        with torch.no_grad():
+            for group in ("params", "ef"):
+                if state[group] is None:
+                    continue
+                for k, t in state[group].items():
+                    t.copy_(loaded[group][k])
+            opt, lopt = state["opt"], loaded["opt"]
+            opt.step.copy_(lopt.step)
+            for k in opt.mu:
+                opt.mu[k].copy_(lopt.mu[k])
+                opt.nu[k].copy_(lopt.nu[k])
+        return step
+
+    def _train_step(self, state: dict, batch: dict) -> torch.Tensor:
+        """One step: the loss, its gradients (a parameter the loss does not
+        reach gets zeros, as ``jax.grad`` gives), compression, AdamW in
+        place.  Returns the loss (before the update), on the device."""
+        params = state["params"]
+        for p in params.values():
+            p.grad = None
+        loss = self.lm.loss(batch["tokens"], batch["labels"],
+                            batch.get("frontend_embeds"))
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        if self.tcfg.grad_compression:
+            grads, state["ef"] = compress_gradients(grads, state["ef"])
+        state["opt"] = self.opt.apply_(params, grads, state["opt"])
+        return loss.detach()
+
+    def _batch(self, step: int) -> dict:
+        dev = self.lm.device
+        out = {}
+        for k, v in self.data.batch_at(step).items():
+            t = torch.from_numpy(v).to(dev)
+            out[k] = t.to(self.lm.cfg.torch_dtype) if t.is_floating_point() \
+                else t
+        return out
+
+    def run(self, *, failure_schedule: Callable[[int], bool] = None,
+            on_step=None) -> dict:
+        tcfg = self.tcfg
+        state = self.init_state()
+        step0 = 0
+        if self.ckpt.latest() is not None:
+            step0 = self._restore(state) + 1
+        if self.emb_executor is None:
+            # the serving-handoff artifact: the embedding program compiled
+            # for this (batch, seq), fed every step's table (the lookups
+            # themselves run inside the model's forward)
+            dc = self.data.cfg
+            self.emb_executor = self.lm.embedding_executor(dc.global_batch,
+                                                           dc.seq_len)
+
+        losses = []
+        for step in range(step0, tcfg.total_steps):
+            if failure_schedule is not None and failure_schedule(step):
+                raise InjectedFailure(f"injected failure at step {step}")
+            if self.faults is not None:
+                self.faults.fire("step", step=step)
+            t0 = time.time()
+            loss = float(self._train_step(state, self._batch(step)))
+            dt = time.time() - t0      # float() waited for the step's work
+            if tcfg.step_deadline_s and dt > tcfg.step_deadline_s:
+                raise StragglerTimeout(
+                    f"step {step} took {dt:.1f}s > {tcfg.step_deadline_s}s")
+            # train-serve handoff: the embed table was updated in place, so
+            # the executor's alias unit keeps its binding (no restack)
+            with torch.no_grad():
+                self.emb_executor.update_tables(
+                    self.lm.embedding_table_inputs())
+            losses.append(loss)
+            if on_step:
+                on_step(step, loss)
+            if (step + 1) % tcfg.ckpt_every == 0 or \
+                    step + 1 == tcfg.total_steps:
+                self.ckpt.save(step, state, transform=functools.partial(
+                    train_state_to_reference, cfg=self.lm.cfg))
+        self.ckpt.wait()
+        out = {"final_step": tcfg.total_steps - 1, "losses": losses,
+               "state": state}
+        from ..core.executor import executor_cache_stats
+        from ..core.pipeline import compile_cache_stats
+        ec = compile_cache_stats()
+        ec["executor_cache"] = executor_cache_stats()
+        ec["executor"] = dict(self.emb_executor.stats)
+        out["embedding_compile"] = ec
+        return out
+
+
+def run_supervised(make_trainer: Callable[[], Trainer], *,
+                   failure_schedule=None, max_restarts: int = 5) -> dict:
+    """Cluster-controller stand-in: restart-from-checkpoint on failure.
+    The failed trainer is dropped before the next is built, so a full-size
+    model's state is never held twice."""
+    restarts = 0
+    fired: set = set()
+
+    def sched(step):
+        if failure_schedule and step in failure_schedule and \
+                step not in fired:
+            fired.add(step)
+            return True
+        return False
+
+    while True:
+        trainer = make_trainer()
+        try:
+            out = trainer.run(failure_schedule=sched)
+            out["restarts"] = restarts
+            return out
+        except (InjectedFailure, StragglerTimeout):
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+        trainer.ckpt.wait()
+        del trainer

@@ -288,7 +288,7 @@ def test_fusedmm_and_flash_launch_errors_raise(cuda):
     q = torch.randn(1, 8, 2, 96, device=cuda)
     err = lib.ember_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(),
                                     q.data_ptr(), 1, 8, 8, 2, 2, 96, 96, 0,
-                                    1, 0, 96 ** -0.5, stream)
+                                    1, 0, 96 ** -0.5, None, stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="failed to launch"):
         _build.check(err, "ember_flash_attention")
@@ -498,7 +498,7 @@ def test_flash_kernel_at_head_dim_80_leaves_its_neighbours_alone(cuda):
     o = buf[:out.numel()].view_as(out)
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
-        4, 4, 80, 80, 1, 1, 0, 80 ** -0.5,
+        4, 4, 80, 80, 1, 1, 0, 80 ** -0.5, None,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -551,7 +551,7 @@ def test_flash_kernel_at_mla_widths_leaves_its_neighbours_alone(cuda):
     o = buf[:out.numel()].view_as(out)
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
-        4, 4, 192, 128, 1, 1, 0, 192 ** -0.5,
+        4, 4, 192, 128, 1, 1, 0, 192 ** -0.5, None,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -709,7 +709,7 @@ def test_bf16_flash_kernel_refuses_unaligned_tensors(cuda):
     assert kops.launch_counts()["flash_attention"] == before
     err = _build.library().ember_flash_attention(
         q.data_ptr(), k.data_ptr(), k.data_ptr(), k.data_ptr(), 1, 64, 64,
-        2, 2, 64, 64, 1, 1, 0, 64 ** -0.5,
+        2, 2, 64, 64, 1, 1, 0, 64 ** -0.5, None,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
 
@@ -1213,3 +1213,299 @@ def test_moe_wave_graph_replays_one_undispatch_gather_a_layer(cuda):
              if e.device_type() == DeviceType.CUDA]
     assert sum("gather_bulk_kernel" in k for k in names) == 2 * n
     assert sum("group_insert_kernel" in k for k in names) == 2 * n
+
+
+# ---------------------------------------------------------------------------
+# The backward: flash attention's kernels and the block gather's gradient
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(cuda, dtype, b, s, sk, h, hkv, d, dv, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, sk, hkv, dv), generator=g, device=cuda).to(dtype)
+    dout = torch.randn((b, s, h, dv), generator=g, device=cuda).to(dtype)
+    return q, k, v, dout
+
+
+def _hold_grads(got, want, dtype, what):
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        if dtype == torch.float32:
+            # fp32 sums of up to ~1000 products in another order
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4,
+                                       msg=f"{what} {name}")
+        else:
+            check_bf16(a, w, f"{what} {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(64, 64), (80, 80), (128, 128),
+                                  (192, 128), (256, 256)])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("window", [None, 37, 128])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, d, dv, h, hkv,
+                                             window):
+    """The three backward kernels (delta, dK/dV, dQ) against
+    ref.attention_backward on the same q, k, v, o, dout and lse, causal,
+    at every (q/k, v) width pair, GQA groups 1 and 4, with and without the
+    band; the forward's lse against the plain version's."""
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 200, 200, h, hkv, d, dv,
+                                d + h + (window or 0))
+    o, lse = kops.flash_attention_cuda(q, k, v, window=window,
+                                       return_lse=True)
+    _, lse_plain = ref.attention(q, k, v, window=window,
+                                 chunk=kv_tile(dtype, d), return_lse=True)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-5, atol=1e-5)
+    before = kops.backward_launch_counts()["flash_attention_bwd"]
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert kops.backward_launch_counts()["flash_attention_bwd"] == before + 1
+    want = ref.attention_backward(q, k, v, o, dout, lse, window=window)
+    _hold_grads(got, want, dtype, f"flash backward {d}/{dv}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(80, 80), (256, 256)])
+def test_flash_backward_kernel_with_a_window_of_one(cuda, dtype, d, dv):
+    """A window of one key: each row attends to itself alone, P = 1 and
+    o = v, so dS = do.v - do.o = 0 -- dq and dk are 0 up to the fp32
+    rounding of two sums of the same products (no relative measure holds
+    there) -- and dv = dout.  One query head a KV head: with a group, dv
+    would sum a few bf16 values, whose fp32 sum often lies on a bf16 tie,
+    which P = 1 +- an ulp of the recomputed score tips either way."""
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 200, 200, 2, 2, d, dv, 1)
+    o, lse = kops.flash_attention_cuda(q, k, v, window=1, return_lse=True)
+    dq, dk, dv_got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                                   window=1)
+    assert float(dq.abs().max()) < 1e-5 and float(dk.abs().max()) < 1e-5
+    if dtype == torch.float32:
+        torch.testing.assert_close(dv_got, dout, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(dv_got, dout, "flash backward dv at window 1")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,sk", [(128, 128), (200, 328)])
+def test_flash_backward_kernel_not_causal_matches_plain(cuda, dtype, d, s,
+                                                        sk):
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, s, sk, 8, 2, d, d, s + d)
+    o, lse = kops.flash_attention_cuda(q, k, v, causal=False,
+                                       return_lse=True)
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=False)
+    want = ref.attention_backward(q, k, v, o, dout, lse, causal=False)
+    _hold_grads(got, want, dtype, "non-causal flash backward")
+
+
+@pytest.mark.parametrize("window", [None, 4096])
+def test_bf16_flash_backward_at_training_length(cuda, window):
+    """h2o-danube-1.8b's attention at one 8192-token sequence: 32 heads
+    over 8 KV heads at head dim 80, the band of its 4096-token window."""
+    q, k, v, dout = _bwd_inputs(cuda, torch.bfloat16, 1, 8192, 8192, 32, 8,
+                                80, 80, 5)
+    o, lse = kops.flash_attention_cuda(q, k, v, window=window,
+                                       return_lse=True)
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                        window=window)
+    want = ref.attention_backward(q, k, v, o, dout, lse, window=window)
+    _hold_grads(got, want, torch.bfloat16, "danube-sized flash backward")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 300, 300, 8, 2, 80, 80, 3)
+    o, lse = kops.flash_attention_cuda(q, k, v, window=100, return_lse=True)
+    first = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=100)
+    second = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=100)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(80, 80), (128, 128), (192, 128),
+                                  (256, 256)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_forward_bits_do_not_depend_on_the_lse_output(cuda, dtype, d,
+                                                           dv, window):
+    q, k, v, _ = _bwd_inputs(cuda, dtype, 2, 300, 300, 8, 2, d, dv, d)
+    plain_out = kops.flash_attention_cuda(q, k, v, window=window)
+    out, lse = kops.flash_attention_cuda(q, k, v, window=window,
+                                         return_lse=True)
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (2, 8, 300) and bool(torch.isfinite(lse).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_matches_the_cpu(cuda, dtype):
+    """kops.attention under autograd on the card (FlashAttention: the
+    kernels) against the same call on the CPU (the plain versions)."""
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 150, 150, 8, 2, 64, 64, 9)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = kops.attention(*leaves, window=70)
+        out.backward(dout.to(dev))
+        grads.append([out.detach().cpu()] +
+                     [t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **({} if dtype == torch.float32
+                                            else dict(rtol=5e-2, atol=5e-2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_rows", [1, 4])
+@pytest.mark.parametrize("emb", [5, 64, 2048])
+def test_block_gather_backward_on_sls_matches_index_add(cuda, dtype,
+                                                        block_rows, emb):
+    rng = np.random.default_rng(emb + block_rows)
+    n_blocks, g = 50, 300
+    idxs = torch.from_numpy(rng.integers(0, n_blocks // 2, g)
+                            .astype(np.int32)).to(cuda)   # duplicates
+    roff = torch.from_numpy(rng.integers(0, 3, g).astype(np.int32)).to(cuda)
+    dout = torch.from_numpy(rng.standard_normal((g, block_rows, emb))
+                            .astype(np.float32)).to(cuda, dtype)
+    kops.reset_launch_counts()
+    got = kops.block_gather_backward(dout, idxs, n_blocks * block_rows,
+                                     block_rows=block_rows, roff=roff)
+    torch.cuda.synchronize()
+    assert kops.backward_launch_counts()["block_gather_bwd"] == 1
+    assert kops.launch_counts()["sls"] == 1
+    want = ref.block_gather_backward(dout, idxs, n_blocks * block_rows,
+                                     block_rows=block_rows, roff=roff)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, "block gather backward")
+    again = kops.block_gather_backward(dout, idxs, n_blocks * block_rows,
+                                       block_rows=block_rows, roff=roff)
+    assert torch.equal(got, again)
+
+
+def test_block_gather_function_gives_the_table_its_gradient(cuda):
+    table = torch.randn((40, 16), device=cuda, requires_grad=True)
+    idxs = torch.tensor([3, 3, 7, 0, 39, 3], dtype=torch.int32, device=cuda)
+    out = kops.block_gather(table, idxs)
+    out.sum().backward()
+    want = torch.zeros(40, 16, device=cuda)
+    want[3], want[7], want[0], want[39] = 3, 1, 1, 1
+    assert torch.equal(table.grad, want)
+
+
+def test_kernels_under_autograd_without_their_function_raise(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 64, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        kops.flash_attention_cuda(q, k, k)
+    table = torch.randn((8, 16), device=cuda, requires_grad=True)
+    idxs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        kops.block_gather_cuda(table, idxs)
+    ptrs = torch.tensor([0, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        kops.sls(table, ptrs, idxs, num_segments=1)
+    with torch.no_grad():          # no gradient wanted: the kernel runs
+        assert kops.flash_attention_cuda(q, k, k).shape == (1, 64, 2, 64)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+#: reduced configs of every ported kind, widened to a head width the flash
+#: kernel takes (the reduced ones have heads of 8 or 16); f32
+TRAIN_CONFIGS = [
+    ("stablelm-3b", dict(d_model=256, num_heads=4, num_kv_heads=4)),
+    ("chatglm3-6b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
+    ("h2o-danube-1.8b", dict(d_model=320, num_heads=4, num_kv_heads=2)),
+    ("gemma3-4b", dict(d_model=256, num_heads=2, num_kv_heads=1,
+                       head_dim=256)),
+    ("deepseek-v2-lite-16b", dict(d_model=256, num_heads=2, num_kv_heads=2,
+                                  head_dim=128, rope_head_dim=64,
+                                  kv_lora_rank=64)),
+    ("qwen3-moe-235b-a22b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
+    ("llava-next-34b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
+]
+
+
+@pytest.mark.parametrize("arch,over", TRAIN_CONFIGS)
+def test_reduced_training_on_the_card_matches_the_cpu(cuda, tmp_path, arch,
+                                                      over):
+    """Three trainer steps from the same weights on the card (the flash
+    kernels and their backward, the MoE un-dispatch gather and its
+    ember_sls backward) and on the CPU (the plain versions): the losses at
+    1e-4 relative; the parameters after the steps within 1e-3 (AdamW's
+    normalised step can turn a gradient of ~0 either way: a few lr)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.lm import LM, has_moe
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), d_ff=256, **over)
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=24, global_batch=2,
+        modality=cfg.modality, d_model=cfg.d_model))
+    outs = []
+    kops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        model = LM(cfg, device="cpu", seed=4).to(dev)
+        outs.append(Trainer(model, data, TrainerConfig(
+            total_steps=3, ckpt_every=100,
+            ckpt_dir=str(tmp_path / dev))).run())
+    counts = kops.backward_launch_counts()
+    assert counts["flash_attention_bwd"] == 3 * cfg.num_layers
+    assert counts["block_gather_bwd"] == (3 * cfg.num_layers
+                                          if has_moe(cfg) else 0)
+    np.testing.assert_allclose(outs[1]["losses"], outs[0]["losses"],
+                               rtol=1e-4)
+    for k, p in outs[0]["state"]["params"].items():
+        torch.testing.assert_close(outs[1]["state"]["params"][k].cpu(), p,
+                                   rtol=1e-3, atol=1e-3, msg=k)
+
+
+def test_bf16_logits_gradient_is_the_transposed_product(cuda):
+    """The bf16 logits on the card (cuBLAS bf16 x bf16 -> fp32, through
+    Bf16Logits under autograd): dx = (dl @ table) and dtable = (dl^T @ x),
+    each summed in fp32 and cast to bf16 once, against the same products
+    in fp64."""
+    from repro_torch.core.embedding_engine import logits
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((3, 50, 64), generator=g, device=cuda).bfloat16()
+    table = torch.randn((300, 64), generator=g, device=cuda).bfloat16()
+    dl = torch.randn((3, 50, 300), generator=g, device=cuda)
+    x.requires_grad_()
+    table.requires_grad_()
+    out = logits(x, table)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    out.backward(dl)
+    with torch.no_grad():
+        want_dx = (dl.double() @ table.double()).bfloat16()
+        want_dt = (dl.double().reshape(-1, 300).t() @
+                   x.double().reshape(-1, 64)).bfloat16()
+    check_bf16(x.grad, want_dx, "logits dx")
+    check_bf16(table.grad, want_dt, "logits dtable")
+
+
+@pytest.mark.parametrize("arch,over", [TRAIN_CONFIGS[2], TRAIN_CONFIGS[4]])
+def test_reduced_bf16_training_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                           arch, over):
+    """The same three steps in bf16, the model's training dtype: the card's
+    bf16 paths (the wgmma forward, the backward kernels on bf16, the
+    logits' Bf16Logits transpose) against the CPU's plain versions; the
+    losses at 1e-2 relative (bf16 rounds at other places on each)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_reduced(arch), d_ff=256, dtype="bfloat16",
+                              **over)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=24,
+                                      global_batch=2))
+    losses = []
+    for dev in ("cpu", "cuda"):
+        model = LM(cfg, device="cpu", seed=4).to(dev)
+        losses.append(Trainer(model, data, TrainerConfig(
+            total_steps=3, ckpt_every=100,
+            ckpt_dir=str(tmp_path / dev))).run()["losses"])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-2)

@@ -92,6 +92,21 @@ def test_port_runs_with_jax_and_repro_unimportable():
         last = vlm.prefill(torch.randint(0, 256, (2, 12)),
                            torch.randn(2, 4, 64))
         assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
+        # training: the loss's backward, AdamW, a checkpoint and a restart
+        import tempfile
+        from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+        from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                                 run_supervised)
+        cfg = get_reduced("deepseek-v2-lite-16b")
+        data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=8, global_batch=2))
+        with tempfile.TemporaryDirectory() as d:
+            out = run_supervised(lambda: Trainer(
+                LM(cfg, device="cpu", seed=3), data, TrainerConfig(
+                    total_steps=4, ckpt_every=2, ckpt_dir=d)),
+                failure_schedule={3})
+        assert out["restarts"] == 1 and len(out["losses"]) == 2
+        assert all(np.isfinite(out["losses"]))
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -107,13 +122,16 @@ def test_no_port_source_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
     assert {f"{n}.py" for n in ("gemma3_4b", "h2o_danube_1_8b",
-                                 "llava_next_34b")} <= {f.name for f in files}
+                                 "llava_next_34b", "trainer", "ckpt",
+                                 "adamw", "compress", "schedule",
+                                 "pipeline", "train")} <= \
+        {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.convert import program_inputs_to_torch
     from repro_torch.core.executor import executor_for
     from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
@@ -132,3 +150,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         LM(get_reduced("chatglm3-6b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "chatglm3-6b", "--reduced"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--ckpt-dir",
+                    str(tmp_path)])
