@@ -10,11 +10,13 @@ Phases, one line each (a failed check raises and the run exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) -- exits 2 without CUDA;
 2. the build of the hand-written kernels (one ``nvcc`` per source, in
    parallel; ptxas summary, and the registers and spills of the bf16 flash
-   kernels, the bulk gather and the FusedMM ring, none of which may
-   spill, nor may the four (q/k 192, v 128) and the four (256, 256) flash
-   instantiations), then ``cuobjdump -sass`` of the library: the 8 bf16
-   flash kernels, the (192, 128) and (256, 256) ones among them, must hold
-   wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions, the
+   kernels, the flash backward's wgmma kernels, the bulk gather and the
+   FusedMM ring, none of which may spill, nor may the four (q/k 192, v
+   128) and the four (256, 256) flash instantiations), then ``cuobjdump
+   -sass`` of the library: the 8 bf16 flash kernels, the (192, 128) and
+   (256, 256) ones among them, and the 12 flash backward wgmma kernels
+   (dK/dV and dQ at 64, 80, 128, causal or not) must hold wgmma
+   (``HGMMA``) and TMA load (``UTMALDG``) instructions, the
    bulk gather and every FusedMM ring kernel bulk copies (``UBLKCP``), and
    each flash kernel's KV tile, by dtype and q/k width, must be
    ``kv_tile``'s;
@@ -144,17 +146,23 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    3 steps and a failure injected at step 4.  Checked: every loss finite,
    the restart's step-3 loss bit-equal to the first attempt's, the state
    restored from step 2's checkpoint equal leaf for leaf to the saved
-   one, the flash
-   backward launched in every layer of every step and, on layer 0's
-   captured q, k, v and dO, held against ``ref.attention_backward``
-   (``check_bf16``) and bit-equal to itself, a nonzero gradient for every
+   one, the flash backward launched in every layer of every step, every
+   launch on the ``wgmma`` variant, and, on layer 0's captured q, k, v
+   and dO, held against its variant's plain version (``plain_backward``:
+   P and dS rounded to bf16, as the wgmma kernels take them;
+   ``check_bf16``) and bit-equal to itself, a nonzero gradient for every
    parameter.  Printed: step ms and tokens/s, the device busy share of a
    profiled step, peak memory, checkpoint bytes and save / restore
-   seconds, the backward's time beside its bound, the plain version and
-   ``scaled_dot_product_attention``'s backward (``is_causal`` and a band
-   mask).  Then a reduced MoE model trained 3 steps on the card: the
-   un-dispatch gather's backward on ``ember_sls``, held against
-   ``index_add_``;
+   seconds, the backward's time (the wgmma kernels, and the SIMT ones on
+   the same tensors through the wrapper's launch path, their gradients
+   held against the SIMT variant's plain version, fp32 P and dS, by
+   ``check_bf16``) beside its bound,
+   the plain version and ``scaled_dot_product_attention``'s backward
+   (``is_causal`` and a band mask).  Then a reduced MoE model trained 3
+   steps on the card: the un-dispatch gather's backward on ``ember_sls``,
+   held against ``index_add_``, and timed apart (the CSR transposition,
+   the launch, ``index_add_``) there and at DeepSeek-V2-Lite's
+   un-dispatch prefill shape;
 14. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
@@ -300,6 +308,10 @@ FLASH_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
 FLASH_WGMMA_KERNELS = 8
 FLASH_WIDE_INSTANCES = {"(192, 128)": "ILi192ELi128E",
                         "(256, 256)": "ILi256ELi256E"}
+# the flash backward's wgmma kernels: bf16 at (64, 64), (80, 80) and
+# (128, 128), causal or not, each a dK/dV and a dQ kernel
+FLASH_BWD_WGMMA_KERNELS = {"flash_bwd_dkdv_wgmma_kernel": 6,
+                           "flash_bwd_dq_wgmma_kernel": 6}
 # the sliding-window sweep: windows that are and are not a multiple of
 # either KV tile (64, 128), gemma3-4b's 1024, and one short of Sq (the band
 # cuts one key of the last row); at q/k widths 80, 128 and 256
@@ -334,6 +346,12 @@ PREFILL_REL_L2 = 5e-2
 DEEPSEEK_PREFILL_REL_L2 = 0.15
 # the keys whose values one planted fault loses: the second 128-key tile
 FAULT_KEYS = (128, 256)
+# DeepSeek-V2-Lite's MoE un-dispatch at the prefill shape (phase 9, layer
+# 0 of 4 x 4096 tokens): 98,304 rows of d_model 2048 bf16 (4 KiB) gathered
+# from a 122,944-row capacity buffer, 94,270 of them distinct; the gather
+# backward's parts are timed there on synthetic slots with those counts
+DS_UNDISPATCH_ROWS, DS_UNDISPATCH_BUFFER = 98_304, 122_944
+DS_UNDISPATCH_DISTINCT, DS_D_MODEL = 94_270, 2048
 
 
 class CheckFailed(RuntimeError):
@@ -505,6 +523,15 @@ def phase_build():
                   f"spill-store bytes): {sorted(got.values())}")
             require(len(got) == 4 and all(s == 0 for _, s in got.values()),
                     f"the {dims} flash kernels must build without spills")
+        for kernel, n_want in FLASH_BWD_WGMMA_KERNELS.items():
+            got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
+                   if kernel in k}
+            print(f"[2 build {kernel}] bf16 at 64, 80, 128, causal or not "
+                  f"(registers, spill-store bytes): {sorted(got.values())}")
+            spilled = sorted(k for k, (_, s) in got.items() if s)
+            require(len(got) == n_want and not spilled,
+                    f"the {kernel} instantiations must build without spills "
+                    f"({len(got)} built; spilling: {spilled})")
         for kernel, n_want in BULK_KERNELS.items():
             got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
                    if kernel in k}
@@ -532,6 +559,15 @@ def phase_build():
               f"UTMALDG, {ops['UTMASTG']} UTMASTG")
         require(n_fn == 2 and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
                 f"the {dims} bf16 flash kernel must hold wgmma (HGMMA) and "
+                f"TMA loads (UTMALDG)")
+    # proof that the flash backward's wgmma variant runs on the tensor
+    # cores and TMA
+    for kernel, n_want in FLASH_BWD_WGMMA_KERNELS.items():
+        n_fn, ops = _sass_counts(rec.path, kernel, ("HGMMA", "UTMALDG"))
+        print(f"[2 sass] {kernel} ({n_fn} instantiations): {ops['HGMMA']} "
+              f"HGMMA, {ops['UTMALDG']} UTMALDG (TMA loads)")
+        require(n_fn == n_want and ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+                f"the flash backward's {kernel} must hold wgmma (HGMMA) and "
                 f"TMA loads (UTMALDG)")
     # proof that the row-streaming kernels move rows by bulk copies
     for kernel, n_want in BULK_KERNELS.items():
@@ -3288,10 +3324,11 @@ def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
     """The forward with its lse and the backward kernel on one layer's q,
     k, v and dO (captured in a training step).  The forward's o against the
     plain version's (check_bf16) and its lse (fp32, TOL_LSE_F32); the
-    backward against ref.attention_backward on the same o and lse
-    (check_bf16 per gradient), and bit-equal twice; the chain -- kernel
-    forward then kernel backward -- against ref.attention_backward from the
-    plain forward's own o and lse, held to check_bf16's relative-L2 and
+    backward against its variant's plain version (``plain_backward``: P and
+    dS rounded to bf16 for wgmma) on the same o and lse (check_bf16 per
+    gradient), and bit-equal twice; the chain -- kernel forward then kernel
+    backward -- against the same plain backward from the plain forward's
+    own o and lse, held to check_bf16's relative-L2 and
     elementwise bounds (not its share of differing elements: o and o_plain
     differ by a bf16 step in up to 1 % of elements, and delta = rowsum(dO o)
     carries that into every dq and dk of the row)."""
@@ -3299,7 +3336,7 @@ def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.agreement import (BF16_MAX_REL_L2,
                                                bf16_agreement, check_bf16)
-    from repro_torch.kernels.flash_attention import kv_tile
+    from repro_torch.kernels.flash_attention import kv_tile, plain_backward
     o, lse = kops.flash_attention_cuda(q, k, v, window=window,
                                        return_lse=True)
     o_plain, lse_plain = ref.attention(q, k, v, window=window,
@@ -3312,13 +3349,13 @@ def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
     again = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
     require(all(bool((a == b).all()) for a, b in zip(got, again)),
             f"{what}: two backward calls differ")
-    want = ref.attention_backward(q, k, v, o, do, lse, window=window)
+    want = plain_backward(q, k, v, o, do, lse, window=window)
     worst: dict = {}
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _worst(worst, check_bf16(a, w, f"{what} {name}"))
     del want
     chain: dict = {}
-    for name, a, w in zip(("dq", "dk", "dv"), got, ref.attention_backward(
+    for name, a, w in zip(("dq", "dk", "dv"), got, plain_backward(
             q, k, v, o_plain, do, lse_plain, window=window)):
         agree = bf16_agreement(a, w)
         require(bool(torch.isfinite(a).all()) and agree["worst"] <= 1 and
@@ -3333,12 +3370,13 @@ def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
 
 class _PlainBackward:
     """The training step's attention with the kernel forward (saving its
-    lse) and ``ref.attention_backward`` as its backward, for
-    :func:`_gradient_witness`."""
+    lse) and the backward's plain version (``plain_backward``) as its
+    backward, for :func:`_gradient_witness`."""
 
     def __init__(self):
         import torch
-        from repro_torch.kernels import ops as kops, ref
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.flash_attention import plain_backward
 
         class Fn(torch.autograd.Function):
             @staticmethod
@@ -3353,7 +3391,7 @@ class _PlainBackward:
             @staticmethod
             def backward(ctx, do):
                 q, k, v, o, lse = ctx.saved_tensors
-                return (*ref.attention_backward(
+                return (*plain_backward(
                     q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
                     window=ctx.window), None, None)
         self.fn = Fn
@@ -3377,7 +3415,7 @@ def _gradient_witness(lm, batch, grads: dict) -> dict:
     """The gradient of every parameter at full width, the kernel path's
     (``grads``, from the step just run through FlashAttention and
     Bf16Logits) against one step through the plain attention backward
-    (``ref.attention_backward``) and the plain logits product: relative L2
+    (``plain_backward``) and the plain logits product: relative L2
     per leaf, each held to TRAIN_GRAD_REL_L2.  Returns the worst leaf, the
     median and both losses."""
     from repro_torch.core import embedding_engine as ee
@@ -3433,7 +3471,8 @@ def phase_training(seed: int, card: str) -> dict:
     the state the restart restored from step 2's checkpoint equal leaf for
     leaf to the host copy that save wrote; the flash backward launched in every layer of every
     step (the main path's count) and, on layer 0's captured q, k, v and dO,
-    held against ref.attention_backward (check_bf16), bit-equal twice; the
+    held against plain_backward (check_bf16), bit-equal twice, all on the
+    wgmma variant; the
     loss's gradient reaching every parameter (none None, none all zero).
     Then a reduced MoE model trained on the card (the un-dispatch gather's
     backward on ember_sls), its gather backward held against index_add_."""
@@ -3528,6 +3567,7 @@ def phase_training(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = kops.backward_launch_counts()
+    variants = kops.variant_launch_counts()["flash_attention_bwd"]
     fwd_counts = kops.launch_counts()
     instances = dict(kops.flash_attention_bwd_cuda.instances)
     fwd_instances = dict(kops.flash_attention_cuda.instances)
@@ -3554,6 +3594,9 @@ def phase_training(seed: int, card: str) -> dict:
             f"training launched the flash backward {instances} and the "
             f"forward {fwd_counts['flash_attention']} times in {steps_run} "
             f"steps, expected {want}")
+    require(variants == {"wgmma": steps_run * cfg.num_layers, "simt": 0},
+            f"training ran the flash backward's variants {variants}: all "
+            f"{steps_run * cfg.num_layers} launches must be wgmma")
     require(io.get("equal") is True, "training: the state the restart "
             f"restored from step {TRAIN_CKPT_STEP}'s checkpoint differs from "
             "the saved one")
@@ -3600,12 +3643,26 @@ def phase_training(seed: int, card: str) -> dict:
     busy = _busy(dev, prof_wall[0])
     out = state = None
 
-    # the backward kernel's time beside its bound, the plain version and
-    # SDPA's backward
+    # the backward kernels' time (the wgmma variant the path runs, and the
+    # SIMT one through the wrapper's own launch path) beside the bound, the
+    # plain version and SDPA's backward
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.kernels.flash_attention import (launch_backward,
+                                                     plain_backward)
     ms = time_ms(lambda: kops.flash_attention_bwd_cuda(
-        q, k, v, o, do, lse, window=window), 5, warmup=1)
-    from repro_torch.kernels import ref
-    plain_ms = time_ms(lambda: ref.attention_backward(
+        q, k, v, o, do, lse, window=window), 20, warmup=2)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    simt_ms = time_ms(lambda: launch_backward(
+        "simt", q, k, v, o, do, lse, grads, causal=True, window=window), 2,
+        warmup=1)
+    # what the timed SIMT launches wrote, against their own plain version
+    simt: dict = {}
+    for name, a, w in zip(("dq", "dk", "dv"), grads, plain_backward(
+            q, k, v, o, do, lse, window=window, variant="simt")):
+        _worst(simt, check_bf16(a, w, f"danube layer 0 flash backward, "
+                                f"SIMT {name}"))
+    del grads
+    plain_ms = time_ms(lambda: plain_backward(
         q, k, v, o, do, lse, window=window), 1, warmup=1)
     sdpa = _sdpa_backward_ms(q, k, v, do, window)
     bound_ms, bound_by, flops = _flash_bwd_bound(q, v, window)
@@ -3631,16 +3688,17 @@ def phase_training(seed: int, card: str) -> dict:
           f"the save copied")
     print(f"[13 gradients] every one of {len(dict(lm.named_parameters()))} "
           f"parameters got a nonzero gradient; flash backward launches on "
-          f"the path {counts['flash_attention_bwd']} ({instances}); layer "
-          f"0's backward vs ref.attention_backward: "
+          f"the path {counts['flash_attention_bwd']} ({instances}; by "
+          f"variant {variants}); layer 0's backward vs its plain version "
+          f"(P and dS rounded to bf16): "
           f"{_bf16_summary(chk['agreement'])}; two calls bit-equal; its "
           f"forward's o vs the plain version's {_bf16_summary(chk['forward'])}"
           f", lse max abs err {chk['lse_max_abs_err']:.3g} (rtol "
           f"{TOL_LSE_F32['rtol']}, atol {TOL_LSE_F32['atol']}); forward then "
-          f"backward vs the plain forward's o and lse then "
-          f"ref.attention_backward: {_bf16_summary(chk['chain'])}")
+          f"backward vs the plain forward's o and lse then the plain "
+          f"backward: {_bf16_summary(chk['chain'])}")
     print(f"[13 gradient witness] the same step through the plain attention "
-          f"backward (ref.attention_backward in all {cfg.num_layers} layers) "
+          f"backward (plain_backward in all {cfg.num_layers} layers) "
           f"and the plain fp32 logits product: loss {witness['plain_loss']!r}"
           f" vs the kernels' {witness['kernel_loss']!r}; relative L2 of the "
           f"kernel path's gradient per leaf, worst {witness['worst_rel_l2']:.3g}"
@@ -3652,8 +3710,10 @@ def phase_training(seed: int, card: str) -> dict:
                          else f"{n} {v}" for n, v in sdpa.items())
     b_, s_, h_, d_ = q.shape
     print(f"[13 flash backward] a danube layer (B={b_}, S={s_}, H={h_}, "
-          f"Hkv={k.shape[2]}, D={d_}, window {window}, {q.dtype}): kernel "
-          f"{ms:.4f} ms, plain "
+          f"Hkv={k.shape[2]}, D={d_}, window {window}, {q.dtype}): wgmma "
+          f"kernels {ms:.4f} ms, the SIMT kernels on the same tensors "
+          f"{simt_ms:.4f} ms (vs their plain version, fp32 P and dS: "
+          f"{_bf16_summary(simt)}), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention's backward "
           f"(forward subtracted) {sdpa_txt}; bound {bound_ms:.4f} ms "
           f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, by {bound_by}; kernel at "
@@ -3667,9 +3727,14 @@ def phase_training(seed: int, card: str) -> dict:
                           "blockwise_attention, the function the forward "
                           "kernel src/repro/kernels/flash_attention.py:65 "
                           "replaces)",
-              "variant": "flash_bwd_dkdv_kernel + flash_bwd_dq_kernel",
+              "variant": "wgmma: flash_bwd_dkdv_wgmma_kernel + "
+                         "flash_bwd_dq_wgmma_kernel",
               "launches": counts["flash_attention_bwd"],
-              "max_abs_err": chk["max_abs_err"], "ms": ms,
+              "variants": variants, "simt_ms": simt_ms,
+              "simt_max_abs_err": simt["max_abs"],
+              "simt_worst_rel_l2": simt["rel_l2"],
+              "max_abs_err": max(chk["max_abs_err"], simt["max_abs"]),
+              "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms,
               "library": "scaled_dot_product_attention backward, band mask",
@@ -3694,6 +3759,43 @@ def phase_training(seed: int, card: str) -> dict:
     return result
 
 
+def _gather_backward_parts(dout, idxs, n: int, iters: int) -> dict:
+    """The block gather's backward on the card, timed whole and in its
+    parts on the same inputs: the wrapper (``block_gather_backward``), its
+    transposition of the lookups into CSR alone (``transposed_lookups``: a
+    stable argsort, a bincount and a cumsum), the ``ember_sls`` launch alone
+    on that CSR, and ``index_add_`` (the library call, in dout's dtype);
+    the bytes bound of the function."""
+    import torch
+    from repro_torch.kernels import gather as kgather, ops as kops
+    emb = dout.shape[2]
+    order, ptrs = kgather.transposed_lookups(idxs, None, n)
+    rows = dout.reshape(dout.shape[0], -1)
+
+    def library():
+        return torch.zeros((n, emb), dtype=dout.dtype,
+                           device=dout.device).index_add_(
+            0, idxs.long(), dout.view(-1, emb))
+    nbytes = (dout.numel() + n * emb) * dout.element_size() + \
+        idxs.numel() * 4
+    return {"ms": time_ms(lambda: kops.block_gather_backward(dout, idxs, n),
+                          iters),
+            "csr_ms": time_ms(lambda: kgather.transposed_lookups(
+                idxs, None, n), iters),
+            "sls_ms": time_ms(lambda: kops.sls(rows, ptrs, order,
+                                               num_segments=n), iters),
+            "index_add_ms": time_ms(library, iters),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _parts_line(p: dict) -> str:
+    return (f"the wrapper {p['ms']:.4f} ms = the CSR transposition "
+            f"(argsort + bincount + cumsum) {p['csr_ms']:.4f} ms + the "
+            f"ember_sls launch {p['sls_ms']:.4f} ms; index_add_ "
+            f"{p['index_add_ms']:.4f} ms; bound {p['bound_ms']:.5f} ms "
+            f"(bytes)")
+
+
 def _moe_training(seed: int, card: str) -> dict:
     """A reduced MoE model (DeepSeek-V2-Lite's kinds at d_model 256, heads
     of q/k 192 and v 128, 8 experts; f32) trained for 3 steps on the card
@@ -3705,6 +3807,7 @@ def _moe_training(seed: int, card: str) -> dict:
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     cfg = dataclasses.replace(
@@ -3745,17 +3848,10 @@ def _moe_training(seed: int, card: str) -> dict:
     want = ref.block_gather_backward(dout, idxs, n)
     err = check_close(got, want, "MoE un-dispatch gather backward vs "
                       "index_add_", **TOL_SUM_F32)
-    ms = time_ms(lambda: kops.block_gather_backward(dout, idxs, n), 20)
+    parts = _gather_backward_parts(dout, idxs, n, 20)
+    ms, library_ms = parts["ms"], parts["index_add_ms"]
     plain_ms = time_ms(lambda: ref.block_gather_backward(dout, idxs, n), 20)
-
-    def library():
-        return torch.zeros((n, dout.shape[2]), dtype=dout.dtype,
-                           device=dout.device).index_add_(
-            0, idxs.long(), dout.view(-1, dout.shape[2]))
-    library_ms = time_ms(library, 20)
-    nbytes = (dout.numel() + n * dout.shape[2]) * dout.element_size() + \
-        idxs.numel() * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = parts["bound_ms"]
     print(f"[13 moe training] a reduced MoE model ({cfg.num_layers} mla "
           f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts, f32; "
           f"4 x 256 tokens) trained 3 steps on the card: losses "
@@ -3765,11 +3861,36 @@ def _moe_training(seed: int, card: str) -> dict:
           f"abs err {err:.3g}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes); "
           f"{card}")
+    print(f"[13 gather backward split] {_parts_line(parts)}; {card}")
+    # the same split at DeepSeek-V2-Lite's un-dispatch prefill shape:
+    # 98,304 rows of 4 KiB (bf16, d_model 2048) from its 122,944-row
+    # capacity buffer, 94,270 of the slots distinct (phase 9's layer 0)
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(DS_UNDISPATCH_BUFFER)[:DS_UNDISPATCH_DISTINCT]
+    slots = np.concatenate([slots, rng.choice(
+        slots, DS_UNDISPATCH_ROWS - DS_UNDISPATCH_DISTINCT)])
+    ds_idxs = torch.from_numpy(rng.permutation(slots).astype(np.int32)).cuda()
+    ds_dout = torch.randn((DS_UNDISPATCH_ROWS, 1, DS_D_MODEL),
+                          device="cuda").bfloat16()
+    ds_agree = check_bf16(
+        kops.block_gather_backward(ds_dout, ds_idxs, DS_UNDISPATCH_BUFFER),
+        ref.block_gather_backward(ds_dout, ds_idxs, DS_UNDISPATCH_BUFFER),
+        "DeepSeek-V2-Lite un-dispatch gather backward vs index_add_")
+    ds_parts = _gather_backward_parts(ds_dout, ds_idxs, DS_UNDISPATCH_BUFFER,
+                                      10)
+    print(f"[13 gather backward split] DeepSeek-V2-Lite un-dispatch prefill "
+          f"shape, synthetic slots ({DS_UNDISPATCH_ROWS:,} rows of "
+          f"{DS_D_MODEL} bf16 into {DS_UNDISPATCH_BUFFER:,}, "
+          f"{DS_UNDISPATCH_DISTINCT:,} distinct; vs index_add_ in fp32 "
+          f"{_bf16_summary(ds_agree)}): {_parts_line(ds_parts)}; {card}")
     result = {"gather_backward_launches": counts["block_gather_bwd"],
               "gather_backward_ms": ms, "gather_backward_plain_ms": plain_ms,
               "gather_backward_library_ms": library_ms,
               "gather_backward_bound_ms": bound_ms,
-              "gather_backward_max_abs_err": err}
+              "gather_backward_max_abs_err": err,
+              "gather_backward_split": parts,
+              "gather_backward_deepseek_split": ds_parts}
+    del ds_dout, ds_idxs
     del trainer, out, dout, idxs, got, want, batch
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     free_cuda()

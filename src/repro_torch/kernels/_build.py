@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "ember_kernels.cu", CSRC / "ember_fusedmm.cu",
            CSRC / "ember_flash_attention.cu",
            CSRC / "ember_flash_backward.cu")
-HEADERS = (CSRC / "ember_common.cuh", CSRC / "ember_hopper.cuh")
+HEADERS = (CSRC / "ember_common.cuh", CSRC / "ember_hopper.cuh",
+           CSRC / "ember_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,11 +62,15 @@ _SIGNATURES = {
     "ember_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I32, _I32, _I32, ctypes.c_double,
                               _P, _P),
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq_q, seq_k, heads,
-    # kv_heads, head_dim, v_head_dim, dtype, causal, window, scale, stream
+    # q, k, v, o, dout, lse, rows, dq, dk, dv, batch, seq_q, seq_k, heads,
+    # kv_heads, head_dim, v_head_dim, dtype, causal, window, scale,
+    # variant (0 simt, 1 wgmma), stream
     "ember_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-                                  _I32, _I32, _I32, ctypes.c_double, _P),
+                                  _I32, _I32, _I32, ctypes.c_double, _I32,
+                                  _P),
+    # seq_q -> the rows of the backward's (batch, heads, 2, rows) scratch
+    "ember_flash_bwd_rows": (_I32,),
     # dtype, head_dim -> the flash kernel's KV tile
     "ember_flash_kv_tile": (_I32, _I32),
 }

@@ -22,7 +22,11 @@ with ``jax.grad``.  :class:`FlashAttention` pairs the forward, which then
 also saves each row's log-sum-exp, with :func:`flash_attention_bwd_cuda`;
 :func:`flash_attention` (``kernels.ops.attention``) goes through it whenever
 q, k or v need a gradient.  Called directly under autograd, the kernel
-wrappers raise: their outputs carry no ``grad_fn``.
+wrappers raise: their outputs carry no ``grad_fn``.  The backward has two
+variants, chosen from the dtype and widths by :func:`backward_variant`:
+``wgmma`` (bf16 at (64, 64), (80, 80), (128, 128): tensor cores fed by TMA,
+P and dS taken as bf16) and ``simt`` (scalar fp32, everything else); each
+has its plain version (:func:`plain_backward`).
 """
 from __future__ import annotations
 
@@ -42,6 +46,12 @@ HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
 #: (``ember_flash_kv_tile``), and the checks on the card hold the two equal
 #: (chip_smoke.py phase 2, test_torch_cuda.py)
 _F32_KV_TILE = 64
+#: the (q/k, v) widths of the backward's wgmma variant (bf16); the others,
+#: and f32, run the SIMT variant, whose two fp32 accumulators of the full
+#: width would not fit a warpgroup's registers at (192, 128) and (256, 256)
+WGMMA_BACKWARD_DIMS = ((64, 64), (80, 80), (128, 128))
+#: the C entry's variant codes
+_BACKWARD_VARIANTS = {"simt": 0, "wgmma": 1}
 
 
 def kv_tile(dtype: torch.dtype, head_dim: int) -> int:
@@ -161,6 +171,35 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.instances = collections.Counter()
 
 
+def backward_variant(dtype: torch.dtype, head_dim: int,
+                     v_head_dim: int) -> str:
+    """Which backward kernels run ``dtype`` at (q/k, v) widths (``head_dim``,
+    ``v_head_dim``): "wgmma" for bf16 at :data:`WGMMA_BACKWARD_DIMS`, else
+    "simt".  The one place the variant is decided, from the shapes, before
+    the launch: a wrapper never switches variant after a build or launch
+    error."""
+    if dtype == torch.bfloat16 and (head_dim, v_head_dim) in \
+            WGMMA_BACKWARD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   variant: Optional[str] = None) -> tuple:
+    """The plain version of the backward ``variant`` (by default the one
+    :func:`backward_variant` picks for these tensors):
+    :func:`repro_torch.kernels.ref.attention_backward`, with P and dS
+    rounded to bf16 as the tensor cores take them for "wgmma"."""
+    variant = variant or backward_variant(q.dtype, q.shape[3], v.shape[3])
+    if variant not in _BACKWARD_VARIANTS:
+        raise ValueError(f"no flash backward variant {variant!r}")
+    return ref.attention_backward(q, k, v, o, dout, lse, causal=causal,
+                                  window=window,
+                                  tensor_cores=variant == "wgmma")
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
@@ -170,11 +209,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     q, k, v, from its output ``o``, the cotangent ``dout`` (both
     (B,Sq,H,Dv), in q's dtype) and the ``lse`` it saved (B,H,Sq) fp32.
 
-    CPU tensors run the plain version
-    (:func:`repro_torch.kernels.ref.attention_backward`); CUDA tensors
-    launch ``ember_flash_attention_bwd`` (three kernels: delta, dK/dV, dQ;
-    SIMT fp32, deterministic) or raise.  ``flash_attention_bwd_cuda
-    .launches`` counts the calls that launched, ``.instances`` the same by
+    CPU tensors run the plain version of the variant the card would run
+    (:func:`plain_backward`); CUDA tensors launch
+    ``ember_flash_attention_bwd``'s :func:`backward_variant` (three passes:
+    the lse/delta rows, dK/dV, dQ; deterministic) or raise -- for the
+    wgmma variant, also where q, k, v or dout are not 16-byte aligned (TMA
+    reads them).  ``flash_attention_bwd_cuda.launches`` counts the calls
+    that launched, ``.variants`` the same by variant and ``.instances`` by
     :func:`instance`."""
     _check_qkv(q, k, v, window)
     b, sq, h, d = q.shape
@@ -188,30 +229,59 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     dev = one_device(q, k, v, o, dout, lse)
+    variant = backward_variant(q.dtype, d, dv)
     if dev.type == "cpu":
-        return ref.attention_backward(q, k, v, o, dout, lse, causal=causal,
-                                      window=window)
+        return plain_backward(q, k, v, o, dout, lse, causal=causal,
+                              window=window, variant=variant)
     refuse_autograd("ember_flash_attention_bwd", q, k, v, o, dout)
-    sk, hkv = k.shape[1], k.shape[2]
     win = _kernel_window(q, k, v, window)
+    if variant == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the wgmma flash backward reads q, k, v and dout by "
+                         "TMA: their data must be 16-byte aligned")
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq, dk.zero_(), dvv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.library().ember_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, hkv, d, dv,
-            DTYPES[q.dtype], int(causal), win, d ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ember_flash_attention_bwd")
-    flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.instances[instance(q, v, causal, win)] += 1
+    launch_backward(variant, q, k, v, o, dout, lse, (dq, dk, dvv),
+                    causal=causal, window=win)
     return dq, dk, dvv
 
 
+def launch_backward(variant: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, o: torch.Tensor, dout: torch.Tensor,
+                    lse: torch.Tensor, grads: tuple, *, causal: bool,
+                    window: int) -> None:
+    """Launch the backward's ``variant`` ("wgmma" or "simt") into ``grads``
+    = (dq, dk, dv) on the current stream, and count it.  The one launch
+    path of :func:`flash_attention_bwd_cuda`, which has checked the
+    arguments, chosen the variant and resolved the kernels' ``window`` (0:
+    none); called directly only to time one variant against the other on
+    the same inputs.  Raises on a build or launch error, and where the
+    variant does not take the arguments."""
+    if variant not in _BACKWARD_VARIANTS:
+        raise ValueError(f"no flash backward variant {variant!r}")
+    b, sq, h, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    dq, dk, dvv = grads
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        # per (b, h): a row of lse and one of delta, padded (C entry)
+        rows = torch.empty((b, h, 2, lib.ember_flash_bwd_rows(sq)),
+                           dtype=torch.float32, device=q.device)
+        err = lib.ember_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, hkv, d, dv,
+            DTYPES[q.dtype], int(causal), window, d ** -0.5,
+            _BACKWARD_VARIANTS[variant],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"ember_flash_attention_bwd ({variant})")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.variants[variant] += 1
+    flash_attention_bwd_cuda.instances[instance(q, v, causal, window)] += 1
+
+
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.variants = dict.fromkeys(_BACKWARD_VARIANTS, 0)
 flash_attention_bwd_cuda.instances = collections.Counter()
 
 

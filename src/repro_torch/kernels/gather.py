@@ -142,13 +142,8 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
         return ref.block_gather_backward(dout, idxs, num_rows,
                                          block_rows=block_rows, roff=roff)
     emb_len = dout.shape[2]
-    blk = idxs.to(torch.int64)
-    if roff is not None:
-        blk = blk + roff.to(torch.int64)
     n_tbl = num_rows // block_rows
-    order = torch.argsort(blk, stable=True).to(torch.int32)
-    ptrs = torch.zeros(n_tbl + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(torch.bincount(blk, minlength=n_tbl), 0, out=ptrs[1:])
+    order, ptrs = transposed_lookups(idxs, roff, n_tbl)
     rows = dout.reshape(num_blocks, block_rows * emb_len).contiguous()
     before = sls_cuda.launches
     out = sls_cuda(rows, ptrs, order, num_segments=n_tbl)
@@ -157,6 +152,21 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
 
 
 block_gather_backward.launches = 0
+
+
+def transposed_lookups(idxs: torch.Tensor, roff: Optional[torch.Tensor],
+                       n_tbl: int) -> tuple:
+    """The lookups as CSR over the table's ``n_tbl`` blocks, for
+    :func:`block_gather_backward`: ``(order, ptrs)``, the lookups sorted
+    stably by block id ``idxs[g] + roff[g]`` (int32) and each block's
+    segment offsets, from a bincount (int32, ``n_tbl + 1``)."""
+    blk = idxs.to(torch.int64)
+    if roff is not None:
+        blk = blk + roff.to(torch.int64)
+    order = torch.argsort(blk, stable=True).to(torch.int32)
+    ptrs = torch.zeros(n_tbl + 1, dtype=torch.int32, device=idxs.device)
+    torch.cumsum(torch.bincount(blk, minlength=n_tbl), 0, out=ptrs[1:])
+    return order, ptrs
 
 
 class BlockGather(torch.autograd.Function):

@@ -40,8 +40,9 @@ def backward_launch_counts() -> dict:
 def variant_launch_counts() -> dict:
     """Launches so far of each variant of the kernels that have variants
     (``block_gather``: bulk, its grouping pass, rows; ``fusedmm``: ring,
-    rows)."""
-    return {name: dict(w.variants) for name, w in _WRAPPERS.items()
+    rows; ``flash_attention_bwd``: wgmma, simt)."""
+    return {name: dict(w.variants)
+            for name, w in {**_WRAPPERS, **_BACKWARD}.items()
             if hasattr(w, "variants")}
 
 

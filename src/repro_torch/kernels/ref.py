@@ -198,54 +198,110 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
                        *, causal: bool = True, window: Optional[int] = None,
-                       chunk: int = 1024) -> tuple:
+                       chunk: int = 1024, tensor_cores: bool = False) -> tuple:
     """The gradients (dq, dk, dv) of :func:`attention` from its output ``o``,
     the cotangent ``dout`` (both (B,Sq,H,Dv)) and the saved ``lse``
-    (B,H,Sq): the FlashAttention-2 recurrence the backward kernel computes,
+    (B,H,Sq): the FlashAttention-2 recurrence the backward kernels compute,
     written out (not autograd through :func:`attention`) --
     ``P = exp(scale * q k^T - lse)`` under the masks, ``delta =
     rowsum(dout * o)``, ``dS = P (dout v^T - delta)``, ``dq = scale dS k``,
     ``dk = scale dS^T q`` and ``dv = P^T dout``, the GQA group's query heads
-    summed into their KV head.  Every product and sum in fp32 (on the card
-    too: ``torch.backends.cuda.matmul.allow_tf32`` must be off), over query
-    chunks of ``chunk`` rows so a long sequence never holds a whole (Sq, Sk)
-    score matrix; each gradient cast to its input's dtype once."""
+    summed into their KV head -- over query chunks of ``chunk`` rows so a
+    long sequence never holds a whole (Sq, Sk) score matrix; each gradient
+    cast to its input's dtype once.
+
+    Every product is exact and summed in fp32 (on the card
+    ``torch.backends.cuda.matmul.allow_tf32`` must be off).  P and dS stay
+    fp32 -- the SIMT kernels' arithmetic -- unless ``tensor_cores``, the
+    wgmma kernels' (bf16 inputs only): P and dS are rounded to bf16 before
+    the products that take them
+    (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the tensor cores take them,
+    and on the card every product of bf16 operands goes through cuBLAS's
+    bf16 x bf16 -> fp32 GEMM (``torch.bmm(..., out_dtype=torch.float32)``),
+    whose tensor cores sum as wgmma sums, so S and dP are summed as the
+    kernels sum them.  P is ``exp(S * scale - lse)`` in both modes, the
+    kernels' fp32 steps and their ``expf``; delta is summed in the rows
+    kernel's order (:func:`_rows_delta`); the keys are padded with zeros
+    to a multiple of 8, masked, so cuBLAS takes the same tensor-core path
+    at every length (at a ragged key count it takes another, whose sums
+    of S and dP round differently)."""
+    if tensor_cores and not q.dtype == k.dtype == v.dtype == dout.dtype == \
+            torch.bfloat16:
+        raise ValueError(f"tensor_cores: the wgmma backward takes bf16, got "
+                         f"{q.dtype}")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = h // hkv
     scale = d ** -0.5
+    on_tc = tensor_cores and q.is_cuda
+
+    def mm(x, y):         # (n, i, j) @ (n, j, l) -> fp32 (n, i, l)
+        if on_tc:
+            return torch.bmm(x, y, out_dtype=torch.float32)
+        return torch.bmm(x.float(), y.float())
 
     def heads_first(t, width):    # (b, s, h, e) -> (b, hkv, g, s, e)
-        return t.float().reshape(b, t.shape[1], hkv, g, width).permute(
-            0, 2, 3, 1, 4)
-    qf, of, dof = heads_first(q, d), heads_first(o, dv), heads_first(dout, dv)
-    kf = k.float().permute(0, 2, 1, 3)         # (b, hkv, sk, d)
-    vf = v.float().permute(0, 2, 1, 3)
+        return t.reshape(b, t.shape[1], hkv, g, width).permute(0, 2, 3, 1, 4)
+
+    def keys_padded(t, width):    # (b, sk, hkv, e) -> (b * hkv, skp, e)
+        out = t.new_zeros((b * hkv, skp, width))
+        out[:, :sk] = t.permute(0, 2, 1, 3).reshape(b * hkv, sk, width)
+        return out
+    skp = -(-sk // 8) * 8
+    qh, doh = heads_first(q, d), heads_first(dout, dv)
+    kh, vh = keys_padded(k, d), keys_padded(v, dv)
     lse_g = lse.float().reshape(b, hkv, g, sq)
-    delta = (dof * of).sum(-1)                  # (b, hkv, g, sq)
-    dq = torch.empty_like(qf)
-    dk = torch.zeros_like(kf)
-    dvv = torch.zeros_like(vf)
-    k_pos = torch.arange(sk, device=q.device)[None]
+    delta = _rows_delta(o, dout).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    dq = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b * hkv, skp, d), dtype=torch.float32, device=q.device)
+    dvv = torch.zeros((b * hkv, skp, dv), dtype=torch.float32,
+                      device=q.device)
+    k_pos = torch.arange(skp, device=q.device)[None]
     for q0 in range(0, sq, chunk):
-        qc, doc = qf[:, :, :, q0:q0 + chunk], dof[:, :, :, q0:q0 + chunk]
-        q_pos = torch.arange(q0, q0 + qc.shape[3], device=q.device)[:, None]
-        mask = torch.ones((qc.shape[3], sk), dtype=torch.bool,
-                          device=q.device)
+        c = min(chunk, sq - q0)
+        qc = qh[:, :, :, q0:q0 + c].reshape(b * hkv, g * c, d)
+        doc = doh[:, :, :, q0:q0 + c].reshape(b * hkv, g * c, dv)
+        q_pos = torch.arange(q0, q0 + c, device=q.device)[:, None]
+        mask = (k_pos < sk).expand(c, skp).clone()
         if causal:
             mask &= q_pos >= k_pos
         if window is not None:
             mask &= q_pos - k_pos < window
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
-        p = torch.where(mask, torch.exp(s - lse_g[..., q0:q0 + chunk, None]),
+        s = mm(qc, kh.transpose(1, 2)).view(b, hkv, g, c, skp) * scale
+        p = torch.where(mask, torch.exp(s - lse_g[..., q0:q0 + c, None]),
                         0.0)
-        dp = torch.einsum("bhgqe,bhke->bhgqk", doc, vf)
-        ds = p * (dp - delta[..., q0:q0 + chunk, None])
-        dq[:, :, :, q0:q0 + chunk] = torch.einsum("bhgqk,bhkd->bhgqd", ds,
-                                                  kf) * scale
-        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
-        dvv += torch.einsum("bhgqk,bhgqe->bhke", p, doc)
+        dp = mm(doc, vh.transpose(1, 2)).view(b, hkv, g, c, skp)
+        ds = p * (dp - delta[..., q0:q0 + c, None])
+        if tensor_cores:
+            p, ds = p.to(q.dtype), ds.to(q.dtype)
+        p = p.reshape(b * hkv, g * c, skp)
+        ds = ds.reshape(b * hkv, g * c, skp)
+        dq[:, :, :, q0:q0 + c] = (mm(ds, kh) * scale).view(b, hkv, g, c, d)
+        dk += mm(ds.transpose(1, 2), qc)
+        dvv += mm(p.transpose(1, 2), doc)
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
-    dk = (dk * scale).permute(0, 2, 1, 3).to(k.dtype)
-    return dq, dk, dvv.permute(0, 2, 1, 3).to(v.dtype)
+    dk = (dk[:, :sk] * scale).view(b, hkv, sk, d).permute(0, 2, 1, 3)
+    dvv = dvv[:, :sk].reshape(b, hkv, sk, dv).permute(0, 2, 1, 3)
+    return dq, dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def _rows_delta(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout * o)`` (B, Sq, H) in fp32, summed in the order
+    of the backward's rows kernel: lane ``j`` of a warp adds the products
+    at ``j, j + 32, ...`` in turn, then the 32 lanes meet in a butterfly
+    (``acc += acc[lane ^ off]`` for off = 16, 8, 4, 2, 1).  For bf16
+    inputs these are the kernel's bits (its ``fmaf`` adds an exact
+    product); for fp32 ones the kernel rounds each step once less."""
+    b, sq, h, dv = o.shape
+    width = -(-dv // 32) * 32
+    x = torch.zeros((b, sq, h, width), dtype=torch.float32, device=o.device)
+    x[..., :dv] = o.float() * dout.float()
+    x = x.view(b, sq, h, width // 32, 32)
+    acc = x[..., 0, :]
+    for j in range(1, width // 32):
+        acc = acc + x[..., j, :]
+    lanes = torch.arange(32, device=o.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    return acc[..., 0]

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as kops, ref
-from repro_torch.kernels.agreement import check_bf16
-from repro_torch.kernels.flash_attention import kv_tile
+from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+from repro_torch.kernels.flash_attention import (backward_variant,
+                                                 kv_tile, launch_backward,
+                                                 plain_backward)
 
 pytestmark = pytest.mark.cuda
 
@@ -1242,60 +1244,123 @@ def _hold_grads(got, want, dtype, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 64), (80, 80), (128, 128),
                                   (192, 128), (256, 256)])
-@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
-@pytest.mark.parametrize("window", [None, 37, 128])
-def test_flash_backward_kernel_matches_plain(cuda, dtype, d, dv, h, hkv,
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("s,window", [(200, None), (200, 37), (200, 128),
+                                      (333, 128), (1000, 300)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, d, dv, h, hkv, s,
                                              window):
-    """The three backward kernels (delta, dK/dV, dQ) against
-    ref.attention_backward on the same q, k, v, o, dout and lse, causal,
-    at every (q/k, v) width pair, GQA groups 1 and 4, with and without the
-    band; the forward's lse against the plain version's."""
-    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 200, 200, h, hkv, d, dv,
+    """The backward kernels (the lse/delta rows, dK/dV, dQ) of the variant
+    ``backward_variant`` picks -- wgmma for bf16 at (64, 64), (80, 80),
+    (128, 128), SIMT otherwise -- against its plain version
+    (``plain_backward``: P and dS rounded to bf16 for wgmma) on the same q,
+    k, v, o, dout and lse, causal, at every (q/k, v) width pair, GQA groups
+    1, 4 and 8, with and without the band, over ragged lengths (200, 333
+    and 1000 tokens: many q and KV tiles, the band's edge crossing them);
+    the forward's lse against the plain version's."""
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, s, s, h, hkv, d, dv,
                                 d + h + (window or 0))
     o, lse = kops.flash_attention_cuda(q, k, v, window=window,
                                        return_lse=True)
     _, lse_plain = ref.attention(q, k, v, window=window,
                                  chunk=kv_tile(dtype, d), return_lse=True)
     torch.testing.assert_close(lse, lse_plain, rtol=1e-5, atol=1e-5)
-    before = kops.backward_launch_counts()["flash_attention_bwd"]
+    variant = backward_variant(dtype, d, dv)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and d <= 128
+                       else "simt")
+    before = kops.variant_launch_counts()["flash_attention_bwd"]
     got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
                                         window=window)
     torch.cuda.synchronize()
-    assert kops.backward_launch_counts()["flash_attention_bwd"] == before + 1
-    want = ref.attention_backward(q, k, v, o, dout, lse, window=window)
-    _hold_grads(got, want, dtype, f"flash backward {d}/{dv}")
+    after = kops.variant_launch_counts()["flash_attention_bwd"]
+    assert after == {**before, variant: before[variant] + 1}
+    want = plain_backward(q, k, v, o, dout, lse, window=window)
+    _hold_grads(got, want, dtype, f"flash backward {variant} {d}/{dv}")
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 37),
+                                           (False, None)])
+def test_flash_backward_simt_variant_matches_plain_in_bf16(cuda, d, causal,
+                                                           window):
+    """The SIMT kernels still take bf16 at the wgmma widths (launched
+    through the wrapper's own launch path, as chip_smoke.py times them):
+    against the fp32-P plain version; and the wgmma variant on the same
+    inputs against its own, both within check_bf16."""
+    q, k, v, dout = _bwd_inputs(cuda, torch.bfloat16, 2, 200, 200, 8, 2, d,
+                                d, 7 * d)
+    o, lse = kops.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    for variant in ("simt", "wgmma"):
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        launch_backward(variant, q, k, v, o, dout, lse, grads, causal=causal,
+                        window=window or 0)
+        want = plain_backward(q, k, v, o, dout, lse, causal=causal,
+                              window=window, variant=variant)
+        _hold_grads(grads, want, torch.bfloat16, f"{variant} at {d}")
+
+
+def test_wgmma_flash_backward_refuses_what_it_does_not_take(cuda):
+    """The wgmma variant raises on unaligned tensors (TMA) and, through its
+    launch path, on f32 and widths past 128: nothing gives way to SIMT."""
+    q, k, v, dout = _bwd_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 2, 64,
+                                64, 1)
+    o, lse = kops.flash_attention_cuda(q, k, v, return_lse=True)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_odd = buf[1:].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kops.flash_attention_bwd_cuda(q_odd, k, v, o, dout, lse)
+    qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
+    with pytest.raises(RuntimeError, match="wgmma"):
+        launch_backward("wgmma", qf, kf, vf, of, df, lse,
+                        tuple(torch.empty_like(t) for t in (qf, kf, vf)),
+                        causal=True, window=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,dv", [(80, 80), (256, 256)])
-def test_flash_backward_kernel_with_a_window_of_one(cuda, dtype, d, dv):
+@pytest.mark.parametrize("d,dv", [(64, 64), (80, 80), (128, 128),
+                                  (256, 256)])
+@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)])
+def test_flash_backward_kernel_with_a_window_of_one(cuda, dtype, d, dv, h,
+                                                    hkv):
     """A window of one key: each row attends to itself alone, P = 1 and
     o = v, so dS = do.v - do.o = 0 -- dq and dk are 0 up to the fp32
-    rounding of two sums of the same products (no relative measure holds
-    there) -- and dv = dout.  One query head a KV head: with a group, dv
-    would sum a few bf16 values, whose fp32 sum often lies on a bf16 tie,
-    which P = 1 +- an ulp of the recomputed score tips either way."""
-    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 200, 200, 2, 2, d, dv, 1)
+    rounding of two sums of the same products, held by absolute value (no
+    relative measure holds there; GQA sums a group's zeros into dk) --
+    and dv = dout summed over the KV head's group.  With a group, that
+    fp32 sum of bf16 values often lies on a bf16 tie: the wgmma variant
+    takes P as bf16, exactly 1, and rounds the tie as the plain sum does
+    (check_bf16); the SIMT one multiplies by an fp32 P of 1 +- an ulp,
+    which tips the tie either way, so there dv is held within one bf16
+    step of the sum elementwise."""
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 200, 200, h, hkv, d, dv, 1)
     o, lse = kops.flash_attention_cuda(q, k, v, window=1, return_lse=True)
     dq, dk, dv_got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
                                                    window=1)
     assert float(dq.abs().max()) < 1e-5 and float(dk.abs().max()) < 1e-5
+    want = dout.float().view(2, 200, hkv, h // hkv, dv).sum(3)
     if dtype == torch.float32:
-        torch.testing.assert_close(dv_got, dout, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dv_got, want, rtol=1e-5, atol=1e-5)
+    elif h == hkv or backward_variant(dtype, d, dv) == "wgmma":
+        check_bf16(dv_got, want.to(dtype), "flash backward dv at window 1")
     else:
-        check_bf16(dv_got, dout, "flash backward dv at window 1")
+        assert bf16_agreement(dv_got, want.to(dtype))["worst"] <= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s,sk", [(128, 128), (200, 328)])
+@pytest.mark.parametrize("window", [None, 100])
 def test_flash_backward_kernel_not_causal_matches_plain(cuda, dtype, d, s,
-                                                        sk):
+                                                        sk, window):
+    """Not causal, with and without a band of 100 keys (q - k < 100, keys
+    past the row kept)."""
     q, k, v, dout = _bwd_inputs(cuda, dtype, 2, s, sk, 8, 2, d, d, s + d)
-    o, lse = kops.flash_attention_cuda(q, k, v, causal=False,
+    o, lse = kops.flash_attention_cuda(q, k, v, causal=False, window=window,
                                        return_lse=True)
-    got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=False)
-    want = ref.attention_backward(q, k, v, o, dout, lse, causal=False)
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=False,
+                                        window=window)
+    want = plain_backward(q, k, v, o, dout, lse, causal=False,
+                          window=window)
     _hold_grads(got, want, dtype, "non-causal flash backward")
 
 
@@ -1309,13 +1374,14 @@ def test_bf16_flash_backward_at_training_length(cuda, window):
                                        return_lse=True)
     got = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
                                         window=window)
-    want = ref.attention_backward(q, k, v, o, dout, lse, window=window)
+    want = plain_backward(q, k, v, o, dout, lse, window=window)
     _hold_grads(got, want, torch.bfloat16, "danube-sized flash backward")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_is_deterministic(cuda, dtype):
-    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 300, 300, 8, 2, 80, 80, 3)
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_flash_backward_is_deterministic(cuda, dtype, d):
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 300, 300, 8, 2, d, d, 3)
     o, lse = kops.flash_attention_cuda(q, k, v, window=100, return_lse=True)
     first = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=100)
     second = kops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=100)

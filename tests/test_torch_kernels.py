@@ -169,11 +169,16 @@ def test_cpu_tensors_never_launch_kernels():
     tops.fusedmm(table, _t(ptrs), _t(idxs), num_segments=4)
     q = table.reshape(1, 10, 2, 4)
     tops.attention(q, q, q)
+    leaf = q.detach().bfloat16().requires_grad_()
+    tops.attention(leaf, leaf, leaf).float().sum().backward()
     assert tops.launch_counts() == {"sls": 0, "block_gather": 0,
                                     "fusedmm": 0, "flash_attention": 0}
+    assert tops.backward_launch_counts() == {"flash_attention_bwd": 0,
+                                             "block_gather_bwd": 0}
     assert tops.variant_launch_counts() == {
         "block_gather": {"bulk": 0, "group": 0, "rows": 0},
-        "fusedmm": {"ring": 0, "rows": 0}}
+        "fusedmm": {"ring": 0, "rows": 0},
+        "flash_attention_bwd": {"simt": 0, "wgmma": 0}}
 
 
 @pytest.mark.parametrize("bad", ["int64_idxs", "f64_table", "short_ptrs",
