@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--steps N] [--sweep-only]
     python3 chip_smoke.py --llava-only [--seed N]   # phase 12 alone
     python3 chip_smoke.py --training-only [--seed N]   # phase 13 alone
+    python3 chip_smoke.py --whisper-only [--seed N]    # phase 14 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -162,17 +163,44 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    steps on the card: the un-dispatch gather's backward on ``ember_sls``,
    held against ``index_add_``, and timed apart (the CSR transposition,
    the launch, ``index_add_``) there and at DeepSeek-V2-Lite's
-   un-dispatch prefill shape;
-14. one JSON line listing the kernels with the kernel (variant) that
+   un-dispatch prefill shape; every training step also runs the token
+   embedding's deterministic backward (one ``ember_sls`` launch a step),
+   timed apart at danube's shape;
+14. whisper-large-v3 (``phase_whisper``; ``--whisper-only`` runs it alone
+   after the build): 32 ``enc_dense`` and 32 ``xdec`` layers at full
+   width (d_model 1280, 20 heads of 64, bf16, random weights).  Prefill:
+   8 clips of 1500 frames and as many tokens through ``LM.prefill``, 32
+   encoder, 32 causal self and 32 cross flash launches, each held against
+   the plain version on its own q, k, v, the last hidden state against
+   plain attention (``PREFILL_REL_L2``), the encoder's, a cross and a self
+   layer's flash time beside its bound and SDPA.  Serving: encoded once,
+   then ``LM.wave_step(batch_ctx=)`` over a 4-token prompt and 60 greedy
+   tokens a slot into caches of 448 (the cross-attention at Sq = 1 in
+   every layer of every micro-step); the drive at chunk 1 must give the
+   same tokens and bit-identical final logits, a micro-step's cross
+   launches are held against the plain version, every wave's logits hold
+   to the same decode with plain attention on the drive's tokens within
+   ``PREFILL_REL_L2``; tokens/s, a
+   micro-step's time and the share of it the cross K/V projections take
+   (torch.profiler).  Training: the Trainer over 1 x 1500 tokens and
+   frames, 3 steps, twice from one seed: losses and every parameter
+   bit-equal between the runs, 96 backward launches a step, all wgmma,
+   one ``ember_sls`` launch a step (the embedding's backward), the
+   encoder's layer-0 backward against ``plain_backward``, a nonzero
+   gradient for every parameter; step ms, tokens/s, busy share, peak
+   memory;
+15. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
-   llava-next-34b prefills and the training steps, with flash's
+   llava-next-34b prefills, the training steps and whisper's prefill,
+   served micro-steps and training steps, with flash's
    ``instances``: the launches by dtype, widths, causal and window; sls's
-   the gather backward's in the MoE training), and the flash backward
-   (``flash_attention_bwd``, its launches by instance), error, times and
+   the gather backward's in the MoE training and the token embedding's in
+   both trainings), and the flash backward (``flash_attention_bwd``, its
+   launches by instance: danube's and whisper's), error, times and
    bounds;
-15. ``{"ok": true, "device": {...}}`` as the last line.
+16. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -352,6 +380,15 @@ FAULT_KEYS = (128, 256)
 # backward's parts are timed there on synthetic slots with those counts
 DS_UNDISPATCH_ROWS, DS_UNDISPATCH_BUFFER = 98_304, 122_944
 DS_UNDISPATCH_DISTINCT, DS_D_MODEL = 94_270, 2048
+# whisper-large-v3 (phase 14): 8 clips of its published enc_seq, 1500
+# frames (a 30-second window), prefilled with as many decoder tokens (the
+# reference's encoder runs its rotary at the decoder's positions); served:
+# encoded once, a 4-token prompt, then 60 greedy tokens a slot into caches
+# of 448 positions, whisper's decoder context (arXiv:2212.04356); trained
+# on 1 x 1500 tokens and frames a step, 3 steps, twice from one seed
+WHISPER_BATCH, WHISPER_FRAMES = 8, 1500
+WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 60, 448
+WHISPER_TRAIN_STEPS = 3
 
 
 class CheckFailed(RuntimeError):
@@ -1008,18 +1045,24 @@ def _busy(dev: list, wall_ms: float, top: int = 5) -> str:
             ", ".join(f"{k[:40]} {us / 1e3:.4f} ms" for k, us in dev[:top]))
 
 
+def _host_top(fn, top: int = 5) -> str:
+    """One call of ``fn`` under cProfile: the host functions with the most
+    own time, and their call counts."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return ", ".join(f"{f[2]} {tt * 1e3:.2f} ms ({nc} calls)"
+                     for f, (_, nc, tt, _, _) in rows)
+
+
 def _where_the_time_goes(ex, ins, step_ms: float, top: int = 5) -> str:
     """Two more steps, one under cProfile (the host functions with the most
     own time) and one under torch.profiler (device time by kernel and copy,
     and its share of the unprofiled ``step_ms``)."""
-    import cProfile
-    import pstats
-    prof = cProfile.Profile()
-    prof.runcall(ex.step, ins)
-    rows = sorted(pstats.Stats(prof).stats.items(),
-                  key=lambda kv: -kv[1][2])[:top]
-    host = ", ".join(f"{fn[2]} {tt * 1e3:.2f} ms"
-                     for fn, (_, _, tt, _, _) in rows)
+    host = _host_top(lambda: ex.step(ins), top)
     device = _busy(_device_time(lambda: ex.step(ins)), step_ms, top)
     return f"host (cProfile, own time): {host}; {device}"
 
@@ -2796,17 +2839,20 @@ def phase_deepseek_lm(seed: int, card: str) -> dict:
 # (the sliding window) and llava-next-34b (the vision-stub front end)
 # ---------------------------------------------------------------------------
 
-def _flash_bound(q, k, v, window) -> tuple:
-    """The least time of one causal flash call on these tensors: the
-    (query, key) pairs its band keeps (key <= query, query - key < window),
-    2 (D + Dv) FLOP each, at the bf16 tensor-core peak, against q, k and v
-    read and o written once at the HBM rate.  Returns (ms, "operations" or
-    "bytes", FLOP)."""
+def _flash_bound(q, k, v, window, causal: bool = True) -> tuple:
+    """The least time of one flash call on these tensors: the (query, key)
+    pairs its band keeps (causal: key <= query, query - key < window; not
+    causal: every key), 2 (D + Dv) FLOP each, at the bf16 tensor-core
+    peak, against q, k and v read and o written once at the HBM rate.
+    Returns (ms, "operations" or "bytes", FLOP)."""
     b, s, h, d = q.shape
     dv = v.shape[3]
-    keep = np.arange(1, s + 1, dtype=np.int64)
-    if window is not None:
-        keep = np.minimum(keep, window)
+    if causal:
+        keep = np.arange(1, s + 1, dtype=np.int64)
+        if window is not None:
+            keep = np.minimum(keep, window)
+    else:
+        keep = np.full(s, k.shape[1], dtype=np.int64)
     flops = 2 * b * h * int(keep.sum()) * (d + dv)
     nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv) * \
         q.element_size()
@@ -2821,23 +2867,27 @@ def _flash_layer(q, k, v, kw: dict, what: str) -> dict:
     heads expanded beforehand) with ``is_causal`` or, for a window, an
     explicit band mask -- the default backend and each backend that takes
     the call; the library held to the kernel below one bf16 step (relative
-    L2), and the bound of ``_flash_bound``."""
+    L2), and the bound of ``_flash_bound``.  A call that is not causal
+    (``kw["causal"]`` False: an encoder's or a cross-attention) runs
+    the library with neither flag nor mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.agreement import bf16_agreement
     window = kw.get("window")
+    causal = kw.get("causal", True)
     s, g = q.shape[1], q.shape[2] // k.shape[2]
 
     def kernel():
-        return kops.attention(q, k, v, causal=True, window=window)
+        return kops.attention(q, k, v, causal=causal, window=window)
     ms = time_ms(kernel, 10)
     plain_ms = time_ms(lambda: plain_attention(q, k, v, **kw), 2, warmup=1)
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
     if window is None:
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
     else:
         pos = torch.arange(s, device=q.device)
         band = (pos[:, None] >= pos[None, :]) & \
@@ -2852,7 +2902,7 @@ def _flash_layer(q, k, v, kw: dict, what: str) -> dict:
             f"{lib['rel_l2']:.3g} > 2^-7")
     library_ms = time_ms(library, 10)
     backends = _sdpa_backends(library)
-    bound_ms, bound_by, flops = _flash_bound(q, k, v, window)
+    bound_ms, bound_by, flops = _flash_bound(q, k, v, window, causal)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "backends": backends, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "library": lib}
@@ -2873,41 +2923,53 @@ def _flash_layer_line(tag: str, what: str, q, k, t: dict, card: str) -> str:
             f"kernel: {_bf16_summary(t['library'])}; {card}")
 
 
-def _checked_prefill(model, tokens, what: str, fe=None) -> dict:
+def _attention_layers(cfg) -> int:
+    """Flash launches in one forward of ``cfg``: a decoder layer's
+    self-attention, an ``xdec`` layer's cross-attention besides, and each
+    encoder layer's."""
+    from repro_torch.models.lm import layer_kinds
+    return cfg.num_layers + layer_kinds(cfg).count("xdec") + cfg.enc_layers
+
+
+def _checked_prefill(model, tokens, what: str, fe=None, enc=None) -> dict:
     """``LM.prefill`` on the card, as every prefill phase checks it: a
     warm-up, then the main path (launches and flash instances counted from
     0), more timed prefills and one under torch.profiler; one more through
     the kernel with every layer's flash output held against the plain
     version on that layer's own q, k, v (``check_bf16``), recording the
-    first layer without a window and the first with one; and the last
-    hidden state against a prefill with plain attention within
-    ``PREFILL_REL_L2``."""
+    first layer without a window ("global"), the first with one ("local"),
+    and, where calls are not causal, the first before any causal one
+    ("encoder") and the first after one ("cross"); and the last hidden
+    state against a prefill with plain attention within
+    ``PREFILL_REL_L2``.  ``fe`` are a vision-stub model's frontend_embeds,
+    ``enc`` an encoder-decoder model's enc_embeds."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.agreement import check_bf16
     cfg = model.cfg
-    model.prefill(tokens, fe)          # warm-up (cuBLAS, the allocator)
+    n_attn = _attention_layers(cfg)
+    model.prefill(tokens, fe, enc)     # warm-up (cuBLAS, the allocator)
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    last = model.prefill(tokens, fe)
+    last = model.prefill(tokens, fe, enc)
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     launches = kops.launch_counts()["flash_attention"]
     instances = dict(kops.flash_attention_cuda.instances)
-    require(launches == cfg.num_layers,
+    require(launches == n_attn,
             f"{what} prefill launched flash_attention {launches} times, "
-            f"expected {cfg.num_layers}")
+            f"expected {n_attn}")
     require(last.shape == (tokens.shape[0], 1, cfg.d_model) and
             bool(torch.isfinite(last).all()), f"{what} prefill output")
     for _ in range(PREFILLS - 1):
         t0 = time.perf_counter()
-        model.prefill(tokens, fe)
+        model.prefill(tokens, fe, enc)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     prefill_ms = float(np.mean(times)) * 1e3
     profiled = []
-    dev = _device_time(lambda: model.prefill(tokens, fe), profiled)
+    dev = _device_time(lambda: model.prefill(tokens, fe, enc), profiled)
     per_layer, layers = [], {}
 
     def held(q, k, v, **kw):
@@ -2915,18 +2977,21 @@ def _checked_prefill(model, tokens, what: str, fe=None) -> dict:
         per_layer.append(check_bf16(
             out, plain_attention(q, k, v, **kw),
             f"flash kernel on {what} layer {len(per_layer)}'s q, k, v"))
-        layers.setdefault("global" if kw.get("window") is None else "local",
-                          (q, k, v, kw))
+        if kw.get("causal", True):
+            kind = "global" if kw.get("window") is None else "local"
+        else:
+            kind = "cross" if "global" in layers else "encoder"
+        layers.setdefault(kind, (q, k, v, kw))
         return out
     with _OpSwap("attention", held):
-        again = model.prefill(tokens, fe)
+        again = model.prefill(tokens, fe, enc)
     require(torch.equal(again, last), f"{what} prefill is not repeatable")
-    require(len(per_layer) == cfg.num_layers, "one attention call a layer")
+    require(len(per_layer) == n_attn, "one attention call a layer")
     worst = {}
     for a in per_layer:
         _worst(worst, a)
     with _OpSwap("attention", plain_attention):
-        plain_last = model.prefill(tokens, fe)
+        plain_last = model.prefill(tokens, fe, enc)
     diff = last.float() - plain_last.float()
     rel_l2 = float(diff.norm() / plain_last.float().norm())
     require(rel_l2 <= PREFILL_REL_L2 and bool(torch.isfinite(diff).all()),
@@ -3265,9 +3330,10 @@ def phase_llava_subprocess(seed: int, card: str) -> dict:
 # Phase 13: training
 # ---------------------------------------------------------------------------
 
-def _flash_bwd_bound(q, v, window) -> tuple:
+def _flash_bwd_bound(q, v, window, causal: bool = True) -> tuple:
     """The least time of one flash backward on these tensors: the five
-    products of each kept (query, key) pair -- S, dK, dQ at the q/k width,
+    products of each kept (query, key) pair (causal: the band; not causal:
+    every key) -- S, dK, dQ at the q/k width,
     dP, dV at the v width: 2 (3 D + 2 Dv) FLOP, 10 D at equal widths --
     at the bf16 tensor-core peak, against q, k, v, o, dO and lse read and
     dq, dk, dv written once at the HBM rate.  Returns (ms, "operations" or
@@ -3275,9 +3341,12 @@ def _flash_bwd_bound(q, v, window) -> tuple:
     b, s, h, d = q.shape
     dv = v.shape[3]
     hkv = v.shape[2]
-    keep = np.arange(1, s + 1, dtype=np.int64)
-    if window is not None:
-        keep = np.minimum(keep, window)
+    if causal:
+        keep = np.arange(1, s + 1, dtype=np.int64)
+        if window is not None:
+            keep = np.minimum(keep, window)
+    else:
+        keep = np.full(s, v.shape[1], dtype=np.int64)
     flops = 2 * b * h * int(keep.sum()) * (3 * d + 2 * dv)
     nbytes = (2 * (b * s * h * d + b * s * hkv * (d + dv)) +   # q,k,v; dq,dk,dv
               2 * b * s * h * dv) * q.element_size() + b * h * s * 4
@@ -3286,12 +3355,12 @@ def _flash_bwd_bound(q, v, window) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-def _sdpa_backward_ms(q, k, v, do, window) -> dict:
+def _sdpa_backward_ms(q, k, v, do, window, causal: bool = True) -> dict:
     """scaled_dot_product_attention's backward on the same tensors (KV
     heads expanded beforehand): forward + ``torch.autograd.grad`` timed,
-    the forward alone timed, the difference; with ``is_causal`` (the whole
-    causal triangle) and with an explicit band mask (the same function as
-    the kernel's)."""
+    the forward alone timed, the difference; causal, with ``is_causal``
+    (the whole causal triangle) and with an explicit band mask (the same
+    function as the kernel's); not causal, with no mask."""
     import torch
     import torch.nn.functional as F
     s, g = q.shape[1], q.shape[2] // k.shape[2]
@@ -3299,12 +3368,16 @@ def _sdpa_backward_ms(q, k, v, do, window) -> dict:
     kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).detach()
               .requires_grad_() for t in (k, v))
     dot = do.transpose(1, 2)
-    pos = torch.arange(s, device=q.device)
-    band = (pos[:, None] >= pos[None, :]) & \
-        (pos[:, None] - pos[None, :] < window)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        band = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+        cases = (("is_causal", {"is_causal": True}),
+                 ("band_mask", {"attn_mask": band}))
+    else:
+        cases = (("no_mask", {}),)
     out = {}
-    for name, kw in (("is_causal", {"is_causal": True}),
-                     ("band_mask", {"attn_mask": band})):
+    for name, kw in cases:
         def fwd():
             return F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
@@ -3320,7 +3393,8 @@ def _sdpa_backward_ms(q, k, v, do, window) -> dict:
     return out
 
 
-def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
+def _check_flash_backward(q, k, v, do, window, what: str,
+                          causal: bool = True) -> dict:
     """The forward with its lse and the backward kernel on one layer's q,
     k, v and dO (captured in a training step).  The forward's o against the
     plain version's (check_bf16) and its lse (fp32, TOL_LSE_F32); the
@@ -3337,26 +3411,28 @@ def _check_flash_backward(q, k, v, do, window, what: str) -> dict:
     from repro_torch.kernels.agreement import (BF16_MAX_REL_L2,
                                                bf16_agreement, check_bf16)
     from repro_torch.kernels.flash_attention import kv_tile, plain_backward
-    o, lse = kops.flash_attention_cuda(q, k, v, window=window,
-                                       return_lse=True)
-    o_plain, lse_plain = ref.attention(q, k, v, window=window,
+    o, lse = kops.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    o_plain, lse_plain = ref.attention(q, k, v, causal=causal, window=window,
                                        chunk=kv_tile(q.dtype, q.shape[3]),
                                        return_lse=True)
     fwd = check_bf16(o, o_plain, f"{what}: the forward's o")
     lse_err = check_close(lse, lse_plain, f"{what}: the forward's lse",
                           **TOL_LSE_F32)
-    got = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
-    again = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
+    got = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                        window=window)
+    again = kops.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                          window=window)
     require(all(bool((a == b).all()) for a, b in zip(got, again)),
             f"{what}: two backward calls differ")
-    want = plain_backward(q, k, v, o, do, lse, window=window)
+    want = plain_backward(q, k, v, o, do, lse, causal=causal, window=window)
     worst: dict = {}
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _worst(worst, check_bf16(a, w, f"{what} {name}"))
     del want
     chain: dict = {}
     for name, a, w in zip(("dq", "dk", "dv"), got, plain_backward(
-            q, k, v, o_plain, do, lse_plain, window=window)):
+            q, k, v, o_plain, do, lse_plain, causal=causal, window=window)):
         agree = bf16_agreement(a, w)
         require(bool(torch.isfinite(a).all()) and agree["worst"] <= 1 and
                 agree["rel_l2"] <= BF16_MAX_REL_L2,
@@ -3454,7 +3530,8 @@ class _Capture:
         out = flash_attention(q, k, v, **kw)
         if not self.seen:
             self.seen.update(q=q.detach(), k=k.detach(), v=v.detach(),
-                             window=kw.get("window"))
+                             window=kw.get("window"),
+                             causal=kw.get("causal", True))
             out.register_hook(lambda g: self.seen.setdefault(
                 "do", g.detach().contiguous()))
         return out
@@ -3597,6 +3674,11 @@ def phase_training(seed: int, card: str) -> dict:
     require(variants == {"wgmma": steps_run * cfg.num_layers, "simt": 0},
             f"training ran the flash backward's variants {variants}: all "
             f"{steps_run * cfg.num_layers} launches must be wgmma")
+    require(counts["block_gather_bwd"] == steps_run and
+            fwd_counts["sls"] == steps_run,
+            f"training: the token embedding's backward ran "
+            f"{counts['block_gather_bwd']} times ({fwd_counts['sls']} "
+            f"ember_sls launches) in {steps_run} steps, expected one a step")
     require(io.get("equal") is True, "training: the state the restart "
             f"restored from step {TRAIN_CKPT_STEP}'s checkpoint differs from "
             "the saved one")
@@ -3665,6 +3747,12 @@ def phase_training(seed: int, card: str) -> dict:
     plain_ms = time_ms(lambda: plain_backward(
         q, k, v, o, do, lse, window=window), 1, warmup=1)
     sdpa = _sdpa_backward_ms(q, k, v, do, window)
+    # the token embedding's deterministic backward at this step's shape,
+    # timed apart beside index_add_ (what index_select's stock backward
+    # runs, with atomics)
+    emb = _gather_backward_parts(
+        torch.randn((TRAIN_SEQ, 1, cfg.d_model), device="cuda").bfloat16(),
+        batch["tokens"].reshape(-1).to(torch.int32), cfg.padded_vocab, 10)
     bound_ms, bound_by, flops = _flash_bwd_bound(q, v, window)
     fwd_bound_ms = _flash_bound(q, k, v, window)[0]
     print(f"[13 training] h2o-danube-1.8b trained at full width ({n_params:,}"
@@ -3706,6 +3794,10 @@ def phase_training(seed: int, card: str) -> dict:
           f"{witness['median_rel_l2']:.3g} over {witness['leaves']} leaves "
           f"(limit {TRAIN_GRAD_REL_L2}); {card}")
     print(f"[13 step profile] {busy}")
+    print(f"[13 embedding backward] the token embedding's gradient (Take: "
+          f"{TRAIN_SEQ} ids into {cfg.padded_vocab} rows of {cfg.d_model} "
+          f"bf16), {counts['block_gather_bwd']} ember_sls launches in the "
+          f"supervised run, one a step: {_parts_line(emb)}; {card}")
     sdpa_txt = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
                          else f"{n} {v}" for n, v in sdpa.items())
     b_, s_, h_, d_ = q.shape
@@ -3750,7 +3842,9 @@ def phase_training(seed: int, card: str) -> dict:
               "training_forward_launches": fwd_counts["flash_attention"],
               "training_forward_instances": fwd_instances,
               "checkpoint_bytes": ckpt_bytes, "restore_s": io["restore"],
-              "save_s": save_s}
+              "save_s": save_s,
+              "embedding_backward_launches": counts["block_gather_bwd"],
+              "embedding_backward_split": emb}
     del lm, trainer, q, k, v, do, o, lse, chk, cap, batch
     trainers.clear()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3825,7 +3919,8 @@ def _moe_training(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     counts = kops.backward_launch_counts()
     sls_launches = kops.launch_counts()["sls"]
-    require(counts["block_gather_bwd"] == 3 * cfg.num_layers and
+    # a step: each layer's un-dispatch and the token embedding's backward
+    require(counts["block_gather_bwd"] == 3 * (cfg.num_layers + 1) and
             sls_launches == counts["block_gather_bwd"] and
             all(np.isfinite(out["losses"])),
             f"MoE training: gather backward {counts['block_gather_bwd']}, "
@@ -3855,8 +3950,9 @@ def _moe_training(seed: int, card: str) -> dict:
     print(f"[13 moe training] a reduced MoE model ({cfg.num_layers} mla "
           f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts, f32; "
           f"4 x 256 tokens) trained 3 steps on the card: losses "
-          f"{[round(x, 4) for x in out['losses']]}; the un-dispatch gather's "
-          f"backward launched ember_sls {counts['block_gather_bwd']} times; "
+          f"{[round(x, 4) for x in out['losses']]}; the un-dispatch gathers' "
+          f"and the token embedding's backward launched ember_sls "
+          f"{counts['block_gather_bwd']} times; "
           f"one layer's ({tuple(dout.shape)} into {n} rows) vs index_add_ max "
           f"abs err {err:.3g}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes); "
@@ -3897,6 +3993,427 @@ def _moe_training(seed: int, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: whisper-large-v3
+# ---------------------------------------------------------------------------
+
+def _whisper_prefill_flops(cfg, b: int, s: int) -> float:
+    """The work of one whisper prefill over b x s tokens and as many frames:
+    frontend_proj, each encoder layer's four projections and MLP, each
+    decoder layer's eight projections (self and cross) and MLP, and the
+    attention pairs (every pair in the encoder and the cross layers, the
+    causal triangle in the self layers), 2 FLOP a multiply-add."""
+    d, f, hd, h = cfg.d_model, cfg.d_ff, cfg.hd, cfg.num_heads
+    t = b * s
+    gemm = 2 * t * (d * d + cfg.enc_layers * (4 * d * d + 3 * d * f) +
+                    cfg.num_layers * (8 * d * d + 3 * d * f))
+    pairs = (cfg.enc_layers + cfg.num_layers) * s * s + \
+        cfg.num_layers * s * (s + 1) // 2
+    return gemm + 2 * b * h * pairs * 2 * hd
+
+
+def _cross_kv_share(model, tok, caches, ctx) -> dict:
+    """One decode micro-step under torch.profiler (shapes recorded): its
+    device time, and the device time of the cross-attention's K and V
+    projections -- the products whose first operand is every slot's
+    encoder output, (B * Sf, D) -- which the reference recomputes every
+    micro-step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    enc = ctx["enc_out"]
+    rows = [enc.shape[0] * enc.shape[1], enc.shape[2]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as tp:
+        t0 = time.perf_counter()
+        model.decode_step(tok, caches, batch_ctx=ctx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(e.self_device_time_total for e in tp.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    kv_us, kv_n = 0.0, 0
+    for e in tp.key_averages(group_by_input_shape=True):
+        if e.key == "aten::mm" and e.input_shapes and \
+                list(e.input_shapes[0]) == rows:
+            kv_us += e.device_time_total
+            kv_n += e.count
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
+            "kv_ms": kv_us / 1e3, "kv_products": kv_n}
+
+
+def _whisper_serving(model, enc, seed: int, card: str) -> dict:
+    """Encode once, then serve the 8 clips: ``LM.wave_step(batch_ctx=)``
+    over a WHISPER_PROMPT-token prompt, then greedy tokens one wave each
+    into caches of WHISPER_MAX_LEN.  Checked: the drive at chunk 1 gives
+    the same tokens and bit-identical final logits; one micro-step's
+    cross-attention kernel launches (Sq = 1 over every frame) against the
+    plain version; every wave's logits within PREFILL_REL_L2 of the same
+    decode with plain attention, teacher-forced on the drive's tokens."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
+    cfg = model.cfg
+    b = enc.shape[0]
+    with torch.inference_mode():
+        enc_out = model._encode(enc)
+    ctx = {"enc_out": enc_out}
+    rng = np.random.default_rng(seed + 15)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (b, WHISPER_PROMPT)).astype(np.int32)
+    ones = np.ones(b, np.int32)
+
+    def drive(chunk, new=WHISPER_NEW_TOKENS):
+        caches = model.init_caches(b, WHISPER_MAX_LEN)
+        t0 = time.perf_counter()
+        for c0 in range(0, WHISPER_PROMPT, chunk):
+            part = prompts[:, c0:c0 + chunk]
+            logits, _ = model.wave_step(
+                part, np.full(b, part.shape[1], np.int32), caches,
+                batch_ctx=ctx)
+        out, waves = [], [logits]
+        for i in range(new):
+            nxt = logits.argmax(-1).cpu().numpy().astype(np.int32)
+            out.append(nxt[:, 0])
+            if i == 0:
+                t1 = time.perf_counter()
+            if i + 1 < new:
+                logits, _ = model.wave_step(nxt, ones, caches, batch_ctx=ctx)
+                waves.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {"tokens": np.stack(out, 1), "logits": logits,
+                "waves": torch.cat(waves, 1), "caches": caches,
+                "first_s": t1 - t0, "decode_s": t2 - t1}
+
+    drive(WHISPER_PROMPT, new=2)       # warm-up
+    kops.reset_launch_counts()
+    main = drive(WHISPER_PROMPT)
+    launches = kops.launch_counts()["flash_attention"]
+    instances = dict(kops.flash_attention_cuda.instances)
+    micro = WHISPER_PROMPT + WHISPER_NEW_TOKENS - 1
+    want = {"bfloat16 64/64": micro * cfg.num_layers}
+    require(instances == want and launches == micro * cfg.num_layers,
+            f"whisper serving launched flash {instances}, expected {want}: "
+            f"one cross-attention a layer a micro-step")
+    one = drive(1)
+    require(np.array_equal(one["tokens"], main["tokens"]) and
+            torch.equal(one["logits"], main["logits"]),
+            "whisper serving: the drive at chunk 1 differs from the "
+            "whole-prompt drive")
+    tokens_per_s = b * (WHISPER_NEW_TOKENS - 1) / main["decode_s"]
+    # one micro-step, on copies of the drive's caches
+    tok = torch.from_numpy(main["tokens"][:, -1:]).cuda().long()
+
+    def copies():
+        return [{k: t.clone() for k, t in c.items()} for c in main["caches"]]
+    spare = copies()
+    step_ms = time_ms(lambda: model.decode_step(tok, spare, batch_ctx=ctx), 10)
+    share = _cross_kv_share(model, tok, copies(), ctx)
+    spare = copies()
+    host = _host_top(lambda: model.decode_step(tok, spare, batch_ctx=ctx), 6)
+    held, seen = [], {}
+
+    def hold(q, k, v, **kw):
+        out = kops.flash_attention_cuda(q, k, v, **kw)
+        held.append(check_bf16(out, plain_attention(q, k, v, **kw),
+                               f"whisper decode cross-attention layer "
+                               f"{len(held)} (Sq = 1)"))
+        seen.setdefault("qkv", (q, k, v, kw))
+        return out
+    with _OpSwap("attention", hold):
+        model.decode_step(tok, copies(), batch_ctx=ctx)
+    require(len(held) == cfg.num_layers, "one cross-attention a layer")
+    worst = {}
+    for a in held:
+        _worst(worst, a)
+    q, k, v, kw = seen["qkv"]
+    t = _flash_layer(q, k, v, kw, "whisper decode cross layer")
+    print(_flash_layer_line("14 whisper decode kernel", "flash attention, a "
+                            "decode step's cross-attention (one query row "
+                            "a slot over every frame)", q, k, t, card))
+    # the drive's tokens through the same decode with plain attention,
+    # teacher-forced: its logits at the prompt's last token and after
+    # every decode wave against the drive's
+    seq = np.concatenate([prompts, main["tokens"][:, :-1]], 1)
+    caches = model.init_caches(b, WHISPER_MAX_LEN)
+    rows = []
+    with _OpSwap("attention", plain_attention):
+        for i in range(seq.shape[1]):
+            lg, _ = model.decode_step(
+                torch.from_numpy(seq[:, i:i + 1]).cuda().long(), caches,
+                batch_ctx=ctx)
+            rows.append(lg)
+    del caches
+    plain_logits = torch.cat(rows[WHISPER_PROMPT - 1:], 1)
+    kernel_logits = main["waves"]
+    rel = float((kernel_logits - plain_logits).norm() / plain_logits.norm())
+    require(rel <= PREFILL_REL_L2 and
+            bool(torch.isfinite(kernel_logits).all()),
+            f"whisper decode logits with the kernel vs plain attention: "
+            f"relative L2 {rel:.3g} > {PREFILL_REL_L2}")
+    print(f"[14 whisper serving] encoded once ({tuple(enc_out.shape)}), then "
+          f"{b} slots: a {WHISPER_PROMPT}-token prompt and "
+          f"{WHISPER_NEW_TOKENS} greedy tokens each through "
+          f"LM.wave_step(batch_ctx=) into caches of {WHISPER_MAX_LEN} "
+          f"(eager; {micro} micro-steps, {launches} cross-attention "
+          f"launches): {tokens_per_s:.1f} tokens/s over the "
+          f"{WHISPER_NEW_TOKENS - 1} decode waves ({main['decode_s']:.3f} s;"
+          f" prompt wave and first token {main['first_s'] * 1e3:.1f} ms); "
+          f"a micro-step {step_ms:.3f} ms (CUDA events over 10), device busy"
+          f" {share['busy_ms']:.3f} ms of the {share['wall_ms']:.3f} ms one "
+          f"profiled micro-step took, of it the cross K/V projections "
+          f"({share['kv_products']} products of ({b * enc_out.shape[1]}, "
+          f"{cfg.d_model}) rows) {share['kv_ms']:.3f} ms = "
+          f"{100 * share['kv_ms'] / max(share['busy_ms'], 1e-9):.1f}%; host "
+          f"own time of a micro-step (cProfile): {host}; the "
+          f"drive at chunk 1: same tokens, bit-identical final logits; the "
+          f"cross-attention kernel at Sq = 1 vs plain in every layer: "
+          f"{_bf16_summary(worst)}; the drive's logits of all "
+          f"{kernel_logits.shape[1]} waves vs plain attention on its tokens "
+          f"(teacher-forced): relative L2 {rel:.3g} (tol {PREFILL_REL_L2}); "
+          f"{card}")
+    return {"launches": launches, "instances": instances,
+            "tokens_per_s": tokens_per_s, "micro_step_ms": step_ms,
+            "micro_step_busy_ms": share["busy_ms"],
+            "cross_kv_ms": share["kv_ms"],
+            "cross_kv_share": share["kv_ms"] / max(share["busy_ms"], 1e-9),
+            "decode_rel_l2": rel,
+            "decode_kernel": {key: t[key] for key in
+                              ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")},
+            "decode_max_abs_err": worst["max_abs"]}
+
+
+def _whisper_training(seed: int, card: str) -> dict:
+    """whisper-large-v3 trained at full width through the Trainer: 1 x
+    WHISPER_FRAMES tokens and as many frames a step, lr TRAIN_LR,
+    WHISPER_TRAIN_STEPS steps, twice from one seed, its checkpoint save a
+    no-op (phase 13 covers checkpoints).  Checked: every loss finite, the
+    two runs' losses and final parameters bit-equal (the token embedding's
+    gradient on ember_sls: no atomics), every step's 96 backward launches
+    on wgmma, one ember_sls launch a step; then the encoder's layer-0
+    backward against plain_backward (check_bf16) and a nonzero gradient
+    for every parameter.  Printed: step ms, tokens/s, the busy share of a
+    profiled step, peak memory, the encoder layer's backward beside its
+    bound and SDPA's, the embedding's backward beside index_add_."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import plain_backward
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = get_config("whisper-large-v3")
+    n_attn = _attention_layers(cfg)
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=WHISPER_FRAMES, global_batch=1,
+        modality=cfg.modality, d_model=cfg.d_model, enc_seq=WHISPER_FRAMES))
+    ckpt_dir = REPO / "build" / "whisper_train"
+    step_ms: list = []
+
+    class Timed(Trainer):
+        def _train_step(self, state, batch):
+            t0 = time.perf_counter()
+            loss = super()._train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+    def train():
+        trainer = Timed(LM(cfg, seed=seed), data, TrainerConfig(
+            total_steps=WHISPER_TRAIN_STEPS, ckpt_every=WHISPER_TRAIN_STEPS,
+            ckpt_dir=str(ckpt_dir), lr=TRAIN_LR))
+        trainer.ckpt.save = lambda *a, **kw: None
+        return trainer, trainer.run()
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    trainer, out = train()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = kops.backward_launch_counts()
+    fwd = kops.launch_counts()
+    variants = kops.variant_launch_counts()["flash_attention_bwd"]
+    bwd_instances = dict(kops.flash_attention_bwd_cuda.instances)
+    fwd_instances = dict(kops.flash_attention_cuda.instances)
+    steps = WHISPER_TRAIN_STEPS
+    losses = out["losses"]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"whisper training losses {losses}")
+    require(fwd["flash_attention"] == steps * n_attn and
+            counts["flash_attention_bwd"] == steps * n_attn and
+            variants == {"wgmma": steps * n_attn, "simt": 0},
+            f"whisper training: flash {fwd['flash_attention']} forward, "
+            f"{counts['flash_attention_bwd']} backward launches ({variants})"
+            f" in {steps} steps, expected {n_attn} a step, all wgmma")
+    require(counts["block_gather_bwd"] == steps and fwd["sls"] == steps,
+            f"whisper training: the token embedding's backward ran "
+            f"{counts['block_gather_bwd']} times ({fwd['sls']} ember_sls "
+            f"launches) in {steps} steps, expected one a step")
+    lm = trainer.lm
+    final = {k: p.detach().clone() for k, p in lm.named_parameters()}
+    # every parameter reached; the encoder's layer 0 (the first attention
+    # call of a forward) captured for the backward check
+    batch = trainer._batch(0)
+    cap = _Capture()
+    with _OpSwap("attention", cap):
+        for p in lm.parameters():
+            p.grad = None
+        lm.loss(batch["tokens"], batch["labels"], None,
+                batch["enc_embeds"]).backward()
+    missing = [k for k, p in lm.named_parameters() if p.grad is None]
+    zero = [k for k, p in lm.named_parameters()
+            if p.grad is not None and not bool(p.grad.any())]
+    require(not missing and not zero, f"whisper training: no gradient for "
+            f"{missing}, an all-zero one for {zero}")
+    for p in lm.parameters():
+        p.grad = None
+    q, k, v, do = (cap.seen[n] for n in ("q", "k", "v", "do"))
+    require(cap.seen["causal"] is False, "the first attention call is not "
+            "the encoder's")
+    chk = _check_flash_backward(q, k, v, do, None, "whisper encoder layer 0 "
+                                "flash backward", causal=False)
+    o, lse = chk["o"], chk["lse"]
+    bwd_ms = time_ms(lambda: kops.flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, causal=False), 20, warmup=2)
+    bwd_plain_ms = time_ms(lambda: plain_backward(
+        q, k, v, o, do, lse, causal=False), 1, warmup=1)
+    sdpa = _sdpa_backward_ms(q, k, v, do, None, causal=False)
+    bound_ms, bound_by, flops = _flash_bwd_bound(q, v, None, causal=False)
+    emb = _gather_backward_parts(
+        torch.randn((WHISPER_FRAMES, 1, cfg.d_model), device="cuda").bfloat16(),
+        batch["tokens"].reshape(-1).to(torch.int32), cfg.padded_vocab, 20)
+    state = {"params": dict(lm.named_parameters()),
+             "opt": out["state"]["opt"], "ef": None}
+    prof_wall = []
+    dev = _device_time(lambda: trainer._train_step(state, batch), prof_wall)
+    busy = _busy(dev, prof_wall[0])
+    host = _host_top(lambda: trainer._train_step(state, batch), 6)
+    first_ms = list(step_ms)
+    chk_agree, chk_err = chk["agreement"], chk["max_abs_err"]
+    b_, s_, h_, d_ = q.shape
+    del trainer, out, state, lm, cap, batch, chk, o, lse, q, k, v, do
+    free_cuda()
+    trainer, again = train()
+    require(again["losses"] == losses, f"whisper training: the second run's "
+            f"losses {again['losses']} differ from the first's {losses}")
+    differ = [k for k, p in trainer.lm.named_parameters()
+              if not torch.equal(p.detach(), final[k])]
+    require(not differ, f"whisper training: {len(differ)} parameters differ "
+            f"between two runs from one seed, e.g. {differ[:3]}")
+    n_params = len(final)
+    del trainer, again, final
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_cuda()
+    mean_ms = float(np.mean(first_ms[1:steps]))
+    sdpa_ms = sdpa["no_mask"]
+    print(f"[14 whisper training] whisper-large-v3 trained at full width "
+          f"(bf16, 1 x {WHISPER_FRAMES} tokens and frames a step, lr "
+          f"{TRAIN_LR}, {steps} steps, twice from seed {seed}): losses "
+          f"{[round(x, 4) for x in losses]}, the second run's and all "
+          f"{n_params} parameters after it bit-equal to the first's; step "
+          f"ms (host clock, synchronised) {', '.join(f'{m:.1f}' for m in first_ms)}"
+          f" (mean of steps 1-{steps - 1} {mean_ms:.1f}), "
+          f"{WHISPER_FRAMES / mean_ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak_gib:.2f} GiB; flash {fwd['flash_attention']} forward and "
+          f"{counts['flash_attention_bwd']} backward launches ({variants}); "
+          f"ember_sls {fwd['sls']} launches (the token embedding's "
+          f"backward, one a step); every parameter got a nonzero gradient; "
+          f"{card}")
+    print(f"[14 whisper step profile] {busy}; host own time of a step "
+          f"(cProfile): {host}")
+    print(f"[14 whisper flash backward] the encoder's layer 0 (B={b_}, "
+          f"S={s_}, H={h_}, D={d_}, not causal, bf16) vs plain_backward: "
+          f"{_bf16_summary(chk_agree)}; two calls bit-equal; wgmma kernels "
+          f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention's backward (forward subtracted) "
+          f"{sdpa_ms if isinstance(sdpa_ms, str) else f'{sdpa_ms:.4f} ms'}; "
+          f"bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s,"
+          f" by {bound_by}; {100 * bound_ms / bwd_ms:.2f}% of its bound); "
+          f"{card}")
+    print(f"[14 whisper embedding backward] the token embedding's gradient "
+          f"({WHISPER_FRAMES} ids into {cfg.padded_vocab} rows of "
+          f"{cfg.d_model} bf16): {_parts_line(emb)}; {card}")
+    return {"flash_launches": fwd["flash_attention"],
+            "flash_instances": fwd_instances,
+            "bwd_launches": counts["flash_attention_bwd"],
+            "bwd_instances": bwd_instances,
+            "sls_launches": fwd["sls"],
+            "step_ms": mean_ms,
+            "tokens_per_s": WHISPER_FRAMES / mean_ms * 1e3,
+            "peak_gib": peak_gib, "bwd_ms": bwd_ms,
+            "bwd_plain_ms": bwd_plain_ms,
+            "bwd_library_ms": sdpa_ms if isinstance(sdpa_ms, float) else None,
+            "bwd_bound_ms": bound_ms, "bwd_max_abs_err": chk_err,
+            "embedding_backward_split": emb}
+
+
+def phase_whisper(seed: int, card: str) -> dict:
+    """whisper-large-v3 at full width and depth (32 enc_dense and 32 xdec
+    layers, d_model 1280, 20 heads of 64, vocab 51,866; bf16, random
+    weights from ``seed``): the prefill over WHISPER_BATCH clips of
+    WHISPER_FRAMES frames and as many tokens (``_checked_prefill``: 32
+    encoder, 32 self and 32 cross launches, each held against the plain
+    version), the encoder's, a cross and a self layer's flash time beside
+    its bound and SDPA; then served (``_whisper_serving``) and trained
+    (``_whisper_training``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-large-v3")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 14)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_FRAMES))).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    enc = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model),
+                      generator=g, device="cuda").to(cfg.torch_dtype)
+    run = _checked_prefill(model, tokens, cfg.name, enc=enc)
+    want = {"bfloat16 64/64": cfg.enc_layers + cfg.num_layers,
+            "bfloat16 64/64 causal": cfg.num_layers}
+    require(run["instances"] == want, f"whisper prefill flash instances "
+            f"{run['instances']}, expected {want}")
+    flops = _whisper_prefill_flops(cfg, WHISPER_BATCH, WHISPER_FRAMES)
+    print(_prefill_line("14 whisper prefill", model, tokens, run,
+                        f"xdec, after {cfg.enc_layers} enc_dense layers over "
+                        f"{WHISPER_FRAMES} frames a clip", init_s) +
+          f"; {flops / 1e12:.1f} TFLOP, bound "
+          f"{flops / BF16_TC_FLOPS * 1e3:.1f} ms at 989 TFLOP/s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    result = {"prefill_launches": run["launches"],
+              "prefill_instances": run["instances"],
+              "whisper_prefill_ms": run["prefill_ms"],
+              "whisper_prefill_bound_ms": flops / BF16_TC_FLOPS * 1e3}
+    for kind, what in (("encoder", "an encoder layer (not causal)"),
+                       ("cross", "a cross layer (1500 tokens over 1500 "
+                                 "frames)"),
+                       ("global", "a decoder self layer (causal)")):
+        q, k, v, kw = run["layers"][kind]
+        t = _flash_layer(q, k, v, kw, f"whisper {kind} layer")
+        print(_flash_layer_line(f"14 whisper {kind} kernel",
+                                f"flash attention, {what}", q, k, t, card))
+        result.update({f"whisper_{kind}_{key}": t[key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms")})
+    del run, q, k, v
+    t1 = time.perf_counter()
+    serving = _whisper_serving(model, enc, seed, card)
+    del model, enc, tokens
+    free_cuda()
+    t2 = time.perf_counter()
+    training = _whisper_training(seed, card)
+    print(f"[14 whisper time] wall seconds: prefill part {t1 - t0:.1f}, "
+          f"serving part {t2 - t1:.1f}, training part "
+          f"{time.perf_counter() - t2:.1f}")
+    return {"prefill": result, "serving": serving, "training": training}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3905,6 +4422,9 @@ def main(argv=None) -> int:
                     help="stop after phase 3 (a quick kernel check)")
     ap.add_argument("--training-only", action="store_true",
                     help="run phases 1, 2 and 13 alone (the training "
+                         "phase's lines, no JSON)")
+    ap.add_argument("--whisper-only", action="store_true",
+                    help="run phases 1, 2 and 14 alone (the whisper "
                          "phase's lines, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
@@ -3935,8 +4455,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     phase_build()
-    if args.training_only:
-        phase_training(args.seed, card)
+    if args.training_only or args.whisper_only:
+        (phase_training if args.training_only else phase_whisper)(args.seed,
+                                                                  card)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     phase_sweep(args.seed)
@@ -3967,7 +4488,8 @@ def main(argv=None) -> int:
                        ("11", lambda: phase_danube(args.seed, card)),
                        ("12", lambda: phase_llava_subprocess(args.seed,
                                                              card)),
-                       ("13", lambda: phase_training(args.seed, card))):
+                       ("13", lambda: phase_training(args.seed, card)),
+                       ("14", lambda: phase_whisper(args.seed, card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
@@ -4016,9 +4538,39 @@ def main(argv=None) -> int:
     sls["gather_backward_launches"] = moe.pop("gather_backward_launches")
     sls["launches"] += sls["gather_backward_launches"]
     sls.update(moe)
+    sls["danube_embedding_backward_launches"] = training.pop(
+        "embedding_backward_launches")
+    sls["launches"] += sls["danube_embedding_backward_launches"]
+    sls["danube_embedding_backward_split"] = training.pop(
+        "embedding_backward_split")
     flash["training_launches"] = training.pop("training_forward_launches")
     flash["launches"] += flash["training_launches"]
     instances.update(training.pop("training_forward_instances"))
+    whisper = later["14"]
+    for part in ("prefill", "serving"):
+        run = whisper[part]
+        flash[f"whisper_{part}_launches"] = run.pop(
+            "launches" if part == "serving" else "prefill_launches")
+        flash["launches"] += flash[f"whisper_{part}_launches"]
+        instances.update(run.pop("instances" if part == "serving"
+                                 else "prefill_instances"))
+        flash.update({k if k.startswith("whisper_") else f"whisper_{k}": v
+                      for k, v in run.items()})
+    wt = whisper["training"]
+    flash["whisper_training_launches"] = wt.pop("flash_launches")
+    flash["launches"] += flash["whisper_training_launches"]
+    instances.update(wt.pop("flash_instances"))
+    sls["whisper_embedding_backward_launches"] = wt.pop("sls_launches")
+    sls["launches"] += sls["whisper_embedding_backward_launches"]
+    sls["whisper_embedding_backward_split"] = wt.pop(
+        "embedding_backward_split")
+    training["danube_launches"] = training["launches"]
+    training["whisper_launches"] = wt.pop("bwd_launches")
+    training["launches"] += training["whisper_launches"]
+    bwd_instances = collections.Counter(training["instances"])
+    bwd_instances.update(wt.pop("bwd_instances"))
+    training["instances"] = dict(bwd_instances)
+    training.update({f"whisper_{k}": v for k, v in wt.items()})
     kernels.append(training)
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "

@@ -11,10 +11,14 @@ over the scanned super-blocks under ``scan``, the remainder layers under
 here: :func:`lm_params_from_reference` maps one onto the other, nested
 names included (MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``, the MoE
 layers' ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``, each
-leaf in its own dtype: the router stays fp32).  Its decode caches are the
+leaf in its own dtype: the router stays fp32; whisper's encoder, stacked
+over its layers under ``enc_scan`` there, is ``enc_blocks.<layer>.*``
+here, beside ``enc_norm``).  Its decode caches are the
 same kind of tree there and a list of per-layer dicts here:
 :func:`caches_from_reference` and :func:`caches_to_reference` map both ways
-(MLA's latent ``{c, kr, len}`` keep the reference's layout).
+(MLA's latent ``{c, kr, len}`` keep the reference's layout; an ``xdec``
+layer's ``{"self": {k, v, len}, "enc_out": None}`` there is its
+self-attention cache ``{k, v, len}`` here).
 
 Back the other way, :func:`lm_params_to_reference` stacks the layers into
 ``scan`` / ``rest`` again, and :func:`train_state_to_reference` /
@@ -78,7 +82,8 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
     remainder layers follow from ``params["rest"]`` (gemma3-4b: five
     super-blocks of five ``dense_local`` layers and a ``dense`` one, then
     four ``dense_local``); a front end's ``frontend_proj`` is carried as
-    it is."""
+    it is; an encoder's layer ``n`` is slot ``n`` of ``params["enc_scan"]``
+    (``enc_blocks.<n>``)."""
     dev = resolve_device(device)
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
@@ -87,10 +92,17 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
     for li, layer in enumerate(_layers_of(params, cfg)):
         for key, val in _flatten(layer):
             state[f"blocks.{li}.{key}"] = _to_tensor(val, dev)
+    if "enc_scan" in params:           # an encoder (cfg.enc_layers)
+        for li in range(cfg.enc_layers):
+            for key, val in _flatten(_tree_index(params["enc_scan"], li)):
+                state[f"enc_blocks.{li}.{key}"] = _to_tensor(val, dev)
+        state["enc_norm"] = _to_tensor(params["enc_norm"], dev)
     return state
 
 
 def _tree_index(tree, n: int):
+    if tree is None:                   # an empty subtree, as in JAX
+        return None
     if isinstance(tree, dict):
         return {k: _tree_index(v, n) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -112,20 +124,25 @@ def lm_params_to_reference(state, cfg) -> dict:
     as the reference's parameter tree -- ``embed``, ``final_norm``,
     ``frontend_proj`` where present, ``scan`` (a tuple over the block
     pattern of layer dicts stacked over ``cfg.n_super`` with
-    ``torch.stack``) and ``rest`` (the remainder layers) -- its leaves
+    ``torch.stack``), ``rest`` (the remainder layers), and an encoder's
+    ``enc_scan`` (its layers stacked) and ``enc_norm`` -- its leaves
     tensors where the state's lie."""
     layers: list = [{} for _ in range(cfg.num_layers)]
+    enc_layers: list = [{} for _ in range(cfg.enc_layers)]
     tree = {}
     for name, t in state.items():
-        if not name.startswith("blocks."):
+        stack, _, rest = name.partition(".")
+        if stack not in ("blocks", "enc_blocks"):
             tree[name] = t
             continue
-        _, li, rest = name.split(".", 2)
-        node = layers[int(li)]
+        li, rest = rest.split(".", 1)
+        node = (layers if stack == "blocks" else enc_layers)[int(li)]
         *parents, leaf = rest.split(".")
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = t
+    if cfg.enc_layers:
+        tree["enc_scan"] = _stack(enc_layers)
     pattern = len(cfg.block_pattern)
     n_scan = cfg.n_super * pattern
     tree["scan"] = tuple(
@@ -214,10 +231,13 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
     ``device``: ``k``/``v`` (B, Smax, Hkv, hd) -> (B, Hkv, Smax, hd),
     ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax); ``len`` and
     an MLA layer's ``c`` (B, Smax, r) and ``kr`` (B, Smax, rd) as they
-    are."""
+    are; an ``xdec`` layer's ``self`` cache becomes the layer's (its
+    ``enc_out`` is None there: the encoder's output is a decode context,
+    not cache state)."""
     dev = resolve_device(device)
     out = []
     for layer in _layers_of(tree, cfg):
+        layer = layer.get("self", layer)
         cache = {}
         for key, val in layer.items():
             t = _to_tensor(np.asarray(val), dev)
@@ -231,7 +251,10 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
 def caches_to_reference(caches: list, cfg) -> dict:
     """The port's per-layer caches as the reference's tree of numpy arrays
     (``{"scan": tuple over the pattern of dicts stacked over n_super,
-    "rest": tuple}``), to compare leaf by leaf."""
+    "rest": tuple}``; an ``xdec`` layer's as ``{"self": ..., "enc_out":
+    None}``), to compare leaf by leaf."""
+    from .models.lm import layer_kinds
+
     def host(key, t):
         if key in _SEQ_MAJOR_LEAVES:
             t = t.transpose(1, 2)
@@ -241,13 +264,22 @@ def caches_to_reference(caches: list, cfg) -> dict:
         return t.numpy()
 
     layers = [{k: host(k, t) for k, t in c.items()} for c in caches]
+    layers = [{"self": lay, "enc_out": None} if kind == "xdec" else lay
+              for kind, lay in zip(layer_kinds(cfg), layers)]
     pattern = tuple(cfg.block_pattern)
     n_scan = cfg.n_super * len(pattern)
     scan = ()
     if cfg.n_super:
-        scan = tuple(
-            {k: np.stack([layers[n * len(pattern) + i][k]
-                          for n in range(cfg.n_super)])
-             for k in layers[i]}
-            for i in range(len(pattern)))
+        scan = tuple(_stack_host([layers[n * len(pattern) + i]
+                                  for n in range(cfg.n_super)])
+                     for i in range(len(pattern)))
     return {"scan": scan, "rest": tuple(layers[n_scan:])}
+
+
+def _stack_host(layers: list):
+    """Stack per-layer trees of numpy leaves (None: an empty subtree)."""
+    if layers[0] is None:
+        return None
+    if isinstance(layers[0], dict):
+        return {k: _stack_host([lay[k] for lay in layers]) for k in layers[0]}
+    return np.stack(layers)

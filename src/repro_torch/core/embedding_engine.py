@@ -21,15 +21,21 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, *,
            strategy: str = "take") -> torch.Tensor:
     """Embed ``ids (..., S)`` from ``table (V, D)`` -> ``(..., S, D)``.
 
-    ``take``: ``index_select``.  ``one_hot``: a one-hot product (an id
+    ``take``: ``index_select``; where grad mode is on and the table needs
+    a gradient, through :class:`Take`, whose backward is deterministic.
+    ``one_hot``: a one-hot product (an id
     outside the table gives a zero row, as ``jax.nn.one_hot`` does).
     ``pallas``: the single-device DAE lookup -- the one-gather program
     compiled by emberc (compile-cache backed) and run through
     :mod:`.backend_cuda`: the hand-written block gather on the card, its
     plain version on the CPU."""
     if strategy == "take":
-        return table.index_select(0, ids.reshape(-1)).reshape(
-            *ids.shape, table.shape[1])
+        flat = ids.reshape(-1)
+        if torch.is_grad_enabled() and table.requires_grad:
+            rows = Take.apply(table, flat)
+        else:
+            rows = table.index_select(0, flat)
+        return rows.reshape(*ids.shape, table.shape[1])
     if strategy == "one_hot":
         rows = torch.arange(table.shape[0], device=ids.device)
         return (ids[..., None] == rows).to(table.dtype) @ table
@@ -40,6 +46,32 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, *,
             f"lookup strategy {strategy!r} is sharded and not ported yet "
             "(ROADMAP.md, Queue 1 item 6)")
     raise ValueError(strategy)
+
+
+class Take(torch.autograd.Function):
+    """``index_select`` of rows with a deterministic gradient.  The stock
+    backward sums the cotangents of repeated ids with atomics on the card,
+    so two runs of one training differ in their bits; this one is the
+    block gather's (:func:`repro_torch.kernels.gather.block_gather_backward`:
+    the lookups transposed into CSR by a stable sort, each row's segment
+    summed in fp32 in that order by one ``ember_sls`` launch, rounded to
+    the table's dtype once; ``index_add_`` in fp32 on the CPU).  The
+    forward is ``index_select``'s bits.  table (V, D), ids (N,) int ->
+    (N, D)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from ..kernels.gather import block_gather_backward
+        (ids,) = ctx.saved_tensors
+        grad = block_gather_backward(dout.contiguous()[:, None],
+                                     ids.to(torch.int32), ctx.num_rows)
+        return grad, None
 
 
 def _dae_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -129,8 +129,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through cuBLAS's bf16 x bf16 -> fp32 GEMM (batched over batch and KV
     head, the group's query rows stacked), whose tensor cores sum the
     products as the kernel's wgmma does, so a score near a bf16 rounding
-    boundary of p lands on the kernel's side of it; elsewhere the operands
-    are cast to fp32.
+    boundary of p lands on the kernel's side of it; f32 operands on the
+    card are summed in fp32.  On the CPU the two products, the
+    exponentials and the row sums of p are taken in fp64 and rounded to
+    fp32 once (exact for bf16 operands): an fp32 sum there takes the
+    order of the host's BLAS and vector code path (MKL's AVX2 and AVX-512
+    kernels, ATen's vectorized or scalar reductions), so its bits would
+    change from one machine to the next.
 
     With ``return_lse``, ``(out, lse)``: lse (B,H,Sq) fp32 is each row's
     log-sum-exp ``m + log(max(l, 1e-30))``, what the kernel saves for the
@@ -142,12 +147,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = d ** -0.5
     tensor_cores = q.is_cuda and q.dtype == k.dtype == v.dtype == \
         torch.bfloat16
+    # the width of the products and sums (see above): fp64 on the CPU
+    wide = torch.float32 if q.is_cuda else torch.float64
     qg = q.reshape(b, sq, hkv, g, d)
     if tensor_cores:
         # (b, sq, hkv, g, d) -> (b * hkv, g * sq, d)
         q3 = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, g * sq, d)
     else:
-        qg = qg.float()
+        qg = qg.to(wide)
     q_pos = torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -162,7 +169,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = torch.bmm(q3, kblk.permute(0, 2, 3, 1).reshape(b * hkv, d, kc),
                           out_dtype=torch.float32).view(b, hkv, g, sq, kc)
         else:
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk.float())
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                             kblk.to(wide)).float()
         s = s * scale
         k_pos = torch.arange(k0, k0 + kc, device=q.device)[None]
         mask = torch.ones((sq, kc), dtype=torch.bool, device=q.device)
@@ -172,17 +180,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= q_pos - k_pos < window
         s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1)
+        p = torch.exp((s - m_new[..., None]).to(wide)).float()
+        alpha = torch.exp((m - m_new).to(wide)).float()
+        l = l * alpha + p.to(wide).sum(-1).float()
         if tensor_cores:
             pv = torch.bmm(
                 p.to(v.dtype).reshape(b * hkv, g * sq, kc),
                 vblk.permute(0, 2, 1, 3).reshape(b * hkv, kc, dv),
                 out_dtype=torch.float32).view(b, hkv, g, sq, dv)
         else:
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
-                              vblk.float())
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).to(wide),
+                              vblk.to(wide)).float()
         acc = acc * alpha[..., None] + pv
         m = m_new
     denom = torch.clamp(l, min=1e-30)

@@ -23,6 +23,10 @@ prompts and the mirrored offset streams, ``--ttft-slo`` /
 the wave watchdog, and ``--chaos-site`` / ``--chaos-at`` inject a seeded
 fault schedule (:mod:`repro_torch.runtime.faults`).
 
+An encoder-decoder model (whisper-large-v3) is refused: each request
+needs an encoder context the server does not carry, in the reference too
+(:func:`~repro_torch.runtime.server.refuse_encoder_decoder`).
+
 ``--disagg`` (with ``--replicas``, ``--rpc-timeout-s``,
 ``--degrade-policy``) and ``--artifact-dir`` are not ported yet
 (ROADMAP.md, Queue 1 item 8) and raise.
@@ -37,7 +41,7 @@ import numpy as np
 from ..configs import get_config, get_reduced
 from ..models.lm import LM
 from ..runtime.faults import FaultInjector, FaultSpec
-from ..runtime.server import DecodeServer, Request
+from ..runtime.server import DecodeServer, Request, refuse_encoder_decoder
 
 
 def main(argv=None):
@@ -96,6 +100,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    refuse_encoder_decoder(cfg)        # before building the model
     faults = None
     if args.chaos_site is not None:
         faults = FaultInjector(

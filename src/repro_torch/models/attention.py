@@ -1,5 +1,6 @@
 """Attention layers (counterpart of ``repro/models/attention.py``; ported
-so far: :func:`blockwise_attention`, :func:`init_attn`, :func:`attn_forward`,
+so far: :func:`blockwise_attention`, :func:`init_attn`, :func:`attn_forward`
+(self- and cross-attention),
 decode with a KV cache -- :func:`decode_attention`, :func:`slot_update`,
 :func:`attn_decode`, :func:`init_kv_cache` and the int8 cache's
 :func:`_quant_kv` / :func:`_dequant_kv` -- and DeepSeek's multi-head latent
@@ -80,13 +81,12 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor, causal: bool = True,
                  window: Optional[int] = None,
                  kv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B,S,D) -> (B,S,D).  ``kv`` overrides the K/V source
-    (cross-attention, no rotary); on CUDA it raises: the flash kernel is
-    held against its plain version on self-attention only."""
-    if kv is not None and x.is_cuda:
-        raise NotImplementedError(
-            "cross-attention (kv=) has no checked Hopper path yet "
-            "(ROADMAP.md, Queue 1 item 5: the xdec block kind)")
+    """x (B,S,D) -> (B,S,D).  ``kv`` (B,Sk,D) overrides the K/V source:
+    cross-attention (the ``xdec`` layers' attention over the encoder's
+    output), with no rotary and no causal mask, Sk free of S -- a decode
+    step's cross-attention runs the flash kernel with one query row over
+    all Sk keys.  K and V are projected from ``kv`` at every call, as the
+    reference does."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     src = kv if kv is not None else x

@@ -2,14 +2,19 @@
 
 Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
 gated MLP), ``dense_local`` (the same with the sliding-window band of
-``cfg.sliding_window``), the ``moe`` kind (GQA attention + the MoE FFN) and
-the ``mla`` kind (DeepSeek's latent attention + the MoE FFN),
+``cfg.sliding_window``), the ``moe`` kind (GQA attention + the MoE FFN),
+the ``mla`` kind (DeepSeek's latent attention + the MoE FFN), and
+whisper's encoder-decoder kinds: ``enc_dense`` (the encoder's blocks:
+non-causal self-attention + MLP) and ``xdec`` (causal self-attention,
+cross-attention over the encoder's output, MLP);
 :meth:`LM.forward` (the MoE layers' auxiliary loss summed beside it; the
 ``vision-stub`` front end's ``frontend_embeds`` spliced over the first
-positions), :meth:`LM.loss` (the training objective) and
+positions; the ``audio-stub`` front end's ``enc_embeds`` through the
+encoder, :meth:`LM._encode`), :meth:`LM.loss` (the training objective) and
 :meth:`LM.prefill`, the serving methods
-(:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask,
-:meth:`LM.wave_step`, :meth:`LM.reset_slots`), and the LM's embedding
+(:meth:`LM.init_caches`, :meth:`LM.decode_step` with the ``active`` mask
+and the encoder context ``batch_ctx``, :meth:`LM.wave_step`,
+:meth:`LM.reset_slots`), and the LM's embedding
 programs and executors (:func:`embedding_program`,
 :meth:`LM.decode_embed_program`, :meth:`LM.embedding_pipeline`,
 :meth:`LM.embedding_executor` without a mesh).  The reference folds depth
@@ -21,9 +26,18 @@ micro-steps (which the server replays as CUDA graphs on the card:
 Queue 1): the other block kinds (item 5) and the sharded embedding
 executor and loss (item 6).
 
+A block's ``forward`` and ``decode`` take a context dict beside their
+input, as the reference's ``block_apply`` / ``block_decode`` take
+``ctx``: ``{"enc_out": (B, Sf, D)}`` for an encoder-decoder model (the
+``xdec`` layers read the encoder's output from it, never from a cache),
+None otherwise.
+
 Parameters carry the reference's names (``embed``, ``final_norm``,
 ``frontend_proj`` where ``cfg.modality`` is not ``"text"``,
 ``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``;
+an ``xdec`` layer's ``norm_x`` and ``xattn.{wq,wk,wv,wo}`` besides; the
+encoder's ``enc_blocks.<layer>.*`` (``enc_dense`` layers) and
+``enc_norm``;
 MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``; the MoE kinds'
 ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``) and layout, so
 :func:`repro_torch.convert.lm_params_from_reference` can load the
@@ -53,10 +67,9 @@ from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
                         init_mla, init_mla_cache, mla_decode, mla_forward)
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
-PORTED_KINDS = ("dense", "dense_local", "moe", "mla")
+PORTED_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec")
 #: the ROADMAP.md Queue 1 item that ports each other block kind
-KIND_ITEMS = {"xdec": 5, "enc_dense": 5, "mamba": 5, "shared_attn": 5,
-              "mlstm": 5, "slstm": 5}
+KIND_ITEMS = {"mamba": 5, "shared_attn": 5, "mlstm": 5, "slstm": 5}
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 
@@ -121,14 +134,16 @@ class DenseBlock(nn.Module):
     def _ffn(self, h: torch.Tensor) -> tuple:
         return gated_mlp(h, self.mlp, self.cfg.act), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> tuple:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                ctx: Optional[dict] = None) -> tuple:
         eps = self.cfg.norm_eps
         x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
         h, aux = self._ffn(rms_norm(x, self.norm2, eps))
         return x + h, aux
 
     def decode(self, x: torch.Tensor, cache: dict,
-               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+               active: Optional[torch.Tensor] = None,
+               ctx: Optional[dict] = None) -> torch.Tensor:
         """One decode micro-step (the reference's ``block_decode``): x
         (B,1,D), ``cache`` updated in place."""
         eps = self.cfg.norm_eps
@@ -180,8 +195,63 @@ class MlaBlock(MoeBlock):
         return mla_decode(self.attn, h, self.cfg, cache, active=active)
 
 
+class EncBlock(DenseBlock):
+    """``enc_dense``: :class:`DenseBlock` with non-causal self-attention --
+    whisper's encoder block (the reference's ``block_apply`` with ``causal
+    = kind != "enc_dense"``).  It runs only in :meth:`LM._encode`, never in
+    decode."""
+
+    def _attend(self, h: torch.Tensor, positions: torch.Tensor):
+        return attn_forward(self.attn, h, self.cfg, positions=positions,
+                            causal=False)
+
+
+class XdecBlock(DenseBlock):
+    """``xdec``: whisper's decoder block, pre-norm residual -- causal
+    self-attention (``norm1``, ``attn``), cross-attention over the
+    encoder's output ``ctx["enc_out"]`` (``norm_x``, ``xattn``: no rotary,
+    not causal, K and V projected from ``enc_out`` at every call), the
+    MLP (``norm2``, ``mlp``).  Its cache is the self-attention's K/V
+    (:func:`.attention.init_kv_cache`); the encoder's output comes from the
+    context, never from the cache."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__(cfg, gen, dtype, device)
+        self.norm_x = _frozen(init_rms(cfg.d_model, dtype, device))
+        self.xattn = nn.ParameterDict({
+            k: _frozen(v) for k, v in init_attn(gen, cfg, dtype,
+                                                device).items()})
+
+    def _cross(self, x: torch.Tensor, ctx: Optional[dict]) -> torch.Tensor:
+        h = rms_norm(x, self.norm_x, self.cfg.norm_eps)
+        return x + attn_forward(self.xattn, h, self.cfg, positions=None,
+                                causal=False, kv=ctx["enc_out"])
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                ctx: Optional[dict] = None) -> tuple:
+        eps = self.cfg.norm_eps
+        x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
+        x = self._cross(x, ctx)
+        h, aux = self._ffn(rms_norm(x, self.norm2, eps))
+        return x + h, aux
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               active: Optional[torch.Tensor] = None,
+               ctx: Optional[dict] = None) -> torch.Tensor:
+        """One decode micro-step: the self-attention over the cache
+        (updated in place, masked by ``active``), then the cross-attention
+        of every slot's one query over its ``enc_out`` rows."""
+        eps = self.cfg.norm_eps
+        x = x + self._attend_decode(rms_norm(x, self.norm1, eps), cache,
+                                    active)
+        x = self._cross(x, ctx)
+        h, _ = self._ffn(rms_norm(x, self.norm2, eps))
+        return x + h
+
+
 BLOCKS = {"dense": DenseBlock, "dense_local": LocalBlock, "moe": MoeBlock,
-          "mla": MlaBlock}
+          "mla": MlaBlock, "enc_dense": EncBlock, "xdec": XdecBlock}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple:
@@ -193,7 +263,9 @@ def layer_kinds(cfg: ModelConfig) -> tuple:
 
 class LM(nn.Module):
     """The decoder stack of a config whose blocks are ``dense``,
-    ``dense_local``, ``moe`` or ``mla``.
+    ``dense_local``, ``moe``, ``mla`` or ``xdec``, and for an
+    encoder-decoder config (``cfg.enc_layers``) its encoder: ``enc_layers``
+    ``enc_dense`` blocks and ``enc_norm``.
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; ``"meta"``
     builds the module tree without memory) and initialised there from
@@ -230,9 +302,57 @@ class LM(nn.Module):
                                                    device=dev))
         self.blocks = nn.ModuleList(BLOCKS[kind](cfg, gen, dtype, dev)
                                     for kind in layer_kinds(cfg))
+        if cfg.enc_layers:
+            self.enc_blocks = nn.ModuleList(
+                EncBlock(cfg, gen, dtype, dev)
+                for _ in range(cfg.enc_layers))
+            self.enc_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
+
+    def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder (the reference's ``LM._encode``): enc_embeds
+        (B,Sf,D), the ``audio-stub`` front end's frame embeddings in the
+        model's dtype, through ``frontend_proj``, the ``enc_dense`` blocks
+        and ``enc_norm`` -> enc_out (B,Sf,D).  The self-attention's rotary
+        runs at positions 0..Sf-1: the reference's reads the decoder's
+        positions, which :meth:`forward` requires to be the same."""
+        if enc_embeds.dim() != 3 or enc_embeds.shape[2] != self.cfg.d_model \
+                or enc_embeds.dtype != self.embed.dtype:
+            raise ValueError(
+                f"enc_embeds must be (B, frames, {self.cfg.d_model}) in the "
+                f"model's dtype {self.embed.dtype}, got {enc_embeds.dtype}"
+                f"{tuple(enc_embeds.shape)}")
+        b, sf, _ = enc_embeds.shape
+        x = enc_embeds @ self.frontend_proj
+        positions = torch.arange(sf, dtype=torch.float32,
+                                 device=x.device)[None].expand(b, sf)
+        for blk in self.enc_blocks:
+            x, _ = blk(x, positions)
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
+    def _forward_ctx(self, enc_embeds: Optional[torch.Tensor],
+                     s: int) -> Optional[dict]:
+        """The blocks' context for a forward over ``s`` positions: the
+        encoder's output for an encoder-decoder model, else None (a
+        model without an encoder ignores ``enc_embeds``, as the reference
+        does)."""
+        if not self.cfg.enc_layers:
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder model: "
+                             f"its forward needs enc_embeds (B, {s}, "
+                             f"{self.cfg.d_model})")
+        if enc_embeds.dim() == 3 and enc_embeds.shape[1] != s:
+            raise ValueError(
+                f"enc_embeds has {enc_embeds.shape[1]} frames for {s} "
+                f"tokens: the encoder runs its rotary at the decoder's "
+                f"positions, so the frame count must equal the token count "
+                f"(the reference's rule: the encoder sees the same frame "
+                f"count)")
+        return {"enc_out": self._encode(enc_embeds)}
 
     def forward(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None, *,
+                enc_embeds: Optional[torch.Tensor] = None,
                 with_aux: bool = False):
         """tokens (B,S) int -> hidden states (B,S,D) after the final norm
         (the reference's ``forward(params, {"tokens": ...})[0]``).
@@ -241,7 +361,12 @@ class LM(nn.Module):
         ``vision-stub`` model's patch embeddings: projected by
         ``frontend_proj``, they replace the token embeddings of the first
         Sf positions (the reference's splice; a text model ignores them, as
-        the reference does).  With ``with_aux``, ``(hidden, aux)``: the sum
+        the reference does).  ``enc_embeds`` (B,S,D), in the model's dtype,
+        are an encoder-decoder model's frame embeddings, which it requires:
+        the encoder (:meth:`_encode`) turns them into the ``xdec`` layers'
+        cross-attention source; their frame count must equal S (the
+        encoder's rotary reads the decoder's positions, as in the
+        reference).  With ``with_aux``, ``(hidden, aux)``: the sum
         of the MoE layers' load-balance losses, fp32 (0 for a dense stack),
         which the reference's ``forward`` returns beside the hidden states
         for its loss."""
@@ -258,33 +383,37 @@ class LM(nn.Module):
             x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
         positions = torch.arange(s, dtype=torch.float32,
                                  device=tokens.device)[None].expand(b, s)
+        ctx = self._forward_ctx(enc_embeds, s)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x, a = blk(x, positions)
+            x, a = blk(x, positions, ctx)
             if a is not None:
                 aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (x, aux) if with_aux else x
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
-             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+             frontend_embeds: Optional[torch.Tensor] = None,
+             enc_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The training objective, the reference's single-device
         ``LM.loss``: the mean over tokens of ``logsumexp(logits) -
         logits[label]``, the fp32 logits over the padded vocab (pad rows
         included, as the reference computes them), plus ``0.01 * aux``, the
         MoE load-balance loss.  tokens, labels (B,S) int; a () fp32
         tensor."""
-        x, aux = self.forward(tokens, frontend_embeds, with_aux=True)
+        x, aux = self.forward(tokens, frontend_embeds,
+                              enc_embeds=enc_embeds, with_aux=True)
         return ee.xent_vocab_parallel(x, self.embed, labels) + 0.01 * aux
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,
-                frontend_embeds: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                frontend_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The serving prefill step: the full-sequence forward (with the
         front end's embeddings, if given), returning the last position's
         hidden state (B,1,D)."""
-        return self.forward(tokens, frontend_embeds)[:, -1:]
+        return self.forward(tokens, frontend_embeds,
+                            enc_embeds=enc_embeds)[:, -1:]
 
     # ---- serving ----
     @property
@@ -304,9 +433,15 @@ class LM(nn.Module):
 
     @torch.inference_mode()
     def decode_step(self, tokens_new: torch.Tensor, caches: list,
-                    active: Optional[torch.Tensor] = None):
+                    active: Optional[torch.Tensor] = None,
+                    batch_ctx: Optional[dict] = None):
         """tokens_new (B,1) -> (logits (B,1,vocab) fp32, caches), the caches
         updated in place.
+
+        An encoder-decoder model needs ``batch_ctx={"enc_out": (B, Sf,
+        D)}``, each slot's encoder output (:meth:`_encode`; any Sf), which
+        every ``xdec`` layer's cross-attention reads; other models ignore
+        it.
 
         ``active`` (B,) bool masks the continuous-batching batch: inactive
         slots feed token 0 and keep their caches (``len`` included)
@@ -315,16 +450,35 @@ class LM(nn.Module):
         inactive slots' token-0 rows still take expert capacity, as in the
         reference, so there the tokens depend on how prompts are chunked
         (ROADMAP.md, reference caveat (c))."""
+        ctx = self._decode_ctx(batch_ctx, tokens_new.shape[0])
         if active is not None:
             tokens_new = torch.where(active[:, None], tokens_new, 0)
         x = ee.lookup(self.embed, tokens_new, strategy="take")
         for blk, cache in zip(self.blocks, caches):
-            x = blk.decode(x, cache, active)
+            x = blk.decode(x, cache, active, ctx)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return ee.logits(x, self.embed)[..., :self.cfg.vocab_size], caches
 
+    def _decode_ctx(self, batch_ctx: Optional[dict],
+                    b: int) -> Optional[dict]:
+        """The blocks' context for a decode over ``b`` slots: ``batch_ctx``
+        checked for an encoder-decoder model, None for the others."""
+        if not self.cfg.enc_layers:
+            return None
+        enc = None if batch_ctx is None else batch_ctx.get("enc_out")
+        if enc is None or enc.dim() != 3 or enc.shape[0] != b or \
+                enc.shape[2] != self.cfg.d_model or \
+                enc.dtype != self.embed.dtype:
+            got = None if enc is None else f"{enc.dtype}{tuple(enc.shape)}"
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder model: its decode "
+                f"needs batch_ctx={{'enc_out': ({b}, frames, "
+                f"{self.cfg.d_model})}} in {self.embed.dtype}, got {got}")
+        return {"enc_out": enc}
+
     @torch.inference_mode()
-    def wave_step(self, tokens, lens, caches: list):
+    def wave_step(self, tokens, lens, caches: list,
+                  batch_ctx: Optional[dict] = None):
         """One serving wave: ``tokens.shape[1]`` masked decode micro-steps.
         ``tokens`` (B,C) ragged-right with per-slot valid counts ``lens``
         (B,) (host arrays or tensors); slot b consumes ``tokens[b, :lens[b]]``
@@ -337,10 +491,12 @@ class LM(nn.Module):
         slot is active change nothing and are skipped, and one where every
         slot is active runs unmasked (the same function).
 
+        ``batch_ctx`` is :meth:`decode_step`'s, for every micro-step.
+
         Returns ``(logits (B,1,vocab) fp32 at each slot's last valid token,
         caches)`` -- zeros for a slot with ``lens == 0``.  The loop is
         :class:`StaticWave`'s, the one the server's CUDA graphs replay."""
-        return StaticWave(self, caches)(tokens, lens, caches)
+        return StaticWave(self, caches)(tokens, lens, caches, batch_ctx)
 
     @torch.inference_mode()
     def reset_slots(self, caches: list, keep) -> list:
@@ -435,7 +591,9 @@ class StaticWave:
     ``lens`` to the card in one packed copy, then per micro-step copies in
     ``tok[:, t]`` and runs :meth:`micro_step` when every slot is active,
     else sets ``active = lens > t`` and runs :meth:`masked_micro_step`;
-    micro-steps where no slot is active are skipped."""
+    micro-steps where no slot is active are skipped.  A wave's
+    ``batch_ctx`` (an encoder-decoder model's ``{"enc_out": ...}``) is
+    held in ``batch_ctx`` for its micro-steps."""
 
     def __init__(self, lm, caches: list):
         b = caches[0]["len"].shape[0]
@@ -448,6 +606,7 @@ class StaticWave:
                                            dtype=torch.float32, device=dev)
         self.lm = lm
         self.caches = caches
+        self.batch_ctx = None
         # what a wave runs: these bodies here, their graphs in WaveGraph
         self._full = self.micro_step
         self._masked = self.masked_micro_step
@@ -456,14 +615,16 @@ class StaticWave:
     def micro_step(self) -> None:
         """``lm.decode_step`` of ``tok`` with every slot active; its logits
         into ``logits_last``."""
-        logits, _ = self.lm.decode_step(self.tok, self.caches)
+        logits, _ = self.lm.decode_step(self.tok, self.caches,
+                                        batch_ctx=self.batch_ctx)
         self.logits_last.copy_(logits)
 
     def masked_micro_step(self) -> None:
         """``lm.decode_step`` of ``tok`` under the ``active`` mask; the
         active slots' logits into ``logits_last``."""
         logits, _ = self.lm.decode_step(self.tok, self.caches,
-                                        active=self.active)
+                                        active=self.active,
+                                        batch_ctx=self.batch_ctx)
         self.logits_last.copy_(torch.where(self.active[:, None, None],
                                            logits, self.logits_last))
 
@@ -476,11 +637,13 @@ class StaticWave:
             raise ValueError("the wave runs on the caches it was built on")
 
     @torch.inference_mode()
-    def __call__(self, tokens, lens, caches: list):
+    def __call__(self, tokens, lens, caches: list,
+                 batch_ctx: Optional[dict] = None):
         """One serving wave (``lm.wave_step``'s contract).  Returns a fresh
         tensor of logits: ``logits_last`` is overwritten by the next
         wave."""
         self._bound(caches)
+        self.batch_ctx = batch_ctx
         tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
                             else tokens)
         lens_h = np.asarray(lens.cpu() if isinstance(lens, torch.Tensor)

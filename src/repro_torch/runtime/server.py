@@ -59,7 +59,9 @@ comes back once per wave, the loop's one synchronisation.
 Not ported yet: the disaggregated embedding tier (``service="disagg"``,
 ``service_pool``, ``degrade_policy``) and serving artifacts
 (``artifact_dir``) -- ROADMAP.md Queue 1 item 8 -- and a sharded model
-(``mesh``) -- Queue 1 item 6.  Each raises ``NotImplementedError``.
+(``mesh``) -- Queue 1 item 6.  Each raises ``NotImplementedError``, as
+does an encoder-decoder model (:func:`refuse_encoder_decoder`), which the
+reference's server does not serve either.
 """
 from __future__ import annotations
 
@@ -106,6 +108,22 @@ _EMPTY = np.zeros(0, np.int32)
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"Queue 1 item {item})")
+
+
+def refuse_encoder_decoder(cfg) -> None:
+    """Raise for an encoder-decoder config (``cfg.enc_layers``, whisper):
+    each of its requests needs an encoder context -- ``batch_ctx={"enc_out":
+    ...}``, its audio's encoder output -- that the server's waves do not
+    carry.  The reference's DecodeServer passes none either (its
+    ``wave_step`` call has no ``batch_ctx``, so its ``decode_step`` fails
+    on ``batch_ctx["enc_out"]``).  Such a model is served through
+    ``LM.wave_step(batch_ctx=)``."""
+    if getattr(cfg, "enc_layers", 0):
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder model: each request needs an "
+            f"encoder context (batch_ctx={{'enc_out': ...}}) that the "
+            f"server's waves do not carry, as the reference's DecodeServer "
+            f"does not; serve it through LM.wave_step(batch_ctx=)")
 
 
 class WaveGraph(StaticWave):
@@ -200,6 +218,7 @@ class DecodeServer:
             raise _not_ported("the serving artifact (artifact_dir=)", 8)
         if mesh is not None:
             raise _not_ported("a sharded model (mesh=)", 6)
+        refuse_encoder_decoder(getattr(lm, "cfg", None))
         self.lm = lm
         self.slots = batch_slots
         self.max_len = max_len

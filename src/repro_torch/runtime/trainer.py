@@ -124,7 +124,8 @@ class Trainer:
         for p in params.values():
             p.grad = None
         loss = self.lm.loss(batch["tokens"], batch["labels"],
-                            batch.get("frontend_embeds"))
+                            batch.get("frontend_embeds"),
+                            batch.get("enc_embeds"))
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}

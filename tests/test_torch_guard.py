@@ -107,6 +107,31 @@ def test_port_runs_with_jax_and_repro_unimportable():
                 failure_schedule={3})
         assert out["restarts"] == 1 and len(out["losses"]) == 2
         assert all(np.isfinite(out["losses"]))
+        # whisper: the encoder, decode with its context, a training step
+        wcfg = get_reduced("whisper-large-v3")
+        whisper = LM(wcfg, device="cpu", seed=3)
+        enc = torch.randn(2, 12, 64)
+        last = whisper.prefill(torch.randint(0, 256, (2, 12)), None, enc)
+        assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
+        caches = whisper.init_caches(2, 16)
+        logits, _ = whisper.wave_step(np.ones((2, 3), np.int32),
+                                      np.array([3, 2]), caches,
+                                      batch_ctx={"enc_out":
+                                                 whisper._encode(enc)})
+        assert logits.shape == (2, 1, 256) and caches[0]["len"].tolist() == \
+            [3, 2]
+        try:
+            DecodeServer(whisper, batch_slots=2, max_len=16)
+            raise AssertionError("the server took an encoder-decoder model")
+        except NotImplementedError:
+            pass
+        wdata = SyntheticTokens(DataConfig(
+            vocab_size=wcfg.vocab_size, seq_len=8, global_batch=2,
+            modality=wcfg.modality, d_model=wcfg.d_model))
+        with tempfile.TemporaryDirectory() as d:
+            out = Trainer(whisper, wdata, TrainerConfig(
+                total_steps=2, ckpt_every=1, ckpt_dir=d)).run()
+        assert all(np.isfinite(out["losses"]))
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -122,7 +147,8 @@ def test_no_port_source_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
     assert {f"{n}.py" for n in ("gemma3_4b", "h2o_danube_1_8b",
-                                 "llava_next_34b", "trainer", "ckpt",
+                                 "llava_next_34b", "whisper_large_v3",
+                                 "trainer", "ckpt",
                                  "adamw", "compress", "schedule",
                                  "pipeline", "train")} <= \
         {f.name for f in files}

@@ -349,3 +349,50 @@ def test_flash_wrapper_window_checks_and_instance_keys():
     assert instance(q.bfloat16(), k, True, 1024) == \
         "bfloat16 64/64 causal window 1024"
     assert instance(q, k[..., :32], False, 0) == "float32 64/32"
+
+
+_ISA_SCRIPT = """
+import hashlib, sys
+import numpy as np, torch
+from repro_torch.kernels.ref import attention
+rng = np.random.default_rng(0)
+digest = hashlib.sha1()
+for d, causal in ((64, True), (64, False), (128, False)):
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(getattr(torch, sys.argv[1]))
+               for s in ((2, 200, 16, d), (2, 328, 1, d), (2, 328, 1, d)))
+    o = attention(q, k, v, causal=causal, chunk=128)
+    digest.update(o.float().numpy().tobytes())
+print(digest.hexdigest())
+"""
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_attention_on_the_cpu_does_not_depend_on_the_hosts_code_path(
+        dtype):
+    """The plain attention's bits on the CPU are the same whichever code
+    path the host's BLAS and ATen take -- MKL's SSE4.2, AVX2 and AVX-512
+    kernels, ATen's vectorized or scalar loops (forced here through
+    MKL_ENABLE_INSTRUCTIONS and ATEN_CPU_CAPABILITY in fresh processes):
+    its products, exponentials and row sums are taken in fp64 and rounded
+    to fp32 once, so the card tests that hold the card's plain result to
+    the CPU's read the same CPU bits on every machine.  (Summed in fp32,
+    they changed with MKL's instruction set.)  Inputs from numpy: torch's
+    CPU randn also changes with the code path."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    digests = set()
+    for env in ({}, {"MKL_ENABLE_INSTRUCTIONS": "SSE4_2"},
+                {"MKL_ENABLE_INSTRUCTIONS": "AVX2"},
+                {"ATEN_CPU_CAPABILITY": "default"}):
+        r = subprocess.run(
+            [sys.executable, "-c", _ISA_SCRIPT, dtype], capture_output=True,
+            text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "2",
+                 **env})
+        assert r.returncode == 0, r.stderr[-2000:]
+        digests.add(r.stdout.strip())
+    assert len(digests) == 1, digests

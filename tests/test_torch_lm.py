@@ -180,8 +180,8 @@ def test_gated_mlp_and_attn_forward_match_the_reference():
 
 
 def test_cross_attention_on_the_cpu_matches_the_reference():
-    """attn_forward(kv=...) runs the plain version on CPU tensors (on the
-    card it raises; tests/test_torch_cuda.py)."""
+    """attn_forward(kv=...) runs the plain version on CPU tensors (the
+    kernel on the card: tests/test_torch_cuda.py)."""
     cfg = jcfgs.reduced()
     p_attn = jattn.init_attn(jax.random.PRNGKey(5), cfg, jnp.float32)
     rng = np.random.default_rng(6)
