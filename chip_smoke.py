@@ -33,7 +33,12 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    Sq - 1 keys at widths 80, 128 and 256 over 1300 keys and 200 queries
    over 328, where a window of Sk or more must give the bits of none;
    tables not 16-byte aligned; bf16 held by
-   ``kernels.agreement.check_bf16``), the bf16 flash kernel over 300
+   ``kernels.agreement.check_bf16``), the block gather's backward on the
+   streams a token stream produces (one id repeated, all distinct, the last
+   id, Zipf heads, roff; 1 to 30,000 ids into 9 to 262,144 blocks): the
+   transposition kernel's order and ptrs equal to the argsort path's, the
+   backward bit-equal to the parent's composition (argsort path +
+   ``sls_kernel``), the bf16 flash kernel over 300
    causal cases of few-key rows (the five width pairs, with no window and
    windows of 1, 100, 128 and 129), and a small mixed program through the
    executor against the repo's numpy oracle (``program_reference``);
@@ -159,13 +164,18 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    held against the SIMT variant's plain version, fp32 P and dS, by
    ``check_bf16``) beside its bound,
    the plain version and ``scaled_dot_product_attention``'s backward
-   (``is_causal`` and a band mask).  Then a reduced MoE model trained 3
-   steps on the card: the un-dispatch gather's backward on ``ember_sls``,
-   held against ``index_add_``, and timed apart (the CSR transposition,
-   the launch, ``index_add_``) there and at DeepSeek-V2-Lite's
-   un-dispatch prefill shape; every training step also runs the token
-   embedding's deterministic backward (one ``ember_sls`` launch a step),
-   timed apart at danube's shape;
+   (``is_causal`` and a band mask, each its backward alone on a kept
+   graph).  Then a reduced MoE model trained 3 steps on the card: the
+   un-dispatch gather's backward (the transposition kernel and the sparse
+   ``ember_sls`` variant), held against ``index_add_``, and timed apart
+   there and at DeepSeek-V2-Lite's un-dispatch prefill shape; every
+   training step also runs the token embedding's deterministic backward
+   (one transposition and one ``ember_sls`` launch a step), timed apart at
+   danube's shape.  At each shape (``_gather_backward_parts``): order and
+   ptrs equal to the argsort path's, the backward bit-equal to the
+   parent's composition, the sum held against ``ref.sls``, and the times
+   of the wrapper, its two kernels, the parent's composition and its
+   parts, ``index_add_`` and ``F.embedding_bag``;
 14. whisper-large-v3 (``phase_whisper``; ``--whisper-only`` runs it alone
    after the build): 32 ``enc_dense`` and 32 ``xdec`` layers at full
    width (d_model 1280, 20 heads of 64, bf16, random weights).  Prefill:
@@ -185,10 +195,11 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    (torch.profiler).  Training: the Trainer over 1 x 1500 tokens and
    frames, 3 steps, twice from one seed: losses and every parameter
    bit-equal between the runs, 96 backward launches a step, all wgmma,
-   one ``ember_sls`` launch a step (the embedding's backward), the
-   encoder's layer-0 backward against ``plain_backward``, a nonzero
-   gradient for every parameter; step ms, tokens/s, busy share, peak
-   memory;
+   one transposition and one sparse ``ember_sls`` launch a step (the
+   embedding's backward), the encoder's layer-0 backward against
+   ``plain_backward``, a nonzero gradient for every parameter; step ms,
+   tokens/s, busy share, peak memory, the embedding's backward timed apart
+   as in phase 13;
 15. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
@@ -196,10 +207,12 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    llava-next-34b prefills, the training steps and whisper's prefill,
    served micro-steps and training steps, with flash's
    ``instances``: the launches by dtype, widths, causal and window; sls's
-   the gather backward's in the MoE training and the token embedding's in
-   both trainings), and the flash backward (``flash_attention_bwd``, its
-   launches by instance: danube's and whisper's), error, times and
-   bounds;
+   DLRM's and the gather backwards' that ran ``sls_kernel``), the flash
+   backward (``flash_attention_bwd``, its launches by instance: danube's
+   and whisper's), the gather backward's transposition
+   (``gather_transpose``) and sparse sum (``sls_sparse``), each with its
+   launches in the danube, reduced MoE and whisper trainings and its
+   times at the four shapes, error, times and bounds;
 16. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -259,6 +272,14 @@ LONG_SEQ = 32768
 # (gather: one; FusedMM ring: 2 dtypes x 2 f x 6 words per lane), and the
 # SASS of a bulk copy
 BULK_KERNELS = {"gather_bulk_kernel": 1, "fusedmm_ring_kernel": 24}
+# the gather backward's kernels: the transposition's (the one-block
+# sort at 2, 4 and 8 items a thread, the tiled passes' histogram and
+# scatter, ptrs) and the sparse sum's (its plan, f32 and bf16)
+GATHER_BWD_KERNELS = {"transpose_block_kernel": 3,
+                      "transpose_hist_kernel": 1,
+                      "transpose_scatter_kernel": 1,
+                      "transpose_ptrs_kernel": 1, "sls_sparse_kernel": 2,
+                      "sls_sparse_plan_kernel": 1}
 BULK_COPY_SASS = "UBLKCP"
 
 # chatglm3-6b served: DecodeServer(batch_slots=8, max_len=512,
@@ -454,6 +475,12 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def median_ms(fn, iters: int, reps: int = 3) -> float:
+    """The median of ``reps`` timings of ``time_ms(fn, iters)``: a timing
+    of a few short calls can take a stall of the allocator or the clock."""
+    return float(np.median([time_ms(fn, iters) for _ in range(reps)]))
+
+
 def plain_attention(q, k, v, **kw):
     """The flash kernel's plain version over the kernel's own KV tiles
     (``kv_tile`` of its dtype and q/k width), so p rounds against the same
@@ -569,7 +596,8 @@ def phase_build():
             require(len(got) == n_want and not spilled,
                     f"the {kernel} instantiations must build without spills "
                     f"({len(got)} built; spilling: {spilled})")
-        for kernel, n_want in BULK_KERNELS.items():
+        for kernel, n_want in {**BULK_KERNELS,
+                               **GATHER_BWD_KERNELS}.items():
             got = {k: v for k, v in _ptxas_by_kernel(rec.log).items()
                    if kernel in k}
             print(f"[2 build {kernel}] (registers, spill-store bytes): "
@@ -763,6 +791,67 @@ def phase_sweep(seed: int) -> dict:
           f"ids; variant launches {variants}); {n_unaligned} unaligned "
           f"tables (sls + gather) ok; empty launches ok")
     return errs
+
+
+def phase_sweep_transpose(seed: int) -> None:
+    """The gather backward's two kernels on the streams a token stream
+    produces (one id repeated, all distinct, the last id, a Zipf head,
+    rebased by roff, G = 1), on the one-block and the tiled transposition
+    and one to three radix passes: order and ptrs equal to the argsort
+    path's, the backward bit-equal to the parent's composition in f32 and
+    bf16, through the sum variant kernel_variant picks."""
+    import torch
+    from repro_torch.kernels import gather as kgather, ops as kops, ref
+    from repro_torch.kernels.sls import launch_variant
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    before = kops.variant_launch_counts()["sls"]
+    cases = 0
+    for kind, n, g, based in (("equal", 600, 400, False),
+                              ("distinct", 5000, 5000, False),
+                              ("last", 1000, 777, True),
+                              ("zipf", 51968, 1500, False),
+                              ("zipf", 256, 3000, False),
+                              ("uniform", 9, 1, False),
+                              ("zipf", 262144, 8192, True),
+                              ("equal", 40000, 20000, False),
+                              ("zipf", 122944, 30000, True)):
+        span = n - n // 3 if based else n
+        if kind == "distinct":
+            ids = rng.permutation(span)[:g].astype(np.int32)
+        elif kind == "last":
+            ids = rng.integers(0, span, g).astype(np.int32)
+            ids[::3] = span - 1
+        else:
+            ids = _ids(rng, kind, span, g)
+        idxs = torch.from_numpy(ids).to(dev)
+        roff = torch.from_numpy(rng.integers(0, n // 3, g).astype(
+            np.int32)).to(dev) if based else None
+        order, ptrs = kgather.transposed_lookups(idxs, roff, n)
+        want = ref.transposed_lookups(idxs, roff, n)
+        require(torch.equal(order, want[0]) and torch.equal(ptrs, want[1]),
+                f"transposition of {g} {kind} ids into {n} blocks "
+                f"(roff={based}) differs from the argsort path")
+        for dtype, emb in ((torch.float32, 256), (torch.bfloat16, 1280)):
+            dout = torch.randn((g, 1, emb), device=dev).to(dtype)
+            got = kops.block_gather_backward(dout, idxs, n, roff=roff)
+            rows = dout.reshape(g, emb)
+            parent = torch.empty_like(got)
+            launch_variant("rows", rows, want[1], want[0], parent)
+            require(torch.equal(got, parent),
+                    f"gather backward of {g} {kind} ids into {n} rows of "
+                    f"{emb} {dtype} (roff={based}) is not the parent "
+                    "composition's bits")
+            cases += 1
+    torch.cuda.synchronize()
+    variants = _variant_delta("sls", before)
+    require(variants["sparse"] > 0,
+            f"the gather backward sweep must run the sparse sum: {variants}")
+    print(f"[3 sweep gather backward] {cases} cases (equal, distinct, last-"
+          f"id, Zipf and uniform ids; G = 1 to 30,000 into 9 to 262,144 "
+          f"blocks; roff): the transposition kernel's order and ptrs equal "
+          f"to the argsort path's, the backward bit-equal to the parent's "
+          f"composition (sum variants {variants})")
 
 
 def phase_sweep_fusedmm(seed: int) -> None:
@@ -1106,9 +1195,11 @@ def phase_dlrm(seed: int, n_steps: int) -> dict:
                                      DLRM_BATCH * hot).astype(np.int32)}
         steps.append(ins)
     outs, times, submit, counts = _time_steps(ex, steps)
-    require(counts["sls"] == n_steps,
-            f"DLRM main path launched sls {counts['sls']} times, expected "
-            f"{n_steps}")
+    variants = kops.variant_launch_counts()["sls"]
+    require(counts["sls"] == n_steps and
+            variants == {"rows": n_steps, "sparse": 0},
+            f"DLRM main path launched sls {counts['sls']} times ({variants})"
+            f", expected {n_steps}, all sls_kernel")
     worst = 0.0
     for ins, out in zip(steps, outs):
         for name, _ in prog.ops:
@@ -3357,10 +3448,11 @@ def _flash_bwd_bound(q, v, window, causal: bool = True) -> tuple:
 
 def _sdpa_backward_ms(q, k, v, do, window, causal: bool = True) -> dict:
     """scaled_dot_product_attention's backward on the same tensors (KV
-    heads expanded beforehand): forward + ``torch.autograd.grad`` timed,
-    the forward alone timed, the difference; causal, with ``is_causal``
-    (the whole causal triangle) and with an explicit band mask (the same
-    function as the kernel's); not causal, with no mask."""
+    heads expanded beforehand): one forward with its graph kept, then
+    ``torch.autograd.grad(..., retain_graph=True)`` alone timed three times
+    over (the median, and the three under ``<case>_reps``); causal, with
+    ``is_causal`` (the whole causal triangle) and with an explicit band mask
+    (the same function as the kernel's); not causal, with no mask."""
     import torch
     import torch.nn.functional as F
     s, g = q.shape[1], q.shape[2] // k.shape[2]
@@ -3378,16 +3470,16 @@ def _sdpa_backward_ms(q, k, v, do, window, causal: bool = True) -> dict:
         cases = (("no_mask", {}),)
     out = {}
     for name, kw in cases:
-        def fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
-
-        def both():
-            return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
         try:
-            total = time_ms(both, 5, warmup=2)
-            with torch.no_grad():
-                forward = time_ms(fwd, 5, warmup=2)
-            out[name] = total - forward
+            o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+            def backward():
+                return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                           retain_graph=True)
+            reps = [time_ms(backward, 5, warmup=2) for _ in range(3)]
+            out[name] = float(np.median(reps))
+            out[f"{name}_reps"] = reps
+            del o
         except RuntimeError as e:     # a backend may refuse; printed
             out[name] = "refused: " + str(e).strip().splitlines()[0][:90]
     return out
@@ -3645,6 +3737,7 @@ def phase_training(seed: int, card: str) -> dict:
     wall_s = time.perf_counter() - t0
     counts = kops.backward_launch_counts()
     variants = kops.variant_launch_counts()["flash_attention_bwd"]
+    sls_variants = kops.variant_launch_counts()["sls"]
     fwd_counts = kops.launch_counts()
     instances = dict(kops.flash_attention_bwd_cuda.instances)
     fwd_instances = dict(kops.flash_attention_cuda.instances)
@@ -3675,10 +3768,15 @@ def phase_training(seed: int, card: str) -> dict:
             f"training ran the flash backward's variants {variants}: all "
             f"{steps_run * cfg.num_layers} launches must be wgmma")
     require(counts["block_gather_bwd"] == steps_run and
-            fwd_counts["sls"] == steps_run,
+            fwd_counts["sls"] == steps_run and
+            counts["gather_transpose"] == steps_run and
+            sls_variants == {"rows": 0, "sparse": steps_run},
             f"training: the token embedding's backward ran "
             f"{counts['block_gather_bwd']} times ({fwd_counts['sls']} "
-            f"ember_sls launches) in {steps_run} steps, expected one a step")
+            f"ember_sls launches, by variant {sls_variants}; "
+            f"{counts['gather_transpose']} transpositions) in {steps_run} "
+            f"steps, expected one a step, each on the transposition kernel "
+            f"and the sparse sum")
     require(io.get("equal") is True, "training: the state the restart "
             f"restored from step {TRAIN_CKPT_STEP}'s checkpoint differs from "
             "the saved one")
@@ -3796,7 +3894,8 @@ def phase_training(seed: int, card: str) -> dict:
     print(f"[13 step profile] {busy}")
     print(f"[13 embedding backward] the token embedding's gradient (Take: "
           f"{TRAIN_SEQ} ids into {cfg.padded_vocab} rows of {cfg.d_model} "
-          f"bf16), {counts['block_gather_bwd']} ember_sls launches in the "
+          f"bf16), {counts['gather_transpose']} transposition and "
+          f"{sls_variants['sparse']} sparse ember_sls launches in the "
           f"supervised run, one a step: {_parts_line(emb)}; {card}")
     sdpa_txt = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
                          else f"{n} {v}" for n, v in sdpa.items())
@@ -3807,7 +3906,8 @@ def phase_training(seed: int, card: str) -> dict:
           f"{simt_ms:.4f} ms (vs their plain version, fp32 P and dS: "
           f"{_bf16_summary(simt)}), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention's backward "
-          f"(forward subtracted) {sdpa_txt}; bound {bound_ms:.4f} ms "
+          f"alone on a kept graph (median of three timings, then the three) "
+          f"{sdpa_txt}; bound {bound_ms:.4f} ms "
           f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, by {bound_by}; kernel at "
           f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f}% of its "
           f"bound); the forward's bound {fwd_bound_ms:.4f} ms; {card}")
@@ -3844,6 +3944,8 @@ def phase_training(seed: int, card: str) -> dict:
               "checkpoint_bytes": ckpt_bytes, "restore_s": io["restore"],
               "save_s": save_s,
               "embedding_backward_launches": counts["block_gather_bwd"],
+              "embedding_backward_transposes": counts["gather_transpose"],
+              "embedding_backward_sparse": sls_variants["sparse"],
               "embedding_backward_split": emb}
     del lm, trainer, q, k, v, do, o, lse, chk, cap, batch
     trainers.clear()
@@ -3853,41 +3955,118 @@ def phase_training(seed: int, card: str) -> dict:
     return result
 
 
-def _gather_backward_parts(dout, idxs, n: int, iters: int) -> dict:
-    """The block gather's backward on the card, timed whole and in its
-    parts on the same inputs: the wrapper (``block_gather_backward``), its
-    transposition of the lookups into CSR alone (``transposed_lookups``: a
-    stable argsort, a bincount and a cumsum), the ``ember_sls`` launch alone
-    on that CSR, and ``index_add_`` (the library call, in dout's dtype);
-    the bytes bound of the function."""
+def _parent_gather_backward(rows, idxs, n: int):
+    """The block gather's backward as the parent commit composed it: the
+    argsort transposition (``ref.transposed_lookups``) and one launch of
+    ``sls_kernel`` (the rows variant) over rows (G, W) into (n, W)."""
     import torch
-    from repro_torch.kernels import gather as kgather, ops as kops
-    emb = dout.shape[2]
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sls import launch_variant
+    order, ptrs = ref.transposed_lookups(idxs, None, n)
+    out = torch.empty((n, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    launch_variant("rows", rows, ptrs, order, out)
+    return out
+
+
+def _gather_backward_parts(dout, idxs, n: int, iters: int) -> dict:
+    """The block gather's backward on the card at one shape (dout (G, 1, E)
+    into n rows), checked and timed on the same inputs.  Checked: the
+    transposition kernel's order and ptrs equal to the argsort path's; the
+    wrapper's result bit-equal to the parent's composition (argsort path +
+    ``sls_kernel``); the sum variant that runs against its plain version
+    (``ref.sls`` on the same CSR: TOL_SUM_F32 in f32, ``check_bf16`` in
+    bf16).  Timed: the wrapper (``block_gather_backward``), its
+    transposition (``ember_transpose``) and its sum launch alone, the
+    parent's composition and its two parts (the argsort path and
+    ``sls_kernel`` on that CSR), the plain versions, ``index_add_`` (one
+    PyTorch call for the whole function, in dout's dtype) and
+    ``F.embedding_bag`` (one for the sum over the CSR), each the median of
+    three timings; the bytes bounds of the function and of each part."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import gather as kgather, ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.kernels.sls import kernel_variant, launch_variant
+    g, emb = dout.shape[0], dout.shape[2]
+    rows = dout.reshape(g, -1)
     order, ptrs = kgather.transposed_lookups(idxs, None, n)
-    rows = dout.reshape(dout.shape[0], -1)
+    p_order, p_ptrs = ref.transposed_lookups(idxs, None, n)
+    require(torch.equal(order, p_order) and torch.equal(ptrs, p_ptrs),
+            f"the transposition kernel's order and ptrs differ from the "
+            f"argsort path's ({g} ids into {n} rows)")
+    got = kops.block_gather_backward(dout, idxs, n)
+    parent = _parent_gather_backward(rows, idxs, n)
+    require(torch.equal(got, parent), f"the gather backward ({g} ids into "
+            f"{n} rows of {emb} {dout.dtype}) is not the parent "
+            "composition's bits")
+    variant = kernel_variant("sls", emb, dout.element_size(), True,
+                             num_segments=n, lookups=g, plain_sum=True)
+    summed = torch.empty((n, emb), dtype=dout.dtype, device=dout.device)
+    launch_variant(variant, rows, ptrs, order, summed)
+    plain_sum = ref.sls(rows, ptrs, order, num_segments=n)
+    what = f"the {variant} sum ({g} ids into {n} rows) vs ref.sls"
+    if dout.dtype == torch.float32:
+        err = check_close(summed, plain_sum, what, **TOL_SUM_F32)
+    else:
+        err = check_bf16(summed, plain_sum, what)["max_abs"]
+    ids64, offsets = order.long(), ptrs[:-1].long()
 
     def library():
         return torch.zeros((n, emb), dtype=dout.dtype,
                            device=dout.device).index_add_(
             0, idxs.long(), dout.view(-1, emb))
-    nbytes = (dout.numel() + n * emb) * dout.element_size() + \
-        idxs.numel() * 4
-    return {"ms": time_ms(lambda: kops.block_gather_backward(dout, idxs, n),
-                          iters),
-            "csr_ms": time_ms(lambda: kgather.transposed_lookups(
+
+    def out():
+        return torch.empty((n, emb), dtype=dout.dtype, device=dout.device)
+    size = dout.element_size()
+    ints = (g + n + 1) * 4
+    nbytes = (dout.numel() + n * emb) * size + g * 4
+    return {"ms": median_ms(lambda: kops.block_gather_backward(
+                dout, idxs, n), iters),
+            "transpose_ms": median_ms(lambda: kgather.transposed_lookups(
                 idxs, None, n), iters),
-            "sls_ms": time_ms(lambda: kops.sls(rows, ptrs, order,
-                                               num_segments=n), iters),
-            "index_add_ms": time_ms(library, iters),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "sum_ms": median_ms(lambda: launch_variant(
+                variant, rows, ptrs, order, out()), iters),
+            "parent_ms": median_ms(lambda: _parent_gather_backward(
+                rows, idxs, n), iters),
+            "csr_ms": median_ms(lambda: ref.transposed_lookups(
+                idxs, None, n), iters),
+            "sls_ms": median_ms(lambda: launch_variant(
+                "rows", rows, ptrs, order, out()), iters),
+            "plain_ms": median_ms(lambda: ref.block_gather_backward(
+                dout, idxs, n), iters),
+            "sum_plain_ms": median_ms(lambda: ref.sls(
+                rows, ptrs, order, num_segments=n), iters),
+            "index_add_ms": median_ms(library, iters),
+            "embedding_bag_ms": median_ms(lambda: F.embedding_bag(
+                ids64, rows, offsets, mode="sum"), iters),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "transpose_bound_ms": (g * 4 + ints) / HBM_BYTES_PER_S * 1e3,
+            "sum_bound_ms": ((g + n) * emb * size + ints) / HBM_BYTES_PER_S
+            * 1e3,
+            "sum_variant": variant, "sum_max_abs_err": err,
+            "ids": g, "rows": n, "distinct": int((ptrs[1:] > ptrs[:-1])
+                                                .sum()),
+            "hottest": int((ptrs[1:] - ptrs[:-1]).max())}
 
 
 def _parts_line(p: dict) -> str:
-    return (f"the wrapper {p['ms']:.4f} ms = the CSR transposition "
-            f"(argsort + bincount + cumsum) {p['csr_ms']:.4f} ms + the "
-            f"ember_sls launch {p['sls_ms']:.4f} ms; index_add_ "
-            f"{p['index_add_ms']:.4f} ms; bound {p['bound_ms']:.5f} ms "
-            f"(bytes)")
+    return (f"{p['ids']:,} ids into {p['rows']:,} rows ({p['distinct']:,} "
+            f"distinct, the hottest {p['hottest']:,} times): the wrapper "
+            f"{p['ms']:.4f} ms = the transposition kernel "
+            f"{p['transpose_ms']:.4f} ms (bound {p['transpose_bound_ms']:.5f}"
+            f") + the {p['sum_variant']} sum {p['sum_ms']:.4f} ms (bound "
+            f"{p['sum_bound_ms']:.5f}, "
+            f"{100 * p['sum_bound_ms'] / p['sum_ms']:.1f}% of it; vs "
+            f"ref.sls max abs err {p['sum_max_abs_err']:.3g}); "
+            f"bit-equal to the parent's composition {p['parent_ms']:.4f} ms "
+            f"= argsort + bincount + cumsum {p['csr_ms']:.4f} + sls_kernel "
+            f"{p['sls_ms']:.4f}; index_add_ {p['index_add_ms']:.4f} ms "
+            f"(the wrapper {p['index_add_ms'] / p['ms']:.2f}x as fast); "
+            f"F.embedding_bag over the CSR {p['embedding_bag_ms']:.4f} ms; "
+            f"plain {p['plain_ms']:.4f} ms (sum alone {p['sum_plain_ms']:.4f}"
+            f"); bound {p['bound_ms']:.5f} ms (bytes)")
 
 
 def _moe_training(seed: int, card: str) -> dict:
@@ -3919,12 +4098,20 @@ def _moe_training(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     counts = kops.backward_launch_counts()
     sls_launches = kops.launch_counts()["sls"]
-    # a step: each layer's un-dispatch and the token embedding's backward
+    sls_variants = kops.variant_launch_counts()["sls"]
+    # a step: each layer's un-dispatch (no more lookups than capacity
+    # slots: the sparse sum) and the token embedding's backward (4 x 256
+    # tokens into a 256-row vocabulary: the rows kernel)
+    undispatch = 3 * cfg.num_layers
     require(counts["block_gather_bwd"] == 3 * (cfg.num_layers + 1) and
             sls_launches == counts["block_gather_bwd"] and
+            counts["gather_transpose"] == counts["block_gather_bwd"] and
+            sls_variants == {"rows": 3, "sparse": undispatch} and
             all(np.isfinite(out["losses"])),
             f"MoE training: gather backward {counts['block_gather_bwd']}, "
-            f"ember_sls {sls_launches} launches, losses {out['losses']}")
+            f"transpositions {counts['gather_transpose']}, ember_sls "
+            f"{sls_launches} launches by variant {sls_variants}, losses "
+            f"{out['losses']}")
     seen = {}
 
     def capture(table, idxs, **kw):
@@ -3951,8 +4138,9 @@ def _moe_training(seed: int, card: str) -> dict:
           f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts, f32; "
           f"4 x 256 tokens) trained 3 steps on the card: losses "
           f"{[round(x, 4) for x in out['losses']]}; the un-dispatch gathers' "
-          f"and the token embedding's backward launched ember_sls "
-          f"{counts['block_gather_bwd']} times; "
+          f"and the token embedding's backward launched the transposition "
+          f"{counts['gather_transpose']} times and ember_sls "
+          f"{counts['block_gather_bwd']} times (by variant {sls_variants}); "
           f"one layer's ({tuple(dout.shape)} into {n} rows) vs index_add_ max "
           f"abs err {err:.3g}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes); "
@@ -3980,6 +4168,8 @@ def _moe_training(seed: int, card: str) -> dict:
           f"{DS_UNDISPATCH_DISTINCT:,} distinct; vs index_add_ in fp32 "
           f"{_bf16_summary(ds_agree)}): {_parts_line(ds_parts)}; {card}")
     result = {"gather_backward_launches": counts["block_gather_bwd"],
+              "gather_backward_transposes": counts["gather_transpose"],
+              "gather_backward_sparse": sls_variants["sparse"],
               "gather_backward_ms": ms, "gather_backward_plain_ms": plain_ms,
               "gather_backward_library_ms": library_ms,
               "gather_backward_bound_ms": bound_ms,
@@ -3996,6 +4186,61 @@ def _moe_training(seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 14: whisper-large-v3
 # ---------------------------------------------------------------------------
+
+def _gather_backward_kernels(sls: dict, training: dict, wt: dict) -> list:
+    """The gather backward's share of the kernels line: the rows variant's
+    backward launches (the reduced MoE's token embedding) onto ``sls``,
+    and the entries of the transposition kernel and the sparse sum, their
+    launches from the danube, reduced MoE and whisper trainings, their
+    times at danube's shape and the splits at all four shapes."""
+    moe = training.pop("gather")
+    splits = {"danube_embedding": training.pop("embedding_backward_split"),
+              "whisper_embedding": wt.pop("embedding_backward_split"),
+              "moe_undispatch": moe.pop("gather_backward_split"),
+              "deepseek_undispatch": moe.pop(
+                  "gather_backward_deepseek_split")}
+    bwd = {"danube": training.pop("embedding_backward_launches"),
+           "moe": moe.pop("gather_backward_launches"),
+           "whisper": wt.pop("sls_launches")}
+    transposes = {"danube": training.pop("embedding_backward_transposes"),
+                  "moe": moe.pop("gather_backward_transposes"),
+                  "whisper": wt.pop("transposes")}
+    sparse = {"danube": training.pop("embedding_backward_sparse"),
+              "moe": moe.pop("gather_backward_sparse"),
+              "whisper": wt.pop("sparse_launches")}
+    sls["gather_backward_launches"] = sum(bwd.values()) - \
+        sum(sparse.values())
+    sls["launches"] += sls["gather_backward_launches"]
+    danube = splits["danube_embedding"]
+    transpose = {
+        "name": "gather_transpose", "route": "cuda",
+        "source": "src/repro_torch/csrc/ember_transpose.cu",
+        "replaces": "src/repro/kernels/gather.py:32 (the lookups' "
+                    "transposition in the gradient of block_gather_pallas, "
+                    "jax.grad of jnp.take)",
+        "launches": sum(transposes.values()),
+        "launches_by_training": transposes, "max_abs_err": 0.0,
+        "ms": danube["transpose_ms"], "plain_ms": danube["csr_ms"],
+        "bound_ms": danube["transpose_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "held_against_plain": True,
+        "by_shape": {k: {f: v[f] for f in ("transpose_ms", "csr_ms",
+                                           "transpose_bound_ms")}
+                     for k, v in splits.items()}}
+    summed = {
+        "name": "sls_sparse", "route": "cuda",
+        "source": "src/repro_torch/csrc/ember_kernels.cu",
+        "replaces": "src/repro/kernels/sls.py:67",
+        "variant": "sparse: sls_sparse_plan_kernel + sls_sparse_kernel",
+        "launches": sum(sparse.values()), "launches_by_training": sparse,
+        "max_abs_err": max(v["sum_max_abs_err"] for v in splits.values()),
+        "ms": danube["sum_ms"], "plain_ms": danube["sum_plain_ms"],
+        "bound_ms": danube["sum_bound_ms"], "bound_by": "bytes",
+        "library_ms": danube["embedding_bag_ms"],
+        "library": "F.embedding_bag(mode='sum') over the same CSR",
+        "held_against_plain": True, "backward_by_shape": splits}
+    summed.update(moe)
+    return [transpose, summed]
+
 
 def _whisper_prefill_flops(cfg, b: int, s: int) -> float:
     """The work of one whisper prefill over b x s tokens and as many frames:
@@ -4236,6 +4481,7 @@ def _whisper_training(seed: int, card: str) -> dict:
     counts = kops.backward_launch_counts()
     fwd = kops.launch_counts()
     variants = kops.variant_launch_counts()["flash_attention_bwd"]
+    sls_variants = kops.variant_launch_counts()["sls"]
     bwd_instances = dict(kops.flash_attention_bwd_cuda.instances)
     fwd_instances = dict(kops.flash_attention_cuda.instances)
     steps = WHISPER_TRAIN_STEPS
@@ -4248,10 +4494,14 @@ def _whisper_training(seed: int, card: str) -> dict:
             f"whisper training: flash {fwd['flash_attention']} forward, "
             f"{counts['flash_attention_bwd']} backward launches ({variants})"
             f" in {steps} steps, expected {n_attn} a step, all wgmma")
-    require(counts["block_gather_bwd"] == steps and fwd["sls"] == steps,
+    require(counts["block_gather_bwd"] == steps and fwd["sls"] == steps and
+            counts["gather_transpose"] == steps and
+            sls_variants == {"rows": 0, "sparse": steps},
             f"whisper training: the token embedding's backward ran "
             f"{counts['block_gather_bwd']} times ({fwd['sls']} ember_sls "
-            f"launches) in {steps} steps, expected one a step")
+            f"launches by variant {sls_variants}, "
+            f"{counts['gather_transpose']} transpositions) in {steps} steps, "
+            f"expected one a step on the transposition and the sparse sum")
     lm = trainer.lm
     final = {k: p.detach().clone() for k, p in lm.named_parameters()}
     # every parameter reached; the encoder's layer 0 (the first attention
@@ -4319,7 +4569,8 @@ def _whisper_training(seed: int, card: str) -> dict:
           f"{WHISPER_FRAMES / mean_ms * 1e3:.0f} tokens/s; peak device memory "
           f"{peak_gib:.2f} GiB; flash {fwd['flash_attention']} forward and "
           f"{counts['flash_attention_bwd']} backward launches ({variants}); "
-          f"ember_sls {fwd['sls']} launches (the token embedding's "
+          f"the transposition {counts['gather_transpose']} and ember_sls "
+          f"{fwd['sls']} launches ({sls_variants}; the token embedding's "
           f"backward, one a step); every parameter got a nonzero gradient; "
           f"{card}")
     print(f"[14 whisper step profile] {busy}; host own time of a step "
@@ -4328,7 +4579,8 @@ def _whisper_training(seed: int, card: str) -> dict:
           f"S={s_}, H={h_}, D={d_}, not causal, bf16) vs plain_backward: "
           f"{_bf16_summary(chk_agree)}; two calls bit-equal; wgmma kernels "
           f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention's backward (forward subtracted) "
+          f"scaled_dot_product_attention's backward alone on a kept graph "
+          f"(median of {sdpa.get('no_mask_reps')}) "
           f"{sdpa_ms if isinstance(sdpa_ms, str) else f'{sdpa_ms:.4f} ms'}; "
           f"bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s,"
           f" by {bound_by}; {100 * bound_ms / bwd_ms:.2f}% of its bound); "
@@ -4341,6 +4593,8 @@ def _whisper_training(seed: int, card: str) -> dict:
             "bwd_launches": counts["flash_attention_bwd"],
             "bwd_instances": bwd_instances,
             "sls_launches": fwd["sls"],
+            "transposes": counts["gather_transpose"],
+            "sparse_launches": sls_variants["sparse"],
             "step_ms": mean_ms,
             "tokens_per_s": WHISPER_FRAMES / mean_ms * 1e3,
             "peak_gib": peak_gib, "bwd_ms": bwd_ms,
@@ -4461,6 +4715,7 @@ def main(argv=None) -> int:
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     phase_sweep(args.seed)
+    phase_sweep_transpose(args.seed)
     phase_sweep_fusedmm(args.seed)
     phase_sweep_flash(args.seed)
     phase_stress_flash(args.seed)
@@ -4533,16 +4788,6 @@ def main(argv=None) -> int:
             gather["launches"] += gather[f"{key}_serving_launches"]
         flash.update(run)
     training = later["13"]
-    moe = training.pop("gather")
-    sls = next(k for k in kernels if k["name"] == "sls")
-    sls["gather_backward_launches"] = moe.pop("gather_backward_launches")
-    sls["launches"] += sls["gather_backward_launches"]
-    sls.update(moe)
-    sls["danube_embedding_backward_launches"] = training.pop(
-        "embedding_backward_launches")
-    sls["launches"] += sls["danube_embedding_backward_launches"]
-    sls["danube_embedding_backward_split"] = training.pop(
-        "embedding_backward_split")
     flash["training_launches"] = training.pop("training_forward_launches")
     flash["launches"] += flash["training_launches"]
     instances.update(training.pop("training_forward_instances"))
@@ -4560,10 +4805,8 @@ def main(argv=None) -> int:
     flash["whisper_training_launches"] = wt.pop("flash_launches")
     flash["launches"] += flash["whisper_training_launches"]
     instances.update(wt.pop("flash_instances"))
-    sls["whisper_embedding_backward_launches"] = wt.pop("sls_launches")
-    sls["launches"] += sls["whisper_embedding_backward_launches"]
-    sls["whisper_embedding_backward_split"] = wt.pop(
-        "embedding_backward_split")
+    kernels.extend(_gather_backward_kernels(
+        next(k for k in kernels if k["name"] == "sls"), training, wt))
     training["danube_launches"] = training["launches"]
     training["whisper_launches"] = wt.pop("bwd_launches")
     training["launches"] += training["whisper_launches"]

@@ -62,6 +62,34 @@
 //   * Gather, rows variant (other widths, unaligned tables): a grid-stride
 //     copy of whole rows with no compute; four independent 16-byte loads
 //     are issued before their stores; a repeated block is read again.
+//   * SLS, sparse variant (ember_sls_sparse: an unweighted sum, no
+//     seg_base, rows of whole 16-byte vectors, no more lookups than
+//     segments -- the block gather's backward over its transposed lookups,
+//     where most of the table's rows get no lookup, a Zipf head gets
+//     hundreds and the next ranks tens).  The kernel above gives each
+//     (segment, 32-vector tile) a warp whose ptrs -> idxs -> row chain an
+//     empty row pays before storing its zeros, and walks a hot row's
+//     lookups a few loads deep.  Here a plan pass sorts the segments into
+//     lists by length, and persistent warps take, longest work first:
+//     - each hot segment (more than kSparseWarm lookups) in column slices
+//       of 32 four-byte units, one a lane, kSparseDepth lookups in flight,
+//       the rows of the round after next prefetched into L2: the hottest
+//       row is the critical path, as many rounds as its lookups / 32;
+//     - each warm segment (up to kSparseWarm) by 32-vector column tile,
+//       its lookups walked kSparseAhead rows at a time, their indices from
+//       a window the lanes load together;
+//     - each batch of up to kSparseSegs segments that holds a cold one (up
+//       to kSparseCold lookups), by tile, its cold segments' lookups walked
+//       in order across segment boundaries the same way: a Zipf stream's
+//       low ids are its frequent ones, so without the lists the first
+//       batches would walk hundreds of lookups each;
+//     - every batch's empty segments' zeros, by tile, which wait on
+//       nothing but the batch's ptrs load and keep HBM's write stream full
+//       while the items above wait on their loads.
+//     A warp takes its next item from a queue (one atomic an item), so the
+//     warps that drew long items take fewer zero items.  Every element is
+//     still summed from 0 in fp32 in lookup order and rounded once: the
+//     bits of sls_kernel on the same CSR.
 //   * Row offsets are computed in 64 bits: a stacked table can hold more than
 //     2^31 elements.
 //
@@ -92,6 +120,7 @@ using ember::set_smem;
 using ember::smem_u32;
 using ember::to_float;
 using ember::valid_block;
+using ember::Vec16;
 
 constexpr int kAddSum = 0;
 constexpr int kAddMax = 1;
@@ -559,6 +588,480 @@ gather_bulk_kernel(const uint8_t* __restrict__ table,
   bulk_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// SLS, sparse variant: an unweighted sum over mostly empty segments
+// ---------------------------------------------------------------------------
+
+constexpr int kSparseThreads = 256;
+constexpr int kSparseCold = 4;      // a cold segment's lookups, at most
+constexpr int kSparseWarm = 32;     // a warm segment's lookups, at most
+constexpr int kSparseHotter = 256;  // past this, the first hot list
+constexpr int kSparseDepth = 32;    // a hot slice's lookups in flight
+constexpr int kSparseAhead = 8;     // a walk's lookups in flight
+constexpr int kSparseSegs = 32;     // segments of a batch, at most
+
+template <typename T> struct SparseUnits;
+
+template <> struct SparseUnits<float> {
+  static constexpr int kVec = 4;   // elements of a 16-byte vector
+  static constexpr int kUnit = 1;  // elements of a 4-byte unit
+  __device__ __forceinline__ static void add_vec(float* acc, uint4 r) {
+    acc[0] += __uint_as_float(r.x);
+    acc[1] += __uint_as_float(r.y);
+    acc[2] += __uint_as_float(r.z);
+    acc[3] += __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static void add_unit(float* acc, uint32_t r) {
+    acc[0] += __uint_as_float(r);
+  }
+  __device__ __forceinline__ static uint32_t pack_unit(const float* acc) {
+    return __float_as_uint(acc[0]);
+  }
+};
+
+template <> struct SparseUnits<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr int kUnit = 2;
+  __device__ __forceinline__ static void add_unit(float* acc, uint32_t r) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+    acc[0] += f.x;
+    acc[1] += f.y;
+  }
+  __device__ __forceinline__ static void add_vec(float* acc, uint4 r) {
+    add_unit(acc, r.x);
+    add_unit(acc + 2, r.y);
+    add_unit(acc + 4, r.z);
+    add_unit(acc + 6, r.w);
+  }
+  __device__ __forceinline__ static uint32_t pack_unit(const float* acc) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(acc[0], acc[1]);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+};
+
+// The plan's lists, each in any order (every entry's rows are summed by
+// its own work items, so the order moves no bit): 0, hot segments of more
+// than kSparseHotter lookups; 1, hot segments of more than kSparseWarm; 2,
+// warm segments (more than kSparseCold); 3, the batches holding a cold
+// segment (seg: the batch's index).  Their items run in this order, so the
+// longest start first.
+constexpr int kLists = 4;
+
+__host__ __device__ constexpr int list_floor(int list) {
+  return list == 0 ? kSparseHotter : list == 1 ? kSparseWarm : kSparseCold;
+}
+
+struct __align__(16) SparseEntry {
+  int seg;
+  int beg;
+  int end;
+  int pad;
+};
+
+// The plan, carved from the caller's scratch: the lists' counts and the
+// work queue's next item (32 bytes), then list i of cap[i] entries.
+struct SparsePlan {
+  int* count;
+  unsigned int* next;
+  SparseEntry* list[kLists];
+  long long cap[kLists];
+  long long bytes;
+};
+
+inline SparsePlan sparse_plan(void* scratch, long long num_segments,
+                              long long lookups) {
+  SparsePlan h{};
+  const uintptr_t base = reinterpret_cast<uintptr_t>(scratch);
+  h.count = reinterpret_cast<int*>(base);
+  h.next = reinterpret_cast<unsigned int*>(base) + kLists;
+  long long off = 32;
+  for (int i = 0; i < kLists; ++i) {
+    const long long most =
+        i < kLists - 1 ? lookups / (list_floor(i) + 1) : lookups;
+    h.cap[i] = std::max(0LL, std::min(num_segments, most));
+    h.list[i] = reinterpret_cast<SparseEntry*>(base + (uintptr_t)off);
+    off += 16 * h.cap[i];
+  }
+  h.bytes = off;
+  return h;
+}
+
+// Appends the lanes' entries (where want) to list i with one atomic a warp.
+__device__ __forceinline__ void plan_append(const SparsePlan& h, int i,
+                                            bool want, SparseEntry e) {
+  const unsigned int mask = __ballot_sync(kFull, want);
+  if (mask == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(h.count + i, __popc(mask));
+  base = __shfl_sync(kFull, base, leader);
+  const long long at = base + __popc(mask & ((1u << lane) - 1u));
+  if (want && at < h.cap[i]) h.list[i][at] = e;
+}
+
+// One thread a segment: the hot and warm segments into lists 0-2, and the
+// batches of seg_per_batch segments (a power of two up to 32, so a batch
+// lies in one warp) that hold a cold segment into list 3.
+__global__ void __launch_bounds__(kSparseThreads)
+sls_sparse_plan_kernel(const int* __restrict__ ptrs, long long num_segments,
+                       int seg_per_batch, SparsePlan h) {
+  const long long s = (long long)blockIdx.x * kSparseThreads + threadIdx.x;
+  const int beg = s < num_segments ? __ldg(ptrs + s) : 0;
+  const int end = s < num_segments ? __ldg(ptrs + s + 1) : 0;
+  const int len = end - beg;
+  const SparseEntry e{(int)s, beg, end, 0};
+#pragma unroll
+  for (int i = 0; i < kLists - 1; ++i) {
+    plan_append(h, i, len > list_floor(i) &&
+                      (i == 0 || len <= list_floor(i - 1)), e);
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned int cold =
+      __ballot_sync(kFull, len > 0 && len <= kSparseCold);
+  const unsigned int batch =
+      seg_per_batch == 32 ? kFull : (1u << seg_per_batch) - 1u;
+  plan_append(h, kLists - 1,
+              lane % seg_per_batch == 0 && ((cold >> lane) & batch) != 0u,
+              SparseEntry{(int)(s / seg_per_batch), 0, 0, 0});
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// A hot segment's column slice of 32 four-byte units, one a lane (128
+// bytes of each row): its lookups in rounds of kSparseDepth loads in
+// flight, summed in lookup order.  A round's loads would wait on HBM
+// behind the zero stores, so the rows of the round after next are
+// prefetched into L2 (lane l the line of lookup l) and the indices of the
+// round after that loaded, each after the round's own loads are issued:
+// nothing the round waits on was asked for in it.
+template <typename T>
+__device__ __forceinline__ void sparse_hot_slice(
+    const T* __restrict__ table, const int* __restrict__ idxs,
+    T* __restrict__ out, SparseEntry h, long long slice, long long row_units) {
+  using U = SparseUnits<T>;
+  const int lane = threadIdx.x & 31;
+  const long long c = slice * 32 + lane;
+  const bool ok = c < row_units;
+  const uint32_t* __restrict__ line =
+      reinterpret_cast<const uint32_t*>(table) + slice * 32;
+  // every load is issued unconditionally (an idle lane of the last slice
+  // reads the row's last unit, a lookup past the end repeats the last
+  // one): a load under a condition makes the compiler wait for it before
+  // the next is issued
+  const uint32_t* __restrict__ src =
+      reinterpret_cast<const uint32_t*>(table) + (ok ? c : row_units - 1);
+  float acc[U::kUnit];
+#pragma unroll
+  for (int i = 0; i < U::kUnit; ++i) acc[i] = 0.0f;
+  // lane l holds the l-th lookup of this round (gl), of the next (g1) and
+  // of the one after (g2)
+  static_assert(kSparseDepth == 32, "a round's lookups, one a lane");
+  auto index = [&](int q) { return __ldg(idxs + min(q, h.end - 1)); };
+  auto prefetch = [&](int g) {
+    prefetch_l2(line + (long long)g * row_units);
+  };
+  int gl = index(h.beg + lane);
+  int g1 = index(h.beg + kSparseDepth + lane);
+  int g2 = index(h.beg + 2 * kSparseDepth + lane);
+  prefetch(g1);
+  for (int p = h.beg; p < h.end; p += kSparseDepth) {
+    const int n = min(kSparseDepth, h.end - p);
+    uint32_t v[kSparseDepth];
+#pragma unroll
+    for (int d = 0; d < kSparseDepth; ++d) {
+      v[d] = __ldg(src + (long long)__shfl_sync(kFull, gl, d) * row_units);
+    }
+    prefetch(g2);
+    gl = g1;
+    g1 = g2;
+    g2 = index(p + 3 * kSparseDepth + lane);
+#pragma unroll
+    for (int d = 0; d < kSparseDepth; ++d) {
+      if (d < n) U::add_unit(acc, v[d]);
+    }
+  }
+  if (ok) {
+    reinterpret_cast<uint32_t*>(out)[(long long)h.seg * row_units + c] =
+        U::pack_unit(acc);
+  }
+}
+
+// The walk of sparse_batch_item: the cold segments (bit s of cold: segment
+// s of the item, its lookups [pl, nxt) of lane s) summed into dst's rows.
+template <typename T>
+__device__ __forceinline__ void sparse_cold_walk(
+    const T* __restrict__ table, const int* __restrict__ idxs,
+    T* __restrict__ dst, long long emb_len, bool ok, long long col, int pl,
+    int nxt, int pend, unsigned int cold) {
+  using U = SparseUnits<T>;
+  constexpr int kW = U::kVec;
+  const int lane = threadIdx.x & 31;
+  int seg = __ffs(cold) - 1;
+  cold &= cold - 1u;
+  int p = __shfl_sync(kFull, pl, seg);
+  int seg_end = __shfl_sync(kFull, nxt, seg);
+  int wbase = p;  // the window: lane l holds idxs[wbase + l]
+  int gw = __ldg(idxs + p + min(lane, pend - 1 - p));
+  // every row load is issued unconditionally (an idle lane reads the row's
+  // last vector, an empty slot the group's first row again): a load under a
+  // condition makes the compiler wait for it before the next is issued
+  const T* __restrict__ rows = table + (ok ? col : emb_len - kW);
+  float acc[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc[k] = 0.0f;
+  int cur = seg;
+  bool more = true;
+  while (more) {
+    int sg[kSparseAhead];
+    int g[kSparseAhead];
+    bool valid[kSparseAhead];
+    bool outside = false;  // a slot past the window (a skipped segment)
+    int mine = 0;          // lane u: slot u's position
+#pragma unroll
+    for (int u = 0; u < kSparseAhead; ++u) {
+      if (p == seg_end && cold != 0u) {  // the next cold segment
+        seg = __ffs(cold) - 1;
+        cold &= cold - 1u;
+        p = __shfl_sync(kFull, pl, seg);
+        seg_end = __shfl_sync(kFull, nxt, seg);
+      }
+      valid[u] = p < seg_end;
+      sg[u] = seg;
+      const int j = p - wbase;
+      g[u] = __shfl_sync(kFull, gw, j & 31);
+      outside |= valid[u] && (j < 0 || j >= 32);
+      if (lane == u) mine = p;
+      if (valid[u]) ++p;
+    }
+    if (!valid[0]) break;
+    if (outside) {  // rare: the slots' indices loaded one a lane
+      const int q = __ldg(idxs + min(mine, pend - 1));
+#pragma unroll
+      for (int u = 0; u < kSparseAhead; ++u) {
+        g[u] = __shfl_sync(kFull, q, u);
+      }
+    }
+#pragma unroll
+    for (int u = 1; u < kSparseAhead; ++u) {
+      if (!valid[u]) g[u] = g[0];
+    }
+    more = valid[kSparseAhead - 1];
+    if (more && p - wbase >= 32 - kSparseAhead) {  // slide the window
+      wbase = p;
+      gw = __ldg(idxs + p + min(lane, pend - 1 - p));
+    }
+    uint4 r[kSparseAhead];
+#pragma unroll
+    for (int u = 0; u < kSparseAhead; ++u) {
+      r[u] = __ldg(reinterpret_cast<const uint4*>(
+          rows + (long long)g[u] * emb_len));
+    }
+#pragma unroll
+    for (int u = 0; u < kSparseAhead; ++u) {
+      if (valid[u]) {
+        if (sg[u] != cur) {
+          if (ok) Vec16<T>::store(dst + cur * emb_len, acc);
+#pragma unroll
+          for (int k = 0; k < kW; ++k) acc[k] = 0.0f;
+          cur = sg[u];
+        }
+        U::add_vec(acc, r[u]);
+      }
+    }
+  }
+  if (ok) Vec16<T>::store(dst + cur * emb_len, acc);
+}
+
+// A batch item: the segments [s0, s0 + ns), from the item's one ptrs load.
+// WALK: in one column tile of 32 16-byte vectors (one a lane), the cold
+// nonempty segments' lookups walked in order (sparse_cold_walk), hot
+// segments skipped, each segment summed from 0 in fp32 and stored once.
+// Else, in that tile, the empty segments' zeros, which wait on no other
+// load: a warp that takes such an item keeps the store stream full while
+// others wait on their loads.
+template <typename T, bool WALK>
+__device__ __forceinline__ void sparse_batch_item(
+    const T* __restrict__ table, const int* __restrict__ ptrs,
+    const int* __restrict__ idxs, T* __restrict__ out, long long s0, int ns,
+    long long tile, long long row_vecs) {
+  constexpr int kW = SparseUnits<T>::kVec;
+  const int lane = threadIdx.x & 31;
+  const long long emb_len = row_vecs * kW;
+  const long long cv = tile * 32 + lane;
+  const bool ok = cv < row_vecs;
+  const long long col = cv * kW;
+  // lane l holds ptrs[s0 + l] (l <= ns); pend = ptrs[s0 + ns]
+  const int pl = __ldg(ptrs + s0 + min(lane, ns));
+  const int pend = __ldg(ptrs + s0 + ns);
+  int nxt = __shfl_down_sync(kFull, pl, 1);
+  if (lane == 31) nxt = pend;
+  const int len = lane < ns ? nxt - pl : 0;
+  T* __restrict__ dst = out + s0 * emb_len + col;
+  if constexpr (WALK) {
+    const unsigned int cold =
+        __ballot_sync(kFull, len > 0 && len <= kSparseCold);
+    if (cold != 0u) {
+      sparse_cold_walk<T>(table, idxs, dst, emb_len, ok, col, pl, nxt, pend,
+                          cold);
+    }
+  } else {
+    for (unsigned int m = __ballot_sync(kFull, lane < ns && len == 0);
+         m != 0u; m &= m - 1u) {
+      if (ok) {
+        *reinterpret_cast<uint4*>(dst + (__ffs(m) - 1) * emb_len) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+}
+
+// Persistent warps over the work items, in order: the hot lists' slices,
+// the warm segments' walks and the listed batches' walks, then every
+// batch's zeros, the last three by 32-vector column tile.
+template <typename T>
+__global__ void __launch_bounds__(kSparseThreads)
+sls_sparse_kernel(const T* __restrict__ table, const int* __restrict__ ptrs,
+                  const int* __restrict__ idxs, T* __restrict__ out,
+                  SparsePlan h, long long num_segments, long long row_vecs,
+                  int tiles, int seg_per_batch, long long batches) {
+  static_assert(kLists == 4, "the lists' items are told apart below");
+  const long long row_units = row_vecs * 4;
+  const long long slices = (row_units + 31) / 32;
+  long long listed[kLists];
+#pragma unroll
+  for (int i = 0; i < kLists; ++i) {
+    listed[i] = min((long long)__ldg(h.count + i), h.cap[i]);
+  }
+  const long long end0 = listed[0] * slices;
+  const long long end1 = end0 + listed[1] * slices;
+  const long long walk0 = end1 + listed[2] * tiles;
+  const long long zero0 = walk0 + listed[3] * tiles;
+  const long long items = zero0 + batches * tiles;
+  // Warp w of block b starts with item w * gridDim.x + b (neighbouring
+  // items, a hot segment's slices, on different SMs, whose memory pipes
+  // each keep only so many loads in flight), then takes the queue's next
+  // item whenever it is done with one (asked for before the current one
+  // runs): the warps that drew a hot slice take fewer zero items.
+  const long long warps = ((long long)gridDim.x * kSparseThreads) >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long emb_len = row_vecs * SparseUnits<T>::kVec;
+  long long item = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  while (item < items) {
+    const long long ahead =
+        lane == 0 ? warps + (long long)atomicAdd(h.next, 1u) : 0LL;
+    if (item < end1) {
+      const bool first = item < end0;
+      const long long k = item - (first ? 0 : end0);
+      const int4* list = reinterpret_cast<const int4*>(h.list[first ? 0 : 1]);
+      const int4 e = __ldg(list + k / slices);
+      sparse_hot_slice<T>(table, idxs, out, SparseEntry{e.x, e.y, e.z, 0},
+                          k % slices, row_units);
+    } else if (item < walk0) {
+      const long long k = item - end1;
+      const int4 e =
+          __ldg(reinterpret_cast<const int4*>(h.list[2]) + k / tiles);
+      const long long cv = (k % tiles) * 32 + lane;
+      const long long col = cv * SparseUnits<T>::kVec;
+      sparse_cold_walk<T>(table, idxs, out + (long long)e.x * emb_len + col,
+                          emb_len, cv < row_vecs, col, e.y, e.z, e.z, 1u);
+    } else if (item < zero0) {
+      const long long k = item - walk0;
+      const long long s0 =
+          (long long)__ldg(&h.list[3][k / tiles].seg) * seg_per_batch;
+      sparse_batch_item<T, true>(
+          table, ptrs, idxs, out, s0,
+          (int)min((long long)seg_per_batch, num_segments - s0), k % tiles,
+          row_vecs);
+    } else {
+      const long long z = item - zero0;
+      const long long s0 = (z / tiles) * seg_per_batch;
+      sparse_batch_item<T, false>(
+          table, ptrs, idxs, out, s0,
+          (int)min((long long)seg_per_batch, num_segments - s0), z % tiles,
+          row_vecs);
+    }
+    item = __shfl_sync(kFull, ahead, 0);
+  }
+}
+
+// Resident blocks of a kernel on the current device, looked up once a
+// device.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, long long* blocks) {
+  static int cached[64] = {0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    int sms = 0;
+    int per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+    if (err != cudaSuccess) return err;
+    cached[device] = sms * std::max(per_sm, 1);
+  }
+  *blocks = cached[device];
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_sls_sparse(const void* table, const int* ptrs, const int* idxs,
+                      void* out, void* scratch, long long num_segments,
+                      long long emb_len, long long lookups,
+                      cudaStream_t s) {
+  constexpr int kW = SparseUnits<T>::kVec;
+  if (emb_len % kW != 0) return (int)cudaErrorInvalidValue;
+  const long long row_vecs = emb_len / kW;
+  const long long tiles_ll = (row_vecs + 31) / 32;
+  if (tiles_ll > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int tiles = (int)tiles_ll;
+  auto kernel = sls_sparse_kernel<T>;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kernel, kSparseThreads, &resident);
+  if (err != cudaSuccess) return (int)err;
+  // fewer segments a batch while the batches' walks would not fill the
+  // card twice over
+  int seg_per_batch = kSparseSegs;
+  const long long per_block = kSparseThreads / 32;
+  const long long warps = resident * per_block;
+  while (seg_per_batch > 1 &&
+         (num_segments + seg_per_batch - 1) / seg_per_batch * tiles <
+             2 * warps) {
+    seg_per_batch /= 2;
+  }
+  const long long batches =
+      (num_segments + seg_per_batch - 1) / seg_per_batch;
+  const SparsePlan h = sparse_plan(scratch, num_segments, lookups);
+  const long long slices = (row_vecs * 4 + 31) / 32;
+  const long long most = (h.cap[0] + h.cap[1]) * slices +
+                         (h.cap[2] + h.cap[3]) * tiles + batches * tiles;
+  if (most + warps > 0xffffffffLL) {  // the queue's counter
+    return (int)cudaErrorInvalidValue;
+  }
+  err = cudaMemsetAsync(h.count, 0, 32, s);
+  if (err != cudaSuccess) return (int)err;
+  sls_sparse_plan_kernel<<<(unsigned int)((num_segments + kSparseThreads -
+                                            1) / kSparseThreads),
+                           kSparseThreads, 0, s>>>(ptrs, num_segments,
+                                                   seg_per_batch, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // enough warps for every item, at most the resident ones
+  const long long blocks =
+      std::max(1LL, std::min(resident, (most + per_block - 1) / per_block));
+  kernel<<<(unsigned int)blocks, kSparseThreads, 0, s>>>(
+      static_cast<const T*>(table), ptrs, idxs, static_cast<T*>(out), h,
+      num_segments, row_vecs, tiles, seg_per_batch, batches);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* ember_error_string(int err) {
@@ -607,6 +1110,39 @@ extern "C" int ember_sls(const void* table, const void* ptrs,
                               block, s);
   }
   return (int)cudaGetLastError();
+}
+
+// Bytes of the sparse variant's scratch (the hot segments' list).
+extern "C" long long ember_sls_sparse_scratch_bytes(long long num_segments,
+                                                    long long lookups) {
+  if (num_segments <= 0 || lookups < 0) return 0;
+  return sparse_plan(nullptr, num_segments, lookups).bytes;
+}
+
+// ember_sls's sparse variant: out[b] = sum over p in [ptrs[b], ptrs[b+1])
+// of table[idxs[p]], unweighted, no seg_base, each segment summed in fp32
+// in p order and rounded once (ember_sls's bits on the same CSR).  Rows of
+// whole 16-byte vectors; table and out 16-byte aligned; lookups: the length
+// of idxs; scratch: ember_sls_sparse_scratch_bytes bytes, 16-byte aligned.
+extern "C" int ember_sls_sparse(const void* table, const void* ptrs,
+                                const void* idxs, void* out, void* scratch,
+                                long long num_segments, long long emb_len,
+                                long long lookups, int dtype, void* stream) {
+  if (num_segments <= 0 || num_segments >= 0x7fffffffLL || emb_len <= 0 ||
+      lookups < 0 || (dtype != 0 && dtype != 1) || table == nullptr ||
+      ptrs == nullptr || out == nullptr || scratch == nullptr ||
+      ((uintptr_t)table | (uintptr_t)out | (uintptr_t)scratch) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(ptrs);
+  const int* ids = static_cast<const int*>(idxs);
+  if (dtype == 0) {
+    return launch_sls_sparse<float>(table, p, ids, out, scratch,
+                                    num_segments, emb_len, lookups, s);
+  }
+  return launch_sls_sparse<__nv_bfloat16>(table, p, ids, out, scratch,
+                                          num_segments, emb_len, lookups, s);
 }
 
 // The block gather, rows variant.  unit_bytes: 16 (uint4 vectors), 4 or 2

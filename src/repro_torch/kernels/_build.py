@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "ember_kernels.cu", CSRC / "ember_fusedmm.cu",
            CSRC / "ember_flash_attention.cu",
-           CSRC / "ember_flash_backward.cu")
+           CSRC / "ember_flash_backward.cu", CSRC / "ember_transpose.cu")
 HEADERS = (CSRC / "ember_common.cuh", CSRC / "ember_hopper.cuh",
            CSRC / "ember_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,6 +41,15 @@ _SIGNATURES = {
     # dtype, add_op, mul_op, vec, threads_per_row, rows_per_block, stream
     "ember_sls": (_P, _P, _P, _P, _P, _P, _I64, _I64,
                   _I32, _I32, _I32, _I32, _I32, _I32, _P),
+    # num_segments, lookups -> bytes of the sparse variant's scratch
+    "ember_sls_sparse_scratch_bytes": (_I64, _I64),
+    # table, ptrs, idxs, out, scratch, num_segments, emb_len, lookups,
+    # dtype, stream
+    "ember_sls_sparse": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    # num_lookups -> bytes of the transposition's scratch
+    "ember_transpose_scratch_bytes": (_I64,),
+    # idxs, roff, order, ptrs, scratch, num_lookups, n_tbl, stream
+    "ember_transpose": (_P, _P, _P, _P, _P, _I64, _I64, _P),
     # table, idxs, roff, out, num_blocks, block_rows, row_bytes,
     # unit_bytes, threads_per_row, rows_per_block, stream
     "ember_block_gather": (_P, _P, _P, _P, _I64, _I64, _I64,
@@ -76,7 +85,9 @@ _SIGNATURES = {
 }
 
 #: entry points that return something other than a cudaError_t
-_RESTYPES = {"ember_gather_scratch_bytes": _I64}
+_RESTYPES = {"ember_gather_scratch_bytes": _I64,
+             "ember_sls_sparse_scratch_bytes": _I64,
+             "ember_transpose_scratch_bytes": _I64}
 
 
 @dataclasses.dataclass(frozen=True)

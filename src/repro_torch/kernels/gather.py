@@ -21,11 +21,13 @@ pass ("group").
 
 The gradient (the reference takes it with ``jax.grad`` of ``jnp.take``) is
 a scatter-add, ``dtable[r] = sum over g with idxs[g] = r of dout[g]``: a
-segmented sum over the transposed lookups -- a stable sort of the block
-ids, segment offsets from a bincount over the table's blocks -- which the
-existing ``ember_sls`` kernel runs (:func:`block_gather_backward`).
-:class:`BlockGather` pairs the two; :func:`block_gather`
-(``kernels.ops.block_gather``) takes it where the table needs a gradient.
+segmented sum over the transposed lookups (:func:`block_gather_backward`).
+:func:`transposed_lookups` sorts the lookups stably by block id on the card
+(``ember_transpose``, ``csrc/ember_transpose.cu``) and ``ember_sls`` sums
+each block's segment in that order (its sparse variant where the table has
+no fewer blocks than there are lookups).  :class:`BlockGather` pairs the
+two; :func:`block_gather` (``kernels.ops.block_gather``) takes it where the
+table needs a gradient.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .sls import (aligned16, check_index, check_table, kernel_variant,
-                  one_device, refuse_autograd, row_tile, sls_cuda)
+from .sls import (DTYPES, aligned16, check_index, check_table, kernel_variant,
+                  launch_on, launch_variant as launch_sls, one_device,
+                  refuse_autograd, row_tile)
 
 
 def block_gather_cuda(table: torch.Tensor, idxs: torch.Tensor, *,
@@ -122,12 +125,12 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
 
     CPU tensors run the plain ``index_add_``
     (:func:`repro_torch.kernels.ref.block_gather_backward`).  On the card
-    the lookups are transposed into CSR -- g sorted stably by block id
-    ``idxs[g] + roff[g]``, offsets from a bincount over the table's
-    ``num_rows / block_rows`` blocks -- and ``ember_sls`` sums each block's
-    segment of dout rows (``block_rows * E`` wide), in the sorted order:
-    deterministic.  ``block_gather_backward.launches`` counts the
-    ``ember_sls`` launches it made (none where there is nothing to sum)."""
+    the lookups are transposed into CSR over the table's ``num_rows /
+    block_rows`` blocks (:func:`transposed_lookups`) and ``ember_sls`` sums
+    each block's segment of dout rows (``block_rows * E`` wide), in the
+    sorted order: deterministic.  ``block_gather_backward.launches`` counts
+    the ``ember_sls`` launches it made (none where there is nothing to
+    sum: no lookups, or rows of width 0)."""
     check_index("idxs", idxs)
     if roff is not None:
         check_index("roff", roff, idxs.numel())
@@ -142,12 +145,21 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
         return ref.block_gather_backward(dout, idxs, num_rows,
                                          block_rows=block_rows, roff=roff)
     emb_len = dout.shape[2]
+    if num_blocks == 0 or emb_len == 0:
+        return torch.zeros((num_rows, emb_len), dtype=dout.dtype, device=dev)
+    if dout.dtype not in DTYPES:
+        raise ValueError(f"dout must be float32 or bfloat16, got {dout.dtype}")
+    refuse_autograd("ember_sls", dout)
     n_tbl = num_rows // block_rows
     order, ptrs = transposed_lookups(idxs, roff, n_tbl)
     rows = dout.reshape(num_blocks, block_rows * emb_len).contiguous()
-    before = sls_cuda.launches
-    out = sls_cuda(rows, ptrs, order, num_segments=n_tbl)
-    block_gather_backward.launches += sls_cuda.launches - before
+    out = torch.empty((n_tbl, block_rows * emb_len), dtype=dout.dtype,
+                      device=dev)
+    launch_sls(kernel_variant("sls", rows.shape[1], rows.element_size(),
+                              aligned16(rows, out), num_segments=n_tbl,
+                              lookups=num_blocks, plain_sum=True),
+               rows, ptrs, order, out)
+    block_gather_backward.launches += 1
     return out.view(num_rows, emb_len)
 
 
@@ -158,15 +170,42 @@ def transposed_lookups(idxs: torch.Tensor, roff: Optional[torch.Tensor],
                        n_tbl: int) -> tuple:
     """The lookups as CSR over the table's ``n_tbl`` blocks, for
     :func:`block_gather_backward`: ``(order, ptrs)``, the lookups sorted
-    stably by block id ``idxs[g] + roff[g]`` (int32) and each block's
-    segment offsets, from a bincount (int32, ``n_tbl + 1``)."""
-    blk = idxs.to(torch.int64)
+    stably by block id ``idxs[g] + roff[g]`` (int32, G) and each block's
+    segment offsets (int32, ``n_tbl + 1``).  Block ids must lie in ``[0,
+    n_tbl)``.
+
+    CPU tensors run the plain version (:func:`ref.transposed_lookups`: a
+    stable argsort, a bincount and a cumsum).  On the card one
+    ``ember_transpose`` call (a stable radix sort of the block ids, then
+    ``ptrs`` by lower bound) writes the same two tensors, or raises;
+    ``transposed_lookups.launches`` counts those calls (none for G = 0)."""
+    check_index("idxs", idxs)
+    num_lookups = idxs.numel()
     if roff is not None:
-        blk = blk + roff.to(torch.int64)
-    order = torch.argsort(blk, stable=True).to(torch.int32)
-    ptrs = torch.zeros(n_tbl + 1, dtype=torch.int32, device=idxs.device)
-    torch.cumsum(torch.bincount(blk, minlength=n_tbl), 0, out=ptrs[1:])
+        check_index("roff", roff, num_lookups)
+    dev = one_device(idxs, roff)
+    if dev.type == "cpu":
+        return ref.transposed_lookups(idxs, roff, n_tbl)
+    if num_lookups == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros(n_tbl + 1, dtype=torch.int32, device=dev))
+    lib = _build.library()
+    # one allocation: order, ptrs, then the kernel's scratch (16-byte
+    # aligned: a whole number of 4-int units before it)
+    head = -(-(num_lookups + n_tbl + 1) // 4) * 4
+    buf = torch.empty(head + lib.ember_transpose_scratch_bytes(num_lookups)
+                      // 4, dtype=torch.int32, device=dev)
+    order, ptrs = buf[:num_lookups], buf[num_lookups:num_lookups + n_tbl + 1]
+    err = launch_on(dev, lambda stream: lib.ember_transpose(
+        idxs.data_ptr(), None if roff is None else roff.data_ptr(),
+        order.data_ptr(), ptrs.data_ptr(), buf.data_ptr() + 4 * head,
+        num_lookups, n_tbl, stream))
+    _build.check(err, "ember_transpose")
+    transposed_lookups.launches += 1
     return order, ptrs
+
+
+transposed_lookups.launches = 0
 
 
 class BlockGather(torch.autograd.Function):

@@ -10,7 +10,8 @@ from . import ref
 from .flash_attention import (flash_attention, flash_attention_bwd_cuda,
                               flash_attention_cuda)
 from .fusedmm import fusedmm_cuda
-from .gather import block_gather, block_gather_backward, block_gather_cuda
+from .gather import (block_gather, block_gather_backward, block_gather_cuda,
+                     transposed_lookups)
 from .sls import sls_cuda
 
 #: the wrappers dispatch on the tensors' device themselves; the gather and
@@ -22,9 +23,11 @@ attention = flash_attention
 _WRAPPERS = {"sls": sls_cuda, "block_gather": block_gather_cuda,
              "fusedmm": fusedmm_cuda, "flash_attention": flash_attention_cuda}
 #: the backward wrappers: the flash backward kernels, and the block
-#: gather's gradient on ``ember_sls`` (whose launches ``sls`` counts too)
+#: gather's gradient: its lookups' transposition and its ``ember_sls``
+#: launch (which ``sls`` counts too)
 _BACKWARD = {"flash_attention_bwd": flash_attention_bwd_cuda,
-             "block_gather_bwd": block_gather_backward}
+             "block_gather_bwd": block_gather_backward,
+             "gather_transpose": transposed_lookups}
 
 
 def launch_counts() -> dict:
@@ -39,8 +42,9 @@ def backward_launch_counts() -> dict:
 
 def variant_launch_counts() -> dict:
     """Launches so far of each variant of the kernels that have variants
-    (``block_gather``: bulk, its grouping pass, rows; ``fusedmm``: ring,
-    rows; ``flash_attention_bwd``: wgmma, simt)."""
+    (``sls``: rows, sparse; ``block_gather``: bulk, its grouping pass,
+    rows; ``fusedmm``: ring, rows; ``flash_attention_bwd``: wgmma,
+    simt)."""
     return {name: dict(w.variants)
             for name, w in {**_WRAPPERS, **_BACKWARD}.items()
             if hasattr(w, "variants")}

@@ -82,6 +82,21 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
     return out.to(dout.dtype)
 
 
+def transposed_lookups(idxs: torch.Tensor, roff: Optional[torch.Tensor],
+                       n_tbl: int) -> tuple:
+    """The block gather's lookups as CSR over the table's ``n_tbl`` blocks:
+    ``(order, ptrs)``, the lookups sorted stably by block id ``idxs[g] +
+    roff[g]`` (int32) and each block's segment offsets, from a bincount
+    (int32, ``n_tbl + 1``)."""
+    blk = idxs.to(torch.int64)
+    if roff is not None:
+        blk = blk + roff.to(torch.int64)
+    order = torch.argsort(blk, stable=True).to(torch.int32)
+    ptrs = torch.zeros(n_tbl + 1, dtype=torch.int32, device=idxs.device)
+    torch.cumsum(torch.bincount(blk, minlength=n_tbl), 0, out=ptrs[1:])
+    return order, ptrs
+
+
 def fusedmm(x: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor, *,
             num_segments: int, fn: str = "identity",
             first_segment: int = 0) -> torch.Tensor:

@@ -5,8 +5,18 @@
 The wrapper checks its arguments, allocates the output, and launches on the
 current CUDA stream.  A call whose tensors lie on the CPU runs the plain
 version (:func:`repro_torch.kernels.ref.sls`) instead; a CUDA call launches
-the kernel or raises -- nothing falls back.  ``sls_cuda.launches`` counts the
-kernel launches.
+the kernel or raises -- nothing falls back.  Two variants, chosen from the
+shapes by :func:`kernel_variant`:
+
+* ``rows`` (``ember_sls``: ``sls_kernel``): every semiring, weights and
+  ``seg_base``; a thread group per (segment, column tile);
+* ``sparse`` (``ember_sls_sparse``): the unweighted sum without
+  ``seg_base`` on rows of whole 16-byte units when there are no more
+  lookups than segments -- the block gather's backward over its transposed
+  lookups, mostly empty rows and a few hot ones.  Same bits as ``rows``.
+
+``sls_cuda.launches`` counts the kernel launches, ``sls_cuda.variants``
+those of each variant.
 """
 from __future__ import annotations
 
@@ -56,16 +66,20 @@ FUSEDMM_RING_MIN_ROW_BYTES = 1040
 
 
 def kernel_variant(kind: str, emb_len: int, itemsize: int,
-                   aligned: bool) -> str:
+                   aligned: bool, *, num_segments: int = 0,
+                   lookups: int = 0, plain_sum: bool = False) -> str:
     """Which kernel of a row-streaming ``kind`` runs rows of ``emb_len``
     elements of ``itemsize`` bytes: the bulk-copy variant when a row is
     whole 16-byte units and the operands are 16-byte aligned, as
     ``cp.async.bulk`` needs (``block_gather``: "bulk"; ``fusedmm``: "ring",
     for rows of :data:`FUSEDMM_RING_MIN_ROW_BYTES` to
-    :data:`FUSEDMM_RING_MAX_ROW_BYTES`); else "rows", the per-thread row
-    kernels that :func:`row_tile` shapes.  The one place the variant is
-    decided, from the shapes, before the launch: a wrapper never switches
-    variant after a build or launch error."""
+    :data:`FUSEDMM_RING_MAX_ROW_BYTES`); ``sls``: "sparse" for a
+    ``plain_sum`` (unweighted add, no ``seg_base``) on such rows with no
+    more ``lookups`` (the length of idxs) than ``num_segments``, most of
+    them then empty; else "rows", the per-thread row kernels that
+    :func:`row_tile` shapes.  The one place the variant is decided, from
+    the shapes, before the launch: a wrapper never switches variant after a
+    build or launch error."""
     row_bytes = emb_len * itemsize
     bulk = aligned and row_bytes % 16 == 0
     if kind == "block_gather":
@@ -73,6 +87,9 @@ def kernel_variant(kind: str, emb_len: int, itemsize: int,
     if kind == "fusedmm":
         return ("ring" if bulk and FUSEDMM_RING_MIN_ROW_BYTES <= row_bytes
                 <= FUSEDMM_RING_MAX_ROW_BYTES else "rows")
+    if kind == "sls":
+        return ("sparse" if bulk and plain_sum and lookups <= num_segments
+                else "rows")
     raise ValueError(f"no kernel variants for {kind!r}")
 
 
@@ -109,6 +126,18 @@ def refuse_autograd(what: str, *tensors) -> None:
             f"{what} was called under autograd on tensors that require a "
             "gradient; its output would carry none: call it through "
             "repro_torch.kernels.ops (its torch.autograd.Function)")
+
+
+def launch_on(dev: torch.device, launch):
+    """``launch(stream)`` with ``dev`` the current device and ``stream`` the
+    raw handle of its current stream: directly where ``dev`` is current
+    already (the common case; entering ``torch.cuda.device`` costs more
+    host time than a small kernel takes), else inside ``torch.cuda.device``.
+    Returns what ``launch`` returns."""
+    if torch.cuda.current_device() == dev.index:
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def one_device(*tensors) -> torch.device:
@@ -156,19 +185,57 @@ def sls_cuda(table: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor,
     out = torch.empty((num_segments, emb_len), dtype=table.dtype, device=dev)
     if num_segments == 0 or emb_len == 0:
         return out
-    tile = row_tile(emb_len, table.element_size(), aligned16(table, out))
-    with torch.cuda.device(dev):
-        err = _build.library().ember_sls(
+    variant = kernel_variant(
+        "sls", emb_len, table.element_size(), aligned16(table, out),
+        num_segments=num_segments, lookups=idxs.numel(),
+        plain_sum=weights is None and seg_base is None and add_op == "add")
+    launch_variant(variant, table, ptrs, idxs, out, weights,
+                   add_op=add_op, mul_op=mul_op, seg_base=seg_base)
+    return out
+
+
+def launch_variant(variant: str, table: torch.Tensor, ptrs: torch.Tensor,
+                   idxs: torch.Tensor, out: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None, *,
+                   add_op: str = "add", mul_op: str = "mul",
+                   seg_base: Optional[torch.Tensor] = None) -> None:
+    """Launch the SLS ``variant`` ("rows" or "sparse") into ``out``
+    (num_segments, E) on the current stream, and count it.  The one launch
+    path of :func:`sls_cuda`, which has checked the arguments and chosen
+    the variant; called directly only to time one variant against the
+    other on the same inputs.  Raises on a build or launch error, and on
+    the sparse variant of anything but an unweighted sum without
+    ``seg_base``."""
+    num_segments, emb_len = out.shape
+    itemsize = table.element_size()
+    lib = _build.library()
+    if variant == "rows":
+        tile = row_tile(emb_len, itemsize, aligned16(table, out))
+        err = launch_on(out.device, lambda stream: lib.ember_sls(
             table.data_ptr(), ptrs.data_ptr(), idxs.data_ptr(),
             None if weights is None else weights.data_ptr(),
             None if seg_base is None else seg_base.data_ptr(),
             out.data_ptr(), num_segments, emb_len, DTYPES[table.dtype],
             ADD_OPS[add_op], MUL_OPS[mul_op], int(tile.elems > 1),
-            tile.threads_per_row, tile.rows_per_block,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ember_sls")
+            tile.threads_per_row, tile.rows_per_block, stream))
+    elif variant == "sparse":
+        if weights is not None or seg_base is not None or add_op != "add":
+            raise ValueError("the sparse SLS variant sums unweighted rows "
+                             "without seg_base")
+        lookups = idxs.numel()
+        scratch = torch.empty(
+            lib.ember_sls_sparse_scratch_bytes(num_segments, lookups),
+            dtype=torch.uint8, device=out.device)
+        err = launch_on(out.device, lambda stream: lib.ember_sls_sparse(
+            table.data_ptr(), ptrs.data_ptr(), idxs.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), num_segments, emb_len,
+            lookups, DTYPES[table.dtype], stream))
+    else:
+        raise ValueError(f"no sls variant {variant!r}")
+    _build.check(err, f"ember_sls ({variant})")
     sls_cuda.launches += 1
-    return out
+    sls_cuda.variants[variant] += 1
 
 
 sls_cuda.launches = 0
+sls_cuda.variants = {"rows": 0, "sparse": 0}

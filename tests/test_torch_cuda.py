@@ -1547,7 +1547,10 @@ def test_block_gather_backward_on_sls_matches_index_add(cuda, dtype,
                                      block_rows=block_rows, roff=roff)
     torch.cuda.synchronize()
     assert kops.backward_launch_counts()["block_gather_bwd"] == 1
+    assert kops.backward_launch_counts()["gather_transpose"] == 1
     assert kops.launch_counts()["sls"] == 1
+    # 300 lookups into 50 blocks: more lookups than segments, the rows kernel
+    assert kops.variant_launch_counts()["sls"] == {"rows": 1, "sparse": 0}
     want = ref.block_gather_backward(dout, idxs, n_blocks * block_rows,
                                      block_rows=block_rows, roff=roff)
     if dtype == torch.float32:
@@ -1557,6 +1560,142 @@ def test_block_gather_backward_on_sls_matches_index_add(cuda, dtype,
     again = kops.block_gather_backward(dout, idxs, n_blocks * block_rows,
                                        block_rows=block_rows, roff=roff)
     assert torch.equal(got, again)
+
+
+def _block_ids(rng, kind, n_tbl, g):
+    """g block ids below n_tbl: one id repeated (padding or EOS), all
+    distinct, the last id among uniform ones, a Zipf(1.1) head."""
+    if kind == "hot":
+        return np.full(g, min(7, n_tbl - 1), np.int32)
+    if kind == "distinct":
+        return rng.permutation(n_tbl)[:g].astype(np.int32)
+    if kind == "last":
+        ids = rng.integers(0, n_tbl, g)
+        ids[::3] = n_tbl - 1
+        return ids.astype(np.int32)
+    return (np.minimum(rng.zipf(1.1, g), n_tbl) - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,n_tbl,g,with_roff", [
+    ("hot", 50, 300, False), ("hot", 32000, 8192, False),
+    ("distinct", 5000, 5000, False), ("last", 1000, 777, False),
+    ("zipf", 32000, 8192, False), ("zipf", 51968, 1500, False),
+    ("zipf", 2568, 2048, True), ("last", 9, 1, False), ("hot", 12, 0, False),
+    ("zipf", 256, 4000, False),                 # one radix pass
+    ("zipf", 262144, 8192, False),              # three passes, one block
+    ("last", 70000, 8193, True),                # the tiled passes
+    ("hot", 122944, 98304, False), ("zipf", 122944, 98304, False),
+    ("distinct", 160000, 98304, True),
+])
+def test_transposition_kernel_equals_the_argsort_path(cuda, kind, n_tbl, g,
+                                                      with_roff):
+    """ember_transpose's order and ptrs are the stable argsort + bincount
+    path's, element for element, on the streams a token stream produces,
+    at every size class of the kernel (one block of 2 to 8 items a thread,
+    tiled passes past 8,192) and one to three radix passes."""
+    from repro_torch.kernels.gather import transposed_lookups
+    rng = np.random.default_rng(g + n_tbl)
+    roff = None
+    span = n_tbl
+    if with_roff:
+        span = n_tbl - n_tbl // 3
+        roff = torch.from_numpy(rng.integers(0, n_tbl // 3, g).astype(
+            np.int32)).to(cuda)
+    idxs = torch.from_numpy(_block_ids(rng, kind, span, g)).to(cuda)
+    kops.reset_launch_counts()
+    order, ptrs = transposed_lookups(idxs, roff, n_tbl)
+    torch.cuda.synchronize()
+    assert kops.backward_launch_counts()["gather_transpose"] == (g > 0)
+    want_order, want_ptrs = ref.transposed_lookups(idxs, roff, n_tbl)
+    assert torch.equal(order, want_order)
+    assert torch.equal(ptrs, want_ptrs)
+
+
+def _parent_backward(dout, idxs, num_rows, block_rows, roff):
+    """The block gather's backward as the parent commit composed it: the
+    argsort transposition and one launch of sls_kernel (the rows
+    variant)."""
+    from repro_torch.kernels.sls import launch_variant
+    g, _, emb = dout.shape
+    n_tbl = num_rows // block_rows
+    order, ptrs = ref.transposed_lookups(idxs, roff, n_tbl)
+    rows = dout.reshape(g, block_rows * emb).contiguous()
+    out = torch.empty((n_tbl, block_rows * emb), dtype=dout.dtype,
+                      device=dout.device)
+    launch_variant("rows", rows, ptrs, order, out)
+    return out.view(num_rows, emb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("emb", [5, 64, 2048, 2560])
+@pytest.mark.parametrize("block_rows", [1, 4])
+@pytest.mark.parametrize("with_roff", [False, True])
+@pytest.mark.parametrize("stream", ["sparse", "hot", "dense"])
+def test_block_gather_backward_equals_the_parent_composition(
+        cuda, dtype, emb, block_rows, with_roff, stream):
+    """The backward through the transposition kernel and the SLS variant
+    kernel_variant picks is torch.equal to the argsort path plus
+    sls_kernel: a Zipf stream over more blocks than lookups (the sparse
+    variant where rows are whole 16-byte units), a hot id over as many, and
+    more lookups than blocks (the rows kernel)."""
+    from repro_torch.kernels.sls import kernel_variant
+    rng = np.random.default_rng(emb + block_rows + 7 * with_roff)
+    n_tbl, g = {"sparse": (600, 400), "hot": (600, 600),
+                "dense": (50, 300)}[stream]
+    span = n_tbl - n_tbl // 3 if with_roff else n_tbl
+    idxs = _block_ids(rng, "zipf" if stream != "hot" else "hot", span, g)
+    if stream == "hot":
+        idxs[::4] = rng.integers(0, span, len(idxs[::4]))
+    roff = torch.from_numpy(rng.integers(0, n_tbl // 3, g).astype(
+        np.int32)).to(cuda) if with_roff else None
+    idxs = torch.from_numpy(idxs).to(cuda)
+    dout = torch.from_numpy(rng.standard_normal((g, block_rows, emb))
+                            .astype(np.float32)).to(cuda, dtype)
+    num_rows = n_tbl * block_rows
+    kops.reset_launch_counts()
+    got = kops.block_gather_backward(dout, idxs, num_rows,
+                                     block_rows=block_rows, roff=roff)
+    torch.cuda.synchronize()
+    variant = kernel_variant("sls", block_rows * emb, dout.element_size(),
+                             True, num_segments=n_tbl, lookups=g,
+                             plain_sum=True)
+    want_variants = {"rows": 0, "sparse": 0}
+    want_variants[variant] = 1
+    assert kops.variant_launch_counts()["sls"] == want_variants
+    assert kops.backward_launch_counts()["gather_transpose"] == 1
+    assert torch.equal(got, _parent_backward(dout, idxs, num_rows,
+                                             block_rows, roff))
+
+
+def test_block_gather_backward_gives_one_result_over_twenty_calls(cuda):
+    """A hot Zipf head at danube's token embedding width, bf16: twenty
+    calls, one result, the parent composition's."""
+    rng = np.random.default_rng(20)
+    n_tbl, g = 32000, 8192
+    idxs = torch.from_numpy(_block_ids(rng, "zipf", n_tbl, g)).to(cuda)
+    dout = torch.from_numpy(rng.standard_normal((g, 1, 2560)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    first = kops.block_gather_backward(dout, idxs, n_tbl)
+    for _ in range(19):
+        assert torch.equal(kops.block_gather_backward(dout, idxs, n_tbl),
+                           first)
+    assert torch.equal(first, _parent_backward(dout, idxs, n_tbl, 1, None))
+
+
+def test_sparse_sls_variant_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.sls import launch_variant
+    table = torch.randn((8, 16), device=cuda)
+    ptrs = torch.tensor([0, 2, 2, 4], dtype=torch.int32, device=cuda)
+    idxs = torch.tensor([1, 3, 0, 7], dtype=torch.int32, device=cuda)
+    out = torch.empty((3, 16), device=cuda)
+    with pytest.raises(ValueError, match="sparse"):
+        launch_variant("sparse", table, ptrs, idxs, out,
+                       torch.ones(4, device=cuda))
+    with pytest.raises(RuntimeError, match="ember_sls"):   # 20-byte rows
+        launch_variant("sparse", torch.randn((8, 5), device=cuda), ptrs,
+                       idxs, torch.empty((3, 5), device=cuda))
+    launch_variant("sparse", table, ptrs, idxs, out)
+    assert torch.equal(out, ref.sls(table, ptrs, idxs, num_segments=3))
 
 
 def test_block_gather_function_gives_the_table_its_gradient(cuda):

@@ -174,8 +174,10 @@ def test_cpu_tensors_never_launch_kernels():
     assert tops.launch_counts() == {"sls": 0, "block_gather": 0,
                                     "fusedmm": 0, "flash_attention": 0}
     assert tops.backward_launch_counts() == {"flash_attention_bwd": 0,
-                                             "block_gather_bwd": 0}
+                                             "block_gather_bwd": 0,
+                                             "gather_transpose": 0}
     assert tops.variant_launch_counts() == {
+        "sls": {"rows": 0, "sparse": 0},
         "block_gather": {"bulk": 0, "group": 0, "rows": 0},
         "fusedmm": {"ring": 0, "rows": 0},
         "flash_attention_bwd": {"simt": 0, "wgmma": 0}}
@@ -277,7 +279,7 @@ def test_fusedmm_ring_starts_at_its_crossover(itemsize, units_past):
 def test_kernel_variant_of_a_kernel_without_variants_raises():
     from repro_torch.kernels.sls import kernel_variant
     with pytest.raises(ValueError, match="variants"):
-        kernel_variant("sls", 128, 4, True)
+        kernel_variant("flash_attention", 128, 4, True)
 
 
 @pytest.mark.parametrize("causal", [True, False])
