@@ -5,6 +5,7 @@
     python3 chip_smoke.py --llava-only [--seed N]   # phase 12 alone
     python3 chip_smoke.py --training-only [--seed N]   # phase 13 alone
     python3 chip_smoke.py --whisper-only [--seed N]    # phase 14 alone
+    python3 chip_smoke.py --zamba2-only [--seed N]     # phase 15 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -27,8 +28,9 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    Zipf ids, both variants; FusedMM: identity/relu, f32/bf16,
    E=5/8/64/100/128/520/1024, empty segments and segments longer than the
    ring, zero segments, both variants; flash attention: causal or not, GQA
-   groups 1/4/16, (q/k, v) widths (64, 64), (80, 80), (128, 128),
-   (192, 128) and (256, 256), S=256, a ragged 200 and 200 queries over 328
+   groups 1/4/16, (q/k, v) widths (64, 64), (80, 80), (112, 112), (128,
+   128), (192, 128) and (256, 256), S=256, a ragged 200 and 200 queries
+   over 328
    keys, f32/bf16, then sliding windows of 1, 100, 128, 129, 1024 and
    Sq - 1 keys at widths 80, 128 and 256 over 1300 keys and 200 queries
    over 328, where a window of Sk or more must give the bits of none;
@@ -39,7 +41,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    transposition kernel's order and ptrs equal to the argsort path's, the
    backward bit-equal to the parent's composition (argsort path +
    ``sls_kernel``), the bf16 flash kernel over 300
-   causal cases of few-key rows (the five width pairs, with no window and
+   causal cases of few-key rows (the six width pairs, with no window and
    windows of 1, 100, 128 and 129), and a small mixed program through the
    executor against the repo's numpy oracle (``program_reference``);
 4. DLRM-DCNv2's sparse arch (26 SLS tables, dim 128, 2048 samples a step,
@@ -200,12 +202,37 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``plain_backward``, a nonzero gradient for every parameter; step ms,
    tokens/s, busy share, peak memory, the embedding's backward timed apart
    as in phase 13;
-15. one JSON line listing the kernels with the kernel (variant) that
+15. zamba2-7b (``phase_zamba2``; ``--zamba2-only`` runs it alone after the
+   build): 81 layers at full width (68 ``mamba``, 13 ``shared_attn``
+   sharing one attention and MLP set; d_model 3584, 32 heads of 112,
+   ssm_state 64; bf16, random weights).  Prefill: 4 x 4096 tokens through
+   ``LM.prefill``, 13 flash launches at (112, 112) (the (128, 128) kernel
+   on zero-padded columns), each held against the plain version, the last
+   hidden state against plain attention (``PREFILL_REL_L2``), a planted
+   fault (the first shared layer's attention with its scale left out)
+   required above that bound and to fail its layer's check; the device
+   time by class (GEMMs, flash, the SSD scan, elementwise; torch.profiler)
+   and one layer's SSD scan timed alone; the shared layer's flash time
+   beside its bound and SDPA (each backend).  Serving: 8 requests of 256
+   or 320 prompt tokens, 32 new tokens each, closed batch, through
+   ``DecodeServer(batch_slots=8, max_len=512, prefill_chunk=16,
+   pipeline=True)``'s captured waves: every request ok, the gather once a
+   wave, ``prefill_chunk=1`` the same tokens and bit-identical logits,
+   graph == eager in lockstep (logits and every cache leaf, the mamba
+   state and conv window included); tokens/s, a captured micro-step's
+   device ms against its weight bound, its device operations.  Forward
+   == decode: each prompt's last-token logits from the chunked forward
+   against the captured decode replay's within
+   ``ZAMBA_FWD_DECODE_REL_L2``, which two planted decode faults (a mamba
+   layer's decay skipped, another's conv window shifted by one) must
+   exceed;
+16. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
    llava-next-34b prefills, the training steps and whisper's prefill,
-   served micro-steps and training steps, with flash's
+   served micro-steps and training steps, and zamba2-7b's prefill and
+   served waves, with flash's
    ``instances``: the launches by dtype, widths, causal and window; sls's
    DLRM's and the gather backwards' that ran ``sls_kernel``), the flash
    backward (``flash_attention_bwd``, its launches by instance: danube's
@@ -213,7 +240,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    (``gather_transpose``) and sparse sum (``sls_sparse``), each with its
    launches in the danube, reduced MoE and whisper trainings and its
    times at the four shapes, error, times and bounds;
-16. ``{"ok": true, "device": {...}}`` as the last line.
+17. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -346,14 +373,17 @@ TRAIN_GRAD_REL_L2 = 5e-2
 # start attends to a few keys, where a p rounded to the other side of a
 # bf16 step (scores summed in another order) moves the output the most
 FLASH_STRESS_CASES = 300
-FLASH_STRESS_DIMS = ((128, 128), (64, 64), (80, 80), (192, 128), (256, 256))
+FLASH_STRESS_DIMS = ((128, 128), (64, 64), (80, 80), (192, 128), (256, 256),
+                     (112, 112))
 # the windows the stress cases cycle through (None: causal only); at 200
 # keys a window of 1024 masks nothing, so the sweep takes 1024 at 1300
 FLASH_STRESS_WINDOWS = (None, 1, 100, 128, 129)
 # the flash kernel's (q/k width, v width) pairs, and its bf16 wgmma
-# instantiations: 4 pairs ((80, 80) runs (128, 128)) x causal or not; the
-# (192, 128) and (256, 256) ones by their mangled template arguments
-FLASH_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
+# instantiations: 4 pairs ((80, 80) and (112, 112) run (128, 128)) x causal
+# or not; the (192, 128) and (256, 256) ones by their mangled template
+# arguments
+FLASH_DIMS = ((64, 64), (80, 80), (112, 112), (128, 128), (192, 128),
+              (256, 256))
 FLASH_WGMMA_KERNELS = 8
 FLASH_WIDE_INSTANCES = {"(192, 128)": "ILi192ELi128E",
                         "(256, 256)": "ILi256ELi256E"}
@@ -410,6 +440,38 @@ DS_UNDISPATCH_DISTINCT, DS_D_MODEL = 94_270, 2048
 WHISPER_BATCH, WHISPER_FRAMES = 8, 1500
 WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 60, 448
 WHISPER_TRAIN_STEPS = 3
+# zamba2-7b (phase 15): the prefill phases' 4 x 4096 tokens (13 shared_attn
+# launches at head dim 112); served: 8 requests of 256 or 320 prompt tokens
+# (multiples of 64, so the forward's pick_chunk keeps whole chunks) and 32
+# new tokens each in a closed batch, through the server settings of phase 8
+ZAMBA_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
+ZAMBA_REQUESTS, ZAMBA_NEW_TOKENS = 8, 32
+# zamba2-7b's random weights (the reference's init) make its 81-layer stack
+# chaotic in bf16: each mamba layer multiplies two projections (y * silu(z)),
+# so a bf16 step in one layer's output grows with depth. Two plain attentions
+# that differ only in their KV chunk move the last hidden state by 0.57
+# relative L2 at d_model 256 and full depth (a CPU probe).  On the H100
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6) the kernel read 0.274 against
+# plain attention there (every layer within check_bf16), plain attention over
+# 64- against 128-key chunks 0.257, and the first shared layer's attention
+# with its scale left out 1.213.  So, as for DeepSeek-V2-Lite, the last
+# hidden state is held to a fixed bound between the sound readings and that
+# fault, and the precise end-to-end check is the hidden state after the first
+# shared_attn layer (six layers in), within PREFILL_REL_L2 (the kernel
+# 0.00027 there, the fault 0.130)
+ZAMBA_PREFILL_REL_L2 = 0.6
+# forward == decode at full width (the reference's own invariant, its
+# test_recurrent_forward_matches_decode, which runs in f32): the chunked
+# forward's logits at each served prompt's last token against the captured
+# decode replay's there, relative L2 over the 8 x 32,000 logits.  In bf16 the
+# two paths round at other points (the SSD's fp32 chunk sums against a bf16
+# state stepped 256-320 times) and the chaos above makes the logits unrelated
+# at full depth (1.28 at d_model 256 on the CPU, 0.09 at 6 layers; 1.114 on
+# the H100): read, not held.  It is held on the same model in fp32, built
+# from the same seed after the bf16 one is freed, where two planted decode
+# faults must exceed the bound.  The first fp32 reading was 0.00329, the
+# faults 1.265 and 1.414; the bound is 6x that reading
+ZAMBA_FWD_DECODE_REL_L2 = 2e-2
 
 
 class CheckFailed(RuntimeError):
@@ -3016,13 +3078,16 @@ def _flash_layer_line(tag: str, what: str, q, k, t: dict, card: str) -> str:
 
 def _attention_layers(cfg) -> int:
     """Flash launches in one forward of ``cfg``: a decoder layer's
-    self-attention, an ``xdec`` layer's cross-attention besides, and each
-    encoder layer's."""
+    self-attention (every kind but ``mamba``), an ``xdec`` layer's
+    cross-attention besides, and each encoder layer's."""
     from repro_torch.models.lm import layer_kinds
-    return cfg.num_layers + layer_kinds(cfg).count("xdec") + cfg.enc_layers
+    kinds = layer_kinds(cfg)
+    return len(kinds) - kinds.count("mamba") + kinds.count("xdec") + \
+        cfg.enc_layers
 
 
-def _checked_prefill(model, tokens, what: str, fe=None, enc=None) -> dict:
+def _checked_prefill(model, tokens, what: str, fe=None, enc=None,
+                     bound: float = PREFILL_REL_L2) -> dict:
     """``LM.prefill`` on the card, as every prefill phase checks it: a
     warm-up, then the main path (launches and flash instances counted from
     0), more timed prefills and one under torch.profiler; one more through
@@ -3032,8 +3097,9 @@ def _checked_prefill(model, tokens, what: str, fe=None, enc=None) -> dict:
     and, where calls are not causal, the first before any causal one
     ("encoder") and the first after one ("cross"); and the last hidden
     state against a prefill with plain attention within
-    ``PREFILL_REL_L2``.  ``fe`` are a vision-stub model's frontend_embeds,
-    ``enc`` an encoder-decoder model's enc_embeds."""
+    ``bound`` (``PREFILL_REL_L2`` unless the model's depth amplifies a
+    rounding step past it: zamba2-7b).  ``fe`` are a vision-stub model's
+    frontend_embeds, ``enc`` an encoder-decoder model's enc_embeds."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.agreement import check_bf16
@@ -3085,10 +3151,10 @@ def _checked_prefill(model, tokens, what: str, fe=None, enc=None) -> dict:
         plain_last = model.prefill(tokens, fe, enc)
     diff = last.float() - plain_last.float()
     rel_l2 = float(diff.norm() / plain_last.float().norm())
-    require(rel_l2 <= PREFILL_REL_L2 and bool(torch.isfinite(diff).all()),
+    require(rel_l2 <= bound and bool(torch.isfinite(diff).all()),
             f"{what} prefill with the kernel vs plain attention: relative "
-            f"L2 {rel_l2:.3g} > {PREFILL_REL_L2}")
-    return {"last": last, "launches": launches, "instances": instances,
+            f"L2 {rel_l2:.3g} > {bound}")
+    return {"last": last, "bound": bound, "launches": launches, "instances": instances,
             "prefill_ms": prefill_ms, "dev": dev, "layers": layers,
             "profiled_ms": profiled[0],
             "per_layer": worst, "rel_l2": rel_l2,
@@ -3114,7 +3180,7 @@ def _prefill_line(tag: str, model, tokens, run: dict, extra: str,
             f"{run['attn_ms']:.2f} ms of it; every layer's kernel output == "
             f"plain on its own q, k, v ({_bf16_summary(run['per_layer'])}); "
             f"last hidden state == prefill with plain attention (relative L2 "
-            f"{run['rel_l2']:.3g}, tol {PREFILL_REL_L2})")
+            f"{run['rel_l2']:.3g}, tol {run['bound']})")
 
 
 def _window_crossing_drive(model, prompts, new_tokens: int,
@@ -4668,6 +4734,504 @@ def phase_whisper(seed: int, card: str) -> dict:
     return {"prefill": result, "serving": serving, "training": training}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: zamba2-7b (mamba + shared attention) prefilled and served
+# ---------------------------------------------------------------------------
+
+def _gemm_kernel(name: str) -> bool:
+    low = name.lower()
+    return any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def _prefill_classes(model, tokens) -> dict:
+    """One more prefill under torch.profiler, its device time split by
+    class: ``ssd`` (every kernel launched inside ``models.ssm._ssd_chunked``,
+    which runs here inside a record_function range: a kernel is matched to
+    its launch by the profiler's correlation id, and the launch to the
+    range by its host time), ``flash`` (the attention kernel), ``gemm``
+    (cuBLAS / CUTLASS products outside the SSD) and ``elementwise`` (the
+    rest: norms, the conv, the gates, casts, copies).  Returns ms by class
+    and the profiled prefill's wall ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ssm
+    inner = ssm._ssd_chunked
+
+    def ssd(*args, **kw):
+        with record_function("ssd_chunked"):
+            return inner(*args, **kw)
+    torch.cuda.synchronize()
+    with _OpSwap("_ssd_chunked", ssd, ssm), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = list(tp.profiler.kineto_results.events())
+    # the host's ranges (the device timeline carries a copy of each range
+    # as an annotation, later in time: neither a range nor a kernel here)
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in events if e.name() == "ssd_chunked"
+                    and e.device_type() == DeviceType.CPU)
+    starts = np.array([a for a, _ in ranges], np.int64)
+    ends = np.array([b for _, b in ranges], np.int64)
+
+    def in_ssd(t: int) -> bool:
+        i = int(np.searchsorted(starts, t, side="right")) - 1
+        return i >= 0 and t < ends[i]
+    launched_in_ssd = {e.correlation_id() for e in events
+                       if e.device_type() == DeviceType.CPU
+                       and e.name().startswith("cu")
+                       and e.correlation_id() and in_ssd(e.start_ns())}
+    ms = dict.fromkeys(("gemm", "flash", "ssd", "elementwise"), 0.0)
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 or \
+                e.name() == "ssd_chunked":
+            continue
+        if e.correlation_id() in launched_in_ssd:
+            kind = "ssd"
+        elif "flash" in e.name():
+            kind = "flash"
+        elif _gemm_kernel(e.name()):
+            kind = "gemm"
+        else:
+            kind = "elementwise"
+        ms[kind] += e.duration_ns() / 1e6
+    return {"ms": ms, "wall_ms": wall, "ssd_calls": len(ranges)}
+
+
+def _ssd_layer_ms(model, tokens) -> tuple:
+    """One mamba layer's SSD scan (``_ssd_chunked``) at the prefill's
+    shapes, timed alone by CUDA events on the inputs the first mamba layer
+    gave it, and the fp32 FLOP of its products."""
+    import torch
+    from repro_torch.models import ssm
+    seen = []
+    inner = ssm._ssd_chunked
+
+    def record(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return inner(*args, **kw)
+    with _OpSwap("_ssd_chunked", record, ssm):
+        model.prefill(tokens)
+    args, kw = seen[0]
+    x, chunk = args[0], args[5]
+    b, s, h, p = x.shape
+    n = args[3].shape[-1]
+    # the intra-chunk C.B^T, its weights times x, each chunk's state and
+    # the inter-chunk readout: 2 b s L h n + 2 b s L h p + 2 * 2 b s h p n
+    flops = 2 * b * s * chunk * h * (n + p) + 4 * b * s * h * p * n
+    ms = time_ms(lambda: inner(*args, **kw), 5, warmup=1)
+    del seen
+    torch.cuda.synchronize()
+    return ms, flops
+
+
+def _fwd_decode(model, srv, prompts) -> dict:
+    """Forward == decode at full width: each prompt's logits at its last
+    token from the chunked forward (``LM.forward``, prompts of one length
+    batched) against the logits the server's captured wave gives there when
+    it replays the prompts from zeroed caches (one wave of every prompt,
+    ragged, through the graphs).  Then the same replay with a planted
+    decode fault in one mamba layer (its parameters edited in place, which
+    the graphs read): the decay skipped (``A_log`` = -inf: exp(dt A) = 1)
+    in the middle mamba layer, and the conv window shifted by one (the taps
+    read one input earlier: ``conv_w`` = [w1, w2, w3, 0]) in the first.
+    Returns the relative L2 of each."""
+    import torch
+    from repro_torch.core import embedding_engine as ee
+    from repro_torch.models.lm import layer_kinds
+    cfg = model.cfg
+    lens = np.array([len(p) for p in prompts], np.int64)
+    toks = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    fwd = torch.empty((len(prompts), 1, cfg.vocab_size), device="cuda")
+    with torch.inference_mode():
+        for n in sorted(set(lens.tolist())):
+            rows = np.flatnonzero(lens == n)
+            hidden = model(torch.from_numpy(toks[rows, :n]).cuda())
+            fwd[torch.from_numpy(rows).cuda()] = ee.logits(
+                hidden[:, -1:], model.embed)[..., :cfg.vocab_size]
+    wave = srv._wave
+
+    def decode():
+        wave.reset_slots(srv.caches, np.zeros(len(prompts), bool))
+        logits, _ = wave(toks, lens, srv.caches)
+        return logits
+
+    def rel(x):
+        return float((x - fwd).norm() / fwd.norm())
+    out = {"rel_l2": rel(decode())}
+    mamba = [i for i, k in enumerate(layer_kinds(cfg)) if k == "mamba"]
+    mid, first = mamba[len(mamba) // 2], mamba[0]
+    faults = {f"layer {mid}'s decay skipped": (mid, "A_log", lambda w: (
+                  torch.full_like(w, float("-inf")))),
+              f"layer {first}'s conv window shifted by one": (
+                  first, "conv_w", lambda w: torch.cat(
+                      [w[1:], torch.zeros_like(w[:1])]))}
+    for name, (layer, key, edit) in faults.items():
+        param = model.blocks[layer].mamba[key]
+        saved = param.detach().clone()
+        with torch.no_grad():
+            param.copy_(edit(saved))
+        try:
+            out[name] = rel(decode())
+        finally:
+            with torch.no_grad():
+                param.copy_(saved)
+    again = rel(decode())
+    require(again == out["rel_l2"], "the replay after the planted faults "
+            f"differs from the first ({again} vs {out['rel_l2']})")
+    return out
+
+
+def _graph_kernel_count(srv) -> int:
+    """Device operations in one replay of the captured micro-step
+    (torch.profiler, device events only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    replay = srv._wave.graphs["micro-step"].replay
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        replay()
+        torch.cuda.synchronize()
+    return sum(1 for e in tp.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+
+
+def _first_shared_output(model):
+    """A forward hook on the first ``shared_attn`` layer keeping its output
+    hidden state: ``with _first_shared_output(model) as kept`` then
+    ``kept[-1]``."""
+    from repro_torch.models.lm import layer_kinds
+    layer = layer_kinds(model.cfg).index("shared_attn")
+
+    @contextlib.contextmanager
+    def hooked():
+        kept = []
+        h = model.blocks[layer].register_forward_hook(
+            lambda mod, args, out: kept.append(out[0].detach().clone()))
+        try:
+            yield kept
+        finally:
+            h.remove()
+    return hooked()
+
+
+def _rel(x, y) -> float:
+    return float((x.float() - y.float()).norm() / y.float().norm())
+
+
+def _zamba2_prefill_faults(model, tokens, run: dict) -> dict:
+    """The prefill's end-to-end checks beside ``_checked_prefill``'s: the
+    hidden state after the first shared_attn layer, kernel against plain
+    attention, within ``PREFILL_REL_L2``; the chaos floor (plain attention
+    over 128- against 64-key chunks, last hidden state); and the first
+    shared layer's attention planted wrong -- its scale left out (required
+    above both bounds and to fail check_bf16) and the padded width's scale
+    128^-1/2 (read)."""
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import bf16_agreement, check_bf16
+    def plain64(q, k, v, **kw):
+        return ref.attention(q, k, v, **{**kw, "chunk": 64})
+    with _first_shared_output(model) as kept:
+        model.prefill(tokens)
+        with _OpSwap("attention", plain_attention):
+            plain_last = model.prefill(tokens)
+        with _OpSwap("attention", plain64):
+            floor_last = model.prefill(tokens)
+    first_kernel, first_plain, first_64 = kept
+    out = {"first_rel_l2": _rel(first_kernel, first_plain),
+           "floor_first": _rel(first_64, first_plain),
+           "floor_last": _rel(floor_last, plain_last), "faults": {}}
+    require(out["first_rel_l2"] <= PREFILL_REL_L2,
+            f"zamba2-7b: the hidden state after the first shared layer, "
+            f"kernel vs plain attention: relative L2 "
+            f"{out['first_rel_l2']:.3g} > {PREFILL_REL_L2}")
+    q, k, v, kw = run["layers"]["global"]
+    want = plain_attention(q, k, v, **kw)
+    d = q.shape[-1]
+    for name, factor in (("scale left out", d ** 0.5),
+                         ("the padded width's scale 128^-1/2",
+                          (d / 128) ** 0.5)):
+        def faulted(q_, k_, v_, **kw_):
+            faulted.calls += 1
+            if faulted.calls == 1:
+                q_ = q_ * factor
+            return kops.flash_attention_cuda(q_, k_, v_, **kw_)
+        faulted.calls = 0
+        with _first_shared_output(model) as kept, \
+                _OpSwap("attention", faulted):
+            bad = model.prefill(tokens)
+        out["faults"][name] = {
+            "first": _rel(kept[0], first_plain),
+            "last": _rel(bad, plain_last),
+            "layer": bf16_agreement(kops.attention(q * factor, k, v, **kw),
+                                    want)}
+    caught = True
+    try:
+        check_bf16(kops.attention(q * d ** 0.5, k, v, **kw), want,
+                   "scale left out")
+        caught = False
+    except AssertionError:
+        pass
+    f = out["faults"]["scale left out"]
+    require(caught and f["first"] > PREFILL_REL_L2 and
+            f["last"] > run["bound"],
+            f"zamba2-7b: the first shared layer's attention with its scale "
+            f"left out: relative L2 {f['first']:.4g} after that layer (tol "
+            f"{PREFILL_REL_L2}), {f['last']:.4g} at the last hidden state "
+            f"(tol {run['bound']}); its layer check caught it: {caught}")
+    return out
+
+
+def phase_zamba2(seed: int, card: str) -> dict:
+    """zamba2-7b at full width and depth (81 layers: 68 ``mamba``, 13
+    ``shared_attn`` sharing one attention and MLP set; d_model 3584, 32
+    heads of 112, ssm_state 64, chunk 256; bf16, random weights from
+    ``seed``): the prefill over 4 x 4096 tokens (``_checked_prefill``: 13
+    flash launches at (112, 112), each held against the plain version;
+    the last hidden state within ``ZAMBA_PREFILL_REL_L2``), the hidden
+    state after the first shared layer within ``PREFILL_REL_L2``, the
+    planted faults (``_zamba2_prefill_faults``), the device time by class,
+    the flash layer's time beside its bound and SDPA; then served
+    (``DecodeServer``, captured waves: graph == eager and chunk 1 == whole
+    bit for bit, the gather once a wave); forward == decode read in bf16,
+    then held on the model rebuilt in fp32 with two planted decode faults
+    (``_zamba2_fp32``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(seed + 15)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    run = _checked_prefill(model, tokens, cfg.name,
+                           bound=ZAMBA_PREFILL_REL_L2)
+    n_shared = _attention_layers(cfg)
+    want = {"bfloat16 112/112 causal": n_shared}
+    require(run["instances"] == want, f"zamba2-7b prefill flash instances "
+            f"{run['instances']}, expected {want}")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    print(_prefill_line("15 zamba2 prefill", model, tokens, run,
+                        f"{cfg.num_layers - n_shared} mamba and {n_shared} "
+                        f"shared_attn, one shared set", init_s) +
+          f"; peak device memory {prefill_peak / 2**30:.2f} GiB; {card}")
+    ends = _zamba2_prefill_faults(model, tokens, run)
+    print(f"[15 zamba2 checks] the hidden state after the first shared layer "
+          f"(six layers in), kernel vs plain attention: relative L2 "
+          f"{ends['first_rel_l2']:.4g} (tol {PREFILL_REL_L2}); plain "
+          f"attention over 64- vs 128-key chunks: {ends['floor_first']:.4g} "
+          f"there, {ends['floor_last']:.4g} at the last hidden state (the "
+          f"depth's amplification; kernel vs plain there "
+          f"{run['rel_l2']:.4g}, tol {ZAMBA_PREFILL_REL_L2}); the first "
+          f"shared layer's attention planted wrong (after that layer / at "
+          f"the last hidden state / that layer's output): " + "; ".join(
+              f"{k}: {v['first']:.4g} / {v['last']:.4g} / "
+              f"{_bf16_summary(v['layer'])}"
+              for k, v in ends["faults"].items()) +
+          " (the first required above both tols and to fail check_bf16)")
+    q, k, v, kw = run["layers"]["global"]
+    t = _flash_layer(q, k, v, kw, "zamba2-7b shared layer")
+    print(_flash_layer_line("15 zamba2 kernel", "flash attention a shared "
+                            "layer (causal, the (128, 128) kernel on 112 "
+                            "columns)", q, k, t, card))
+    del q, k, v
+    run["layers"].clear()
+    classes = _prefill_classes(model, tokens)
+    ssd_ms, ssd_flops = _ssd_layer_ms(model, tokens)
+    busy = sum(classes["ms"].values())
+    n_mamba = cfg.num_layers - n_shared
+    print(f"[15 zamba2 where] one more prefill under torch.profiler "
+          f"({classes['wall_ms']:.2f} ms with the profiler): device "
+          f"{busy:.2f} ms = {100 * busy / classes['wall_ms']:.1f}% busy; by "
+          f"class " + ", ".join(
+              f"{k} {v:.2f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+              for k, v in sorted(classes["ms"].items(),
+                                 key=lambda kv: -kv[1])) +
+          f" ({classes['ssd_calls']} SSD scans); one layer's SSD scan alone "
+          f"(CUDA events) {ssd_ms:.3f} ms, x {n_mamba} = "
+          f"{ssd_ms * n_mamba:.1f} ms a prefill ({ssd_flops / 1e9:.1f} "
+          f"GFLOP of fp32 products a layer, "
+          f"{ssd_flops / FP32_FLOPS * 1e3:.3f} ms at 67 TFLOP/s); {card}")
+    prefill_ms, launches = run["prefill_ms"], run["launches"]
+    instances = run["instances"]
+    del run
+    t1 = time.perf_counter()
+
+    # served: 8 requests of 256 or 320 prompt tokens, a closed batch
+    prompts = [rng.integers(0, cfg.vocab_size, int(n) * 64).astype(np.int32)
+               for n in rng.integers(ZAMBA_PROMPT_CHUNKS[0],
+                                     ZAMBA_PROMPT_CHUNKS[1] + 1,
+                                     ZAMBA_REQUESTS)]
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK,
+                 ZAMBA_NEW_TOKENS)                      # warm-up
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK, ZAMBA_NEW_TOKENS)
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    _require_served(main, ZAMBA_NEW_TOKENS, counts, variants)
+    m = _drive_metrics(main, ZAMBA_NEW_TOKENS)
+    srv = main["srv"]
+    waves = srv.serve_stats["waves"]
+    chunk1 = _serve_drive(model, prompts, 1, ZAMBA_NEW_TOKENS)
+    for i, (r, r1) in enumerate(zip(main["reqs"], chunk1["reqs"])):
+        require(r.out == r1.out, f"zamba2-7b request {i}: prefill_chunk=1 "
+                f"emitted {r1.out[:6]}... vs {r.out[:6]}...")
+        require(torch.equal(main["final"][i], chunk1["final"][i]),
+                f"zamba2-7b request {i}: last-wave logits differ between "
+                f"prefill_chunk={SERVE_CHUNK} and 1")
+    del chunk1
+    lock = _lockstep_drive(model, prompts, ZAMBA_NEW_TOKENS)
+    for i, (r, r2) in enumerate(zip(main["reqs"], lock["reqs"])):
+        require(r.out == r2.out, f"zamba2-7b request {i}: the lockstep drive "
+                f"emitted {r2.out[:6]}... vs {r.out[:6]}...")
+    lock_ms = {n: v * 1e3 / lock["micro_steps"]
+               for n, v in lock["host_s"].items()}
+    lock_waves, lock_micro, lock_leaves = (lock["waves"], lock["micro_steps"],
+                                           lock["leaves"])
+    del lock
+    graph_dev = _graph_device_ms(srv)
+    kernels_a_step = _graph_kernel_count(srv)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[15 zamba2 serving] DecodeServer(batch_slots={SERVE_SLOTS}, "
+          f"max_len={SERVE_MAX_LEN}, prefill_chunk={SERVE_CHUNK}, "
+          f"pipeline=True), captured wave: {ZAMBA_REQUESTS} requests "
+          f"(prompts of {sorted(len(p) for p in prompts)} tokens; closed "
+          f"batch), {ZAMBA_NEW_TOKENS} new tokens each, all ok; {waves} "
+          f"waves, {m['micro_steps']} micro-steps in {main['wall']:.2f} s: "
+          f"{m['tokens_per_s']:.1f} generated tokens/s; TTFT "
+          f"{_percentiles(m['ttft'])}; per token "
+          f"{_percentiles(m['per_token'])}; host ms a micro-step "
+          f"{m['issue_ms'] / m['micro_steps']:.3f} (lockstep: graph "
+          f"{lock_ms['graph']:.3f} vs eager {lock_ms['eager']:.2f}); device "
+          f"ms of one captured micro-step (CUDA events, 20 replays) unmasked "
+          f"{graph_dev['unmasked']:.3f}, masked {graph_dev['masked']:.3f} "
+          f"against {bound_ms:.3f} ms to read every weight once "
+          f"({weight_bytes / 1e9:.2f} GB at 3.35 TB/s; "
+          f"{100 * bound_ms / graph_dev['unmasked']:.1f}% of it); "
+          f"{kernels_a_step} device operations a replayed micro-step; ms per "
+          f"decode wave mean {np.mean(m['decode_ms']):.2f}; block_gather "
+          f"launches {counts['block_gather']} = one a wave (rows of "
+          f"{cfg.d_model * 2} B from {cfg.padded_vocab}); prefill_chunk=1: "
+          f"the same tokens and bit-identical last-wave logits; graph vs "
+          f"eager in lockstep: {lock_waves} waves, {lock_micro} "
+          f"micro-steps, every wave's logits and every cache leaf (the "
+          f"mamba state and conv window included) after every iteration "
+          f"({lock_leaves} comparisons) the same bits, the same tokens; "
+          f"peak device memory {peak / 2**30:.2f} GiB; {card}")
+    bf16_fd = _fwd_decode(model, srv, prompts)
+    del model, main, srv, tokens
+    free_cuda()
+    t2 = time.perf_counter()
+    f32 = _zamba2_fp32(seed, prompts)
+    fd = f32["fwd_decode"]
+    rel_l2 = fd.pop("rel_l2")
+    print(f"[15 zamba2 forward == decode] {ZAMBA_REQUESTS} prompts, the "
+          f"chunked forward's logits at each prompt's last token against "
+          f"the captured decode replay's (relative L2): bf16 (read: the "
+          f"depth's amplification) {bf16_fd.pop('rel_l2'):.4g}, its planted "
+          f"faults " + "; ".join(f"{k}: {v:.4g}" for k, v in
+                                 bf16_fd.items()) +
+          f"; fp32 (the same seed, {f32['weight_bytes'] / 1e9:.2f} GB; the "
+          f"reference's invariant) {rel_l2:.4g} (tol "
+          f"{ZAMBA_FWD_DECODE_REL_L2}), planted faults (required above "
+          f"it): " + "; ".join(f"{k}: {v:.4g}" for k, v in fd.items()) +
+          f"; fp32 forward, kernel vs plain attention, last hidden state "
+          f"{f32['prefill_rel_l2']:.4g} (tol {PREFILL_REL_L2}), with the "
+          f"first shared layer's scale left out {f32['fault_rel_l2']:.4g}")
+    require(rel_l2 <= ZAMBA_FWD_DECODE_REL_L2 and
+            all(v > ZAMBA_FWD_DECODE_REL_L2 for v in fd.values()),
+            f"zamba2-7b forward == decode in fp32: relative L2 {rel_l2:.4g}, "
+            f"planted faults {fd}, tol {ZAMBA_FWD_DECODE_REL_L2}")
+    print(f"[15 zamba2 time] wall seconds: prefill part {t1 - t_start:.1f}, "
+          f"serving part {t2 - t1:.1f}, fp32 part "
+          f"{time.perf_counter() - t2:.1f}")
+    result = {"flash_launches": launches + f32["flash_launches"],
+              "flash_instances": dict(collections.Counter(instances) +
+                                      collections.Counter(
+                                          f32["flash_instances"])),
+              "gather_launches": variants["bulk"],
+              "gather_group_launches": variants["group"],
+              "zamba2_prefill_ms": prefill_ms,
+              "zamba2_tokens_per_s": m["tokens_per_s"],
+              "zamba2_micro_step_ms": graph_dev["unmasked"],
+              "zamba2_micro_step_bound_ms": bound_ms,
+              "zamba2_fwd_decode_rel_l2": rel_l2}
+    result.update({f"zamba2_{key}": t[key] for key in
+                   ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return result
+
+
+def _zamba2_fp32(seed: int, prompts) -> dict:
+    """zamba2-7b rebuilt in fp32 from the same seed (22.4 GB; the bf16
+    model freed first): the prompts' forward (the f32 flash kernel at
+    (112, 112), counted) against plain attention, last hidden state within
+    ``PREFILL_REL_L2``, and with the first shared layer's scale left out
+    above it; then forward == decode through a server's captured wave
+    (``_fwd_decode``) within ``ZAMBA_FWD_DECODE_REL_L2``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer
+    cfg = dataclasses.replace(get_config("zamba2-7b"), dtype="float32")
+    model = LM(cfg, seed=seed)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    toks = torch.from_numpy(np.stack([p[:256] for p in prompts]).astype(
+        np.int64)).cuda()
+    kops.reset_launch_counts()
+    with torch.inference_mode():
+        last = model.prefill(toks)
+    launches = kops.launch_counts()["flash_attention"]
+    instances = dict(kops.flash_attention_cuda.instances)
+    require(instances == {"float32 112/112 causal": _attention_layers(cfg)},
+            f"zamba2-7b fp32 forward flash instances {instances}")
+    with _OpSwap("attention", plain_attention):
+        plain_last = model.prefill(toks)
+    d = cfg.hd
+
+    def faulted(q_, k_, v_, **kw_):
+        faulted.calls += 1
+        if faulted.calls == 1:
+            q_ = q_ * d ** 0.5
+        return kops.flash_attention_cuda(q_, k_, v_, **kw_)
+    faulted.calls = 0
+    with _OpSwap("attention", faulted):
+        bad = model.prefill(toks)
+    out = {"prefill_rel_l2": _rel(last, plain_last),
+           "fault_rel_l2": _rel(bad, plain_last),
+           "flash_launches": launches, "flash_instances": instances,
+           "weight_bytes": weight_bytes}
+    require(out["prefill_rel_l2"] <= PREFILL_REL_L2 <
+            out["fault_rel_l2"], f"zamba2-7b fp32 forward vs plain "
+            f"attention: relative L2 {out['prefill_rel_l2']:.4g}, with the "
+            f"scale left out {out['fault_rel_l2']:.4g}, tol {PREFILL_REL_L2}")
+    srv = DecodeServer(model, batch_slots=len(prompts),
+                       max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+    out["fwd_decode"] = _fwd_decode(model, srv, prompts)
+    del model, srv
+    free_cuda()
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4679,6 +5243,9 @@ def main(argv=None) -> int:
                          "phase's lines, no JSON)")
     ap.add_argument("--whisper-only", action="store_true",
                     help="run phases 1, 2 and 14 alone (the whisper "
+                         "phase's lines, no JSON)")
+    ap.add_argument("--zamba2-only", action="store_true",
+                    help="run phases 1, 2 and 15 alone (the zamba2 "
                          "phase's lines, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
@@ -4709,9 +5276,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     phase_build()
-    if args.training_only or args.whisper_only:
-        (phase_training if args.training_only else phase_whisper)(args.seed,
-                                                                  card)
+    alone = (phase_training if args.training_only else
+             phase_whisper if args.whisper_only else
+             phase_zamba2 if args.zamba2_only else None)
+    if alone is not None:
+        alone(args.seed, card)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     phase_sweep(args.seed)
@@ -4744,7 +5313,8 @@ def main(argv=None) -> int:
                        ("12", lambda: phase_llava_subprocess(args.seed,
                                                              card)),
                        ("13", lambda: phase_training(args.seed, card)),
-                       ("14", lambda: phase_whisper(args.seed, card))):
+                       ("14", lambda: phase_whisper(args.seed, card)),
+                       ("15", lambda: phase_zamba2(args.seed, card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
@@ -4776,7 +5346,8 @@ def main(argv=None) -> int:
         gather["launches"] += gather[f"{key}_launches"]
     gather.update(ds_prefill)
     gather.update({f"deepseek_serving_{k}": v for k, v in ds_serving.items()})
-    for phase, key in (("10", "gemma3"), ("11", "danube"), ("12", "llava")):
+    for phase, key in (("10", "gemma3"), ("11", "danube"), ("12", "llava"),
+                       ("15", "zamba2")):
         run = later[phase]
         flash[f"{key}_launches"] = run.pop("flash_launches")
         flash["launches"] += flash[f"{key}_launches"]

@@ -10,7 +10,7 @@ import importlib
 
 ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b", "gemma3-4b",
          "h2o-danube-1.8b", "llava-next-34b", "qwen3-moe-235b-a22b",
-         "stablelm-3b", "whisper-large-v3"]
+         "stablelm-3b", "whisper-large-v3", "zamba2-7b"]
 
 
 def _mod(name: str):

@@ -11,14 +11,17 @@ over the scanned super-blocks under ``scan``, the remainder layers under
 here: :func:`lm_params_from_reference` maps one onto the other, nested
 names included (MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``, the MoE
 layers' ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``, each
-leaf in its own dtype: the router stays fp32; whisper's encoder, stacked
-over its layers under ``enc_scan`` there, is ``enc_blocks.<layer>.*``
-here, beside ``enc_norm``).  Its decode caches are the
+leaf in its own dtype: the router stays fp32, and so do a mamba layer's
+``A_log``, ``D`` and ``dt_bias``; whisper's encoder, stacked over its
+layers under ``enc_scan`` there, is ``enc_blocks.<layer>.*`` here, beside
+``enc_norm``; zamba2's shared attention set ``shared.{attn,mlp}.*`` is one
+subtree in both).  Its decode caches are the
 same kind of tree there and a list of per-layer dicts here:
 :func:`caches_from_reference` and :func:`caches_to_reference` map both ways
-(MLA's latent ``{c, kr, len}`` keep the reference's layout; an ``xdec``
-layer's ``{"self": {k, v, len}, "enc_out": None}`` there is its
-self-attention cache ``{k, v, len}`` here).
+(MLA's latent ``{c, kr, len}`` and a mamba layer's ``{state, conv}`` keep
+the reference's layout; an ``xdec`` layer's ``{"self": {k, v, len},
+"enc_out": None}`` there is its self-attention cache ``{k, v, len}``
+here).
 
 Back the other way, :func:`lm_params_to_reference` stacks the layers into
 ``scan`` / ``rest`` again, and :func:`train_state_to_reference` /
@@ -83,12 +86,16 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
     super-blocks of five ``dense_local`` layers and a ``dense`` one, then
     four ``dense_local``); a front end's ``frontend_proj`` is carried as
     it is; an encoder's layer ``n`` is slot ``n`` of ``params["enc_scan"]``
-    (``enc_blocks.<n>``)."""
+    (``enc_blocks.<n>``); the shared attention set ``params["shared"]``
+    is ``shared.*``."""
     dev = resolve_device(device)
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
     if "frontend_proj" in params:      # a front end (cfg.modality != "text")
         state["frontend_proj"] = _to_tensor(params["frontend_proj"], dev)
+    if "shared" in params:             # shared_attn layers (zamba2)
+        for key, val in _flatten(params["shared"]):
+            state[f"shared.{key}"] = _to_tensor(val, dev)
     for li, layer in enumerate(_layers_of(params, cfg)):
         for key, val in _flatten(layer):
             state[f"blocks.{li}.{key}"] = _to_tensor(val, dev)
@@ -124,16 +131,21 @@ def lm_params_to_reference(state, cfg) -> dict:
     as the reference's parameter tree -- ``embed``, ``final_norm``,
     ``frontend_proj`` where present, ``scan`` (a tuple over the block
     pattern of layer dicts stacked over ``cfg.n_super`` with
-    ``torch.stack``), ``rest`` (the remainder layers), and an encoder's
-    ``enc_scan`` (its layers stacked) and ``enc_norm`` -- its leaves
-    tensors where the state's lie."""
+    ``torch.stack``), ``rest`` (the remainder layers), an encoder's
+    ``enc_scan`` (its layers stacked) and ``enc_norm``, and the shared
+    attention set's ``shared`` subtree -- its leaves tensors where the
+    state's lie."""
     layers: list = [{} for _ in range(cfg.num_layers)]
     enc_layers: list = [{} for _ in range(cfg.enc_layers)]
     tree = {}
     for name, t in state.items():
         stack, _, rest = name.partition(".")
         if stack not in ("blocks", "enc_blocks"):
-            tree[name] = t
+            *parents, leaf = name.split(".")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = t
             continue
         li, rest = rest.split(".", 1)
         node = (layers if stack == "blocks" else enc_layers)[int(li)]
@@ -231,7 +243,8 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
     ``device``: ``k``/``v`` (B, Smax, Hkv, hd) -> (B, Hkv, Smax, hd),
     ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax); ``len`` and
     an MLA layer's ``c`` (B, Smax, r) and ``kr`` (B, Smax, rd) as they
-    are; an ``xdec`` layer's ``self`` cache becomes the layer's (its
+    are, and so are a mamba layer's ``state`` (B, H, P, N) and ``conv`` (B,
+    3, d_inner); an ``xdec`` layer's ``self`` cache becomes the layer's (its
     ``enc_out`` is None there: the encoder's output is a decode context,
     not cache state)."""
     dev = resolve_device(device)

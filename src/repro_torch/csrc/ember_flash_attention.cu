@@ -13,9 +13,10 @@
 //
 // in the JAX package's layout: q (B, Sq, H, Dqk), k (B, Sk, Hkv, Dqk),
 // v (B, Sk, Hkv, Dv) and o (B, Sq, H, Dv), contiguous, f32 or bf16, with
-// (Dqk, Dv) one of (64, 64), (80, 80), (128, 128), (192, 128) and
-// (256, 256) -- (192, 128) is DeepSeek's MLA prefill (128 no-rotary columns
-// and 64 rotary ones for q and k, 128 for v), (256, 256) gemma3-4b's heads.
+// (Dqk, Dv) one of (64, 64), (80, 80), (112, 112), (128, 128), (192, 128)
+// and (256, 256) -- (192, 128) is DeepSeek's MLA prefill (128 no-rotary
+// columns and 64 rotary ones for q and k, 128 for v), (256, 256) gemma3-4b's
+// heads, (112, 112) zamba2-7b's.
 // The running max m, the
 // denominator l and the accumulator are fp32; masked scores are -1e30; the
 // probabilities are rounded to the input dtype before the PV product (as
@@ -99,14 +100,15 @@
 // thread (kConsumerRegs = 232).  The f32 kernel at (256, 256) takes
 // 214,016 bytes: one block per SM, like (192, 128).
 //
-// Head dim 80 runs the (128, 128) instantiation of either kernel, padded: the
-// bf16 kernel's tensor maps are 80 columns wide, so TMA fills columns 80-127
-// of every Q, K and V box with zeros (Q K^T is exact, O's padded columns come
-// out zero) and the O map stores only the 80 real ones; the f32 kernel loads
-// columns below d into its padded shared-memory rows and stores only those.
-// The cost is 128 / 80 = 1.6x the MMA work of the true width; the scale is
-// the caller's (80^-1/2).  Rows of 80 bf16 are 160 bytes, a multiple of 16
-// as TMA's strides must be.
+// Head dims 80 and 112 run the (128, 128) instantiation of either kernel,
+// padded: the bf16 kernel's tensor maps are d columns wide, so TMA fills
+// columns d-127 of every Q, K and V box with zeros (Q K^T is exact, O's
+// padded columns come out zero) and the O map stores only the d real ones;
+// the f32 kernel loads columns below d into its padded shared-memory rows
+// and stores only those.  The cost is 128 / 80 = 1.6x (128 / 112 = 1.14x)
+// the MMA work of the true width; the scale is the caller's (d^-1/2).  Rows
+// of 80 and 112 bf16 are 160 and 224 bytes, multiples of 16 as TMA's strides
+// must be.
 //
 // A bf16 call launches the wgmma kernel or returns its error: nothing falls
 // back to the f32 kernel.
@@ -739,8 +741,8 @@ int launch_by_dtype(int dtype, bool causal, const FlashArgs& a,
 // head_dim); v: (batch, seq_k, kv_heads, v_head_dim); o: (batch, seq_q,
 // heads, v_head_dim); all contiguous, one dtype (0 = float32, 1 = bfloat16;
 // bf16 pointers 16-byte aligned, as TMA needs).  (head_dim, v_head_dim) one
-// of (64, 64), (80, 80) (padded to 128), (128, 128), (192, 128) and
-// (256, 256); heads a multiple of kv_heads.  window > 0 keeps the keys with
+// of (64, 64), (80, 80) and (112, 112) (both padded to 128), (128, 128),
+// (192, 128) and (256, 256); heads a multiple of kv_heads.  window > 0 keeps the keys with
 // q - k < window (0: no window); every query row must keep one key
 // (seq_q - window < seq_k).  scale multiplies the fp32 scores (the
 // reference's head_dim ** -0.5).  A non-null lse receives each row's fp32
@@ -756,7 +758,8 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
                                      void* stream) {
   const bool dims_ok = (head_dim == v_head_dim &&
                         (head_dim == 64 || head_dim == 80 ||
-                         head_dim == 128 || head_dim == 256)) ||
+                         head_dim == 112 || head_dim == 128 ||
+                         head_dim == 256)) ||
                        (head_dim == 192 && v_head_dim == 128);
   if (batch <= 0 || batch > 65535 || seq_q <= 0 || seq_k <= 0 ||
       heads <= 0 || heads > 65535 || kv_heads <= 0 ||
@@ -777,7 +780,8 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
   if (head_dim == 64) return launch_by_dtype<64, 64>(dtype, c, a, s);
   if (head_dim == 192) return launch_by_dtype<192, 128>(dtype, c, a, s);
   if (head_dim == 256) return launch_by_dtype<256, 256>(dtype, c, a, s);
-  // head dim 80 runs the (128, 128) instantiation, padded (see the top)
+  // head dims 80 and 112 run the (128, 128) instantiation, padded (see the
+  // top)
   return launch_by_dtype<128, 128>(dtype, c, a, s);
 }
 
@@ -788,8 +792,8 @@ extern "C" int ember_flash_attention(const void* q, const void* k,
 // kernels/flash_attention.py kv_tile, which must equal this (chip_smoke.py
 // phase 2 and tests/test_torch_cuda.py hold them equal).
 extern "C" int ember_flash_kv_tile(int dtype, int head_dim) {
-  if (head_dim != 64 && head_dim != 80 && head_dim != 128 &&
-      head_dim != 192 && head_dim != 256) {
+  if (head_dim != 64 && head_dim != 80 && head_dim != 112 &&
+      head_dim != 128 && head_dim != 192 && head_dim != 256) {
     return 0;
   }
   return dtype == 0 ? kF32BK : dtype == 1 ? wg_kv_tile(head_dim) : 0;

@@ -1177,17 +1177,18 @@ int wgmma_by_mask(bool causal, const BwdArgs& a, cudaStream_t s) {
 // rounded up to 128.  The scratch is (batch, heads, 2, rows).
 extern "C" int ember_flash_bwd_rows(int seq_q) { return seq_q_padded(seq_q); }
 
-// The gradients of ember_flash_attention: q, k, v, o (its output), dout
-// (the cotangent of o) in the forward's layouts and dtype (0 = float32,
-// 1 = bfloat16), lse its fp32 (batch, heads, seq_q) log-sum-exp; rows an
-// fp32 (batch, heads, 2, ember_flash_bwd_rows(seq_q)) scratch; dq, dk, dv
-// outputs shaped as q, k and v, fully written.  (head_dim, v_head_dim),
-// causal, window and scale as the forward takes them.  variant 1 runs the
-// wgmma kernels: bf16 at (64, 64), (80, 80) or (128, 128), q, k, v and
-// dout 16-byte aligned (TMA reads them); variant 0 the SIMT kernels, at
-// every width pair and dtype.  The caller picks the variant
-// (kernels/flash_attention.py backward_variant); a variant that cannot
-// take the arguments returns cudaErrorInvalidValue and launches nothing.
+// The gradients of ember_flash_attention: q, k, v, o (its output), dout (the
+// cotangent of o) in the forward's layouts and dtype (0 = float32, 1 =
+// bfloat16), lse its fp32 (batch, heads, seq_q) log-sum-exp; rows an fp32
+// (batch, heads, 2, ember_flash_bwd_rows(seq_q)) scratch; dq, dk, dv outputs
+// shaped as q, k and v, fully written.  (head_dim, v_head_dim), causal, window
+// and scale as the forward takes them, but for (112, 112), which has no
+// backward yet (ROADMAP.md, K1) and is refused.  variant 1 runs the wgmma
+// kernels: bf16 at (64, 64), (80, 80) or (128, 128), q, k, v and dout 16-byte
+// aligned (TMA reads them); variant 0 the SIMT kernels, at every other width
+// pair and dtype.  The caller picks the variant (kernels/flash_attention.py
+// backward_variant); a variant that cannot take the arguments returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int ember_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* rows, void* dq, void* dk,

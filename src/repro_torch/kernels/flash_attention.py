@@ -25,8 +25,9 @@ q, k or v need a gradient.  Called directly under autograd, the kernel
 wrappers raise: their outputs carry no ``grad_fn``.  The backward has two
 variants, chosen from the dtype and widths by :func:`backward_variant`:
 ``wgmma`` (bf16 at (64, 64), (80, 80), (128, 128): tensor cores fed by TMA,
-P and dS taken as bf16) and ``simt`` (scalar fp32, everything else); each
-has its plain version (:func:`plain_backward`).
+P and dS taken as bf16) and ``simt`` (scalar fp32, everything else but
+(112, 112), whose backward is not written: ROADMAP.md, K1); each has its
+plain version (:func:`plain_backward`).
 """
 from __future__ import annotations
 
@@ -38,9 +39,13 @@ import torch
 from . import _build, ref
 from .sls import DTYPES, one_device, refuse_autograd
 
-#: the (q/k width, v width) pairs with a kernel; (80, 80) runs the (128, 128)
-#: kernel on zero-padded columns (csrc/ember_flash_attention.cu)
-HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
+#: the (q/k width, v width) pairs with a kernel; (80, 80) and (112, 112) run
+#: the (128, 128) kernel on zero-padded columns (csrc/ember_flash_attention.cu)
+HEAD_DIMS = ((64, 64), (80, 80), (112, 112), (128, 128), (192, 128),
+             (256, 256))
+#: the pairs whose backward is not written yet (ROADMAP.md, K1): the
+#: backward refuses them before any launch
+NO_BACKWARD_DIMS = ((112, 112),)
 #: the f32 kernel's KV tile (kF32BK), and the bf16 kernel's (wg_kv_tile):
 #: 128 keys, 64 at q/k width 256; the built library reports them
 #: (``ember_flash_kv_tile``), and the checks on the card hold the two equal
@@ -177,7 +182,13 @@ def backward_variant(dtype: torch.dtype, head_dim: int,
     ``v_head_dim``): "wgmma" for bf16 at :data:`WGMMA_BACKWARD_DIMS`, else
     "simt".  The one place the variant is decided, from the shapes, before
     the launch: a wrapper never switches variant after a build or launch
-    error."""
+    error.  Raises NotImplementedError at :data:`NO_BACKWARD_DIMS`, on the
+    card and on the CPU alike."""
+    if (head_dim, v_head_dim) in NO_BACKWARD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward at head dims ({head_dim}, {v_head_dim}) is "
+            f"not written yet (ROADMAP.md, K1: the forward runs them on the "
+            f"padded (128, 128) kernel, the backward has no variant there)")
     if dtype == torch.bfloat16 and (head_dim, v_head_dim) in \
             WGMMA_BACKWARD_DIMS:
         return "wgmma"
@@ -315,9 +326,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """:func:`flash_attention_cuda`'s function, differentiable: through
     :class:`FlashAttention` where grad mode is on and q, k or v need a
     gradient, else the forward alone (no lse; the serving path, whose bits
-    this leaves as they were)."""
+    this leaves as they were).  Widths without a backward
+    (:data:`NO_BACKWARD_DIMS`) raise there before the forward runs."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
+        backward_variant(q.dtype, q.shape[3], v.shape[3])
         return FlashAttention.apply(q, k, v, causal, window, chunk)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 chunk=chunk)

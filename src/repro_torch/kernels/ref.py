@@ -12,8 +12,10 @@ capacity padding), and the tail is never read.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -126,6 +128,33 @@ def fusedmm(x: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor, *,
 
 NEG_INF = -1e30
 
+_INV_LN2 = 1.44269504088896338700e+00
+#: ln 2 in two parts (fdlibm's): k * _LN2_HI is exact for |k| < 2^11
+_LN2_HI = 6.93147180369123816490e-01
+_LN2_LO = 1.90821492927058770002e-10
+#: 1/n! for n = 13..0: Horner's coefficients of exp on |r| <= ln2 / 2
+_EXP_COEFFS = tuple(1.0 / math.factorial(n) for n in range(13, -1, -1))
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of a CPU fp64 tensor from additions, multiplications and a
+    rounding alone (``2^k exp(r)``, r = x - k ln2, a degree-13 Taylor
+    polynomial; within two fp64 steps of exp), as numpy's single-threaded
+    elementwise operations, each one IEEE rounding: the same bits on every
+    host, code path and run.  ``torch.exp`` is not: on the CPU it may run
+    MKL's vector math, whose bits changed from run to run.  Inputs below
+    -708 give exp(-708), zero in fp32.  Not differentiable."""
+    a = np.maximum(x.detach().numpy(), -708.0)
+    k = np.round(a * _INV_LN2)
+    r = (a - k * _LN2_HI) - k * _LN2_LO
+    acc = np.full_like(r, _EXP_COEFFS[0])
+    for c in _EXP_COEFFS[1:]:
+        acc *= r
+        acc += c
+    # 2^k from the exponent bits, exactly
+    return torch.from_numpy(acc * ((k.astype(np.int64) + 1023) << 52)
+                            .view(np.float64))
+
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
@@ -150,7 +179,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fp32 once (exact for bf16 operands): an fp32 sum there takes the
     order of the host's BLAS and vector code path (MKL's AVX2 and AVX-512
     kernels, ATen's vectorized or scalar reductions), so its bits would
-    change from one machine to the next.
+    change from one machine to the next.  The exponentials there come from
+    :func:`_exp`, whose bits do not change from run to run, as
+    ``torch.exp``'s did.
 
     With ``return_lse``, ``(out, lse)``: lse (B,H,Sq) fp32 is each row's
     log-sum-exp ``m + log(max(l, 1e-30))``, what the kernel saves for the
@@ -164,6 +195,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.bfloat16
     # the width of the products and sums (see above): fp64 on the CPU
     wide = torch.float32 if q.is_cuda else torch.float64
+    exp = torch.exp if q.is_cuda else _exp
     qg = q.reshape(b, sq, hkv, g, d)
     if tensor_cores:
         # (b, sq, hkv, g, d) -> (b * hkv, g * sq, d)
@@ -195,8 +227,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= q_pos - k_pos < window
         s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp((s - m_new[..., None]).to(wide)).float()
-        alpha = torch.exp((m - m_new).to(wide)).float()
+        p = exp((s - m_new[..., None]).to(wide)).float()
+        alpha = exp((m - m_new).to(wide)).float()
         l = l * alpha + p.to(wide).sum(-1).float()
         if tensor_cores:
             pv = torch.bmm(

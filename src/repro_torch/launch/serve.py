@@ -13,8 +13,9 @@ The model is built on the CUDA card, with random weights from ``--seed``,
 unless ``--device cpu`` is given; without a card the default raises.
 ``--arch`` takes every config of ``repro_torch.configs``: the
 ``dense_local`` models (gemma3-4b, h2o-danube-1.8b) decode over their
-sliding window, and llava-next-34b serves text only, as the reference's
-server does.  ``--reduced`` takes the architecture's small config (the
+sliding window, zamba2-7b's mamba layers carry their state and conv
+window in place through the same captured wave, and llava-next-34b serves
+text only, as the reference's server does.  ``--reduced`` takes the architecture's small config (the
 only one of qwen3-moe-235b-a22b that fits one card); an MoE model's
 pipeline feeds its un-dispatch member too.
 Fault-tolerance knobs as in the reference: ``--index-policy`` hardens the

@@ -3,10 +3,13 @@
 Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
 gated MLP), ``dense_local`` (the same with the sliding-window band of
 ``cfg.sliding_window``), the ``moe`` kind (GQA attention + the MoE FFN),
-the ``mla`` kind (DeepSeek's latent attention + the MoE FFN), and
+the ``mla`` kind (DeepSeek's latent attention + the MoE FFN),
 whisper's encoder-decoder kinds: ``enc_dense`` (the encoder's blocks:
 non-causal self-attention + MLP) and ``xdec`` (causal self-attention,
-cross-attention over the encoder's output, MLP);
+cross-attention over the encoder's output, MLP), and zamba2's hybrid kinds:
+``mamba`` (the Mamba2 SSD block, :mod:`.ssm`) and ``shared_attn`` (causal
+attention + MLP from one weight set, :attr:`LM.shared`, shared by every
+occurrence; only its two norms are the layer's own);
 :meth:`LM.forward` (the MoE layers' auxiliary loss summed beside it; the
 ``vision-stub`` front end's ``frontend_embeds`` spliced over the first
 positions; the ``audio-stub`` front end's ``enc_embeds`` through the
@@ -23,21 +26,28 @@ into a ``jax.lax.scan`` over super-blocks; here the layers are an
 remainder, as the reference does), and a wave is a Python loop of masked
 micro-steps (which the server replays as CUDA graphs on the card:
 :class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
-Queue 1): the other block kinds (item 5) and the sharded embedding
-executor and loss (item 6).
+Queue 1): xLSTM's ``mlstm`` and ``slstm`` kinds (item 5c) and the sharded
+embedding executor and loss (item 6).
 
 A block's ``forward`` and ``decode`` take a context dict beside their
 input, as the reference's ``block_apply`` / ``block_decode`` take
 ``ctx``: ``{"enc_out": (B, Sf, D)}`` for an encoder-decoder model (the
 ``xdec`` layers read the encoder's output from it, never from a cache),
-None otherwise.
+``{"shared": LM.shared, "shared_window": ...}`` for a model with
+``shared_attn`` layers (the reference's ``shared_params`` and
+``shared_window``), None otherwise.
 
 Parameters carry the reference's names (``embed``, ``final_norm``,
 ``frontend_proj`` where ``cfg.modality`` is not ``"text"``,
 ``blocks.<layer>.{norm1,attn.{wq,wk,wv,wo},norm2,mlp.{wi_gate,wi_up,wo}}``;
 an ``xdec`` layer's ``norm_x`` and ``xattn.{wq,wk,wv,wo}`` besides; the
 encoder's ``enc_blocks.<layer>.*`` (``enc_dense`` layers) and
-``enc_norm``;
+``enc_norm``; a ``mamba`` layer's ``norm1`` and
+``mamba.{w_in,conv_w,A_log,D,dt_bias,w_out,norm_z}``, a ``shared_attn``
+layer's ``norm1`` and ``norm2``, and the shared set
+``shared.{attn.{wq,wk,wv,wo},mlp.{wi_gate,wi_up,wo}}``, registered once, so
+``parameters()``, ``state_dict()``, the trainer and the checkpoints see
+each shared tensor once and its gradient sums over the occurrences;
 MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``; the MoE kinds'
 ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``) and layout, so
 :func:`repro_torch.convert.lm_params_from_reference` can load the
@@ -63,13 +73,15 @@ from ..core import embedding_engine as ee
 from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
                         init_mla, init_mla_cache, mla_decode, mla_forward)
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
-PORTED_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec")
+PORTED_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec",
+                "mamba", "shared_attn")
 #: the ROADMAP.md Queue 1 item that ports each other block kind
-KIND_ITEMS = {"mamba": 5, "shared_attn": 5, "mlstm": 5, "slstm": 5}
+KIND_ITEMS = {"mlstm": "5c", "slstm": "5c"}
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 
@@ -250,8 +262,73 @@ class XdecBlock(DenseBlock):
         return x + h
 
 
+class MambaBlock(nn.Module):
+    """``mamba``: the Mamba2 SSD block, pre-norm residual (``norm1``,
+    ``mamba.*``; :mod:`.ssm`).  Its cache is ``{state, conv}``
+    (:func:`.ssm.init_mamba_cache`), which :meth:`decode` updates in place,
+    an inactive slot's leaves kept bit for bit under ``active``."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = _frozen(init_rms(cfg.d_model, dtype, device))
+        self.mamba = nn.ParameterDict({
+            k: _frozen(v) for k, v in ssm_mod.init_mamba(
+                gen, cfg, dtype, device).items()})
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                ctx: Optional[dict] = None) -> tuple:
+        h = rms_norm(x, self.norm1, self.cfg.norm_eps)
+        return x + ssm_mod.mamba_forward(self.mamba, h, self.cfg), None
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               active: Optional[torch.Tensor] = None,
+               ctx: Optional[dict] = None) -> torch.Tensor:
+        h = rms_norm(x, self.norm1, self.cfg.norm_eps)
+        return x + ssm_mod.mamba_decode(self.mamba, h, self.cfg, cache,
+                                        active=active)
+
+
+class SharedAttnBlock(nn.Module):
+    """``shared_attn``: causal attention + gated MLP, pre-norm residual,
+    whose weights are the model's one shared set ``ctx["shared"]``
+    (``attn.*``, ``mlp.*``; :attr:`LM.shared`); the layer's own parameters
+    are its two norms.  The attention's window is ``ctx["shared_window"]``
+    (the reference's: a window only for a hybrid model that is not
+    ``long_context_ok``).  Its cache is a KV cache
+    (:func:`.attention.init_kv_cache`)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = _frozen(init_rms(cfg.d_model, dtype, device))
+        self.norm2 = _frozen(init_rms(cfg.d_model, dtype, device))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                ctx: Optional[dict] = None) -> tuple:
+        cfg, sp = self.cfg, ctx["shared"]
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        x = x + attn_forward(sp["attn"], h, cfg, positions=positions,
+                             causal=True, window=ctx["shared_window"])
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        return x + gated_mlp(h, sp["mlp"], cfg.act), None
+
+    def decode(self, x: torch.Tensor, cache: dict,
+               active: Optional[torch.Tensor] = None,
+               ctx: Optional[dict] = None) -> torch.Tensor:
+        cfg, sp = self.cfg, ctx["shared"]
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        x = x + attn_decode(sp["attn"], h, cfg, cache,
+                            window=ctx["shared_window"], active=active)
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        return x + gated_mlp(h, sp["mlp"], cfg.act)
+
+
 BLOCKS = {"dense": DenseBlock, "dense_local": LocalBlock, "moe": MoeBlock,
-          "mla": MlaBlock, "enc_dense": EncBlock, "xdec": XdecBlock}
+          "mla": MlaBlock, "enc_dense": EncBlock, "xdec": XdecBlock,
+          "mamba": MambaBlock, "shared_attn": SharedAttnBlock}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple:
@@ -261,11 +338,22 @@ def layer_kinds(cfg: ModelConfig) -> tuple:
         tuple(cfg.remainder_pattern)
 
 
+def shared_window(cfg: ModelConfig) -> Optional[int]:
+    """The window of the ``shared_attn`` layers (the reference's
+    ``LM._ctx``): ``cfg.sliding_window`` for a hybrid model that is not
+    ``long_context_ok``, else None (zamba2-7b: global and causal)."""
+    if cfg.family == "hybrid" and not cfg.long_context_ok:
+        return cfg.sliding_window
+    return None
+
+
 class LM(nn.Module):
     """The decoder stack of a config whose blocks are ``dense``,
-    ``dense_local``, ``moe``, ``mla`` or ``xdec``, and for an
-    encoder-decoder config (``cfg.enc_layers``) its encoder: ``enc_layers``
-    ``enc_dense`` blocks and ``enc_norm``.
+    ``dense_local``, ``moe``, ``mla``, ``xdec``, ``mamba`` or
+    ``shared_attn``, for an encoder-decoder config (``cfg.enc_layers``) its
+    encoder: ``enc_layers`` ``enc_dense`` blocks and ``enc_norm``, and for a
+    config with ``shared_attn`` layers the one weight set they share,
+    :attr:`shared`.
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; ``"meta"``
     builds the module tree without memory) and initialised there from
@@ -281,7 +369,7 @@ class LM(nn.Module):
             items = sorted({KIND_ITEMS[k] for k in missing})
             raise NotImplementedError(
                 f"block kinds {missing} of {cfg.name} are not ported yet "
-                f"(ROADMAP.md, Queue 1 item {' and '.join(map(str, items))})"
+                f"(ROADMAP.md, Queue 1 item {' and '.join(items)})"
                 f"; ported: {list(PORTED_KINDS)}")
         self.cfg = cfg
         meta = device is not None and torch.device(device).type == "meta"
@@ -302,6 +390,10 @@ class LM(nn.Module):
                                                    device=dev))
         self.blocks = nn.ModuleList(BLOCKS[kind](cfg, gen, dtype, dev)
                                     for kind in layer_kinds(cfg))
+        if "shared_attn" in kinds:
+            self.shared = ParamTree({
+                "attn": init_attn(gen, cfg, dtype, dev),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev)})
         if cfg.enc_layers:
             self.enc_blocks = nn.ModuleList(
                 EncBlock(cfg, gen, dtype, dev)
@@ -329,14 +421,23 @@ class LM(nn.Module):
             x, _ = blk(x, positions)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
+    def _shared_ctx(self) -> Optional[dict]:
+        """The shared set and its window for the ``shared_attn`` layers
+        (the reference's ``shared_params`` and ``shared_window``), None for
+        a model without them."""
+        if not hasattr(self, "shared"):
+            return None
+        return {"shared": self.shared,
+                "shared_window": shared_window(self.cfg)}
+
     def _forward_ctx(self, enc_embeds: Optional[torch.Tensor],
                      s: int) -> Optional[dict]:
         """The blocks' context for a forward over ``s`` positions: the
-        encoder's output for an encoder-decoder model, else None (a
-        model without an encoder ignores ``enc_embeds``, as the reference
-        does)."""
+        encoder's output for an encoder-decoder model, the shared set for a
+        model with ``shared_attn`` layers, else None (a model without an
+        encoder ignores ``enc_embeds``, as the reference does)."""
         if not self.cfg.enc_layers:
-            return None
+            return self._shared_ctx()
         if enc_embeds is None:
             raise ValueError(f"{self.cfg.name} is an encoder-decoder model: "
                              f"its forward needs enc_embeds (B, {s}, "
@@ -425,11 +526,16 @@ class LM(nn.Module):
                     dtype: Optional[torch.dtype] = None) -> list:
         """Empty caches for ``batch`` slots of ``max_len`` positions: one
         dict per layer, in layer order (:func:`.attention.init_kv_cache`;
-        :func:`.attention.init_mla_cache` for ``mla`` layers)."""
+        :func:`.attention.init_mla_cache` for ``mla`` layers,
+        :func:`.ssm.init_mamba_cache` for ``mamba`` layers, which hold no
+        positions)."""
         dtype = dtype or self.cfg.torch_dtype
-        return [(init_mla_cache if kind == "mla" else init_kv_cache)(
-                    self.cfg, batch, max_len, dtype, self.device)
-                for kind in layer_kinds(self.cfg)]
+        cfg, dev = self.cfg, self.device
+        return [ssm_mod.init_mamba_cache(cfg, batch, dtype, dev)
+                if kind == "mamba" else
+                (init_mla_cache if kind == "mla" else init_kv_cache)(
+                    cfg, batch, max_len, dtype, dev)
+                for kind in layer_kinds(cfg)]
 
     @torch.inference_mode()
     def decode_step(self, tokens_new: torch.Tensor, caches: list,
@@ -462,9 +568,10 @@ class LM(nn.Module):
     def _decode_ctx(self, batch_ctx: Optional[dict],
                     b: int) -> Optional[dict]:
         """The blocks' context for a decode over ``b`` slots: ``batch_ctx``
-        checked for an encoder-decoder model, None for the others."""
+        checked for an encoder-decoder model, the shared set for a model
+        with ``shared_attn`` layers, None for the others."""
         if not self.cfg.enc_layers:
-            return None
+            return self._shared_ctx()
         enc = None if batch_ctx is None else batch_ctx.get("enc_out")
         if enc is None or enc.dim() != 3 or enc.shape[0] != b or \
                 enc.shape[2] != self.cfg.d_model or \
@@ -596,7 +703,8 @@ class StaticWave:
     held in ``batch_ctx`` for its micro-steps."""
 
     def __init__(self, lm, caches: list):
-        b = caches[0]["len"].shape[0]
+        # every cache leaf is batch-major (a mamba layer's has no "len")
+        b = next(iter(caches[0].values())).shape[0]
         dev = lm.device
         with torch.inference_mode():     # the caches are inference tensors
             self.tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)

@@ -490,6 +490,88 @@ def test_flash_kernel_at_head_dim_80_matches_plain(cuda, dtype, h, hkv,
         check_bf16(got, want, "flash attention at D = 80")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (32, 32), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(128, 128), (200, 200), (200, 328),
+                                  (333, 333)])
+def test_flash_kernel_at_head_dim_112_matches_plain(cuda, dtype, h, hkv,
+                                                    causal, s, sk):
+    """zamba2-7b's head dim: the D = 128 kernels on zero-padded columns
+    (112-wide tensor maps in bf16, guarded loads in f32), against the plain
+    version at the real width, ragged lengths included; one launch a
+    call, counted under its instance."""
+    g = torch.Generator(device=cuda).manual_seed(s + sk + h + 112)
+    q = torch.randn((2, s, h, 112), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, sk, hkv, 112), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, sk, hkv, 112), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["flash_attention"]
+    key = f"{str(dtype).split('.')[-1]} 112/112" + (" causal" if causal
+                                                    else "")
+    seen = kops.flash_attention_cuda.instances[key]
+    got = kops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert kops.flash_attention_cuda.instances[key] == seen + 1
+    assert got.shape == q.shape
+    want = ref.attention(q, k, v, causal=causal, chunk=kv_tile(dtype, 112))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        check_bf16(got, want, "flash attention at D = 112")
+
+
+def test_flash_kernel_at_head_dim_112_leaves_its_neighbours_alone(cuda):
+    """The 112-wide output map stores only the 112 real columns (TMA clips
+    the second 64-column box): bytes past the output are kept."""
+    from repro_torch.kernels import _build
+    g = torch.Generator(device=cuda).manual_seed(112)
+    q, k, v = (torch.randn((1, 256, 4, 112), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    out = kops.attention(q, k, v, causal=True)
+    buf = torch.full((2 * out.numel(),), 7.0, device=cuda).bfloat16()
+    o = buf[:out.numel()].view_as(out)
+    err = _build.library().ember_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
+        4, 4, 112, 112, 1, 1, 0, 112 ** -0.5, None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(o, out)
+    assert bool((buf[out.numel():] == 7.0).all())
+
+
+def test_flash_backward_refuses_head_dim_112_before_any_launch(cuda):
+    """The backward at (112, 112) is not written (ROADMAP.md, K1): the
+    wrapper refuses it before a launch, on a direct call and under
+    autograd (there before the forward runs), and the C entry returns an
+    error without launching."""
+    from repro_torch.kernels import _build
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((1, 128, 2, 112), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    out, lse = kops.flash_attention_cuda(q, k, v, return_lse=True)
+    fwd = kops.launch_counts()["flash_attention"]
+    bwd = kops.backward_launch_counts()["flash_attention_bwd"]
+    with pytest.raises(NotImplementedError, match="K1"):
+        kops.flash_attention_bwd_cuda(q, k, v, out, out, lse)
+    with pytest.raises(NotImplementedError, match="K1"):
+        kops.attention(q.requires_grad_(True), k, v)
+    assert kops.launch_counts()["flash_attention"] == fwd
+    assert kops.backward_launch_counts()["flash_attention_bwd"] == bwd
+    lib = _build.library()
+    rows = torch.empty((1, 2, 2, lib.ember_flash_bwd_rows(128)),
+                       device=cuda)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for variant in (0, 1):
+        err = lib.ember_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), 1, 128, 128, 2, 2, 112, 112, 1, 1,
+            0, 112 ** -0.5, variant, torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+
+
 def test_flash_kernel_at_head_dim_80_leaves_its_neighbours_alone(cuda):
     """The 80-wide output map stores only the 80 real columns: a view of
     q, k, v and o inside larger buffers keeps the bytes past each tensor."""
@@ -678,7 +760,7 @@ def test_bf16_flash_kernel_with_a_window_at_prefill_length(cuda, d, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 80, 112, 128, 192, 256])
 def test_kv_tile_is_the_kernels_own(cuda, dtype, d):
     """The checks sum the plain version over kv_tile(dtype, d) keys: that
     must be the KV tile the built kernel streams at that q/k width."""
@@ -1091,6 +1173,56 @@ def test_reduced_lm_served_on_the_card_matches_the_cpu(cuda):
                                             np.array([1]), caches)
 
 
+def test_reduced_zamba2_at_head_dim_112_served_on_the_card_matches_the_cpu(
+        cuda):
+    """The reduced zamba2 widened to d_model 448 (4 heads of 112, the full
+    model's head dim; fp32) served on the card through the captured wave
+    (the mamba decode and the shared attention in its graphs): every
+    emitted token is the CPU model's argmax on the same teacher-forced
+    sequence, or within 1e-4 of its largest logit; the gather ran once a
+    wave; a prefill at head dim 112 (the two shared_attn layers'
+    flash launches) agrees with the CPU's at 1e-4."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
+    cfg = dataclasses.replace(get_reduced("zamba2-7b"), d_model=448,
+                              d_ff=512)
+    assert cfg.hd == 112
+    host = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, seed=0)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (9, 4, 13, 6, 2)]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
+    srv = DecodeServer(card, batch_slots=2, max_len=64, prefill_chunk=4,
+                       pipeline=True)
+    assert isinstance(srv._wave, WaveGraph)
+    kops.reset_launch_counts()
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    variants = kops.variant_launch_counts()["block_gather"]
+    assert variants["bulk"] == variants["group"] == srv.serve_stats["waves"]
+    for p, r in zip(prompts, reqs):
+        assert r.status == "ok" and len(r.out) == 8
+        caches = host.init_caches(1, 64)
+        logits, caches = host.wave_step(p[None], np.array([len(p)]), caches)
+        for j, tok in enumerate(r.out):
+            lg = logits[0, 0]
+            assert float(lg[tok]) >= float(lg.max()) - 1e-4, (j, tok)
+            logits, caches = host.wave_step(np.array([[tok]]),
+                                            np.array([1]), caches)
+    # the prefill at head dim 112 through the flash kernel
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    before = kops.flash_attention_cuda.instances["float32 112/112 causal"]
+    got = card.prefill(tokens.cuda())
+    assert kops.flash_attention_cuda.instances["float32 112/112 causal"] == \
+        before + 2
+    torch.testing.assert_close(got.cpu(), host.prefill(tokens), rtol=1e-4,
+                               atol=1e-4)
+
+
 def _lockstep(model, prompts, new_tokens, **kw):
     """Serve ``prompts`` through two servers stepped in turn: one replays
     its captured graphs, the other runs the LM's eager wave on its own
@@ -1132,6 +1264,7 @@ def _lockstep(model, prompts, new_tokens, **kw):
 @pytest.mark.parametrize("arch,over", [
     ("chatglm3-6b", {}), ("chatglm3-6b", {"kv_cache_dtype": "int8"}),
     ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"}),
+    ("zamba2-7b", {}), ("zamba2-7b", {"dtype": "bfloat16"}),
     ("deepseek-v2-lite-16b", {}),
     ("deepseek-v2-lite-16b", {"dtype": "bfloat16"}),
     ("qwen3-moe-235b-a22b", {}),
@@ -1742,14 +1875,18 @@ TRAIN_CONFIGS = [
     ("qwen3-moe-235b-a22b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
     ("llava-next-34b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
     ("whisper-large-v3", dict(d_model=256, num_heads=4, num_kv_heads=4)),
+    ("zamba2-7b", dict(d_model=256, num_heads=4, num_kv_heads=4)),
 ]
 
 
 def _attention_layers(cfg) -> int:
-    """Flash launches a forward: a decoder layer's self-attention, an xdec
-    layer's cross-attention besides, an encoder layer's."""
+    """Flash launches a forward: a decoder layer's self-attention (every
+    kind but mamba), an xdec layer's cross-attention besides, an encoder
+    layer's."""
     from repro_torch.models.lm import layer_kinds
-    return cfg.num_layers + layer_kinds(cfg).count("xdec") + cfg.enc_layers
+    kinds = layer_kinds(cfg)
+    return len(kinds) - kinds.count("mamba") + kinds.count("xdec") + \
+        cfg.enc_layers
 
 
 @pytest.mark.parametrize("arch,over", TRAIN_CONFIGS)

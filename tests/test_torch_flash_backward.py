@@ -19,7 +19,7 @@ import torch
 
 from repro.models import attention as jattn
 from repro_torch.kernels import ops as kops, ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention import HEAD_DIMS, NO_BACKWARD_DIMS
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
@@ -33,8 +33,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 # Flash attention and the block gather
 # ---------------------------------------------------------------------------
 
+#: the width pairs with a backward (the forward's but (112, 112): ROADMAP
+#: K1; test_torch_zamba2.py holds its refusal)
+BACKWARD_DIMS = [dims for dims in HEAD_DIMS if dims not in NO_BACKWARD_DIMS]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+@pytest.mark.parametrize("d,dv", BACKWARD_DIMS)
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("window", [None, 7])
 def test_flash_attention_gradients_match_jax_grad(dtype, d, dv, group,

@@ -132,6 +132,26 @@ def test_port_runs_with_jax_and_repro_unimportable():
             out = Trainer(whisper, wdata, TrainerConfig(
                 total_steps=2, ckpt_every=1, ckpt_dir=d)).run()
         assert all(np.isfinite(out["losses"]))
+        # zamba2: the mamba and shared_attn kinds, a prefill, a served
+        # wave, two trainer steps
+        zcfg = get_reduced("zamba2-7b")
+        zamba = LM(zcfg, device="cpu", seed=3)
+        assert [type(b).__name__ for b in zamba.blocks[:3]] == \
+            ["MambaBlock", "MambaBlock", "SharedAttnBlock"]
+        last = zamba.prefill(torch.randint(0, 256, (2, 16)))
+        assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
+        srv = DecodeServer(zamba, batch_slots=2, max_len=32, prefill_chunk=4,
+                           pipeline=True)
+        req = Request(prompt=np.arange(6, dtype=np.int32), max_new_tokens=2)
+        srv.submit(req)
+        srv.run_until_drained()
+        assert req.status == "ok" and len(req.out) == 2
+        zdata = SyntheticTokens(DataConfig(vocab_size=zcfg.vocab_size,
+                                           seq_len=16, global_batch=2))
+        with tempfile.TemporaryDirectory() as d:
+            out = Trainer(zamba, zdata, TrainerConfig(
+                total_steps=2, ckpt_every=1, ckpt_dir=d)).run()
+        assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -148,6 +168,7 @@ def test_no_port_source_imports_jax_or_the_reference():
     assert len(files) > 20
     assert {f"{n}.py" for n in ("gemma3_4b", "h2o_danube_1_8b",
                                  "llava_next_34b", "whisper_large_v3",
+                                 "zamba2_7b", "ssm", "linear_scan",
                                  "trainer", "ckpt",
                                  "adamw", "compress", "schedule",
                                  "pipeline", "train")} <= \

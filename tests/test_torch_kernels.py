@@ -290,8 +290,8 @@ def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
     version against the reference's Pallas flash kernel in interpret mode
     (one head per batch row there, KV heads repeated), f32, 2e-5."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    assert HEAD_DIMS == ((64, 64), (80, 80), (128, 128), (192, 128),
-                         (256, 256))
+    assert HEAD_DIMS == ((64, 64), (80, 80), (112, 112), (128, 128),
+                         (192, 128), (256, 256))
     rng = np.random.default_rng(h + causal)
     b, s, d = 2, 128, 80
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)
@@ -305,6 +305,30 @@ def test_flash_wrapper_at_head_dim_80_matches_the_reference(causal, h, hkv):
             for a in (q, k, v)]
     want = jops.attention(*map(jnp.asarray, flat), causal=causal,
                           block_q=64, block_k=64, interpret=True)
+    want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL_F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
+def test_flash_wrapper_at_head_dim_112_matches_the_reference(causal, h, hkv):
+    """zamba2-7b's head dim, which the card's kernel also takes padded to
+    128: on CPU tensors the wrapper's plain version against the
+    reference's Pallas flash kernel in interpret mode, f32, 2e-5, over a
+    ragged 200 positions."""
+    rng = np.random.default_rng(h + causal + 112)
+    b, s, d = 2, 200, 112
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    tops.reset_launch_counts()
+    got = tops.attention(_t(q), _t(k), _t(v), causal=causal, chunk=40)
+    assert tops.launch_counts()["flash_attention"] == 0
+    flat = [np.ascontiguousarray(np.repeat(a, h // a.shape[2], 2)
+                                 .transpose(0, 2, 1, 3)).reshape(b * h, s, d)
+            for a in (q, k, v)]
+    want = jops.attention(*map(jnp.asarray, flat), causal=causal,
+                          block_q=40, block_k=40, interpret=True)
     want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(got.numpy(), want, **TOL_F32)
 

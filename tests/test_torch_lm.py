@@ -206,7 +206,7 @@ def test_configs_equal_the_reference():
         assert dataclasses.asdict(get_reduced(name)) == \
             dataclasses.asdict(jred(name))
     with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-7b")
+        get_config("xlstm-1.3b")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -318,23 +318,23 @@ def test_full_chatglm3_builds_on_meta_with_the_reference_count():
 
 def test_lm_rejects_block_kinds_not_ported():
     cfg = dataclasses.replace(get_reduced("stablelm-3b"),
-                              block_pattern=("dense_local", "mamba"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+                              block_pattern=("dense_local", "mlstm"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
         LM(cfg, device="meta")
 
 
 def test_kv_tile_is_each_kernels_tile():
     """bf16 runs the wgmma kernel (kBK = 128 keys, 64 at q/k width 256),
     f32 the scalar kernel (kF32BK = 64); no other dtype or width has a
-    flash kernel."""
-    for d in (64, 80, 128, 192):
+    flash kernel (112 runs the padded 128 kernel: its tile)."""
+    for d in (64, 80, 112, 128, 192):
         assert kv_tile(torch.bfloat16, d) == 128
         assert kv_tile(torch.float32, d) == 64
     assert kv_tile(torch.bfloat16, 256) == kv_tile(torch.float32, 256) == 64
     with pytest.raises(ValueError, match="no flash kernel"):
         kv_tile(torch.float16, 128)
     with pytest.raises(ValueError, match="no flash kernel at q/k width"):
-        kv_tile(torch.bfloat16, 112)
+        kv_tile(torch.bfloat16, 96)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -39,7 +39,7 @@ BF16 = dict(rtol=5e-2, atol=5e-2)
 #: front end)
 LOSS_ARCHS = ["stablelm-3b", "chatglm3-6b", "h2o-danube-1.8b", "gemma3-4b",
               "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b",
-              "llava-next-34b"]
+              "llava-next-34b", "zamba2-7b"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -126,10 +126,13 @@ def test_lm_loss_gradients_match_jax_grad(arch):
     model.requires_grad_(True)
     model.loss(tokens, labels, fe).backward()
     named = dict(model.named_parameters())
-    assert all(p.grad is not None for p in named.values()), [
-        k for k, p in named.items() if p.grad is None]
-    got = lm_params_to_reference({k: p.grad for k, p in named.items()},
-                                 model.cfg)
+    # a mamba layer's norm_z is read nowhere, in the reference too: no
+    # gradient here (the trainer gives it zeros), zeros from jax.grad
+    unreached = [k for k, p in named.items() if p.grad is None]
+    assert all(k.endswith(".mamba.norm_z") for k in unreached), unreached
+    got = lm_params_to_reference(
+        {k: p.grad if p.grad is not None else torch.zeros_like(p)
+         for k, p in named.items()}, model.cfg)
     want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
     got_leaves = dict(jax.tree_util.tree_flatten_with_path(
         jax.tree.map(_np, got))[0])
@@ -270,21 +273,23 @@ def test_synthetic_tokens_equal_the_reference(modality):
             np.testing.assert_array_equal(got[k], want[k])
 
 
-def test_trainer_first_losses_match_the_reference(tmp_path):
-    """The reduced stablelm trainer (seq 16, batch 8, as the reference's
-    system tests) from the reference's initial weights: the first five
-    losses at 1e-4 relative."""
+@pytest.mark.parametrize("arch", ["stablelm-3b", "zamba2-7b"])
+def test_trainer_first_losses_match_the_reference(tmp_path, arch):
+    """The reduced stablelm and zamba2 trainers (seq 16, batch 8, as the
+    reference's system tests) from the reference's initial weights: the
+    first five losses at 1e-4 relative (zamba2: the shared set updated once
+    a step from the gradient summed over its occurrences)."""
     from repro.runtime.trainer import Trainer as JTrainer, \
         TrainerConfig as JTrainerConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    cfg = jget_reduced("stablelm-3b")
+    cfg = jget_reduced(arch)
     jdata = jpipe.SyntheticTokens(jpipe.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=16, global_batch=8))
     want = JTrainer(JLM(cfg), jdata, JTrainerConfig(
         total_steps=5, ckpt_every=100, ckpt_dir=str(tmp_path / "j"))).run(
         jax.random.PRNGKey(0))["losses"]
     params = JLM(cfg).init(jax.random.PRNGKey(0))
-    model = LM(get_reduced("stablelm-3b"), device="cpu")
+    model = LM(get_reduced(arch), device="cpu")
     model.load_state_dict(lm_params_from_reference(
         jax.tree.map(np.asarray, params), cfg, "cpu"))
     tdata = tpipe.SyntheticTokens(tpipe.DataConfig(
@@ -293,5 +298,4 @@ def test_trainer_first_losses_match_the_reference(tmp_path):
         total_steps=5, ckpt_every=100, ckpt_dir=str(tmp_path / "t"))).run()[
         "losses"]
     np.testing.assert_allclose(got, want, rtol=1e-4)
-    assert dataclasses.asdict(get_reduced("stablelm-3b")) == \
-        dataclasses.asdict(cfg)
+    assert dataclasses.asdict(get_reduced(arch)) == dataclasses.asdict(cfg)
