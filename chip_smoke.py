@@ -6,6 +6,7 @@
     python3 chip_smoke.py --training-only [--seed N]   # phase 13 alone
     python3 chip_smoke.py --whisper-only [--seed N]    # phase 14 alone
     python3 chip_smoke.py --zamba2-only [--seed N]     # phase 15 alone
+    python3 chip_smoke.py --xlstm-only [--seed N]      # phase 16 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -218,29 +219,55 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``DecodeServer(batch_slots=8, max_len=512, prefill_chunk=16,
    pipeline=True)``'s captured waves: every request ok, the gather once a
    wave, ``prefill_chunk=1`` the same tokens and bit-identical logits,
-   graph == eager in lockstep (logits and every cache leaf, the mamba
-   state and conv window included); tokens/s, a captured micro-step's
+   graph == eager in lockstep over the prompts' first quarters (logits and
+   every cache leaf, the mamba state and conv window included); tokens/s,
+   a captured micro-step's
    device ms against its weight bound, its device operations.  Forward
    == decode: each prompt's last-token logits from the chunked forward
    against the captured decode replay's within
    ``ZAMBA_FWD_DECODE_REL_L2``, which two planted decode faults (a mamba
    layer's decay skipped, another's conv window shifted by one) must
    exceed;
-16. one JSON line listing the kernels with the kernel (variant) that
+16. xlstm-1.3b (``phase_xlstm``; ``--xlstm-only`` runs it alone after the
+   build): 48 layers at full width (36 ``mlstm``, 12 ``slstm``; d_model
+   2048, 4 heads of 512, chunk 256; bf16, random weights), no attention.
+   The first super-block in fp32 on the card against the CPU (1 x 512
+   tokens, then 16 decode steps: hidden states, logits and every cache
+   leaf within ``XLSTM_CARD_CPU_REL_L2``).  Prefill: 4 x 4096 tokens
+   through ``LM.prefill`` (no hand-written kernel on it: the embedding's
+   forward is ``index_select``), ms and peak memory; one layer of each
+   kind at its shapes under torch.profiler, by class (GEMMs, the mLSTM
+   scans, the sLSTM recurrence, elementwise), and alone the two scans of
+   an mlstm layer and the 4096-step loop of an slstm layer.  Serving: as
+   phase 15 (8 requests of 256 or 320 prompt tokens, 32 new tokens,
+   captured waves, the gather once a wave, chunk 1 == whole and graph ==
+   eager bit for bit over the prompts' first quarters, every cache leaf),
+   a captured micro-step against its bound (the weights read once and
+   the recurrent caches read and written once).  Training: the Trainer
+   on 1 x 2048 tokens, 2 steps, twice from one seed, losses and
+   parameters bit-equal, one
+   transposition and one sparse ``ember_sls`` launch a step, a nonzero
+   gradient for every parameter.  Forward == decode: the chunked
+   forward's last-token logits and every layer's final state against the
+   captured decode replay's, read in bf16 and held in fp32 within
+   ``XLSTM_FWD_DECODE_REL_L2``, above which two planted decode faults
+   (an mlstm layer's normaliser ``n`` left unupdated, an slstm layer's
+   recurrent term dropped) must land;
+17. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
    llava-next-34b prefills, the training steps and whisper's prefill,
-   served micro-steps and training steps, and zamba2-7b's prefill and
-   served waves, with flash's
+   served micro-steps and training steps, zamba2-7b's prefill and
+   served waves, and xlstm-1.3b's served waves, with flash's
    ``instances``: the launches by dtype, widths, causal and window; sls's
    DLRM's and the gather backwards' that ran ``sls_kernel``), the flash
    backward (``flash_attention_bwd``, its launches by instance: danube's
    and whisper's), the gather backward's transposition
    (``gather_transpose``) and sparse sum (``sls_sparse``), each with its
-   launches in the danube, reduced MoE and whisper trainings and its
-   times at the four shapes, error, times and bounds;
-17. ``{"ok": true, "device": {...}}`` as the last line.
+   launches in the danube, reduced MoE, whisper and xlstm trainings and
+   its times at the five shapes, error, times and bounds;
+18. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -347,6 +374,14 @@ EAGER_BASELINE = {"host_ms_micro_step": 42.84, "device_ms_micro_step": 9.15,
 
 # H100 SXM (NVIDIA data sheet, dense, 700 W): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
+# torch.profiler can lose device records: one H100 run traced 646 of a
+# served drive's 3,637 gathers, where every other run of the same drive
+# traced them all, and a profile in a process that profiled before has
+# missed the first kernels of a short call.  So a profiled drive waits
+# PROFILE_PAD_S on an idle device before and after it, inside the profile;
+# and as the profiler adds no record, a drive whose trace a check counts is
+# traced again, up to PROFILE_TRIES times, until the count is the check's
+PROFILE_TRIES, PROFILE_PAD_S = 3, 1.0
 FP32_FLOPS = 67e12           # outside the tensor cores
 BF16_TC_FLOPS = 989e12
 
@@ -446,6 +481,11 @@ WHISPER_TRAIN_STEPS = 3
 # new tokens each in a closed batch, through the server settings of phase 8
 ZAMBA_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
 ZAMBA_REQUESTS, ZAMBA_NEW_TOKENS = 8, 32
+# the graph == eager lockstep of phases 15 and 16 serves the prompts' first
+# quarters (64 or 80 tokens) and LOCKSTEP_NEW_TOKENS new tokens: an eager
+# micro-step of these models takes ~77 ms (xlstm-1.3b) or more of host time
+# on the H100's host, so the whole drive's ~350 would take 30 s or more
+LOCKSTEP_NEW_TOKENS = 8
 # zamba2-7b's random weights (the reference's init) make its 81-layer stack
 # chaotic in bf16: each mamba layer multiplies two projections (y * silu(z)),
 # so a bf16 step in one layer's output grows with depth. Two plain attentions
@@ -472,6 +512,45 @@ ZAMBA_PREFILL_REL_L2 = 0.6
 # faults must exceed the bound.  The first fp32 reading was 0.00329, the
 # faults 1.265 and 1.414; the bound is 6x that reading
 ZAMBA_FWD_DECODE_REL_L2 = 2e-2
+# xlstm-1.3b (phase 16): the first super-block (three mlstm layers and an
+# slstm layer at full width) in fp32 on the card against the CPU over 1 x
+# 512 tokens, then 16 decode steps; the prefill phases' 4 x 4096 tokens;
+# served as phase 15 serves zamba2-7b: 8 requests of 256 or 320 prompt
+# tokens (pick_chunk(320, 256) = 64, so the forward's two chunk paths both
+# run) and 32 new tokens each, closed batch (the lockstep: as phase 15's,
+# LOCKSTEP_NEW_TOKENS); trained on
+# 1 x 2048 tokens a step, lr TRAIN_LR, 2 steps, twice from one seed (a
+# step takes ~40 s, nearly all of it the host issuing the sLSTM loop's
+# forward and backward: 3 steps twice would take 4 minutes of the
+# script's 20).  The sLSTM layers are profiled over a window of
+# XLSTM_WINDOW steps and scaled to the whole loop: every step issues the
+# same kernels, and a whole layer's ~100,000 kernels take minutes to read
+# under the profiler
+XLSTM_BLOCK_SEQ, XLSTM_BLOCK_DECODE = 512, 16
+XLSTM_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
+XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 2048, 2
+XLSTM_WINDOW = 256
+# the first super-block on the card against the CPU in fp32: the relative
+# L2 of the hidden states, of each decode step's logits and of every cache
+# leaf after the decode.  fp32 sums of up to 8,192 terms in another order
+# move them by ~1e-6; one product taken in TF32 (a 10-bit mantissa), a gate
+# layout reordered or a leaf in another dtype by 1e-3 or more
+XLSTM_CARD_CPU_REL_L2 = 1e-4
+# forward == decode at full width (the reference's invariant, its
+# test_recurrent_forward_matches_decode, which runs in f32), as phase 15
+# holds it for zamba2-7b: each served prompt's last-token logits from the
+# chunked forward against the captured decode replay's, and beside them
+# every recurrent layer's final state (the forward's scans' and sLSTM
+# loop's against the decode's cache leaves: C, n; h, c, n, m), the largest
+# relative L2 of any layer's leaf.  Held in fp32 on the model rebuilt from
+# the same seed, read in bf16 (0.0382 logits, 0.0653 state on the H100).
+# The first fp32 reading was 4.729e-06 (logits) and 8.125e-06 (state,
+# layer 22's C); the planted faults read 1 (n left unupdated: the state;
+# its logits 8.1e-4, since at the reference's init |n.q| rarely reaches the
+# clamp at 1) and 0.1205 (rh dropped); the bound is 6x the first reading
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6, xlstm-1.3b's findings)
+XLSTM_FWD_DECODE_REL_L2 = 5e-5
 
 
 class CheckFailed(RuntimeError):
@@ -2154,28 +2233,45 @@ def _require_served(main: dict, new_tokens: int, counts: dict,
             f"of {waves}")
 
 
-def _profiled_drive(model, prompts, new_tokens: int) -> dict:
+def _profiled_drive(model, prompts, new_tokens: int, tally=None,
+                    want=None) -> dict:
     """Device busy share over a drive: the same drive again (the same
     waves: with no deadline the schedule does not depend on time) under
     torch.profiler, device events only, summed from the raw events.
     Returns the device time by name (ns, largest first), the number of
     device operations and of each by name (replays of a captured graph
-    included), the busy ms and the profiled drive's wall s."""
+    included), the busy ms and the profiled drive's wall s (its idle pads
+    left out).  With
+    ``tally`` (counts by name -> what a check reads) and ``want``, a trace
+    whose tally is not ``want`` is taken again, up to PROFILE_TRIES drives;
+    ``short`` lists the tallies of the traces set aside."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    tp = profile(activities=[ProfilerActivity.CUDA])
-    tp.start()
-    wall = _serve_drive(model, prompts, SERVE_CHUNK, new_tokens)["wall"]
-    tp.stop()
-    by_name: dict = {}
-    count: dict = {}
-    for e in tp.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
-            count[e.name()] = count.get(e.name(), 0) + 1
+    short = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        tp = profile(activities=[ProfilerActivity.CUDA])
+        tp.start()
+        time.sleep(PROFILE_PAD_S)
+        wall = _serve_drive(model, prompts, SERVE_CHUNK, new_tokens)["wall"]
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        tp.stop()
+        by_name: dict = {}
+        count: dict = {}
+        for e in tp.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                by_name[e.name()] = by_name.get(e.name(), 0) + \
+                    e.duration_ns()
+                count[e.name()] = count.get(e.name(), 0) + 1
+        if tally is None or tally(count) == want:
+            break
+        short.append(tally(count))
     return {"dev": sorted(by_name.items(), key=lambda kv: -kv[1]),
             "launches": sum(count.values()), "count": count,
-            "busy_ms": sum(by_name.values()) / 1e6, "wall": wall}
+            "busy_ms": sum(by_name.values()) / 1e6, "wall": wall,
+            "short": short}
 
 
 def phase_serving(seed: int, card: str) -> dict:
@@ -2876,20 +2972,23 @@ def _deepseek_serving(model, seed: int, card: str) -> dict:
     del held, table, got, other, indexed, stock
     graph_dev = _graph_device_ms(srv)
     issue_ms = _graph_issue_ms(srv)
-    prof = _profiled_drive(model, prompts, STABLELM_NEW_TOKENS)
     # the same drive again under the profiler: every gather that ran on the
     # device, the replayed micro-steps' one a layer included, and the
     # warm-up's (the capture launches nothing)
     in_graph = n_layers * m["micro_steps"]
     want_traced = 2 * waves + in_graph + 2 * n_layers
-    traced = {k: sum(n for name, n in prof["count"].items() if k in name)
-              for k in ("gather_bulk_kernel", "group_insert_kernel",
-                        "gather_kernel")}
-    require(traced == {"gather_bulk_kernel": want_traced,
-                       "group_insert_kernel": want_traced,
-                       "gather_kernel": 0},
+    want = {"gather_bulk_kernel": want_traced,
+            "group_insert_kernel": want_traced, "gather_kernel": 0}
+
+    def tally(count: dict) -> dict:
+        return {k: sum(n for name, n in count.items() if k in name)
+                for k in want}
+    prof = _profiled_drive(model, prompts, STABLELM_NEW_TOKENS, tally, want)
+    traced = tally(prof["count"])
+    require(traced == want,
             f"DeepSeek served {waves} waves, {m['micro_steps']} micro-steps: "
-            f"the device trace holds {traced} gathers, expected "
+            f"the device trace holds {traced} gathers ({len(prof['short'])} "
+            f"of the drive's traces short: {prof['short']}), expected "
             f"{want_traced} bulk gathers, each with its grouping pass")
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
@@ -2917,7 +3016,8 @@ def _deepseek_serving(model, seed: int, card: str) -> dict:
           f"{traced['gather_bulk_kernel']} bulk gathers (grouping passes "
           f"{traced['group_insert_kernel']}) = {2 * waves} for the members "
           f"+ {in_graph} in the replayed micro-steps ({n_layers} a "
-          f"micro-step) + {2 * n_layers} in the warm-up; peak device memory "
+          f"micro-step) + {2 * n_layers} in the warm-up (traces "
+          f"set aside as short: {prof['short']}); peak device memory "
           f"{peak / 2**30:.2f} GiB; {card}")
     print(f"[9 deepseek serving checks] un-dispatch member: backend cuda == "
           f"torch == table[idxs] bit for bit ({srv._undisp_segments} rows "
@@ -2960,7 +3060,8 @@ def _deepseek_serving(model, seed: int, card: str) -> dict:
               "tokens_per_s": m["tokens_per_s"],
               "device_ms_micro_step": graph_dev["unmasked"],
               "issue_ms_micro_step": issue_ms,
-              "bound_ms_micro_step": bound_ms}
+              "bound_ms_micro_step": bound_ms,
+              "traces_short": len(prof["short"])}
     del main, srv, reqs, lock, prof
     free_cuda()
     return result
@@ -3078,12 +3179,13 @@ def _flash_layer_line(tag: str, what: str, q, k, t: dict, card: str) -> str:
 
 def _attention_layers(cfg) -> int:
     """Flash launches in one forward of ``cfg``: a decoder layer's
-    self-attention (every kind but ``mamba``), an ``xdec`` layer's
-    cross-attention besides, and each encoder layer's."""
+    self-attention (every kind but the recurrent ``mamba``, ``mlstm`` and
+    ``slstm``), an ``xdec`` layer's cross-attention besides, and each
+    encoder layer's."""
     from repro_torch.models.lm import layer_kinds
     kinds = layer_kinds(cfg)
-    return len(kinds) - kinds.count("mamba") + kinds.count("xdec") + \
-        cfg.enc_layers
+    recurrent = sum(kinds.count(k) for k in ("mamba", "mlstm", "slstm"))
+    return len(kinds) - recurrent + kinds.count("xdec") + cfg.enc_layers
 
 
 def _checked_prefill(model, tokens, what: str, fe=None, enc=None,
@@ -4253,27 +4355,32 @@ def _moe_training(seed: int, card: str) -> dict:
 # Phase 14: whisper-large-v3
 # ---------------------------------------------------------------------------
 
-def _gather_backward_kernels(sls: dict, training: dict, wt: dict) -> list:
+def _gather_backward_kernels(sls: dict, training: dict, wt: dict,
+                             xt: dict) -> list:
     """The gather backward's share of the kernels line: the rows variant's
     backward launches (the reduced MoE's token embedding) onto ``sls``,
     and the entries of the transposition kernel and the sparse sum, their
-    launches from the danube, reduced MoE and whisper trainings, their
-    times at danube's shape and the splits at all four shapes."""
+    launches from the danube, reduced MoE, whisper and xlstm trainings,
+    their times at danube's shape and the splits at all five shapes."""
     moe = training.pop("gather")
     splits = {"danube_embedding": training.pop("embedding_backward_split"),
               "whisper_embedding": wt.pop("embedding_backward_split"),
+              "xlstm_embedding": xt.pop("embedding_backward_split"),
               "moe_undispatch": moe.pop("gather_backward_split"),
               "deepseek_undispatch": moe.pop(
                   "gather_backward_deepseek_split")}
     bwd = {"danube": training.pop("embedding_backward_launches"),
            "moe": moe.pop("gather_backward_launches"),
-           "whisper": wt.pop("sls_launches")}
+           "whisper": wt.pop("sls_launches"),
+           "xlstm": xt.pop("sls_launches")}
     transposes = {"danube": training.pop("embedding_backward_transposes"),
                   "moe": moe.pop("gather_backward_transposes"),
-                  "whisper": wt.pop("transposes")}
+                  "whisper": wt.pop("transposes"),
+                  "xlstm": xt.pop("transposes")}
     sparse = {"danube": training.pop("embedding_backward_sparse"),
               "moe": moe.pop("gather_backward_sparse"),
-              "whisper": wt.pop("sparse_launches")}
+              "whisper": wt.pop("sparse_launches"),
+              "xlstm": xt.pop("sparse_launches")}
     sls["gather_backward_launches"] = sum(bwd.values()) - \
         sum(sparse.values())
     sls["launches"] += sls["gather_backward_launches"]
@@ -4305,6 +4412,7 @@ def _gather_backward_kernels(sls: dict, training: dict, wt: dict) -> list:
         "library": "F.embedding_bag(mode='sum') over the same CSR",
         "held_against_plain": True, "backward_by_shape": splits}
     summed.update(moe)
+    summed.update({f"xlstm_training_{k}": v for k, v in xt.items()})
     return [transpose, summed]
 
 
@@ -4743,63 +4851,77 @@ def _gemm_kernel(name: str) -> bool:
     return any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
 
 
-def _prefill_classes(model, tokens) -> dict:
-    """One more prefill under torch.profiler, its device time split by
-    class: ``ssd`` (every kernel launched inside ``models.ssm._ssd_chunked``,
-    which runs here inside a record_function range: a kernel is matched to
-    its launch by the profiler's correlation id, and the launch to the
-    range by its host time), ``flash`` (the attention kernel), ``gemm``
-    (cuBLAS / CUTLASS products outside the SSD) and ``elementwise`` (the
-    rest: norms, the conv, the gates, casts, copies).  Returns ms by class
-    and the profiled prefill's wall ms."""
+def _device_classes(fn, ranges: dict) -> dict:
+    """One call of ``fn`` under torch.profiler, its device time split by
+    class: each class of ``ranges`` (name -> (module, function): every
+    kernel launched inside that function, which runs here inside a
+    record_function range of the name; a kernel is matched to its launch
+    by the profiler's correlation id, and the launch to the range by its
+    host time), ``flash`` (the attention kernel), ``gemm`` (cuBLAS /
+    CUTLASS products outside the ranges) and ``elementwise`` (the rest:
+    norms, the conv, the gates, casts, copies).  ``fn`` runs twice under
+    the profiler and only the second call, inside a range of its own, is
+    read: a profile started in a process that profiled before missed most
+    of a short call's kernels (an mlstm layer's 182 read as 67 on the
+    H100).  Returns ms by class, the calls of each range, the device
+    kernels and the read call's wall ms.  Only for calls of up to a few
+    hundred thousand kernels: the events are read one by one in Python
+    (about 5 s a million)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import ssm
-    inner = ssm._ssd_chunked
 
-    def ssd(*args, **kw):
-        with record_function("ssd_chunked"):
-            return inner(*args, **kw)
+    def ranged(name, inner):
+        def call(*args, **kw):
+            with record_function(name):
+                return inner(*args, **kw)
+        return call
     torch.cuda.synchronize()
-    with _OpSwap("_ssd_chunked", ssd, ssm), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as tp:
-        t0 = time.perf_counter()
-        model.prefill(tokens)
+    with contextlib.ExitStack() as stack:
+        for name, (module, attr) in ranges.items():
+            stack.enter_context(_OpSwap(
+                attr, ranged(name, getattr(module, attr)), module))
+        tp = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with record_function("read"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
     events = list(tp.profiler.kineto_results.events())
     # the host's ranges (the device timeline carries a copy of each range
     # as an annotation, later in time: neither a range nor a kernel here)
-    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                    for e in events if e.name() == "ssd_chunked"
-                    and e.device_type() == DeviceType.CPU)
-    starts = np.array([a for a, _ in ranges], np.int64)
-    ends = np.array([b for _, b in ranges], np.int64)
+    host = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+            for e in events if e.device_type() == DeviceType.CPU
+            and e.name() in ("read", *ranges)]
+    (read0, read1, _), = [h for h in host if h[2] == "read"]
+    spans = sorted(h for h in host if h[2] != "read" and h[0] >= read0)
+    starts = np.array([a for a, _, _ in spans], np.int64)
 
-    def in_ssd(t: int) -> bool:
+    def range_of(t: int):
         i = int(np.searchsorted(starts, t, side="right")) - 1
-        return i >= 0 and t < ends[i]
-    launched_in_ssd = {e.correlation_id() for e in events
-                       if e.device_type() == DeviceType.CPU
-                       and e.name().startswith("cu")
-                       and e.correlation_id() and in_ssd(e.start_ns())}
-    ms = dict.fromkeys(("gemm", "flash", "ssd", "elementwise"), 0.0)
+        return spans[i][2] if i >= 0 and t < spans[i][1] else ""
+    launched = {}          # correlation id -> range ("" for none)
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name().startswith("cu") \
+                and e.correlation_id() and read0 <= e.start_ns() < read1:
+            launched[e.correlation_id()] = range_of(e.start_ns())
+    ms = dict.fromkeys(("gemm", "flash", *ranges, "elementwise"), 0.0)
+    kernels = 0
     for e in events:
         if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 or \
-                e.name() == "ssd_chunked":
+                e.correlation_id() not in launched:
             continue
-        if e.correlation_id() in launched_in_ssd:
-            kind = "ssd"
-        elif "flash" in e.name():
-            kind = "flash"
-        elif _gemm_kernel(e.name()):
-            kind = "gemm"
-        else:
-            kind = "elementwise"
+        kernels += 1
+        kind = launched[e.correlation_id()] or (
+            "flash" if "flash" in e.name() else
+            "gemm" if _gemm_kernel(e.name()) else "elementwise")
         ms[kind] += e.duration_ns() / 1e6
-    return {"ms": ms, "wall_ms": wall, "ssd_calls": len(ranges)}
+    return {"ms": ms, "wall_ms": wall, "kernels": kernels,
+            "calls": {n: sum(1 for s in spans if s[2] == n)
+                      for n in ranges}}
 
 
 def _ssd_layer_ms(model, tokens) -> tuple:
@@ -5053,7 +5175,9 @@ def phase_zamba2(seed: int, card: str) -> dict:
                             "columns)", q, k, t, card))
     del q, k, v
     run["layers"].clear()
-    classes = _prefill_classes(model, tokens)
+    from repro_torch.models import ssm
+    classes = _device_classes(lambda: model.prefill(tokens),
+                              {"ssd": (ssm, "_ssd_chunked")})
     ssd_ms, ssd_flops = _ssd_layer_ms(model, tokens)
     busy = sum(classes["ms"].values())
     n_mamba = cfg.num_layers - n_shared
@@ -5064,7 +5188,8 @@ def phase_zamba2(seed: int, card: str) -> dict:
               f"{k} {v:.2f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
               for k, v in sorted(classes["ms"].items(),
                                  key=lambda kv: -kv[1])) +
-          f" ({classes['ssd_calls']} SSD scans); one layer's SSD scan alone "
+          f" ({classes['calls']['ssd']} SSD scans); one layer's SSD scan "
+          f"alone "
           f"(CUDA events) {ssd_ms:.3f} ms, x {n_mamba} = "
           f"{ssd_ms * n_mamba:.1f} ms a prefill ({ssd_flops / 1e9:.1f} "
           f"GFLOP of fp32 products a layer, "
@@ -5097,10 +5222,8 @@ def phase_zamba2(seed: int, card: str) -> dict:
                 f"zamba2-7b request {i}: last-wave logits differ between "
                 f"prefill_chunk={SERVE_CHUNK} and 1")
     del chunk1
-    lock = _lockstep_drive(model, prompts, ZAMBA_NEW_TOKENS)
-    for i, (r, r2) in enumerate(zip(main["reqs"], lock["reqs"])):
-        require(r.out == r2.out, f"zamba2-7b request {i}: the lockstep drive "
-                f"emitted {r2.out[:6]}... vs {r.out[:6]}...")
+    lock = _lockstep_drive(model, [p[:len(p) // 4] for p in prompts],
+                           LOCKSTEP_NEW_TOKENS)
     lock_ms = {n: v * 1e3 / lock["micro_steps"]
                for n, v in lock["host_s"].items()}
     lock_waves, lock_micro, lock_leaves = (lock["waves"], lock["micro_steps"],
@@ -5131,9 +5254,11 @@ def phase_zamba2(seed: int, card: str) -> dict:
           f"launches {counts['block_gather']} = one a wave (rows of "
           f"{cfg.d_model * 2} B from {cfg.padded_vocab}); prefill_chunk=1: "
           f"the same tokens and bit-identical last-wave logits; graph vs "
-          f"eager in lockstep: {lock_waves} waves, {lock_micro} "
-          f"micro-steps, every wave's logits and every cache leaf (the "
-          f"mamba state and conv window included) after every iteration "
+          f"eager in lockstep (the prompts' first quarters, "
+          f"{LOCKSTEP_NEW_TOKENS} new tokens): {lock_waves} waves, "
+          f"{lock_micro} micro-steps, every wave's logits and every cache "
+          f"leaf (the mamba state and conv window included) after every "
+          f"iteration "
           f"({lock_leaves} comparisons) the same bits, the same tokens; "
           f"peak device memory {peak / 2**30:.2f} GiB; {card}")
     bf16_fd = _fwd_decode(model, srv, prompts)
@@ -5232,6 +5357,654 @@ def _zamba2_fp32(seed: int, prompts) -> dict:
     free_cuda()
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 16: xlstm-1.3b (mlstm + slstm) prefilled, served and trained
+# ---------------------------------------------------------------------------
+
+def _xlstm_card_vs_cpu(seed: int) -> dict:
+    """The first super-block of xlstm-1.3b (three mlstm layers and one
+    slstm layer at full width, with the embedding and the final norm) in
+    fp32 from one set of weights on the card and on the CPU: the hidden
+    states over 1 x XLSTM_BLOCK_SEQ tokens (two chunks of 256), then
+    XLSTM_BLOCK_DECODE decode steps of the next tokens from empty caches,
+    each step's logits and every cache leaf after them (dtype for dtype),
+    each within XLSTM_CARD_CPU_REL_L2.  No kernel check covers this path:
+    it is what shows a product in TF32, a reordered gate layout or a leaf
+    in the wrong dtype on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=4,
+                              dtype="float32")
+    host = LM(cfg, device="cpu", seed=seed)
+    card = LM(cfg, seed=seed)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(seed + 16)
+    n = XLSTM_BLOCK_SEQ
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, n + XLSTM_BLOCK_DECODE)))
+    with torch.inference_mode():
+        want = host(tokens[:, :n])
+        got = card(tokens[:, :n].cuda()).cpu()
+    out = {"hidden": _rel(got, want), "logits": 0.0, "leaves": {}}
+    hc, cc = host.init_caches(1, 16), card.init_caches(1, 16)
+    for t in range(XLSTM_BLOCK_DECODE):
+        tok = tokens[:, n + t:n + t + 1]
+        hl, hc = host.decode_step(tok, hc)
+        cl, cc = card.decode_step(tok.cuda(), cc)
+        out["logits"] = max(out["logits"], _rel(cl.cpu(), hl))
+    for i, (h_, c_) in enumerate(zip(hc, cc)):
+        for k in h_:
+            require(c_[k].dtype == h_[k].dtype, f"xlstm layer {i}'s cache "
+                    f"leaf {k}: {c_[k].dtype} on the card, {h_[k].dtype} "
+                    f"on the CPU")
+            out["leaves"][f"{i}.{k}"] = _rel(c_[k].cpu(), h_[k])
+    worst = max(out["hidden"], out["logits"], *out["leaves"].values())
+    require(worst <= XLSTM_CARD_CPU_REL_L2 and np.isfinite(worst),
+            f"xlstm-1.3b's first super-block in fp32, card vs CPU: hidden "
+            f"{out['hidden']:.3g}, logits {out['logits']:.3g}, leaves "
+            f"{out['leaves']}, tol {XLSTM_CARD_CPU_REL_L2}")
+    out["worst"], out["d_model"] = worst, cfg.d_model
+    del host, card
+    free_cuda()
+    return out
+
+
+def _xlstm_prefill_flops(cfg, tokens: int) -> float:
+    """The GEMMs of an xlstm prefill over ``tokens`` tokens: each mlstm
+    layer's five (d, d) products, each slstm layer's ``w_in`` (d, 4d),
+    ``wo`` (d, d) and the recurrent product (h heads of (hd, 4hd)), 2 FLOP
+    a multiply-add (the gates' (d, 2h) product and the scans' chunk
+    products not counted)."""
+    from repro_torch.models.lm import layer_kinds
+    d = cfg.d_model
+    kinds = layer_kinds(cfg)
+    per_token = kinds.count("mlstm") * 5 * d * d + \
+        kinds.count("slstm") * (5 * d * d + 4 * d * d // cfg.num_heads)
+    return 2.0 * tokens * per_token
+
+
+def _scaled_classes(run: dict, factor: float) -> dict:
+    """A ``_device_classes`` reading of a window scaled to the whole call
+    (``factor`` = whole / window): device ms by class, kernels, wall ms."""
+    run["ms"] = {k: v * factor for k, v in run["ms"].items()}
+    run["kernels"] = int(run["kernels"] * factor)
+    run["wall_ms"] *= factor
+    return run
+
+
+def _recorded(module, name: str):
+    """``with _recorded(module, name) as seen``: every call of
+    ``module.<name>`` runs as it is and appends ``(args, kwargs, result)``
+    to ``seen``."""
+    inner = getattr(module, name)
+    seen = []
+
+    def record(*args, **kw):
+        out = inner(*args, **kw)
+        seen.append((args, kw, out))
+        return out
+
+    @contextlib.contextmanager
+    def swapped():
+        with _OpSwap(name, record, module):
+            yield seen
+    return swapped()
+
+
+def _xlstm_prefill(model, tokens, card: str) -> dict:
+    """xlstm-1.3b's prefill on the card: a warm-up over 256 tokens, then
+    the main path, ``LM.prefill`` over ``tokens`` (host clock,
+    synchronised; peak memory), its last hidden state finite; the first
+    mlstm and the first slstm layer's inputs kept from it.  Where the time
+    goes, one layer of each kind on those inputs under torch.profiler, its
+    device time by class (``mlstm_scan``: the two ``gated_linear_scan``
+    calls; ``slstm``: the recurrence's loop, ``_slstm_scan``; GEMMs;
+    elementwise): the mlstm layer at the prefill's shapes, the slstm layer
+    over its first XLSTM_WINDOW positions, scaled by S / XLSTM_WINDOW
+    (each step of the loop and each token of its projections issue the
+    same work); and alone by CUDA events the mlstm layer's two scans and
+    the slstm layer's whole loop.  (A whole prefill launches about a
+    million kernels: read under the profiler it would take minutes.)"""
+    import torch
+    from repro_torch.models import xlstm
+    from repro_torch.models.lm import layer_kinds
+    cfg = model.cfg
+    kinds = layer_kinds(cfg)
+    first = {k: kinds.index(k) for k in ("mlstm", "slstm")}
+    model.prefill(tokens[:, :256])             # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inputs = {}
+
+    def keep(kind):
+        def hook(mod, args):       # returns None: the input is unchanged
+            inputs.setdefault(kind, args[0])
+        return hook
+    hooks = [model.blocks[i].register_forward_pre_hook(keep(k))
+             for k, i in first.items()]
+    try:
+        t0 = time.perf_counter()
+        last = model.prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    require(last.shape == (tokens.shape[0], 1, cfg.d_model) and
+            bool(torch.isfinite(last).all()), "xlstm-1.3b prefill output")
+    mblk, sblk = (model.blocks[first[k]] for k in ("mlstm", "slstm"))
+    s = tokens.shape[1]
+    with torch.inference_mode():
+        layer = {
+            "mlstm": _device_classes(
+                lambda: mblk(inputs["mlstm"], None),
+                {"mlstm_scan": (xlstm, "gated_linear_scan")}),
+            "slstm": _scaled_classes(_device_classes(
+                lambda: sblk(inputs["slstm"][:, :XLSTM_WINDOW], None),
+                {"slstm": (xlstm, "_slstm_scan")}), s / XLSTM_WINDOW)}
+        with _recorded(xlstm, "gated_linear_scan") as scans, \
+                _recorded(xlstm, "_slstm_scan") as loops:
+            mblk(inputs["mlstm"], None)
+            sblk(inputs["slstm"], None)
+        scan, loop = xlstm.gated_linear_scan, xlstm._slstm_scan
+        scans_ms = time_ms(lambda: [scan(*a, **kw) for a, kw, _ in scans],
+                           3, warmup=1)
+        (args, kw, _), = loops
+        loop_ms = time_ms(lambda: loop(*args, **kw), 1, warmup=0)
+    x = scans[0][0][0]
+    b, s, h, p = x.shape
+    chunk = scans[0][0][5]
+    # the two scans' products: C.B^T and the intra-chunk weights times x
+    # (each scan), each chunk's state and the inter-chunk readout (p = hd
+    # for the numerator, 1 for the denominator)
+    scan_flops = sum(2 * b * s * chunk * h * (p_ + p) + 4 * b * s * h * p_ * p
+                     for p_ in (p, 1))
+    del scans, loops, inputs, args, kw, x
+    counts = {"mlstm": kinds.count("mlstm"), "slstm": kinds.count("slstm")}
+    by_class = collections.Counter()
+    for kind, n in counts.items():
+        for c, v in layer[kind]["ms"].items():
+            by_class[c] += n * v
+    by_class.pop("flash", None)
+    flops = _xlstm_prefill_flops(cfg, tokens.numel())
+    return {"prefill_ms": prefill_ms, "peak": peak, "layer": layer,
+            "by_class": dict(by_class), "device_ms": sum(by_class.values()),
+            "scans_ms": scans_ms, "scan_flops": scan_flops,
+            "loop_ms": loop_ms, "counts": counts, "flops": flops}
+
+
+def _xlstm_states(model, toks, lens) -> tuple:
+    """The chunked forward of the prompts (``toks`` rows ragged-right by
+    ``lens``; prompts of one length batched): each prompt's logits at its
+    last token, and every recurrent layer's final state in its cache's
+    layout -- an mlstm layer's ``C`` and ``n`` from its two scans' final
+    states, an slstm layer's ``h``, ``c``, ``n``, ``m`` from its loop's
+    final carry -- one row a prompt."""
+    import torch
+    from repro_torch.core import embedding_engine as ee
+    from repro_torch.models import xlstm
+    from repro_torch.models.lm import layer_kinds
+    cfg = model.cfg
+    kinds = layer_kinds(cfg)
+    fwd = torch.empty((len(lens), 1, cfg.vocab_size), device=model.device)
+    states = [{} for _ in kinds]
+    with torch.inference_mode():
+        for n in sorted(set(lens.tolist())):
+            rows = torch.from_numpy(np.flatnonzero(lens == n)).cuda()
+            with _recorded(xlstm, "gated_linear_scan") as scans, \
+                    _recorded(xlstm, "_slstm_scan") as loops:
+                hidden = model(torch.from_numpy(toks[lens == n, :n]).cuda())
+            fwd[rows] = ee.logits(hidden[:, -1:],
+                                  model.embed)[..., :cfg.vocab_size]
+            scans, loops = iter(scans), iter(loops)
+            for layer, kind in enumerate(kinds):
+                if kind == "mlstm":
+                    new = {"C": next(scans)[2][1], "n": next(scans)[2][1]}
+                else:
+                    new = dict(zip("hcnm", next(loops)[2][1]))
+                for k, t in new.items():
+                    if k not in states[layer]:
+                        states[layer][k] = torch.empty(
+                            (len(lens),) + t.shape[1:], dtype=t.dtype,
+                            device=t.device)
+                    states[layer][k][rows] = t
+    return fwd, states
+
+
+def _xlstm_fwd_decode(model, srv, prompts, faults: bool = True) -> dict:
+    """Forward == decode at full width: each prompt's last-token logits and
+    every recurrent layer's final state from the chunked forward
+    (``_xlstm_states``) against the logits and the cache leaves that the
+    server's captured wave leaves when it replays the prompts from zeroed
+    caches (one wave of every prompt, ragged): the relative L2 of the
+    logits and the largest of any layer's leaf.  With ``faults``, the same
+    replay with a planted decode fault in one layer: the middle mlstm
+    layer's decode leaving the normaliser ``n`` unupdated (a code fault:
+    the layer's decode patched, then a wave captured anew on caches of its
+    own), and the middle slstm layer's decode without its recurrent term
+    ``rh`` (``r`` zeroed in place for the replay, which the graphs read)."""
+    import torch
+    from repro_torch.models.lm import layer_kinds
+    from repro_torch.runtime.server import WaveGraph
+    cfg = model.cfg
+    kinds = layer_kinds(cfg)
+    lens = np.array([len(p) for p in prompts], np.int64)
+    toks = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    fwd, states = _xlstm_states(model, toks, lens)
+
+    def rel(logits, caches) -> dict:
+        leaves = {f"{i}.{k}": _rel(c[k][:len(prompts)], states[i][k])
+                  for i, c in enumerate(caches) for k in c}
+        worst = max(leaves, key=leaves.get)
+        return {"logits": _rel(logits, fwd), "state": leaves[worst],
+                "state_at": worst,
+                "worst": max(_rel(logits, fwd), leaves[worst])}
+
+    def replay(wave, caches):
+        wave.reset_slots(caches, np.zeros(len(prompts), bool))
+        logits, _ = wave(toks, lens, caches)
+        return rel(logits, caches)
+
+    def graph():
+        return replay(srv._wave, srv.caches)
+    out = {"sound": graph()}
+    if not faults:
+        return out
+    mlstm = [i for i, k in enumerate(kinds) if k == "mlstm"]
+    slstm = [i for i, k in enumerate(kinds) if k == "slstm"]
+    m_mid, s_mid = mlstm[len(mlstm) // 2], slstm[len(slstm) // 2]
+    blk = model.blocks[m_mid]
+
+    def stale_n(x, cache, active=None, ctx=None, decode=blk.decode):
+        n = cache["n"].clone()
+        y = decode(x, cache, active, ctx)
+        cache["n"].copy_(n)
+        return y
+    caches = model.init_caches(len(prompts), SERVE_MAX_LEN)
+    blk.decode = stale_n
+    try:
+        out[f"layer {m_mid}'s mlstm decode leaving n unupdated"] = replay(
+            WaveGraph(model, caches), caches)
+    finally:
+        del blk.decode
+    del caches
+    r = model.blocks[s_mid].slstm["r"]
+    saved = r.detach().clone()
+    with torch.no_grad():
+        r.zero_()
+    try:
+        out[f"layer {s_mid}'s slstm decode without rh"] = graph()
+    finally:
+        with torch.no_grad():
+            r.copy_(saved)
+    again = graph()
+    require(again == out["sound"], f"the replay after the planted faults "
+            f"differs from the first ({again} vs {out['sound']})")
+    return out
+
+
+def _fwd_decode_line(fd: dict) -> str:
+    return "; ".join(f"{k}: logits {v['logits']:.4g}, state {v['state']:.4g}"
+                     f" (layer.leaf {v['state_at']})" for k, v in fd.items())
+
+
+def _xlstm_fp32(seed: int, prompts) -> dict:
+    """xlstm-1.3b rebuilt in fp32 from the same seed (4.64 GB; the bf16
+    model freed first): forward == decode through a server's captured wave
+    (``_xlstm_fwd_decode``), held within XLSTM_FWD_DECODE_REL_L2 with both
+    planted faults above it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32")
+    model = LM(cfg, seed=seed)
+    srv = DecodeServer(model, batch_slots=len(prompts),
+                       max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+    out = _xlstm_fwd_decode(model, srv, prompts)
+    del model, srv
+    free_cuda()
+    return out
+
+
+def _xlstm_training(seed: int, card: str) -> dict:
+    """xlstm-1.3b trained at full width through the Trainer: 1 x
+    XLSTM_TRAIN_SEQ tokens a step, lr TRAIN_LR, XLSTM_TRAIN_STEPS steps,
+    twice from one seed, its checkpoint save a no-op (phase 13 covers
+    checkpoints).  Checked: every loss finite, the two runs' losses and
+    final parameters bit-equal, no flash launch, one transposition and one
+    sparse ember_sls launch a step (the token embedding's backward), a
+    nonzero gradient for every parameter in the first step (read by a hook
+    as each gradient lands: a step takes ~40 s, so none is run for the
+    check alone).  Printed: step ms, tokens/s, peak memory; one mlstm
+    layer's forward and backward at the step's shapes and one slstm
+    layer's over XLSTM_WINDOW positions, scaled, under torch.profiler (the
+    layers' device time, a lower bound of the step's busy share); the
+    embedding's backward timed apart as in phase 13."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM, layer_kinds
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = get_config("xlstm-1.3b")
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=XLSTM_TRAIN_SEQ,
+                                      global_batch=1))
+    ckpt_dir = REPO / "build" / "xlstm_train"
+    step_ms: list = []
+    steps = XLSTM_TRAIN_STEPS
+
+    class Timed(Trainer):
+        def _train_step(self, state, batch):
+            t0 = time.perf_counter()
+            loss = super()._train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+    def train(nonzero=None):
+        trainer = Timed(LM(cfg, seed=seed), data, TrainerConfig(
+            total_steps=steps, ckpt_every=steps, ckpt_dir=str(ckpt_dir),
+            lr=TRAIN_LR))
+        trainer.ckpt.save = lambda *a, **kw: None
+        hooks = []
+        if nonzero is not None:        # the first step's gradients
+            for name, p in trainer.lm.named_parameters():
+                def landed(p, name=name):
+                    if name not in nonzero:
+                        nonzero[name] = bool(p.grad.any())
+                hooks.append(p.register_post_accumulate_grad_hook(landed))
+        try:
+            return trainer, trainer.run()
+        finally:
+            for h in hooks:
+                h.remove()
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    nonzero = {}
+    trainer, out = train(nonzero)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = kops.backward_launch_counts()
+    fwd = kops.launch_counts()
+    sls_variants = kops.variant_launch_counts()["sls"]
+    losses = out["losses"]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"xlstm training losses {losses}")
+    require(fwd["flash_attention"] == counts["flash_attention_bwd"] == 0,
+            f"xlstm training launched flash {fwd['flash_attention']} / "
+            f"{counts['flash_attention_bwd']} times: it has no attention")
+    require(counts["block_gather_bwd"] == steps and fwd["sls"] == steps and
+            counts["gather_transpose"] == steps and
+            sls_variants == {"rows": 0, "sparse": steps},
+            f"xlstm training: the token embedding's backward ran "
+            f"{counts['block_gather_bwd']} times ({fwd['sls']} ember_sls "
+            f"launches by variant {sls_variants}, "
+            f"{counts['gather_transpose']} transpositions) in {steps} steps, "
+            f"expected one a step on the transposition and the sparse sum")
+    lm = trainer.lm
+    final = {k: p.detach().clone() for k, p in lm.named_parameters()}
+    missing = [k for k, _ in lm.named_parameters() if k not in nonzero]
+    zero = [k for k, v in nonzero.items() if not v]
+    require(not missing and not zero, f"xlstm training: no gradient for "
+            f"{missing}, an all-zero one for {zero}")
+    batch = trainer._batch(0)
+    emb = _gather_backward_parts(
+        torch.randn((XLSTM_TRAIN_SEQ, 1, cfg.d_model),
+                    device=lm.device).bfloat16(),
+        batch["tokens"].reshape(-1).to(torch.int32), cfg.padded_vocab, 20)
+    kinds = layer_kinds(cfg)
+    g = torch.Generator(device=lm.device).manual_seed(seed + 16)
+    x = torch.randn((1, XLSTM_TRAIN_SEQ, cfg.d_model), generator=g,
+                    device=lm.device).to(cfg.torch_dtype).requires_grad_()
+    dy = torch.randn(x.shape, generator=g, device=lm.device).to(x.dtype)
+    layer = {}
+    for kind, n in (("mlstm", XLSTM_TRAIN_SEQ), ("slstm", XLSTM_WINDOW)):
+        blk = lm.blocks[kinds.index(kind)]
+        layer[kind] = _scaled_classes(_device_classes(
+            lambda: blk(x[:, :n], None)[0].backward(dy[:, :n]), {}),
+            XLSTM_TRAIN_SEQ / n)
+        layer[kind]["count"] = kinds.count(kind)
+        for p in blk.parameters():
+            p.grad = None
+    layers_ms = sum(v["count"] * sum(v["ms"].values())
+                    for v in layer.values())
+    first_ms = list(step_ms)
+    n_params = len(final)
+    del trainer, out, lm, batch, x, dy
+    free_cuda()
+    trainer, again = train()
+    require(again["losses"] == losses, f"xlstm training: the second run's "
+            f"losses {again['losses']} differ from the first's {losses}")
+    differ = [k for k, p in trainer.lm.named_parameters()
+              if not torch.equal(p.detach(), final[k])]
+    require(not differ, f"xlstm training: {len(differ)} parameters differ "
+            f"between two runs from one seed, e.g. {differ[:3]}")
+    del trainer, again, final
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_cuda()
+    mean_ms = float(np.mean(first_ms[1:steps]))
+    print(f"[16 xlstm training] xlstm-1.3b trained at full width (bf16, 1 x "
+          f"{XLSTM_TRAIN_SEQ} tokens a step, lr {TRAIN_LR}, {steps} steps, "
+          f"twice from seed {seed}): losses {[round(v, 4) for v in losses]},"
+          f" the second run's and all {n_params} parameters after it "
+          f"bit-equal to the first's; step ms (host clock, synchronised) "
+          f"{', '.join(f'{m:.1f}' for m in first_ms)} (mean of steps "
+          f"1-{steps - 1} {mean_ms:.1f}), "
+          f"{XLSTM_TRAIN_SEQ / mean_ms * 1e3:.0f} tokens/s; peak device "
+          f"memory {peak_gib:.2f} GiB; no flash launch; the transposition "
+          f"{counts['gather_transpose']} and ember_sls {fwd['sls']} launches "
+          f"({sls_variants}; the token embedding's backward, one a step); "
+          f"every parameter got a nonzero gradient in the first step; "
+          f"{card}")
+    print(f"[16 xlstm step where] one layer of each kind, forward and "
+          f"backward under torch.profiler (the slstm layer over "
+          f"{XLSTM_WINDOW} of the {XLSTM_TRAIN_SEQ} positions, scaled): " +
+          "; ".join(f"{k} {v['wall_ms']:.1f} ms with the profiler, device "
+                    f"{sum(v['ms'].values()):.2f} ms ({v['kernels']} kernels"
+                    f"), x {v['count']} layers" for k, v in layer.items()) +
+          f"; the layers' device time {layers_ms:.1f} ms = "
+          f"{100 * layers_ms / mean_ms:.1f}% of a step (a lower bound of its "
+          f"busy share: the logits, the loss and AdamW not counted); {card}")
+    print(f"[16 xlstm embedding backward] the token embedding's gradient "
+          f"({XLSTM_TRAIN_SEQ} ids into {cfg.padded_vocab} rows of "
+          f"{cfg.d_model} bf16): {_parts_line(emb)}; {card}")
+    return {"sls_launches": fwd["sls"],
+            "transposes": counts["gather_transpose"],
+            "sparse_launches": sls_variants["sparse"],
+            "step_ms": mean_ms,
+            "tokens_per_s": XLSTM_TRAIN_SEQ / mean_ms * 1e3,
+            "peak_gib": peak_gib, "layers_busy_share": layers_ms / mean_ms,
+            "embedding_backward_split": emb}
+
+
+def phase_xlstm(seed: int, card: str) -> dict:
+    """xlstm-1.3b at full width and depth (48 layers: 36 ``mlstm``, 12
+    ``slstm``; d_model 2048, 4 heads of 512, chunk 256; bf16, random
+    weights from ``seed``): the first super-block in fp32 on the card
+    against the CPU (``_xlstm_card_vs_cpu``); the prefill over 4 x 4096
+    tokens (``_xlstm_prefill``); served (``DecodeServer``, captured waves:
+    graph == eager and chunk 1 == whole bit for bit, the gather once a
+    wave); forward == decode read in bf16; trained (``_xlstm_training``);
+    then forward == decode held on the model rebuilt in fp32, with two
+    planted decode faults (``_xlstm_fp32``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    free_cuda()
+    t_start = time.perf_counter()
+    block = _xlstm_card_vs_cpu(seed)
+    print(f"[16 xlstm card vs cpu] the first super-block (3 mlstm + 1 slstm "
+          f"layers, d_model {block['d_model']}, fp32, one set of weights) "
+          f"over 1 x "
+          f"{XLSTM_BLOCK_SEQ} tokens, then {XLSTM_BLOCK_DECODE} decode "
+          f"steps, card vs CPU (relative L2): hidden states "
+          f"{block['hidden']:.3g}, logits (worst step) {block['logits']:.3g},"
+          f" cache leaves after the decode " + ", ".join(
+              f"{k} {v:.3g}" for k, v in block["leaves"].items()) +
+          f" (tol {XLSTM_CARD_CPU_REL_L2}); TF32 off for the caller, and the "
+          f"gates' product turns it off itself; {card}")
+    t1 = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(seed + 16)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).cuda()
+    pre = _xlstm_prefill(model, tokens, card)
+    busy = pre["device_ms"]
+    bound_ms = pre["flops"] / BF16_TC_FLOPS * 1e3
+    print(f"[16 xlstm prefill] {cfg.name} {cfg.num_layers} layers "
+          f"({pre['counts']['mlstm']} mlstm, {pre['counts']['slstm']} slstm),"
+          f" d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.hd}, vocab "
+          f"{cfg.vocab_size}, bf16, {n_params} params (random; init "
+          f"{init_s:.2f} s); {PREFILL_BATCH} x {PREFILL_SEQ} uniform token "
+          f"ids: prefill {pre['prefill_ms']:.2f} ms (host clock + "
+          f"synchronize; no hand-written kernel on this path); peak device "
+          f"memory {pre['peak'] / 2**30:.2f} GiB; GEMMs "
+          f"{pre['flops'] / 1e12:.2f} TFLOP, bound {bound_ms:.2f} ms at 989 "
+          f"TFLOP/s; {card}")
+    print(f"[16 xlstm where] under torch.profiler, on the inputs the "
+          f"prefill gave them, the first mlstm layer at the prefill's shapes "
+          f"and the first slstm layer over {XLSTM_WINDOW} of its "
+          f"{PREFILL_SEQ} positions, scaled: " +
+          "; ".join(f"{k} layer {v['wall_ms']:.2f} ms with the profiler, "
+                    f"device " + ", ".join(f"{c} {m:.2f}" for c, m in
+                                           v["ms"].items() if m) +
+                    f" ms ({v['kernels']} kernels)"
+                    for k, v in pre["layer"].items()) +
+          f"; x {pre['counts']['mlstm']} and {pre['counts']['slstm']} layers"
+          f": device {busy:.1f} ms = {100 * busy / pre['prefill_ms']:.1f}% "
+          f"busy of the prefill; by class " + ", ".join(
+              f"{k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+              for k, v in sorted(pre["by_class"].items(),
+                                 key=lambda kv: -kv[1])) +
+          f"; alone (CUDA events): one mlstm layer's two scans "
+          f"{pre['scans_ms']:.3f} ms ({pre['scan_flops'] / 1e9:.1f} GFLOP "
+          f"of products, {pre['scan_flops'] / BF16_TC_FLOPS * 1e3:.3f} ms "
+          f"at 989 TFLOP/s), one slstm layer's {PREFILL_SEQ}-step loop "
+          f"{pre['loop_ms']:.1f} ms (x {pre['counts']['slstm']} = "
+          f"{pre['loop_ms'] * pre['counts']['slstm']:.0f} ms a prefill); "
+          f"{card}")
+    t2 = time.perf_counter()
+
+    # served: 8 requests of 256 or 320 prompt tokens, a closed batch
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [rng.integers(0, cfg.vocab_size, int(n) * 64).astype(np.int32)
+               for n in rng.integers(XLSTM_PROMPT_CHUNKS[0],
+                                     XLSTM_PROMPT_CHUNKS[1] + 1,
+                                     XLSTM_REQUESTS)]
+    _serve_drive(model, [p[:8] for p in prompts[:2]], SERVE_CHUNK,
+                 XLSTM_NEW_TOKENS)                      # warm-up
+    kops.reset_launch_counts()
+    main = _serve_drive(model, prompts, SERVE_CHUNK, XLSTM_NEW_TOKENS)
+    counts = kops.launch_counts()
+    variants = kops.variant_launch_counts()["block_gather"]
+    _require_served(main, XLSTM_NEW_TOKENS, counts, variants)
+    m = _drive_metrics(main, XLSTM_NEW_TOKENS)
+    srv = main["srv"]
+    waves = srv.serve_stats["waves"]
+    chunk1 = _serve_drive(model, prompts, 1, XLSTM_NEW_TOKENS)
+    for i, (r, r1) in enumerate(zip(main["reqs"], chunk1["reqs"])):
+        require(r.out == r1.out, f"xlstm-1.3b request {i}: prefill_chunk=1 "
+                f"emitted {r1.out[:6]}... vs {r.out[:6]}...")
+        require(torch.equal(main["final"][i], chunk1["final"][i]),
+                f"xlstm-1.3b request {i}: last-wave logits differ between "
+                f"prefill_chunk={SERVE_CHUNK} and 1")
+    del chunk1
+    lock = _lockstep_drive(model, [p[:len(p) // 4] for p in prompts],
+                           LOCKSTEP_NEW_TOKENS)
+    lock_ms = {n: v * 1e3 / lock["micro_steps"]
+               for n, v in lock["host_s"].items()}
+    lock_waves, lock_micro, lock_leaves = (lock["waves"], lock["micro_steps"],
+                                           lock["leaves"])
+    del lock
+    graph_dev = _graph_device_ms(srv)
+    kernels_a_step = _graph_kernel_count(srv)
+    cache_bytes = sum(t.numel() * t.element_size() for c in srv.caches
+                      for t in c.values())
+    micro_bound_ms = (weight_bytes + 2 * cache_bytes) / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[16 xlstm serving] DecodeServer(batch_slots={SERVE_SLOTS}, "
+          f"max_len={SERVE_MAX_LEN}, prefill_chunk={SERVE_CHUNK}, "
+          f"pipeline=True), captured wave: {XLSTM_REQUESTS} requests "
+          f"(prompts of {sorted(len(p) for p in prompts)} tokens; closed "
+          f"batch), {XLSTM_NEW_TOKENS} new tokens each, all ok; {waves} "
+          f"waves, {m['micro_steps']} micro-steps in {main['wall']:.2f} s: "
+          f"{m['tokens_per_s']:.1f} generated tokens/s; TTFT "
+          f"{_percentiles(m['ttft'])}; per token "
+          f"{_percentiles(m['per_token'])}; host ms a micro-step "
+          f"{m['issue_ms'] / m['micro_steps']:.3f} (lockstep: graph "
+          f"{lock_ms['graph']:.3f} vs eager {lock_ms['eager']:.2f}, over the "
+          f"prompts' first quarters and {LOCKSTEP_NEW_TOKENS} new "
+          f"tokens); device "
+          f"ms of one captured micro-step (CUDA events, 20 replays) unmasked "
+          f"{graph_dev['unmasked']:.3f}, masked {graph_dev['masked']:.3f} "
+          f"against a {micro_bound_ms:.3f} ms bound (every weight read once, "
+          f"{weight_bytes / 1e9:.2f} GB, and the recurrent caches read and "
+          f"written once, 2 x {cache_bytes / 1e9:.2f} GB, at 3.35 TB/s; "
+          f"{100 * micro_bound_ms / graph_dev['unmasked']:.1f}% of it); "
+          f"{kernels_a_step} device operations a replayed micro-step; ms per "
+          f"decode wave mean {np.mean(m['decode_ms']):.2f}; block_gather "
+          f"launches {counts['block_gather']} = one a wave (rows of "
+          f"{cfg.d_model * 2} B from {cfg.padded_vocab}); prefill_chunk=1: "
+          f"the same tokens and bit-identical last-wave logits; graph vs "
+          f"eager in lockstep (the prompts' first quarters): {lock_waves} "
+          f"waves, {lock_micro} micro-steps, every wave's logits and every "
+          f"cache leaf (C, n; h, c, n, m) after every iteration "
+          f"({lock_leaves} comparisons) the same bits, the same tokens; peak "
+          f"device memory "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    bf16_fd = _xlstm_fwd_decode(model, srv, prompts, faults=False)
+    del model, main, srv, tokens
+    free_cuda()
+    t3 = time.perf_counter()
+    training = _xlstm_training(seed, card)
+    t4 = time.perf_counter()
+    fd = _xlstm_fp32(seed, prompts)
+    sound = fd.pop("sound")
+    print(f"[16 xlstm forward == decode] {XLSTM_REQUESTS} prompts, the "
+          f"chunked forward's last-token logits and every recurrent layer's "
+          f"final state against the captured decode replay's (relative L2; "
+          f"state: the largest of any layer's leaf): bf16 (read) "
+          f"{_fwd_decode_line(bf16_fd)}; fp32 (the same seed; the "
+          f"reference's invariant) sound: logits {sound['logits']:.4g}, "
+          f"state {sound['state']:.4g} (layer.leaf {sound['state_at']}; tol "
+          f"{XLSTM_FWD_DECODE_REL_L2}), planted faults (required above it): "
+          f"{_fwd_decode_line(fd)}")
+    require(sound["worst"] <= XLSTM_FWD_DECODE_REL_L2 and
+            all(v["worst"] > XLSTM_FWD_DECODE_REL_L2 for v in fd.values()),
+            f"xlstm-1.3b forward == decode in fp32: {sound}, planted faults "
+            f"{fd}, tol {XLSTM_FWD_DECODE_REL_L2}")
+    print(f"[16 xlstm time] wall seconds: card vs cpu {t1 - t_start:.1f}, "
+          f"prefill part {t2 - t1:.1f}, serving part {t3 - t2:.1f}, "
+          f"training part {t4 - t3:.1f}, fp32 part "
+          f"{time.perf_counter() - t4:.1f}; phase "
+          f"{time.perf_counter() - t_start:.1f}")
+    return {"gather_launches": variants["bulk"],
+            "gather_group_launches": variants["group"],
+            "training": training,
+            "xlstm_prefill_ms": pre["prefill_ms"],
+            "xlstm_tokens_per_s": m["tokens_per_s"],
+            "xlstm_micro_step_ms": graph_dev["unmasked"],
+            "xlstm_micro_step_bound_ms": micro_bound_ms,
+            "xlstm_fwd_decode_rel_l2": sound["worst"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5246,6 +6019,9 @@ def main(argv=None) -> int:
                          "phase's lines, no JSON)")
     ap.add_argument("--zamba2-only", action="store_true",
                     help="run phases 1, 2 and 15 alone (the zamba2 "
+                         "phase's lines, no JSON)")
+    ap.add_argument("--xlstm-only", action="store_true",
+                    help="run phases 1, 2 and 16 alone (the xlstm "
                          "phase's lines, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
@@ -5278,7 +6054,8 @@ def main(argv=None) -> int:
     phase_build()
     alone = (phase_training if args.training_only else
              phase_whisper if args.whisper_only else
-             phase_zamba2 if args.zamba2_only else None)
+             phase_zamba2 if args.zamba2_only else
+             phase_xlstm if args.xlstm_only else None)
     if alone is not None:
         alone(args.seed, card)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
@@ -5314,7 +6091,8 @@ def main(argv=None) -> int:
                                                              card)),
                        ("13", lambda: phase_training(args.seed, card)),
                        ("14", lambda: phase_whisper(args.seed, card)),
-                       ("15", lambda: phase_zamba2(args.seed, card))):
+                       ("15", lambda: phase_zamba2(args.seed, card)),
+                       ("16", lambda: phase_xlstm(args.seed, card))):
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
@@ -5372,12 +6150,19 @@ def main(argv=None) -> int:
                                  else "prefill_instances"))
         flash.update({k if k.startswith("whisper_") else f"whisper_{k}": v
                       for k, v in run.items()})
+    xlstm = later["16"]
+    gather["xlstm_serving_launches"] = xlstm.pop("gather_launches")
+    gather["xlstm_serving_group_launches"] = xlstm.pop(
+        "gather_group_launches")
+    gather["launches"] += gather["xlstm_serving_launches"]
+    xt = xlstm.pop("training")
+    gather.update(xlstm)
     wt = whisper["training"]
     flash["whisper_training_launches"] = wt.pop("flash_launches")
     flash["launches"] += flash["whisper_training_launches"]
     instances.update(wt.pop("flash_instances"))
     kernels.extend(_gather_backward_kernels(
-        next(k for k in kernels if k["name"] == "sls"), training, wt))
+        next(k for k in kernels if k["name"] == "sls"), training, wt, xt))
     training["danube_launches"] = training["launches"]
     training["whisper_launches"] = wt.pop("bwd_launches")
     training["launches"] += training["whisper_launches"]

@@ -1,5 +1,5 @@
-"""Architecture configs ported so far (one module per architecture, as in
-``repro/configs``).
+"""Architecture configs (one module per architecture, as in
+``repro/configs``): all ten of the reference's.
 
 ``get_config(name)`` returns the full ModelConfig; ``get_reduced(name)`` a
 same-family small config for CPU tests.
@@ -10,12 +10,12 @@ import importlib
 
 ARCHS = ["chatglm3-6b", "deepseek-v2-lite-16b", "gemma3-4b",
          "h2o-danube-1.8b", "llava-next-34b", "qwen3-moe-235b-a22b",
-         "stablelm-3b", "whisper-large-v3", "zamba2-7b"]
+         "stablelm-3b", "whisper-large-v3", "xlstm-1.3b", "zamba2-7b"]
 
 
 def _mod(name: str):
     if name not in ARCHS:
-        raise KeyError(f"{name!r} is not ported yet; ported: {ARCHS}")
+        raise KeyError(f"{name!r} is no architecture; known: {ARCHS}")
     key = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"{__name__}.{key}")
 

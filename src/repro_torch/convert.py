@@ -12,14 +12,17 @@ here: :func:`lm_params_from_reference` maps one onto the other, nested
 names included (MLA's ``attn.{wq,w_dkv,w_uk,w_uv,w_kr,wo}``, the MoE
 layers' ``moe.{router,wi_gate,wi_up,wo,shared.{wi_gate,wi_up,wo}}``, each
 leaf in its own dtype: the router stays fp32, and so do a mamba layer's
-``A_log``, ``D`` and ``dt_bias``; whisper's encoder, stacked over its
+``A_log``, ``D`` and ``dt_bias``, an mlstm layer's ``w_if``, ``b_i`` and
+``b_f`` and an slstm layer's ``b``; whisper's encoder, stacked over its
 layers under ``enc_scan`` there, is ``enc_blocks.<layer>.*`` here, beside
 ``enc_norm``; zamba2's shared attention set ``shared.{attn,mlp}.*`` is one
 subtree in both).  Its decode caches are the
 same kind of tree there and a list of per-layer dicts here:
 :func:`caches_from_reference` and :func:`caches_to_reference` map both ways
-(MLA's latent ``{c, kr, len}`` and a mamba layer's ``{state, conv}`` keep
-the reference's layout; an ``xdec`` layer's ``{"self": {k, v, len},
+(MLA's latent ``{c, kr, len}``, a mamba layer's ``{state, conv}``, an
+mlstm layer's ``{C, n}`` and an slstm layer's ``{h, c, n, m}``, fp32 ``c``,
+``n``, ``m``, keep the reference's layout and dtypes; an ``xdec`` layer's
+``{"self": {k, v, len},
 "enc_out": None}`` there is its self-attention cache ``{k, v, len}``
 here).
 
@@ -221,6 +224,8 @@ def embed_tables_from_params(params: dict) -> dict:
 
 
 #: cache leaves stored head-major here, (B, Smax, Hkv, ...) in the reference
+#: (the KV caches' only: MLA's ``c``, the slstm's ``c`` and ``n`` and the
+#: mlstm's ``n`` are not among them and keep their layout)
 _SEQ_MAJOR_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
@@ -244,7 +249,10 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
     ``k_scale``/``v_scale`` (B, Smax, Hkv) -> (B, Hkv, Smax); ``len`` and
     an MLA layer's ``c`` (B, Smax, r) and ``kr`` (B, Smax, rd) as they
     are, and so are a mamba layer's ``state`` (B, H, P, N) and ``conv`` (B,
-    3, d_inner); an ``xdec`` layer's ``self`` cache becomes the layer's (its
+    3, d_inner), an mlstm layer's ``C`` (B, H, hd, hd) and ``n`` (B, H, 1,
+    hd), and an slstm layer's ``h``, ``c``, ``n``, ``m`` (B, d), each in its
+    own dtype (no recurrent leaf is sequence-major); an ``xdec`` layer's
+    ``self`` cache becomes the layer's (its
     ``enc_out`` is None there: the encoder's output is a decode context,
     not cache state)."""
     dev = resolve_device(device)

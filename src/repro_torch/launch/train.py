@@ -7,6 +7,8 @@ on the synthetic token stream.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch h2o-danube-1.8b --seq 8192 --global-batch 1 --steps 6 \\
         --ckpt-dir build/train
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
+        --seq 2048 --global-batch 1 --steps 4 --ckpt-dir build/xlstm
 
 The model is built on the CUDA card, with random weights from ``--seed``,
 unless ``--device cpu`` is given (the plain versions; for tests); without

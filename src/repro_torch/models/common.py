@@ -153,6 +153,18 @@ def pick_chunk(s: int, preferred: int) -> int:
     return preferred if s % preferred == 0 else math.gcd(s, preferred)
 
 
+def update_cache(cache: dict, new: dict, active=None) -> None:
+    """Write a recurrent layer's ``new`` leaves into ``cache`` in place; with
+    an ``active`` mask (B,) bool, an inactive slot's leaves keep their bits
+    (the reference's ``where(active, new, old)``)."""
+    for key, t in new.items():
+        if active is None:
+            cache[key].copy_(t)
+        else:
+            keep = active.view((-1,) + (1,) * (t.dim() - 1))
+            cache[key].copy_(torch.where(keep, t, cache[key]))
+
+
 def gated_mlp(x: torch.Tensor, p, act: str = "silu") -> torch.Tensor:
     h = _ACTS[act](x @ p["wi_gate"]) * (x @ p["wi_up"])
     return h @ p["wo"]

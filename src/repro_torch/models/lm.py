@@ -1,7 +1,7 @@
 """LM assembly (counterpart of ``repro/models/lm.py``).
 
-Ported so far: the ``dense`` block kind (GQA attention with partial rotary +
-gated MLP), ``dense_local`` (the same with the sliding-window band of
+Every block kind of the reference: ``dense`` (GQA attention with partial
+rotary + gated MLP), ``dense_local`` (the same with the sliding-window band of
 ``cfg.sliding_window``), the ``moe`` kind (GQA attention + the MoE FFN),
 the ``mla`` kind (DeepSeek's latent attention + the MoE FFN),
 whisper's encoder-decoder kinds: ``enc_dense`` (the encoder's blocks:
@@ -9,7 +9,10 @@ non-causal self-attention + MLP) and ``xdec`` (causal self-attention,
 cross-attention over the encoder's output, MLP), and zamba2's hybrid kinds:
 ``mamba`` (the Mamba2 SSD block, :mod:`.ssm`) and ``shared_attn`` (causal
 attention + MLP from one weight set, :attr:`LM.shared`, shared by every
-occurrence; only its two norms are the layer's own);
+occurrence; only its two norms are the layer's own), and xLSTM's kinds:
+``mlstm`` (the matrix-memory recurrence through the shared gated-linear
+scan) and ``slstm`` (the scalar-memory recurrence, step by step), both
+:mod:`.xlstm`;
 :meth:`LM.forward` (the MoE layers' auxiliary loss summed beside it; the
 ``vision-stub`` front end's ``frontend_embeds`` spliced over the first
 positions; the ``audio-stub`` front end's ``enc_embeds`` through the
@@ -26,8 +29,7 @@ into a ``jax.lax.scan`` over super-blocks; here the layers are an
 remainder, as the reference does), and a wave is a Python loop of masked
 micro-steps (which the server replays as CUDA graphs on the card:
 :class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
-Queue 1): xLSTM's ``mlstm`` and ``slstm`` kinds (item 5c) and the sharded
-embedding executor and loss (item 6).
+Queue 1): the sharded embedding executor and loss (item 6).
 
 A block's ``forward`` and ``decode`` take a context dict beside their
 input, as the reference's ``block_apply`` / ``block_decode`` take
@@ -43,7 +45,9 @@ Parameters carry the reference's names (``embed``, ``final_norm``,
 an ``xdec`` layer's ``norm_x`` and ``xattn.{wq,wk,wv,wo}`` besides; the
 encoder's ``enc_blocks.<layer>.*`` (``enc_dense`` layers) and
 ``enc_norm``; a ``mamba`` layer's ``norm1`` and
-``mamba.{w_in,conv_w,A_log,D,dt_bias,w_out,norm_z}``, a ``shared_attn``
+``mamba.{w_in,conv_w,A_log,D,dt_bias,w_out,norm_z}``, an ``mlstm`` layer's
+``norm1`` and ``mlstm.{wq,wk,wv,w_if,b_i,b_f,w_gate,wo}``, an ``slstm``
+layer's ``norm1`` and ``slstm.{w_in,r,b,wo}``, a ``shared_attn``
 layer's ``norm1`` and ``norm2``, and the shared set
 ``shared.{attn.{wq,wk,wv,wo},mlp.{wi_gate,wi_up,wo}}``, registered once, so
 ``parameters()``, ``state_dict()``, the trainer and the checkpoints see
@@ -74,14 +78,11 @@ from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
                         init_mla, init_mla_cache, mla_decode, mla_forward)
 from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
-PORTED_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec",
-                "mamba", "shared_attn")
-#: the ROADMAP.md Queue 1 item that ports each other block kind
-KIND_ITEMS = {"mlstm": "5c", "slstm": "5c"}
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 
@@ -262,32 +263,76 @@ class XdecBlock(DenseBlock):
         return x + h
 
 
-class MambaBlock(nn.Module):
-    """``mamba``: the Mamba2 SSD block, pre-norm residual (``norm1``,
-    ``mamba.*``; :mod:`.ssm`).  Its cache is ``{state, conv}``
-    (:func:`.ssm.init_mamba_cache`), which :meth:`decode` updates in place,
-    an inactive slot's leaves kept bit for bit under ``active``."""
+class RecurrentBlock(nn.Module):
+    """A recurrent mixer in a pre-norm residual (the reference's
+    ``block_apply`` / ``block_decode`` of ``mamba``, ``mlstm`` and
+    ``slstm``): ``norm1`` and the mixer's parameters under :attr:`NAME`.
+    Its cache holds the recurrent state and no positions; :meth:`decode`
+    updates it in place, an inactive slot's leaves kept bit for bit under
+    ``active``.  A subclass names the mixer's ``init``, ``forward``,
+    ``decode`` and ``init_cache`` functions."""
+
+    NAME: str
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
         super().__init__()
         self.cfg = cfg
         self.norm1 = _frozen(init_rms(cfg.d_model, dtype, device))
-        self.mamba = nn.ParameterDict({
-            k: _frozen(v) for k, v in ssm_mod.init_mamba(
-                gen, cfg, dtype, device).items()})
+        self.add_module(self.NAME, nn.ParameterDict({
+            k: _frozen(v) for k, v in self._init(gen, cfg, dtype,
+                                                 device).items()}))
+
+    @property
+    def mixer(self) -> nn.ParameterDict:
+        return self._modules[self.NAME]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
         h = rms_norm(x, self.norm1, self.cfg.norm_eps)
-        return x + ssm_mod.mamba_forward(self.mamba, h, self.cfg), None
+        return x + self._forward(self.mixer, h, self.cfg), None
 
     def decode(self, x: torch.Tensor, cache: dict,
                active: Optional[torch.Tensor] = None,
                ctx: Optional[dict] = None) -> torch.Tensor:
         h = rms_norm(x, self.norm1, self.cfg.norm_eps)
-        return x + ssm_mod.mamba_decode(self.mamba, h, self.cfg, cache,
-                                        active=active)
+        return x + self._decode(self.mixer, h, self.cfg, cache,
+                                active=active)
+
+
+class MambaBlock(RecurrentBlock):
+    """``mamba``: the Mamba2 SSD block (``norm1``, ``mamba.*``; :mod:`.ssm`);
+    its cache is ``{state, conv}`` (:func:`.ssm.init_mamba_cache`)."""
+
+    NAME = "mamba"
+    _init = staticmethod(ssm_mod.init_mamba)
+    _forward = staticmethod(ssm_mod.mamba_forward)
+    _decode = staticmethod(ssm_mod.mamba_decode)
+    init_cache = staticmethod(ssm_mod.init_mamba_cache)
+
+
+class MlstmBlock(RecurrentBlock):
+    """``mlstm``: xLSTM's matrix-memory block (``norm1``, ``mlstm.*``;
+    :mod:`.xlstm`); its cache is ``{C, n}``
+    (:func:`.xlstm.init_mlstm_cache`)."""
+
+    NAME = "mlstm"
+    _init = staticmethod(xlstm_mod.init_mlstm)
+    _forward = staticmethod(xlstm_mod.mlstm_forward)
+    _decode = staticmethod(xlstm_mod.mlstm_decode)
+    init_cache = staticmethod(xlstm_mod.init_mlstm_cache)
+
+
+class SlstmBlock(RecurrentBlock):
+    """``slstm``: xLSTM's scalar-memory block (``norm1``, ``slstm.*``;
+    :mod:`.xlstm`); its cache is ``{h, c, n, m}``
+    (:func:`.xlstm.init_slstm_cache`)."""
+
+    NAME = "slstm"
+    _init = staticmethod(xlstm_mod.init_slstm)
+    _forward = staticmethod(xlstm_mod.slstm_forward)
+    _decode = staticmethod(xlstm_mod.slstm_decode)
+    init_cache = staticmethod(xlstm_mod.init_slstm_cache)
 
 
 class SharedAttnBlock(nn.Module):
@@ -328,7 +373,8 @@ class SharedAttnBlock(nn.Module):
 
 BLOCKS = {"dense": DenseBlock, "dense_local": LocalBlock, "moe": MoeBlock,
           "mla": MlaBlock, "enc_dense": EncBlock, "xdec": XdecBlock,
-          "mamba": MambaBlock, "shared_attn": SharedAttnBlock}
+          "mamba": MambaBlock, "shared_attn": SharedAttnBlock,
+          "mlstm": MlstmBlock, "slstm": SlstmBlock}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple:
@@ -348,9 +394,9 @@ def shared_window(cfg: ModelConfig) -> Optional[int]:
 
 
 class LM(nn.Module):
-    """The decoder stack of a config whose blocks are ``dense``,
-    ``dense_local``, ``moe``, ``mla``, ``xdec``, ``mamba`` or
-    ``shared_attn``, for an encoder-decoder config (``cfg.enc_layers``) its
+    """The decoder stack of a config (blocks of any kind in :data:`BLOCKS`;
+    another kind raises ``ValueError``, as in the reference), for an
+    encoder-decoder config (``cfg.enc_layers``) its
     encoder: ``enc_layers`` ``enc_dense`` blocks and ``enc_norm``, and for a
     config with ``shared_attn`` layers the one weight set they share,
     :attr:`shared`.
@@ -364,13 +410,9 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
         kinds = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
-        missing = sorted(set(kinds) - set(PORTED_KINDS))
-        if missing:
-            items = sorted({KIND_ITEMS[k] for k in missing})
-            raise NotImplementedError(
-                f"block kinds {missing} of {cfg.name} are not ported yet "
-                f"(ROADMAP.md, Queue 1 item {' and '.join(items)})"
-                f"; ported: {list(PORTED_KINDS)}")
+        for kind in kinds:
+            if kind not in BLOCKS:
+                raise ValueError(kind)
         self.cfg = cfg
         meta = device is not None and torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
@@ -526,16 +568,17 @@ class LM(nn.Module):
                     dtype: Optional[torch.dtype] = None) -> list:
         """Empty caches for ``batch`` slots of ``max_len`` positions: one
         dict per layer, in layer order (:func:`.attention.init_kv_cache`;
-        :func:`.attention.init_mla_cache` for ``mla`` layers,
-        :func:`.ssm.init_mamba_cache` for ``mamba`` layers, which hold no
-        positions)."""
+        :func:`.attention.init_mla_cache` for ``mla`` layers; a recurrent
+        layer's state, which holds no positions: ``mamba``
+        (:func:`.ssm.init_mamba_cache`), ``mlstm`` and ``slstm``
+        (:func:`.xlstm.init_mlstm_cache`, :func:`.xlstm.init_slstm_cache`))."""
         dtype = dtype or self.cfg.torch_dtype
         cfg, dev = self.cfg, self.device
-        return [ssm_mod.init_mamba_cache(cfg, batch, dtype, dev)
-                if kind == "mamba" else
-                (init_mla_cache if kind == "mla" else init_kv_cache)(
-                    cfg, batch, max_len, dtype, dev)
-                for kind in layer_kinds(cfg)]
+        return [blk.init_cache(cfg, batch, dtype, dev)
+                if isinstance(blk, RecurrentBlock) else
+                (init_mla_cache if isinstance(blk, MlaBlock) else
+                 init_kv_cache)(cfg, batch, max_len, dtype, dev)
+                for blk in self.blocks]
 
     @torch.inference_mode()
     def decode_step(self, tokens_new: torch.Tensor, caches: list,
@@ -703,7 +746,7 @@ class StaticWave:
     held in ``batch_ctx`` for its micro-steps."""
 
     def __init__(self, lm, caches: list):
-        # every cache leaf is batch-major (a mamba layer's has no "len")
+        # every cache leaf is batch-major (a recurrent layer's has no "len")
         b = next(iter(caches[0].values())).shape[0]
         dev = lm.device
         with torch.inference_mode():     # the caches are inference tensors

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init, pick_chunk
+from .common import ModelConfig, dense_init, pick_chunk, update_cache
 from .linear_scan import gated_linear_scan
 
 
@@ -128,13 +128,7 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     y = torch.einsum("bn,bhpn->bhp", Cm, S) + \
         xh * p["D"][None, :, None].to(x.dtype)
     y = y.reshape(b, d_inner) * _silu(z)
-    new = {"state": S, "conv": conv_in[:, 1:]}
-    for key, t in new.items():
-        if active is None:
-            cache[key].copy_(t)
-        else:
-            keep = active.view((b,) + (1,) * (t.dim() - 1))
-            cache[key].copy_(torch.where(keep, t, cache[key]))
+    update_cache(cache, {"state": S, "conv": conv_in[:, 1:]}, active)
     return (y @ p["w_out"])[:, None]
 
 

@@ -79,7 +79,8 @@ def _port_leaves(tree) -> dict:
 @pytest.mark.parametrize("arch,compressed", [
     ("stablelm-3b", False), ("gemma3-4b", True),
     ("deepseek-v2-lite-16b", False), ("llava-next-34b", False),
-    ("whisper-large-v3", True), ("zamba2-7b", False)])
+    ("whisper-large-v3", True), ("zamba2-7b", False),
+    ("xlstm-1.3b", False)])
 def test_checkpoints_cross_between_the_packages(tmp_path, arch, compressed):
     jstate = _ref_state(arch, compressed)
     cfg = get_reduced(arch)

@@ -1223,6 +1223,80 @@ def test_reduced_zamba2_at_head_dim_112_served_on_the_card_matches_the_cpu(
                                atol=1e-4)
 
 
+def test_reduced_xlstm_on_the_card_matches_the_cpu(cuda):
+    """The reduced xlstm (fp32; 3 mlstm and 1 slstm layers, d_model 64)
+    from one set of weights on the card and on the CPU: the forward over
+    2 x 40 tokens (chunks of 8) at 1e-4; six decode steps of 3 slots, one
+    of them masked, the logits and every cache leaf (``C``, ``n``; ``h``,
+    ``c``, ``n``, ``m``) at 1e-4; the mLSTM's fp32 gates within 2e-5 of
+    the CPU's with TF32 allowed for the caller (the gates turn it off
+    around their product and restore the flag); and a drive served
+    through the captured wave, whose every token is the CPU model's argmax
+    on the same teacher-forced sequence or within 1e-4 of its largest
+    logit, the gather once a wave."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import xlstm
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
+    cfg = get_reduced("xlstm-1.3b")
+    host = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, seed=0)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    torch.testing.assert_close(card(tokens.cuda()).cpu(), host(tokens),
+                               rtol=1e-4, atol=1e-4)
+    tc, hc = card.init_caches(3, 16), host.init_caches(3, 16)
+    for t in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1)))
+        active = torch.tensor([True, t != 2, True])
+        kw = dict(active=active) if t in (2, 4) else {}
+        gl, tc = card.decode_step(tok.cuda(), tc, **{
+            k: v.cuda() for k, v in kw.items()})
+        hl, hc = host.decode_step(tok, hc, **kw)
+        torch.testing.assert_close(gl.cpu(), hl, rtol=1e-4, atol=1e-4)
+        for cg, ch in zip(tc, hc):
+            assert cg.keys() == ch.keys()
+            for k in cg:
+                assert cg[k].dtype == ch[k].dtype
+                torch.testing.assert_close(cg[k].cpu(), ch[k], rtol=1e-4,
+                                           atol=1e-4, msg=k)
+    x = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(
+        np.float32))
+    p_host = host.blocks[0].mlstm
+    want = xlstm._mlstm_gates(p_host, x)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = xlstm._mlstm_gates(card.blocks[0].mlstm, x.cuda())
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-5, atol=2e-5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (9, 4, 13, 6, 2)]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
+    srv = DecodeServer(card, batch_slots=2, max_len=64, prefill_chunk=4,
+                       pipeline=True)
+    assert isinstance(srv._wave, WaveGraph)
+    kops.reset_launch_counts()
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    variants = kops.variant_launch_counts()["block_gather"]
+    assert variants["bulk"] == variants["group"] == srv.serve_stats["waves"]
+    for p, r in zip(prompts, reqs):
+        assert r.status == "ok" and len(r.out) == 8
+        caches = host.init_caches(1, 64)
+        logits, caches = host.wave_step(p[None], np.array([len(p)]), caches)
+        for j, tok in enumerate(r.out):
+            lg = logits[0, 0]
+            assert float(lg[tok]) >= float(lg.max()) - 1e-4, (j, tok)
+            logits, caches = host.wave_step(np.array([[tok]]),
+                                            np.array([1]), caches)
+
+
 def _lockstep(model, prompts, new_tokens, **kw):
     """Serve ``prompts`` through two servers stepped in turn: one replays
     its captured graphs, the other runs the LM's eager wave on its own
@@ -1265,6 +1339,7 @@ def _lockstep(model, prompts, new_tokens, **kw):
     ("chatglm3-6b", {}), ("chatglm3-6b", {"kv_cache_dtype": "int8"}),
     ("stablelm-3b", {}), ("stablelm-3b", {"dtype": "bfloat16"}),
     ("zamba2-7b", {}), ("zamba2-7b", {"dtype": "bfloat16"}),
+    ("xlstm-1.3b", {}), ("xlstm-1.3b", {"dtype": "bfloat16"}),
     ("deepseek-v2-lite-16b", {}),
     ("deepseek-v2-lite-16b", {"dtype": "bfloat16"}),
     ("qwen3-moe-235b-a22b", {}),
@@ -1876,17 +1951,18 @@ TRAIN_CONFIGS = [
     ("llava-next-34b", dict(d_model=256, num_heads=4, num_kv_heads=2)),
     ("whisper-large-v3", dict(d_model=256, num_heads=4, num_kv_heads=4)),
     ("zamba2-7b", dict(d_model=256, num_heads=4, num_kv_heads=4)),
+    ("xlstm-1.3b", dict(d_model=256, num_heads=4, num_kv_heads=4)),
 ]
 
 
 def _attention_layers(cfg) -> int:
     """Flash launches a forward: a decoder layer's self-attention (every
-    kind but mamba), an xdec layer's cross-attention besides, an encoder
-    layer's."""
+    kind but the recurrent ones), an xdec layer's cross-attention besides,
+    an encoder layer's."""
     from repro_torch.models.lm import layer_kinds
     kinds = layer_kinds(cfg)
-    return len(kinds) - kinds.count("mamba") + kinds.count("xdec") + \
-        cfg.enc_layers
+    recurrent = sum(kinds.count(k) for k in ("mamba", "mlstm", "slstm"))
+    return len(kinds) - recurrent + kinds.count("xdec") + cfg.enc_layers
 
 
 @pytest.mark.parametrize("arch,over", TRAIN_CONFIGS)

@@ -152,6 +152,26 @@ def test_port_runs_with_jax_and_repro_unimportable():
             out = Trainer(zamba, zdata, TrainerConfig(
                 total_steps=2, ckpt_every=1, ckpt_dir=d)).run()
         assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+        # xlstm: the mlstm and slstm kinds, a prefill, a served wave, two
+        # trainer steps
+        xcfg = get_reduced("xlstm-1.3b")
+        xl = LM(xcfg, device="cpu", seed=3)
+        assert [type(b).__name__ for b in xl.blocks] == \
+            ["MlstmBlock"] * 3 + ["SlstmBlock"]
+        last = xl.prefill(torch.randint(0, 256, (2, 16)))
+        assert last.shape == (2, 1, 64) and bool(torch.isfinite(last).all())
+        srv = DecodeServer(xl, batch_slots=2, max_len=32, prefill_chunk=4,
+                           pipeline=True)
+        req = Request(prompt=np.arange(6, dtype=np.int32), max_new_tokens=2)
+        srv.submit(req)
+        srv.run_until_drained()
+        assert req.status == "ok" and len(req.out) == 2
+        xdata = SyntheticTokens(DataConfig(vocab_size=xcfg.vocab_size,
+                                           seq_len=16, global_batch=2))
+        with tempfile.TemporaryDirectory() as d:
+            out = Trainer(xl, xdata, TrainerConfig(
+                total_steps=2, ckpt_every=1, ckpt_dir=d)).run()
+        assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("STANDALONE-OK")
@@ -169,6 +189,7 @@ def test_no_port_source_imports_jax_or_the_reference():
     assert {f"{n}.py" for n in ("gemma3_4b", "h2o_danube_1_8b",
                                  "llava_next_34b", "whisper_large_v3",
                                  "zamba2_7b", "ssm", "linear_scan",
+                                 "xlstm_1_3b", "xlstm",
                                  "trainer", "ckpt",
                                  "adamw", "compress", "schedule",
                                  "pipeline", "train")} <= \

@@ -39,7 +39,7 @@ BF16 = dict(rtol=5e-2, atol=5e-2)
 #: front end)
 LOSS_ARCHS = ["stablelm-3b", "chatglm3-6b", "h2o-danube-1.8b", "gemma3-4b",
               "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b",
-              "llava-next-34b", "zamba2-7b"]
+              "llava-next-34b", "zamba2-7b", "xlstm-1.3b"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -273,12 +273,13 @@ def test_synthetic_tokens_equal_the_reference(modality):
             np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "zamba2-7b", "xlstm-1.3b"])
 def test_trainer_first_losses_match_the_reference(tmp_path, arch):
-    """The reduced stablelm and zamba2 trainers (seq 16, batch 8, as the
-    reference's system tests) from the reference's initial weights: the
+    """The reduced stablelm, zamba2 and xlstm trainers (seq 16, batch 8, as
+    the reference's system tests) from the reference's initial weights: the
     first five losses at 1e-4 relative (zamba2: the shared set updated once
-    a step from the gradient summed over its occurrences)."""
+    a step from the gradient summed over its occurrences; xlstm: its fp32
+    gate leaves updated beside the model's)."""
     from repro.runtime.trainer import Trainer as JTrainer, \
         TrainerConfig as JTrainerConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
