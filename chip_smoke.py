@@ -7,6 +7,7 @@
     python3 chip_smoke.py --whisper-only [--seed N]    # phase 14 alone
     python3 chip_smoke.py --zamba2-only [--seed N]     # phase 15 alone
     python3 chip_smoke.py --xlstm-only [--seed N]      # phase 16 alone
+    python3 chip_smoke.py --sharded-only [--seed N]    # phases 4, 5, 17
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -244,7 +245,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    eager bit for bit over the prompts' first quarters, every cache leaf),
    a captured micro-step against its bound (the weights read once and
    the recurrent caches read and written once).  Training: the Trainer
-   on 1 x 2048 tokens, 2 steps, twice from one seed, losses and
+   on 1 x 1024 tokens, 2 steps, twice from one seed, losses and
    parameters bit-equal, one
    transposition and one sparse ``ember_sls`` launch a step, a nonzero
    gradient for every parameter.  Forward == decode: the chunked
@@ -253,7 +254,32 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``XLSTM_FWD_DECODE_REL_L2``, above which two planted decode faults
    (an mlstm layer's normaliser ``n`` left unupdated, an slstm layer's
    recurrent term dropped) must land;
-17. one JSON line listing the kernels with the kernel (variant) that
+17. the vocab-sharded executor (``phase_sharded``, run right after phase
+   5, which it takes its tables, steps and outputs from;
+   ``--sharded-only`` runs phases 4, 5 and 17): two ranks spawned into a
+   gloo group over a file store, both on ``cuda:0``, the parent's tables
+   reaching them by CUDA IPC, each building only its local table.  First
+   a finding, printed: which gloo collectives take CUDA tensors
+   directly.  A 1-wide mesh (data 2, model 1) is phase 4's single-device
+   step bit for bit.  Then DLRM-DCNv2 at full width over 2 vocab shards,
+   ``exchange="host"`` with replicated outputs and ``"collective"`` with
+   owned ones, every op's whole output (owned slices all-gathered) within
+   ``SHARDED_REL_L2`` (relative L2) of phase 4's; a Zipf(1.05) stream
+   with a hot slab from a one-step warm-up trace and an
+   ``AdaptiveHotConfig``, then one ``swap_hot_slab`` to a drifted
+   stream's head, held against the plain per-op SLS before and after, the
+   hot share above and the wire bytes a step below the uniform stream's,
+   the slab epoch and hot set equal on both ranks; DeepSeek-V2-Lite's
+   lookups (phase 5's first ``SHARDED_DEEPSEEK_STEPS`` steps) in both
+   exchanges, bit for bit.  Each rank's local table at most half the
+   stack plus its hot slab (and a pad row a slot).  The local
+   ``ember_sls`` pool, the ``ember_transpose`` lattice rebuild and the
+   local block gather at the sharded path's shapes held against their
+   plain versions.  Printed per rank and drive: step ms (host clock,
+   synchronised), the collectives' calls, staged MB and ms, the
+   ``exchange_*`` statistics, the launches, compile seconds, local table
+   GB, peak memory and the card's;
+18. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -266,8 +292,10 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    and whisper's), the gather backward's transposition
    (``gather_transpose``) and sparse sum (``sls_sparse``), each with its
    launches in the danube, reduced MoE, whisper and xlstm trainings and
-   its times at the five shapes, error, times and bounds;
-18. ``{"ok": true, "device": {...}}`` as the last line.
+   its times at the five shapes, error, times and bounds; phase 17's
+   launches as ``sharded_launches`` of ``sls``, ``block_gather`` and
+   ``gather_transpose`` (counted in ``launches`` too);
+19. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -277,6 +305,7 @@ import argparse
 import collections
 import contextlib
 import gc
+import hashlib
 import json
 import re
 import shutil
@@ -300,6 +329,17 @@ DLRM_ROWS = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
 DLRM_MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
                   12, 100, 27, 10, 3, 1, 1)
 DLRM_DIM = 128
+# phase 17: DLRM's Zipf stream (the exponent of ROADMAP's locality runs),
+# its two heads (the rank -> row multipliers of two streams: primes that
+# divide no table size), the hot slab a table and the relative L2 bound
+# of the sharded outputs against the single device (fp32 sums in another
+# order)
+SHARDED_ZIPF = 1.05
+SHARDED_HEAD_A, SHARDED_HEAD_B = 1_000_003, 2_000_003
+SHARDED_SLAB_BYTES = 16 << 20
+SHARDED_ZIPF_STEPS = 3
+SHARDED_DEEPSEEK_STEPS = 2
+SHARDED_REL_L2 = 2e-5
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -519,17 +559,17 @@ ZAMBA_FWD_DECODE_REL_L2 = 2e-2
 # tokens (pick_chunk(320, 256) = 64, so the forward's two chunk paths both
 # run) and 32 new tokens each, closed batch (the lockstep: as phase 15's,
 # LOCKSTEP_NEW_TOKENS); trained on
-# 1 x 2048 tokens a step, lr TRAIN_LR, 2 steps, twice from one seed (a
-# step takes ~40 s, nearly all of it the host issuing the sLSTM loop's
-# forward and backward: 3 steps twice would take 4 minutes of the
-# script's 20).  The sLSTM layers are profiled over a window of
+# 1 x 1024 tokens a step, lr TRAIN_LR, 2 steps, twice from one seed (a
+# 2048-token step took ~40 s, nearly all of it the host issuing the sLSTM
+# loop's forward and backward, and with phase 17 the script neared its
+# 20 minutes: 1024 tokens halve the loop).  The sLSTM layers are profiled over a window of
 # XLSTM_WINDOW steps and scaled to the whole loop: every step issues the
 # same kernels, and a whole layer's ~100,000 kernels take minutes to read
 # under the profiler
 XLSTM_BLOCK_SEQ, XLSTM_BLOCK_DECODE = 512, 16
 XLSTM_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
 XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 2048, 2
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 1024, 2
 XLSTM_WINDOW = 256
 # the first super-block on the card against the CPU in fp32: the relative
 # L2 of the hidden states, of each decode step's logits and of every cache
@@ -637,6 +677,9 @@ def free_cuda() -> None:
     from repro_torch.core.executor import clear_executor_cache
     clear_executor_cache()
     gc.collect()
+    # tensors that phase 17's ranks held by CUDA IPC stay allocated here
+    # until collected, after the ranks have let them go
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
 
 
@@ -1406,9 +1449,13 @@ def phase_dlrm(seed: int, n_steps: int) -> dict:
               "launches": counts["sls"], "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
               "library_ms": library_ms, "held_against_plain": True}
-    del ex, u, tables, steps, outs, args, kw, got, dev_in, gidx, seg
+    # phase 17 takes the tables, the steps and their outputs; the stacked
+    # table goes with the executor
+    keep = {"prog": prog, "steps": steps, "outs": outs,
+            "compile_s": compile_s}
+    del ex, u, tables, args, kw, got, dev_in, gidx, seg
     free_cuda()
-    return result
+    return result, keep
 
 
 # ---------------------------------------------------------------------------
@@ -1571,9 +1618,488 @@ def phase_deepseek(seed: int, n_steps: int, card: str) -> dict:
               "zipf_ms": z_ms, "zipf_library_ms": z_library_ms,
               "zipf_rows_variant_ms": z_rows_ms,
               "zipf_bound_ms": z_bound_ms, "held_against_plain": True}
-    del ex, u, tables, embed, capacity, steps, outs, idxs, roff, real_step
+    keep = {"prog": prog, "steps": steps, "outs": outs}
+    del ex, u, tables, embed, capacity, idxs, roff, real_step
     free_cuda()
-    return result
+    return result, keep
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the vocab-sharded executor, two ranks on the card
+# ---------------------------------------------------------------------------
+
+def _zipf_ids(rng, rows: int, n: int, mult: int) -> np.ndarray:
+    """``n`` ids of a ``rows``-row table, Zipf(SHARDED_ZIPF)-distributed
+    over ranks (the continuous power law's inverse CDF, floored), rank r
+    mapped to row ``(r * mult) % rows`` (a bijection: ``mult`` is a prime
+    that divides no table size), so the head lies spread over the rows."""
+    a = 1.0 - SHARDED_ZIPF
+    u = rng.random(n)
+    x = (1.0 + u * ((rows + 1.0) ** a - 1.0)) ** (1.0 / a)
+    r = np.minimum(np.floor(x).astype(np.int64) - 1, rows - 1)
+    return ((r * mult) % rows).astype(np.int32)
+
+
+def _zipf_steps(prog, rng, n_steps: int, mult: int) -> list:
+    """DLRM steps (ids only) on a Zipf stream with head ``mult``."""
+    out = []
+    for _ in range(n_steps):
+        out.append({name: {
+            "ptrs": np.arange(0, DLRM_BATCH * hot + 1, hot, dtype=np.int32),
+            "idxs": _zipf_ids(rng, op.num_embeddings, DLRM_BATCH * hot,
+                              mult)}
+            for (name, op), hot in zip(prog.ops, DLRM_MULTI_HOT)})
+    return out
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+    norm = torch.linalg.vector_norm
+    d = norm(got.float() - want.float(), dtype=torch.float64)
+    return float(d / norm(want.float(), dtype=torch.float64).clamp_min(
+        1e-30))
+
+
+def _gloo_takes_cuda() -> dict:
+    """Whether gloo takes CUDA tensors directly, by collective: each is
+    called once on a small tensor of the card in a group of its own (a
+    refusal raises on every rank alike, before anything is sent) and its
+    result checked.  A finding printed beside the run; the executor stages
+    every gloo collective through the host whatever it says."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    g = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+        seconds=30))
+    n, r = dist.get_world_size(g), dist.get_rank(g)
+    x = torch.arange(2 * n, dtype=torch.float32, device="cuda") + 10 * r
+    calls = {
+        "all_to_all_single": lambda: _a2a(x, g),
+        "all_reduce": lambda: _ar(x, g),
+        "reduce_scatter": lambda: _rs(x, g),
+        "all_gather": lambda: _ag(x, g)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            got = call().cpu()
+        except RuntimeError as e:          # the finding: gloo refused it
+            out[name] = "refuses: " + str(e).splitlines()[0][:80]
+            continue
+        out[name] = "takes" if torch.equal(got, _gloo_expected(
+            name, n, r)) else "takes (wrong result)"
+    dist.destroy_process_group(g)
+    return out
+
+
+def _a2a(x, g):
+    import torch.distributed as dist
+    o = x.new_empty(x.shape)
+    dist.all_to_all_single(o, x, group=g)
+    return o
+
+
+def _ar(x, g):
+    import torch.distributed as dist
+    o = x.clone()
+    dist.all_reduce(o, group=g)
+    return o
+
+
+def _rs(x, g):
+    import torch.distributed as dist
+    o = x.new_empty(x.numel() // dist.get_world_size(g))
+    (getattr(dist, "reduce_scatter_single", None) or
+     dist.reduce_scatter_tensor)(o, x, group=g)
+    return o
+
+
+def _ag(x, g):
+    import torch.distributed as dist
+    o = x.new_empty(x.numel() * dist.get_world_size(g))
+    (getattr(dist, "all_gather_single", None) or
+     dist.all_gather_into_tensor)(o, x, group=g)
+    return o
+
+
+def _gloo_expected(name: str, n: int, r: int):
+    import torch
+    xs = [torch.arange(2 * n, dtype=torch.float32) + 10 * k
+          for k in range(n)]
+    if name == "all_to_all_single":
+        return torch.cat([xs[k][2 * r:2 * r + 2] for k in range(n)])
+    if name == "all_reduce":
+        return sum(xs)
+    if name == "reduce_scatter":
+        return sum(xs)[2 * r:2 * r + 2]
+    return torch.cat(xs)
+
+
+class _LastCall:
+    """A kernel wrapper that keeps its last call's arguments and result
+    (the shapes the sharded path gives it).  Its other attributes are the
+    wrapped function's (a wrapper counts its launches on itself, by its
+    module-level name)."""
+
+    def __init__(self, fn):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "last", None)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        if name in ("fn", "last"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.fn, name, value)
+
+    def __call__(self, *a, **kw):
+        out = self.fn(*a, **kw)
+        self.last = (a, kw, out)
+        return out
+
+
+def _sharded_drive(ex, steps, want, want_fn=None) -> dict:
+    """Drive ``ex`` over ``steps`` (launch counts zeroed first), each
+    step's whole outputs held against ``want[k]`` (or ``want_fn(k)``): the
+    worst relative L2 and whether every output was bit-equal, the host ms
+    of each step (synchronised), the collectives' share of the steps, and
+    the launches."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    kops.reset_launch_counts()
+    st = ex.stats
+    rel, equal, times = 0.0, True, []
+    coll = {"collectives": 0, "staged_bytes": 0, "collective_ms": 0.0}
+    stats0 = {k: st[k] for k in (
+        "exchange_index_bytes", "exchange_row_bytes", "hot_lookups",
+        "cold_lookups", "host_syncs", "spilled_lookups")}
+    for k, ins in enumerate(steps):
+        before = {key: st[key] for key in coll}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = ex.step(ins)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for key in coll:
+            coll[key] += st[key] - before[key]
+        full = ex.full_outputs(outs)
+        ref_k = want[k] if want_fn is None else want_fn(k)
+        for name, w in ref_k.items():
+            g = full[name].reshape(w.shape)
+            rel = max(rel, _rel_l2(g, w))
+            equal = equal and torch.equal(g, w)
+    counts = kops.launch_counts()
+    stats = {k: st[k] - stats0[k] for k in stats0}
+    return {"rel_l2": rel, "bit_equal": equal, "ms": times,
+            "collective": coll,
+            "sls": counts["sls"],
+            "sls_rows": kops.variant_launch_counts()["sls"]["rows"],
+            "gather": counts["block_gather"],
+            "gather_group": kops.variant_launch_counts()[
+                "block_gather"]["group"],
+            "transpose": kops.backward_launch_counts()["gather_transpose"],
+            "stats": stats}
+
+
+def _sharded_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of phase 17 (a spawned process sharing the card): the
+    DLRM-DCNv2 and DeepSeek-V2-Lite drives of :func:`phase_sharded` through
+    ``executor_for(..., mesh=...)``, every output held against phases 4
+    and 5 (or the plain per-op SLS on the Zipf stream), and the kernels at
+    the sharded path's shapes held against their plain versions.  Returns
+    plain numbers."""
+    import torch
+    from repro_torch.core.access_plan import canonical_hot
+    from repro_torch.core.executor import executor_for
+    from repro_torch.data.locality import AdaptiveHotConfig
+    from repro_torch.kernels import gather as kgather, ops as kops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"gloo_cuda": _gloo_takes_cuda()}
+    dl, ds = job["dlrm"], job["deepseek"]
+    prog, steps, want = dl["prog"], dl["steps"], dl["outs"]
+    stacked_bytes = sum(op.num_embeddings * op.emb_len * 4
+                        for _, op in prog.ops)
+    # a 1-wide model axis is the single-device executor: rank 0 holds it
+    # bit for bit against phase 4's first step
+    mesh1 = make_host_mesh(1)
+    if rank == 0:
+        ex = executor_for(prog, "O3", mesh=mesh1)
+        got = ex.step(steps[0])
+        out["one_wide"] = {"shards": ex.shards, "bit_equal": all(
+            torch.equal(got[n], want[0][n]) for n in want[0])}
+        del ex, got
+        free_cuda()      # the executor's closures make a cycle: collect it
+    mesh = make_host_mesh(world)
+    # the kernels' last calls on the sharded path, for the checks below
+    wrapped = {"sls": _LastCall(kops.sls),
+               "block_gather": _LastCall(kops.block_gather),
+               "transpose": _LastCall(kgather.transposed_lookups)}
+    kops.sls, kops.block_gather = wrapped["sls"], wrapped["block_gather"]
+    kgather.transposed_lookups = wrapped["transpose"]
+    runs = {}
+    for mode, repl in (("host", True), ("collective", False)):
+        for w in wrapped.values():
+            w.last = None        # it holds the last executor's table
+        t0 = time.perf_counter()
+        ex = executor_for(prog, "O3", mesh=mesh, exchange=mode,
+                          replicate_outputs=repl)
+        compile_s = time.perf_counter() - t0
+        run = _sharded_drive(ex, steps, want)
+        run.update(compile_s=compile_s,
+                   local_bytes=ex._units[0].table.numel() * 4,
+                   slab_bytes=ex._units[0].plan.hot_slab_bytes,
+                   slots=len(ex._units[0].plan.slots),
+                   wire_per_step=run["stats"]["exchange_index_bytes"] /
+                   len(steps),
+                   hot_share=ex.access_plan_stats()["hot_traffic_fraction"])
+        runs[f"dlrm_{mode}"] = run
+        del ex
+        free_cuda()
+    checks = {}
+    a, kw, got = wrapped["sls"].last
+    checks["sls"] = {
+        "shape": f"{kw['num_segments']} segments, "
+                 f"{int(a[1][-1])} lookups of {a[2].numel()}",
+        "err": max_err(got, ref.sls(*a, **kw)),
+        "ms": time_ms(lambda: wrapped["sls"].fn(*a, **kw), 20),
+        "plain_ms": time_ms(lambda: ref.sls(*a, **kw), 5)}
+    check_close(got, ref.sls(*a, **kw), "sharded local SLS pool",
+                **TOL_SUM_F32)
+    a, kw, (order, ptrs) = wrapped["transpose"].last
+    p_order, p_ptrs = ref.transposed_lookups(*a, **kw)
+    require(torch.equal(order, p_order) and torch.equal(ptrs, p_ptrs),
+            "sharded lattice rebuild: ember_transpose != the plain one")
+    checks["transpose"] = {
+        "shape": f"{a[0].numel()} received slots, {a[2]} segments + "
+                 "sentinel",
+        "ms": time_ms(lambda: wrapped["transpose"].fn(*a, **kw), 20),
+        "plain_ms": time_ms(lambda: ref.transposed_lookups(*a, **kw), 5)}
+    for w in wrapped.values():
+        w.last = None
+    free_cuda()
+    # the Zipf stream: a hot slab from a warm-up trace, then one swap to
+    # the head of a drifted stream
+    z = job["zipf"]
+    cfg = AdaptiveHotConfig(window_steps=4, num_windows=2,
+                            min_swap_interval=1 << 20)
+    tables = {name: steps[0][name]["table"] for name, _ in prog.ops}
+
+    def plain(zsteps):
+        def want_fn(k):
+            return {name: ref.sls(tables[name],
+                                  torch.from_numpy(s["ptrs"]).cuda(),
+                                  torch.from_numpy(s["idxs"]).cuda(),
+                                  num_segments=DLRM_BATCH)
+                    for name, s in zsteps[k].items()}
+        return want_fn
+
+    def with_tables(zsteps):
+        return [{name: {**s, "table": tables[name]}
+                 for name, s in st.items()} for st in zsteps]
+    ex = executor_for(prog, "O3", mesh=mesh, hot_rows=z["hot_a"],
+                      adaptive=cfg)
+    za, zb = with_tables(z["steps_a"]), with_tables(z["steps_b"])
+    run = _sharded_drive(ex, za, None, plain(za))
+    run.update(wire_per_step=run["stats"]["exchange_index_bytes"] / len(za),
+               hot_share=ex.window_stats()["hot_traffic_fraction"],
+               local_bytes=ex._units[0].table.numel() * 4,
+               slab_bytes=ex._units[0].plan.hot_slab_bytes,
+               slots=len(ex._units[0].plan.slots))
+    runs["zipf_a"] = run
+    t0 = time.perf_counter()
+    swapped = ex.swap_hot_slab(z["hot_b"])
+    swap_s = time.perf_counter() - t0
+    run = _sharded_drive(ex, zb, None, plain(zb))
+    run.update(wire_per_step=run["stats"]["exchange_index_bytes"] / len(zb),
+               hot_share=ex.window_stats()["hot_traffic_fraction"],
+               swapped=swapped, swap_s=swap_s, epoch=ex.slab_epoch,
+               hot_digest=hashlib.sha256(repr(canonical_hot(
+                   ex.hot_rows)).encode()).hexdigest()[:16],
+               local_bytes=ex._units[0].table.numel() * 4,
+               slab_bytes=ex._units[0].plan.hot_slab_bytes,
+               slots=len(ex._units[0].plan.slots))
+    runs["zipf_b"] = run
+    for w in wrapped.values():
+        w.last = None
+    del ex
+    free_cuda()
+    # DeepSeek-V2-Lite's fused gather unit, both exchanges, bit for bit
+    for mode, repl in (("host", True), ("collective", False)):
+        ex = executor_for(ds["prog"], "O3", mesh=mesh, exchange=mode,
+                          replicate_outputs=repl)
+        runs[f"deepseek_{mode}"] = _sharded_drive(ex, ds["steps"],
+                                                  ds["outs"])
+        del ex
+        free_cuda()
+    a, kw, got = wrapped["block_gather"].last
+    require(torch.equal(got, ref.block_gather(*a, **kw)),
+            "sharded local block gather != the plain gather")
+    checks["block_gather"] = {"shape": f"{a[1].numel()} blocks"}
+    kops.sls, kops.block_gather = wrapped["sls"].fn, \
+        wrapped["block_gather"].fn
+    kgather.transposed_lookups = wrapped["transpose"].fn
+    free, total = torch.cuda.mem_get_info()
+    out.update(runs=runs, checks=checks, stacked_bytes=stacked_bytes,
+               peak=torch.cuda.max_memory_allocated(), card_total=total,
+               card_used=total - free)
+    return out
+
+
+def _free_after_sharded() -> None:
+    """Free phases 4 and 5's tables once the ranks have let them go, and
+    require it: the phases after need the card (phase 12 all of it)."""
+    import torch
+    free_cuda()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    print(f"[17 sharded after] this process holds {held / 2**30:.2f} GiB; "
+          f"the card {(total - free) / 2**30:.2f} of {total / 2**30:.2f} "
+          f"GiB in use")
+    require(held < 1 << 30, f"phase 17 left {held / 2**30:.2f} GiB "
+            "allocated (tables shared with the ranks not released)")
+
+
+def phase_sharded(seed: int, n_steps: int, card: str, dlrm: dict,
+                  deepseek: dict) -> dict:
+    """Phase 17: two ranks on the one card (spawned, a gloo group over a
+    file store) drive phase 4's DLRM-DCNv2 steps and phase 5's
+    DeepSeek-V2-Lite lookups through the vocab-sharded executor; the
+    tables reach the ranks by CUDA IPC and each builds only its local
+    table.  Returns the sharded launches by kernel."""
+    from repro_torch.core import access_plan as ap
+    from repro_torch.core.cost_model import FusionBudget
+    from repro_torch.data.locality import classify_hot_from_counts
+    from repro_torch.launch.mesh import run_ranks
+    prog = dlrm["prog"]
+    rng = np.random.default_rng(seed + 17)
+    t0 = time.perf_counter()
+    warm = _zipf_steps(prog, rng, 1, SHARDED_HEAD_A)[0]
+    hot_a = ap.hot_rows_from_traces(
+        prog, {n: s["idxs"] for n, s in warm.items()},
+        FusionBudget(shards=2, hot_slab_bytes=SHARDED_SLAB_BYTES))
+    warm_b = _zipf_steps(prog, rng, 1, SHARDED_HEAD_B)[0]
+    hot_b = {}
+    for name, op in prog.ops:
+        if name in hot_a:
+            counts = np.bincount(warm_b[name]["idxs"],
+                                 minlength=op.num_embeddings)
+            hot_b[name] = tuple(int(i) for i in classify_hot_from_counts(
+                counts, len(hot_a[name]),
+                prev_hot=np.asarray(hot_a[name])))
+    zipf = {"hot_a": hot_a, "hot_b": hot_b,
+            "steps_a": _zipf_steps(prog, rng, SHARDED_ZIPF_STEPS,
+                                   SHARDED_HEAD_A),
+            "steps_b": _zipf_steps(prog, rng, SHARDED_ZIPF_STEPS,
+                                   SHARDED_HEAD_B)}
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # DeepSeek's replicated output is 1.07 GB a step, staged through the
+    # host twice: the first SHARDED_DEEPSEEK_STEPS of phase 5's steps
+    ds = {"prog": deepseek["prog"],
+          "steps": deepseek["steps"][:SHARDED_DEEPSEEK_STEPS],
+          "outs": deepseek["outs"][:SHARDED_DEEPSEEK_STEPS]}
+    ranks = run_ranks(_sharded_rank, 2, ({
+        "dlrm": {k: dlrm[k] for k in ("prog", "steps", "outs")},
+        "deepseek": ds, "zipf": zipf},), timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    require(r0["one_wide"] == {"shards": 1, "bit_equal": True},
+            f"a 1-wide mesh is not phase 4's single-device step: "
+            f"{r0['one_wide']}")
+    print(f"[17 sharded setup] gloo on CUDA tensors, directly: "
+          f"{r0['gloo_cuda']} (the executor stages every gloo collective "
+          f"through pinned host buffers); Zipf({SHARDED_ZIPF}) streams and "
+          f"hot slabs {setup_s:.2f} s on the host; 2 ranks spawned, run "
+          f"and joined in {ranks_s:.1f} s; a 1-wide mesh == phase 4's "
+          f"step bit for bit; {card}")
+    hot_slab = {}
+    for rank, res in enumerate(ranks):
+        runs = res["runs"]
+        for key, run in runs.items():
+            st, coll, ms = run["stats"], run["collective"], run["ms"]
+            if key.startswith("deepseek"):
+                require(run["bit_equal"], f"rank {rank} {key}: DeepSeek "
+                        "lookups differ from phase 5's bits")
+            else:
+                require(run["rel_l2"] <= SHARDED_REL_L2,
+                        f"rank {rank} {key}: relative L2 {run['rel_l2']:.3g}"
+                        f" > {SHARDED_REL_L2} against the single device")
+            extra = ""
+            if "local_bytes" in run:
+                half = res["stacked_bytes"] / 2
+                limit = half + run["slab_bytes"] + run["slots"] * \
+                    DLRM_DIM * 4
+                require(run["local_bytes"] <= limit,
+                        f"rank {rank} {key}: local table "
+                        f"{run['local_bytes']} B > half the stack + slab")
+                extra = (f"; local table {run['local_bytes'] / 1e9:.3f} GB "
+                         f"of the {res['stacked_bytes'] / 1e9:.3f} GB stack "
+                         f"({run['local_bytes'] / res['stacked_bytes']:.4f};"
+                         f" hot slab {run['slab_bytes'] / 1e9:.4f} GB)")
+                hot_slab[key] = run["slab_bytes"]
+            if "compile_s" in run:
+                extra += f"; compile {run['compile_s']:.2f} s"
+            if "swapped" in run:
+                extra += (f"; swap_hot_slab {run['swapped']} in "
+                          f"{run['swap_s']:.3f} s, slab epoch {run['epoch']}")
+            print(f"[17 sharded {key} rank {rank}] {len(ms)} steps: step 1 "
+                  f"{ms[0]:.2f} ms, steps 2-{len(ms)} mean "
+                  f"{np.mean(ms[1:]):.3f} ms (host clock, synchronised); "
+                  f"worst relative L2 {run['rel_l2']:.3g} (bit-equal "
+                  f"{run['bit_equal']}); {coll['collectives']} collectives, "
+                  f"{coll['staged_bytes'] / 1e6:.2f} MB staged, "
+                  f"{coll['collective_ms']:.2f} ms; exchange_index_bytes "
+                  f"{st['exchange_index_bytes']}, exchange_row_bytes "
+                  f"{st['exchange_row_bytes']}, hot/cold lookups "
+                  f"{st['hot_lookups']}/{st['cold_lookups']}, host_syncs "
+                  f"{st['host_syncs']}, spilled {st['spilled_lookups']}; "
+                  f"launches: ember_sls {run['sls']}, block gather "
+                  f"{run['gather']} (grouping {run['gather_group']}), "
+                  f"ember_transpose {run['transpose']}{extra}")
+        print(f"[17 sharded memory rank {rank}] peak "
+              f"{res['peak'] / 2**30:.2f} GiB allocated by the rank; card "
+              f"{res['card_used'] / 2**30:.2f} of "
+              f"{res['card_total'] / 2**30:.2f} GiB in use by every process "
+              f"at the rank's end")
+    for key in ("zipf_a", "zipf_b"):
+        require(all(r["runs"][key]["hot_share"] >
+                    r["runs"]["dlrm_collective"]["hot_share"] and
+                    r["runs"][key]["wire_per_step"] <
+                    r["runs"]["dlrm_collective"]["wire_per_step"]
+                    for r in ranks),
+                f"{key}: the hot slab did not cut the wire volume")
+    zb = [r["runs"]["zipf_b"] for r in ranks]
+    require(all(z["swapped"] for z in zb) and
+            zb[0]["epoch"] == zb[1]["epoch"] == 1 and
+            zb[0]["hot_digest"] == zb[1]["hot_digest"],
+            f"the ranks disagree on the swap: {zb}")
+    c = r0["checks"]
+    print(f"[17 sharded kernels] at the sharded path's shapes on rank 0: "
+          f"ember_sls ({c['sls']['shape']}) {c['sls']['ms']:.4f} ms, plain "
+          f"{c['sls']['plain_ms']:.4f} ms, max abs err "
+          f"{c['sls']['err']:.3g}; ember_transpose "
+          f"({c['transpose']['shape']}) {c['transpose']['ms']:.4f} ms, "
+          f"plain {c['transpose']['plain_ms']:.4f} ms, order and ptrs "
+          f"equal; block gather ({c['block_gather']['shape']}) bit-equal; "
+          f"Zipf hot share {zb[0]['hot_share']:.4f} after the swap against "
+          f"{r0['runs']['zipf_a']['hot_share']:.4f} before and 0 uniform; "
+          f"wire bytes/step {r0['runs']['zipf_a']['wire_per_step']:.0f} "
+          f"(Zipf) against {r0['runs']['dlrm_collective']['wire_per_step']:.0f}"
+          f" (uniform); {card}")
+    launches = {k: sum(r["runs"][run][k] for r in ranks
+                       for run in r["runs"])
+                for k in ("sls", "gather", "transpose")}
+    require(all(launches.values()),
+            f"a kernel of the sharded path never launched: {launches}")
+    return {"launches": launches, "sls_err": c["sls"]["err"],
+            "sls_ms": c["sls"]["ms"], "sls_plain_ms": c["sls"]["plain_ms"],
+            "transpose_ms": c["transpose"]["ms"],
+            "transpose_plain_ms": c["transpose"]["plain_ms"],
+            "sls_shape": c["sls"]["shape"],
+            "transpose_shape": c["transpose"]["shape"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6023,6 +6549,10 @@ def main(argv=None) -> int:
     ap.add_argument("--xlstm-only", action="store_true",
                     help="run phases 1, 2 and 16 alone (the xlstm "
                          "phase's lines, no JSON)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run phases 1, 2, 4, 5 and 17 alone (the sharded "
+                         "executor's lines and the phases it takes its "
+                         "tables from, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -6052,6 +6582,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     phase_build()
+    if args.sharded_only:
+        phase_sharded(args.seed, args.steps, card,
+                      phase_dlrm(args.seed, args.steps)[1],
+                      phase_deepseek(args.seed, args.steps, card)[1])
+        _free_after_sharded()
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
     alone = (phase_training if args.training_only else
              phase_whisper if args.whisper_only else
              phase_zamba2 if args.zamba2_only else
@@ -6069,11 +6606,20 @@ def main(argv=None) -> int:
     seconds = {"1-3": time.perf_counter() - t0}
     if args.sweep_only:
         return 0
-    kernels = []
+    kernels, kept = [], {}
     for phase, run in (("4", lambda: phase_dlrm(args.seed, args.steps)),
                        ("5", lambda: phase_deepseek(args.seed, args.steps,
-                                                    card)),
-                       ("6", lambda: phase_gnn(args.seed, args.steps, card)),
+                                                    card))):
+        t0 = time.perf_counter()
+        result, kept[phase] = run()
+        kernels.append(result)
+        seconds[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = phase_sharded(args.seed, args.steps, card, kept.pop("4"),
+                            kept.pop("5"))
+    _free_after_sharded()
+    seconds["17"] = time.perf_counter() - t0
+    for phase, run in (("6", lambda: phase_gnn(args.seed, args.steps, card)),
                        ("7", lambda: phase_chatglm3(args.seed))):
         t0 = time.perf_counter()
         kernels.append(run())
@@ -6171,6 +6717,18 @@ def main(argv=None) -> int:
     training["instances"] = dict(bwd_instances)
     training.update({f"whisper_{k}": v for k, v in wt.items()})
     kernels.append(training)
+    # phase 17's launches: the two ranks' sharded DLRM and DeepSeek drives
+    for kname, key in (("sls", "sls"), ("block_gather", "gather"),
+                       ("gather_transpose", "transpose")):
+        k = next(k for k in kernels if k["name"] == kname)
+        k["sharded_launches"] = sharded["launches"][key]
+        k["launches"] += k["sharded_launches"]
+    sls = next(k for k in kernels if k["name"] == "sls")
+    sls.update({f"sharded_{k}": v for k, v in sharded.items()
+                if k.startswith("sls_")})
+    transpose = next(k for k in kernels if k["name"] == "gather_transpose")
+    transpose.update({f"sharded_{k}": v for k, v in sharded.items()
+                      if k.startswith("transpose_")})
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

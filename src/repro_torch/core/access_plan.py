@@ -133,6 +133,39 @@ class MemberPlan:
     slot: int                # stacked-slot index (shared tables share one)
 
 
+class _LazyColdIds:
+    """``SlotPlan.cold_ids``, built on first read where the plan left it
+    None (a one-shard plan: no routing reads it, and at DLRM width the ids
+    of every row are 433 MB) and cached.  A dataclass field whose default
+    is this descriptor keeps its name in ``dataclasses.fields``, so the
+    slot compares field for field with the reference's."""
+
+    def __set_name__(self, owner, name):
+        self._slot = "_" + name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return None                   # the field's default
+        ids = obj.__dict__.get(self._slot)
+        if ids is None:
+            ids = _cold_of(obj.rows, obj.hot_ids)
+            obj.__dict__[self._slot] = ids
+        return ids
+
+    def __set__(self, obj, value):
+        obj.__dict__[self._slot] = value
+
+
+def _cold_of(rows: int, hot: np.ndarray) -> np.ndarray:
+    """The ascending ids of a slot's rows outside ``hot`` (what
+    ``np.setdiff1d(np.arange(rows), hot)`` gives, without its sort)."""
+    if not len(hot):
+        return np.arange(rows, dtype=np.int64)
+    keep = np.ones(rows, bool)
+    keep[hot] = False
+    return np.flatnonzero(keep).astype(np.int64)
+
+
 @dataclasses.dataclass
 class SlotPlan:
     """One stacked table slot's layout: single-device base + shard split +
@@ -143,7 +176,10 @@ class SlotPlan:
     rows: int                     # index-unit rows of the slot
     base: int                     # single-device stacked base (index units)
     hot_ids: np.ndarray           # sorted global unit-row ids, replicated
-    cold_ids: np.ndarray          # ascending ids of the interleaved tail
+    _: dataclasses.KW_ONLY
+    # ascending ids of the interleaved tail (built on first read where
+    # None: one-shard plans)
+    cold_ids: Optional[np.ndarray] = _LazyColdIds()
     cap: int                      # per-shard cold capacity ceil(#cold / S)
     cold_base: int                # local base of this slot's cold slice
     hot_base: int                 # local base of this slot's hot slab
@@ -833,7 +869,9 @@ def _build_slots(rows_per_slot: list, bases: list, shards: int,
     cold_base = 0
     hot_base = total_cold
     for rows, base, hot, cap in zip(rows_per_slot, bases, hots, caps):
-        cold = np.setdiff1d(np.arange(rows, dtype=np.int64), hot)
+        # one shard: no routing reads the cold ids (SlotPlan builds them
+        # on first read)
+        cold = _cold_of(rows, hot) if shards > 1 else None
         remap = is_hot = None
         if shards > 1:
             remap = np.zeros(rows, np.int32)

@@ -46,9 +46,32 @@ staging slots become reusable.  ``cuda``-backend units launch inside
 the deferred runs into one jitted wave executable; a CUDA graph of the
 pipeline wave is an open decision, ROADMAP.md follow-up F2.)
 
-Not ported yet (ROADMAP.md): meshes and vocab sharding, the hot slab and its
-adaptive swaps, the disaggregated service and its degrade policy, and
-serving artifacts.
+**Sharded programs** -- pass ``mesh`` (a ``DeviceMesh`` over an initialised
+process group: :func:`repro_torch.launch.mesh.make_host_mesh`) and the
+fused units' stacked tables are vocab-partitioned over its ``shard_axis``
+per each unit's compiled AccessPlan: each rank is one process with one
+executor and holds a 1/S stripe of every slot's cold tail plus the
+replicated hot slab (the classified Zipf head: ``hot_rows``).  Every rank
+is handed the same step inputs, routes the whole step on its host (the
+plan's deterministic routing, so the ranks agree without talking) and
+keeps its own part; the device bodies are in :mod:`.shard_plan`.
+``exchange="host"`` ships the rank's routed bucket; ``"collective"`` (the
+default on 2 or more shards) ships the rank's row of the send lattice and
+runs the index exchange as an ``all_to_all``.  Pooled outputs are
+all-reduced to every rank (``replicate_outputs=True``, the host
+exchange's default) or reduce-scattered (the collective's default): rank r
+then owns fused segments ``[r·seg_cap, (r+1)·seg_cap)`` and ``step``
+returns each op's rows it owns, which may be none
+(:meth:`ProgramExecutor.output_rows` gives their range,
+:meth:`ProgramExecutor.full_outputs` all-gathers the whole view).  The
+reference returns a global array instead (ROADMAP.md, deliberate
+differences).  ``adaptive`` (a ``data.locality.AdaptiveHotConfig``) makes
+the hot slab a live cache: windowed row counts re-rank it when the hot
+hit-rate drifts, and :meth:`ProgramExecutor.swap_hot_slab` restacks the
+local tables in place.  A 1-wide mesh is the single-device executor.
+
+Not ported yet (ROADMAP.md): the disaggregated service and its degrade
+policy, and serving artifacts.
 """
 from __future__ import annotations
 
@@ -63,6 +86,8 @@ import torch
 from . import access_plan as ap
 from . import backend_cuda as bc
 from . import backend_torch as bt
+from . import cost_model
+from . import shard_plan as sp
 from .cost_model import FusionBudget
 from .ops import EmbeddingProgram
 from .passes.fuse import FusedGroup
@@ -352,12 +377,18 @@ class ProgramExecutor:
     :mod:`.backend_torch`).  ``pool`` is a staging pool to draw from instead
     of a private one (:func:`pipeline_group` hands its shared pool in);
     ``faults`` is a chaos injector (sites ``dispatch``, ``marshal``,
-    ``transfer`` and ``result``; None in production)."""
+    ``transfer`` and ``result``; None in production).
+
+    ``mesh`` / ``shard_axis`` / ``hot_rows`` / ``exchange`` /
+    ``replicate_outputs`` / ``adaptive`` select the vocab-sharded paths
+    (module docstring); the mesh's device type must be the executor's."""
 
     def __init__(self, compiled: ProgramCompileResult, device=None,
                  depth: int = 2, index_policy: str = "strict",
                  backend: str = "cuda", pool: Optional[BufferPool] = None,
-                 faults=None):
+                 faults=None, mesh=None, shard_axis: str = "model",
+                 hot_rows=None, exchange: Optional[str] = None,
+                 replicate_outputs: Optional[bool] = None, adaptive=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if index_policy not in ap.INDEX_POLICIES:
@@ -365,13 +396,62 @@ class ProgramExecutor:
                              f"{ap.INDEX_POLICIES}")
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        if exchange not in (None, "host", "collective"):
+            raise ValueError(f"exchange {exchange!r} not in (None, 'host', "
+                             "'collective')")
         self.compiled = compiled
         self.device = resolve_device(device)
         self.depth = depth
         self.backend = backend
+        self.shards = sp.shard_count(mesh, shard_axis)
+        # a 1-wide mesh IS the single-device executor (bit-identical path)
+        self.mesh = mesh if self.shards > 1 else None
+        self.shard_axis = shard_axis
+        # the index exchange of the sharded streams: "collective" (the
+        # default on >= 2 shards) sends each rank's row of the send lattice
+        # through all_to_all; "host" routes each rank its bucket
+        self.exchange = ("host" if self.shards == 1
+                         else (exchange or "collective"))
+        # pooled outputs all-reduced to every rank, or reduce-scattered to
+        # the owner of each segment slice (the collective's default)
+        if replicate_outputs is None:
+            replicate_outputs = self.exchange == "host"
+        self.replicate_outputs = bool(replicate_outputs) \
+            if self.shards > 1 else True
+        # hot/cold vocab classification ({op name: replicated row ids});
+        # only meaningful on sharded executors
+        self.hot_rows = dict(hot_rows) if (hot_rows and self.shards > 1) \
+            else {}
+        self._hot_spec = ap.canonical_hot(self.hot_rows)
+        # adaptive hot-slab re-classification: a sliding window of per-row
+        # counts drives live slab swaps (swap_hot_slab) and hot-aware spill
+        # routing.  The windowed hot/cold counters are always kept: they
+        # are the drift observable window_stats() shows on every executor.
+        from ..data.locality import AdaptiveHotConfig, WindowedCounts
+        if adaptive is not None and not isinstance(adaptive,
+                                                   AdaptiveHotConfig):
+            raise TypeError("adaptive must be an AdaptiveHotConfig or None")
+        self.adaptive = adaptive
+        _w = adaptive or AdaptiveHotConfig()
+        self._win_stride = max(1, _w.window_steps // _w.num_windows)
+        self._win_ring = np.zeros((_w.num_windows, 2), np.int64)  # hot, cold
+        self._win_slot = 0
+        self._win_steps = 0
+        self._win_full = False
+        self.slab_epoch = 0
+        self._adapt_counts = {}           # op name -> WindowedCounts
+        self._adapt_ref: Optional[float] = None  # post-swap reference rate
+        self._adapt_last_swap = 0
+        self._adapt_refine = 0            # settling passes still owed
+        if adaptive is not None and self.shards > 1:
+            for name, op in compiled.program.ops:
+                if name in self.hot_rows:
+                    self._adapt_counts[name] = WindowedCounts(
+                        op.num_embeddings, adaptive.window_steps,
+                        adaptive.num_windows)
         self._units = [_UnitState(u) for u in compiled.units]
         for u in self._units:
-            u.plan = u.res.access_plan or ap.build_plan(u.res.op, u.group)
+            u.plan = self._plan_for(u)
         self.pool = pool or BufferPool(n_slots=max(2, depth + 1),
                                        pin=self.device.type == "cuda")
         self._pool_tag = object()         # private-pool key namespace
@@ -387,12 +467,75 @@ class ProgramExecutor:
         self.stats = {"steps": 0, "table_stacks": 0, "table_restacks": 0,
                       "table_rebinds": 0, "marshal_hits": 0,
                       "marshal_misses": 0, "max_inflight": 0,
+                      "exchange_index_bytes": 0, "exchange_row_bytes": 0,
+                      "hot_lookups": 0, "cold_lookups": 0,
                       "host_syncs": 0, "oob_lookups": 0,
-                      "dropped_lookups": 0, "resets": 0}
+                      "dropped_lookups": 0, "resets": 0,
+                      "hot_swaps": 0, "hot_swaps_rejected": 0,
+                      "spilled_lookups": 0, "collectives": 0,
+                      "staged_bytes": 0, "collective_ms": 0.0}
+        self.rank = 0
+        self._coll: Optional[sp.Collectives] = None
+        if self.mesh is not None:
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh is on {self.mesh.device_type}, "
+                                 f"the executor on {self.device}")
+            self.rank = self.mesh.get_local_rank(shard_axis)
+            self._coll = sp.Collectives(self.mesh.get_group(shard_axis),
+                                        self.device, self.stats)
+        # per op: (rows, fused row offset, seg_cap) where this rank's
+        # output is an owned slice of a reduce-scattered unit, else None
+        self._owned: dict = {}
+        for u in self._units:
+            for name, n, off in self._members(u):
+                self._owned[name] = ((n, off, u.plan.seg_cap)
+                                     if self._owns_slices(u) else None)
 
     def _fire(self, site: str) -> None:
         if self.faults is not None:
             self.faults.fire(site, program=self.compiled.program.name)
+
+    @staticmethod
+    def _members(u: _UnitState):
+        """(op name, rows, fused row offset) of each op of a unit."""
+        if u.group is None:
+            return [(u.unit.names[0], u.res.op.num_segments, 0)]
+        return [(name, mop.num_segments, off) for name, mop, off in
+                zip(u.group.members, u.group.member_ops,
+                    u.group.seg_offsets)]
+
+    def _plan_for(self, u: _UnitState) -> ap.AccessPlan:
+        """The unit's AccessPlan: the compiled artifact when it matches
+        this executor's shard count and hot classification, else
+        respecialized (an executor built directly over a compile without
+        shard information still interprets exactly one plan)."""
+        plan = u.res.access_plan
+        shards = self.shards if u.group is not None else 1
+        hot = self.hot_rows if u.group is not None else None
+        hot_spec = self._hot_spec if u.group is not None else ()
+        if plan is None or plan.shards != shards or \
+                plan.hot_spec != hot_spec:
+            plan = ap.build_plan(u.res.op, u.group, shards=shards,
+                                 hot_rows=hot, epoch=self.slab_epoch)
+        elif self.adaptive is not None:
+            # adaptive executors mutate plan.spill / plan.rr_start as
+            # per-step feedback -- never on the shared compiled artifact
+            plan = dataclasses.replace(plan, spill={}, rr_start=0,
+                                       epoch=self.slab_epoch)
+        return plan
+
+    @property
+    def signature(self) -> tuple:
+        return (self.compiled.program.signature(), self.compiled.opt_level,
+                self.compiled.vlen)
+
+    def _sharded(self, u: _UnitState) -> bool:
+        return u.group is not None and self.shards > 1
+
+    def _owns_slices(self, u: _UnitState) -> bool:
+        """Whether the unit's outputs are reduce-scattered: this rank then
+        holds fused segments ``[rank·seg_cap, (rank+1)·seg_cap)``."""
+        return self._sharded(u) and not self.replicate_outputs
 
     # ------------------------------------------------------------------
     # Marshaling cache: device-resident tables + roff
@@ -418,7 +561,17 @@ class ProgramExecutor:
     def _bind_unit(self, u: _UnitState, inputs: dict) -> None:
         srcs = self._src_tables(u, inputs)
         u.src_refs = tuple(weakref.ref(a) for a in srcs)
-        u.table = None    # a rebind frees the old stack before the new cat
+        u.table = None    # a rebind frees the old stack before the new one
+        if self._sharded(u):
+            # this rank's local table: its stripe of each cold tail + the
+            # replicated hot slabs (routed indices arrive fully rebased, so
+            # the kernel's seg_base stream is all zero)
+            u.table = sp.local_stack_table(srcs, u.plan, self.rank)
+            u.owns_table = True
+            if u.roff is None:
+                u.roff = torch.zeros(u.plan.num_segments, dtype=torch.int32,
+                                     device=self.device)
+            return
         # a single-slot stack aliases the caller's tensor -- only a tensor
         # built here (cat) may later be updated in place
         u.owns_table = len(srcs) > 1
@@ -429,7 +582,8 @@ class ProgramExecutor:
     def update_tables(self, inputs: dict) -> None:
         """Refresh the stacked tables after the member tables changed (e.g.
         a train step updated the embeddings): ``copy_`` into the owned
-        stacked tensor, in place.
+        stacked tensor, in place (a sharded unit rewrites its local
+        table).
 
         ``inputs`` may be partial: units with any member absent are left
         untouched, and units already bound to these exact tensors are
@@ -454,7 +608,10 @@ class ProgramExecutor:
                 continue
             srcs = self._src_tables(u, inputs)
             u.src_refs = tuple(weakref.ref(a) for a in srcs)
-            if u.group is not None and u.owns_table:
+            if self._sharded(u):
+                sp.local_stack_table(srcs, u.plan, self.rank, out=u.table)
+                self.stats["table_restacks"] += 1
+            elif u.group is not None and u.owns_table:
                 blk = u.plan.blk
                 for slot, part in zip(u.plan.slots, srcs):
                     lo = slot.base * blk
@@ -567,6 +724,141 @@ class ProgramExecutor:
                 self._trim(dict(slot), nnz))
 
     # ------------------------------------------------------------------
+    # Sharded fused units: the routed index exchange + the device bodies
+    # ------------------------------------------------------------------
+
+    def _count_row_bytes(self, op, blk: int, plan: ap.AccessPlan) -> None:
+        """Pooled-rows-back volume of one sharded step: the all-reduce
+        ships every shard's partials everywhere ((S-1)·B·E·4); the
+        reduce-scatter leaves each shard only its own segment slice -- 1/S
+        of that, plus the padding rows of the scatter grid."""
+        s = self.shards
+        width = blk * op.emb_len * 4
+        if self.replicate_outputs:
+            self.stats["exchange_row_bytes"] += \
+                op.num_segments * width * (s - 1)
+        else:
+            self.stats["exchange_row_bytes"] += \
+                plan.padded_segments * width * (s - 1) // s
+
+    def _body_kw(self, plan: ap.AccessPlan) -> dict:
+        return dict(coll=self._coll, backend=self.backend,
+                    replicate=self.replicate_outputs, shards=self.shards,
+                    seg_cap=plan.seg_cap)
+
+    def _run_csr_sharded(self, idx: int, u: _UnitState, inputs: dict):
+        """Fused CSR unit over S vocab shards, host exchange: the
+        AccessPlan merges the member streams and routes every lookup to its
+        owning shard (hot rows resolve to the replicated slab and pay no
+        exchange); this rank packs its own bucket, pools it locally and the
+        partial pools combine."""
+        if self.exchange == "collective":
+            return self._run_csr_collective(idx, u, inputs)
+        plan = u.plan
+        op = plan.op
+        need_vals = plan.need_vals
+        routed = plan.route_csr(inputs)
+        cap, r = routed["cap"], self.rank
+        spec = {"ptrs": ((op.num_segments + 1,), np.int32),
+                "idxs": ((cap,), np.int32)}
+        if need_vals:
+            spec["vals"] = ((cap,), np.dtype(op.dtype))
+        slot, buf = self._scratch_for(idx, ("shard", cap), spec)
+        buf["ptrs"][:] = routed["ptrs"][r]
+        lo, hi = routed["bounds"][r], routed["bounds"][r + 1]
+        buf["idxs"][:hi - lo] = routed["idxs"][lo:hi]
+        buf["idxs"][hi - lo:] = 0         # pad rows must stay in bounds
+        if need_vals:
+            buf["vals"][:hi - lo] = routed["vals"][lo:hi]
+            buf["vals"][hi - lo:] = 0
+        # only the cold tail is exchanged; hot lookups were absorbed by the
+        # replicated slab (a local lookup on a round-robin shard)
+        self.stats["exchange_index_bytes"] += \
+            routed["cold_nnz"] * (8 if need_vals else 4)
+        self._note_hot_cold(routed["hot_nnz"], routed["cold_nnz"])
+        # next step's round-robin hot assignment starts at the shard whose
+        # routed bucket was lightest this step
+        if self.adaptive is not None:
+            plan.rr_start = int(np.argmin(routed["nnz"]))
+        self._count_row_bytes(op, 1, plan)
+        ptrs, idxs = self._put(slot["ptrs"]), self._put(slot["idxs"])
+        vals = self._put(slot["vals"]) if need_vals else None
+        return sp.csr_host_body(
+            u.table, u.roff, ptrs, idxs, vals, add_op=op.semiring.add,
+            mul_op=op.semiring.mul, nseg=op.num_segments,
+            **self._body_kw(plan))
+
+    def _run_csr_collective(self, idx: int, u: _UnitState, inputs: dict):
+        """Fused CSR unit over S vocab shards, collective exchange: the
+        AccessPlan packs the step into the (src, dst) send lattice, this
+        rank ships its own row of it, and the index exchange runs as an
+        ``all_to_all`` on the device side (hot lookups sit on the
+        diagonal: no wire traffic)."""
+        plan = u.plan
+        op = plan.op
+        need_vals = plan.need_vals
+        routed = plan.route_csr_collective(inputs)
+        s, cap = self.shards, routed["cap"]
+        spec = {"ints": ((s, s, 2, cap), np.int32)}
+        if need_vals:
+            spec["vals"] = ((s, s, cap), np.dtype(op.dtype))
+        slot, buf = self._scratch_for(idx, ("coll", cap), spec)
+        plan.fill_lattice(routed, buf["ints"],
+                          buf["vals"] if need_vals else None)
+        # wire volume: only off-diagonal (src != owner) lookups cross a
+        # link; each carries its segment id + local index (+ val)
+        self.stats["exchange_index_bytes"] += \
+            routed["wire_nnz"] * (12 if need_vals else 8)
+        self._note_hot_cold(routed["hot_nnz"], routed["cold_nnz"])
+        self.stats["spilled_lookups"] += routed.get("spilled_nnz", 0)
+        # feedback for the NEXT step: an overloaded source diagonal spills
+        # a bounded fraction of its hot lookups to the least-loaded peer
+        if self.adaptive is not None:
+            plan.spill = sp.compute_spill(routed["pair_counts"],
+                                          self.adaptive.spill_fraction,
+                                          self.adaptive.spill_overload)
+        self._count_row_bytes(op, 1, plan)
+        ints = self._put(slot["ints"][self.rank])
+        vals = self._put(slot["vals"][self.rank]) if need_vals else None
+        return sp.csr_collective_body(
+            u.table, u.roff, ints, vals, add_op=op.semiring.add,
+            mul_op=op.semiring.mul, nseg=op.num_segments,
+            **self._body_kw(plan))
+
+    def _run_gather_sharded(self, idx: int, u: _UnitState, inputs: dict):
+        plan = u.plan
+        n = plan.num_segments
+        blk = plan.op.block_rows
+        s = self.shards
+        if self.exchange == "collective":
+            routed = plan.route_gather_collective(inputs)
+            cap = routed["cap"]
+            slot, buf = self._scratch_for(
+                idx, ("gather-coll", cap),
+                {"ints": ((s, s, 2, cap), np.int32)})
+            plan.fill_lattice(routed, buf["ints"])
+            self.stats["exchange_index_bytes"] += \
+                routed["wire_segments"] * 8   # seg + idx word
+            fused = sp.gather_collective_body(
+                u.table, self._put(slot["ints"][self.rank]), blk=blk,
+                nseg=n, **self._body_kw(plan))
+        else:
+            routed = plan.route_gather(inputs)
+            slot, buf = self._scratch_for(
+                idx, ("gather",), {"idxs": ((n,), np.int32),
+                                   "mask": ((n,), np.float32)})
+            buf["idxs"][:] = routed["idxs"][self.rank]
+            buf["mask"][:] = routed["mask"][self.rank]
+            self.stats["exchange_index_bytes"] += \
+                routed["cold_segments"] * 8   # idx + mask word
+            fused = sp.gather_host_body(
+                u.table, u.roff, self._put(slot["idxs"]),
+                self._put(slot["mask"]), blk=blk, **self._body_kw(plan))
+        self._note_hot_cold(routed["hot_segments"], routed["cold_segments"])
+        self._count_row_bytes(plan.op, blk, plan)
+        return fused
+
+    # ------------------------------------------------------------------
     # Step loop
     # ------------------------------------------------------------------
 
@@ -587,6 +879,17 @@ class ProgramExecutor:
             return bt.execute(u.res.op, dev)
         return bc.execute(u.res, dev)
 
+    def _split(self, u: _UnitState, fused: torch.Tensor) -> dict:
+        """A fused unit's output split per member op: each op's rows, or,
+        with owned (reduce-scattered) outputs, the rows of each op this
+        rank owns (``fused`` holds the rank's segment slice)."""
+        base = self.rank * u.plan.seg_cap if self._owns_slices(u) else 0
+        out = {}
+        for name, _, off in self._members(u):
+            lo, hi = self.output_rows(name)
+            out[name] = fused[off + lo - base:off + hi - base]
+        return out
+
     def _unit_run(self, u: _UnitState):
         """The unit's deferred launch, ``run(dev_inputs) -> {op name:
         output}`` (memoized on the unit)."""
@@ -599,13 +902,8 @@ class ProgramExecutor:
             def run(d, u=u, name=name):
                 return {name: self._execute(u, d)}
         else:
-            members = tuple(zip(u.group.members, u.group.member_ops,
-                                u.group.seg_offsets))
-
-            def run(d, u=u, members=members):
-                fused = self._execute(u, d)
-                return {name: fused[off:off + mop.num_segments]
-                        for name, mop, off in members}
+            def run(d, u=u):
+                return self._split(u, self._execute(u, d))
         u.txn_run = run
         return run
 
@@ -628,6 +926,20 @@ class ProgramExecutor:
                 # params): rebind rather than serve stale tables
                 self._bind_unit(u, uin)
                 self.stats["table_rebinds"] += 1
+            if self._sharded(u):
+                # epoch-checked marshaling: the plan interpreted here must
+                # be the one the local table was stacked under -- a
+                # mismatch means a half-applied slab swap
+                if u.plan.epoch != self.slab_epoch:
+                    raise RuntimeError(
+                        f"stale access plan (epoch {u.plan.epoch} != slab "
+                        f"epoch {self.slab_epoch}) -- swap_hot_slab left a "
+                        f"unit behind")
+                fused = (self._run_gather_sharded(idx, u, uin)
+                         if u.group.op.kind == "gather"
+                         else self._run_csr_sharded(idx, u, uin))
+                outs.update(self._split(u, fused))
+                continue
             if u.group is None:
                 consts, host = self._marshal_single(idx, u, uin)
             elif u.group.op.kind == "gather":
@@ -649,8 +961,9 @@ class ProgramExecutor:
     def submit(self, inputs: dict, txn: Optional[TransferBatch] = None
                ) -> StepHandle:
         """Dispatch one step asynchronously: marshal + copy + launch now,
-        block never.  At ``depth`` steps in flight the oldest is drained
-        first (backpressure), so step N+1's host packing overlaps step N's
+        block never (a sharded step's collectives wait for their peers).
+        At ``depth`` steps in flight the oldest is drained first
+        (backpressure), so step N+1's host packing overlaps step N's
         kernels.
 
         With ``txn`` (:meth:`PipelineGroup.submit_wave`), stock-op gather
@@ -658,12 +971,15 @@ class ProgramExecutor:
         their launch is deferred to its flush: the handle is ``deferred``
         until then, and its event is the one the flush records after the
         wave's last launch.  Otherwise the event is recorded here, after
-        this step's launches."""
+        this step's launches.  Sharded executors ignore ``txn``."""
         self._fire("dispatch")
         while len(self._inflight) >= self.depth:
             self._inflight.popleft().result()
         self._slots_packed = []
-        self._txn, self._deferred = txn, False
+        if self._adapt_counts:
+            self._adapt_observe(inputs)
+        self._txn = txn if self.shards == 1 else None
+        self._deferred = False
         try:
             outs = self._dispatch(inputs)
         finally:
@@ -682,13 +998,16 @@ class ProgramExecutor:
         self._inflight.append(h)
         self.stats["max_inflight"] = max(self.stats["max_inflight"],
                                          len(self._inflight))
+        self._win_tick()
+        if self.adaptive is not None:
+            self._adapt_tick()
         return h
 
     def step(self, inputs: dict) -> dict:
         """Synchronous convenience: submit + wait for this step's result."""
         h = self.submit(inputs)
-        if h in self._inflight:
-            self._inflight.remove(h)
+        if h in self._inflight:     # an end-of-submit slab swap drains the
+            self._inflight.remove(h)    # queue before we get here
         return h.result()
 
     def run_steps(self, steps) -> list:
@@ -718,6 +1037,248 @@ class ProgramExecutor:
         Slots of the old pool still owned by in-flight handles stay alive
         through those handles; new marshals draw from the shared rings."""
         self.pool = pool
+
+    # ------------------------------------------------------------------
+    # Sharded outputs
+    # ------------------------------------------------------------------
+
+    def output_rows(self, name: str) -> tuple:
+        """The rows ``[lo, hi)`` of op ``name``'s output that this rank's
+        step returns: all of them, or with owned (reduce-scattered)
+        outputs the ones in its segment slice (``lo == hi``: none)."""
+        owned = self._owned[name]
+        if owned is None:
+            return 0, dict(self.compiled.program.ops)[name].num_segments
+        n, off, seg_cap = owned
+        return sp.owned_range(n, off, self.rank, seg_cap)
+
+    def full_outputs(self, outs: dict) -> dict:
+        """Every op's whole output from a step's ``outs`` on this rank:
+        owned slices all-gathered from every rank (one ``all_gather`` an
+        op, so every rank of the mesh axis must call it), the rest as they
+        are."""
+        full = {}
+        for name, t in outs.items():
+            owned = self._owned[name]
+            if owned is None:
+                full[name] = t
+                continue
+            n, off, seg_cap = owned
+            sizes = [b - a for a, b in (sp.owned_range(n, off, r, seg_cap)
+                                        for r in range(self.shards))]
+            full[name] = sp.all_gather_rows(self._coll, t, sizes, seg_cap)
+        return full
+
+    # ------------------------------------------------------------------
+    # Adaptive locality: windowed counters, drift detection, slab swap
+    # ------------------------------------------------------------------
+
+    def _note_hot_cold(self, hot: int, cold: int) -> None:
+        """Count one routing's hot/cold split: cumulative stats AND the
+        sliding-window ring drift detection reads."""
+        self.stats["hot_lookups"] += hot
+        self.stats["cold_lookups"] += cold
+        self._win_ring[self._win_slot, 0] += hot
+        self._win_ring[self._win_slot, 1] += cold
+
+    def _win_tick(self) -> None:
+        """Advance the hot/cold window ring by one step (rotating out the
+        oldest stripe each ``window_steps / num_windows`` steps)."""
+        self._win_steps += 1
+        if self._win_steps % self._win_stride == 0:
+            self._win_slot = (self._win_slot + 1) % len(self._win_ring)
+            if self._win_slot == 0:
+                self._win_full = True
+            self._win_ring[self._win_slot] = 0
+
+    def window_stats(self) -> dict:
+        """Hot/cold traffic over the last window -- the drift observable.
+        Unlike the lifetime-cumulative ``stats["hot_lookups"]``, these age
+        out: a head rotation shows within one window.  The re-classifier
+        and operators read the same snapshot."""
+        hot = int(self._win_ring[:, 0].sum())
+        cold = int(self._win_ring[:, 1].sum())
+        total = hot + cold
+        span = self._win_stride * len(self._win_ring)
+        return {
+            "window_steps": span,
+            "steps_in_window": min(self._win_steps, span),
+            "window_full": self._win_full,
+            "hot_lookups": hot,
+            "cold_lookups": cold,
+            "hot_traffic_fraction": round(hot / total, 4) if total else 0.0,
+            "adaptive": self.adaptive is not None,
+            "slab_epoch": self.slab_epoch,
+            "hot_swaps": self.stats["hot_swaps"],
+            "hot_swaps_rejected": self.stats["hot_swaps_rejected"],
+            "spilled_lookups": self.stats["spilled_lookups"],
+            "reference_hot_fraction": self._adapt_ref,
+        }
+
+    def _adapt_observe(self, inputs: dict) -> None:
+        """Feed the step's index streams into the per-op windowed row
+        counters (the re-classifier's ranking signal)."""
+        for name, wc in self._adapt_counts.items():
+            ins = inputs.get(name)
+            if ins is not None and "idxs" in ins:
+                wc.add(np.asarray(ins["idxs"]))
+
+    def _adapt_tick(self) -> None:
+        """Drift detection, once per step: compare the windowed hot
+        hit-rate with the reference captured over the first full window
+        after the last (re)classification; a collapse below
+        ``drift_threshold × reference`` re-ranks and swaps the slab."""
+        cfg = self.adaptive
+        if cfg is None or not self._adapt_counts or not self._win_full:
+            return
+        span = self._win_stride * len(self._win_ring)
+        if self._adapt_refine > 0:
+            # settling pass: the window has refilled since the reactive
+            # swap flushed it, so the ranking sees post-swap traffic only;
+            # drift detection stays paused while the slab settles
+            if self._win_steps % span == 0:
+                self._adapt_refine -= 1
+                self._reclassify()
+            return
+        hot = int(self._win_ring[:, 0].sum())
+        cold = int(self._win_ring[:, 1].sum())
+        if not hot + cold:
+            return
+        frac = hot / (hot + cold)
+        if self._adapt_ref is None:
+            self._adapt_ref = float(frac)
+            return
+        if frac >= cfg.drift_threshold * self._adapt_ref:
+            # healthy window: let a better-than-reference rate raise the bar
+            self._adapt_ref = max(self._adapt_ref, float(frac))
+            return
+        if self._steps - self._adapt_last_swap < cfg.min_swap_interval:
+            return
+        self._adapt_last_swap = self._steps
+        if self._reclassify():
+            # the reactive ranking saw pre-drift history: flush the window
+            # and counters so the settling passes rank on clean data
+            self._reset_windows()
+            self._adapt_refine = cfg.refine_passes
+
+    def _reset_windows(self) -> None:
+        """Flush the hot/cold ring and every per-op count sketch (after a
+        reactive swap, so settling passes rank on post-swap traffic)."""
+        self._win_ring[:] = 0
+        self._win_slot = 0
+        self._win_steps = 0
+        self._win_full = False
+        for wc in self._adapt_counts.values():
+            wc.reset()
+
+    def _reclassify(self) -> bool:
+        """Re-rank each tracked op's hot set from its windowed counts and
+        swap the slab (size-preserving -- see ``classify_hot_from_counts``).
+        Returns True when a swap happened."""
+        from ..data.locality import classify_hot_from_counts
+        new: dict = {}
+        for name, wc in self._adapt_counts.items():
+            prev_ids = np.asarray(sorted(int(i) for i in
+                                         self.hot_rows.get(name, ())),
+                                  np.int64)
+            if not len(prev_ids):
+                continue
+            ids = classify_hot_from_counts(wc.totals(), len(prev_ids),
+                                           prev_hot=prev_ids)
+            new[name] = tuple(int(i) for i in ids)
+        return bool(new) and self.swap_hot_slab(new)
+
+    def swap_hot_slab(self, hot_rows) -> bool:
+        """Swap the replicated hot slab in place: same shapes, new
+        membership.  Per-slot hot counts (and so the local table's shape,
+        the capacity lattice and every staging bucket) are unchanged, so
+        the swap re-ranks the plans and rewrites the local tables in place.
+        A candidate set that WOULD change a slot's geometry (shared-table
+        slot unions can) is rejected and counted, never half-applied.
+        Returns True when a swap happened."""
+        new_hot = {n: tuple(int(i) for i in ids)
+                   for n, ids in dict(hot_rows).items()}
+        new_spec = ap.canonical_hot(new_hot)
+        if self.shards == 1 or new_spec == self._hot_spec:
+            return False
+        epoch = self.slab_epoch + 1
+        rebuilt: list = []
+        for u in self._units:
+            if u.group is None:
+                continue
+            plan = ap.build_plan(u.res.op, u.group, shards=self.shards,
+                                 hot_rows=new_hot, epoch=epoch)
+            old = u.plan
+            if plan.local_rows != old.local_rows or any(
+                    a.hot_rows != b.hot_rows or a.cap != b.cap
+                    for a, b in zip(plan.slots, old.slots)):
+                self.stats["hot_swaps_rejected"] += 1
+                return False
+            plan.rr_start, plan.spill = old.rr_start, dict(old.spill)
+            rebuilt.append((u, plan))
+        self.drain()    # restacked tables must not be read by old steps
+        self.hot_rows, self._hot_spec = new_hot, new_spec
+        for u, plan in rebuilt:
+            u.plan = plan
+            if u.table is None:
+                continue
+            srcs = [r() for r in (u.src_refs or ())]
+            if not srcs or any(s is None for s in srcs):
+                u.table = None          # sources gone: rebind next step
+                continue
+            sp.local_stack_table(srcs, plan, self.rank, out=u.table)
+            self.stats["table_restacks"] += 1
+        self.slab_epoch = epoch
+        self.stats["hot_swaps"] += 1
+        self._adapt_ref = None
+        self._adapt_last_swap = self._steps
+        return True
+
+    def access_plan_stats(self) -> dict:
+        """The compiled access side, observable: per-plan hot/cold layout,
+        the cost model's exchange estimate against the measured counters,
+        and the plan-build time the ``plan-access`` pass recorded."""
+        fused = [u for u in self._units if u.group is not None]
+        steps = self.stats["steps"]
+        est = [cost_model.exchange_bytes(
+                   u.group.member_ops, self.shards,
+                   replicate_outputs=self.replicate_outputs,
+                   collective=self.exchange == "collective")
+               for u in fused]
+        est_idx = sum(e["index_bytes"] for e in est) * steps
+        hot = self.stats["hot_lookups"]
+        cold = self.stats["cold_lookups"]
+        total = hot + cold
+        return {
+            "shards": self.shards,
+            "exchange": self.exchange,
+            "replicate_outputs": self.replicate_outputs,
+            "host_syncs": self.stats["host_syncs"],
+            "host_syncs_per_step": round(
+                self.stats["host_syncs"] / steps, 2) if steps else 0.0,
+            "exchange_row_bytes": self.stats["exchange_row_bytes"],
+            "exchange_row_bytes_est": sum(e["row_bytes"]
+                                          for e in est) * steps,
+            "units": len(self._units),
+            "fused_units": len(fused),
+            "hot_rows": sum(u.plan.hot_rows_total for u in fused),
+            "hot_slab_bytes": sum(u.plan.hot_slab_bytes for u in fused),
+            "hot_lookups": hot,
+            "cold_lookups": cold,
+            "hot_traffic_fraction": round(hot / total, 4) if total else 0.0,
+            "exchange_index_bytes": self.stats["exchange_index_bytes"],
+            # the interleaved (no hot slab) cost-model estimate -- actual
+            # below it means the hot slab absorbed that much routed volume
+            "exchange_index_bytes_est": est_idx,
+            "exchange_savings_bytes": max(
+                0, est_idx - self.stats["exchange_index_bytes"]),
+            "hot_swaps": self.stats["hot_swaps"],
+            "spilled_lookups": self.stats["spilled_lookups"],
+            "window": self.window_stats(),
+            "plan_build_s": round(sum(
+                r.duration_s for r in self.compiled.pass_records()
+                if r.name == "plan-access" and r.ran), 6),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +1474,11 @@ def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
                  vlen: int = 128, budget: Optional[FusionBudget] = None,
                  depth: int = 2, device=None,
                  index_policy: str = "strict",
-                 backend: str = "cuda") -> ProgramExecutor:
+                 backend: str = "cuda", mesh=None,
+                 shard_axis: str = "model", hot_rows=None,
+                 exchange: Optional[str] = None,
+                 replicate_outputs: Optional[bool] = None,
+                 adaptive=None) -> ProgramExecutor:
     """The steady-state entry point: compile (compile-cache backed) and
     return the memoized executor for this signature on ``device`` (the CUDA
     card unless ``device="cpu"``; raises without a card) with ``backend``
@@ -921,19 +1486,49 @@ def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
 
     The key is the program's structural signature: a hit can hand back an
     executor whose tables another caller bound, which the per-step identity
-    check resolves (same tensors: warm fast path; other tensors: rebind)."""
+    check resolves (same tensors: warm fast path; other tensors: rebind).
+
+    ``mesh`` / ``shard_axis`` select vocab-sharded execution over the
+    mesh's ``shard_axis`` (a 1-wide axis, or no mesh, is the single-device
+    path, and its ``hot_rows``, ``exchange`` and ``replicate_outputs`` are
+    dropped); the budget is rewritten to the shard count
+    (``FusionBudget.shards``, part of the compile-cache key), and
+    ``hot_rows`` (``{op name: row ids}``, e.g. from
+    :func:`~repro_torch.core.access_plan.hot_rows_from_traces`),
+    ``exchange``, ``replicate_outputs`` and ``adaptive`` key the cache as
+    in the reference."""
     dev = resolve_device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    shards = sp.shard_count(mesh, shard_axis)
+    if shards == 1:
+        mesh = None
+        hot_rows = None
+        exchange = "host"
+        replicate_outputs = True
+    else:
+        exchange = exchange or "collective"
+        if replicate_outputs is None:
+            replicate_outputs = exchange == "host"
     budget = budget or FusionBudget()
+    if budget.shards != shards:
+        budget = dataclasses.replace(budget, shards=shards)
     key = (program.signature(), opt_level, vlen, budget, depth, str(dev),
-           index_policy, backend)
+           index_policy, backend, mesh,
+           shard_axis if mesh is not None else None,
+           ap.canonical_hot(hot_rows), exchange, bool(replicate_outputs),
+           adaptive)
     ex = _EXECUTOR_CACHE.get(key)
     if ex is not None:
         return ex
-    compiled = compile_program(program, opt_level, vlen=vlen, budget=budget)
+    compiled = compile_program(program, opt_level, vlen=vlen, budget=budget,
+                               hot_rows=hot_rows)
     ex = ProgramExecutor(compiled, device=dev, depth=depth,
-                         index_policy=index_policy, backend=backend)
+                         index_policy=index_policy, backend=backend,
+                         mesh=mesh, shard_axis=shard_axis, hot_rows=hot_rows,
+                         exchange=exchange,
+                         replicate_outputs=replicate_outputs,
+                         adaptive=adaptive)
     _EXECUTOR_CACHE.put(key, ex)
     return ex
 

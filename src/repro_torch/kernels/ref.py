@@ -52,6 +52,77 @@ def sls(table: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor,
     return out.to(table.dtype)
 
 
+#: the identity of each (+): what a shard with no lookup in a segment
+#: contributes to the segment's cross-shard merge
+ADD_IDENTITY = {"add": 0.0, "max": -math.inf, "min": math.inf}
+
+
+def _segment_reduce(rows: torch.Tensor, seg: torch.Tensor, valid,
+                    num_segments: int, add_op: str) -> tuple:
+    """``(out, counts)``: fp32 rows reduced into their segments by (+),
+    entries where ``valid`` is False contributing nothing; a segment no
+    valid entry reaches holds the (+)-identity, and ``counts`` (int32) is
+    each segment's number of valid entries."""
+    ident = ADD_IDENTITY[add_op]
+    emb_len = rows.shape[1]
+    rows = torch.where(valid[:, None], rows, ident)
+    counts = torch.zeros(num_segments, dtype=torch.int32, device=rows.device)
+    counts.index_add_(0, seg, valid.to(torch.int32))
+    if add_op == "add":
+        out = torch.zeros((num_segments, emb_len), dtype=torch.float32,
+                          device=rows.device)
+        return out.index_add_(0, seg, rows), counts
+    out = torch.full((num_segments, emb_len), ident, dtype=torch.float32,
+                     device=rows.device)
+    out.scatter_reduce_(0, seg[:, None].expand(-1, emb_len), rows,
+                        reduce={"max": "amax", "min": "amin"}[add_op])
+    return out, counts
+
+
+def sls_local(table: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor,
+              vals: Optional[torch.Tensor], roff: torch.Tensor, *,
+              num_segments: int, add_op: str = "add",
+              mul_op: str = "mul") -> torch.Tensor:
+    """One vocab shard's partial pool over its local CSR (the counterpart
+    of the reference's ``jnp_sls_local``, ``repro/core/shard_plan.py``):
+    :func:`sls`'s function, except that a segment with no lookup here holds
+    the (+)-identity, not 0, so the pools of all shards merge exactly.
+    ``idxs`` (and ``vals``) may be padded past ``ptrs[-1]``; nothing is
+    read on the host."""
+    cap = idxs.numel()
+    p64 = ptrs.to(torch.int64)
+    pos = torch.arange(cap, device=table.device)
+    seg = torch.searchsorted(p64[1:], pos, right=True)
+    valid = pos < p64[-1]
+    segc = seg.clamp(max=max(num_segments - 1, 0))
+    rows = table.index_select(
+        0, idxs.to(torch.int64) + roff.to(torch.int64)[segc]).float()
+    if vals is not None:
+        w = vals.float()[:, None]
+        rows = rows * w if mul_op == "mul" else rows + w
+    out, _ = _segment_reduce(rows, segc, valid, num_segments, add_op)
+    return out.to(table.dtype)
+
+
+def segment_pool(table: torch.Tensor, segs: torch.Tensor, idxs: torch.Tensor,
+                 vals: Optional[torch.Tensor], *, num_segments: int,
+                 add_op: str = "add", mul_op: str = "mul") -> tuple:
+    """One shard's partial pool over the lookups it received in the
+    collective exchange, in arrival order: ``(out, counts)``, lookup ``p``
+    adding ``vals[p] (x) table[idxs[p]]`` into segment ``segs[p]``; pad
+    slots carry the segment ``num_segments`` and add nothing.  A segment
+    with no lookup here holds the (+)-identity (the reference's
+    ``backend="jax"`` collective body)."""
+    valid = segs < num_segments
+    segc = segs.to(torch.int64).clamp(max=max(num_segments - 1, 0))
+    rows = table.index_select(0, idxs.to(torch.int64)).float()
+    if vals is not None:
+        w = vals.float()[:, None]
+        rows = rows * w if mul_op == "mul" else rows + w
+    out, counts = _segment_reduce(rows, segc, valid, num_segments, add_op)
+    return out.to(table.dtype), counts
+
+
 def block_gather(table: torch.Tensor, idxs: torch.Tensor, *,
                  block_rows: int = 1,
                  roff: Optional[torch.Tensor] = None) -> torch.Tensor:

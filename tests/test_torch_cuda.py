@@ -2047,3 +2047,109 @@ def test_reduced_bf16_training_on_the_card_matches_the_cpu(cuda, tmp_path,
             total_steps=3, ckpt_every=100,
             ckpt_dir=str(tmp_path / dev))).run()["losses"])
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# The vocab-sharded executor on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shards,cap,nseg", [(2, 1, 3), (2, 64, 40),
+                                             (2, 4096, 2048),
+                                             (4, 1024, 777),
+                                             (2, 131072, 53248)])
+def test_lattice_rebuild_on_the_card_equals_the_plain_one(cuda, shards, cap,
+                                                          nseg):
+    """The collective exchange's received lattice (segment ids with the
+    pad sentinel ``nseg``) rebuilt into a local CSR by ``ember_transpose``:
+    order and ptrs equal to the plain transposition's, and the pool over
+    it equal to the plain pool over the unsorted lattice."""
+    from repro_torch.core import shard_plan as sp
+    from repro_torch.kernels.gather import transposed_lookups
+    rng = np.random.default_rng(cap + nseg)
+    fill = rng.integers(0, cap + 1, shards)       # valid slots per source
+    segs = np.full((shards, cap), nseg, np.int32)
+    for s, n in enumerate(fill):
+        segs[s, :n] = np.sort(rng.integers(0, nseg, n))
+    rows = 97
+    idxs = rng.integers(0, rows, (shards, cap)).astype(np.int32)
+    segs_t = torch.from_numpy(segs.reshape(-1)).to(cuda)
+    idxs_t = torch.from_numpy(idxs.reshape(-1)).to(cuda)
+    before = kops.backward_launch_counts()["gather_transpose"]
+    order, ptrs = transposed_lookups(segs_t, None, nseg + 1)
+    assert kops.backward_launch_counts()["gather_transpose"] == before + 1
+    p_order, p_ptrs = ref.transposed_lookups(segs_t, None, nseg + 1)
+    assert torch.equal(order, p_order) and torch.equal(ptrs, p_ptrs)
+    assert int(ptrs[nseg]) == int(fill.sum())     # sentinels sort last
+    table = torch.from_numpy(rng.standard_normal((rows, 64))
+                             .astype(np.float32)).to(cuda)
+    roff = torch.zeros(nseg, dtype=torch.int32, device=cuda)
+    for add_op in ("add", "max"):
+        got, counts = sp._local_pool_csr(
+            table, roff, ptrs[:nseg + 1], idxs_t.index_select(0, order),
+            None, backend="cuda", add_op=add_op, mul_op="mul", nseg=nseg)
+        want, want_counts = ref.segment_pool(table, segs_t, idxs_t, None,
+                                             num_segments=nseg,
+                                             add_op=add_op)
+        assert torch.equal(counts, want_counts)
+        if add_op == "add":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
+        else:
+            assert torch.equal(got, want)
+
+
+def _two_ranks_on_the_card(rank: int, world: int) -> dict:
+    """Two gloo ranks sharing cuda:0 run a small mixed program through the
+    sharded executor in both exchanges and placements; returns each
+    config's worst error against the numpy oracle, its staged bytes and
+    the kernel launches."""
+    from repro_torch.convert import program_inputs_to_torch
+    from repro_torch.core.executor import ProgramExecutor
+    from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
+                                      Semiring, make_program_inputs,
+                                      program_reference)
+    from repro_torch.core.pipeline import compile_program
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(world)
+    prog = EmbeddingProgram("card-mixed", (
+        ("w", EmbeddingOp("sls", 50, 90, 96, avg_lookups=3, weighted=True)),
+        ("u", EmbeddingOp("sls", 40, 70, 96, avg_lookups=2)),
+        ("k", EmbeddingOp("kg", 60, 110, 96)),
+        ("g1", EmbeddingOp("gather", 60, 200, 96)),
+        ("g2", EmbeddingOp("gather", 60, 200, 96)),
+        ("mx", EmbeddingOp("sls", 30, 40, 128, avg_lookups=3,
+                           semiring=Semiring("max"))),
+    ), shared_tables=(("g1", "g2"),))
+    host = make_program_inputs(prog, seed=0)
+    ins = program_inputs_to_torch(host, "cuda")
+    want = program_reference(prog, host)
+    pres = compile_program(prog, "O3", use_cache=False)
+    out = {}
+    for exchange in ("host", "collective"):
+        for repl in (True, False):
+            kops.reset_launch_counts()
+            ex = ProgramExecutor(pres, mesh=mesh, exchange=exchange,
+                                 replicate_outputs=repl,
+                                 hot_rows={"g1": (0, 1, 2), "u": (3,)})
+            got = ex.full_outputs(ex.step(ins))
+            torch.cuda.synchronize()
+            out[f"{exchange}/{int(repl)}"] = {
+                "err": max(float(np.abs(got[n].cpu().numpy().reshape(
+                    w.shape) - w).max()) for n, w in want.items()),
+                "staged": ex.stats["staged_bytes"],
+                "launches": dict(kops.launch_counts()),
+                "transposes": kops.backward_launch_counts()[
+                    "gather_transpose"]}
+    return out
+
+
+def test_two_gloo_ranks_share_the_card(cuda):
+    from repro_torch.launch.mesh import run_ranks
+    for res in run_ranks(_two_ranks_on_the_card, 2, timeout_s=300):
+        for tag, r in res.items():
+            assert r["err"] < 1e-4, (tag, r)
+            assert r["staged"] > 0, tag          # gloo: staged through host
+            assert r["launches"]["sls"] > 0 and \
+                r["launches"]["block_gather"] > 0, (tag, r)
+            if tag.startswith("collective"):
+                assert r["transposes"] > 0, (tag, r)

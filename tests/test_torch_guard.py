@@ -222,3 +222,66 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--ckpt-dir",
                     str(tmp_path)])
+
+
+def test_sharded_modules_stand_alone():
+    """``core.shard_plan`` and ``launch.mesh`` import and run (a one-rank
+    gloo group, its mesh and the executor over it) with JAX and the JAX
+    package unimportable."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from repro_torch.convert import program_inputs_to_torch
+        from repro_torch.core import shard_plan as sp
+        from repro_torch.core.executor import executor_for
+        from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
+                                          make_program_inputs,
+                                          program_reference)
+        from repro_torch.launch.mesh import make_host_mesh, model_shard_count
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group("gloo", init_method="file://" +
+                                    os.path.join(d, "store"), rank=0,
+                                    world_size=1)
+            mesh = make_host_mesh(1, device="cpu")
+            assert model_shard_count(mesh) == 1
+            coll = sp.Collectives(mesh.get_group("model"), "cpu",
+                                  {"collectives": 0, "staged_bytes": 0,
+                                   "collective_ms": 0.0})
+            x = torch.arange(6.0).reshape(3, 2)
+            assert torch.equal(coll.all_to_all(x[:1]), x[:1])
+            assert torch.equal(coll.all_reduce(x, "max"), x)
+            assert not coll.staged and coll.stats["collectives"] == 2
+            prog = EmbeddingProgram("two", (
+                ("a", EmbeddingOp("sls", 4, 10, 8, avg_lookups=2)),
+                ("b", EmbeddingOp("sls", 3, 12, 8, avg_lookups=3)),
+            ))
+            host = make_program_inputs(prog, seed=1)
+            ex = executor_for(prog, "O3", device="cpu", mesh=mesh)
+            got = ex.step(program_inputs_to_torch(host, "cpu"))
+            for n, want in program_reference(prog, host).items():
+                np.testing.assert_allclose(got[n].numpy(), want, rtol=1e-5,
+                                           atol=1e-5)
+            dist.destroy_process_group()
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("SHARDED-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": str(REPO / "src"),
+                            "PATH": "/usr/bin:/bin"})
+    assert "SHARDED-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_make_host_mesh_does_not_fall_back_to_the_cpu(monkeypatch):
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh(2, device="cuda")
