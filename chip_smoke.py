@@ -8,6 +8,7 @@
     python3 chip_smoke.py --zamba2-only [--seed N]     # phase 15 alone
     python3 chip_smoke.py --xlstm-only [--seed N]      # phase 16 alone
     python3 chip_smoke.py --sharded-only [--seed N]    # phases 4, 5, 17
+    python3 chip_smoke.py --tp-only [--seed N]         # phase 18 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -279,7 +280,25 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    synchronised), the collectives' calls, staged MB and ms, the
    ``exchange_*`` statistics, the launches, compile seconds, local table
    GB, peak memory and the card's;
-18. one JSON line listing the kernels with the kernel (variant) that
+18. tensor and expert parallelism of the LM (``phase_tp``; ``--tp-only``
+   runs phases 1, 2 and 18): two ranks spawned into a gloo group, both on
+   ``cuda:0``, each building its slices of ``LM(cfg, seed,
+   shard=ShardCtx(mesh))`` from the phase's seed.  chatglm3-6b at full
+   width: the 2 x 512 prefill's last hidden state within TP_REL_L2 of the
+   single device's, the first layer's flash output on the rank's heads
+   (16 query heads over one KV head) against the plain version, the
+   teacher-forced micro-steps' logits within TP_REL_L2, and a
+   DecodeServer on each rank (eager: gloo collectives are staged through
+   the host) whose tokens are equal on both ranks, counted against the
+   single device's, its executor vocab-sharded over 2; the masked
+   lookup's block gather against the plain gather.  qwen3-moe-235b-a22b's
+   widths at TP_MOE_LAYERS layers: the seq-split prefill against
+   ``moe_ffn_ep_plain`` and the replicated-token micro-steps against the
+   single device, routing pinned to the ranks', the routing decisions
+   that differ unpinned counted.  Printed per rank: prefill and
+   micro-step ms, collectives and staged MB, peak GiB, beside the card;
+   and the ``[18 tp predicted]`` block written before the first run;
+19. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -294,8 +313,10 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    launches in the danube, reduced MoE, whisper and xlstm trainings and
    its times at the five shapes, error, times and bounds; phase 17's
    launches as ``sharded_launches`` of ``sls``, ``block_gather`` and
-   ``gather_transpose`` (counted in ``launches`` too);
-19. ``{"ok": true, "device": {...}}`` as the last line.
+   ``gather_transpose`` (counted in ``launches`` too); phase 18's as
+   ``tp_launches`` of ``flash_attention`` and ``block_gather`` (counted in
+   ``launches`` too), with the flash kernel's time at the rank's shapes;
+20. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -304,6 +325,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import json
@@ -340,6 +362,34 @@ SHARDED_SLAB_BYTES = 16 << 20
 SHARDED_ZIPF_STEPS = 3
 SHARDED_DEEPSEEK_STEPS = 2
 SHARDED_REL_L2 = 2e-5
+# phase 18: tensor and expert parallelism over two gloo ranks on the card.
+# chatglm3-6b at full width: a 2 x 512 prefill (each of its 57 activation
+# collectives stages 16 MB of fp32 partials through the host), teacher-
+# forced micro-steps (TP_TF_PROMPT prompt tokens, then the single
+# device's argmax) and TP_REQUESTS requests of TP_PROMPT_MIN..MAX prompt
+# tokens served per rank; qwen3-moe-235b-a22b's widths at TP_MOE_LAYERS of
+# its 94 layers (9.66 GB of experts; the model fits no card): a 1 x 256
+# prefill and TP_MOE_DECODE micro-steps.  bf16 over 28 random layers: the
+# hidden state and logits are held at ROADMAP's bf16 bound
+TP_PREFILL = (2, 512)
+TP_SLOTS, TP_MAX_LEN = 4, 128
+TP_TF_PROMPT, TP_TF_STEPS = 8, 16
+TP_REQUESTS, TP_PROMPT_MIN, TP_PROMPT_MAX, TP_NEW_TOKENS = 4, 64, 96, 16
+TP_MOE_LAYERS, TP_MOE_PREFILL, TP_MOE_DECODE = 2, (1, 256), 4
+TP_REL_L2 = 5e-2
+# written before the first run on the card (PERF.md, its tensor-parallel
+# findings): each staged all-reduce of the prefill's 16 MB fp32 partials
+# ~10-20 ms (two 16 MB copies over PCIe-class host paths and a gloo sum
+# over loopback), 57 of them; a micro-step's 58 collectives of <= 64 KB
+# ~0.5-1 ms each
+TP_PREDICTED = {"chatglm3 2x512 prefill": "~1,000-2,000 ms (collectives "
+                                          "> 90 %)",
+                "chatglm3 micro-step": "~40-70 ms (eager, collectives "
+                                       "> 80 %)",
+                "qwen3-moe 1x256 prefill": "~100-300 ms",
+                "qwen3-moe micro-step": "~10-30 ms",
+                "prefill relative L2": "~5e-3 (fp32 row-parallel sums)",
+                "peak a rank": "~7 GiB chatglm3, ~8 GiB qwen3-moe"}
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -6531,6 +6581,480 @@ def phase_xlstm(seed: int, card: str) -> dict:
             "xlstm_fwd_decode_rel_l2": sound["worst"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor and expert parallelism over two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+def _tp_collectives(stats: dict, before: dict) -> dict:
+    return {k: stats[k] - before[k] for k in before}
+
+
+def _tp_chatglm3(rank: int, lm, job: dict, card_counts: list) -> dict:
+    """Phase 18(a) on one rank: the first layer's flash call held to the
+    plain version (this also warms the path up), then the counted main
+    path: the 2 x 512 prefill, the teacher-forced micro-steps and the
+    served drive."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.runtime.server import DecodeServer, Request
+    out = {}
+    tokens = torch.from_numpy(job["tokens"]).cuda()
+    first = []
+
+    def held(q, k, v, **kw):
+        o = kops.flash_attention_cuda(q, k, v, **kw)
+        if not first:
+            first.append((q, k, v, kw, o))
+        return o
+    with _OpSwap("attention", held):
+        lm.prefill(tokens)
+    q, k, v, kw, fo = first.pop()
+    out["flash"] = check_bf16(fo, plain_attention(q, k, v, **kw),
+                              f"rank {rank}'s layer-0 flash on its heads")
+    out["flash_shape"] = (tuple(q.shape), tuple(k.shape))
+    out["flash_ms"] = time_ms(lambda: kops.attention(q, k, v, causal=True),
+                              10)
+    out["flash_plain_ms"] = time_ms(lambda: plain_attention(q, k, v, **kw),
+                                    2, warmup=1)
+    del q, k, v, fo
+    stats = lm.collective_stats
+    gather = _LastCall(kops.block_gather)
+    kops.block_gather = gather
+    kops.reset_launch_counts()
+    c0 = dict(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = lm.prefill(tokens)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_coll"] = _tp_collectives(stats, c0)
+    out["last"] = last.float().cpu().numpy()
+    tf = job["tf_tokens"]
+    caches = lm.init_caches(tf.shape[0], tf.shape[1] + 1)
+    logits, ms, c0 = [], [], dict(stats)
+    for t in range(tf.shape[1]):
+        tok = torch.from_numpy(tf[:, t:t + 1]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = lm.decode_step(tok, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.cpu().numpy())
+    out["tf_logits"], out["step_ms"] = np.stack(logits), ms
+    out["step_coll"] = {k: v / tf.shape[1] for k, v in
+                        _tp_collectives(stats, c0).items()}
+    del caches
+    srv = DecodeServer(lm, batch_slots=TP_SLOTS, max_len=TP_MAX_LEN,
+                       pipeline=False)
+    reqs = [Request(prompt=p, max_new_tokens=TP_NEW_TOKENS)
+            for p in job["prompts"]]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    out["serve_s"] = time.perf_counter() - t0
+    out["served"] = [list(r.out) for r in reqs]
+    out["statuses"] = [r.status for r in reqs]
+    out["serve_stats"] = dict(srv.serve_stats)
+    ex = srv.compile_stats["executor"]
+    out["executor"] = {k: ex[k] for k in ("shards", "exchange",
+                                          "replicate_outputs")}
+    out["access_plans"] = "access_plans" in srv.compile_stats
+    card_counts.append((kops.launch_counts(),
+                        dict(kops.flash_attention_cuda.instances)))
+    kops.block_gather = gather.fn
+    a, kw, got = gather.last
+    require(torch.equal(got, ref.block_gather(*a, **kw)),
+            f"rank {rank}: the masked lookup's block gather != the plain "
+            f"gather")
+    out["gather_shape"] = f"{a[1].numel()} rows of {a[0].shape[0]}"
+    del srv, reqs
+    return out
+
+
+def _tp_qwen3(rank: int, lm, job: dict, card_counts: list) -> dict:
+    """Phase 18(b) on one rank: a warm-up prefill, then the counted main
+    path -- the 1 x 256 prefill (seq-split: the all-to-all exchange) and
+    the decode micro-steps (replicated tokens: the all-gather of the
+    expert outputs) -- with every layer's routing recorded for the
+    parent's pinned comparison."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import moe as moe_mod
+    out = {}
+    tokens = torch.from_numpy(job["moe_tokens"]).cuda()
+    lm.prefill(tokens)                               # warm-up
+    route, routes = moe_mod.route, []
+
+    def record(x2d, router, k):
+        probs, topw, tope = route(x2d, router, k)
+        routes.append(tope)
+        return probs, topw, tope
+    stats = lm.collective_stats
+    moe_mod.route = record
+    try:
+        kops.reset_launch_counts()
+        c0 = dict(stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = lm.prefill(tokens)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill_coll"] = _tp_collectives(stats, c0)
+        out["prefill_routes"] = [t.cpu().numpy() for t in routes]
+        routes.clear()
+        dec = job["moe_decode"]
+        caches = lm.init_caches(dec.shape[0], dec.shape[1] + 1)
+        logits, ms, c0 = [], [], dict(stats)
+        for t in range(dec.shape[1]):
+            tok = torch.from_numpy(dec[:, t:t + 1]).cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = lm.decode_step(tok, caches)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.cpu().numpy())
+        card_counts.append((kops.launch_counts(),
+                            dict(kops.flash_attention_cuda.instances)))
+    finally:
+        moe_mod.route = route
+    out["step_coll"] = {k: v / dec.shape[1] for k, v in
+                        _tp_collectives(stats, c0).items()}
+    out["decode_routes"] = [t.cpu().numpy() for t in routes]
+    out["last"] = last.float().cpu().numpy()
+    out["dec_logits"], out["step_ms"] = np.stack(logits), ms
+    return out
+
+
+def _tp_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of phase 18 (a spawned process sharing the card with the
+    other): chatglm3-6b at full width, then qwen3-moe-235b-a22b's widths
+    at TP_MOE_LAYERS layers, each built from the phase's seed with only
+    this rank's slices kept.  Returns plain numbers and numpy arrays."""
+    import collections as _c
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(world)
+    shard = ShardCtx(mesh)
+    counts: list = []
+    res = {}
+    for key, cfg, drive in (
+            ("chatglm3", get_config("chatglm3-6b"), _tp_chatglm3),
+            ("qwen3", dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                                          num_layers=TP_MOE_LAYERS),
+             _tp_qwen3)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm = LM(cfg, seed=job["seed"], shard=shard)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = sum(p.numel() * p.element_size() for p in lm.parameters())
+        t0 = time.perf_counter()
+        res[key] = drive(rank, lm, job, counts)
+        res[key].update(init_s=init_s, held_bytes=held,
+                        drive_s=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated())
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _c.Counter()
+    instances = _c.Counter()
+    for c, inst in counts:
+        launches.update({k: c[k] for k in ("flash_attention",
+                                           "block_gather")})
+        instances.update(inst)
+    res["launches"], res["instances"] = dict(launches), dict(instances)
+    return res
+
+
+def _tp_parent_chatglm3(seed: int, job: dict) -> dict:
+    """Phase 18(a)'s single device: the prefill, the teacher-forced
+    micro-steps (their tokens: the prompt, then this model's own argmax)
+    and the served drive, on ``LM(cfg, seed)``; freed before the ranks
+    start."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = get_config("chatglm3-6b")
+    model = LM(cfg, seed=seed)
+    want = {"last": model.prefill(torch.from_numpy(job["tokens"]).cuda())
+            .float().cpu()}
+    tf = job["tf_tokens"]
+    caches = model.init_caches(tf.shape[0], tf.shape[1] + 1)
+    logits = []
+    for t in range(tf.shape[1]):
+        if t >= TP_TF_PROMPT:             # teacher: this model's argmax
+            tf[:, t] = logits[-1][:, 0].argmax(-1).numpy()
+        lg, _ = model.decode_step(torch.from_numpy(tf[:, t:t + 1]).cuda(),
+                                  caches)
+        logits.append(lg.cpu())
+    want["tf_logits"] = torch.stack(logits)
+    srv = DecodeServer(model, batch_slots=TP_SLOTS, max_len=TP_MAX_LEN,
+                       pipeline=False)
+    reqs = [Request(prompt=p, max_new_tokens=TP_NEW_TOKENS)
+            for p in job["prompts"]]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    want["served"] = [list(r.out) for r in reqs]
+    del model, caches, srv
+    free_cuda()
+    return want
+
+
+def _tp_parent_qwen3(seed: int, job: dict, ranks: list) -> dict:
+    """Phase 18(b)'s plain versions on the full weights, in this process:
+    the prefill through ``moe_ffn_ep_plain`` (two ranks' seq-split
+    semantics) and the decode micro-steps on the single device, each with
+    the routing pinned to the ranks' (each layer's top-k experts,
+    weighted by this run's own probabilities, as phase 9 pins them); and
+    the routing decisions that differ when nothing is pinned, counted."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              num_layers=TP_MOE_LAYERS)
+    model = LM(cfg, seed=seed)
+    route = moe_mod.route
+    seen = []
+
+    def replay(seq):
+        def pinned(x2d, router, k):
+            probs, _, own = route(x2d, router, k)
+            tope = torch.from_numpy(seq[len(seen)]).to(x2d.device)
+            seen.append(own)
+            topw = probs.gather(-1, tope)
+            return probs, topw / topw.sum(-1, keepdim=True).clamp_min(
+                1e-9), tope
+        return pinned
+
+    def flips(got: list, want: list) -> int:
+        return int(sum((np.sort(g.cpu().numpy(), -1) !=
+                        np.sort(w, -1)).any(-1).sum()
+                       for g, w in zip(got, want)))
+    # seq-split: layer l's block r is rank r's routing of layer l
+    r0, r1 = (r["qwen3"] for r in ranks)
+    seq = [x for pair in zip(r0["prefill_routes"], r1["prefill_routes"])
+           for x in pair]
+    for blk in model.blocks:
+        blk._ffn = (lambda h, with_aux=True, b=blk:
+                    moe_mod.moe_ffn_ep_plain(b.moe, h, cfg, 2))
+    tokens = torch.from_numpy(job["moe_tokens"]).cuda()
+    try:
+        moe_mod.route = replay(seq)
+        last = model.prefill(tokens).float().cpu()
+        prefill_flips = flips(seen, seq)
+        seen.clear()
+    finally:
+        moe_mod.route = route
+        for blk in model.blocks:
+            del blk._ffn
+    dec = job["moe_decode"]
+    caches = model.init_caches(dec.shape[0], dec.shape[1] + 1)
+    logits = []
+    try:
+        moe_mod.route = replay(r0["decode_routes"])
+        for t in range(dec.shape[1]):
+            lg, _ = model.decode_step(torch.from_numpy(dec[:, t:t + 1])
+                                      .cuda(), caches)
+            logits.append(lg.cpu())
+        decode_flips = flips(seen, r0["decode_routes"])
+    finally:
+        moe_mod.route = route
+    n_dec = sum(len(x) for x in r0["decode_routes"])
+    n_pre = sum(len(x) for x in seq)
+    del model, caches
+    free_cuda()
+    return {"last": last, "dec_logits": torch.stack(logits),
+            "prefill_flips": prefill_flips, "prefill_tokens": n_pre,
+            "decode_flips": decode_flips, "decode_tokens": n_dec}
+
+
+def phase_tp(seed: int, card: str) -> dict:
+    """Phase 18: tensor and expert parallelism of the LM over two gloo
+    ranks sharing the one card (spawned, a file store; every activation
+    collective staged through pinned host memory).  (a) chatglm3-6b at
+    full width: each rank builds its half of ``LM(cfg, seed)``; the
+    2 x 512 prefill's last hidden state against the single device's, the
+    first layer's flash output on the rank's heads against the plain
+    version, TP_TF_STEPS teacher-forced micro-steps' logits against the
+    single device's, and a DecodeServer per rank serving the same
+    TP_REQUESTS requests (tokens equal on both ranks; how many equal the
+    single device's is counted).  (b) qwen3-moe-235b-a22b's widths at
+    TP_MOE_LAYERS layers (the model fits no card): the 1 x 256 prefill on
+    the seq-split expert-parallel path against ``moe_ffn_ep_plain`` on the
+    full weights, and TP_MOE_DECODE micro-steps on the replicated-token
+    path against the single device, the routing pinned to the ranks'.
+    Returns the launches by kernel and the flash instances."""
+    from repro_torch.launch.mesh import run_ranks
+    print("[18 tp predicted] written before the first run on the card "
+          "(PERF.md): " + "; ".join(f"{k} {v}"
+                                          for k, v in TP_PREDICTED.items()))
+    rng = np.random.default_rng(seed + 18)
+    from repro_torch.configs import get_config
+    vocab = get_config("chatglm3-6b").vocab_size
+    tf = np.zeros((TP_SLOTS, TP_TF_STEPS), np.int64)
+    tf[:, :TP_TF_PROMPT] = rng.integers(0, vocab, (TP_SLOTS, TP_TF_PROMPT))
+    job = {"seed": seed,
+           "tokens": rng.integers(0, vocab, TP_PREFILL).astype(np.int64),
+           "tf_tokens": tf,
+           "prompts": [rng.integers(0, vocab, int(n)).astype(np.int32)
+                       for n in rng.integers(TP_PROMPT_MIN, TP_PROMPT_MAX + 1,
+                                             TP_REQUESTS)]}
+    moe_vocab = get_config("qwen3-moe-235b-a22b").vocab_size
+    job["moe_tokens"] = rng.integers(0, moe_vocab, TP_MOE_PREFILL).astype(
+        np.int64)
+    job["moe_decode"] = rng.integers(0, moe_vocab,
+                                     (TP_SLOTS, TP_MOE_DECODE)).astype(
+                                         np.int64)
+    t0 = time.perf_counter()
+    want = _tp_parent_chatglm3(seed, job)
+    parent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tp_rank, 2, (job,), timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_want = _tp_parent_qwen3(seed, job, ranks)
+    moe_parent_s = time.perf_counter() - t0
+    import torch
+    # (a) chatglm3-6b
+    a0, a1 = (r["chatglm3"] for r in ranks)
+    require(a0["served"] == a1["served"],
+            "chatglm3-6b: the two ranks served different tokens")
+    require(np.array_equal(a0["last"], a1["last"]) and
+            np.array_equal(a0["tf_logits"], a1["tf_logits"]),
+            "chatglm3-6b: the ranks' outputs differ")
+    agree = sum(x == y for g, w in zip(a0["served"], want["served"])
+                for x, y in zip(g, w))
+    total = sum(len(w) for w in want["served"])
+    for rank, r in enumerate((a0, a1)):
+        rel = _rel_l2(torch.from_numpy(r["last"]), want["last"])
+        require(rel <= TP_REL_L2, f"chatglm3-6b rank {rank}: prefill "
+                f"relative L2 {rel:.4g} > {TP_REL_L2} against the single "
+                f"device")
+        tf_rel = [_rel_l2(torch.from_numpy(r["tf_logits"][t]),
+                          want["tf_logits"][t])
+                  for t in range(TP_TF_STEPS)]
+        require(max(tf_rel) <= TP_REL_L2,
+                f"chatglm3-6b rank {rank}: teacher-forced logits relative "
+                f"L2 {max(tf_rel):.4g} > {TP_REL_L2}")
+        require(r["executor"]["shards"] == 2 and r["access_plans"] and
+                all(s == "ok" for s in r["statuses"]),
+                f"chatglm3-6b rank {rank}: server {r['executor']}, "
+                f"{r['statuses']}")
+        require(not r["serve_stats"]["wave_graph"] and
+                r["serve_stats"]["wave_graph_why"] == "gloo",
+                "a gloo rank's server must run its wave eagerly")
+        pc, sc = r["prefill_coll"], r["step_coll"]
+        print(f"[18 tp chatglm3-6b rank {rank}] {r['held_bytes'] / 1e9:.3f} "
+              f"GB of weights held (init {r['init_s']:.2f} s); 2 x 512 "
+              f"prefill {r['prefill_ms']:.1f} ms (host clock, synchronised; "
+              f"{pc['collectives']} collectives, "
+              f"{pc['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{pc['collective_ms']:.1f} ms in them), last hidden state vs "
+              f"the single device relative L2 {rel:.4g} (tol {TP_REL_L2}); "
+              f"{TP_TF_STEPS} teacher-forced micro-steps of {TP_SLOTS} slots: "
+              f"mean {np.mean(r['step_ms'][1:]):.2f} ms, first "
+              f"{r['step_ms'][0]:.2f} ms ({sc['collectives']:.1f} "
+              f"collectives, {sc['staged_bytes'] / 1e6:.3f} MB staged, "
+              f"{sc['collective_ms']:.2f} ms a step), logits vs the single "
+              f"device relative L2 <= {max(tf_rel):.4g}; layer 0 flash on "
+              f"this rank's q {r['flash_shape'][0]} / k "
+              f"{r['flash_shape'][1]}: {_bf16_summary(r['flash'])}, kernel "
+              f"{r['flash_ms']:.4f} ms, plain {r['flash_plain_ms']:.4f} ms; "
+              f"served {TP_REQUESTS} requests x {TP_NEW_TOKENS} tokens in "
+              f"{r['serve_s']:.2f} s, {r['serve_stats']['waves']} waves, "
+              f"eager (gloo); executor {r['executor']}; peak "
+              f"{r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[18 tp chatglm3-6b served] both ranks emitted the same "
+          f"{total} tokens; {agree} of {total} equal the single device's "
+          f"(its graph-served drive; bf16 near-ties may flip an argmax, "
+          f"and a flip changes the rest of its request); the masked "
+          f"lookup's block gather ({a0['gather_shape']}) == the plain "
+          f"gather; parent {parent_s:.1f} s, ranks {ranks_s:.1f} s; {card}")
+    # (b) qwen3-moe widths
+    b0, b1 = (r["qwen3"] for r in ranks)
+    require(np.array_equal(b0["last"], b1["last"]) and
+            np.array_equal(b0["dec_logits"], b1["dec_logits"]),
+            "qwen3-moe: the ranks' outputs differ")
+    for rank, r in enumerate((b0, b1)):
+        rel = _rel_l2(torch.from_numpy(r["last"]), moe_want["last"])
+        require(rel <= TP_REL_L2, f"qwen3-moe rank {rank}: seq-split "
+                f"prefill relative L2 {rel:.4g} > {TP_REL_L2} against "
+                f"moe_ffn_ep_plain (routing pinned)")
+        dec_rel = [_rel_l2(torch.from_numpy(r["dec_logits"][t]),
+                           moe_want["dec_logits"][t])
+                   for t in range(TP_MOE_DECODE)]
+        require(max(dec_rel) <= TP_REL_L2,
+                f"qwen3-moe rank {rank}: replicated-token decode relative "
+                f"L2 {max(dec_rel):.4g} > {TP_REL_L2}")
+        pc, sc = r["prefill_coll"], r["step_coll"]
+        print(f"[18 tp qwen3-moe rank {rank}] widths of qwen3-moe-235b-a22b "
+              f"at {TP_MOE_LAYERS} layers, {r['held_bytes'] / 1e9:.3f} GB "
+              f"held (init {r['init_s']:.2f} s); 1 x 256 prefill, seq-split "
+              f"(all-to-all) {r['prefill_ms']:.1f} ms ({pc['collectives']} "
+              f"collectives, {pc['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{pc['collective_ms']:.1f} ms), vs moe_ffn_ep_plain relative "
+              f"L2 {rel:.4g}; {TP_MOE_DECODE} decode micro-steps of "
+              f"{TP_SLOTS} slots, replicated tokens (all-gather): mean "
+              f"{np.mean(r['step_ms'][1:]):.2f} ms, first "
+              f"{r['step_ms'][0]:.2f} ms ({sc['collectives']:.1f} "
+              f"collectives, {sc['staged_bytes'] / 1e6:.3f} MB staged a "
+              f"step), logits vs the single device relative L2 <= "
+              f"{max(dec_rel):.4g}; peak {r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[18 tp qwen3-moe routing] pinned to the ranks' in the plain "
+          f"runs; unpinned, {moe_want['prefill_flips']} of "
+          f"{moe_want['prefill_tokens']} prefill token-layer top-"
+          f"8 sets and {moe_want['decode_flips']} of "
+          f"{moe_want['decode_tokens']} decode ones would differ; plain "
+          f"runs {moe_parent_s:.1f} s; {card}")
+    launches = collections.Counter()
+    instances = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+        instances.update(r["instances"])
+    require(launches["flash_attention"] > 0 and launches["block_gather"] > 0,
+            f"a kernel of the tensor-parallel path never launched: "
+            f"{dict(launches)}")
+    require(sum(instances.values()) == launches["flash_attention"],
+            f"tp flash instances {dict(instances)} != launches")
+    print(f"[18 tp time] the single device's chatglm3-6b {parent_s:.1f} s; "
+          f"the ranks spawned, run and joined {ranks_s:.1f} s (rank 0: "
+          f"chatglm3-6b init {a0['init_s']:.1f} + drive {a0['drive_s']:.1f} "
+          f"s, of it serving {a0['serve_s']:.1f} s; qwen3-moe init "
+          f"{b0['init_s']:.1f} + drive {b0['drive_s']:.1f} s); the qwen3-moe "
+          f"plain runs {moe_parent_s:.1f} s; {card}")
+    print(f"[18 tp launches] both ranks' main paths: flash_attention "
+          f"{launches['flash_attention']} ({dict(instances)}), block gather "
+          f"{launches['block_gather']}; {card}")
+    return {"flash_launches": launches["flash_attention"],
+            "flash_instances": dict(instances),
+            "gather_launches": launches["block_gather"],
+            "tp_flash_ms": a0["flash_ms"],
+            "tp_flash_plain_ms": a0["flash_plain_ms"],
+            "tp_flash_max_abs_err": max(a0["flash"]["max_abs"],
+                                        a1["flash"]["max_abs"])}
+
+
+def _free_after_tp(before: int) -> None:
+    """Require phase 18 to leave the card as it found it (< 1 GiB more
+    allocated in this process than ``before``): its single-device models
+    hold 12.5 and 11.2 GB."""
+    import torch
+    free_cuda()
+    held = torch.cuda.memory_allocated()
+    print(f"[18 tp after] this process holds {held / 2**30:.2f} GiB "
+          f"({before / 2**30:.2f} before the phase)")
+    require(held - before < 1 << 30, f"phase 18 left "
+            f"{(held - before) / 2**30:.2f} GiB allocated")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6553,6 +7077,9 @@ def main(argv=None) -> int:
                     help="run phases 1, 2, 4, 5 and 17 alone (the sharded "
                          "executor's lines and the phases it takes its "
                          "tables from, no JSON)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run phases 1, 2 and 18 alone (tensor and expert "
+                         "parallelism over two ranks, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -6587,6 +7114,12 @@ def main(argv=None) -> int:
                       phase_dlrm(args.seed, args.steps)[1],
                       phase_deepseek(args.seed, args.steps, card)[1])
         _free_after_sharded()
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.tp_only:
+        before = torch.cuda.memory_allocated()
+        phase_tp(args.seed, card)
+        _free_after_tp(before)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     alone = (phase_training if args.training_only else
@@ -6642,6 +7175,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         later[phase] = run()
         seconds[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    tp = phase_tp(args.seed, card)
+    _free_after_tp(before)
+    seconds["18"] = time.perf_counter() - t0
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     instances = collections.Counter(flash.pop("instances"))
     prefill = later.pop("7 stablelm")
@@ -6729,6 +7267,13 @@ def main(argv=None) -> int:
     transpose = next(k for k in kernels if k["name"] == "gather_transpose")
     transpose.update({f"sharded_{k}": v for k, v in sharded.items()
                       if k.startswith("transpose_")})
+    # phase 18's launches: the two ranks' tensor-parallel main paths
+    flash["tp_launches"] = tp.pop("flash_launches")
+    flash["launches"] += flash["tp_launches"]
+    instances.update(tp.pop("flash_instances"))
+    gather["tp_launches"] = tp.pop("gather_launches")
+    gather["launches"] += gather["tp_launches"]
+    flash.update(tp)
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

@@ -29,7 +29,7 @@ in the background; an error of that write is raised from :meth:`wait` or
 from the next :meth:`save`.  A torn step (a commit marker without its
 directory) is skipped on restore, falling back to the step before.  The
 elastic restore onto another mesh (``shardings=``) waits for the sharding
-item (ROADMAP.md, Queue 1 item 6).
+item (ROADMAP.md, Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -258,7 +258,7 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
     if shardings is not None:
         raise NotImplementedError(
             "restoring onto a mesh (shardings=) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "(ROADMAP.md, Queue 1 item 6c)")
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

@@ -77,7 +77,8 @@ def _to_tensor(table, dev: torch.device) -> torch.Tensor:
     return torch.tensor(arr, device=dev)
 
 
-def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
+def lm_params_from_reference(params: dict, cfg, device=None,
+                             mesh=None) -> dict:
     """The reference's LM parameter pytree (numpy arrays, or anything
     ``np.asarray`` takes) as a ``state_dict`` for
     :class:`repro_torch.models.lm.LM` on ``device`` (the CUDA card unless
@@ -90,8 +91,18 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
     four ``dense_local``); a front end's ``frontend_proj`` is carried as
     it is; an encoder's layer ``n`` is slot ``n`` of ``params["enc_scan"]``
     (``enc_blocks.<n>``); the shared attention set ``params["shared"]``
-    is ``shared.*``."""
+    is ``shared.*``.
+
+    With a ``mesh`` (a ``DeviceMesh`` whose model axis is wider than 1)
+    each leaf is this rank's slice by
+    :func:`repro_torch.launch.sharding.param_spec`: the ``state_dict`` of
+    ``LM(cfg, shard=ShardCtx(mesh))`` on this rank."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from .launch.sharding import local_shard, param_spec
+        full = lm_params_from_reference(params, cfg, "cpu")
+        return {k: local_shard(v, param_spec(k, v.dim()), mesh).to(dev)
+                .contiguous() for k, v in full.items()}
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
     if "frontend_proj" in params:      # a front end (cfg.modality != "text")
@@ -108,6 +119,17 @@ def lm_params_from_reference(params: dict, cfg, device=None) -> dict:
                 state[f"enc_blocks.{li}.{key}"] = _to_tensor(val, dev)
         state["enc_norm"] = _to_tensor(params["enc_norm"], dev)
     return state
+
+
+def lm_params_gathered(states: list, axis: str = "model") -> dict:
+    """The full ``state_dict`` from the model-axis ranks' ones (in rank
+    order): each leaf joined along the dim its spec splits over ``axis``
+    (:func:`repro_torch.launch.sharding.concat_shards`), a replicated leaf
+    taken from the first rank."""
+    from .launch.sharding import concat_shards, param_spec
+    return {k: concat_shards([st[k] for st in states],
+                             param_spec(k, v.dim()), axis)
+            for k, v in states[0].items()}
 
 
 def _tree_index(tree, n: int):

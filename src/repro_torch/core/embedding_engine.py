@@ -1,11 +1,22 @@
 """The model-facing embedding lookup and program (counterpart of
 ``repro/core/embedding_engine.py``; ported so far: :func:`lookup` with the
-single-device strategies ``take``, ``one_hot`` and ``pallas``, :func:`logits`
-(differentiable), :func:`model_embedding_program` and the single-device
-path of :func:`xent_vocab_parallel` -- the sharded strategies
-(``masked_psum``, ``masked_psum_scatter``) and the vocab-parallel cross
-entropy over a mesh wait for the sharding item, ROADMAP.md Queue 1 item
-6)."""
+single-device strategies ``take``, ``one_hot`` and ``pallas`` and the
+vocab-sharded ones ``masked_psum``, ``masked_psum_scatter`` and ``one_hot``
+over a mesh, :func:`choose_strategy`, :func:`logits` (differentiable),
+:func:`model_embedding_program` and the single-device path of
+:func:`xent_vocab_parallel` -- the vocab-parallel cross entropy over a mesh
+waits for model-parallel training, ROADMAP.md Queue 1 item 6c).
+
+Over a mesh the port is multi-controller: each rank passes its own vocab
+rows of the table (``(V/n, D)``, rank r holding rows ``[r·V/n,
+(r+1)·V/n)``) and the same ids, and gets the full lookup back.  The
+masked lookup is Ember's decomposition at cluster scale: the ids shifted
+to the rank's rows with the others masked (the *access*, a local gather
+through the hand-written block gather, ``kernels.ops.block_gather``), then
+a sum over the vocab axis (the *combine*: an all-reduce, or a
+reduce-scatter over the sequence).  Every row has one owner and the others
+add exact zeros, so the result is the single-device ``index_select``'s
+bits."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,9 +28,29 @@ from .ops import EmbeddingOp, EmbeddingProgram, single_op_program
 SHARDED_STRATEGIES = ("masked_psum", "masked_psum_scatter")
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor, *,
-           strategy: str = "take") -> torch.Tensor:
+def choose_strategy(vocab_size: int, sharded: bool) -> str:
+    """The reference's pick: ``take`` on one device, ``one_hot`` for a
+    sharded vocab of at most 1024 rows, ``masked_psum`` above."""
+    if not sharded:
+        return "take"
+    if vocab_size <= 1024:
+        return "one_hot"
+    return "masked_psum"
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
+           vocab_axis: Optional[str] = None, strategy: str = "take",
+           data_axes: tuple = (), seq_scatter: bool = False) -> torch.Tensor:
     """Embed ``ids (..., S)`` from ``table (V, D)`` -> ``(..., S, D)``.
+
+    With a ``mesh`` whose ``vocab_axis`` is wider than 1, ``table`` is this
+    rank's vocab rows (module docstring) and ``strategy`` one of
+    ``masked_psum`` (the full ``(..., S, D)`` on every rank),
+    ``masked_psum_scatter`` (or ``seq_scatter``: rank r keeps block r of
+    the S dim, ``(..., S/n, D)``) or ``one_hot`` (a one-hot product over
+    the local rows, then the sum).  ``data_axes`` name the axes the batch
+    is split over; each data group passes its own rows, and the lookup
+    needs nothing across them.
 
     ``take``: ``index_select``; where grad mode is on and the table needs
     a gradient, through :class:`Take`, whose backward is deterministic.
@@ -29,6 +60,18 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, *,
     compiled by emberc (compile-cache backed) and run through
     :mod:`.backend_cuda`: the hand-written block gather on the card, its
     plain version on the CPU."""
+    if mesh is not None and vocab_axis is not None:
+        from .shard_plan import model_axis, shard_count
+        if shard_count(mesh, vocab_axis) > 1:
+            if strategy not in SHARDED_STRATEGIES + ("one_hot",):
+                raise ValueError(f"strategy {strategy!r} does not take a "
+                                 f"vocab-sharded table")
+            return _masked_lookup(table, ids,
+                                  model_axis(mesh, vocab_axis, table.device),
+                                  strategy,
+                                  seq_scatter or strategy.endswith("scatter"))
+        if strategy in SHARDED_STRATEGIES:   # one shard holds every row
+            strategy = "take"
     if strategy == "take":
         flat = ids.reshape(-1)
         if torch.is_grad_enabled() and table.requires_grad:
@@ -42,10 +85,30 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, *,
     if strategy == "pallas":
         return _dae_lookup(table, ids)
     if strategy in SHARDED_STRATEGIES:
-        raise NotImplementedError(
-            f"lookup strategy {strategy!r} is sharded and not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+        raise ValueError(f"lookup strategy {strategy!r} needs a mesh and "
+                         f"its vocab axis")
     raise ValueError(strategy)
+
+
+def _masked_lookup(table: torch.Tensor, ids: torch.Tensor, axis,
+                   strategy: str, seq_scatter: bool) -> torch.Tensor:
+    """The rank's part of a vocab-sharded lookup over ``axis`` (a
+    :class:`~repro_torch.core.shard_plan.ModelAxis`): the ids shifted to
+    its rows, the others masked to zero rows, then the combine."""
+    v_local = table.shape[0]
+    local = ids.to(torch.int64) - axis.rank * v_local
+    in_range = (local >= 0) & (local < v_local)
+    if strategy == "one_hot":
+        rows = torch.arange(v_local, device=ids.device)
+        emb = (local[..., None] == rows).to(table.dtype) @ table
+    else:
+        from ..kernels import ops as kops
+        idx = local.clamp(0, v_local - 1).reshape(-1).to(torch.int32)
+        emb = kops.block_gather(table, idx).view(*ids.shape, table.shape[1])
+        emb = torch.where(in_range[..., None], emb, 0.0).to(table.dtype)
+    if seq_scatter:
+        return axis.scatter(emb, emb.dim() - 2)
+    return axis.sum(emb)
 
 
 class Take(torch.autograd.Function):
@@ -166,9 +229,9 @@ def xent_vocab_parallel(x: torch.Tensor, table: torch.Tensor,
     single-device path is ported (``mesh=None``): the fp32 logits of
     :func:`logits` and :func:`cross_entropy`, what the reference's
     ``shard_map`` body computes on one shard.  A mesh raises (ROADMAP.md,
-    Queue 1 item 6)."""
+    Queue 1 item 6c)."""
     if mesh is not None:
         raise NotImplementedError(
             "the vocab-parallel cross entropy over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "(ROADMAP.md, Queue 1 item 6c)")
     return cross_entropy(logits(x, table), labels)

@@ -75,9 +75,12 @@ def local_stack_table(parts: list, plan: AccessPlan, rank: int,
 
     ``parts`` are the slots' full source tables (tensors on one device);
     rows are gathered on that device (a slot without hot rows copies a
-    contiguous slice), never through the host.  ``out``, if given, is
-    rewritten in place (``update_tables``, slab swaps).  Row block r of the
-    plan's numpy oracle ``stack_np`` is the same array."""
+    contiguous slice), never through the host.  A slot without hot rows
+    may instead be given only this rank's stripe of its rows (a
+    vocab-sharded LM's ``embed``: :meth:`repro_torch.models.lm.LM.
+    embedding_table_inputs`), which is then copied as it is.  ``out``, if
+    given, is rewritten in place (``update_tables``, slab swaps).  Row
+    block r of the plan's numpy oracle ``stack_np`` is the same array."""
     blk, emb = plan.blk, parts[0].shape[1]
     rows = plan.local_rows * blk
     dev, dt = parts[0].device, parts[0].dtype
@@ -87,14 +90,19 @@ def local_stack_table(parts: list, plan: AccessPlan, rank: int,
         raise ValueError(f"local table {tuple(out.shape)} {out.dtype} is not "
                          f"the plan's ({rows}, {emb}) {dt}")
     for slot, p in zip(plan.slots, parts):
-        if p.shape[0] != slot.rows * blk:
-            raise ValueError(f"slot table has {p.shape[0]} rows, expected "
-                             f"{slot.rows * blk}")
         lo = rank * slot.cap
         hi = min((rank + 1) * slot.cap, slot.cold_rows)
-        dst = slot.cold_base * blk
         n = max(hi - lo, 0)
-        if n and not slot.hot_rows:       # cold ids are the rows themselves
+        own = not slot.hot_rows and p.shape[0] == n * blk
+        if p.shape[0] != slot.rows * blk and not own:
+            raise ValueError(f"slot table has {p.shape[0]} rows, expected "
+                             f"{slot.rows * blk}"
+                             + ("" if slot.hot_rows else
+                                f" (or this rank's {n * blk})"))
+        dst = slot.cold_base * blk
+        if n and own:                     # the rank's stripe, as given
+            out[dst:dst + n * blk].copy_(p)
+        elif n and not slot.hot_rows:     # cold ids are the rows themselves
             out[dst:dst + n * blk].copy_(p[lo * blk:hi * blk])
         elif n:
             _take(p, plan.phys_rows(slot.cold_ids[lo:hi]),
@@ -231,6 +239,68 @@ class Collectives:
             dist.all_gather_into_tensor
         return self._run(lambda o, i: ag(o, i, group=self.group), x,
                          (x.shape[0] * self.size,) + tuple(x.shape[1:]))
+
+
+class ModelAxis:
+    """One rank's place on a mesh axis that a model is split over (tensor
+    and expert parallelism): ``size``, ``rank`` and the axis group's
+    :class:`Collectives`, whose ``stats`` (``collectives``,
+    ``staged_bytes``, ``collective_ms``) count every collective the model
+    makes.  :func:`model_axis` memoizes one per (mesh, axis, device)."""
+
+    def __init__(self, mesh, axis: str, device):
+        self.mesh, self.axis = mesh, axis
+        self.size = shard_count(mesh, axis)
+        self.rank = mesh.get_local_rank(axis)
+        self.stats = {"collectives": 0, "staged_bytes": 0,
+                      "collective_ms": 0.0}
+        self.coll = Collectives(mesh.get_group(axis), device, self.stats)
+
+    @property
+    def staged(self) -> bool:
+        """Whether the collectives go through host memory (gloo on the
+        card), which a CUDA graph cannot capture."""
+        return self.coll.staged
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the axis, on every rank."""
+        return self.coll.all_reduce(x, "add")
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a () tensor over the axis (the reference's
+        ``pmean``)."""
+        return self.sum(x.reshape(1))[0] / self.size
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim``, in rank order."""
+        y = self.coll.all_gather(x.movedim(dim, 0))
+        return y.movedim(0, dim)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``x`` over the axis, this rank keeping block ``rank``
+        of ``dim`` (a reduce-scatter)."""
+        y = self.coll.reduce_scatter(x.movedim(dim, 0))
+        return y.movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (size, ...): block j to rank j; block j of the result came
+        from rank j."""
+        return self.coll.all_to_all(x)
+
+
+_MODEL_AXES: dict = {}
+
+
+def model_axis(mesh, axis: str, device) -> ModelAxis:
+    """The memoized :class:`ModelAxis` of ``mesh``'s ``axis`` on
+    ``device`` (one per process: its stats gather every collective of
+    the model's layers)."""
+    dev = torch.device(device)
+    key = (id(mesh), axis, str(dev))
+    hit = _MODEL_AXES.get(key)
+    if hit is None or hit.mesh is not mesh:
+        hit = _MODEL_AXES[key] = ModelAxis(mesh, axis, dev)
+    return hit
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +489,7 @@ def all_gather_rows(coll: Collectives, piece: torch.Tensor, sizes: list,
 
 
 __all__ = ["shard_count", "local_stack_table",
-           "compute_spill", "Collectives", "csr_host_body",
+           "compute_spill", "Collectives", "ModelAxis", "model_axis",
+           "csr_host_body",
            "csr_collective_body", "gather_host_body",
            "gather_collective_body", "owned_range", "all_gather_rows"]

@@ -1,0 +1,217 @@
+"""Sharding rules: params, KV caches, batches (counterpart of
+``repro/launch/sharding.py``).
+
+Conventions, as in the reference:
+  * embedding / unembedding tables: vocab -> ``model``
+  * attention projections: heads (fused head·dim columns) -> ``model``
+  * MLP: hidden -> ``model`` (column then row parallel)
+  * MoE: experts -> ``model`` (EP == TP axis)
+  * SSM/xLSTM inner dims -> ``model``
+  * batch dims -> (``pod``, ``data``)
+
+A spec is a tuple with one entry per dim: an axis name, a tuple of axis
+names (one dim split over several axes jointly) or None, as the reference's
+``PartitionSpec`` is.  Parameters are keyed by the port's ``state_dict``
+names (``blocks.<i>.attn.wq``, ``blocks.<i>.moe.wi_gate``, ``shared.mlp.wo``,
+...); the port's layers are not stacked, so the reference's leading None of
+a ``scan`` leaf has no counterpart.  Caches are the port's list of
+per-layer dicts, the KV leaves head-major (B, Hkv, S, hd).
+
+A mesh here is a :class:`torch.distributed.device_mesh.DeviceMesh` (its
+``mesh_dim_names`` and ``shape``) or a plain ``{axis: size}`` dict, which
+is all the spec functions read.  :func:`local_shard` takes a rank's slice
+of a full tensor by its spec: the port is multi-controller, each rank holds
+its own slices, and splits are even (``padded_vocab`` divides by any model
+axis up to 256).
+
+Not ported: ``zero1_specs`` waits for model-parallel training (ROADMAP.md,
+Queue 1 item 6c); ``to_shardings``, ``table_row_sharding``,
+``leading_axis_sharding`` and ``replicated_sharding`` build
+``NamedSharding`` placements of global arrays, which have nothing to stand
+for when each process holds only its own shard.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+COL = {"wq", "wk", "wv", "wi_gate", "wi_up", "w_in", "w_gate", "w_if"}
+ROW = {"wo", "w_out"}
+REPL = {"router", "A_log", "D", "dt_bias", "b_i", "b_f", "b", "conv_w",
+        "norm1", "norm2", "norm_x", "norm_z", "final_norm", "enc_norm",
+        "frontend_proj", "w_kr", "r"}
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis: size}`` of a ``DeviceMesh`` or of a dict mesh."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _size(sizes: dict, ax) -> int:
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+def param_spec(name: str, ndim: int) -> tuple:
+    """The spec of parameter ``name`` (a ``state_dict`` key) with ``ndim``
+    dims: the reference's ``param_spec`` on an unstacked leaf."""
+    names = name.split(".")
+    leaf = names[-1]
+    in_moe = "moe" in names and "shared" not in names
+    if leaf == "embed":
+        return ("model", None)
+    if leaf in REPL or ndim <= 1:
+        return (None,) * ndim
+    if in_moe and leaf in ("wi_gate", "wi_up", "wo"):
+        return ("model", None, None)          # experts -> model (EP)
+    if leaf in ("w_dkv", "w_uk", "w_uv") or leaf in COL:
+        return (None, "model")
+    if leaf in ROW:
+        return ("model", None)
+    return (None,) * ndim
+
+
+def param_specs(params) -> dict:
+    """``{name: spec}`` of an LM (its ``state_dict``) or of any ``{name:
+    tensor}`` mapping."""
+    if hasattr(params, "state_dict"):
+        params = params.state_dict()
+    return {k: param_spec(k, v.dim() if hasattr(v, "dim") else v.ndim)
+            for k, v in params.items()}
+
+
+def cache_spec(name: str, shape: tuple, batch_axes, msize: int = 1) -> tuple:
+    """The spec of one cache leaf ``name`` of ``shape`` in the port's
+    layout (the reference's ``cache_spec``; its (B, S, Hkv, hd) K/V split
+    over the head dim is the port's (B, Hkv, S, hd) split over dim 1).
+    A few-KV-head model whose heads do not divide the model axis splits
+    the head dim instead, as in the reference.  The int8 cache's
+    ``k_scale`` / ``v_scale`` (B, Hkv, S) follow their K/V heads."""
+    nd = len(shape)
+    ba = batch_axes if batch_axes else None
+    if name == "len" or nd == 0:
+        base = (None,) * nd
+    elif name in ("k", "v"):            # (B, Hkv, S, hd)
+        base = (ba, "model", None, None) if shape[1] % msize == 0 \
+            else (ba, None, None, "model")
+    elif name in ("k_scale", "v_scale"):   # (B, Hkv, S)
+        base = (ba, "model", None) if shape[1] % msize == 0 \
+            else (ba, None, None)
+    elif name == "c" and nd == 3:       # mla latent (B, S, r)
+        base = (ba, None, "model")
+    elif name == "kr":                  # (B, S, rd)
+        base = (ba, None, None)
+    elif name == "state":               # mamba (B, H, P, N)
+        base = (ba, "model", None, None)
+    elif name == "conv":                # (B, 3, d_inner)
+        base = (ba, None, "model")
+    elif name == "C":                   # mlstm (B, H, hd, hd)
+        base = (ba, None, "model", None)
+    elif name == "n" and nd == 4:       # mlstm normalizer (B, H, 1, hd)
+        base = (ba, None, None, None)
+    elif nd == 2:                       # slstm scalars (B, d)
+        base = (ba, "model")
+    else:
+        base = (ba,) + (None,) * (nd - 1)
+    base = tuple(base)[:nd]
+    return base + (None,) * (nd - len(base))
+
+
+def _batch_axes(batch: int, mesh, data_axes: tuple) -> tuple:
+    sizes = axis_sizes(mesh)
+    dsize = int(np.prod([sizes[a] for a in data_axes])) if data_axes else 1
+    return tuple(data_axes) if batch % max(dsize, 1) == 0 and \
+        batch >= dsize else ()
+
+
+def cache_specs(caches: list, batch: int, mesh, data_axes: tuple) -> list:
+    """Specs of the port's caches (a list of per-layer ``{name: tensor}``
+    dicts) on ``mesh``, sanitized."""
+    ba = _batch_axes(batch, mesh, data_axes)
+    msize = axis_sizes(mesh)["model"]
+    specs = [{k: cache_spec(k, tuple(v.shape), ba, msize)
+              for k, v in layer.items()} for layer in caches]
+    return sanitize_specs(specs, caches, mesh)
+
+
+def batch_specs(batch_struct: dict, batch: int, mesh,
+                data_axes: tuple) -> dict:
+    """Every batch leaf splits its leading dim over the data axes (when the
+    batch divides), the rest replicated."""
+    ba = _batch_axes(batch, mesh, data_axes) or None
+    return {k: (ba,) + (None,) * (len(v.shape) - 1)
+            for k, v in batch_struct.items()}
+
+
+def sanitize_specs(specs, tree, mesh):
+    """Drop any per-dim axis assignment that does not divide the dim (or
+    exceeds it), e.g. 4 KV heads over a model axis of 16: the dim is then
+    replicated.  ``specs`` and ``tree`` are dicts / lists / tuples of the
+    same structure, ``tree``'s leaves anything with ``shape``."""
+    sizes = axis_sizes(mesh)
+    if isinstance(specs, dict):
+        return {k: sanitize_specs(s, tree[k], mesh) for k, s in specs.items()}
+    if isinstance(specs, list):
+        return [sanitize_specs(s, t, mesh) for s, t in zip(specs, tree)]
+    shape = tuple(tree.shape)
+    dims = []
+    for i, n in enumerate(shape):
+        ax = specs[i] if i < len(specs) else None
+        if ax is None:
+            dims.append(None)
+            continue
+        size = _size(sizes, ax)
+        dims.append(ax if n % size == 0 and n >= size else None)
+    return tuple(dims)
+
+
+def mesh_index(mesh) -> dict:
+    """This process's coordinate along every axis of a ``DeviceMesh``."""
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def local_shard(tensor, spec: tuple, mesh, index: Optional[dict] = None):
+    """The slice of the full ``tensor`` that the rank at ``index`` (``{axis:
+    coordinate}``; this process's place in a ``DeviceMesh`` by default)
+    holds under ``spec``: each split dim cut into equal blocks, block
+    ``index`` kept (a view).  A dim that does not divide raises
+    ``ValueError``."""
+    sizes = axis_sizes(mesh)
+    index = mesh_index(mesh) if index is None else index
+    out = tensor
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        size = _size(sizes, axes)
+        if size == 1:
+            continue
+        n = tensor.shape[dim]
+        if n % size:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                             f"split evenly over {axes} ({size})")
+        coord = 0
+        for a in axes:                  # row-major over the joint axes
+            coord = coord * sizes[a] + index[a]
+        step = n // size
+        out = out.narrow(dim, coord * step, step)
+    return out
+
+
+def concat_shards(shards: list, spec: tuple, axis: str = "model"):
+    """The inverse of :func:`local_shard` over one axis: the model-axis
+    ranks' slices (in rank order) joined back along the dim ``spec`` splits
+    over ``axis`` (the first rank's tensor where no dim is)."""
+    import torch
+    for dim, ax in enumerate(spec):
+        if ax == axis or (isinstance(ax, tuple) and axis in ax):
+            return torch.cat(list(shards), dim=dim)
+    return shards[0]
+
+
+__all__ = ["COL", "ROW", "REPL", "axis_sizes", "param_spec", "param_specs",
+           "cache_spec", "cache_specs", "batch_specs", "sanitize_specs",
+           "mesh_index", "local_shard", "concat_shards"]

@@ -16,7 +16,7 @@ a card the default raises.  The reference's flags, and the same
 checkpoint cadence (every ``steps // 4`` steps); ``--ckpt-dir`` has no
 default (the reference's is a fixed path under /tmp), since a run resumes
 from whatever checkpoint it finds there.  ``--model-parallel``
-above 1 (a mesh) is not ported yet (ROADMAP.md, Queue 1 item 6) and
+above 1 (a mesh) is not ported yet (ROADMAP.md, Queue 1 item 6c) and
 raises.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ def main(argv=None):
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1 (a mesh) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 6)")
+            "Queue 1 item 6c)")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     data = SyntheticTokens(DataConfig(

@@ -49,7 +49,7 @@ import torch
 
 from ..kernels import ops as kops
 from .common import ModelConfig, apply_rope, dense_init, pick_chunk, \
-    rope_freqs
+    rope_freqs, row_parallel
 
 NEG_INF = -1e30
 
@@ -77,18 +77,33 @@ def init_attn(gen: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
+def local_heads(p, cfg: ModelConfig) -> tuple:
+    """(query heads, KV heads) of the projections ``p``: the config's, or
+    under tensor parallelism this rank's share (its columns of ``wq``,
+    ``wk``, ``wv``: query heads ``[r·H/n, (r+1)·H/n)`` and the KV heads
+    they group onto)."""
+    hd = cfg.hd
+    return p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+
+
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor, causal: bool = True,
                  window: Optional[int] = None,
-                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 kv: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D).  ``kv`` (B,Sk,D) overrides the K/V source:
     cross-attention (the ``xdec`` layers' attention over the encoder's
     output), with no rotary and no causal mask, Sk free of S -- a decode
     step's cross-attention runs the flash kernel with one query row over
     all Sk keys.  K and V are projected from ``kv`` at every call, as the
-    reference does."""
+    reference does.
+
+    Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.core.shard_plan.ModelAxis`) ``p`` holds the rank's
+    heads (:func:`local_heads`), the flash kernel runs on them, and the
+    output projection by the rank's rows of ``wo`` is summed over the axis
+    (:func:`~.common.row_parallel`)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    (h, hkv), hd = local_heads(p, cfg), cfg.hd
     src = kv if kv is not None else x
     sk = src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, h, hd)
@@ -102,7 +117,7 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     o = blockwise_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal and kv is None, window=window,
                             chunk=chunk)
-    return o.reshape(b, s, h * hd) @ p["wo"]
+    return row_parallel(o.reshape(b, s, h * hd), p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +181,8 @@ def slot_update(cache: torch.Tensor, new: torch.Tensor,
 
 def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
                 window: Optional[int] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
     """x (B,1,D) -> (B,1,D), updating ``cache`` in place (see the module
     docstring): row ``len[b]`` of slot b gets the new K/V, and ``len`` grows
     by one.
@@ -176,9 +192,10 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     write and put back after the attention has read the cache.  That is
     the reference's ``jnp.where(active, new, old)`` over the whole cache,
     one row per slot, and every slot's output -- the inactive ones' too --
-    is the reference's."""
+    is the reference's.  Under tensor parallelism (``tp``) ``p`` and the
+    cache hold the rank's heads, as :func:`attn_forward`'s do."""
     b = x.shape[0]
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    (h, hkv), hd = local_heads(p, cfg), cfg.hd
     pos = cache["len"].expand(b)
     q = (x @ p["wq"]).reshape(b, 1, h, hd)
     k = (x @ p["wk"]).reshape(b, 1, hkv, hd)
@@ -212,14 +229,16 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
             cache[n][rows, :, at] = torch.where(keep, t.to(cache[n].dtype),
                                                 old[n])
         cache["len"] += active.to(cache["len"].dtype)
-    return o.reshape(b, 1, h * hd) @ p["wo"]
+    return row_parallel(o.reshape(b, 1, h * hd), p["wo"], tp)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  dtype: torch.dtype, device=None) -> dict:
+                  dtype: torch.dtype, device=None,
+                  kv_heads: Optional[int] = None) -> dict:
     """One layer's empty cache; ``len`` is per slot, so the serving loop
-    admits and retires requests slot by slot."""
-    hkv, hd = cfg.num_kv_heads, cfg.hd
+    admits and retires requests slot by slot.  ``kv_heads`` (default
+    ``cfg.num_kv_heads``) is a tensor-parallel rank's share."""
+    hkv, hd = kv_heads or cfg.num_kv_heads, cfg.hd
     shape = (batch, hkv, max_len, hd)
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.kv_cache_dtype == "int8":

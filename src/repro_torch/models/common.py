@@ -165,9 +165,33 @@ def update_cache(cache: dict, new: dict, active=None) -> None:
             cache[key].copy_(torch.where(keep, t, cache[key]))
 
 
-def gated_mlp(x: torch.Tensor, p, act: str = "silu") -> torch.Tensor:
+def gated_mlp(x: torch.Tensor, p, act: str = "silu",
+              tp=None) -> torch.Tensor:
+    """``act(x W_gate) * (x W_up) W_o``.  Under tensor parallelism (``tp``,
+    a :class:`~repro_torch.core.shard_plan.ModelAxis`) the rank holds its
+    columns of ``wi_gate`` / ``wi_up`` and its rows of ``wo``, and the
+    partial products are summed over the axis (:func:`row_parallel`)."""
     h = _ACTS[act](x @ p["wi_gate"]) * (x @ p["wi_up"])
-    return h @ p["wo"]
+    return row_parallel(h, p["wo"], tp)
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``h @ w`` where ``h`` holds this rank's columns and ``w`` its rows
+    (a row-parallel product): each rank's partial product of exact operand
+    products summed in fp32 (bf16 on the card through cuBLAS's bf16 x bf16
+    -> fp32 GEMM), the partials summed over ``tp`` in fp32 and rounded to
+    h's dtype once -- as the single device's GEMM sums in fp32 and rounds
+    once.  The fp32 sum doubles a bf16 model's all-reduce bytes.  Without
+    ``tp`` (or on a 1-wide axis) it is ``h @ w``."""
+    if tp is None or tp.size == 1:
+        return h @ w
+    k = h.shape[-1]
+    h2 = h.reshape(1, -1, k)
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        part = torch.bmm(h2, w[None], out_dtype=torch.float32)
+    else:
+        part = torch.bmm(h2.float(), w[None].float())
+    return tp.sum(part).to(h.dtype).view(*h.shape[:-1], w.shape[1])
 
 
 def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,

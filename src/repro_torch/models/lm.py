@@ -23,13 +23,33 @@ and the encoder context ``batch_ctx``, :meth:`LM.wave_step`,
 :meth:`LM.reset_slots`), and the LM's embedding
 programs and executors (:func:`embedding_program`,
 :meth:`LM.decode_embed_program`, :meth:`LM.embedding_pipeline`,
-:meth:`LM.embedding_executor` without a mesh).  The reference folds depth
+:meth:`LM.embedding_executor`).  The reference folds depth
 into a ``jax.lax.scan`` over super-blocks; here the layers are an
 ``nn.ModuleList`` run in order (scan super-blocks first, then the
 remainder, as the reference does), and a wave is a Python loop of masked
 micro-steps (which the server replays as CUDA graphs on the card:
-:class:`repro_torch.runtime.server.WaveGraph`).  Still to port (ROADMAP.md,
-Queue 1): the sharded embedding executor and loss (item 6).
+:class:`repro_torch.runtime.server.WaveGraph`).
+
+**Tensor and expert parallelism** (``LM(cfg, shard=ShardCtx(mesh))``, the
+reference's ``LM(cfg, ShardCtx(mesh=...))``; the ``dense``, ``dense_local``
+and ``moe`` kinds).  The port is multi-controller: one process a rank of
+the mesh, each holding its slice of every leaf by
+:func:`repro_torch.launch.sharding.param_spec` (the query and KV heads of
+``wq`` / ``wk`` / ``wv`` and the hidden columns of ``wi_gate`` / ``wi_up``
+by column, ``wo`` by row, the experts of an MoE layer, the vocab rows of
+``embed``; norms, the router and the front end replicated).  Every rank of
+the ``model`` axis is handed the same tokens and computes the whole
+function: the embed lookup masked to its rows and summed over the axis
+(:func:`repro_torch.core.embedding_engine.lookup`), each attention and MLP
+on its heads and columns with one fp32 all-reduce of the row-parallel
+output (:func:`.common.row_parallel`), the MoE FFN expert parallel
+(:func:`.moe.moe_ffn`), and a decode step's logits computed over its
+vocab slice and all-gathered, so every rank's argmax is the same.  Every
+collective goes through the axis's
+:class:`~repro_torch.core.shard_plan.Collectives` (:attr:`LM.
+collective_stats` counts them).  Model-parallel training (the loss over a
+mesh) is ROADMAP.md Queue 1 item 6c; the other block kinds over a mesh
+are item 6d.
 
 A block's ``forward`` and ``decode`` take a context dict beside their
 input, as the reference's ``block_apply`` / ``block_decode`` take
@@ -67,6 +87,7 @@ tree).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -76,6 +97,7 @@ from torch import nn
 from ..core import embedding_engine as ee
 from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
+from ..launch.sharding import local_shard, param_spec
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
@@ -85,6 +107,26 @@ from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
 
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
+#: the block kinds that run split over a mesh's model axis
+TP_KINDS = ("dense", "dense_local", "moe")
+
+
+@dataclasses.dataclass
+class ShardCtx:
+    """How an LM is split over a mesh (the reference's ``ShardCtx``): the
+    ``mesh`` (a ``DeviceMesh`` over ``("data", "model")``:
+    :func:`repro_torch.launch.mesh.make_host_mesh`; None on one device),
+    the axes the batch splits over, the axis the weights split over, and
+    whether the embed lookup takes ``cfg.embed_strategy`` (the reference's
+    ``shard_map`` lookup) or its plain ``take`` over the sharded table.  A
+    rank holds only its vocab rows either way, so the port runs the masked
+    lookup for both, and both give the same values.  The reference's
+    ``remat`` and ``cost_mode`` are not ported (``cost_mode`` is
+    ROADMAP.md Queue 1 item 10)."""
+    mesh: object = None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
+    use_shard_map_embed: bool = True
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -130,6 +172,12 @@ class DenseBlock(nn.Module):
         self.norm2 = _frozen(init_rms(cfg.d_model, dtype, device))
         self._init_ffn(gen, cfg, dtype, device)
 
+    #: the model axis (a :class:`~repro_torch.core.shard_plan.ModelAxis`)
+    #: the block's weights are split over, None on one device; and the
+    #: data axes an MoE layer averages its aux loss over
+    tp = None
+    data_axes: tuple = ()
+
     _init_attn = staticmethod(init_attn)
 
     def _init_ffn(self, gen, cfg, dtype, device) -> None:
@@ -139,13 +187,14 @@ class DenseBlock(nn.Module):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
-                            causal=True)
+                            causal=True, tp=self.tp)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
-        return attn_decode(self.attn, h, self.cfg, cache, active=active)
+        return attn_decode(self.attn, h, self.cfg, cache, active=active,
+                           tp=self.tp)
 
-    def _ffn(self, h: torch.Tensor) -> tuple:
-        return gated_mlp(h, self.mlp, self.cfg.act), None
+    def _ffn(self, h: torch.Tensor, with_aux: bool = True) -> tuple:
+        return gated_mlp(h, self.mlp, self.cfg.act, self.tp), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
@@ -162,7 +211,7 @@ class DenseBlock(nn.Module):
         eps = self.cfg.norm_eps
         x = x + self._attend_decode(rms_norm(x, self.norm1, eps), cache,
                                     active)
-        h, _ = self._ffn(rms_norm(x, self.norm2, eps))
+        h, _ = self._ffn(rms_norm(x, self.norm2, eps), with_aux=False)
         return x + h
 
 
@@ -176,11 +225,13 @@ class LocalBlock(DenseBlock):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
-                            causal=True, window=self.cfg.sliding_window)
+                            causal=True, window=self.cfg.sliding_window,
+                            tp=self.tp)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
         return attn_decode(self.attn, h, self.cfg, cache,
-                           window=self.cfg.sliding_window, active=active)
+                           window=self.cfg.sliding_window, active=active,
+                           tp=self.tp)
 
 
 class MoeBlock(DenseBlock):
@@ -190,8 +241,12 @@ class MoeBlock(DenseBlock):
     def _init_ffn(self, gen, cfg, dtype, device) -> None:
         self.moe = ParamTree(moe_mod.init_moe(gen, cfg, dtype, device))
 
-    def _ffn(self, h: torch.Tensor) -> tuple:
-        return moe_mod.moe_ffn(self.moe, h, self.cfg)
+    def _ffn(self, h: torch.Tensor, with_aux: bool = True) -> tuple:
+        if self.tp is None:
+            return moe_mod.moe_ffn(self.moe, h, self.cfg)
+        return moe_mod.moe_ffn(self.moe, h, self.cfg, mesh=self.tp.mesh,
+                               ep_axis=self.tp.axis,
+                               data_axes=self.data_axes, reduce_aux=with_aux)
 
 
 class MlaBlock(MoeBlock):
@@ -405,17 +460,32 @@ class LM(nn.Module):
     builds the module tree without memory) and initialised there from
     ``seed`` with an explicit :class:`torch.Generator`: embed N(0, 0.02),
     norms 1, weights N(0, fan_in^-1/2), in ``cfg.dtype``; a front end's
-    ``frontend_proj`` is the identity, as the reference's."""
+    ``frontend_proj`` is the identity, as the reference's.
 
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    With ``shard`` (a :class:`ShardCtx` whose mesh has a model axis wider
+    than 1; module docstring) this process is one rank: each leaf is made
+    as the single-device ``LM(cfg, seed=seed)`` makes it, on the mesh's
+    device, and only the rank's slice is kept, one layer at a time, so no
+    rank ever holds the whole model and the ranks' slices join to the
+    single device's tensors bit for bit.  A kind outside :data:`TP_KINDS`
+    raises ``NotImplementedError``; heads, hidden width, experts or vocab
+    that do not split evenly over the axis raise ``ValueError``, before
+    anything is allocated.  :attr:`tp` is the rank's
+    :class:`~repro_torch.core.shard_plan.ModelAxis` (None on one
+    device)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
+                 shard: Optional[ShardCtx] = None):
         super().__init__()
         kinds = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
         for kind in kinds:
             if kind not in BLOCKS:
                 raise ValueError(kind)
         self.cfg = cfg
+        self.shard = shard or ShardCtx()
         meta = device is not None and torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
+        self.tp = self._model_axis(kinds, dev)
         gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
         dtype = cfg.torch_dtype
         if meta:
@@ -425,13 +495,24 @@ class LM(nn.Module):
             embed = (torch.randn((cfg.padded_vocab, cfg.d_model),
                                  generator=gen, dtype=torch.float32,
                                  device=dev) * 0.02).to(dtype)
-        self.embed = _frozen(embed)
+        self.embed = _frozen(self._local(embed, "embed"))
+        del embed
         self.final_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
         if cfg.modality != "text":
             self.frontend_proj = _frozen(torch.eye(cfg.d_model, dtype=dtype,
                                                    device=dev))
-        self.blocks = nn.ModuleList(BLOCKS[kind](cfg, gen, dtype, dev)
-                                    for kind in layer_kinds(cfg))
+        blocks = []
+        for li, kind in enumerate(layer_kinds(cfg)):
+            blk = BLOCKS[kind](cfg, gen, dtype, dev)
+            if self.tp is not None:
+                for name, prm in blk.named_parameters():
+                    prm.data = self._local(prm.data, f"blocks.{li}.{name}")
+                blk.tp = self.tp
+                blk.data_axes = tuple(
+                    a for a in self.shard.data_axes
+                    if a in self.shard.mesh.mesh_dim_names)
+            blocks.append(blk)
+        self.blocks = nn.ModuleList(blocks)
         if "shared_attn" in kinds:
             self.shared = ParamTree({
                 "attn": init_attn(gen, cfg, dtype, dev),
@@ -441,6 +522,73 @@ class LM(nn.Module):
                 EncBlock(cfg, gen, dtype, dev)
                 for _ in range(cfg.enc_layers))
             self.enc_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
+
+    def _model_axis(self, kinds: tuple, dev: torch.device):
+        """The model axis this rank's weights split over (None on one
+        device or a 1-wide axis), after checking that the config splits
+        over it."""
+        from ..core.shard_plan import model_axis, shard_count
+        sh, cfg = self.shard, self.cfg
+        n = shard_count(sh.mesh, sh.model_axis)
+        if n == 1:
+            return None
+        out = sorted({k for k in kinds if k not in TP_KINDS})
+        if out or cfg.enc_layers:
+            raise NotImplementedError(
+                f"the block kinds {out or ['enc_dense']} of {cfg.name} over a "
+                f"mesh are not ported yet (ROADMAP.md, Queue 1 item 6d)")
+        split = {"num_heads": cfg.num_heads,
+                 "num_kv_heads": cfg.num_kv_heads,
+                 "padded_vocab": cfg.padded_vocab}
+        if any(k in ("dense", "dense_local") for k in kinds):
+            split["d_ff"] = cfg.d_ff
+        if "moe" in kinds:
+            split["num_experts"] = cfg.num_experts
+        for what, size in split.items():
+            if size % n:
+                raise ValueError(f"{cfg.name}'s {what} {size} does not split "
+                                 f"over the {sh.model_axis} axis of {n}")
+        if dev.type == "meta" or sh.mesh.device_type != dev.type:
+            raise ValueError(f"a sharded LM is built on its mesh's device "
+                             f"({sh.mesh.device_type}), not {dev}")
+        return model_axis(sh.mesh, sh.model_axis, dev)
+
+    def _local(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's slice of the full leaf ``t`` (``t`` itself on one
+        device), a tensor of its own."""
+        if self.tp is None:
+            return t
+        spec = param_spec(name, t.dim())
+        if all(a is None for a in spec):
+            return t
+        return local_shard(t, spec, self.shard.mesh).clone(
+            memory_format=torch.contiguous_format)
+
+    @property
+    def collective_stats(self) -> Optional[dict]:
+        """The model axis's collective counters (``collectives``,
+        ``staged_bytes``, ``collective_ms``; shared by every model on the
+        same mesh axis in this process), None on one device."""
+        return None if self.tp is None else self.tp.stats
+
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings: ``take`` on one device, the vocab-sharded
+        lookup over the model axis (``cfg.embed_strategy``, or
+        ``masked_psum`` where it is not a sharded one) on a rank."""
+        if self.tp is None:
+            return ee.lookup(self.embed, tokens, strategy="take")
+        sh = self.shard
+        strategy = self.cfg.embed_strategy if sh.use_shard_map_embed \
+            else "masked_psum"
+        if strategy not in ee.SHARDED_STRATEGIES + ("one_hot",):
+            strategy = "masked_psum"
+        scatter = strategy == "masked_psum_scatter"
+        if scatter and tokens.shape[-1] % self.tp.size:
+            strategy, scatter = "masked_psum", False
+        x = ee.lookup(self.embed, tokens, mesh=sh.mesh,
+                      vocab_axis=sh.model_axis, strategy=strategy)
+        # the blocks take the whole sequence on every rank
+        return self.tp.gather(x, x.dim() - 2) if scatter else x
 
     def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         """The encoder (the reference's ``LM._encode``): enc_embeds
@@ -514,7 +662,7 @@ class LM(nn.Module):
         which the reference's ``forward`` returns beside the hidden states
         for its loss."""
         b, s = tokens.shape
-        x = ee.lookup(self.embed, tokens, strategy="take")
+        x = self._lookup(tokens)
         if self.cfg.modality == "vision-stub" and frontend_embeds is not None:
             if frontend_embeds.dtype != x.dtype or \
                     frontend_embeds.shape[1] > s:
@@ -543,7 +691,13 @@ class LM(nn.Module):
         logits[label]``, the fp32 logits over the padded vocab (pad rows
         included, as the reference computes them), plus ``0.01 * aux``, the
         MoE load-balance loss.  tokens, labels (B,S) int; a () fp32
-        tensor."""
+        tensor.  Over a mesh it raises: model-parallel training is
+        ROADMAP.md Queue 1 item 6c."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                "the loss of a sharded LM (the vocab-parallel cross entropy "
+                "over a mesh) is not ported yet (ROADMAP.md, Queue 1 item "
+                "6c)")
         x, aux = self.forward(tokens, frontend_embeds,
                               enc_embeds=enc_embeds, with_aux=True)
         return ee.xent_vocab_parallel(x, self.embed, labels) + 0.01 * aux
@@ -571,9 +725,15 @@ class LM(nn.Module):
         :func:`.attention.init_mla_cache` for ``mla`` layers; a recurrent
         layer's state, which holds no positions: ``mamba``
         (:func:`.ssm.init_mamba_cache`), ``mlstm`` and ``slstm``
-        (:func:`.xlstm.init_mlstm_cache`, :func:`.xlstm.init_slstm_cache`))."""
+        (:func:`.xlstm.init_mlstm_cache`, :func:`.xlstm.init_slstm_cache`)).
+        A rank of a sharded model keeps its KV heads
+        (:func:`repro_torch.launch.sharding.cache_spec`)."""
         dtype = dtype or self.cfg.torch_dtype
         cfg, dev = self.cfg, self.device
+        if self.tp is not None:
+            return [init_kv_cache(cfg, batch, max_len, dtype, dev,
+                                  kv_heads=cfg.num_kv_heads // self.tp.size)
+                    for _ in self.blocks]
         return [blk.init_cache(cfg, batch, dtype, dev)
                 if isinstance(blk, RecurrentBlock) else
                 (init_mla_cache if isinstance(blk, MlaBlock) else
@@ -598,15 +758,22 @@ class LM(nn.Module):
         prefill however a wave's slots are staggered.  In an MoE layer the
         inactive slots' token-0 rows still take expert capacity, as in the
         reference, so there the tokens depend on how prompts are chunked
-        (ROADMAP.md, reference caveat (c))."""
+        (ROADMAP.md, reference caveat (c)).
+
+        On a rank of a sharded model each rank computes the fp32 logits of
+        its vocab rows, and one all-gather gives every rank the whole
+        row, so every rank takes the same argmax."""
         ctx = self._decode_ctx(batch_ctx, tokens_new.shape[0])
         if active is not None:
             tokens_new = torch.where(active[:, None], tokens_new, 0)
-        x = ee.lookup(self.embed, tokens_new, strategy="take")
+        x = self._lookup(tokens_new)
         for blk, cache in zip(self.blocks, caches):
             x = blk.decode(x, cache, active, ctx)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return ee.logits(x, self.embed)[..., :self.cfg.vocab_size], caches
+        lg = ee.logits(x, self.embed)
+        if self.tp is not None:
+            lg = self.tp.gather(lg, lg.dim() - 1)
+        return lg[..., :self.cfg.vocab_size], caches
 
     def _decode_ctx(self, batch_ctx: Optional[dict],
                     b: int) -> Optional[dict]:
@@ -687,8 +854,14 @@ class LM(nn.Module):
         which has no counterpart here; ``"cuda"`` keeps the hand-written
         kernel on the served path.  ``backend="torch"`` (stock
         ``index_select``, one packed copy per wave) stays selectable and
-        gives the same bits: a gather is a copy."""
+        gives the same bits: a gather is a copy.  A sharded model raises:
+        its decode-embed program reads the whole table (ROADMAP.md, Queue
+        1 item 6d)."""
         from ..core.executor import executor_for, pipeline_group
+        if self.tp is not None:
+            raise NotImplementedError(
+                "the serving pipeline group of a sharded LM is not ported yet "
+                "(ROADMAP.md, Queue 1 item 6d)")
         kw.setdefault("backend", "cuda")
         kw.setdefault("device", self.device)
         progs = [self.decode_embed_program(batch, seq)]
@@ -707,24 +880,32 @@ class LM(nn.Module):
         return compile_program(self.embedding_program(batch, seq), opt_level)
 
     def embedding_executor(self, batch: int, seq: int,
-                           opt_level: str = "O3", mesh=None,
+                           opt_level: str = "O3", mesh="auto",
                            hot_rows=None, **kw):
         """The steady-state executor of this model's embedding program on
-        the model's device, memoized per signature.  Only ``mesh=None``
-        (one device) is ported: the vocab-sharded executor and its hot rows
-        wait for ROADMAP.md Queue 1 item 6."""
+        the model's device, memoized per signature.  ``mesh="auto"`` takes
+        the model's :class:`ShardCtx` mesh: over a model axis wider than 1
+        the executor is the vocab-sharded one, its stacked tables split
+        over the axis; ``mesh=None`` forces the single-device executor.
+        ``hot_rows`` replicate a classified head of each vocab on every
+        shard; ``exchange=`` / ``replicate_outputs=`` (through ``**kw``)
+        pick the sharded exchange, as in
+        :func:`~repro_torch.core.executor.executor_for`."""
         from ..core.executor import executor_for
-        if mesh is not None or hot_rows is not None:
-            raise NotImplementedError(
-                "the sharded embedding executor (mesh=, hot_rows=) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 6)")
+        if mesh == "auto":
+            mesh = self.shard.mesh
         kw.setdefault("device", self.device)
         return executor_for(self.embedding_program(batch, seq), opt_level,
-                            **kw)
+                            mesh=mesh, shard_axis=self.shard.model_axis,
+                            hot_rows=hot_rows, **kw)
 
     def embedding_table_inputs(self) -> dict:
         """The param-backed tables of :meth:`embedding_program`, keyed the
-        way :meth:`ProgramExecutor.update_tables` wants them."""
+        way :meth:`ProgramExecutor.update_tables` wants them.  On a rank of
+        a sharded model the table is the rank's vocab rows, which the
+        vocab-sharded executor stacks as they are where the slot has no hot
+        rows (:func:`repro_torch.core.shard_plan.local_stack_table`); a hot
+        slab needs every rank's rows (the full table)."""
         return {"tok_embed": {"table": self.embed},
                 "label_gather": {"table": self.embed}}
 

@@ -1,10 +1,10 @@
-"""Mixture-of-Experts layer (counterpart of ``repro/models/moe.py``), single
-device: :func:`init_moe`, :func:`_slot_assignments`, :func:`moe_ffn_local`
-and :func:`moe_ffn` without a mesh, plus :func:`dispatch_op` and
+"""Mixture-of-Experts layer (counterpart of ``repro/models/moe.py``):
+:func:`init_moe`, :func:`_slot_assignments`, :func:`moe_ffn_local`,
+:func:`_replicated_token_ep` and :func:`moe_ffn`, on one device or expert
+parallel over a mesh axis, plus :func:`dispatch_op` and
 :func:`undispatch_program`, the dispatch as a characterized embedding
-operation.  The expert-parallel paths (``moe_ffn(mesh=...)``, the
-reference's ``_replicated_token_ep`` and its ``shard_map`` body) wait for
-ROADMAP.md Queue 1 item 6 and raise.
+operation, and :func:`moe_ffn_ep_plain`, the n-rank semantics in one
+process.
 
 MoE dispatch *is* an embedding operation in the paper's taxonomy: tokens are
 gathered into per-expert capacity buffers by irregular indices, and the
@@ -14,10 +14,36 @@ Here the un-dispatch ``out_buf[slot]`` runs through the block gather
 tensors, its plain version on the CPU).  The dispatch scatter has no Pallas
 counterpart in the reference and stays a stock ``index_copy_``.
 
+**Expert parallelism** (``moe_ffn(mesh=...)``, the reference's
+``shard_map`` body): the experts split over the ``ep_axis`` (rank r holds
+experts ``[r·E/n, (r+1)·E/n)`` of ``wi_gate``, ``wi_up``, ``wo``), the
+router and the shared experts replicated.  The port is multi-controller:
+every rank passes the same (B, S, D) activations and gets the full output
+back.
+
+* *Seq-split* (S divisible by n, the prefill): each rank routes its block
+  of the sequence with the capacity of its own token count, and a tiled
+  all-to-all carries the (E, C, D) dispatch buffer to the experts' owners
+  and back -- the reference's ``moe_ffn_local(..., ep_axis=)``.  Capacity
+  is per rank, so this is not the single device's function (other
+  assignments drop): it is held to :func:`moe_ffn_ep_plain`.  The ranks'
+  outputs are then all-gathered over S.
+* *Replicated tokens* (decode): every rank routes every token, runs its
+  experts, and the (E·C, D) output buffer comes together over the axis --
+  the reference's ``_replicated_token_ep``, the single device's function.
+  The reference sums the zero-filled buffers with a ``psum``; here each
+  rank's block of experts is all-gathered, the same values at half the
+  bytes.
+
+``aux`` is averaged over the axis and the data axes, as the reference's
+``pmean``.  Every collective goes through the axis's
+:class:`~repro_torch.core.shard_plan.Collectives`.
+
 Capacity-based dropping keeps every shape static, and nothing reads back to
 the host, so a layer can be captured in a CUDA graph (the served
-micro-step, ``runtime.server.WaveGraph``).  The expert products run over
-**all** E experts at capacity C, as the reference's three einsums do.
+micro-step, ``runtime.server.WaveGraph``; over a mesh only where the
+collectives need no host staging).  The expert products run over **all**
+of a rank's experts at capacity C, as the reference's three einsums do.
 """
 from __future__ import annotations
 
@@ -107,59 +133,165 @@ def route(x2d: torch.Tensor, router: torch.Tensor, k: int) -> tuple:
     return probs, topw, tope
 
 
-def moe_ffn_local(p, x2d: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """x2d (T, D) -> ((T, D), aux) on one device: :func:`route`, slot into
-    capacity buffers, run every expert, gather back (``out_buf[slot]``
-    through the block gather), combine in x's dtype, add the shared
-    experts.  ``aux`` is the load-balance loss, E · sum_e frac_e · mean
-    prob_e."""
+def moe_ffn_local(p, x2d: torch.Tensor, cfg: ModelConfig,
+                  ep=None) -> tuple:
+    """x2d (T, D) -> ((T, D), aux): :func:`route`, slot into capacity
+    buffers, run every expert, gather back (``out_buf[slot]`` through the
+    block gather), combine in x's dtype, add the shared experts.  ``aux``
+    is the load-balance loss, E · sum_e frac_e · mean prob_e.
+
+    With ``ep`` (a :class:`~repro_torch.core.shard_plan.ModelAxis`) this
+    is one rank of the seq-split expert-parallel path: ``p`` holds the
+    rank's experts, and the (E, C, D) buffer goes to their owners by a
+    tiled all-to-all and comes back by the reverse one."""
     t, d = x2d.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     act = _ACTS[cfg.act]
 
     probs, topw, tope = route(x2d, p["router"], k)            # (T, k)
-
-    # aux load-balance loss: frac_e is the share of the T·k assignments
-    experts = torch.arange(e, device=x2d.device)
-    frac = (tope[..., None] == experts).float().mean(dim=(0, 1))
-    aux = e * torch.sum(frac * probs.mean(dim=0))
+    aux = _aux(probs, tope, e)
 
     capacity = capacity_of(cfg, t)
     slot, keep = _slot_assignments(tope.reshape(-1), e, capacity)
+    buf = _dispatch(x2d, slot, keep, k, e * capacity).view(e, capacity, d)
 
-    # dispatch: row slot of the (E·C + 1, D) buffer; dropped assignments
-    # land in the last row, which is cut off
+    if ep is not None:
+        n = ep.size
+        e_loc = e // n
+        # tiled all-to-all: (E = n·E_loc, C, D) -> (E_loc, n·C, D)
+        buf = ep.all_to_all(buf.view(n, e_loc, capacity, d))
+        buf = buf.transpose(0, 1).reshape(e_loc, n * capacity, d)
+    out_buf = _experts(p, buf, act)
+    if ep is not None:
+        # reverse tiled all-to-all: (E_loc, n·C, D) -> (E, C, D)
+        out_buf = ep.all_to_all(
+            out_buf.view(e_loc, n, capacity, d).transpose(0, 1))
+    out = _combine(out_buf.reshape(e * capacity, d), slot, keep, topw, t, k)
+    return _with_shared(p, x2d, out, act), aux
+
+
+def _aux(probs: torch.Tensor, tope: torch.Tensor, e: int) -> torch.Tensor:
+    """The load-balance loss: frac_e is the share of the T·k assignments
+    routed to expert e."""
+    experts = torch.arange(e, device=probs.device)
+    frac = (tope[..., None] == experts).float().mean(dim=(0, 1))
+    return e * torch.sum(frac * probs.mean(dim=0))
+
+
+def _dispatch(x2d: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+              k: int, rows: int) -> torch.Tensor:
+    """Each token's k copies into their slots of a (rows, D) buffer; the
+    dropped assignments land in an extra last row, which is cut off."""
+    t, d = x2d.shape
     src = x2d[:, None].expand(t, k, d).reshape(t * k, d)      # (T·k, D)
-    buf = torch.zeros((e * capacity + 1, d), dtype=x2d.dtype,
-                      device=x2d.device)
-    buf.index_copy_(0, torch.where(keep, slot, e * capacity), src)
-    buf = buf[:e * capacity].view(e, capacity, d)
+    buf = torch.zeros((rows + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf.index_copy_(0, torch.where(keep, slot, rows), src)
+    return buf[:rows]
 
+
+def _experts(p, buf: torch.Tensor, act) -> torch.Tensor:
+    """The experts' gated MLPs over (E, C, D) capacity buffers."""
     h = act(torch.bmm(buf, p["wi_gate"])) * torch.bmm(buf, p["wi_up"])
-    out_buf = torch.bmm(h, p["wo"]).view(e * capacity, d)
+    return torch.bmm(h, p["wo"])
 
-    # un-dispatch: the block gather of each assignment's slot
+
+def _combine(out_buf: torch.Tensor, slot, keep, topw, t: int,
+             k: int) -> torch.Tensor:
+    """Un-dispatch (the block gather of each assignment's slot) and the
+    top-k weighted sum in the buffer's dtype."""
+    d = out_buf.shape[1]
     gathered = kops.block_gather(out_buf, slot.to(torch.int32))
     gathered = gathered.view(t * k, d)
     gathered = torch.where(keep[:, None], gathered, 0.0)
-    out = torch.sum(gathered.view(t, k, d) * topw[..., None].to(x2d.dtype),
-                    dim=1)
+    return torch.sum(gathered.view(t, k, d) *
+                     topw[..., None].to(out_buf.dtype), dim=1)
 
-    if "shared" in p:
-        sp = p["shared"]
-        out = out + (act(x2d @ sp["wi_gate"]) * (x2d @ sp["wi_up"])) \
-            @ sp["wo"]
+
+def _with_shared(p, x2d: torch.Tensor, out: torch.Tensor,
+                 act) -> torch.Tensor:
+    if "shared" not in p:
+        return out
+    sp = p["shared"]
+    return out + (act(x2d @ sp["wi_gate"]) * (x2d @ sp["wi_up"])) @ sp["wo"]
+
+
+def _replicated_token_ep(p, x2d: torch.Tensor, cfg: ModelConfig,
+                         ep) -> tuple:
+    """Decode-path expert parallelism: tokens too few to split over the
+    axis.  Every rank routes all (replicated) tokens, fills the capacity
+    buffer, runs only its own experts' block of it, and the blocks of
+    every rank are gathered into the (E·C, D) output buffer (module
+    docstring).  The single device's function."""
+    t, d = x2d.shape
+    e, k = cfg.num_experts, cfg.experts_per_tok
+    act = _ACTS[cfg.act]
+    e_loc = e // ep.size
+
+    probs, topw, tope = route(x2d, p["router"], k)
+    aux = _aux(probs, tope, e)
+    capacity = capacity_of(cfg, t)
+    slot, keep = _slot_assignments(tope.reshape(-1), e, capacity)
+    buf = _dispatch(x2d, slot, keep, k, e * capacity)
+    lo = ep.rank * e_loc * capacity
+    my = buf[lo:lo + e_loc * capacity].view(e_loc, capacity, d)
+    out_loc = _experts(p, my, act).reshape(e_loc * capacity, d)
+    out_buf = ep.gather(out_loc, 0)                           # (E·C, D)
+    out = _combine(out_buf, slot, keep, topw, t, k)
+    return _with_shared(p, x2d, out, act), aux
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+            ep_axis: Optional[str] = "model", data_axes: tuple = (), *,
+            reduce_aux: bool = True) -> tuple:
+    """x (B,S,D) -> ((B,S,D), aux).  With a ``mesh`` whose ``ep_axis`` is
+    wider than 1: expert parallel (module docstring) -- seq-split where S
+    divides by the axis size, replicated tokens otherwise; ``aux``
+    averaged over the axis and ``data_axes`` (wider than 1), unless
+    ``reduce_aux`` is False (a decode step, which discards it: the local
+    value is returned and no collective runs for it)."""
+    from ..core.shard_plan import model_axis, shard_count
+    b, s, d = x.shape
+    n = shard_count(mesh, ep_axis) if ep_axis is not None else 1
+    if n == 1:
+        out, aux = moe_ffn_local(p, x.reshape(-1, d), cfg)
+        return out.reshape(b, s, d), aux
+    if cfg.num_experts % n:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"the {ep_axis} axis of {n}")
+    ep = model_axis(mesh, ep_axis, x.device)
+    if s % n == 0 and s >= n:
+        blk = s // n
+        mine = x[:, ep.rank * blk:(ep.rank + 1) * blk].reshape(-1, d)
+        out, aux = moe_ffn_local(p, mine, cfg, ep=ep)
+        out = ep.gather(out.view(b, blk, d), 1)               # (B, S, D)
+    else:
+        out, aux = _replicated_token_ep(p, x.reshape(-1, d), cfg, ep)
+        out = out.view(b, s, d)
+    if reduce_aux:
+        aux = ep.mean(aux)
+        for ax in data_axes:
+            if shard_count(mesh, ax) > 1:
+                aux = model_axis(mesh, ax, x.device).mean(aux)
     return out, aux
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None) -> tuple:
-    """x (B,S,D) -> ((B,S,D), aux), single device.  ``mesh`` (the
-    reference's expert-parallel ``shard_map`` dispatch) raises: ROADMAP.md
-    Queue 1 item 6."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch (moe_ffn(mesh=...)) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 6)")
+def moe_ffn_ep_plain(p, x: torch.Tensor, cfg: ModelConfig,
+                     n: int) -> tuple:
+    """The function :func:`moe_ffn` computes over an expert-parallel axis
+    of ``n`` ranks, in one process on the full weights ``p``: where S
+    divides by n, each rank's block of the sequence routed with its own
+    capacity (the experts' owners change nothing but where the products
+    run), the blocks joined and the aux losses averaged; otherwise the
+    single device's :func:`moe_ffn_local`."""
     b, s, d = x.shape
-    out, aux = moe_ffn_local(p, x.reshape(-1, d), cfg)
-    return out.reshape(b, s, d), aux
+    if not (s % n == 0 and s >= n):
+        out, aux = moe_ffn_local(p, x.reshape(-1, d), cfg)
+        return out.reshape(b, s, d), aux
+    blk = s // n
+    outs, auxs = [], []
+    for r in range(n):
+        out, aux = moe_ffn_local(
+            p, x[:, r * blk:(r + 1) * blk].reshape(-1, d), cfg)
+        outs.append(out.view(b, blk, d))
+        auxs.append(aux)
+    return torch.cat(outs, dim=1), torch.stack(auxs).mean()

@@ -9,7 +9,7 @@ tensors keyed by parameter name.  The reference's functional ``update`` +
 ``apply_updates`` become one in-place step, :meth:`AdamW.apply_`, leaf by
 leaf, so a full-size model never holds a second copy of its parameters or
 moments.  ZeRO-1 sharding of the moments waits for the sharding item
-(ROADMAP.md, Queue 1 item 6).
+(ROADMAP.md, Queue 1 item 6c).
 """
 from __future__ import annotations
 

@@ -38,6 +38,16 @@ that resets the pipeline group and fails only the implicated requests.
 Each request ends in exactly one terminal ``status``: ``ok`` | ``shed`` |
 ``expired`` | ``failed``.
 
+**A sharded model.**  As in the reference, the mesh comes from the model
+(``lm.shard``, a :class:`~repro_torch.models.lm.ShardCtx`): the server of
+a tensor-parallel :class:`~repro_torch.models.lm.LM` runs on one rank, and
+every rank of the model axis runs its own server on the same requests in
+the same order -- each wave's collectives pair up, and the all-gathered
+logits give every rank the same tokens.  ``compile_stats["executor"]``
+then shows the vocab-sharded executor's ``shards``, ``exchange`` and
+``replicate_outputs``, and ``compile_stats["access_plans"]`` its plans.
+``pipeline=True`` over a mesh raises (ROADMAP.md, Queue 1 item 6d).
+
 **The compiled wave.**  The reference compiles the wave and the slot
 reset once, in ``__init__`` (``jax.jit(lm.wave_step)``,
 ``jax.jit(lm.reset_slots)``).  Here, for a model on a CUDA device, the
@@ -49,7 +59,12 @@ layer's decode builds its window mask on the device from the caches'
 ``len``, so its micro-step is captured like any other.  A capture that
 fails raises; nothing falls back to the eager wave.  A model whose ``device``
 is not a CUDA device (the CPU, or a stub with no ``device``) runs
-``lm.wave_step`` / ``lm.reset_slots`` eagerly.
+``lm.wave_step`` / ``lm.reset_slots`` eagerly, and so does a sharded model
+whose collectives are staged through host memory (gloo on the card, where
+several ranks share one card), which a CUDA graph cannot capture: the
+choice follows the group's backend, never an error, and
+``serve_stats["wave_graph"]`` / ``["wave_graph_why"]`` record it.  Under
+NCCL (one rank a card) the collectives are captured inside the graphs.
 
 **Data flow.**  Host bookkeeping is numpy, as in the reference.  A wave
 hands its ``tokens`` and ``lens`` to the wave (``self._wave``) as host
@@ -58,10 +73,10 @@ comes back once per wave, the loop's one synchronisation.
 
 Not ported yet: the disaggregated embedding tier (``service="disagg"``,
 ``service_pool``, ``degrade_policy``) and serving artifacts
-(``artifact_dir``) -- ROADMAP.md Queue 1 item 8 -- and a sharded model
-(``mesh``) -- Queue 1 item 6.  Each raises ``NotImplementedError``, as
-does an encoder-decoder model (:func:`refuse_encoder_decoder`), which the
-reference's server does not serve either.
+(``artifact_dir``) -- ROADMAP.md Queue 1 item 8.  Each raises
+``NotImplementedError``, as does an encoder-decoder model
+(:func:`refuse_encoder_decoder`), which the reference's server does not
+serve either.
 """
 from __future__ import annotations
 
@@ -206,7 +221,7 @@ class DecodeServer:
                  wave_retries: int = 1,
                  faults=None, service: str = "inproc",
                  service_pool=None, degrade_policy: str = "fail",
-                 artifact_dir=None, mesh=None):
+                 artifact_dir=None):
         if index_policy not in INDEX_POLICIES:
             raise ValueError(f"index_policy {index_policy!r} not in "
                              f"{INDEX_POLICIES}")
@@ -216,9 +231,12 @@ class DecodeServer:
                               "service_pool=, degrade_policy=)", 8)
         if artifact_dir is not None:
             raise _not_ported("the serving artifact (artifact_dir=)", 8)
-        if mesh is not None:
-            raise _not_ported("a sharded model (mesh=)", 6)
         refuse_encoder_decoder(getattr(lm, "cfg", None))
+        tp = getattr(lm, "tp", None)
+        if pipeline and tp is not None:
+            raise NotImplementedError(
+                "the serving pipeline (pipeline=True) of a sharded model is "
+                "not ported yet (ROADMAP.md, Queue 1 item 6d)")
         self.lm = lm
         self.slots = batch_slots
         self.max_len = max_len
@@ -254,7 +272,9 @@ class DecodeServer:
         self.caches = lm.init_caches(batch_slots, max_len)
         # the compiled wave and slot reset (the reference's two jax.jit):
         # CUDA graphs bound to these caches on the card, else the LM's own
-        if torch.device(getattr(lm, "device", "cpu")).type == "cuda":
+        on_card = torch.device(getattr(lm, "device", "cpu")).type == "cuda"
+        staged = tp is not None and tp.staged
+        if on_card and not staged:
             graph = WaveGraph(lm, self.caches)
             self._wave, self._reset = graph, graph.reset_slots
         else:
@@ -266,7 +286,11 @@ class DecodeServer:
                             "shed": 0, "expired": 0, "failed": 0,
                             "oob_prompt_tokens": 0, "wave_faults": 0,
                             "wave_retries": 0, "watchdog_timeouts": 0,
-                            "capacity_rps_live": None}
+                            "capacity_rps_live": None,
+                            "wave_graph": on_card and not staged,
+                            "wave_graph_why": (
+                                "gloo" if on_card and staged else
+                                "cuda" if on_card else "not on the card")}
         # Ember steady-state path: the decode step's irregular lookups
         # compile once per (slots, 1) signature, and the executor's
         # marshaling cache is memoized alongside.
@@ -312,6 +336,13 @@ class DecodeServer:
         s["executor_cache"] = self._emb_exec.executor_cache_stats()
         s["executor"] = dict(self.emb_executor.stats)
         s["executor"]["backend"] = self.emb_executor.backend
+        s["executor"]["shards"] = self.emb_executor.shards
+        # which exchange moves the index streams and whether pooled
+        # outputs are reduce-scattered or replicated
+        s["executor"]["exchange"] = self.emb_executor.exchange
+        s["executor"]["replicate_outputs"] = \
+            self.emb_executor.replicate_outputs
+        s["access_plans"] = self.emb_executor.access_plan_stats()
         if self.pipeline_group is not None:
             s["pipeline_group"] = self.pipeline_group.group_stats()
         return s

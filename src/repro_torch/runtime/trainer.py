@@ -29,7 +29,7 @@ them from it.  ``TrainerConfig.ckpt_dir`` has no default (the
 reference's is ``/tmp/repro_ckpt``): a trainer resumes from whatever it
 finds there, so two runs must not share one by accident.
 ``in_shardings`` (GSPMD) waits for the sharding item
-(ROADMAP.md, Queue 1 item 6).
+(ROADMAP.md, Queue 1 item 6c).
 
 The supervisor (:func:`run_supervised`) is the single-process stand-in for
 the cluster controller: it builds a fresh trainer and restarts the loop
@@ -70,7 +70,7 @@ class Trainer:
         if in_shardings is not None:
             raise NotImplementedError(
                 "in_shardings (a sharded train step) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6)")
+                "(ROADMAP.md, Queue 1 item 6c)")
         if tcfg.ckpt_dir is None:
             raise ValueError(
                 "TrainerConfig.ckpt_dir is required: the trainer resumes "

@@ -1482,13 +1482,39 @@ def test_mla_lm_prefill_with_the_kernel_matches_plain(cuda):
     heads of q/k 192, v 128; d_model 512, 8 experts): every layer's flash
     output agrees with the plain version on that layer's own q, k, v
     (check_bf16), and the last hidden state with a prefill through plain
-    attention (5e-2 relative L2: bf16 steps amplified by two layers)."""
+    attention (5e-2 relative L2: bf16 steps amplified by two layers).  The
+    plain prefill's MoE routing is pinned to the kernel prefill's (each
+    layer's top-k experts, weighted by the plain prefill's own
+    probabilities), as chip_smoke.py's phase 9 pins it: a bf16 step of
+    attention flips near-tie routing decisions of random weights
+    (ROADMAP.md, reference caveat (d)), and a flipped expert moves the
+    hidden state past any bf16 bound.  The tokens come from a seeded
+    generator."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.lm import LM
     cfg = _moe_cfg(d_model=512, num_heads=4, num_kv_heads=4, head_dim=128,
                    rope_head_dim=64, kv_lora_rank=64, moe_d_ff=256,
                    attn_chunk=128, dtype="bfloat16")
     model = LM(cfg, seed=0)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1480)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=gen)
+    route = moe_mod.route
+    routing = []
+
+    def recorded(x2d, router, k):
+        probs, topw, tope = route(x2d, router, k)
+        routing.append(tope)
+        return probs, topw, tope
+
+    def pinned(x2d, router, k):
+        probs, _, _ = route(x2d, router, k)
+        tope = routing[pinned.layer]
+        pinned.layer += 1
+        topw = probs.gather(-1, tope)
+        return probs, topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), \
+            tope
+    pinned.layer = 0
     checked = []
 
     def held(q, k, v, **kw):
@@ -1499,12 +1525,19 @@ def test_mla_lm_prefill_with_the_kernel_matches_plain(cuda):
                                   f"layer {len(checked)}"))
         return out
     kops.reset_launch_counts()
-    with _attention_through(held):
-        last = model.prefill(tokens)
-    assert len(checked) == 2 and kops.launch_counts()["flash_attention"] == 2
-    assert kops.launch_counts()["block_gather"] == 2
-    with _attention_through(_plain_over_kernel_tiles):
-        plain = model.prefill(tokens)
+    try:
+        moe_mod.route = recorded
+        with _attention_through(held):
+            last = model.prefill(tokens)
+        assert len(checked) == 2 and \
+            kops.launch_counts()["flash_attention"] == 2
+        assert kops.launch_counts()["block_gather"] == 2
+        moe_mod.route = pinned
+        with _attention_through(_plain_over_kernel_tiles):
+            plain = model.prefill(tokens)
+    finally:
+        moe_mod.route = route
+    assert len(routing) == pinned.layer == 2
     rel = float((last.float() - plain.float()).norm() / plain.float().norm())
     assert rel <= 5e-2, rel
 
@@ -2153,3 +2186,100 @@ def test_two_gloo_ranks_share_the_card(cuda):
                 r["launches"]["block_gather"] > 0, (tag, r)
             if tag.startswith("collective"):
                 assert r["transposes"] > 0, (tag, r)
+
+
+def _masked_lookup_ranks(rank: int, world: int) -> dict:
+    """Two gloo ranks sharing cuda:0, each holding half the rows of a bf16
+    table, run the three vocab-sharded lookup strategies; the masked ones
+    gather through the block gather kernel."""
+    from repro_torch.core import embedding_engine as ee
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(world)
+    table, ids = _lookup_case()
+    rows = table.shape[0] // world
+    local = table[rank * rows:(rank + 1) * rows].to("cuda")
+    ids = ids.to("cuda")
+    out = {}
+    for s in ("masked_psum", "masked_psum_scatter", "one_hot"):
+        before = kops.launch_counts()["block_gather"]
+        got = ee.lookup(local, ids, mesh=mesh, vocab_axis="model",
+                        strategy=s)
+        out[s] = (got.float().cpu().numpy(),
+                  kops.launch_counts()["block_gather"] - before)
+    return out
+
+
+def _lookup_case():
+    rng = np.random.default_rng(29)
+    table = torch.from_numpy(rng.standard_normal((1024, 128))
+                             .astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(0, 1024, (2, 64)))
+    return table, ids
+
+
+def test_masked_lookup_on_two_gloo_ranks_matches_the_cpu(cuda):
+    """The vocab-sharded lookups on the card equal the CPU's
+    ``index_select`` bit for bit on both ranks (a row's one owner adds
+    exact zeros from the other); the masked strategies launch the block
+    gather once each."""
+    from repro_torch.launch.mesh import run_ranks
+    table, ids = _lookup_case()
+    want = table[ids].float().numpy()
+    for rank, res in enumerate(run_ranks(_masked_lookup_ranks, 2,
+                                         timeout_s=300)):
+        for s, (got, launches) in res.items():
+            w = want[:, rank * 32:(rank + 1) * 32] \
+                if s == "masked_psum_scatter" else want
+            np.testing.assert_array_equal(got, w, err_msg=f"{s} {rank}")
+            assert launches == (0 if s == "one_hot" else 1), s
+
+
+def _tp_cfg():
+    """chatglm3-6b's widths (32 heads of 128 over 2 KV heads, d_ff 13696,
+    vocab 65024, bf16) at two layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("chatglm3-6b"), num_layers=2)
+
+
+def _tp_forward_ranks(rank: int, world: int) -> dict:
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(world)
+    model = LM(_tp_cfg(), seed=0, shard=ShardCtx(mesh))
+    kops.reset_launch_counts()
+    last = model.prefill(_tp_tokens().to("cuda"))
+    return {"last": last.float().cpu().numpy(),
+            "flash": kops.launch_counts()["flash_attention"],
+            "gather": kops.launch_counts()["block_gather"],
+            "collectives": model.collective_stats["collectives"]}
+
+
+def _tp_tokens():
+    return torch.from_numpy(np.random.default_rng(31).integers(
+        0, 65024, (2, 128)))
+
+
+def test_two_layer_chatglm3_width_tp_forward_matches_the_single_device(cuda):
+    """Two gloo ranks on the card each run half the heads and half the MLP
+    of a two-layer chatglm3-6b-width model (one KV head a rank: GQA at 16
+    query heads a KV head); the last hidden state equals the single
+    device's within 5e-2 relative L2 (bf16) on both ranks, the ranks
+    agree bit for bit, and each rank launched the flash kernel once a
+    layer and the block gather once (the masked embed lookup)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.lm import LM
+    model = LM(_tp_cfg(), seed=0)
+    want = model.prefill(_tp_tokens().to(cuda)).float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    res = run_ranks(_tp_forward_ranks, 2, timeout_s=600)
+    np.testing.assert_array_equal(res[0]["last"], res[1]["last"])
+    for r in res:
+        got = torch.from_numpy(r["last"])
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 5e-2, rel
+        assert r["flash"] == 2 and r["gather"] == 1
+        # the embed lookup, and a row-parallel sum after each attention and MLP
+        assert r["collectives"] == 1 + 2 * 2

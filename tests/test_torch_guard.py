@@ -285,3 +285,67 @@ def test_make_host_mesh_does_not_fall_back_to_the_cpu(monkeypatch):
         make_host_mesh(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_host_mesh(2, device="cuda")
+
+
+_TP_RANK_MODULE = '''
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+
+
+def rank_main(rank, world):
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.models.moe import moe_ffn_ep_plain
+    from repro_torch.runtime.server import DecodeServer, Request
+    mesh = make_host_mesh(world, device="cpu")
+    out = {}
+    for arch in ("chatglm3-6b", "qwen3-moe-235b-a22b"):
+        lm = LM(get_reduced(arch), device="cpu", seed=3,
+                shard=ShardCtx(mesh))
+        assert sharding.param_specs(lm)["embed"] == ("model", None)
+        last = lm.prefill(torch.arange(8).reshape(1, 8))
+        srv = DecodeServer(lm, batch_slots=2, max_len=16, prefill_chunk=4)
+        req = Request(prompt=np.arange(5, dtype=np.int32), max_new_tokens=3)
+        srv.submit(req)
+        srv.run_until_drained()
+        assert req.status == "ok"
+        assert srv.compile_stats["executor"]["shards"] == 2
+        out[arch] = (last.numpy().copy(), list(req.out))
+    assert callable(moe_ffn_ep_plain)
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                   if sys.modules[m] is not None)
+    return out
+'''
+
+
+def test_tensor_parallel_modules_stand_alone(tmp_path):
+    """``launch.sharding``, the sharded LM, expert parallelism and the
+    server over a sharded model import and run on two gloo ranks with JAX
+    and the JAX package unimportable (in the ranks and their parent)."""
+    (tmp_path / "tp_guard_rank.py").write_text(_TP_RANK_MODULE)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import tp_guard_rank
+        from repro_torch.launch.mesh import run_ranks
+        if __name__ == "__main__":
+            r0, r1 = run_ranks(tp_guard_rank.rank_main, 2, timeout_s=240)
+            for arch in r0:
+                np.testing.assert_array_equal(r0[arch][0], r1[arch][0])
+                assert r0[arch][1] == r1[arch][1]
+                assert np.isfinite(r0[arch][0]).all()
+            print("TP-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": f"{REPO / 'src'}:{tmp_path}",
+                            "PATH": "/usr/bin:/bin"})
+    assert "TP-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]

@@ -15,6 +15,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -160,8 +162,13 @@ def test_moe_ffn_matches_the_reference_and_refuses_a_mesh(arch):
     assert got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     np.testing.assert_allclose(float(aux), float(waux), **F32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmoe.moe_ffn(tp, torch.from_numpy(x), cfg, mesh=object())
+    # a mesh whose model axis the experts do not split over is refused
+    # before any collective (expert parallelism itself:
+    # tests/test_torch_tensor_parallel.py)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 3))
+    with pytest.raises(ValueError, match="do not split"):
+        tmoe.moe_ffn(tp, torch.from_numpy(x), cfg, mesh=mesh)
 
 
 def test_undispatch_program_is_the_references():

@@ -925,22 +925,25 @@ def test_server_feeds_the_decode_embed_pipeline():
 
 @pytest.mark.parametrize("kw,item", [
     ({"service": "disagg"}, 8), ({"service_pool": object()}, 8),
-    ({"degrade_policy": "stale"}, 8), ({"artifact_dir": "x"}, 8),
-    ({"mesh": object()}, 6)])
+    ({"degrade_policy": "stale"}, 8), ({"artifact_dir": "x"}, 8)])
 def test_knobs_not_ported_raise_with_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         DecodeServer(EchoLM(), batch_slots=1, **kw)
 
 
 def test_embedding_executor_is_single_device_only():
+    """An LM without a mesh gets the single-device executor, whatever
+    ``mesh`` it names (a sharded LM's: tests/test_torch_tensor_parallel.py;
+    a mesh is no longer a server argument: it comes from the model)."""
     lm = LM(get_reduced("chatglm3-6b"), device="cpu")
     ex = lm.embedding_executor(4, 1)
     assert ex.device == torch.device("cpu") and ex.backend == "cuda"
+    assert ex.shards == 1 and lm.embedding_executor(4, 1, mesh=None) is ex
     assert lm.compile_embeddings(4, 1).program.signature() == \
         lm.embedding_program(4, 1).signature()
     assert set(lm.embedding_table_inputs()) == {"tok_embed", "label_gather"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        lm.embedding_executor(4, 1, mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
+        DecodeServer(lm, batch_slots=1, mesh=object())
 
 
 def test_faults_module_is_the_references_copy():
