@@ -9,6 +9,7 @@
     python3 chip_smoke.py --xlstm-only [--seed N]      # phase 16 alone
     python3 chip_smoke.py --sharded-only [--seed N]    # phases 4, 5, 17
     python3 chip_smoke.py --tp-only [--seed N]         # phase 18 alone
+    python3 chip_smoke.py --mp-train-only [--seed N]   # phase 19 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -246,7 +247,8 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    eager bit for bit over the prompts' first quarters, every cache leaf),
    a captured micro-step against its bound (the weights read once and
    the recurrent caches read and written once).  Training: the Trainer
-   on 1 x 1024 tokens, 2 steps, twice from one seed, losses and
+   on 1 x 512 tokens, 24 of the 48 layers, 2 steps, twice from one seed,
+   losses and
    parameters bit-equal, one
    transposition and one sparse ``ember_sls`` launch a step, a nonzero
    gradient for every parameter.  Forward == decode: the chunked
@@ -298,7 +300,29 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    that differ unpinned counted.  Printed per rank: prefill and
    micro-step ms, collectives and staged MB, peak GiB, beside the card;
    and the ``[18 tp predicted]`` block written before the first run;
-19. one JSON line listing the kernels with the kernel (variant) that
+19. model-parallel training (``phase_mp_train``; ``--mp-train-only`` runs
+   phases 1, 2 and 19): (a) h2o-danube-1.8b at full width and depth over
+   two gloo ranks (mesh (1, 2)) sharing the card, each building its half
+   of ``LM(cfg, seed)``, MP_STEPS trainer steps of 1 x TRAIN_SEQ tokens
+   (phase 13's shape): step 0's loss against the single device's on the
+   same batch (MP_LOSS_REL), the gradients of MP_GRAD_LEAVES (the ranks'
+   slices joined) within TRAIN_GRAD_REL_L2 of the single device's, the
+   ranks' losses bit-equal, the flash backward all ``wgmma`` and the
+   gather backward ``sparse``; on rank 0 the flash forward and backward
+   at a rank's shapes (16 query heads over 4 KV heads) and the masked
+   lookup's gather and its backward on the rank's 16,000 rows held to
+   their plain versions and timed beside their bounds, SDPA's backward
+   and ``index_add_``.  (b) its widths at MP_LAYERS layers over four
+   ranks (mesh (2, 2), ZeRO-1 ``in_shardings``), global batch MP_BATCH x
+   MP_SEQ, under ``run_supervised`` (a sharded checkpoint every
+   MP_SUP_EVERY steps, a failure at MP_SUP_FAIL): the restart's step-2
+   loss bit-equal to the first attempt's, the 4-rank checkpoint restored
+   onto one device equal to the ranks' joined state leaf for leaf, and
+   with ``shardings=`` onto a (1, 2) mesh each rank's slice.  Printed:
+   step ms, collectives, staged MB and their ms a step, peak GiB a rank,
+   launches by kernel and variant, beside the card; and the ``[19 mp
+   predicted]`` block written before the first run;
+20. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -316,7 +340,11 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``gather_transpose`` (counted in ``launches`` too); phase 18's as
    ``tp_launches`` of ``flash_attention`` and ``block_gather`` (counted in
    ``launches`` too), with the flash kernel's time at the rank's shapes;
-20. ``{"ok": true, "device": {...}}`` as the last line.
+   phase 19's as ``mp_launches`` of ``flash_attention``,
+   ``flash_attention_bwd``, ``block_gather``, ``gather_transpose`` and
+   ``sls_sparse`` (counted in ``launches`` too), with the flash backward's
+   and the gather backward's times at a rank's shapes;
+21. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -374,7 +402,9 @@ SHARDED_REL_L2 = 2e-5
 TP_PREFILL = (2, 512)
 TP_SLOTS, TP_MAX_LEN = 4, 128
 TP_TF_PROMPT, TP_TF_STEPS = 8, 16
-TP_REQUESTS, TP_PROMPT_MIN, TP_PROMPT_MAX, TP_NEW_TOKENS = 4, 64, 96, 16
+# (8 new tokens a request: 16 took ~20 s of eager, host-bound waves, cut
+# so that phase 19 fits the script's time)
+TP_REQUESTS, TP_PROMPT_MIN, TP_PROMPT_MAX, TP_NEW_TOKENS = 4, 64, 96, 8
 TP_MOE_LAYERS, TP_MOE_PREFILL, TP_MOE_DECODE = 2, (1, 256), 4
 TP_REL_L2 = 5e-2
 # written before the first run on the card (PERF.md, its tensor-parallel
@@ -390,6 +420,34 @@ TP_PREDICTED = {"chatglm3 2x512 prefill": "~1,000-2,000 ms (collectives "
                 "qwen3-moe micro-step": "~10-30 ms",
                 "prefill relative L2": "~5e-3 (fp32 row-parallel sums)",
                 "peak a rank": "~7 GiB chatglm3, ~8 GiB qwen3-moe"}
+# model-parallel training: (a) h2o-danube-1.8b at full width and all 24
+# layers over two ranks (mesh (1, 2)), MP_STEPS steps of 1 x TRAIN_SEQ;
+# (b) its widths at MP_LAYERS layers over four ranks (mesh (2, 2), ZeRO-1),
+# a global batch of MP_BATCH x MP_SEQ, MP_SUP_STEPS steps under
+# run_supervised, a checkpoint every MP_SUP_EVERY, a failure at MP_SUP_FAIL
+# (the restart resumes from step 1 and reruns step 2)
+MP_STEPS = 2
+MP_LAYERS, MP_BATCH, MP_SEQ = 2, 2, 2048
+MP_SUP_STEPS, MP_SUP_EVERY, MP_SUP_FAIL = 4, 2, 3
+# step 0's loss against the single device's (relative): bf16 over 24
+# layers, the ranks' fp32 partial sums rounded once where the single
+# device's GEMM rounds once
+MP_LOSS_REL = 1e-2
+MP_GRAD_LEAVES = ("embed", "final_norm") + tuple(
+    f"blocks.{li}.{n}" for li in (0, 23)
+    for n in ("norm1", "attn.wq", "attn.wo", "mlp.wi_gate"))
+# written before the first run on the card (PERF.md, the model-parallel
+# training findings): a step of (a) stages 24 layers x 4 fp32 all-reduces
+# of 84 MB (the two row-parallel sums forward, the two entries' gradients
+# backward) plus the lookup and the loss's dx, ~8.2 GB of payload at the
+# ~1.6 ms a MB the tensor-parallel prefill's staged collectives took
+MP_PREDICTED = {"danube 1x8192 step over 2 ranks": "~10-15 s, > 90 % in "
+                                                   "staged collectives",
+                "staged payload a step": "~8.2 GB",
+                "peak a rank": "~18-28 GiB",
+                "step-0 loss vs the single device": "~1e-3 relative",
+                "gradients vs the single device": "~1e-2 relative L2",
+                "2-layer (2, 2) ZeRO-1 step (2 x 2048)": "~1-2 s"}
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -609,17 +667,20 @@ ZAMBA_FWD_DECODE_REL_L2 = 2e-2
 # tokens (pick_chunk(320, 256) = 64, so the forward's two chunk paths both
 # run) and 32 new tokens each, closed batch (the lockstep: as phase 15's,
 # LOCKSTEP_NEW_TOKENS); trained on
-# 1 x 1024 tokens a step, lr TRAIN_LR, 2 steps, twice from one seed (a
+# 1 x 512 tokens a step, lr TRAIN_LR, 2 steps, twice from one seed (a
 # 2048-token step took ~40 s, nearly all of it the host issuing the sLSTM
-# loop's forward and backward, and with phase 17 the script neared its
-# 20 minutes: 1024 tokens halve the loop).  The sLSTM layers are profiled over a window of
+# loop's forward and backward; with phase 17 the script neared its 20
+# minutes and 1024 tokens halved the loop; for phase 19 the steps take
+# 512 tokens and XLSTM_TRAIN_LAYERS of the 48 layers, a quarter of the
+# loop again: its length and the sLSTM layers' count set the step's
+# time, the widths are whole).  The sLSTM layers are profiled over a window of
 # XLSTM_WINDOW steps and scaled to the whole loop: every step issues the
 # same kernels, and a whole layer's ~100,000 kernels take minutes to read
 # under the profiler
 XLSTM_BLOCK_SEQ, XLSTM_BLOCK_DECODE = 512, 16
 XLSTM_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
 XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 1024, 2
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_LAYERS = 512, 2, 24
 XLSTM_WINDOW = 256
 # the first super-block on the card against the CPU in fp32: the relative
 # L2 of the hidden states, of each decode step's logits and of every cache
@@ -6249,14 +6310,14 @@ def _xlstm_fp32(seed: int, prompts) -> dict:
 
 
 def _xlstm_training(seed: int, card: str) -> dict:
-    """xlstm-1.3b trained at full width through the Trainer: 1 x
-    XLSTM_TRAIN_SEQ tokens a step, lr TRAIN_LR, XLSTM_TRAIN_STEPS steps,
+    """xlstm-1.3b trained at full width and XLSTM_TRAIN_LAYERS of its 48
+    layers through the Trainer: 1 x XLSTM_TRAIN_SEQ tokens a step, lr TRAIN_LR, XLSTM_TRAIN_STEPS steps,
     twice from one seed, its checkpoint save a no-op (phase 13 covers
     checkpoints).  Checked: every loss finite, the two runs' losses and
     final parameters bit-equal, no flash launch, one transposition and one
     sparse ember_sls launch a step (the token embedding's backward), a
     nonzero gradient for every parameter in the first step (read by a hook
-    as each gradient lands: a step takes ~40 s, so none is run for the
+    as each gradient lands: a step takes seconds, so none is run for the
     check alone).  Printed: step ms, tokens/s, peak memory; one mlstm
     layer's forward and backward at the step's shapes and one slstm
     layer's over XLSTM_WINDOW positions, scaled, under torch.profiler (the
@@ -6268,7 +6329,8 @@ def _xlstm_training(seed: int, card: str) -> dict:
     from repro_torch.kernels import ops as kops
     from repro_torch.models.lm import LM, layer_kinds
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              num_layers=XLSTM_TRAIN_LAYERS)
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=XLSTM_TRAIN_SEQ,
                                       global_batch=1))
@@ -6368,7 +6430,8 @@ def _xlstm_training(seed: int, card: str) -> dict:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     free_cuda()
     mean_ms = float(np.mean(first_ms[1:steps]))
-    print(f"[16 xlstm training] xlstm-1.3b trained at full width (bf16, 1 x "
+    print(f"[16 xlstm training] xlstm-1.3b trained at full width and "
+          f"{cfg.num_layers} of its 48 layers (bf16, 1 x "
           f"{XLSTM_TRAIN_SEQ} tokens a step, lr {TRAIN_LR}, {steps} steps, "
           f"twice from seed {seed}): losses {[round(v, 4) for v in losses]},"
           f" the second run's and all {n_params} parameters after it "
@@ -7055,6 +7118,561 @@ def _free_after_tp(before: int) -> None:
             f"{(held - before) / 2**30:.2f} GiB allocated")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: model-parallel training over gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+def _host_f32(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _mp_counts(kops) -> dict:
+    """The launches this process made since the last reset, by kernel and
+    variant, for the main path's check."""
+    fwd, bwd = kops.launch_counts(), kops.backward_launch_counts()
+    var = kops.variant_launch_counts()
+    return {"flash": fwd["flash_attention"], "gather": fwd["block_gather"],
+            "flash_bwd": bwd["flash_attention_bwd"],
+            "gather_bwd": bwd["block_gather_bwd"],
+            "transpose": bwd["gather_transpose"],
+            "bwd_variants": dict(var["flash_attention_bwd"]),
+            "sls_variants": dict(var["sls"]),
+            "instances": dict(kops.flash_attention_cuda.instances),
+            "bwd_instances": dict(kops.flash_attention_bwd_cuda.instances)}
+
+
+def _mp_rank_kernels(lm, tokens, window: int) -> dict:
+    """Rank 0's kernel checks and times at a rank's shapes (its heads, its
+    vocab rows): the flash forward and backward (random bf16 q, k, v, dO
+    of layer shape) held to their plain versions, timed beside the bound,
+    the plain backward and SDPA's; the masked lookup's block gather held
+    to the plain gather; its backward on the rank's rows
+    (``_gather_backward_parts``: the transposition and the sparse sum held
+    to theirs, timed beside ``index_add_``)."""
+    import torch
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.flash_attention import plain_backward
+    cfg, dev = lm.cfg, lm.device
+    h, hkv = (lm.blocks[0].attn["wq"].shape[1] // cfg.hd,
+              lm.blocks[0].attn["wk"].shape[1] // cfg.hd)
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn((1, tokens.shape[1], n, cfg.hd), generator=g,
+                               device=dev).bfloat16()
+                   for n in (h, hkv, hkv, h))
+    chk = _check_flash_backward(q, k, v, do, window, "a rank's layer flash "
+                                "backward")
+    o, lse = chk["o"], chk["lse"]
+    ms = time_ms(lambda: kops.flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, window=window), 20, warmup=2)
+    plain_ms = time_ms(lambda: plain_backward(q, k, v, o, do, lse,
+                                              window=window), 1, warmup=1)
+    sdpa = _sdpa_backward_ms(q, k, v, do, window)
+    bound_ms, bound_by, flops = _flash_bwd_bound(q, v, window)
+    table = lm.embed.detach()
+    v_local = table.shape[0]
+    local = tokens.reshape(-1).long() - lm.tp.rank * v_local
+    idx = local.clamp(0, v_local - 1).to(torch.int32)
+    got = kops.block_gather_cuda(table, idx)
+    require(torch.equal(got, ref.block_gather(table, idx)),
+            "a rank's masked lookup gather != the plain gather")
+    emb = _gather_backward_parts(
+        torch.randn((idx.numel(), 1, cfg.d_model), generator=g,
+                    device=dev).bfloat16(), idx, v_local, 10)
+    return {"flash_bwd_ms": ms, "flash_bwd_plain_ms": plain_ms,
+            "flash_bwd_sdpa": sdpa, "flash_bwd_bound_ms": bound_ms,
+            "flash_bwd_bound_by": bound_by, "flash_bwd_flops": flops,
+            "flash_bwd_agreement": chk["agreement"],
+            "flash_bwd_max_abs_err": chk["max_abs_err"],
+            "flash_shape": (tuple(q.shape), tuple(k.shape)),
+            "gather_backward": emb}
+
+
+def _mp_rank_a(rank: int, world: int, job: dict) -> dict:
+    """Phase 19(a) on one rank: its half of h2o-danube-1.8b, MP_STEPS
+    trainer steps (``Trainer.loss_and_grads`` then ``AdamW.apply_``, the
+    trainer's ``_train_step``) counted and timed, step 0's gradients of
+    MP_GRAD_LEAVES kept; then (rank 0, the other rank waiting) the kernel
+    checks at a rank's shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    marks = [("start", time.time())]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(world)
+    cfg = get_config("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=job["seed"], shard=ShardCtx(mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ, global_batch=1))
+    tr = Trainer(lm, data, TrainerConfig(total_steps=MP_STEPS,
+                                         ckpt_dir=job["ckpt"], lr=TRAIN_LR))
+    state = tr.init_state()
+    marks.append(("init", time.time()))
+    stats = lm.collective_stats
+    out = {"steps": [], "init_s": init_s,
+           "held_bytes": sum(p.numel() * p.element_size()
+                             for p in lm.parameters())}
+    kops.reset_launch_counts()
+    for step in range(MP_STEPS):
+        batch = tr._batch(step)
+        c0 = dict(stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads(state["params"], batch)
+        state["opt"] = tr.opt.apply_(state["params"], grads, state["opt"],
+                                     tr.shards)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["steps"].append({"loss": float(loss), "ms": ms,
+                             "coll": _tp_collectives(stats, c0)})
+        if step == 0:
+            out["grads"] = {k: _host_f32(grads[k]) for k in MP_GRAD_LEAVES}
+        del grads, loss
+    out["counts"] = _mp_counts(kops)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    marks.append(("steps", time.time()))
+    dist.barrier()
+    if rank == 0:
+        out["kernels"] = _mp_rank_kernels(lm, tr._batch(0)["tokens"],
+                                          cfg.sliding_window)
+    dist.barrier()
+    marks.append(("kernels", time.time()))
+    out["marks"] = marks
+    return out
+
+
+class _Attempts:
+    """A Trainer subclass's record of each attempt's (step, loss)."""
+
+    def __init__(self):
+        self.runs: list = []
+
+    def trainer(self, base):
+        rec = self
+
+        class Recorded(base):
+            def run(self, **kw):
+                attempt = []
+                rec.runs.append(attempt)
+                return super().run(on_step=lambda s, l: attempt.append(
+                    (s, l)), **kw)
+        return Recorded
+
+
+def _digest(t) -> str:
+    """The sha1 of a tensor's bytes (on the host)."""
+    import torch
+    return hashlib.sha1(t.detach().cpu().contiguous().view(torch.uint8)
+                        .numpy()).hexdigest()
+
+
+def _mp_rank_b(rank: int, world: int, job: dict) -> dict:
+    """Phase 19(b) on one rank of the (2, 2) mesh: the 2-layer model's
+    supervised run with ZeRO-1 ``in_shardings`` and sharded checkpoints,
+    then the checks of the final checkpoint against every rank's slices
+    (:func:`_mp_rank_restores`, their digests all-gathered); its attempts'
+    losses, launches, the digest of every slice it holds and its place on
+    the mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import mesh_index, train_specs
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             run_supervised)
+    marks = [("start", time.time())]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(2)
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              num_layers=MP_LAYERS)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=MP_SEQ,
+                                      global_batch=MP_BATCH))
+    specs = train_specs(cfg, mesh, MP_BATCH, MP_SEQ, zero1=True)
+    rec = _Attempts()
+    made = []
+
+    def make():
+        made.clear()
+        made.append(rec.trainer(Trainer)(
+            LM(cfg, seed=job["seed"], shard=ShardCtx(mesh)), data,
+            TrainerConfig(total_steps=MP_SUP_STEPS, ckpt_every=MP_SUP_EVERY,
+                          ckpt_dir=job["ckpt"], lr=TRAIN_LR),
+            in_shardings=specs))
+        return made[0]
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    marks.append(("mesh", time.time()))
+    out = run_supervised(make, failure_schedule={MP_SUP_FAIL})
+    torch.cuda.synchronize()
+    marks.append(("run", time.time()))
+    counts = _mp_counts(kops)
+    st = out["state"]
+    held = {"params": st["params"], "mu": st["opt"].mu, "nu": st["opt"].nu}
+    digest = {f"{w}/{k}": _digest(t)
+              for w, tree in held.items() for k, t in tree.items()}
+    everyone: list = [None] * world
+    dist.all_gather_object(everyone, (mesh_index(mesh), digest))
+    checks = _mp_rank_restores(rank, everyone, int(st["opt"].step), cfg,
+                               specs, job["ckpt"])
+    marks.append(("checks", time.time()))
+    return {"attempts": rec.runs, "restarts": out["restarts"],
+            "wall_s": marks[2][1] - marks[1][1], "counts": counts,
+            "peak": torch.cuda.max_memory_allocated(),
+            "index": mesh_index(mesh),
+            "zero1": sorted(made[0].shards.zero1),
+            "coll": dict(made[0].lm.collective_stats), "digest": digest,
+            "checks": checks, "marks": marks}
+
+
+def _mp_rank_restores(rank: int, everyone: list, step: int, cfg,
+                      specs: tuple, ckpt: str) -> dict:
+    """Checks of the (2, 2) run's last checkpoint against every rank's
+    slices (``everyone``: each rank's mesh index and digests, in rank
+    order).  Rank 0 restores it onto one device (no ``shardings``): every
+    rank's block of every leaf (by its param or ZeRO-1 spec) has that
+    rank's digest.  Ranks 0 and 1 (data coordinate 0) restore it with
+    ``shardings=`` onto the (1, 2) rank at their model coordinate (the
+    params' specs, no ZeRO-1): every leaf has the digest of the slice the
+    rank holds, a ZeRO-1 moment's data blocks those of the data ranks at
+    its model coordinate.  The other ranks check nothing here."""
+    import torch
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.convert import (train_state_from_reference,
+                                     train_state_to_reference)
+    from repro_torch.launch.sharding import local_shard, train_specs
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWState
+    p_specs, o_specs, _ = specs
+    sizes = {"data": 2, "model": 2}
+    meta = {k: t.detach() for k, t in
+            LM(cfg, device="meta").named_parameters()}
+
+    def state_like(params):
+        return {"params": params, "opt": AdamWState(
+            torch.empty((), dtype=torch.int32, device="meta"),
+            *({k: torch.empty(t.shape, device="meta")
+               for k, t in params.items()} for _ in range(2))), "ef": None}
+
+    def leaves(state):
+        return (("params", state["params"]), ("mu", state["opt"].mu),
+                ("nu", state["opt"].nu))
+    out = {}
+    if rank == 0:
+        tree, got_step = restore_checkpoint(ckpt, train_state_to_reference(
+            state_like(meta), cfg))
+        full = train_state_from_reference(tree, cfg, "cpu")
+        ok = [got_step == MP_SUP_STEPS - 1, int(full["opt"].step) == step]
+        for w, got in leaves(full):
+            spec = p_specs if w == "params" else o_specs.mu
+            for k, t in got.items():
+                ok += [_digest(local_shard(t, spec[k], sizes, index)) ==
+                       dig[f"{w}/{k}"] for index, dig in everyone]
+        out["one_device"] = (sum(ok), len(ok))
+    if everyone[rank][0]["data"] == 0:
+        m = everyone[rank][0]["model"]
+        sizes12, index12 = {"data": 1, "model": 2}, {"data": 0, "model": m}
+        p12 = train_specs(cfg, sizes12, MP_BATCH, MP_SEQ, zero1=False)[0]
+        local = state_like({k: local_shard(t, p12[k], sizes12, index12)
+                            for k, t in meta.items()})
+        place = train_state_to_reference(local, cfg,
+                                         shards=(p12, p12, sizes12, index12))
+        tree, _ = restore_checkpoint(ckpt, place, shardings=place)
+        ok = []
+        for w, got in leaves(train_state_from_reference(tree, cfg, "cpu")):
+            for k, t in got.items():
+                for index, dig in everyone:
+                    if index["model"] != m:
+                        continue
+                    if w != "params" and o_specs.mu[k] != p_specs[k]:
+                        n = t.shape[0] // sizes["data"]   # ZeRO-1 rows
+                        blk = t[index["data"] * n:(index["data"] + 1) * n]
+                    elif index["data"]:
+                        continue
+                    else:
+                        blk = t
+                    ok.append(_digest(blk) == dig[f"{w}/{k}"])
+        out["mesh12"] = (sum(ok), len(ok))
+    return out
+
+
+def _marks(marks: list, t0: float) -> str:
+    """A rank's timeline: seconds from ``t0`` (the parent's clock before
+    the spawn) at each mark."""
+    return ", ".join(f"{name} {t - t0:.1f} s" for name, t in marks)
+
+
+def _mp_single(seed: int, tokens, labels) -> dict:
+    """Phase 19(a)'s single device: ``LM(cfg, seed)``'s loss and the
+    gradients of MP_GRAD_LEAVES on step 0's batch; freed before the ranks
+    start."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    lm = LM(get_config("h2o-danube-1.8b"), seed=seed).requires_grad_(True)
+    loss = lm.loss(tokens.to(lm.device), labels.to(lm.device))
+    loss.backward()
+    params = dict(lm.named_parameters())
+    want = {"loss": loss.item(), "grads": {
+        k: params[k].grad.float().cpu() for k in MP_GRAD_LEAVES}}
+    del lm, loss, params
+    free_cuda()
+    return want
+
+
+def _mp_joined(ranks: list, what: str, name: str):
+    """A leaf joined from the model-axis ranks' slices, along the dim its
+    spec splits."""
+    import torch
+    from repro_torch.launch.sharding import concat_shards, param_spec
+    parts = [torch.from_numpy(r[what][name]) for r in ranks]
+    return concat_shards(parts, param_spec(name, parts[0].dim()))
+
+
+def _mp_supervised_checks(ranks: list) -> dict:
+    """Phase 19(b)'s checks of the ranks' results: the attempts, the
+    restart's bit-equal step, the ranks' losses equal, the ranks that hold
+    the same slice holding the same bits (digests), and every rank's
+    checks of the checkpoint (:func:`_mp_rank_restores`) passed."""
+    r0 = ranks[0]
+    runs = [[s for s, _ in a] for a in r0["attempts"]]
+    want_runs = [list(range(MP_SUP_FAIL)),
+                 list(range(MP_SUP_EVERY, MP_SUP_STEPS))]
+    require(r0["restarts"] == 1 and runs == want_runs,
+            f"mp supervised: attempts ran {runs}, expected {want_runs}")
+    for r in ranks[1:]:
+        require(r["attempts"] == r0["attempts"],
+                "mp supervised: the ranks' losses differ")
+    again = dict(r0["attempts"][1])[MP_SUP_EVERY]
+    first = dict(r0["attempts"][0])[MP_SUP_EVERY]
+    require(again == first, f"mp supervised: step {MP_SUP_EVERY} after the "
+            f"restart gave {again!r}, the first attempt {first!r}")
+    zero1 = set(r0["zero1"])
+    require(bool(zero1), "mp supervised: no ZeRO-1 leaf")
+    for r, res in enumerate(ranks):
+        d, m = divmod(r, 2)
+        for key, dig in res["digest"].items():
+            w, k = key.split("/", 1)
+            same = ranks[d * 2] if w != "params" and k in zero1 else ranks[m]
+            require(dig == same["digest"][key],
+                    f"mp supervised: rank {r}'s {key} differs from the rank "
+                    f"holding the same slice")
+        for what, (ok, n) in res["checks"].items():
+            require(ok == n, f"mp supervised: rank {r}'s {what} restore: "
+                    f"{n - ok} of {n} blocks differ from the ranks' slices")
+    require("one_device" in r0["checks"] and
+            all("mesh12" in ranks[m]["checks"] for m in range(2)),
+            "mp supervised: a restore check did not run")
+    return {"leaves": r0["checks"]["one_device"][1],
+            "restart_loss": again}
+
+
+def phase_mp_train(seed: int, card: str) -> dict:
+    """Phase 19: model-parallel training over gloo ranks sharing the card
+    (spawned, a file store; every collective staged through pinned host
+    memory), (a) h2o-danube-1.8b at full width and depth over two ranks,
+    (b) its widths at MP_LAYERS layers over four, ZeRO-1 and a supervised
+    restart from a sharded checkpoint (module docstring, 19).  Returns the
+    launches by kernel and the times at a rank's shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import run_ranks
+    print("[19 mp predicted] written before the first run on the card "
+          "(PERF.md): " + "; ".join(f"{k} {v}"
+                                          for k, v in MP_PREDICTED.items()))
+    cfg = get_config("h2o-danube-1.8b")
+    batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TRAIN_SEQ,
+                                       global_batch=1)).batch_at(0)
+    t0 = time.perf_counter()
+    want = _mp_single(seed, torch.from_numpy(batch["tokens"]),
+                      torch.from_numpy(batch["labels"]))
+    single_s = time.perf_counter() - t0
+    ckpt = REPO / "build" / "mp_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0, t_a = time.perf_counter(), time.time()
+    ranks = run_ranks(_mp_rank_a, 2, ({"seed": seed, "ckpt": str(ckpt)},),
+                      timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    a0, a1 = ranks
+    require([s["loss"] for s in a0["steps"]] ==
+            [s["loss"] for s in a1["steps"]],
+            f"mp danube: the ranks' losses differ: "
+            f"{[s['loss'] for s in a0['steps']]} vs "
+            f"{[s['loss'] for s in a1['steps']]}")
+    loss0 = a0["steps"][0]["loss"]
+    loss_rel = abs(loss0 - want["loss"]) / abs(want["loss"])
+    require(np.isfinite([s["loss"] for s in a0["steps"]]).all() and
+            loss_rel <= MP_LOSS_REL,
+            f"mp danube: step 0's loss {loss0!r} vs the single device's "
+            f"{want['loss']!r}: relative {loss_rel:.3g} > {MP_LOSS_REL}")
+    rel = {}
+    for k in MP_GRAD_LEAVES:
+        got = _mp_joined(ranks, "grads", k)
+        rel[k] = _rel_l2(got, want["grads"][k])
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= TRAIN_GRAD_REL_L2,
+            f"mp danube: the gradient of {worst} (ranks joined) is "
+            f"{rel[worst]:.3g} relative L2 from the single device's "
+            f"(limit {TRAIN_GRAD_REL_L2})")
+    n_steps = MP_STEPS
+    launches = collections.Counter()
+    for rank, r in enumerate(ranks):
+        c = r["counts"]
+        per = cfg.num_layers * n_steps
+        require(c["flash"] == per and c["flash_bwd"] == per and
+                c["bwd_variants"] == {"wgmma": per, "simt": 0},
+                f"mp danube rank {rank}: flash {c['flash']}, its backward "
+                f"{c['flash_bwd']} by variant {c['bwd_variants']}; expected "
+                f"{per}, all wgmma")
+        require(c["gather"] == n_steps and c["gather_bwd"] == n_steps and
+                c["transpose"] == n_steps and
+                c["sls_variants"] == {"rows": 0, "sparse": n_steps},
+                f"mp danube rank {rank}: the masked lookup's gather "
+                f"{c['gather']}, its backward {c['gather_bwd']} "
+                f"({c['transpose']} transpositions, sums by variant "
+                f"{c['sls_variants']}); expected {n_steps} each, sparse")
+        launches.update({k: c[k] for k in ("flash", "gather", "flash_bwd",
+                                            "transpose")})
+        launches["sparse"] += c["sls_variants"]["sparse"]
+        launches.update({f"instance {k}": v
+                         for k, v in c["instances"].items()})
+        launches.update({f"bwd instance {k}": v
+                         for k, v in c["bwd_instances"].items()})
+        steps = r["steps"]
+        mean_ms = float(np.mean([s["ms"] for s in steps[1:]]))
+        cl = steps[-1]["coll"]
+        step_txt = ", ".join(f"{s['ms']:.1f}" for s in steps)
+        print(f"[19 mp danube rank {rank}] h2o-danube-1.8b at full width "
+              f"and depth, this rank's half ({r['held_bytes'] / 1e9:.3f} GB "
+              f"of weights held, init {r['init_s']:.1f} s); {n_steps} steps "
+              f"of 1 x {TRAIN_SEQ}: losses "
+              f"{[s['loss'] for s in steps]}, step ms (host clock, "
+              f"synchronised) {step_txt}"
+              f" (step {n_steps - 1}: {cl['collectives']} collectives, "
+              f"{cl['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{cl['collective_ms']:.1f} ms in them, "
+              f"{100 * cl['collective_ms'] / steps[-1]['ms']:.1f} %); "
+              f"{TRAIN_SEQ / mean_ms * 1e3:.0f} tokens/s; peak "
+              f"{r['peak'] / 2**30:.2f} GiB; launches flash {c['flash']} "
+              f"{c['instances']}, backward {c['flash_bwd']} "
+              f"{c['bwd_variants']}, gather {c['gather']}, its backward "
+              f"{c['gather_bwd']} (sums {c['sls_variants']}); {card}")
+    print(f"[19 mp danube vs single] step 0's loss {loss0!r} on both ranks "
+          f"(bit-equal) vs the single device's {want['loss']!r}: relative "
+          f"{loss_rel:.3g} (limit {MP_LOSS_REL}); gradients, the ranks' "
+          f"slices joined, relative L2: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) +
+          f" (limit {TRAIN_GRAD_REL_L2}); single device {single_s:.1f} s, "
+          f"ranks {ranks_s:.1f} s (rank 0 from the spawn: "
+          f"{_marks(a0['marks'], t_a)}); {card}")
+    kr = a0["kernels"]
+    sdpa = kr["flash_bwd_sdpa"]
+    sdpa_txt = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
+                         else f"{n} {v}" for n, v in sdpa.items()
+                         if not n.endswith("_reps"))
+    (b_, s_, h_, d_), kshape = kr["flash_shape"]
+    print(f"[19 mp flash backward] a rank's layer (B={b_}, S={s_}, H={h_}, "
+          f"Hkv={kshape[2]}, D={d_}, window {cfg.sliding_window}, bf16, "
+          f"random): wgmma kernels {kr['flash_bwd_ms']:.4f} ms vs the plain "
+          f"version {_bf16_summary(kr['flash_bwd_agreement'])}, plain "
+          f"{kr['flash_bwd_plain_ms']:.4f} ms, SDPA's backward {sdpa_txt}; "
+          f"bound {kr['flash_bwd_bound_ms']:.4f} ms "
+          f"({kr['flash_bwd_flops'] / 1e9:.1f} GFLOP, by "
+          f"{kr['flash_bwd_bound_by']}; "
+          f"{100 * kr['flash_bwd_bound_ms'] / kr['flash_bwd_ms']:.2f}% of "
+          f"it); {card}")
+    print(f"[19 mp gather backward] the masked lookup's backward on rank "
+          f"0's rows: {_parts_line(kr['gather_backward'])}; the masked "
+          f"gather == the plain gather; {card}")
+    # (b)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    t_sup = time.time()
+    sup = run_ranks(_mp_rank_b, 4, ({"seed": seed, "ckpt": str(ckpt)},),
+                    timeout_s=900)
+    sup_s = time.perf_counter() - t0
+    checked = _mp_supervised_checks(sup)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for r in sup:
+        c = r["counts"]
+        require(c["flash"] > 0 and c["flash_bwd"] > 0 and c["gather"] > 0 and
+                c["gather_bwd"] > 0 and c["bwd_variants"]["simt"] == 0,
+                f"mp supervised: a kernel of the path never launched: {c}")
+        launches.update({k: c[k] for k in ("flash", "gather", "flash_bwd",
+                                            "transpose")})
+        launches["sparse"] += c["sls_variants"]["sparse"]
+        launches.update({f"instance {k}": v
+                         for k, v in c["instances"].items()})
+        launches.update({f"bwd instance {k}": v
+                         for k, v in c["bwd_instances"].items()})
+    b0 = sup[0]
+    print(f"[19 mp supervised] h2o-danube-1.8b's widths at {MP_LAYERS} "
+          f"layers over 4 ranks (mesh (2, 2), ZeRO-1 moments of "
+          f"{len(b0['zero1'])} leaves), global batch {MP_BATCH} x {MP_SEQ}: "
+          f"attempts {[[(s, round(l, 5)) for s, l in a] for a in b0['attempts']]}"
+          f"; the restart's step-{MP_SUP_EVERY} loss "
+          f"{checked['restart_loss']!r} == the first attempt's, bit for "
+          f"bit, on all 4 ranks; the 4-rank checkpoint restored onto one "
+          f"device == every rank's slices ({checked['leaves']} blocks, by "
+          f"digest), and with shardings= onto each rank of a (1, 2) mesh "
+          f"== its slice; "
+          f"{b0['coll']['collectives']} collectives, "
+          f"{b0['coll']['staged_bytes'] / 1e6:.1f} MB staged on the model "
+          f"axis in the run; peak {max(r['peak'] for r in sup) / 2**30:.2f}"
+          f" GiB a rank; ranks {sup_s:.1f} s (rank 0 from the spawn: "
+          f"{_marks(b0['marks'], t_sup)}); {card}")
+    inst = {k[9:]: v for k, v in launches.items()
+            if k.startswith("instance ")}
+    bwd_inst = {k[13:]: v for k, v in launches.items()
+                if k.startswith("bwd instance ")}
+    print(f"[19 mp launches] the ranks' main paths: flash_attention "
+          f"{launches['flash']} ({inst}), flash_attention_bwd "
+          f"{launches['flash_bwd']} ({bwd_inst}), block gather "
+          f"{launches['gather']}, gather_transpose {launches['transpose']}, "
+          f"sls_sparse {launches['sparse']}; {card}")
+    return {"flash_launches": launches["flash"], "flash_instances": inst,
+            "flash_bwd_launches": launches["flash_bwd"],
+            "flash_bwd_instances": bwd_inst,
+            "gather_launches": launches["gather"],
+            "transpose_launches": launches["transpose"],
+            "sparse_launches": launches["sparse"],
+            "rank_flash_bwd_ms": kr["flash_bwd_ms"],
+            "rank_flash_bwd_bound_ms": kr["flash_bwd_bound_ms"],
+            "rank_flash_bwd_plain_ms": kr["flash_bwd_plain_ms"],
+            "rank_flash_bwd_sdpa_band_ms": sdpa.get("band_mask"),
+            "rank_flash_bwd_max_abs_err": kr["flash_bwd_max_abs_err"],
+            "rank_gather_backward": kr["gather_backward"],
+            "step_ms": [s["ms"] for s in a0["steps"]],
+            "loss_rel": loss_rel, "grad_worst_rel_l2": rel[worst]}
+
+
+def _free_after_mp(before: int) -> None:
+    """Require phase 19 to leave the card as it found it (< 1 GiB more
+    allocated in this process than ``before``)."""
+    import torch
+    free_cuda()
+    held = torch.cuda.memory_allocated()
+    print(f"[19 mp after] this process holds {held / 2**30:.2f} GiB "
+          f"({before / 2**30:.2f} before the phase)")
+    require(held - before < 1 << 30, f"phase 19 left "
+            f"{(held - before) / 2**30:.2f} GiB allocated")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7080,6 +7698,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="run phases 1, 2 and 18 alone (tensor and expert "
                          "parallelism over two ranks, no JSON)")
+    ap.add_argument("--mp-train-only", action="store_true",
+                    help="run phases 1, 2 and 19 alone (model-parallel "
+                         "training over gloo ranks, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -7120,6 +7741,12 @@ def main(argv=None) -> int:
         before = torch.cuda.memory_allocated()
         phase_tp(args.seed, card)
         _free_after_tp(before)
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.mp_train_only:
+        before = torch.cuda.memory_allocated()
+        phase_mp_train(args.seed, card)
+        _free_after_mp(before)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     alone = (phase_training if args.training_only else
@@ -7180,6 +7807,11 @@ def main(argv=None) -> int:
     tp = phase_tp(args.seed, card)
     _free_after_tp(before)
     seconds["18"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    mp = phase_mp_train(args.seed, card)
+    _free_after_mp(before)
+    seconds["19"] = time.perf_counter() - t0
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     instances = collections.Counter(flash.pop("instances"))
     prefill = later.pop("7 stablelm")
@@ -7274,6 +7906,33 @@ def main(argv=None) -> int:
     gather["tp_launches"] = tp.pop("gather_launches")
     gather["launches"] += gather["tp_launches"]
     flash.update(tp)
+    # phase 19's launches: the ranks' model-parallel training steps
+    flash["mp_launches"] = mp.pop("flash_launches")
+    flash["launches"] += flash["mp_launches"]
+    instances.update(mp.pop("flash_instances"))
+    gather["mp_launches"] = mp.pop("gather_launches")
+    gather["launches"] += gather["mp_launches"]
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    bwd["mp_launches"] = mp.pop("flash_bwd_launches")
+    bwd["launches"] += bwd["mp_launches"]
+    bwd["variants"]["wgmma"] += bwd["mp_launches"]
+    bwd_instances = collections.Counter(bwd["instances"])
+    bwd_instances.update(mp.pop("flash_bwd_instances"))
+    bwd["instances"] = dict(bwd_instances)
+    for kname, key in (("gather_transpose", "transpose_launches"),
+                       ("sls_sparse", "sparse_launches")):
+        k = next(k for k in kernels if k["name"] == kname)
+        k["launches_by_training"]["mp"] = mp.pop(key)
+        k["launches"] += k["launches_by_training"]["mp"]
+    split = mp.pop("rank_gather_backward")
+    for kname, keys in (("gather_transpose", ("transpose_ms", "csr_ms",
+                                              "transpose_bound_ms")),
+                        ("sls_sparse", ("sum_ms", "sum_plain_ms",
+                                        "sum_bound_ms", "embedding_bag_ms",
+                                        "ms", "index_add_ms", "bound_ms"))):
+        k = next(k for k in kernels if k["name"] == kname)
+        k["mp_rank_embedding"] = {f: split[f] for f in keys}
+    bwd.update({f"mp_{k}": v for k, v in mp.items()})
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

@@ -27,9 +27,23 @@ save: the leaves are copied to host memory synchronously (so the caller may
 update them in place at once, as the trainer's optimizer does) and written
 in the background; an error of that write is raised from :meth:`wait` or
 from the next :meth:`save`.  A torn step (a commit marker without its
-directory) is skipped on restore, falling back to the step before.  The
-elastic restore onto another mesh (``shardings=``) waits for the sharding
-item (ROADMAP.md, Queue 1 item 6c).
+directory) is skipped on restore, falling back to the step before.
+
+**Sharded checkpoints** (model-parallel training).  A rank's leaf is a
+:class:`ShardedLeaf`: its block of a global leaf, placed by a spec over
+the mesh's axes.  The manifest gives each leaf's global shape and every
+shard's global offsets, as the reference's does; each rank writes its own
+``shard_{rank:05d}.npz``; a leaf replicated over an axis is written once,
+by coordinate 0 on that axis (the reference's ``replica_id == 0``).  Rank
+0 writes the manifest once every rank's file is in place and publishes
+through the same commit protocol; every rank's save returns once the step
+is committed.  That barrier is the files themselves, not the process
+group: the write runs on a background thread while the training thread
+makes collectives.  :func:`restore_checkpoint` with ``shardings=`` (a tree
+of :class:`ShardedLeaf` placements) reads only the rank's block of each
+leaf, from the members whose offsets overlap it, so it restores onto any
+mesh (elastic) and never builds a whole leaf; without it, the whole leaves
+are assembled by their offsets.
 """
 from __future__ import annotations
 
@@ -47,6 +61,85 @@ import torch
 
 #: the npy descriptor numpy writes for an ml_dtypes bfloat16 array
 BF16_DESCR = "<V2"
+#: how long a sharded save waits for the other ranks' files or the commit
+SHARD_WAIT_S = 600.0
+
+
+class ShardedLeaf:
+    """One rank's block of a global leaf: ``data`` (a tensor, or None for a
+    placement: where the block lies, :func:`restore_checkpoint`'s
+    ``shardings``), ``spec`` (per dim an axis name, a tuple of axis names
+    or None, as :mod:`repro_torch.launch.sharding` writes them), ``sizes``
+    (``{axis: size}`` of the mesh, in the mesh's order: ranks are
+    numbered row-major over it) and ``index`` (``{axis: coordinate}`` of
+    the rank).  A tree leaf (not a node) for the flattening below."""
+
+    __slots__ = ("data", "spec", "sizes", "index")
+
+    def __init__(self, data, spec: tuple, sizes: dict, index: dict):
+        self.data, self.spec = data, tuple(spec)
+        self.sizes, self.index = dict(sizes), dict(index)
+
+    @classmethod
+    def stack(cls, leaves: list) -> "ShardedLeaf":
+        """Leaves of one spec stacked on a new leading dim (the reference's
+        layers under ``scan``): the stacked dim is whole on every rank."""
+        first = leaves[0]
+        data = None if first.data is None else \
+            torch.stack([x.data for x in leaves])
+        return cls(data, (None,) + first.spec, first.sizes, first.index)
+
+    def _axes(self, ax) -> tuple:
+        return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+    def _split(self, ax, index: dict) -> tuple:
+        """(parts, this rank's part) of a dim split over ``ax``."""
+        parts, coord = 1, 0
+        for a in self._axes(ax):            # row-major over joint axes
+            parts *= self.sizes[a]
+            coord = coord * self.sizes[a] + index[a]
+        return parts, coord
+
+    def global_shape(self) -> tuple:
+        """The global leaf's shape, from the block's."""
+        shape = tuple(self.data.shape)
+        spec = self.spec + (None,) * (len(shape) - len(self.spec))
+        return tuple(n * self._split(ax, self.index)[0]
+                     for n, ax in zip(shape, spec))
+
+    def bounds(self, shape: tuple, index: Optional[dict] = None) -> list:
+        """``[[lo, hi], ...]``: the block of the global ``shape`` that the
+        rank at ``index`` (this one's by default) holds."""
+        index = self.index if index is None else index
+        spec = self.spec + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for n, ax in zip(shape, spec):
+            parts, coord = self._split(ax, index)
+            if n % parts:
+                raise ValueError(f"dim of {n} does not split over "
+                                 f"{self._axes(ax)} ({parts})")
+            step = n // parts
+            out.append([coord * step, (coord + 1) * step])
+        return out
+
+    def writes(self, index: Optional[dict] = None) -> bool:
+        """Whether the rank at ``index`` writes this leaf: coordinate 0 on
+        every axis the spec does not split over (replica 0)."""
+        index = self.index if index is None else index
+        used = {a for ax in self.spec for a in self._axes(ax)}
+        return all(c == 0 for a, c in index.items() if a not in used)
+
+    def ranks(self) -> list:
+        """``(rank, index)`` of every rank of the mesh, in rank order."""
+        return [(r, dict(zip(self.sizes, coords))) for r, coords in
+                enumerate(np.ndindex(*self.sizes.values()))]
+
+    @property
+    def rank(self) -> int:
+        r = 0
+        for a, n in self.sizes.items():
+            r = r * n + self.index[a]
+        return r
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +199,8 @@ def tree_map(fn: Callable, tree):
 
 
 def _dtype_name(leaf) -> str:
+    if isinstance(leaf, ShardedLeaf):
+        return _dtype_name(leaf.data)
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).split(".")[-1]
     return str(np.asarray(leaf).dtype)
@@ -122,6 +217,8 @@ def host_copy(leaf):
 def _to_numpy(leaf) -> np.ndarray:
     """The leaf's bytes as numpy: bf16 as uint16 (written under
     :data:`BF16_DESCR`)."""
+    if isinstance(leaf, ShardedLeaf):
+        return _to_numpy(leaf.data)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -156,6 +253,14 @@ def _write_npz(path: Path, arrays: dict, bf16: set) -> None:
 # ---------------------------------------------------------------------------
 
 def save_checkpoint(ckpt_dir, step: int, tree, *, host_index: int = 0):
+    """Write ``tree`` as step ``step`` and commit it.  A tree with
+    :class:`ShardedLeaf` leaves is one rank's part of a sharded
+    checkpoint (:func:`_save_sharded`; ``host_index`` is then ignored)."""
+    leaves = tree_flatten_with_path(tree)
+    sharded = next((x for _, x in leaves if isinstance(x, ShardedLeaf)),
+                   None)
+    if sharded is not None:
+        return _save_sharded(Path(ckpt_dir), step, leaves, sharded)
     ckpt_dir = Path(ckpt_dir)
     step_dir = ckpt_dir / f"step_{step:09d}"
     tmp_dir = ckpt_dir / f".tmp_step_{step:09d}_{host_index}"
@@ -163,7 +268,7 @@ def save_checkpoint(ckpt_dir, step: int, tree, *, host_index: int = 0):
 
     manifest = {"step": step, "leaves": []}
     arrays, bf16 = {}, set()
-    for i, (path, leaf) in enumerate(tree_flatten_with_path(tree)):
+    for i, (path, leaf) in enumerate(leaves):
         key = f"leaf_{i:05d}"
         dtype = _dtype_name(leaf)
         arr = _to_numpy(leaf)
@@ -178,13 +283,78 @@ def save_checkpoint(ckpt_dir, step: int, tree, *, host_index: int = 0):
                          "index": [[0, s] for s in arr.shape]}]})
 
     _write_npz(tmp_dir / f"shard_{host_index:05d}.npz", arrays, bf16)
+    _write_manifest(tmp_dir, manifest)
+    marker = ckpt_dir / f"step_{step:09d}.COMMITTED"
+    publish_dir(ckpt_dir, tmp_dir, step_dir, marker)
+    return step_dir
+
+
+def _write_manifest(tmp_dir: Path, manifest: dict) -> None:
     with open(tmp_dir / "manifest.json", "w") as f:
         f.write(json.dumps(manifest))
         f.flush()
         os.fsync(f.fileno())
+
+
+def _save_sharded(ckpt_dir: Path, step: int, leaves: list,
+                  first: ShardedLeaf):
+    """One rank's part of a sharded save: its members (the leaves it
+    writes, :meth:`ShardedLeaf.writes`; a plain leaf counts as replicated)
+    into ``shard_{rank:05d}.npz`` of the step's shared temporary
+    directory, renamed into place once written.  Rank 0 then waits for
+    every rank's file, writes the manifest (every writer's shard of every
+    leaf with its global offsets, in rank order) and publishes; the other
+    ranks wait until the step is committed."""
+    sizes, rank = first.sizes, first.rank
+    world = int(np.prod(list(sizes.values())))
+    step_dir = ckpt_dir / f"step_{step:09d}"
+    tmp_dir = ckpt_dir / f".tmp_step_{step:09d}_0"
     marker = ckpt_dir / f"step_{step:09d}.COMMITTED"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    manifest = {"step": step, "leaves": []}
+    arrays, bf16 = {}, set()
+    for i, (path, leaf) in enumerate(leaves):
+        if not isinstance(leaf, ShardedLeaf):
+            leaf = ShardedLeaf(leaf, (), sizes, first.index)
+        key = f"leaf_{i:05d}"
+        dtype = _dtype_name(leaf)
+        shape = leaf.global_shape()
+        if leaf.writes():
+            name = f"{key}_s{rank}_0"
+            arrays[name] = _to_numpy(leaf)
+            if dtype == "bfloat16":
+                bf16.add(name)
+        manifest["leaves"].append(
+            {"key": key, "path": path, "shape": list(shape),
+             "dtype": dtype,
+             "shards": [{"name": f"{key}_s{r}_0",
+                         "index": leaf.bounds(shape, index)}
+                        for r, index in leaf.ranks()
+                        if leaf.writes(index)]})
+    part = tmp_dir / f"shard_{rank:05d}.npz"
+    _write_npz(part.with_suffix(".part"), arrays, bf16)
+    part.with_suffix(".part").rename(part)
+    if rank != 0:
+        # committed: rank 0 renamed the directory this rank wrote into,
+        # then wrote the marker (an older marker was removed before)
+        _wait_for(lambda: not tmp_dir.exists() and marker.exists(),
+                  f"the commit of step {step}")
+        return step_dir
+    _wait_for(lambda: all((tmp_dir / f"shard_{r:05d}.npz").exists()
+                          for r in range(world)),
+              f"the {world} ranks' files of step {step}")
+    _write_manifest(tmp_dir, manifest)
     publish_dir(ckpt_dir, tmp_dir, step_dir, marker)
     return step_dir
+
+
+def _wait_for(done: Callable[[], bool], what: str) -> None:
+    deadline = time.monotonic() + SHARD_WAIT_S
+    while not done():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"a sharded checkpoint waited "
+                               f"{SHARD_WAIT_S:.0f} s for {what}")
+        time.sleep(0.01)
 
 
 def publish_dir(parent: Path, tmp_dir: Path, final_dir: Path,
@@ -252,13 +422,16 @@ def _tensor(full: np.ndarray, dtype: str) -> torch.Tensor:
 def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
                        shardings=None):
     """``(tree, step)``: the checkpoint's leaves in ``tree_like``'s
-    structure, matched by path, each a CPU tensor of the manifest's shape
-    and dtype (``tree_like``'s leaves give only the structure: meta tensors
-    do).  The latest intact step unless ``step`` is given."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6c)")
+    structure, matched by path, each a CPU tensor of the manifest's dtype
+    (``tree_like``'s leaves give only the structure: meta tensors do).
+    The latest intact step unless ``step`` is given.
+
+    Without ``shardings`` every leaf is whole, assembled from its shards
+    by their offsets (a checkpoint written from any mesh restores onto one
+    device).  With ``shardings`` -- a tree of :class:`ShardedLeaf`
+    placements in ``tree_like``'s structure -- each leaf is the block the
+    placement's rank holds, read from the members whose offsets overlap
+    it and nothing else (onto any mesh: elastic)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -270,34 +443,63 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
             f"checkpoint step {step} in {ckpt_dir} is torn "
             f"(committed marker without manifest)")
     manifest = json.loads((step_dir / "manifest.json").read_text())
-    data: dict = {}
-    for f in step_dir.glob("shard_*.npz"):
-        with np.load(f) as z:
-            data.update({k: z[k] for k in z.files})
-
-    by_path = {e["path"]: e for e in manifest["leaves"]}
-    out_leaves = []
-    for path, _ in tree_flatten_with_path(tree_like):
-        entry = by_path[path]
-        shape, dtype = tuple(entry["shape"]), entry["dtype"]
-        if len(entry["shards"]) == 1 and \
-                entry["shards"][0]["index"] == [[0, s] for s in shape]:
-            full = _from_member(data[entry["shards"][0]["name"]], dtype)
-        else:
-            full = np.zeros(shape, np.uint16 if dtype == "bfloat16"
-                            else np.dtype(dtype))
-            for s in entry["shards"]:
-                idx = tuple(slice(a, b) for a, b in s["index"])
-                full[idx] = _from_member(data[s["name"]], dtype)
-        out_leaves.append(_tensor(full.reshape(shape), dtype))
+    files = [np.load(f) for f in sorted(step_dir.glob("shard_*.npz"))]
+    try:
+        where = {name: z for z in files for name in z.files}
+        by_path = {e["path"]: e for e in manifest["leaves"]}
+        like = tree_flatten_with_path(tree_like)
+        places = ([x for _, x in tree_flatten_with_path(shardings)]
+                  if shardings is not None else [None] * len(like))
+        if len(places) != len(like):
+            raise ValueError(f"shardings has {len(places)} leaves, the "
+                             f"tree {len(like)}")
+        out_leaves = [_read_leaf(by_path[path], where, place)
+                      for (path, _), place in zip(like, places)]
+    finally:
+        for z in files:
+            z.close()
     return tree_unflatten(tree_like, out_leaves), step
 
 
+def _read_leaf(entry: dict, where: dict, place) -> torch.Tensor:
+    """One leaf of the manifest: whole (``place`` None) or the block of the
+    placement's rank, from the overlapping members."""
+    shape, dtype = tuple(entry["shape"]), entry["dtype"]
+    want = ([[0, n] for n in shape] if place is None
+            else place.bounds(shape))
+    shards = entry["shards"]
+    if len(shards) == 1 and shards[0]["index"] == want:
+        block = _from_member(where[shards[0]["name"]][shards[0]["name"]],
+                             dtype)
+        return _tensor(np.ascontiguousarray(block).reshape(
+            [b - a for a, b in want]), dtype)
+    block = np.zeros([b - a for a, b in want],
+                     np.uint16 if dtype == "bfloat16" else np.dtype(dtype))
+    for s in shards:
+        lo = [max(a, c) for (a, _), (c, _) in zip(s["index"], want)]
+        hi = [min(b, d) for (_, b), (_, d) in zip(s["index"], want)]
+        if any(a >= b for a, b in zip(lo, hi)) and shape:
+            continue
+        member = _from_member(where[s["name"]][s["name"]], dtype)
+        src = tuple(slice(a - c, b - c)
+                    for a, b, (c, _) in zip(lo, hi, s["index"]))
+        dst = tuple(slice(a - c, b - c)
+                    for a, b, (c, _) in zip(lo, hi, want))
+        block[dst] = member.reshape([b - a for a, b in s["index"]])[src]
+    return _tensor(block, dtype)
+
+
 class CheckpointManager:
-    def __init__(self, ckpt_dir, keep: int = 3, async_save: bool = True):
+    """Keep-N retention and the background save.  ``rank`` is this
+    process's rank where it writes its part of sharded checkpoints: only
+    rank 0 retires old steps."""
+
+    def __init__(self, ckpt_dir, keep: int = 3, async_save: bool = True,
+                 rank: int = 0):
         self.dir = Path(ckpt_dir)
         self.keep = keep
         self.async_save = async_save
+        self.rank = rank
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -324,7 +526,8 @@ class CheckpointManager:
             try:
                 save_checkpoint(self.dir, step, transform(host_tree)
                                 if transform is not None else host_tree)
-                self._gc()
+                if self.rank == 0:
+                    self._gc()
             except BaseException as e:   # noqa: BLE001 -- the thread's
                 if not self.async_save:  # error is kept for wait()
                     raise

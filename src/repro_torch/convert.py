@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .checkpoint.ckpt import ShardedLeaf
 from .core.executor import resolve_device
 
 TABLE_KEYS = ("table", "x")
@@ -192,35 +193,67 @@ def lm_params_to_reference(state, cfg) -> dict:
 def _stack(layers: list):
     if isinstance(layers[0], dict):
         return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    if isinstance(layers[0], ShardedLeaf):
+        return ShardedLeaf.stack(layers)
     return torch.stack(layers)
 
 
-def train_state_to_reference(state: dict, cfg) -> dict:
+def train_state_to_reference(state: dict, cfg, shards=None) -> dict:
     """The trainer's state -- ``{"params": name -> tensor, "opt":
     AdamWState(step, mu, nu) with name -> tensor moments, "ef": name ->
     tensor residuals, or None without gradient compression}`` -- as the
     reference's ``{"params", "opt", "ef"}`` tree.  Without compression the
     reference keeps a () fp32 zero in place of every parameter leaf, and so
-    does this."""
+    does this.
+
+    ``shards`` -- ``(param specs, moment specs, {axis: size}, {axis:
+    coordinate})``, the specs by parameter name -- makes this one rank's
+    part of a sharded checkpoint: every leaf is a
+    :class:`~repro_torch.checkpoint.ckpt.ShardedLeaf`, the rank's block
+    placed in the global leaf (a stacked leaf whole on its layer dim, the
+    rank's block on the split dim), the step and the () residuals
+    replicated."""
     from .optim.adamw import AdamWState
-    params = lm_params_to_reference(state["params"], cfg)
     opt = state["opt"]
+    params, mu, nu, step = state["params"], opt.mu, opt.nu, opt.step
+    if shards is not None:
+        p_specs, m_specs, sizes, index = shards
+
+        def wrap(tree, specs):
+            return {k: ShardedLeaf(t, specs[k], sizes, index)
+                    for k, t in tree.items()}
+        ef_zero = (lambda p: ShardedLeaf(
+            torch.zeros((), dtype=torch.float32), (), sizes, index))
+        params_r = wrap(params, p_specs)
+        mu, nu = wrap(mu, m_specs), wrap(nu, m_specs)
+        step = ShardedLeaf(step, (), sizes, index)
+        if state["ef"] is not None:
+            raise NotImplementedError(
+                "sharded checkpoints of compressed training (ROADMAP.md, "
+                "Queue 1 item 6f)")
+    else:
+        params_r = params
+
+        def ef_zero(p):
+            return torch.zeros((), dtype=torch.float32, device=p.device)
+    tree = lm_params_to_reference(params_r, cfg)
     if state["ef"] is None:
         from .checkpoint.ckpt import tree_map
-        ef = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
-                                            device=p.device), params)
+        ef = tree_map(ef_zero, tree)
     else:
         ef = lm_params_to_reference(state["ef"], cfg)
-    return {"params": params,
-            "opt": AdamWState(opt.step, lm_params_to_reference(opt.mu, cfg),
-                              lm_params_to_reference(opt.nu, cfg)),
+    return {"params": tree,
+            "opt": AdamWState(step, lm_params_to_reference(mu, cfg),
+                              lm_params_to_reference(nu, cfg)),
             "ef": ef}
 
 
 def train_state_from_reference(tree: dict, cfg, device=None) -> dict:
     """The inverse of :func:`train_state_to_reference`, on ``device`` (the
     CUDA card unless ``device="cpu"``): ``ef`` is None where the reference
-    keeps () zeros (no compression)."""
+    keeps () zeros (no compression).  A tree restored with ``shardings=``
+    (each leaf a rank's block, a stacked leaf whole on its layer dim)
+    gives that rank's slices."""
     from .checkpoint.ckpt import tree_flatten_with_path
     from .optim.adamw import AdamWState
     dev = resolve_device(device)

@@ -3,9 +3,8 @@
 single-device strategies ``take``, ``one_hot`` and ``pallas`` and the
 vocab-sharded ones ``masked_psum``, ``masked_psum_scatter`` and ``one_hot``
 over a mesh, :func:`choose_strategy`, :func:`logits` (differentiable),
-:func:`model_embedding_program` and the single-device path of
-:func:`xent_vocab_parallel` -- the vocab-parallel cross entropy over a mesh
-waits for model-parallel training, ROADMAP.md Queue 1 item 6c).
+:func:`model_embedding_program` and :func:`xent_vocab_parallel`, on one
+device and over a mesh: :class:`VocabParallelXent`).
 
 Over a mesh the port is multi-controller: each rank passes its own vocab
 rows of the table (``(V/n, D)``, rank r holding rows ``[r·V/n,
@@ -16,7 +15,11 @@ through the hand-written block gather, ``kernels.ops.block_gather``), then
 a sum over the vocab axis (the *combine*: an all-reduce, or a
 reduce-scatter over the sequence).  Every row has one owner and the others
 add exact zeros, so the result is the single-device ``index_select``'s
-bits."""
+bits.  Under autograd the combine's backward is the identity (the sum is
+replicated), and the block gather's backward (the transposition and the
+sparse ``ember_sls`` on the card) sums the cotangent into the rank's rows;
+a masked id's cotangent is an exact zero, so the row it is clamped to
+gains nothing from it."""
 from __future__ import annotations
 
 from typing import Optional
@@ -225,13 +228,81 @@ def xent_vocab_parallel(x: torch.Tensor, table: torch.Tensor,
                         labels: torch.Tensor, *, mesh=None,
                         vocab_axis: Optional[str] = None,
                         data_axes: tuple = ()) -> torch.Tensor:
-    """Unembed + softmax cross entropy: the mean loss.  Only the
-    single-device path is ported (``mesh=None``): the fp32 logits of
-    :func:`logits` and :func:`cross_entropy`, what the reference's
-    ``shard_map`` body computes on one shard.  A mesh raises (ROADMAP.md,
-    Queue 1 item 6c)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the vocab-parallel cross entropy over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6c)")
-    return cross_entropy(logits(x, table), labels)
+    """Unembed + softmax cross entropy: the mean loss over every token.
+
+    On one device (``mesh=None``): the fp32 logits of :func:`logits` and
+    :func:`cross_entropy`, what the reference's ``shard_map`` body computes
+    on one shard.  Over a mesh whose ``vocab_axis`` is wider than 1,
+    ``table`` is this rank's vocab rows and ``x`` / ``labels`` the rank's
+    data block (the same on every rank of the vocab axis):
+    :class:`VocabParallelXent`, the reference's function (the rank's fp32
+    logits, the max all-reduced with *max* outside the gradient, Σexp
+    all-reduced with *sum*, the label logit from the rank that owns the
+    label, the mean over the local tokens), never a ``(tokens, V)``
+    tensor.  A 1-wide vocab axis takes the single-device function.  Then
+    the mean over ``data_axes`` (:func:`~.shard_plan.data_mean`: each
+    rank's gradient is its own tokens' mean's; the data-parallel mean of
+    the gradients completes it)."""
+    if mesh is None:
+        return cross_entropy(logits(x, table), labels)
+    from .shard_plan import data_mean, model_axis, shard_count
+    if vocab_axis is not None and shard_count(mesh, vocab_axis) > 1:
+        loss = VocabParallelXent.apply(
+            x.reshape(-1, x.shape[-1]), table, labels.reshape(-1),
+            model_axis(mesh, vocab_axis, table.device))
+    else:
+        loss = cross_entropy(logits(x, table), labels)
+    return data_mean(loss, [model_axis(mesh, a, table.device)
+                            for a in data_axes if shard_count(mesh, a) > 1])
+
+
+class VocabParallelXent(torch.autograd.Function):
+    """The vocab-parallel cross entropy over a model axis (Megatron's),
+    with its backward written out.  x2 (N, D) replicated over the axis,
+    table (V_r, D) the rank's vocab rows ``[r·V_r, (r+1)·V_r)``, labels
+    (N,) global ids -> the mean over the N tokens of ``lse - lg[label]``,
+    a () fp32 tensor equal on every rank.
+
+    Forward, in the reference's order: ``lg`` the rank's fp32 logits
+    (:func:`logits`' products), ``m`` their row max all-reduced with
+    *max* (a constant shift: no gradient reaches it), ``se`` the row sums
+    of ``e = exp(lg - m)`` all-reduced, ``lse = m + log(se)``, the label
+    logit picked on the rank that owns it (the others add exact zeros)
+    and summed over the axis.  Backward: ``dl = g/N · (e / se -
+    onehot_r)`` on the rank's columns; ``dx = dl @ table_r`` is the rank's
+    partial, summed over the axis in fp32 and rounded once (the entry of
+    a column-parallel product, :meth:`~.shard_plan.ModelAxis.sum_grad`);
+    ``dtable_r = dl^T @ x``, in fp32, rounded once -- as
+    :class:`Bf16Logits` transposes the single device's product.  The
+    padded vocab's pad rows stay in the softmax, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, x2, table, labels, axis):
+        v_local = table.shape[0]
+        lg = logits(x2, table)                              # (N, V_r) fp32
+        local = labels.to(torch.int64) - axis.rank * v_local
+        in_range = (local >= 0) & (local < v_local)
+        local = local.clamp(0, v_local - 1)
+        picked = torch.gather(lg, -1, local[:, None])[:, 0]
+        label_logit = axis.sum(torch.where(in_range, picked, 0.0))
+        m = axis.max(lg.amax(-1))
+        e = lg.sub_(m[:, None]).exp_()                      # lg's memory
+        se = axis.sum(e.sum(-1))
+        lse = m + torch.log(se)
+        ctx.save_for_backward(x2, table, e, se, local, in_range)
+        ctx.axis = axis
+        return torch.mean(lse - label_logit)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table, e, se, local, in_range = ctx.saved_tensors
+        coef = g / e.shape[0]
+        dl = e * (coef / se)[:, None]
+        rows = torch.arange(e.shape[0], device=e.device)
+        dl[rows, local] -= torch.where(in_range, coef, 0.0)
+        dx = dtable = None
+        if ctx.needs_input_grad[0]:
+            dx = ctx.axis.sum_grad(dl @ table.float(), x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dtable = (dl.t() @ x2.float()).to(table.dtype)
+        return dx, dtable, None, None

@@ -241,12 +241,90 @@ class Collectives:
                          (x.shape[0] * self.size,) + tuple(x.shape[1:]))
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` (grad mode on, ``x`` needs
+    a gradient): only then do the axis ops go through their Functions, so
+    a forward under ``no_grad`` / ``inference_mode`` runs the collectives
+    alone, with the same bits."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AxisSum(torch.autograd.Function):
+    """Forward: the all-reduce over the axis.  Backward: the identity --
+    the output is replicated and what runs downstream of it is too, so its
+    cotangent is already the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, axis, x):
+        return axis.coll.all_reduce(x, "add")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _AxisEnter(torch.autograd.Function):
+    """Megatron's *f*: forward the identity, backward the all-reduce of the
+    cotangent (:meth:`ModelAxis.sum_grad`).  A replicated tensor entering
+    column-parallel products gets only this rank's partial gradient from
+    them."""
+
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.axis.sum_grad(g.float(), g.dtype)
+
+
+class _AxisGather(torch.autograd.Function):
+    """Forward: every rank's block joined along ``dim``.  Backward: this
+    rank's block of the cotangent (the joined output is replicated, so its
+    cotangent is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, axis, x, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis.coll.all_gather(x.movedim(dim, 0)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n),
+                None)
+
+
+class _AxisScatter(torch.autograd.Function):
+    """Forward: the reduce-scatter along ``dim`` (the sum over the axis,
+    this rank keeping its block).  Backward: every rank's block of the
+    cotangent joined -- each rank's partial reached every block of the
+    sum."""
+
+    @staticmethod
+    def forward(ctx, axis, x, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.coll.reduce_scatter(x.movedim(dim, 0)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, ctx.axis.coll.all_gather(
+            g.movedim(ctx.dim, 0).contiguous()).movedim(0, ctx.dim), None)
+
+
 class ModelAxis:
     """One rank's place on a mesh axis that a model is split over (tensor
-    and expert parallelism): ``size``, ``rank`` and the axis group's
+    and expert parallelism) or that its batch is split over (the data
+    axis of training): ``size``, ``rank`` and the axis group's
     :class:`Collectives`, whose ``stats`` (``collectives``,
     ``staged_bytes``, ``collective_ms``) count every collective the model
-    makes.  :func:`model_axis` memoizes one per (mesh, axis, device)."""
+    makes.  :func:`model_axis` memoizes one per (mesh, axis, device).
+
+    :meth:`sum`, :meth:`enter`, :meth:`gather` and :meth:`scatter` are
+    differentiable where autograd records them (model-parallel training),
+    each backward through the same :class:`Collectives`: a sum's backward
+    is the identity, an entry's the all-reduce of the cotangent in fp32, a
+    gather's the rank's block, a scatter's the all-gather."""
 
     def __init__(self, mesh, axis: str, device):
         self.mesh, self.axis = mesh, axis
@@ -263,22 +341,48 @@ class ModelAxis:
         return self.coll.staged
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the axis, on every rank."""
+        """The sum of ``x`` over the axis, on every rank (backward: the
+        identity)."""
+        if _tracked(x):
+            return _AxisSum.apply(self, x)
         return self.coll.all_reduce(x, "add")
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its gradient is summed over the axis (fp32
+        partials, rounded to x's dtype once).  Put once where a replicated
+        tensor enters this rank's column-parallel products."""
+        if _tracked(x):
+            return _AxisEnter.apply(self, x)
+        return x
+
+    def sum_grad(self, g32: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """An entry's backward: this rank's fp32 partial gradient summed
+        over the axis in fp32, rounded to ``dtype`` once."""
+        return self.coll.all_reduce(g32, "add").to(dtype)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a () tensor over the axis (the reference's
         ``pmean``)."""
-        return self.sum(x.reshape(1))[0] / self.size
+        return self.coll.all_reduce(x.reshape(1), "add")[0] / self.size
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the axis (no gradient)."""
+        return self.coll.all_reduce(x, "max")
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``x`` joined along ``dim``, in rank order."""
+        """Every rank's ``x`` joined along ``dim``, in rank order (backward:
+        the rank's block)."""
+        if _tracked(x):
+            return _AxisGather.apply(self, x, dim)
         y = self.coll.all_gather(x.movedim(dim, 0))
         return y.movedim(0, dim)
 
     def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The sum of ``x`` over the axis, this rank keeping block ``rank``
-        of ``dim`` (a reduce-scatter)."""
+        of ``dim`` (a reduce-scatter; backward: the all-gather of the
+        cotangent)."""
+        if _tracked(x):
+            return _AxisScatter.apply(self, x, dim)
         y = self.coll.reduce_scatter(x.movedim(dim, 0))
         return y.movedim(0, dim)
 
@@ -286,6 +390,35 @@ class ModelAxis:
         """``x`` (size, ...): block j to rank j; block j of the result came
         from rank j."""
         return self.coll.all_to_all(x)
+
+
+class _DataMean(torch.autograd.Function):
+    """Forward: the mean over each data axis in turn (the reference's
+    ``pmean``).  Backward: the identity -- data-parallel training takes
+    each rank's gradient of its own tokens' loss and means the gradients
+    over the data axes (``runtime.trainer``), which is the gradient of
+    the global mean."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        for ax in axes:
+            x = ax.mean(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def data_mean(x: torch.Tensor, axes: list) -> torch.Tensor:
+    """The mean of a () tensor over the data ``axes`` (a list of
+    :class:`ModelAxis`; ``x`` itself for none), differentiable as
+    :class:`_DataMean` says."""
+    if not axes:
+        return x
+    if _tracked(x):
+        return _DataMean.apply(x, list(axes))
+    return _DataMean.forward(None, x, axes)
 
 
 _MODEL_AXES: dict = {}
@@ -490,6 +623,7 @@ def all_gather_rows(coll: Collectives, piece: torch.Tensor, sizes: list,
 
 __all__ = ["shard_count", "local_stack_table",
            "compute_spill", "Collectives", "ModelAxis", "model_axis",
+           "data_mean",
            "csr_host_body",
            "csr_collective_body", "gather_host_body",
            "gather_collective_body", "owned_range", "all_gather_rows"]

@@ -8,6 +8,8 @@ Conventions, as in the reference:
   * MoE: experts -> ``model`` (EP == TP axis)
   * SSM/xLSTM inner dims -> ``model``
   * batch dims -> (``pod``, ``data``)
+  * optimizer moments: the params' spec, plus ZeRO-1 sharding of
+    replicated leaves over the data axes (:func:`zero1_specs`)
 
 A spec is a tuple with one entry per dim: an axis name, a tuple of axis
 names (one dim split over several axes jointly) or None, as the reference's
@@ -24,8 +26,12 @@ of a full tensor by its spec: the port is multi-controller, each rank holds
 its own slices, and splits are even (``padded_vocab`` divides by any model
 axis up to 256).
 
-Not ported: ``zero1_specs`` waits for model-parallel training (ROADMAP.md,
-Queue 1 item 6c); ``to_shardings``, ``table_row_sharding``,
+:func:`train_specs` is the spec part of the reference's
+``build_train_bundle`` (``launch/steps.py``): the ``(param specs, opt
+specs, batch specs)`` triple a sharded ``Trainer`` takes as
+``in_shardings``.
+
+Not ported: ``to_shardings``, ``table_row_sharding``,
 ``leading_axis_sharding`` and ``replicated_sharding`` build
 ``NamedSharding`` placements of global arrays, which have nothing to stand
 for when each process holds only its own shard.
@@ -81,6 +87,50 @@ def param_specs(params) -> dict:
         params = params.state_dict()
     return {k: param_spec(k, v.dim() if hasattr(v, "dim") else v.ndim)
             for k, v in params.items()}
+
+
+def zero1_specs(params, specs: dict, data_axes: tuple, mesh) -> dict:
+    """ZeRO-1 (the reference's rule): the optimizer moments of a leaf
+    whose spec is all None (norms, the router, ``frontend_proj``, ...)
+    split their leading dim over the data axes where it divides; every
+    other leaf's moments keep its spec, and the parameters stay as they
+    are.  ``params`` maps names to anything with ``shape`` (the full
+    leaves' shapes); the port's leaves are per layer, so a norm's leading
+    dim is its width (the reference's stacked leaf has the layers there)."""
+    sizes = axis_sizes(mesh)
+    dsize = _size(sizes, tuple(data_axes)) if data_axes else 1
+    out = {}
+    for k, spec in specs.items():
+        shape = tuple(params[k].shape)
+        if dsize > 1 and shape and all(a is None for a in spec) and \
+                shape[0] % dsize == 0 and shape[0] >= dsize:
+            out[k] = (tuple(data_axes),) + (None,) * (len(shape) - 1)
+        else:
+            out[k] = spec
+    return out
+
+
+def train_specs(cfg, mesh, batch: int, seq: int, data_axes: tuple = ("data",),
+                zero1: bool = True) -> tuple:
+    """The reference's ``build_train_bundle`` specs for ``cfg`` on ``mesh``
+    and a global ``batch`` of ``seq`` tokens: ``(param specs, opt specs,
+    batch specs)`` -- the params' sanitized :func:`param_specs`, an
+    ``AdamWState`` of ``((), mu specs, mu specs)`` (:func:`zero1_specs`
+    with ``zero1``, else the params'), and :func:`batch_specs` of the
+    ``tokens`` / ``labels`` batch.  ``data_axes`` are filtered to the
+    mesh's."""
+    from ..models.lm import LM
+    from ..optim.adamw import AdamWState
+    sizes = axis_sizes(mesh)
+    data_axes = tuple(a for a in data_axes if a in sizes)
+    full = LM(cfg, device="meta").state_dict()
+    p_specs = sanitize_specs(param_specs(full), full, mesh)
+    mu = zero1_specs(full, p_specs, data_axes, mesh) if zero1 else \
+        dict(p_specs)
+    struct = {k: np.empty((batch, seq), np.int32)
+              for k in ("tokens", "labels")}
+    return (p_specs, AdamWState((), mu, dict(mu)),
+            batch_specs(struct, batch, mesh, data_axes))
 
 
 def cache_spec(name: str, shape: tuple, batch_axes, msize: int = 1) -> tuple:
@@ -213,5 +263,5 @@ def concat_shards(shards: list, spec: tuple, axis: str = "model"):
 
 
 __all__ = ["COL", "ROW", "REPL", "axis_sizes", "param_spec", "param_specs",
-           "cache_spec", "cache_specs", "batch_specs", "sanitize_specs",
+           "zero1_specs", "train_specs", "cache_spec", "cache_specs", "batch_specs", "sanitize_specs",
            "mesh_index", "local_shard", "concat_shards"]

@@ -182,16 +182,49 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     -> fp32 GEMM), the partials summed over ``tp`` in fp32 and rounded to
     h's dtype once -- as the single device's GEMM sums in fp32 and rounds
     once.  The fp32 sum doubles a bf16 model's all-reduce bytes.  Without
-    ``tp`` (or on a 1-wide axis) it is ``h @ w``."""
+    ``tp`` (or on a 1-wide axis) it is ``h @ w``.  Under autograd it runs
+    through :class:`RowParallel`, whose backward is written out."""
     if tp is None or tp.size == 1:
         return h @ w
-    k = h.shape[-1]
-    h2 = h.reshape(1, -1, k)
-    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
-        part = torch.bmm(h2, w[None], out_dtype=torch.float32)
+    h2 = h.reshape(-1, h.shape[-1])
+    if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+        out = RowParallel.apply(h2, w, tp)
     else:
-        part = torch.bmm(h2.float(), w[None].float())
-    return tp.sum(part).to(h.dtype).view(*h.shape[:-1], w.shape[1])
+        out = tp.sum(_f32_product(h2, w)).to(h.dtype)
+    return out.view(*h.shape[:-1], w.shape[1])
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) -> (M, N) fp32: exact operand products summed in
+    fp32 (bf16 on the card through cuBLAS's bf16 x bf16 -> fp32 GEMM)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a[None], b[None], out_dtype=torch.float32)[0]
+    return torch.bmm(a[None].float(), b[None].float())[0]
+
+
+class RowParallel(torch.autograd.Function):
+    """The row-parallel product with its transpose written out (autograd's
+    own formula for ``bmm(..., out_dtype=)`` is not relied on).  The
+    output is replicated, so the cotangent of the fp32 partial is the
+    incoming cotangent on every rank: ``dh = dout @ w_r^T`` and ``dw_r =
+    h_r^T @ dout``, each summed in fp32 and rounded once to its operand's
+    dtype, as the single device's GEMM does.  h2 (N, K_r), w (K_r, M) ->
+    (N, M) in h's dtype."""
+
+    @staticmethod
+    def forward(ctx, h2, w, tp):
+        ctx.save_for_backward(h2, w)
+        return tp.coll.all_reduce(_f32_product(h2, w), "add").to(h2.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        h2, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = _f32_product(dout, w.t()).to(h2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _f32_product(h2.t(), dout).to(w.dtype)
+        return dh, dw, None
 
 
 def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,

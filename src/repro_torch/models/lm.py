@@ -47,9 +47,15 @@ output (:func:`.common.row_parallel`), the MoE FFN expert parallel
 vocab slice and all-gathered, so every rank's argmax is the same.  Every
 collective goes through the axis's
 :class:`~repro_torch.core.shard_plan.Collectives` (:attr:`LM.
-collective_stats` counts them).  Model-parallel training (the loss over a
-mesh) is ROADMAP.md Queue 1 item 6c; the other block kinds over a mesh
-are item 6d.
+collective_stats` counts them).  Model-parallel training (:meth:`LM.loss`
+over a mesh, the ``dense`` and ``dense_local`` kinds): under autograd each
+block's normed input enters its column-parallel products through the
+axis's *enter* (its gradient, the rank's partial, summed over the axis in
+fp32), each row-parallel product has its backward written out
+(:class:`.common.RowParallel`), the masked lookup's combine passes the
+cotangent through, and the loss is the vocab-parallel cross entropy.  The
+MoE kinds' training over a mesh is ROADMAP.md Queue 1 item 6e; the other
+block kinds over a mesh are item 6d.
 
 A block's ``forward`` and ``decode`` take a context dict beside their
 input, as the reference's ``block_apply`` / ``block_decode`` take
@@ -194,12 +200,21 @@ class DenseBlock(nn.Module):
                            tp=self.tp)
 
     def _ffn(self, h: torch.Tensor, with_aux: bool = True) -> tuple:
-        return gated_mlp(h, self.mlp, self.cfg.act, self.tp), None
+        return gated_mlp(self._enter(h), self.mlp, self.cfg.act,
+                         self.tp), None
+
+    def _enter(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` where it enters this rank's column-parallel products: under
+        autograd on a rank, its gradient (the rank's partial) is summed
+        over the model axis (:meth:`~repro_torch.core.shard_plan.ModelAxis
+        .enter`); the tensor itself otherwise."""
+        return h if self.tp is None else self.tp.enter(h)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
         eps = self.cfg.norm_eps
-        x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
+        x = x + self._attend(self._enter(rms_norm(x, self.norm1, eps)),
+                             positions)
         h, aux = self._ffn(rms_norm(x, self.norm2, eps))
         return x + h, aux
 
@@ -685,22 +700,43 @@ class LM(nn.Module):
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              frontend_embeds: Optional[torch.Tensor] = None,
-             enc_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The training objective, the reference's single-device
-        ``LM.loss``: the mean over tokens of ``logsumexp(logits) -
-        logits[label]``, the fp32 logits over the padded vocab (pad rows
-        included, as the reference computes them), plus ``0.01 * aux``, the
-        MoE load-balance loss.  tokens, labels (B,S) int; a () fp32
-        tensor.  Over a mesh it raises: model-parallel training is
-        ROADMAP.md Queue 1 item 6c."""
-        if self.tp is not None:
+             enc_embeds: Optional[torch.Tensor] = None, *,
+             data_axes: Optional[tuple] = None) -> torch.Tensor:
+        """The training objective, the reference's ``LM.loss``: the mean
+        over tokens of ``logsumexp(logits) - logits[label]``, the fp32
+        logits over the padded vocab (pad rows included, as the reference
+        computes them), plus ``0.01 * aux``, the MoE load-balance loss.
+        tokens, labels (B,S) int; a () fp32 tensor.
+
+        Over a mesh (the ``dense`` and ``dense_local`` kinds) this rank
+        passes its data block of the batch (the same on every rank of the
+        model axis): the sharded forward, then the vocab-parallel cross
+        entropy (:func:`~repro_torch.core.embedding_engine
+        .xent_vocab_parallel`) over the model axis, meaned over
+        ``data_axes`` -- the axes the batch was split over; by default the
+        :class:`ShardCtx`'s that the mesh has, ``()`` where every rank was
+        handed the whole batch.  The gradient a backward leaves is the
+        rank's own tokens' (the trainer means it over the data axes).  An
+        MoE model over a mesh raises: its expert-parallel backward is
+        ROADMAP.md Queue 1 item 6e."""
+        mesh = self.shard.mesh
+        if mesh is None:
+            x, aux = self.forward(tokens, frontend_embeds,
+                                  enc_embeds=enc_embeds, with_aux=True)
+            return ee.xent_vocab_parallel(x, self.embed, labels) + \
+                0.01 * aux
+        if has_moe(self.cfg) and max(mesh.shape) > 1:
             raise NotImplementedError(
-                "the loss of a sharded LM (the vocab-parallel cross entropy "
-                "over a mesh) is not ported yet (ROADMAP.md, Queue 1 item "
-                "6c)")
-        x, aux = self.forward(tokens, frontend_embeds,
-                              enc_embeds=enc_embeds, with_aux=True)
-        return ee.xent_vocab_parallel(x, self.embed, labels) + 0.01 * aux
+                f"the loss of {self.cfg.name} over a mesh (expert-parallel "
+                f"training: the backward of moe_ffn(mesh=)) is not ported yet "
+                f"(ROADMAP.md, Queue 1 item 6e)")
+        if data_axes is None:
+            data_axes = tuple(a for a in self.shard.data_axes
+                              if a in mesh.mesh_dim_names)
+        x = self.forward(tokens, frontend_embeds, enc_embeds=enc_embeds)
+        return ee.xent_vocab_parallel(x, self.embed, labels, mesh=mesh,
+                                      vocab_axis=self.shard.model_axis,
+                                      data_axes=tuple(data_axes))
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,

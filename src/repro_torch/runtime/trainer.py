@@ -28,8 +28,24 @@ port's ``LM`` holds its parameters, as ``DecodeServer`` takes none), so
 them from it.  ``TrainerConfig.ckpt_dir`` has no default (the
 reference's is ``/tmp/repro_ckpt``): a trainer resumes from whatever it
 finds there, so two runs must not share one by accident.
-``in_shardings`` (GSPMD) waits for the sharding item
-(ROADMAP.md, Queue 1 item 6c).
+
+**Over a mesh** (an ``LM(shard=ShardCtx(mesh))``, the ``dense`` and
+``dense_local`` kinds; one process a rank, multi-controller): each rank
+takes its data block of the global batch (the batch specs), runs the
+loss over the mesh and its backward (the model axis's collectives inside),
+means every gradient over the data axes (fp32, rounded once), and steps
+AdamW on its slices (:class:`~repro_torch.optim.adamw.Shards`: the global
+clipping norm, ZeRO-1 where the opt specs shard a moment).  ``in_shardings``
+is the port's counterpart of the reference's jit placements: the spec
+triple ``(param specs, opt specs, batch specs)`` of
+:func:`repro_torch.launch.sharding.train_specs`; param specs that disagree
+with the LM's own layout raise.  Without it the moments follow the
+parameters (no ZeRO-1) and the batch splits over the data axes where it
+divides.  Checkpoints are sharded (every rank writes its blocks with their
+global offsets; ``checkpoint.ckpt``) and restored onto the rank's slices.
+Gradient compression over a mesh raises (ROADMAP.md, Queue 1 item 6f: a
+rank's slice of a split leaf does not fall into the reference's 256-value
+blocks of the global leaf).
 
 The supervisor (:func:`run_supervised`) is the single-process stand-in for
 the cluster controller: it builds a fresh trainer and restarts the loop
@@ -42,6 +58,7 @@ import functools
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
@@ -49,6 +66,7 @@ from ..checkpoint.ckpt import tree_map
 from ..convert import train_state_from_reference, train_state_to_reference
 from ..data.pipeline import SyntheticTokens
 from ..optim import adamw
+from ..optim.adamw import Shards
 from ..optim.compress import compress_gradients, error_feedback_init
 from .faults import InjectedFailure, StragglerTimeout  # noqa: F401
 
@@ -67,10 +85,6 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, lm, data: SyntheticTokens, tcfg: TrainerConfig,
                  in_shardings=None, faults=None):
-        if in_shardings is not None:
-            raise NotImplementedError(
-                "in_shardings (a sharded train step) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6c)")
         if tcfg.ckpt_dir is None:
             raise ValueError(
                 "TrainerConfig.ckpt_dir is required: the trainer resumes "
@@ -83,25 +97,105 @@ class Trainer:
         # fires the "step" site each iteration
         self.faults = faults
         self.opt = adamw(lr=tcfg.lr)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.mesh = lm.shard.mesh
+        self.shards = None          # optim.adamw.Shards on a mesh
+        self._plan_mesh(in_shardings)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
+                                      rank=self._rank)
         self.emb_executor = None
+
+    def _plan_mesh(self, in_shardings) -> None:
+        """On a mesh: the specs of the parameters, moments and batch (from
+        ``in_shardings``, checked, or the defaults), the AdamW shards, this
+        rank's data block and the data axis the gradients are meaned
+        over."""
+        self._rank, self._block, self._data = 0, None, None
+        self._loss_axes = ()
+        if self.mesh is None:
+            if in_shardings is not None:
+                raise ValueError("in_shardings places a sharded train step: "
+                                 "the LM has no mesh (LM(shard=ShardCtx("
+                                 "mesh)))")
+            return
+        if self.tcfg.grad_compression:
+            raise NotImplementedError(
+                "gradient compression over a mesh is not ported yet "
+                "(ROADMAP.md, Queue 1 item 6f)")
+        from ..core.shard_plan import model_axis, shard_count
+        from ..launch import sharding as shd
+        mesh, sh, dc = self.mesh, self.lm.shard, self.data.cfg
+        data_axes = tuple(a for a in sh.data_axes if a in mesh.mesh_dim_names)
+        p_want, zero, b_specs = shd.train_specs(
+            self.lm.cfg, mesh, dc.global_batch, dc.seq_len, data_axes)
+        mu = dict(p_want)
+        if in_shardings is not None:
+            p_specs, opt_specs, b_specs = in_shardings
+            wrong = sorted(k for k in set(p_want) | set(p_specs)
+                           if p_specs.get(k) != p_want.get(k))
+            if wrong:
+                raise ValueError(
+                    f"in_shardings' param specs disagree with the LM's "
+                    f"layout at {wrong[:4]} (e.g. {wrong[0]}: "
+                    f"{p_specs.get(wrong[0])} against "
+                    f"{p_want.get(wrong[0])})")
+            mu = dict(opt_specs.mu)
+            bad = sorted(k for k in p_want if mu.get(k) not in
+                         (p_want[k], zero.mu[k]) or
+                         opt_specs.nu.get(k) != mu.get(k))
+            if bad:
+                raise ValueError(f"in_shardings' opt specs at {bad[:4]} are "
+                                 f"neither the params' nor ZeRO-1's")
+        self.specs = {"params": p_want, "moments": mu}
+        zero1 = frozenset(k for k in p_want if mu[k] != p_want[k])
+        dsize = int(np.prod([shard_count(mesh, a) for a in data_axes]))
+        if len(data_axes) > 1 and dsize > 1:
+            raise NotImplementedError(f"more than one data axis {data_axes}")
+        dev = self.lm.device
+        if dsize > 1:
+            self._data = model_axis(mesh, data_axes[0], dev)
+        split = b_specs["tokens"][0]
+        if split is not None and dsize > 1:
+            b = dc.global_batch // dsize
+            lo = self._data.rank * b
+            self._block = (lo, lo + b)
+            self._loss_axes = data_axes
+        self.shards = Shards(
+            model=self.lm.tp,
+            split=frozenset(k for k, sp in p_want.items()
+                            if any(a is not None for a in sp)),
+            data=self._data, zero1=zero1)
+        from ..launch.sharding import axis_sizes, mesh_index
+        self._sizes, self._index = axis_sizes(mesh), mesh_index(mesh)
+        self._rank = int(torch.distributed.get_rank())
+
+    def _ckpt_shards(self):
+        """The specs and place of this rank for a sharded checkpoint (None
+        on one device)."""
+        if self.mesh is None:
+            return None
+        return (self.specs["params"], self.specs["moments"], self._sizes,
+                self._index)
 
     def init_state(self) -> dict:
         """``{"params", "opt", "ef"}``: the module's parameters (the live
-        tensors, updated in place), AdamW's zero state, and the
-        error-feedback residuals (None without compression)."""
+        tensors, updated in place), AdamW's zero state (this rank's rows of
+        a ZeRO-1 leaf), and the error-feedback residuals (None without
+        compression)."""
         params = dict(self.lm.named_parameters())
-        return {"params": params, "opt": self.opt.init(params),
+        return {"params": params,
+                "opt": self.opt.init(params, self.shards),
                 "ef": (error_feedback_init(params)
                        if self.tcfg.grad_compression else None)}
 
     def _restore(self, state: dict) -> int:
-        """Overwrite ``state`` in place from the latest checkpoint; returns
-        its step."""
+        """Overwrite ``state`` in place from the latest checkpoint (this
+        rank's blocks of it on a mesh); returns its step."""
         cfg = self.lm.cfg
         like = train_state_to_reference(tree_map(
-            lambda t: torch.empty_like(t, device="meta"), state), cfg)
-        tree, step = self.ckpt.restore(like)
+            lambda t: torch.empty_like(t, device="meta"), state), cfg,
+            shards=self._ckpt_shards())
+        tree, step = self.ckpt.restore(
+            like, shardings=like if self.mesh is not None else None)
         loaded = train_state_from_reference(tree, cfg, device="cpu")
         with torch.no_grad():
             for group in ("params", "ef"):
@@ -116,30 +210,47 @@ class Trainer:
                 opt.nu[k].copy_(lopt.nu[k])
         return step
 
-    def _train_step(self, state: dict, batch: dict) -> torch.Tensor:
-        """One step: the loss, its gradients (a parameter the loss does not
-        reach gets zeros, as ``jax.grad`` gives), compression, AdamW in
-        place.  Returns the loss (before the update), on the device."""
-        params = state["params"]
+    def loss_and_grads(self, params: dict, batch: dict) -> tuple:
+        """The loss (the mean over the global batch, on every rank) and
+        every parameter's gradient (a parameter the loss does not reach gets
+        zeros, as ``jax.grad`` gives); over a mesh the gradients of the
+        rank's slices, meaned over the data axes in fp32 and rounded once."""
         for p in params.values():
             p.grad = None
         loss = self.lm.loss(batch["tokens"], batch["labels"],
                             batch.get("frontend_embeds"),
-                            batch.get("enc_embeds"))
+                            batch.get("enc_embeds"),
+                            data_axes=self._loss_axes)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
+        if self._block is not None:
+            n = self._data.size
+            grads = {k: (self._data.coll.all_reduce(g.float(), "add") / n)
+                     .to(g.dtype) for k, g in grads.items()}
+        return loss.detach(), grads
+
+    def _train_step(self, state: dict, batch: dict) -> torch.Tensor:
+        """One step: the loss, its gradients, compression, AdamW in place.
+        Returns the loss (before the update), on the device."""
+        params = state["params"]
+        loss, grads = self.loss_and_grads(params, batch)
         if self.tcfg.grad_compression:
             grads, state["ef"] = compress_gradients(grads, state["ef"])
-        state["opt"] = self.opt.apply_(params, grads, state["opt"])
-        return loss.detach()
+        state["opt"] = self.opt.apply_(params, grads, state["opt"],
+                                       self.shards)
+        return loss
 
     def _batch(self, step: int) -> dict:
+        """The step's batch on the model's device: the global batch, or
+        this rank's data block of it."""
         dev = self.lm.device
         out = {}
         for k, v in self.data.batch_at(step).items():
+            if self._block is not None:
+                v = v[self._block[0]:self._block[1]]
             t = torch.from_numpy(v).to(dev)
             out[k] = t.to(self.lm.cfg.torch_dtype) if t.is_floating_point() \
                 else t
@@ -157,7 +268,9 @@ class Trainer:
             # for this (batch, seq), fed every step's table (the lookups
             # themselves run inside the model's forward)
             dc = self.data.cfg
-            self.emb_executor = self.lm.embedding_executor(dc.global_batch,
+            batch = dc.global_batch if self._block is None else \
+                self._block[1] - self._block[0]
+            self.emb_executor = self.lm.embedding_executor(batch,
                                                            dc.seq_len)
 
         losses = []
@@ -183,7 +296,8 @@ class Trainer:
             if (step + 1) % tcfg.ckpt_every == 0 or \
                     step + 1 == tcfg.total_steps:
                 self.ckpt.save(step, state, transform=functools.partial(
-                    train_state_to_reference, cfg=self.lm.cfg))
+                    train_state_to_reference, cfg=self.lm.cfg,
+                    shards=self._ckpt_shards()))
         self.ckpt.wait()
         out = {"final_step": tcfg.total_steps - 1, "losses": losses,
                "state": state}

@@ -10,16 +10,24 @@ package and the reference's contracts.
 * The single-device contracts of ``tests/test_checkpoint.py``: the torn
   step skipped, a re-save, async errors raised from ``wait`` and from the
   next save, the host snapshot taken before the caller updates in place.
+* Sharded checkpoints (model-parallel training): the manifest of two port
+  ranks' checkpoint equals the reference's from the same 2-device mesh in
+  paths, shapes, dtypes and shard offsets; the reference restores the
+  port ranks' checkpoints (two ranks, and four with ZeRO-1 moments) on
+  one device; the port restores the reference's and its own onto one
+  device and, with ``shardings=``, onto each rank of a ``(1, 2)`` mesh.
 * The trainer's contracts of ``tests/test_system.py``,
   ``tests/test_faults.py`` and ``tests/test_executor.py``: the loss
   decreases, restart continuity, the supervised restart, the watchdog,
   compressed training, the ``step`` fault site, and the train-serve
-  handoff without a restack.
+  handoff without a restack; the launcher on one device and over a mesh.
 """
 from __future__ import annotations
 
 import json
+import os
 import zipfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +53,8 @@ from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.trainer import (InjectedFailure, StragglerTimeout,
                                          Trainer, TrainerConfig,
                                          run_supervised)
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _ref_state(arch: str, compressed: bool = False) -> dict:
@@ -334,15 +344,30 @@ def test_trainer_feed_keeps_executor_fresh_no_restacks(tmp_path):
 
 
 def test_train_launcher_runs_on_the_cpu_and_refuses_a_mesh(tmp_path):
+    """The launcher trains on the CPU, on one device and over a mesh
+    (``--model-parallel 2``: two gloo ranks, sharded checkpoints), and a
+    mesh run resumes from its own checkpoint; it refuses to run without a
+    checkpoint directory."""
     from repro_torch.launch import train
     out = train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--steps",
                       "4", "--seq", "12", "--global-batch", "2", "--device",
-                      "cpu", "--ckpt-dir", str(tmp_path)])
+                      "cpu", "--ckpt-dir", str(tmp_path / "one")])
     assert out["final_step"] == 3 and np.isfinite(out["losses"]).all()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.main(["--arch", "h2o-danube-1.8b", "--reduced",
-                    "--model-parallel", "2", "--device", "cpu",
-                    "--ckpt-dir", str(tmp_path)])
+    mp = ["--arch", "h2o-danube-1.8b", "--reduced", "--model-parallel", "2",
+          "--seq", "12", "--global-batch", "2", "--device", "cpu",
+          "--ckpt-dir", str(tmp_path / "mp")]
+    out = train.main(mp + ["--steps", "4"])
+    assert out["final_step"] == 3 and len(out["losses"]) == 4
+    assert np.isfinite(out["losses"]).all()
+    assert latest_step(tmp_path / "mp") == 3
+    manifest = json.loads((tmp_path / "mp" / "step_000000003" /
+                           "manifest.json").read_text())
+    embed = next(e for e in manifest["leaves"]
+                 if e["path"] == "['params']['embed']")
+    assert [s["index"][0] for s in embed["shards"]] == [[0, 128],
+                                                        [128, 256]]
+    out = train.main(mp + ["--steps", "6"])        # resumes after step 3
+    assert out["final_step"] == 5 and len(out["losses"]) == 2
     # no shared default checkpoint directory: the launcher and the config
     # both require one
     with pytest.raises(SystemExit):
@@ -357,3 +382,224 @@ def test_train_launcher_runs_on_the_cpu_and_refuses_a_mesh(tmp_path):
         Trainer(LM(cfg, device="cpu"), SyntheticTokens(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)),
             TrainerConfig(total_steps=1))
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoints: written from ranks, with the reference's offsets
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCH = "h2o-danube-1.8b"
+_SHARDED: dict = {}
+
+_REF_SHARDED_SAVE = """
+import pickle
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.checkpoint import save_checkpoint
+from repro.launch import sharding as shd
+from repro.launch.mesh import axis_types_kw
+
+mesh = jax.make_mesh((1, 2), ("data", "model"), **axis_types_kw(2))
+with open({state!r}, "rb") as f:
+    st = pickle.load(f)
+specs = shd.to_shardings(mesh, shd.sanitize_specs(
+    shd.param_specs(st["params"]), st["params"], mesh))
+rep = NamedSharding(mesh, P())
+opt = st["opt"]
+save_checkpoint({path!r}, 3, {{
+    "params": jax.device_put(st["params"], specs),
+    "opt": type(opt)(jax.device_put(opt.step, rep),
+                     jax.device_put(opt.mu, specs),
+                     jax.device_put(opt.nu, specs)),
+    "ef": jax.device_put(st["ef"], rep)}})
+print("REF_SHARDED_SAVED")
+"""
+
+
+def _full_state(host: dict) -> dict:
+    """The port's full trainer state from :func:`_host_state`'s arrays."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def t(tree):
+        return {k: torch.from_numpy(v) for k, v in tree.items()}
+    return {"params": t(host["params"]),
+            "opt": AdamWState(torch.tensor(host["step"], dtype=torch.int32),
+                              t(host["mu"]), t(host["nu"])), "ef": None}
+
+
+def _host_state(full: dict) -> dict:
+    opt = full["opt"]
+    return {"params": {k: v.numpy() for k, v in full["params"].items()},
+            "mu": {k: v.numpy() for k, v in opt.mu.items()},
+            "nu": {k: v.numpy() for k, v in opt.nu.items()},
+            "step": int(opt.step)}
+
+
+def _sharded_state(host: dict, mesh_shape: tuple, zero1: bool,
+                   index: dict) -> tuple:
+    """The full state (:func:`_full_state`) and the slices of it that the
+    rank at ``index`` of a ``mesh_shape`` (data, model) mesh holds, with
+    the specs: ``(full, local, shards)``, ``shards`` as
+    ``train_state_to_reference`` takes them."""
+    from repro_torch.launch.sharding import local_shard, train_specs
+    from repro_torch.optim.adamw import AdamWState
+    cfg = get_reduced(SHARDED_ARCH)
+    full = _full_state(host)
+    sizes = dict(zip(("data", "model"), mesh_shape))
+    p_specs, o_specs, _ = train_specs(cfg, sizes, 2, 8, zero1=zero1)
+
+    def cut(tree, specs):
+        return {k: local_shard(t, specs[k], sizes, index).contiguous()
+                for k, t in tree.items()}
+    opt = full["opt"]
+    local = {"params": cut(full["params"], p_specs),
+             "opt": AdamWState(opt.step, cut(opt.mu, o_specs.mu),
+                               cut(opt.nu, o_specs.mu)), "ef": None}
+    return full, local, (p_specs, o_specs.mu, sizes, index)
+
+
+def _save_rank(rank: int, world: int, host: dict, path: str,
+               mesh_shape: tuple, zero1: bool) -> int:
+    """One rank writes its part of a sharded checkpoint of step 3."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import mesh_index
+    mesh = make_host_mesh(mesh_shape[1], device="cpu")
+    _, local, shards = _sharded_state(host, mesh_shape, zero1,
+                                      mesh_index(mesh))
+    save_checkpoint(path, 3, train_state_to_reference(
+        local, get_reduced(SHARDED_ARCH), shards=shards))
+    return rank
+
+
+@pytest.fixture
+def sharded(tmp_path_factory) -> dict:
+    """Step 3 of one trainer state (:func:`_ref_state`, reduced danube)
+    saved three ways, once: by the reference from a 2-device ``(1, 2)``
+    mesh (its subprocess runs beside the ranks), by two port ranks on the
+    same mesh, and by four port ranks on ``(2, 2)`` with ZeRO-1
+    moments."""
+    if not _SHARDED:
+        import pickle
+        import subprocess
+        import sys
+        from benchmarks._mesh import MESH_SKIP, forced_device_env
+        from repro_torch.launch.mesh import run_ranks
+        tmp = tmp_path_factory.mktemp("sharded")
+        jstate = jax.tree.map(np.asarray, _ref_state(SHARDED_ARCH))
+        with open(tmp / "state.pkl", "wb") as f:
+            pickle.dump(jstate, f)
+        host = _host_state(train_state_from_reference(
+            jstate, get_reduced(SHARDED_ARCH), "cpu"))
+        env = forced_device_env(2)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(REPO / "src"), str(REPO)] + ([env["PYTHONPATH"]]
+                                              if env.get("PYTHONPATH")
+                                              else []))
+        code = ("from benchmarks._mesh import require_devices\n"
+                "if not require_devices(2):\n    raise SystemExit(0)\n" +
+                _REF_SHARDED_SAVE.format(state=str(tmp / "state.pkl"),
+                                         path=str(tmp / "ref")))
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                cwd=str(REPO), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            run_ranks(_save_rank, 2, (host, str(tmp / "port"), (1, 2),
+                                      False))
+            run_ranks(_save_rank, 4, (host, str(tmp / "zero1"), (2, 2),
+                                      True))
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if MESH_SKIP in out:
+            pytest.skip(f"forced 2-device CPU mesh not honored: {out}")
+        assert "REF_SHARDED_SAVED" in out, out[-4000:]
+        _SHARDED.update(ref=tmp / "ref", port=tmp / "port",
+                        zero1=tmp / "zero1", host=host, jstate=jstate)
+    return _SHARDED
+
+
+def _manifest(d) -> dict:
+    return json.loads((d / "step_000000003" / "manifest.json").read_text())
+
+
+def test_sharded_manifests_equal_the_references(sharded):
+    """Paths, shapes, dtypes and every shard's global offsets of the port's
+    two-rank checkpoint equal the reference's from the same mesh (the
+    member names differ: ``_s<rank>_0`` against the reference's
+    ``_s<host>_<device>``); a stacked leaf is whole on its layer dim."""
+    ref, port = _manifest(sharded["ref"]), _manifest(sharded["port"])
+    assert len(ref["leaves"]) == len(port["leaves"])
+    for a, b in zip(ref["leaves"], port["leaves"]):
+        assert (a["path"], a["shape"], a["dtype"]) == \
+            (b["path"], b["shape"], b["dtype"])
+        assert sorted(s["index"] for s in a["shards"]) == \
+            sorted(s["index"] for s in b["shards"]), a["path"]
+    wq = next(e for e in port["leaves"]
+              if e["path"] == "['params']['scan'][0]['attn']['wq']")
+    assert [s["index"] for s in wq["shards"]] == [
+        [[0, 2], [0, 64], [0, 32]], [[0, 2], [0, 64], [32, 64]]]
+    assert sorted(p.name for p in (sharded["port"] / "step_000000003")
+                  .glob("shard_*.npz")) == ["shard_00000.npz",
+                                            "shard_00001.npz"]
+
+
+@pytest.mark.parametrize("which", ("port", "zero1"))
+def test_a_ranks_checkpoint_restores_in_the_reference(sharded, which):
+    """The reference's ``restore_checkpoint`` on one device reads the
+    checkpoint two (and four, ZeRO-1) port ranks wrote, leaf for leaf
+    bit-equal to the state they were cut from."""
+    jstate = sharded["jstate"]
+    back, step = jrestore(sharded[which], jstate)
+    assert step == 3
+    want = _ref_leaves(jstate)
+    got = _ref_leaves(back)
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("which", ("ref", "port", "zero1"))
+def test_sharded_checkpoints_restore_onto_one_device(sharded, which):
+    """Onto one device (no ``shardings``): the whole leaves, from the
+    reference's two-device save and the port ranks' ones alike."""
+    from repro_torch.checkpoint.ckpt import tree_map
+    cfg = get_reduced(SHARDED_ARCH)
+    full = _full_state(sharded["host"])
+    like = train_state_to_reference(tree_map(
+        lambda t: torch.empty_like(t, device="meta"), full), cfg)
+    tree, step = restore_checkpoint(sharded[which], like)
+    assert step == 3
+    want = _port_leaves(train_state_to_reference(full, cfg))
+    got = _port_leaves(tree)
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("which", ("ref", "port", "zero1"))
+@pytest.mark.parametrize("rank", (0, 1))
+def test_sharded_checkpoints_restore_onto_a_ranks_slices(sharded, which,
+                                                         rank):
+    """Onto rank ``rank`` of a ``(1, 2)`` mesh (``shardings=``, the rank's
+    placements): each leaf is exactly that rank's slice of the state --
+    from the reference's save, from two ranks, and elastically from the
+    four ranks' ``(2, 2)`` ZeRO-1 save (moments cut by rows there, by the
+    params' specs here)."""
+    from repro_torch.checkpoint.ckpt import tree_map
+    cfg = get_reduced(SHARDED_ARCH)
+    _, local, shards = _sharded_state(sharded["host"], (1, 2), False,
+                                      {"data": 0, "model": rank})
+    place = train_state_to_reference(tree_map(
+        lambda t: torch.empty_like(t, device="meta"), local), cfg,
+        shards=shards)
+    tree, step = restore_checkpoint(sharded[which], place, shardings=place)
+    assert step == 3
+    got = train_state_from_reference(tree, cfg, "cpu")
+    for k, t in local["params"].items():
+        assert torch.equal(got["params"][k], t), k
+    for k in local["opt"].mu:
+        assert torch.equal(got["opt"].mu[k], local["opt"].mu[k]), k
+        assert torch.equal(got["opt"].nu[k], local["opt"].nu[k]), k
+    assert int(got["opt"].step) == int(local["opt"].step)

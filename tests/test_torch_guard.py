@@ -349,3 +349,60 @@ def test_tensor_parallel_modules_stand_alone(tmp_path):
                             "PATH": "/usr/bin:/bin"})
     assert "TP-STANDALONE-OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-4000:]
+
+
+_MP_RANK_MODULE = '''
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+
+
+def rank_main(rank, world, ckpt):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train  # noqa: F401
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import train_specs
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             run_supervised)
+    cfg = get_reduced("h2o-danube-1.8b")
+    mesh = make_host_mesh(2, device="cpu")
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                      global_batch=4))
+    out = run_supervised(lambda: Trainer(
+        LM(cfg, device="cpu", seed=1, shard=ShardCtx(mesh)), data,
+        TrainerConfig(total_steps=4, ckpt_every=2, ckpt_dir=ckpt),
+        in_shardings=train_specs(cfg, mesh, 4, 8)),
+        failure_schedule={3})
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                   if sys.modules[m] is not None)
+    return out["restarts"], [float(x) for x in out["losses"]]
+'''
+
+
+def test_model_parallel_training_stands_alone(tmp_path):
+    """The loss over a mesh, the sharded trainer (its ``in_shardings`` from
+    ``launch.sharding.train_specs``), sharded checkpoints and the
+    supervised restart run on two gloo ranks of a ``(1, 2)`` mesh with JAX
+    and the JAX package unimportable, in the ranks and their parent."""
+    (tmp_path / "mp_guard_rank.py").write_text(_MP_RANK_MODULE)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import mp_guard_rank
+        from repro_torch.launch.mesh import run_ranks
+        if __name__ == "__main__":
+            r0, r1 = run_ranks(mp_guard_rank.rank_main, 2,
+                               ({str(tmp_path / 'ckpt')!r},), timeout_s=240)
+            assert r0 == r1 and r0[0] == 1 and np.isfinite(r0[1]).all()
+            print("MP-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": f"{REPO / 'src'}:{tmp_path}",
+                            "PATH": "/usr/bin:/bin"})
+    assert "MP-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]

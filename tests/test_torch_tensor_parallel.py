@@ -13,7 +13,9 @@ one spawn for every model, while the reference's subprocess runs; each
 rank loads its slices of the reference's weights with
 ``convert.lm_params_from_reference(mesh=)``).  Outputs are held at
 the reference tests' f32 bound (2e-5); the served tokens, the lookups and
-the cache's integer leaves exactly.  The port alone: the ranks' slices of
+the cache's integer leaves exactly.  (Model-parallel training of the dense
+kinds is held in ``tests/test_torch_mp_train.py``; an MoE model's loss
+over a mesh raises, naming ROADMAP.md item 6e.)  The port alone: the ranks' slices of
 ``LM(seed, shard=)`` join to ``LM(seed)`` bit for bit, the ranks agree bit
 for bit, the sharded embedding executor reads the rank's own rows, and
 what is outside this slice raises.
@@ -489,7 +491,7 @@ def test_sharded_embedding_executor_reads_the_ranks_own_rows(port):
 @pytest.mark.parametrize("case,match", [
     *((a, "NotImplementedError: .*item 6d") for a in OUT_OF_SLICE),
     ("pipeline", "NotImplementedError: .*item 6d"),
-    ("loss", "NotImplementedError: .*item 6c"),
+    ("loss", "NotImplementedError: .*item 6e"),
     ("heads", "ValueError: .*num_kv_heads 3 does not split"),
     ("meta", "ValueError: a sharded LM is built on its mesh's device")])
 def test_what_this_slice_leaves_out_raises(port, case, match):
