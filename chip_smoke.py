@@ -10,6 +10,7 @@
     python3 chip_smoke.py --sharded-only [--seed N]    # phases 4, 5, 17
     python3 chip_smoke.py --tp-only [--seed N]         # phase 18 alone
     python3 chip_smoke.py --mp-train-only [--seed N]   # phase 19 alone
+    python3 chip_smoke.py --disagg-only [--seed N]     # phase 20 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -153,8 +154,8 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``frontend_embeds`` rows spliced in, checked as phase 10's, the splice
    required to move the last hidden state, peak memory;
 13. training (``phase_training``; ``--training-only`` runs it alone after
-   the build): h2o-danube-1.8b at full width, one 8192-token sequence a
-   step, lr 3e-4, 6 steps under ``run_supervised`` with a checkpoint every
+   the build): h2o-danube-1.8b at full width and TRAIN_LAYERS of its 24
+   layers, one 8192-token sequence a step, lr 3e-4, 6 steps under ``run_supervised`` with a checkpoint every
    3 steps and a failure injected at step 4.  Checked: every loss finite,
    the restart's step-3 loss bit-equal to the first attempt's, the state
    restored from step 2's checkpoint equal leaf for leaf to the saved
@@ -190,7 +191,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    the plain version on its own q, k, v, the last hidden state against
    plain attention (``PREFILL_REL_L2``), the encoder's, a cross and a self
    layer's flash time beside its bound and SDPA.  Serving: encoded once,
-   then ``LM.wave_step(batch_ctx=)`` over a 4-token prompt and 60 greedy
+   then ``LM.wave_step(batch_ctx=)`` over a 4-token prompt and 30 greedy
    tokens a slot into caches of 448 (the cross-attention at Sq = 1 in
    every layer of every micro-step); the drive at chunk 1 must give the
    same tokens and bit-identical final logits, a micro-step's cross
@@ -247,7 +248,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    eager bit for bit over the prompts' first quarters, every cache leaf),
    a captured micro-step against its bound (the weights read once and
    the recurrent caches read and written once).  Training: the Trainer
-   on 1 x 512 tokens, 24 of the 48 layers, 2 steps, twice from one seed,
+   on 1 x 512 tokens, 12 of the 48 layers, 2 steps, twice from one seed,
    losses and
    parameters bit-equal, one
    transposition and one sparse ``ember_sls`` launch a step, a nonzero
@@ -301,7 +302,8 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    micro-step ms, collectives and staged MB, peak GiB, beside the card;
    and the ``[18 tp predicted]`` block written before the first run;
 19. model-parallel training (``phase_mp_train``; ``--mp-train-only`` runs
-   phases 1, 2 and 19): (a) h2o-danube-1.8b at full width and depth over
+   phases 1, 2 and 19): (a) h2o-danube-1.8b at full width and MP_DEPTH
+   of its 24 layers over
    two gloo ranks (mesh (1, 2)) sharing the card, each building its half
    of ``LM(cfg, seed)``, MP_STEPS trainer steps of 1 x TRAIN_SEQ tokens
    (phase 13's shape): step 0's loss against the single device's on the
@@ -322,7 +324,26 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    step ms, collectives, staged MB and their ms a step, peak GiB a rank,
    launches by kernel and variant, beside the card; and the ``[19 mp
    predicted]`` block written before the first run;
-20. one JSON line listing the kernels with the kernel (variant) that
+20. the disaggregated embedding tier and serving artifacts
+   (``phase_disagg``; ``--disagg-only`` runs phases 1, 2 and 20):
+   chatglm3-6b at full width and depth served with phase 8's settings,
+   DISAGG_REQUESTS requests, in process (a) and with its decode-embed
+   member over ``ServicePool(2, device="cuda")`` (b), interleaved: every
+   request ok with the same tokens, every wave's replica outputs == the
+   in-process group's == ``embed[tokens]`` bit for bit (the replicas' bulk
+   gather held to its plain version), one bulk gather and one grouping
+   pass a disagg wave in the replicas (read from their pings, which must
+   name the card and no JAX module), ``rpc_steps`` > 0, no stale step; a
+   replica killed mid-drive (no request fails, no wave fault, the respawn
+   re-warms its tables and its compile from the artifacts); every replica
+   dark (``degrade_policy="fail"`` raises ``ServiceUnavailable``,
+   ``"stale"`` serves the same bits locally); two server boots from one
+   ``artifact_dir`` (fresh, then loaded; the same tokens).  Printed:
+   tokens/s and per-token p50/p99 of each drive, the wire bytes a wave,
+   the replicas' peak memory, the recovery seconds, each boot's time to
+   first token, beside the card; and the ``[20 disagg predicted]`` block
+   written before the first run;
+21. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -343,8 +364,10 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    phase 19's as ``mp_launches`` of ``flash_attention``,
    ``flash_attention_bwd``, ``block_gather``, ``gather_transpose`` and
    ``sls_sparse`` (counted in ``launches`` too), with the flash backward's
-   and the gather backward's times at a rank's shapes;
-21. ``{"ok": true, "device": {...}}`` as the last line.
+   and the gather backward's times at a rank's shapes; phase 20's replica
+   gathers as ``disagg_launches`` of ``block_gather`` (counted in
+   ``launches`` too);
+22. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -403,8 +426,10 @@ TP_PREFILL = (2, 512)
 TP_SLOTS, TP_MAX_LEN = 4, 128
 TP_TF_PROMPT, TP_TF_STEPS = 8, 16
 # (8 new tokens a request: 16 took ~20 s of eager, host-bound waves, cut
-# so that phase 19 fits the script's time)
-TP_REQUESTS, TP_PROMPT_MIN, TP_PROMPT_MAX, TP_NEW_TOKENS = 4, 64, 96, 8
+# so that phase 19 fits the script's time; prompts of 32-48 tokens, from
+# 64-96, whose eager prefill waves took most of the 20 s left, cut so
+# that phase 20 fits)
+TP_REQUESTS, TP_PROMPT_MIN, TP_PROMPT_MAX, TP_NEW_TOKENS = 4, 32, 48, 8
 TP_MOE_LAYERS, TP_MOE_PREFILL, TP_MOE_DECODE = 2, (1, 256), 4
 TP_REL_L2 = 5e-2
 # written before the first run on the card (PERF.md, its tensor-parallel
@@ -420,21 +445,23 @@ TP_PREDICTED = {"chatglm3 2x512 prefill": "~1,000-2,000 ms (collectives "
                 "qwen3-moe micro-step": "~10-30 ms",
                 "prefill relative L2": "~5e-3 (fp32 row-parallel sums)",
                 "peak a rank": "~7 GiB chatglm3, ~8 GiB qwen3-moe"}
-# model-parallel training: (a) h2o-danube-1.8b at full width and all 24
-# layers over two ranks (mesh (1, 2)), MP_STEPS steps of 1 x TRAIN_SEQ;
+# model-parallel training: (a) h2o-danube-1.8b at full width and
+# MP_DEPTH of its 24 layers over two ranks (mesh (1, 2)), MP_STEPS steps
+# of 1 x TRAIN_SEQ (all 24 until its steps and the single device's were
+# cut with phase 13's, so that phase 20 fits);
 # (b) its widths at MP_LAYERS layers over four ranks (mesh (2, 2), ZeRO-1),
 # a global batch of MP_BATCH x MP_SEQ, MP_SUP_STEPS steps under
 # run_supervised, a checkpoint every MP_SUP_EVERY, a failure at MP_SUP_FAIL
 # (the restart resumes from step 1 and reruns step 2)
-MP_STEPS = 2
+MP_STEPS, MP_DEPTH = 2, 6
 MP_LAYERS, MP_BATCH, MP_SEQ = 2, 2, 2048
 MP_SUP_STEPS, MP_SUP_EVERY, MP_SUP_FAIL = 4, 2, 3
-# step 0's loss against the single device's (relative): bf16 over 24
+# step 0's loss against the single device's (relative): bf16 over the
 # layers, the ranks' fp32 partial sums rounded once where the single
 # device's GEMM rounds once
 MP_LOSS_REL = 1e-2
 MP_GRAD_LEAVES = ("embed", "final_norm") + tuple(
-    f"blocks.{li}.{n}" for li in (0, 23)
+    f"blocks.{li}.{n}" for li in (0, MP_DEPTH - 1)
     for n in ("norm1", "attn.wq", "attn.wo", "mlp.wi_gate"))
 # written before the first run on the card (PERF.md, the model-parallel
 # training findings): a step of (a) stages 24 layers x 4 fp32 all-reduces
@@ -508,8 +535,13 @@ LLAVA_SEQ = 4096
 # training: h2o-danube-1.8b at full width on one 8192-token sequence a step
 # (the band of its 4096-token window cuts keys in the backward too), 6
 # steps, a checkpoint every 3 (after step 2 and step 5), a failure injected
-# before step 4: the restart resumes from step 2 and reruns step 3
+# before step 4: the restart resumes from step 2 and reruns step 3.  On
+# TRAIN_LAYERS of its 24 layers: the two checkpoints' writes and the
+# restore (17.5 GB each at 24 layers, 9.2 GB at 12) took ~110 s of the
+# script's time at 24 layers, cut so that phase 20 fits with room for a
+# slow machine; the widths are whole
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8192, 6, 3, 4
+TRAIN_LAYERS = 6
 TRAIN_CKPT_STEP = TRAIN_CKPT_EVERY - 1
 TRAIN_LR = 3e-4
 # the eager served path the captured wave is compared with: the same
@@ -617,11 +649,13 @@ DS_UNDISPATCH_DISTINCT, DS_D_MODEL = 94_270, 2048
 # whisper-large-v3 (phase 14): 8 clips of its published enc_seq, 1500
 # frames (a 30-second window), prefilled with as many decoder tokens (the
 # reference's encoder runs its rotary at the decoder's positions); served:
-# encoded once, a 4-token prompt, then 60 greedy tokens a slot into caches
-# of 448 positions, whisper's decoder context (arXiv:2212.04356); trained
-# on 1 x 1500 tokens and frames a step, 3 steps, twice from one seed
+# encoded once, a 4-token prompt, then 30 greedy tokens a slot (60 until
+# cut so that phase 20 fits: the eager drives and the plain-attention
+# decode beside them are host-bound) into caches of 448 positions,
+# whisper's decoder context (arXiv:2212.04356); trained on 1 x 1500 tokens
+# and frames a step, 3 steps, twice from one seed
 WHISPER_BATCH, WHISPER_FRAMES = 8, 1500
-WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 60, 448
+WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 30, 448
 WHISPER_TRAIN_STEPS = 3
 # zamba2-7b (phase 15): the prefill phases' 4 x 4096 tokens (13 shared_attn
 # launches at head dim 112); served: 8 requests of 256 or 320 prompt tokens
@@ -671,16 +705,16 @@ ZAMBA_FWD_DECODE_REL_L2 = 2e-2
 # 2048-token step took ~40 s, nearly all of it the host issuing the sLSTM
 # loop's forward and backward; with phase 17 the script neared its 20
 # minutes and 1024 tokens halved the loop; for phase 19 the steps take
-# 512 tokens and XLSTM_TRAIN_LAYERS of the 48 layers, a quarter of the
-# loop again: its length and the sLSTM layers' count set the step's
-# time, the widths are whole).  The sLSTM layers are profiled over a window of
+# 512 tokens and 24 of the 48 layers, a quarter of the loop again; for
+# phase 20, XLSTM_TRAIN_LAYERS = 12: its length and the sLSTM layers'
+# count set the step's time, the widths are whole).  The sLSTM layers are profiled over a window of
 # XLSTM_WINDOW steps and scaled to the whole loop: every step issues the
 # same kernels, and a whole layer's ~100,000 kernels take minutes to read
 # under the profiler
 XLSTM_BLOCK_SEQ, XLSTM_BLOCK_DECODE = 512, 16
 XLSTM_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
 XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_LAYERS = 512, 2, 24
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_LAYERS = 512, 2, 12
 XLSTM_WINDOW = 256
 # the first super-block on the card against the CPU in fp32: the relative
 # L2 of the hidden states, of each decode step's logits and of every cache
@@ -702,6 +736,34 @@ XLSTM_CARD_CPU_REL_L2 = 1e-4
 # clamp at 1) and 0.1205 (rh dropped); the bound is 6x the first reading
 # (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6, xlstm-1.3b's findings)
 XLSTM_FWD_DECODE_REL_L2 = 5e-5
+
+
+# phase 20: the disaggregated tier.  chatglm3-6b at full width and depth
+# served with phase 8's settings, DISAGG_REQUESTS requests (one closed
+# batch of the 8 slots) of DISAGG_NEW_TOKENS new tokens, in-process and
+# over ServicePool(2, device="cuda"), DISAGG_ROUNDS rounds interleaved; a
+# replica killed after serving iteration DISAGG_KILL_AT of a third drive
+DISAGG_REQUESTS, DISAGG_NEW_TOKENS, DISAGG_ROUNDS = 8, 16, 2
+DISAGG_KILL_AT = 6
+DISAGG_RPC_TIMEOUT_S, DISAGG_REVIVE_S = 60.0, 120.0
+# written before the first run on the card (PERF.md, the disaggregated
+# tier's findings): a wave's reply is 8 slots x 2 ops x 4,096 x 2 B; a
+# captured micro-step 8.424 device ms (PERF.md section 5)
+DISAGG_PREDICTED = {
+    "wire bytes a wave": "request < 1 KB, reply ~131.5 KB",
+    "(b) against (a)": "per-token p50 within +0.2..+1.5 ms of (a)'s ~10 ms, "
+                       "tokens/s 85-100 % of (a)'s (the hop overlaps the "
+                       "next LM wave; its copy back does not)",
+    "bind": "~1-3 s: 532.7 MB to each replica over loopback + the warm "
+            "artifact's write",
+    "respawn recovery": "~8-15 s (a process reaching the card, reading the "
+                        "532.7 MB warm checkpoint, loading the artifact)",
+    "replica peak": "~0.55-1.1 GB (the table, once or briefly twice at a "
+                    "rebind)",
+    "artifact boot vs fresh": "time to first token within 10 ms: the "
+                              "program compiles in milliseconds, the boot "
+                              "is the graph capture",
+    "phase 20": "~45-75 s"}
 
 
 class CheckFailed(RuntimeError):
@@ -4435,9 +4497,9 @@ class _Capture:
 
 
 def phase_training(seed: int, card: str) -> dict:
-    """h2o-danube-1.8b trained at full width (24 dense_local layers, d_model
-    2560, 32 heads over 8 KV heads, head dim 80, window 4096, bf16;
-    1,749,281,280 parameters, random from ``seed``) on one 8192-token
+    """h2o-danube-1.8b trained at full width (TRAIN_LAYERS of its 24
+    dense_local layers, d_model 2560, 32 heads over 8 KV heads, head dim
+    80, window 4096, bf16; random from ``seed``) on one 8192-token
     sequence a step (SyntheticTokens), lr 3e-4, for 6 steps under
     ``run_supervised``: a checkpoint every 3 steps, a failure injected at
     step 4, the restart from step 2's checkpoint.  Checked: every loss
@@ -4458,7 +4520,8 @@ def phase_training(seed: int, card: str) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
                                              run_supervised)
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              num_layers=TRAIN_LAYERS)
     ckpt_dir = REPO / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
@@ -4658,7 +4721,8 @@ def phase_training(seed: int, card: str) -> dict:
         batch["tokens"].reshape(-1).to(torch.int32), cfg.padded_vocab, 10)
     bound_ms, bound_by, flops = _flash_bwd_bound(q, v, window)
     fwd_bound_ms = _flash_bound(q, k, v, window)[0]
-    print(f"[13 training] h2o-danube-1.8b trained at full width ({n_params:,}"
+    print(f"[13 training] h2o-danube-1.8b trained at full width and "
+          f"{cfg.num_layers} of its 24 layers ({n_params:,}"
           f" parameters, bf16; 1 x {TRAIN_SEQ} tokens a step, lr {TRAIN_LR},"
           f" run_supervised with a checkpoint every {TRAIN_CKPT_EVERY} steps "
           f"and a failure at step {TRAIN_FAIL_AT}): losses by attempt "
@@ -5589,7 +5653,7 @@ def _ssd_layer_ms(model, tokens) -> tuple:
     return ms, flops
 
 
-def _fwd_decode(model, srv, prompts) -> dict:
+def _fwd_decode(model, srv, prompts, faults: bool = True) -> dict:
     """Forward == decode at full width: each prompt's logits at its last
     token from the chunked forward (``LM.forward``, prompts of one length
     batched) against the logits the server's captured wave gives there when
@@ -5599,7 +5663,8 @@ def _fwd_decode(model, srv, prompts) -> dict:
     the graphs read): the decay skipped (``A_log`` = -inf: exp(dt A) = 1)
     in the middle mamba layer, and the conv window shifted by one (the taps
     read one input earlier: ``conv_w`` = [w1, w2, w3, 0]) in the first.
-    Returns the relative L2 of each."""
+    Returns the relative L2 of each (``faults=False``: of the sound
+    replay alone, and the replay again)."""
     import torch
     from repro_torch.core import embedding_engine as ee
     from repro_torch.models.lm import layer_kinds
@@ -5627,12 +5692,12 @@ def _fwd_decode(model, srv, prompts) -> dict:
     out = {"rel_l2": rel(decode())}
     mamba = [i for i, k in enumerate(layer_kinds(cfg)) if k == "mamba"]
     mid, first = mamba[len(mamba) // 2], mamba[0]
-    faults = {f"layer {mid}'s decay skipped": (mid, "A_log", lambda w: (
+    planted = {f"layer {mid}'s decay skipped": (mid, "A_log", lambda w: (
                   torch.full_like(w, float("-inf")))),
               f"layer {first}'s conv window shifted by one": (
                   first, "conv_w", lambda w: torch.cat(
                       [w[1:], torch.zeros_like(w[:1])]))}
-    for name, (layer, key, edit) in faults.items():
+    for name, (layer, key, edit) in (planted if faults else {}).items():
         param = model.blocks[layer].mamba[key]
         saved = param.detach().clone()
         with torch.no_grad():
@@ -5898,7 +5963,9 @@ def phase_zamba2(seed: int, card: str) -> dict:
           f"iteration "
           f"({lock_leaves} comparisons) the same bits, the same tokens; "
           f"peak device memory {peak / 2**30:.2f} GiB; {card}")
-    bf16_fd = _fwd_decode(model, srv, prompts)
+    # read in bf16 (the depth's amplification makes it no check), so its
+    # planted faults' replays are left to the fp32 model's held check
+    bf16_fd = _fwd_decode(model, srv, prompts, faults=False)
     del model, main, srv, tokens
     free_cuda()
     t2 = time.perf_counter()
@@ -5908,9 +5975,7 @@ def phase_zamba2(seed: int, card: str) -> dict:
     print(f"[15 zamba2 forward == decode] {ZAMBA_REQUESTS} prompts, the "
           f"chunked forward's logits at each prompt's last token against "
           f"the captured decode replay's (relative L2): bf16 (read: the "
-          f"depth's amplification) {bf16_fd.pop('rel_l2'):.4g}, its planted "
-          f"faults " + "; ".join(f"{k}: {v:.4g}" for k, v in
-                                 bf16_fd.items()) +
+          f"depth's amplification) {bf16_fd.pop('rel_l2'):.4g}"
           f"; fp32 (the same seed, {f32['weight_bytes'] / 1e9:.2f} GB; the "
           f"reference's invariant) {rel_l2:.4g} (tol "
           f"{ZAMBA_FWD_DECODE_REL_L2}), planted faults (required above "
@@ -7122,6 +7187,13 @@ def _free_after_tp(before: int) -> None:
 # Phase 19: model-parallel training over gloo ranks on the card
 # ---------------------------------------------------------------------------
 
+def _mp_config():
+    """h2o-danube-1.8b at full width and MP_DEPTH of its layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("h2o-danube-1.8b"),
+                               num_layers=MP_DEPTH)
+
+
 def _host_f32(t):
     return t.detach().float().cpu().numpy()
 
@@ -7205,7 +7277,7 @@ def _mp_rank_a(rank: int, world: int, job: dict) -> dict:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_host_mesh(world)
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = _mp_config()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, seed=job["seed"], shard=ShardCtx(mesh))
@@ -7422,7 +7494,7 @@ def _mp_single(seed: int, tokens, labels) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    lm = LM(get_config("h2o-danube-1.8b"), seed=seed).requires_grad_(True)
+    lm = LM(_mp_config(), seed=seed).requires_grad_(True)
     loss = lm.loss(tokens.to(lm.device), labels.to(lm.device))
     loss.backward()
     params = dict(lm.named_parameters())
@@ -7483,7 +7555,8 @@ def _mp_supervised_checks(ranks: list) -> dict:
 def phase_mp_train(seed: int, card: str) -> dict:
     """Phase 19: model-parallel training over gloo ranks sharing the card
     (spawned, a file store; every collective staged through pinned host
-    memory), (a) h2o-danube-1.8b at full width and depth over two ranks,
+    memory), (a) h2o-danube-1.8b at full width and MP_DEPTH of its 24
+    layers over two ranks,
     (b) its widths at MP_LAYERS layers over four, ZeRO-1 and a supervised
     restart from a sharded checkpoint (module docstring, 19).  Returns the
     launches by kernel and the times at a rank's shapes."""
@@ -7494,7 +7567,7 @@ def phase_mp_train(seed: int, card: str) -> dict:
     print("[19 mp predicted] written before the first run on the card "
           "(PERF.md): " + "; ".join(f"{k} {v}"
                                           for k, v in MP_PREDICTED.items()))
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = _mp_config()
     batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=TRAIN_SEQ,
                                        global_batch=1)).batch_at(0)
@@ -7558,7 +7631,8 @@ def phase_mp_train(seed: int, card: str) -> dict:
         cl = steps[-1]["coll"]
         step_txt = ", ".join(f"{s['ms']:.1f}" for s in steps)
         print(f"[19 mp danube rank {rank}] h2o-danube-1.8b at full width "
-              f"and depth, this rank's half ({r['held_bytes'] / 1e9:.3f} GB "
+              f"and {MP_DEPTH} of its 24 layers, this rank's half "
+              f"({r['held_bytes'] / 1e9:.3f} GB "
               f"of weights held, init {r['init_s']:.1f} s); {n_steps} steps "
               f"of 1 x {TRAIN_SEQ}: losses "
               f"{[s['loss'] for s in steps]}, step ms (host clock, "
@@ -7673,6 +7747,347 @@ def _free_after_mp(before: int) -> None:
             f"{(held - before) / 2**30:.2f} GiB allocated")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the disaggregated embedding tier and serving artifacts
+# ---------------------------------------------------------------------------
+
+def _disagg_server_drive(model, prompts, new_tokens: int, kill=None,
+                         **server_kw) -> dict:
+    """Serve ``prompts`` through a fresh graph server of phase 8's settings
+    (``server_kw``: the tier's or the artifact's knobs), one serving
+    iteration at a time, recording every wave's decode-embed token stream
+    and its handle.  ``kill = (iteration, fn)`` calls ``fn`` after that
+    serving iteration (a replica killed mid-drive).  Returns the server,
+    the requests, the boot seconds (the server's construction), the
+    drive's wall seconds and per-iteration seconds, and the waves'
+    ``(tokens, outputs)`` resolved after the drive."""
+    import torch
+    from repro_torch.runtime.server import DecodeServer, Request, WaveGraph
+    t0 = time.perf_counter()
+    srv = DecodeServer(model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       prefill_chunk=SERVE_CHUNK, pipeline=True, **server_kw)
+    t_boot = time.perf_counter()
+    require(isinstance(srv._wave, WaveGraph),
+            "a server on the card must run its captured wave")
+    grp = srv.pipeline_group
+    name = grp.names[0]
+    recorded = []
+    submit_wave = grp.submit_wave
+
+    def spy(wave):
+        hs = submit_wave(wave)
+        recorded.append((wave[name]["tok_embed"]["idxs"].copy(), hs[name]))
+        return hs
+    grp.submit_wave = spy
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new_tokens)
+            for p in prompts]
+    for r in reqs:
+        srv.submit(r)
+    iters = []
+    while srv.queue or any(r is not None for r in srv.active):
+        t1 = time.perf_counter()
+        srv.step()
+        iters.append(time.perf_counter() - t1)
+        if kill is not None and len(iters) == kill[0]:
+            kill[1]()
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_boot
+    waves = [(toks, h.result()) for toks, h in recorded]
+    grp.submit_wave = submit_wave
+    return {"srv": srv, "reqs": reqs, "name": name, "waves": waves,
+            "boot_s": t_boot - t0, "wall": wall, "iters": iters,
+            "ttft_boot_s": min(r.t_first for r in reqs) - t0}
+
+
+def _disagg_metrics(run: dict, new_tokens: int) -> dict:
+    reqs = run["reqs"]
+    per_token = [b - a for r in reqs
+                 for a, b in zip(r.token_times, r.token_times[1:])]
+    return {"tokens_per_s": len(reqs) * new_tokens / run["wall"],
+            "per_token": _percentiles(per_token),
+            "ttft": _percentiles([r.t_first - r.t_submit for r in reqs])}
+
+
+def _same_drive(run: dict, want: dict, what: str) -> None:
+    """Every request ok with ``want``'s tokens, and every wave's
+    decode-embed outputs ``want``'s bits."""
+    for i, (r, w) in enumerate(zip(run["reqs"], want["reqs"])):
+        require(r.status == "ok" and r.out == w.out,
+                f"{what}: request {i} ended {r.status} with {r.out[:6]}... "
+                f"vs {w.out[:6]}...")
+    require(len(run["waves"]) == len(want["waves"]),
+            f"{what}: {len(run['waves'])} waves vs {len(want['waves'])}")
+    for k, ((toks, got), (wtoks, exp)) in enumerate(zip(run["waves"],
+                                                        want["waves"])):
+        require(np.array_equal(toks, wtoks), f"{what}: wave {k}'s tokens")
+        for n in exp:
+            require(got[n].dtype == exp[n].dtype and
+                    got[n].device == exp[n].device and
+                    bool((got[n] == exp[n]).all()),
+                    f"{what}: wave {k}'s {n} differs from the in-process "
+                    f"group's")
+
+
+def _pings(pool) -> list:
+    return [r.hb.call("ping")[0] for r in pool.replicas]
+
+
+def _replica_gathers(pings: list) -> dict:
+    """The replicas' block-gather launches by variant, summed."""
+    total = collections.Counter()
+    for p in pings:
+        total.update(p["variant_launches"]["block_gather"])
+    return dict(total)
+
+
+def phase_disagg(seed: int, card: str) -> dict:
+    """Phase 20 (``--disagg-only``): chatglm3-6b at full width and depth
+    served through the disaggregated tier and booted from an artifact; the
+    card freed after it."""
+    t0 = time.perf_counter()
+    result = _disagg_body(seed, card)
+    free_cuda()
+    print(f"[20 disagg time] phase {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def _disagg_body(seed: int, card: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import artifact as art
+    from repro_torch.core.executor import clear_executor_cache, executor_for
+    from repro_torch.core.pipeline import clear_compile_cache
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.embedding_service import ServicePool
+    from repro_torch.runtime.faults import ServiceUnavailable
+    from repro_torch.runtime.rpc import frame_bytes
+    print("[20 disagg predicted] (written before the first run on the card) "
+          + "; ".join(f"{k}: {v}" for k, v in DISAGG_PREDICTED.items()))
+    cfg = get_config("chatglm3-6b")
+    model = LM(cfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, DISAGG_REQUESTS)]
+    table_mb = model.embed.numel() * model.embed.element_size() / 1e6
+    marks = {}
+    t0 = time.perf_counter()
+    pool = ServicePool(2, device="cuda", rpc_timeout_s=DISAGG_RPC_TIMEOUT_S,
+                       backoff_s=0.05)
+    marks["pool"] = time.perf_counter() - t0
+    try:
+        svc = {"service": "disagg", "service_pool": pool}
+        # the warm-up (cuBLAS, the allocator, the kernels: the LM's waves
+        # run in this process either way) is a disagg drive, whose first
+        # wave binds (the table shipped to both replicas, the warm artifact
+        # written)
+        t0 = time.perf_counter()
+        _disagg_server_drive(model, [p[:8] for p in prompts[:2]], 2, **svc)
+        marks["bind drive"] = time.perf_counter() - t0
+        name = f"{cfg.name}-decode-embed"
+        ex = executor_for(model.decode_embed_program(SERVE_SLOTS),
+                          device=model.device, backend="cuda",
+                          index_policy="strict", **svc)
+        require(ex.stats["table_stacks"] == 1 and ex.service == "disagg",
+                f"the server's decode-embed member did not bind once: "
+                f"{ex.stats}")
+
+        # (a) in-process and (b) disaggregated, interleaved: a, b, a, b
+        runs = {"a": [], "b": []}
+        before = _replica_gathers(_pings(pool))
+        kops.reset_launch_counts()
+        for _ in range(DISAGG_ROUNDS):
+            runs["a"].append(_disagg_server_drive(model, prompts,
+                                                  DISAGG_NEW_TOKENS))
+            runs["b"].append(_disagg_server_drive(model, prompts,
+                                                  DISAGG_NEW_TOKENS, **svc))
+        inproc = kops.variant_launch_counts()["block_gather"]
+        pings = _pings(pool)
+        after = _replica_gathers(pings)
+        launches = {v: after.get(v, 0) - before.get(v, 0)
+                    for v in ("bulk", "group", "rows")}
+        a0 = runs["a"][0]
+        waves = sum(len(r["waves"]) for r in runs["b"])
+        for k, run in enumerate(runs["a"][1:] + runs["b"]):
+            _same_drive(run, a0, f"drive {k + 1}")
+        for toks, got in a0["waves"]:
+            want = model.embed[torch.from_numpy(toks).long().to(
+                model.device)]
+            for n in got:
+                require(bool((got[n][:, 0] == want).all()),
+                        f"decode-embed {n} != embed[tokens]")
+        require(launches == {"bulk": waves, "group": waves, "rows": 0},
+                f"the replicas launched {launches} gathers for {waves} "
+                f"disagg waves")
+        require(inproc["bulk"] == sum(len(r["waves"]) for r in runs["a"]),
+                f"the in-process drives launched {inproc}")
+        require(ex.stats["rpc_steps"] > 0 and ex.stats["stale_steps"] == 0
+                and ex.stats["degraded_failed_steps"] == 0,
+                f"disagg executor stats {ex.stats}")
+        for i, p in enumerate(pings):
+            require(p["device"] == torch.cuda.get_device_name(0),
+                    f"replica {i} runs on {p['device']}")
+            require(p["variant_launches"]["block_gather"]["bulk"] > 0,
+                    f"replica {i} launched no bulk gather")
+            require(p["foreign_modules"] == [],
+                    f"replica {i} imported {p['foreign_modules']}")
+        toks, outs = runs["b"][0]["waves"][-1]
+        streams = {"tok_embed/idxs": toks, "label_gather/idxs": toks}
+        req_bytes = frame_bytes("step", {"client": "x", "seq": 1}, streams)
+        reply_bytes = frame_bytes(
+            "ok", {"ok": True, "seq": 1, "steps": 1},
+            {n: t.cpu() for n, t in outs.items()})
+        ma = [_disagg_metrics(r, DISAGG_NEW_TOKENS) for r in runs["a"]]
+        mb = [_disagg_metrics(r, DISAGG_NEW_TOKENS) for r in runs["b"]]
+        print(f"[20 disagg serving] {cfg.name} {cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.padded_vocab}, bf16 "
+              f"(random, seed {seed}); DecodeServer(batch_slots="
+              f"{SERVE_SLOTS}, max_len={SERVE_MAX_LEN}, prefill_chunk="
+              f"{SERVE_CHUNK}, pipeline=True), {DISAGG_REQUESTS} requests "
+              f"(prompts {lo}-{hi}), {DISAGG_NEW_TOKENS} new tokens each, "
+              f"all ok, the same tokens in every drive; interleaved "
+              + "; ".join(f"({k}{i}) {m['tokens_per_s']:.1f} tokens/s, per "
+                          f"token {m['per_token']}, TTFT {m['ttft']}"
+                          for k, ms in (("a", ma), ("b", mb))
+                          for i, m in enumerate(ms))
+              + f"; (b) = ServicePool(2, device='cuda'): rpc_steps "
+              f"{ex.stats['rpc_steps']}, stale_steps 0; wire bytes a wave: "
+              f"request {req_bytes}, reply {reply_bytes}; {card}")
+        print(f"[20 disagg replicas] the embed table {table_mb:.1f} MB "
+              f"shipped once at bind to each replica and written once into "
+              f"the warm artifact; pool of 2 up in {marks['pool']:.1f} s, "
+              f"the binding drive {marks['bind drive']:.1f} s; the replicas' "
+              f"gathers in the {DISAGG_ROUNDS} disagg drives: bulk "
+              f"{launches['bulk']}, grouping pass {launches['group']} = one "
+              f"a wave, outputs == the in-process group's == embed[tokens] "
+              f"bit for bit; each replica: "
+              + "; ".join(f"{p['device']}, {p['steps']} steps, gathers "
+                          f"{p['variant_launches']['block_gather']}, peak "
+                          f"{p['peak_bytes'] / 2**20:.1f} MiB, foreign "
+                          f"modules {p['foreign_modules']}" for p in pings)
+              + f"; {card}")
+
+        # a replica killed mid-drive: no request fails, the respawn
+        # re-warms its tables and its compile from the artifacts
+        respawns = pool.stats()["respawns"]
+        kill = _disagg_server_drive(
+            model, prompts, DISAGG_NEW_TOKENS,
+            kill=(DISAGG_KILL_AT, lambda: pool.kill_replica(0)), **svc)
+        _same_drive(kill, a0, "the drive with a replica killed")
+        faults = kill["srv"].serve_stats["wave_faults"]
+        require(faults == 0, f"the failover surfaced in {faults} wave "
+                f"fault(s): it must be transparent")
+        t0 = time.perf_counter()
+        while pool.replicas[0].state != "live":
+            pool.heartbeat_once()
+            time.sleep(0.05)
+            require(time.perf_counter() - t0 < DISAGG_REVIVE_S,
+                    f"replica 0 not back within {DISAGG_REVIVE_S} s")
+        s = pool.stats()
+        # a step pending on the victim fails over; a send to it retries
+        require(s["respawns"] > respawns and
+                s["failovers"] + s["retries"] > 0,
+                f"the kill did not reroute and respawn: {s}")
+        require(s["warm_sources"][-1] == "artifact" and
+                s["compile_sources"][-1] == "artifact",
+                f"the respawned replica re-warmed from "
+                f"{s['warm_sources'][-1]}, compiled from "
+                f"{s['compile_sources'][-1]}")
+        revived = pool.replicas[0].hb.call("ping")[0]
+        after_kill = _disagg_server_drive(model, prompts, DISAGG_NEW_TOKENS,
+                                          **svc)
+        _same_drive(after_kill, a0, "the drive after the revival")
+        print(f"[20 disagg failover] replica 0 killed after serving "
+              f"iteration {DISAGG_KILL_AT}: every request ok with the "
+              f"in-process tokens and decode-embed bits, no wave fault "
+              f"({s['failovers']} failovers, {s['retries']} retries); "
+              f"respawned (pid {revived['pid']}) "
+              f"warm_source {s['warm_sources'][-1]}, compile_source "
+              f"{s['compile_sources'][-1]}, recovery "
+              f"{s['recoveries_s'][-1]:.2f} s (dark to probed live); a drive "
+              f"after it the same bits; {card}")
+
+        # every replica dark: "fail" raises typed, "stale" serves locally
+        stale = executor_for(model.decode_embed_program(SERVE_SLOTS),
+                             device=model.device, backend="cuda",
+                             index_policy="strict",
+                             degrade_policy="stale", **svc)
+        toks = np.asarray([r.out[-1] for r in a0["reqs"]], np.int32)
+        wave = {"tok_embed": {"table": model.embed, "idxs": toks},
+                "label_gather": {"table": model.embed, "idxs": toks}}
+        want = model.embed[torch.from_numpy(toks).long().to(model.device)]
+        t0 = time.perf_counter()
+        got = stale.step(wave)             # binds: the table shipped again
+        bind_s = time.perf_counter() - t0
+        require(all(bool((got[n][:, 0] == want).all()) for n in got),
+                "stale executor (live pool) != embed[tokens]")
+        pool.auto_respawn = False
+        for i in range(2):
+            pool.kill_replica(i)
+            pool.replicas[i].proc.wait(timeout=30)
+        try:
+            ex.step(wave)
+            raise CheckFailed("a dark pool under degrade_policy='fail' "
+                              "served a step")
+        except ServiceUnavailable as e:
+            failed = f"{type(e).__name__}: {str(e)[:160]}"
+        require(ex.stats["degraded_failed_steps"] == 1,
+                f"fail executor {ex.stats}")
+        got = stale.step(wave)
+        require(all(bool((got[n][:, 0] == want).all()) for n in got)
+                and stale.stats["stale_steps"] == 1,
+                f"stale executor on a dark pool: {stale.stats}")
+        print(f"[20 disagg dark] both replicas killed, no respawn: "
+              f"degrade_policy='fail' raised {failed}; 'stale' served the "
+              f"wave on this process's card (the local table, the bulk "
+              f"gather), == embed[tokens] bit for bit, stale_steps 1 (its "
+              f"binding step, the table shipped to both replicas and the "
+              f"warm artifact rewritten, {bind_s:.2f} s); {card}")
+    finally:
+        pool.close()
+
+    # two boots from one artifact directory: fresh, then loaded
+    adir = REPO / "build" / "disagg_artifact"
+    shutil.rmtree(adir, ignore_errors=True)
+    boots = []
+    art.reset_artifact_stats()
+    for _ in range(2):
+        clear_executor_cache()
+        clear_compile_cache()
+        run = _disagg_server_drive(model, prompts, DISAGG_NEW_TOKENS,
+                                   artifact_dir=str(adir))
+        _same_drive(run, a0, "the artifact boot")
+        boots.append(run)
+    sources = [b["srv"].compile_stats["artifact"]["compile_source"]
+               for b in boots]
+    require(sources == ["fresh", "artifact"],
+            f"artifact boots compiled from {sources}")
+    stats = art.artifact_stats()
+    require(stats["rejects"] == {}, f"artifact rejects {stats['rejects']}")
+    print(f"[20 disagg artifact] two server boots with artifact_dir=: "
+          f"compile_source {sources[0]} then {sources[1]} (loads "
+          f"{stats['loads']}, saves {stats['saves']}, rejects none), the "
+          f"same tokens and decode-embed bits as the in-process drive; "
+          f"boot (the server built, its 3 graphs captured) "
+          f"{boots[0]['boot_s']:.3f} / {boots[1]['boot_s']:.3f} s, time to "
+          f"first token from the boot {boots[0]['ttft_boot_s']:.3f} / "
+          f"{boots[1]['ttft_boot_s']:.3f} s; {card}")
+    shutil.rmtree(adir, ignore_errors=True)
+    return {"disagg_launches": launches["bulk"],
+            "disagg_group_launches": launches["group"],
+            "disagg_waves": waves,
+            "disagg_replica_peak_mib": [round(p["peak_bytes"] / 2**20, 1)
+                                        for p in pings],
+            "disagg_wire_bytes": {"request": req_bytes,
+                                  "reply": reply_bytes},
+            "disagg_tokens_per_s": {"a": [round(m["tokens_per_s"], 1)
+                                          for m in ma],
+                                    "b": [round(m["tokens_per_s"], 1)
+                                          for m in mb]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7701,6 +8116,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mp-train-only", action="store_true",
                     help="run phases 1, 2 and 19 alone (model-parallel "
                          "training over gloo ranks, no JSON)")
+    ap.add_argument("--disagg-only", action="store_true",
+                    help="run phases 1, 2 and 20 alone (the disaggregated "
+                         "embedding tier and serving artifacts, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -7747,6 +8165,10 @@ def main(argv=None) -> int:
         before = torch.cuda.memory_allocated()
         phase_mp_train(args.seed, card)
         _free_after_mp(before)
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.disagg_only:
+        phase_disagg(args.seed, card)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     alone = (phase_training if args.training_only else
@@ -7812,6 +8234,9 @@ def main(argv=None) -> int:
     mp = phase_mp_train(args.seed, card)
     _free_after_mp(before)
     seconds["19"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    disagg = phase_disagg(args.seed, card)
+    seconds["20"] = time.perf_counter() - t0
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     instances = collections.Counter(flash.pop("instances"))
     prefill = later.pop("7 stablelm")
@@ -7933,6 +8358,11 @@ def main(argv=None) -> int:
         k = next(k for k in kernels if k["name"] == kname)
         k["mp_rank_embedding"] = {f: split[f] for f in keys}
     bwd.update({f"mp_{k}": v for k, v in mp.items()})
+    # phase 20's launches: the bulk gathers the replica processes ran for
+    # the disaggregated drives (read from their pings)
+    gather["disagg_launches"] = disagg.pop("disagg_launches")
+    gather["launches"] += gather["disagg_launches"]
+    gather.update(disagg)
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

@@ -372,6 +372,21 @@ def publish_dir(parent: Path, tmp_dir: Path, final_dir: Path,
     _fsync_dir(parent)                    # ... and the commit marker
 
 
+def atomic_write_text(path, text: str) -> None:
+    """Durable atomic single-file publish: write a tmp sibling, fsync it,
+    rename it over the target, fsync the directory.  A bare
+    ``write_text`` + ``rename`` is atomic against readers but not against
+    power loss: the rename can land before the data blocks do."""
+    path = Path(path)
+    tmp = path.with_name("." + path.name + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    tmp.rename(path)
+    _fsync_dir(path.parent)
+
+
 def _fsync_dir(path: Path) -> None:
     """Best-effort directory fsync (rename/unlink durability on POSIX)."""
     try:

@@ -70,14 +70,33 @@ the hot slab a live cache: windowed row counts re-rank it when the hot
 hit-rate drifts, and :meth:`ProgramExecutor.swap_hot_slab` restacks the
 local tables in place.  A 1-wide mesh is the single-device executor.
 
-Not ported yet (ROADMAP.md): the disaggregated service and its degrade
-policy, and serving artifacts.
+**The disaggregated tier** (``service="disagg"``, ``service_pool=`` a
+:class:`repro_torch.runtime.embedding_service.ServicePool`, duck-typed so
+``core`` never imports ``runtime``): a step's index streams go to a
+replica process that holds the tables on its own device and runs the
+program there; the request leaves at :meth:`ProgramExecutor.submit` and
+the reply is consumed at :meth:`StepHandle.result`, so the submit/result
+overlap hides the hop.  The reply's tensors are copied to the client's
+device: the same bits, in the dtype the in-process path returns.  The
+tables are shipped once, at the first step, and again only when other
+table objects arrive (after a drain).  While every replica is dark
+(``ServiceUnavailable``) the ``degrade_policy`` decides: a step whose
+lookups all fall in the client's hot slab (``hot_rows``) runs here, and
+so does every other step under ``"stale"`` (the local tables, on the
+client's device, through the same kernels); under ``"fail"`` it raises
+typed.
+
+**Serving artifacts** (``executor_for(..., artifact_dir=)``,
+:mod:`.artifact`): a boot loads the compile result instead of compiling
+when the committed artifact's fingerprint and identity match, else
+compiles fresh and saves it back.
 """
 from __future__ import annotations
 
 import dataclasses
 import weakref
 from collections import deque
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -95,6 +114,25 @@ from .pipeline import (BoundedLru, ProgramCompileResult, compile_program,
                        entries_by_shards)
 
 BACKENDS = ("cuda", "torch")
+SERVICES = ("inproc", "disagg")
+DEGRADE_POLICIES = ("fail", "stale")
+
+
+def _check_service(service: str, service_pool, degrade_policy: str,
+                   shards: int) -> None:
+    """The disaggregated tier's arguments, validated as the reference
+    asserts them."""
+    if service not in SERVICES:
+        raise ValueError(f"service {service!r} not in {SERVICES}")
+    if degrade_policy not in DEGRADE_POLICIES:
+        raise ValueError(f"degrade_policy {degrade_policy!r} not in "
+                         f"{DEGRADE_POLICIES}")
+    if service == "disagg":
+        if service_pool is None:
+            raise ValueError("service='disagg' requires a service_pool")
+        if shards > 1:
+            raise ValueError("the disaggregated service is a single-shard "
+                             "client path")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,13 +166,16 @@ class StepHandle:
     done: bool = False
     faults: object = None         # chaos injector (site "result"), if any
     deferred: bool = False        # outputs wait for a TransferBatch flush
+    # a disaggregated step: a zero-argument resolver of the outputs still
+    # on the wire (the RPC left at submit, the reply is consumed here)
+    pending: object = None
 
     def ready(self) -> bool:
         """True once the step's copies and kernels have finished (never
         blocks)."""
         if self.done:
             return True
-        if self.deferred:
+        if self.deferred or self.pending is not None:
             return False
         return self.event is None or self.event.query()
 
@@ -144,6 +185,9 @@ class StepHandle:
         if self.deferred:
             raise RuntimeError(f"step {self.index}: result() before its "
                                "wave's TransferBatch was flushed")
+        if self.pending is not None:
+            fn, self.pending = self.pending, None
+            self.outputs.update(fn())
         if self.event is not None:
             self.event.synchronize()
         self.done = True
@@ -381,14 +425,19 @@ class ProgramExecutor:
 
     ``mesh`` / ``shard_axis`` / ``hot_rows`` / ``exchange`` /
     ``replicate_outputs`` / ``adaptive`` select the vocab-sharded paths
-    (module docstring); the mesh's device type must be the executor's."""
+    (module docstring); the mesh's device type must be the executor's.
+    ``service`` / ``service_pool`` / ``degrade_policy`` select the
+    disaggregated tier, a single-shard client path; there ``hot_rows`` is
+    the slab a dark pool's step may still serve here."""
 
     def __init__(self, compiled: ProgramCompileResult, device=None,
                  depth: int = 2, index_policy: str = "strict",
                  backend: str = "cuda", pool: Optional[BufferPool] = None,
                  faults=None, mesh=None, shard_axis: str = "model",
                  hot_rows=None, exchange: Optional[str] = None,
-                 replicate_outputs: Optional[bool] = None, adaptive=None):
+                 replicate_outputs: Optional[bool] = None, adaptive=None,
+                 service: str = "inproc", service_pool=None,
+                 degrade_policy: str = "fail"):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if index_policy not in ap.INDEX_POLICIES:
@@ -399,6 +448,8 @@ class ProgramExecutor:
         if exchange not in (None, "host", "collective"):
             raise ValueError(f"exchange {exchange!r} not in (None, 'host', "
                              "'collective')")
+        _check_service(service, service_pool, degrade_policy,
+                       sp.shard_count(mesh, shard_axis))
         self.compiled = compiled
         self.device = resolve_device(device)
         self.depth = depth
@@ -418,6 +469,18 @@ class ProgramExecutor:
             replicate_outputs = self.exchange == "host"
         self.replicate_outputs = bool(replicate_outputs) \
             if self.shards > 1 else True
+        # the disaggregated tier: steps go to the replica pool instead of
+        # running here; the degrade policy decides what a step does while
+        # every replica is dark (module docstring)
+        self.service = service
+        self.service_pool = service_pool
+        self.degrade_policy = degrade_policy
+        # the client's hot slab: what a dark pool's step may serve here
+        self._svc_hot = (
+            {n: np.unique(np.asarray(list(ids), dtype=np.int64))
+             for n, ids in dict(hot_rows).items()}
+            if (service == "disagg" and hot_rows) else {})
+        self._svc_srcs: Optional[tuple] = None  # weakrefs: tables shipped
         # hot/cold vocab classification ({op name: replicated row ids});
         # only meaningful on sharded executors
         self.hot_rows = dict(hot_rows) if (hot_rows and self.shards > 1) \
@@ -443,9 +506,10 @@ class ProgramExecutor:
         self._adapt_ref: Optional[float] = None  # post-swap reference rate
         self._adapt_last_swap = 0
         self._adapt_refine = 0            # settling passes still owed
-        if adaptive is not None and self.shards > 1:
+        if adaptive is not None:
             for name, op in compiled.program.ops:
-                if name in self.hot_rows:
+                if (self.shards > 1 and name in self.hot_rows) or \
+                        name in self._svc_hot:
                     self._adapt_counts[name] = WindowedCounts(
                         op.num_embeddings, adaptive.window_steps,
                         adaptive.num_windows)
@@ -473,7 +537,9 @@ class ProgramExecutor:
                       "dropped_lookups": 0, "resets": 0,
                       "hot_swaps": 0, "hot_swaps_rejected": 0,
                       "spilled_lookups": 0, "collectives": 0,
-                      "staged_bytes": 0, "collective_ms": 0.0}
+                      "staged_bytes": 0, "collective_ms": 0.0,
+                      "rpc_steps": 0, "hot_local_steps": 0,
+                      "stale_steps": 0, "degraded_failed_steps": 0}
         self.rank = 0
         self._coll: Optional[sp.Collectives] = None
         if self.mesh is not None:
@@ -490,10 +556,36 @@ class ProgramExecutor:
             for name, n, off in self._members(u):
                 self._owned[name] = ((n, off, u.plan.seg_cap)
                                      if self._owns_slices(u) else None)
+        # serving artifact (attach_artifact): where this executor's
+        # compile came from, and where save_artifact publishes it
+        self.compile_source = "fresh"     # fresh | artifact
+        self._artifact_dir: Optional[Path] = None
+        self._artifact_meta: Optional[dict] = None
 
     def _fire(self, site: str) -> None:
         if self.faults is not None:
             self.faults.fire(site, program=self.compiled.program.name)
+
+    # ------------------------------------------------------------------
+    # Serving artifact (core/artifact.py)
+    # ------------------------------------------------------------------
+
+    def attach_artifact(self, artifact_dir, meta: dict,
+                        source: str = "fresh") -> None:
+        """Tie this executor to a serving artifact: ``source`` says where
+        its compile came from, :meth:`save_artifact` publishes there."""
+        self._artifact_dir = Path(artifact_dir)
+        self._artifact_meta = dict(meta)
+        self.compile_source = source
+
+    def save_artifact(self) -> Optional[Path]:
+        """Publish the compile result (atomic re-publish; idempotent).
+        None when no artifact is attached."""
+        if self._artifact_dir is None or self._artifact_meta is None:
+            return None
+        from . import artifact as art
+        return art.save_artifact(self._artifact_dir, self.compiled,
+                                 meta=self._artifact_meta)
 
     @staticmethod
     def _members(u: _UnitState):
@@ -551,12 +643,15 @@ class ProgramExecutor:
             srcs = [inputs[name]["table"]
                     for name in u.plan.slot_first_member]
         for t in srcs:
-            if not isinstance(t, torch.Tensor) or t.device != self.device:
-                raise TypeError(
-                    f"tables must be tensors on {self.device}, got "
-                    f"{type(t).__name__} on {getattr(t, 'device', 'host')} "
-                    "(see repro_torch.convert.program_inputs_to_torch)")
+            self._check_table(t)
         return srcs
+
+    def _check_table(self, t) -> None:
+        if not isinstance(t, torch.Tensor) or t.device != self.device:
+            raise TypeError(
+                f"tables must be tensors on {self.device}, got "
+                f"{type(t).__name__} on {getattr(t, 'device', 'host')} "
+                "(see repro_torch.convert.program_inputs_to_torch)")
 
     def _bind_unit(self, u: _UnitState, inputs: dict) -> None:
         srcs = self._src_tables(u, inputs)
@@ -978,17 +1073,24 @@ class ProgramExecutor:
         self._slots_packed = []
         if self._adapt_counts:
             self._adapt_observe(inputs)
-        self._txn = txn if self.shards == 1 else None
+            if self.service == "disagg":
+                self._note_svc_traffic(inputs)
         self._deferred = False
-        try:
-            outs = self._dispatch(inputs)
-        finally:
-            self._txn = None
-        h = StepHandle(outs, self._steps, faults=self.faults)
+        pending = None
+        if self.service == "disagg":
+            outs, pending = self._submit_disagg(inputs)
+        else:
+            self._txn = txn if self.shards == 1 else None
+            try:
+                outs = self._dispatch(inputs)
+            finally:
+                self._txn = None
+        h = StepHandle(outs, self._steps, faults=self.faults,
+                       pending=pending)
         if self._deferred:
             h.deferred = True
             txn.handles.append(h)
-        elif self.device.type == "cuda":
+        elif pending is None and self.device.type == "cuda":
             h.event = torch.cuda.Event()
             h.event.record(torch.cuda.current_stream(self.device))
         for entry, turn in self._slots_packed:
@@ -1009,6 +1111,126 @@ class ProgramExecutor:
         if h in self._inflight:     # an end-of-submit slab swap drains the
             self._inflight.remove(h)    # queue before we get here
         return h.result()
+
+    # ------------------------------------------------------------------
+    # Disaggregated service path (service="disagg")
+    # ------------------------------------------------------------------
+
+    def _svc_tables(self, inputs: dict) -> dict:
+        tables = {}
+        for name, op in self.compiled.program.ops:
+            t = inputs[name]["x" if op.kind == "fusedmm" else "table"]
+            self._check_table(t)
+            tables[name] = t
+        return tables
+
+    def _svc_sync(self, inputs: dict) -> None:
+        """Ship the tables to the pool on the first step, or when other
+        table objects arrive: the identity discipline of
+        :meth:`_bind_unit`.  Stable tables never re-ship; a change drains
+        the in-flight remote steps first, so they land on the tables they
+        were submitted against.  A table two ops share is shipped once."""
+        tables = self._svc_tables(inputs)
+        srcs = tuple(tables.values())
+        if self._svc_srcs is not None and \
+                len(self._svc_srcs) == len(srcs) and \
+                all(r() is a for r, a in zip(self._svc_srcs, srcs)):
+            return
+        host, seen = {}, {}
+        for n, t in tables.items():
+            if id(t) not in seen:
+                seen[id(t)] = t.detach().to("cpu")
+            host[n] = seen[id(t)]
+        if self._svc_srcs is None:
+            self.service_pool.bind(
+                self.compiled.program, host,
+                opt_level=self.compiled.opt_level, vlen=self.compiled.vlen,
+                backend=self.backend, index_policy=self.index_policy,
+                hot_spec={n: tuple(int(i) for i in v)
+                          for n, v in self._svc_hot.items()} or None)
+            self.stats["table_stacks"] += 1
+        else:
+            self.drain()
+            self.service_pool.update_tables(host)
+            self.stats["table_rebinds"] += 1
+        self._svc_srcs = tuple(weakref.ref(a) for a in srcs)
+
+    def _submit_disagg(self, inputs: dict):
+        """Send the step's index streams to the pool; the reply is
+        consumed at :meth:`StepHandle.result` through the handle's
+        ``pending`` resolver.  ``ServiceUnavailable`` (the pool's bounded
+        retry found every replica dark) resolves by the degrade policy;
+        every other fault propagates typed."""
+        self._svc_sync(inputs)
+        streams: dict = {}
+        for name, op in self.compiled.program.ops:
+            tkey = "x" if op.kind == "fusedmm" else "table"
+            for k, v in inputs[name].items():
+                if k != tkey:
+                    streams[f"{name}/{k}"] = np.asarray(v)
+        self.stats["rpc_steps"] += 1
+        try:
+            fut = self.service_pool.submit_step(streams)
+        except ap.ServiceUnavailable as e:
+            return self._degrade_outputs(inputs, e), None
+
+        def pending() -> dict:
+            try:
+                outs = fut.wait()
+            except ap.ServiceUnavailable as e:
+                return self._degrade_outputs(inputs, e)
+            return {n: torch.as_tensor(t).to(self.device)
+                    for n, t in outs.items()}
+
+        return {}, pending
+
+    def _step_all_hot(self, inputs: dict) -> bool:
+        """True when every lookup of this step stays inside the client's
+        hot slab."""
+        if not self._svc_hot:
+            return False
+        for name, op in self.compiled.program.ops:
+            hot = self._svc_hot.get(name)
+            if hot is None:
+                return False
+            idxs = np.asarray(inputs[name].get("idxs", ()))
+            if idxs.size and not np.isin(idxs, hot).all():
+                return False
+        return True
+
+    def _degrade_outputs(self, inputs: dict, cause) -> dict:
+        """Resolve a step while the service tier is dark: a hot-slab step
+        always runs here; another runs here on the local tables under
+        ``degrade_policy="stale"`` or re-raises typed under ``"fail"`` --
+        each path counted."""
+        if self._step_all_hot(inputs):
+            self.stats["hot_local_steps"] += 1
+        elif self.degrade_policy == "stale":
+            self.stats["stale_steps"] += 1
+        else:
+            self.stats["degraded_failed_steps"] += 1
+            raise cause
+        # the local run binds the local tables on the first dark step; its
+        # staging slots are owned by no handle, so the copies and kernels
+        # finish before they can be repacked
+        outs = self._dispatch(inputs)
+        self._slots_packed = []
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return outs
+
+    def _note_svc_traffic(self, inputs: dict) -> None:
+        """Disagg steps route nothing here, so an adaptive client feeds the
+        hot/cold window itself: each index stream split against its hot
+        slab."""
+        for name, hot in self._svc_hot.items():
+            ins = inputs.get(name)
+            if ins is None or "idxs" not in ins:
+                continue
+            idxs = np.asarray(ins["idxs"]).ravel()
+            if idxs.size:
+                nh = int(np.isin(idxs, hot).sum())
+                self._note_hot_cold(nh, idxs.size - nh)
 
     def run_steps(self, steps) -> list:
         """Run a sequence of step inputs through the overlapped loop;
@@ -1176,10 +1398,11 @@ class ProgramExecutor:
         swap the slab (size-preserving -- see ``classify_hot_from_counts``).
         Returns True when a swap happened."""
         from ..data.locality import classify_hot_from_counts
+        prev = self.hot_rows if self.shards > 1 else self._svc_hot
         new: dict = {}
         for name, wc in self._adapt_counts.items():
             prev_ids = np.asarray(sorted(int(i) for i in
-                                         self.hot_rows.get(name, ())),
+                                         prev.get(name, ())),
                                   np.int64)
             if not len(prev_ids):
                 continue
@@ -1199,6 +1422,24 @@ class ProgramExecutor:
         new_hot = {n: tuple(int(i) for i in ids)
                    for n, ids in dict(hot_rows).items()}
         new_spec = ap.canonical_hot(new_hot)
+        if self.service == "disagg":
+            cur = ap.canonical_hot({n: tuple(int(i) for i in v)
+                                    for n, v in self._svc_hot.items()})
+            if new_spec == cur:
+                return False
+            self.drain()
+            self._svc_hot = {n: np.unique(np.asarray(list(ids), np.int64))
+                             for n, ids in new_hot.items()}
+            self.slab_epoch += 1
+            self.stats["hot_swaps"] += 1
+            self._adapt_ref = None
+            self._adapt_last_swap = self._steps
+            # republished through the pool's warm artifact, so a replica
+            # respawned from now on re-warms with the current slab
+            publish = getattr(self.service_pool, "publish_hot_spec", None)
+            if publish is not None:
+                publish(new_hot)
+            return True
         if self.shards == 1 or new_spec == self._hot_spec:
             return False
         epoch = self.slab_epoch + 1
@@ -1478,7 +1719,9 @@ def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
                  shard_axis: str = "model", hot_rows=None,
                  exchange: Optional[str] = None,
                  replicate_outputs: Optional[bool] = None,
-                 adaptive=None) -> ProgramExecutor:
+                 adaptive=None, service: str = "inproc",
+                 service_pool=None, degrade_policy: str = "fail",
+                 artifact_dir=None) -> ProgramExecutor:
     """The steady-state entry point: compile (compile-cache backed) and
     return the memoized executor for this signature on ``device`` (the CUDA
     card unless ``device="cpu"``; raises without a card) with ``backend``
@@ -1496,11 +1739,23 @@ def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
     ``hot_rows`` (``{op name: row ids}``, e.g. from
     :func:`~repro_torch.core.access_plan.hot_rows_from_traces`),
     ``exchange``, ``replicate_outputs`` and ``adaptive`` key the cache as
-    in the reference."""
+    in the reference.
+
+    ``service="disagg"`` with a ``service_pool`` (and ``degrade_policy``)
+    is the disaggregated client (:class:`ProgramExecutor`); it keeps its
+    ``hot_rows`` on one shard (the slab a dark pool's step may serve
+    here), and the pool's identity keys the cache, so two pools never
+    share a client.  ``artifact_dir`` points at a serving artifact
+    (:mod:`.artifact`): on a cache miss the compile result loads from it
+    when its fingerprint and identity match, else it is compiled and
+    saved there.  It is not part of the key: it changes where a compile
+    comes from, never what it computes."""
     dev = resolve_device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     shards = sp.shard_count(mesh, shard_axis)
+    _check_service(service, service_pool, degrade_policy, shards)
+    service_hot = hot_rows if service == "disagg" else None
     if shards == 1:
         mesh = None
         hot_rows = None
@@ -1517,18 +1772,47 @@ def executor_for(program: EmbeddingProgram, opt_level: str = "O3",
            index_policy, backend, mesh,
            shard_axis if mesh is not None else None,
            ap.canonical_hot(hot_rows), exchange, bool(replicate_outputs),
-           adaptive)
+           adaptive, service,
+           degrade_policy if service == "disagg" else None,
+           service_pool.pool_id if service == "disagg" else None,
+           ap.canonical_hot(service_hot))
     ex = _EXECUTOR_CACHE.get(key)
     if ex is not None:
         return ex
-    compiled = compile_program(program, opt_level, vlen=vlen, budget=budget,
-                               hot_rows=hot_rows)
+    compiled = None
+    source = "fresh"
+    ameta = None
+    if artifact_dir is not None:
+        from . import artifact as art
+        from .pipeline import seed_compile_cache
+        ameta = art.artifact_meta(program, opt_level=opt_level, vlen=vlen,
+                                  budget=budget, hot_rows=hot_rows,
+                                  backend=backend, device=dev)
+        compiled = art.load_artifact(artifact_dir, ameta)
+        if compiled is not None:
+            source = "artifact"
+            # later compile_program calls with this identity hit too
+            seed_compile_cache(
+                art.compile_key_of(program, ameta, budget=budget,
+                                   hot_rows=hot_rows), compiled)
+        else:
+            art.note_fresh_compile()
+    if compiled is None:
+        compiled = compile_program(program, opt_level, vlen=vlen,
+                                   budget=budget, hot_rows=hot_rows)
     ex = ProgramExecutor(compiled, device=dev, depth=depth,
                          index_policy=index_policy, backend=backend,
-                         mesh=mesh, shard_axis=shard_axis, hot_rows=hot_rows,
+                         mesh=mesh, shard_axis=shard_axis,
+                         hot_rows=hot_rows if shards > 1 else service_hot,
                          exchange=exchange,
                          replicate_outputs=replicate_outputs,
-                         adaptive=adaptive)
+                         adaptive=adaptive, service=service,
+                         service_pool=service_pool,
+                         degrade_policy=degrade_policy)
+    if artifact_dir is not None:
+        ex.attach_artifact(artifact_dir, ameta, source)
+        if source == "fresh":
+            ex.save_artifact()    # so the next boot loads
     _EXECUTOR_CACHE.put(key, ex)
     return ex
 

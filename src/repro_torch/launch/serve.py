@@ -30,9 +30,20 @@ An encoder-decoder model (whisper-large-v3) is refused: each request
 needs an encoder context the server does not carry, in the reference too
 (:func:`~repro_torch.runtime.server.refuse_encoder_decoder`).
 
-``--disagg`` (with ``--replicas``, ``--rpc-timeout-s``,
-``--degrade-policy``) and ``--artifact-dir`` are not ported yet
-(ROADMAP.md, Queue 1 item 8) and raise.
+The disaggregated embedding tier: ``--disagg`` moves the embedding
+tables into ``--replicas`` embedding-service processes
+(:mod:`repro_torch.runtime.embedding_service`) on ``--device`` (the card
+unless ``cpu``), reached over the fault-tolerant RPC tier;
+``--rpc-timeout-s`` bounds every call, ``--degrade-policy`` decides what a
+step does while every replica is dark.  ``--artifact-dir`` boots the
+embedding program's compile from a serving artifact
+(:mod:`repro_torch.core.artifact`), or compiles and saves it there::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+        --reduced --device cpu --pipeline --disagg --replicas 2 \
+        --degrade-policy stale
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+        --reduced --device cpu --artifact-dir build/serve_artifact
 """
 from __future__ import annotations
 
@@ -80,22 +91,27 @@ def main(argv=None):
                     metavar="S", help="wave watchdog deadline (seconds)")
     ap.add_argument("--wave-retries", type=int, default=1)
     ap.add_argument("--disagg", action="store_true",
-                    help="the disaggregated embedding tier (not ported "
-                         "yet: raises)")
+                    help="serve the embedding programs from a pool of "
+                         "embedding-service replica processes on --device "
+                         "instead of in-process")
     ap.add_argument("--replicas", type=int, default=2,
                     help="embedding-service replicas behind --disagg")
     ap.add_argument("--rpc-timeout-s", type=float, default=30.0,
                     help="per-call RPC deadline of the service client")
     ap.add_argument("--artifact-dir", default=None,
-                    help="AOT serving artifact directory (not ported yet: "
-                         "raises)")
+                    help="serving artifact directory: the boot loads the "
+                         "compiled embedding program from here instead of "
+                         "compiling (fingerprint-gated, else a fresh "
+                         "compile), and saves a fresh compile back")
     ap.add_argument("--degrade-policy", default="fail",
                     choices=("fail", "stale"),
                     help="cold-lookup resolution while every replica is "
-                         "dark (with --disagg)")
+                         "dark: fail typed, or serve the local (possibly "
+                         "stale) tables")
     ap.add_argument("--chaos-site", default=None,
                     choices=("marshal", "transfer", "dispatch", "result",
-                             "wave"),
+                             "wave", "rpc_send", "rpc_recv", "heartbeat",
+                             "service_crash"),
                     help="inject an InjectedFailure at this site")
     ap.add_argument("--chaos-at", type=int, nargs="*", default=[1],
                     help="1-based call ordinals of the site to fire at")
@@ -109,27 +125,35 @@ def main(argv=None):
         faults = FaultInjector(
             [FaultSpec(args.chaos_site, at=tuple(args.chaos_at))],
             seed=args.chaos_seed)
-    kw = {}
+    lm = LM(cfg, device=args.device, seed=args.seed)
+    pool = None
     if args.disagg:
-        kw = {"service": "disagg", "degrade_policy": args.degrade_policy}
-    # the knobs not ported yet raise in DecodeServer before it reads the
-    # model: build none for them
-    lm = None if (args.disagg or args.artifact_dir) else \
-        LM(cfg, device=args.device, seed=args.seed)
-    srv = DecodeServer(lm, batch_slots=args.slots,
-                       max_len=args.max_len,
-                       prefill_chunk=args.prefill_chunk,
-                       pipeline=args.pipeline,
-                       index_policy=args.index_policy,
-                       capacity_rps=args.capacity_rps,
-                       ttft_slo_s=args.ttft_slo,
-                       wave_deadline_s=args.wave_deadline,
-                       wave_retries=args.wave_retries,
-                       faults=faults, artifact_dir=args.artifact_dir, **kw)
-    return _drive(srv, lm, cfg, args, faults)
+        from ..runtime.embedding_service import ServicePool
+        pool = ServicePool(args.replicas, device=lm.device,
+                           rpc_timeout_s=args.rpc_timeout_s,
+                           heartbeat_interval_s=0.5, faults=faults)
+    try:
+        srv = DecodeServer(lm, batch_slots=args.slots,
+                           max_len=args.max_len,
+                           prefill_chunk=args.prefill_chunk,
+                           pipeline=args.pipeline,
+                           index_policy=args.index_policy,
+                           capacity_rps=args.capacity_rps,
+                           ttft_slo_s=args.ttft_slo,
+                           wave_deadline_s=args.wave_deadline,
+                           wave_retries=args.wave_retries,
+                           faults=faults,
+                           service="disagg" if args.disagg else "inproc",
+                           service_pool=pool,
+                           degrade_policy=args.degrade_policy,
+                           artifact_dir=args.artifact_dir)
+        return _drive(srv, lm, cfg, args, faults, pool)
+    finally:
+        if pool is not None:
+            pool.close()
 
 
-def _drive(srv, lm, cfg, args, faults):
+def _drive(srv, lm, cfg, args, faults, pool):
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 8).astype(
         np.int32), max_new_tokens=16) for _ in range(args.requests)]
@@ -141,6 +165,10 @@ def _drive(srv, lm, cfg, args, faults):
           f"{lm.device}; all done={all(r.done for r in reqs)}; "
           f"statuses={dict(statuses)}")
     print("serve_stats:", srv.serve_stats)
+    if args.artifact_dir and srv.compile_stats is not None:
+        print("artifact:", srv.compile_stats.get("artifact", {}))
+    if pool is not None:
+        print("service_pool:", pool.stats())
     if faults is not None:
         print("chaos:", faults.stats())
     if srv.pipeline_group is not None:

@@ -71,12 +71,26 @@ hands its ``tokens`` and ``lens`` to the wave (``self._wave``) as host
 arrays, which reach the card in one copy; the argmax of the wave's logits
 comes back once per wave, the loop's one synchronisation.
 
-Not ported yet: the disaggregated embedding tier (``service="disagg"``,
-``service_pool``, ``degrade_policy``) and serving artifacts
-(``artifact_dir``) -- ROADMAP.md Queue 1 item 8.  Each raises
-``NotImplementedError``, as does an encoder-decoder model
-(:func:`refuse_encoder_decoder`), which the reference's server does not
-serve either.
+**The disaggregated tier** (``service="disagg"`` with a
+:class:`~repro_torch.runtime.embedding_service.ServicePool`): every
+embedding executor the server builds -- the pipeline group's members and
+``emb_executor`` -- routes its steps to the pool's replica processes
+(cache-keyed on the pool), and ``degrade_policy`` decides what a step does
+while every replica is dark.  A ``ServiceUnavailable`` reaching a wave is
+an :class:`~repro_torch.runtime.faults.EmberFault`, so the wave
+watchdog's reset and retry cover a replica's failover.
+
+**Serving artifacts** (``artifact_dir``, :mod:`repro_torch.core
+.artifact`): the boot loads ``emb_executor``'s compile result from there
+instead of compiling when its fingerprint and identity match, else
+compiles and saves it; the first wave re-saves it (an idempotent
+publish), and ``compile_stats["artifact"]`` says where this boot's
+compile came from beside the process's load / save / reject counters.
+The CUDA graphs of the wave are captured at every boot: the artifact
+holds no executables (:mod:`repro_torch.core.artifact`).
+
+An encoder-decoder model is refused (:func:`refuse_encoder_decoder`): the
+reference's server does not serve one either.
 """
 from __future__ import annotations
 
@@ -90,6 +104,7 @@ import numpy as np
 import torch
 
 from ..core.access_plan import INDEX_POLICIES
+from ..core.executor import SERVICES
 from ..models.lm import StaticWave
 from .faults import EmberFault, WaveTimeout
 
@@ -118,11 +133,6 @@ class Request:
 
 
 _EMPTY = np.zeros(0, np.int32)
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"Queue 1 item {item})")
 
 
 def refuse_encoder_decoder(cfg) -> None:
@@ -225,12 +235,8 @@ class DecodeServer:
         if index_policy not in INDEX_POLICIES:
             raise ValueError(f"index_policy {index_policy!r} not in "
                              f"{INDEX_POLICIES}")
-        if service != "inproc" or service_pool is not None or \
-                degrade_policy != "fail":
-            raise _not_ported("the disaggregated embedding tier (service=, "
-                              "service_pool=, degrade_policy=)", 8)
-        if artifact_dir is not None:
-            raise _not_ported("the serving artifact (artifact_dir=)", 8)
+        if service not in SERVICES:
+            raise ValueError(f"service {service!r} not in {SERVICES}")
         refuse_encoder_decoder(getattr(lm, "cfg", None))
         tp = getattr(lm, "tp", None)
         if pipeline and tp is not None:
@@ -238,6 +244,19 @@ class DecodeServer:
                 "the serving pipeline (pipeline=True) of a sharded model is "
                 "not ported yet (ROADMAP.md, Queue 1 item 6d)")
         self.lm = lm
+        # serving artifact: the boot loads the compile result from here
+        # instead of compiling; a fresh compile saves at build and again
+        # after the first wave
+        self.artifact_dir = artifact_dir
+        self._artifact_saved = False
+        # the disaggregated tier: every member executor routes its steps
+        # to the pool (cache-keyed on the pool's identity)
+        self.service = service
+        self.service_pool = service_pool
+        self.degrade_policy = degrade_policy
+        self._svc_kw = ({"service": service, "service_pool": service_pool,
+                         "degrade_policy": degrade_policy}
+                        if service == "disagg" else {})
         self.slots = batch_slots
         self.max_len = max_len
         self.eos = eos_id
@@ -302,7 +321,7 @@ class DecodeServer:
             from ..core import pipeline as emberc
             self._emberc = emberc
             self._emb_exec = emb_exec
-            self.emb_executor = lm.embedding_executor(batch_slots, 1)
+            self.emb_executor = self._resolve_executor()
             self.emb_compiled = self.emb_executor.compiled
         self.pipeline_group = None
         if pipeline and hasattr(lm, "embedding_pipeline"):
@@ -310,7 +329,7 @@ class DecodeServer:
             # (cache-keyed), so the pipeline hardens the mirrored streams
             # under the same policy as the prompts
             self.pipeline_group = lm.embedding_pipeline(
-                batch_slots, 1, index_policy=index_policy)
+                batch_slots, 1, index_policy=index_policy, **self._svc_kw)
             if faults is not None:
                 # group-level attach: cached member executors stay clean
                 self.pipeline_group.faults = faults
@@ -331,6 +350,15 @@ class DecodeServer:
         if self.emb_executor is not None:
             self.compile_stats = self._gather_compile_stats()
 
+    def _resolve_executor(self):
+        kw = dict(self._svc_kw)
+        if self.artifact_dir is not None:
+            kw["artifact_dir"] = self.artifact_dir
+        if hasattr(self.lm, "embedding_executor"):
+            return self.lm.embedding_executor(self.slots, 1, **kw)
+        return self._emb_exec.executor_for(
+            self.lm.embedding_program(self.slots, 1), **kw)
+
     def _gather_compile_stats(self) -> dict:
         s = self._emberc.compile_cache_stats()
         s["executor_cache"] = self._emb_exec.executor_cache_stats()
@@ -343,6 +371,13 @@ class DecodeServer:
         s["executor"]["replicate_outputs"] = \
             self.emb_executor.replicate_outputs
         s["access_plans"] = self.emb_executor.access_plan_stats()
+        if self.artifact_dir is not None:
+            # where this boot's compile came from + the process's
+            # load / save / reject counters
+            from ..core.artifact import artifact_stats
+            s["artifact"] = {
+                "compile_source": self.emb_executor.compile_source,
+                **artifact_stats()}
         if self.pipeline_group is not None:
             s["pipeline_group"] = self.pipeline_group.group_stats()
         return s
@@ -610,6 +645,14 @@ class DecodeServer:
         self.waves += 1
         self.serve_stats["waves"] += 1
         self.serve_stats["prefill_waves" if c > 1 else "decode_waves"] += 1
+        if self.artifact_dir is not None and not self._artifact_saved \
+                and self.emb_executor is not None:
+            # first wave done: re-publish the artifact (idempotent)
+            self._artifact_saved = True
+            try:
+                self.emb_executor.save_artifact()
+            except OSError:
+                pass                     # a failed save never fails a wave
         now = time.perf_counter()
         # mid-wave expiry: a slot still waiting on its first token whose
         # TTFT budget lapsed during service retires here (terminal)

@@ -216,6 +216,39 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
                                    rtol=1e-5, atol=2e-4)
 
 
+def test_disagg_replica_on_the_card_matches_the_inproc_executor(cuda):
+    """A one-replica pool on the card (backend "cuda"): the replica's
+    outputs of an SLS + gather program are the in-process executor's bits
+    on the card, and the replica (its own process) reports its SLS and
+    block-gather launches, the card, and no JAX."""
+    from repro_torch.convert import program_inputs_to_torch
+    from repro_torch.core.executor import executor_for
+    from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
+                                      make_program_inputs)
+    from repro_torch.runtime.embedding_service import ServicePool
+    prog = EmbeddingProgram("card_disagg", (
+        ("a", EmbeddingOp("sls", 30, 50, 64, avg_lookups=3, weighted=True)),
+        ("g1", EmbeddingOp("gather", 25, 60, 64)),
+        ("g2", EmbeddingOp("gather", 25, 60, 64)),
+    ), shared_tables=(("g1", "g2"),))
+    ins = program_inputs_to_torch(make_program_inputs(prog, seed=6))
+    want = [executor_for(prog, "O3").step(ins) for _ in range(3)]
+    with ServicePool(1, device="cuda", backoff_s=0.01) as pool:
+        ex = executor_for(prog, "O3", service="disagg", service_pool=pool)
+        got = [ex.step(ins) for _ in range(3)]
+        ping = pool.replicas[0].hb.call("ping")[0]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for name in w:
+            assert g[name].device == w[name].device
+            assert torch.equal(g[name], w[name]), name
+    assert ping["device"] == torch.cuda.get_device_name(0)
+    assert ping["launches"]["sls"] == 3
+    assert ping["launches"]["block_gather"] == 3
+    assert ping["variant_launches"]["block_gather"]["bulk"] == 3
+    assert ping["foreign_modules"] == [] and ping["peak_bytes"] > 0
+
+
 def _unaligned(rng, rows, emb, device):
     """A contiguous (rows, emb) fp32 view one element into a flat buffer (a
     slice of a flat parameter buffer): not 16-byte aligned."""

@@ -192,7 +192,8 @@ def test_no_port_source_imports_jax_or_the_reference():
                                  "xlstm_1_3b", "xlstm",
                                  "trainer", "ckpt",
                                  "adamw", "compress", "schedule",
-                                 "pipeline", "train")} <= \
+                                 "pipeline", "train", "rpc",
+                                 "embedding_service", "artifact")} <= \
         {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN.search(f.read_text())]
@@ -218,6 +219,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         LM(get_reduced("chatglm3-6b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "chatglm3-6b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "chatglm3-6b", "--reduced", "--disagg",
+                    "--artifact-dir", str(tmp_path / "artifact")])
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--ckpt-dir",
@@ -405,4 +409,64 @@ def test_model_parallel_training_stands_alone(tmp_path):
                        env={"PYTHONPATH": f"{REPO / 'src'}:{tmp_path}",
                             "PATH": "/usr/bin:/bin"})
     assert "MP-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_disaggregated_tier_stands_alone(tmp_path):
+    """The RPC tier, the replica pool, the disaggregated executor, the
+    serving artifact and a disagg server run with JAX and the JAX package
+    unimportable, and each spawned replica's ping shows neither imported
+    in its own process."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        from repro_torch.convert import program_inputs_to_torch
+        from repro_torch.core.executor import (clear_executor_cache,
+                                               executor_for)
+        from repro_torch.core.ops import (EmbeddingOp, EmbeddingProgram,
+                                          make_program_inputs)
+        from repro_torch.core.pipeline import clear_compile_cache
+        from repro_torch.runtime.embedding_service import ServicePool
+        prog = EmbeddingProgram("g", (
+            ("a", EmbeddingOp("sls", 4, 10, 8, avg_lookups=2)),
+            ("b", EmbeddingOp("gather", 3, 12, 8))))
+        ins = program_inputs_to_torch(make_program_inputs(prog, seed=1),
+                                      "cpu")
+        want = executor_for(prog, device="cpu").step(ins)
+        with ServicePool(2, device="cpu", backoff_s=0.01) as pool:
+            ex = executor_for(prog, device="cpu", service="disagg",
+                              service_pool=pool)
+            for _ in range(2):
+                got = ex.step(ins)
+                assert all(torch.equal(got[n], want[n]) for n in want)
+            for r in pool.replicas:
+                ping = r.hb.call("ping")[0]
+                assert ping["foreign_modules"] == [], ping
+                assert ping["device"] == "cpu" and ping["steps"] == 1
+        adir = {str(tmp_path / 'artifact')!r}
+        sources = []
+        for _ in range(2):
+            clear_executor_cache(); clear_compile_cache()
+            ex = executor_for(prog, device="cpu", artifact_dir=adir)
+            got = ex.step(ins)
+            assert all(torch.equal(got[n], want[n]) for n in want)
+            sources.append(ex.compile_source)
+        assert sources == ["fresh", "artifact"], sources
+        from repro_torch.launch import serve
+        reqs = serve.main(["--arch", "stablelm-3b", "--reduced", "--device",
+                           "cpu", "--requests", "2", "--max-len", "24",
+                           "--pipeline", "--disagg", "--replicas", "1"])
+        assert all(r.status == "ok" for r in reqs)
+        assert sys.modules["jax"] is None and sys.modules["repro"] is None
+        print("DISAGG-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": str(REPO / "src"),
+                            "PATH": "/usr/bin:/bin",
+                            "TMPDIR": str(tmp_path)})
+    assert "DISAGG-STANDALONE-OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-4000:]

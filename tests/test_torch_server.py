@@ -923,12 +923,30 @@ def test_server_feeds_the_decode_embed_pipeline():
             assert torch.equal(got[n], other[n])
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"service": "disagg"}, 8), ({"service_pool": object()}, 8),
-    ({"degrade_policy": "stale"}, 8), ({"artifact_dir": "x"}, 8)])
-def test_knobs_not_ported_raise_with_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        DecodeServer(EchoLM(), batch_slots=1, **kw)
+class _FakePool:
+    pool_id = -1
+
+
+@pytest.mark.parametrize("kw,error", [
+    ({"service": "remote"}, "service 'remote' not in"),
+    ({"service": "disagg"}, "requires a service_pool"),
+    ({"service": "disagg", "service_pool": _FakePool(),
+      "degrade_policy": "drop"}, "degrade_policy 'drop' not in"),
+    ({"service_pool": _FakePool(), "degrade_policy": "stale"}, None)])
+def test_service_knobs_are_validated_as_the_references(kw, error):
+    """The disaggregated tier's knobs, checked as the reference asserts
+    them (``runtime/server.py``, ``core/executor.py``): an unknown service,
+    ``"disagg"`` without a pool, an unknown degrade policy; an in-process
+    server ignores a pool and a policy (no member routes to them)."""
+    lm = LM(get_reduced("chatglm3-6b"), device="cpu", seed=0)
+    if error is None:
+        srv = DecodeServer(lm, batch_slots=1, pipeline=True, **kw)
+        ex = srv.pipeline_group.executors[0]
+        assert srv._svc_kw == {} and ex.service == "inproc"
+        assert ex.service_pool is None and ex.degrade_policy == "fail"
+        return
+    with pytest.raises(ValueError, match=error):
+        DecodeServer(lm, batch_slots=1, pipeline=True, **kw)
 
 
 def test_embedding_executor_is_single_device_only():
@@ -1077,10 +1095,50 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert all(r.status == "ok" and len(r.out) == 16 for r in reqs)
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "pipeline_group:" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        serve.main(["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
-                    "--artifact-dir", "x"])
+    assert "service_pool:" not in out and "artifact:" not in out
     assert "argv" in inspect.signature(serve.main).parameters
+
+
+def test_launcher_boots_from_an_artifact_dir_on_the_cpu(capsys, tmp_path):
+    """``--artifact-dir``: the first launch compiles and saves, the second
+    boots from the artifact and serves the same tokens."""
+    from repro_torch.core.executor import clear_executor_cache
+    from repro_torch.core.pipeline import clear_compile_cache
+    from repro_torch.launch import serve
+    argv = ["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--max-len", "32",
+            "--artifact-dir", str(tmp_path / "artifact")]
+    sources, outs = [], []
+    for _ in range(2):
+        clear_executor_cache()
+        clear_compile_cache()
+        reqs = serve.main(argv)
+        assert all(r.status == "ok" and len(r.out) == 16 for r in reqs)
+        out = capsys.readouterr().out
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith("artifact:"))
+        sources.append(line.split("'compile_source': ")[1].split(",")[0])
+        outs.append([r.out for r in reqs])
+    assert sources == ["'fresh'", "'artifact'"] and outs[0] == outs[1]
+
+
+def test_launcher_serves_disagg_over_two_replicas_on_the_cpu(capsys):
+    """``--disagg --replicas 2``: the decode-embed pipeline over two replica
+    processes on the CPU; every request ok, the in-process tokens, both
+    replicas live, the pool's steps those of the waves."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
+            "--requests", "3", "--max-len", "32", "--pipeline"]
+    want = [r.out for r in serve.main(argv)]
+    capsys.readouterr()
+    reqs = serve.main(argv + ["--disagg", "--replicas", "2",
+                              "--degrade-policy", "stale"])
+    assert [r.out for r in reqs] == want
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("service_pool:"))
+    assert "'states': ['live', 'live']" in line
+    assert "'failovers': 0" in line and "'rpc_steps': 0" not in line
 
 
 def test_launcher_serves_a_moe_model_on_the_cpu(capsys):
