@@ -11,6 +11,7 @@
     python3 chip_smoke.py --tp-only [--seed N]         # phase 18 alone
     python3 chip_smoke.py --mp-train-only [--seed N]   # phase 19 alone
     python3 chip_smoke.py --disagg-only [--seed N]     # phase 20 alone
+    python3 chip_smoke.py --roofline-only [--seed N]   # phase 21 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -85,7 +86,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``scaled_dot_product_attention``;
 8. chatglm3-6b served (full width and depth, bf16, random weights):
    ``DecodeServer(batch_slots=8, max_len=512, prefill_chunk=16,
-   pipeline=True)`` answers 16 requests (prompts of 32-128 uniform ids, 32
+   pipeline=True)`` answers 16 requests (prompts of 32-64 uniform ids, 32
    new tokens each) through the server's CUDA graphs of the decode
    micro-step and the slot reset (``runtime.server.WaveGraph``), every
    decode-embed wave through the block gather (bulk variant and its
@@ -191,7 +192,7 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    the plain version on its own q, k, v, the last hidden state against
    plain attention (``PREFILL_REL_L2``), the encoder's, a cross and a self
    layer's flash time beside its bound and SDPA.  Serving: encoded once,
-   then ``LM.wave_step(batch_ctx=)`` over a 4-token prompt and 30 greedy
+   then ``LM.wave_step(batch_ctx=)`` over a 4-token prompt and 16 greedy
    tokens a slot into caches of 448 (the cross-attention at Sq = 1 in
    every layer of every micro-step); the drive at chunk 1 must give the
    same tokens and bit-identical final logits, a micro-step's cross
@@ -233,8 +234,9 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    layer's decay skipped, another's conv window shifted by one) must
    exceed;
 16. xlstm-1.3b (``phase_xlstm``; ``--xlstm-only`` runs it alone after the
-   build): 48 layers at full width (36 ``mlstm``, 12 ``slstm``; d_model
-   2048, 4 heads of 512, chunk 256; bf16, random weights), no attention.
+   build): XLSTM_LAYERS of its 48 layers at full width (3 ``mlstm`` to
+   1 ``slstm``; d_model 2048, 4 heads of 512, chunk 256; bf16, random
+   weights), no attention.
    The first super-block in fp32 on the card against the CPU (1 x 512
    tokens, then 16 decode steps: hidden states, logits and every cache
    leaf within ``XLSTM_CARD_CPU_REL_L2``).  Prefill: 4 x 4096 tokens
@@ -248,7 +250,8 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    eager bit for bit over the prompts' first quarters, every cache leaf),
    a captured micro-step against its bound (the weights read once and
    the recurrent caches read and written once).  Training: the Trainer
-   on 1 x 512 tokens, 12 of the 48 layers, 2 steps, twice from one seed,
+   on 1 x 512 tokens, XLSTM_TRAIN_LAYERS of the 48 layers, 2 steps,
+   twice from one seed,
    losses and
    parameters bit-equal, one
    transposition and one sparse ``ember_sls`` launch a step, a nonzero
@@ -343,7 +346,23 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    the replicas' peak memory, the recovery seconds, each boot's time to
    first token, beside the card; and the ``[20 disagg predicted]`` block
    written before the first run;
-21. one JSON line listing the kernels with the kernel (variant) that
+21. the dry run and the roofline (``phase_roofline``; ``--roofline-only``
+   runs phases 1, 2 and 21): the ``[21 roofline predicted]`` block
+   (ROOFLINE_PREDICTED and each recorded time's share of its analytic
+   bound, from ``roofline/analysis.py``), written before the first run;
+   (a) chatglm3-6b at full width and ROOFLINE_A_LAYERS layers, 1 x
+   ROOFLINE_A_SEQ, its prefill and one training step (remat "dots")
+   counted by the dry run on meta over a 1 x 1 mesh and run on the card
+   under the same FLOP counter: the ``mm``-family FLOPs equal, and the cost
+   pass's attention FLOPs equal to ``analytic_flops``'s attention term;
+   (b) h2o-danube-1.8b at full width and ROOFLINE_B_LAYERS layers, 1 x
+   TRAIN_SEQ, one step under remat none, dots and full: the loss and every
+   gradient bit-equal, dots and full peaking below none, each step's time
+   and peak beside the dry run's predicted peak (ROOFLINE_PEAK_BAND);
+   (c) the measured times of phases 7, 7 stablelm, 12 and 13 over their
+   cells' roofline bounds, with ``model_flops`` and ``analytic_flops``;
+   every line beside the card's name and power limit;
+22. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -366,8 +385,11 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``sls_sparse`` (counted in ``launches`` too), with the flash backward's
    and the gather backward's times at a rank's shapes; phase 20's replica
    gathers as ``disagg_launches`` of ``block_gather`` (counted in
-   ``launches`` too);
-22. ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches`` too); phase 21's as ``roofline_launches`` of
+   ``flash_attention`` and ``flash_attention_bwd`` and ``roofline`` in the
+   ``launches_by_training`` of ``gather_transpose`` and ``sls_sparse``
+   (counted in ``launches`` too);
+23. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -453,7 +475,7 @@ TP_PREDICTED = {"chatglm3 2x512 prefill": "~1,000-2,000 ms (collectives "
 # a global batch of MP_BATCH x MP_SEQ, MP_SUP_STEPS steps under
 # run_supervised, a checkpoint every MP_SUP_EVERY, a failure at MP_SUP_FAIL
 # (the restart resumes from step 1 and reruns step 2)
-MP_STEPS, MP_DEPTH = 2, 6
+MP_STEPS, MP_DEPTH = 2, 3          # 6 before phase 21 was added
 MP_LAYERS, MP_BATCH, MP_SEQ = 2, 2, 2048
 MP_SUP_STEPS, MP_SUP_EVERY, MP_SUP_FAIL = 4, 2, 3
 # step 0's loss against the single device's (relative): bf16 over the
@@ -512,11 +534,15 @@ GATHER_BWD_KERNELS = {"transpose_block_kernel": 3,
 BULK_COPY_SASS = "UBLKCP"
 
 # chatglm3-6b served: DecodeServer(batch_slots=8, max_len=512,
-# prefill_chunk=16, pipeline=True), 16 requests of uniform 32-128 prompt
-# tokens and uniform ids, 32 new tokens each, no EOS
+# prefill_chunk=16, pipeline=True), 16 requests of uniform 32-64 prompt
+# tokens and uniform ids, 32 new tokens each, no EOS.  The prompts, also
+# those of phases 8 stablelm, 9 and 20, were 32-128 tokens until phase 21
+# was added: the drives' prefill micro-steps set their length, and the
+# graph == eager lockstep of phases 8 and 9 runs each eagerly (~44 and
+# ~98 ms of host time a micro-step)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = 8, 512, 16
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 32
-SERVE_PROMPT_LEN = (32, 128)
+SERVE_PROMPT_LEN = (32, 64)
 # stablelm-3b served the same way, a shorter drive: one generation of 8
 # slots, 16 new tokens each
 STABLELM_REQUESTS, STABLELM_NEW_TOKENS = 8, 16
@@ -541,7 +567,7 @@ LLAVA_SEQ = 4096
 # script's time at 24 layers, cut so that phase 20 fits with room for a
 # slow machine; the widths are whole
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8192, 6, 3, 4
-TRAIN_LAYERS = 6
+TRAIN_LAYERS = 3                   # 6 before phase 21 was added
 TRAIN_CKPT_STEP = TRAIN_CKPT_EVERY - 1
 TRAIN_LR = 3e-4
 # the eager served path the captured wave is compared with: the same
@@ -649,13 +675,13 @@ DS_UNDISPATCH_DISTINCT, DS_D_MODEL = 94_270, 2048
 # whisper-large-v3 (phase 14): 8 clips of its published enc_seq, 1500
 # frames (a 30-second window), prefilled with as many decoder tokens (the
 # reference's encoder runs its rotary at the decoder's positions); served:
-# encoded once, a 4-token prompt, then 30 greedy tokens a slot (60 until
-# cut so that phase 20 fits: the eager drives and the plain-attention
-# decode beside them are host-bound) into caches of 448 positions,
+# encoded once, a 4-token prompt, then 16 greedy tokens a slot (60 until
+# cut so that phase 20 fits, 30 until phase 21 was added: the
+# eager drives and the plain-attention decode beside them are host-bound) into caches of 448 positions,
 # whisper's decoder context (arXiv:2212.04356); trained on 1 x 1500 tokens
 # and frames a step, 3 steps, twice from one seed
 WHISPER_BATCH, WHISPER_FRAMES = 8, 1500
-WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 30, 448
+WHISPER_PROMPT, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN = 4, 16, 448
 WHISPER_TRAIN_STEPS = 3
 # zamba2-7b (phase 15): the prefill phases' 4 x 4096 tokens (13 shared_attn
 # launches at head dim 112); served: 8 requests of 256 or 320 prompt tokens
@@ -706,15 +732,19 @@ ZAMBA_FWD_DECODE_REL_L2 = 2e-2
 # loop's forward and backward; with phase 17 the script neared its 20
 # minutes and 1024 tokens halved the loop; for phase 19 the steps take
 # 512 tokens and 24 of the 48 layers, a quarter of the loop again; for
-# phase 20, XLSTM_TRAIN_LAYERS = 12: its length and the sLSTM layers'
-# count set the step's time, the widths are whole).  The sLSTM layers are profiled over a window of
+# phase 20, XLSTM_TRAIN_LAYERS = 12, for phase 21 4 (one super-block): its
+# length and the sLSTM layers' count set the step's time, the widths are
+# whole).  The phase's model runs XLSTM_LAYERS of the 48 layers (all 48
+# before phase 21 was added, then 24; the prefill's sLSTM loop is
+# host-bound, ~28 s over 48 layers on a slow host).  The sLSTM layers are profiled over a window of
 # XLSTM_WINDOW steps and scaled to the whole loop: every step issues the
 # same kernels, and a whole layer's ~100,000 kernels take minutes to read
 # under the profiler
 XLSTM_BLOCK_SEQ, XLSTM_BLOCK_DECODE = 512, 16
 XLSTM_PROMPT_CHUNKS = (4, 5)          # prompt lengths, in 64-token units
 XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_LAYERS = 512, 2, 12
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_LAYERS = 512, 2, 4
+XLSTM_LAYERS = 12
 XLSTM_WINDOW = 256
 # the first super-block on the card against the CPU in fp32: the relative
 # L2 of the hidden states, of each decode step's logits and of every cache
@@ -764,6 +794,48 @@ DISAGG_PREDICTED = {
                               "program compiles in milliseconds, the boot "
                               "is the graph capture",
     "phase 20": "~45-75 s"}
+
+
+# phase 21: the dry run and the roofline.  (a) chatglm3-6b at full width
+# and ROOFLINE_A_LAYERS of its 28 layers, 1 x ROOFLINE_A_SEQ tokens: the
+# prefill and one training step, counted on meta (a 1 x 1 mesh) and on the
+# card; (b) h2o-danube-1.8b at full width and ROOFLINE_B_LAYERS of its 24,
+# 1 x TRAIN_SEQ tokens, one training step under each remat policy
+ROOFLINE_A_LAYERS, ROOFLINE_A_SEQ = 2, 4096
+ROOFLINE_B_LAYERS = 4
+# written before the first run on the card: the band of the dry run's
+# predicted peak (argument + peak temporary bytes on meta) over the card's
+# max_memory_allocated for (b)'s steps.  The count misses the caching
+# allocator's 512-byte rounding and the kernels' own scratch (the flash
+# backward's rows, the transposition's and the sparse sum's buffers: a few
+# MB against ~4-12 GB), so within a few percent
+ROOFLINE_PEAK_BAND = (0.95, 1.05)
+# (c): the one-card cells an earlier phase times, (arch, batch, seq, kind,
+# layers, the key of that phase's time, its time in PERF.md sections 5-6:
+# NVIDIA H100 80GB HBM3, 700.00 W); phase 13 trains TRAIN_LAYERS of
+# danube's 24 layers (the recorded time is the 24-layer step's)
+ROOFLINE_CELLS = (
+    ("chatglm3-6b", 4, 4096, "prefill", None, "chatglm3_prefill_ms", 410.19),
+    ("stablelm-3b", 4, 4096, "prefill", None, "stablelm_prefill_ms", 249.61),
+    ("llava-next-34b", 1, 4096, "prefill", None, "llava_prefill_ms", 544.77),
+    ("h2o-danube-1.8b", 1, 8192, "train", 24, None, 514.6),
+    ("h2o-danube-1.8b", 1, 8192, "train", TRAIN_LAYERS, "training_step_ms",
+     None))
+ROOFLINE_PREDICTED = {
+    "(a) mm FLOPs": "the dry run's count == the card's FlopCounterMode "
+                    "count, exactly (the same aten products; the kernels "
+                    "count nowhere)",
+    "(a) attention FLOPs": "the cost pass's dense attention == "
+                           "analytic_flops's attention term, exactly",
+    "(b) remat": "loss and gradients bit-equal; peak none > dots > full "
+                 "(dry: ~11.6, ~9.6, ~8.1 GB with the 3.6 GB of arguments)",
+    "(b) predicted / measured peak": f"{ROOFLINE_PEAK_BAND[0]}-"
+                                     f"{ROOFLINE_PEAK_BAND[1]}",
+    "(b) step time": "dots ~ none + 10-20 % (the forward's elementwise work "
+                     "and the flash forward again), full ~ none + 30-40 %",
+    "(c) danube at TRAIN_LAYERS": "~20-25 % of bound (the 24-layer step "
+                                  "reached 22 %)",
+    "phase 21": "~25-45 s"}
 
 
 class CheckFailed(RuntimeError):
@@ -2637,7 +2709,8 @@ def phase_chatglm3(seed: int) -> dict:
               "launches": counts["flash_attention"], "max_abs_err": err,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms,
-              "held_against_plain": True, "instances": instances}
+              "held_against_plain": True, "instances": instances,
+              "chatglm3_prefill_ms": prefill_ms}
     del model, tokens, last, plain_last, diff, per_layer
     free_cuda()
     return result
@@ -4575,9 +4648,9 @@ def phase_training(seed: int, card: str) -> dict:
                     torch.equal(live[p].cpu(), t) for p, t in saved)
             return step
 
-        def _train_step(self, state, batch):
+        def __call__(self, state, batch):
             t0 = time.perf_counter()
-            loss = super()._train_step(state, batch)
+            loss = super().__call__(state, batch)
             torch.cuda.synchronize()
             step_ms.append((len(attempts) - 1, (time.perf_counter() - t0) *
                             1e3))
@@ -4659,7 +4732,7 @@ def phase_training(seed: int, card: str) -> dict:
     # one more forward/backward: every parameter reached; layer 0's q, k,
     # v and dO captured for the kernel check and timing
     lm = trainer.lm
-    batch = trainer._batch(0)
+    batch = trainer.local_batch(trainer.data.batch_at(0))
     cap = _Capture()
     with _OpSwap("attention", cap):
         for p in lm.parameters():
@@ -4687,7 +4760,7 @@ def phase_training(seed: int, card: str) -> dict:
     state = {"params": dict(lm.named_parameters()),
              "opt": out["state"]["opt"], "ef": None}
     prof_wall = []
-    dev = _device_time(lambda: trainer._train_step(state, batch), prof_wall)
+    dev = _device_time(lambda: trainer(state, batch), prof_wall)
     busy = _busy(dev, prof_wall[0])
     out = state = None
 
@@ -4991,7 +5064,7 @@ def _moe_training(seed: int, card: str) -> dict:
             got.register_hook(lambda g: seen.setdefault(
                 "dout", g.detach().contiguous()))
         return got
-    batch = trainer._batch(0)
+    batch = trainer.local_batch(trainer.data.batch_at(0))
     with _OpSwap("block_gather", capture):
         trainer.lm.loss(batch["tokens"], batch["labels"]).backward()
     dout, idxs, n = seen["dout"], seen["idxs"], seen["n"]
@@ -5333,9 +5406,9 @@ def _whisper_training(seed: int, card: str) -> dict:
     step_ms: list = []
 
     class Timed(Trainer):
-        def _train_step(self, state, batch):
+        def __call__(self, state, batch):
             t0 = time.perf_counter()
-            loss = super()._train_step(state, batch)
+            loss = super().__call__(state, batch)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return loss
@@ -5381,7 +5454,7 @@ def _whisper_training(seed: int, card: str) -> dict:
     final = {k: p.detach().clone() for k, p in lm.named_parameters()}
     # every parameter reached; the encoder's layer 0 (the first attention
     # call of a forward) captured for the backward check
-    batch = trainer._batch(0)
+    batch = trainer.local_batch(trainer.data.batch_at(0))
     cap = _Capture()
     with _OpSwap("attention", cap):
         for p in lm.parameters():
@@ -5413,9 +5486,9 @@ def _whisper_training(seed: int, card: str) -> dict:
     state = {"params": dict(lm.named_parameters()),
              "opt": out["state"]["opt"], "ef": None}
     prof_wall = []
-    dev = _device_time(lambda: trainer._train_step(state, batch), prof_wall)
+    dev = _device_time(lambda: trainer(state, batch), prof_wall)
     busy = _busy(dev, prof_wall[0])
-    host = _host_top(lambda: trainer._train_step(state, batch), 6)
+    host = _host_top(lambda: trainer(state, batch), 6)
     first_ms = list(step_ms)
     chk_agree, chk_err = chk["agreement"], chk["max_abs_err"]
     b_, s_, h_, d_ = q.shape
@@ -6364,7 +6437,8 @@ def _xlstm_fp32(seed: int, prompts) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
     from repro_torch.runtime.server import DecodeServer
-    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32")
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32",
+                              num_layers=XLSTM_LAYERS)
     model = LM(cfg, seed=seed)
     srv = DecodeServer(model, batch_slots=len(prompts),
                        max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
@@ -6404,9 +6478,9 @@ def _xlstm_training(seed: int, card: str) -> dict:
     steps = XLSTM_TRAIN_STEPS
 
     class Timed(Trainer):
-        def _train_step(self, state, batch):
+        def __call__(self, state, batch):
             t0 = time.perf_counter()
-            loss = super()._train_step(state, batch)
+            loss = super().__call__(state, batch)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return loss
@@ -6459,7 +6533,7 @@ def _xlstm_training(seed: int, card: str) -> dict:
     zero = [k for k, v in nonzero.items() if not v]
     require(not missing and not zero, f"xlstm training: no gradient for "
             f"{missing}, an all-zero one for {zero}")
-    batch = trainer._batch(0)
+    batch = trainer.local_batch(trainer.data.batch_at(0))
     emb = _gather_backward_parts(
         torch.randn((XLSTM_TRAIN_SEQ, 1, cfg.d_model),
                     device=lm.device).bfloat16(),
@@ -6531,9 +6605,9 @@ def _xlstm_training(seed: int, card: str) -> dict:
 
 
 def phase_xlstm(seed: int, card: str) -> dict:
-    """xlstm-1.3b at full width and depth (48 layers: 36 ``mlstm``, 12
-    ``slstm``; d_model 2048, 4 heads of 512, chunk 256; bf16, random
-    weights from ``seed``): the first super-block in fp32 on the card
+    """xlstm-1.3b at full width and XLSTM_LAYERS of its 48 layers (3
+    ``mlstm`` to 1 ``slstm``; d_model 2048, 4 heads of 512, chunk 256;
+    bf16, random weights from ``seed``): the first super-block in fp32 on the card
     against the CPU (``_xlstm_card_vs_cpu``); the prefill over 4 x 4096
     tokens (``_xlstm_prefill``); served (``DecodeServer``, captured waves:
     graph == eager and chunk 1 == whole bit for bit, the gather once a
@@ -6558,7 +6632,8 @@ def phase_xlstm(seed: int, card: str) -> dict:
           f" (tol {XLSTM_CARD_CPU_REL_L2}); TF32 off for the caller, and the "
           f"gates' product turns it off itself; {card}")
     t1 = time.perf_counter()
-    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              num_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     model = LM(cfg, seed=seed)
     torch.cuda.synchronize()
@@ -7262,7 +7337,7 @@ def _mp_rank_kernels(lm, tokens, window: int) -> dict:
 def _mp_rank_a(rank: int, world: int, job: dict) -> dict:
     """Phase 19(a) on one rank: its half of h2o-danube-1.8b, MP_STEPS
     trainer steps (``Trainer.loss_and_grads`` then ``AdamW.apply_``, the
-    trainer's ``_train_step``) counted and timed, step 0's gradients of
+    trainer's step, ``TrainStep.__call__``) counted and timed, step 0's gradients of
     MP_GRAD_LEAVES kept; then (rank 0, the other rank waiting) the kernel
     checks at a rank's shapes."""
     import torch
@@ -7295,7 +7370,7 @@ def _mp_rank_a(rank: int, world: int, job: dict) -> dict:
                              for p in lm.parameters())}
     kops.reset_launch_counts()
     for step in range(MP_STEPS):
-        batch = tr._batch(step)
+        batch = tr.local_batch(tr.data.batch_at(step))
         c0 = dict(stats)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -7314,8 +7389,8 @@ def _mp_rank_a(rank: int, world: int, job: dict) -> dict:
     marks.append(("steps", time.time()))
     dist.barrier()
     if rank == 0:
-        out["kernels"] = _mp_rank_kernels(lm, tr._batch(0)["tokens"],
-                                          cfg.sliding_window)
+        tokens = tr.local_batch(tr.data.batch_at(0))["tokens"]
+        out["kernels"] = _mp_rank_kernels(lm, tokens, cfg.sliding_window)
     dist.barrier()
     marks.append(("kernels", time.time()))
     out["marks"] = marks
@@ -8088,6 +8163,254 @@ def _disagg_body(seed: int, card: str) -> dict:
                                           for m in mb]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+def _card_mm_flops(fn, *args) -> tuple:
+    """``fn(*args)`` on the card under the dry run's FLOP counter
+    (``roofline.analysis.flop_counter``): its result and its FLOPs by
+    aten op."""
+    import torch
+    from repro_torch.roofline import analysis
+    with analysis.flop_counter() as fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    by_op = {str(k): int(v)
+             for k, v in fc.get_flop_counts().get("Global", {}).items()}
+    return out, by_op
+
+
+def _fill_batch(batch: dict, host: dict) -> None:
+    """Write the host arrays into a bundle's batch tensors on the card."""
+    import torch
+    for k, t in batch.items():
+        t.copy_(torch.from_numpy(host[k]))
+
+
+def _roofline_dry_vs_card(cfg, seed: int) -> dict:
+    """(a): the prefill and one training step (remat "dots") of ``cfg`` on
+    a 1 x 1 mesh, counted on meta by the dry run and on the card under the
+    same FLOP counter: their ``mm``-family FLOPs must be equal; the cost
+    pass's attention FLOPs (dense attention's products) must equal
+    ``analytic_flops``'s attention term."""
+    import torch
+    from repro_torch.core.shard_plan import DryMesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import count_bundle
+    from repro_torch.roofline import analysis
+    one = DryMesh({"data": 1, "model": 1})
+    seq = ROOFLINE_A_SEQ
+    rng = np.random.default_rng(seed + 21)
+    host = {k: rng.integers(0, cfg.vocab_size, (1, seq)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    out = {}
+    for kind in ("prefill", "train"):
+        def build(device="meta", remat="dots", cost_mode=False):
+            if kind == "prefill":
+                return steps.build_prefill_bundle(cfg, one, seq, 1,
+                                                  cost_mode=cost_mode,
+                                                  device=device)
+            return steps.build_train_bundle(cfg, one, seq, 1, remat=remat,
+                                            cost_mode=cost_mode,
+                                            device=device)
+        t0 = time.perf_counter()
+        dry = count_bundle(build(), one)
+        plain = count_bundle(build(remat="none"), one)
+        cost = count_bundle(build(remat="none", cost_mode=True), one)
+        dry_s = time.perf_counter() - t0
+        card = build(device="cuda")
+        _fill_batch(card.args[-1], host)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0 - dry_s
+        res, by_op = _card_mm_flops(card.fn, *card.args)
+        card_s = time.perf_counter() - t0 - dry_s - build_s
+        require(bool(torch.isfinite(res.float()).all()),
+                f"(a) {kind}: the card's result is not finite")
+        card_mm = sum(n for op, n in by_op.items() if op in analysis.MM_OPS)
+        require(card_mm == dry["mm_flops"],
+                f"(a) {kind}: the dry run counted {dry['mm_flops']:.6g} mm "
+                f"FLOPs, the card {card_mm:.6g} ({by_op})")
+        attn = cost["mm_flops"] - plain["mm_flops"]
+        want = analysis.analytic_flops(cfg, seq, 1, kind) - \
+            analysis.model_flops(cfg, seq, 1, kind)
+        require(attn == want,
+                f"(a) {kind}: the cost pass's attention FLOPs {attn:.6g} != "
+                f"analytic_flops's attention term {want:.6g}")
+        out[kind] = {"mm_flops": card_mm, "card_by_op": by_op,
+                     "dry_by_op": dry["flops_by_op"], "attention": attn,
+                     "dry_s": dry_s, "build_s": build_s, "card_s": card_s}
+        del card, res
+        free_cuda()
+    return out
+
+
+def _roofline_remat(cfg, seed: int) -> dict:
+    """(b): one training step of ``cfg`` (1 x TRAIN_SEQ) under each remat
+    policy on the card: the loss and every gradient bit-equal to "none"'s,
+    the step's time (host clock, synchronised, after a warm-up pass) and
+    its peak (``max_memory_allocated`` above what the card held before the
+    bundle was built) beside the dry run's predicted peak of the same step
+    (argument + peak temporary bytes)."""
+    import torch
+    from repro_torch.core.shard_plan import DryMesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import count_bundle
+    from repro_torch.models.lm import REMATS
+    one = DryMesh({"data": 1, "model": 1})
+    rng = np.random.default_rng(seed + 22)
+    host = {k: rng.integers(0, cfg.vocab_size, (1, TRAIN_SEQ))
+            .astype(np.int32) for k in ("tokens", "labels")}
+    runs, ref, t_marks = {}, None, [time.perf_counter()]
+    for remat in REMATS:
+        mem = count_bundle(steps.build_train_bundle(
+            cfg, one, TRAIN_SEQ, 1, remat=remat), one)["memory"]
+        t_marks.append(time.perf_counter())
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        b = steps.build_train_bundle(cfg, one, TRAIN_SEQ, 1, remat=remat,
+                                     device="cuda")
+        step, (state, batch) = b.fn, b.args
+        _fill_batch(batch, host)
+        loss, grads = step.loss_and_grads(state["params"], batch)
+        # held on the host: the next policy's peak is measured without them
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if ref is None:
+            ref = (loss.cpu(), grads)
+        else:
+            require(torch.equal(loss.cpu(), ref[0]),
+                    f"(b) remat {remat!r}: loss {float(loss)!r} != none's "
+                    f"{float(ref[0])!r}")
+            bad = [k for k, g in grads.items() if not torch.equal(g, ref[1][k])]
+            require(not bad, f"(b) remat {remat!r}: gradients differ from "
+                             f"none's at {bad[:4]}")
+        del grads
+        t_marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        require(bool(torch.isfinite(loss)), f"(b) remat {remat!r}: loss")
+        runs[remat] = {"step_ms": ms, "peak_bytes": peak,
+                       "predicted_bytes": predicted,
+                       "predicted_over_measured": predicted / peak}
+        del b, step, state, batch, loss
+        free_cuda()
+        t_marks.append(time.perf_counter())
+    del ref
+    runs["marks_s"] = [round(b - a, 2) for a, b in zip(t_marks, t_marks[1:])]
+    for remat in ("dots", "full"):
+        require(runs[remat]["peak_bytes"] < runs["none"]["peak_bytes"],
+                f"(b) remat {remat!r} peaked at {runs[remat]['peak_bytes']} "
+                f"bytes, not below none's {runs['none']['peak_bytes']}")
+    return runs
+
+
+def _roofline_shares(measured: dict) -> list:
+    """(c): each ROOFLINE_CELLS cell's roofline bound on one card (the
+    analytic FLOPs and bytes, ``roofline_terms``) and the time it is held
+    to: the recorded one (PERF.md) or this run's (``measured``, by key)."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import analysis
+    rows = []
+    for arch, b, s, kind, layers, key, recorded in ROOFLINE_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        flops = analysis.analytic_flops(cfg, s, b, kind)
+        r = analysis.roofline_terms(
+            flops=flops, bytes_accessed=analysis.analytic_bytes_per_device(
+                cfg, s, b, kind, n_data=1, n_model=1),
+            collective_bytes=0.0, n_chips=1)
+        rows.append({"cell": f"{arch} {cfg.num_layers} layers {b} x {s} "
+                             f"{kind}", "key": key,
+                     "model_flops": analysis.model_flops(cfg, s, b, kind),
+                     "analytic_flops": flops,
+                     "bound_ms": r["step_lower_bound_s"] * 1e3,
+                     "bound_by": r["bottleneck"], "recorded_ms": recorded,
+                     "measured_ms": (measured or {}).get(key)})
+    return rows
+
+
+def phase_roofline(seed: int, card: str, measured: dict = None) -> dict:
+    """Phase 21: the dry run is the program on the card, remat keeps its
+    bits and lowers its peak, and the measured steps' shares of their
+    roofline bound (module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    for what, value in ROOFLINE_PREDICTED.items():
+        print(f"[21 roofline predicted] {what}: {value}")
+    shares = _roofline_shares(measured)
+    for row in shares:
+        if row["recorded_ms"] is not None:
+            print(f"[21 roofline predicted] {row['cell']}: bound "
+                  f"{row['bound_ms']:.2f} ms ({row['bound_by']}; "
+                  f"analytic_flops {row['analytic_flops']:.4g}, model_flops "
+                  f"{row['model_flops']:.4g}) against the recorded "
+                  f"{row['recorded_ms']} ms: {row['recorded_ms'] / row['bound_ms']:.3f}"
+                  f" x the bound, {100 * row['bound_ms'] / row['recorded_ms']:.1f}"
+                  f" % of it (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W)")
+    free_cuda()
+    kops.reset_launch_counts()
+    a_cfg = dataclasses.replace(get_config("chatglm3-6b"),
+                                num_layers=ROOFLINE_A_LAYERS)
+    a = _roofline_dry_vs_card(a_cfg, seed)
+    b_cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                                num_layers=ROOFLINE_B_LAYERS)
+    b = _roofline_remat(b_cfg, seed)
+    counts = _mp_counts(kops)
+    for k in ("flash", "flash_bwd", "transpose", "gather_bwd"):
+        require(counts[k] > 0, f"phase 21's main path launched no {k}")
+    for kind, r in a.items():
+        print(f"[21 roofline (a) {kind}] chatglm3-6b {ROOFLINE_A_LAYERS} of "
+              f"28 layers, full width, 1 x {ROOFLINE_A_SEQ}: mm FLOPs dry "
+              f"(meta, 1 x 1 mesh) == card {r['mm_flops']:.6g} (card by op "
+              f"{r['card_by_op']}, dry {r['dry_by_op']}); attention (the cost "
+              f"pass's dense products) {r['attention']:.6g} == analytic_flops"
+              f"'s term; the three dry counts took {r['dry_s']:.2f} s, the "
+              f"card's model {r['build_s']:.2f} s, its counted run "
+              f"{r['card_s']:.2f} s; {card}")
+    print(f"[21 roofline (b) time] seconds by part (dry count, card "
+          f"build + bits, card step + free, by policy): {b.pop('marks_s')}")
+    for remat, r in b.items():
+        band = ROOFLINE_PEAK_BAND[0] <= r["predicted_over_measured"] <= \
+            ROOFLINE_PEAK_BAND[1]
+        print(f"[21 roofline (b) remat {remat}] h2o-danube-1.8b "
+              f"{ROOFLINE_B_LAYERS} of 24 layers, full width, 1 x "
+              f"{TRAIN_SEQ}: step {r['step_ms']:.2f} ms (host clock, "
+              f"synchronised); peak {r['peak_bytes'] / 2**30:.3f} GiB "
+              f"(max_memory_allocated); the dry run's {r['predicted_bytes'] / 2**30:.3f}"
+              f" GiB: predicted / measured {r['predicted_over_measured']:.4f} "
+              f"({'inside' if band else 'OUTSIDE'} the stated "
+              f"{ROOFLINE_PEAK_BAND}); loss and every gradient bit-equal to "
+              f"none's; {card}")
+    for row in shares:
+        if row["key"] is None:          # a recorded time only: predicted
+            continue
+        ms = row["measured_ms"]
+        tail = (f"measured {ms:.2f} ms in this run: {ms / row['bound_ms']:.3f}"
+                f" x the bound, {100 * row['bound_ms'] / ms:.1f} % of it"
+                if ms else "not measured in this run (its phase did not run)")
+        print(f"[21 roofline (c)] {row['cell']}: bound {row['bound_ms']:.2f}"
+              f" ms ({row['bound_by']}; analytic_flops "
+              f"{row['analytic_flops']:.4g}, model_flops "
+              f"{row['model_flops']:.4g}); {tail}; {card}")
+    return {"flash_launches": counts["flash"],
+            "flash_instances": counts["instances"],
+            "flash_bwd_launches": counts["flash_bwd"],
+            "flash_bwd_instances": counts["bwd_instances"],
+            "bwd_variants": counts["bwd_variants"],
+            "transpose_launches": counts["transpose"],
+            "sparse_launches": counts["sls_variants"]["sparse"],
+            "rows_sls_launches": counts["sls_variants"]["rows"],
+            "a": a, "b": b, "shares": shares}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8119,6 +8442,10 @@ def main(argv=None) -> int:
     ap.add_argument("--disagg-only", action="store_true",
                     help="run phases 1, 2 and 20 alone (the disaggregated "
                          "embedding tier and serving artifacts, no JSON)")
+    ap.add_argument("--roofline-only", action="store_true",
+                    help="run phases 1, 2 and 21 alone (the dry run and the "
+                         "roofline; (c)'s measured times need the full run, "
+                         "no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -8169,6 +8496,10 @@ def main(argv=None) -> int:
         return 0
     if args.disagg_only:
         phase_disagg(args.seed, card)
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.roofline_only:
+        phase_roofline(args.seed, card)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     alone = (phase_training if args.training_only else
@@ -8363,6 +8694,29 @@ def main(argv=None) -> int:
     gather["disagg_launches"] = disagg.pop("disagg_launches")
     gather["launches"] += gather["disagg_launches"]
     gather.update(disagg)
+    # phase 21 reads the earlier phases' times, then drives its own path
+    t0 = time.perf_counter()
+    roof = phase_roofline(args.seed, card, {
+        "chatglm3_prefill_ms": flash["chatglm3_prefill_ms"],
+        "stablelm_prefill_ms": flash["stablelm_prefill_ms"],
+        "llava_prefill_ms": flash["llava_prefill_ms"],
+        "training_step_ms": training["training_step_ms"]})
+    seconds["21"] = time.perf_counter() - t0
+    flash["roofline_launches"] = roof["flash_launches"]
+    flash["launches"] += flash["roofline_launches"]
+    instances.update(roof["flash_instances"])
+    bwd["roofline_launches"] = roof["flash_bwd_launches"]
+    bwd["launches"] += bwd["roofline_launches"]
+    for variant, n in roof["bwd_variants"].items():
+        bwd["variants"][variant] += n
+    bwd_instances = collections.Counter(bwd["instances"])
+    bwd_instances.update(roof["flash_bwd_instances"])
+    bwd["instances"] = dict(bwd_instances)
+    for kname, key in (("gather_transpose", "transpose_launches"),
+                       ("sls_sparse", "sparse_launches")):
+        k = next(k for k in kernels if k["name"] == kname)
+        k["launches_by_training"]["roofline"] = roof[key]
+        k["launches"] += roof[key]
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

@@ -177,9 +177,11 @@ def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ table.T (D, V) -> (..., V) in fp32: exact products of
     the operands summed in fp32 (the reference's ``dot_general`` with
     ``preferred_element_type=float32``); bf16 on the card through cuBLAS's
-    bf16 x bf16 -> fp32 GEMM, differentiable through :class:`Bf16Logits`."""
+    bf16 x bf16 -> fp32 GEMM, differentiable through :class:`Bf16Logits`
+    (meta tensors take the card's path: the dry run counts it)."""
     x2 = x.reshape(1, -1, x.shape[-1])
-    if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
+    if x.device.type in ("cuda", "meta") and \
+            x.dtype == table.dtype == torch.bfloat16:
         if torch.is_grad_enabled() and (x.requires_grad or
                                         table.requires_grad):
             out = Bf16Logits.apply(x2, table)

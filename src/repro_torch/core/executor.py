@@ -538,7 +538,7 @@ class ProgramExecutor:
                       "hot_swaps": 0, "hot_swaps_rejected": 0,
                       "spilled_lookups": 0, "collectives": 0,
                       "staged_bytes": 0, "collective_ms": 0.0,
-                      "rpc_steps": 0, "hot_local_steps": 0,
+                      "result_bytes": 0, "rpc_steps": 0, "hot_local_steps": 0,
                       "stale_steps": 0, "degraded_failed_steps": 0}
         self.rank = 0
         self._coll: Optional[sp.Collectives] = None

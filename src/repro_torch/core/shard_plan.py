@@ -54,13 +54,15 @@ _REDUCE_OPS = {"add": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
 
 
-def shard_count(mesh, axis: str = "model") -> int:
+def shard_count(mesh, axis="model") -> int:
     """Size of ``axis`` in ``mesh`` (1 when mesh is None or the axis is
-    absent) -- the executor's single switch between the replicated and
-    sharded paths."""
+    absent; a tuple of axes: the product of their sizes) -- the
+    executor's single switch between the replicated and sharded paths."""
     if mesh is None:
         return 1
-    return int(dict(zip(mesh.mesh_dim_names, mesh.shape)).get(axis, 1))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    return int(np.prod([sizes.get(a, 1) for a in axes]))
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +166,12 @@ class Collectives:
     the route depends on the group's backend alone, never on an error).
     Under any other pairing (NCCL on the card, gloo on the CPU) the
     collective takes the tensors directly.  ``stats`` (the executor's) gets
-    the calls, the staged bytes (both directions) and the host
-    milliseconds the collectives took: ``collectives``, ``staged_bytes``,
-    ``collective_ms``."""
+    the calls, the staged bytes (both directions), the host milliseconds
+    the collectives took and the bytes of their results: ``collectives``,
+    ``staged_bytes``, ``collective_ms``, ``result_bytes`` -- the
+    reference's roofline convention (``collective_bytes_from_hlo``: an
+    all-reduce counts its payload, an all-gather the gathered result), so
+    a dry run's count (:class:`DryCollectives`) and a live one compare."""
 
     def __init__(self, group, device: torch.device, stats: dict):
         self.group = group
@@ -175,7 +180,13 @@ class Collectives:
         self.staged = (self.device.type == "cuda" and
                        dist.get_backend(group) == "gloo")
         self.stats = stats
+        stats.setdefault("result_bytes", 0)
         self._host: dict = {}             # (role, shape, dtype) -> pinned
+
+    def _count(self, out: torch.Tensor, t0: float) -> None:
+        self.stats["collective_ms"] += (time.perf_counter() - t0) * 1e3
+        self.stats["collectives"] += 1
+        self.stats["result_bytes"] += out.numel() * out.element_size()
 
     def _pinned(self, role: str, shape, dtype) -> torch.Tensor:
         key = (role, tuple(shape), dtype)
@@ -193,8 +204,7 @@ class Collectives:
             out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
             t0 = time.perf_counter()
             call(out, x)
-            self.stats["collective_ms"] += (time.perf_counter() - t0) * 1e3
-            self.stats["collectives"] += 1
+            self._count(out, t0)
             return out
         # the stream must drain before the host reads the input; a
         # non-blocking copy into a pinned buffer is then safe to reuse, as
@@ -207,8 +217,7 @@ class Collectives:
         call(h_out, h_in)
         out = torch.empty(out_shape, dtype=x.dtype, device=self.device)
         out.copy_(h_out, non_blocking=True)
-        self.stats["collective_ms"] += (time.perf_counter() - t0) * 1e3
-        self.stats["collectives"] += 1
+        self._count(out, t0)
         self.stats["staged_bytes"] += (x.numel() + out.numel()) * \
             x.element_size()
         return out
@@ -239,6 +248,60 @@ class Collectives:
             dist.all_gather_into_tensor
         return self._run(lambda o, i: ag(o, i, group=self.group), x,
                          (x.shape[0] * self.size,) + tuple(x.shape[1:]))
+
+
+class DryMesh:
+    """An abstract mesh for the dry run (the counterpart of the reference's
+    fake-device production mesh): axis sizes ``{axis: size}`` in order
+    and the place of the one rank this process stands for (``rank``,
+    row-major over the axes), with no process group and no device.  It
+    answers what the port reads of a ``DeviceMesh`` -- ``mesh_dim_names``,
+    ``shape``, ``device_type`` ("meta"), ``get_local_rank`` -- and an LM
+    built over it (``LM(cfg, device="meta", shard=ShardCtx(mesh))``) holds
+    that rank's slices on the meta device, its collectives
+    :class:`DryCollectives`."""
+
+    def __init__(self, sizes: dict, rank: int = 0):
+        self.mesh_dim_names = tuple(sizes)
+        self.shape = tuple(int(n) for n in sizes.values())
+        n = int(np.prod(self.shape))
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} is not on a mesh of {n}")
+        self.rank = rank
+        self.device_type = "meta"
+        self._coord = dict(zip(self.mesh_dim_names,
+                               np.unravel_index(rank, self.shape)))
+
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def get_local_rank(self, axis) -> int:
+        """This rank's coordinate along ``axis``, or along a tuple of axes
+        joined row-major (as a spec's joint axes are)."""
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        sizes = dict(zip(self.mesh_dim_names, self.shape))
+        coord = 0
+        for a in axes:
+            coord = coord * sizes[a] + int(self._coord[a])
+        return coord
+
+
+class DryCollectives(Collectives):
+    """The collectives of a :class:`DryMesh` axis: every call makes its
+    result's shape on the meta device and counts it in ``stats`` as
+    :class:`Collectives` counts a live one (``result_bytes`` the
+    reference's convention; nothing is staged and no time passes)."""
+
+    def __init__(self, size: int, stats: dict):
+        self.group, self.device, self.size = None, torch.device("meta"), size
+        self.staged = False
+        self.stats = stats
+        stats.setdefault("result_bytes", 0)
+
+    def _run(self, call, x: torch.Tensor, out_shape) -> torch.Tensor:
+        out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        self._count(out, time.perf_counter())
+        return out
 
 
 def _tracked(x: torch.Tensor) -> bool:
@@ -312,13 +375,39 @@ class _AxisScatter(torch.autograd.Function):
             g.movedim(ctx.dim, 0).contiguous()).movedim(0, ctx.dim), None)
 
 
+def _joint_group(mesh, axes: tuple):
+    """The process group of a live ``DeviceMesh``'s ``axes`` joined
+    row-major, and this rank's place in it.  Every rank of the mesh makes
+    every such group (``new_subgroups_by_enumeration`` is collective over
+    the world), so every rank calls this at the same point of its
+    program.  The joined order must be the group's own (ascending global
+    ranks, as a mesh laid out row-major gives), since an all-gather over
+    the group stacks its blocks in that order."""
+    names = list(mesh.mesh_dim_names)
+    rest = [names.index(a) for a in names if a not in axes]
+    perm = rest + [names.index(a) for a in axes]
+    blocks = mesh.mesh.permute(perm).reshape(-1, shard_count(mesh, axes))
+    ranks = [[int(r) for r in row] for row in blocks]
+    if any(row != sorted(row) for row in ranks):
+        raise ValueError(f"the mesh's {axes} do not join in rank order "
+                         f"({ranks[0]})")
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    me = dist.get_rank()
+    (row,) = [row for row in ranks if me in row]
+    return group, row.index(me)
+
+
 class ModelAxis:
     """One rank's place on a mesh axis that a model is split over (tensor
     and expert parallelism) or that its batch is split over (the data
     axis of training): ``size``, ``rank`` and the axis group's
     :class:`Collectives`, whose ``stats`` (``collectives``,
-    ``staged_bytes``, ``collective_ms``) count every collective the model
-    makes.  :func:`model_axis` memoizes one per (mesh, axis, device).
+    ``staged_bytes``, ``collective_ms``, ``result_bytes``) count every
+    collective the model makes.  :func:`model_axis` memoizes one per
+    (mesh, axis, device).  The axis may be a tuple of axes joined
+    row-major (the data axes ``("pod", "data")`` a batch splits over; on
+    a live mesh their group is made by :func:`_joint_group`).  On a
+    :class:`DryMesh` the axis is counted, not run (:class:`DryCollectives`).
 
     :meth:`sum`, :meth:`enter`, :meth:`gather` and :meth:`scatter` are
     differentiable where autograd records them (model-parallel training),
@@ -326,13 +415,20 @@ class ModelAxis:
     is the identity, an entry's the all-reduce of the cotangent in fp32, a
     gather's the rank's block, a scatter's the all-gather."""
 
-    def __init__(self, mesh, axis: str, device):
+    def __init__(self, mesh, axis, device):
         self.mesh, self.axis = mesh, axis
         self.size = shard_count(mesh, axis)
-        self.rank = mesh.get_local_rank(axis)
         self.stats = {"collectives": 0, "staged_bytes": 0,
-                      "collective_ms": 0.0}
-        self.coll = Collectives(mesh.get_group(axis), device, self.stats)
+                      "collective_ms": 0.0, "result_bytes": 0}
+        if isinstance(mesh, DryMesh):
+            self.rank = mesh.get_local_rank(axis)
+            self.coll = DryCollectives(self.size, self.stats)
+        elif isinstance(axis, tuple):
+            group, self.rank = _joint_group(mesh, axis)
+            self.coll = Collectives(group, device, self.stats)
+        else:
+            self.rank = mesh.get_local_rank(axis)
+            self.coll = Collectives(mesh.get_group(axis), device, self.stats)
 
     @property
     def staged(self) -> bool:
@@ -424,7 +520,7 @@ def data_mean(x: torch.Tensor, axes: list) -> torch.Tensor:
 _MODEL_AXES: dict = {}
 
 
-def model_axis(mesh, axis: str, device) -> ModelAxis:
+def model_axis(mesh, axis, device) -> ModelAxis:
     """The memoized :class:`ModelAxis` of ``mesh``'s ``axis`` on
     ``device`` (one per process: its stats gather every collective of
     the model's layers)."""
@@ -434,6 +530,13 @@ def model_axis(mesh, axis: str, device) -> ModelAxis:
     if hit is None or hit.mesh is not mesh:
         hit = _MODEL_AXES[key] = ModelAxis(mesh, axis, dev)
     return hit
+
+
+def axes_of(mesh) -> list:
+    """The :class:`ModelAxis` objects made so far on ``mesh`` (every axis
+    a model or its training step split over): their ``stats`` hold every
+    collective made on the mesh in this process."""
+    return [ax for ax in _MODEL_AXES.values() if ax.mesh is mesh]
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ Layout as in the JAX package: q (B,Sq,H,D), k (B,Sk,Hkv,D) and v
 (D = 192: 128 no-rotary and 64 rotary columns; Dv = 128).  A call whose
 tensors lie on the CPU runs the plain version
 (:func:`repro_torch.kernels.ref.attention`); a CUDA call launches the kernel
-or raises -- nothing falls back.  The dtype picks the kernel: bf16 runs the
+or raises -- nothing falls back; a call on meta tensors (the dry run) makes
+the outputs' shapes after the kernel's own checks and reports its bytes
+(:func:`.sls.meta_launch`).  The dtype picks the kernel: bf16 runs the
 tensor-core kernel (wgmma fed by TMA; 128-key tiles, 64 at D = 256), f32
 the scalar fp32 kernel (64-key tiles).  ``flash_attention_cuda.launches``
 counts the kernel launches and ``flash_attention_cuda.instances`` the same
@@ -37,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .sls import DTYPES, one_device, refuse_autograd
+from .sls import DTYPES, meta_launch, one_device, refuse_autograd
 
 #: the (q/k width, v width) pairs with a kernel; (80, 80) and (112, 112) run
 #: the (128, 128) kernel on zero-padded columns (csrc/ember_flash_attention.cu)
@@ -142,7 +144,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     takes that path)."""
     _check_qkv(q, k, v, window)
     b, sq, h, d = q.shape
-    dev = one_device(q, k, v)
+    dev = one_device(q, k, v, meta=True)
     if dev.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, return_lse=return_lse)
@@ -153,6 +155,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
            if return_lse else None)
+    if dev.type == "meta":
+        meta_launch("flash_attention", (q, k, v), (out, lse))
+        return (out, lse) if return_lse else out
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v, out)):
         raise ValueError("bf16 flash attention reads q, k and v by TMA: "
@@ -239,13 +244,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
                              f"shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    dev = one_device(q, k, v, o, dout, lse)
+    dev = one_device(q, k, v, o, dout, lse, meta=True)
     variant = backward_variant(q.dtype, d, dv)
     if dev.type == "cpu":
         return plain_backward(q, k, v, o, dout, lse, causal=causal,
                               window=window, variant=variant)
     refuse_autograd("ember_flash_attention_bwd", q, k, v, o, dout)
     win = _kernel_window(q, k, v, window)
+    if dev.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        meta_launch("flash_attention_bwd", (q, k, v, o, dout, lse), grads)
+        return grads
     if variant == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("the wgmma flash backward reads q, k, v and dout by "
                          "TMA: their data must be 16-byte aligned")

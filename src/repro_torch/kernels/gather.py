@@ -14,7 +14,9 @@ Two variants, chosen from the shapes by :func:`.sls.kernel_variant`:
   each output row with 16-byte (or single-element) loads.
 
 CPU tensors run the plain version (:func:`repro_torch.kernels.ref.block_gather`);
-a CUDA call launches the chosen variant or raises.
+a CUDA call launches the chosen variant or raises; meta tensors (the dry
+run) get their outputs' shapes and report the bytes
+(:func:`.sls.meta_launch`), here and in the backward.
 ``block_gather_cuda.launches`` counts the copy kernel's launches,
 ``block_gather_cuda.variants`` those of each variant and of the grouping
 pass ("group").
@@ -37,8 +39,8 @@ import torch
 
 from . import _build, ref
 from .sls import (DTYPES, aligned16, check_index, check_table, kernel_variant,
-                  launch_on, launch_variant as launch_sls, one_device,
-                  refuse_autograd, row_tile)
+                  launch_on, launch_variant as launch_sls, meta_launch,
+                  one_device, refuse_autograd, row_tile)
 
 
 def block_gather_cuda(table: torch.Tensor, idxs: torch.Tensor, *,
@@ -56,13 +58,16 @@ def block_gather_cuda(table: torch.Tensor, idxs: torch.Tensor, *,
     if block_rows < 1 or table.shape[0] % block_rows:
         raise ValueError(f"table rows {table.shape[0]} are not whole blocks "
                          f"of {block_rows}")
-    dev = one_device(table, idxs, roff)
+    dev = one_device(table, idxs, roff, meta=True)
     if dev.type == "cpu":
         return ref.block_gather(table, idxs, block_rows=block_rows, roff=roff)
     refuse_autograd("ember_block_gather", table)
     num_blocks, emb_len = idxs.numel(), table.shape[1]
     out = torch.empty((num_blocks, block_rows, emb_len), dtype=table.dtype,
                       device=dev)
+    if dev.type == "meta":      # the rows read are the rows written
+        meta_launch("block_gather", (out, idxs, roff), (out,))
+        return out
     if num_blocks == 0 or emb_len == 0:
         return out
     variant = kernel_variant("block_gather", emb_len, table.element_size(),
@@ -140,11 +145,15 @@ def block_gather_backward(dout: torch.Tensor, idxs: torch.Tensor,
         raise ValueError(f"dout {tuple(dout.shape)} is not the gather of "
                          f"{num_blocks} blocks of {block_rows} rows of a "
                          f"{num_rows}-row table")
-    dev = one_device(dout, idxs, roff)
+    dev = one_device(dout, idxs, roff, meta=True)
     if dev.type == "cpu":
         return ref.block_gather_backward(dout, idxs, num_rows,
                                          block_rows=block_rows, roff=roff)
     emb_len = dout.shape[2]
+    if dev.type == "meta":
+        out = torch.empty((num_rows, emb_len), dtype=dout.dtype, device=dev)
+        meta_launch("block_gather_bwd", (dout, idxs, roff), (out,))
+        return out
     if num_blocks == 0 or emb_len == 0:
         return torch.zeros((num_rows, emb_len), dtype=dout.dtype, device=dev)
     if dout.dtype not in DTYPES:
@@ -183,9 +192,14 @@ def transposed_lookups(idxs: torch.Tensor, roff: Optional[torch.Tensor],
     num_lookups = idxs.numel()
     if roff is not None:
         check_index("roff", roff, num_lookups)
-    dev = one_device(idxs, roff)
+    dev = one_device(idxs, roff, meta=True)
     if dev.type == "cpu":
         return ref.transposed_lookups(idxs, roff, n_tbl)
+    if dev.type == "meta":
+        order = torch.empty(num_lookups, dtype=torch.int32, device=dev)
+        ptrs = torch.empty(n_tbl + 1, dtype=torch.int32, device=dev)
+        meta_launch("gather_transpose", (idxs, roff), (order, ptrs))
+        return order, ptrs
     if num_lookups == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.zeros(n_tbl + 1, dtype=torch.int32, device=dev))

@@ -140,14 +140,33 @@ def launch_on(dev: torch.device, launch):
         return launch(torch._C._cuda_getCurrentRawStream(dev.index))
 
 
-def one_device(*tensors) -> torch.device:
+def one_device(*tensors, meta: bool = False) -> torch.device:
+    """The one device of ``tensors``: the CPU or a CUDA card, or with
+    ``meta`` also the meta device (a wrapper on the model's path, which
+    the dry run drives without storage: :func:`meta_launch`)."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda") and not (meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+#: the step counters open on this thread
+#: (:class:`repro_torch.roofline.analysis.StepCounter`); a stack, as
+#: torch's dispatch modes are
+META_COUNTERS: list = []
+
+
+def meta_launch(kernel: str, reads: tuple, writes: tuple) -> None:
+    """Where a wrapper is handed meta tensors (the dry run: nothing is
+    allocated and nothing launches), it makes its outputs' shapes and
+    reports here the bytes its kernel would read and write, which no aten
+    op dispatches: ``reads`` and ``writes`` are tensors (None skipped),
+    each counted once.  Counts no launch."""
+    for counter in META_COUNTERS:
+        counter.kernel(kernel, reads, writes)
 
 
 def sls_cuda(table: torch.Tensor, ptrs: torch.Tensor, idxs: torch.Tensor,

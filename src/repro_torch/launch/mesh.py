@@ -16,9 +16,13 @@ The reference is single-controller; the port runs one process a rank.
 :func:`run_ranks` starts such ranks on one host (spawned processes in one
 process group over a file store), as the tests and ``chip_smoke.py`` do.
 
-The reference's ``make_production_mesh`` (16 x 16 TPU chips a pod, 512
-over two pods) is a TPU shape and is not ported; ``axis_types_kw`` and
-``mesh_context`` are JAX API shims with nothing to stand for here.
+:func:`make_production_mesh` is the reference's production mesh as the
+dry run sees it: an abstract mesh (:class:`repro_torch.core.shard_plan
+.DryMesh`) of (16, 16) over ``("data", "model")``, or (2, 16, 16) with
+``pod`` in front, on which one rank's step is built on the meta device
+(``repro_torch.launch.dryrun``); no process group, no device.
+``axis_types_kw`` and ``mesh_context`` are JAX API shims with nothing to
+stand for here.
 """
 from __future__ import annotations
 
@@ -56,6 +60,18 @@ def make_host_mesh(model_parallel: int = 1, device=None):
                       torch.arange(n).reshape(n // model_parallel,
                                               model_parallel),
                       mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh, abstract: 16 x 16 = 256 ranks a
+    pod over ``("data", "model")``, or 2 pods = 512 over ``("pod",
+    "data", "model")`` (``pod`` pure data parallel), as a
+    :class:`~repro_torch.core.shard_plan.DryMesh` standing for rank 0
+    (every rank of these meshes holds slices of the same shapes)."""
+    from ..core.shard_plan import DryMesh
+    sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    return DryMesh(sizes)
 
 
 def data_axes_of(mesh) -> tuple:

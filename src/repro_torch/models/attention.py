@@ -1,6 +1,6 @@
 """Attention layers (counterpart of ``repro/models/attention.py``; ported
-so far: :func:`blockwise_attention`, :func:`init_attn`, :func:`attn_forward`
-(self- and cross-attention),
+so far: :func:`blockwise_attention`, the cost mode's :func:`dense_attention`,
+:func:`init_attn`, :func:`attn_forward` (self- and cross-attention),
 decode with a KV cache -- :func:`decode_attention`, :func:`slot_update`,
 :func:`attn_decode`, :func:`init_kv_cache` and the int8 cache's
 :func:`_quant_kv` / :func:`_dequant_kv` -- and DeepSeek's multi-head latent
@@ -12,6 +12,14 @@ KV chunks, with the sliding-window band of the ``dense_local`` layers.
 Here it is one call to ``kernels.ops.attention``: the hand-written flash
 kernel on CUDA tensors (which visits only the KV tiles of the band), its
 plain version (the same recurrence, chunk by chunk) on CPU tensors.
+
+:func:`dense_attention` is the reference's cost-mode attention: the
+softmax materialised over all (query, key) pairs by two batched products.
+Only a model whose ``ShardCtx.cost_mode`` is set takes it (``attn_forward``
+/ ``mla_forward`` with ``dense=True``), for the dry run's cost pass, where
+``torch.utils.flop_counter`` counts its ``bmm``s: the flash kernel is a
+call into the hand-written library, which no counter sees.  No served or
+trained path runs it.
 
 Decode attention is a stock-op product in the reference too (an einsum, no
 Pallas kernel); here it is two batched products whose bf16 operands are
@@ -66,6 +74,47 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kops.attention(q, k, v, causal=causal, window=window, chunk=chunk)
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Plain attention with the O(Sq·Sk) scores materialised (the
+    reference's cost-mode ``dense_attention``): q (B,Sq,H,D); k (B,Sk,Hkv,D),
+    v (B,Sk,Hkv,Dv) -> (B,Sq,H,Dv).  The reference's steps: scores of the
+    operands' exact products summed in fp32, scaled by D^-1/2, masked at
+    -1e30 (causal: q >= k; a window: q - k < window), softmax in fp32, p
+    cast to v's dtype for the PV product summed in fp32, one cast to q's
+    dtype.  Both products are one ``bmm`` each over (batch, KV head), the
+    query heads of a group stacked as rows."""
+    b, sq, h, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1).reshape(b * hkv, d, sk)
+    s = _dense_product(qg.reshape(b * hkv, g * sq, d), kt)
+    s = s.view(b, hkv, g, sq, sk) * d ** -0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = _dense_product(p.to(v.dtype).view(b * hkv, g * sq, sk),
+                       v.permute(0, 2, 1, 3).reshape(b * hkv, sk, dv))
+    return o.view(b, hkv, g, sq, dv).permute(0, 3, 1, 2, 4) \
+        .reshape(b, sq, h, dv).to(q.dtype)
+
+
+def _dense_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`dense_attention`'s products: :func:`_bmm_f32`, or under
+    autograd (the cost pass of a training step) the same sums on fp32
+    copies, as ``bmm(..., out_dtype=)`` has no derivative."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return torch.bmm(a.float(), b.float())
+    return _bmm_f32(a, b)
+
+
 def init_attn(gen: Optional[torch.Generator], cfg: ModelConfig,
               dtype: torch.dtype, device=None) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -89,7 +138,8 @@ def local_heads(p, cfg: ModelConfig) -> tuple:
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor, causal: bool = True,
                  window: Optional[int] = None,
-                 kv: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+                 kv: Optional[torch.Tensor] = None, tp=None,
+                 dense: bool = False) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D).  ``kv`` (B,Sk,D) overrides the K/V source:
     cross-attention (the ``xdec`` layers' attention over the encoder's
     output), with no rotary and no causal mask, Sk free of S -- a decode
@@ -101,7 +151,8 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     :class:`~repro_torch.core.shard_plan.ModelAxis`) ``p`` holds the rank's
     heads (:func:`local_heads`), the flash kernel runs on them, and the
     output projection by the rank's rows of ``wo`` is summed over the axis
-    (:func:`~.common.row_parallel`)."""
+    (:func:`~.common.row_parallel`).  ``dense`` (the cost mode) takes
+    :func:`dense_attention` in place of the flash kernel."""
     b, s, _ = x.shape
     (h, hkv), hd = local_heads(p, cfg), cfg.hd
     src = kv if kv is not None else x
@@ -113,10 +164,14 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         cos, sin = rope_freqs(positions, hd, cfg.rope_theta, cfg.rotary_pct)
         q = apply_rope(q, cos, sin, cfg.rotary_pct)
         k = apply_rope(k, cos, sin, cfg.rotary_pct)
-    chunk = pick_chunk(math.gcd(s, sk), min(cfg.attn_chunk, s))
-    o = blockwise_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=causal and kv is None, window=window,
-                            chunk=chunk)
+    if dense:
+        o = dense_attention(q, k, v, causal=causal and kv is None,
+                            window=window)
+    else:
+        chunk = pick_chunk(math.gcd(s, sk), min(cfg.attn_chunk, s))
+        o = blockwise_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal and kv is None,
+                                window=window, chunk=chunk)
     return row_parallel(o.reshape(b, s, h * hd), p["wo"], tp)
 
 
@@ -127,8 +182,9 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product of exact operand products summed in fp32: bf16 on
     the card through cuBLAS's bf16 x bf16 -> fp32 GEMM, anything else in
-    fp32."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    fp32 (meta tensors take the card's path: the dry run counts it)."""
+    if a.device.type in ("cuda", "meta") and \
+            a.dtype == b.dtype == torch.bfloat16:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -288,11 +344,12 @@ def init_mla(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): queries of ``hd`` no-rotary and ``rd`` rotary
     columns per head; keys and values expanded from the latent ``c = x
     W_dkv``, the rotary key ``kr`` shared by every head; causal attention
-    with q/k width ``hd + rd``, v width ``hd`` and scale (hd + rd)^-1/2."""
+    with q/k width ``hd + rd``, v width ``hd`` and scale (hd + rd)^-1/2
+    (:func:`dense_attention` under ``dense``, the cost mode)."""
     b, s, _ = x.shape
     h, hd, rd = cfg.num_heads, cfg.hd, cfg.rope_head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd + rd)
@@ -306,8 +363,12 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     kr = apply_rope(kr, cos, sin)
     qf = torch.cat([qn, qr], dim=-1)
     kf = torch.cat([kn, kr.expand(b, s, h, rd)], dim=-1)
-    chunk = pick_chunk(s, min(cfg.attn_chunk, s))
-    o = blockwise_attention(qf, kf, v.contiguous(), causal=True, chunk=chunk)
+    if dense:
+        o = dense_attention(qf, kf, v, causal=True)
+    else:
+        chunk = pick_chunk(s, min(cfg.attn_chunk, s))
+        o = blockwise_attention(qf, kf, v.contiguous(), causal=True,
+                                chunk=chunk)
     return o.reshape(b, s, h * hd) @ p["wo"]
 
 

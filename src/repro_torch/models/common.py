@@ -9,6 +9,7 @@ the reference's ``(in, out)`` layout: ``x @ w``.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -196,10 +197,52 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
 
 def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) fp32: exact operand products summed in
-    fp32 (bf16 on the card through cuBLAS's bf16 x bf16 -> fp32 GEMM)."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    fp32 (bf16 on the card through cuBLAS's bf16 x bf16 -> fp32 GEMM;
+    meta tensors take the card's path, which the dry run counts)."""
+    if a.device.type in ("cuda", "meta") and \
+            a.dtype == b.dtype == torch.bfloat16:
         return torch.bmm(a[None], b[None], out_dtype=torch.float32)[0]
     return torch.bmm(a[None].float(), b[None].float())[0]
+
+
+class RowOutputs:
+    """The outputs of a block's :class:`RowParallel` products, kept by
+    ``ShardCtx.remat="dots"`` (``models.lm.remat_block``): the block's
+    first run appends each product's reduced output; a recompute of the
+    block in the backward takes them back in order instead of running the
+    product and its all-reduce again.  A row-parallel product is one
+    matrix product without batch dims split over the model axis, whose
+    output "dots" saves (as ``dots_with_no_batch_dims_saveable`` saves the
+    reference's, after the all-reduce the partitioner puts behind it)."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.replay = False
+        self._next = 0
+
+    def run(self, fn, *args):
+        """``fn(*args)`` with this record current: the first call records,
+        every later one (the checkpoint's recompute) replays from the
+        first output."""
+        self._next = 0
+        token = _ROW_OUTPUTS.set(self)
+        try:
+            return fn(*args)
+        finally:
+            _ROW_OUTPUTS.reset(token)
+            self.replay = True
+
+    def take(self) -> torch.Tensor:
+        out = self.outs[self._next]
+        self._next += 1
+        return out
+
+
+#: the :class:`RowOutputs` of the block being run under "dots" (None
+#: elsewhere); a context variable, since a checkpoint's recompute runs in
+#: the backward's thread
+_ROW_OUTPUTS: contextvars.ContextVar = contextvars.ContextVar(
+    "row_outputs", default=None)
 
 
 class RowParallel(torch.autograd.Function):
@@ -209,12 +252,20 @@ class RowParallel(torch.autograd.Function):
     incoming cotangent on every rank: ``dh = dout @ w_r^T`` and ``dw_r =
     h_r^T @ dout``, each summed in fp32 and rounded once to its operand's
     dtype, as the single device's GEMM does.  h2 (N, K_r), w (K_r, M) ->
-    (N, M) in h's dtype."""
+    (N, M) in h's dtype.  Under a :class:`RowOutputs` record the output is
+    kept, and taken back (neither product nor all-reduce run) when the
+    block is recomputed."""
 
     @staticmethod
     def forward(ctx, h2, w, tp):
         ctx.save_for_backward(h2, w)
-        return tp.coll.all_reduce(_f32_product(h2, w), "add").to(h2.dtype)
+        rec = _ROW_OUTPUTS.get()
+        if rec is not None and rec.replay:
+            return rec.take().detach()
+        out = tp.coll.all_reduce(_f32_product(h2, w), "add").to(h2.dtype)
+        if rec is not None:
+            rec.outs.append(out)
+        return out
 
     @staticmethod
     def backward(ctx, dout):

@@ -20,6 +20,11 @@ stored in x's dtype after every chunk.
 
 No kernel runs here: the reference computes the recurrence with ``jnp``
 operations, not a Pallas kernel, and so does the port with torch ones.
+
+The reference's ``unroll`` (its roofline's cost mode unrolls the chunk
+scan, because XLA's cost analysis counts a loop body once) has nothing to
+stand for: the carry's eager loop dispatches, and the dry run's counters
+count, every iteration.
 """
 from __future__ import annotations
 

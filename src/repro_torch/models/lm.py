@@ -57,6 +57,23 @@ cotangent through, and the loss is the vocab-parallel cross entropy.  The
 MoE kinds' training over a mesh is ROADMAP.md Queue 1 item 6e; the other
 block kinds over a mesh are item 6d.
 
+**The dry run's lowering options** (``ShardCtx.cost_mode`` and
+``ShardCtx.remat``, the reference's): ``remat`` recomputes each block's
+forward in the backward through ``torch.utils.checkpoint`` ("dots" saves
+the outputs of the plain matrix products ``mm`` / ``addmm`` and of the
+row-parallel products after their all-reduce, the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``, and
+recomputes the rest, the flash kernel and batched products included;
+"full" saves nothing and runs the all-reduces again) -- the same kernels on the same inputs, so the loss
+and every gradient keep their bits.  ``cost_mode`` swaps the flash kernel
+for the materialised softmax (:func:`.attention.dense_attention`) and the
+sLSTM loop for its FLOP stand-in, so the dry run's cost pass counts the
+attention's FLOPs; a cost-mode model computes the same function (the sLSTM
+excepted) and is never served or trained.  Over a
+:class:`~repro_torch.core.shard_plan.DryMesh` (the dry run's abstract
+production mesh) an LM is built on the meta device: one rank's slices
+without storage, its collectives counted, not run.
+
 A block's ``forward`` and ``decode`` take a context dict beside their
 input, as the reference's ``block_apply`` / ``block_decode`` take
 ``ctx``: ``{"enc_out": (B, Sf, D)}`` for an encoder-decoder model (the
@@ -94,6 +111,7 @@ tree).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -109,7 +127,8 @@ from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
                         init_mla, init_mla_cache, mla_decode, mla_forward)
-from .common import ModelConfig, gated_mlp, init_mlp, init_rms, rms_norm
+from .common import (ModelConfig, RowOutputs, gated_mlp, init_mlp, init_rms,
+                     rms_norm)
 
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
@@ -126,13 +145,51 @@ class ShardCtx:
     whether the embed lookup takes ``cfg.embed_strategy`` (the reference's
     ``shard_map`` lookup) or its plain ``take`` over the sharded table.  A
     rank holds only its vocab rows either way, so the port runs the masked
-    lookup for both, and both give the same values.  The reference's
-    ``remat`` and ``cost_mode`` are not ported (``cost_mode`` is
-    ROADMAP.md Queue 1 item 10)."""
+    lookup for both, and both give the same values.  ``remat`` ("none",
+    "dots" or "full") and ``cost_mode``: the dry run's lowering options
+    (module docstring)."""
     mesh: object = None
     data_axes: tuple = ("data",)
     model_axis: str = "model"
     use_shard_map_embed: bool = True
+    remat: str = "none"
+    cost_mode: bool = False
+
+
+#: what ``ShardCtx.remat="dots"`` saves: the outputs of the products
+#: without batch dims (``dots_with_no_batch_dims_saveable``); a
+#: row-parallel product's reduced output is kept by its own record
+#: (:class:`.common.RowOutputs`)
+_SAVED_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+REMATS = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if getattr(op, "overloadpacket", None) in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(remat: str, blk, *args):
+    """``blk(*args)`` under the ``remat`` policy: itself for "none" or where
+    autograd records nothing; else through ``torch.utils.checkpoint``
+    (non-reentrant; no RNG state kept: no block draws random numbers),
+    "dots" with a selective context saving :data:`_SAVED_DOTS`' outputs
+    and a :class:`.common.RowOutputs` keeping the row-parallel products'
+    (so their all-reduces do not run again in the backward), "full" saving
+    only the block's inputs."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return blk(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    fn, kw = blk, {}
+    if remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+        fn = functools.partial(RowOutputs().run, blk)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -183,6 +240,8 @@ class DenseBlock(nn.Module):
     #: data axes an MoE layer averages its aux loss over
     tp = None
     data_axes: tuple = ()
+    #: the cost mode's materialised attention (``ShardCtx.cost_mode``)
+    cost_mode: bool = False
 
     _init_attn = staticmethod(init_attn)
 
@@ -193,7 +252,7 @@ class DenseBlock(nn.Module):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
-                            causal=True, tp=self.tp)
+                            causal=True, tp=self.tp, dense=self.cost_mode)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
         return attn_decode(self.attn, h, self.cfg, cache, active=active,
@@ -241,7 +300,7 @@ class LocalBlock(DenseBlock):
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
                             causal=True, window=self.cfg.sliding_window,
-                            tp=self.tp)
+                            tp=self.tp, dense=self.cost_mode)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
         return attn_decode(self.attn, h, self.cfg, cache,
@@ -272,7 +331,8 @@ class MlaBlock(MoeBlock):
     _init_attn = staticmethod(init_mla)
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
-        return mla_forward(self.attn, h, self.cfg, positions=positions)
+        return mla_forward(self.attn, h, self.cfg, positions=positions,
+                           dense=self.cost_mode)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
         return mla_decode(self.attn, h, self.cfg, cache, active=active)
@@ -286,7 +346,7 @@ class EncBlock(DenseBlock):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
-                            causal=False)
+                            causal=False, dense=self.cost_mode)
 
 
 class XdecBlock(DenseBlock):
@@ -306,16 +366,17 @@ class XdecBlock(DenseBlock):
             k: _frozen(v) for k, v in init_attn(gen, cfg, dtype,
                                                 device).items()})
 
-    def _cross(self, x: torch.Tensor, ctx: Optional[dict]) -> torch.Tensor:
+    def _cross(self, x: torch.Tensor, ctx: Optional[dict],
+               dense: bool = False) -> torch.Tensor:
         h = rms_norm(x, self.norm_x, self.cfg.norm_eps)
         return x + attn_forward(self.xattn, h, self.cfg, positions=None,
-                                causal=False, kv=ctx["enc_out"])
+                                causal=False, kv=ctx["enc_out"], dense=dense)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
         eps = self.cfg.norm_eps
         x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
-        x = self._cross(x, ctx)
+        x = self._cross(x, ctx, self.cost_mode)
         h, aux = self._ffn(rms_norm(x, self.norm2, eps))
         return x + h, aux
 
@@ -343,6 +404,7 @@ class RecurrentBlock(nn.Module):
     ``decode`` and ``init_cache`` functions."""
 
     NAME: str
+    cost_mode: bool = False
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -400,8 +462,10 @@ class SlstmBlock(RecurrentBlock):
 
     NAME = "slstm"
     _init = staticmethod(xlstm_mod.init_slstm)
-    _forward = staticmethod(xlstm_mod.slstm_forward)
     _decode = staticmethod(xlstm_mod.slstm_decode)
+
+    def _forward(self, p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        return xlstm_mod.slstm_forward(p, h, cfg, cost_mode=self.cost_mode)
     init_cache = staticmethod(xlstm_mod.init_slstm_cache)
 
 
@@ -413,6 +477,8 @@ class SharedAttnBlock(nn.Module):
     (the reference's: a window only for a hybrid model that is not
     ``long_context_ok``).  Its cache is a KV cache
     (:func:`.attention.init_kv_cache`)."""
+
+    cost_mode: bool = False
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -426,7 +492,8 @@ class SharedAttnBlock(nn.Module):
         cfg, sp = self.cfg, ctx["shared"]
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         x = x + attn_forward(sp["attn"], h, cfg, positions=positions,
-                             causal=True, window=ctx["shared_window"])
+                             causal=True, window=ctx["shared_window"],
+                             dense=self.cost_mode)
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         return x + gated_mlp(h, sp["mlp"], cfg.act), None
 
@@ -498,6 +565,9 @@ class LM(nn.Module):
                 raise ValueError(kind)
         self.cfg = cfg
         self.shard = shard or ShardCtx()
+        if self.shard.remat not in REMATS:
+            raise ValueError(f"remat {self.shard.remat!r} is none of "
+                             f"{REMATS}")
         meta = device is not None and torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
         self.tp = self._model_axis(kinds, dev)
@@ -526,6 +596,7 @@ class LM(nn.Module):
                 blk.data_axes = tuple(
                     a for a in self.shard.data_axes
                     if a in self.shard.mesh.mesh_dim_names)
+            blk.cost_mode = self.shard.cost_mode
             blocks.append(blk)
         self.blocks = nn.ModuleList(blocks)
         if "shared_attn" in kinds:
@@ -536,13 +607,15 @@ class LM(nn.Module):
             self.enc_blocks = nn.ModuleList(
                 EncBlock(cfg, gen, dtype, dev)
                 for _ in range(cfg.enc_layers))
+            for blk in self.enc_blocks:
+                blk.cost_mode = self.shard.cost_mode
             self.enc_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
 
     def _model_axis(self, kinds: tuple, dev: torch.device):
         """The model axis this rank's weights split over (None on one
         device or a 1-wide axis), after checking that the config splits
         over it."""
-        from ..core.shard_plan import model_axis, shard_count
+        from ..core.shard_plan import DryMesh, model_axis, shard_count
         sh, cfg = self.shard, self.cfg
         n = shard_count(sh.mesh, sh.model_axis)
         if n == 1:
@@ -561,9 +634,13 @@ class LM(nn.Module):
             split["num_experts"] = cfg.num_experts
         for what, size in split.items():
             if size % n:
-                raise ValueError(f"{cfg.name}'s {what} {size} does not split "
-                                 f"over the {sh.model_axis} axis of {n}")
-        if dev.type == "meta" or sh.mesh.device_type != dev.type:
+                raise ValueError(
+                    f"{cfg.name}'s {what} {size} does not split over the "
+                    f"{sh.model_axis} axis of {n}: a dim that does not "
+                    f"split is not ported yet (ROADMAP.md, Queue 1 item 6d)")
+        # the dry run's abstract mesh holds its rank's slices on meta
+        dry = isinstance(sh.mesh, DryMesh)
+        if (dev.type == "meta") != dry or sh.mesh.device_type != dev.type:
             raise ValueError(f"a sharded LM is built on its mesh's device "
                              f"({sh.mesh.device_type}), not {dev}")
         return model_axis(sh.mesh, sh.model_axis, dev)
@@ -623,7 +700,7 @@ class LM(nn.Module):
         positions = torch.arange(sf, dtype=torch.float32,
                                  device=x.device)[None].expand(b, sf)
         for blk in self.enc_blocks:
-            x, _ = blk(x, positions)
+            x, _ = remat_block(self.shard.remat, blk, x, positions)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
     def _shared_ctx(self) -> Optional[dict]:
@@ -692,7 +769,7 @@ class LM(nn.Module):
         ctx = self._forward_ctx(enc_embeds, s)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x, a = blk(x, positions, ctx)
+            x, a = remat_block(self.shard.remat, blk, x, positions, ctx)
             if a is not None:
                 aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)

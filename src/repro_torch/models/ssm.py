@@ -18,6 +18,10 @@ reordered).  :func:`mamba_decode` writes it in place and, under an
 ``active`` mask, leaves the inactive slots' leaves as they were, bit for
 bit; it reads nothing back to the host and allocates nothing whose size
 depends on values, so a served micro-step can be captured in a CUDA graph.
+
+The reference's ``unroll`` (``mamba_forward`` and ``_ssd_chunked``, its
+roofline's cost mode) is not taken: the port's chunk loop is eager, and
+the dry run counts every iteration of it (:mod:`.linear_scan`).
 """
 from __future__ import annotations
 

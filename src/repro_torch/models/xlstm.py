@@ -35,9 +35,12 @@ d)`` in fp32``}`` (sLSTM; the stabiliser ``m`` starts at 0, as in the
 reference).  The decodes write them in place and, under an ``active``
 mask, leave the inactive slots' leaves as they were, bit for bit; they
 read nothing back to the host, so a served micro-step can be captured in a
-CUDA graph.  (The reference's ``cost_mode`` / ``_slstm_flops_equivalent``
-and ``unroll`` are lowering options of its roofline, which is not ported:
-ROADMAP.md, Queue 1 item 10.)
+CUDA graph.  The reference's roofline lowering options: the sLSTM's
+``cost_mode`` (:func:`slstm_forward`) takes :func:`_slstm_flops_equivalent`,
+so the dry run's cost pass counts one batched stand-in for the S-step loop
+(its FLOPs, not its values); the mLSTM scan's ``unroll`` has nothing to
+stand for, as the eager chunk loop is counted a chunk at a time
+(:mod:`.linear_scan`).
 
 No kernel runs here: the reference computes both recurrences with ``jnp``
 operations, not a Pallas kernel, and so does the port with torch ones.
@@ -231,11 +234,37 @@ def _slstm_scan(p, cfg: ModelConfig, wx: torch.Tensor) -> tuple:
     return torch.stack(hs, dim=1), (h, c, n, m)
 
 
-def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                  cost_mode: bool = False) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): the input projection, the recurrence step by
-    step, the out-projection."""
-    hs, _ = _slstm_scan(p, cfg, x @ p["w_in"])
+    step, the out-projection; under ``cost_mode`` the recurrence is
+    :func:`_slstm_flops_equivalent`'s stand-in."""
+    wx = x @ p["w_in"]
+    if cost_mode:
+        return _slstm_flops_equivalent(p, x, wx, cfg)
+    hs, _ = _slstm_scan(p, cfg, wx)
     return hs @ p["wo"]
+
+
+def _slstm_flops_equivalent(p, x: torch.Tensor, wx: torch.Tensor,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """COST MODE ONLY (the reference's function): numerically not the
+    sLSTM, but FLOP-identical to its loop -- the per-head recurrent
+    product and the gate arithmetic run once for every step, batched over
+    S, on x standing in for the carried h -- so the dry run's cost pass
+    counts S steps without dispatching S cell steps a layer."""
+    b, s, d = x.shape
+    nh = cfg.num_heads
+    h_fake = x.reshape(b, s, nh, d // nh)
+    rh = torch.einsum("bshd,hde->bshe", h_fake, p["r"]).reshape(b, s, 4 * d)
+    pre = (wx + rh).float() + p["b"]
+    z, i_t, f_t, o = pre.chunk(4, dim=-1)
+    log_f = F.logsigmoid(f_t)
+    m = torch.maximum(log_f, i_t)
+    c = torch.exp(log_f + m) + torch.exp(i_t - m) * torch.tanh(z)
+    n = torch.exp(log_f) + torch.exp(i_t - m)
+    y = (torch.sigmoid(o) * c / n.clamp_min(1.0)).to(x.dtype)
+    return y @ p["wo"]
 
 
 def slstm_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,

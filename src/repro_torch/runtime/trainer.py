@@ -47,6 +47,14 @@ Gradient compression over a mesh raises (ROADMAP.md, Queue 1 item 6f: a
 rank's slice of a split leaf does not fall into the reference's 256-value
 blocks of the global leaf).
 
+:class:`TrainStep` is the step itself (the mesh plan, the state, the
+loss, its gradients and the update), which :class:`Trainer` runs in its
+loop and the dry run (``repro_torch.launch.steps``) builds on the meta
+device, so the dry run counts the program users run.  The data axes may
+be two (``pod`` and ``data``, as on the reference's multi-pod mesh): the
+batch splits over both joined row-major, and the gradients are meaned and
+the ZeRO-1 rows split over that one joint axis.
+
 The supervisor (:func:`run_supervised`) is the single-process stand-in for
 the cluster controller: it builds a fresh trainer and restarts the loop
 after injected failures until the target step is reached.
@@ -58,7 +66,6 @@ import functools
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
@@ -82,34 +89,30 @@ class TrainerConfig:
     lr: float = 3e-4
 
 
-class Trainer:
-    def __init__(self, lm, data: SyntheticTokens, tcfg: TrainerConfig,
-                 in_shardings=None, faults=None):
-        if tcfg.ckpt_dir is None:
-            raise ValueError(
-                "TrainerConfig.ckpt_dir is required: the trainer resumes "
-                "from any checkpoint it finds there, so it takes no shared "
-                "default")
+class TrainStep:
+    """One training step of ``lm`` on a global batch of ``global_batch``
+    sequences of ``seq_len`` tokens: the mesh plan (:meth:`_plan_mesh`),
+    the state (:meth:`init_state`), :meth:`loss_and_grads` and the update
+    (``self(state, batch)``).  What :class:`Trainer` runs each step, and
+    what the dry run counts."""
+
+    def __init__(self, lm, global_batch: int, seq_len: int, *,
+                 lr: float = 3e-4, grad_compression: bool = False,
+                 in_shardings=None):
         self.lm = lm.requires_grad_(True)
-        self.data = data
-        self.tcfg = tcfg
-        # optional shared chaos injector (runtime.faults.FaultInjector):
-        # fires the "step" site each iteration
-        self.faults = faults
-        self.opt = adamw(lr=tcfg.lr)
+        self.grad_compression = grad_compression
+        self.opt = adamw(lr=lr)
         self.mesh = lm.shard.mesh
         self.shards = None          # optim.adamw.Shards on a mesh
-        self._plan_mesh(in_shardings)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
-                                      rank=self._rank)
-        self.emb_executor = None
+        self._plan_mesh(in_shardings, global_batch, seq_len)
 
-    def _plan_mesh(self, in_shardings) -> None:
+    def _plan_mesh(self, in_shardings, global_batch: int,
+                   seq_len: int) -> None:
         """On a mesh: the specs of the parameters, moments and batch (from
         ``in_shardings``, checked, or the defaults), the AdamW shards, this
-        rank's data block and the data axis the gradients are meaned
+        rank's data block and the data axes the gradients are meaned
         over."""
-        self._rank, self._block, self._data = 0, None, None
+        self._block, self._data = None, None
         self._loss_axes = ()
         if self.mesh is None:
             if in_shardings is not None:
@@ -117,16 +120,16 @@ class Trainer:
                                  "the LM has no mesh (LM(shard=ShardCtx("
                                  "mesh)))")
             return
-        if self.tcfg.grad_compression:
+        if self.grad_compression:
             raise NotImplementedError(
                 "gradient compression over a mesh is not ported yet "
                 "(ROADMAP.md, Queue 1 item 6f)")
         from ..core.shard_plan import model_axis, shard_count
         from ..launch import sharding as shd
-        mesh, sh, dc = self.mesh, self.lm.shard, self.data.cfg
+        mesh, sh = self.mesh, self.lm.shard
         data_axes = tuple(a for a in sh.data_axes if a in mesh.mesh_dim_names)
         p_want, zero, b_specs = shd.train_specs(
-            self.lm.cfg, mesh, dc.global_batch, dc.seq_len, data_axes)
+            self.lm.cfg, mesh, global_batch, seq_len, data_axes)
         mu = dict(p_want)
         if in_shardings is not None:
             p_specs, opt_specs, b_specs = in_shardings
@@ -147,15 +150,14 @@ class Trainer:
                                  f"neither the params' nor ZeRO-1's")
         self.specs = {"params": p_want, "moments": mu}
         zero1 = frozenset(k for k in p_want if mu[k] != p_want[k])
-        dsize = int(np.prod([shard_count(mesh, a) for a in data_axes]))
-        if len(data_axes) > 1 and dsize > 1:
-            raise NotImplementedError(f"more than one data axis {data_axes}")
+        wide = tuple(a for a in data_axes if shard_count(mesh, a) > 1)
         dev = self.lm.device
-        if dsize > 1:
-            self._data = model_axis(mesh, data_axes[0], dev)
+        if wide:    # the data axes, joined row-major where there are two
+            self._data = model_axis(mesh, wide[0] if len(wide) == 1
+                                    else wide, dev)
         split = b_specs["tokens"][0]
-        if split is not None and dsize > 1:
-            b = dc.global_batch // dsize
+        if split is not None and wide:
+            b = global_batch // self._data.size
             lo = self._data.rank * b
             self._block = (lo, lo + b)
             self._loss_axes = data_axes
@@ -166,15 +168,6 @@ class Trainer:
             data=self._data, zero1=zero1)
         from ..launch.sharding import axis_sizes, mesh_index
         self._sizes, self._index = axis_sizes(mesh), mesh_index(mesh)
-        self._rank = int(torch.distributed.get_rank())
-
-    def _ckpt_shards(self):
-        """The specs and place of this rank for a sharded checkpoint (None
-        on one device)."""
-        if self.mesh is None:
-            return None
-        return (self.specs["params"], self.specs["moments"], self._sizes,
-                self._index)
 
     def init_state(self) -> dict:
         """``{"params", "opt", "ef"}``: the module's parameters (the live
@@ -185,30 +178,7 @@ class Trainer:
         return {"params": params,
                 "opt": self.opt.init(params, self.shards),
                 "ef": (error_feedback_init(params)
-                       if self.tcfg.grad_compression else None)}
-
-    def _restore(self, state: dict) -> int:
-        """Overwrite ``state`` in place from the latest checkpoint (this
-        rank's blocks of it on a mesh); returns its step."""
-        cfg = self.lm.cfg
-        like = train_state_to_reference(tree_map(
-            lambda t: torch.empty_like(t, device="meta"), state), cfg,
-            shards=self._ckpt_shards())
-        tree, step = self.ckpt.restore(
-            like, shardings=like if self.mesh is not None else None)
-        loaded = train_state_from_reference(tree, cfg, device="cpu")
-        with torch.no_grad():
-            for group in ("params", "ef"):
-                if state[group] is None:
-                    continue
-                for k, t in state[group].items():
-                    t.copy_(loaded[group][k])
-            opt, lopt = state["opt"], loaded["opt"]
-            opt.step.copy_(lopt.step)
-            for k in opt.mu:
-                opt.mu[k].copy_(lopt.mu[k])
-                opt.nu[k].copy_(lopt.nu[k])
-        return step
+                       if self.grad_compression else None)}
 
     def loss_and_grads(self, params: dict, batch: dict) -> tuple:
         """The loss (the mean over the global batch, on every rank) and
@@ -232,29 +202,88 @@ class Trainer:
                      .to(g.dtype) for k, g in grads.items()}
         return loss.detach(), grads
 
-    def _train_step(self, state: dict, batch: dict) -> torch.Tensor:
+    def __call__(self, state: dict, batch: dict) -> torch.Tensor:
         """One step: the loss, its gradients, compression, AdamW in place.
         Returns the loss (before the update), on the device."""
         params = state["params"]
         loss, grads = self.loss_and_grads(params, batch)
-        if self.tcfg.grad_compression:
+        if self.grad_compression:
             grads, state["ef"] = compress_gradients(grads, state["ef"])
         state["opt"] = self.opt.apply_(params, grads, state["opt"],
                                        self.shards)
         return loss
 
-    def _batch(self, step: int) -> dict:
-        """The step's batch on the model's device: the global batch, or
-        this rank's data block of it."""
+    def local_batch(self, host: dict) -> dict:
+        """A global batch of host arrays as this rank's tensors on the
+        model's device: its data block (the whole batch off a mesh), float
+        leaves in the model's dtype."""
         dev = self.lm.device
         out = {}
-        for k, v in self.data.batch_at(step).items():
+        for k, v in host.items():
             if self._block is not None:
                 v = v[self._block[0]:self._block[1]]
             t = torch.from_numpy(v).to(dev)
             out[k] = t.to(self.lm.cfg.torch_dtype) if t.is_floating_point() \
                 else t
         return out
+
+
+class Trainer(TrainStep):
+    """The loop of :class:`TrainStep`s over ``data`` with checkpoints,
+    the watchdog, failure injection and the train-serve handoff (module
+    docstring)."""
+
+    def __init__(self, lm, data: SyntheticTokens, tcfg: TrainerConfig,
+                 in_shardings=None, faults=None):
+        if tcfg.ckpt_dir is None:
+            raise ValueError(
+                "TrainerConfig.ckpt_dir is required: the trainer resumes "
+                "from any checkpoint it finds there, so it takes no shared "
+                "default")
+        super().__init__(lm, data.cfg.global_batch, data.cfg.seq_len,
+                         lr=tcfg.lr, grad_compression=tcfg.grad_compression,
+                         in_shardings=in_shardings)
+        self.data = data
+        self.tcfg = tcfg
+        # optional shared chaos injector (runtime.faults.FaultInjector):
+        # fires the "step" site each iteration
+        self.faults = faults
+        self._rank = 0 if self.mesh is None else \
+            int(torch.distributed.get_rank())
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
+                                      rank=self._rank)
+        self.emb_executor = None
+
+    def _ckpt_shards(self):
+        """The specs and place of this rank for a sharded checkpoint (None
+        on one device)."""
+        if self.mesh is None:
+            return None
+        return (self.specs["params"], self.specs["moments"], self._sizes,
+                self._index)
+
+    def _restore(self, state: dict) -> int:
+        """Overwrite ``state`` in place from the latest checkpoint (this
+        rank's blocks of it on a mesh); returns its step."""
+        cfg = self.lm.cfg
+        like = train_state_to_reference(tree_map(
+            lambda t: torch.empty_like(t, device="meta"), state), cfg,
+            shards=self._ckpt_shards())
+        tree, step = self.ckpt.restore(
+            like, shardings=like if self.mesh is not None else None)
+        loaded = train_state_from_reference(tree, cfg, device="cpu")
+        with torch.no_grad():
+            for group in ("params", "ef"):
+                if state[group] is None:
+                    continue
+                for k, t in state[group].items():
+                    t.copy_(loaded[group][k])
+            opt, lopt = state["opt"], loaded["opt"]
+            opt.step.copy_(lopt.step)
+            for k in opt.mu:
+                opt.mu[k].copy_(lopt.mu[k])
+                opt.nu[k].copy_(lopt.nu[k])
+        return step
 
     def run(self, *, failure_schedule: Callable[[int], bool] = None,
             on_step=None) -> dict:
@@ -280,7 +309,8 @@ class Trainer:
             if self.faults is not None:
                 self.faults.fire("step", step=step)
             t0 = time.time()
-            loss = float(self._train_step(state, self._batch(step)))
+            loss = float(self(state, self.local_batch(
+                self.data.batch_at(step))))
             dt = time.time() - t0      # float() waited for the step's work
             if tcfg.step_deadline_s and dt > tcfg.step_deadline_s:
                 raise StragglerTimeout(

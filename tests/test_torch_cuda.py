@@ -2411,3 +2411,80 @@ def test_axis_functions_and_row_parallel_backward_on_two_ranks(cuda):
         assert rel(gdh, want[1][:, r * k:(r + 1) * k]) <= 1e-2
         assert rel(gdw, want[2][r * k:(r + 1) * k]) <= 1e-2
     np.testing.assert_array_equal(res[0]["row"][0], res[1]["row"][0])
+
+
+# ---------------------------------------------------------------------------
+# The dry run's lowering options on the card
+# ---------------------------------------------------------------------------
+
+#: a dense and an MoE config at a head width the kernels take (the MoE one
+#: runs the un-dispatch gather and its backward in every layer)
+REMAT_CONFIGS = [TRAIN_CONFIGS[1], TRAIN_CONFIGS[5]]
+
+
+@pytest.mark.parametrize("arch,over", REMAT_CONFIGS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_remat_is_bit_equal_through_the_kernels(cuda, arch, over, dtype):
+    """``ShardCtx.remat`` "dots" and "full" on the card: the loss and every
+    gradient bit-equal to "none"'s; the flash forward (and an MoE layer's
+    gather) recomputed in the backward, so launched twice a layer; the
+    backward kernels launched as often as without remat."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.lm import LM, REMATS, ShardCtx, has_moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), d_ff=256, dtype=dtype,
+                              **over)
+    rng = np.random.default_rng(29)
+    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))
+                                 .astype(np.int32)).to(cuda)
+                for _ in range(2))
+    runs = {}
+    for remat in REMATS:
+        kops.reset_launch_counts()
+        lm = LM(cfg, device=cuda, seed=4,
+                shard=ShardCtx(remat=remat)).requires_grad_(True)
+        loss = lm.loss(tok, lab)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach(),
+                       {k: p.grad for k, p in lm.named_parameters()},
+                       kops.launch_counts(), kops.backward_launch_counts())
+    loss0, grads0, fwd0, bwd0 = runs["none"]
+    assert fwd0["flash_attention"] == cfg.num_layers
+    for remat in ("dots", "full"):
+        loss, grads, fwd, bwd = runs[remat]
+        assert torch.equal(loss, loss0), remat
+        for k, g in grads.items():
+            assert torch.equal(g, grads0[k]), (remat, k)
+        assert fwd["flash_attention"] == 2 * fwd0["flash_attention"]
+        if has_moe(cfg):
+            assert fwd["block_gather"] == 2 * fwd0["block_gather"] > 0
+        assert bwd == bwd0, remat
+
+
+def test_dry_run_mm_flops_equal_the_cards_count(cuda):
+    """A prefill and a training step (remat "dots") of a bf16 dense config
+    on a 1 x 1 mesh: the matrix products' FLOPs the dry run counts on meta
+    equal what the same counter counts running the step on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.shard_plan import DryMesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import count_bundle
+    from repro_torch.roofline import analysis
+    arch, over = TRAIN_CONFIGS[1]
+    cfg = dataclasses.replace(get_reduced(arch), d_ff=256, dtype="bfloat16",
+                              **over)
+    one = DryMesh({"data": 1, "model": 1})
+    rng = np.random.default_rng(21)
+    for build in (steps.build_prefill_bundle, steps.build_train_bundle):
+        dry = count_bundle(build(cfg, one, 64, 2), one)
+        card = build(cfg, one, 64, 2, device="cuda")
+        for t in card.args[-1].values():
+            t.copy_(torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                  tuple(t.shape))))
+        with analysis.flop_counter() as fc:
+            card.fn(*card.args)
+        torch.cuda.synchronize()
+        mm = sum(n for op, n in fc.get_flop_counts()["Global"].items()
+                 if str(op) in analysis.MM_OPS)
+        assert mm == dry["mm_flops"] > 0, build.__name__

@@ -470,3 +470,37 @@ def test_disaggregated_tier_stands_alone(tmp_path):
                             "TMPDIR": str(tmp_path)})
     assert "DISAGG-STANDALONE-OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def test_dry_run_and_roofline_stand_alone(tmp_path):
+    """``launch.steps``, ``launch.dryrun``, ``roofline.analysis`` and
+    ``roofline.report`` import, and one dry cell (stablelm-3b's decode_32k
+    on the (16, 16) mesh, with its cost pass) runs and renders, with JAX
+    and the JAX package unimportable."""
+    code = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        from repro_torch.launch import dryrun, steps
+        from repro_torch.roofline import analysis, report
+        dryrun.OUT_DIR = report.DRYRUN = Path({str(tmp_path)!r})
+        rec = dryrun.run_cell("stablelm-3b", "decode_32k", "single")
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["roofline"]["step_lower_bound_s"] > 0
+        assert steps.SHAPES["decode_32k"] == (32768, 128, "decode")
+        assert analysis.HW().peak_flops == 989e12
+        rows = report.build_rows("single")
+        assert "| stablelm-3b | decode_32k |" in report.markdown(rows)
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                       if sys.modules[m] is not None)
+        assert sys.modules["jax"] is None and sys.modules["repro"] is None
+        print("DRYRUN-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": str(REPO / "src"),
+                            "PATH": "/usr/bin:/bin",
+                            "TMPDIR": str(tmp_path)})
+    assert "DRYRUN-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]

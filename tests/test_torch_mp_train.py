@@ -197,7 +197,8 @@ def _port_rank(rank: int, world: int, mesh_shape: tuple, zeros: tuple,
                                                   zero1=zero1))
             tr.opt = AdamW(lr=LR, grad_clip=CLIP)
             state = tr.init_state()
-            loss, grads = tr.loss_and_grads(state["params"], tr._batch(0))
+            loss, grads = tr.loss_and_grads(
+                state["params"], tr.local_batch(tr.data.batch_at(0)))
             gn = float(torch.sqrt(global_sq_norm(grads, tr.shards)))
             state["opt"] = tr.opt.apply_(state["params"], grads,
                                          state["opt"], tr.shards)
