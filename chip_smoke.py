@@ -12,6 +12,7 @@
     python3 chip_smoke.py --mp-train-only [--seed N]   # phase 19 alone
     python3 chip_smoke.py --disagg-only [--seed N]     # phase 20 alone
     python3 chip_smoke.py --roofline-only [--seed N]   # phase 21 alone
+    python3 chip_smoke.py --tp-heads-only [--seed N]   # phase 22 alone
 
 Phases, one line each (a failed check raises and the run exits non-zero):
 
@@ -362,7 +363,34 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    (c) the measured times of phases 7, 7 stablelm, 12 and 13 over their
    cells' roofline bounds, with ``model_flops`` and ``analytic_flops``;
    every line beside the card's name and power limit;
-22. one JSON line listing the kernels with the kernel (variant) that
+22. the attention kinds over any model axis (``phase_tp_heads``;
+   ``--tp-heads-only`` runs phases 1, 2 and 22), gloo ranks sharing the
+   card, each building its slices of ``LM(cfg, seed, shard=)`` by the head
+   plan: (a) chatglm3-6b at full width and depth over four ranks (8 query
+   heads over a copy of one KV head a rank): the TPH_PREFILL prefill's
+   last hidden state and TPH_TF_STEPS teacher-forced micro-steps' logits
+   within TP_REL_L2 of the single device's, the first layer's flash on the
+   rank's heads against the plain version, TPH_REQUESTS served requests
+   with the same tokens on every rank, and one training step at
+   TPH_TRAIN_LAYERS layers: the loss (MP_LOSS_REL) and every gradient, the
+   ranks' slices joined by the plan (TRAIN_GRAD_REL_L2), against the
+   single device's, every KV copy's gradient and stepped parameter
+   bit-equal across its group; (b) DeepSeek-V2-Lite at full width and
+   TPH_DS_LAYERS layers over two ranks: the first MLA layer's forward and
+   a decode micro-step against the single device's, the prefill against
+   ``moe_ffn_ep_plain`` and the micro-steps against the single device with
+   the routing pinned to the ranks' (phase 18's way), and a served drive
+   equal on both ranks; (c) whisper-large-v3 at full width and depth over
+   two ranks: the 1 x TPH_WHISPER_FRAMES encoder + decoder forward and
+   decode micro-steps with the encoder context against the single
+   device's, and one training step at TPH_WHISPER_TRAIN_LAYERS + the same
+   encoder layers held as (a)'s.  Rank 0 times the flash layer at each
+   new shape (chatglm3-6b's 8 over 1 KV head, MLA's (192, 128) on 8 heads,
+   whisper's encoder (64, 64) on 10, not causal) beside the plain version,
+   the bound and SDPA.  Printed per rank: step and forward ms, collectives
+   and staged MB, peak GiB, beside the card; and the ``[22 tp heads
+   predicted]`` block written before the first run;
+23. one JSON line listing the kernels with the kernel (variant) that
    ran on the main path, its launches there (the gather's include the
    served waves of every model and DeepSeek's un-dispatch gathers,
    flash's the stablelm-3b, DeepSeek, gemma3-4b, h2o-danube-1.8b and
@@ -388,8 +416,12 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    ``launches`` too); phase 21's as ``roofline_launches`` of
    ``flash_attention`` and ``flash_attention_bwd`` and ``roofline`` in the
    ``launches_by_training`` of ``gather_transpose`` and ``sls_sparse``
-   (counted in ``launches`` too);
-23. ``{"ok": true, "device": {...}}`` as the last line.
+   (counted in ``launches`` too); phase 22's as ``tp_heads_launches`` of
+   ``flash_attention``, ``flash_attention_bwd`` and ``block_gather`` and
+   ``tp_heads`` in the ``launches_by_training`` of ``gather_transpose`` and
+   ``sls_sparse`` (counted in ``launches`` too), with the flash layers'
+   times at the ranks' new shapes (``tp_heads_flash_layers``);
+24. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -497,6 +529,50 @@ MP_PREDICTED = {"danube 1x8192 step over 2 ranks": "~10-15 s, > 90 % in "
                 "step-0 loss vs the single device": "~1e-3 relative",
                 "gradients vs the single device": "~1e-2 relative L2",
                 "2-layer (2, 2) ZeRO-1 step (2 x 2048)": "~1-2 s"}
+# the attention kinds over any model axis (phase 22), gloo ranks sharing
+# the card: (a) chatglm3-6b at full width and depth over four ranks (its 2
+# KV heads each copied on 2 ranks, 8 query heads a rank): a TPH_PREFILL
+# prefill, TPH_TF_STEPS teacher-forced micro-steps, TPH_REQUESTS served
+# requests, and one training step of 1 x TPH_TRAIN_SEQ at TPH_TRAIN_LAYERS
+# of its 28 layers; (b) DeepSeek-V2-Lite at full width and TPH_DS_LAYERS of
+# its 27 layers over two ranks (8 of its 16 MLA heads a rank, the latent
+# whole): one MLA layer's forward and decode micro-step, a TPH_DS_PREFILL
+# prefill and TPH_DS_DECODE micro-steps with the routing pinned (phase
+# 18's way), TPH_DS_REQUESTS served requests; (c) whisper-large-v3 at full
+# width and depth over two ranks (10 of its 20 heads a rank): a 1 x
+# TPH_WHISPER_FRAMES encoder + decoder forward, TPH_WHISPER_DECODE decode
+# micro-steps with the encoder context, and one training step of 1 x
+# TPH_WHISPER_TRAIN_SEQ at TPH_WHISPER_TRAIN_LAYERS encoder and decoder
+# layers
+TPH_PREFILL = (2, 512)
+TPH_WARM_TOKENS = 16               # a warm-up prefill's, before the counts
+TPH_TF_PROMPT, TPH_TF_STEPS = 2, 8
+TPH_SLOTS, TPH_MAX_LEN = 2, 64
+TPH_REQUESTS, TPH_PROMPT, TPH_NEW_TOKENS = 2, 8, 8
+TPH_TRAIN_LAYERS, TPH_TRAIN_SEQ = 4, 512
+TPH_DS_LAYERS, TPH_DS_PREFILL, TPH_DS_DECODE = 4, (1, 256), 4
+TPH_DS_REQUESTS, TPH_DS_NEW_TOKENS = 2, 8
+TPH_WHISPER_FRAMES, TPH_WHISPER_DECODE = 1500, 2
+TPH_WHISPER_TRAIN_LAYERS, TPH_WHISPER_TRAIN_SEQ = 4, 256
+# written before the first run on the card (PERF.md, the head plan's
+# findings): four ranks stage 56 all-reduces of the prefill's 16 MB fp32
+# partials through the host; a rank's layer holds 8 query heads over one
+# KV head (a quarter of phase 7's flash work at the same S)
+TPH_PREDICTED = {"chatglm3 2x512 prefill over 4 ranks": "~2,000-4,000 ms "
+                                                        "(collectives > 90 %)",
+                 "chatglm3 micro-step over 4 ranks": "~80-150 ms",
+                 "chatglm3 4-layer 1x512 training step": "~1-3 s",
+                 "prefill relative L2 vs the single device": "~5e-3-2e-2",
+                 "DeepSeek 4-layer 1x256 prefill over 2": "~200-500 ms",
+                 "whisper 1x1500 forward over 2": "~1,500-3,000 ms",
+                 "flash, chatglm3 rank layer (2x512, 8 over 1 KV head)":
+                     "~0.05-0.1 ms",
+                 "flash, MLA rank layer (1x256, 8 heads, 192/128)":
+                     "~0.02-0.05 ms",
+                 "flash, whisper encoder rank layer (1x1500, 10 heads)":
+                     "~0.05-0.1 ms",
+                 "peak a rank": "~4-5 GiB chatglm3, ~5 GiB DeepSeek, "
+                                "~3 GiB whisper"}
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -7011,19 +7087,32 @@ def _tp_parent_chatglm3(seed: int, job: dict) -> dict:
 
 
 def _tp_parent_qwen3(seed: int, job: dict, ranks: list) -> dict:
-    """Phase 18(b)'s plain versions on the full weights, in this process:
-    the prefill through ``moe_ffn_ep_plain`` (two ranks' seq-split
-    semantics) and the decode micro-steps on the single device, each with
-    the routing pinned to the ranks' (each layer's top-k experts,
-    weighted by this run's own probabilities, as phase 9 pins them); and
-    the routing decisions that differ when nothing is pinned, counted."""
-    import torch
+    """Phase 18(b)'s plain versions on the full weights of
+    qwen3-moe-235b-a22b's widths at TP_MOE_LAYERS layers
+    (:func:`_tp_parent_moe`), freed after."""
     from repro_torch.configs import get_config
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models.lm import LM
     cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
                               num_layers=TP_MOE_LAYERS)
     model = LM(cfg, seed=seed)
+    out = _tp_parent_moe(model, "qwen3", job, ranks)
+    del model
+    free_cuda()
+    return out
+
+
+def _tp_parent_moe(model, key: str, job: dict, ranks: list) -> dict:
+    """The plain versions of two expert-parallel ranks' MoE drive
+    (``_tp_qwen3``; the ranks' results under ``key``) on ``model``, the
+    single device's full weights, in this process: the prefill through
+    ``moe_ffn_ep_plain`` (two ranks' seq-split semantics) and the decode
+    micro-steps on the single device, each with the routing pinned to the
+    ranks' (each layer's top-k experts, weighted by this run's own
+    probabilities, as phase 9 pins them); and the routing decisions that
+    differ when nothing is pinned, counted."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    cfg = model.cfg
     route = moe_mod.route
     seen = []
 
@@ -7042,7 +7131,7 @@ def _tp_parent_qwen3(seed: int, job: dict, ranks: list) -> dict:
                         np.sort(w, -1)).any(-1).sum()
                        for g, w in zip(got, want)))
     # seq-split: layer l's block r is rank r's routing of layer l
-    r0, r1 = (r["qwen3"] for r in ranks)
+    r0, r1 = (r[key] for r in ranks)
     seq = [x for pair in zip(r0["prefill_routes"], r1["prefill_routes"])
            for x in pair]
     for blk in model.blocks:
@@ -7072,8 +7161,7 @@ def _tp_parent_qwen3(seed: int, job: dict, ranks: list) -> dict:
         moe_mod.route = route
     n_dec = sum(len(x) for x in r0["decode_routes"])
     n_pre = sum(len(x) for x in seq)
-    del model, caches
-    free_cuda()
+    del caches
     return {"last": last, "dec_logits": torch.stack(logits),
             "prefill_flips": prefill_flips, "prefill_tokens": n_pre,
             "decode_flips": decode_flips, "decode_tokens": n_dec}
@@ -8411,6 +8499,767 @@ def phase_roofline(seed: int, card: str, measured: dict = None) -> dict:
             "a": a, "b": b, "shares": shares}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the attention kinds over any model axis -- the head plan's KV
+# copies and uneven head counts, MLA and the encoder-decoder over gloo ranks
+# ---------------------------------------------------------------------------
+
+def _tph_grad_file(job: dict, part: str, rank: int) -> Path:
+    return Path(job["dir"]) / f"grads_{part}_{rank}.pt"
+
+
+def _tph_train(rank: int, lm, job: dict, part: str, batch: dict) -> dict:
+    """One training step of ``lm`` (a rank's slices) through the trainer's
+    step (``TrainStep.loss_and_grads``: KV copies summed over their
+    holders; ``AdamW.apply_`` with its shards), counted; the gradients
+    written to the phase's directory for the parent's comparison, and the
+    digests of every copied leaf's gradient and stepped parameter."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.trainer import TrainStep
+    seq = batch["tokens"].shape[1]
+    st = TrainStep(lm, batch["tokens"].shape[0], seq, lr=TRAIN_LR)
+    state = st.init_state()
+    local = st.local_batch(batch)
+    stats = lm.collective_stats
+    kops.reset_launch_counts()
+    c0 = dict(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = st.loss_and_grads(state["params"], local)
+    state["opt"] = st.opt.apply_(state["params"], grads, state["opt"],
+                                 st.shards)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+           "coll": _tp_collectives(stats, c0), "counts": _mp_counts(kops),
+           "copies": {k: (_digest(grads[k]), _digest(state["params"][k]))
+                      for k in st._copies},
+           "repeat": sorted(st.shards.repeat)}
+    torch.save({k: g.detach().cpu() for k, g in grads.items()},
+               _tph_grad_file(job, part, rank))
+    del st, state, grads, local
+    return out
+
+
+def _tph_held_flash(lm, run) -> tuple:
+    """``run()`` with the model's first flash call recorded: its q, k, v,
+    keywords and output (the call goes to the kernel as usual)."""
+    from repro_torch.kernels import ops as kops
+    first = []
+
+    def held(q, k, v, **kw):
+        o = kops.flash_attention_cuda(q, k, v, **kw)
+        if not first:
+            first.append((q, k, v, kw, o))
+        return o
+    with _OpSwap("attention", held):
+        run()
+    return first[0]
+
+
+def _tph_rank_a(rank: int, world: int, job: dict) -> dict:
+    """Phase 22(a) on one of four ranks: chatglm3-6b at full width and
+    depth (2 query heads a rank over a copy of one KV head), its first
+    layer's flash on the rank's heads held to the plain version, then the
+    counted main path -- the prefill, the teacher-forced micro-steps, the
+    served requests -- and one training step at TPH_TRAIN_LAYERS layers;
+    rank 0 then times the flash layer at the rank's shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.server import DecodeServer, Request
+    marks = [("start", time.time())]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(world)
+    shard = ShardCtx(mesh)
+    cfg = get_config("chatglm3-6b")
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, seed=job["seed"], shard=shard)
+    attn = lm.blocks[0].attn
+    out = {"held_bytes": sum(p.numel() * p.element_size()
+                             for p in lm.parameters()),
+           "heads": (attn["wq"].shape[1] // cfg.hd,
+                     attn["wk"].shape[1] // cfg.hd)}
+    tokens = torch.from_numpy(job["tokens"]).cuda()
+    lm.prefill(tokens[:, :TPH_WARM_TOKENS])           # warm-up
+    marks.append(("built", time.time()))
+    stats = lm.collective_stats
+    kops.reset_launch_counts()
+    c0 = dict(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill = []
+    q, k, v, kw, fo = _tph_held_flash(
+        lm, lambda: prefill.append(lm.prefill(tokens)))
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    last = prefill.pop()
+    out["flash"] = check_bf16(fo, plain_attention(q, k, v, **kw),
+                              f"rank {rank}'s chatglm3-6b layer-0 flash on "
+                              f"its heads")
+    layer = (q, k, v, kw)
+    out["prefill_coll"] = _tp_collectives(stats, c0)
+    out["last"] = last.float().cpu().numpy()
+    tf = job["tf_tokens"]
+    caches = lm.init_caches(tf.shape[0], tf.shape[1] + 1)
+    logits, ms, c0 = [], [], dict(stats)
+    for t in range(tf.shape[1]):
+        tok = torch.from_numpy(tf[:, t:t + 1]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = lm.decode_step(tok, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.cpu().numpy())
+    out["tf_logits"], out["step_ms"] = np.stack(logits), ms
+    out["step_coll"] = {k_: v_ / tf.shape[1] for k_, v_ in
+                        _tp_collectives(stats, c0).items()}
+    out["cache_heads"] = caches[0]["k"].shape[1]
+    del caches
+    srv = DecodeServer(lm, batch_slots=TPH_SLOTS, max_len=TPH_MAX_LEN,
+                       pipeline=False)
+    reqs = [Request(prompt=p, max_new_tokens=TPH_NEW_TOKENS)
+            for p in job["prompts"]]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    out["serve_s"] = time.perf_counter() - t0
+    out["served"] = [list(r.out) for r in reqs]
+    out["statuses"] = [r.status for r in reqs]
+    out["counts"] = _mp_counts(kops)
+    out["peak_serve"] = torch.cuda.max_memory_allocated()
+    del srv, reqs, lm, attn, last, fo
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("served", time.time()))
+    tcfg = dataclasses.replace(cfg, num_layers=TPH_TRAIN_LAYERS)
+    lm = LM(tcfg, seed=job["seed"], shard=shard)
+    out["train"] = _tph_train(rank, lm, job, "a", job["train_batch"])
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    marks.append(("trained", time.time()))
+    dist.barrier()
+    if rank == 0:
+        q, k, v, kw = layer
+        out["flash_layer"] = _flash_layer(q, k, v, kw, "a rank's chatglm3-6b "
+                                          "layer (8 query heads over 1 KV)")
+        out["flash_shape"] = (tuple(q.shape), tuple(k.shape))
+    del layer, q, k, v
+    dist.barrier()
+    marks.append(("timed", time.time()))
+    out["marks"] = marks
+    return out
+
+
+def _tph_rank_bc(rank: int, world: int, job: dict) -> dict:
+    """Phase 22(b) and (c) on one of two ranks: DeepSeek-V2-Lite at full
+    width and TPH_DS_LAYERS layers (its first MLA layer's forward and a
+    decode micro-step on the job's inputs, then phase 18's MoE drive --
+    the seq-split prefill and the replicated-token micro-steps, routing
+    recorded -- and a served drive), then whisper-large-v3 at full width
+    and depth (the 1 x TPH_WHISPER_FRAMES forward, decode micro-steps with
+    the encoder context) and one training step at
+    TPH_WHISPER_TRAIN_LAYERS encoder and decoder layers; rank 0 then times
+    the MLA and the whisper encoder flash layers at the rank's shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import mla_decode, mla_forward
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.server import DecodeServer, Request
+    marks = [("start", time.time())]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(world)
+    shard = ShardCtx(mesh)
+    counts: list = []
+    # (b) DeepSeek-V2-Lite
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=TPH_DS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, seed=job["seed"], shard=shard)
+    ds = {"held_bytes": sum(p.numel() * p.element_size()
+                            for p in lm.parameters()),
+          "heads": lm.blocks[0].attn["w_uk"].shape[1] // cfg.hd}
+    x = torch.from_numpy(job["mla_x"]).cuda().bfloat16()
+    s = x.shape[1]
+    pos = torch.arange(s, dtype=torch.float32, device=x.device)[None]
+
+    def first_mla_layer():
+        ds["mla_fwd"] = mla_forward(lm.blocks[0].attn, x, cfg, positions=pos,
+                                    tp=lm.tp).float().cpu().numpy()
+    with torch.inference_mode():
+        q, k, v, kw, fo = _tph_held_flash(lm, first_mla_layer)
+        cache = {n: torch.from_numpy(job[f"mla_{n}"]).cuda().bfloat16()
+                 for n in ("c", "kr")}
+        cache["len"] = torch.full((1,), s - 1, dtype=torch.int32,
+                                  device=x.device)
+        ds["mla_dec"] = mla_decode(lm.blocks[0].attn, x[:, -1:], cfg, cache,
+                                   tp=lm.tp).float().cpu().numpy()
+    ds["flash"] = check_bf16(fo, plain_attention(q, k, v, **kw),
+                             f"rank {rank}'s MLA layer-0 flash on its heads")
+    mla_layer = (q, k, v, kw)
+    del fo, cache
+    moe_job = {"moe_tokens": job["ds_tokens"], "moe_decode": job["ds_decode"]}
+    ds.update(_tp_qwen3(rank, lm, moe_job, counts))
+    kops.reset_launch_counts()
+    srv = DecodeServer(lm, batch_slots=TPH_SLOTS, max_len=TPH_MAX_LEN,
+                       pipeline=False)
+    reqs = [Request(prompt=p, max_new_tokens=TPH_DS_NEW_TOKENS)
+            for p in job["ds_prompts"]]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    ds["serve_s"] = time.perf_counter() - t0
+    ds["served"] = [list(r.out) for r in reqs]
+    ds["statuses"] = [r.status for r in reqs]
+    ds["serve_counts"] = _mp_counts(kops)
+    ds["peak"] = torch.cuda.max_memory_allocated()
+    del srv, reqs, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("deepseek", time.time()))
+    # (c) whisper-large-v3
+    wcfg = get_config("whisper-large-v3")
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(wcfg, seed=job["seed"], shard=shard)
+    wh = {"held_bytes": sum(p.numel() * p.element_size()
+                            for p in lm.parameters()),
+          "heads": lm.blocks[0].attn["wq"].shape[1] // wcfg.hd}
+    toks = torch.from_numpy(job["w_tokens"]).cuda()
+    frames = torch.from_numpy(job["w_frames"]).cuda().bfloat16()
+    stats = lm.collective_stats
+    with torch.inference_mode():
+        n = TPH_WARM_TOKENS                         # warm-up
+        lm.forward(toks[:, :n], enc_embeds=frames[:, :n])
+        kops.reset_launch_counts()
+        c0 = dict(stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd = []
+        q, k, v, kw, fo = _tph_held_flash(lm, lambda: fwd.append(
+            lm.forward(toks, enc_embeds=frames)))
+        torch.cuda.synchronize()
+        wh["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        h = fwd.pop()
+        wh["flash"] = check_bf16(fo, plain_attention(q, k, v, **kw),
+                                 f"rank {rank}'s whisper encoder layer-0 "
+                                 f"flash on its heads")
+        enc_layer = (q, k, v, kw)
+        del fo
+        wh["forward_coll"] = _tp_collectives(stats, c0)
+        wh["hidden"] = h.float().cpu().numpy()
+        enc_out = lm._encode(frames)
+        caches = lm.init_caches(1, TPH_WHISPER_DECODE + 1)
+        logits, ms = [], []
+        for t in range(TPH_WHISPER_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = lm.decode_step(toks[:, t:t + 1], caches,
+                                   batch_ctx={"enc_out": enc_out})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.cpu().numpy())
+        wh["dec_logits"], wh["step_ms"] = np.stack(logits), ms
+    wh["counts"] = _mp_counts(kops)
+    del lm, h, enc_out, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(wcfg, num_layers=TPH_WHISPER_TRAIN_LAYERS,
+                               enc_layers=TPH_WHISPER_TRAIN_LAYERS)
+    lm = LM(tcfg, seed=job["seed"], shard=shard)
+    wh["train"] = _tph_train(rank, lm, job, "c", job["w_train_batch"])
+    wh["peak"] = torch.cuda.max_memory_allocated()
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("whisper", time.time()))
+    dist.barrier()
+    out = {"deepseek": ds, "whisper": wh, "marks": marks,
+           "moe_counts": counts}
+    if rank == 0:
+        for key, (q, k, v, kw), what in (
+                ("mla_layer", mla_layer, "a rank's DeepSeek MLA layer (8 "
+                 "heads, q/k 192, v 128)"),
+                ("enc_layer", enc_layer, "a rank's whisper encoder layer "
+                 "(10 heads, not causal)")):
+            out[key] = _flash_layer(q, k, v, kw, what)
+            out[f"{key}_shape"] = (tuple(q.shape), tuple(k.shape))
+    del mla_layer, enc_layer, q, k, v
+    dist.barrier()
+    out["marks"].append(("timed", time.time()))
+    return out
+
+
+def _tph_single_train(cfg, seed: int, batch: dict) -> dict:
+    """The single device's loss and every gradient of ``LM(cfg, seed)`` on
+    ``batch`` (host arrays), on the host; the model freed."""
+    import torch
+    from repro_torch.models.lm import LM
+    lm = LM(cfg, seed=seed).requires_grad_(True)
+    dev = lm.device
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+    enc = batch.get("enc_embeds")
+    if enc is not None:
+        enc = torch.from_numpy(enc).to(dev).to(cfg.torch_dtype)
+    loss = lm.loss(tokens, labels, None, enc)
+    loss.backward()
+    want = {"loss": loss.item(),
+            "grads": {k: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).detach().cpu()
+                      for k, p in lm.named_parameters()}}
+    del lm, loss
+    free_cuda()
+    return want
+
+
+def _tph_parent_a(seed: int, job: dict) -> dict:
+    """Phase 22(a)'s single device: chatglm3-6b's prefill and teacher-
+    forced micro-steps (their tokens: the prompt, then this model's
+    argmax), freed before the ranks start; and the training step's loss
+    and gradients at TPH_TRAIN_LAYERS layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config("chatglm3-6b")
+    model = LM(cfg, seed=seed)
+    want = {"last": model.prefill(torch.from_numpy(job["tokens"]).cuda())
+            .float().cpu()}
+    tf = job["tf_tokens"]
+    caches = model.init_caches(tf.shape[0], tf.shape[1] + 1)
+    logits = []
+    for t in range(tf.shape[1]):
+        if t >= TPH_TF_PROMPT:             # teacher: this model's argmax
+            tf[:, t] = logits[-1][:, 0].argmax(-1).numpy()
+        lg, _ = model.decode_step(torch.from_numpy(tf[:, t:t + 1]).cuda(),
+                                  caches)
+        logits.append(lg.cpu())
+    want["tf_logits"] = torch.stack(logits)
+    del model, caches
+    free_cuda()
+    want["train"] = _tph_single_train(
+        dataclasses.replace(cfg, num_layers=TPH_TRAIN_LAYERS), seed,
+        job["train_batch"])
+    return want
+
+
+def _tph_parent_bc(seed: int, job: dict, ranks: list) -> dict:
+    """Phase 22(b) and (c)'s single device: DeepSeek-V2-Lite's first MLA
+    layer on the job's inputs and the pinned MoE drive
+    (:func:`_tp_parent_moe`); whisper-large-v3's forward and decode
+    micro-steps; and its training step's loss and gradients."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import mla_decode, mla_forward
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=TPH_DS_LAYERS)
+    model = LM(cfg, seed=seed)
+    x = torch.from_numpy(job["mla_x"]).cuda().bfloat16()
+    s = x.shape[1]
+    pos = torch.arange(s, dtype=torch.float32, device=x.device)[None]
+    want = {}
+    with torch.inference_mode():
+        want["mla_fwd"] = mla_forward(model.blocks[0].attn, x, cfg,
+                                      positions=pos).float().cpu()
+        cache = {n: torch.from_numpy(job[f"mla_{n}"]).cuda().bfloat16()
+                 for n in ("c", "kr")}
+        cache["len"] = torch.full((1,), s - 1, dtype=torch.int32,
+                                  device=x.device)
+        want["mla_dec"] = mla_decode(model.blocks[0].attn, x[:, -1:], cfg,
+                                     cache).float().cpu()
+    moe_job = {"moe_tokens": job["ds_tokens"], "moe_decode": job["ds_decode"]}
+    want["moe"] = _tp_parent_moe(model, "deepseek", moe_job, ranks)
+    del model, cache
+    free_cuda()
+    wcfg = get_config("whisper-large-v3")
+    model = LM(wcfg, seed=seed)
+    toks = torch.from_numpy(job["w_tokens"]).cuda()
+    frames = torch.from_numpy(job["w_frames"]).cuda().bfloat16()
+    with torch.inference_mode():
+        want["hidden"] = model.forward(toks, enc_embeds=frames).float().cpu()
+        enc_out = model._encode(frames)
+        caches = model.init_caches(1, TPH_WHISPER_DECODE + 1)
+        want["dec_logits"] = torch.stack([model.decode_step(
+            toks[:, t:t + 1], caches, batch_ctx={"enc_out": enc_out})[0].cpu()
+            for t in range(TPH_WHISPER_DECODE)])
+    del model, enc_out, caches
+    free_cuda()
+    want["train"] = _tph_single_train(
+        dataclasses.replace(wcfg, num_layers=TPH_WHISPER_TRAIN_LAYERS,
+                            enc_layers=TPH_WHISPER_TRAIN_LAYERS), seed,
+        job["w_train_batch"])
+    return want
+
+
+def _tph_grads_check(cfg, job: dict, part: str, world: int, want: dict,
+                     ranks: list, what: str) -> dict:
+    """The training step's checks: the ranks' losses bit-equal and within
+    MP_LOSS_REL of the single device's; every gradient, the ranks' slices
+    (read back from the phase's directory) joined by the head plan, within
+    TRAIN_GRAD_REL_L2 relative L2 of the single device's; every KV copy's
+    gradient and stepped parameter the same bits on every rank of its
+    group, and counted in the norm by its first rank only."""
+    import torch
+    from repro_torch.convert import lm_params_gathered
+    from repro_torch.launch.sharding import head_plan
+    losses = [r["loss"] for r in ranks]
+    require(len(set(losses)) == 1, f"{what}: the ranks' losses differ: "
+            f"{losses}")
+    loss_rel = abs(losses[0] - want["loss"]) / abs(want["loss"])
+    require(np.isfinite(losses[0]) and loss_rel <= MP_LOSS_REL,
+            f"{what}: the loss {losses[0]!r} vs the single device's "
+            f"{want['loss']!r}: relative {loss_rel:.3g} > {MP_LOSS_REL}")
+    states = [torch.load(_tph_grad_file(job, part, r), mmap=True)
+              for r in range(world)]
+    joined = lm_params_gathered(states, cfg)
+    require(set(joined) == set(want["grads"]),
+            f"{what}: the joined gradients' leaves differ from the single "
+            f"device's")
+    rel = {k: _rel_l2(joined[k].cuda(), want["grads"][k].cuda())
+           for k in joined}
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= TRAIN_GRAD_REL_L2,
+            f"{what}: the gradient of {worst} (ranks joined) is "
+            f"{rel[worst]:.3g} relative L2 from the single device's (limit "
+            f"{TRAIN_GRAD_REL_L2})")
+    copies = sorted(ranks[0]["copies"])
+    for rank, r in enumerate(ranks):
+        group = head_plan(cfg, world, rank).group
+        for k in copies:
+            if group:
+                require(r["copies"][k] == ranks[group[0]]["copies"][k],
+                        f"{what}: rank {rank}'s copy of {k} (gradient, "
+                        f"stepped parameter) differs from rank {group[0]}'s")
+        first = bool(group) and group[0] == rank
+        require(all((k in r["repeat"]) != first for k in copies),
+                f"{what}: rank {rank} counts a KV copy in the norm "
+                f"{'not ' if first else ''}as its group's first holder")
+    for r in range(world):
+        _tph_grad_file(job, part, r).unlink()
+    return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rel[worst],
+            "leaves": len(rel), "copies": len(copies)}
+
+
+def _tph_counts(counts: list) -> collections.Counter:
+    """The launches of the main paths' counted drives (``_mp_counts``
+    records), summed by kernel and instance."""
+    total = collections.Counter()
+    for c in counts:
+        total.update({k: c[k] for k in ("flash", "gather", "flash_bwd",
+                                        "transpose")})
+        total["sparse"] += c["sls_variants"]["sparse"]
+        total.update({f"variant {k}": v
+                      for k, v in c["bwd_variants"].items()})
+        total.update({f"instance {k}": v for k, v in c["instances"].items()})
+        total.update({f"bwd instance {k}": v
+                      for k, v in c["bwd_instances"].items()})
+    return total
+
+
+def phase_tp_heads(seed: int, card: str) -> dict:
+    """Phase 22: the attention kinds over any model axis, gloo ranks
+    sharing the one card (spawned, a file store; every collective staged
+    through pinned host memory) -- (a) chatglm3-6b over four ranks (the
+    head plan's KV copies), (b) DeepSeek-V2-Lite (MLA) and (c)
+    whisper-large-v3 (the encoder-decoder) over two (module docstring,
+    22).  Returns the launches by kernel and the flash layers' times at
+    the ranks' shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import run_ranks
+    print("[22 tp heads predicted] written before the first run on the card "
+          "(PERF.md): " + "; ".join(f"{k} {v}"
+                                          for k, v in TPH_PREDICTED.items()))
+    rng = np.random.default_rng(seed + 22)
+    glm = get_config("chatglm3-6b")
+    tf = np.zeros((TPH_SLOTS, TPH_TF_STEPS), np.int64)
+    tf[:, :TPH_TF_PROMPT] = rng.integers(0, glm.vocab_size,
+                                         (TPH_SLOTS, TPH_TF_PROMPT))
+    ddir = REPO / "build" / "tp_heads"
+    shutil.rmtree(ddir, ignore_errors=True)
+    ddir.mkdir(parents=True)
+
+    def train_batch(cfg, seq):
+        b = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq,
+                                       global_batch=1)).batch_at(0)
+        return {k: v.astype(np.int64) for k, v in b.items()}
+    ds_cfg = get_config("deepseek-v2-lite-16b")
+    wcfg = get_config("whisper-large-v3")
+    s_mla = TPH_DS_PREFILL[1]
+    w_batch = train_batch(wcfg, TPH_WHISPER_TRAIN_SEQ)
+    w_batch["enc_embeds"] = rng.standard_normal(
+        (1, TPH_WHISPER_TRAIN_SEQ, wcfg.d_model)).astype(np.float32)
+    job = {"seed": seed, "dir": str(ddir),
+           "tokens": rng.integers(0, glm.vocab_size,
+                                  TPH_PREFILL).astype(np.int64),
+           "tf_tokens": tf,
+           "prompts": [rng.integers(0, glm.vocab_size, TPH_PROMPT)
+                       .astype(np.int32) for _ in range(TPH_REQUESTS)],
+           "train_batch": train_batch(glm, TPH_TRAIN_SEQ),
+           "mla_x": rng.standard_normal((1, s_mla, ds_cfg.d_model))
+           .astype(np.float32),
+           "mla_c": rng.standard_normal((1, s_mla, ds_cfg.kv_lora_rank))
+           .astype(np.float32),
+           "mla_kr": rng.standard_normal((1, s_mla, ds_cfg.rope_head_dim))
+           .astype(np.float32),
+           "ds_tokens": rng.integers(0, ds_cfg.vocab_size,
+                                     TPH_DS_PREFILL).astype(np.int64),
+           "ds_decode": rng.integers(0, ds_cfg.vocab_size,
+                                     (TPH_SLOTS, TPH_DS_DECODE))
+           .astype(np.int64),
+           "ds_prompts": [rng.integers(0, ds_cfg.vocab_size, TPH_PROMPT)
+                          .astype(np.int32) for _ in range(TPH_DS_REQUESTS)],
+           "w_tokens": rng.integers(0, wcfg.vocab_size,
+                                    (1, TPH_WHISPER_FRAMES)).astype(np.int64),
+           "w_frames": rng.standard_normal(
+               (1, TPH_WHISPER_FRAMES, wcfg.d_model)).astype(np.float32),
+           "w_train_batch": w_batch}
+    seconds = {}
+    t0 = time.perf_counter()
+    want_a = _tph_parent_a(seed, job)
+    seconds["a single"] = time.perf_counter() - t0
+    t0, t_a = time.perf_counter(), time.time()
+    ranks_a = run_ranks(_tph_rank_a, 4, (job,), timeout_s=900)
+    seconds["a ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_a = _tph_grads_check(
+        dataclasses.replace(glm, num_layers=TPH_TRAIN_LAYERS), job, "a", 4,
+        want_a["train"], [r["train"] for r in ranks_a],
+        "22(a) chatglm3-6b training step")
+    seconds["a checks"] = time.perf_counter() - t0
+    # (a) chatglm3-6b over four ranks
+    a0 = ranks_a[0]
+    for rank, r in enumerate(ranks_a):
+        require(r["heads"] == (8, 1) and r["cache_heads"] == 1,
+                f"chatglm3-6b rank {rank}: {r['heads']} query / KV heads and "
+                f"{r['cache_heads']} cached; the head plan gives 8 over 1")
+        require(r["served"] == a0["served"] and
+                np.array_equal(r["last"], a0["last"]) and
+                np.array_equal(r["tf_logits"], a0["tf_logits"]),
+                f"chatglm3-6b: rank {rank}'s outputs differ from rank 0's")
+        require(all(st == "ok" for st in r["statuses"]),
+                f"chatglm3-6b rank {rank}: served {r['statuses']}")
+        rel = _rel_l2(torch.from_numpy(r["last"]), want_a["last"])
+        require(rel <= TP_REL_L2, f"chatglm3-6b rank {rank}: prefill "
+                f"relative L2 {rel:.4g} > {TP_REL_L2} against the single "
+                f"device")
+        tf_rel = max(_rel_l2(torch.from_numpy(r["tf_logits"][t]),
+                             want_a["tf_logits"][t])
+                     for t in range(TPH_TF_STEPS))
+        require(tf_rel <= TP_REL_L2, f"chatglm3-6b rank {rank}: teacher-"
+                f"forced logits relative L2 {tf_rel:.4g} > {TP_REL_L2}")
+        pc, sc, tr = r["prefill_coll"], r["step_coll"], r["train"]
+        print(f"[22 tp heads chatglm3-6b rank {rank}] 8 query heads over a "
+              f"copy of KV head {rank // 2} (the head plan), "
+              f"{r['held_bytes'] / 1e9:.3f} GB of weights held; "
+              f"{TPH_PREFILL[0]} x {TPH_PREFILL[1]} prefill "
+              f"{r['prefill_ms']:.1f} ms (host clock, synchronised; "
+              f"{pc['collectives']} collectives, "
+              f"{pc['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{pc['collective_ms']:.1f} ms in them), last hidden state vs "
+              f"the single device relative L2 {rel:.4g} (tol {TP_REL_L2}); "
+              f"{TPH_TF_STEPS} teacher-forced micro-steps of {TPH_SLOTS} "
+              f"slots: mean {np.mean(r['step_ms'][1:]):.2f} ms "
+              f"({sc['collectives']:.1f} collectives, "
+              f"{sc['staged_bytes'] / 1e6:.3f} MB staged a step), logits "
+              f"relative L2 <= {tf_rel:.4g}; layer-0 flash on its heads "
+              f"{_bf16_summary(r['flash'])}; served {TPH_REQUESTS} x "
+              f"{TPH_NEW_TOKENS} tokens in {r['serve_s']:.2f} s (eager, "
+              f"gloo); training step at {TPH_TRAIN_LAYERS} layers, 1 x "
+              f"{TPH_TRAIN_SEQ}: {tr['ms']:.1f} ms ({tr['coll']['collectives']}"
+              f" collectives, {tr['coll']['staged_bytes'] / 1e6:.1f} MB "
+              f"staged); peak {r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[22 tp heads chatglm3-6b training] loss on every rank "
+          f"{a0['train']['loss']!r} vs the single device's "
+          f"{want_a['train']['loss']!r} (relative {train_a['loss_rel']:.3g},"
+          f" limit {MP_LOSS_REL}); every gradient ({train_a['leaves']} "
+          f"leaves, the ranks' slices joined by the head plan) within "
+          f"{train_a['worst_rel']:.3g} relative L2 of the single device's "
+          f"(worst {train_a['worst']}, limit {TRAIN_GRAD_REL_L2}); the "
+          f"{train_a['copies']} copied KV leaves' gradients and stepped "
+          f"parameters bit-equal on each group's two ranks; the served "
+          f"tokens equal on all four ranks; {card}")
+    # (b), (c): one spawn of two ranks
+    t0, t_bc = time.perf_counter(), time.time()
+    ranks_bc = run_ranks(_tph_rank_bc, 2, (job,), timeout_s=900)
+    seconds["bc ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_bc = _tph_parent_bc(seed, job, ranks_bc)
+    seconds["bc single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_c = _tph_grads_check(
+        dataclasses.replace(wcfg, num_layers=TPH_WHISPER_TRAIN_LAYERS,
+                            enc_layers=TPH_WHISPER_TRAIN_LAYERS), job, "c",
+        2, want_bc["train"], [r["whisper"]["train"] for r in ranks_bc],
+        "22(c) whisper-large-v3 training step")
+    seconds["c checks"] = time.perf_counter() - t0
+    d0, d1 = (r["deepseek"] for r in ranks_bc)
+    moe = want_bc["moe"]
+    require(d0["served"] == d1["served"] and
+            all(st == "ok" for st in d0["statuses"] + d1["statuses"]),
+            f"DeepSeek: the ranks served {d0['served']} and {d1['served']}")
+    for key in ("mla_fwd", "mla_dec", "last", "dec_logits"):
+        require(np.array_equal(d0[key], d1[key]),
+                f"DeepSeek: the ranks' {key} differ")
+    for rank, r in enumerate((d0, d1)):
+        require(r["heads"] == 8, f"DeepSeek rank {rank}: {r['heads']} heads")
+        rel = {k: _rel_l2(torch.from_numpy(r[k]), want_bc[k])
+               for k in ("mla_fwd", "mla_dec")}
+        rel["prefill"] = _rel_l2(torch.from_numpy(r["last"]), moe["last"])
+        rel["decode"] = max(_rel_l2(torch.from_numpy(r["dec_logits"][t]),
+                                    moe["dec_logits"][t])
+                            for t in range(TPH_DS_DECODE))
+        bad = {k: v for k, v in rel.items() if v > TP_REL_L2}
+        require(not bad, f"DeepSeek rank {rank}: relative L2 {bad} > "
+                f"{TP_REL_L2} against the single device (the prefill "
+                f"against moe_ffn_ep_plain, routing pinned)")
+        pc, sc = r["prefill_coll"], r["step_coll"]
+        print(f"[22 tp heads deepseek rank {rank}] DeepSeek-V2-Lite at full "
+              f"width and {TPH_DS_LAYERS} of its 27 layers, 8 of its 16 MLA "
+              f"heads a rank, the latent (w_dkv, w_kr, the cache) and the "
+              f"shared experts whole, {r['held_bytes'] / 1e9:.3f} GB held; "
+              f"one MLA layer's forward (1 x {s_mla}) and decode micro-step "
+              f"vs the single device relative L2 {rel['mla_fwd']:.4g} and "
+              f"{rel['mla_dec']:.4g}; layer-0 flash (192, 128) on its heads "
+              f"{_bf16_summary(r['flash'])}; 1 x {TPH_DS_PREFILL[1]} prefill "
+              f"{r['prefill_ms']:.1f} ms ({pc['collectives']} collectives, "
+              f"{pc['staged_bytes'] / 1e6:.1f} MB staged) vs "
+              f"moe_ffn_ep_plain {rel['prefill']:.4g}; {TPH_DS_DECODE} "
+              f"micro-steps mean {np.mean(r['step_ms'][1:]):.2f} ms "
+              f"({sc['staged_bytes'] / 1e6:.3f} MB staged a step), logits "
+              f"vs the single device <= {rel['decode']:.4g} (tol "
+              f"{TP_REL_L2}); served {TPH_DS_REQUESTS} x {TPH_DS_NEW_TOKENS} "
+              f"tokens in {r['serve_s']:.2f} s, equal on both ranks; peak "
+              f"{r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[22 tp heads deepseek routing] pinned to the ranks' in the "
+          f"plain runs; unpinned, {moe['prefill_flips']} of "
+          f"{moe['prefill_tokens']} prefill token-layer top-6 sets and "
+          f"{moe['decode_flips']} of {moe['decode_tokens']} decode ones "
+          f"would differ; {card}")
+    w0, w1 = (r["whisper"] for r in ranks_bc)
+    for key in ("hidden", "dec_logits"):
+        require(np.array_equal(w0[key], w1[key]),
+                f"whisper: the ranks' {key} differ")
+    for rank, r in enumerate((w0, w1)):
+        require(r["heads"] == 10, f"whisper rank {rank}: {r['heads']} heads")
+        rel = _rel_l2(torch.from_numpy(r["hidden"]), want_bc["hidden"])
+        drel = max(_rel_l2(torch.from_numpy(r["dec_logits"][t]),
+                           want_bc["dec_logits"][t])
+                   for t in range(TPH_WHISPER_DECODE))
+        require(rel <= TP_REL_L2 and drel <= TP_REL_L2,
+                f"whisper rank {rank}: forward relative L2 {rel:.4g}, "
+                f"decode {drel:.4g} > {TP_REL_L2} against the single device")
+        fc, tr = r["forward_coll"], r["train"]
+        print(f"[22 tp heads whisper rank {rank}] whisper-large-v3 at full "
+              f"width and depth (32 + 32 layers), 10 of its 20 heads a rank "
+              f"in every attention, {r['held_bytes'] / 1e9:.3f} GB held; the "
+              f"1 x {TPH_WHISPER_FRAMES} encoder + decoder forward "
+              f"{r['forward_ms']:.1f} ms ({fc['collectives']} collectives, "
+              f"{fc['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{fc['collective_ms']:.1f} ms in them) vs the single device "
+              f"relative L2 {rel:.4g}; {TPH_WHISPER_DECODE} decode "
+              f"micro-steps with the encoder context, {r['step_ms'][-1]:.2f} "
+              f"ms the last, logits relative L2 <= {drel:.4g}; layer-0 "
+              f"encoder flash {_bf16_summary(r['flash'])}; training step at "
+              f"{TPH_WHISPER_TRAIN_LAYERS} + {TPH_WHISPER_TRAIN_LAYERS} "
+              f"layers, 1 x {TPH_WHISPER_TRAIN_SEQ}: {tr['ms']:.1f} ms "
+              f"({tr['coll']['collectives']} collectives); peak "
+              f"{r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[22 tp heads whisper training] loss on both ranks "
+          f"{w0['train']['loss']!r} vs the single device's "
+          f"{want_bc['train']['loss']!r} (relative {train_c['loss_rel']:.3g}"
+          f"); every gradient ({train_c['leaves']} leaves, the encoder's "
+          f"and the cross-attention's among them) within "
+          f"{train_c['worst_rel']:.3g} relative L2 (worst "
+          f"{train_c['worst']}); {card}")
+    counts = [c for r in ranks_a for c in (r["counts"], r["train"]["counts"])]
+    for r in ranks_bc:
+        counts += [r["deepseek"]["serve_counts"], r["whisper"]["counts"],
+                   r["whisper"]["train"]["counts"]]
+    launches = _tph_counts(counts)
+    for r in ranks_bc:
+        for c, inst in r["moe_counts"]:
+            launches.update({"flash": c["flash_attention"],
+                             "gather": c["block_gather"]})
+            launches.update({f"instance {k}": v for k, v in inst.items()})
+    for k in ("flash", "gather", "flash_bwd", "transpose", "sparse"):
+        require(launches[k] > 0, f"phase 22's main path launched no {k}")
+    inst = {k[9:]: v for k, v in launches.items()
+            if k.startswith("instance ")}
+    bwd_inst = {k[13:]: v for k, v in launches.items()
+                if k.startswith("bwd instance ")}
+    require(sum(inst.values()) == launches["flash"],
+            f"phase 22's flash instances {inst} != {launches['flash']}")
+    times = {}
+    for key, r, what in (("chatglm3", a0["flash_layer"], "chatglm3-6b"),
+                         ("mla", ranks_bc[0]["mla_layer"], "DeepSeek MLA"),
+                         ("whisper", ranks_bc[0]["enc_layer"],
+                          "whisper encoder")):
+        shape = (a0["flash_shape"] if key == "chatglm3" else
+                 ranks_bc[0]["mla_layer_shape" if key == "mla"
+                             else "enc_layer_shape"])
+        times[key] = {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "flops")}
+        (b_, s_, h_, d_), kshape = shape
+        backends = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
+                             else f"{n} {v}"
+                             for n, v in r["backends"].items())
+        print(f"[22 tp heads flash {key}] a rank's {what} layer (B={b_}, "
+              f"S={s_}, H={h_}, Hkv={kshape[2]}, D={d_}, bf16): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {r['library_ms']:.4f} ms (by "
+              f"backend: {backends}), bound {r['bound_ms']:.4f} ms ("
+              f"{r['flops'] / 1e9:.2f} GFLOP, by {r['bound_by']}; "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it); {card}")
+    print(f"[22 tp heads launches] the ranks' main paths: flash_attention "
+          f"{launches['flash']} ({inst}), flash_attention_bwd "
+          f"{launches['flash_bwd']} ({bwd_inst}), block gather "
+          f"{launches['gather']}, gather_transpose {launches['transpose']}, "
+          f"sls_sparse {launches['sparse']}; {card}")
+    print(f"[22 tp heads time] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + f" (rank 0 of (a) "
+        f"from its spawn: {_marks(a0['marks'], t_a)}; rank 0 of (b, c): "
+        f"{_marks(ranks_bc[0]['marks'], t_bc)}); {card}")
+    shutil.rmtree(ddir, ignore_errors=True)
+    return {"flash_launches": launches["flash"], "flash_instances": inst,
+            "flash_bwd_launches": launches["flash_bwd"],
+            "flash_bwd_instances": bwd_inst,
+            "bwd_variants": {k[8:]: v for k, v in launches.items()
+                             if k.startswith("variant ")},
+            "gather_launches": launches["gather"],
+            "transpose_launches": launches["transpose"],
+            "sparse_launches": launches["sparse"],
+            "flash_layers": times}
+
+
+def _free_after_tp_heads(before: int) -> None:
+    """Require phase 22 to leave the card as it found it (< 1 GiB more
+    allocated in this process than ``before``)."""
+    import torch
+    free_cuda()
+    held = torch.cuda.memory_allocated()
+    print(f"[22 tp heads after] this process holds {held / 2**30:.2f} GiB "
+          f"({before / 2**30:.2f} before the phase)")
+    require(held - before < 1 << 30, f"phase 22 left "
+            f"{(held - before) / 2**30:.2f} GiB allocated")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8446,6 +9295,10 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 21 alone (the dry run and the "
                          "roofline; (c)'s measured times need the full run, "
                          "no JSON)")
+    ap.add_argument("--tp-heads-only", action="store_true",
+                    help="run phases 1, 2 and 22 alone (the attention kinds "
+                         "over any model axis: the head plan, MLA and the "
+                         "encoder-decoder over gloo ranks, no JSON)")
     ap.add_argument("--llava-only", action="store_true",
                     help="run phase 12 alone (the main run starts it in a "
                          "process of its own) and print its result as "
@@ -8492,6 +9345,12 @@ def main(argv=None) -> int:
         before = torch.cuda.memory_allocated()
         phase_mp_train(args.seed, card)
         _free_after_mp(before)
+        print(f"[time] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.tp_heads_only:
+        before = torch.cuda.memory_allocated()
+        phase_tp_heads(args.seed, card)
+        _free_after_tp_heads(before)
         print(f"[time] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.disagg_only:
@@ -8717,6 +9576,30 @@ def main(argv=None) -> int:
         k = next(k for k in kernels if k["name"] == kname)
         k["launches_by_training"]["roofline"] = roof[key]
         k["launches"] += roof[key]
+    # phase 22: the attention kinds over any model axis
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    heads = phase_tp_heads(args.seed, card)
+    _free_after_tp_heads(before)
+    seconds["22"] = time.perf_counter() - t0
+    flash["tp_heads_launches"] = heads.pop("flash_launches")
+    flash["launches"] += flash["tp_heads_launches"]
+    instances.update(heads.pop("flash_instances"))
+    flash["tp_heads_flash_layers"] = heads.pop("flash_layers")
+    gather["tp_heads_launches"] = heads.pop("gather_launches")
+    gather["launches"] += gather["tp_heads_launches"]
+    bwd["tp_heads_launches"] = heads.pop("flash_bwd_launches")
+    bwd["launches"] += bwd["tp_heads_launches"]
+    for variant, n in heads.pop("bwd_variants").items():
+        bwd["variants"][variant] += n
+    bwd_instances = collections.Counter(bwd["instances"])
+    bwd_instances.update(heads.pop("flash_bwd_instances"))
+    bwd["instances"] = dict(bwd_instances)
+    for kname, key in (("gather_transpose", "transpose_launches"),
+                       ("sls_sparse", "sparse_launches")):
+        k = next(k for k in kernels if k["name"] == kname)
+        k["launches_by_training"]["tp_heads"] = heads.pop(key)
+        k["launches"] += k["launches_by_training"]["tp_heads"]
     require(sum(instances.values()) == flash["launches"],
             f"flash launches by instance {dict(instances)} do not add up to "
             f"{flash['launches']}")

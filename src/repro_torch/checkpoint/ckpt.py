@@ -34,7 +34,11 @@ directory) is skipped on restore, falling back to the step before.
 the mesh's axes.  The manifest gives each leaf's global shape and every
 shard's global offsets, as the reference's does; each rank writes its own
 ``shard_{rank:05d}.npz``; a leaf replicated over an axis is written once,
-by coordinate 0 on that axis (the reference's ``replica_id == 0``).  Rank
+by coordinate 0 on that axis (the reference's ``replica_id == 0``).  A
+leaf placed by the head plan carries its model-axis blocks
+(:class:`ShardedLeaf`'s ``blocks``): its offsets are the plan's, and a KV
+copy held by several ranks is written once, by the first rank of its
+group, and restored into every copy.  Rank
 0 writes the manifest once every rank's file is in place and publishes
 through the same commit protocol; every rank's save returns once the step
 is committed.  That barrier is the files themselves, not the process
@@ -47,6 +51,7 @@ are assembled by their offsets.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -72,13 +77,21 @@ class ShardedLeaf:
     or None, as :mod:`repro_torch.launch.sharding` writes them), ``sizes``
     (``{axis: size}`` of the mesh, in the mesh's order: ranks are
     numbered row-major over it) and ``index`` (``{axis: coordinate}`` of
-    the rank).  A tree leaf (not a node) for the flattening below."""
+    the rank).  ``blocks`` -- ``(axis, leaf blocks)``, a
+    :class:`repro_torch.launch.sharding.LeafBlocks` over the mesh axis
+    ``axis`` -- places the leaf instead of ``spec``: its dim ``dim``
+    (``size`` in the global leaf) is cut at ``bounds[c]`` for the rank at
+    coordinate ``c`` of ``axis``, whole on every other axis, and written
+    by the ranks whose ``writers[c]`` holds (coordinate 0 on the other
+    axes).  A tree leaf (not a node) for the flattening below."""
 
-    __slots__ = ("data", "spec", "sizes", "index")
+    __slots__ = ("data", "spec", "sizes", "index", "blocks")
 
-    def __init__(self, data, spec: tuple, sizes: dict, index: dict):
+    def __init__(self, data, spec: tuple, sizes: dict, index: dict,
+                 blocks: Optional[tuple] = None):
         self.data, self.spec = data, tuple(spec)
         self.sizes, self.index = dict(sizes), dict(index)
+        self.blocks = blocks
 
     @classmethod
     def stack(cls, leaves: list) -> "ShardedLeaf":
@@ -87,7 +100,12 @@ class ShardedLeaf:
         first = leaves[0]
         data = None if first.data is None else \
             torch.stack([x.data for x in leaves])
-        return cls(data, (None,) + first.spec, first.sizes, first.index)
+        blocks = first.blocks
+        if blocks is not None:
+            axis, lb = blocks
+            blocks = (axis, dataclasses.replace(lb, dim=lb.dim + 1))
+        return cls(data, (None,) + first.spec, first.sizes, first.index,
+                   blocks)
 
     def _axes(self, ax) -> tuple:
         return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
@@ -103,6 +121,9 @@ class ShardedLeaf:
     def global_shape(self) -> tuple:
         """The global leaf's shape, from the block's."""
         shape = tuple(self.data.shape)
+        if self.blocks is not None:
+            lb = self.blocks[1]
+            return shape[:lb.dim] + (lb.size,) + shape[lb.dim + 1:]
         spec = self.spec + (None,) * (len(shape) - len(self.spec))
         return tuple(n * self._split(ax, self.index)[0]
                      for n, ax in zip(shape, spec))
@@ -111,6 +132,11 @@ class ShardedLeaf:
         """``[[lo, hi], ...]``: the block of the global ``shape`` that the
         rank at ``index`` (this one's by default) holds."""
         index = self.index if index is None else index
+        if self.blocks is not None:
+            axis, lb = self.blocks
+            out = [[0, n] for n in shape]
+            out[lb.dim] = list(lb.bounds[index[axis]])
+            return out
         spec = self.spec + (None,) * (len(shape) - len(self.spec))
         out = []
         for n, ax in zip(shape, spec):
@@ -126,6 +152,10 @@ class ShardedLeaf:
         """Whether the rank at ``index`` writes this leaf: coordinate 0 on
         every axis the spec does not split over (replica 0)."""
         index = self.index if index is None else index
+        if self.blocks is not None:
+            axis, lb = self.blocks
+            return lb.writers[index[axis]] and all(
+                c == 0 for a, c in index.items() if a != axis)
         used = {a for ax in self.spec for a in self._axes(ax)}
         return all(c == 0 for a, c in index.items() if a not in used)
 

@@ -34,6 +34,8 @@ ways, so a checkpoint of either package restores in the other.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -96,14 +98,16 @@ def lm_params_from_reference(params: dict, cfg, device=None,
 
     With a ``mesh`` (a ``DeviceMesh`` whose model axis is wider than 1)
     each leaf is this rank's slice by
-    :func:`repro_torch.launch.sharding.param_spec`: the ``state_dict`` of
-    ``LM(cfg, shard=ShardCtx(mesh))`` on this rank."""
+    :func:`repro_torch.launch.sharding.local_leaf` (the head plan for the
+    attention heads): the ``state_dict`` of ``LM(cfg,
+    shard=ShardCtx(mesh))`` on this rank."""
     dev = resolve_device(device)
     if mesh is not None:
-        from .launch.sharding import local_shard, param_spec
+        from .launch.sharding import axis_sizes, local_leaf
+        n, rank = axis_sizes(mesh)["model"], mesh.get_local_rank("model")
         full = lm_params_from_reference(params, cfg, "cpu")
-        return {k: local_shard(v, param_spec(k, v.dim()), mesh).to(dev)
-                .contiguous() for k, v in full.items()}
+        return {k: local_leaf(v, k, cfg, n, rank).to(dev).contiguous()
+                for k, v in full.items()}
     state = {"embed": _to_tensor(params["embed"], dev),
              "final_norm": _to_tensor(params["final_norm"], dev)}
     if "frontend_proj" in params:      # a front end (cfg.modality != "text")
@@ -122,15 +126,17 @@ def lm_params_from_reference(params: dict, cfg, device=None,
     return state
 
 
-def lm_params_gathered(states: list, axis: str = "model") -> dict:
-    """The full ``state_dict`` from the model-axis ranks' ones (in rank
-    order): each leaf joined along the dim its spec splits over ``axis``
-    (:func:`repro_torch.launch.sharding.concat_shards`), a replicated leaf
-    taken from the first rank."""
-    from .launch.sharding import concat_shards, param_spec
-    return {k: concat_shards([st[k] for st in states],
-                             param_spec(k, v.dim()), axis)
-            for k, v in states[0].items()}
+def lm_params_gathered(states: list, cfg) -> dict:
+    """The full ``state_dict`` of ``cfg``'s LM from the model-axis ranks'
+    ones (in rank order): each leaf's blocks put back where
+    :func:`repro_torch.launch.sharding.leaf_blocks` places them, a KV
+    copy taken once (:func:`~repro_torch.launch.sharding.join_leaf`), a
+    replicated leaf taken from the first rank.  The inverse of
+    :func:`lm_params_from_reference`'s ``mesh=``."""
+    from .launch.sharding import join_leaf
+    blocks = _model_blocks(cfg, len(states))
+    return {k: join_leaf([st[k] for st in states], blocks.get(k))
+            for k in states[0]}
 
 
 def _tree_index(tree, n: int):
@@ -198,6 +204,18 @@ def _stack(layers: list):
     return torch.stack(layers)
 
 
+@functools.lru_cache(maxsize=8)
+def _model_blocks(cfg, n: int) -> dict:
+    """``{name: LeafBlocks}`` of every parameter of ``cfg``'s LM that a
+    model axis of ``n`` ranks splits (:func:`~repro_torch.launch.sharding
+    .leaf_blocks`; a leaf it keeps whole is absent)."""
+    from .launch.sharding import leaf_blocks
+    from .models.lm import LM
+    full = LM(cfg, device="meta").state_dict()
+    out = {k: leaf_blocks(k, tuple(t.shape), cfg, n) for k, t in full.items()}
+    return {k: b for k, b in out.items() if b is not None}
+
+
 def train_state_to_reference(state: dict, cfg, shards=None) -> dict:
     """The trainer's state -- ``{"params": name -> tensor, "opt":
     AdamWState(step, mu, nu) with name -> tensor moments, "ef": name ->
@@ -210,17 +228,28 @@ def train_state_to_reference(state: dict, cfg, shards=None) -> dict:
     coordinate})``, the specs by parameter name -- makes this one rank's
     part of a sharded checkpoint: every leaf is a
     :class:`~repro_torch.checkpoint.ckpt.ShardedLeaf`, the rank's block
-    placed in the global leaf (a stacked leaf whole on its layer dim, the
-    rank's block on the split dim), the step and the () residuals
-    replicated."""
+    placed in the global leaf (a stacked leaf whole on its layer dim), the
+    step and the () residuals replicated.  A parameter and a moment that
+    keeps its spec are placed over the ``model`` axis by
+    :func:`repro_torch.launch.sharding.leaf_blocks` alone (the LM's own
+    slices: the head plan's, a KV copy written once), whole on every rank
+    where it gives no blocks, whatever the spec says; a moment whose spec
+    differs (ZeRO-1's rows over the data axes) is placed by its spec."""
     from .optim.adamw import AdamWState
     opt = state["opt"]
     params, mu, nu, step = state["params"], opt.mu, opt.nu, opt.step
     if shards is not None:
         p_specs, m_specs, sizes, index = shards
+        blocks = _model_blocks(cfg, sizes.get("model", 1))
+
+        def placed(k, t):
+            b = blocks.get(k)
+            return ShardedLeaf(t, (), sizes, index,
+                               None if b is None else ("model", b))
 
         def wrap(tree, specs):
-            return {k: ShardedLeaf(t, specs[k], sizes, index)
+            return {k: placed(k, t) if specs[k] == p_specs[k]
+                    else ShardedLeaf(t, specs[k], sizes, index)
                     for k, t in tree.items()}
         ef_zero = (lambda p: ShardedLeaf(
             torch.zeros((), dtype=torch.float32), (), sizes, index))

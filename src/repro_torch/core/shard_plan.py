@@ -189,11 +189,16 @@ class Collectives:
         self.stats["result_bytes"] += out.numel() * out.element_size()
 
     def _pinned(self, role: str, shape, dtype) -> torch.Tensor:
+        """The reused pinned buffer of ``role`` at ``shape`` and ``dtype``:
+        made outside inference mode, so a buffer first made under
+        ``torch.inference_mode`` (serving) takes the copies of a later
+        training step."""
         key = (role, tuple(shape), dtype)
         buf = self._host.get(key)
         if buf is None:
-            buf = self._host[key] = torch.empty(shape, dtype=dtype,
-                                                pin_memory=True)
+            with torch.inference_mode(False):
+                buf = self._host[key] = torch.empty(shape, dtype=dtype,
+                                                    pin_memory=True)
         return buf
 
     def _run(self, call, x: torch.Tensor, out_shape) -> torch.Tensor:

@@ -67,7 +67,8 @@ def make_production_mesh(*, multi_pod: bool = False):
     pod over ``("data", "model")``, or 2 pods = 512 over ``("pod",
     "data", "model")`` (``pod`` pure data parallel), as a
     :class:`~repro_torch.core.shard_plan.DryMesh` standing for rank 0
-    (every rank of these meshes holds slices of the same shapes)."""
+    (the head plan gives it the most heads of any rank for the repo's
+    configs; every other leaf splits evenly)."""
     from ..core.shard_plan import DryMesh
     sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
         {"data": 16, "model": 16}

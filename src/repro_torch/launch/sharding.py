@@ -31,6 +31,26 @@ axis up to 256).
 specs, batch specs)`` triple a sharded ``Trainer`` takes as
 ``in_shardings``.
 
+**What a model-axis rank holds** (:func:`leaf_blocks`, the one source of
+truth for the LM, the weight converter, sharded checkpoints, the trainer,
+AdamW and the dry run).  The spec tables above stay the reference's, but
+the attention heads are placed by :func:`head_plan` (Megatron's rule for
+few KV heads) instead of an even split of the fused head·dim columns: the
+flash kernel needs whole heads, where the reference lets GSPMD compute
+partial scores across ranks.  With at least as many KV heads as ranks the
+KV groups split into contiguous blocks (``np.array_split``: earlier ranks
+take the larger ones; exactly the even split where the axis divides the
+KV heads), each rank taking its groups' query heads.  With fewer, each
+KV group spans a contiguous run of ranks, and every rank of the run holds
+a copy of the group's ``wk`` / ``wv`` columns and a contiguous share of
+its query heads; a rank whose share is empty holds no attention columns at
+all.  ``wo``'s rows follow the query heads.  An MLA layer's query heads
+(``wq``, ``w_uk``, ``w_uv``, ``wo``) follow the plan with one KV group a
+head; its ``w_dkv`` and ``w_kr`` -- and so its latent cache -- are whole on
+every rank, and so are an MoE layer's shared experts (``moe.shared.*``),
+which :func:`repro_torch.models.moe.moe_ffn` runs replicated.  Every other
+leaf splits evenly by its spec.
+
 Not ported: ``to_shardings``, ``table_row_sharding``,
 ``leading_axis_sharding`` and ``replicated_sharding`` build
 ``NamedSharding`` placements of global arrays, which have nothing to stand
@@ -38,6 +58,7 @@ for when each process holds only its own shard.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -262,6 +283,146 @@ def concat_shards(shards: list, spec: tuple, axis: str = "model"):
     return shards[0]
 
 
+# ---------------------------------------------------------------------------
+# What a model-axis rank holds: the head plan and every leaf's blocks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """A model-axis rank's attention heads: query heads ``[q[0], q[1])``,
+    KV heads ``[kv[0], kv[1])`` and ``group``, the ranks that hold the same
+    KV heads (this rank alone where they have no copy elsewhere; empty for
+    a rank with no query head, which holds no KV head either)."""
+    q: tuple
+    kv: tuple
+    group: tuple
+
+
+def plan_heads(cfg) -> tuple:
+    """(query heads, KV heads) the plan places: an MLA model's heads are
+    one KV group each (its keys and values are expanded per head from the
+    latent)."""
+    kinds = tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
+    h = cfg.num_heads
+    return (h, h) if "mla" in kinds else (h, cfg.num_kv_heads)
+
+
+def head_plan(cfg, n: int, rank: int) -> HeadPlan:
+    """The heads rank ``rank`` of a model axis of ``n`` holds (module
+    docstring; Megatron's rule for few KV heads).  With ``n`` KV heads or
+    more, the KV groups split over the ranks by ``np.array_split`` and the
+    rank takes its groups' query heads; with fewer, the ranks split over
+    the groups by ``np.array_split`` and each rank of a group's run takes a
+    copy of its KV heads and an ``array_split`` share of its query heads.
+    A rank's query heads never straddle two groups, so its local attention
+    is uniform GQA."""
+    h, hkv = plan_heads(cfg)
+    g = h // hkv
+    if hkv >= n:
+        kv = np.array_split(np.arange(hkv), n)[rank]
+        k0, k1 = int(kv[0]), int(kv[-1]) + 1
+        return HeadPlan((k0 * g, k1 * g), (k0, k1), (rank,))
+    runs = np.array_split(np.arange(n), hkv)
+    j = next(j for j, run in enumerate(runs) if rank in run)
+    run = [int(r) for r in runs[j]]
+    shares = np.array_split(np.arange(j * g, (j + 1) * g), len(run))
+    mine = shares[run.index(rank)]
+    group = tuple(r for r, s in zip(run, shares) if len(s))
+    if not len(mine):
+        q0 = int(shares[0][0]) + g     # past the group's heads: empty
+        return HeadPlan((q0, q0), (j, j), ())
+    return HeadPlan((int(mine[0]), int(mine[-1]) + 1), (j, j + 1), group)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafBlocks:
+    """How a leaf splits over a model axis: dim ``dim`` (``size`` long in
+    the full leaf) cut at ``bounds`` (one ``(lo, hi)`` per model rank, in
+    rank order; copies repeat a block, an empty one is ``lo == hi``), and
+    ``writers``, per rank whether it is the first holder of its block --
+    the rank that writes it to a checkpoint and counts it in the global
+    gradient norm."""
+    dim: int
+    size: int
+    bounds: tuple
+    writers: tuple
+
+    @property
+    def copies(self) -> bool:
+        """Whether some block is held by more than one rank."""
+        held = [b for b in self.bounds if b[1] > b[0]]
+        return len(set(held)) < len(held)
+
+
+#: the parents of the attention projections the head plan places
+ATTN = ("attn", "xattn")
+
+
+def leaf_blocks(name: str, shape: tuple, cfg, n: int) -> Optional[LeafBlocks]:
+    """How parameter ``name`` (a ``state_dict`` key) of full ``shape``
+    splits over a model axis of ``n`` ranks (module docstring): the
+    attention projections by :func:`head_plan`, an MLA layer's ``w_dkv``
+    and ``w_kr`` and an MoE layer's shared experts whole, every other leaf
+    evenly along the dim its spec splits over ``model``.  None where the
+    leaf is whole on every rank (or ``n`` is 1); a dim that does not split
+    evenly raises ``ValueError``."""
+    if n == 1:
+        return None
+    names = name.split(".")
+    leaf = names[-1]
+    if len(names) > 1 and names[-2] in ATTN and "shared" not in names:
+        if leaf not in ("wq", "wk", "wv", "wo", "w_uk", "w_uv"):
+            return None                          # MLA's w_dkv, w_kr
+        h, hkv = plan_heads(cfg)
+        plans = [head_plan(cfg, n, r) for r in range(n)]
+        kv = leaf in ("wk", "wv")
+        dim = 0 if leaf == "wo" else 1
+        per = shape[dim] // (hkv if kv else h)
+        spans = [p.kv if kv else p.q for p in plans]
+        bounds = tuple((lo * per, hi * per) for lo, hi in spans)
+        writers = tuple(bool(p.group) and (p.group[0] == r if kv else True)
+                        for r, p in enumerate(plans))
+        return LeafBlocks(dim, shape[dim], bounds, writers)
+    if "moe" in names and "shared" in names:
+        return None
+    for dim, ax in enumerate(param_spec(name, len(shape))):
+        if ax != "model":
+            continue
+        if shape[dim] % n:
+            raise ValueError(f"{name}: dim {dim} of {tuple(shape)} does not "
+                             f"split evenly over a model axis of {n}")
+        step = shape[dim] // n
+        return LeafBlocks(dim, shape[dim],
+                          tuple((r * step, (r + 1) * step) for r in range(n)),
+                          (True,) * n)
+    return None
+
+
+def local_leaf(t, name: str, cfg, n: int, rank: int):
+    """Model rank ``rank``'s slice of the full leaf ``t`` (a view; ``t``
+    itself where the leaf is whole on every rank), by
+    :func:`leaf_blocks`."""
+    blk = leaf_blocks(name, tuple(t.shape), cfg, n)
+    if blk is None:
+        return t
+    lo, hi = blk.bounds[rank]
+    return t.narrow(blk.dim, lo, hi - lo)
+
+
+def join_leaf(parts: list, blk: Optional[LeafBlocks]):
+    """The full leaf from the model ranks' slices ``parts`` (rank order):
+    each block put at its bounds, a copy taken once (its first holder's);
+    the first rank's tensor where the leaf is whole."""
+    if blk is None:
+        return parts[0]
+    import torch
+    keep = [p for p, (lo, hi), w in zip(parts, blk.bounds, blk.writers)
+            if w and hi > lo]
+    return torch.cat(keep, dim=blk.dim)
+
+
 __all__ = ["COL", "ROW", "REPL", "axis_sizes", "param_spec", "param_specs",
-           "zero1_specs", "train_specs", "cache_spec", "cache_specs", "batch_specs", "sanitize_specs",
-           "mesh_index", "local_shard", "concat_shards"]
+           "zero1_specs", "train_specs", "cache_spec", "cache_specs",
+           "batch_specs", "sanitize_specs", "mesh_index", "local_shard",
+           "concat_shards", "HeadPlan", "plan_heads", "head_plan",
+           "LeafBlocks", "leaf_blocks", "local_leaf", "join_leaf"]

@@ -129,8 +129,9 @@ def init_attn(gen: Optional[torch.Generator], cfg: ModelConfig,
 def local_heads(p, cfg: ModelConfig) -> tuple:
     """(query heads, KV heads) of the projections ``p``: the config's, or
     under tensor parallelism this rank's share (its columns of ``wq``,
-    ``wk``, ``wv``: query heads ``[r·H/n, (r+1)·H/n)`` and the KV heads
-    they group onto)."""
+    ``wk``, ``wv`` by :func:`repro_torch.launch.sharding.head_plan`: a
+    block of KV groups with their query heads, or a copy of one group's KV
+    heads with a share of its query heads, possibly none)."""
     hd = cfg.hd
     return p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
 
@@ -151,7 +152,10 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     :class:`~repro_torch.core.shard_plan.ModelAxis`) ``p`` holds the rank's
     heads (:func:`local_heads`), the flash kernel runs on them, and the
     output projection by the rank's rows of ``wo`` is summed over the axis
-    (:func:`~.common.row_parallel`).  ``dense`` (the cost mode) takes
+    (:func:`~.common.row_parallel`); a rank without query heads launches
+    no flash kernel and adds zeros (its empty projections still carry the
+    input into the graph, so its backward makes the same collectives as
+    every other rank's).  ``dense`` (the cost mode) takes
     :func:`dense_attention` in place of the flash kernel."""
     b, s, _ = x.shape
     (h, hkv), hd = local_heads(p, cfg), cfg.hd
@@ -164,7 +168,9 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         cos, sin = rope_freqs(positions, hd, cfg.rope_theta, cfg.rotary_pct)
         q = apply_rope(q, cos, sin, cfg.rotary_pct)
         k = apply_rope(k, cos, sin, cfg.rotary_pct)
-    if dense:
+    if h == 0:          # a rank without query heads (the head plan)
+        o = q
+    elif dense:
         o = dense_attention(q, k, v, causal=causal and kv is None,
                             window=window)
     else:
@@ -276,7 +282,7 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
         vd = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
         kd, vd = cache["k"], cache["v"]
-    o = decode_attention(q, kd, vd, pos + 1, window=window)
+    o = decode_attention(q, kd, vd, pos + 1, window=window) if h else q
     if active is None:
         cache["len"] += 1
     else:
@@ -293,8 +299,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   kv_heads: Optional[int] = None) -> dict:
     """One layer's empty cache; ``len`` is per slot, so the serving loop
     admits and retires requests slot by slot.  ``kv_heads`` (default
-    ``cfg.num_kv_heads``) is a tensor-parallel rank's share."""
-    hkv, hd = kv_heads or cfg.num_kv_heads, cfg.hd
+    ``cfg.num_kv_heads``) is a tensor-parallel rank's share (0 on a rank
+    without query heads)."""
+    hkv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    hd = cfg.hd
     shape = (batch, hkv, max_len, hd)
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.kv_cache_dtype == "int8":
@@ -343,15 +351,28 @@ def init_mla(gen: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
+def mla_heads(p, cfg: ModelConfig) -> int:
+    """The query heads of MLA projections ``p``: the config's, or under
+    tensor parallelism this rank's (its columns of ``w_uk``)."""
+    return p["w_uk"].shape[1] // cfg.hd
+
+
 def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, dense: bool = False) -> torch.Tensor:
+                positions: torch.Tensor, dense: bool = False,
+                tp=None) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): queries of ``hd`` no-rotary and ``rd`` rotary
     columns per head; keys and values expanded from the latent ``c = x
     W_dkv``, the rotary key ``kr`` shared by every head; causal attention
     with q/k width ``hd + rd``, v width ``hd`` and scale (hd + rd)^-1/2
-    (:func:`dense_attention` under ``dense``, the cost mode)."""
+    (:func:`dense_attention` under ``dense``, the cost mode).
+
+    Under tensor parallelism (``tp``) ``p`` holds the rank's query heads
+    of ``wq``, ``w_uk``, ``w_uv`` and its rows of ``wo``
+    (:func:`repro_torch.launch.sharding.head_plan`, one group a head);
+    ``w_dkv`` and ``w_kr`` are whole, so every rank computes the whole
+    latent; the output projection is summed over the axis."""
     b, s, _ = x.shape
-    h, hd, rd = cfg.num_heads, cfg.hd, cfg.rope_head_dim
+    h, hd, rd = mla_heads(p, cfg), cfg.hd, cfg.rope_head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd + rd)
     qn, qr = q[..., :hd], q[..., hd:]
     c = x @ p["w_dkv"]                                 # (b,s,r) latent KV
@@ -363,13 +384,15 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     kr = apply_rope(kr, cos, sin)
     qf = torch.cat([qn, qr], dim=-1)
     kf = torch.cat([kn, kr.expand(b, s, h, rd)], dim=-1)
-    if dense:
+    if h == 0:          # a rank without query heads (the head plan)
+        o = v
+    elif dense:
         o = dense_attention(qf, kf, v, causal=True)
     else:
         chunk = pick_chunk(s, min(cfg.attn_chunk, s))
         o = blockwise_attention(qf, kf, v.contiguous(), causal=True,
                                 chunk=chunk)
-    return o.reshape(b, s, h * hd) @ p["wo"]
+    return row_parallel(o.reshape(b, s, h * hd), p["wo"], tp)
 
 
 def _seq_rows(cache: torch.Tensor, pos: torch.Tensor) -> tuple:
@@ -382,7 +405,8 @@ def _seq_rows(cache: torch.Tensor, pos: torch.Tensor) -> tuple:
 
 
 def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
-               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+               active: Optional[torch.Tensor] = None,
+               tp=None) -> torch.Tensor:
     """x (B,1,D) -> (B,1,D), updating the latent cache in place: row
     ``len[b]`` of slot b gets the new ``c`` and ``kr``, and ``len`` grows by
     one (only for the active slots under an ``active`` mask, whose inactive
@@ -392,9 +416,14 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     The reference's order of products: ``kn = c W_uk`` and ``v = c W_uv``
     over the whole cache, scores ``(qn·kn + qr·kr)·(hd + rd)^-1/2`` in x's
     dtype, masked at -1e30 past each slot's length, softmax in fp32, the
-    probabilities cast to v's dtype for the PV product."""
+    probabilities cast to v's dtype for the PV product.
+
+    Under tensor parallelism (``tp``) the rank expands its query heads
+    over the whole latent cache, which every rank holds and writes alike
+    (:func:`mla_forward`), and the output projection is summed over the
+    axis."""
     b = x.shape[0]
-    h, hd, rd, r = cfg.num_heads, cfg.hd, cfg.rope_head_dim, \
+    h, hd, rd, r = mla_heads(p, cfg), cfg.hd, cfg.rope_head_dim, \
         cfg.kv_lora_rank
     pos = cache["len"].expand(b)
     q = (x @ p["wq"]).reshape(b, 1, h, hd + rd)
@@ -428,7 +457,7 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
             cache[n][rows, at] = torch.where(keep, t.to(cache[n].dtype),
                                              old[n])
         cache["len"] += active.to(cache["len"].dtype)
-    return o.reshape(b, 1, h * hd) @ p["wo"]
+    return row_parallel(o.reshape(b, 1, h * hd), p["wo"], tp)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

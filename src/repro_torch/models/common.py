@@ -187,7 +187,7 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     through :class:`RowParallel`, whose backward is written out."""
     if tp is None or tp.size == 1:
         return h @ w
-    h2 = h.reshape(-1, h.shape[-1])
+    h2 = h.reshape(math.prod(h.shape[:-1]), h.shape[-1])
     if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
         out = RowParallel.apply(h2, w, tp)
     else:

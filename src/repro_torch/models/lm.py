@@ -31,31 +31,41 @@ micro-steps (which the server replays as CUDA graphs on the card:
 :class:`repro_torch.runtime.server.WaveGraph`).
 
 **Tensor and expert parallelism** (``LM(cfg, shard=ShardCtx(mesh))``, the
-reference's ``LM(cfg, ShardCtx(mesh=...))``; the ``dense``, ``dense_local``
-and ``moe`` kinds).  The port is multi-controller: one process a rank of
-the mesh, each holding its slice of every leaf by
-:func:`repro_torch.launch.sharding.param_spec` (the query and KV heads of
-``wq`` / ``wk`` / ``wv`` and the hidden columns of ``wi_gate`` / ``wi_up``
-by column, ``wo`` by row, the experts of an MoE layer, the vocab rows of
-``embed``; norms, the router and the front end replicated).  Every rank of
-the ``model`` axis is handed the same tokens and computes the whole
-function: the embed lookup masked to its rows and summed over the axis
+reference's ``LM(cfg, ShardCtx(mesh=...))``; the kinds of
+:data:`TP_KINDS`: every attention kind).  The port is multi-controller:
+one process a rank of the mesh, each holding its slice of every leaf by
+:func:`repro_torch.launch.sharding.leaf_blocks` (the query and KV heads of
+``wq`` / ``wk`` / ``wv`` by :func:`~repro_torch.launch.sharding.head_plan`,
+with a copy of a KV group on every rank of its run where the KV heads are
+fewer than the ranks, and ``wo``'s rows after the query heads; MLA's
+query heads of ``wq`` / ``w_uk`` / ``w_uv`` likewise, its ``w_dkv`` and
+``w_kr`` whole; the hidden columns of ``wi_gate`` / ``wi_up`` by column,
+``wo`` by row, the experts of an MoE layer, the vocab rows of ``embed``;
+norms, the router, the shared experts, the front end and the encoder's
+final norm replicated).  :attr:`LM.split_leaves` records each split
+leaf's blocks.  Every rank of the ``model`` axis is handed the same
+tokens and computes the whole function: the embed lookup masked to its
+rows and summed over the axis
 (:func:`repro_torch.core.embedding_engine.lookup`), each attention and MLP
 on its heads and columns with one fp32 all-reduce of the row-parallel
-output (:func:`.common.row_parallel`), the MoE FFN expert parallel
-(:func:`.moe.moe_ffn`), and a decode step's logits computed over its
-vocab slice and all-gathered, so every rank's argmax is the same.  Every
-collective goes through the axis's
+output (:func:`.common.row_parallel`; a rank without query heads adds
+zeros), the MoE FFN expert parallel (:func:`.moe.moe_ffn`), an encoder's
+blocks and a decoder's cross-attention the same way, and a decode step's
+logits computed over its vocab slice and all-gathered, so every rank's
+argmax is the same.  Every collective goes through the axis's
 :class:`~repro_torch.core.shard_plan.Collectives` (:attr:`LM.
 collective_stats` counts them).  Model-parallel training (:meth:`LM.loss`
-over a mesh, the ``dense`` and ``dense_local`` kinds): under autograd each
-block's normed input enters its column-parallel products through the
-axis's *enter* (its gradient, the rank's partial, summed over the axis in
-fp32), each row-parallel product has its backward written out
+over a mesh, every kind but the MoE ones): under autograd each block's
+normed input enters its column-parallel products through the axis's
+*enter* (its gradient, the rank's partial, summed over the axis in fp32),
+and so does an encoder's output once, for every layer's cross-attention;
+each row-parallel product has its backward written out
 (:class:`.common.RowParallel`), the masked lookup's combine passes the
-cotangent through, and the loss is the vocab-parallel cross entropy.  The
-MoE kinds' training over a mesh is ROADMAP.md Queue 1 item 6e; the other
-block kinds over a mesh are item 6d.
+cotangent through, and the loss is the vocab-parallel cross entropy.  A
+KV copy's gradient is the rank's partial: the trainer sums it over the
+copies (:meth:`~repro_torch.runtime.trainer.TrainStep.loss_and_grads`).
+The MoE kinds' training over a mesh is ROADMAP.md Queue 1 item 6e; the
+recurrent kinds over a mesh are item 6d-2.
 
 **The dry run's lowering options** (``ShardCtx.cost_mode`` and
 ``ShardCtx.remat``, the reference's): ``remat`` recomputes each block's
@@ -121,19 +131,20 @@ from torch import nn
 from ..core import embedding_engine as ee
 from ..core.executor import resolve_device
 from ..core.ops import EmbeddingProgram
-from ..launch.sharding import local_shard, param_spec
+from ..launch.sharding import leaf_blocks
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .attention import (attn_decode, attn_forward, init_attn, init_kv_cache,
-                        init_mla, init_mla_cache, mla_decode, mla_forward)
+                        init_mla, init_mla_cache, local_heads, mla_decode,
+                        mla_forward)
 from .common import (ModelConfig, RowOutputs, gated_mlp, init_mlp, init_rms,
                      rms_norm)
 
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 #: the block kinds that run split over a mesh's model axis
-TP_KINDS = ("dense", "dense_local", "moe")
+TP_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec")
 
 
 @dataclasses.dataclass
@@ -332,10 +343,11 @@ class MlaBlock(MoeBlock):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return mla_forward(self.attn, h, self.cfg, positions=positions,
-                           dense=self.cost_mode)
+                           dense=self.cost_mode, tp=self.tp)
 
     def _attend_decode(self, h: torch.Tensor, cache: dict, active):
-        return mla_decode(self.attn, h, self.cfg, cache, active=active)
+        return mla_decode(self.attn, h, self.cfg, cache, active=active,
+                          tp=self.tp)
 
 
 class EncBlock(DenseBlock):
@@ -346,7 +358,7 @@ class EncBlock(DenseBlock):
 
     def _attend(self, h: torch.Tensor, positions: torch.Tensor):
         return attn_forward(self.attn, h, self.cfg, positions=positions,
-                            causal=False, dense=self.cost_mode)
+                            causal=False, tp=self.tp, dense=self.cost_mode)
 
 
 class XdecBlock(DenseBlock):
@@ -356,7 +368,9 @@ class XdecBlock(DenseBlock):
     not causal, K and V projected from ``enc_out`` at every call), the
     MLP (``norm2``, ``mlp``).  Its cache is the self-attention's K/V
     (:func:`.attention.init_kv_cache`); the encoder's output comes from the
-    context, never from the cache."""
+    context, never from the cache.  On a rank both attentions run on the
+    rank's heads; ``enc_out`` has entered the rank once, in
+    :meth:`LM._forward_ctx`."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -368,14 +382,16 @@ class XdecBlock(DenseBlock):
 
     def _cross(self, x: torch.Tensor, ctx: Optional[dict],
                dense: bool = False) -> torch.Tensor:
-        h = rms_norm(x, self.norm_x, self.cfg.norm_eps)
+        h = self._enter(rms_norm(x, self.norm_x, self.cfg.norm_eps))
         return x + attn_forward(self.xattn, h, self.cfg, positions=None,
-                                causal=False, kv=ctx["enc_out"], dense=dense)
+                                causal=False, kv=ctx["enc_out"], tp=self.tp,
+                                dense=dense)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
         eps = self.cfg.norm_eps
-        x = x + self._attend(rms_norm(x, self.norm1, eps), positions)
+        x = x + self._attend(self._enter(rms_norm(x, self.norm1, eps)),
+                             positions)
         x = self._cross(x, ctx, self.cost_mode)
         h, aux = self._ffn(rms_norm(x, self.norm2, eps))
         return x + h, aux
@@ -549,12 +565,14 @@ class LM(nn.Module):
     as the single-device ``LM(cfg, seed=seed)`` makes it, on the mesh's
     device, and only the rank's slice is kept, one layer at a time, so no
     rank ever holds the whole model and the ranks' slices join to the
-    single device's tensors bit for bit.  A kind outside :data:`TP_KINDS`
-    raises ``NotImplementedError``; heads, hidden width, experts or vocab
-    that do not split evenly over the axis raise ``ValueError``, before
-    anything is allocated.  :attr:`tp` is the rank's
-    :class:`~repro_torch.core.shard_plan.ModelAxis` (None on one
-    device)."""
+    single device's tensors bit for bit (:func:`repro_torch.launch
+    .sharding.join_leaf`).  A kind outside :data:`TP_KINDS` raises
+    ``NotImplementedError``; any head counts split (the head plan), but a
+    hidden width, an expert count or a vocab that does not split evenly
+    over the axis raises ``ValueError``, before anything is allocated.
+    :attr:`tp` is the rank's :class:`~repro_torch.core.shard_plan
+    .ModelAxis` (None on one device), :attr:`split_leaves` the blocks of
+    every leaf that differs between ranks (``{name: LeafBlocks}``)."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
                  shard: Optional[ShardCtx] = None):
@@ -570,6 +588,7 @@ class LM(nn.Module):
                              f"{REMATS}")
         meta = device is not None and torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
+        self.split_leaves: dict = {}
         self.tp = self._model_axis(kinds, dev)
         gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
         dtype = cfg.torch_dtype
@@ -589,14 +608,7 @@ class LM(nn.Module):
         blocks = []
         for li, kind in enumerate(layer_kinds(cfg)):
             blk = BLOCKS[kind](cfg, gen, dtype, dev)
-            if self.tp is not None:
-                for name, prm in blk.named_parameters():
-                    prm.data = self._local(prm.data, f"blocks.{li}.{name}")
-                blk.tp = self.tp
-                blk.data_axes = tuple(
-                    a for a in self.shard.data_axes
-                    if a in self.shard.mesh.mesh_dim_names)
-            blk.cost_mode = self.shard.cost_mode
+            self._place(blk, f"blocks.{li}")
             blocks.append(blk)
         self.blocks = nn.ModuleList(blocks)
         if "shared_attn" in kinds:
@@ -604,12 +616,24 @@ class LM(nn.Module):
                 "attn": init_attn(gen, cfg, dtype, dev),
                 "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev)})
         if cfg.enc_layers:
-            self.enc_blocks = nn.ModuleList(
-                EncBlock(cfg, gen, dtype, dev)
-                for _ in range(cfg.enc_layers))
-            for blk in self.enc_blocks:
-                blk.cost_mode = self.shard.cost_mode
+            enc = []
+            for li in range(cfg.enc_layers):
+                enc.append(EncBlock(cfg, gen, dtype, dev))
+                self._place(enc[-1], f"enc_blocks.{li}")
+            self.enc_blocks = nn.ModuleList(enc)
             self.enc_norm = _frozen(init_rms(cfg.d_model, dtype, dev))
+
+    def _place(self, blk: nn.Module, prefix: str) -> None:
+        """Keep the rank's slice of each of ``blk``'s leaves (its
+        ``state_dict`` names under ``prefix``) and hand it the model axis,
+        the data axes and the cost mode."""
+        if self.tp is not None:
+            for name, prm in blk.named_parameters():
+                prm.data = self._local(prm.data, f"{prefix}.{name}")
+            blk.tp = self.tp
+            blk.data_axes = tuple(a for a in self.shard.data_axes
+                                  if a in self.shard.mesh.mesh_dim_names)
+        blk.cost_mode = self.shard.cost_mode
 
     def _model_axis(self, kinds: tuple, dev: torch.device):
         """The model axis this rank's weights split over (None on one
@@ -621,23 +645,23 @@ class LM(nn.Module):
         if n == 1:
             return None
         out = sorted({k for k in kinds if k not in TP_KINDS})
-        if out or cfg.enc_layers:
+        if out:
             raise NotImplementedError(
-                f"the block kinds {out or ['enc_dense']} of {cfg.name} over a "
-                f"mesh are not ported yet (ROADMAP.md, Queue 1 item 6d)")
-        split = {"num_heads": cfg.num_heads,
-                 "num_kv_heads": cfg.num_kv_heads,
-                 "padded_vocab": cfg.padded_vocab}
-        if any(k in ("dense", "dense_local") for k in kinds):
+                f"the block kinds {out} of {cfg.name} over a mesh are not "
+                f"ported yet (ROADMAP.md, Queue 1 item 6d-2)")
+        # heads of any count split (the head plan); these must split evenly
+        split = {"padded_vocab": cfg.padded_vocab}
+        if cfg.enc_layers or any(k in ("dense", "dense_local", "xdec")
+                                 for k in kinds):
             split["d_ff"] = cfg.d_ff
-        if "moe" in kinds:
+        if any(k in MOE_KINDS for k in kinds):
             split["num_experts"] = cfg.num_experts
         for what, size in split.items():
             if size % n:
                 raise ValueError(
                     f"{cfg.name}'s {what} {size} does not split over the "
-                    f"{sh.model_axis} axis of {n}: a dim that does not "
-                    f"split is not ported yet (ROADMAP.md, Queue 1 item 6d)")
+                    f"{sh.model_axis} axis of {n}: hidden widths, experts "
+                    f"and vocab rows split evenly")
         # the dry run's abstract mesh holds its rank's slices on meta
         dry = isinstance(sh.mesh, DryMesh)
         if (dev.type == "meta") != dry or sh.mesh.device_type != dev.type:
@@ -647,13 +671,16 @@ class LM(nn.Module):
 
     def _local(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """This rank's slice of the full leaf ``t`` (``t`` itself on one
-        device), a tensor of its own."""
+        device or where the leaf is whole on every rank), a tensor of its
+        own, its blocks recorded in :attr:`split_leaves`."""
         if self.tp is None:
             return t
-        spec = param_spec(name, t.dim())
-        if all(a is None for a in spec):
+        blk = leaf_blocks(name, tuple(t.shape), self.cfg, self.tp.size)
+        if blk is None:
             return t
-        return local_shard(t, spec, self.shard.mesh).clone(
+        self.split_leaves[name] = blk
+        lo, hi = blk.bounds[self.tp.rank]
+        return t.narrow(blk.dim, lo, hi - lo).clone(
             memory_format=torch.contiguous_format)
 
     @property
@@ -731,7 +758,11 @@ class LM(nn.Module):
                 f"positions, so the frame count must equal the token count "
                 f"(the reference's rule: the encoder sees the same frame "
                 f"count)")
-        return {"enc_out": self._encode(enc_embeds)}
+        enc_out = self._encode(enc_embeds)
+        # every xdec layer's cross-attention K/V are column-parallel
+        # products of it: one entry sums their gradients over the axis
+        return {"enc_out": enc_out if self.tp is None
+                else self.tp.enter(enc_out)}
 
     def forward(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None, *,
@@ -785,9 +816,9 @@ class LM(nn.Module):
         computes them), plus ``0.01 * aux``, the MoE load-balance loss.
         tokens, labels (B,S) int; a () fp32 tensor.
 
-        Over a mesh (the ``dense`` and ``dense_local`` kinds) this rank
-        passes its data block of the batch (the same on every rank of the
-        model axis): the sharded forward, then the vocab-parallel cross
+        Over a mesh (every kind of :data:`TP_KINDS` but the MoE ones) this
+        rank passes its data block of the batch (the same on every rank of
+        the model axis): the sharded forward, then the vocab-parallel cross
         entropy (:func:`~repro_torch.core.embedding_engine
         .xent_vocab_parallel`) over the model axis, meaned over
         ``data_axes`` -- the axes the batch was split over; by default the
@@ -839,18 +870,19 @@ class LM(nn.Module):
         layer's state, which holds no positions: ``mamba``
         (:func:`.ssm.init_mamba_cache`), ``mlstm`` and ``slstm``
         (:func:`.xlstm.init_mlstm_cache`, :func:`.xlstm.init_slstm_cache`)).
-        A rank of a sharded model keeps its KV heads
-        (:func:`repro_torch.launch.sharding.cache_spec`)."""
+        A rank of a sharded model keeps its KV heads (the head plan's:
+        a copy of its group's where the KV heads are fewer than the ranks,
+        none where it holds no query head) and an MLA layer's whole
+        latent."""
         dtype = dtype or self.cfg.torch_dtype
         cfg, dev = self.cfg, self.device
-        if self.tp is not None:
-            return [init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                  kv_heads=cfg.num_kv_heads // self.tp.size)
-                    for _ in self.blocks]
         return [blk.init_cache(cfg, batch, dtype, dev)
                 if isinstance(blk, RecurrentBlock) else
-                (init_mla_cache if isinstance(blk, MlaBlock) else
-                 init_kv_cache)(cfg, batch, max_len, dtype, dev)
+                init_mla_cache(cfg, batch, max_len, dtype, dev)
+                if isinstance(blk, MlaBlock) else
+                init_kv_cache(cfg, batch, max_len, dtype, dev,
+                              kv_heads=local_heads(blk.attn, cfg)[1]
+                              if isinstance(blk, DenseBlock) else None)
                 for blk in self.blocks]
 
     @torch.inference_mode()
@@ -969,12 +1001,12 @@ class LM(nn.Module):
         ``index_select``, one packed copy per wave) stays selectable and
         gives the same bits: a gather is a copy.  A sharded model raises:
         its decode-embed program reads the whole table (ROADMAP.md, Queue
-        1 item 6d)."""
+        1 item 6d-3)."""
         from ..core.executor import executor_for, pipeline_group
         if self.tp is not None:
             raise NotImplementedError(
                 "the serving pipeline group of a sharded LM is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6d)")
+                "(ROADMAP.md, Queue 1 item 6d-3)")
         kw.setdefault("backend", "cuda")
         kw.setdefault("device", self.device)
         progs = [self.decode_embed_program(batch, seq)]

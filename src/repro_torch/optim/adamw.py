@@ -13,7 +13,8 @@ moments.
 Over a mesh (model-parallel training) each rank steps its own slices, as
 :class:`Shards` says: the clipping norm is the *global* gradient's (the
 squares of the leaves split over the model axis summed over it, each
-replicated leaf counted once), and a ZeRO-1 leaf's moments are only this
+replicated leaf and each KV copy of the head plan counted once), and a
+ZeRO-1 leaf's moments are only this
 data rank's rows of it (:func:`repro_torch.launch.sharding.zero1_specs`):
 the rank updates those rows of the parameter in fp32 as above, then the
 updated rows are all-gathered over the data axis.  The update is
@@ -37,13 +38,16 @@ class AdamWState(NamedTuple):
 class Shards:
     """How this rank holds the trees it steps: ``model`` the model axis
     (a :class:`~repro_torch.core.shard_plan.ModelAxis`, None on one
-    device) and ``split`` the leaves split over it; ``data`` the data axis
+    device) and ``split`` the leaves split over it, of which ``repeat``
+    are those whose slice an earlier rank holds too (a KV copy of the head
+    plan: its first holder counts it in the norm); ``data`` the data axis
     and ``zero1`` the leaves whose moments are this data rank's block of
     rows (dim 0 cut evenly over the axis)."""
     model: object = None
     split: frozenset = frozenset()
     data: object = None
     zero1: frozenset = frozenset()
+    repeat: frozenset = frozenset()
 
     def rows(self, name: str, n: int) -> tuple:
         """``[lo, hi)`` of dim 0 (``n`` rows) whose moments this rank keeps:
@@ -121,8 +125,9 @@ def clip_by_global_norm(grads: Mapping, max_norm: float,
     """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))``, the
     norm over all leaves in fp32; each scaled in fp32 and cast back to its
     dtype.  Under ``shards`` the norm is the global gradient's: the squares
-    of the leaves split over the model axis summed there (one all-reduce),
-    plus each replicated leaf's once."""
+    of the leaves split over the model axis summed there (one all-reduce;
+    a slice in ``shards.repeat`` left to its first holder), plus each
+    replicated leaf's once."""
     gn = torch.sqrt(global_sq_norm(grads, shards))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}
@@ -138,6 +143,7 @@ def global_sq_norm(grads: Mapping, shards: Shards = None) -> torch.Tensor:
         zero = torch.zeros((), device=next(iter(grads.values())).device)
         return sum((torch.sum(torch.square(g.float()))
                     for k, g in grads.items()
-                    if (k in shards.split) == split), zero)
+                    if (k in shards.split) == split and
+                    k not in shards.repeat), zero)
     return shards.model.coll.all_reduce(sq(True).reshape(1), "add")[0] + \
         sq(False)

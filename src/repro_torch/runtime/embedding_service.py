@@ -867,13 +867,17 @@ class ServicePool:
         if not sent:
             raise ServiceUnavailable(f"no live replica accepted {kind!r}")
 
-    def _next_live(self) -> Optional[_Replica]:
+    def _next_live(self, avoid: Optional[_Replica] = None
+                   ) -> Optional[_Replica]:
+        """The next live replica in round-robin order, ``avoid`` only where
+        no other is live."""
         n = len(self.replicas)
-        for k in range(n):
-            r = self.replicas[(self._rr + k) % n]
-            if r.state == "live":
-                self._rr = (self._rr + k + 1) % n
-                return r
+        for skip in ((avoid,), ()):
+            for k in range(n):
+                r = self.replicas[(self._rr + k) % n]
+                if r.state == "live" and r not in skip:
+                    self._rr = (self._rr + k + 1) % n
+                    return r
         return None
 
     def _ensure_client(self, r: _Replica) -> RpcClient:
@@ -900,14 +904,17 @@ class ServicePool:
         """Resend every step pending on ``r``'s closed connection to a live
         peer, under its own seq and marked ``failover``: the peer may have
         served a later seq already (two steps in flight round-robin), and
-        must run it, not refuse it as stale."""
+        must run it, not refuse it as stale.  The peer is another replica
+        wherever one is live: a replica whose process is exiting can close
+        its sockets before the pool sees the exit (its circuit still
+        closed), and a step resent to it would fail over a second time."""
         pendings = list(r.pending.values())
         r.pending.clear()
         for fut in pendings:
             fut.replica = None
             fut.meta["failover"] = True
             try:
-                self._send_future(fut)
+                self._send_future(fut, avoid=r)
                 self.pool_stats["failovers"] += 1
             except ServiceUnavailable as e:
                 fut.error = e
@@ -925,14 +932,17 @@ class ServicePool:
         self.pool_stats["rpc_steps"] += 1
         return fut
 
-    def _send_future(self, fut: StepFuture) -> None:
+    def _send_future(self, fut: StepFuture,
+                     avoid: Optional[_Replica] = None) -> None:
+        """Send ``fut`` to the next live replica (another than ``avoid``
+        where one is live), with the bounded backoff retry."""
         last: Optional[BaseException] = None
         for k, delay in enumerate(
                 backoff_delays(self.retries, self.backoff_s)):
             if delay:
                 time.sleep(delay)
                 self.pool_stats["retries"] += 1
-            r = self._next_live()
+            r = self._next_live(avoid)
             if r is None:
                 break
             try:

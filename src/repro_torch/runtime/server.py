@@ -46,7 +46,7 @@ the same order -- each wave's collectives pair up, and the all-gathered
 logits give every rank the same tokens.  ``compile_stats["executor"]``
 then shows the vocab-sharded executor's ``shards``, ``exchange`` and
 ``replicate_outputs``, and ``compile_stats["access_plans"]`` its plans.
-``pipeline=True`` over a mesh raises (ROADMAP.md, Queue 1 item 6d).
+``pipeline=True`` over a mesh raises (ROADMAP.md, Queue 1 item 6d-3).
 
 **The compiled wave.**  The reference compiles the wave and the slot
 reset once, in ``__init__`` (``jax.jit(lm.wave_step)``,
@@ -242,7 +242,7 @@ class DecodeServer:
         if pipeline and tp is not None:
             raise NotImplementedError(
                 "the serving pipeline (pipeline=True) of a sharded model is "
-                "not ported yet (ROADMAP.md, Queue 1 item 6d)")
+                "not ported yet (ROADMAP.md, Queue 1 item 6d-3)")
         self.lm = lm
         # serving artifact: the boot loads the compile result from here
         # instead of compiling; a fresh compile saves at build and again

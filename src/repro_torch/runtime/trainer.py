@@ -29,13 +29,18 @@ them from it.  ``TrainerConfig.ckpt_dir`` has no default (the
 reference's is ``/tmp/repro_ckpt``): a trainer resumes from whatever it
 finds there, so two runs must not share one by accident.
 
-**Over a mesh** (an ``LM(shard=ShardCtx(mesh))``, the ``dense`` and
-``dense_local`` kinds; one process a rank, multi-controller): each rank
-takes its data block of the global batch (the batch specs), runs the
-loss over the mesh and its backward (the model axis's collectives inside),
-means every gradient over the data axes (fp32, rounded once), and steps
-AdamW on its slices (:class:`~repro_torch.optim.adamw.Shards`: the global
-clipping norm, ZeRO-1 where the opt specs shard a moment).  ``in_shardings``
+**Over a mesh** (an ``LM(shard=ShardCtx(mesh))`` of any kind whose loss
+runs over a mesh; one process a rank, multi-controller): each rank takes
+its data block of the global batch (the batch specs), runs the loss over
+the mesh and its backward (the model axis's collectives inside), sums
+each KV copy's gradient over the ranks that hold it (the head plan's
+copies: one all-reduce a leaf of its zero-filled KV columns, so the
+copies step alike and stay bit-equal), means every gradient over the data
+axes (fp32, rounded once), and steps AdamW on its slices
+(:class:`~repro_torch.optim.adamw.Shards`: the global clipping norm, each
+copy counted once, ZeRO-1 where the opt specs shard a moment of a leaf
+the LM does not split).  The LM's ``split_leaves`` place every leaf; the
+param specs are the reference's names of the layout.  ``in_shardings``
 is the port's counterpart of the reference's jit placements: the spec
 triple ``(param specs, opt specs, batch specs)`` of
 :func:`repro_torch.launch.sharding.train_specs`; param specs that disagree
@@ -113,6 +118,7 @@ class TrainStep:
         rank's data block and the data axes the gradients are meaned
         over."""
         self._block, self._data = None, None
+        self._copies: dict = {}
         self._loss_axes = ()
         if self.mesh is None:
             if in_shardings is not None:
@@ -148,6 +154,10 @@ class TrainStep:
             if bad:
                 raise ValueError(f"in_shardings' opt specs at {bad[:4]} are "
                                  f"neither the params' nor ZeRO-1's")
+        # the LM's own blocks of each leaf it splits (the head plan's for
+        # the attention heads); ZeRO-1 cuts only leaves it does not split
+        blocks = self.lm.split_leaves
+        mu = {k: p_want[k] if k in blocks else v for k, v in mu.items()}
         self.specs = {"params": p_want, "moments": mu}
         zero1 = frozenset(k for k in p_want if mu[k] != p_want[k])
         wide = tuple(a for a in data_axes if shard_count(mesh, a) > 1)
@@ -161,11 +171,13 @@ class TrainStep:
             lo = self._data.rank * b
             self._block = (lo, lo + b)
             self._loss_axes = data_axes
+        tp = self.lm.tp
+        me = 0 if tp is None else tp.rank
         self.shards = Shards(
-            model=self.lm.tp,
-            split=frozenset(k for k, sp in p_want.items()
-                            if any(a is not None for a in sp)),
-            data=self._data, zero1=zero1)
+            model=tp, split=frozenset(blocks), data=self._data, zero1=zero1,
+            repeat=frozenset(k for k, b in blocks.items()
+                             if not b.writers[me]))
+        self._copies = {k: b for k, b in blocks.items() if b.copies}
         from ..launch.sharding import axis_sizes, mesh_index
         self._sizes, self._index = axis_sizes(mesh), mesh_index(mesh)
 
@@ -184,7 +196,9 @@ class TrainStep:
         """The loss (the mean over the global batch, on every rank) and
         every parameter's gradient (a parameter the loss does not reach gets
         zeros, as ``jax.grad`` gives); over a mesh the gradients of the
-        rank's slices, meaned over the data axes in fp32 and rounded once."""
+        rank's slices, a KV copy's summed over its holders
+        (:meth:`_sum_copies`), meaned over the data axes in fp32 and
+        rounded once."""
         for p in params.values():
             p.grad = None
         loss = self.lm.loss(batch["tokens"], batch["labels"],
@@ -196,11 +210,28 @@ class TrainStep:
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
+        for k, blk in self._copies.items():
+            grads[k] = self._sum_copies(grads[k], blk)
         if self._block is not None:
             n = self._data.size
             grads = {k: (self._data.coll.all_reduce(g.float(), "add") / n)
                      .to(g.dtype) for k, g in grads.items()}
         return loss.detach(), grads
+
+    def _sum_copies(self, g: torch.Tensor, blk) -> torch.Tensor:
+        """A KV leaf's gradient summed over the ranks that hold each of its
+        copies: this rank's partial placed at its columns of the zero-filled
+        full width in fp32, one all-reduce over the model axis, the rank's
+        columns taken back and rounded once (every rank of a group gets
+        the same bits)."""
+        tp = self.lm.tp
+        lo, hi = blk.bounds[tp.rank]
+        shape = list(g.shape)
+        shape[blk.dim] = blk.size
+        full = g.new_zeros(shape, dtype=torch.float32)
+        full.narrow(blk.dim, lo, hi - lo).copy_(g)
+        return tp.coll.all_reduce(full, "add").narrow(
+            blk.dim, lo, hi - lo).to(g.dtype).contiguous()
 
     def __call__(self, state: dict, batch: dict) -> torch.Tensor:
         """One step: the loss, its gradients, compression, AdamW in place.

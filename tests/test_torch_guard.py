@@ -504,3 +504,84 @@ def test_dry_run_and_roofline_stand_alone(tmp_path):
                             "TMPDIR": str(tmp_path)})
     assert "DRYRUN-STANDALONE-OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-4000:]
+
+
+_HEADS_RANK_MODULE = '''
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+
+
+def rank_main(rank, world, ckpt):
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    mesh = make_host_mesh(world, device="cpu")
+    shard = ShardCtx(mesh)
+    toks = torch.randint(0, 256, (2, 8), generator=torch.Generator()
+                         .manual_seed(1))
+    out = {}
+    cfg = dataclasses.replace(get_reduced("chatglm3-6b"), num_heads=6,
+                              num_kv_heads=2, head_dim=8)
+    lm = LM(cfg, device="cpu", seed=3, shard=shard)
+    data = SyntheticTokens(DataConfig(vocab_size=256, seq_len=8,
+                                      global_batch=2))
+    res = Trainer(lm, data, TrainerConfig(total_steps=2, ckpt_every=1,
+                                          ckpt_dir=ckpt)).run()
+    wk = res["state"]["params"]["blocks.0.attn.wk"]
+    out["glm"] = (res["losses"], tuple(wk.shape), float(wk.sum()))
+    ds = LM(get_reduced("deepseek-v2-lite-16b"), device="cpu", seed=3,
+            shard=shard)
+    caches = ds.init_caches(2, 12)
+    lg, _ = ds.decode_step(toks[:, :1], caches)
+    out["mla"] = (float(ds.prefill(toks).float().sum()), float(lg.sum()))
+    wh = LM(get_reduced("whisper-large-v3"), device="cpu", seed=3,
+            shard=shard)
+    enc = torch.randn((2, 8, 64), generator=torch.Generator().manual_seed(2))
+    out["xdec"] = float(wh.loss(toks, toks, None, enc))
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                   if sys.modules[m] is not None)
+    return out
+'''
+
+
+def test_attention_kinds_over_any_model_axis_stand_alone(tmp_path):
+    """The head plan's paths -- 6 query heads over 2 KV heads on four
+    ranks (KV copies, query heads that do not divide the axis) trained
+    two steps with sharded checkpoints, DeepSeek-V2-Lite's MLA prefill and
+    decode, whisper's encoder-decoder loss -- run on four gloo ranks with
+    JAX and the JAX package unimportable, in the ranks and their parent;
+    a KV copy is the same bits on every rank of its group."""
+    (tmp_path / "heads_guard_rank.py").write_text(_HEADS_RANK_MODULE)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import math
+        import heads_guard_rank
+        from repro_torch.launch.mesh import run_ranks
+        if __name__ == "__main__":
+            res = run_ranks(heads_guard_rank.rank_main, 4,
+                            ({str(tmp_path / 'ckpt')!r},), timeout_s=240)
+            assert len({{str(r["glm"][0]) for r in res}}) == 1
+            assert res[0]["glm"][2] == res[1]["glm"][2]    # a KV copy
+            assert res[2]["glm"][2] == res[3]["glm"][2]
+            assert res[0]["glm"][1] == (64, 8)
+            assert len({{r["mla"] for r in res}}) == 1
+            assert len({{r["xdec"] for r in res}}) == 1
+            assert all(math.isfinite(x) for r in res
+                       for x in (r["xdec"],) + r["mla"])
+            print("HEADS-STANDALONE-OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300,
+                       env={"PYTHONPATH": f"{REPO / 'src'}:{tmp_path}",
+                            "PATH": "/usr/bin:/bin",
+                            "TMPDIR": str(tmp_path)})
+    assert "HEADS-STANDALONE-OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-4000:]

@@ -17,8 +17,11 @@ the cache's integer leaves exactly.  (Model-parallel training of the dense
 kinds is held in ``tests/test_torch_mp_train.py``; an MoE model's loss
 over a mesh raises, naming ROADMAP.md item 6e.)  The port alone: the ranks' slices of
 ``LM(seed, shard=)`` join to ``LM(seed)`` bit for bit, the ranks agree bit
-for bit, the sharded embedding executor reads the rank's own rows, and
-what is outside this slice raises.
+for bit, the sharded embedding executor reads the rank's own rows, what is
+outside the port's tensor parallelism raises, and the kinds and head
+counts earlier slices refused build (the head plan, the MLA and
+encoder-decoder kinds: ``tests/test_torch_tp_heads.py`` and
+``tests/test_torch_tp_kinds.py`` hold them against the reference).
 """
 from __future__ import annotations
 
@@ -44,9 +47,12 @@ SEED, B, S, MAX_LEN, STEPS = 3, 2, 16, 24, 4
 WAVE_LENS = (5, 3)
 STRATEGIES = ("masked_psum", "masked_psum_scatter", "one_hot")
 EP_PATHS = ("split", "rep")
-#: the kinds outside this slice (ROADMAP.md Queue 1 item 6d)
-OUT_OF_SLICE = ("deepseek-v2-lite-16b", "zamba2-7b", "xlstm-1.3b",
-                "whisper-large-v3")
+#: the kinds outside the port's tensor parallelism (ROADMAP.md Queue 1
+#: item 6d-2)
+OUT_OF_SLICE = ("zamba2-7b", "xlstm-1.3b")
+#: what earlier slices refused and builds now: the MLA and encoder-decoder
+#: kinds, and 3 KV heads over 2 ranks (the head plan)
+BUILT = ("deepseek-v2-lite-16b", "whisper-large-v3", "heads")
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +336,8 @@ def _ops(lm, params, mesh) -> dict:
     for arch in OUT_OF_SLICE:
         raised[arch] = why(lambda a=arch: LM(get_reduced(a), device="cpu",
                                              shard=shard))
+    for arch in BUILT[:2]:
+        raised[arch] = _built(get_reduced(arch), shard)
     raised["pipeline"] = why(lambda: __import__(
         "repro_torch.runtime.server", fromlist=["DecodeServer"]
     ).DecodeServer(lm, batch_slots=2, pipeline=True))
@@ -337,13 +345,39 @@ def _ops(lm, params, mesh) -> dict:
     raised["loss"] = why(lambda: lm.loss(toks, toks))
     odd = dataclasses.replace(get_reduced("chatglm3-6b"), num_heads=6,
                               num_kv_heads=3)
-    raised["heads"] = why(lambda: LM(odd, device="cpu", shard=shard))
+    raised["heads"] = _built(odd, shard)
     raised["meta"] = why(lambda: LM(get_reduced("chatglm3-6b"),
                                     device="meta", shard=shard))
     out["raised"] = raised
     out["full_params"] = {k: _np(v) for k, v in lm_params_from_reference(
         params, cfg, "cpu").items() if k.startswith("blocks.0.moe.")}
     return out
+
+
+def _built(cfg, shard) -> str:
+    """Build the rank's slices of ``LM(cfg, seed)``: ``"built: ..."`` with
+    the rank's query and KV heads (the head plan's) where its forward is
+    finite, else what went wrong."""
+    from repro_torch.launch.sharding import head_plan
+    from repro_torch.models.lm import LM
+    try:
+        lm = LM(cfg, device="cpu", seed=SEED, shard=shard)
+        kw = {}
+        if cfg.enc_layers:
+            kw["enc_embeds"] = torch.zeros((B, S, cfg.d_model))
+        with torch.no_grad():
+            h = lm.forward(torch.from_numpy(tokens(cfg)).long(), **kw)
+    except (NotImplementedError, ValueError) as e:
+        return f"{type(e).__name__}: {e}"
+    attn = lm.blocks[0].attn
+    mla = "w_uk" in attn
+    q = (attn["w_uk"] if mla else attn["wq"]).shape[1] // cfg.hd
+    kv = q if mla else attn["wk"].shape[1] // cfg.hd
+    plan = head_plan(cfg, lm.tp.size, lm.tp.rank)
+    if (q, kv) != (plan.q[1] - plan.q[0], plan.kv[1] - plan.kv[0]) or \
+            not bool(torch.isfinite(h).all()):
+        return f"wrong: {q} query and {kv} KV heads, plan {plan}"
+    return f"built: {q} query heads over {kv} KV heads"
 
 
 def _port_all(rank: int, world: int) -> dict:
@@ -462,7 +496,7 @@ def test_sharded_init_joins_to_the_single_device_bit_for_bit(port, arch):
     from repro_torch.models.lm import LM
     ranks = [{k: torch.from_numpy(v) for k, v in r["seeded"].items()}
              for r in port[arch]]
-    got = lm_params_gathered(ranks)
+    got = lm_params_gathered(ranks, get_reduced(arch))
     want = LM(get_reduced(arch), device="cpu", seed=SEED).state_dict()
     assert set(got) == set(want)
     for k, v in want.items():
@@ -490,11 +524,21 @@ def test_sharded_embedding_executor_reads_the_ranks_own_rows(port):
 
 @pytest.mark.parametrize("case,match", [
     *((a, "NotImplementedError: .*item 6d") for a in OUT_OF_SLICE),
+    # these three raised before the head plan and the MLA and
+    # encoder-decoder kinds were split; they keep their case ids
+    pytest.param("deepseek-v2-lite-16b", "built: 2 query heads over 2 KV",
+                 id="deepseek-v2-lite-16b-NotImplementedError: .*item 6d"),
+    pytest.param("whisper-large-v3", "built: 2 query heads over 2 KV",
+                 id="whisper-large-v3-NotImplementedError: .*item 6d"),
+    pytest.param("heads", "built: [42] query heads over [21] KV",
+                 id="heads-ValueError: .*num_kv_heads 3 does not split"),
     ("pipeline", "NotImplementedError: .*item 6d"),
     ("loss", "NotImplementedError: .*item 6e"),
-    ("heads", "ValueError: .*num_kv_heads 3 does not split"),
     ("meta", "ValueError: a sharded LM is built on its mesh's device")])
 def test_what_this_slice_leaves_out_raises(port, case, match):
+    """What the port's tensor parallelism leaves out raises, naming its
+    ROADMAP item; what earlier slices refused builds, each rank holding
+    the head plan's heads."""
     import re
     for res in port[MOE]:
         assert re.match(match, res["raised"][case]), res["raised"][case]
