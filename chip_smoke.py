@@ -380,14 +380,27 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    a decode micro-step against the single device's, the prefill against
    ``moe_ffn_ep_plain`` and the micro-steps against the single device with
    the routing pinned to the ranks' (phase 18's way), and a served drive
-   equal on both ranks; (c) whisper-large-v3 at full width and depth over
+   equal on both ranks, then one training step (a ``TrainStep`` of 1 x
+   TPH_DS_PREFILL[1] tokens, AdamW's step included) on the same ranks: the
+   loss (MP_LOSS_REL) and every gradient, the ranks' slices joined by the
+   plan (TRAIN_GRAD_REL_L2), against one process running each MoE layer as
+   ``moe_ffn_ep_plain(n=2)`` with the routing pinned to the ranks', the
+   leaves whole on both ranks bit-equal in gradient and stepped
+   parameter, the step's launches of the un-dispatch gather, its
+   backward (transposition, sparse sum) and the (192, 128) SIMT flash
+   backward required, and the step's first un-dispatch gather's and
+   first masked lookup's backward (their ids, rows and captured
+   cotangents) held to ``index_add_`` in fp32 (``check_bf16``); a second,
+   warm step is timed beside the first, each split into
+   ``loss_and_grads`` and ``apply_``; (c) whisper-large-v3 at full width and depth over
    two ranks: the 1 x TPH_WHISPER_FRAMES encoder + decoder forward and
    decode micro-steps with the encoder context against the single
    device's, and one training step at TPH_WHISPER_TRAIN_LAYERS + the same
    encoder layers held as (a)'s.  Rank 0 times the flash layer at each
    new shape (chatglm3-6b's 8 over 1 KV head, MLA's (192, 128) on 8 heads,
    whisper's encoder (64, 64) on 10, not causal) beside the plain version,
-   the bound and SDPA.  Printed per rank: step and forward ms, collectives
+   the bound and SDPA, and MLA's (192, 128) SIMT flash backward at the
+   rank's shape beside its bound, the plain backward and SDPA's.  Printed per rank: step and forward ms, collectives
    and staged MB, peak GiB, beside the card; and the ``[22 tp heads
    predicted]`` block written before the first run;
 23. one JSON line listing the kernels with the kernel (variant) that
@@ -419,8 +432,10 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    (counted in ``launches`` too); phase 22's as ``tp_heads_launches`` of
    ``flash_attention``, ``flash_attention_bwd`` and ``block_gather`` and
    ``tp_heads`` in the ``launches_by_training`` of ``gather_transpose`` and
-   ``sls_sparse`` (counted in ``launches`` too), with the flash layers'
-   times at the ranks' new shapes (``tp_heads_flash_layers``);
+   ``sls_sparse`` (counted in ``launches`` too; DeepSeek's training step
+   among them), with the flash layers' times at the ranks' new shapes
+   (``tp_heads_flash_layers``) and the MLA backward's
+   (``tp_heads_mla_bwd`` of ``flash_attention_bwd``);
 24. ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -573,6 +588,34 @@ TPH_PREDICTED = {"chatglm3 2x512 prefill over 4 ranks": "~2,000-4,000 ms "
                      "~0.05-0.1 ms",
                  "peak a rank": "~4-5 GiB chatglm3, ~5 GiB DeepSeek, "
                                 "~3 GiB whisper"}
+# written before the first run of (b)'s training step on the card (PERF.md,
+# the expert-parallel training findings): a rank holds ~2.6 GB of bf16
+# weights, as much again of gradients and two fp32 moments (~10.4 GB);
+# each layer stages 4 all-to-alls of a (64, 16, 2048) bf16 buffer (4 MB)
+# and one fp32 all-reduce of the FFN input, router and shared experts'
+# gradients (~69 MB), at the ~1.6 ms a MB of the staged collectives
+TPH_PREDICTED.update({
+    "DeepSeek 4-layer 1x256 training step over 2": "~0.5-1.5 s, > 70 % in "
+                                                   "staged collectives",
+    "DeepSeek training peak a rank": "~16-18 GiB",
+    "DeepSeek training loss vs one process (pinned)": "~1e-3 relative",
+    "DeepSeek training gradients vs one process": "~1e-2 relative L2",
+    "flash backward, MLA rank layer (1x256, 8 heads, 192/128), SIMT":
+        "~0.1-0.5 ms, < 2 % of its bound, slower than SDPA's backward"})
+# written before the first run of the warm step and the gather backward
+# checks: the first step pays first-use costs (the backward's cuBLAS
+# shapes, the SIMT backward's module, the allocator growing to the peak,
+# pinned staging buffers for the larger payloads); each un-dispatch slot
+# is read by at most one (token, k), so its backward sums nothing
+TPH_PREDICTED.update({
+    "DeepSeek warm training step over 2": "~0.8-1.2 s on a host like the "
+                                          "first step's ~1.7 s, "
+                                          "collectives ~0.5-0.8 s of it",
+    "DeepSeek AdamW.apply_ a rank (~1.3 G bf16 params, fp32 moments)":
+        "~30-150 ms in either step",
+    "DeepSeek un-dispatch gather backward vs index_add_": "bit-equal",
+    "DeepSeek masked lookup backward vs index_add_": "<= 1 % of elements "
+                                                     "differing"})
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -7135,7 +7178,7 @@ def _tp_parent_moe(model, key: str, job: dict, ranks: list) -> dict:
     seq = [x for pair in zip(r0["prefill_routes"], r1["prefill_routes"])
            for x in pair]
     for blk in model.blocks:
-        blk._ffn = (lambda h, with_aux=True, b=blk:
+        blk._ffn = (lambda h, b=blk:
                     moe_mod.moe_ffn_ep_plain(b.moe, h, cfg, 2))
     tokens = torch.from_numpy(job["moe_tokens"]).cuda()
     try:
@@ -8508,12 +8551,45 @@ def _tph_grad_file(job: dict, part: str, rank: int) -> Path:
     return Path(job["dir"]) / f"grads_{part}_{rank}.pt"
 
 
-def _tph_train(rank: int, lm, job: dict, part: str, batch: dict) -> dict:
+def _tph_step(st, state: dict, local: dict, stats) -> tuple:
+    """One ``TrainStep`` (``loss_and_grads``, then ``AdamW.apply_`` with
+    its shards) on the host clock, the card synchronised around each part:
+    ``(loss, grads, {"ms", "grads_ms", "apply_ms", "coll"})``."""
+    import torch
+    c0 = dict(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = st.loss_and_grads(state["params"], local)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state["opt"] = st.opt.apply_(state["params"], grads, state["opt"],
+                                 st.shards)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return loss, grads, {"ms": (t2 - t0) * 1e3, "grads_ms": (t1 - t0) * 1e3,
+                         "apply_ms": (t2 - t1) * 1e3,
+                         "coll": _tp_collectives(stats, c0)}
+
+
+def _tph_step_txt(t: dict) -> str:
+    """A :func:`_tph_step` record as text."""
+    c = t["coll"]
+    return (f"{t['ms']:.1f} ms (host clock, synchronised: loss_and_grads "
+            f"{t['grads_ms']:.1f} ms, apply_ {t['apply_ms']:.1f} ms; "
+            f"{c['collectives']} collectives, {c['staged_bytes'] / 1e6:.1f} "
+            f"MB staged, {c['collective_ms']:.1f} ms in them)")
+
+
+def _tph_train(rank: int, lm, job: dict, part: str, batch: dict,
+               whole: bool = False, warm: bool = False) -> dict:
     """One training step of ``lm`` (a rank's slices) through the trainer's
     step (``TrainStep.loss_and_grads``: KV copies summed over their
-    holders; ``AdamW.apply_`` with its shards), counted; the gradients
-    written to the phase's directory for the parent's comparison, and the
-    digests of every copied leaf's gradient and stepped parameter."""
+    holders; ``AdamW.apply_`` with its shards; :func:`_tph_step`),
+    counted; the gradients written to the phase's directory for the
+    parent's comparison, and the digests of every copied leaf's gradient
+    and stepped parameter (with ``whole``, of every leaf whole on every
+    rank too).  With ``warm`` a second step on the same batch is timed
+    (``out["warm"]``), after everything of the first is recorded."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.trainer import TrainStep
@@ -8523,21 +8599,21 @@ def _tph_train(rank: int, lm, job: dict, part: str, batch: dict) -> dict:
     local = st.local_batch(batch)
     stats = lm.collective_stats
     kops.reset_launch_counts()
-    c0 = dict(stats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss, grads = st.loss_and_grads(state["params"], local)
-    state["opt"] = st.opt.apply_(state["params"], grads, state["opt"],
-                                 st.shards)
-    torch.cuda.synchronize()
-    out = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
-           "coll": _tp_collectives(stats, c0), "counts": _mp_counts(kops),
-           "copies": {k: (_digest(grads[k]), _digest(state["params"][k]))
-                      for k in st._copies},
-           "repeat": sorted(st.shards.repeat)}
+    loss, grads, timed = _tph_step(st, state, local, stats)
+    out = dict(timed, loss=float(loss), counts=_mp_counts(kops),
+               copies={k: (_digest(grads[k]), _digest(state["params"][k]))
+                       for k in st._copies},
+               repeat=sorted(st.shards.repeat))
+    if whole:
+        out["whole"] = {k: (_digest(grads[k]), _digest(p))
+                        for k, p in state["params"].items()
+                        if k not in st.shards.split}
     torch.save({k: g.detach().cpu() for k, g in grads.items()},
                _tph_grad_file(job, part, rank))
-    del st, state, grads, local
+    del grads
+    if warm:
+        out["warm"] = _tph_step(st, state, local, stats)[2]
+    del st, state, local
     return out
 
 
@@ -8727,7 +8803,10 @@ def _tph_rank_bc(rank: int, world: int, job: dict) -> dict:
     ds["statuses"] = [r.status for r in reqs]
     ds["serve_counts"] = _mp_counts(kops)
     ds["peak"] = torch.cuda.max_memory_allocated()
-    del srv, reqs, lm
+    del srv, reqs
+    marks.append(("deepseek served", time.time()))
+    ds["train"] = _tph_ds_train(rank, lm, job)
+    del lm
     gc.collect()
     torch.cuda.empty_cache()
     marks.append(("deepseek", time.time()))
@@ -8797,16 +8876,122 @@ def _tph_rank_bc(rank: int, world: int, job: dict) -> dict:
                  "(10 heads, not causal)")):
             out[key] = _flash_layer(q, k, v, kw, what)
             out[f"{key}_shape"] = (tuple(q.shape), tuple(k.shape))
+        out["mla_bwd"] = _tph_flash_bwd(*mla_layer[:3], "a rank's DeepSeek "
+                                        "MLA layer's flash backward")
     del mla_layer, enc_layer, q, k, v
     dist.barrier()
     out["marks"].append(("timed", time.time()))
     return out
 
 
-def _tph_single_train(cfg, seed: int, batch: dict) -> dict:
-    """The single device's loss and every gradient of ``LM(cfg, seed)`` on
-    ``batch`` (host arrays), on the host; the model freed."""
+def _tph_ds_train(rank: int, lm, job: dict) -> dict:
+    """Phase 22(b)'s training step on a rank: one ``TrainStep`` of its
+    DeepSeek-V2-Lite slices on the job's 1 x TPH_DS_PREFILL[1] batch
+    (:func:`_tph_train`: the seq-split expert path's all-to-alls and their
+    transposes, the whole leaves' gradients summed over the axis), then a
+    second, warm one timed; its peak memory; every MoE layer's routing in
+    the first step recorded (the rank's block of tokens) for the parent's
+    pinned single process.  The first step's first masked lookup and first
+    un-dispatch gather are captured (the rank's table and ids, the
+    cotangent their backward got), and after the step each backward is
+    held to its plain version on those inputs (``check_bf16``)."""
     import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.kernels.gather import block_gather
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import MoeBlock
+    route, routes = moe_mod.route, []
+    lookup_rows = lm.embed.shape[0]
+    seen: dict = {}
+
+    def record(x2d, router, k):
+        probs, topw, tope = route(x2d, router, k)
+        routes.append(tope.detach().cpu().numpy())
+        return probs, topw, tope
+
+    def capture(table, idxs, **kw):
+        got = block_gather(table, idxs, **kw)
+        kind = "lookup" if table.shape[0] == lookup_rows else "undispatch"
+        if kind not in seen and got.requires_grad:
+            c = seen[kind] = {"n": table.shape[0], "idxs": idxs}
+
+            def keep(g):
+                c.setdefault("dout", g.detach().contiguous())
+            got.register_hook(keep)
+        return got
+    # one routing a MoE layer a forward: the first step's
+    moe_layers = sum(isinstance(blk, MoeBlock) for blk in lm.blocks)
+    torch.cuda.reset_peak_memory_stats()
+    moe_mod.route = record
+    try:
+        with _OpSwap("block_gather", capture):
+            out = _tph_train(rank, lm, job, "b", job["ds_train_batch"],
+                             whole=True, warm=True)
+    finally:
+        moe_mod.route = route
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["routes"] = routes[:moe_layers]
+    require(set(seen) == {"lookup", "undispatch"} and
+            all("dout" in c for c in seen.values()),
+            f"DeepSeek rank {rank}'s training step: captured {sorted(seen)}")
+    out["gather_bwd"] = {}
+    for kind, c in seen.items():
+        dout, idxs, n = c["dout"], c["idxs"], c["n"]
+        agree = check_bf16(
+            kops.block_gather_backward(dout, idxs, n),
+            ref.block_gather_backward(dout, idxs, n),
+            f"DeepSeek rank {rank}'s {kind} gather backward "
+            f"({idxs.numel()} ids into {n} rows) vs index_add_")
+        out["gather_bwd"][kind] = dict(agree, ids=idxs.numel(), rows=n,
+                                       dtype=str(dout.dtype))
+    return out
+
+
+def _tph_flash_bwd(q, k, v, what: str) -> dict:
+    """The flash backward at a rank's layer shapes (its captured q, k, v,
+    a random bf16 dO): held to its variant's plain version
+    (``_check_flash_backward``), and timed beside its bound, the plain
+    backward and SDPA's backward (the forward not in the timed call)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import (backward_variant,
+                                                     plain_backward)
+    q, k, v = (t.clone() for t in (q, k, v))      # out of inference mode
+    g = torch.Generator(device=q.device).manual_seed(23)
+    do = torch.randn(tuple(q.shape[:3]) + (v.shape[3],), generator=g,
+                     device=q.device).bfloat16()
+    chk = _check_flash_backward(q, k, v, do, None, what)
+    o, lse = chk["o"], chk["lse"]
+    ms = time_ms(lambda: kops.flash_attention_bwd_cuda(q, k, v, o, do, lse),
+                 20, warmup=2)
+    plain_ms = time_ms(lambda: plain_backward(q, k, v, o, do, lse), 2,
+                       warmup=1)
+    # a band as wide as the sequence is the causal triangle
+    sdpa = _sdpa_backward_ms(q, k, v, do, q.shape[1])
+    bound_ms, bound_by, flops = _flash_bwd_bound(q, v, None)
+    return {"ms": ms, "plain_ms": plain_ms, "sdpa": sdpa,
+            "library_ms": sdpa["is_causal"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops,
+            "variant": backward_variant(q.dtype, q.shape[3], v.shape[3]),
+            "agreement": chk["agreement"],
+            "max_abs_err": chk["max_abs_err"],
+            "shape": (tuple(q.shape), tuple(v.shape))}
+
+
+def _tph_single_train(cfg, seed: int, batch: dict,
+                      pinned: list = None) -> dict:
+    """The single device's loss and every gradient of ``LM(cfg, seed)`` on
+    ``batch`` (host arrays), on the host; the model freed.  With
+    ``pinned`` (two ranks' routing records, each a list of their MoE
+    layers' top-k experts) each MoE layer runs as ``moe_ffn_ep_plain(n=2)``
+    -- two expert-parallel ranks' seq-split function, capacity per rank --
+    with the routing pinned to the ranks' (their experts, weighted by this
+    run's own probabilities), and ``flips`` counts the token-layer top-k
+    sets that differ unpinned."""
+    import torch
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.lm import LM
     lm = LM(cfg, seed=seed).requires_grad_(True)
     dev = lm.device
@@ -8815,12 +9000,34 @@ def _tph_single_train(cfg, seed: int, batch: dict) -> dict:
     enc = batch.get("enc_embeds")
     if enc is not None:
         enc = torch.from_numpy(enc).to(dev).to(cfg.torch_dtype)
-    loss = lm.loss(tokens, labels, None, enc)
-    loss.backward()
+    route, seen = moe_mod.route, []
+    if pinned is not None:
+        seq = [x for pair in zip(*pinned) for x in pair]
+
+        def replay(x2d, router, k):
+            probs, _, own = route(x2d, router, k)
+            tope = torch.from_numpy(seq[len(seen)]).to(x2d.device)
+            seen.append(own.cpu().numpy())
+            topw = probs.gather(-1, tope)
+            return probs, topw / topw.sum(-1, keepdim=True).clamp_min(
+                1e-9), tope
+        for blk in lm.blocks:
+            blk._ffn = (lambda h, b=blk:
+                        moe_mod.moe_ffn_ep_plain(b.moe, h, cfg, 2))
+        moe_mod.route = replay
+    try:
+        loss = lm.loss(tokens, labels, None, enc)
+        loss.backward()
+    finally:
+        moe_mod.route = route
     want = {"loss": loss.item(),
             "grads": {k: (p.grad if p.grad is not None
                           else torch.zeros_like(p)).detach().cpu()
                       for k, p in lm.named_parameters()}}
+    if pinned is not None:
+        want["flips"] = int(sum((np.sort(g, -1) != np.sort(w, -1)).any(-1)
+                                .sum() for g, w in zip(seen, seq)))
+        want["routed"] = int(sum(len(w) for w in seq))
     del lm, loss
     free_cuda()
     return want
@@ -8858,9 +9065,10 @@ def _tph_parent_a(seed: int, job: dict) -> dict:
 
 def _tph_parent_bc(seed: int, job: dict, ranks: list) -> dict:
     """Phase 22(b) and (c)'s single device: DeepSeek-V2-Lite's first MLA
-    layer on the job's inputs and the pinned MoE drive
-    (:func:`_tp_parent_moe`); whisper-large-v3's forward and decode
-    micro-steps; and its training step's loss and gradients."""
+    layer on the job's inputs, the pinned MoE drive
+    (:func:`_tp_parent_moe`) and the pinned training step's loss and
+    gradients (:func:`_tph_single_train`); whisper-large-v3's forward and
+    decode micro-steps; and its training step's loss and gradients."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.attention import mla_decode, mla_forward
@@ -8885,6 +9093,9 @@ def _tph_parent_bc(seed: int, job: dict, ranks: list) -> dict:
     want["moe"] = _tp_parent_moe(model, "deepseek", moe_job, ranks)
     del model, cache
     free_cuda()
+    want["ds_train"] = _tph_single_train(
+        cfg, seed, job["ds_train_batch"],
+        pinned=[r["deepseek"]["train"]["routes"] for r in ranks])
     wcfg = get_config("whisper-large-v3")
     model = LM(wcfg, seed=seed)
     toks = torch.from_numpy(job["w_tokens"]).cuda()
@@ -8948,10 +9159,16 @@ def _tph_grads_check(cfg, job: dict, part: str, world: int, want: dict,
         require(all((k in r["repeat"]) != first for k in copies),
                 f"{what}: rank {rank} counts a KV copy in the norm "
                 f"{'not ' if first else ''}as its group's first holder")
+        bad = sorted(k for k, d in r.get("whole", {}).items()
+                     if d != ranks[0]["whole"][k])
+        require(not bad, f"{what}: rank {rank}'s gradients or stepped "
+                f"parameters of the leaves whole on every rank differ from "
+                f"rank 0's at {bad[:4]}")
     for r in range(world):
         _tph_grad_file(job, part, r).unlink()
     return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rel[worst],
-            "leaves": len(rel), "copies": len(copies)}
+            "leaves": len(rel), "copies": len(copies),
+            "whole": len(ranks[0].get("whole", {})), "rel": rel}
 
 
 def _tph_counts(counts: list) -> collections.Counter:
@@ -9025,6 +9242,7 @@ def phase_tp_heads(seed: int, card: str) -> dict:
            .astype(np.int64),
            "ds_prompts": [rng.integers(0, ds_cfg.vocab_size, TPH_PROMPT)
                           .astype(np.int32) for _ in range(TPH_DS_REQUESTS)],
+           "ds_train_batch": train_batch(ds_cfg, TPH_DS_PREFILL[1]),
            "w_tokens": rng.integers(0, wcfg.vocab_size,
                                     (1, TPH_WHISPER_FRAMES)).astype(np.int64),
            "w_frames": rng.standard_normal(
@@ -9109,6 +9327,13 @@ def phase_tp_heads(seed: int, card: str) -> dict:
         2, want_bc["train"], [r["whisper"]["train"] for r in ranks_bc],
         "22(c) whisper-large-v3 training step")
     seconds["c checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_layers = dataclasses.replace(ds_cfg, num_layers=TPH_DS_LAYERS)
+    train_b = _tph_grads_check(
+        ds_layers, job, "b", 2, want_bc["ds_train"],
+        [r["deepseek"]["train"] for r in ranks_bc],
+        "22(b) DeepSeek-V2-Lite training step")
+    seconds["b checks"] = time.perf_counter() - t0
     d0, d1 = (r["deepseek"] for r in ranks_bc)
     moe = want_bc["moe"]
     require(d0["served"] == d1["served"] and
@@ -9152,6 +9377,73 @@ def phase_tp_heads(seed: int, card: str) -> dict:
           f"{moe['prefill_tokens']} prefill token-layer top-6 sets and "
           f"{moe['decode_flips']} of {moe['decode_tokens']} decode ones "
           f"would differ; {card}")
+    dt = want_bc["ds_train"]
+    for rank, r in enumerate((d0, d1)):
+        tr, c = r["train"], r["train"]["counts"]
+        require(c["gather"] > 0 and c["gather_bwd"] > 0 and
+                c["transpose"] > 0 and c["sls_variants"]["sparse"] > 0 and
+                c["flash_bwd"] > 0 and
+                c["bwd_variants"] == {"wgmma": 0, "simt": c["flash_bwd"]} and
+                c["bwd_instances"] == {"bfloat16 192/128 causal":
+                                       c["flash_bwd"]},
+                f"DeepSeek rank {rank}'s training step launched {c}: the "
+                f"un-dispatch gather, its backward (transposition, sparse "
+                f"sum) and the (192, 128) SIMT flash backward must all run")
+        print(f"[22 tp heads deepseek training rank {rank}] one TrainStep "
+              f"of 1 x {TPH_DS_PREFILL[1]} tokens at full width and "
+              f"{TPH_DS_LAYERS} layers (the seq-split expert path, its "
+              f"all-to-alls and their transposes; the whole leaves' "
+              f"gradients summed over the axis; AdamW.apply_): first "
+              f"step {_tph_step_txt(tr)}; the second, warm, on the same "
+              f"batch {_tph_step_txt(tr['warm'])}; launches (first step): "
+              f"block gather {c['gather']} (its backward {c['gather_bwd']}:"
+              f" gather_transpose {c['transpose']}, sls_sparse "
+              f"{c['sls_variants']['sparse']}), flash_attention "
+              f"{c['instances']}, flash_attention_bwd {c['bwd_instances']} "
+              f"(variants {c['bwd_variants']}); peak "
+              f"{tr['peak'] / 2**30:.2f} GiB; {card}")
+    ga = {kind: [r["train"]["gather_bwd"][kind] for r in (d0, d1)]
+          for kind in ("undispatch", "lookup")}
+    ga_txt = (f"the step's first un-dispatch gather's backward "
+              f"({ga['undispatch'][0]['ids']} ids into the rank's "
+              f"{ga['undispatch'][0]['rows']}-row buffer) and first masked "
+              f"lookup's ({ga['lookup'][0]['ids']} ids into the rank's "
+              f"{ga['lookup'][0]['rows']:,} vocab rows), "
+              f"{ga['lookup'][0]['dtype']}, on their captured cotangents, "
+              f"ember_transpose + the sparse ember_sls vs index_add_ in fp32: "
+              + "; ".join(f"{kind} rank {i} {_bf16_summary(a)}"
+                          for kind, pair in ga.items()
+                          for i, a in enumerate(pair)))
+    print(f"[22 tp heads deepseek training] loss on both ranks "
+          f"{d0['train']['loss']!r} vs one process's "
+          f"{dt['loss']!r} (each MoE layer moe_ffn_ep_plain(n=2), routing "
+          f"pinned to the ranks'; relative {train_b['loss_rel']:.3g}, limit "
+          f"{MP_LOSS_REL}); every gradient ({train_b['leaves']} leaves, the "
+          f"ranks' slices joined by the plan) within "
+          f"{train_b['worst_rel']:.3g} relative L2 (worst "
+          f"{train_b['worst']}, limit {TRAIN_GRAD_REL_L2}; router "
+          f"{train_b['rel']['blocks.0.moe.router']:.3g}, shared wi_gate "
+          f"{train_b['rel']['blocks.0.moe.shared.wi_gate']:.3g}, w_dkv "
+          f"{train_b['rel']['blocks.0.attn.w_dkv']:.3g}, experts' wi_gate "
+          f"{train_b['rel']['blocks.0.moe.wi_gate']:.3g}); the "
+          f"{train_b['whole']} leaves whole on both ranks bit-equal in "
+          f"gradient and stepped parameter; unpinned, {dt['flips']} of "
+          f"{dt['routed']} token-layer top-6 sets would differ; {ga_txt}; "
+          f"{card}")
+    mb = ranks_bc[0]["mla_bwd"]
+    (b_, s_, h_, d_), (_, _, _, dv_) = mb["shape"]
+    sdpa_txt = ", ".join(f"{n} {v:.4f} ms" if isinstance(v, float)
+                         else f"{n} {v}" for n, v in mb["sdpa"].items()
+                         if not n.endswith("_reps"))
+    print(f"[22 tp heads flash backward mla] a rank's DeepSeek MLA layer "
+          f"(B={b_}, S={s_}, H={h_}, q/k {d_}, v {dv_}, bf16, causal; the "
+          f"{mb['variant']} kernels): {mb['ms']:.4f} ms, plain backward "
+          f"{mb['plain_ms']:.4f} ms, scaled_dot_product_attention's "
+          f"backward alone on a kept graph ({sdpa_txt}), bound "
+          f"{mb['bound_ms']:.4f} ms ({mb['flops'] / 1e9:.3f} GFLOP, by "
+          f"{mb['bound_by']}; {100 * mb['bound_ms'] / mb['ms']:.2f}% of it);"
+          f" dq/dk/dv vs the plain backward {_bf16_summary(mb['agreement'])};"
+          f" {card}")
     w0, w1 = (r["whisper"] for r in ranks_bc)
     for key in ("hidden", "dec_logits"):
         require(np.array_equal(w0[key], w1[key]),
@@ -9190,7 +9482,8 @@ def phase_tp_heads(seed: int, card: str) -> dict:
           f"{train_c['worst']}); {card}")
     counts = [c for r in ranks_a for c in (r["counts"], r["train"]["counts"])]
     for r in ranks_bc:
-        counts += [r["deepseek"]["serve_counts"], r["whisper"]["counts"],
+        counts += [r["deepseek"]["serve_counts"],
+                   r["deepseek"]["train"]["counts"], r["whisper"]["counts"],
                    r["whisper"]["train"]["counts"]]
     launches = _tph_counts(counts)
     for r in ranks_bc:
@@ -9245,7 +9538,17 @@ def phase_tp_heads(seed: int, card: str) -> dict:
             "gather_launches": launches["gather"],
             "transpose_launches": launches["transpose"],
             "sparse_launches": launches["sparse"],
-            "flash_layers": times}
+            "flash_layers": times,
+            "mla_bwd": {k: mb[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by", "flops",
+                                           "max_abs_err")},
+            "ds_train": {"ms": [r["train"]["ms"] for r in (d0, d1)],
+                         "warm_ms": [r["train"]["warm"]["ms"]
+                                     for r in (d0, d1)],
+                         "gather_bwd": ga,
+                         "counts": [r["train"]["counts"] for r in (d0, d1)],
+                         "loss_rel": train_b["loss_rel"],
+                         "worst_rel": train_b["worst_rel"]}}
 
 
 def _free_after_tp_heads(before: int) -> None:
@@ -9590,6 +9893,8 @@ def main(argv=None) -> int:
     gather["launches"] += gather["tp_heads_launches"]
     bwd["tp_heads_launches"] = heads.pop("flash_bwd_launches")
     bwd["launches"] += bwd["tp_heads_launches"]
+    bwd["tp_heads_mla_bwd"] = heads.pop("mla_bwd")
+    bwd["tp_heads_deepseek_training"] = heads.pop("ds_train")
     for variant, n in heads.pop("bwd_variants").items():
         bwd["variants"][variant] += n
     bwd_instances = collections.Counter(bwd["instances"])

@@ -332,19 +332,61 @@ class _AxisSum(torch.autograd.Function):
 
 
 class _AxisEnter(torch.autograd.Function):
-    """Megatron's *f*: forward the identity, backward the all-reduce of the
-    cotangent (:meth:`ModelAxis.sum_grad`).  A replicated tensor entering
+    """Megatron's *f* for one tensor or several at once: forward the
+    identity, backward every cotangent summed over the axis in ONE fp32
+    all-reduce of them flattened together (:meth:`ModelAxis.sum_grad`),
+    each rounded to its tensor's dtype once.  A replicated tensor entering
     column-parallel products gets only this rank's partial gradient from
-    them."""
+    them; so does a leaf every rank holds whole but uses only in part (an
+    MoE layer's router and shared experts on the seq-split path, MLA's
+    ``w_dkv`` and ``w_kr``)."""
+
+    @staticmethod
+    def forward(ctx, axis, *xs):
+        ctx.axis = axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = ctx.axis.sum_grad(torch.cat([g.reshape(-1).float()
+                                            for g in gs]), torch.float32)
+        out, at = [], 0
+        for g in gs:
+            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+            at += g.numel()
+        return (None, *out)
+
+
+class _AxisAllToAll(torch.autograd.Function):
+    """Forward: the tiled all-to-all (block j to rank j).  Backward: the
+    same all-to-all of the cotangent -- it is its own transpose, since
+    block j of the result came from rank j, so its cotangent goes back to
+    rank j, into the block that rank sent."""
 
     @staticmethod
     def forward(ctx, axis, x):
         ctx.axis = axis
-        return x.view_as(x)
+        return axis.coll.all_to_all(x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.axis.sum_grad(g.float(), g.dtype)
+        return None, ctx.axis.coll.all_to_all(g)
+
+
+class _AxisMean(torch.autograd.Function):
+    """Forward: the mean of a () tensor over the axis (the reference's
+    ``pmean``) where each rank's value is its own share (the seq-split MoE
+    path's aux, of the rank's tokens).  Backward: ``g / size`` to the
+    rank's own value; what made it is summed over the axis by an entry."""
+
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.size = axis.size
+        return axis.coll.all_reduce(x.reshape(1), "add")[0] / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g / ctx.size
 
 
 class _AxisGather(torch.autograd.Function):
@@ -414,11 +456,15 @@ class ModelAxis:
     a live mesh their group is made by :func:`_joint_group`).  On a
     :class:`DryMesh` the axis is counted, not run (:class:`DryCollectives`).
 
-    :meth:`sum`, :meth:`enter`, :meth:`gather` and :meth:`scatter` are
-    differentiable where autograd records them (model-parallel training),
-    each backward through the same :class:`Collectives`: a sum's backward
-    is the identity, an entry's the all-reduce of the cotangent in fp32, a
-    gather's the rank's block, a scatter's the all-gather."""
+    :meth:`sum`, :meth:`enter` / :meth:`enter_all`, :meth:`gather`,
+    :meth:`scatter`, :meth:`all_to_all` and :meth:`mean` are
+    differentiable where autograd records them (model-parallel and
+    expert-parallel training), each backward through the same
+    :class:`Collectives`, so it runs alike staged or not and a dry mesh
+    counts it: a sum's backward is the identity, an entry's the
+    all-reduce of the cotangent in fp32, a gather's the rank's block, a
+    scatter's the all-gather, an all-to-all's the same all-to-all, a
+    mean's ``g / size``."""
 
     def __init__(self, mesh, axis, device):
         self.mesh, self.axis = mesh, axis
@@ -452,9 +498,16 @@ class ModelAxis:
         """``x`` itself; its gradient is summed over the axis (fp32
         partials, rounded to x's dtype once).  Put once where a replicated
         tensor enters this rank's column-parallel products."""
-        if _tracked(x):
-            return _AxisEnter.apply(self, x)
-        return x
+        return self.enter_all((x,))[0]
+
+    def enter_all(self, xs) -> tuple:
+        """:meth:`enter` for the tensors ``xs`` at once: their gradients
+        summed over the axis in one fp32 all-reduce (the tensors
+        themselves where autograd records none of them)."""
+        xs = tuple(xs)
+        if any(_tracked(x) for x in xs):
+            return _AxisEnter.apply(self, *xs)
+        return xs
 
     def sum_grad(self, g32: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """An entry's backward: this rank's fp32 partial gradient summed
@@ -463,7 +516,9 @@ class ModelAxis:
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a () tensor over the axis (the reference's
-        ``pmean``)."""
+        ``pmean``); backward ``g / size`` (:class:`_AxisMean`)."""
+        if _tracked(x):
+            return _AxisMean.apply(self, x)
         return self.coll.all_reduce(x.reshape(1), "add")[0] / self.size
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
@@ -489,7 +544,9 @@ class ModelAxis:
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (size, ...): block j to rank j; block j of the result came
-        from rank j."""
+        from rank j (backward: the same all-to-all of the cotangent)."""
+        if _tracked(x):
+            return _AxisAllToAll.apply(self, x)
         return self.coll.all_to_all(x)
 
 

@@ -16,10 +16,14 @@ attention materialised so its FLOPs are counted) and gives
 the ``roofline`` terms against the H100's constants.
 
 A cell the port cannot build is recorded ``status: "error"`` with the
-exception's text, as the reference records a failure: a block kind not yet
-split over a mesh, a head count that does not split over 16 (ROADMAP.md,
-Queue 1 item 6d), an MoE model's training over a mesh (item 6e).  Nothing
-here replicates, pads or shrinks a config to make a cell run.
+exception's text, as the reference records a failure: a recurrent block
+kind not yet split over a mesh (ROADMAP.md, Queue 1 item 6d-2), a hidden
+width, expert count or vocab that does not split evenly over the model
+axis.  Every attention kind splits (any head count, the head plan), and an
+MoE model's training cell counts the expert-parallel backward: the
+all-to-alls run again on the cotangents, and again under remat's
+recompute.  Nothing here replicates, pads or shrinks a config to make a
+cell run.
 
 Usage (on the CPU; nothing is allocated):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-3b \\

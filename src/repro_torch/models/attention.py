@@ -370,15 +370,21 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     of ``wq``, ``w_uk``, ``w_uv`` and its rows of ``wo``
     (:func:`repro_torch.launch.sharding.head_plan`, one group a head);
     ``w_dkv`` and ``w_kr`` are whole, so every rank computes the whole
-    latent; the output projection is summed over the axis."""
+    latent; the output projection is summed over the axis.  Only the
+    rank's heads read the latent, so under autograd ``w_dkv`` and ``w_kr``
+    enter the rank together: their gradients, the rank's heads' partials,
+    are summed over the axis in one fp32 all-reduce."""
     b, s, _ = x.shape
     h, hd, rd = mla_heads(p, cfg), cfg.hd, cfg.rope_head_dim
+    w_dkv, w_kr = p["w_dkv"], p["w_kr"]
+    if tp is not None:
+        w_dkv, w_kr = tp.enter_all((w_dkv, w_kr))
     q = (x @ p["wq"]).reshape(b, s, h, hd + rd)
     qn, qr = q[..., :hd], q[..., hd:]
-    c = x @ p["w_dkv"]                                 # (b,s,r) latent KV
+    c = x @ w_dkv                                      # (b,s,r) latent KV
     kn = (c @ p["w_uk"]).reshape(b, s, h, hd)
     v = (c @ p["w_uv"]).reshape(b, s, h, hd)
-    kr = (x @ p["w_kr"]).reshape(b, s, 1, rd)
+    kr = (x @ w_kr).reshape(b, s, 1, rd)
     cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
     qr = apply_rope(qr, cos, sin)
     kr = apply_rope(kr, cos, sin)

@@ -64,8 +64,14 @@ each row-parallel product has its backward written out
 cotangent through, and the loss is the vocab-parallel cross entropy.  A
 KV copy's gradient is the rank's partial: the trainer sums it over the
 copies (:meth:`~repro_torch.runtime.trainer.TrainStep.loss_and_grads`).
-The MoE kinds' training over a mesh is ROADMAP.md Queue 1 item 6e; the
-recurrent kinds over a mesh are item 6d-2.
+The MoE kinds train over a mesh too (expert-parallel training): the leaves
+every rank holds whole but uses only in part -- MLA's ``w_dkv`` and
+``w_kr``, and on the seq-split path the router and the shared experts with
+the FFN input -- enter the rank's share of the layer, their gradients
+summed over the axis in one fp32 all-reduce (:mod:`.moe`,
+:func:`.attention.mla_forward`), and the loss adds the MoE layers' aux
+meaned over the mesh.  The recurrent kinds over a mesh are ROADMAP.md
+Queue 1 item 6d-2.
 
 **The dry run's lowering options** (``ShardCtx.cost_mode`` and
 ``ShardCtx.remat``, the reference's): ``remat`` recomputes each block's
@@ -247,10 +253,8 @@ class DenseBlock(nn.Module):
         self._init_ffn(gen, cfg, dtype, device)
 
     #: the model axis (a :class:`~repro_torch.core.shard_plan.ModelAxis`)
-    #: the block's weights are split over, None on one device; and the
-    #: data axes an MoE layer averages its aux loss over
+    #: the block's weights are split over, None on one device
     tp = None
-    data_axes: tuple = ()
     #: the cost mode's materialised attention (``ShardCtx.cost_mode``)
     cost_mode: bool = False
 
@@ -269,7 +273,7 @@ class DenseBlock(nn.Module):
         return attn_decode(self.attn, h, self.cfg, cache, active=active,
                            tp=self.tp)
 
-    def _ffn(self, h: torch.Tensor, with_aux: bool = True) -> tuple:
+    def _ffn(self, h: torch.Tensor) -> tuple:
         return gated_mlp(self._enter(h), self.mlp, self.cfg.act,
                          self.tp), None
 
@@ -296,7 +300,7 @@ class DenseBlock(nn.Module):
         eps = self.cfg.norm_eps
         x = x + self._attend_decode(rms_norm(x, self.norm1, eps), cache,
                                     active)
-        h, _ = self._ffn(rms_norm(x, self.norm2, eps), with_aux=False)
+        h, _ = self._ffn(rms_norm(x, self.norm2, eps))
         return x + h
 
 
@@ -326,12 +330,15 @@ class MoeBlock(DenseBlock):
     def _init_ffn(self, gen, cfg, dtype, device) -> None:
         self.moe = ParamTree(moe_mod.init_moe(gen, cfg, dtype, device))
 
-    def _ffn(self, h: torch.Tensor, with_aux: bool = True) -> tuple:
+    def _ffn(self, h: torch.Tensor) -> tuple:
+        """The MoE FFN and the layer's local aux (the LM means the layers'
+        sum over the mesh once, :meth:`LM.forward`); expert parallel on a
+        rank, where the FFN input enters the path itself
+        (:func:`.moe.moe_ffn`)."""
         if self.tp is None:
             return moe_mod.moe_ffn(self.moe, h, self.cfg)
         return moe_mod.moe_ffn(self.moe, h, self.cfg, mesh=self.tp.mesh,
-                               ep_axis=self.tp.axis,
-                               data_axes=self.data_axes, reduce_aux=with_aux)
+                               ep_axis=self.tp.axis)
 
 
 class MlaBlock(MoeBlock):
@@ -625,14 +632,12 @@ class LM(nn.Module):
 
     def _place(self, blk: nn.Module, prefix: str) -> None:
         """Keep the rank's slice of each of ``blk``'s leaves (its
-        ``state_dict`` names under ``prefix``) and hand it the model axis,
-        the data axes and the cost mode."""
+        ``state_dict`` names under ``prefix``) and hand it the model axis
+        and the cost mode."""
         if self.tp is not None:
             for name, prm in blk.named_parameters():
                 prm.data = self._local(prm.data, f"{prefix}.{name}")
             blk.tp = self.tp
-            blk.data_axes = tuple(a for a in self.shard.data_axes
-                                  if a in self.shard.mesh.mesh_dim_names)
         blk.cost_mode = self.shard.cost_mode
 
     def _model_axis(self, kinds: tuple, dev: torch.device):
@@ -764,10 +769,18 @@ class LM(nn.Module):
         return {"enc_out": enc_out if self.tp is None
                 else self.tp.enter(enc_out)}
 
+    def _data_axes(self, data_axes: Optional[tuple]) -> tuple:
+        """``data_axes``, by default the :class:`ShardCtx`'s that the mesh
+        has."""
+        if data_axes is not None:
+            return tuple(data_axes)
+        return tuple(a for a in self.shard.data_axes
+                     if a in self.shard.mesh.mesh_dim_names)
+
     def forward(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None, *,
                 enc_embeds: Optional[torch.Tensor] = None,
-                with_aux: bool = False):
+                with_aux: bool = False, data_axes: Optional[tuple] = None):
         """tokens (B,S) int -> hidden states (B,S,D) after the final norm
         (the reference's ``forward(params, {"tokens": ...})[0]``).
 
@@ -783,7 +796,10 @@ class LM(nn.Module):
         reference).  With ``with_aux``, ``(hidden, aux)``: the sum
         of the MoE layers' load-balance losses, fp32 (0 for a dense stack),
         which the reference's ``forward`` returns beside the hidden states
-        for its loss."""
+        for its loss; over a mesh meaned over the model axis and
+        ``data_axes`` (:meth:`loss`'s) as the reference's layers ``pmean``
+        theirs, once for the sum of the layers
+        (:func:`.moe.mean_aux`)."""
         b, s = tokens.shape
         x = self._lookup(tokens)
         if self.cfg.modality == "vision-stub" and frontend_embeds is not None:
@@ -804,7 +820,13 @@ class LM(nn.Module):
             if a is not None:
                 aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return (x, aux) if with_aux else x
+        if not with_aux:
+            return x
+        if self.shard.mesh is not None and has_moe(self.cfg):
+            aux = moe_mod.mean_aux(aux, self.shard.mesh,
+                                   self.shard.model_axis,
+                                   self._data_axes(data_axes), s)
+        return x, aux
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              frontend_embeds: Optional[torch.Tensor] = None,
@@ -816,35 +838,32 @@ class LM(nn.Module):
         computes them), plus ``0.01 * aux``, the MoE load-balance loss.
         tokens, labels (B,S) int; a () fp32 tensor.
 
-        Over a mesh (every kind of :data:`TP_KINDS` but the MoE ones) this
-        rank passes its data block of the batch (the same on every rank of
-        the model axis): the sharded forward, then the vocab-parallel cross
-        entropy (:func:`~repro_torch.core.embedding_engine
-        .xent_vocab_parallel`) over the model axis, meaned over
-        ``data_axes`` -- the axes the batch was split over; by default the
-        :class:`ShardCtx`'s that the mesh has, ``()`` where every rank was
-        handed the whole batch.  The gradient a backward leaves is the
-        rank's own tokens' (the trainer means it over the data axes).  An
-        MoE model over a mesh raises: its expert-parallel backward is
-        ROADMAP.md Queue 1 item 6e."""
+        Over a mesh (every kind of :data:`TP_KINDS`) this rank passes its
+        data block of the batch (the same on every rank of the model
+        axis): the sharded forward, then the vocab-parallel cross entropy
+        (:func:`~repro_torch.core.embedding_engine.xent_vocab_parallel`)
+        over the model axis, meaned over ``data_axes`` -- the axes the
+        batch was split over; by default the :class:`ShardCtx`'s that the
+        mesh has, ``()`` where every rank was handed the whole batch --
+        and, for a model with MoE layers, ``0.01 * aux`` with the aux
+        meaned over the model axis and ``data_axes`` (expert-parallel
+        training: the backward of :func:`.moe.moe_ffn` over the mesh, the
+        module docstring of :mod:`.moe`).  The gradient a backward leaves
+        is the rank's own tokens' (the trainer means it over the data
+        axes)."""
         mesh = self.shard.mesh
         if mesh is None:
             x, aux = self.forward(tokens, frontend_embeds,
                                   enc_embeds=enc_embeds, with_aux=True)
             return ee.xent_vocab_parallel(x, self.embed, labels) + \
                 0.01 * aux
-        if has_moe(self.cfg) and max(mesh.shape) > 1:
-            raise NotImplementedError(
-                f"the loss of {self.cfg.name} over a mesh (expert-parallel "
-                f"training: the backward of moe_ffn(mesh=)) is not ported yet "
-                f"(ROADMAP.md, Queue 1 item 6e)")
-        if data_axes is None:
-            data_axes = tuple(a for a in self.shard.data_axes
-                              if a in mesh.mesh_dim_names)
-        x = self.forward(tokens, frontend_embeds, enc_embeds=enc_embeds)
-        return ee.xent_vocab_parallel(x, self.embed, labels, mesh=mesh,
-                                      vocab_axis=self.shard.model_axis,
-                                      data_axes=tuple(data_axes))
+        data_axes = self._data_axes(data_axes)
+        x, aux = self.forward(tokens, frontend_embeds, enc_embeds=enc_embeds,
+                              with_aux=True, data_axes=data_axes)
+        ce = ee.xent_vocab_parallel(x, self.embed, labels, mesh=mesh,
+                                    vocab_axis=self.shard.model_axis,
+                                    data_axes=data_axes)
+        return ce + 0.01 * aux if has_moe(self.cfg) else ce
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,

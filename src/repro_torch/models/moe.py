@@ -35,9 +35,26 @@ back.
   rank's block of experts is all-gathered, the same values at half the
   bytes.
 
-``aux`` is averaged over the axis and the data axes, as the reference's
-``pmean``.  Every collective goes through the axis's
+``moe_ffn`` returns the rank's local ``aux``; :func:`mean_aux` averages it
+over the axis and the data axes, as the reference's ``pmean``.  Every
+collective goes through the axis's
 :class:`~repro_torch.core.shard_plan.Collectives`.
+
+**The backward** (expert-parallel training): each rank computes its share
+of every gradient, and one fp32 sum over the axis, rounded once, makes it
+whole -- nothing is summed twice.  The all-to-alls are their own
+transpose, and the gather of the output blocks transposes to the rank's
+block.  On the seq-split path the rank's share is its tokens: the FFN
+input, the router and the shared experts enter the path together
+(:meth:`~repro_torch.core.shard_plan.ModelAxis.enter_all`, one
+all-reduce of their gradients), and the axis mean passes ``g / n`` to the
+rank's own aux.  On the replicated-token path the rank's share is its
+experts: only the dispatch buffer's cotangent is summed (the buffer enters
+before the rank's slice of it); the router, the combine and the shared
+experts ran whole on every rank, so their gradients are whole already, and
+every rank's aux is the whole value already, so no mean runs over the
+axis.  Over the data axes the mean's backward is the identity (the
+trainer means the gradients there).
 
 Capacity-based dropping keeps every shape static, and nothing reads back to
 the host, so a layer can be captured in a CUDA graph (the served
@@ -231,7 +248,9 @@ def _replicated_token_ep(p, x2d: torch.Tensor, cfg: ModelConfig,
     aux = _aux(probs, tope, e)
     capacity = capacity_of(cfg, t)
     slot, keep = _slot_assignments(tope.reshape(-1), e, capacity)
-    buf = _dispatch(x2d, slot, keep, k, e * capacity)
+    # the rank runs only its experts' block: the buffer's gradient is
+    # summed over the axis (the rest of the layer ran whole on every rank)
+    buf = ep.enter(_dispatch(x2d, slot, keep, k, e * capacity))
     lo = ep.rank * e_loc * capacity
     my = buf[lo:lo + e_loc * capacity].view(e_loc, capacity, d)
     out_loc = _experts(p, my, act).reshape(e_loc * capacity, d)
@@ -240,38 +259,78 @@ def _replicated_token_ep(p, x2d: torch.Tensor, cfg: ModelConfig,
     return _with_shared(p, x2d, out, act), aux
 
 
+def splits_sequence(s: int, n: int) -> bool:
+    """Whether an expert-parallel axis of ``n`` takes a sequence of ``s``
+    on the seq-split path (the reference's ``seq_split``)."""
+    return s % n == 0 and s >= n
+
+
+#: the shared experts' leaves, which every rank holds whole
+SHARED = ("wi_gate", "wi_up", "wo")
+
+
+def _enter_whole(p, x: torch.Tensor, ep) -> tuple:
+    """The seq-split path's entry: ``x`` and the leaves every rank holds
+    whole (the router, the shared experts) as this rank's share of the
+    layer sees them -- their gradients, the rank's tokens' partials,
+    summed over the axis in one fp32 all-reduce -- and ``p`` with them in
+    place (the tensors themselves where autograd records nothing)."""
+    whole = [x, p["router"]]
+    if "shared" in p:
+        whole += [p["shared"][k] for k in SHARED]
+    got = ep.enter_all(whole)
+    q = {k: p[k] for k in ("wi_gate", "wi_up", "wo")}
+    q["router"] = got[1]
+    if "shared" in p:
+        q["shared"] = dict(zip(SHARED, got[2:]))
+    return got[0], q
+
+
+def mean_aux(aux: torch.Tensor, mesh, ep_axis: Optional[str],
+             data_axes: tuple, s: int) -> torch.Tensor:
+    """The local ``aux`` of a forward over ``s`` positions (what
+    :func:`moe_ffn` returns on a rank) as the reference's ``pmean``s leave
+    it: meaned over the expert-parallel axis on the seq-split path, whose
+    ranks' values are their own tokens' (backward ``g / n``; on the
+    replicated-token path every rank holds the whole value already), and
+    over ``data_axes`` wider than 1 (backward the identity), at a 1-wide
+    expert axis too."""
+    from ..core.shard_plan import data_mean, model_axis, shard_count
+    n = shard_count(mesh, ep_axis) if ep_axis is not None else 1
+    if n > 1 and splits_sequence(s, n):
+        aux = model_axis(mesh, ep_axis, aux.device).mean(aux)
+    return data_mean(aux, [model_axis(mesh, a, aux.device)
+                           for a in data_axes if shard_count(mesh, a) > 1])
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
-            ep_axis: Optional[str] = "model", data_axes: tuple = (), *,
-            reduce_aux: bool = True) -> tuple:
+            ep_axis: Optional[str] = "model") -> tuple:
     """x (B,S,D) -> ((B,S,D), aux).  With a ``mesh`` whose ``ep_axis`` is
     wider than 1: expert parallel (module docstring) -- seq-split where S
-    divides by the axis size, replicated tokens otherwise; ``aux``
-    averaged over the axis and ``data_axes`` (wider than 1), unless
-    ``reduce_aux`` is False (a decode step, which discards it: the local
-    value is returned and no collective runs for it)."""
+    divides by the axis size, replicated tokens otherwise -- and ``aux``
+    this rank's local value, which :func:`mean_aux` means over the mesh
+    (the LM does so once for the sum of its layers; a decode step
+    discards it)."""
     from ..core.shard_plan import model_axis, shard_count
     b, s, d = x.shape
     n = shard_count(mesh, ep_axis) if ep_axis is not None else 1
     if n == 1:
         out, aux = moe_ffn_local(p, x.reshape(-1, d), cfg)
-        return out.reshape(b, s, d), aux
-    if cfg.num_experts % n:
+        out = out.reshape(b, s, d)
+    elif cfg.num_experts % n:
         raise ValueError(f"{cfg.num_experts} experts do not split over "
                          f"the {ep_axis} axis of {n}")
-    ep = model_axis(mesh, ep_axis, x.device)
-    if s % n == 0 and s >= n:
-        blk = s // n
-        mine = x[:, ep.rank * blk:(ep.rank + 1) * blk].reshape(-1, d)
-        out, aux = moe_ffn_local(p, mine, cfg, ep=ep)
-        out = ep.gather(out.view(b, blk, d), 1)               # (B, S, D)
     else:
-        out, aux = _replicated_token_ep(p, x.reshape(-1, d), cfg, ep)
-        out = out.view(b, s, d)
-    if reduce_aux:
-        aux = ep.mean(aux)
-        for ax in data_axes:
-            if shard_count(mesh, ax) > 1:
-                aux = model_axis(mesh, ax, x.device).mean(aux)
+        ep = model_axis(mesh, ep_axis, x.device)
+        if splits_sequence(s, n):
+            blk = s // n
+            x, p = _enter_whole(p, x, ep)
+            mine = x[:, ep.rank * blk:(ep.rank + 1) * blk].reshape(-1, d)
+            out, aux = moe_ffn_local(p, mine, cfg, ep=ep)
+            out = ep.gather(out.view(b, blk, d), 1)           # (B, S, D)
+        else:
+            out, aux = _replicated_token_ep(p, x.reshape(-1, d), cfg, ep)
+            out = out.view(b, s, d)
     return out, aux
 
 

@@ -2413,6 +2413,93 @@ def test_axis_functions_and_row_parallel_backward_on_two_ranks(cuda):
     np.testing.assert_array_equal(res[0]["row"][0], res[1]["row"][0])
 
 
+def _ep_train_ranks(rank: int, world: int, arch: str, seq: int,
+                    device: str) -> dict:
+    """Two gloo ranks (sharing cuda:0, or on the CPU), each holding its
+    slices of the CPU-seeded single-device weights: the reduced fp32 MoE
+    config's ``TrainStep.loss_and_grads`` over a (1, 2) mesh -- the
+    expert-parallel backward (the all-to-alls' transposes on seq-split, the
+    dispatch buffer's sum on replicated tokens, the whole leaves' gradient
+    sums) -- with the launches it made."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import local_leaf
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import TrainStep
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(TRAIN_CONFIGS)[arch]
+    cfg = dataclasses.replace(get_reduced(arch), d_ff=256, **over)
+    mesh = make_host_mesh(world, device=device)
+    lm = LM(cfg, device=device, seed=4, shard=ShardCtx(mesh))
+    # the same weights on both devices: the CPU generator's, sliced
+    full = LM(cfg, device="cpu", seed=4).state_dict()
+    lm.load_state_dict({k: local_leaf(v, k, cfg, world, rank).to(device)
+                        for k, v in full.items()})
+    st = TrainStep(lm, 2, seq)
+    rng = np.random.default_rng(31)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    kops.reset_launch_counts()
+    loss, grads = st.loss_and_grads(st.init_state()["params"],
+                                    st.local_batch(batch))
+    return {"loss": float(loss),
+            "grads": {k: g.detach().cpu().numpy() for k, g in grads.items()},
+            "bwd": dict(kops.backward_launch_counts()),
+            "staged": lm.collective_stats["staged_bytes"]}
+
+
+#: the largest relative L2 of one leaf's gradient on one rank, two card
+#: ranks against two CPU ranks, in the reduced MoE loss's backward: above
+#: the sound runs' readings (at most 4.63e-6 over the four cases on an
+#: NVIDIA H100 80GB HBM3) and below the smallest a planted fault gives
+#: (1.91e-2: the aux term's gradient dropped, qwen3-moe on seq-split; one
+#: entry's sum over the axis skipped -- the router's, the shared
+#: experts', MLA's latent projections', the replicated-token dispatch
+#: buffer's -- reads 0.78-1.0)
+EP_GRAD_REL_L2 = 1e-4
+
+
+def _rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    """||got - want|| / ||want|| (0 where both are zero)."""
+    return float(np.linalg.norm(got - want) /
+                 max(float(np.linalg.norm(want)), 1e-30))
+
+
+@pytest.mark.parametrize("seq", [48, 47], ids=["seq_split", "replicated"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_reduced_moe_loss_backward_on_two_ranks_matches_the_cpu(cuda, arch,
+                                                                seq):
+    """The reduced MoE loss's backward over two gloo ranks on the card (the
+    flash backward, the un-dispatch gather's backward through the
+    transposition and the sparse sum, the staged all-to-alls and sums)
+    against the same two ranks on the CPU (the plain versions): the loss
+    at 1e-4 relative, every rank's gradient of every leaf within
+    EP_GRAD_REL_L2 relative L2 (printed: the largest); the card's ranks
+    made the kernels' backward launches and staged their collectives; no
+    expert leaf's gradient is zero."""
+    from repro_torch.launch.mesh import run_ranks
+    got = run_ranks(_ep_train_ranks, 2, (arch, seq, "cuda"), timeout_s=600)
+    want = run_ranks(_ep_train_ranks, 2, (arch, seq, "cpu"), timeout_s=600)
+    rel = {}
+    for r, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+        assert g["staged"] > 0 and w["staged"] == 0
+        assert g["bwd"]["flash_attention_bwd"] > 0
+        assert g["bwd"]["block_gather_bwd"] > 0 and \
+            g["bwd"]["gather_transpose"] > 0
+        for k, v in w["grads"].items():
+            rel[f"rank {r} {k}"] = _rel_l2(g["grads"][k], v)
+            if ".moe." in k:
+                assert np.any(g["grads"][k]), (r, k)
+    worst = max(rel, key=rel.get)
+    print(f"{arch} S={seq}: the largest gradient relative L2 "
+          f"{rel[worst]:.3g} ({worst})")
+    assert rel[worst] <= EP_GRAD_REL_L2, (worst, rel[worst])
+
+
 # ---------------------------------------------------------------------------
 # The dry run's lowering options on the card
 # ---------------------------------------------------------------------------

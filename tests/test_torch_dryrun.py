@@ -5,8 +5,9 @@ abstract mesh (``core.shard_plan.DryMesh``, ``launch.mesh
 
 Held: the meshes' shapes and a rank's place; the collectives' result
 bytes a dry step counts equal, rank for rank, those four gloo ranks count
-running the same training step (``launch.mesh.run_ranks``), and 0 on a
-1 x 1 mesh; the counter's FLOPs, bytes and memory on steps whose counts
+running the same training step (``launch.mesh.run_ranks``; a dense and an
+MoE config, whose backward's all-to-alls are counted), and 0 on a 1 x 1
+mesh; the counter's FLOPs, bytes and memory on steps whose counts
 are known; the kernel wrappers on meta (no launch, their bytes reported);
 ``remat`` lowering the counted peak while "dots" recomputes no product;
 ``run_cell``'s records (an ``ok`` cell with FLOPs and roofline terms, an
@@ -87,25 +88,53 @@ def _live_step(cfg, mesh, data_axes=("data",), remat="none"):
     return loss.detach(), params, step, (c1[0] - c0[0], c1[1] - c0[1])
 
 
+def _moe():
+    """Reduced qwen3-moe at a head width the flash kernel takes."""
+    return dataclasses.replace(get_reduced("qwen3-moe-235b-a22b"), **DENSE)
+
+
+class _AllToAlls:
+    """``Collectives.all_to_all`` counted (a dry mesh's too: its
+    collectives inherit it)."""
+
+    def __init__(self):
+        from repro_torch.core.shard_plan import Collectives
+        self.cls, self.fn, self.n = Collectives, Collectives.all_to_all, 0
+
+    def __enter__(self):
+        def counted(coll, x):
+            self.n += 1
+            return self.fn(coll, x)
+        self.cls.all_to_all = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.all_to_all = self.fn
+
+
 def _live_rank(rank: int, world: int) -> dict:
-    """The four live ranks: on {data 2, model 2} one step under each
-    remat (the collectives counted, the bits of "none" kept); on {pod 2,
-    data 2, model 1} one step with the batch and ZeRO-1 split over pod
-    and data jointly, beside the same step on one process."""
+    """The four live ranks: on {data 2, model 2} one step of the dense and
+    of the MoE config under each remat (the collectives and the MoE's
+    all-to-alls counted, the bits of "none" kept); on {pod 2, data 2,
+    model 1} one step with the batch and ZeRO-1 split over pod and data
+    jointly, beside the same step on one process."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.launch.mesh import make_host_mesh
     cfg = _dense()
     out = {}
     mesh = make_host_mesh(2, device="cpu")
-    base = None
-    for remat in ("none", "dots", "full"):
-        loss, params, _, coll = _live_step(cfg, mesh, remat=remat)
-        base = base or (loss, params)
-        out[remat] = {
-            "coll": coll, "finite": bool(torch.isfinite(loss)),
-            "bit_equal": torch.equal(loss, base[0]) and all(
-                torch.equal(p, base[1][k]) for k, p in params.items())}
+    for key, c in (("", cfg), ("moe ", _moe())):
+        base = None
+        for remat in ("none", "dots", "full"):
+            with _AllToAlls() as a2a:
+                loss, params, _, coll = _live_step(c, mesh, remat=remat)
+            base = base or (loss, params)
+            out[key + remat] = {
+                "coll": coll, "finite": bool(torch.isfinite(loss)),
+                "all_to_all": a2a.n,
+                "bit_equal": torch.equal(loss, base[0]) and all(
+                    torch.equal(p, base[1][k]) for k, p in params.items())}
     joint = DeviceMesh("cpu", torch.arange(4).reshape(2, 2, 1),
                        mesh_dim_names=("pod", "data", "model"))
     loss, params, step, coll = _live_step(cfg, joint, ("pod", "data"))
@@ -152,6 +181,26 @@ def test_dry_collective_bytes_equal_four_gloo_ranks(live4, remat):
             assert mine["coll"] == got["none"]["coll"], rank
         if remat == "full":
             assert mine["coll"][0] > got["none"]["coll"][0], rank
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_a_moe_train_step_counts_the_backwards_all_to_alls(live4, remat):
+    """A reduced MoE training step on a {data 2, model 2} mesh (the
+    seq-split expert path): the dry run counts what the four live ranks
+    make, its all-to-alls included -- two a layer forward, their two
+    transposes in the backward, and under remat the forward's two again
+    in the recompute; every remat leaves the step's bits as "none"
+    makes them."""
+    cfg = _moe()
+    per_layer = 4 if remat == "none" else 6
+    for rank, got in enumerate(live4):
+        mine = got[f"moe {remat}"]
+        assert mine["finite"] and mine["bit_equal"], rank
+        with _AllToAlls() as a2a:
+            dry, _ = _dry_train(cfg, {"data": 2, "model": 2}, rank, remat)
+        assert a2a.n == mine["all_to_all"] == per_layer * cfg.num_layers
+        assert dry["collective_bytes"] == mine["coll"][0] > 0, rank
+        assert dry["collectives"] == mine["coll"][1], rank
 
 
 def test_a_one_by_one_mesh_makes_no_collective():
@@ -307,6 +356,33 @@ def test_run_cell_records_and_the_report(out_dir, monkeypatch):
     dryrun.run_cell("chatglm3-6b", "train_4k", "multipod", overrides=small)
     (est,) = report.build_rows("multipod")
     assert not est["cost_counted"] and "(est)" in report.markdown([est])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "deepseek-v2-lite-16b"])
+def test_run_cell_records_an_moe_training_cell_ok(out_dir, monkeypatch,
+                                                  arch):
+    """The MoE kinds' training cell (expert-parallel training) on a
+    {data 2, model 2} mesh standing in for the production one is ``ok``:
+    FLOPs, memory and the collectives, the backward's all-to-alls among
+    them."""
+    monkeypatch.setattr(dryrun, "make_production_mesh",
+                        lambda multi_pod=False: DryMesh({"data": 2,
+                                                         "model": 2}))
+    over = dict(DENSE, num_heads=2, head_dim=128, kv_lora_rank=32,
+                rope_head_dim=64) if arch == "deepseek-v2-lite-16b" \
+        else DENSE
+    small = dataclasses.asdict(dataclasses.replace(get_reduced(arch),
+                                                   **over))
+    with _AllToAlls() as a2a:
+        rec = dryrun.run_cell(arch, "train_4k", "single", overrides=small,
+                              do_cost=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["flops_step"] > 0 and rec["collective_bytes"] > 0
+    assert rec["memory"]["argument_size_in_bytes"] > 0
+    # remat "dots": each layer's two all-to-alls, their transposes and
+    # the recompute's two
+    assert a2a.n == 6 * get_reduced(arch).num_layers
 
 
 #: the decode_32k cell of every full-width config on the (16, 16) mesh:
