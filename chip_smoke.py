@@ -396,9 +396,21 @@ Phases, one line each (a failed check raises and the run exits non-zero):
    two ranks: the 1 x TPH_WHISPER_FRAMES encoder + decoder forward and
    decode micro-steps with the encoder context against the single
    device's, and one training step at TPH_WHISPER_TRAIN_LAYERS + the same
-   encoder layers held as (a)'s.  Rank 0 times the flash layer at each
+   encoder layers held as (a)'s; (d) zamba2-7b at full width and
+   TPH_ZAMBA_LAYERS layers over the same two ranks (16 of its 32 SSM
+   heads and 16 of its 32 attention heads a rank, each mamba layer's B | C
+   columns copied): an fp32 1 x TPH_ZAMBA_F32_SEQ prefill whose every
+   layer, fed one process's input to it, is within TPH_ZAMBA_F32_REL_L2 of
+   one process's (the run-through within TPH_ZAMBA_F32_FREE_REL_L2, its
+   reading after each layer printed beside the chaos floor), an fp32
+   served drive whose tokens equal one process's, a timed bf16 TPH_PREFILL
+   prefill (its distance from one process printed), and the rank's f32
+   and bf16 flash calls at (112, 112) held to the plain version, their
+   launches and the masked lookup's block gather (with its grouping pass)
+   required.  Rank 0 times the flash layer at each
    new shape (chatglm3-6b's 8 over 1 KV head, MLA's (192, 128) on 8 heads,
-   whisper's encoder (64, 64) on 10, not causal) beside the plain version,
+   whisper's encoder (64, 64) on 10, not causal, zamba2's (112, 112) on
+   16) beside the plain version,
    the bound and SDPA, and MLA's (192, 128) SIMT flash backward at the
    rank's shape beside its bound, the plain backward and SDPA's.  Printed per rank: step and forward ms, collectives
    and staged MB, peak GiB, beside the card; and the ``[22 tp heads
@@ -569,6 +581,26 @@ TPH_DS_LAYERS, TPH_DS_PREFILL, TPH_DS_DECODE = 4, (1, 256), 4
 TPH_DS_REQUESTS, TPH_DS_NEW_TOKENS = 2, 8
 TPH_WHISPER_FRAMES, TPH_WHISPER_DECODE = 1500, 2
 TPH_WHISPER_TRAIN_LAYERS, TPH_WHISPER_TRAIN_SEQ = 4, 256
+# (d) zamba2-7b at full width over the same two ranks (16 of its 32 SSM
+# heads and 16 of its 32 attention heads a rank, B | C copied): two
+# super-blocks, so 10 mamba layers and 2 occurrences of the shared set
+TPH_ZAMBA_LAYERS = 12
+TPH_ZAMBA_F32_SEQ = 512
+#: each layer of the fp32 prefill over two ranks against one process on
+#: the same weights (TF32 off), fed the one process's input to that layer,
+#: and the final norm and logits fed its last layer's output
+TPH_ZAMBA_F32_REL_L2 = 1e-4
+#: the fp32 prefill run through, ranks against one process: a layer's
+#: ~4e-6 arithmetic gap (the rank's GEMM shapes) grows x1.4-2.8 a mamba
+#: layer at random init, as the reference's own forward-vs-decode gap
+#: does (ROADMAP.md, caveat (g)); a fault reads O(0.1-1)
+TPH_ZAMBA_F32_FREE_REL_L2 = 1e-2
+#: the chaos floor: one process's fp32 prefill against itself with the
+#: first layer's input perturbed by this relative amount
+TPH_ZAMBA_FLOOR_EPS = 1e-6
+#: the f32 flash kernel against its plain version on the captured q, k, v
+#: (the kernel tests' f32 bound, elementwise)
+TPH_FLASH_F32_TOL = 2e-5
 # written before the first run on the card (PERF.md, the head plan's
 # findings): four ranks stage 56 all-reduces of the prefill's 16 MB fp32
 # partials through the host; a rank's layer holds 8 query heads over one
@@ -616,6 +648,24 @@ TPH_PREDICTED.update({
     "DeepSeek un-dispatch gather backward vs index_add_": "bit-equal",
     "DeepSeek masked lookup backward vs index_add_": "<= 1 % of elements "
                                                      "differing"})
+# written before the first run of (d) on the card (PERF.md, the zamba2
+# over a mesh findings): a rank holds ~2.2 GB of fp32 weights (half of the
+# 4.4 GB), then ~1.1 GB in bf16; a bf16 2 x 512 prefill stages 15
+# all-reduces (the embed lookup, 10 mamba out-projections, 2 x 2 of the
+# shared attention and MLP) of ~14.7 MB fp32 partials, ~220 MB, at the
+# ~1.6 ms a MB of the staged collectives; the rank's GEMMs are ~1 TFLOP
+TPH_PREDICTED.update({
+    "zamba2 12-layer fp32 1x512 prefill vs one process": "~1e-6-1e-5 "
+                                                         "relative L2",
+    "zamba2 12-layer bf16 2x512 prefill over 2": "~300-600 ms, > 80 % in "
+                                                  "15 staged collectives "
+                                                  "(~220 MB)",
+    "zamba2 bf16 prefill vs one process": "~1e-2 relative L2",
+    "zamba2 fp32 served tokens": "equal to one process's",
+    "zamba2 peak a rank": "~3-5 GiB",
+    "flash, zamba2 rank layer (2x512, 16 heads, 112/112), bf16":
+        "~0.03-0.08 ms",
+    "zamba2 part of phase 22": "~25-40 s"})
 DLRM_BATCH = 2048
 DLRM_ROW_CAP = 10_000_000
 
@@ -8736,15 +8786,17 @@ def _tph_rank_a(rank: int, world: int, job: dict) -> dict:
 
 
 def _tph_rank_bc(rank: int, world: int, job: dict) -> dict:
-    """Phase 22(b) and (c) on one of two ranks: DeepSeek-V2-Lite at full
+    """Phase 22(b), (c) and (d) on one of two ranks: DeepSeek-V2-Lite at full
     width and TPH_DS_LAYERS layers (its first MLA layer's forward and a
     decode micro-step on the job's inputs, then phase 18's MoE drive --
     the seq-split prefill and the replicated-token micro-steps, routing
     recorded -- and a served drive), then whisper-large-v3 at full width
     and depth (the 1 x TPH_WHISPER_FRAMES forward, decode micro-steps with
     the encoder context) and one training step at
-    TPH_WHISPER_TRAIN_LAYERS encoder and decoder layers; rank 0 then times
-    the MLA and the whisper encoder flash layers at the rank's shapes."""
+    TPH_WHISPER_TRAIN_LAYERS encoder and decoder layers, then zamba2-7b at
+    full width (:func:`_tph_zamba`); rank 0 then times the MLA, the whisper
+    encoder and the zamba2 shared attention flash layers at the rank's
+    shapes."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -8865,20 +8917,25 @@ def _tph_rank_bc(rank: int, world: int, job: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     marks.append(("whisper", time.time()))
+    # (d) zamba2-7b
+    zb, zamba_layer = _tph_zamba(rank, shard, job)
+    marks.append(("zamba2", time.time()))
     dist.barrier()
-    out = {"deepseek": ds, "whisper": wh, "marks": marks,
+    out = {"deepseek": ds, "whisper": wh, "zamba2": zb, "marks": marks,
            "moe_counts": counts}
     if rank == 0:
         for key, (q, k, v, kw), what in (
                 ("mla_layer", mla_layer, "a rank's DeepSeek MLA layer (8 "
                  "heads, q/k 192, v 128)"),
                 ("enc_layer", enc_layer, "a rank's whisper encoder layer "
-                 "(10 heads, not causal)")):
+                 "(10 heads, not causal)"),
+                ("zamba_layer", zamba_layer, "a rank's zamba2 shared "
+                 "attention layer (16 heads of 112)")):
             out[key] = _flash_layer(q, k, v, kw, what)
             out[f"{key}_shape"] = (tuple(q.shape), tuple(k.shape))
         out["mla_bwd"] = _tph_flash_bwd(*mla_layer[:3], "a rank's DeepSeek "
                                         "MLA layer's flash backward")
-    del mla_layer, enc_layer, q, k, v
+    del mla_layer, enc_layer, zamba_layer, q, k, v
     dist.barrier()
     out["marks"].append(("timed", time.time()))
     return out
@@ -9029,6 +9086,216 @@ def _tph_single_train(cfg, seed: int, batch: dict,
                                 .sum() for g, w in zip(seen, seq)))
         want["routed"] = int(sum(len(w) for w in seq))
     del lm, loss
+    free_cuda()
+    return want
+
+
+def _tph_zamba_cfg(dtype: str = "bfloat16"):
+    """zamba2-7b at full width and TPH_ZAMBA_LAYERS layers in ``dtype``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2-7b"),
+                               num_layers=TPH_ZAMBA_LAYERS, dtype=dtype)
+
+
+def _tph_zamba_fp32(model, tokens) -> dict:
+    """``model``'s fp32 forward over ``tokens``: every layer's output
+    hidden states (host), the last position's hidden state after the final
+    norm and its logits over the whole vocab (a rank's vocab slice
+    all-gathered over the model axis)."""
+    import torch
+    from repro_torch.core import embedding_engine as ee
+    layers = []
+    hooks = [b.register_forward_hook(
+        lambda m, a, o: layers.append(o[0].float().cpu()))
+        for b in model.blocks]
+    try:
+        with torch.inference_mode():
+            h = model.forward(tokens)
+            lg = ee.logits(h[:, -1:], model.embed)
+            if model.tp is not None:
+                lg = model.tp.gather(lg, lg.dim() - 1)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return {"layers": layers, "last": h[:, -1:].float().cpu(),
+            "logits": lg[..., :model.cfg.vocab_size].float().cpu()}
+
+
+def _tph_zamba_forced(lm, path: str) -> dict:
+    """Each layer of the rank's fp32 model fed the one process's input to
+    that layer (``path``, :func:`_tph_parent_zamba`'s), its output's
+    relative L2 to the one process's; and the final norm and logits fed
+    the one process's last layer output."""
+    import torch
+    from repro_torch.core import embedding_engine as ee
+    from repro_torch.models.common import rms_norm
+    want = torch.load(path)
+    rel = []
+    with torch.inference_mode():
+        x = want["inputs"][0]
+        dev = lm.device
+        pos = torch.arange(x.shape[1], dtype=torch.float32,
+                           device=dev)[None].expand(x.shape[0], -1)
+        ctx = lm._shared_ctx()
+        for blk, x, y in zip(lm.blocks, want["inputs"], want["outputs"]):
+            got, _ = blk(x.to(dev), pos, ctx)
+            rel.append(_rel(got.cpu(), y))
+        h = rms_norm(want["last_layer"].to(dev), lm.final_norm,
+                     lm.cfg.norm_eps)[:, -1:]
+        lg = lm.tp.gather(ee.logits(h, lm.embed), 2)
+    return {"layers": rel,
+            "head": lg[..., :lm.cfg.vocab_size].float().cpu().numpy()}
+
+
+def _tph_served(lm, prompts, new_tokens: int) -> tuple:
+    """A served drive of ``prompts`` through ``DecodeServer`` (no
+    pipeline): ``(tokens, statuses, seconds)``."""
+    from repro_torch.runtime.server import DecodeServer, Request
+    srv = DecodeServer(lm, batch_slots=TPH_SLOTS, max_len=TPH_MAX_LEN,
+                       pipeline=False)
+    reqs = [Request(prompt=p, max_new_tokens=new_tokens) for p in prompts]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    return ([list(r.out) for r in reqs], [r.status for r in reqs],
+            time.perf_counter() - t0)
+
+
+def _tph_zamba_counts(kops) -> dict:
+    """``_mp_counts`` with the block gather's launches by variant."""
+    c = _mp_counts(kops)
+    c["gather_variants"] = dict(kops.variant_launch_counts()["block_gather"])
+    return c
+
+
+def _tph_zamba(rank: int, shard, job: dict) -> tuple:
+    """Phase 22(d) on one of two ranks: zamba2-7b at full width and
+    TPH_ZAMBA_LAYERS layers, 16 SSM heads and 16 attention heads a rank.
+    (a) in fp32: the counted 1 x TPH_ZAMBA_F32_SEQ forward (every layer's
+    output, the last hidden state and its logits kept for the parent's
+    comparison), its first flash call (the shared attention's f32 kernel
+    at (112, 112) on the rank's heads) held to the plain version; (c) the
+    counted fp32 served drive; (b) rebuilt in bf16: the counted, timed
+    TPH_PREFILL prefill (collectives, staged MB, peak) and its first flash
+    call (the bf16 wgmma forward at (112, 112)) held to the plain version.
+    Returns ``(results, the bf16 flash call's q, k, v, keywords)``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.agreement import check_bf16
+    from repro_torch.models.lm import LM
+    out = {"counts": {}}
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(_tph_zamba_cfg("float32"), seed=job["seed"], shard=shard)
+    out["held"] = {"w_in": tuple(lm.blocks[0].mamba["w_in"].shape),
+                   "ssm_heads": lm.blocks[0].mamba["A_log"].shape[0],
+                   "attn_heads": lm.shared["attn"]["wq"].shape[1] //
+                   lm.cfg.hd,
+                   "bytes": sum(p.numel() * p.element_size()
+                                for p in lm.parameters())}
+    toks = torch.from_numpy(job["z_tokens"]).cuda()
+    with torch.inference_mode():
+        lm.prefill(toks[:, :TPH_WARM_TOKENS])           # warm-up
+    kops.reset_launch_counts()
+    run = []
+    q, k, v, kw, fo = _tph_held_flash(
+        lm, lambda: run.append(_tph_zamba_fp32(lm, toks)))
+    out["counts"]["fp32 prefill"] = _tph_zamba_counts(kops)
+    out["forced"] = _tph_zamba_forced(lm, job["z_layers"])
+    plain = plain_attention(q, k, v, **kw)
+    out["f32_flash"] = {
+        "max_abs_err": float((fo - plain).abs().max()),
+        "close": bool(torch.allclose(fo, plain, rtol=TPH_FLASH_F32_TOL,
+                                     atol=TPH_FLASH_F32_TOL)),
+        "shape": (tuple(q.shape), tuple(k.shape))}
+    del q, k, v, fo, plain
+    res = run.pop()
+    out["fp32"] = {"last": res["last"].numpy(),
+                   "logits": res["logits"].numpy(),
+                   "layers": [t.numpy() for t in res["layers"]]
+                   if rank == 0 else None,
+                   "digest": _digest(torch.cat([res["last"].flatten(),
+                                                res["logits"].flatten()]))}
+    del res
+    kops.reset_launch_counts()
+    served, statuses, secs = _tph_served(lm, job["z_prompts"],
+                                         TPH_NEW_TOKENS)
+    out["counts"]["fp32 serving"] = _tph_zamba_counts(kops)
+    out.update(served=served, statuses=statuses, serve_s=secs)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(_tph_zamba_cfg(), seed=job["seed"], shard=shard)
+    toks = torch.from_numpy(job["z_tokens2"]).cuda()
+    with torch.inference_mode():
+        lm.prefill(toks[:, :TPH_WARM_TOKENS])           # warm-up
+    stats = lm.collective_stats
+    kops.reset_launch_counts()
+    c0 = dict(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = []
+    q, k, v, kw, fo = _tph_held_flash(lm, lambda: pre.append(
+        lm.prefill(toks)))
+    torch.cuda.synchronize()
+    out["bf16_ms"] = (time.perf_counter() - t0) * 1e3
+    out["counts"]["bf16 prefill"] = _tph_zamba_counts(kops)
+    out["bf16_coll"] = _tp_collectives(stats, c0)
+    out["bf16_last"] = pre.pop().float().cpu().numpy()
+    out["bf16_flash"] = check_bf16(fo, plain_attention(q, k, v, **kw),
+                                   f"rank {rank}'s zamba2-7b shared "
+                                   f"attention flash (bf16, 112/112) on its "
+                                   f"heads")
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del lm, fo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, (q, k, v, kw)
+
+
+def _tph_parent_zamba(seed: int, job: dict) -> dict:
+    """Phase 22(d)'s one process, before the ranks: zamba2-7b at
+    TPH_ZAMBA_LAYERS layers in fp32 -- the 1 x TPH_ZAMBA_F32_SEQ forward
+    (every layer's input and output, saved to ``job["z_layers"]`` for the
+    ranks' layer-by-layer check; the last hidden state, its logits), the
+    same forward with the first layer's input perturbed by
+    TPH_ZAMBA_FLOOR_EPS (the chaos floor) and the served drive -- then in
+    bf16 the TPH_PREFILL prefill, on the weights the ranks' slices are cut
+    from."""
+    import torch
+    from repro_torch.models.lm import LM
+    model = LM(_tph_zamba_cfg("float32"), seed=seed)
+    toks = torch.from_numpy(job["z_tokens"]).cuda()
+    first = []
+    hook = model.blocks[0].register_forward_pre_hook(
+        lambda m, a: first.append(a[0].float().cpu()))
+    want = _tph_zamba_fp32(model, toks)
+    hook.remove()
+    torch.save({"inputs": first + want["layers"][:-1],
+                "outputs": want["layers"],
+                "last_layer": want["layers"][-1]}, job["z_layers"])
+    g = torch.Generator(device="cuda").manual_seed(seed + 32)
+
+    def perturb(m, a):
+        x = a[0]
+        noise = torch.randn(x.shape, generator=g, device=x.device)
+        return (x + TPH_ZAMBA_FLOOR_EPS * x.norm() / noise.norm() * noise,
+                ) + a[1:]
+    hook = model.blocks[0].register_forward_pre_hook(perturb)
+    floor = _tph_zamba_fp32(model, toks)
+    hook.remove()
+    want["floor"] = {"last": _rel(floor["last"], want["last"]),
+                     "logits": _rel(floor["logits"], want["logits"]),
+                     "layers": [_rel(a, b) for a, b in
+                                zip(floor["layers"], want["layers"])]}
+    want["served"], want["statuses"], _ = _tph_served(
+        model, job["z_prompts"], TPH_NEW_TOKENS)
+    del model
+    free_cuda()
+    model = LM(_tph_zamba_cfg(), seed=seed)
+    want["bf16_last"] = model.prefill(torch.from_numpy(
+        job["z_tokens2"]).cuda()).float().cpu()
+    del model
     free_cuda()
     return want
 
@@ -9187,6 +9454,117 @@ def _tph_counts(counts: list) -> collections.Counter:
     return total
 
 
+def _tph_zamba_checks(ranks: list, want: dict, card: str) -> dict:
+    """Phase 22(d)'s checks and lines: each rank holds 16 SSM and 16
+    attention heads; each fp32 layer fed the one process's input, and the
+    final norm and logits fed its last layer's output, within
+    TPH_ZAMBA_F32_REL_L2 of one process's; the fp32 prefill run through
+    the same bits on both ranks and within TPH_ZAMBA_F32_FREE_REL_L2 (its
+    reading after every layer printed beside the chaos floor: one process
+    against itself with the first layer's input moved by
+    TPH_ZAMBA_FLOOR_EPS); the fp32 served tokens equal
+    one process's; the f32 and bf16 flash calls at (112, 112) held to the
+    plain version; each counted drive launched the flash kernel at its
+    instance and the masked lookup's block gather with its grouping pass.
+    The bf16 prefill's distance from one process is printed, not bounded
+    (bf16 is chaotic here: ROADMAP.md, reference caveat (g))."""
+    import torch
+    z = [r["zamba2"] for r in ranks]
+    cfg = _tph_zamba_cfg()
+    di, ns = 2 * cfg.d_model, cfg.ssm_state
+    require(z[0]["fp32"]["digest"] == z[1]["fp32"]["digest"],
+            "zamba2: the ranks' fp32 last hidden state and logits differ")
+    layers = [_rel(torch.from_numpy(g), w) for g, w in
+              zip(z[0]["fp32"]["layers"], want["layers"])]
+    floor = want["floor"]
+    out = {"layers_rel": layers, "floor": floor,
+           "forced": [r["forced"]["layers"] for r in z]}
+    for rank, r in enumerate(z):
+        h = r["held"]
+        require(h["ssm_heads"] == 16 and h["attn_heads"] == 16 and
+                h["w_in"] == (cfg.d_model, di + 2 * ns + 16),
+                f"zamba2 rank {rank} holds {h}: the plans give 16 SSM heads "
+                f"(w_in {di} + {2 * ns} + 16 columns) and 16 attention heads")
+        forced = r["forced"]["layers"] + [
+            _rel(torch.from_numpy(r["forced"]["head"]), want["logits"])]
+        require(max(forced) <= TPH_ZAMBA_F32_REL_L2,
+                f"zamba2 rank {rank}: fp32 layers fed one process's inputs "
+                f"(then the head) vs one process, relative L2 "
+                f"{[f'{x:.3g}' for x in forced]} > {TPH_ZAMBA_F32_REL_L2}")
+        rel = {"last": _rel(torch.from_numpy(r["fp32"]["last"]),
+                            want["last"]),
+               "logits": _rel(torch.from_numpy(r["fp32"]["logits"]),
+                              want["logits"])}
+        require(max(rel.values()) <= TPH_ZAMBA_F32_FREE_REL_L2,
+                f"zamba2 rank {rank}: the fp32 prefill vs one process "
+                f"{rel} > {TPH_ZAMBA_F32_FREE_REL_L2} (relative L2; by "
+                f"layer {[f'{x:.3g}' for x in layers]})")
+        require(r["served"] == want["served"] and
+                all(st == "ok" for st in r["statuses"]),
+                f"zamba2 rank {rank} served {r['served']} "
+                f"({r['statuses']}), one process {want['served']}")
+        f32 = r["f32_flash"]
+        require(f32["close"], f"zamba2 rank {rank}: the f32 flash at "
+                f"(112, 112) vs the plain version, max abs err "
+                f"{f32['max_abs_err']:.3g} > {TPH_FLASH_F32_TOL}")
+        c = r["counts"]
+        for part, inst in (("fp32 prefill", "float32 112/112 causal"),
+                           ("bf16 prefill", "bfloat16 112/112 causal")):
+            require(c[part]["instances"] == {inst: 2} and
+                    c[part]["gather_variants"]["bulk"] > 0 and
+                    c[part]["gather_variants"]["group"] > 0,
+                    f"zamba2 rank {rank}'s {part} launched {c[part]}: one "
+                    f"{inst} flash a shared layer and the masked lookup's "
+                    f"bulk gather with its grouping pass")
+        require(c["fp32 serving"]["gather"] > 0,
+                f"zamba2 rank {rank}'s served drive launched no gather")
+        brel = _rel(torch.from_numpy(r["bf16_last"]), want["bf16_last"])
+        require(np.isfinite(brel), f"zamba2 rank {rank}: bf16 prefill "
+                f"relative L2 {brel}")
+        bc = r["bf16_coll"]
+        out[rank] = {"fp32_rel": rel, "bf16_rel": brel, "ms": r["bf16_ms"],
+                     "coll": bc, "peak": r["peak"]}
+        print(f"[22 tp heads zamba2 rank {rank}] zamba2-7b at full width "
+              f"and {TPH_ZAMBA_LAYERS} of its 81 layers ({cfg.n_super} "
+              f"super-blocks: 10 mamba, 2 shared attention), 16 of its 32 "
+              f"SSM heads and 16 of its 32 attention heads a rank, w_in "
+              f"{h['w_in']} (its x, z, dt and the copied B | C), "
+              f"{h['bytes'] / 1e9:.3f} GB of fp32 weights held; fp32 1 x "
+              f"{TPH_ZAMBA_F32_SEQ} forward vs one process, each layer fed "
+              f"its input: <= {max(forced):.4g} relative L2 (tol "
+              f"{TPH_ZAMBA_F32_REL_L2}), run through: last hidden state "
+              f"{rel['last']:.4g}, last logits {rel['logits']:.4g} (tol "
+              f"{TPH_ZAMBA_F32_FREE_REL_L2}); f32 flash "
+              f"(112, 112) on its heads max abs err "
+              f"{f32['max_abs_err']:.3g} vs plain (tol {TPH_FLASH_F32_TOL}); "
+              f"fp32 served {TPH_REQUESTS} x {TPH_NEW_TOKENS} tokens in "
+              f"{r['serve_s']:.2f} s, equal to one process's; bf16 "
+              f"{TPH_PREFILL[0]} x {TPH_PREFILL[1]} prefill "
+              f"{r['bf16_ms']:.1f} ms (host clock, synchronised; "
+              f"{bc['collectives']} collectives, "
+              f"{bc['staged_bytes'] / 1e6:.1f} MB staged, "
+              f"{bc['collective_ms']:.1f} ms in them) vs one process "
+              f"{brel:.4g} relative L2 (printed, not bounded: caveat (g)); "
+              f"bf16 flash (112, 112) {_bf16_summary(r['bf16_flash'])}; "
+              f"launches {dict((k, v['instances']) for k, v in c.items())}, "
+              f"block gather by variant "
+              f"{dict((k, v['gather_variants']) for k, v in c.items())}; "
+              f"peak {r['peak'] / 2**30:.2f} GiB; {card}")
+    print(f"[22 tp heads zamba2 layers] the fp32 forward's hidden state "
+          f"after each layer, relative L2 -- rank 0 run through vs one "
+          f"process: " +
+          ", ".join(f"{i} {x:.3g}" for i, x in enumerate(layers)) +
+          "; rank 0 fed one process's input to each layer: " +
+          ", ".join(f"{i} {x:.3g}" for i, x in
+                    enumerate(z[0]["forced"]["layers"])) +
+          f"; the chaos floor (one process vs itself, the first layer's "
+          f"input moved by {TPH_ZAMBA_FLOOR_EPS:g} relative): " +
+          ", ".join(f"{i} {x:.3g}" for i, x in enumerate(floor["layers"])) +
+          f" (last hidden state {floor['last']:.3g}, logits "
+          f"{floor['logits']:.3g}); {card}")
+    return out
+
+
 def phase_tp_heads(seed: int, card: str) -> dict:
     """Phase 22: the attention kinds over any model axis, gloo ranks
     sharing the one card (spawned, a file store; every collective staged
@@ -9248,6 +9626,14 @@ def phase_tp_heads(seed: int, card: str) -> dict:
            "w_frames": rng.standard_normal(
                (1, TPH_WHISPER_FRAMES, wcfg.d_model)).astype(np.float32),
            "w_train_batch": w_batch}
+    zcfg = _tph_zamba_cfg()
+    job.update({"z_tokens": rng.integers(0, zcfg.vocab_size,
+                                         (1, TPH_ZAMBA_F32_SEQ)),
+                "z_tokens2": rng.integers(0, zcfg.vocab_size, TPH_PREFILL),
+                "z_prompts": [rng.integers(0, zcfg.vocab_size, TPH_PROMPT)
+                              .astype(np.int32)
+                              for _ in range(TPH_REQUESTS)],
+                "z_layers": str(ddir / "zamba2_layers.pt")})
     seconds = {}
     t0 = time.perf_counter()
     want_a = _tph_parent_a(seed, job)
@@ -9313,7 +9699,11 @@ def phase_tp_heads(seed: int, card: str) -> dict:
           f"{train_a['copies']} copied KV leaves' gradients and stepped "
           f"parameters bit-equal on each group's two ranks; the served "
           f"tokens equal on all four ranks; {card}")
-    # (b), (c): one spawn of two ranks
+    # (d)'s one process first: the ranks check their layers against it
+    t0 = time.perf_counter()
+    want_z = _tph_parent_zamba(seed, job)
+    seconds["d single"] = time.perf_counter() - t0
+    # (b), (c), (d): one spawn of two ranks
     t0, t_bc = time.perf_counter(), time.time()
     ranks_bc = run_ranks(_tph_rank_bc, 2, (job,), timeout_s=900)
     seconds["bc ranks"] = time.perf_counter() - t0
@@ -9480,11 +9870,13 @@ def phase_tp_heads(seed: int, card: str) -> dict:
           f"and the cross-attention's among them) within "
           f"{train_c['worst_rel']:.3g} relative L2 (worst "
           f"{train_c['worst']}); {card}")
+    zamba = _tph_zamba_checks(ranks_bc, want_z, card)
     counts = [c for r in ranks_a for c in (r["counts"], r["train"]["counts"])]
     for r in ranks_bc:
         counts += [r["deepseek"]["serve_counts"],
                    r["deepseek"]["train"]["counts"], r["whisper"]["counts"],
-                   r["whisper"]["train"]["counts"]]
+                   r["whisper"]["train"]["counts"],
+                   *r["zamba2"]["counts"].values()]
     launches = _tph_counts(counts)
     for r in ranks_bc:
         for c, inst in r["moe_counts"]:
@@ -9503,10 +9895,12 @@ def phase_tp_heads(seed: int, card: str) -> dict:
     for key, r, what in (("chatglm3", a0["flash_layer"], "chatglm3-6b"),
                          ("mla", ranks_bc[0]["mla_layer"], "DeepSeek MLA"),
                          ("whisper", ranks_bc[0]["enc_layer"],
-                          "whisper encoder")):
-        shape = (a0["flash_shape"] if key == "chatglm3" else
-                 ranks_bc[0]["mla_layer_shape" if key == "mla"
-                             else "enc_layer_shape"])
+                          "whisper encoder"),
+                         ("zamba2", ranks_bc[0]["zamba_layer"],
+                          "zamba2 shared attention")):
+        shape = (a0["flash_shape"] if key == "chatglm3" else ranks_bc[0][
+            {"mla": "mla", "whisper": "enc", "zamba2": "zamba"}[key] +
+            "_layer_shape"])
         times[key] = {k: r[k] for k in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by", "flops")}
         (b_, s_, h_, d_), kshape = shape
@@ -9529,6 +9923,16 @@ def phase_tp_heads(seed: int, card: str) -> dict:
         f"{k} {v:.1f}" for k, v in seconds.items()) + f" (rank 0 of (a) "
         f"from its spawn: {_marks(a0['marks'], t_a)}; rank 0 of (b, c): "
         f"{_marks(ranks_bc[0]['marks'], t_bc)}); {card}")
+    zc = [c for r in ranks_bc for c in r["zamba2"]["counts"].values()]
+    zgroups = sum(c["gather_variants"]["group"] for c in zc)
+    zinst = collections.Counter()
+    for c in zc:
+        zinst.update(c["instances"])
+    print(f"[22 tp heads zamba2 launches] the two ranks' counted zamba2 "
+          f"drives (fp32 prefill, fp32 serving, bf16 prefill): "
+          f"flash_attention {sum(c['flash'] for c in zc)} ({dict(zinst)}), "
+          f"block gather {sum(c['gather'] for c in zc)} (its grouping pass "
+          f"{zgroups}); {card}")
     shutil.rmtree(ddir, ignore_errors=True)
     return {"flash_launches": launches["flash"], "flash_instances": inst,
             "flash_bwd_launches": launches["flash_bwd"],
@@ -9542,6 +9946,15 @@ def phase_tp_heads(seed: int, card: str) -> dict:
             "mla_bwd": {k: mb[k] for k in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by", "flops",
                                            "max_abs_err")},
+            "zamba2": {"flash_launches": sum(c["flash"] for c in zc),
+                       "gather_launches": sum(c["gather"] for c in zc),
+                       "gather_group_launches": zgroups,
+                       "fp32_rel": [zamba[r]["fp32_rel"] for r in (0, 1)],
+                       "bf16_rel": [zamba[r]["bf16_rel"] for r in (0, 1)],
+                       "bf16_prefill_ms": [zamba[r]["ms"] for r in (0, 1)],
+                       "layers_rel": zamba["layers_rel"],
+                       "forced_rel": zamba["forced"],
+                       "floor": zamba["floor"]},
             "ds_train": {"ms": [r["train"]["ms"] for r in (d0, d1)],
                          "warm_ms": [r["train"]["warm"]["ms"]
                                      for r in (d0, d1)],
@@ -9889,6 +10302,7 @@ def main(argv=None) -> int:
     flash["launches"] += flash["tp_heads_launches"]
     instances.update(heads.pop("flash_instances"))
     flash["tp_heads_flash_layers"] = heads.pop("flash_layers")
+    flash["tp_heads_zamba2"] = heads.pop("zamba2")
     gather["tp_heads_launches"] = heads.pop("gather_launches")
     gather["launches"] += gather["tp_heads_launches"]
     bwd["tp_heads_launches"] = heads.pop("flash_bwd_launches")

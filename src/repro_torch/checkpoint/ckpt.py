@@ -36,9 +36,10 @@ shard's global offsets, as the reference's does; each rank writes its own
 ``shard_{rank:05d}.npz``; a leaf replicated over an axis is written once,
 by coordinate 0 on that axis (the reference's ``replica_id == 0``).  A
 leaf placed by the head plan carries its model-axis blocks
-(:class:`ShardedLeaf`'s ``blocks``): its offsets are the plan's, and a KV
-copy held by several ranks is written once, by the first rank of its
-group, and restored into every copy.  Rank
+(:class:`ShardedLeaf`'s ``blocks``): its offsets are the plan's, one
+member a segment (a mamba layer's ``w_in`` is four on a rank), and a copy
+held by several ranks (a KV copy, zamba2's B | C columns) is written
+once, by its first holder, and restored into every copy.  Rank
 0 writes the manifest once every rank's file is in place and publishes
 through the same commit protocol; every rank's save returns once the step
 is committed.  That barrier is the files themselves, not the process
@@ -79,11 +80,12 @@ class ShardedLeaf:
     numbered row-major over it) and ``index`` (``{axis: coordinate}`` of
     the rank).  ``blocks`` -- ``(axis, leaf blocks)``, a
     :class:`repro_torch.launch.sharding.LeafBlocks` over the mesh axis
-    ``axis`` -- places the leaf instead of ``spec``: its dim ``dim``
-    (``size`` in the global leaf) is cut at ``bounds[c]`` for the rank at
-    coordinate ``c`` of ``axis``, whole on every other axis, and written
-    by the ranks whose ``writers[c]`` holds (coordinate 0 on the other
-    axes).  A tree leaf (not a node) for the flattening below."""
+    ``axis`` -- places the leaf instead of ``spec``: the rank at
+    coordinate ``c`` of ``axis`` holds the segments ``segments[c]`` of its
+    dim ``dim`` (``size`` in the global leaf) joined in order, whole on
+    every other axis, and writes each segment it is the first holder of
+    as a member of its own (coordinate 0 on the other axes).  A tree leaf
+    (not a node) for the flattening below."""
 
     __slots__ = ("data", "spec", "sizes", "index", "blocks")
 
@@ -128,14 +130,21 @@ class ShardedLeaf:
         return tuple(n * self._split(ax, self.index)[0]
                      for n, ax in zip(shape, spec))
 
-    def bounds(self, shape: tuple, index: Optional[dict] = None) -> list:
-        """``[[lo, hi], ...]``: the block of the global ``shape`` that the
-        rank at ``index`` (this one's by default) holds."""
+    def pieces(self, shape: tuple, index: Optional[dict] = None) -> list:
+        """``[(bounds, writes)]``: the blocks of the global ``shape`` that
+        the rank at ``index`` (this one's by default) holds, in the order
+        its data joins them (one for a spec; one a segment for
+        ``blocks``, an empty one where the rank holds none), each with
+        ``[[lo, hi], ...]`` per dim and whether the rank writes it."""
         index = self.index if index is None else index
         if self.blocks is not None:
             axis, lb = self.blocks
-            out = [[0, n] for n in shape]
-            out[lb.dim] = list(lb.bounds[index[axis]])
+            first = all(c == 0 for a, c in index.items() if a != axis)
+            out = []
+            for lo, hi, w in lb.segments[index[axis]] or ((0, 0, False),):
+                rect = [[0, n] for n in shape]
+                rect[lb.dim] = [lo, hi]
+                out.append((rect, w and first))
             return out
         spec = self.spec + (None,) * (len(shape) - len(self.spec))
         out = []
@@ -146,18 +155,26 @@ class ShardedLeaf:
                                  f"{self._axes(ax)} ({parts})")
             step = n // parts
             out.append([coord * step, (coord + 1) * step])
-        return out
-
-    def writes(self, index: Optional[dict] = None) -> bool:
-        """Whether the rank at ``index`` writes this leaf: coordinate 0 on
-        every axis the spec does not split over (replica 0)."""
-        index = self.index if index is None else index
-        if self.blocks is not None:
-            axis, lb = self.blocks
-            return lb.writers[index[axis]] and all(
-                c == 0 for a, c in index.items() if a != axis)
         used = {a for ax in self.spec for a in self._axes(ax)}
-        return all(c == 0 for a, c in index.items() if a not in used)
+        return [(out, all(c == 0 for a, c in index.items()
+                          if a not in used))]
+
+    def written(self, shape: tuple, index: Optional[dict] = None) -> list:
+        """``[(member number, bounds, the block's data)]`` of the pieces
+        the rank at ``index`` (this one by default) writes; the data is
+        this rank's own (None for another rank's)."""
+        out, at = [], 0
+        dim = None if self.blocks is None else self.blocks[1].dim
+        for rect, w in self.pieces(shape, index):
+            n = 0 if dim is None else rect[dim][1] - rect[dim][0]
+            if w:
+                data = None
+                if index is None:
+                    data = self.data if dim is None else \
+                        self.data.narrow(dim, at, n)
+                out.append((len(out), rect, data))
+            at += n
+        return out
 
     def ranks(self) -> list:
         """``(rank, index)`` of every rank of the mesh, in rank order."""
@@ -329,7 +346,8 @@ def _write_manifest(tmp_dir: Path, manifest: dict) -> None:
 def _save_sharded(ckpt_dir: Path, step: int, leaves: list,
                   first: ShardedLeaf):
     """One rank's part of a sharded save: its members (the leaves it
-    writes, :meth:`ShardedLeaf.writes`; a plain leaf counts as replicated)
+    writes, :meth:`ShardedLeaf.written`, a member each; a plain leaf
+    counts as replicated)
     into ``shard_{rank:05d}.npz`` of the step's shared temporary
     directory, renamed into place once written.  Rank 0 then waits for
     every rank's file, writes the manifest (every writer's shard of every
@@ -349,18 +367,17 @@ def _save_sharded(ckpt_dir: Path, step: int, leaves: list,
         key = f"leaf_{i:05d}"
         dtype = _dtype_name(leaf)
         shape = leaf.global_shape()
-        if leaf.writes():
-            name = f"{key}_s{rank}_0"
-            arrays[name] = _to_numpy(leaf)
+        for j, _, data in leaf.written(shape):
+            name = f"{key}_s{rank}_{j}"
+            arrays[name] = _to_numpy(data)
             if dtype == "bfloat16":
                 bf16.add(name)
         manifest["leaves"].append(
             {"key": key, "path": path, "shape": list(shape),
              "dtype": dtype,
-             "shards": [{"name": f"{key}_s{r}_0",
-                         "index": leaf.bounds(shape, index)}
+             "shards": [{"name": f"{key}_s{r}_{j}", "index": rect}
                         for r, index in leaf.ranks()
-                        if leaf.writes(index)]})
+                        for j, rect, _ in leaf.written(shape, index)]})
     part = tmp_dir / f"shard_{rank:05d}.npz"
     _write_npz(part.with_suffix(".part"), arrays, bf16)
     part.with_suffix(".part").rename(part)
@@ -507,17 +524,30 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
 
 
 def _read_leaf(entry: dict, where: dict, place) -> torch.Tensor:
-    """One leaf of the manifest: whole (``place`` None) or the block of the
-    placement's rank, from the overlapping members."""
+    """One leaf of the manifest: whole (``place`` None) or the blocks of
+    the placement's rank joined as its data joins them, each from the
+    overlapping members."""
     shape, dtype = tuple(entry["shape"]), entry["dtype"]
-    want = ([[0, n] for n in shape] if place is None
-            else place.bounds(shape))
+    if place is None:
+        return _tensor(_read_block(entry, where, [[0, n] for n in shape]),
+                       dtype)
+    blocks = [_read_block(entry, where, rect)
+              for rect, _ in place.pieces(shape)]
+    if len(blocks) == 1:
+        return _tensor(blocks[0], dtype)
+    return _tensor(np.concatenate(blocks, axis=place.blocks[1].dim), dtype)
+
+
+def _read_block(entry: dict, where: dict, want: list) -> np.ndarray:
+    """The block ``want`` (``[[lo, hi], ...]`` per dim) of a manifest
+    leaf, from the members whose offsets overlap it (numpy; bf16 as
+    uint16)."""
+    shape, dtype = tuple(entry["shape"]), entry["dtype"]
     shards = entry["shards"]
     if len(shards) == 1 and shards[0]["index"] == want:
         block = _from_member(where[shards[0]["name"]][shards[0]["name"]],
                              dtype)
-        return _tensor(np.ascontiguousarray(block).reshape(
-            [b - a for a, b in want]), dtype)
+        return np.ascontiguousarray(block).reshape([b - a for a, b in want])
     block = np.zeros([b - a for a, b in want],
                      np.uint16 if dtype == "bfloat16" else np.dtype(dtype))
     for s in shards:
@@ -531,7 +561,7 @@ def _read_leaf(entry: dict, where: dict, place) -> torch.Tensor:
         dst = tuple(slice(a - c, b - c)
                     for a, b, (c, _) in zip(lo, hi, want))
         block[dst] = member.reshape([b - a for a, b in s["index"]])[src]
-    return _tensor(block, dtype)
+    return block
 
 
 class CheckpointManager:

@@ -41,6 +41,7 @@ import torch
 
 from .checkpoint.ckpt import ShardedLeaf
 from .core.executor import resolve_device
+from .launch.sharding import cache_blocks
 
 TABLE_KEYS = ("table", "x")
 
@@ -325,7 +326,7 @@ def _layers_of(tree: dict, cfg) -> list:
     return layers
 
 
-def caches_from_reference(tree: dict, cfg, device=None) -> list:
+def caches_from_reference(tree: dict, cfg, device=None, mesh=None) -> list:
     """The reference's decode caches (``LM.init_caches`` /
     ``decode_step`` output, leaves as numpy arrays or anything
     ``np.asarray`` takes) as the port's list of per-layer cache dicts on
@@ -338,27 +339,52 @@ def caches_from_reference(tree: dict, cfg, device=None) -> list:
     own dtype (no recurrent leaf is sequence-major); an ``xdec`` layer's
     ``self`` cache becomes the layer's (its
     ``enc_out`` is None there: the encoder's output is a decode context,
-    not cache state)."""
+    not cache state).
+
+    With a ``mesh`` (a ``DeviceMesh`` whose model axis is wider than 1)
+    each leaf is this rank's slice by :func:`repro_torch.launch.sharding
+    .cache_blocks` -- the caches ``LM(cfg, shard=ShardCtx(mesh))
+    .init_caches`` gives this rank, filled."""
+    from .models.lm import layer_kinds
     dev = resolve_device(device)
+    blocks = _cache_blocks_of(cfg, mesh)
     out = []
-    for layer in _layers_of(tree, cfg):
+    for kind, layer in zip(layer_kinds(cfg), _layers_of(tree, cfg)):
         layer = layer.get("self", layer)
         cache = {}
         for key, val in layer.items():
-            t = _to_tensor(np.asarray(val), dev)
+            t = _to_tensor(np.asarray(val), torch.device("cpu"))
             if key in _SEQ_MAJOR_LEAVES:
-                t = t.transpose(1, 2).contiguous()
-            cache[key] = t
+                t = t.transpose(1, 2)
+            if blocks is not None:
+                blk = cache_blocks(kind, key, cfg, blocks[0])
+                t = t if blk is None else blk.take(t, blocks[1])
+            cache[key] = t.to(dev).contiguous()
         out.append(cache)
     return out
+
+
+def _cache_blocks_of(cfg, mesh):
+    """(model-axis size, rank) of ``mesh`` where it splits a model, else
+    None."""
+    if mesh is None:
+        return None
+    from .launch.sharding import axis_sizes
+    n = axis_sizes(mesh).get("model", 1)
+    return None if n == 1 else (n, mesh.get_local_rank("model"))
 
 
 def caches_to_reference(caches: list, cfg) -> dict:
     """The port's per-layer caches as the reference's tree of numpy arrays
     (``{"scan": tuple over the pattern of dicts stacked over n_super,
     "rest": tuple}``; an ``xdec`` layer's as ``{"self": ..., "enc_out":
-    None}``), to compare leaf by leaf."""
+    None}``), to compare leaf by leaf.  ``caches`` may be the model-axis
+    ranks' caches instead (a list of them, rank order): each leaf is then
+    joined by :func:`repro_torch.launch.sharding.cache_blocks` first, a
+    copy taken once."""
     from .models.lm import layer_kinds
+    if caches and isinstance(caches[0], list):
+        caches = _caches_gathered(caches, cfg)
 
     def host(key, t):
         if key in _SEQ_MAJOR_LEAVES:
@@ -379,6 +405,19 @@ def caches_to_reference(caches: list, cfg) -> dict:
                                   for n in range(cfg.n_super)])
                      for i in range(len(pattern)))
     return {"scan": scan, "rest": tuple(layers[n_scan:])}
+
+
+def _caches_gathered(ranks: list, cfg) -> list:
+    """The full caches of ``cfg``'s LM from the model-axis ranks' ones (a
+    list of per-layer cache lists, rank order), each leaf joined by
+    :func:`repro_torch.launch.sharding.cache_blocks`."""
+    from .launch.sharding import join_leaf
+    from .models.lm import layer_kinds
+    n = len(ranks)
+    return [{key: join_leaf([r[li][key] for r in ranks],
+                            cache_blocks(kind, key, cfg, n))
+             for key in ranks[0][li]}
+            for li, kind in enumerate(layer_kinds(cfg))]
 
 
 def _stack_host(layers: list):

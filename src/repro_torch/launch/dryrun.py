@@ -16,13 +16,15 @@ attention materialised so its FLOPs are counted) and gives
 the ``roofline`` terms against the H100's constants.
 
 A cell the port cannot build is recorded ``status: "error"`` with the
-exception's text, as the reference records a failure: a recurrent block
-kind not yet split over a mesh (ROADMAP.md, Queue 1 item 6d-2), a hidden
-width, expert count or vocab that does not split evenly over the model
-axis.  Every attention kind splits (any head count, the head plan), and an
-MoE model's training cell counts the expert-parallel backward: the
-all-to-alls run again on the cotangents, and again under remat's
-recompute.  Nothing here replicates, pads or shrinks a config to make a
+exception's text, as the reference records a failure: xLSTM's block kinds,
+not yet split over a mesh (ROADMAP.md, Queue 1 item 6d-2 b), a training
+cell whose flash backward has no kernel at its head widths (zamba2's
+(112, 112): ROADMAP.md, K1), a hidden width, expert count or vocab that
+does not split evenly over the model axis.  Every attention kind splits
+(any head count, the head plan), zamba2's mamba layers by SSM head with
+their out-projection's all-reduce counted, and an MoE model's training
+cell counts the expert-parallel backward: the all-to-alls run again on
+the cotangents, and again under remat's recompute.  Nothing here replicates, pads or shrinks a config to make a
 cell run.
 
 Usage (on the CPU; nothing is allocated):

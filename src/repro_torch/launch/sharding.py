@@ -48,8 +48,23 @@ all.  ``wo``'s rows follow the query heads.  An MLA layer's query heads
 (``wq``, ``w_uk``, ``w_uv``, ``wo``) follow the plan with one KV group a
 head; its ``w_dkv`` and ``w_kr`` -- and so its latent cache -- are whole on
 every rank, and so are an MoE layer's shared experts (``moe.shared.*``),
-which :func:`repro_torch.models.moe.moe_ffn` runs replicated.  Every other
-leaf splits evenly by its spec.
+which :func:`repro_torch.models.moe.moe_ffn` runs replicated.  zamba2's
+shared attention set (``shared.attn.*``) follows the head plan like any
+attention, its ``shared.mlp.*`` the spec.  A mamba layer is split by SSM
+head (:func:`ssm_plan`: whole heads, contiguous, ``np.array_split``; a
+rank may hold none): its ``w_in`` columns ``x | z | B | C | dt`` are not
+one block on a rank but four segments -- the rank's x, its z, the B | C
+block that every rank copies (its one group of B and C serves every head)
+and its dt -- joined in that order, so a rank's in-projection keeps the
+reference's layout at its own widths; ``conv_w``'s columns and ``w_out``'s
+rows follow the rank's x, ``A_log`` / ``D`` / ``dt_bias`` its heads, and
+``norm_z`` (read nowhere) is whole.  The reference replicates ``conv_w``,
+``A_log``, ``D`` and ``dt_bias`` and lets GSPMD cut ``w_in`` evenly across
+the ``x | z | B | C | dt`` boundaries; the head split computes the same
+function with no collective of its own.  Every other leaf splits evenly
+by its spec.  A leaf's placement is a :class:`LeafBlocks`: per rank a list
+of segments, each with the rank that writes and counts it (a copy's first
+holder), so a leaf may be partly the rank's own and partly a copy.
 
 Not ported: ``to_shardings``, ``table_row_sharding``,
 ``leading_axis_sharding`` and ``replicated_sharding`` build
@@ -334,43 +349,119 @@ def head_plan(cfg, n: int, rank: int) -> HeadPlan:
     return HeadPlan((int(mine[0]), int(mine[-1]) + 1), (j, j + 1), group)
 
 
+def ssm_plan(cfg, n: int, rank: int) -> tuple:
+    """The SSM heads ``[h0, h1)`` that rank ``rank`` of a model axis of
+    ``n`` holds: contiguous whole heads by ``np.array_split`` (earlier ranks
+    take the larger blocks; exactly the even split where the axis divides
+    the heads), as :func:`head_plan` splits KV groups.  A rank may hold
+    none (``h0 == h1``)."""
+    heads = np.array_split(np.arange(cfg.num_heads), n)[rank]
+    if not len(heads):
+        return (0, 0)
+    return (int(heads[0]), int(heads[-1]) + 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafBlocks:
-    """How a leaf splits over a model axis: dim ``dim`` (``size`` long in
-    the full leaf) cut at ``bounds`` (one ``(lo, hi)`` per model rank, in
-    rank order; copies repeat a block, an empty one is ``lo == hi``), and
-    ``writers``, per rank whether it is the first holder of its block --
-    the rank that writes it to a checkpoint and counts it in the global
-    gradient norm."""
+    """How a leaf splits over a model axis: along dim ``dim`` (``size``
+    long in the full leaf) rank ``r`` holds the concatenation, in order, of
+    its segments ``segments[r]``, each ``(lo, hi, writer)``: the full
+    leaf's ``[lo, hi)`` and whether the rank is that segment's first holder
+    -- the rank that writes it to a checkpoint and counts it in the global
+    gradient norm.  A copy repeats a segment on several ranks; a rank that
+    holds nothing has no segment.  ``entered``: the model sums a copied
+    segment's gradient over the axis itself (it enters the rank's products
+    as a whole leaf does, :meth:`~repro_torch.core.shard_plan.ModelAxis
+    .enter_all`), so the trainer does not sum it again."""
     dim: int
     size: int
-    bounds: tuple
-    writers: tuple
+    segments: tuple
+    entered: bool = False
+
+    @classmethod
+    def of(cls, dim: int, size: int, spans, **kw) -> "LeafBlocks":
+        """Blocks from each rank's ``(lo, hi, writer)`` spans, the empty
+        ones dropped."""
+        return cls(dim, size, tuple(tuple((lo, hi, w) for lo, hi, w in segs
+                                          if hi > lo) for segs in spans),
+                   **kw)
 
     @property
     def copies(self) -> bool:
-        """Whether some block is held by more than one rank."""
-        held = [b for b in self.bounds if b[1] > b[0]]
-        return len(set(held)) < len(held)
+        """Whether some segment is held by more than one rank."""
+        return any(c for r in range(len(self.segments))
+                   for *_, c in self.local(r))
+
+    def local(self, rank: int) -> list:
+        """``[(local lo, lo, hi, writer, copied)]``: rank ``rank``'s
+        segments with their offsets in its slice and whether another rank
+        holds the same one."""
+        held = [(lo, hi) for segs in self.segments for lo, hi, _ in segs]
+        out, at = [], 0
+        for lo, hi, w in self.segments[rank]:
+            out.append((at, lo, hi, w, held.count((lo, hi)) > 1))
+            at += hi - lo
+        return out
+
+    def writes(self, rank: int) -> bool:
+        """Whether rank ``rank`` is the first holder of some segment."""
+        return any(w for _, _, w in self.segments[rank])
+
+    def take(self, t, rank: int):
+        """Rank ``rank``'s slice of the full leaf ``t``: one segment's view,
+        several segments joined (a new tensor), an empty view for none."""
+        segs = self.segments[rank]
+        if len(segs) <= 1:
+            lo, hi = (segs[0][:2] if segs else (0, 0))
+            return t.narrow(self.dim, lo, hi - lo)
+        import torch
+        return torch.cat([t.narrow(self.dim, lo, hi - lo)
+                          for lo, hi, _ in segs], dim=self.dim)
 
 
 #: the parents of the attention projections the head plan places
 ATTN = ("attn", "xattn")
 
 
+def _mamba_blocks(leaf: str, shape: tuple, cfg, n: int):
+    """A mamba layer's leaf split by :func:`ssm_plan` (module docstring):
+    ``w_in``'s columns ``x | z | B | C | dt`` as the rank's x, z, the B | C
+    block every rank copies (written by rank 0; its gradient summed in the
+    layer, ``entered``) and its dt; ``conv_w``'s columns and ``w_out``'s
+    rows by the rank's x; ``A_log``, ``D``, ``dt_bias`` by its heads;
+    ``norm_z`` whole."""
+    di, ns = 2 * cfg.d_model, cfg.ssm_state
+    per = di // cfg.num_heads
+    plans = [ssm_plan(cfg, n, r) for r in range(n)]
+    if leaf == "w_in":
+        dt = 2 * di + 2 * ns
+        return LeafBlocks.of(1, shape[1], [
+            ((h0 * per, h1 * per, True), (di + h0 * per, di + h1 * per, True),
+             (2 * di, dt, r == 0), (dt + h0, dt + h1, True))
+            for r, (h0, h1) in enumerate(plans)], entered=True)
+    dims = {"conv_w": (1, per), "w_out": (0, per), "A_log": (0, 1),
+            "D": (0, 1), "dt_bias": (0, 1)}
+    if leaf not in dims:
+        return None                              # norm_z
+    dim, step = dims[leaf]
+    return LeafBlocks.of(dim, shape[dim], [((h0 * step, h1 * step, True),)
+                                           for h0, h1 in plans])
+
+
 def leaf_blocks(name: str, shape: tuple, cfg, n: int) -> Optional[LeafBlocks]:
     """How parameter ``name`` (a ``state_dict`` key) of full ``shape``
     splits over a model axis of ``n`` ranks (module docstring): the
-    attention projections by :func:`head_plan`, an MLA layer's ``w_dkv``
-    and ``w_kr`` and an MoE layer's shared experts whole, every other leaf
-    evenly along the dim its spec splits over ``model``.  None where the
-    leaf is whole on every rank (or ``n`` is 1); a dim that does not split
-    evenly raises ``ValueError``."""
+    attention projections (the shared attention set's among them) by
+    :func:`head_plan`, a mamba layer's leaves by :func:`ssm_plan`, an MLA
+    layer's ``w_dkv`` and ``w_kr`` and an MoE layer's shared experts
+    whole, every other leaf evenly along the dim its spec splits over
+    ``model``.  None where the leaf is whole on every rank (or ``n`` is
+    1); a dim that does not split evenly raises ``ValueError``."""
     if n == 1:
         return None
     names = name.split(".")
     leaf = names[-1]
-    if len(names) > 1 and names[-2] in ATTN and "shared" not in names:
+    if len(names) > 1 and names[-2] in ATTN:
         if leaf not in ("wq", "wk", "wv", "wo", "w_uk", "w_uv"):
             return None                          # MLA's w_dkv, w_kr
         h, hkv = plan_heads(cfg)
@@ -378,11 +469,13 @@ def leaf_blocks(name: str, shape: tuple, cfg, n: int) -> Optional[LeafBlocks]:
         kv = leaf in ("wk", "wv")
         dim = 0 if leaf == "wo" else 1
         per = shape[dim] // (hkv if kv else h)
-        spans = [p.kv if kv else p.q for p in plans]
-        bounds = tuple((lo * per, hi * per) for lo, hi in spans)
-        writers = tuple(bool(p.group) and (p.group[0] == r if kv else True)
-                        for r, p in enumerate(plans))
-        return LeafBlocks(dim, shape[dim], bounds, writers)
+        return LeafBlocks.of(dim, shape[dim], [
+            ((lo * per, hi * per,
+              bool(p.group) and (p.group[0] == r if kv else True)),)
+            for r, p in enumerate(plans)
+            for lo, hi in [p.kv if kv else p.q]])
+    if len(names) > 1 and names[-2] == "mamba":
+        return _mamba_blocks(leaf, shape, cfg, n)
     if "moe" in names and "shared" in names:
         return None
     for dim, ax in enumerate(param_spec(name, len(shape))):
@@ -392,37 +485,63 @@ def leaf_blocks(name: str, shape: tuple, cfg, n: int) -> Optional[LeafBlocks]:
             raise ValueError(f"{name}: dim {dim} of {tuple(shape)} does not "
                              f"split evenly over a model axis of {n}")
         step = shape[dim] // n
-        return LeafBlocks(dim, shape[dim],
-                          tuple((r * step, (r + 1) * step) for r in range(n)),
-                          (True,) * n)
+        return LeafBlocks.of(dim, shape[dim], [((r * step, (r + 1) * step,
+                                                 True),) for r in range(n)])
     return None
 
 
 def local_leaf(t, name: str, cfg, n: int, rank: int):
-    """Model rank ``rank``'s slice of the full leaf ``t`` (a view; ``t``
-    itself where the leaf is whole on every rank), by
+    """Model rank ``rank``'s slice of the full leaf ``t`` (a view where it
+    is one block; ``t`` itself where the leaf is whole on every rank), by
     :func:`leaf_blocks`."""
     blk = leaf_blocks(name, tuple(t.shape), cfg, n)
-    if blk is None:
-        return t
-    lo, hi = blk.bounds[rank]
-    return t.narrow(blk.dim, lo, hi - lo)
+    return t if blk is None else blk.take(t, rank)
 
 
 def join_leaf(parts: list, blk: Optional[LeafBlocks]):
     """The full leaf from the model ranks' slices ``parts`` (rank order):
-    each block put at its bounds, a copy taken once (its first holder's);
+    each segment put at its place, a copy taken once (its first holder's);
     the first rank's tensor where the leaf is whole."""
     if blk is None:
         return parts[0]
     import torch
-    keep = [p for p, (lo, hi), w in zip(parts, blk.bounds, blk.writers)
-            if w and hi > lo]
-    return torch.cat(keep, dim=blk.dim)
+    keep = sorted(((lo, p.narrow(blk.dim, at, hi - lo))
+                   for r, p in enumerate(parts)
+                   for at, lo, hi, w, _ in blk.local(r) if w),
+                  key=lambda e: e[0])
+    return torch.cat([t for _, t in keep], dim=blk.dim)
+
+
+def cache_blocks(kind: str, name: str, cfg,
+                 n: int) -> Optional[LeafBlocks]:
+    """How the cache leaf ``name`` (the port's layout) of a ``kind`` layer
+    splits over a model axis of ``n`` ranks, as the LM's
+    ``init_caches`` places it: an attention layer's K/V heads (and int8
+    scales) by :func:`head_plan` (a copy written by its group's first
+    rank), a mamba layer's ``state`` by its heads and ``conv`` by its x
+    columns (:func:`ssm_plan`); ``len`` and MLA's latent whole (None)."""
+    if n == 1 or name == "len" or kind == "mla":
+        return None
+    if kind == "mamba":
+        plans = [ssm_plan(cfg, n, r) for r in range(n)]
+        dim, per = (1, 1) if name == "state" else \
+            (2, 2 * cfg.d_model // cfg.num_heads)
+        return LeafBlocks.of(dim, cfg.num_heads * per,
+                             [((h0 * per, h1 * per, True),)
+                              for h0, h1 in plans])
+    if name not in ("k", "v", "k_scale", "v_scale"):
+        raise NotImplementedError(
+            f"the {kind} cache over a mesh is not ported yet (ROADMAP.md, "
+            f"Queue 1 item 6d-2 b)")
+    plans = [head_plan(cfg, n, r) for r in range(n)]
+    return LeafBlocks.of(1, plan_heads(cfg)[1], [
+        ((p.kv[0], p.kv[1], bool(p.group) and p.group[0] == r),)
+        for r, p in enumerate(plans)])
 
 
 __all__ = ["COL", "ROW", "REPL", "axis_sizes", "param_spec", "param_specs",
            "zero1_specs", "train_specs", "cache_spec", "cache_specs",
            "batch_specs", "sanitize_specs", "mesh_index", "local_shard",
            "concat_shards", "HeadPlan", "plan_heads", "head_plan",
-           "LeafBlocks", "leaf_blocks", "local_leaf", "join_leaf"]
+           "ssm_plan", "LeafBlocks", "leaf_blocks", "local_leaf",
+           "join_leaf", "cache_blocks"]

@@ -32,7 +32,8 @@ micro-steps (which the server replays as CUDA graphs on the card:
 
 **Tensor and expert parallelism** (``LM(cfg, shard=ShardCtx(mesh))``, the
 reference's ``LM(cfg, ShardCtx(mesh=...))``; the kinds of
-:data:`TP_KINDS`: every attention kind).  The port is multi-controller:
+:data:`TP_KINDS`: every attention kind, and zamba2's ``mamba`` and
+``shared_attn``).  The port is multi-controller:
 one process a rank of the mesh, each holding its slice of every leaf by
 :func:`repro_torch.launch.sharding.leaf_blocks` (the query and KV heads of
 ``wq`` / ``wk`` / ``wv`` by :func:`~repro_torch.launch.sharding.head_plan`,
@@ -40,7 +41,11 @@ with a copy of a KV group on every rank of its run where the KV heads are
 fewer than the ranks, and ``wo``'s rows after the query heads; MLA's
 query heads of ``wq`` / ``w_uk`` / ``w_uv`` likewise, its ``w_dkv`` and
 ``w_kr`` whole; the hidden columns of ``wi_gate`` / ``wi_up`` by column,
-``wo`` by row, the experts of an MoE layer, the vocab rows of ``embed``;
+``wo`` by row, the experts of an MoE layer, the vocab rows of ``embed``,
+a mamba layer's SSM heads by :func:`~repro_torch.launch.sharding.ssm_plan`
+(its ``w_in`` as the rank's x, z and dt columns around the B | C block
+every rank copies), the shared attention set by the head plan and its MLP
+by column and row;
 norms, the router, the shared experts, the front end and the encoder's
 final norm replicated).  :attr:`LM.split_leaves` records each split
 leaf's blocks.  Every rank of the ``model`` axis is handed the same
@@ -49,7 +54,9 @@ rows and summed over the axis
 (:func:`repro_torch.core.embedding_engine.lookup`), each attention and MLP
 on its heads and columns with one fp32 all-reduce of the row-parallel
 output (:func:`.common.row_parallel`; a rank without query heads adds
-zeros), the MoE FFN expert parallel (:func:`.moe.moe_ffn`), an encoder's
+zeros), each mamba layer's scan on the rank's SSM heads with its
+out-projection row-parallel (:func:`.ssm.mamba_forward`), the MoE FFN
+expert parallel (:func:`.moe.moe_ffn`), an encoder's
 blocks and a decoder's cross-attention the same way, and a decode step's
 logits computed over its vocab slice and all-gathered, so every rank's
 argmax is the same.  Every collective goes through the axis's
@@ -70,8 +77,12 @@ every rank holds whole but uses only in part -- MLA's ``w_dkv`` and
 the FFN input -- enter the rank's share of the layer, their gradients
 summed over the axis in one fp32 all-reduce (:mod:`.moe`,
 :func:`.attention.mla_forward`), and the loss adds the MoE layers' aux
-meaned over the mesh.  The recurrent kinds over a mesh are ROADMAP.md
-Queue 1 item 6d-2.
+meaned over the mesh.  zamba2 trains over a mesh the same way: a mamba
+layer's input and its B | C columns -- every rank computes B and C whole,
+only its heads read them -- enter the rank together, their gradients
+summed in one fp32 all-reduce (:mod:`.ssm`), so the copies of B | C step
+alike on every rank.  xLSTM's ``mlstm`` and ``slstm`` over a mesh are
+ROADMAP.md Queue 1 item 6d-2 b.
 
 **The dry run's lowering options** (``ShardCtx.cost_mode`` and
 ``ShardCtx.remat``, the reference's): ``remat`` recomputes each block's
@@ -150,7 +161,8 @@ from .common import (ModelConfig, RowOutputs, gated_mlp, init_mlp, init_rms,
 #: the block kinds with an MoE FFN (the reference's ``moe_mod`` users)
 MOE_KINDS = ("moe", "mla")
 #: the block kinds that run split over a mesh's model axis
-TP_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec")
+TP_KINDS = ("dense", "dense_local", "moe", "mla", "enc_dense", "xdec",
+            "mamba", "shared_attn")
 
 
 @dataclasses.dataclass
@@ -428,6 +440,9 @@ class RecurrentBlock(nn.Module):
 
     NAME: str
     cost_mode: bool = False
+    #: the model axis (only a mamba layer splits over one), None on one
+    #: device
+    tp = None
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -457,13 +472,26 @@ class RecurrentBlock(nn.Module):
 
 class MambaBlock(RecurrentBlock):
     """``mamba``: the Mamba2 SSD block (``norm1``, ``mamba.*``; :mod:`.ssm`);
-    its cache is ``{state, conv}`` (:func:`.ssm.init_mamba_cache`)."""
+    its cache is ``{state, conv}`` (:func:`.ssm.init_mamba_cache`).  On a
+    rank of a model axis it runs the rank's SSM heads, its input and B | C
+    entering the rank in :func:`.ssm.mamba_forward`, and its cache holds
+    those heads."""
 
     NAME = "mamba"
     _init = staticmethod(ssm_mod.init_mamba)
-    _forward = staticmethod(ssm_mod.mamba_forward)
-    _decode = staticmethod(ssm_mod.mamba_decode)
-    init_cache = staticmethod(ssm_mod.init_mamba_cache)
+
+    def _forward(self, p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        return ssm_mod.mamba_forward(p, h, cfg, tp=self.tp)
+
+    def _decode(self, p, h: torch.Tensor, cfg: ModelConfig, cache: dict, *,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ssm_mod.mamba_decode(p, h, cfg, cache, active=active,
+                                    tp=self.tp)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                   device=None) -> dict:
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, device,
+                                        heads=self.mamba["A_log"].shape[0])
 
 
 class MlstmBlock(RecurrentBlock):
@@ -499,9 +527,13 @@ class SharedAttnBlock(nn.Module):
     are its two norms.  The attention's window is ``ctx["shared_window"]``
     (the reference's: a window only for a hybrid model that is not
     ``long_context_ok``).  Its cache is a KV cache
-    (:func:`.attention.init_kv_cache`)."""
+    (:func:`.attention.init_kv_cache`).  On a rank of a model axis the
+    shared set holds the rank's heads (the head plan) and MLP columns, and
+    the block runs them as :class:`DenseBlock` does: each normed input
+    enters the rank, the attention and the MLP output are row-parallel."""
 
     cost_mode: bool = False
+    tp = None
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device):
@@ -510,15 +542,17 @@ class SharedAttnBlock(nn.Module):
         self.norm1 = _frozen(init_rms(cfg.d_model, dtype, device))
         self.norm2 = _frozen(init_rms(cfg.d_model, dtype, device))
 
+    _enter = DenseBlock._enter
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[dict] = None) -> tuple:
         cfg, sp = self.cfg, ctx["shared"]
-        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        h = self._enter(rms_norm(x, self.norm1, cfg.norm_eps))
         x = x + attn_forward(sp["attn"], h, cfg, positions=positions,
                              causal=True, window=ctx["shared_window"],
-                             dense=self.cost_mode)
-        h = rms_norm(x, self.norm2, cfg.norm_eps)
-        return x + gated_mlp(h, sp["mlp"], cfg.act), None
+                             tp=self.tp, dense=self.cost_mode)
+        h = self._enter(rms_norm(x, self.norm2, cfg.norm_eps))
+        return x + gated_mlp(h, sp["mlp"], cfg.act, self.tp), None
 
     def decode(self, x: torch.Tensor, cache: dict,
                active: Optional[torch.Tensor] = None,
@@ -526,9 +560,10 @@ class SharedAttnBlock(nn.Module):
         cfg, sp = self.cfg, ctx["shared"]
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         x = x + attn_decode(sp["attn"], h, cfg, cache,
-                            window=ctx["shared_window"], active=active)
+                            window=ctx["shared_window"], active=active,
+                            tp=self.tp)
         h = rms_norm(x, self.norm2, cfg.norm_eps)
-        return x + gated_mlp(h, sp["mlp"], cfg.act)
+        return x + gated_mlp(h, sp["mlp"], cfg.act, self.tp)
 
 
 BLOCKS = {"dense": DenseBlock, "dense_local": LocalBlock, "moe": MoeBlock,
@@ -573,10 +608,13 @@ class LM(nn.Module):
     device, and only the rank's slice is kept, one layer at a time, so no
     rank ever holds the whole model and the ranks' slices join to the
     single device's tensors bit for bit (:func:`repro_torch.launch
-    .sharding.join_leaf`).  A kind outside :data:`TP_KINDS` raises
-    ``NotImplementedError``; any head counts split (the head plan), but a
-    hidden width, an expert count or a vocab that does not split evenly
-    over the axis raises ``ValueError``, before anything is allocated.
+    .sharding.join_leaf`; the shared attention set, built once, likewise
+    under its ``shared.*`` names).  A kind outside :data:`TP_KINDS`
+    (xLSTM's) raises ``NotImplementedError``; any head counts split (the
+    head plan; SSM heads by ``ssm_plan``, a rank possibly holding none),
+    but a hidden width (the shared MLP's included), an expert count or a
+    vocab that does not split evenly over the axis raises ``ValueError``,
+    before anything is allocated.
     :attr:`tp` is the rank's :class:`~repro_torch.core.shard_plan
     .ModelAxis` (None on one device), :attr:`split_leaves` the blocks of
     every leaf that differs between ranks (``{name: LeafBlocks}``)."""
@@ -618,10 +656,14 @@ class LM(nn.Module):
             self._place(blk, f"blocks.{li}")
             blocks.append(blk)
         self.blocks = nn.ModuleList(blocks)
-        if "shared_attn" in kinds:
+        if "shared_attn" in kinds:      # the rank's slices, by name
             self.shared = ParamTree({
-                "attn": init_attn(gen, cfg, dtype, dev),
-                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev)})
+                part: {k: self._local(v, f"shared.{part}.{k}")
+                       for k, v in tree.items()}
+                for part, tree in (
+                    ("attn", init_attn(gen, cfg, dtype, dev)),
+                    ("mlp", init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                     dev)))})
         if cfg.enc_layers:
             enc = []
             for li in range(cfg.enc_layers):
@@ -653,11 +695,11 @@ class LM(nn.Module):
         if out:
             raise NotImplementedError(
                 f"the block kinds {out} of {cfg.name} over a mesh are not "
-                f"ported yet (ROADMAP.md, Queue 1 item 6d-2)")
+                f"ported yet (ROADMAP.md, Queue 1 item 6d-2 b)")
         # heads of any count split (the head plan); these must split evenly
         split = {"padded_vocab": cfg.padded_vocab}
-        if cfg.enc_layers or any(k in ("dense", "dense_local", "xdec")
-                                 for k in kinds):
+        if cfg.enc_layers or any(k in ("dense", "dense_local", "xdec",
+                                        "shared_attn") for k in kinds):
             split["d_ff"] = cfg.d_ff
         if any(k in MOE_KINDS for k in kinds):
             split["num_experts"] = cfg.num_experts
@@ -684,8 +726,7 @@ class LM(nn.Module):
         if blk is None:
             return t
         self.split_leaves[name] = blk
-        lo, hi = blk.bounds[self.tp.rank]
-        return t.narrow(blk.dim, lo, hi - lo).clone(
+        return blk.take(t, self.tp.rank).clone(
             memory_format=torch.contiguous_format)
 
     @property
@@ -891,8 +932,10 @@ class LM(nn.Module):
         (:func:`.xlstm.init_mlstm_cache`, :func:`.xlstm.init_slstm_cache`)).
         A rank of a sharded model keeps its KV heads (the head plan's:
         a copy of its group's where the KV heads are fewer than the ranks,
-        none where it holds no query head) and an MLA layer's whole
-        latent."""
+        none where it holds no query head; the shared set's for a
+        ``shared_attn`` layer), an MLA layer's whole latent and a mamba
+        layer's SSM heads (:func:`repro_torch.launch.sharding
+        .cache_blocks`)."""
         dtype = dtype or self.cfg.torch_dtype
         cfg, dev = self.cfg, self.device
         return [blk.init_cache(cfg, batch, dtype, dev)
@@ -900,8 +943,10 @@ class LM(nn.Module):
                 init_mla_cache(cfg, batch, max_len, dtype, dev)
                 if isinstance(blk, MlaBlock) else
                 init_kv_cache(cfg, batch, max_len, dtype, dev,
-                              kv_heads=local_heads(blk.attn, cfg)[1]
-                              if isinstance(blk, DenseBlock) else None)
+                              kv_heads=local_heads(
+                                  self.shared["attn"]
+                                  if isinstance(blk, SharedAttnBlock)
+                                  else blk.attn, cfg)[1])
                 for blk in self.blocks]
 
     @torch.inference_mode()

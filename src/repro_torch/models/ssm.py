@@ -19,6 +19,21 @@ reordered).  :func:`mamba_decode` writes it in place and, under an
 bit; it reads nothing back to the host and allocates nothing whose size
 depends on values, so a served micro-step can be captured in a CUDA graph.
 
+**Over a model axis** (``tp``, a :class:`~repro_torch.core.shard_plan
+.ModelAxis`) a rank holds whole SSM heads
+(:func:`repro_torch.launch.sharding.ssm_plan`): ``w_in``'s columns are its
+x, its z, the whole B | C block and its dt, in the reference's order at
+the rank's widths; ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and ``w_out``'s
+rows are its heads'.  The sizes come from the leaves (:func:`ssm_heads`).
+Each rank runs the scan on its heads, and ``w_out`` is row-parallel (fp32
+partials, one all-reduce, one rounding: :func:`.common.row_parallel`) --
+the forward's one collective.  Under autograd the layer's input and the
+B | C columns enter the rank together (:meth:`~repro_torch.core.shard_plan
+.ModelAxis.enter_all`): every rank computes B and C whole but only its
+heads read them, so both gradients are the rank's partials, summed over
+the axis in one fp32 all-reduce and rounded once.  A decode step writes
+the rank's heads of ``state`` and its columns of ``conv``.
+
 The reference's ``unroll`` (``mamba_forward`` and ``_ssd_chunked``, its
 roofline's cost mode) is not taken: the port's chunk loop is eager, and
 the dry run counts every iteration of it (:mod:`.linear_scan`).
@@ -30,7 +45,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init, pick_chunk, update_cache
+from .common import (ModelConfig, dense_init, pick_chunk, row_parallel,
+                     update_cache)
 from .linear_scan import gated_linear_scan
 
 
@@ -78,35 +94,64 @@ def _split_proj(proj: torch.Tensor, d_inner: int, n: int) -> tuple:
     return xi, z, rest[..., :n], rest[..., n:2 * n], rest[..., 2 * n:]
 
 
-def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ssm_heads(p, cfg: ModelConfig) -> tuple:
+    """(heads, head width, inner width) of the mamba leaves ``p``: the
+    config's, or on a rank of a model axis its own heads (``A_log``'s
+    length)."""
+    per = 2 * cfg.d_model // cfg.num_heads
+    h = p["A_log"].shape[0]
+    return h, per, h * per
+
+
+def _in_proj(p, x: torch.Tensor, d_inner: int, n: int, tp) -> torch.Tensor:
+    """``x @ w_in``; on a rank under autograd, ``x`` and the B | C columns
+    enter the rank together first (module docstring)."""
+    w = p["w_in"]
+    if tp is not None:
+        bc = w[:, 2 * d_inner:2 * d_inner + 2 * n]
+        x, bc_in = tp.enter_all((x, bc))
+        if bc_in is not bc:
+            w = torch.cat([w[:, :2 * d_inner], bc_in,
+                           w[:, 2 * d_inner + 2 * n:]], dim=1)
+    return x @ w
+
+
+def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): the in-projection, the causal depthwise conv of
     width 4 (summed tap by tap in x's dtype, as the reference's Python
     ``sum``), silu, ``dt = softplus(dt + dt_bias)`` and ``A = -exp(A_log)``
     in fp32, the SSD scan over chunks of ``pick_chunk(S, min(ssm_chunk,
     S))`` with B and C in fp32, the D skip, the silu(z) gate and the
-    out-projection."""
+    out-projection.  On a rank of ``tp`` (module docstring) the rank's
+    heads, the out-projection summed over the axis; a rank without heads
+    runs no scan and adds zeros."""
     b, s, d = x.shape
-    h, n = cfg.num_heads, cfg.ssm_state
-    d_inner = 2 * d
-    xi, z, Bm, Cm, dt = _split_proj(x @ p["w_in"], d_inner, n)
+    n = cfg.ssm_state
+    h, per, d_inner = ssm_heads(p, cfg)
+    xi, z, Bm, Cm, dt = _split_proj(_in_proj(p, x, d_inner, n, tp),
+                                    d_inner, n)
     xpad = F.pad(xi, (0, 0, 3, 0))
     conv_w = p["conv_w"]
     xconv = xpad[:, 0:s] * conv_w[0]
     for i in range(1, 4):
         xconv = xconv + xpad[:, i:i + s] * conv_w[i]
     xconv = _silu(xconv)
+    if h == 0:      # a rank without heads (the plan): nothing to scan
+        return row_parallel(xconv * z, p["w_out"], tp)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xh = xconv.reshape(b, s, h, d_inner // h)
+    xh = xconv.reshape(b, s, h, per)
     chunk = pick_chunk(s, min(cfg.ssm_chunk, s))
     y = _ssd_chunked(xh, dt, A, Bm.float(), Cm.float(), chunk)
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, d_inner) * _silu(z)
-    return y @ p["w_out"]
+    return row_parallel(y, p["w_out"], tp)
 
 
 def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 active: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
     """One step of the recurrence: x (B,1,D) -> (B,1,D), ``cache`` updated
     in place (see the module docstring).  The conv is the window of the
     cache's three inputs and this one, its four products summed in fp32
@@ -114,10 +159,12 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     ``exp(dt A)`` rounded to x's dtype and gains ``dt x ⊗ B``, all in x's
     dtype (B and C are not widened here, as in the reference).  With an
     ``active`` mask (B,) bool, the inactive slots' state and conv window
-    keep their bits (the reference's ``where(active, new, old)``)."""
+    keep their bits (the reference's ``where(active, new, old)``).  On a
+    rank of ``tp`` the rank's heads of the state and columns of the
+    window, the out-projection summed over the axis."""
     b, _, d = x.shape
-    h, n = cfg.num_heads, cfg.ssm_state
-    d_inner = 2 * d
+    n = cfg.ssm_state
+    h, per, d_inner = ssm_heads(p, cfg)
     xi, z, Bm, Cm, dt = _split_proj(x[:, 0] @ p["w_in"], d_inner, n)
     conv_in = torch.cat([cache["conv"], xi[:, None]], dim=1)   # (b,4,di)
     xconv = (conv_in.float() * p["conv_w"].float()).sum(1).to(x.dtype)
@@ -125,7 +172,7 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (b,h)
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt * A[None, :])                          # (b,h)
-    xh = xconv.reshape(b, h, d_inner // h)
+    xh = xconv.reshape(b, h, per)
     dtx = dt.to(x.dtype)
     S = cache["state"] * decay[:, :, None, None].to(x.dtype) + \
         dtx[:, :, None, None] * xh[:, :, :, None] * Bm[:, None, None, :]
@@ -133,15 +180,16 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
         xh * p["D"][None, :, None].to(x.dtype)
     y = y.reshape(b, d_inner) * _silu(z)
     update_cache(cache, {"state": S, "conv": conv_in[:, 1:]}, active)
-    return (y @ p["w_out"])[:, None]
+    return row_parallel(y, p["w_out"], tp)[:, None]
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                     device=None) -> dict:
-    """One mamba layer's empty cache (the reference's layout)."""
-    d_inner = 2 * cfg.d_model
-    return {"state": torch.zeros((batch, cfg.num_heads,
-                                  d_inner // cfg.num_heads, cfg.ssm_state),
+                     device=None, heads: Optional[int] = None) -> dict:
+    """One mamba layer's empty cache (the reference's layout), of
+    ``heads`` heads (a rank's; the config's by default)."""
+    h = cfg.num_heads if heads is None else heads
+    per = 2 * cfg.d_model // cfg.num_heads
+    return {"state": torch.zeros((batch, h, per, cfg.ssm_state),
                                  dtype=dtype, device=device),
-            "conv": torch.zeros((batch, 3, d_inner), dtype=dtype,
+            "conv": torch.zeros((batch, 3, h * per), dtype=dtype,
                                 device=device)}

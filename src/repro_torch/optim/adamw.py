@@ -13,7 +13,8 @@ moments.
 Over a mesh (model-parallel training) each rank steps its own slices, as
 :class:`Shards` says: the clipping norm is the *global* gradient's (the
 squares of the leaves split over the model axis summed over it, each
-replicated leaf and each KV copy of the head plan counted once), and a
+replicated leaf, each KV copy of the head plan and a mamba layer's copied
+B | C columns counted once), and a
 ZeRO-1 leaf's moments are only this
 data rank's rows of it (:func:`repro_torch.launch.sharding.zero1_specs`):
 the rank updates those rows of the parameter in fp32 as above, then the
@@ -40,14 +41,18 @@ class Shards:
     (a :class:`~repro_torch.core.shard_plan.ModelAxis`, None on one
     device) and ``split`` the leaves split over it, of which ``repeat``
     are those whose slice an earlier rank holds too (a KV copy of the head
-    plan: its first holder counts it in the norm); ``data`` the data axis
-    and ``zero1`` the leaves whose moments are this data rank's block of
-    rows (dim 0 cut evenly over the axis)."""
+    plan: its first holder counts it in the norm) and ``counted`` those
+    the rank counts only in part -- ``{name: (dim, ((lo, hi), ...))}``,
+    the spans of its slice it holds first (a mamba layer's ``w_in`` off
+    rank 0: its own columns, not its copy of B | C); ``data`` the data
+    axis and ``zero1`` the leaves whose moments are this data rank's
+    block of rows (dim 0 cut evenly over the axis)."""
     model: object = None
     split: frozenset = frozenset()
     data: object = None
     zero1: frozenset = frozenset()
     repeat: frozenset = frozenset()
+    counted: dict = dataclasses.field(default_factory=dict)
 
     def rows(self, name: str, n: int) -> tuple:
         """``[lo, hi)`` of dim 0 (``n`` rows) whose moments this rank keeps:
@@ -126,7 +131,8 @@ def clip_by_global_norm(grads: Mapping, max_norm: float,
     norm over all leaves in fp32; each scaled in fp32 and cast back to its
     dtype.  Under ``shards`` the norm is the global gradient's: the squares
     of the leaves split over the model axis summed there (one all-reduce;
-    a slice in ``shards.repeat`` left to its first holder), plus each
+    a slice in ``shards.repeat``, or a copied span of one in
+    ``shards.counted``, left to its first holder), plus each
     replicated leaf's once."""
     gn = torch.sqrt(global_sq_norm(grads, shards))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
@@ -139,10 +145,16 @@ def global_sq_norm(grads: Mapping, shards: Shards = None) -> torch.Tensor:
     if shards is None or shards.model is None:
         return sum(torch.sum(torch.square(g.float()))
                    for g in grads.values())
+    def part(k: str, g: torch.Tensor) -> torch.Tensor:
+        if k not in shards.counted:
+            return torch.sum(torch.square(g.float()))
+        dim, spans = shards.counted[k]
+        return sum(torch.sum(torch.square(g.narrow(dim, lo, hi - lo)
+                                          .float())) for lo, hi in spans)
+
     def sq(split: bool) -> torch.Tensor:
         zero = torch.zeros((), device=next(iter(grads.values())).device)
-        return sum((torch.sum(torch.square(g.float()))
-                    for k, g in grads.items()
+        return sum((part(k, g) for k, g in grads.items()
                     if (k in shards.split) == split and
                     k not in shards.repeat), zero)
     return shards.model.coll.all_reduce(sq(True).reshape(1), "add")[0] + \

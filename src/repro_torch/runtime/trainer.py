@@ -35,10 +35,12 @@ its data block of the global batch (the batch specs), runs the loss over
 the mesh and its backward (the model axis's collectives inside), sums
 each KV copy's gradient over the ranks that hold it (the head plan's
 copies: one all-reduce a leaf of its zero-filled KV columns, so the
-copies step alike and stay bit-equal), means every gradient over the data
-axes (fp32, rounded once), and steps AdamW on its slices
-(:class:`~repro_torch.optim.adamw.Shards`: the global clipping norm, each
-copy counted once, ZeRO-1 where the opt specs shard a moment of a leaf
+copies step alike and stay bit-equal; a mamba layer's copied B | C
+columns are summed in the layer, where they enter it), means every
+gradient over the data axes (fp32, rounded once), and steps AdamW on its
+slices (:class:`~repro_torch.optim.adamw.Shards`: the global clipping
+norm, each copy counted once -- a partly copied leaf by the segments the
+rank holds first --, ZeRO-1 where the opt specs shard a moment of a leaf
 the LM does not split).  The LM's ``split_leaves`` place every leaf; the
 param specs are the reference's names of the layout.  ``in_shardings``
 is the port's counterpart of the reference's jit placements: the spec
@@ -176,8 +178,17 @@ class TrainStep:
         self.shards = Shards(
             model=tp, split=frozenset(blocks), data=self._data, zero1=zero1,
             repeat=frozenset(k for k, b in blocks.items()
-                             if not b.writers[me]))
-        self._copies = {k: b for k, b in blocks.items() if b.copies}
+                             if not b.writes(me)),
+            counted={k: (b.dim, tuple((at, at + hi - lo)
+                                      for at, lo, hi, w, _ in b.local(me)
+                                      if w))
+                     for k, b in blocks.items()
+                     if b.writes(me) and not all(
+                         w for _, _, w in b.segments[me])})
+        # the copies whose gradients the model leaves as partials (a KV
+        # copy; a mamba layer's B | C is summed where it enters the layer)
+        self._copies = {k: b for k, b in blocks.items()
+                        if b.copies and not b.entered}
         from ..launch.sharding import axis_sizes, mesh_index
         self._sizes, self._index = axis_sizes(mesh), mesh_index(mesh)
 
@@ -223,9 +234,11 @@ class TrainStep:
         copies: this rank's partial placed at its columns of the zero-filled
         full width in fp32, one all-reduce over the model axis, the rank's
         columns taken back and rounded once (every rank of a group gets
-        the same bits)."""
+        the same bits).  A KV leaf is one segment on a rank (none on a
+        rank without query heads)."""
         tp = self.lm.tp
-        lo, hi = blk.bounds[tp.rank]
+        segs = blk.segments[tp.rank]
+        lo, hi = segs[0][:2] if segs else (0, 0)
         shape = list(g.shape)
         shape[blk.dim] = blk.size
         full = g.new_zeros(shape, dtype=torch.float32)

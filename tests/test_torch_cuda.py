@@ -2500,6 +2500,83 @@ def test_reduced_moe_loss_backward_on_two_ranks_matches_the_cpu(cuda, arch,
     assert rel[worst] <= EP_GRAD_REL_L2, (worst, rel[worst])
 
 
+#: reduced zamba2 at a width the flash backward takes: 8 heads of 64,
+#: ssm_state 16, ``mamba, mamba, shared_attn`` twice, fp32
+ZAMBA_TRAIN_CONFIG = dict(d_model=512, num_heads=8, num_kv_heads=8,
+                          ssm_state=16, d_ff=1024, num_layers=6)
+
+
+def _zamba_train_ranks(rank: int, world: int, device: str) -> dict:
+    """Two gloo ranks (sharing cuda:0, or on the CPU), each holding its
+    slices of the CPU-seeded single-device weights of
+    ZAMBA_TRAIN_CONFIG: ``TrainStep.loss_and_grads`` over a (1, 2) mesh --
+    each mamba layer's scan on the rank's 4 SSM heads, its input and B | C
+    entering the rank, the shared attention on its 4 heads -- with the
+    launches it made."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import local_leaf
+    from repro_torch.models.lm import LM, ShardCtx
+    from repro_torch.runtime.trainer import TrainStep
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("zamba2-7b"), **ZAMBA_TRAIN_CONFIG)
+    mesh = make_host_mesh(world, device=device)
+    lm = LM(cfg, device=device, seed=4, shard=ShardCtx(mesh))
+    full = LM(cfg, device="cpu", seed=4).state_dict()
+    lm.load_state_dict({k: local_leaf(v, k, cfg, world, rank).to(device)
+                        for k, v in full.items()})
+    st = TrainStep(lm, 2, 48)
+    rng = np.random.default_rng(37)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    kops.reset_launch_counts()
+    loss, grads = st.loss_and_grads(st.init_state()["params"],
+                                    st.local_batch(batch))
+    return {"loss": float(loss),
+            "grads": {k: g.detach().cpu().numpy() for k, g in grads.items()},
+            "fwd": dict(kops.launch_counts()),
+            "bwd": dict(kops.backward_launch_counts()),
+            "staged": lm.collective_stats["staged_bytes"]}
+
+
+def test_reduced_zamba2_loss_backward_on_two_ranks_matches_the_cpu(cuda):
+    """zamba2 trained over two gloo ranks on the card at a kernel width
+    (the flash forward and backward on the shared attention's rank heads,
+    the masked lookup's gather and its backward, the staged sums of each
+    mamba layer's input and B | C gradients) against the same two ranks on
+    the CPU: the loss at 1e-4 relative, every rank's gradient of every
+    leaf within EP_GRAD_REL_L2 relative L2 (printed: the largest), the
+    B | C columns' gradients the same bits on both card ranks; the card's
+    ranks made the kernels' launches and staged their collectives."""
+    from repro_torch.launch.mesh import run_ranks
+    got = run_ranks(_zamba_train_ranks, 2, ("cuda",), timeout_s=600)
+    want = run_ranks(_zamba_train_ranks, 2, ("cpu",), timeout_s=600)
+    rel = {}
+    for r, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+        assert g["staged"] > 0 and w["staged"] == 0
+        assert g["fwd"]["flash_attention"] > 0 and \
+            g["fwd"]["block_gather"] > 0
+        assert g["bwd"]["flash_attention_bwd"] > 0
+        assert g["bwd"]["block_gather_bwd"] > 0 and \
+            g["bwd"]["gather_transpose"] > 0
+        for k, v in w["grads"].items():
+            rel[f"rank {r} {k}"] = _rel_l2(g["grads"][k], v)
+    # a rank's w_in: its x and z (d_inner / 2 = d_model columns each),
+    # then B | C
+    ns, di = ZAMBA_TRAIN_CONFIG["ssm_state"], ZAMBA_TRAIN_CONFIG["d_model"]
+    bc = slice(2 * di, 2 * di + 2 * ns)
+    for k in [k for k in got[0]["grads"] if k.endswith("mamba.w_in")]:
+        np.testing.assert_array_equal(got[0]["grads"][k][:, bc],
+                                      got[1]["grads"][k][:, bc])
+    worst = max(rel, key=rel.get)
+    print(f"zamba2: the largest gradient relative L2 {rel[worst]:.3g} "
+          f"({worst})")
+    assert rel[worst] <= EP_GRAD_REL_L2, (worst, rel[worst])
+
+
 # ---------------------------------------------------------------------------
 # The dry run's lowering options on the card
 # ---------------------------------------------------------------------------

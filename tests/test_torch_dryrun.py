@@ -325,8 +325,8 @@ def out_dir(tmp_path, monkeypatch):
 def test_run_cell_records_and_the_report(out_dir, monkeypatch):
     """Reduced configs over a {data 2, model 2} mesh standing in for the
     production one: chatglm3's training cell is ``ok`` with FLOPs, memory
-    and roofline terms; zamba2's names ROADMAP item 6d.  The report
-    renders both."""
+    and roofline terms; xlstm's names ROADMAP item 6d-2 b (its kinds are
+    the last that do not split over a mesh).  The report renders both."""
     monkeypatch.setattr(dryrun, "make_production_mesh",
                         lambda multi_pod=False: DryMesh({"data": 2,
                                                          "model": 2}))
@@ -340,18 +340,18 @@ def test_run_cell_records_and_the_report(out_dir, monkeypatch):
     assert set(ok["roofline"]) >= {"compute_s", "memory_s", "collective_s",
                                    "bottleneck", "step_lower_bound_s"}
     assert ok["memory"]["argument_size_in_bytes"] > 0
-    zamba = dataclasses.asdict(get_reduced("zamba2-7b"))
-    err = dryrun.run_cell("zamba2-7b", "prefill_32k", "single",
-                          overrides=zamba)
-    assert err["status"] == "error" and "item 6d" in err["error"]
-    assert json.loads((out_dir / "zamba2-7b__prefill_32k__single.json")
+    xlstm = dataclasses.asdict(get_reduced("xlstm-1.3b"))
+    err = dryrun.run_cell("xlstm-1.3b", "prefill_32k", "single",
+                          overrides=xlstm)
+    assert err["status"] == "error" and "item 6d-2 b" in err["error"]
+    assert json.loads((out_dir / "xlstm-1.3b__prefill_32k__single.json")
                       .read_text())["status"] == "error"
     rows = report.build_rows("single")
     assert [r["status"] for r in rows] == ["ok", "error"]
     assert rows[0]["bottleneck"] in report.ADVICE and rows[0]["cost_counted"]
     md = report.markdown(rows)
     assert "| chatglm3-6b | train_4k |" in md
-    assert "| zamba2-7b | prefill_32k | — |" in md
+    assert "| xlstm-1.3b | prefill_32k | — |" in md
     # a cell without a cost pass is estimated and marked
     dryrun.run_cell("chatglm3-6b", "train_4k", "multipod", overrides=small)
     (est,) = report.build_rows("multipod")
@@ -387,11 +387,11 @@ def test_run_cell_records_an_moe_training_cell_ok(out_dir, monkeypatch,
 
 #: the decode_32k cell of every full-width config on the (16, 16) mesh:
 #: ok for the seven attention families (the head plan splits any head
-#: count over a model axis of 16); the recurrent kinds still name item
-#: 6d (PERF.md states the sweep's split)
+#: count over a model axis of 16) and zamba2 (mamba by SSM head); xLSTM's
+#: kinds still name item 6d-2 b (PERF.md states the sweep's split)
 DECODE_OK = {"stablelm-3b", "chatglm3-6b", "gemma3-4b", "h2o-danube-1.8b",
              "llava-next-34b", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
-             "whisper-large-v3"}
+             "whisper-large-v3", "zamba2-7b"}
 
 
 @pytest.mark.parametrize("arch", list_archs())

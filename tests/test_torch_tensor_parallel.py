@@ -48,11 +48,12 @@ WAVE_LENS = (5, 3)
 STRATEGIES = ("masked_psum", "masked_psum_scatter", "one_hot")
 EP_PATHS = ("split", "rep")
 #: the kinds outside the port's tensor parallelism (ROADMAP.md Queue 1
-#: item 6d-2)
-OUT_OF_SLICE = ("zamba2-7b", "xlstm-1.3b")
+#: item 6d-2 b)
+OUT_OF_SLICE = ("xlstm-1.3b",)
 #: what earlier slices refused and builds now: the MLA and encoder-decoder
-#: kinds, and 3 KV heads over 2 ranks (the head plan)
-BUILT = ("deepseek-v2-lite-16b", "whisper-large-v3", "heads")
+#: kinds, zamba2's mamba and shared attention, and 3 KV heads over 2
+#: ranks (the head plan)
+BUILT = ("deepseek-v2-lite-16b", "whisper-large-v3", "zamba2-7b", "heads")
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +339,7 @@ def _ops(lm, params, mesh) -> dict:
     for arch in OUT_OF_SLICE:
         raised[arch] = why(lambda a=arch: LM(get_reduced(a), device="cpu",
                                              shard=shard))
-    for arch in BUILT[:2]:
+    for arch in BUILT[:3]:
         raised[arch] = _built(get_reduced(arch), shard)
     raised["pipeline"] = why(lambda: __import__(
         "repro_torch.runtime.server", fromlist=["DecodeServer"]
@@ -374,7 +375,7 @@ def _built(cfg, shard) -> str:
             h = lm.forward(torch.from_numpy(tokens(cfg)).long(), **kw)
     except (NotImplementedError, ValueError) as e:
         return f"{type(e).__name__}: {e}"
-    attn = lm.blocks[0].attn
+    attn = lm.shared["attn"] if hasattr(lm, "shared") else lm.blocks[0].attn
     mla = "w_uk" in attn
     q = (attn["w_uk"] if mla else attn["wq"]).shape[1] // cfg.hd
     kv = q if mla else attn["wk"].shape[1] // cfg.hd
@@ -529,8 +530,10 @@ def test_sharded_embedding_executor_reads_the_ranks_own_rows(port):
 
 @pytest.mark.parametrize("case,match", [
     *((a, "NotImplementedError: .*item 6d") for a in OUT_OF_SLICE),
-    # these three raised before the head plan and the MLA and
-    # encoder-decoder kinds were split; they keep their case ids
+    # these four raised before the head plan, the MLA and encoder-decoder
+    # kinds and zamba2's kinds were split; they keep their case ids
+    pytest.param("zamba2-7b", "built: 2 query heads over 2 KV",
+                 id="zamba2-7b-NotImplementedError: .*item 6d"),
     pytest.param("deepseek-v2-lite-16b", "built: 2 query heads over 2 KV",
                  id="deepseek-v2-lite-16b-NotImplementedError: .*item 6d"),
     pytest.param("whisper-large-v3", "built: 2 query heads over 2 KV",
